@@ -1,0 +1,192 @@
+"""The editing engine: frozen towers + walk — PyTorch port.
+
+The counterpart of latent2im_tpu/engine/editor.py for the serving path:
+
+    get_w           z -> W+ stack [B, L, D]
+    synthesize      latent -> image NHWC (stored or fresh noise)
+    regress         image -> attribute scores [B, A]
+    unified_alphas  (org, sampled) -> (target, delta)
+    edit            walk application
+    apply_alpha     regress current, delta to target, walk, synthesize
+    sweep           panels folded into the batch, synthesized in chunks
+
+PyTorch runs eagerly, so there is nothing to compile and no static program
+width: a sweep's last chunk is simply narrower. Every public method runs
+under ``torch.inference_mode``. The towers live on the editor's device;
+inputs may be numpy or tensors, outputs are tensors on that device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..walks import walks as W
+
+# Default synthesis chunk width for panel sweeps (the JAX package's value).
+SWEEP_CHUNK = 32
+
+
+def _balanced_chunk(n: int, cap: int) -> int:
+    """Chunk width <= cap that balances n across ceil(n/cap) chunks."""
+    n_chunks = -(-n // cap)
+    return -(-n // n_chunks)
+
+
+def _u8(img):
+    """[-1, 1] float -> uint8: clip (x + 1) * 127.5 to [0, 255], then
+    truncate (utils.image.to_uint8 semantics; the clip comes first, so the
+    truncating cast never sees an out-of-range value)."""
+    return torch.clamp((img.float() + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
+
+
+@dataclasses.dataclass(frozen=True)
+class EditorConfig:
+    model: str = "stylegan_v2_real"
+    latent: str = "w"
+    walk_kind: str = "linear_w"
+    attr_list: tuple[str, ...] = ("Smiling",)
+    attr_idx: tuple[int, ...] = (31,)
+    size: int = 256
+    dim_z: int = 512
+    layers: tuple[int, ...] | None = None
+    alpha_mode: str = "target"  # 'target' (stylegan) | 'delta' (pggan)
+
+    @property
+    def n_latent(self) -> int:
+        return int(np.log2(self.size)) * 2 - 2
+
+
+class Editor:
+    """Capability surface over a frozen generator and regressor."""
+
+    def __init__(self, cfg: EditorConfig, g, reg, device=None):
+        """g: models.stylegan2.Generator, reg: models.resnet.ResNet50; both
+        move to ``device`` (cuda unless the caller asks for the CPU)."""
+        if cfg.latent != "w":
+            raise NotImplementedError(
+                "z-space editing waits for the z walks (ROADMAP.md queue A "
+                "item 18)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.g = g.to(self.device).eval()
+        self.reg = reg.to(self.device, memory_format=torch.channels_last).eval()
+        self._attr_idx = torch.as_tensor(cfg.attr_idx, device=self.device)
+
+    def _tensor(self, a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    # -- building blocks --------------------------------------------------
+
+    @torch.inference_mode()
+    def get_w(self, z):
+        """z [B, D] -> W+ [B, n_latent, D] (style MLP output tiled)."""
+        w = self.g.style_forward(self._tensor(z))
+        return w[:, None, :].expand(-1, self.cfg.n_latent, -1)
+
+    @torch.inference_mode()
+    def synthesize(self, latent, noise_generator=None):
+        """W+ [B, L, D] -> image [B, H, W, 3]. noise_generator: a
+        torch.Generator on the editor's device for fresh per-layer noise;
+        None uses the stored noise buffers."""
+        latent = self._tensor(latent)
+        noise = None
+        if noise_generator is not None:
+            noise = self.g.make_noise(latent.shape[0], noise_generator)
+        return self.g.synthesize(latent, noise=noise)
+
+    @torch.inference_mode()
+    def regress(self, img):
+        """image -> scores at the configured attribute indices [B, A]."""
+        return self.reg(img)[:, self._attr_idx]
+
+    def unified_alphas(self, alpha_org, sampled):
+        """-> (alpha_target, alpha_delta); 'delta' mode clamps the target."""
+        if self.cfg.alpha_mode == "delta":
+            target = torch.clamp(alpha_org + sampled, 0.0, 1.0)
+            return target, target - alpha_org
+        return sampled, sampled - alpha_org
+
+    def edit(self, walk_params, latent, alpha):
+        return W.apply_walk(self.cfg.walk_kind, walk_params, latent, alpha,
+                            layers=self.cfg.layers)
+
+    def _bank_position(self, index) -> int:
+        """Regressor-table attribute id -> column in the trained bank."""
+        if index in self.cfg.attr_idx:
+            return self.cfg.attr_idx.index(index)
+        raise ValueError(
+            f"attribute index {index} not in the trained bank "
+            f"{self.cfg.attr_idx}"
+        )
+
+    # -- inference paths --------------------------------------------------
+
+    @torch.inference_mode()
+    def apply_alpha(self, walk_params, z, alpha_to_graph, given_w=None,
+                    index=None, u8: bool = False):
+        """Inference-time edit: regress the current attribute scores, walk by
+        the delta to the requested target, re-synthesize. With ``index`` (a
+        regressor-table id) only that bank column moves toward its target.
+        u8=True returns uint8 images. -> (edited_img, alpha_org, orig_img)."""
+        idx_pos = None if index is None else self._bank_position(index)
+        ag = self._tensor(alpha_to_graph)
+        if ag.dim() == 1:
+            ag = ag[:, None]
+        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
+        orig = self.g.synthesize(latent)
+        alpha_org = self.regress(orig)
+        delta = ag - alpha_org
+        if idx_pos is not None:
+            delta[:, idx_pos] = (
+                (ag[:, 0] if ag.shape[1] == 1 else ag[:, idx_pos])
+                - alpha_org[:, idx_pos]
+            )
+        edited = self.g.synthesize(self.edit(walk_params, latent, delta))
+        if u8:
+            return _u8(edited), alpha_org, _u8(orig)
+        return edited, alpha_org, orig
+
+    @torch.inference_mode()
+    def _synthesize_stream(self, latents, chunk: int, u8: bool = False):
+        """Synthesize [N, L, D] latents in chunks of width ``chunk`` into one
+        preallocated result, so no more than one chunk's activations are
+        alive at a time."""
+        n = latents.shape[0]
+        buf = None
+        for start in range(0, n, chunk):
+            img = self.g.synthesize(latents[start:start + chunk])
+            if u8:
+                img = _u8(img)
+            if buf is None:
+                buf = torch.empty((n,) + img.shape[1:], dtype=img.dtype,
+                                  device=img.device)
+            buf[start:start + img.shape[0]] = img
+        return buf
+
+    @torch.inference_mode()
+    def sweep(self, walk_params, z, panel_alphas, given_w=None,
+              chunk: int | None = None, u8: bool = False):
+        """All-panels edit: panel_alphas [P, B] or [P, B, A] targets ->
+        (images [P, B, H, W, 3], alpha_org, orig_img). The P panels fold into
+        the batch dimension and synthesize in chunks of ``chunk`` (default
+        balanced under SWEEP_CHUNK)."""
+        pa = self._tensor(panel_alphas)
+        if pa.dim() == 2:
+            pa = pa[:, :, None]
+        p, b = int(pa.shape[0]), int(pa.shape[1])
+        c = chunk or _balanced_chunk(p * b, SWEEP_CHUNK)
+        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
+        orig = self.g.synthesize(latent)
+        alpha_org = self.regress(orig)
+        walk_alpha = pa - alpha_org[None]  # delta to target
+        flat_alpha = walk_alpha.reshape((p * b,) + walk_alpha.shape[2:])
+        flat_latent = latent[None].expand((p,) + latent.shape).reshape(
+            (p * b,) + latent.shape[1:])
+        edited = self.edit(walk_params, flat_latent, flat_alpha)
+        imgs = self._synthesize_stream(edited, c, u8=u8)
+        return imgs.reshape((p, b) + imgs.shape[1:]), alpha_org, orig

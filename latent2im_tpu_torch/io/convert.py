@@ -1,0 +1,102 @@
+"""Carry the JAX package's parameter pytrees into the port's state_dicts.
+
+Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator,
+models/resnet.py:init_resnet50, walks/walks.py:init_walk, or the same trees
+converted from torch checkpoints), as numpy arrays. Output: state_dicts that
+the port's modules load with ``strict=True``. The layout rules are the inverse
+of latent2im_tpu/io/torch_convert.py (read, not imported):
+
+  conv    [kh,kw,in,out]  -> [out,in,kh,kw]
+  linear  [in,out]        -> [out,in]
+  modconv [k,k,I,O]       -> [1,O,I,k,k]
+  NHWC buffers            -> NCHW
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _lin(w) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(w), (1, 0)))
+
+
+def _conv(w) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def _modconv(w) -> torch.Tensor:
+    return _conv(w)[None]
+
+
+def generator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """StyleGAN2 generator pytree -> rosinality ``g_ema`` state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, p in enumerate(tree["style"]):
+        sd[f"style.{i + 1}.weight"] = _lin(p["w"])
+        sd[f"style.{i + 1}.bias"] = _t(p["b"])
+    sd["input.input"] = _t(np.transpose(np.asarray(tree["const"]), (0, 3, 1, 2)))
+
+    def modconv(prefix, p):
+        sd[f"{prefix}.conv.weight"] = _modconv(p["w"])
+        sd[f"{prefix}.conv.modulation.weight"] = _lin(p["mod"]["w"])
+        sd[f"{prefix}.conv.modulation.bias"] = _t(p["mod"]["b"])
+
+    def styled(prefix, p):
+        modconv(prefix, p["conv"])
+        sd[f"{prefix}.noise.weight"] = _t(p["noise_w"]).reshape(1)
+        sd[f"{prefix}.activate.bias"] = _t(p["act_b"])
+
+    def to_rgb(prefix, p):
+        modconv(prefix, p["conv"])
+        sd[f"{prefix}.bias"] = _t(p["b"]).reshape(1, 3, 1, 1)
+
+    styled("conv1", tree["conv1"])
+    to_rgb("to_rgb1", tree["to_rgb1"])
+    for i, p in enumerate(tree["convs"]):
+        styled(f"convs.{i}", p)
+    for i, p in enumerate(tree["to_rgbs"]):
+        to_rgb(f"to_rgbs.{i}", p)
+    for i, n in enumerate(tree["noises"]):
+        sd[f"noises.noise_{i}"] = _t(np.transpose(np.asarray(n), (0, 3, 1, 2)))
+    return sd
+
+
+def resnet50_from_jax(tree) -> dict[str, torch.Tensor]:
+    """ResNet-50 pytree -> torchvision state_dict (eval-mode BN stats)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv_bn(conv_key, bn_key, p):
+        sd[f"{conv_key}.weight"] = _conv(p["w"])
+        sd[f"{bn_key}.weight"] = _t(p["gamma"])
+        sd[f"{bn_key}.bias"] = _t(p["beta"])
+        sd[f"{bn_key}.running_mean"] = _t(p["mean"])
+        sd[f"{bn_key}.running_var"] = _t(p["var"])
+        sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    conv_bn("conv1", "bn1", tree["stem"])
+    for li, blocks in enumerate(tree["layers"]):
+        for bi, blk in enumerate(blocks):
+            pre = f"layer{li + 1}.{bi}"
+            for j in (1, 2, 3):
+                conv_bn(f"{pre}.conv{j}", f"{pre}.bn{j}", blk[f"conv{j}"])
+            if "down" in blk:
+                conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1", blk["down"])
+    sd["fc.weight"] = _lin(tree["fc"]["w"])
+    sd["fc.bias"] = _t(tree["fc"]["b"])
+    return sd
+
+
+def walk_from_jax(tree):
+    """Walk pytree -> the same tree of tensors (the port keeps the JAX
+    package's walk layouts: ``linear_w`` is {"w": [A, L, D]})."""
+    if isinstance(tree, dict):
+        return {k: walk_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [walk_from_jax(v) for v in tree]
+    return _t(tree)

@@ -1,0 +1,34 @@
+"""The port's kernels: each wrapper launches a hand-written CUDA kernel on a
+CUDA tensor and runs its plain PyTorch version on a CPU tensor.
+
+Each wrapper carries a plain-integer ``launches`` count, raised by one where
+it launches its kernel and nowhere else, so a run can show that its path went
+through the kernels."""
+
+from .fused_act import fused_leaky_relu, fused_leaky_relu_plain
+from .styled_conv import styled_conv3x3, styled_conv3x3_plain
+from .upfirdn2d import (blur2d, downsample2d, make_kernel, upfirdn2d,
+                        upfirdn2d_plain, upsample2d)
+
+KERNELS = {
+    "fused_act": fused_leaky_relu,
+    "upfirdn2d": upfirdn2d,
+    "styled_conv3x3": styled_conv3x3,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNELS", "blur2d", "downsample2d", "fused_leaky_relu",
+    "fused_leaky_relu_plain", "launch_counts", "make_kernel",
+    "reset_launches", "styled_conv3x3", "styled_conv3x3_plain", "upfirdn2d",
+    "upfirdn2d_plain", "upsample2d",
+]
