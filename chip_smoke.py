@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases (a failed phase raises, and the script exits non-zero):
+Two main paths run at full width on seeded random weights (StyleGAN2
+style_dim 512, n_mlp 8, channel multiplier 2, 256 px; ResNet-50/40;
+Smiling): the edit server and the walk-training loop. Phases (a failed
+phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
-  3. kernels: each kernel at every shape one 256 px apply_alpha (B=4) gives
-     it, held against its plain PyTorch version on the card (f32, TF32 off),
-     then timed with CUDA events beside its bound, the plain version and one
-     PyTorch library call computing the same function;
-  4. main path: the full-width 256 px edit server (StyleGAN2 style_dim 512,
-     n_mlp 8, channel multiplier 2; ResNet-50/40; Smiling; seeded random
-     weights; serve_batch 4; 5 panels) answers /healthz, /edit of 1 and 4
-     samples and /sweep over HTTP; the kernels' launch counts, set to 0 just
-     before, must show every request went through all three kernels;
-  5. profile: one apply_alpha (B=4) under torch.profiler, its device time
-     by kernel group and the device's busy share (trace in chiprun_out/);
-  6. card against CPU: the same apply_alpha (B=1, same weights) on cuda and
-     on cpu (plain versions) must agree.
+  3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
+     forward; fused_act and upfirdn2d backward) at every shape one 256 px
+     apply_alpha (B=4) or one training step (B=4) gives it, held against its
+     plain PyTorch version on the card (f32, TF32 off), then timed with CUDA
+     events beside its bound, the plain version and one PyTorch library call
+     computing the same function;
+  4. serving: the edit server (serve_batch 4, 5 panels) answers /healthz,
+     /edit of 1 and 4 samples and /sweep over HTTP; the launch counts, set to
+     0 just before, must show every request went through the three forward
+     kernels;
+  5. one apply_alpha (B=4) under torch.profiler: device time by kernel group
+     and the device's busy share (trace in chiprun_out/);
+  6. the same apply_alpha (B=1, same weights) on cuda and on cpu must agree;
+  7. training: train_loop (Smiling, linear_w, B=4, 10*BCE + 0.05*VGG +
+     0.05*GAN, Adam) for TRAIN_STEPS steps after a warmup; the launch counts,
+     set to 0 just before, must equal TRAIN_STEPS times the per-step counts
+     of all five kernels; losses finite, the walk moved;
+  8. one training step under torch.profiler, as phase 5;
+  9. one training step (B=2, same weights, stored noise, host alphas) on
+     cuda and on cpu must agree in loss and walk gradient.
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -41,18 +51,25 @@ import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE, BATCH, PANELS = 256, 4, 5
+TRAIN_STEPS, TRAIN_WARMUP, CMP_BATCH = 10, 2, 2
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-TOL = {"fused_act": 1e-6, "upfirdn2d": 1e-5, "styled_conv3x3": 1e-4}
+TOL = {"fused_act": 1e-6, "fused_act_bwd": 1e-6, "upfirdn2d": 1e-5,
+       "upfirdn2d_bwd": 1e-5, "styled_conv3x3": 1e-4}
 SOURCE = {
     "fused_act": ("latent2im_tpu_torch/ops/csrc/fused_act.cu",
                   "latent2im_tpu/ops/pallas_kernels.py:99"),
+    "fused_act_bwd": ("latent2im_tpu_torch/ops/csrc/fused_act.cu",
+                      "latent2im_tpu/ops/pallas_kernels.py:122"),
     "upfirdn2d": ("latent2im_tpu_torch/ops/csrc/upfirdn2d.cu",
                   "latent2im_tpu/ops/pallas_kernels.py:296"),
+    "upfirdn2d_bwd": ("latent2im_tpu_torch/ops/csrc/upfirdn2d.cu",
+                      "latent2im_tpu/ops/pallas_kernels.py:311"),
     "styled_conv3x3": ("latent2im_tpu_torch/ops/csrc/styled_conv3x3.cu",
                        "latent2im_tpu/ops/pair_conv.py:142"),
 }
+FORWARD = ("fused_act", "upfirdn2d", "styled_conv3x3")
 
 
 def log(*a):
@@ -94,60 +111,133 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def main_path_shapes():
-    """Per 256 px apply_alpha at B=4: {kernel: [(shape args, launches)]}.
-    One apply_alpha = one style MLP (get_w) + two syntheses."""
+    """{(kernel, case): [launches per apply_alpha, launches per training
+    step]} at 256 px, B=4. One apply_alpha = one style MLP (get_w) + two
+    syntheses; one training step = the same forward, D on the edited image,
+    and the backward of the edited synthesis and of D.
+
+    Cases: fused_act / fused_act_bwd the shape; upfirdn2d / upfirdn2d_bwd
+    (B, H, W, C, up, pad, gain) of the forward call (down is 1 on both
+    paths); styled_conv3x3 (B, H, Cin, Cout)."""
+    from collections import Counter
+
     from latent2im_tpu_torch.models.stylegan2 import channel_table
 
     ch = channel_table(2)
     res = [2 ** i for i in range(3, int(math.log2(SIZE)) + 1)]  # 8 .. 256
-    return {
-        # 8 style-MLP layers, then the up styled conv of each block (x2 synth)
-        "fused_act": [((BATCH, 512), 8)] + [((BATCH, r, r, ch[r]), 2) for r in res],
-        # the blur after each up conv (2H+1 -> 2H) and the C=3 skip upsample
-        "upfirdn2d": [(("blur", BATCH, r + 1, ch[r]), 2) for r in res]
-                     + [(("skip", BATCH, r // 2, 3), 2) for r in res],
-        # conv1 at 4x4, then the non-up conv of each block
-        "styled_conv3x3": [((BATCH, 4, ch[4], ch[4]), 2)]
-                          + [((BATCH, r, ch[r], ch[r]), 2) for r in res],
-    }
+    b = BATCH
+    serve, train = Counter(), Counter()
+
+    def add(key, n_serve, n_train):
+        serve[key] += n_serve
+        train[key] += n_train
+
+    # style MLP (8 layers); D's final_linear.0 has the same shape
+    add(("fused_act", (b, 512)), 8, 9)
+    for r in res:
+        # up styled conv (x2 forward), its act and blur backward (edited)
+        add(("fused_act", (b, r, r, ch[r])), 2, 2)
+        add(("fused_act_bwd", (b, r, r, ch[r])), 0, 1)
+        blur = ("upfirdn2d", (b, r + 1, r + 1, ch[r], 1, (1, 1), 4.0))
+        skip = ("upfirdn2d", (b, r // 2, r // 2, 3, 2, (2, 1), 4.0))
+        for key in (blur, skip):
+            add(key, 2, 2)
+            add(("upfirdn2d_bwd", key[1]), 0, 1)
+        # non-up styled conv: forward x2, backward through fused_act_bwd
+        add(("styled_conv3x3", (b, r, ch[r], ch[r])), 2, 2)
+        add(("fused_act_bwd", (b, r, r, ch[r])), 0, 1)
+    add(("styled_conv3x3", (b, 4, ch[4], ch[4])), 2, 2)
+    add(("fused_act_bwd", (b, 4, 4, ch[4])), 0, 1)
+    # D on the edited image: from_rgb, per res block conv1, conv2 (after a
+    # pad (2, 2) blur) and the 1x1 skip (after a pad (1, 1) blur),
+    # final_conv, final_linear.0; each backpropagated once
+    d_acts = [(b, SIZE, SIZE, ch[SIZE])]
+    for r in reversed(res):
+        d_acts += [(b, r, r, ch[r]), (b, r // 2, r // 2, ch[r // 2])]
+        for pad in ((2, 2), (1, 1)):
+            key = (b, r, r, ch[r], 1, pad, 1.0)
+            add(("upfirdn2d", key), 0, 1)
+            add(("upfirdn2d_bwd", key), 0, 1)
+    d_acts.append((b, 4, 4, ch[4]))
+    for shape in d_acts:
+        add(("fused_act", shape), 0, 1)
+        add(("fused_act_bwd", shape), 0, 1)
+    add(("fused_act_bwd", (b, 512)), 0, 1)
+    return {key: (serve[key], train[key]) for key in {**serve, **train}}
 
 
-def kernel_cases(name, shape, gen, dev):
-    """-> (kernel call, plain call, library call, bytes, flops)."""
+def _upfirdn_library(x_nhwc, k, up, down, pads):
+    """One depthwise cuDNN call computing upfirdn2d (up 1, or the x2
+    upsample with pad (2, 1) as a transposed conv)."""
+    import torch
+    import torch.nn.functional as F
+
+    c = x_nhwc.shape[-1]
+    x = x_nhwc.permute(0, 3, 1, 2)
+    kh, kw = k.shape
+    if up == 1:
+        px0, px1, py0, py1 = pads
+        wf = torch.flip(k, (0, 1)).expand(c, 1, kh, kw)
+        return lambda: F.conv2d(F.pad(x, (px0, px1, py0, py1)), wf, stride=down, groups=c)
+    assert up == 2 and down == 1 and pads == (2, 1, 2, 1) and k.shape == (4, 4)
+    ke = k.expand(c, 1, kh, kw)
+    return lambda: F.conv_transpose2d(x, ke, stride=2, padding=1, groups=c)
+
+
+def kernel_cases(name, case, gen, dev):
+    """-> (kernel call, plain call, library call, bytes, flops). Calls
+    return a tensor or a tuple of tensors."""
     import torch
     import torch.nn.functional as F
 
     from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.ops.upfirdn2d import out_size
 
     def randn(*s):
         return torch.randn(s, generator=gen, device=dev)
 
     sqrt2 = math.sqrt(2.0)
     if name == "fused_act":
+        shape = case
         x, b = randn(*shape), 0.1 * randn(shape[-1])
         n = x.numel()
         return (lambda: ops.fused_leaky_relu(x, b),
                 lambda: ops.fused_leaky_relu_plain(x, b),
                 lambda: F.leaky_relu(x + b, 0.2) * sqrt2,
                 8 * n + 4 * b.numel(), 3 * n)
-    if name == "upfirdn2d":
-        kind, bsz, h, c = shape
-        k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * 4.0
-        x = randn(bsz, h, h, c)
-        if kind == "blur":  # pad (1, 1), 16 taps per output
-            up, pad, oh, taps = 1, (1, 1), h - 1, 16
-            kf = torch.flip(k, (0, 1)).expand(c, 1, 4, 4)
-            lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), kf, padding=1, groups=c)  # noqa: E731
-        else:  # x2 upsample, pad (2, 1): 4 of the 16 taps land on samples
-            up, pad, oh, taps = 2, (2, 1), 2 * h, 4
-            ke = k.expand(c, 1, 4, 4)
-            lib = lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), ke, stride=2,  # noqa: E731
-                                             padding=1, groups=c)
-        out_n = bsz * oh * oh * c
-        return (lambda: ops.upfirdn2d(x, k, up=up, pad=pad),
-                lambda: ops.upfirdn2d_plain(x, k, up=up, pad=pad),
-                lib, 4 * (x.numel() + out_n + 16), 2 * taps * out_n)
-    bsz, h, cin, cout = shape
+    if name == "fused_act_bwd":
+        shape = case
+        g, out = randn(*shape), randn(*shape)
+        n, c = g.numel(), shape[-1]
+
+        def library():
+            dx = torch.where(out > 0, g, 0.2 * g) * sqrt2
+            return dx, dx.reshape(-1, c).sum(0)
+
+        return (lambda: ops.fused_leaky_relu_bwd(g, out),
+                lambda: ops.fused_leaky_relu_bwd_plain(g, out),
+                library, 12 * n + 4 * c, 2 * n)
+    if name in ("upfirdn2d", "upfirdn2d_bwd"):
+        bsz, h, w, c, up, pad, gain = case
+        k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
+        pads = (pad[0], pad[1], pad[0], pad[1])
+        oh, ow = (out_size(n, up, 1, pad[0], pad[1], 4) for n in (h, w))
+        if name == "upfirdn2d":
+            x = randn(bsz, h, w, c)
+            out_n = bsz * oh * ow * c
+            return (lambda: ops.upfirdn2d(x, k, up=up, pad=pad),
+                    lambda: ops.upfirdn2d_plain(x, k, up=up, pad=pad),
+                    _upfirdn_library(x, k, up, 1, pads),
+                    4 * (x.numel() + out_n + 16), 2 * (16 // (up * up)) * out_n)
+        g = randn(bsz, oh, ow, c)
+        gup, gdown, gpads = ops.transposed_params((4, 4), up, 1, pad, (h, w), (oh, ow))
+        kf = torch.flip(k, (0, 1))
+        in_n = bsz * h * w * c
+        return (lambda: ops.upfirdn2d_bwd(g, k, up, 1, pad, (h, w)),
+                lambda: ops.upfirdn2d_plain(g, kf, gup, gdown, gpads),
+                _upfirdn_library(g, kf, gup, gdown, gpads),
+                4 * (g.numel() + in_n + 16), 2 * 16 * in_n)
+    bsz, h, cin, cout = case
     x = randn(bsz, h, h, cin)
     w = randn(3, 3, cin, cout) / math.sqrt(9 * cin)
     s = 1.0 + 0.2 * randn(bsz, cin)
@@ -170,48 +260,64 @@ def kernel_cases(name, shape, gen, dev):
             library, nbytes, 2 * bsz * h * h * 9 * cin * cout)
 
 
+def _max_err(got, want):
+    """(max abs error, max |reference|) over a result or tuple of results."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(got, want)]
+    return max(e for e, _ in errs), min(m for _, m in errs)
+
+
 def kernel_phase(dev):
+    """Per kernel, per main path: launches and the sums over shapes of
+    launches x (kernel, plain, library, bound) ms."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    results, details = {}, []
-    for name, shapes in main_path_shapes().items():
-        agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-               "per_request": 0}
-        for shape, count in shapes:
-            kern, plain, lib, nbytes, flops = kernel_cases(name, shape, gen, dev)
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            if not (math.isfinite(err) and err <= TOL[name] * scale):
-                raise AssertionError(
-                    f"{name} {shape}: max abs err {err:.3e} > {TOL[name]} * "
-                    f"max|ref| {scale:.3e}")
-            t_k, t_p, t_l = time_ms(kern), time_ms(plain), time_ms(lib)
-            b_ms, _ = bound_ms(nbytes, flops)
-            details.append({"kernel": name, "shape": list(shape), "launches": count,
-                            "max_abs_err": err, "max_abs_ref": scale, "ms": t_k,
-                            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
-                            "bytes": nbytes, "flops": flops})
-            agg["ms"] += count * t_k
-            agg["plain_ms"] += count * t_p
-            agg["library_ms"] += count * t_l
-            agg["bound_ms"] += count * b_ms
-            agg["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
-            agg["ops_ms"] += count * flops / F32_FLOPS * 1e3
-            agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            agg["per_request"] += count
-        agg["bound_by"] = "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else "operations"
-        results[name] = agg
-        log(f"  {name}: {agg['per_request']} launches per apply_alpha, "
-            f"max abs err {agg['max_abs_err']:.3e}; per apply_alpha "
-            f"{agg['ms']:.4f} ms (plain {agg['plain_ms']:.4f}, library "
-            f"{agg['library_ms']:.4f}, bound {agg['bound_ms']:.4f} by "
-            f"{agg['bound_by']})")
-    return results, details
+    results = {n: {p: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                       "launches": 0} for p in ("apply_alpha", "train_step")}
+               for n in SOURCE}
+    max_err = dict.fromkeys(SOURCE, 0.0)
+    details = []
+    for (name, case), counts in sorted(main_path_shapes().items(), key=str):
+        kern, plain, lib, nbytes, flops = kernel_cases(name, case, gen, dev)
+        got = kern()
+        torch.cuda.synchronize()
+        err, scale = _max_err(got, plain())
+        if not (math.isfinite(err) and err <= TOL[name] * scale):
+            raise AssertionError(
+                f"{name} {case}: max abs err {err:.3e} > {TOL[name]} * "
+                f"max|ref| {scale:.3e}")
+        max_err[name] = max(max_err[name], err)
+        t_k, t_p, t_l = time_ms(kern), time_ms(plain), time_ms(lib)
+        b_ms, _ = bound_ms(nbytes, flops)
+        details.append({"kernel": name, "case": repr(case),
+                        "launches_per_apply_alpha": counts[0],
+                        "launches_per_train_step": counts[1],
+                        "max_abs_err": err, "max_abs_ref": scale, "ms": t_k,
+                        "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+                        "bytes": nbytes, "flops": flops})
+        for path, n in zip(("apply_alpha", "train_step"), counts):
+            r = results[name][path]
+            r["ms"] += n * t_k
+            r["plain_ms"] += n * t_p
+            r["library_ms"] += n * t_l
+            r["bound_ms"] += n * b_ms
+            r["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+            r["ops_ms"] += n * flops / F32_FLOPS * 1e3
+            r["launches"] += n
+    for name, paths in results.items():
+        for r in paths.values():
+            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+        r = paths["train_step"]
+        a = paths["apply_alpha"]
+        log(f"  {name}: max abs err {max_err[name]:.3e}; per training step "
+            f"{r['launches']} launches, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}); per apply_alpha "
+            f"{a['launches']} launches, {a['ms']:.4f} ms")
+    return results, max_err, details
 
 
 # ---------------------------------------------------------------------------
@@ -306,17 +412,17 @@ def serve_phase(results, dev):
         for a in out1["alpha_org"] + out4["alpha_org"] + outs["alpha_org"]:
             assert all(math.isfinite(v) for v in a), a
         assert len(outs["panels"]) == PANELS
-        per_alpha = {name: r["per_request"] for name, r in results.items()}
+        per_alpha = {name: r["apply_alpha"]["launches"] for name, r in results.items()}
         n_chunks = -(-PANELS * BATCH // _balanced_chunk(PANELS * BATCH, SWEEP_CHUNK))
         per_synth = {"fused_act": (per_alpha["fused_act"] - 8) // 2,
                      "upfirdn2d": per_alpha["upfirdn2d"] // 2,
                      "styled_conv3x3": per_alpha["styled_conv3x3"] // 2}
-        expect = {k: 2 * per_alpha[k] + (1 + n_chunks) * per_synth[k]
+        expect = {k: 2 * per_alpha[k] + (1 + n_chunks) * per_synth.get(k, 0)
                   + (8 if k == "fused_act" else 0) for k in per_alpha}
         log(f"  launches over /healthz + 2 /edit + 1 /sweep: {counts} "
             f"(expected {expect})")
         assert counts == expect, (counts, expect)
-        assert all(v > 0 for v in counts.values())
+        assert all(counts[k] > 0 for k in FORWARD)
 
         lat, n_img = [], 0
         t_all = time.perf_counter()
@@ -342,12 +448,13 @@ def serve_phase(results, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where an edit's device time goes
+# phases 5 and 8: where the device time goes
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match
     ("styled_conv3x3 (ours)", ("small_tile_kernel", "large_tile_kernel")),
-    ("upfirdn2d (ours)", ("upfirdn2d_kernel",)),
+    ("upfirdn2d (ours, forward and backward)", ("upfirdn2d_kernel",)),
+    ("fused_act backward (ours)", ("fused_act_bwd_kernel",)),
     ("fused_act (ours)", ("fused_act_kernel",)),
     ("cuDNN/cuBLAS conv + GEMM", ("cudnn", "xmma", "gemm", "conv", "cutlass", "wgrad",
                                   "dgrad", "implicit", "sm90", "sm80")),
@@ -356,23 +463,20 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match
 )
 
 
-def profile_phase(service):
-    """One apply_alpha (B=4, uint8) under torch.profiler: device time by
+def profile_call(fn, trace_name):
+    """fn() once to warm, then once under torch.profiler: device time by
     kernel group and the device's busy share of the host-timed call."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    z = np.random.RandomState(1).randn(BATCH, 512).astype(np.float32)
-    a = np.full((BATCH,), 0.7, np.float32)
-    service.ed.apply_alpha(service.walk, z, a, u8=True)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        service.ed.apply_alpha(service.walk, z, a, u8=True)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(REPO, "chiprun_out", "apply_alpha_trace.json")
+    path = os.path.join(REPO, "chiprun_out", trace_name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -397,6 +501,15 @@ def profile_phase(service):
     return {"wall_ms": wall_ms, "kernels": len(kernels), "device_busy_ms": busy_ms,
             "busy_share_of_wall": busy_ms / wall_ms,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+
+
+def profile_phase(service):
+    import numpy as np
+
+    z = np.random.RandomState(1).randn(BATCH, 512).astype(np.float32)
+    a = np.full((BATCH,), 0.7, np.float32)
+    return profile_call(lambda: service.ed.apply_alpha(service.walk, z, a, u8=True),
+                        "apply_alpha_trace.json")
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +538,170 @@ def cpu_phase(service, conf):
     err = float(np.abs(ga - ca).max())
     out["alpha_org_abs_err"], out["alpha_org"] = err, float(ca[0, 0])
     assert err <= 1e-3 * max(1.0, float(np.abs(ca).max())), (ga, ca)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: walk training
+# ---------------------------------------------------------------------------
+
+
+def train_conf(*flags):
+    from latent2im_tpu_torch.config.options import TrainOptions
+
+    return TrainOptions().parse(
+        ["--model", "stylegan_v2_real", "--transform", "face", "--walk_type",
+         "linear", "--latent", "w", "--attrList", "Smiling", "--resolution",
+         str(SIZE), "--batch_size", str(BATCH), "--models_dir",
+         os.path.join(REPO, "chiprun_out"), *flags],
+        print_opt=False)
+
+
+def train_phase(results, dev):
+    """train_loop at B=4: TRAIN_WARMUP steps, then TRAIN_STEPS counted and
+    timed steps (losses read back every step, as the training CLI logs)."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = train_conf()
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    assert ed.device.type == dev.type and ed.d is not None and ed.vgg is not None
+    task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+    run = dict(batch_size=BATCH, n_epochs=1, lr=conf.learning_rate, log_every=1)
+    walk, _ = train_loop(ed, task, walk, num_samples=TRAIN_WARMUP * BATCH, **run)
+    torch.cuda.synchronize()
+    log(f"    editor with D and VGG19 built and {TRAIN_WARMUP} warmup steps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    w0 = walk["w"].detach().clone()
+    metrics = []
+    ops.reset_launches()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev0.record()
+    walk, history = train_loop(ed, task, walk, num_samples=TRAIN_STEPS * BATCH, seed=1,
+                               on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    per_step = {n: r["train_step"]["launches"] for n, r in results.items()}
+    expect = {n: TRAIN_STEPS * v for n, v in per_step.items()}
+    log(f"    launches over {TRAIN_STEPS} steps: {counts} (expected {expect})")
+    assert counts == expect, (counts, expect)
+    assert len(metrics) == TRAIN_STEPS
+    for m in metrics:
+        assert all(math.isfinite(v) for v in m.values()), m
+    moved = (walk["w"].detach() - w0).abs().max().item()
+    assert moved > 0, "the walk did not move"
+    train = {"steps": TRAIN_STEPS, "batch": BATCH,
+             "step_ms_cuda_events": ev0.elapsed_time(ev1) / TRAIN_STEPS,
+             "samples_per_s": TRAIN_STEPS * BATCH / wall,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "walk_max_abs_change": moved, "first": metrics[0], "last": metrics[-1]}
+    return ed, walk, task, counts, train
+
+
+def train_profile_phase(ed, walk, task):
+    """One training step (B=4) under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+
+    step = make_train_step(ed, task, make_optimizer(walk, 1e-4))
+    z = torch.from_numpy(np.random.RandomState(2).randn(BATCH, 512).astype(np.float32))
+    gen = torch.Generator(device=ed.device).manual_seed(0)
+    return profile_call(lambda: step(walk, z, gen), "train_step_trace.json")
+
+
+def reference_step(ed, w0, z, sampled, dtype):
+    """The step's loss terms and walk gradient at walk w0, composed here
+    from the towers in ``dtype`` (an independent reference of
+    make_train_step's arithmetic; the towers' f32 output casts are undone)."""
+    import torch
+
+    from latent2im_tpu_torch.engine import losses as L
+
+    dev = ed.device
+    z, sampled = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (z, sampled))
+    w = torch.as_tensor(w0, dtype=dtype, device=dev).requires_grad_(True)
+    with torch.no_grad():
+        latent = ed.g.style_forward(z)[:, None].expand(-1, ed.cfg.n_latent, -1)
+        img_org = ed.g.synthesize(latent).to(dtype)
+        alpha_org = ed.reg(img_org)[:, ed._attr_idx].to(dtype)
+    img_new = ed.g.synthesize(
+        latent + torch.einsum("ba,ald->bld", sampled - alpha_org, w)).to(dtype)
+    reg = L.raw_bce(ed.reg(img_new)[:, ed._attr_idx], sampled)
+    content = L.content_loss(ed.vgg, img_org, img_new)
+    gan = L.gan_loss_from_logits(ed.d(img_new))
+    loss = L.combine(reg, content, gan)
+    (grad,) = torch.autograd.grad(loss, w)
+    terms = {"loss": loss, "reg_loss": reg, "content_loss": content, "gan_loss": gan}
+    return {k: v.item() for k, v in terms.items()}, grad.double().cpu().numpy()
+
+
+def train_cpu_phase():
+    """One step (B=2, stored noise, host alphas) from the same seed on cuda
+    and on cpu through make_train_step: loss terms within 1e-3. The walk
+    gradient of an f32 step at full width is fixed only to ~1e-3 (rounding
+    flips LeakyReLU/ReLU kinks; cuDNN differs run to run), so the card's is
+    held to an f64 reference on the CPU, at least as close as the CPU's
+    own f32 gradient (x1.5), or within 1e-3. The card's step is also run
+    again, through the reference's composition, for its own spread."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = train_conf("--fixed_noise")
+    z = np.random.RandomState(8).randn(CMP_BATCH, 512).astype(np.float32)
+    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
+    res, out = {}, {}
+    for device in ("cuda", "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        w0 = walk["w"].detach().cpu().numpy().copy()
+        walk["w"].requires_grad_(True)
+        step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate),
+                               host_alpha=True)
+        t = time.perf_counter()
+        m = step(walk, z, sampled=sampled)
+        res[device] = ({k: float(v) for k, v in m.items()},
+                       walk["w"].grad.detach().cpu().numpy().astype(np.float64))
+        out[f"{device}_step_s"] = time.perf_counter() - t
+        if device == "cuda":  # the card's own spread: the same step again
+            res["cuda_again"] = reference_step(ed, w0, z, sampled, torch.float32)
+        del step, walk
+    t = time.perf_counter()
+    for m in (ed.g, ed.reg, ed.vgg, ed.d):  # the CPU editor, in f64
+        m.double()
+    ref, ref_grad = reference_step(ed, w0, z, sampled, torch.float64)
+    out["cpu_f64_reference_s"] = time.perf_counter() - t
+    (mg, gg), (mc, gc) = res["cuda"], res["cpu"]
+    for k in ("loss", "reg_loss", "content_loss", "gan_loss"):
+        rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+        out[f"{k}_rel"] = rel
+        assert rel <= 1e-3, (k, mg[k], mc[k])
+        assert abs(mc[k] - ref[k]) <= 1e-4 * max(abs(ref[k]), 1e-30), (k, mc[k], ref[k])
+    assert np.isfinite(gg).all() and np.abs(gc).max() > 0
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    out["walk_grad_rel_l2_card_cpu"] = rel_l2(gg, gc)
+    out["walk_grad_rel_l2_card_card"] = rel_l2(res["cuda_again"][1], gg)
+    out["walk_grad_rel_l2_card_f64"] = rel_l2(gg, ref_grad)
+    out["walk_grad_rel_l2_cpu_f64"] = rel_l2(gc, ref_grad)
+    limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    assert out["walk_grad_rel_l2_card_f64"] <= limit, out
+    out["loss"] = mc["loss"]
     return out
 
 
@@ -457,14 +734,12 @@ def main() -> int:
     _build.library()
     log(f"[2] kernels built in {secs:.1f} s: {os.path.relpath(path, REPO)}")
 
-    log("[3] kernels against their plain versions at the 256 px B=4 shapes")
-    results, details = kernel_phase(dev)
-    log("kernels: " + json.dumps(
-        [{"name": n, "launches_per_apply_alpha": r["per_request"]}
-         for n, r in results.items()]))
+    log(f"[3] kernels against their plain versions at the {SIZE} px B={BATCH} "
+        "shapes of apply_alpha and of a training step")
+    results, max_err, details = kernel_phase(dev)
 
-    log("[4] main path: the 256 px edit server over HTTP")
-    service, conf, counts, serve = serve_phase(results, dev)
+    log(f"[4] main path 1: the {SIZE} px edit server over HTTP")
+    service, conf, serve_counts, serve = serve_phase(results, dev)
     log(f"    p50 request latency {serve['p50_request_ms']:.1f} ms, "
         f"{serve['img_per_s']:.2f} img/s ({serve['requests']} /edit requests "
         f"of {BATCH}), apply_alpha B={BATCH} device time "
@@ -477,16 +752,41 @@ def main() -> int:
     log("[6] card against CPU (B=1, same weights)")
     cmp_ = cpu_phase(service, conf)
     log(f"    {cmp_}")
+    del service
+    torch.cuda.empty_cache()
 
-    kernels = [{
-        "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
-        "launches": counts[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-    } for n, r in results.items()]
+    log(f"[7] main path 2: {SIZE} px walk training, train_loop B={BATCH}")
+    ed, walk, task, train_counts, train = train_phase(results, dev)
+    log(f"    {train['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
+        f"{TRAIN_STEPS} steps), {train['samples_per_s']:.2f} samples/s, peak "
+        f"{train['peak_mem_gb']:.2f} GB, loss {train['first']['loss']:.4f} -> "
+        f"{train['last']['loss']:.4f}, on {card}")
+
+    log(f"[8] one training step (B={BATCH}) under torch.profiler")
+    train_prof = train_profile_phase(ed, walk, task)
+    log(f"    {json.dumps(train_prof)}")
+    del ed, walk
+    torch.cuda.empty_cache()
+
+    log(f"[9] training step, card against CPU (B={CMP_BATCH}, same weights)")
+    train_cmp = train_cpu_phase()
+    log(f"    {train_cmp}")
+
+    kernels = []
+    for n, paths in results.items():
+        r = paths["train_step"]
+        kernels.append({
+            "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
+            "launches": serve_counts[n] + train_counts[n],
+            "launches_by_path": {"serve": serve_counts[n], "train": train_counts[n]},
+            "max_abs_err": max_err[n], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "per": f"training step, {SIZE} px, B={BATCH}",
+            "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "kernels": kernels, "shapes": details, "serve": serve, "profile": prof,
-              "cpu_vs_card": cmp_, "seconds": time.perf_counter() - t_start}
+              "cpu_vs_card": cmp_, "train": train, "train_profile": train_prof,
+              "train_cpu_vs_card": train_cmp, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

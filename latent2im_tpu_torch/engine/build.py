@@ -1,10 +1,12 @@
 """Assemble an Editor + walk from parsed options — PyTorch port of the
 StyleGAN2 branch of latent2im_tpu/engine/build.py:36-257.
 
-options -> attribute vocabulary -> frozen generator and regressor (loaded
-from PyTorch checkpoints with ``load_state_dict``, or randomly initialized at
-full width from ``seed`` with a loud warning) -> Editor + walk params, on
-``device`` (cuda unless the caller asks for the CPU).
+options -> attribute vocabulary -> frozen generator, regressor, and for the
+training losses the discriminator and VGG19 (loaded from PyTorch checkpoints
+with ``load_state_dict``, or randomly initialized at full width from
+``seed`` with a loud warning; D and VGG19 are left out under --no_gan_loss
+and --no_content_loss) -> Editor + walk params, on ``device`` (cuda unless
+the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..config import attributes as attrs
 from ..device import resolve_device
 from ..models import resnet as rn
 from ..models import stylegan2 as sg2
+from ..models import vgg as vggm
 from ..walks import init_walk, resolve_walk_kind
 from .editor import Editor, EditorConfig
 
@@ -45,6 +48,12 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         _not_ported("--bf16 compute", "queue A item 20")
     if getattr(opt, "reg_input_size", None):
         _not_ported("--reg_input_size (antialiased resize)", "queue A item 17")
+    if getattr(opt, "content_input_size", None):
+        _not_ported("--content_input_size (the same resize as "
+                    "--reg_input_size)", "queue A item 17")
+    for flag in ("remat_g", "remat_towers"):
+        if getattr(opt, flag, False):
+            _not_ported(f"--{flag} (torch.utils.checkpoint)", "queue A item 22")
     latent = opt.stylegan.latent
     walk_kind = resolve_walk_kind(
         model, opt.walk_type, latent, train_embed=opt.trainEmbed,
@@ -63,16 +72,19 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         dim_z, n_mlp, channels = 32, 2, TINY_CHANNELS
 
     g_path = getattr(opt, "g_path", "")
+    d_sd = None
     if g_path:
-        sd = _load_torch(g_path)["g_ema"]
+        ckpt = _load_torch(g_path)
         # the blur/upsample FIR buffers of rosinality checkpoints are fixed
         # [1, 3, 3, 1] kernels the port rebuilds itself
-        sd = {k: v for k, v in sd.items() if not k.endswith(".kernel")}
+        sd = sg2.strip_blur_kernels(ckpt["g_ema"])
         dim_z = int(sd["style.1.weight"].shape[1])
         n_mlp = sum(1 for k in sd if k.startswith("style.") and k.endswith(".weight"))
-        g = sg2.Generator(size, dim_z, n_mlp,
-                          channels=sg2.channels_from_state_dict(sd, size))
+        channels = sg2.channels_from_state_dict(sd, size)
+        g = sg2.Generator(size, dim_z, n_mlp, channels=channels)
         g.load_state_dict(sd, strict=True)
+        if "d" in ckpt:
+            d_sd = sg2.strip_blur_kernels(ckpt["d"])
     else:
         warnings.warn(
             "--g_path not given: using a RANDOMLY initialized generator "
@@ -101,10 +113,32 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         dim_z=dim_z,
         layers=layers,
         alpha_mode="target",
+        no_content_loss=bool(getattr(opt, "no_content_loss", False)),
+        no_gan_loss=bool(getattr(opt, "no_gan_loss", False)),
+        stable_bce=bool(getattr(opt, "stable_bce", False)),
+        fixed_noise=bool(getattr(opt, "fixed_noise", False)),
     )
-    editor = Editor(cfg, g, reg, device)
     walk_params = init_walk(walk_kind, dim_z, cfg.n_latent, attr_list,
                             generator=gen, device=device)
+
+    # the loss towers draw from the seed after the walk, so G, the
+    # regressor and the walk are the same with or without them
+    d = None
+    if d_sd is not None:
+        d = sg2.Discriminator(size, channels=channels)
+        d.load_state_dict(d_sd, strict=True)
+    elif not cfg.no_gan_loss:
+        d = sg2.Discriminator(size, channels=channels, generator=gen)
+    vgg_path = getattr(opt, "vgg_path", "")
+    vgg = None
+    if vgg_path:
+        vgg = vggm.VGG19Features()
+        vgg.load_state_dict(vggm.features_state_dict(_load_torch(vgg_path)),
+                            strict=True)
+    elif not cfg.no_content_loss:
+        warnings.warn("--vgg_path not given: using a RANDOMLY initialized vgg19")
+        vgg = vggm.VGG19Features(generator=gen)
+    editor = Editor(cfg, g, reg, device, vgg=vgg, d=d)
     logging.info(
         "built editor: model=%s latent=%s walk=%s attrs=%s layers=%s on %s",
         model, latent, walk_kind, attr_list[:4], layers, device,
@@ -113,7 +147,8 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         "attr_list": attr_list,
         "attr_table": attr_table,
         "attr_idx": attr_idx,
-        "pretrained": {"g": bool(g_path), "reg": bool(reg_path)},
+        "pretrained": {"g": bool(g_path), "reg": bool(reg_path),
+                       "d": d_sd is not None, "vgg": bool(vgg_path)},
     }
 
 

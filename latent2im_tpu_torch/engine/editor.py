@@ -1,18 +1,24 @@
 """The editing engine: frozen towers + walk — PyTorch port.
 
-The counterpart of latent2im_tpu/engine/editor.py for the serving path:
+The counterpart of latent2im_tpu/engine/editor.py:
 
     get_w           z -> W+ stack [B, L, D]
     synthesize      latent -> image NHWC (stored or fresh noise)
     regress         image -> attribute scores [B, A]
+    discriminate    image -> D logits [B, 1]
     unified_alphas  (org, sampled) -> (target, delta)
     edit            walk application
     apply_alpha     regress current, delta to target, walk, synthesize
     sweep           panels folded into the batch, synthesized in chunks
 
 PyTorch runs eagerly, so there is nothing to compile and no static program
-width: a sweep's last chunk is simply narrower. Every public method runs
-under ``torch.inference_mode``. The towers live on the editor's device;
+width: a sweep's last chunk is simply narrower. The public inference methods
+run under ``torch.inference_mode``; the walk-training step
+(engine/train.py) calls the same computations through ``latent_of``,
+``synth``, ``scores`` and ``discriminate``, which keep autograd on, since a
+tensor made under inference mode cannot be saved for a backward. Every tower
+(G, the regressor, VGG19 and D) is frozen with ``requires_grad_(False)``: a
+step differentiates the walk only. The towers live on the editor's device;
 inputs may be numpy or tensors, outputs are tensors on that device.
 """
 
@@ -54,6 +60,10 @@ class EditorConfig:
     dim_z: int = 512
     layers: tuple[int, ...] | None = None
     alpha_mode: str = "target"  # 'target' (stylegan) | 'delta' (pggan)
+    no_content_loss: bool = False
+    no_gan_loss: bool = False
+    stable_bce: bool = False
+    fixed_noise: bool = False  # True = stored noise buffers during training
 
     @property
     def n_latent(self) -> int:
@@ -61,10 +71,12 @@ class EditorConfig:
 
 
 class Editor:
-    """Capability surface over a frozen generator and regressor."""
+    """Capability surface over frozen towers."""
 
-    def __init__(self, cfg: EditorConfig, g, reg, device=None):
-        """g: models.stylegan2.Generator, reg: models.resnet.ResNet50; both
+    def __init__(self, cfg: EditorConfig, g, reg, device=None, vgg=None, d=None):
+        """g: models.stylegan2.Generator, reg: models.resnet.ResNet50, and
+        for training vgg: models.vgg.VGG19Features, d:
+        models.stylegan2.Discriminator (None where the loss is off). All
         move to ``device`` (cuda unless the caller asks for the CPU)."""
         if cfg.latent != "w":
             raise NotImplementedError(
@@ -73,23 +85,28 @@ class Editor:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.g = g.to(self.device).eval()
-        self.reg = reg.to(self.device, memory_format=torch.channels_last).eval()
+        self.g = g.to(self.device).eval().requires_grad_(False)
+
+        def frozen(m):  # conv towers: channels_last, what cuDNN runs fastest
+            if m is None:
+                return None
+            m = m.to(self.device, memory_format=torch.channels_last)
+            return m.eval().requires_grad_(False)
+
+        self.reg, self.vgg, self.d = frozen(reg), frozen(vgg), frozen(d)
         self._attr_idx = torch.as_tensor(cfg.attr_idx, device=self.device)
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-    # -- building blocks --------------------------------------------------
+    # -- building blocks (autograd on, for the training step) -------------
 
-    @torch.inference_mode()
-    def get_w(self, z):
+    def latent_of(self, z):
         """z [B, D] -> W+ [B, n_latent, D] (style MLP output tiled)."""
         w = self.g.style_forward(self._tensor(z))
         return w[:, None, :].expand(-1, self.cfg.n_latent, -1)
 
-    @torch.inference_mode()
-    def synthesize(self, latent, noise_generator=None):
+    def synth(self, latent, noise_generator=None):
         """W+ [B, L, D] -> image [B, H, W, 3]. noise_generator: a
         torch.Generator on the editor's device for fresh per-layer noise;
         None uses the stored noise buffers."""
@@ -99,10 +116,30 @@ class Editor:
             noise = self.g.make_noise(latent.shape[0], noise_generator)
         return self.g.synthesize(latent, noise=noise)
 
+    def scores(self, img):
+        """image -> regressor scores at the configured attributes [B, A]."""
+        return self.reg(img)[:, self._attr_idx]
+
+    def discriminate(self, img):
+        """image NHWC -> D logits [B, 1]."""
+        if self.d is None:
+            raise ValueError("this editor was built without a discriminator "
+                             "(--no_gan_loss)")
+        return self.d(img)
+
+    # -- the same under inference mode --------------------------------------
+
+    @torch.inference_mode()
+    def get_w(self, z):
+        return self.latent_of(z)
+
+    @torch.inference_mode()
+    def synthesize(self, latent, noise_generator=None):
+        return self.synth(latent, noise_generator)
+
     @torch.inference_mode()
     def regress(self, img):
-        """image -> scores at the configured attribute indices [B, A]."""
-        return self.reg(img)[:, self._attr_idx]
+        return self.scores(img)
 
     def unified_alphas(self, alpha_org, sampled):
         """-> (alpha_target, alpha_delta); 'delta' mode clamps the target."""

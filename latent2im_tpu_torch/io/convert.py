@@ -1,8 +1,9 @@
 """Carry the JAX package's parameter pytrees into the port's state_dicts.
 
-Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator,
-models/resnet.py:init_resnet50, walks/walks.py:init_walk, or the same trees
-converted from torch checkpoints), as numpy arrays. Output: state_dicts that
+Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator and
+init_discriminator, models/resnet.py:init_resnet50, models/vgg.py:init_vgg,
+walks/walks.py:init_walk, or the same trees converted from torch
+checkpoints), as numpy arrays. Output: state_dicts that
 the port's modules load with ``strict=True``. The layout rules are the inverse
 of latent2im_tpu/io/torch_convert.py (read, not imported):
 
@@ -10,6 +11,7 @@ of latent2im_tpu/io/torch_convert.py (read, not imported):
   linear  [in,out]        -> [out,in]
   modconv [k,k,I,O]       -> [1,O,I,k,k]
   NHWC buffers            -> NCHW
+  D final_lin1 rows       (h,w,c) -> (c,h,w), the NCHW flatten
 """
 
 from __future__ import annotations
@@ -64,6 +66,58 @@ def generator_from_jax(tree) -> dict[str, torch.Tensor]:
         to_rgb(f"to_rgbs.{i}", p)
     for i, n in enumerate(tree["noises"]):
         sd[f"noises.noise_{i}"] = _t(np.transpose(np.asarray(n), (0, 3, 1, 2)))
+    return sd
+
+
+def discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """StyleGAN2 discriminator pytree -> rosinality ``d`` state_dict
+    (without the fixed blur ``.kernel`` buffers)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv_layer(prefix, p, down=False):
+        ci = 1 if down else 0  # Sequential: [Blur?, EqualConv2d, FusedLeakyReLU?]
+        sd[f"{prefix}.{ci}.weight"] = _conv(p["conv"]["w"])
+        if "b" in p["conv"]:
+            sd[f"{prefix}.{ci}.bias"] = _t(p["conv"]["b"])
+        if "act_b" in p:
+            sd[f"{prefix}.{ci + 1}.bias"] = _t(p["act_b"])
+
+    conv_layer("convs.0", tree["from_rgb"])
+    for i, blk in enumerate(tree["blocks"]):
+        conv_layer(f"convs.{i + 1}.conv1", blk["conv1"])
+        conv_layer(f"convs.{i + 1}.conv2", blk["conv2"], down=True)
+        conv_layer(f"convs.{i + 1}.skip", blk["skip"], down=True)
+    conv_layer("final_conv", tree["final_conv"])
+    # the JAX rows follow its NHWC flatten (h, w, c); the port flattens NCHW
+    w0 = np.asarray(tree["final_lin1"]["w"])
+    cin = w0.shape[0] // 16
+    perm = np.transpose(np.arange(w0.shape[0]).reshape(cin, 4, 4), (1, 2, 0)).reshape(-1)
+    w_chw = np.empty_like(w0)
+    w_chw[perm] = w0
+    sd["final_linear.0.weight"] = _lin(w_chw)
+    sd["final_linear.0.bias"] = _t(tree["final_lin1"]["b"])
+    sd["final_linear.1.weight"] = _lin(tree["final_lin2"]["w"])
+    sd["final_linear.1.bias"] = _t(tree["final_lin2"]["b"])
+    return sd
+
+
+def vgg_from_jax(tree) -> dict[str, torch.Tensor]:
+    """VGG19 pytree ({"cfg": "vgg19", "convs": [...]}) -> torchvision
+    ``features.N`` state_dict."""
+    from ..models.vgg import CFG19
+
+    if tree.get("cfg", "vgg19") != "vgg19":
+        raise ValueError(f"the port holds vgg19 only, got {tree['cfg']!r}")
+    sd: dict[str, torch.Tensor] = {}
+    idx, convs = 0, iter(tree["convs"])
+    for v in CFG19:
+        if v == "M":
+            idx += 1
+            continue
+        p = next(convs)
+        sd[f"features.{idx}.weight"] = _conv(p["w"])
+        sd[f"features.{idx}.bias"] = _t(p["b"])
+        idx += 2  # Conv2d, ReLU
     return sd
 
 

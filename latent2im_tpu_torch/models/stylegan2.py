@@ -1,10 +1,12 @@
-"""StyleGAN2 generator (rosinality layout), PyTorch port.
+"""StyleGAN2 generator and discriminator (rosinality layout), PyTorch port.
 
-The counterpart of latent2im_tpu/models/stylegan2.py:42-606 (generator
-half). Parameter names follow the rosinality ``g_ema`` state_dict
-(``style.N.weight``, ``convs.N.conv.modulation.bias``, ``noises.noise_N``,
-...), so ``tests/fixtures/ref_g_tiny.pt`` and reference checkpoints load with
-``load_state_dict`` and no conversion. Weights are stored in equalized-LR raw
+The counterpart of latent2im_tpu/models/stylegan2.py. Parameter names follow
+the rosinality ``g_ema`` and ``d`` state_dicts (``style.N.weight``,
+``convs.N.conv.modulation.bias``, ``noises.noise_N``; ``convs.0.0.weight``,
+``convs.N.conv2.1.weight``, ``final_linear.0.bias``, ...), so
+``tests/fixtures/ref_g_tiny.pt`` and reference checkpoints load with
+``load_state_dict`` and no conversion (the fixed blur ``.kernel`` buffers of
+the reference are rebuilt here and dropped from a checkpoint first). Weights are stored in equalized-LR raw
 form (linear weights ~N(0,1)/lr_mul, runtime scale lr_mul/sqrt(fan_in)).
 
 Public tensors are NHWC, as in the JAX package. A modulated conv is computed
@@ -18,10 +20,15 @@ fused kernel ``ops.styled_conv3x3``; the up convs run a transposed conv, the
 ``ops.upfirdn2d`` blur and ``ops.fused_leaky_relu``; the skip upsample in
 ``ToRGB`` runs ``ops.upfirdn2d`` at C=3 (the JAX package's polyphase shift
 form at >=128 px, ``SKIP_SHIFT_MIN_RES``, computes the same function).
+
+The discriminator runs its convs on cuDNN, its activations through
+``ops.fused_leaky_relu`` and the blur before each stride-2 conv through
+``ops.upfirdn2d``; a walk trains through all three backwards.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
@@ -146,6 +153,9 @@ class FusedLeakyReLU(nn.Module):
     def __init__(self, channels):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return fused_leaky_relu(x, self.bias)
 
 
 class StyledConv(nn.Module):
@@ -290,3 +300,124 @@ def channels_from_state_dict(sd, size: int) -> dict[int, int]:
     for j in range(int(math.log2(size)) - 2):
         ch[2 ** (j + 3)] = int(sd[f"convs.{2 * j}.conv.weight"].shape[1])
     return ch
+
+
+# ---------------------------------------------------------------------------
+# discriminator (JAX models/stylegan2.py:614-722)
+# ---------------------------------------------------------------------------
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-LR conv, NHWC in and out (cuDNN on channels_last memory)."""
+
+    def __init__(self, cin, cout, k, stride=1, padding=0, bias=True,
+                 generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(_randn((cout, cin, k, k), generator))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.scale = 1.0 / math.sqrt(cin * k * k)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        out = F.conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
+                       self.bias, stride=self.stride, padding=self.padding)
+        return out.permute(0, 2, 3, 1).contiguous()
+
+
+class Blur(nn.Module):
+    def __init__(self, pad):
+        super().__init__()
+        self.register_buffer("kernel", torch.from_numpy(make_kernel(BLUR_KERNEL)),
+                             persistent=False)
+        self.pad = pad
+
+    def forward(self, x):
+        return blur2d(x, self.kernel, pad=self.pad)
+
+
+class ConvLayer(nn.Sequential):
+    """[Blur if downsample] -> EqualConv2d -> [FusedLeakyReLU if activate],
+    indexed as the reference's Sequential (``conv2.1.weight``)."""
+
+    def __init__(self, cin, cout, k, downsample=False, bias=True,
+                 activate=True, generator=None):
+        layers = []
+        if downsample:
+            p = (len(BLUR_KERNEL) - 2) + (k - 1)
+            layers.append(Blur(((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, k // 2
+        layers.append(EqualConv2d(cin, cout, k, stride, padding,
+                                  bias=bias and not activate,
+                                  generator=generator))
+        if activate:  # every activated conv of D has a bias
+            layers.append(FusedLeakyReLU(cout))
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, cin, cout, generator=None):
+        super().__init__()
+        self.conv1 = ConvLayer(cin, cin, 3, generator=generator)
+        self.conv2 = ConvLayer(cin, cout, 3, downsample=True, generator=generator)
+        self.skip = ConvLayer(cin, cout, 1, downsample=True, bias=False,
+                              activate=False, generator=generator)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
+def minibatch_stddev(x, group_size: int = 4):
+    """Minibatch stddev channel over NHWC x -> [B, H, W, C+1].
+
+    The group falls back to the largest divisor of the batch <= group_size
+    (the reference's view needs batch % group == 0); at a prime batch above
+    the group size that is 1 and the channel is the constant sqrt(1e-8)."""
+    b, h, w, c = x.shape
+    g = min(b, group_size)
+    while b % g:
+        g -= 1
+    if g == 1 and b > 1 and not getattr(minibatch_stddev, "_warned_g1", False):
+        minibatch_stddev._warned_g1 = True
+        logging.getLogger(__name__).warning(
+            "minibatch_stddev: batch %d has no divisor <= group_size %d; "
+            "group=1 makes the stddev channel constant", b, group_size)
+    y = x.reshape(g, b // g, h, w, c)
+    std = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
+    stat = std.mean((1, 2, 3)).reshape(b // g, 1, 1, 1).repeat(g, h, w, 1)
+    return torch.cat([x, stat.to(x.dtype)], dim=-1)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator: image NHWC [B, size, size, 3] -> logits
+    [B, 1] f32."""
+
+    def __init__(self, size: int, channel_multiplier: int = 2,
+                 channels: dict[int, int] | None = None, generator=None):
+        super().__init__()
+        channels = channels or channel_table(channel_multiplier)
+        convs = [ConvLayer(3, channels[size], 1, generator=generator)]
+        cin = channels[size]
+        for i in range(int(math.log2(size)), 2, -1):
+            cout = channels[2 ** (i - 1)]
+            convs.append(ResBlock(cin, cout, generator=generator))
+            cin = cout
+        self.convs = nn.Sequential(*convs)
+        self.final_conv = ConvLayer(cin + 1, channels[4], 3, generator=generator)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 16, channels[4], activation=True,
+                        generator=generator),
+            EqualLinear(channels[4], 1, generator=generator),
+        )
+
+    def forward(self, img):
+        x = self.final_conv(minibatch_stddev(self.convs(img)))
+        # the reference flattens NCHW, in (c, h, w) order
+        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        return self.final_linear(x).float()
+
+
+def strip_blur_kernels(sd) -> dict:
+    """A rosinality state_dict without its fixed FIR ``.kernel`` buffers."""
+    return {k: v for k, v in sd.items() if not k.endswith(".kernel")}

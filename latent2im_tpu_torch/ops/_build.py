@@ -38,6 +38,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     # x, bias, y, n, c, is_bf16, slope, scale, stream
     "l2i_fused_act": (_P, _P, _P, _LL, _I, _I, _F, _F, _P),
+    # g, y, dx, n, is_bf16, slope, scale, stream
+    "l2i_fused_act_bwd": (_P, _P, _P, _LL, _I, _F, _F, _P),
     # x, k, out, B, H, W, C, OH, OW, kh, kw, up, down, px0, py0, stream
     "l2i_upfirdn2d": (_P, _P, _P) + (_I,) * 12 + (_P,),
     # x, w, s, d, noise, noise_w, bias, out, B, H, W, cin, cout,

@@ -1,5 +1,5 @@
 """Fused StyleGAN2 styled 3x3 conv: modulate -> conv -> demodulate -> noise ->
-bias -> LeakyReLU * sqrt(2), forward only.
+bias -> LeakyReLU * sqrt(2).
 
     out = lrelu(conv3x3_same(x * s, w) * d + noise_w * noise + bias) * sqrt(2)
 
@@ -8,6 +8,13 @@ for a non-up 3x3 layer, and as its Pallas kernel
 ``ops/pair_conv.py:fused_styled_conv3x3_pair``. On a CUDA tensor
 ``styled_conv3x3`` launches the hand-written kernel
 ``csrc/styled_conv3x3.cu``; on a CPU tensor it runs the plain PyTorch version.
+
+The TPU kernel is forward-only (JAX trains through its XLA form), so there is
+no backward kernel to port. When an operand needs a gradient the wrapper
+records an autograd node whose backward is device-agnostic torch code: the
+fused_act backward (a kernel on cuda) on the saved output, then cuDNN convs
+for the rest. The weight gradient is not written: G is frozen while a walk
+trains.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fused_act import fused_leaky_relu_bwd
 
 SQRT2 = math.sqrt(2.0)
 
@@ -34,16 +42,7 @@ def styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
     return (torch.where(out >= 0, out, out * negative_slope) * gain).contiguous()
 
 
-def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
-                   negative_slope: float = 0.2, gain: float = SQRT2):
-    """x [B,H,W,Cin] NHWC; w [3,3,Cin,Cout] pre-scaled by 1/sqrt(9 Cin);
-    s [B,Cin] modulation; d [B,Cout] demodulation; noise [1|B,H,W] or None;
-    noise_w a 1-element tensor; bias [Cout]. Returns [B,H,W,Cout]."""
-    if x.device.type == "cpu":
-        return styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
-                                    negative_slope, gain)
-    if x.device.type != "cuda":
-        raise ValueError(f"styled_conv3x3: unsupported device {x.device}")
+def _check_operands(x, w, s, d, noise, noise_w, bias):
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     expect = {"w": (3, 3, cin, cout), "s": (b, cin), "d": (b, cout),
@@ -69,11 +68,21 @@ def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
             raise ValueError(
                 f"styled_conv3x3: {name} must be contiguous f32 on {x.device}"
             )
+    return operands["noise_w"]
+
+
+def _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain):
+    if x.device.type == "cpu":
+        return styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
+                                    negative_slope, gain)
+    noise_w = _check_operands(x, w, s, d, noise, noise_w, bias)
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.library()
     rc = lib.l2i_styled_conv3x3(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), d.data_ptr(),
-        _build.ptr(noise), operands["noise_w"].data_ptr(), bias.data_ptr(),
+        _build.ptr(noise), noise_w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, h, wd, cin, cout,
         int(noise is not None and noise.shape[0] == b and b > 1),
         negative_slope, gain, _build.stream_of(x),
@@ -81,6 +90,72 @@ def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
     _build.check(rc, "styled_conv3x3")
     styled_conv3x3.launches += 1
     return out
+
+
+def _nchw(t):
+    """NHWC -> the NCHW view cuDNN takes (channels_last memory, no copy)."""
+    return t.permute(0, 3, 1, 2)
+
+
+class _StyledConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, d, noise, noise_w, bias, negative_slope, gain):
+        out = _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain)
+        ctx.save_for_backward(x, w, s, d, noise, noise_w, out)
+        ctx.negative_slope, ctx.gain = negative_slope, gain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, s, d, noise, noise_w, out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if need[1]:
+            raise NotImplementedError(
+                "styled_conv3x3: the weight gradient is not written; G trains "
+                "only under --updateGAN (ROADMAP.md queue A item 11)"
+            )
+        # gradient at the pre-activation z = y * d + noise_w * noise + bias
+        gz, _ = fused_leaky_relu_bwd(g.contiguous(), out, ctx.negative_slope,
+                                     ctx.gain, bias_grad=False)
+        gx = gs = gd = gnoise = gnw = gbias = None
+        if need[6]:
+            gbias = gz.sum((0, 1, 2))
+        if noise is not None and (need[4] or need[5]):
+            gz_c = gz.sum(-1)  # [B, H, W]
+            if need[5]:
+                gnw = (gz_c * noise).sum().reshape(noise_w.shape)
+            if need[4]:
+                gnoise = (gz_c * noise_w.reshape(())).sum(0, keepdim=True) \
+                    if noise.shape[0] == 1 else gz_c * noise_w.reshape(())
+        w_oihw = w.permute(3, 2, 0, 1)
+        if need[3]:
+            y = F.conv2d(_nchw(x * s[:, None, None, :]), w_oihw, padding=1)
+            gd = (gz * y.permute(0, 2, 3, 1)).sum((1, 2))
+        if need[0] or need[2]:
+            gy = gz * d[:, None, None, :]
+            gxs = torch.nn.grad.conv2d_input(
+                _nchw(x).shape, w_oihw, _nchw(gy), padding=1).permute(0, 2, 3, 1)
+            if need[0]:
+                gx = gxs * s[:, None, None, :]
+            if need[2]:
+                gs = (gxs * x).sum((1, 2))
+        return gx, None, gs, gd, gnoise, gnw, gbias, None, None
+
+
+def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
+                   negative_slope: float = 0.2, gain: float = SQRT2):
+    """x [B,H,W,Cin] NHWC; w [3,3,Cin,Cout] pre-scaled by 1/sqrt(9 Cin);
+    s [B,Cin] modulation; d [B,Cout] demodulation; noise [1|B,H,W] or None;
+    noise_w a 1-element tensor; bias [Cout]. Returns [B,H,W,Cout].
+    Differentiable in every operand but w."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"styled_conv3x3: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w, s, d, noise, noise_w, bias)):
+        return _StyledConv3x3.apply(x, w, s, d, noise, noise_w, bias,
+                                    negative_slope, gain)
+    return _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain)
 
 
 styled_conv3x3.launches = 0

@@ -1,15 +1,24 @@
-"""Per-transform alpha semantics at inference (numpy-only copy of
-latent2im_tpu/tasks/transforms.py:25-196).
+"""Per-transform alpha semantics (copy of latent2im_tpu/tasks/transforms.py:
+25-196 for the attribute tasks).
 
 Each task maps a scalar test alpha to the graph input; ``lo``/``hi`` record
-the transform's alpha range. The training samplers and the test/vis
-schedules wait for the training and vis slices; the geometric/color tasks
-for ROADMAP.md queue A item 12.
+the transform's alpha range. Two training samplers, both one uniform draw
+per attribute shared by the batch, as in the reference:
+
+  * ``train_alpha_np(rng, batch, n_attr)``  numpy RandomState, bit-matching
+    the JAX package's host sampler;
+  * ``train_alpha(generator, batch, n_attr)``  the same statistics on a
+    ``torch.Generator``, on the generator's device.
+
+Both return (alpha_for_graph [B, A], alpha_for_target [A]). The test/vis
+schedules wait for the vis slice; the geometric/color tasks and the dsprites
+slider composition for ROADMAP.md queue A item 12.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class Task:
@@ -21,6 +30,16 @@ class Task:
     def __init__(self, walk_type: str = "linear", nsliders: int = 1):
         self.walk_type = walk_type
         self.nsliders = nsliders
+
+    def train_alpha_np(self, rng: np.random.RandomState, batch: int,
+                       n_attr: int):
+        a = rng.uniform(self.lo, self.hi, n_attr).astype(np.float32)
+        return np.ones((batch, n_attr), np.float32) * a, a
+
+    def train_alpha(self, generator: torch.Generator, batch: int, n_attr: int):
+        a = torch.rand((n_attr,), generator=generator, device=generator.device)
+        a = a * (self.hi - self.lo) + self.lo
+        return a.expand(batch, n_attr), a
 
     def scale_test_alpha(self, alpha: float, batch: int,
                          n_sliders: int | None = None):
@@ -48,6 +67,14 @@ class ChairTransform(Task):
 
 class DspritesTransform(Task):
     lo, hi = -1.0, 1.0
+
+    def train_alpha_np(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the dsprites training sliders (a scale ladder, two x sliders) are "
+            "not ported yet (ROADMAP.md queue A item 12)"
+        )
+
+    train_alpha = train_alpha_np
 
 
 TASKS = {

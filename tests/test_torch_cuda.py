@@ -1,12 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions ON THE CARD,
-at ragged shapes the 256 px main path does not reach (chip_smoke.py holds
-them at the main-path shapes). Marked ``cuda``: without a card every test
-skips. On the GPU machine, which has no JAX (the repo's conftest imports it):
+at ragged shapes the 256 px main paths do not reach (chip_smoke.py holds
+them at the main-path shapes), forward and backward, and the autograd nodes
+of the three wrappers against autograd of the plain versions. Marked
+``cuda``: without a card every test skips. On the GPU machine, which has no
+JAX (the repo's conftest imports it):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances as in chip_smoke.py, relative to max |ref|: fused_act 1e-6,
-upfirdn2d 1e-5, styled conv 1e-4 (a 9*Cin-term f32 sum in another order).
+Tolerances as in chip_smoke.py, relative to max |ref|: fused_act and its
+backward 1e-6, upfirdn2d and its backward 1e-5, styled conv 1e-4 (a
+9*Cin-term f32 sum in another order); gradients through the styled conv
+2e-4 (cuDNN's convs against the plain version's, both f32 with TF32 off).
 """
 
 import math
@@ -126,3 +130,125 @@ def test_tiny_editor_on_the_card_matches_the_cpu(dev):
         outs.append([v.cpu().numpy() for v in ed.apply_alpha(walk, z, a)])
     for g, c in zip(*outs):
         assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((7, 3), torch.float32), ((2, 33, 5, 129), torch.float32),
+    ((3, 1000), torch.bfloat16), ((4, 64, 64, 512), torch.float32),
+])
+def test_fused_act_bwd_kernel(dev, shape, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = _randn(gen, dev, *shape).to(dtype)
+    out = _randn(gen, dev, *shape).to(dtype)
+    before = ops.fused_leaky_relu_bwd.launches
+    dx, db = ops.fused_leaky_relu_bwd(g, out)
+    assert ops.fused_leaky_relu_bwd.launches == before + 1
+    want_dx, want_db = ops.fused_leaky_relu_bwd_plain(g, out)
+    _close(dx, want_dx, 1e-6 if dtype == torch.float32 else 0)
+    _close(db, want_db, 1e-5)
+
+
+@pytest.mark.parametrize("up,down,pad,taps,h,w,c", [
+    # the training path's backward sites: D blurs, G blur, the skip's x2
+    (1, 1, (2, 2), [1, 3, 3, 1], 9, 9, 5),
+    (1, 1, (1, 1), [1, 3, 3, 1], 9, 7, 130),
+    (2, 1, (2, 1), [1, 3, 3, 1], 8, 8, 3),
+    # (H*up + p0 + p1 - k) % down != 0, crops, asymmetric kernel and pads
+    (1, 2, (1, 1), [1, 3, 3, 1], 9, 9, 33),
+    (1, 1, (-1, 2), [1, 3, 3, 1], 12, 12, 1),
+    (2, 1, (2, 1, 0, 3), ASYM, 6, 5, 3),
+    (1, 2, (-1, 2, 3, 0), ASYM, 11, 9, 2),
+    (2, 2, (1, 1), [1, 3, 3, 1], 8, 10, 33),
+    (4, 1, (3, 2), [1, 3, 3, 1], 5, 5, 3),
+])
+def test_upfirdn2d_bwd_kernel(dev, up, down, pad, taps, h, w, c):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    k = np.asarray(taps, np.float32)
+    k = ops.make_kernel(k) if k.ndim == 1 else k / k.sum()
+    oh, ow = ops.upfirdn2d_plain(torch.zeros(1, h, w, 1), k, up, down, pad).shape[1:3]
+    g = _randn(gen, dev, 2, oh, ow, c)
+    before = ops.upfirdn2d_bwd.launches
+    got = ops.upfirdn2d_bwd(g, k, up, down, pad, (h, w))
+    assert ops.upfirdn2d_bwd.launches == before + 1
+    gup, gdown, gpads = ops.transposed_params(k.shape, up, down, pad, (h, w), (oh, ow))
+    kf = np.ascontiguousarray(np.flip(k, (0, 1)))
+    _close(got, ops.upfirdn2d_plain(g, kf, gup, gdown, gpads), 1e-5)
+
+
+def _grads(fn, leaves, g):
+    leaves = {n: t.detach().clone().requires_grad_(n in NEEDS_GRAD)
+              for n, t in leaves.items()}
+    out = fn(**leaves)
+    assert out.grad_fn is not None  # the fault: a CUDA result without a node
+    out.backward(g)
+    torch.cuda.synchronize()
+    return out, {n: t.grad for n, t in leaves.items() if n in NEEDS_GRAD}
+
+
+NEEDS_GRAD = {"x", "bias", "s", "d", "noise", "noise_w"}
+
+
+def test_autograd_nodes_match_autograd_of_the_plain_versions(dev):
+    """All three wrappers on CUDA tensors that need a gradient record a node
+    (the launch counts rise) and give the plain versions' gradients."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev)
+    cases = {
+        "fused_act": (
+            lambda x, bias: ops.fused_leaky_relu(x, bias),
+            lambda x, bias: ops.fused_leaky_relu_plain(x, bias),
+            {"x": _randn(gen, dev, 2, 9, 7, 33), "bias": _randn(gen, dev, 33)},
+            (2, 9, 7, 33), 1e-6),
+        "upfirdn2d": (
+            lambda x: ops.upfirdn2d(x, k * 4, up=2, pad=(2, 1)),
+            lambda x: ops.upfirdn2d_plain(x, k * 4, up=2, pad=(2, 1)),
+            {"x": _randn(gen, dev, 2, 7, 9, 3)}, (2, 14, 18, 3), 1e-5),
+        "styled_conv3x3": (
+            lambda **a: ops.styled_conv3x3(**a),
+            lambda **a: ops.styled_conv3x3_plain(**a),
+            {"x": _randn(gen, dev, 2, 9, 11, 20),
+             "w": _randn(gen, dev, 3, 3, 20, 24) / math.sqrt(180),
+             "s": 1.0 + 0.2 * _randn(gen, dev, 2, 20),
+             "d": 0.5 + torch.rand((2, 24), generator=gen, device=dev),
+             "noise": _randn(gen, dev, 2, 9, 11), "noise_w": torch.full((1,), 0.3, device=dev),
+             "bias": 0.1 * _randn(gen, dev, 24)},
+            (2, 9, 11, 24), 2e-4),
+    }
+    for name, (fn, plain, leaves, out_shape, tol) in cases.items():
+        g = _randn(gen, dev, *out_shape)
+        before = ops.launch_counts()
+        out, got = _grads(fn, leaves, g)
+        after = ops.launch_counts()
+        assert after[name] == before[name] + 1, name
+        if name != "styled_conv3x3":
+            assert after[name + "_bwd"] == before[name + "_bwd"] + 1, name
+        else:
+            assert after["fused_act_bwd"] == before["fused_act_bwd"] + 1
+        want_out, want = _grads(plain, leaves, g)
+        _close(out.detach(), want_out.detach(), max(tol, 1e-4) if name == "styled_conv3x3" else tol)
+        for n in got:
+            _close(got[n], want[n], tol)
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
+    """One tiny walk-training step (fixed noise, host alpha) on the card and
+    on the CPU from the same seed: loss and walk gradient agree."""
+    from latent2im_tpu_torch.config.options import TrainOptions
+    from latent2im_tpu_torch.engine import train as T
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    conf = TrainOptions().parse(["--attrList", "Smiling", "--dev_tiny",
+                                 "--resolution", "32", "--models_dir", "unused",
+                                 "--fixed_noise"], print_opt=False)
+    z = np.random.RandomState(0).randn(2, 32).astype(np.float32)
+    a = np.asarray([[0.2], [0.2]], np.float32)
+    res = []
+    for device in (dev, "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        walk["w"].requires_grad_(True)
+        step = T.make_train_step(ed, None, T.make_optimizer(walk, 1e-3), host_alpha=True)
+        m = step(walk, z, sampled=a)
+        res.append((float(m["loss"]), walk["w"].grad.cpu()))
+    (lg, gg), (lc, gc) = res
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert float((gg - gc).norm() / gc.norm()) <= 1e-4

@@ -110,12 +110,16 @@ def _wrapper_calls(device):
                                            up=2, pad=(2, 1)),
         "styled_conv3x3": lambda: ops.styled_conv3x3(
             t(1, 4, 4, 2), t(3, 3, 2, 3), t(1, 2), t(1, 3), t(1, 4, 4), t(1), t(3)),
+        "fused_act_bwd": lambda: ops.fused_leaky_relu_bwd(t(2, 4, 8), t(2, 4, 8))[0],
+        "upfirdn2d_bwd": lambda: ops.upfirdn2d_bwd(
+            t(1, 8, 8, 3), ops.make_kernel([1, 3, 3, 1]), 2, 1, (2, 1), (4, 4)),
     }
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     before = ops.launch_counts()
-    assert set(before) == {"fused_act", "upfirdn2d", "styled_conv3x3"}
+    assert set(before) == {"fused_act", "fused_act_bwd", "upfirdn2d",
+                           "upfirdn2d_bwd", "styled_conv3x3"}
     for name, call in _wrapper_calls("cpu").items():
         assert call().device.type == "cpu"
     assert ops.launch_counts() == before
