@@ -14,7 +14,11 @@ phase raises, and the script exits non-zero):
      apply_alpha (B=4) or one training step (B=4) gives it, held against its
      plain PyTorch version on the card (f32, TF32 off), then timed with CUDA
      events beside its bound, the plain version and one PyTorch library call
-     computing the same function;
+     computing the same function, and alone on the device (a CUDA graph of
+     ten calls, no host gap); the styled conv's bound is its 3xTF32 work on
+     the tensor cores (the f32 CUDA-core bound is logged beside it), with
+     the tiling each shape took, and every upfirdn2d shape must take a
+     templated form of its kernel;
   4. serving: the edit server (serve_batch 4, 5 panels) answers /healthz,
      /edit of 1 and 4 samples and /sweep over HTTP; the launch counts, set to
      0 just before, must show every request went through the three forward
@@ -52,11 +56,19 @@ import zlib
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE, BATCH, PANELS = 256, 4, 5
 TRAIN_STEPS, TRAIN_WARMUP, CMP_BATCH = 10, 2, 2
-# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 on the CUDA cores
+# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 on the CUDA cores,
+# TF32 on the tensor cores (3xTF32 issues three TF32 products per f32 one)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# peak rate of the operations each kernel runs: the styled conv's f32
+# multiply-adds run as 3xTF32 on the tensor cores, the others on the CUDA cores
+FLOPS = {"styled_conv3x3": TF32_FLOPS / 3}
+# of max|ref|; the styled conv reads ~4e-6 from its plain version (cuDNN's
+# f32, itself 2e-6-4e-6 from f64), a variant without the flush of its
+# partial sums ~4e-5 (it failed phase 9's walk gradient)
 TOL = {"fused_act": 1e-6, "fused_act_bwd": 1e-6, "upfirdn2d": 1e-5,
-       "upfirdn2d_bwd": 1e-5, "styled_conv3x3": 1e-4}
+       "upfirdn2d_bwd": 1e-5, "styled_conv3x3": 1e-5}
 SOURCE = {
     "fused_act": ("latent2im_tpu_torch/ops/csrc/fused_act.cu",
                   "latent2im_tpu/ops/pallas_kernels.py:99"),
@@ -100,8 +112,26 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def device_ms(fn, reps: int = 10, iters: int = 5) -> float:
+    """Device time of one call without the host's launch gap: `reps` calls
+    captured in one CUDA graph, the graph replayed `iters` times; median per
+    call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, warmup=1, iters=iters) / reps
+
+
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -185,8 +215,10 @@ def _upfirdn_library(x_nhwc, k, up, down, pads):
 
 
 def kernel_cases(name, case, gen, dev):
-    """-> (kernel call, plain call, library call, bytes, flops). Calls
-    return a tensor or a tuple of tensors."""
+    """-> (kernel call, plain call, library call, bytes, flops, f64 call or
+    None, the input tensor). Calls return a tensor or a tuple of tensors;
+    the f64 call is the plain version on the same inputs in f64 (the styled
+    conv's)."""
     import torch
     import torch.nn.functional as F
 
@@ -204,7 +236,7 @@ def kernel_cases(name, case, gen, dev):
         return (lambda: ops.fused_leaky_relu(x, b),
                 lambda: ops.fused_leaky_relu_plain(x, b),
                 lambda: F.leaky_relu(x + b, 0.2) * sqrt2,
-                8 * n + 4 * b.numel(), 3 * n)
+                8 * n + 4 * b.numel(), 3 * n, None, x)
     if name == "fused_act_bwd":
         shape = case
         g, out = randn(*shape), randn(*shape)
@@ -216,7 +248,7 @@ def kernel_cases(name, case, gen, dev):
 
         return (lambda: ops.fused_leaky_relu_bwd(g, out),
                 lambda: ops.fused_leaky_relu_bwd_plain(g, out),
-                library, 12 * n + 4 * c, 2 * n)
+                library, 12 * n + 4 * c, 2 * n, None, g)
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         bsz, h, w, c, up, pad, gain = case
         k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
@@ -228,7 +260,7 @@ def kernel_cases(name, case, gen, dev):
             return (lambda: ops.upfirdn2d(x, k, up=up, pad=pad),
                     lambda: ops.upfirdn2d_plain(x, k, up=up, pad=pad),
                     _upfirdn_library(x, k, up, 1, pads),
-                    4 * (x.numel() + out_n + 16), 2 * (16 // (up * up)) * out_n)
+                    4 * (x.numel() + out_n + 16), 2 * (16 // (up * up)) * out_n, None, x)
         g = randn(bsz, oh, ow, c)
         gup, gdown, gpads = ops.transposed_params((4, 4), up, 1, pad, (h, w), (oh, ow))
         kf = torch.flip(k, (0, 1))
@@ -236,7 +268,7 @@ def kernel_cases(name, case, gen, dev):
         return (lambda: ops.upfirdn2d_bwd(g, k, up, 1, pad, (h, w)),
                 lambda: ops.upfirdn2d_plain(g, kf, gup, gdown, gpads),
                 _upfirdn_library(g, kf, gup, gdown, gpads),
-                4 * (g.numel() + in_n + 16), 2 * 16 * in_n)
+                4 * (g.numel() + in_n + 16), 2 * 16 * in_n, None, g)
     bsz, h, cin, cout = case
     x = randn(bsz, h, h, cin)
     w = randn(3, 3, cin, cout) / math.sqrt(9 * cin)
@@ -257,7 +289,27 @@ def kernel_cases(name, case, gen, dev):
     nbytes = 4 * (x.numel() + w.numel() + s.numel() + d.numel() + noise.numel()
                   + 1 + cout + bsz * h * h * cout)
     return (lambda: ops.styled_conv3x3(*args), lambda: ops.styled_conv3x3_plain(*args),
-            library, nbytes, 2 * bsz * h * h * 9 * cin * cout)
+            library, nbytes, 2 * bsz * h * h * 9 * cin * cout,
+            lambda: ops.styled_conv3x3_plain(*(a.double() for a in args)), x)
+
+
+def kernel_variant(name, case, inp, got):
+    """The kernel instance a main-path shape takes: the styled conv's tiling
+    and split count, upfirdn2d's form for the launch that read `inp` and
+    wrote `got` (which must be a templated one)."""
+    from latent2im_tpu_torch import ops
+
+    if name == "styled_conv3x3":
+        bsz, h, cin, cout = case
+        return ops.styled_conv3x3_plan(bsz, h, h, cin, cout)
+    if name in ("upfirdn2d", "upfirdn2d_bwd"):
+        up = case[4]  # the gradient is the op with up and down swapped
+        form = ops.upfirdn2d_form(inp, got, (4, 4), *((up, 1) if name == "upfirdn2d"
+                                                      else (1, up)))
+        if not form.startswith("templated"):
+            raise AssertionError(f"{name} {case}: takes the {form} form")
+        return form
+    return None
 
 
 def _max_err(got, want):
@@ -276,36 +328,58 @@ def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {n: {p: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                       "launches": 0} for p in ("apply_alpha", "train_step")}
+                       "device_ms": 0.0, "launches": 0}
+                   for p in ("apply_alpha", "train_step")}
                for n in SOURCE}
     max_err = dict.fromkeys(SOURCE, 0.0)
     details = []
     for (name, case), counts in sorted(main_path_shapes().items(), key=str):
-        kern, plain, lib, nbytes, flops = kernel_cases(name, case, gen, dev)
+        kern, plain, lib, nbytes, flops, f64, inp = kernel_cases(name, case, gen, dev)
         got = kern()
         torch.cuda.synchronize()
-        err, scale = _max_err(got, plain())
+        want = plain()
+        err, scale = _max_err(got, want)
+        to_f64 = None  # the kernel's and the plain version's error / max|ref| in f64
+        if f64 is not None:
+            ref = f64()
+            to_f64 = {k: (v.double() - ref).abs().max().item() / ref.abs().max().item()
+                      for k, v in (("kernel", got), ("plain", want))}
         if not (math.isfinite(err) and err <= TOL[name] * scale):
             raise AssertionError(
                 f"{name} {case}: max abs err {err:.3e} > {TOL[name]} * "
                 f"max|ref| {scale:.3e}")
         max_err[name] = max(max_err[name], err)
         t_k, t_p, t_l = time_ms(kern), time_ms(plain), time_ms(lib)
-        b_ms, _ = bound_ms(nbytes, flops)
-        details.append({"kernel": name, "case": repr(case),
+        t_d = device_ms(kern)
+        rate = FLOPS.get(name, F32_FLOPS)
+        b_ms, _ = bound_ms(nbytes, flops, rate)
+        f32_ms = bound_ms(nbytes, flops)[0] if rate != F32_FLOPS else None
+        variant = kernel_variant(name, case, inp, got)
+        if variant is not None:
+            log(f"    {name} {case}: {variant}; {t_k:.4f} ms (device {t_d:.4f}), "
+                f"library {t_l:.4f}, bound {b_ms:.4f}"
+                + (f" (f32 CUDA-core bound {f32_ms:.4f})" if f32_ms else ""))
+        if to_f64 is not None:
+            log(f"    {name} {case}: max error / max|ref| against f64: kernel "
+                f"{to_f64['kernel']:.3e}, plain (cuDNN f32) {to_f64['plain']:.3e}")
+        details.append({"kernel": name, "case": repr(case), "variant": variant,
+                        "err_to_f64": to_f64,
+                        "f32_bound_ms": f32_ms,
                         "launches_per_apply_alpha": counts[0],
                         "launches_per_train_step": counts[1],
                         "max_abs_err": err, "max_abs_ref": scale, "ms": t_k,
+                        "device_ms": t_d,
                         "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
                         "bytes": nbytes, "flops": flops})
         for path, n in zip(("apply_alpha", "train_step"), counts):
             r = results[name][path]
             r["ms"] += n * t_k
+            r["device_ms"] += n * t_d
             r["plain_ms"] += n * t_p
             r["library_ms"] += n * t_l
             r["bound_ms"] += n * b_ms
             r["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
-            r["ops_ms"] += n * flops / F32_FLOPS * 1e3
+            r["ops_ms"] += n * flops / rate * 1e3
             r["launches"] += n
     for name, paths in results.items():
         for r in paths.values():
@@ -313,7 +387,7 @@ def kernel_phase(dev):
         r = paths["train_step"]
         a = paths["apply_alpha"]
         log(f"  {name}: max abs err {max_err[name]:.3e}; per training step "
-            f"{r['launches']} launches, {r['ms']:.4f} ms (plain "
+            f"{r['launches']} launches, {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}); per apply_alpha "
             f"{a['launches']} launches, {a['ms']:.4f} ms")
@@ -452,8 +526,8 @@ def serve_phase(results, dev):
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match
-    ("styled_conv3x3 (ours)", ("small_tile_kernel", "large_tile_kernel")),
-    ("upfirdn2d (ours, forward and backward)", ("upfirdn2d_kernel",)),
+    ("styled_conv3x3 (ours)", ("styled_conv_tc_kernel", "styled_conv_splitk_reduce_kernel")),
+    ("upfirdn2d (ours, forward and backward)", ("upfirdn2d_tiled_kernel",)),
     ("fused_act backward (ours)", ("fused_act_bwd_kernel",)),
     ("fused_act (ours)", ("fused_act_kernel",)),
     ("cuDNN/cuBLAS conv + GEMM", ("cudnn", "xmma", "gemm", "conv", "cutlass", "wgrad",
@@ -782,6 +856,7 @@ def main() -> int:
             "max_abs_err": max_err[n], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "per": f"training step, {SIZE} px, B={BATCH}",
+            "device_ms": r["device_ms"],
             "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "kernels": kernels, "shapes": details, "serve": serve, "profile": prof,

@@ -9,9 +9,11 @@ through the kernels."""
 
 from .fused_act import (fused_leaky_relu, fused_leaky_relu_bwd,
                         fused_leaky_relu_bwd_plain, fused_leaky_relu_plain)
-from .styled_conv import styled_conv3x3, styled_conv3x3_plain
+from .styled_conv import (styled_conv3x3, styled_conv3x3_plain,
+                          styled_conv3x3_plan, styled_conv3x3_tf32)
 from .upfirdn2d import (blur2d, downsample2d, make_kernel, transposed_params,
-                        upfirdn2d, upfirdn2d_bwd, upfirdn2d_plain, upsample2d)
+                        upfirdn2d, upfirdn2d_bwd, upfirdn2d_form,
+                        upfirdn2d_plain, upsample2d)
 
 KERNELS = {
     "fused_act": fused_leaky_relu,
@@ -36,6 +38,7 @@ __all__ = [
     "fused_leaky_relu_bwd", "fused_leaky_relu_bwd_plain",
     "fused_leaky_relu_plain", "launch_counts", "make_kernel",
     "reset_launches", "styled_conv3x3", "styled_conv3x3_plain",
-    "transposed_params", "upfirdn2d", "upfirdn2d_bwd", "upfirdn2d_plain",
+    "styled_conv3x3_plan", "styled_conv3x3_tf32", "transposed_params",
+    "upfirdn2d", "upfirdn2d_bwd", "upfirdn2d_form", "upfirdn2d_plain",
     "upsample2d",
 ]

@@ -7,7 +7,11 @@ The same function as the JAX package's ``models/stylegan2.py:styled_conv``
 for a non-up 3x3 layer, and as its Pallas kernel
 ``ops/pair_conv.py:fused_styled_conv3x3_pair``. On a CUDA tensor
 ``styled_conv3x3`` launches the hand-written kernel
-``csrc/styled_conv3x3.cu``; on a CPU tensor it runs the plain PyTorch version.
+``csrc/styled_conv3x3.cu`` (3xTF32 on the tensor cores: a launch that
+lays the weight out K-major, the product, and at the small resolutions a
+split-K reduction launch); on a CPU tensor it runs the plain PyTorch
+version. ``styled_conv3x3_tf32`` repeats the kernel's
+numerics in plain PyTorch for the tests.
 
 The TPU kernel is forward-only (JAX trains through its XLA form), so there is
 no backward kernel to port. When an operand needs a gradient the wrapper
@@ -19,6 +23,8 @@ trains.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -30,16 +36,71 @@ from .fused_act import fused_leaky_relu_bwd
 SQRT2 = math.sqrt(2.0)
 
 
-def styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
-                         negative_slope: float = 0.2, gain: float = SQRT2):
-    """Plain PyTorch version (same operands as ``styled_conv3x3``)."""
-    xs = (x * s[:, None, None, :]).permute(0, 3, 1, 2)
-    out = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
-    out = out * d[:, None, None, :]
+def _conv(xs, w):
+    """conv3x3_same of NHWC xs with [3, 3, Cin, Cout] w -> NHWC."""
+    return F.conv2d(xs.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def _epilogue(y, d, noise, noise_w, bias, negative_slope, gain):
+    out = y * d[:, None, None, :]
     if noise is not None:
         out = out + noise_w * noise[..., None]
     out = out + bias
     return (torch.where(out >= 0, out, out * negative_slope) * gain).contiguous()
+
+
+def styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
+                         negative_slope: float = 0.2, gain: float = SQRT2):
+    """Plain PyTorch version (same operands as ``styled_conv3x3``)."""
+    return _epilogue(_conv(x * s[:, None, None, :], w), d, noise, noise_w,
+                     bias, negative_slope, gain)
+
+
+def tf32_round(t):
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits' range to
+    the magnitude, then clear them."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """t = big + small (to within 2^-22 of |t|), both TF32."""
+    big = tf32_round(t)
+    return big, tf32_round(t - big)
+
+
+def styled_conv3x3_tf32(x, w, s, d, noise, noise_w, bias,
+                        negative_slope: float = 0.2, gain: float = SQRT2,
+                        passes: int = 3):
+    """The CUDA kernel's numerics in plain PyTorch (f32 operands): x * s and
+    w split into TF32 halves; passes=3 sums the products small*big +
+    big*small + big*big (3xTF32, what the kernel computes), passes=1 only
+    big*big (single-pass TF32). TF32 products are exact in f32, so f32
+    convolutions of the halves give the tensor cores' products; their sums
+    round as f32 adds do, not with the tensor cores' truncating
+    accumulation, which this does not model. For tests."""
+    (ab, al), (bb, bl) = tf32_split(x * s[:, None, None, :]), tf32_split(w)
+    if passes == 1:
+        y = _conv(ab, bb)
+    elif passes == 3:
+        y = _conv(al, bb) + _conv(ab, bl) + _conv(ab, bb)
+    else:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    return _epilogue(y, d, noise, noise_w, bias, negative_slope, gain)
+
+
+@functools.lru_cache(maxsize=None)
+def styled_conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int) -> dict:
+    """The CUDA kernel's tiling for a shape: {"tile": (BM, BN), "splits": S,
+    "workspace_floats": n}, the workspace holding the K-major weight and,
+    with S > 1 (split K, a last launch reduces), the partial sums. Cached
+    per shape; do not modify the result."""
+    plan = (ctypes.c_int * 3)()
+    n = _build.library().l2i_styled_conv3x3_plan(b, h, w, cin, cout,
+                                                  ctypes.addressof(plan))
+    return {"tile": (plan[0], plan[1]), "splits": plan[2], "workspace_floats": n}
 
 
 def _check_operands(x, w, s, d, noise, noise_w, bias):
@@ -79,11 +140,12 @@ def _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain):
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    rc = lib.l2i_styled_conv3x3(
+    n_ws = styled_conv3x3_plan(b, h, wd, cin, cout)["workspace_floats"]
+    ws = torch.empty(n_ws, dtype=x.dtype, device=x.device)
+    rc = _build.library().l2i_styled_conv3x3(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), d.data_ptr(),
         _build.ptr(noise), noise_w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, wd, cin, cout,
+        out.data_ptr(), ws.data_ptr(), b, h, wd, cin, cout,
         int(noise is not None and noise.shape[0] == b and b > 1),
         negative_slope, gain, _build.stream_of(x),
     )

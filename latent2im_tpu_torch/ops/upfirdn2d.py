@@ -103,6 +103,16 @@ def _launch(x, k, up, down, pads, oh, ow):
     return out
 
 
+def upfirdn2d_form(x, out, k_shape, up: int, down: int) -> str:
+    """Which instance of the CUDA kernel the launch reading ``x`` [B,H,W,C]
+    and writing ``out`` takes, by the launch's own test: "templated float4"
+    or "templated" (4x4 taps, (up, down) of (1, 1), (2, 1) or (1, 2); float4
+    where C % 4 == 0 and both are 16-byte aligned), else "generic"."""
+    form = _build.library().l2i_upfirdn2d_form(
+        x.data_ptr(), out.data_ptr(), x.shape[-1], *k_shape, up, down)
+    return {0: "generic", 1: "templated", 4: "templated float4"}[form]
+
+
 def _forward(x, k, up, down, pads):
     if x.device.type == "cpu":
         return upfirdn2d_plain(x, k, up, down, pads)

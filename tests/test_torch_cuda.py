@@ -8,8 +8,12 @@ JAX (the repo's conftest imports it):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances as in chip_smoke.py, relative to max |ref|: fused_act and its
-backward 1e-6, upfirdn2d and its backward 1e-5, styled conv 1e-4 (a
-9*Cin-term f32 sum in another order); gradients through the styled conv
+backward 1e-6, upfirdn2d and its backward 1e-5, styled conv 1e-5 (a
+9*Cin-term sum of 3xTF32 products in f32, in another order; the kernel reads
+~4e-6 from the plain version at 512 channels, a kernel that let the tensor
+cores' truncating accumulation run over all of K read ~4e-5:
+tests/test_torch_tf32split.py shows why the 3xTF32 split holds it and
+single-pass TF32 does not); gradients through the styled conv
 2e-4 (cuDNN's convs against the plain version's, both f32 with TF32 off).
 """
 
@@ -22,6 +26,7 @@ import torch
 from latent2im_tpu_torch import ops
 
 pytestmark = pytest.mark.cuda
+SC_TOL = 1e-5  # styled conv, as chip_smoke.py TOL["styled_conv3x3"]
 
 
 @pytest.fixture
@@ -92,15 +97,90 @@ def test_upfirdn2d_kernel(dev, up, down, pad, taps, h, w, c):
 ])
 def test_styled_conv_kernel(dev, b, h, w, cin, cout, noise_b):
     gen = torch.Generator(device=dev).manual_seed(2)
+    args = _styled_args(gen, dev, b, h, w, cin, cout, noise_b)
+    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), SC_TOL)
+
+
+def _styled_args(gen, dev, b, h, w, cin, cout, noise_b):
     x = _randn(gen, dev, b, h, w, cin)
     wt = _randn(gen, dev, 3, 3, cin, cout) / math.sqrt(9 * cin)
     s = 1.0 + 0.2 * _randn(gen, dev, b, cin)
     d = torch.rsqrt(s.square() @ wt.square().sum((0, 1)) + 1e-8)
     noise = None if noise_b is None else _randn(gen, dev, noise_b, h, w)
-    nw = torch.full((1,), 0.3, device=dev)
-    bias = 0.1 * _randn(gen, dev, cout)
-    args = (x, wt, s, d, noise, nw, bias)
-    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), 1e-4)
+    return (x, wt, s, d, noise, torch.full((1,), 0.3, device=dev),
+            0.1 * _randn(gen, dev, cout))
+
+
+@pytest.mark.parametrize("h", [4, 8, 16, 32])
+def test_styled_conv_kernel_small_layers_split_k_across_the_batch(dev, h):
+    """The main path's 4-32 px layers (B=4, 512 -> 512): 64 x 128 tiles over
+    M = B*H*W (a tile spans samples at 4 px), K split where the grid is
+    under two blocks per SM."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = _styled_args(gen, dev, 4, h, h, 512, 512, 1)
+    plan = ops.styled_conv3x3_plan(4, h, h, 512, 512)
+    assert plan["tile"] == (64, 128)
+    assert plan["splits"] > 1 or h > 16, plan
+    before = ops.styled_conv3x3.launches
+    got = ops.styled_conv3x3(*args)
+    assert ops.styled_conv3x3.launches == before + 1  # one per call, split or not
+    _close(got, ops.styled_conv3x3_plain(*args), SC_TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (17, 30)])
+def test_styled_conv_kernel_tile_ends_mid_sample(dev, cin, cout):
+    """M = 3*5*7 = 105: the second 64-row tile holds the end of sample 1,
+    all of sample 2 and then rows past M; per-sample noise, s and d."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args = _styled_args(gen, dev, 3, 5, 7, cin, cout, 3)
+    assert ops.styled_conv3x3_plan(3, 5, 7, cin, cout)["tile"] == (64, 128)
+    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), SC_TOL)
+
+
+@pytest.mark.parametrize("h,cin", [(8, 512), (64, 512)])
+def test_styled_conv_kernel_is_deterministic(dev, h, cin):
+    """No float atomics: split-K partial sums add in split order, so two
+    calls give bit-identical results (split at 8 px, not at 64 px)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    args = _styled_args(gen, dev, 4, h, h, cin, cin, 1)
+    a, b = ops.styled_conv3x3(*args), ops.styled_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# every upfirdn2d form of the 256 px paths, at full width: G's blur after an
+# up conv (pad 1), D's blurs (pad 2 and 1), the ToRGB skip's x2 upsample (C=3)
+# and their gradients (up 1 down 1; the skip's: up 1 down 2); odd, non-square
+MAIN_FORMS = [
+    (4, 129, 129, 256, 2, (1, 1), 4.0),
+    (4, 64, 64, 512, 1, (2, 2), 1.0),
+    (4, 256, 256, 128, 1, (1, 1), 1.0),
+    (4, 128, 128, 3, 2, (2, 1), 4.0),
+    (2, 33, 47, 128, 1, (1, 1), 4.0),
+    (2, 31, 17, 3, 2, (2, 1), 4.0),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,up,pad,gain", MAIN_FORMS)
+def test_upfirdn2d_kernel_main_path_forms(dev, b, h, w, c, up, pad, gain):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
+    x = _randn(gen, dev, b, h, w, c)
+    before = ops.upfirdn2d.launches
+    got = ops.upfirdn2d(x, k, up=up, pad=pad)
+    assert ops.upfirdn2d.launches == before + 1
+    form = "templated float4" if c % 4 == 0 else "templated"
+    assert ops.upfirdn2d_form(x, got, (4, 4), up, 1) == form
+    _close(got, ops.upfirdn2d_plain(x, k, up=up, pad=pad), 1e-5)
+
+    oh, ow = got.shape[1:3]
+    g = _randn(gen, dev, b, oh, ow, c)
+    gup, gdown, gpads = ops.transposed_params((4, 4), up, 1, pad, (h, w), (oh, ow))
+    before = ops.upfirdn2d_bwd.launches
+    dx = ops.upfirdn2d_bwd(g, k, up, 1, pad, (h, w))
+    assert ops.upfirdn2d_bwd.launches == before + 1
+    assert ops.upfirdn2d_form(g, dx, (4, 4), gup, gdown) == form
+    _close(dx, ops.upfirdn2d_plain(g, torch.flip(k, (0, 1)), gup, gdown, gpads), 1e-5)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -225,7 +305,7 @@ def test_autograd_nodes_match_autograd_of_the_plain_versions(dev):
         else:
             assert after["fused_act_bwd"] == before["fused_act_bwd"] + 1
         want_out, want = _grads(plain, leaves, g)
-        _close(out.detach(), want_out.detach(), max(tol, 1e-4) if name == "styled_conv3x3" else tol)
+        _close(out.detach(), want_out.detach(), SC_TOL if name == "styled_conv3x3" else tol)
         for n in got:
             _close(got[n], want[n], tol)
 

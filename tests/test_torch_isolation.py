@@ -132,12 +132,19 @@ def test_other_devices_are_refused():
 
 
 def test_kernel_build_is_one_nvcc_call_for_sm_90a(monkeypatch):
+    """One nvcc call per source for sm_90a, all run together, then one link
+    call (the name is kept from when one call compiled every source)."""
     monkeypatch.setattr(_build, "nvcc", lambda: "/opt/cuda/bin/nvcc")
-    cmd = _build.build_command("out.so")
-    srcs = [c for c in cmd if c.endswith(".cu")]
+    compiles, link = _build.build_commands("out.so")
+    srcs = [c for cmd in compiles for c in cmd if c.endswith(".cu")]
+    assert len(srcs) == len(compiles)  # one nvcc call per source, run together
     assert {os.path.basename(s) for s in srcs} >= {
         "fused_act.cu", "upfirdn2d.cu", "styled_conv3x3.cu"}
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == "out.so"
+    assert link[-len(objs):] == objs
     path = _build.library_path()
     assert path.startswith(os.path.join(REPO, "build", "torch_kernels"))
     assert path == _build.library_path()  # stable name for unchanged sources
