@@ -32,7 +32,21 @@ phase raises, and the script exits non-zero):
      of all five kernels; losses finite, the walk moved;
   8. one training step under torch.profiler, as phase 5;
   9. one training step (B=2, same weights, stored noise, host alphas) on
-     cuda and on cpu must agree in loss and walk gradient.
+     cuda and on cpu must agree in loss and walk gradient;
+ 10. the CLIs (chiprun_out/cli/): cli.train.run (Smiling, B=4, 8 samples,
+     2 epochs) with a SIGTERM after its second step, then --resume to the
+     final checkpoint, whose walk, and the last epoch's Adam state, must
+     reload bit for bit; train_multi_attr (Smiling,Young, one step) through
+     its main(); `python -m latent2im_tpu_torch.cli.vis_w` as two processes
+     (2 samples x 5 panels; the --combine_indices grid), PNGs and
+     index.html; the server with --save_path_w, warmed as its main() warms
+     it, whose /edit of 4 must give apply_alpha's uint8 images exactly
+     (cuDNN set to deterministic algorithms for this part). The launch
+     counts, set to 0 before each
+     in-process part, must show all five kernels in training and the three
+     forward kernels in serving.
+Phase 3 times fused_act's backward as both main paths call it (dx only;
+the towers are frozen), and holds its bias gradient apart at one shape.
 It ends with one JSON line of the kernels' numbers and, last, the line
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -238,17 +252,16 @@ def kernel_cases(name, case, gen, dev):
                 lambda: F.leaky_relu(x + b, 0.2) * sqrt2,
                 8 * n + 4 * b.numel(), 3 * n, None, x)
     if name == "fused_act_bwd":
+        # dx only, as both main paths call it: G, D and the towers are
+        # frozen, so no bias gradient is asked for (fused_act_db_check holds
+        # db apart)
         shape = case
         g, out = randn(*shape), randn(*shape)
-        n, c = g.numel(), shape[-1]
-
-        def library():
-            dx = torch.where(out > 0, g, 0.2 * g) * sqrt2
-            return dx, dx.reshape(-1, c).sum(0)
-
-        return (lambda: ops.fused_leaky_relu_bwd(g, out),
-                lambda: ops.fused_leaky_relu_bwd_plain(g, out),
-                library, 12 * n + 4 * c, 2 * n, None, g)
+        n = g.numel()
+        return (lambda: ops.fused_leaky_relu_bwd(g, out, bias_grad=False)[0],
+                lambda: ops.fused_leaky_relu_bwd_plain(g, out, bias_grad=False)[0],
+                lambda: torch.where(out > 0, g, 0.2 * g) * sqrt2,
+                12 * n, 2 * n, None, g)
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         bsz, h, w, c, up, pad, gain = case
         k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
@@ -320,6 +333,24 @@ def _max_err(got, want):
     return max(e for e, _ in errs), min(m for _, m in errs)
 
 
+def fused_act_db_check(gen, dev):
+    """The bias gradient of fused_act's backward (dx from the kernel, then a
+    sum over rows), which no main path asks for, held against the plain
+    version by value at the largest main-path shape; not timed."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+
+    shape = (BATCH, SIZE, SIZE, 128)
+    g, out = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    err, scale = _max_err(ops.fused_leaky_relu_bwd(g, out),
+                          ops.fused_leaky_relu_bwd_plain(g, out))
+    if not (math.isfinite(err) and err <= TOL["fused_act_bwd"] * scale):
+        raise AssertionError(f"fused_act_bwd (dx, db) {shape}: max abs err {err:.3e}")
+    log(f"    fused_act_bwd with db {shape}: max abs err {err:.3e} (not timed)")
+    return err
+
+
 def kernel_phase(dev):
     """Per kernel, per main path: launches and the sums over shapes of
     launches x (kernel, plain, library, bound) ms."""
@@ -381,6 +412,8 @@ def kernel_phase(dev):
             r["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
             r["ops_ms"] += n * flops / rate * 1e3
             r["launches"] += n
+    details.append({"kernel": "fused_act_bwd", "case": "with db (not on a main path)",
+                    "max_abs_err": fused_act_db_check(gen, dev)})
     for name, paths in results.items():
         for r in paths.values():
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
@@ -389,7 +422,8 @@ def kernel_phase(dev):
         log(f"  {name}: max abs err {max_err[name]:.3e}; per training step "
             f"{r['launches']} launches, {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}); per apply_alpha "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}; share of bound {r['bound_ms'] / r['ms']:.0%}, "
+            f"on the device clock {r['bound_ms'] / r['device_ms']:.0%}); per apply_alpha "
             f"{a['launches']} launches, {a['ms']:.4f} ms")
     return results, max_err, details
 
@@ -779,6 +813,219 @@ def train_cpu_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the CLI flow
+# ---------------------------------------------------------------------------
+
+
+def _cli_args(root, attrs, samples, epochs, *extra):
+    return ["--model", "stylegan_v2_real", "--transform", "face", "--walk_type", "linear",
+            "--latent", "w", "--attrList", attrs, "--resolution", str(SIZE),
+            "--batch_size", str(BATCH), "--num_samples", str(samples), "--n_epochs",
+            str(epochs), "--models_dir", root, "--overwrite_config", *extra]
+
+
+def _vis_w(*args):
+    """`python -m latent2im_tpu_torch.cli.vis_w ...` as a user types it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "latent2im_tpu_torch.cli.vis_w", *args], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _check_vis(proc, out_dir, names):
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"vis_w exited {proc.returncode}:\n{text[-3000:]}")
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    assert [p[:len(n)] for p, n in zip(pngs, names)] == names, (pngs, names)
+    assert len(pngs) == len(names) and os.path.isfile(os.path.join(out_dir, "index.html"))
+    return pngs
+
+
+def cli_phase():
+    """The CLIs at 256 px, full width, on the card, in chiprun_out/cli/:
+    train (Smiling, SIGTERM after the second step of epoch 0, --resume to
+    the final checkpoint), train_multi_attr (Smiling,Young), vis_w as two
+    subprocesses (panel sweep; --combine_indices grid), and serve with
+    --save_path_w. The launch counts are set to 0 before each in-process part
+    and read just after."""
+    import base64
+    import copy
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.cli import train_multi_attr
+    from latent2im_tpu_torch.cli.serve import build_service, make_server
+    from latent2im_tpu_torch.config.options import TrainOptions, VisOptions
+    from latent2im_tpu_torch.engine.train import make_optimizer
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+
+    root = os.path.join(REPO, "chiprun_out", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"seconds": {}, "launches": {}}
+    epoch_end, fired = {}, {"n": 0, "kill": True}
+    real_loop = tcli.train_loop
+
+    def loop(*a, **kw):  # SIGTERM after the 2nd step; the epochs' last state
+        on_step, on_epoch_end = kw["on_step"], kw["on_epoch_end"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            fired["n"] += 1
+            if fired["kill"] and fired["n"] == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def recording_on_epoch_end(epoch, wp, st):
+            on_epoch_end(epoch, wp, st)
+            epoch_end[epoch] = ({k: v.detach().clone() for k, v in wp.items()},
+                                copy.deepcopy(st))
+
+        kw.update(on_step=killing_on_step, on_epoch_end=recording_on_epoch_end)
+        return real_loop(*a, **kw)
+
+    # train, SIGTERM, --resume
+    t0 = time.perf_counter()
+    tcli.train_loop = loop
+    try:
+        ops.reset_launches()
+        args = _cli_args(os.path.join(root, "single"), "Smiling", 2 * BATCH, 2,
+                         "--model_save_freq", "1")
+        opt = TrainOptions().parse(args, print_opt=True)
+        tcli.run(opt)  # cuda: the entry point's default
+        run_dir = opt.output_dir
+        listing = sorted(os.listdir(run_dir))
+        resume_from = ckpt.find_resume(run_dir)
+        meta = ckpt.load_meta(resume_from)
+        assert "model_w_2_final_walk_module.ckpt" not in listing, listing
+        assert meta.get("preempted") is True, (resume_from, meta)
+        fired["kill"] = False
+        walk, history = tcli.run(TrainOptions().parse(args + ["--resume"], print_opt=False))
+    finally:
+        tcli.train_loop = real_loop
+    torch.cuda.synchronize()
+    out["launches"]["train"] = ops.launch_counts()
+    out["seconds"]["train_sigterm_resume"] = time.perf_counter() - t0
+    assert all(v > 0 for v in out["launches"]["train"].values()), out["launches"]
+    assert all(math.isfinite(h) for h in history), history
+    like = {"w": torch.zeros_like(walk["w"])}
+    final_path = os.path.join(run_dir, "model_w_2_final_walk_module.ckpt")
+    final, _, _ = ckpt.load_walk(final_path, like)
+    assert torch.equal(final["w"], walk["w"].detach()), "final walk differs"
+    last_walk, last_state = epoch_end[1]
+    w1, st1, _ = ckpt.load_walk(os.path.join(run_dir, "model_w_1_walk_module.ckpt"), like,
+                                opt_state_like=make_optimizer(like, 1e-4).state_dict())
+    assert torch.equal(w1["w"], last_walk["w"]), "epoch 1 walk differs"
+    for key in ("step", "exp_avg", "exp_avg_sq"):
+        assert torch.equal(st1["state"][0][key].cpu(), last_state["state"][0][key].cpu()), key
+    out.update(preempted_at=os.path.basename(resume_from), preempt_meta=meta,
+               resumed_steps=len(history), adam_step=float(st1["state"][0]["step"]))
+    del walk, final, w1, st1
+    torch.cuda.empty_cache()
+
+    # train_multi_attr, as its main() runs from the command line
+    t0 = time.perf_counter()
+    multi_args = _cli_args(os.path.join(root, "multi"), "Smiling,Young", BATCH, 1,
+                           "--model_save_freq", "0")
+    saved_argv = sys.argv
+    sys.argv = ["train_multi_attr", *multi_args]
+    try:
+        ops.reset_launches()
+        train_multi_attr.main()
+        torch.cuda.synchronize()
+        out["launches"]["train_multi_attr"] = ops.launch_counts()
+    finally:
+        sys.argv = saved_argv
+    out["seconds"]["train_multi_attr"] = time.perf_counter() - t0
+    assert all(v > 0 for v in out["launches"]["train_multi_attr"].values()), out["launches"]
+    multi_dir = TrainOptions().parse(multi_args, print_opt=False).output_dir
+    assert len(np.load(os.path.join(multi_dir, "loss_values.npy"))) == 1
+    multi_final = os.path.join(multi_dir, "model_w_1_final_walk_module.ckpt")
+    torch.cuda.empty_cache()
+
+    # vis_w: the panel sweep and the 2-attribute grid, two processes at once
+    t0 = time.perf_counter()
+    vis_dirs = (os.path.join(root, "vis"), os.path.join(root, "vis_combine"))
+    procs = [
+        _vis_w(os.path.join(run_dir, "opt.yml"), "--save_path_w", final_path,
+               "--output_dir", vis_dirs[0], "--num_samples", "2", "--num_panels", "5"),
+        _vis_w(os.path.join(multi_dir, "opt.yml"), "--save_path_w", multi_final,
+               "--output_dir", vis_dirs[1], "--num_samples", "2", "--num_panels", "5",
+               "--combine_indices", "31,39")]  # Smiling, Young
+    try:
+        out["vis_pngs"] = (_check_vis(procs[0], vis_dirs[0], ["sample0_", "sample1_"])
+                           + _check_vis(procs[1], vis_dirs[1], [
+                               "combine_idx31_idx39_sample0", "combine_idx31_idx39_sample1"]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    out["seconds"]["vis_w_two_processes"] = time.perf_counter() - t0
+
+    # serve the trained walk: /edit of 4 over HTTP against apply_alpha. By
+    # default cuDNN may pick algorithms that accumulate in a varying order
+    # (G's transposed up convs), so two f32 calls can differ in the last bit
+    # and a uint8 rounding boundary fall either side; with deterministic
+    # algorithms the images must be equal
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    vo = VisOptions()
+    vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
+    vopt, conf = vo.parse([os.path.join(run_dir, "opt.yml"), "--save_path_w", final_path,
+                           "--num_panels", str(PANELS)])
+    service = build_service(vopt, conf)
+    service.warmup()  # as the server's main() does before it listens
+    assert torch.equal(service.walk["w"], last_walk["w"]), "served walk differs"
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    z = np.random.RandomState(11).randn(BATCH, 512).astype(np.float32)
+    try:
+        ops.reset_launches()
+        reply = _request(f"http://127.0.0.1:{srv.server_address[1]}/edit",
+                         {"z": z.tolist(), "alpha": 0.7})
+        torch.cuda.synchronize()
+        out["launches"]["serve"] = ops.launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    out["seconds"]["serve_edit"] = time.perf_counter() - t0
+    assert all(out["launches"]["serve"][k] > 0 for k in FORWARD), out["launches"]
+    got = np.stack([png_decode(base64.b64decode(b)) for b in reply["images"]])
+
+    def apply_alpha():
+        edited, _, _ = service.ed.apply_alpha(
+            service.walk, z, np.full(BATCH, 0.7, np.float32), u8=True)
+        return edited.cpu().numpy()
+
+    # also against a call from another thread, as the server's handler
+    # thread makes it
+    box = {}
+    worker = threading.Thread(target=lambda: box.update(want=apply_alpha()))
+    worker.start()
+    worker.join(timeout=600)
+    want = apply_alpha()
+    torch.backends.cudnn.deterministic = False
+    out["edit_vs_apply_alpha"] = {}
+    for name, b in (("main_thread", want), ("other_thread", box["want"])):
+        assert got.shape == b.shape and got.dtype == b.dtype == np.uint8, (name, b.shape)
+        out["edit_vs_apply_alpha"][name] = int((got != b).sum())
+    assert not any(out["edit_vs_apply_alpha"].values()), out["edit_vs_apply_alpha"]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -845,6 +1092,19 @@ def main() -> int:
     log(f"[9] training step, card against CPU (B={CMP_BATCH}, same weights)")
     train_cmp = train_cpu_phase()
     log(f"    {train_cmp}")
+    torch.cuda.empty_cache()
+
+    log(f"[10] the CLIs at {SIZE} px: train + SIGTERM + --resume, train_multi_attr, "
+        "vis_w (python -m), serve --save_path_w")
+    t = time.perf_counter()
+    cli = cli_phase()
+    cli["seconds"]["phase"] = time.perf_counter() - t
+    log(f"    wall seconds {json.dumps(cli['seconds'])} on {card}")
+    log(f"    launches {json.dumps(cli['launches'])}; preempted at "
+        f"{cli['preempted_at']} {cli['preempt_meta']}, {cli['resumed_steps']} steps "
+        f"after --resume, Adam step {cli['adam_step']:.0f}; vis_w wrote {cli['vis_pngs']}; "
+        f"uint8 values where /edit differs from apply_alpha "
+        f"{json.dumps(cli['edit_vs_apply_alpha'])}")
 
     kernels = []
     for n, paths in results.items():
@@ -857,11 +1117,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "per": f"training step, {SIZE} px, B={BATCH}",
             "device_ms": r["device_ms"],
+            "bound_share_device": r["bound_ms"] / r["device_ms"],
             "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "kernels": kernels, "shapes": details, "serve": serve, "profile": prof,
               "cpu_vs_card": cmp_, "train": train, "train_profile": train_prof,
-              "train_cpu_vs_card": train_cmp, "seconds": time.perf_counter() - t_start}
+              "train_cpu_vs_card": train_cmp, "cli": cli,
+              "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

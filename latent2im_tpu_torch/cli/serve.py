@@ -18,49 +18,24 @@ Endpoints (JSON in, JSON out; images as base64 PNG):
   POST /sweep  {"z" | "seed", "num_panels": P, "min_alpha", "max_alpha"}
                -> {"panels": [[b64 png] * P], "alpha_org": [[...]]}
 
-Usage:
+Usage (a trained walk from --save_path_w, a random one without it):
   python -m latent2im_tpu_torch.cli.serve <run_dir>/opt.yml --port 8642 \
-      [--serve_batch 4]
+      --save_path_w <run_dir>/model_w_10_final_walk_module.ckpt [--serve_batch 4]
 """
 
 from __future__ import annotations
 
 import base64
 import json
-import struct
 import threading
 import time
-import zlib
 
 import numpy as np
 
 from ..config.options import VisOptions
 from ..engine.build import load_editor_for_inference
 from ..tasks.transforms import get_task, task_kwargs_from_options
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def png_bytes(img_u8: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] (RGB) or [H, W] (gray) -> PNG file bytes. zlib level
-    1: a faster encode for slightly larger payloads, as in the JAX server."""
-    img = np.ascontiguousarray(img_u8, np.uint8)
-    if img.ndim == 2:
-        color = 0
-    elif img.ndim == 3 and img.shape[2] == 3:
-        color = 2
-    else:
-        raise ValueError(f"png: [H, W, 3] or [H, W] uint8, got {img.shape}")
-    h, w = img.shape[:2]
-    rows = img.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)  # filter 0
-    return (b"\x89PNG\r\n\x1a\n"
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-            + _png_chunk(b"IEND", b""))
+from ..utils.image import png_bytes
 
 
 def _png_b64(img_u8: np.ndarray) -> str:

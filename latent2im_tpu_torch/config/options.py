@@ -1,7 +1,9 @@
 """CLI flags + yaml config round-trip — own copy of
 latent2im_tpu/config/options.py, with every flag kept so an ``opt.yml`` the
-JAX package wrote parses unchanged. ``yaml`` is imported only where an
-``opt.yml`` is read or written (the GPU machine may lack PyYAML).
+JAX package wrote parses unchanged. ``opt.yml`` is read and written by
+``yaml_load`` / ``yaml_dump`` below, the subset of YAML that
+``yaml.safe_dump(..., default_flow_style=False)`` writes for an options
+dict, so no PyYAML is needed (the GPU machine has none).
 
 Preserves (reference: options/train_options.py, options/vis_options.py):
   * grouped argparse flags (--model/--transform/--walk_type/--latent/
@@ -19,11 +21,193 @@ Preserves (reference: options/train_options.py, options/vis_options.py):
 from __future__ import annotations
 
 import argparse
+import math
 import os
+import re
 import sys
 from collections import OrderedDict
 
 GROUPS = ("nn", "color", "biggan", "stylegan", "pggan")
+
+# ---------------------------------------------------------------------------
+# opt.yml: top-level scalars and one level of nested mappings, scalars
+# str / int / float / bool / null, '#' comments. Plain scalars resolve as
+# PyYAML's YAML 1.1 resolvers do; what would need more of YAML raises.
+# ---------------------------------------------------------------------------
+
+_YAML_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on",
+                               "On", "ON"), True),
+              **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off",
+                               "Off", "OFF"), False)}
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_INT_OTHER = re.compile(  # binary, octal, hex, sexagesimal: not written here
+    r"[-+]?0b[0-1_]+$|[-+]?0[0-7_]+$|[-+]?0x[0-9a-fA-F_]+$"
+    r"|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?$")
+_YAML_SPECIAL_FLOAT = {".inf": math.inf, ".Inf": math.inf, ".INF": math.inf,
+                       "+.inf": math.inf, "+.Inf": math.inf, "+.INF": math.inf,
+                       "-.inf": -math.inf, "-.Inf": -math.inf, "-.INF": -math.inf,
+                       ".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan}
+_YAML_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+_YAML_KEY_LINE = re.compile(r"( *)([A-Za-z_][A-Za-z0-9_]*):(?: +(.*))?$")
+_YAML_PLAIN_SAFE = re.compile(r"[A-Za-z_/.][A-Za-z0-9_./,+-]*$")
+_YAML_INDICATORS = "[]{}&*!|>%@`\"'"
+
+
+def _yaml_plain(text: str, where: str):
+    """A plain scalar -> its value, as PyYAML's safe_load resolves it."""
+    if text in _YAML_NULL:
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if _YAML_INT.match(text):
+        return int(text.replace("_", ""))
+    if text in _YAML_SPECIAL_FLOAT:
+        return _YAML_SPECIAL_FLOAT[text]
+    if _YAML_FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if _YAML_INT_OTHER.match(text) or _YAML_TIMESTAMP.match(text):
+        raise ValueError(f"{where}: {text!r} is a YAML form this reader does not take")
+    if text[0] in _YAML_INDICATORS or text.startswith(("- ", "? ", ": ")) or text == "-":
+        raise ValueError(f"{where}: flow collections, anchors, tags, block scalars "
+                         f"and sequences are not supported ({text!r})")
+    if ": " in text or text.endswith(":"):
+        raise ValueError(f"{where}: a mapping inside a value ({text!r})")
+    return text
+
+
+def _yaml_quoted(text: str, where: str):
+    """A single- or double-quoted scalar, with an optional comment after it."""
+    q = text[0]
+    i, out = 1, []
+    while True:
+        j = text.find(q, i) if q == "'" else _next_double_quote(text, i)
+        if j < 0:
+            raise ValueError(f"{where}: a quoted scalar that does not end on its line "
+                             "(multi-line scalars are not supported)")
+        out.append(text[i:j])
+        if q == "'" and text[j + 1:j + 2] == "'":  # '' is an escaped quote
+            out.append("'")
+            i = j + 2
+            continue
+        break
+    rest = text[j + 1:].strip()
+    if rest and not rest.startswith("#"):
+        raise ValueError(f"{where}: unexpected {rest!r} after a quoted scalar")
+    s = "".join(out)
+    if q == '"':
+        try:
+            s = s.encode("latin-1", "backslashreplace").decode("unicode_escape")
+        except UnicodeDecodeError as e:
+            raise ValueError(f"{where}: bad escape in a double-quoted scalar") from e
+    return s
+
+
+def _next_double_quote(text: str, i: int) -> int:
+    while i < len(text):
+        if text[i] == "\\":
+            i += 2
+            continue
+        if text[i] == '"':
+            return i
+        i += 1
+    return -1
+
+
+def _yaml_value(text: str, where: str):
+    if text[:1] in ("'", '"'):
+        return _yaml_quoted(text, where)
+    for m in re.finditer(r"\s#", text):  # a comment after a plain scalar
+        text = text[:m.start()]
+        break
+    return _yaml_plain(text.strip(), where)
+
+
+def yaml_load(text: str, name: str = "opt.yml") -> dict:
+    """Parse an opt.yml: a mapping of scalars and of one level of nested
+    mappings of scalars. Raises ValueError naming the line for anything
+    else (flow collections, anchors, sequences, multi-line scalars)."""
+    out: dict = {}
+    group, group_indent = None, None
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{n}"
+        line = raw.rstrip()
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        if "\t" in line[:len(line) - len(line.lstrip())]:
+            raise ValueError(f"{where}: a tab in the indentation")
+        m = _YAML_KEY_LINE.match(line)
+        if m is None:
+            raise ValueError(f"{where}: not a 'key: value' line (multi-line scalars, "
+                             f"sequences and documents are not supported): {raw!r}")
+        indent, key, value = len(m.group(1)), m.group(2), m.group(3)
+        if indent == 0:
+            target = out
+            group = None
+        elif group is not None and group_indent in (None, indent):
+            group_indent = indent
+            target = out[group]
+        else:
+            raise ValueError(f"{where}: unexpected indentation (one level of nested "
+                             "mappings is supported)")
+        if key in target:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        if value is None or value.startswith("#"):
+            if indent:  # null; a line nested under it fails the indent check
+                target[key] = None
+                continue
+            target[key] = {}
+            group, group_indent = key, None
+        else:
+            target[key] = _yaml_value(value, where)
+    # a key with nothing under it is null, as in YAML
+    return {k: (None if v == {} else v) for k, v in out.items()}
+
+
+def _yaml_scalar(v, where: str) -> str:
+    if v is None:
+        return "null"
+    if v is True or v is False:
+        return "true" if v else "false"
+    if type(v) is int:
+        return str(v)
+    if type(v) is float:
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        s = repr(v).lower()
+        if "." not in s and "e" in s:  # YAML 1.1 floats need a dot
+            s = s.replace("e", ".0e", 1)
+        return s
+    if type(v) is str:
+        if _YAML_PLAIN_SAFE.match(v) and _yaml_plain(v, where) == v:
+            return v
+        if any(not c.isprintable() for c in v):
+            raise ValueError(f"{where}: a string with unprintable characters {v!r}")
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"{where}: cannot write a {type(v).__name__} to opt.yml")
+
+
+def yaml_dump(data: dict) -> str:
+    """The opt.yml text of a mapping of scalars and of mappings of scalars, as
+    ``yaml.safe_dump(data, default_flow_style=False, sort_keys=False)``
+    writes it; strings that would read back as another type are quoted."""
+    lines = []
+    for k, v in data.items():
+        if isinstance(v, dict):
+            if not v:
+                raise ValueError(f"{k}: an empty mapping needs a flow form")
+            lines.append(f"{k}:")
+            for k1, v1 in v.items():
+                if isinstance(v1, dict):
+                    raise ValueError(f"{k}.{k1}: mappings nest one level in opt.yml")
+                lines.append(f"  {k1}: {_yaml_scalar(v1, f'{k}.{k1}')}")
+        else:
+            lines.append(f"{k}: {_yaml_scalar(v, k)}")
+    return "\n".join(lines) + "\n"
 
 
 def _build_train_parser() -> argparse.ArgumentParser:
@@ -173,10 +357,8 @@ class TrainOptions:
 
         data = {}
         if opt.config_file:
-            import yaml
-
-            data = yaml.safe_load(opt.config_file) or {}
-            data = _flatten(data)
+            with opt.config_file as f:
+                data = _flatten(yaml_load(f.read(), f.name))
 
         argv = sys.argv[1:] if args is None else list(args)
         option_strings = {}
@@ -241,12 +423,10 @@ class TrainOptions:
                 ), "config file exists, use --overwrite_config"
         with open(os.path.join(expr_dir, "opt.txt"), "wt") as f:
             f.write(message + "\n")
-        import yaml
-
+        opt_dict["overwrite_config"] = False
+        text = yaml_dump(_plain(opt_dict))
         with open(os.path.join(expr_dir, "opt.yml"), "wt") as f:
-            opt_dict["overwrite_config"] = False
-            yaml.safe_dump(_plain(opt_dict), f, default_flow_style=False,
-                           sort_keys=False)
+            f.write(text)
 
 
 def experiment_name(opt) -> str:
@@ -306,10 +486,9 @@ class VisOptions:
                             "data parallelism)")
 
     def parse(self, args=None):
-        import yaml
-
         opt = self.parser.parse_args(args)
-        data = yaml.safe_load(opt.config_file) or {}
+        with opt.config_file as f:
+            data = yaml_load(f.read(), f.name)
         for k, v in data.items():
             if isinstance(v, dict):
                 data[k] = argparse.Namespace(**v)

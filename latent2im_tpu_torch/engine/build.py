@@ -153,18 +153,30 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
 
 
 def load_editor_for_inference(opt, conf, device=None):
-    """Shared inference loader: apply the attrList/attrPath CLI overrides and
-    build the editor. Loading a trained walk (--save_path_w, a msgpack
-    checkpoint read through flax) or a fine-tuned GAN (--save_path_gan) is not
-    ported yet. Returns (editor, walk_params, info)."""
+    """Shared inference loader (vis_w / serve): apply the attrList/attrPath
+    CLI overrides, build the editor on ``device``, and load the optional walk
+    (--save_path_w: either package's msgpack checkpoint or the reference's
+    pickled walk module) and fine-tuned GAN (--save_path_gan: the JAX
+    package's msgpack tree or a torch ``.pt``) checkpoints. Returns (editor,
+    walk_params, info)."""
+    from ..io import checkpoint as ckpt
+
     for field in ("attrList", "attrPath"):
         v = getattr(opt, field, None)
         if v:
             setattr(conf, field, v)
     conf.overwrite_config = True
+
+    editor, walk_params, info = build_editor_from_options(conf, device=device)
     if getattr(opt, "save_path_w", None):
-        _not_ported("--save_path_w (walk checkpoint without msgpack/flax)",
-                    "queue A item 16")
+        walk_params, _, meta = ckpt.load_walk(opt.save_path_w, walk_params,
+                                              attr_list=info["attr_list"])
+        logging.info("Load w in %s (%s)", opt.save_path_w,
+                     (meta or {}).get("source", "native"))
     if getattr(opt, "save_path_gan", None):
-        _not_ported("--save_path_gan", "queue A item 16")
-    return build_editor_from_options(conf, device=device)
+        g_sd, d_sd = ckpt.load_gan_checkpoint(opt.save_path_gan)
+        editor.g.load_state_dict(g_sd, strict=True)
+        if d_sd is not None and editor.d is not None:
+            editor.d.load_state_dict(d_sd, strict=True)
+        logging.info("Load GAN in %s", opt.save_path_gan)
+    return editor, walk_params, info

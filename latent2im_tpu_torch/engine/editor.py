@@ -10,6 +10,8 @@ The counterpart of latent2im_tpu/engine/editor.py:
     edit            walk application
     apply_alpha     regress current, delta to target, walk, synthesize
     sweep           panels folded into the batch, synthesized in chunks
+    apply_alpha_combine / sweep_combine
+                    two attributes moved together (the vis_w grid)
 
 PyTorch runs eagerly, so there is nothing to compile and no static program
 width: a sweep's last chunk is simply narrower. The public inference methods
@@ -227,3 +229,58 @@ class Editor:
         edited = self.edit(walk_params, flat_latent, flat_alpha)
         imgs = self._synthesize_stream(edited, c, u8=u8)
         return imgs.reshape((p, b) + imgs.shape[1:]), alpha_org, orig
+
+    @torch.inference_mode()
+    def apply_alpha_combine(self, walk_params, z, alphas_per_attr, indices,
+                            given_w=None):
+        """Two-(or N-)attribute combined edit (transform_base.py:769-811): the
+        delta starts at zero and only the listed attribute columns move toward
+        their targets. alphas_per_attr: [B] or [B, 1] targets aligned with
+        ``indices`` (regressor-table ids). -> (edited_img, alpha_org,
+        orig_img)."""
+        positions = [self._bank_position(i) for i in indices]
+        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
+        orig = self.g.synthesize(latent)
+        alpha_org = self.regress(orig)
+        delta = torch.zeros_like(alpha_org)
+        for pos, ag in zip(positions, alphas_per_attr):
+            delta[:, pos] = self._tensor(ag).reshape(-1) - alpha_org[:, pos]
+        edited = self.g.synthesize(self.edit(walk_params, latent, delta))
+        return edited, alpha_org, orig
+
+    @torch.inference_mode()
+    def sweep_combine(self, walk_params, z, panel_alphas, indices,
+                      given_w=None, u8: bool = False):
+        """All (alpha_i, alpha_j) pairs for a 2-attribute grid
+        (transform_base.py:814-869): panel_alphas [P] -> (images [P, P, B, H,
+        W, 3], alpha_org, orig_img), the first attribute's target on the
+        outer axis. The P*P edited latents synthesize in chunks, as in
+        ``sweep``."""
+        positions = [self._bank_position(i) for i in indices]
+        panels = self._tensor(np.asarray(panel_alphas, np.float32))
+        p = panels.shape[0]
+        grid = torch.stack([panels.repeat_interleave(p), panels.repeat(p)], 1)  # [P*P, 2]
+        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
+        b = latent.shape[0]
+        orig = self.g.synthesize(latent)
+        alpha_org = self.regress(orig)
+        n = grid.shape[0]
+        delta = torch.zeros((n, b, alpha_org.shape[1]), dtype=alpha_org.dtype,
+                            device=self.device)
+        for k, pos in enumerate(positions):
+            delta[:, :, pos] = grid[:, k, None] - alpha_org[None, :, pos]
+        flat_latent = latent[None].expand((n,) + latent.shape).reshape(
+            (n * b,) + latent.shape[1:])
+        edited = self.edit(walk_params, flat_latent, delta.reshape(n * b, -1))
+        imgs = self._synthesize_stream(edited, _balanced_chunk(n * b, SWEEP_CHUNK), u8=u8)
+        return imgs.reshape((p, p, b) + imgs.shape[1:]), alpha_org, orig
+
+
+def clip_ims(ims) -> np.ndarray:
+    """[-1, 1] float -> uint8 (transform_base.py:551-552), on the host: the
+    reference's name for utils.image.to_uint8."""
+    from ..utils.image import to_uint8
+
+    if isinstance(ims, torch.Tensor):
+        ims = ims.detach().cpu().numpy()
+    return to_uint8(ims)

@@ -143,6 +143,28 @@ def test_sweep_matches_jax_and_chunking(editors):
     assert tu.dtype == torch.uint8 and tu.shape == ti.shape
 
 
+def test_combine_edits_match_jax(editors):
+    """apply_alpha_combine and the 2-attribute grid of sweep_combine (the
+    first attribute's target on the outer axis) against the JAX Editor."""
+    jed, jwalk, ted, twalk = editors
+    z = _z(2, 7)
+    ags = [np.asarray([0.2, 0.8], np.float32), np.asarray([[0.9], [0.1]], np.float32)]
+    je, ja, _ = jed.apply_alpha_combine(jwalk, z, ags, indices=[31, 39])
+    te, ta, _ = ted.apply_alpha_combine(twalk, z, ags, indices=[31, 39])
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-4)
+    assert_images_close(te.numpy(), je)
+    ji, _, _ = jed.sweep_combine(jwalk, z, [0.0, 1.0], indices=[31, 39])
+    ti, _, _ = ted.sweep_combine(twalk, z, [0.0, 1.0], indices=[31, 39])
+    assert ti.shape == (2, 2, 2, SIZE, SIZE, 3)
+    assert_images_close(ti.numpy(), ji)
+    tu, _, _ = ted.sweep_combine(twalk, z, [0.0, 1.0], indices=[31, 39], u8=True)
+    assert tu.dtype == torch.uint8 and tu.shape == ti.shape
+    from latent2im_tpu.engine.editor import clip_ims as jclip_ims
+    from latent2im_tpu_torch.engine.editor import clip_ims
+
+    np.testing.assert_array_equal(clip_ims(ti), jclip_ims(ti.numpy()))
+
+
 @pytest.mark.parametrize("mode", ["target", "delta"])
 def test_unified_alphas_match_jax(mode):
     rng = np.random.RandomState(5)

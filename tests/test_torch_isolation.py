@@ -1,13 +1,16 @@
 """The port stands alone and dispatches by device.
 
 - No module of latent2im_tpu_torch, nor chip_smoke.py, imports jax, flax,
-  optax or latent2im_tpu (an AST scan), and a fresh process that imports the
-  port and runs a tiny CPU edit ends with neither in sys.modules.
-- An entry point given no device on a machine without a card raises.
+  optax, latent2im_tpu, or what the GPU machine lacks besides (msgpack,
+  yaml, PIL) (an AST scan), and a fresh process that imports the port and
+  runs a tiny CPU edit ends with none of them in sys.modules.
+- An entry point given no device on a machine without a card raises: the
+  builder, the Editor, the server and the CLIs' run.
 - A CPU tensor through each kernel wrapper runs the plain version and leaves
   the launch count at 0; a tensor on a device that is neither cpu nor cuda is
   refused.
-- The kernel build is one nvcc call for sm_90a over every .cu source.
+- The kernel build is one nvcc compile for sm_90a per .cu source, then one
+  link.
 """
 
 import ast
@@ -24,7 +27,7 @@ from latent2im_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "latent2im_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "latent2im_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "latent2im_tpu", "msgpack", "yaml", "PIL")
 
 
 def _port_files():
@@ -73,7 +76,8 @@ def test_cpu_edit_in_a_fresh_process_loads_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch):
+def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch, tmp_path):
+    from latent2im_tpu_torch.cli import train, vis_w
     from latent2im_tpu_torch.cli.serve import build_service
     from latent2im_tpu_torch.config.options import TrainOptions
     from latent2im_tpu_torch.device import resolve_device
@@ -82,7 +86,7 @@ def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     conf = TrainOptions().parse(["--attrList", "Smiling", "--dev_tiny",
-                                 "--resolution", "8", "--models_dir", "unused"],
+                                 "--resolution", "8", "--models_dir", str(tmp_path)],
                                 print_opt=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -93,6 +97,11 @@ def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch):
     opt = type("Opt", (), {"num_panels": 3, "min_alpha": 0.0, "max_alpha": 1.0})()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_service(opt, conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run(conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vis_w.run(opt, conf)
+    assert not os.listdir(tmp_path)  # they raise before writing anything
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
@@ -131,9 +140,9 @@ def test_other_devices_are_refused():
             call()
 
 
-def test_kernel_build_is_one_nvcc_call_for_sm_90a(monkeypatch):
+def test_kernel_build_is_one_nvcc_compile_per_source_then_one_link(monkeypatch):
     """One nvcc call per source for sm_90a, all run together, then one link
-    call (the name is kept from when one call compiled every source)."""
+    call."""
     monkeypatch.setattr(_build, "nvcc", lambda: "/opt/cuda/bin/nvcc")
     compiles, link = _build.build_commands("out.so")
     srcs = [c for cmd in compiles for c in cmd if c.endswith(".cu")]

@@ -170,7 +170,7 @@ def test_bad_z_dim_is_400(server):
 def test_png_encoder_roundtrips(shape):
     from PIL import Image
 
-    from latent2im_tpu_torch.cli.serve import png_bytes
+    from latent2im_tpu_torch.utils.image import png_bytes
 
     img = np.random.RandomState(0).randint(0, 256, shape).astype(np.uint8)
     got = np.asarray(Image.open(io.BytesIO(png_bytes(img))))
