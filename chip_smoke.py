@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Two main paths run at full width on seeded random weights (StyleGAN2
-style_dim 512, n_mlp 8, channel multiplier 2, 256 px; ResNet-50/40;
-Smiling): the edit server and the walk-training loop. Phases (a failed
+style_dim 512, n_mlp 8, channel multiplier 2; ResNet-50/40; Smiling): the
+edit server and the walk-training loop, at 256 px (phases 3-10) and at
+1024 px (phases 11-15, with the remat and input-size options and the eval
+CLI). Phases (a failed
 phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -45,6 +47,29 @@ phase raises, and the script exits non-zero):
      counts, set to 0 before each
      in-process part, must show all five kernels in training and the three
      forward kernels in serving.
+ 11. kernels at the 1024 px shapes: phase 3 at 1024 px, B=8 (the styled
+     conv at 512^2 x 64 and 1024^2 x 32, upfirdn2d and fused_act at every
+     site of one edit and one training step);
+ 12. the 1024 px generator (tests/fullscale_ref.py's seeded full-width
+     g_ema, strict) against tests/fixtures/ref_outputs_1024px.npz, relative
+     L2 and max-abs within 5e-3 of scale;
+ 13. the 1024 px edit server (serve_batch 8): apply_alpha at B=8 (CUDA
+     events, then once under torch.profiler) and one /edit of 8, counted,
+     equal to apply_alpha's uint8 images under deterministic cuDNN;
+ 14. 1024 px walk training (B=8, Smiling, linear_w, full towers) under five
+     configurations: plain, --remat_g, --remat_g block, --remat_g block
+     --remat_towers, --reg_input_size 256 --content_input_size 256; G's
+     noise weights set to 0.3 (the seeded init's are 0, a trained G's are
+     not); per configuration ms per train_loop step (mean and spread),
+     samples/s, peak GB, and launch counts equal to the plain step's plus
+     one forward of each checkpointed region (remat_extra); each remat
+     configuration's step held to the plain step from the same state,
+     alphas and fresh noise (loss terms 1e-5 relative, the walk gradient
+     within phase 9's bound, which another noise draw must exceed); one
+     plain step under torch.profiler;
+ 15. `python -m latent2im_tpu_torch.cli.eval` at 1024 px on phase 14's walk,
+     whitened and --ref_parity, two processes: eval_report.json's keys,
+     identity_is_relative_only, finite numbers in the non-empty buckets.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
 the towers are frozen), and holds its bias gradient apart at one shape.
 It ends with one JSON line of the kernels' numbers and, last, the line
@@ -55,6 +80,7 @@ CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -154,11 +180,11 @@ def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tup
 # ---------------------------------------------------------------------------
 
 
-def main_path_shapes():
+def main_path_shapes(size=SIZE, b=BATCH):
     """{(kernel, case): [launches per apply_alpha, launches per training
-    step]} at 256 px, B=4. One apply_alpha = one style MLP (get_w) + two
-    syntheses; one training step = the same forward, D on the edited image,
-    and the backward of the edited synthesis and of D.
+    step]} at ``size`` px, batch ``b``. One apply_alpha = one style MLP
+    (get_w) + two syntheses; one training step = the same forward, D on the
+    edited image, and the backward of the edited synthesis and of D.
 
     Cases: fused_act / fused_act_bwd the shape; upfirdn2d / upfirdn2d_bwd
     (B, H, W, C, up, pad, gain) of the forward call (down is 1 on both
@@ -168,8 +194,7 @@ def main_path_shapes():
     from latent2im_tpu_torch.models.stylegan2 import channel_table
 
     ch = channel_table(2)
-    res = [2 ** i for i in range(3, int(math.log2(SIZE)) + 1)]  # 8 .. 256
-    b = BATCH
+    res = [2 ** i for i in range(3, int(math.log2(size)) + 1)]  # 8 .. size
     serve, train = Counter(), Counter()
 
     def add(key, n_serve, n_train):
@@ -195,7 +220,7 @@ def main_path_shapes():
     # D on the edited image: from_rgb, per res block conv1, conv2 (after a
     # pad (2, 2) blur) and the 1x1 skip (after a pad (1, 1) blur),
     # final_conv, final_linear.0; each backpropagated once
-    d_acts = [(b, SIZE, SIZE, ch[SIZE])]
+    d_acts = [(b, size, size, ch[size])]
     for r in reversed(res):
         d_acts += [(b, r, r, ch[r]), (b, r // 2, r // 2, ch[r // 2])]
         for pad in ((2, 2), (1, 1)):
@@ -351,9 +376,10 @@ def fused_act_db_check(gen, dev):
     return err
 
 
-def kernel_phase(dev):
-    """Per kernel, per main path: launches and the sums over shapes of
-    launches x (kernel, plain, library, bound) ms."""
+def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
+    """Per kernel, per main path at ``size`` px, batch ``batch``: launches
+    and the sums over shapes of launches x (kernel, plain, library, bound)
+    ms. Each call is timed as the median of ``iters`` CUDA-event times."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -364,13 +390,13 @@ def kernel_phase(dev):
                for n in SOURCE}
     max_err = dict.fromkeys(SOURCE, 0.0)
     details = []
-    for (name, case), counts in sorted(main_path_shapes().items(), key=str):
+    for (name, case), counts in sorted(main_path_shapes(size, batch).items(), key=str):
         kern, plain, lib, nbytes, flops, f64, inp = kernel_cases(name, case, gen, dev)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         err, scale = _max_err(got, want)
-        to_f64 = None  # the kernel's and the plain version's error / max|ref| in f64
+        ref = to_f64 = None  # the kernel's and the plain version's error / max|ref| in f64
         if f64 is not None:
             ref = f64()
             to_f64 = {k: (v.double() - ref).abs().max().item() / ref.abs().max().item()
@@ -380,7 +406,7 @@ def kernel_phase(dev):
                 f"{name} {case}: max abs err {err:.3e} > {TOL[name]} * "
                 f"max|ref| {scale:.3e}")
         max_err[name] = max(max_err[name], err)
-        t_k, t_p, t_l = time_ms(kern), time_ms(plain), time_ms(lib)
+        t_k, t_p, t_l = (time_ms(f, iters=iters) for f in (kern, plain, lib))
         t_d = device_ms(kern)
         rate = FLOPS.get(name, F32_FLOPS)
         b_ms, _ = bound_ms(nbytes, flops, rate)
@@ -393,7 +419,7 @@ def kernel_phase(dev):
         if to_f64 is not None:
             log(f"    {name} {case}: max error / max|ref| against f64: kernel "
                 f"{to_f64['kernel']:.3e}, plain (cuDNN f32) {to_f64['plain']:.3e}")
-        details.append({"kernel": name, "case": repr(case), "variant": variant,
+        details.append({"kernel": name, "size": size, "case": repr(case), "variant": variant,
                         "err_to_f64": to_f64,
                         "f32_bound_ms": f32_ms,
                         "launches_per_apply_alpha": counts[0],
@@ -412,14 +438,17 @@ def kernel_phase(dev):
             r["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
             r["ops_ms"] += n * flops / rate * 1e3
             r["launches"] += n
-    details.append({"kernel": "fused_act_bwd", "case": "with db (not on a main path)",
-                    "max_abs_err": fused_act_db_check(gen, dev)})
+        del kern, plain, lib, f64, inp, got, want, ref
+    if size == SIZE:
+        details.append({"kernel": "fused_act_bwd", "case": "with db (not on a main path)",
+                        "max_abs_err": fused_act_db_check(gen, dev)})
+    torch.cuda.empty_cache()
     for name, paths in results.items():
         for r in paths.values():
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
         r = paths["train_step"]
         a = paths["apply_alpha"]
-        log(f"  {name}: max abs err {max_err[name]:.3e}; per training step "
+        log(f"  {name} ({size} px, B={batch}): max abs err {max_err[name]:.3e}; per training step "
             f"{r['launches']} launches, {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}; share of bound {r['bound_ms'] / r['ms']:.0%}, "
@@ -474,6 +503,23 @@ def _post(url, obj):
                   [x for row in out["panels"] for x in row])]
 
 
+@contextlib.contextmanager
+def serving(service):
+    """The edit server on a free localhost port, in a thread -> its URL;
+    shut down on exit."""
+    from latent2im_tpu_torch.cli.serve import make_server
+
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+
 def serve_phase(results, dev):
     import argparse
 
@@ -481,7 +527,7 @@ def serve_phase(results, dev):
     import torch
 
     from latent2im_tpu_torch import ops
-    from latent2im_tpu_torch.cli.serve import build_service, make_server
+    from latent2im_tpu_torch.cli.serve import build_service
     from latent2im_tpu_torch.config.options import TrainOptions
     from latent2im_tpu_torch.engine.editor import SWEEP_CHUNK, _balanced_chunk
 
@@ -500,11 +546,7 @@ def serve_phase(results, dev):
     service.warmup()
     torch.cuda.synchronize()
     log(f"  service built and warmed in {time.perf_counter() - t0:.1f} s")
-    srv = make_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}"
-    try:
+    with serving(service) as url:
         ops.reset_launches()
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -541,10 +583,6 @@ def serve_phase(results, dev):
             lat.append((time.perf_counter() - t) * 1e3)
             n_img += len(out["images"])
         wall = time.perf_counter() - t_all
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
     z = np.random.RandomState(0).randn(BATCH, 512).astype(np.float32)
     a = np.full((BATCH,), 0.7, np.float32)
     dev_ms = time_ms(lambda: service.ed.apply_alpha(service.walk, z, a, u8=True),
@@ -654,15 +692,17 @@ def cpu_phase(service, conf):
 # ---------------------------------------------------------------------------
 
 
-def train_conf(*flags):
+def train_conf(*flags, size=None, batch=None, root=None, print_opt=False):
+    """Training options (Smiling, linear_w) at ``size`` px, batch ``batch``
+    (SIZE, BATCH by default); print_opt writes opt.yml under ``root``."""
     from latent2im_tpu_torch.config.options import TrainOptions
 
     return TrainOptions().parse(
         ["--model", "stylegan_v2_real", "--transform", "face", "--walk_type",
          "linear", "--latent", "w", "--attrList", "Smiling", "--resolution",
-         str(SIZE), "--batch_size", str(BATCH), "--models_dir",
-         os.path.join(REPO, "chiprun_out"), *flags],
-        print_opt=False)
+         str(size or SIZE), "--batch_size", str(batch or BATCH), "--models_dir",
+         root or os.path.join(REPO, "chiprun_out"), "--overwrite_config", *flags],
+        print_opt=print_opt)
 
 
 def train_phase(results, dev):
@@ -808,6 +848,7 @@ def train_cpu_phase():
     out["walk_grad_rel_l2_card_f64"] = rel_l2(gg, ref_grad)
     out["walk_grad_rel_l2_cpu_f64"] = rel_l2(gc, ref_grad)
     limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    out["walk_grad_limit"] = limit
     assert out["walk_grad_rel_l2_card_f64"] <= limit, out
     out["loss"] = mc["loss"]
     return out
@@ -866,7 +907,7 @@ def cli_phase():
     from latent2im_tpu_torch import ops
     from latent2im_tpu_torch.cli import train as tcli
     from latent2im_tpu_torch.cli import train_multi_attr
-    from latent2im_tpu_torch.cli.serve import build_service, make_server
+    from latent2im_tpu_torch.cli.serve import build_service
     from latent2im_tpu_torch.config.options import TrainOptions, VisOptions
     from latent2im_tpu_torch.engine.train import make_optimizer
     from latent2im_tpu_torch.io import checkpoint as ckpt
@@ -987,20 +1028,12 @@ def cli_phase():
     service = build_service(vopt, conf)
     service.warmup()  # as the server's main() does before it listens
     assert torch.equal(service.walk["w"], last_walk["w"]), "served walk differs"
-    srv = make_server(service, "127.0.0.1", 0)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
     z = np.random.RandomState(11).randn(BATCH, 512).astype(np.float32)
-    try:
+    with serving(service) as url:
         ops.reset_launches()
-        reply = _request(f"http://127.0.0.1:{srv.server_address[1]}/edit",
-                         {"z": z.tolist(), "alpha": 0.7})
+        reply = _request(url + "/edit", {"z": z.tolist(), "alpha": 0.7})
         torch.cuda.synchronize()
         out["launches"]["serve"] = ops.launch_counts()
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
     out["seconds"]["serve_edit"] = time.perf_counter() - t0
     assert all(out["launches"]["serve"][k] > 0 for k in FORWARD), out["launches"]
     got = np.stack([png_decode(base64.b64decode(b)) for b in reply["images"]])
@@ -1023,6 +1056,350 @@ def cli_phase():
         assert got.shape == b.shape and got.dtype == b.dtype == np.uint8, (name, b.shape)
         out["edit_vs_apply_alpha"][name] = int((got != b).sum())
     assert not any(out["edit_vs_apply_alpha"].values()), out["edit_vs_apply_alpha"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 11-15: the 1024 px configuration
+# ---------------------------------------------------------------------------
+
+SIZE_HI, BATCH_HI, TRAIN_HI_STEPS = 1024, 8, 6
+# G's noise weights in phase 14: non-zero, so the edited synthesis's fresh
+# noise reaches the gradient that the remat steps are held to
+NOISE_WEIGHT = 0.3
+# (name, EditorConfig fields, the CLI flags that set them)
+TRAIN_HI_CONFIGS = (
+    ("plain", {}, ()),
+    ("remat_g", {"remat_g": "all"}, ("--remat_g",)),
+    ("remat_g block", {"remat_g": "block"}, ("--remat_g", "block")),
+    ("remat_g block + remat_towers", {"remat_g": "block", "remat_towers": True},
+     ("--remat_g", "block", "--remat_towers")),
+    ("input sizes 256", {"reg_input_size": 256, "content_input_size": 256},
+     ("--reg_input_size", "256", "--content_input_size", "256")),
+)
+# the fixture gates of tests/test_parity_fullscale.py:32-45, of image scale
+FIXTURE_REL_L2 = FIXTURE_MAX_ABS_FRAC = 5e-3
+
+
+def forward_1024_phase(dev):
+    """tests/fullscale_ref.py's seeded full-width 1024 px g_ema, loaded with
+    strict=True, on the card against the committed torch recording
+    tests/fixtures/ref_outputs_1024px.npz (stored noise buffers)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.models.stylegan2 import Generator
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from fullscale_ref import N_MLP, STYLE_DIM, fixture_z, np_state_dict
+
+    g = Generator(SIZE_HI, STYLE_DIM, N_MLP)
+    g.load_state_dict({k: torch.from_numpy(v) for k, v in np_state_dict(SIZE_HI).items()},
+                      strict=True)
+    g = g.to(dev).eval().requires_grad_(False)
+    ref = np.load(os.path.join(REPO, "tests", "fixtures", f"ref_outputs_{SIZE_HI}px.npz"))
+    want = ref["images"].astype(np.float32)
+    z = torch.from_numpy(fixture_z(SIZE_HI, want.shape[0])).to(dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = g(z).cpu().numpy()
+    counts = ops.launch_counts()
+    scale = float(np.abs(want).max())
+    out = {"rel_l2": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+           "max_abs_frac": float(np.abs(got - want).max() / scale), "images": want.shape[0],
+           "launches": counts}
+    assert got.shape == want.shape and np.isfinite(got).all(), got.shape
+    assert out["rel_l2"] < FIXTURE_REL_L2 and out["max_abs_frac"] < FIXTURE_MAX_ABS_FRAC, out
+    assert all(counts[k] > 0 for k in FORWARD), counts
+    return out
+
+
+def edit_1024_phase(results_hi, dev):
+    """The 1024 px edit server (serve_batch 8): apply_alpha at B=8 timed with
+    CUDA events; one /edit of 8 over HTTP, counted, whose uint8 images must
+    be apply_alpha's (cuDNN set to deterministic algorithms, as phase 10)."""
+    import argparse
+    import base64
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli.serve import build_service
+
+    conf = train_conf(size=SIZE_HI, batch=BATCH_HI)
+    opt = argparse.Namespace(save_path_w=None, save_path_gan=None, attrList=None,
+                             attrPath="", num_panels=PANELS, min_alpha=0.0,
+                             max_alpha=1.0, serve_batch=BATCH_HI)
+    t0 = time.perf_counter()
+    service = build_service(opt, conf)  # cuda: the entry point's default
+    service.warmup()
+    torch.cuda.synchronize()
+    out = {"build_warmup_s": time.perf_counter() - t0}
+    z = np.random.RandomState(21).randn(BATCH_HI, service.dim_z).astype(np.float32)
+    a = np.full((BATCH_HI,), 0.7, np.float32)
+
+    def apply_alpha():
+        return service.ed.apply_alpha(service.walk, z, a, u8=True)[0]
+
+    out["apply_alpha_b8_device_ms"] = time_ms(apply_alpha, warmup=1, iters=5)
+    out["profile"] = profile_call(apply_alpha, f"apply_alpha_{SIZE_HI}_trace.json")
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = apply_alpha().cpu().numpy()
+        with serving(service) as url:
+            ops.reset_launches()
+            t = time.perf_counter()
+            reply = _request(url + "/edit", {"z": z.tolist(), "alpha": 0.7})
+            out["edit_request_ms"] = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = np.stack([png_decode(base64.b64decode(b)) for b in reply["images"]])
+    assert got.shape == (BATCH_HI, SIZE_HI, SIZE_HI, 3) and got.dtype == np.uint8, got.shape
+    out["edit_vs_apply_alpha_differing"] = int((got != want).sum())
+    expect = {k: r["apply_alpha"]["launches"] for k, r in results_hi.items()}
+    out["launches"] = counts
+    log(f"    launches over one /edit of {BATCH_HI}: {counts} (expected {expect})")
+    assert counts == expect, (counts, expect)
+    assert out["edit_vs_apply_alpha_differing"] == 0, out
+    return out
+
+
+def remat_extra(flags) -> dict:
+    """Launches a step's backward adds by recomputing its checkpointed
+    regions (utils/remat.py re-runs a whole region): the edited synthesis
+    ('all': conv1 and every block; 'block': the blocks), and D."""
+    nb = int(math.log2(SIZE_HI)) - 2  # synthesis blocks = D's res blocks
+    extra = {"fused_act": 0, "upfirdn2d": 0, "styled_conv3x3": 0}
+    if flags.get("remat_g"):
+        extra["fused_act"] += nb  # the up convs' activation
+        extra["upfirdn2d"] += 2 * nb  # the up convs' blur and to_rgb's skip
+        extra["styled_conv3x3"] += nb + (flags["remat_g"] == "all")
+    if flags.get("remat_towers"):
+        extra["fused_act"] += 2 * nb + 3  # from_rgb, 2 per res block, final conv, linear
+        extra["upfirdn2d"] += 2 * nb  # the blurs before each stride-2 conv
+    return extra
+
+
+def train_1024_phase(results_hi, grad_limit, dev):
+    """train_loop at 1024 px, B=8 (Smiling, linear_w, full towers) under the
+    five configurations of TRAIN_HI_CONFIGS: a warmup step, then
+    TRAIN_HI_STEPS counted and timed steps each; then one step of each remat
+    configuration against the plain step from the same walk, z, host alphas
+    and seeded noise generator. G's noise weights are NOISE_WEIGHT
+    throughout. Saves the last configuration's walk and opt.yml for phase
+    15."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.editor import Editor
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step, train_loop
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    root = os.path.join(REPO, "chiprun_out", "train1024")
+    conf = train_conf(*TRAIN_HI_CONFIGS[-1][2], size=SIZE_HI, batch=BATCH_HI, root=root,
+                      print_opt=True)  # writes opt.yml
+    t0 = time.perf_counter()
+    base, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    assert base.cfg.reg_input_size == 256 and base.d is not None and base.vgg is not None
+    log(f"    1024 px editor with D and VGG19 built in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        noise_ws = [p for n, p in base.g.named_parameters() if n.endswith("noise.weight")]
+        for p in noise_ws:
+            p.fill_(NOISE_WEIGHT)
+    assert len(noise_ws) == 2 * int(math.log2(SIZE_HI)) - 3, len(noise_ws)
+    w0 = walk["w"].detach().clone()
+    task = get_task("face")
+    lr = conf.learning_rate
+    per_step = {n: r["train_step"]["launches"] for n, r in results_hi.items()}
+
+    def editor(fields):
+        cfg = dataclasses.replace(base.cfg, **{"reg_input_size": None,
+                                               "content_input_size": None, **fields})
+        return Editor(cfg, base.g, base.reg, base.device, vgg=base.vgg, d=base.d)
+
+    out = {"configs": {}}
+    for name, fields, flags in TRAIN_HI_CONFIGS:
+        ed = editor(fields)
+        wp = {"w": w0.clone()}
+        run = dict(batch_size=BATCH_HI, n_epochs=1, lr=lr, log_every=1)
+        wp, _ = train_loop(ed, task, wp, num_samples=BATCH_HI, **run)  # warmup
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, step_s = [], []
+        ops.reset_launches()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        ev0.record()
+        wp, _ = train_loop(ed, task, wp, num_samples=TRAIN_HI_STEPS * BATCH_HI, seed=1,
+                           on_step=lambda e, i, m, dt, w: (metrics.append(m),
+                                                            step_s.append(dt)), **run)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        extra = remat_extra(fields)
+        expect = {k: TRAIN_HI_STEPS * (v + extra.get(k, 0)) for k, v in per_step.items()}
+        assert counts == expect, (name, counts, expect)
+        assert len(metrics) == TRAIN_HI_STEPS and all(
+            math.isfinite(v) for m in metrics for v in m.values()), metrics
+        r = {"flags": " ".join(flags), "steps": TRAIN_HI_STEPS, "batch": BATCH_HI,
+             "step_ms_cuda_events": ev0.elapsed_time(ev1) / TRAIN_HI_STEPS,
+             # each step's wall time up to reading its metrics (synchronising)
+             "step_ms_wall": [dt * 1e3 for dt in step_s],
+             "samples_per_s": TRAIN_HI_STEPS * BATCH_HI / wall,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": counts, "recompute_launches_per_step": extra,
+             "last": metrics[-1]}
+        out["configs"][name] = r
+        log(f"    {name}: {r['step_ms_cuda_events']:.1f} ms per step (wall per step "
+            f"{min(r['step_ms_wall']):.1f}-{max(r['step_ms_wall']):.1f}), "
+            f"{r['samples_per_s']:.2f} samples/s, peak {r['peak_mem_gb']:.2f} GB, "
+            f"launches {counts} (recompute per step {extra})")
+        walk = wp
+        del ed
+        torch.cuda.empty_cache()
+
+    # remat against plain from the same state: one make_train_step step
+    # each, host alphas, so the seeded generator draws only the noise
+    rng = np.random.RandomState(22)
+    z = torch.from_numpy(rng.randn(BATCH_HI, base.cfg.dim_z).astype(np.float32))
+    sampled, _ = task.train_alpha_np(rng, BATCH_HI, len(base.cfg.attr_list))
+
+    def one_step(fields, noise_seed=5):
+        w = {"w": w0.clone().requires_grad_(True)}
+        step = make_train_step(editor(fields), task, make_optimizer(w, lr), host_alpha=True)
+        m = step(w, z, torch.Generator(device=dev).manual_seed(noise_seed), sampled)
+        terms = {k: float(m[k]) for k in ("loss", "reg_loss", "content_loss", "gan_loss")}
+        grad = w["w"].grad.double().cpu().numpy()
+        torch.cuda.empty_cache()
+        return terms, grad
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    plain_terms, plain_grad = one_step({})
+    again_terms, again_grad = one_step({})
+    _, other_noise_grad = one_step({}, noise_seed=7)
+    w = {"w": w0.clone().requires_grad_(True)}
+    step = make_train_step(editor({}), task, make_optimizer(w, lr))
+    out["profile"] = profile_call(
+        lambda: step(w, z, torch.Generator(device=dev).manual_seed(6)),
+        f"train_step_{SIZE_HI}_trace.json")
+    del step, w
+    out["plain_vs_plain"] = {"grad_rel_l2": rel_l2(again_grad, plain_grad),
+                             "terms_rel": {k: abs(again_terms[k] - v) / abs(v)
+                                           for k, v in plain_terms.items()}}
+    # a remat step whose recompute drew other noise would be this far off
+    out["other_noise_vs_plain"] = {"grad_rel_l2": rel_l2(other_noise_grad, plain_grad)}
+    assert out["other_noise_vs_plain"]["grad_rel_l2"] > grad_limit, out
+    out["remat_vs_plain"] = {"grad_limit": grad_limit}
+    for name, fields, _ in TRAIN_HI_CONFIGS[1:4]:
+        terms, grad = one_step(fields)
+        cmp_ = {"grad_rel_l2": rel_l2(grad, plain_grad),
+                "terms_rel": {k: abs(terms[k] - v) / abs(v) for k, v in plain_terms.items()}}
+        out["remat_vs_plain"][name] = cmp_
+        assert all(v <= 1e-5 for v in cmp_["terms_rel"].values()), (name, cmp_)
+        assert cmp_["grad_rel_l2"] <= grad_limit, (name, cmp_, grad_limit)
+    out["plain_terms"] = plain_terms
+    out["walk_path"] = ckpt.save_walk(conf.output_dir, 1, walk, final=True)
+    out["opt_yml"] = os.path.join(conf.output_dir, "opt.yml")
+    return out
+
+
+def eval_1024_phase(opt_yml, walk_path):
+    """`python -m latent2im_tpu_torch.cli.eval` on the walk phase 14 saved,
+    two processes at once: whitened and --ref_parity preprocessing."""
+    root = os.path.join(REPO, "chiprun_out", "eval1024")
+    runs = {"whitened": (), "reference": ("--ref_parity",)}
+    procs = {}
+    for mode, extra in runs.items():
+        procs[mode] = subprocess.Popen(
+            [sys.executable, "-m", "latent2im_tpu_torch.cli.eval", opt_yml,
+             "--save_path_w", walk_path, "--num_samples", str(BATCH_HI),
+             "--output_dir", os.path.join(root, mode), *extra],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        for mode, proc in procs.items():
+            text, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"eval ({mode}) exited {proc.returncode}:\n{text[-3000:]}")
+            with open(os.path.join(root, mode, "eval_report.json")) as f:
+                report = json.load(f)
+            assert set(report) == {"embedding", "embedding_preprocess",
+                                   "identity_is_relative_only", "results"}, report.keys()
+            assert report["embedding"] == "vgg-fallback", report
+            assert report["embedding_preprocess"] == mode, report
+            assert report["identity_is_relative_only"] is True, report
+            res = report["results"]["Smiling"]
+            counts = res["bucket_counts"]
+            assert len(counts) == 3 and 0 < sum(counts) <= 10 * BATCH_HI, res
+            for key in ("identity_preservation", "attribute_preservation"):
+                for n, v in zip(counts, res[key]):  # nan exactly where a bucket is empty
+                    assert (n > 0) == math.isfinite(v), (mode, key, res)
+            out[mode] = res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def hi_phases(card, dev, grad_limit):
+    """Phases 11-15 -> the 1024 px kernel results, their launches per path
+    and the phases' reports."""
+    import torch
+
+    log(f"[11] kernels against their plain versions at the {SIZE_HI} px B={BATCH_HI} "
+        "shapes of apply_alpha and of a training step")
+    results, max_err, details = kernel_phase(dev, SIZE_HI, BATCH_HI, iters=10)
+    out = {"results": results, "max_err": max_err, "details": details, "launches": {}}
+
+    log(f"[12] the {SIZE_HI} px generator against tests/fixtures/ref_outputs_{SIZE_HI}px.npz")
+    out["forward"] = forward_1024_phase(dev)
+    out["launches"]["forward_1024"] = out["forward"].pop("launches")
+    log(f"    {out['forward']}")
+    torch.cuda.empty_cache()
+
+    log(f"[13] the {SIZE_HI} px edit server: apply_alpha B={BATCH_HI}, one /edit")
+    out["edit"] = edit_1024_phase(results, dev)
+    out["launches"]["serve_1024"] = out["edit"].pop("launches")
+    log(f"    apply_alpha B={BATCH_HI} under torch.profiler: {json.dumps(out['edit']['profile'])}")
+    log(f"    apply_alpha B={BATCH_HI} {out['edit']['apply_alpha_b8_device_ms']:.2f} ms "
+        f"(CUDA events), /edit {out['edit']['edit_request_ms']:.1f} ms, uint8 values "
+        f"where /edit differs from apply_alpha {out['edit']['edit_vs_apply_alpha_differing']}"
+        f", on {card}")
+    torch.cuda.empty_cache()
+
+    log(f"[14] {SIZE_HI} px walk training, train_loop B={BATCH_HI}, five configurations")
+    train = train_1024_phase(results, grad_limit, dev)
+    out["launches"]["train_1024"] = {
+        k: sum(c["launches"][k] for c in train["configs"].values()) for k in SOURCE}
+    out["train"] = train
+    log(f"    remat against plain: {json.dumps(train['remat_vs_plain'])}; plain against "
+        f"itself {json.dumps(train['plain_vs_plain'])}; plain with another noise draw "
+        f"{json.dumps(train['other_noise_vs_plain'])}, on {card}")
+    log(f"    one plain step under torch.profiler: {json.dumps(train['profile'])}")
+    torch.cuda.empty_cache()
+
+    log(f"[15] python -m latent2im_tpu_torch.cli.eval at {SIZE_HI} px, whitened and "
+        "--ref_parity")
+    t = time.perf_counter()
+    out["eval"] = eval_1024_phase(train["opt_yml"], train["walk_path"])
+    out["eval"]["seconds"] = time.perf_counter() - t
+    log(f"    {json.dumps(out['eval'])}")
     return out
 
 
@@ -1105,24 +1482,34 @@ def main() -> int:
         f"after --resume, Adam step {cli['adam_step']:.0f}; vis_w wrote {cli['vis_pngs']}; "
         f"uint8 values where /edit differs from apply_alpha "
         f"{json.dumps(cli['edit_vs_apply_alpha'])}")
+    torch.cuda.empty_cache()
+
+    hi = hi_phases(card, dev, grad_limit=train_cmp["walk_grad_limit"])
 
     kernels = []
     for n, paths in results.items():
-        r = paths["train_step"]
+        r, rh = paths["train_step"], hi["results"][n]["train_step"]
+        by_path = {"serve": serve_counts[n], "train": train_counts[n],
+                   **{k: v[n] for k, v in hi["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
-            "launches": serve_counts[n] + train_counts[n],
-            "launches_by_path": {"serve": serve_counts[n], "train": train_counts[n]},
-            "max_abs_err": max_err[n], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(max_err[n], hi["max_err"][n]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "per": f"training step, {SIZE} px, B={BATCH}",
             "device_ms": r["device_ms"],
             "bound_share_device": r["bound_ms"] / r["device_ms"],
-            "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None})
+            "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None,
+            f"per_train_step_{SIZE_HI}": {
+                "per": f"training step, {SIZE_HI} px, B={BATCH_HI}", **rh,
+                "bound_share_device": rh["bound_ms"] / rh["device_ms"]},
+            f"per_apply_alpha_{SIZE_HI}": (hi["results"][n]["apply_alpha"]
+                                           if n in FORWARD else None)})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "kernels": kernels, "shapes": details, "serve": serve, "profile": prof,
-              "cpu_vs_card": cmp_, "train": train, "train_profile": train_prof,
-              "train_cpu_vs_card": train_cmp, "cli": cli,
+              "kernels": kernels, "shapes": details + hi["details"], "serve": serve,
+              "profile": prof, "cpu_vs_card": cmp_, "train": train,
+              "train_profile": train_prof, "train_cpu_vs_card": train_cmp, "cli": cli,
+              "hi": {k: v for k, v in hi.items() if k not in ("results", "details")},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -46,14 +46,6 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         _not_ported(f"the {model!r} backend", "queue A item 13")
     if getattr(opt, "bf16", False):
         _not_ported("--bf16 compute", "queue A item 20")
-    if getattr(opt, "reg_input_size", None):
-        _not_ported("--reg_input_size (antialiased resize)", "queue A item 17")
-    if getattr(opt, "content_input_size", None):
-        _not_ported("--content_input_size (the same resize as "
-                    "--reg_input_size)", "queue A item 17")
-    for flag in ("remat_g", "remat_towers"):
-        if getattr(opt, flag, False):
-            _not_ported(f"--{flag} (torch.utils.checkpoint)", "queue A item 22")
     latent = opt.stylegan.latent
     walk_kind = resolve_walk_kind(
         model, opt.walk_type, latent, train_embed=opt.trainEmbed,
@@ -117,6 +109,10 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         no_gan_loss=bool(getattr(opt, "no_gan_loss", False)),
         stable_bce=bool(getattr(opt, "stable_bce", False)),
         fixed_noise=bool(getattr(opt, "fixed_noise", False)),
+        reg_input_size=getattr(opt, "reg_input_size", None),
+        content_input_size=getattr(opt, "content_input_size", None),
+        remat_g=getattr(opt, "remat_g", False) or False,
+        remat_towers=bool(getattr(opt, "remat_towers", False)),
     )
     walk_params = init_walk(walk_kind, dim_z, cfg.n_latent, attr_list,
                             generator=gen, device=device)

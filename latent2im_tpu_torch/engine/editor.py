@@ -5,6 +5,7 @@ The counterpart of latent2im_tpu/engine/editor.py:
     get_w           z -> W+ stack [B, L, D]
     synthesize      latent -> image NHWC (stored or fresh noise)
     regress         image -> attribute scores [B, A]
+    regress_all     image -> every regressor output (eval)
     discriminate    image -> D logits [B, 1]
     unified_alphas  (org, sampled) -> (target, delta)
     edit            walk application
@@ -30,6 +31,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..walks import walks as W
@@ -66,6 +68,17 @@ class EditorConfig:
     no_gan_loss: bool = False
     stable_bce: bool = False
     fixed_noise: bool = False  # True = stored noise buffers during training
+    # resize images to this size before the regressor (None: feed the
+    # generator's resolution); e.g. 256 for a 1024 px G, the regressor's own
+    reg_input_size: int | None = None
+    # resize both images to this size before the VGG content loss (None:
+    # compare at the generator's resolution)
+    content_input_size: int | None = None
+    # rematerialize the edited synthesis in the step's backward: False, 'all'
+    # (one checkpoint around it) or 'block' (one per synthesis block)
+    remat_g: bool | str = False
+    # rematerialize the loss towers (regressor, VGG content loss, D)
+    remat_towers: bool = False
 
     @property
     def n_latent(self) -> int:
@@ -108,19 +121,29 @@ class Editor:
         w = self.g.style_forward(self._tensor(z))
         return w[:, None, :].expand(-1, self.cfg.n_latent, -1)
 
-    def synth(self, latent, noise_generator=None):
-        """W+ [B, L, D] -> image [B, H, W, 3]. noise_generator: a
-        torch.Generator on the editor's device for fresh per-layer noise;
-        None uses the stored noise buffers."""
-        latent = self._tensor(latent)
-        noise = None
-        if noise_generator is not None:
-            noise = self.g.make_noise(latent.shape[0], noise_generator)
-        return self.g.synthesize(latent, noise=noise)
+    def synth(self, latent, noise=None, block_remat: bool = False):
+        """W+ [B, L, D] -> image [B, H, W, 3]. noise: per-layer noise
+        (Generator.make_noise), or None for the stored noise buffers.
+        block_remat checkpoints each synthesis block (Generator.synthesize)."""
+        return self.g.synthesize(self._tensor(latent), noise=noise,
+                                 block_remat=block_remat)
+
+    def _reg_input(self, img):
+        s = self.cfg.reg_input_size
+        if s and img.shape[1] != s:
+            img = bilinear_resize(img, s, s)
+        return img
+
+    def _content_input(self, img):
+        s = self.cfg.content_input_size
+        if s and img.shape[1] != s:
+            img = bilinear_resize(img, s, s)
+        return img
 
     def scores(self, img):
-        """image -> regressor scores at the configured attributes [B, A]."""
-        return self.reg(img)[:, self._attr_idx]
+        """image -> regressor scores at the configured attributes [B, A]
+        (resized to reg_input_size first, where set)."""
+        return self.reg(self._reg_input(img))[:, self._attr_idx]
 
     def discriminate(self, img):
         """image NHWC -> D logits [B, 1]."""
@@ -137,11 +160,21 @@ class Editor:
 
     @torch.inference_mode()
     def synthesize(self, latent, noise_generator=None):
-        return self.synth(latent, noise_generator)
+        """noise_generator (a torch.Generator on the editor's device) draws
+        fresh noise; None keeps the stored buffers."""
+        latent = self._tensor(latent)
+        noise = (None if noise_generator is None
+                 else self.g.make_noise(latent.shape[0], noise_generator))
+        return self.synth(latent, noise)
 
     @torch.inference_mode()
     def regress(self, img):
         return self.scores(img)
+
+    @torch.inference_mode()
+    def regress_all(self, img):
+        """image -> every regressor output [B, n_outputs] (eval)."""
+        return self.reg(self._reg_input(self._tensor(img)))
 
     def unified_alphas(self, alpha_org, sampled):
         """-> (alpha_target, alpha_delta); 'delta' mode clamps the target."""
@@ -274,6 +307,19 @@ class Editor:
         edited = self.edit(walk_params, flat_latent, delta.reshape(n * b, -1))
         imgs = self._synthesize_stream(edited, _balanced_chunk(n * b, SWEEP_CHUNK), u8=u8)
         return imgs.reshape((p, p, b) + imgs.shape[1:]), alpha_org, orig
+
+
+def bilinear_resize(img, h: int, w: int):
+    """NHWC images -> [B, h, w, C], as the JAX package's
+    ``jax.image.resize(..., "linear")``: bilinear with half-pixel centres,
+    antialiased on a downscale (the triangle filter widened by the scale).
+    ``F.interpolate`` with ``antialias=True`` computes that function; it runs
+    here on NCHW-contiguous memory, forward and backward, whatever layout the
+    caller holds. The result is NHWC-contiguous, as the generator's output."""
+    x = img.permute(0, 3, 1, 2).contiguous()
+    out = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                        antialias=True)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def clip_ims(ims) -> np.ndarray:

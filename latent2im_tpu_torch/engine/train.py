@@ -8,9 +8,15 @@ to the sampled target, the edited image, then
     loss = 10 * BCE(R(edited), target) + 0.05 * VGG content + 0.05 * GAN
 
 backpropagated through the frozen towers into the walk only, and one Adam
-step. PyTorch runs it eagerly; its kernels (fused_act, upfirdn2d and the
-styled conv forward, fused_act and upfirdn2d backward) launch from the
-models' autograd nodes.
+step. ``cfg.remat_g`` ('all' | 'block') checkpoints the edited synthesis,
+whole or per block, and ``cfg.remat_towers`` the regressor, the content loss
+and D on the edited image (utils/remat.py), as the JAX step does: the same
+values, one more forward of each region in the backward, less memory.
+``cfg.reg_input_size`` / ``cfg.content_input_size`` resize the images the
+regressor and the content loss see (``editor.bilinear_resize``). PyTorch
+runs it eagerly; its kernels (fused_act, upfirdn2d and the styled conv
+forward, fused_act and upfirdn2d backward) launch from the models'
+autograd nodes.
 
 Randomness: the alpha targets and the per-forward noise come from a
 ``torch.Generator`` on the editor's device, re-seeded per step from (seed,
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from ..tasks.transforms import Task
+from ..utils.remat import checkpoint
 from . import losses as L
 from .editor import Editor
 
@@ -64,22 +71,41 @@ def make_train_step(editor: Editor, task: Task | None,
             sampled = editor._tensor(sampled)
         else:
             sampled, _ = task.train_alpha(generator, b, n_attr)
-        noise_gen = None if cfg.fixed_noise else generator
-        if noise_gen is None and not cfg.fixed_noise:
+        if generator is None and not cfg.fixed_noise:
             raise ValueError("fresh noise needs a generator (or fixed_noise)")
+
+        def noise():  # None: the stored buffers
+            return None if cfg.fixed_noise else editor.g.make_noise(b, generator)
+
         optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
             latent = editor.latent_of(z)
-            img_org = editor.synth(latent, noise_gen)
+            img_org = editor.synth(latent, noise=noise())
             alpha_org = editor.scores(img_org)
         target, delta = editor.unified_alphas(alpha_org, sampled)
-        img_new = editor.synth(editor.edit(walk_params, latent, delta), noise_gen)
-        reg = L.reg_loss(editor.scores(img_new), target, stable=cfg.stable_bce)
+        latent_new = editor.edit(walk_params, latent, delta)
+        # the edited synthesis's noise is drawn here, outside any checkpoint,
+        # so a recompute sees the same noise
+        noise_new = noise()
+        if cfg.remat_g == "block":
+            img_new = editor.synth(latent_new, noise=noise_new, block_remat=True)
+        elif cfg.remat_g:
+            img_new = checkpoint(lambda lat: editor.synth(lat, noise=noise_new),
+                                 latent_new)
+        else:
+            img_new = editor.synth(latent_new, noise=noise_new)
+
+        def tower(fn, *args):
+            # the loss towers are frozen and in eval mode: a recompute is exact
+            return checkpoint(fn, *args) if cfg.remat_towers else fn(*args)
+
+        reg = L.reg_loss(tower(editor.scores, img_new), target, stable=cfg.stable_bce)
         zero = torch.zeros((), device=editor.device)
-        content = zero if cfg.no_content_loss else L.content_loss(
-            editor.vgg, img_org, img_new)
-        gan = zero if cfg.no_gan_loss else L.gan_loss_from_logits(
-            editor.discriminate(img_new))
+        content = zero if cfg.no_content_loss else tower(
+            lambda org, new: L.content_loss(editor.vgg, org, new),
+            editor._content_input(img_org), editor._content_input(img_new))
+        gan = zero if cfg.no_gan_loss else tower(
+            lambda new: L.gan_loss_from_logits(editor.discriminate(new)), img_new)
         total = L.combine(reg, content, gan, no_content_loss=cfg.no_content_loss,
                           no_gan_loss=cfg.no_gan_loss,
                           pggan_gating=(cfg.model == "pggan"))

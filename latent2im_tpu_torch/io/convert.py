@@ -2,7 +2,7 @@
 
 Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator and
 init_discriminator, models/resnet.py:init_resnet50, models/vgg.py:init_vgg,
-walks/walks.py:init_walk, or the same trees converted from torch
+models/facenet.py:init_facenet, walks/walks.py:init_walk, or the same trees converted from torch
 checkpoints), as numpy arrays. Output: state_dicts that
 the port's modules load with ``strict=True``. The layout rules are the inverse
 of latent2im_tpu/io/torch_convert.py (read, not imported):
@@ -143,6 +143,50 @@ def resnet50_from_jax(tree) -> dict[str, torch.Tensor]:
                 conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1", blk["down"])
     sd["fc.weight"] = _lin(tree["fc"]["w"])
     sd["fc.bias"] = _t(tree["fc"]["b"])
+    return sd
+
+
+def facenet_from_jax(tree) -> dict[str, torch.Tensor]:
+    """facenet pytree (models/facenet.py:init_facenet there) ->
+    facenet_pytorch InceptionResnetV1 state_dict (without ``logits``)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def bn(prefix, p):
+        sd[f"{prefix}.weight"] = _t(p["gamma"])
+        sd[f"{prefix}.bias"] = _t(p["beta"])
+        sd[f"{prefix}.running_mean"] = _t(p["mean"])
+        sd[f"{prefix}.running_var"] = _t(p["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    def basic(prefix, p):
+        sd[f"{prefix}.conv.weight"] = _conv(p["w"])
+        bn(f"{prefix}.bn", p["bn"])
+
+    def block(prefix, p):
+        for name, v in p.items():
+            if name == "conv2d":
+                sd[f"{prefix}.conv2d.weight"] = _conv(v["w"])
+                sd[f"{prefix}.conv2d.bias"] = _t(v["b"])
+            elif isinstance(v, list):
+                for j, q in enumerate(v):
+                    basic(f"{prefix}.{name}.{j}", q)
+            else:
+                basic(f"{prefix}.{name}", v)
+
+    for name in ("conv2d_1a", "conv2d_2a", "conv2d_2b", "conv2d_3b", "conv2d_4a",
+                 "conv2d_4b"):
+        basic(name, tree[name])
+    for i, p in enumerate(tree["repeat_1"]):
+        block(f"repeat_1.{i}", p)
+    block("mixed_6a", tree["mixed_6a"])
+    for i, p in enumerate(tree["repeat_2"]):
+        block(f"repeat_2.{i}", p)
+    block("mixed_7a", tree["mixed_7a"])
+    for i, p in enumerate(tree["repeat_3"][:-1]):
+        block(f"repeat_3.{i}", p)
+    block("block8", tree["repeat_3"][-1])
+    sd["last_linear.weight"] = _lin(tree["last_linear"]["w"])
+    bn("last_bn", tree["last_bn"])
     return sd
 
 

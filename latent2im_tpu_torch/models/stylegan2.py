@@ -19,7 +19,9 @@ so no per-sample weight tensor is made. Every non-up 3x3 styled conv runs the
 fused kernel ``ops.styled_conv3x3``; the up convs run a transposed conv, the
 ``ops.upfirdn2d`` blur and ``ops.fused_leaky_relu``; the skip upsample in
 ``ToRGB`` runs ``ops.upfirdn2d`` at C=3 (the JAX package's polyphase shift
-form at >=128 px, ``SKIP_SHIFT_MIN_RES``, computes the same function).
+form at >=128 px, ``SKIP_SHIFT_MIN_RES``, computes the same function, as its
+space-to-depth FAST_TAIL does for the 1024 px model's thin 512/1024 px
+blocks). ``synthesize(..., block_remat=True)`` checkpoints each block.
 
 The discriminator runs its convs on cuDNN, its activations through
 ``ops.fused_leaky_relu`` and the blur before each stride-2 conv through
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from ..ops import (blur2d, fused_leaky_relu, make_kernel, styled_conv3x3,
                    upsample2d)
+from ..utils.remat import checkpoint
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -254,11 +257,25 @@ class Generator(nn.Module):
         return [torch.randn((batch, h, w, 1), generator=generator, device=dev)
                 for (h, w) in noise_shapes(self.size)]
 
-    def synthesize(self, latent, noise=None):
+    def _block(self, j, x, skip, lat3, noise_a, noise_b):
+        """Synthesis block j: the up styled conv, the styled conv and to_rgb
+        of one resolution."""
+        x = self.convs[2 * j](x, lat3[:, 0], noise_a)
+        x = self.convs[2 * j + 1](x, lat3[:, 1], noise_b)
+        return x, self.to_rgbs[j](x, lat3[:, 2], skip)
+
+    def synthesize(self, latent, noise=None, block_remat: bool = False):
         """latent [B, n_latent, D] -> image [B, size, size, 3] NHWC f32.
 
         noise: None uses the stored buffers (randomize_noise=False); else a
-        list of [1|B, h, w, 1] arrays per layer."""
+        list of [1|B, h, w, 1] arrays per layer.
+
+        block_remat: checkpoint each synthesis block (``torch.utils.
+        checkpoint``, non-reentrant), as the JAX package's ``jax.checkpoint``
+        per block: the backward recomputes one block at a time instead of
+        keeping every block's activations. The noise comes in as an input,
+        drawn before the region, so the recompute sees the same noise (a
+        checkpoint restores the global RNG, not an explicit generator)."""
         if noise is None:
             noise = [getattr(self.noises, f"noise_{i}")[:, 0]
                      for i in range(num_noise_layers(self.size))]
@@ -268,12 +285,10 @@ class Generator(nn.Module):
         x = self.input.input.permute(0, 2, 3, 1).expand(b, -1, -1, -1).contiguous()
         x = self.conv1(x, latent[:, 0], noise[0])
         skip = self.to_rgb1(x, latent[:, 1])
-        i = 1
-        for j, to_rgb in enumerate(self.to_rgbs):
-            x = self.convs[2 * j](x, latent[:, i], noise[2 * j + 1])
-            x = self.convs[2 * j + 1](x, latent[:, i + 1], noise[2 * j + 2])
-            skip = to_rgb(x, latent[:, i + 2], skip)
-            i += 2
+        for j in range(len(self.to_rgbs)):
+            args = (j, x, skip, latent[:, 2 * j + 1:2 * j + 4], noise[2 * j + 1],
+                    noise[2 * j + 2])
+            x, skip = checkpoint(self._block, *args) if block_remat else self._block(*args)
         return skip.float()
 
     def forward(self, styles, input_is_latent: bool = False,

@@ -10,9 +10,9 @@ per attribute shared by the batch, as in the reference:
   * ``train_alpha(generator, batch, n_attr)``  the same statistics on a
     ``torch.Generator``, on the generator's device.
 
-Both return (alpha_for_graph [B, A], alpha_for_target [A]). The test/vis
-schedules wait for the vis slice; the geometric/color tasks and the dsprites
-slider composition for ROADMAP.md queue A item 12.
+Both return (alpha_for_graph [B, A], alpha_for_target [A]);
+``test_alphas`` gives the eval CLI's panels. The geometric/color tasks and
+the dsprites slider composition wait for ROADMAP.md queue A item 12.
 """
 
 from __future__ import annotations
@@ -46,11 +46,20 @@ class Task:
         n = n_sliders or self.nsliders
         return np.full((batch, n), alpha, np.float32)
 
+    def test_alphas(self):
+        """The eval CLI's panel targets."""
+        return np.linspace(0, 1, 10)
+
 
 class FaceTransform(Task):
     """CelebA attributes: alpha in [0, 1]."""
 
     lo, hi = 0.0, 1.0
+
+    def test_alphas(self):
+        if self.walk_type == "linear":
+            return np.linspace(0, 1, 10)
+        raise ValueError("face test_alphas defined for linear walks only")
 
 
 class SceneTransform(Task):
@@ -59,6 +68,9 @@ class SceneTransform(Task):
 
 class XrayTransform(Task):
     lo, hi = 0.0, 1.0
+
+    def test_alphas(self):
+        return np.linspace(0, 1, 9)
 
 
 class ChairTransform(Task):

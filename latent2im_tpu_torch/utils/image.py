@@ -70,6 +70,71 @@ def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
         f.write(png_bytes(np.squeeze(np.asarray(a, dtype=np.uint8))))
 
 
+_PIL_PRECISION_BITS = 22  # libImaging/Resample.c: 32 - 8 - 2
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter, a = -0.5, support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_coeffs(in_size: int, out_size: int):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis ->
+    (first input index [out, k], fixed-point coefficients [out, k] int64);
+    unused taps have coefficient 0 and index 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)  # C casts truncate
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _pil_bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
+        ww = 0.0
+        for v in w:  # sequential, as the C loop sums
+            ww += v
+        if ww != 0.0:
+            w = w / ww
+        kk[xx, :xmax] = w
+        idx[xx, :xmax] = np.arange(xmax) + xmin
+    one = float(1 << _PIL_PRECISION_BITS)
+    fixed = np.where(kk < 0, np.trunc(-0.5 + kk * one), np.trunc(0.5 + kk * one))
+    return idx, fixed.astype(np.int64)
+
+
+def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One 8-bit pass of Pillow's resample along ``axis`` of [H, W, C]:
+    integer multiply-adds from a half-unit start, >> 22, clip to uint8."""
+    idx, k = _pil_coeffs(img.shape[axis], out_size)
+    x = np.moveaxis(img.astype(np.int64), axis, 0)  # [in, other, C]
+    acc = np.full((out_size,) + x.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    for j in range(idx.shape[1]):
+        acc += x[idx[:, j]] * k[:, j, None, None]
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def pil_resize_bicubic(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 [H, W, C] -> [h, w, C] as Pillow's ``Image.resize((w, h))``
+    computes it with its default BICUBIC filter, without Pillow: the
+    two-pass fixed-point resample of libImaging/Resample.c, the horizontal
+    pass first, each pass rounding and clipping to uint8, the filter's
+    support widened by the downscale factor. ``size`` is (w, h) as Pillow's."""
+    w, h = size
+    img = np.asarray(img_u8, np.uint8)
+    if img.shape[1] != w:
+        img = _pil_pass(img, 1, w)
+    if img.shape[0] != h:
+        img = _pil_pass(img, 0, h)
+    return img
+
+
 def to_uint8(ims) -> np.ndarray:
     """[-1, 1] float images -> uint8 (the reference's clip_ims): clip
     ((x + 1) / 2) * 255 to [0, 255] and truncate. Already-uint8 input passes

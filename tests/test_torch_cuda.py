@@ -332,3 +332,44 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
     (lg, gg), (lc, gc) = res
     assert abs(lg - lc) <= 1e-4 * abs(lc)
     assert float((gg - gc).norm() / gc.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "channels_last_view"])
+@pytest.mark.parametrize("h,out", [(1024, 256), (256, 160), (64, 128)])
+def test_bilinear_resize_forward_and_backward_on_the_card(dev, layout, h, out):
+    """editor.bilinear_resize (--reg_input_size, --content_input_size, the
+    eval's whitened input) on the card against the CPU, forward and the
+    antialiased backward, for the NHWC-contiguous image G hands it and for
+    an NHWC view of NCHW memory."""
+    from latent2im_tpu_torch.engine.editor import bilinear_resize
+
+    gen = torch.Generator().manual_seed(h + out)
+    x = torch.randn((2, h, h, 3), generator=gen)
+    g = torch.randn((2, out, out, 3), generator=gen)
+    results = []
+    for d in ("cpu", dev):
+        xd = x.to(d)
+        if layout == "channels_last_view":
+            xd = xd.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        xd.requires_grad_(True)
+        y = bilinear_resize(xd, out, out)
+        (gx,) = torch.autograd.grad(y, xd, g.to(d))
+        results.append((y.detach().cpu(), gx.cpu()))
+    (y0, g0), (y1, g1) = results
+    torch.cuda.synchronize()
+    assert (y1 - y0).abs().max().item() <= 1e-5 * y0.abs().max().item()
+    assert (g1 - g0).abs().max().item() <= 1e-5 * g0.abs().max().item()
+
+
+@pytest.mark.parametrize("h,cin,cout", [(512, 64, 64), (1024, 32, 32), (1024, 64, 32)])
+def test_styled_conv_kernel_at_the_1024px_models_thin_layers(dev, h, cin, cout):
+    """The 1024 px model's 512^2 x 64 and 1024^2 x 32 layers (Cout below the
+    kernel's 128-wide N tile), B=1, against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(h + cin)
+    x = _randn(gen, dev, 1, h, h, cin)
+    w = _randn(gen, dev, 3, 3, cin, cout) / math.sqrt(9 * cin)
+    s = 1 + 0.2 * _randn(gen, dev, 1, cin)
+    d = torch.rsqrt(s.square() @ w.square().sum((0, 1)) + 1e-8)
+    args = (x, w, s, d, _randn(gen, dev, 1, h, h), torch.full((1,), 0.3, device=dev),
+            0.1 * _randn(gen, dev, cout))
+    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), SC_TOL)

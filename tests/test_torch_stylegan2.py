@@ -144,6 +144,24 @@ def test_size_256_skip_shift_branch_matches_jax():
     assert_images_close(got.numpy(), want)
 
 
+def test_size_1024_fast_tail_branch_matches_jax():
+    """The 1024 px generator (n_latent 18, nine resolutions) at 8 channels,
+    B=1, against JAX synthesize with its defaults: the s2d FAST_TAIL runs
+    the 1024 px block there (channels <= FAST_TAIL_MAX_CH, output >=
+    FAST_TAIL_MIN_RES); the port computes the same function directly."""
+    assert jsg2.FAST_TAIL and jsg2.FAST_TAIL_MAX_CH >= 8 and jsg2.FAST_TAIL_MIN_RES <= 1024
+    ch = {2 ** i: 8 for i in range(2, 11)}
+    params = _perturbed_jax_generator(1024, ch, seed=7)
+    g = _port_generator(params, 1024, ch)
+    assert g.n_latent == jsg2.n_latent(1024) == 18
+    lat = np.random.RandomState(8).randn(1, 18, 32).astype(np.float32)
+    want = jax.jit(jsg2.synthesize)(_jtree(params), jnp.asarray(lat))
+    with torch.no_grad():
+        got = g.synthesize(torch.from_numpy(lat))
+    assert got.shape == (1, 1024, 1024, 3)
+    assert_images_close(got.numpy(), want)
+
+
 def test_ref_g_tiny_loads_strict_and_reproduces_torch_recording():
     """The committed rosinality-layout checkpoint loads with strict=True and
     no conversion, and reproduces its recorded torch outputs (as

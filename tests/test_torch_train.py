@@ -202,10 +202,15 @@ def test_build_flags():
     assert isinstance(ed.d, sg2.Discriminator) and isinstance(ed.vgg, vggm.VGG19Features)
     assert not any(p.requires_grad for m in (ed.g, ed.reg, ed.vgg, ed.d)
                    for p in m.parameters())
-    for flags, item in ((("--remat_g",), "item 22"), (("--remat_towers",), "item 22"),
-                        (("--content_input_size", "8"), "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            _tiny_editor(*flags)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        _tiny_editor("--bf16")
+    for flags, want in ((("--remat_g",), {"remat_g": "all"}),
+                        (("--remat_g", "block", "--remat_towers"),
+                         {"remat_g": "block", "remat_towers": True}),
+                        (("--reg_input_size", "8", "--content_input_size", "8"),
+                         {"reg_input_size": 8, "content_input_size": 8})):
+        ed, _, _ = _tiny_editor(*flags)
+        assert {k: getattr(ed.cfg, k) for k in want} == want
 
 
 def test_build_loads_d_from_g_path_and_vgg_from_vgg_path(tmp_path):
