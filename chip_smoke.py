@@ -7,7 +7,8 @@ Two main paths run at full width on seeded random weights (StyleGAN2
 style_dim 512, n_mlp 8, channel multiplier 2; ResNet-50/40; Smiling): the
 edit server and the walk-training loop, at 256 px (phases 3-10) and at
 1024 px (phases 11-15, with the remat and input-size options and the eval
-CLI). Phases (a failed
+CLI); then the second derivatives a gradient penalty takes (16), W+
+inversion and the bp CLI (17-19) and the mlp_w/nn_w walks (20). Phases (a failed
 phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -69,7 +70,27 @@ phase raises, and the script exits non-zero):
      plain step under torch.profiler;
  15. `python -m latent2im_tpu_torch.cli.eval` at 1024 px on phase 14's walk,
      whitened and --ref_parity, two processes: eval_report.json's keys,
-     identity_is_relative_only, finite numbers in the non-empty buckets.
+     identity_is_relative_only, finite numbers in the non-empty buckets;
+ 16. second derivatives: the gradient wrt D's parameters of the WGAN-GP
+     gradient penalty (256 px, full width, B=4), which differentiates the
+     backward kernels of fused_act and upfirdn2d, on the card against f64
+     on the CPU per parameter (phase 9's form of bound);
+ 17. W+ inversion (engine/inversion.py) at 256 px, B=4, Adam, 20 loops, of
+     images G made: ms per loop, peak GB, the loss falling, launches per
+     loop; then 3 loops at B=1 on the card against f64 on the CPU;
+ 18. the real-image flow: 6 PNGs (G's images, a gray and a palette one),
+     `python -m latent2im_tpu_torch.cli.bp` at 256 px, 30 loops, then
+     `python -m latent2im_tpu_torch.cli.vis_w --latents_dir` with phase 10's
+     walk; every file checked;
+ 19. W+ inversion at 1024 px, B=4, 5 loops: ms per loop, peak GB;
+ 20. the mlp_w (--is_mlp) and nn_w (--walk_type NNz) walks: 5 train_loop
+     steps each at 256 px, B=4 (ms per step, peak GB, launches equal to
+     linear_w's step), a save -> reload -> reference-export round trip, and
+     one step on the card against f64 on the CPU (phase 9's bound, which
+     also admits 1.5 x the card's own error in the gradient wrt the edited
+     W+, that error held within TOWERS_F32_MAX).
+Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
+1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
 the towers are frozen), and holds its bias gradient apart at one shape.
 It ends with one JSON line of the kernels' numbers and, last, the line
@@ -124,8 +145,11 @@ SOURCE = {
 FORWARD = ("fused_act", "upfirdn2d", "styled_conv3x3")
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T0:6.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -150,6 +174,27 @@ def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def determinism_cost(fn, warmup: int = 2, iters: int = 10,
+                     turns=("default", "deterministic", "deterministic", "default")) -> dict:
+    """fn's median CUDA-event time under cuDNN's default algorithms and under
+    deterministic ones (``cudnn.deterministic`` on, ``benchmark`` off),
+    measured in ``turns`` -> both means and the cost, deterministic over
+    default - 1."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    runs = {"default": [], "deterministic": []}
+    try:
+        for mode in turns:
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            torch.backends.cudnn.benchmark = False
+            runs[mode].append(time_ms(fn, warmup=warmup, iters=iters))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    d, t = (statistics.mean(runs[k]) for k in ("default", "deterministic"))
+    return {"default_ms": d, "deterministic_ms": t, "cost": t / d - 1, "runs": runs}
 
 
 def device_ms(fn, reps: int = 10, iters: int = 5) -> float:
@@ -589,7 +634,9 @@ def serve_phase(results, dev):
                      warmup=2, iters=10)
     serve = {"p50_request_ms": statistics.median(lat), "img_per_s": n_img / wall,
              "requests": len(lat), "images": n_img,
-             "apply_alpha_b4_device_ms": dev_ms}
+             "apply_alpha_b4_device_ms": dev_ms,
+             "deterministic_cudnn": determinism_cost(
+                 lambda: service.ed.apply_alpha(service.walk, z, a, u8=True))}
     return service, conf, counts, serve
 
 
@@ -768,61 +815,94 @@ def train_profile_phase(ed, walk, task):
     return profile_call(lambda: step(walk, z, gen), "train_step_trace.json")
 
 
+# The f32 towers' error in the gradient wrt the edited W+ at 256 px, B=2,
+# against f64: 0.4e-3-2.0e-3 on the card, 0.4e-3-2.5e-3 on the CPU over 9
+# draws of z and walk kind (scripts/torch_walk_grad_spread.py on an H100
+# 80GB HBM3 at 700 W); a tower fault would reach far beyond this.
+TOWERS_F32_MAX = 5e-3
+
+
 def reference_step(ed, w0, z, sampled, dtype):
-    """The step's loss terms and walk gradient at walk w0, composed here
-    from the towers in ``dtype`` (an independent reference of
+    """The step's loss terms, walk gradient (all the walk's tensors,
+    flattened) and gradient wrt the edited W+ at walk w0 (a tree of arrays),
+    composed here from the towers in ``dtype`` (an independent reference of
     make_train_step's arithmetic; the towers' f32 output casts are undone)."""
+    import numpy as np
     import torch
 
     from latent2im_tpu_torch.engine import losses as L
+    from latent2im_tpu_torch.walks import apply_walk, walk_leaves, walk_map
 
     dev = ed.device
     z, sampled = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (z, sampled))
-    w = torch.as_tensor(w0, dtype=dtype, device=dev).requires_grad_(True)
+    w = walk_map(lambda a: torch.as_tensor(a, dtype=dtype, device=dev).requires_grad_(True),
+                 w0)
     with torch.no_grad():
         latent = ed.g.style_forward(z)[:, None].expand(-1, ed.cfg.n_latent, -1)
         img_org = ed.g.synthesize(latent).to(dtype)
         alpha_org = ed.reg(img_org)[:, ed._attr_idx].to(dtype)
-    img_new = ed.g.synthesize(
-        latent + torch.einsum("ba,ald->bld", sampled - alpha_org, w)).to(dtype)
+    if ed.cfg.walk_kind == "linear_w":
+        latent_new = latent + torch.einsum("ba,ald->bld", sampled - alpha_org, w["w"])
+    else:
+        latent_new = apply_walk(ed.cfg.walk_kind, w, latent, sampled - alpha_org,
+                                layers=ed.cfg.layers)
+    latent_new.retain_grad()
+    img_new = ed.g.synthesize(latent_new).to(dtype)
     reg = L.raw_bce(ed.reg(img_new)[:, ed._attr_idx], sampled)
     content = L.content_loss(ed.vgg, img_org, img_new)
     gan = L.gan_loss_from_logits(ed.d(img_new))
     loss = L.combine(reg, content, gan)
-    (grad,) = torch.autograd.grad(loss, w)
+    loss.backward()
     terms = {"loss": loss, "reg_loss": reg, "content_loss": content, "gan_loss": gan}
-    return {k: v.item() for k, v in terms.items()}, grad.double().cpu().numpy()
+    return ({k: v.item() for k, v in terms.items()},
+            np.concatenate([t.grad.double().cpu().numpy().ravel() for t in walk_leaves(w)]),
+            latent_new.grad.double().cpu().numpy())
 
 
-def train_cpu_phase():
+def rel_l2(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def train_cpu_phase(*flags, towers_term: bool = False):
     """One step (B=2, stored noise, host alphas) from the same seed on cuda
     and on cpu through make_train_step: loss terms within 1e-3. The walk
     gradient of an f32 step at full width is fixed only to ~1e-3 (rounding
     flips LeakyReLU/ReLU kinks; cuDNN differs run to run), so the card's is
     held to an f64 reference on the CPU, at least as close as the CPU's
     own f32 gradient (x1.5), or within 1e-3. The card's step is also run
-    again, through the reference's composition, for its own spread."""
+    again, through the reference's composition, for its own spread and its
+    error in the gradient wrt the edited W+ (the towers' part, which every
+    walk kind backpropagates). ``flags`` pick the walk (the linear_w of
+    train_conf by default). towers_term also admits 1.5 x that towers'
+    error, itself held within TOWERS_F32_MAX: a walk's gradient cannot be
+    closer to f64 than the gradient it is fed, and where its edit lands
+    decides how many kinks the f32 towers flip."""
     import numpy as np
     import torch
 
     from latent2im_tpu_torch.engine.build import build_editor_from_options
     from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
     from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
 
-    conf = train_conf("--fixed_noise")
+    conf = train_conf("--fixed_noise", *flags)
     z = np.random.RandomState(8).randn(CMP_BATCH, 512).astype(np.float32)
     sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
     res, out = {}, {}
     for device in ("cuda", "cpu"):
         ed, walk, _ = build_editor_from_options(conf, device=device)
-        w0 = walk["w"].detach().cpu().numpy().copy()
-        walk["w"].requires_grad_(True)
+        w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+        for t in walk_leaves(walk):
+            t.requires_grad_(True)
         step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate),
                                host_alpha=True)
         t = time.perf_counter()
         m = step(walk, z, sampled=sampled)
-        res[device] = ({k: float(v) for k, v in m.items()},
-                       walk["w"].grad.detach().cpu().numpy().astype(np.float64))
+        res[device] = ({k: float(v) for k, v in m.items()}, np.concatenate(
+            [p.grad.detach().cpu().numpy().astype(np.float64).ravel()
+             for p in walk_leaves(walk)]))
         out[f"{device}_step_s"] = time.perf_counter() - t
         if device == "cuda":  # the card's own spread: the same step again
             res["cuda_again"] = reference_step(ed, w0, z, sampled, torch.float32)
@@ -830,7 +910,7 @@ def train_cpu_phase():
     t = time.perf_counter()
     for m in (ed.g, ed.reg, ed.vgg, ed.d):  # the CPU editor, in f64
         m.double()
-    ref, ref_grad = reference_step(ed, w0, z, sampled, torch.float64)
+    ref, ref_grad, ref_latent_grad = reference_step(ed, w0, z, sampled, torch.float64)
     out["cpu_f64_reference_s"] = time.perf_counter() - t
     (mg, gg), (mc, gc) = res["cuda"], res["cpu"]
     for k in ("loss", "reg_loss", "content_loss", "gan_loss"):
@@ -840,15 +920,16 @@ def train_cpu_phase():
         assert abs(mc[k] - ref[k]) <= 1e-4 * max(abs(ref[k]), 1e-30), (k, mc[k], ref[k])
     assert np.isfinite(gg).all() and np.abs(gc).max() > 0
 
-    def rel_l2(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
     out["walk_grad_rel_l2_card_cpu"] = rel_l2(gg, gc)
     out["walk_grad_rel_l2_card_card"] = rel_l2(res["cuda_again"][1], gg)
     out["walk_grad_rel_l2_card_f64"] = rel_l2(gg, ref_grad)
     out["walk_grad_rel_l2_cpu_f64"] = rel_l2(gc, ref_grad)
-    limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    out["latent_grad_rel_l2_card_f64"] = rel_l2(res["cuda_again"][2], ref_latent_grad)
+    limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"],
+                1.5 * out["latent_grad_rel_l2_card_f64"] if towers_term else 0.0)
     out["walk_grad_limit"] = limit
+    if towers_term:
+        assert out["latent_grad_rel_l2_card_f64"] <= TOWERS_F32_MAX, out
     assert out["walk_grad_rel_l2_card_f64"] <= limit, out
     out["loss"] = mc["loss"]
     return out
@@ -970,7 +1051,8 @@ def cli_phase():
     for key in ("step", "exp_avg", "exp_avg_sq"):
         assert torch.equal(st1["state"][0][key].cpu(), last_state["state"][0][key].cpu()), key
     out.update(preempted_at=os.path.basename(resume_from), preempt_meta=meta,
-               resumed_steps=len(history), adam_step=float(st1["state"][0]["step"]))
+               resumed_steps=len(history), adam_step=float(st1["state"][0]["step"]),
+               run_dir=run_dir, walk_path=final_path)
     del walk, final, w1, st1
     torch.cuda.empty_cache()
 
@@ -1144,6 +1226,9 @@ def edit_1024_phase(results_hi, dev):
         return service.ed.apply_alpha(service.walk, z, a, u8=True)[0]
 
     out["apply_alpha_b8_device_ms"] = time_ms(apply_alpha, warmup=1, iters=5)
+    out["deterministic_cudnn"] = determinism_cost(apply_alpha, warmup=1, iters=5)
+    log(f"    apply_alpha B={BATCH_HI} under cuDNN's default and deterministic algorithms: "
+        f"{json.dumps(out['deterministic_cudnn'])}")
     out["profile"] = profile_call(apply_alpha, f"apply_alpha_{SIZE_HI}_trace.json")
     torch.backends.cudnn.deterministic = True
     try:
@@ -1284,9 +1369,16 @@ def train_1024_phase(results_hi, grad_limit, dev):
         torch.cuda.empty_cache()
         return terms, grad
 
-    def rel_l2(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
+    w = {"w": w0.clone().requires_grad_(True)}
+    step = make_train_step(editor({}), task, make_optimizer(w, lr), host_alpha=True)
+    # one turn each: a deterministic step takes ~25 s on an H100 at 700 W
+    out["deterministic_cudnn"] = determinism_cost(
+        lambda: step(w, z, torch.Generator(device=dev).manual_seed(5), sampled),
+        warmup=1, iters=1, turns=("default", "deterministic"))
+    log(f"    one plain step under cuDNN's default and deterministic algorithms: "
+        f"{json.dumps(out['deterministic_cudnn'])}")
+    del step, w
+    torch.cuda.empty_cache()
     plain_terms, plain_grad = one_step({})
     again_terms, again_grad = one_step({})
     _, other_noise_grad = one_step({}, noise_seed=7)
@@ -1403,6 +1495,435 @@ def hi_phases(card, dev, grad_limit):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 16-20: second derivatives, W+ inversion, the mlp_w and nn_w walks
+# ---------------------------------------------------------------------------
+
+GP_WEIGHT = 10.0
+# inversion: loops at 256 px (phase 17), in the CLI (18), at 1024 px (19),
+# and of the B=1 comparison with f64; Adam's lr (the CLI's default 1e-4
+# moves W+ too little in 20 loops to show the loss fall)
+INV_LOOPS, INV_CLI_LOOPS, INV_HI_LOOPS, INV_CMP_LOOPS, INV_LR = 20, 30, 5, 3, 1e-2
+WALK_STEPS = 5
+WALK_KINDS = (("mlp_w", ("--is_mlp",)), ("nn_w", ("--walk_type", "NNz")))
+GP_PATH = ("fused_act", "fused_act_bwd", "upfirdn2d", "upfirdn2d_bwd")
+
+
+def gradient_penalty(d, x_hat):
+    """10 * mean_b((|grad_x sum D(x_hat)|_b - 1)^2): the penalty term of the
+    JAX package's engine/gan.py:_d_loss, which differentiates D twice."""
+    import torch
+
+    x = x_hat.detach().requires_grad_(True)
+    (gx,) = torch.autograd.grad(d(x).sum(), x, create_graph=True)
+    norms = torch.sqrt(gx.square().sum((1, 2, 3)) + 1e-12)
+    return GP_WEIGHT * (norms - 1.0).square().mean()
+
+
+def gp_grads(d, x_hat):
+    """-> (penalty, {parameter: its gradient as f64 numpy}); zeros where a
+    parameter does not reach grad_x D (the last layer's bias)."""
+    import numpy as np
+    import torch
+
+    gp = gradient_penalty(d, x_hat)
+    names, params = zip(*d.named_parameters())
+    grads = torch.autograd.grad(gp, params, allow_unused=True)
+    return gp.item(), {n: np.zeros(tuple(p.shape)) if g is None else g.double().cpu().numpy()
+                       for n, p, g in zip(names, params, grads)}
+
+
+def gp_phase(dev, enforce: bool = True):
+    """The gradient of the gradient penalty wrt D's parameters at 256 px,
+    full width, B=4 (seeded weights, biases off zero): on the card, and in
+    f32 on the CPU, each against f64 on the CPU, per parameter by relative
+    L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
+    form). enforce=False only reports, for a tree whose backward kernels
+    drop the second-order terms."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.models.stylegan2 import Discriminator
+
+    gen = torch.Generator().manual_seed(16)
+    d = Discriminator(SIZE, generator=gen)
+    with torch.no_grad():
+        for name, p in d.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    rng = np.random.RandomState(16)
+    real, fake = (rng.randn(BATCH, SIZE, SIZE, 3).astype(np.float32) for _ in range(2))
+    eps = rng.uniform(size=(BATCH, 1, 1, 1)).astype(np.float32)
+    x_hat = torch.from_numpy(eps * real + (1.0 - eps) * fake)
+    d_card = copy.deepcopy(d).to(dev)
+    gp_grads(d_card, x_hat.to(dev))  # warm
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    gp_card, g_card = gp_grads(d_card, x_hat.to(dev))
+    ev1.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    t = time.perf_counter()
+    gp_cpu, g_cpu = gp_grads(d, x_hat)
+    gp_f64, g_f64 = gp_grads(copy.deepcopy(d).double(), x_hat.double())
+    out = {"card_ms": ev0.elapsed_time(ev1), "cpu_s": time.perf_counter() - t,
+           "gp": {"card": gp_card, "cpu_f32": gp_cpu, "cpu_f64": gp_f64},
+           "launches": counts, "groups": {}}
+    scale = max(np.abs(g).max() for g in g_f64.values())
+    for name, ref in g_f64.items():
+        if not ref.any():  # exact zeros in f64: the card's must be at rounding level
+            out["groups"][name] = {"zero": True, "card_max_abs": float(np.abs(g_card[name]).max())}
+            if enforce:
+                assert out["groups"][name]["card_max_abs"] <= 1e-6 * scale, (name, out)
+            continue
+        card, cpu = rel_l2(g_card[name], ref), rel_l2(g_cpu[name], ref)
+        out["groups"][name] = {"card": card, "cpu_f32": cpu, "bound": max(1e-3, 1.5 * cpu)}
+    ratios = [(r["card"] / r["bound"], n) for n, r in out["groups"].items() if "card" in r]
+    out["worst"] = {"card_over_bound": max(ratios)[0], "group": max(ratios)[1],
+                    "card_rel_l2_max": max(r["card"] for r in out["groups"].values()
+                                           if "card" in r)}
+    if enforce:
+        assert max(ratios)[0] <= 1.0, out
+        assert abs(gp_card - gp_f64) <= 1e-4 * abs(gp_f64), out["gp"]
+        assert all(counts[k] > 0 for k in GP_PATH), counts
+    return out
+
+
+def inversion_towers(size, seed: int = 17):
+    """A seeded full-width G (style dim 512, 8 MLP layers, the rosinality
+    channels) and VGG16, on the CPU."""
+    import torch
+
+    from latent2im_tpu_torch.models.stylegan2 import Generator
+    from latent2im_tpu_torch.models.vgg import VGG16Features
+
+    return (Generator(size, 512, 8, generator=torch.Generator().manual_seed(seed)),
+            VGG16Features(generator=torch.Generator().manual_seed(seed + 1)))
+
+
+def g_images(g, n: int, seed: int):
+    """Images G makes from n seeded z, one W per sample, stored noise."""
+    import numpy as np
+    import torch
+
+    dev = next(g.parameters()).device
+    z = torch.from_numpy(np.random.RandomState(seed).randn(n, g.style_dim)
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        return g.synthesize(g.style_forward(z)[:, None].expand(-1, g.n_latent, -1))
+
+
+def inversion_phase(dev, size, batch, loops):
+    """W+ inversion (Adam, lr INV_LR) of images G made, as engine.inversion.
+    invert runs it: init_w (the mean latent over 4096 z), the target's grams
+    once, then ``loops`` steps with the loss kept on the device; one warm
+    step first, uncounted. Launches over the whole inversion (counts set to
+    0 just before init_w), per loop, ms per loop (CUDA events) and the peak
+    memory of the loops."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.inversion import make_inverter, target_grams
+
+    g, vgg16 = inversion_towers(size)
+    init_w, step, optimizer = make_inverter(g, vgg16, g.n_latent, lr=INV_LR, device=dev)
+    target = g_images(g, batch, seed=18)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = init_w(batch, gen).requires_grad_(True)
+    step(w, optimizer(w), target)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    w = init_w(batch, gen.manual_seed(0)).requires_grad_(True)
+    state, grams = optimizer(w), target_grams(vgg16, target)
+    init = ops.launch_counts()
+    history = torch.empty(loops, device=dev)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for i in range(loops):
+        w, state, loss, _ = step(w, state, target, grams)
+        history[i] = loss
+    ev1.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hist = history.double().cpu().tolist()
+    per_loop = {k: (counts[k] - init[k]) / loops for k in counts}
+    out = {"size": size, "batch": batch, "loops": loops, "lr": INV_LR,
+           "ms_per_loop": ev0.elapsed_time(ev1) / loops,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first": hist[0], "loss_last": hist[-1], "launches": counts,
+           "launches_init": init, "launches_per_loop": per_loop}
+    assert all(math.isfinite(v) for v in hist) and hist[-1] < hist[0], hist
+    assert all(v == int(v) and v > 0 for v in per_loop.values()), out
+    del g, vgg16, w, state, target, grams
+    torch.cuda.empty_cache()
+    return out
+
+
+def inversion_cpu_phase(dev):
+    """INV_CMP_LOOPS inversion steps at 256 px, B=1, from the same W+ and
+    target, on the card, in f32 on the CPU and in f64 on the CPU: the
+    movement of W+ and the loss history of each against f64, the card's
+    movement held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's form)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.inversion import make_inverter
+
+    g, vgg16 = inversion_towers(SIZE)
+    target = g_images(g, 1, seed=19)
+    z = np.random.RandomState(20).randn(4096, 512).astype(np.float32)
+    w0 = make_inverter(copy.deepcopy(g), copy.deepcopy(vgg16), g.n_latent,
+                       device="cpu")[0](1, z=z).numpy()
+    runs, out = {}, {}
+    for name, device, dtype in (("card", dev, torch.float32), ("cpu_f32", "cpu", torch.float32),
+                                ("cpu_f64", "cpu", torch.float64)):
+        t = time.perf_counter()
+        gd, vd = (copy.deepcopy(m).to(dtype) for m in (g, vgg16))
+        _, step, optimizer = make_inverter(gd, vd, g.n_latent, lr=INV_LR, device=device)
+        w = torch.tensor(w0, dtype=dtype, device=device).requires_grad_(True)
+        tgt, state, hist = target.to(device, dtype), optimizer(w), []
+        for _ in range(INV_CMP_LOOPS):
+            w, state, loss, _ = step(w, state, tgt)
+            hist.append(loss.item())
+        runs[name] = (w.detach().double().cpu().numpy() - w0, np.asarray(hist))
+        out[f"{name}_s"] = time.perf_counter() - t
+        del gd, vd, w, state
+    (mc, hc), (mf, hf), (m64, h64) = runs["card"], runs["cpu_f32"], runs["cpu_f64"]
+    out.update(moved_rel_l2_card_f64=rel_l2(mc, m64), moved_rel_l2_cpu_f64=rel_l2(mf, m64),
+               loss_rel_card_f64=float(np.abs(hc - h64).max() / np.abs(h64).max()),
+               loss_rel_cpu_f64=float(np.abs(hf - h64).max() / np.abs(h64).max()))
+    out["limit"] = max(1e-3, 1.5 * out["moved_rel_l2_cpu_f64"])
+    assert np.abs(m64).max() > 0 and out["moved_rel_l2_card_f64"] <= out["limit"], out
+    assert out["loss_rel_card_f64"] <= 1e-4, out
+    torch.cuda.empty_cache()
+    return out
+
+
+def _palette_png(img_u8) -> bytes:
+    """An 8-bit palette PNG (colour type 3, a 6x6x6 colour cube)."""
+    import numpy as np
+
+    levels = np.arange(6, dtype=np.uint8) * 51
+    q = (img_u8.astype(np.int32) + 25) // 51
+    idx = (q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2]).astype(np.uint8)
+    plte = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(-1, 3)
+    h, w = idx.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), idx], axis=1).tobytes()
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", plte.tobytes()) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+def real_image_flow_phase(cli):
+    """The real-image flow at 256 px in chiprun_out/bp/: 4 RGB PNGs of G's
+    images, a gray one (320x288) and a palette one (256x200);
+    ``python -m latent2im_tpu_torch.cli.bp`` (run in this process, as
+    ``python -m`` runs it, so that its launches are counted) with
+    INV_CLI_LOOPS loops; then ``python -m latent2im_tpu_torch.cli.vis_w
+    --latents_dir`` on its latents with phase 10's walk, as a process."""
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    root = os.path.join(REPO, "chiprun_out", "bp")
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir, save_dir, vis_dir = (os.path.join(root, d) for d in ("imgs", "out", "vis"))
+    os.makedirs(img_dir)
+    g, _ = inversion_towers(SIZE, seed=21)
+    imgs = imgmod.to_uint8(g_images(g, 6, seed=22).numpy())
+    for i in range(4):
+        with open(os.path.join(img_dir, f"face{i}.png"), "wb") as f:
+            f.write(imgmod.png_bytes(imgs[i]))
+    gray = imgmod.pil_resize_lanczos(imgs[4].mean(-1, keepdims=True).astype(np.uint8),
+                                     (288, 320))[..., 0]
+    with open(os.path.join(img_dir, "face4_gray.png"), "wb") as f:
+        f.write(imgmod.png_bytes(gray))
+    with open(os.path.join(img_dir, "face5_palette.png"), "wb") as f:
+        f.write(_palette_png(imgs[5][:200]))
+    del g
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    saved_argv = sys.argv
+    sys.argv = ["bp", "--img_dir", img_dir, "--save_dir", save_dir, "--resolution", str(SIZE),
+                "--n_loops", str(INV_CLI_LOOPS), "--show_freq", "10", "--batch_size", str(BATCH)]
+    try:
+        ops.reset_launches()
+        runpy.run_module("latent2im_tpu_torch.cli.bp", run_name="__main__")
+        torch.cuda.synchronize()
+        out["launches"] = ops.launch_counts()
+    finally:
+        sys.argv = saved_argv
+    out["seconds"]["bp"] = time.perf_counter() - t0
+    assert all(out["launches"][k] > 0 for k in SOURCE), out["launches"]
+    n_latent = 2 * int(math.log2(SIZE)) - 2
+    for bi, n in ((0, 4), (4, 2)):
+        names = [f"org_{bi}.png", f"{bi}_final.png", f"{bi}_loss.npy"] + [
+            f"{bi}_iterations_{k}.png" for k in (10, 20, 30)]
+        missing = [f for f in names if not os.path.isfile(os.path.join(save_dir, f))]
+        assert not missing, missing
+        w = np.load(os.path.join(save_dir, "latent", f"{bi}_w.npy"))
+        curve = np.load(os.path.join(save_dir, f"{bi}_loss.npy"))
+        assert w.shape == (n, n_latent, 512) and np.isfinite(w).all(), w.shape
+        assert curve.shape == (INV_CLI_LOOPS,) and np.isfinite(curve).all(), curve
+        out[f"loss_{bi}"] = (float(curve[0]), float(curve[-1]))
+    t0 = time.perf_counter()
+    proc = _vis_w(os.path.join(cli["run_dir"], "opt.yml"), "--save_path_w", cli["walk_path"],
+                  "--latents_dir", os.path.join(save_dir, "latent"), "--output_dir", vis_dir,
+                  "--num_panels", "5")
+    try:
+        out["vis_pngs"] = _check_vis(proc, vis_dir, [f"sample{i}_" for i in range(6)])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["seconds"]["vis_w"] = time.perf_counter() - t0
+    return out
+
+
+def walk_kinds_phase(results, dev):
+    """train_loop at 256 px, B=4 for each new W-space walk (mlp_w from
+    --is_mlp, nn_w from --walk_type NNz): a warmup step, then WALK_STEPS
+    counted and timed steps (the towers' launches per step are linear_w's);
+    a save -> reload -> reference-export round trip of the trained walk; one
+    step on the card against the CPU and an f64 reference (phase 9, with
+    the towers' term of train_cpu_phase)."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+    from latent2im_tpu_torch.io.torch_convert import export_walk_torch
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    import tempfile
+
+    per_step = {n: r["train_step"]["launches"] for n, r in results.items()}
+    out = {}
+    for kind, flags in WALK_KINDS:
+        conf = train_conf(*flags)
+        ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+        assert ed.cfg.walk_kind == kind, (kind, ed.cfg.walk_kind)
+        task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+        run = dict(batch_size=BATCH, n_epochs=1, lr=conf.learning_rate, log_every=1)
+        walk, _ = train_loop(ed, task, walk, num_samples=BATCH, **run)  # warmup
+        torch.cuda.synchronize()
+        before = [t.detach().clone() for t in walk_leaves(walk)]
+        metrics = []
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        walk, _ = train_loop(ed, task, walk, num_samples=WALK_STEPS * BATCH, seed=1,
+                             on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
+        ev1.record()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expect = {k: WALK_STEPS * v for k, v in per_step.items()}
+        assert counts == expect, (kind, counts, expect)
+        assert len(metrics) == WALK_STEPS and all(
+            math.isfinite(v) for m in metrics for v in m.values()), metrics
+        moved = max((a.detach() - b).abs().max().item()
+                    for a, b in zip(walk_leaves(walk), before))
+        assert moved > 0, kind
+        r = {"steps": WALK_STEPS, "batch": BATCH,
+             "step_ms_cuda_events": ev0.elapsed_time(ev1) / WALK_STEPS,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+             "walk_max_abs_change": moved, "first": metrics[0], "last": metrics[-1]}
+        # save -> reload -> the reference's pickled module -> reload
+        like = walk_map(torch.zeros_like, walk)
+        with tempfile.TemporaryDirectory() as root:  # ~10-20 MB of walks
+            back, _, _ = ckpt.load_walk(ckpt.save_walk(root, 1, walk, final=True), like)
+            ref_path = os.path.join(root, "model_w_1_final_ref_walk_module.ckpt")
+            export_walk_torch(ref_path, kind, back)
+            back2, _, meta = ckpt.load_walk(ref_path, like)
+        for a, b, c in zip(walk_leaves(walk), walk_leaves(back), walk_leaves(back2)):
+            assert torch.equal(a.detach(), b) and torch.equal(b, c), kind
+        r["reference_class"] = meta["cls"]
+        del ed, walk, back, back2
+        torch.cuda.empty_cache()
+        r["cpu_vs_card"] = train_cpu_phase(*flags, towers_term=True)
+        torch.cuda.empty_cache()
+        out[kind] = r
+    return out
+
+
+def late_phases(card, dev, results, cli):
+    """Phases 16-20 -> their reports and, under "launches", each path's
+    launch counts (gp, bp, bp_cli, bp_1024, walk_mlp_w, walk_nn_w)."""
+    import torch
+
+    log(f"[16] the gradient penalty's gradient wrt D's parameters ({SIZE} px, B={BATCH}): "
+        "second derivatives through the backward kernels, card against f64 on the CPU")
+    gp = gp_phase(dev)
+    log(f"    penalty {json.dumps(gp['gp'])}; worst group {json.dumps(gp['worst'])}; "
+        f"card {gp['card_ms']:.2f} ms (CUDA events), launches {json.dumps(gp['launches'])}")
+    log("    per parameter, relative L2 to f64 (card, CPU f32, bound): " + ", ".join(
+        f"{n} {r['card']:.2e}/{r['cpu_f32']:.2e}/{r['bound']:.1e}" if "card" in r
+        else f"{n} zero (card max {r['card_max_abs']:.1e})" for n, r in gp["groups"].items()))
+    torch.cuda.empty_cache()
+
+    log(f"[17] W+ inversion at {SIZE} px, B={BATCH}, Adam lr {INV_LR}, {INV_LOOPS} loops, "
+        "of images G made")
+    inv = inversion_phase(dev, SIZE, BATCH, INV_LOOPS)
+    log(f"    {inv['ms_per_loop']:.2f} ms per loop (CUDA events), peak {inv['peak_gb']:.2f} GB, "
+        f"loss {inv['loss_first']:.5f} -> {inv['loss_last']:.5f}, launches per loop "
+        f"{json.dumps(inv['launches_per_loop'])}, on {card}")
+    inv["cpu_vs_card"] = inversion_cpu_phase(dev)
+    log(f"    {INV_CMP_LOOPS} loops at B=1 against f64 on the CPU: "
+        f"{json.dumps(inv['cpu_vs_card'])}")
+
+    log(f"[18] the real-image flow: python -m latent2im_tpu_torch.cli.bp ({SIZE} px, "
+        f"{INV_CLI_LOOPS} loops, 6 PNGs), then cli.vis_w --latents_dir")
+    flow = real_image_flow_phase(cli)
+    log(f"    wall seconds {json.dumps(flow['seconds'])}, loss (first, last) per batch "
+        f"{flow['loss_0']}, {flow['loss_4']}, launches {json.dumps(flow['launches'])}, "
+        f"vis_w wrote {flow['vis_pngs']}, on {card}")
+    torch.cuda.empty_cache()
+
+    log(f"[19] W+ inversion at {SIZE_HI} px, B={BATCH}, {INV_HI_LOOPS} loops")
+    inv_hi = inversion_phase(dev, SIZE_HI, BATCH, INV_HI_LOOPS)
+    log(f"    {inv_hi['ms_per_loop']:.1f} ms per loop (CUDA events), peak "
+        f"{inv_hi['peak_gb']:.2f} GB, loss {inv_hi['loss_first']:.5f} -> "
+        f"{inv_hi['loss_last']:.5f}, launches per loop "
+        f"{json.dumps(inv_hi['launches_per_loop'])}, on {card}")
+
+    log(f"[20] the mlp_w and nn_w walks at {SIZE} px, train_loop B={BATCH}")
+    walks = walk_kinds_phase(results, dev)
+    for kind, r in walks.items():
+        log(f"    {kind}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
+            f"{WALK_STEPS} steps), peak {r['peak_mem_gb']:.2f} GB, loss "
+            f"{r['first']['loss']:.4f} -> {r['last']['loss']:.4f}, round trip through "
+            f"{r['reference_class']}; step against the CPU {json.dumps(r['cpu_vs_card'])}, "
+            f"on {card}")
+
+    return {"gp": gp, "inversion": inv, "real_image_flow": flow, "inversion_1024": inv_hi,
+            "walks": walks,
+            "launches": {"gp": gp["launches"], "bp": inv["launches"], "bp_cli": flow["launches"],
+                         "bp_1024": inv_hi["launches"],
+                         **{f"walk_{k}": r["launches"] for k, r in walks.items()}}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1442,6 +1963,8 @@ def main() -> int:
         f"{serve['img_per_s']:.2f} img/s ({serve['requests']} /edit requests "
         f"of {BATCH}), apply_alpha B={BATCH} device time "
         f"{serve['apply_alpha_b4_device_ms']:.2f} ms, on {card}")
+    log(f"    apply_alpha B={BATCH} under cuDNN's default and deterministic algorithms: "
+        f"{json.dumps(serve['deterministic_cudnn'])}")
 
     log("[5] one apply_alpha (B=4) under torch.profiler")
     prof = profile_phase(service)
@@ -1485,12 +2008,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     hi = hi_phases(card, dev, grad_limit=train_cmp["walk_grad_limit"])
+    torch.cuda.empty_cache()
 
+    late = late_phases(card, dev, results, cli)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
         by_path = {"serve": serve_counts[n], "train": train_counts[n],
-                   **{k: v[n] for k, v in hi["launches"].items()}}
+                   **{k: v[n] for k, v in hi["launches"].items()},
+                   **{k: v[n] for k, v in late["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1510,6 +2036,7 @@ def main() -> int:
               "profile": prof, "cpu_vs_card": cmp_, "train": train,
               "train_profile": train_prof, "train_cpu_vs_card": train_cmp, "cli": cli,
               "hi": {k: v for k, v in hi.items() if k not in ("results", "details")},
+              "late": {k: v for k, v in late.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

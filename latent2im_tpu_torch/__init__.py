@@ -10,13 +10,14 @@ Layout
 ------
 device.py  device resolution (cuda by default, cpu only when asked)
 ops/       hand-written CUDA kernels (csrc/) with their plain PyTorch versions
-models/    StyleGAN2 generator, ResNet-50 regressor (nn.Modules, NHWC API)
-walks/     latent walks (linear_w)
+models/    StyleGAN2 G and D, ResNet-50, VGG16/19, FaceNet (nn.Modules, NHWC API)
+walks/     latent walks (linear_w, mlp_w, nn_w)
 tasks/     per-transform alpha schedules
-engine/    the Editor and its builder
-io/        parameter carry-over from the JAX package's pytrees
+engine/    the Editor built from options, walk training, W+ inversion, eval
+io/        checkpoints and parameter carry-over from the JAX package's pytrees
 config/    CLI flags and attribute vocabularies
-cli/       serve (HTTP edit/sweep)
+cli/       train, train_multi_attr, vis_w, serve, eval, bp (W+ inversion)
+utils/     PNG files (encode, decode), Pillow's resamples, grids, remat
 """
 
 __version__ = "0.1.0"

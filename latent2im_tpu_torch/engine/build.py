@@ -69,12 +69,9 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         ckpt = _load_torch(g_path)
         # the blur/upsample FIR buffers of rosinality checkpoints are fixed
         # [1, 3, 3, 1] kernels the port rebuilds itself
-        sd = sg2.strip_blur_kernels(ckpt["g_ema"])
-        dim_z = int(sd["style.1.weight"].shape[1])
-        n_mlp = sum(1 for k in sd if k.startswith("style.") and k.endswith(".weight"))
-        channels = sg2.channels_from_state_dict(sd, size)
-        g = sg2.Generator(size, dim_z, n_mlp, channels=channels)
-        g.load_state_dict(sd, strict=True)
+        g = sg2.generator_from_state_dict(ckpt["g_ema"], size)
+        dim_z = g.style_dim
+        channels = sg2.channels_from_state_dict(ckpt["g_ema"], size)
         if "d" in ckpt:
             d_sd = sg2.strip_blur_kernels(ckpt["d"])
     else:

@@ -37,14 +37,16 @@ import torch
 
 from ..tasks.transforms import Task
 from ..utils.remat import checkpoint
+from ..walks import walk_leaves
 from . import losses as L
 from .editor import Editor
 
 
 def make_optimizer(walk_params: dict, lr: float) -> torch.optim.Adam:
-    """Adam(lr, betas=(0.5, 0.99)) as the reference; eps=1e-8 is added to
-    sqrt(v_hat), where optax adds it too."""
-    return torch.optim.Adam(list(walk_params.values()), lr=lr,
+    """Adam(lr, betas=(0.5, 0.99)) as the reference, over the walk's
+    tensors in ``walk_leaves`` order; eps=1e-8 is added to sqrt(v_hat),
+    where optax adds it too."""
+    return torch.optim.Adam(walk_leaves(walk_params), lr=lr,
                             betas=(0.5, 0.99), eps=1e-8)
 
 
@@ -165,7 +167,7 @@ def train_loop(
     trips, on_preempt(epoch, walk_params, opt_state) runs and the loop
     returns. host_alpha draws the targets with numpy per epoch
     (RandomState(_alpha_seed(seed, epoch))) instead of on the device."""
-    for p in walk_params.values():
+    for p in walk_leaves(walk_params):
         p.requires_grad_(True)
     optimizer = make_optimizer(walk_params, lr)
     if opt_state is not None:

@@ -10,7 +10,8 @@ other's run::
     {"0": {"count": int32 [], "mu": {"w": ...}, "nu": {"w": ...}}, "1": {}}
 
 (``optax.adam``: scale_by_adam, then the learning-rate scale, whose state is
-empty). ``adam_state_to_optax`` / ``adam_state_from_optax`` map it to and
+empty; the moments are trees of the walk's structure, lists written as
+{"0": .., "1": ..} maps). ``adam_state_to_optax`` / ``adam_state_from_optax`` map it to and
 from ``torch.optim.Adam.state_dict()`` (``step``, ``exp_avg``,
 ``exp_avg_sq``): both optimizers update by lr * m_hat / (sqrt(v_hat) + eps)
 with both bias corrections, so the moments carry over as they are.
@@ -26,6 +27,7 @@ import os
 import numpy as np
 import torch
 
+from ..walks import walk_leaves, walk_map
 from . import msgpack_codec
 
 
@@ -68,6 +70,14 @@ def _restore_like(tree, like, where: str):
             raise ValueError(f"{where}: keys {got} where {sorted(map(str, like))} "
                              "were expected")
         return {k: _restore_like(tree[str(k)], v, f"{where}/{k}") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        # a list is written as {'0': .., '1': ..}, as flax writes it
+        if isinstance(tree, dict) and set(tree) == {str(i) for i in range(len(like))}:
+            tree = [tree[str(i)] for i in range(len(like))]
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"{where}: {type(tree).__name__} where a list of "
+                             f"{len(like)} was expected")
+        return [_restore_like(t, v, f"{where}/{i}") for i, (t, v) in enumerate(zip(tree, like))]
     if isinstance(like, torch.Tensor):
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(like.shape):
@@ -96,56 +106,50 @@ def walk_ckpt_path(output_dir: str, epoch, final: bool = False) -> str:
 
 
 def adam_state_to_optax(state_dict: dict, walk_params: dict) -> dict:
-    """torch Adam ``state_dict()`` over the walk's tensors (in the order of
-    ``walk_params``, as engine.train.make_optimizer lists them) ->
-    optax.adam's state tree of numpy arrays (zero moments and count 0 before
-    the first step, as ``optax.adam().init`` makes them)."""
-    keys = list(walk_params)
+    """torch Adam ``state_dict()`` over the walk's tensors (in
+    ``walk_leaves`` order, as engine.train.make_optimizer lists them) ->
+    optax.adam's state tree of numpy arrays, its moments trees of the walk's
+    structure (zero moments and count 0 before the first step, as
+    ``optax.adam().init`` makes them)."""
+    leaves = walk_leaves(walk_params)
     st = state_dict["state"]
     if not st:
-        zeros = {k: np.zeros(tuple(p.shape), np.float32) for k, p in walk_params.items()}
-        return {"0": {"count": np.asarray(0, np.int32), "mu": zeros,
-                      "nu": {k: z.copy() for k, z in zeros.items()}}, "1": {}}
-    if set(st) != set(range(len(keys))):
-        raise ValueError(f"Adam state holds params {sorted(st)} for walk keys {keys}")
+        def zeros(p):
+            return np.zeros(tuple(p.shape), np.float32)
+
+        return {"0": {"count": np.asarray(0, np.int32), "mu": walk_map(zeros, walk_params),
+                      "nu": walk_map(zeros, walk_params)}, "1": {}}
+    if set(st) != set(range(len(leaves))):
+        raise ValueError(f"Adam state holds params {sorted(st)} for a walk of "
+                         f"{len(leaves)} tensors")
     steps = {int(st[i]["step"]) for i in st}
     if len(steps) != 1:
         raise ValueError(f"the walk's tensors have taken different step counts {steps}")
-    return {
-        "0": {"count": np.asarray(steps.pop(), np.int32),
-              "mu": {k: st[i]["exp_avg"].detach().cpu().numpy() for i, k in enumerate(keys)},
-              "nu": {k: st[i]["exp_avg_sq"].detach().cpu().numpy()
-                     for i, k in enumerate(keys)}},
-        "1": {},
-    }
+
+    def moments(key):
+        it = (st[i][key].detach().cpu().numpy() for i in range(len(leaves)))
+        return walk_map(lambda _: next(it), walk_params)
+
+    return {"0": {"count": np.asarray(steps.pop(), np.int32),
+                  "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
+            "1": {}}
 
 
 def adam_state_from_optax(tree: dict, like: dict, walk_params: dict) -> dict:
     """optax.adam's state tree -> a torch Adam ``state_dict`` whose
     hyperparameters are those of ``like`` (a state_dict of the optimizer
     the run makes, engine.train.make_optimizer), with the moments on the
-    walk's device."""
+    walk's device (their structure and shapes checked against the walk's)."""
     adam = tree["0"]
     if set(adam) != {"count", "mu", "nu"} or tree.get("1", {}) != {}:
         raise ValueError(f"not an optax.adam state: keys {sorted(tree)} / {sorted(adam)}")
-    keys = list(walk_params)
-    if set(adam["mu"]) != set(keys) or set(adam["nu"]) != set(keys):
-        raise ValueError(f"Adam moments for {sorted(adam['mu'])}, walk has {keys}")
+    mu = walk_leaves(_restore_like(adam["mu"], walk_params, "Adam moment mu"))
+    nu = walk_leaves(_restore_like(adam["nu"], walk_params, "Adam moment nu"))
     step = float(np.asarray(adam["count"]))
     if step == 0:  # optax's init state; torch Adam has none before a step
         return {"state": {}, "param_groups": [dict(g) for g in like["param_groups"]]}
-    state = {}
-    for i, k in enumerate(keys):
-        p = walk_params[k]
-
-        def moment(a, k=k, p=p):
-            a = np.asarray(a)
-            if a.shape != tuple(p.shape):
-                raise ValueError(f"Adam moment of {k!r}: shape {a.shape}, walk {tuple(p.shape)}")
-            return torch.as_tensor(a, dtype=p.dtype, device=p.device).clone()
-
-        state[i] = {"step": torch.tensor(step), "exp_avg": moment(adam["mu"][k]),
-                    "exp_avg_sq": moment(adam["nu"][k])}
+    state = {i: {"step": torch.tensor(step), "exp_avg": m, "exp_avg_sq": v}
+             for i, (m, v) in enumerate(zip(mu, nu))}
     return {"state": state, "param_groups": [dict(g) for g in like["param_groups"]]}
 
 

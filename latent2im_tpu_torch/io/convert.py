@@ -102,15 +102,16 @@ def discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
 
 
 def vgg_from_jax(tree) -> dict[str, torch.Tensor]:
-    """VGG19 pytree ({"cfg": "vgg19", "convs": [...]}) -> torchvision
-    ``features.N`` state_dict."""
-    from ..models.vgg import CFG19
+    """VGG16 or VGG19 pytree ({"cfg": "vgg16" | "vgg19", "convs": [...]}) ->
+    torchvision ``features.N`` state_dict."""
+    from ..models.vgg import CFGS
 
-    if tree.get("cfg", "vgg19") != "vgg19":
-        raise ValueError(f"the port holds vgg19 only, got {tree['cfg']!r}")
+    cfg_name = tree.get("cfg", "vgg19")
+    if cfg_name not in CFGS:
+        raise ValueError(f"unknown vgg config {cfg_name!r}")
     sd: dict[str, torch.Tensor] = {}
     idx, convs = 0, iter(tree["convs"])
-    for v in CFG19:
+    for v in CFGS[cfg_name]:
         if v == "M":
             idx += 1
             continue

@@ -6,9 +6,13 @@ The reference saves ``torch.save(self.walk, save_path_w +
 walk's class by its qualified name. Stub classes under those names let it
 load without the reference package, and an instance of the stub carrying
 real parameters in the reference's attribute layout is what the reference
-unpickles onto its real class. The port holds ``linear_w``
-(WalkLinearMultiW, [A, L, 512], the same layout on both sides); the other
-walk classes wait for their walk kinds (ROADMAP.md queue A item 18).
+unpickles onto its real class. The port holds the W-space walks:
+``linear_w`` (WalkLinearMultiW, [A, L, 512], the same layout on both
+sides), ``mlp_w`` (WalkMlpMultiW: ``linear``, a Sequential of Linear layers
+at indices 0, 2, 4 with LeakyReLUs between) and ``nn_w`` (WalkNonLinearW:
+``embed``, a Linear(10, D/2), and ``linear`` at indices 0, 2); a Linear's
+weight is [out, in], the port's ``w`` [in, out]. The z-space walk classes
+wait for their walk kinds (ROADMAP.md queue A item 18).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ _KIND_CLASS = {
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item 18: the nine "
+        f"{what} is not ported yet (ROADMAP.md queue A item 18: the seven "
         "remaining walk kinds)")
 
 
@@ -94,11 +98,21 @@ def load_walk_checkpoint(path: str) -> tuple[str, dict]:
     return type(obj).__name__, state
 
 
+def _lin_from_state(state, prefix):
+    return {"w": np.asarray(state[f"{prefix}.weight"], np.float32).T.copy(),
+            "b": np.asarray(state[f"{prefix}.bias"], np.float32)}
+
+
 def convert_walk_state(cls: str, state: dict, attr_list: list[str]) -> dict:
     """Map a reference walk module's state_dict onto the port's walk params
     (numpy; see walks/walks.py for the layouts)."""
     if cls == "WalkLinearMultiW":
         return {"w": np.asarray(state["w"], np.float32)}  # [A, L, 512], same layout
+    if cls == "WalkMlpMultiW":
+        return {"mlp": [_lin_from_state(state, f"linear.{i}") for i in (0, 2, 4)]}
+    if cls == "WalkNonLinearW":
+        return {"embed": _lin_from_state(state, "embed"),
+                "mlp": [_lin_from_state(state, f"linear.{i}") for i in (0, 2)]}
     if cls in _WALK_CLASS_NAMES:
         raise _not_ported(f"the reference walk class {cls!r}")
     raise ValueError(f"unknown walk checkpoint class: {cls}")
@@ -110,15 +124,43 @@ def export_walk_torch(path: str, kind: str, params: dict,
     """Save a walk trained by the port as the reference's pickled-module
     checkpoint, loadable by reference tooling (load_multi_models,
     transform_base.py:497-505) and by load_walk_checkpoint."""
+    import torch.nn as nn
+
     if kind not in _KIND_CLASS:
         raise ValueError(f"no reference checkpoint format for walk kind {kind!r}")
-    if kind != "linear_w":
+    if kind not in ("linear_w", "mlp_w", "nn_w"):
         raise _not_ported(f"exporting the {kind!r} walk")
     _register_walk_stubs()
     cls_name, mod_name = _KIND_CLASS[kind]
     m = getattr(sys.modules[mod_name], cls_name)()
     m.Nsliders = nsliders
-    w = torch.as_tensor(params["w"]).detach().to("cpu", torch.float32).clone()
-    m.w = torch.nn.Parameter(w)  # [A, L, D]
-    m.dim_z, m.step = w.shape[2], w.shape[1] // 2 - 1
+
+    def t(a):
+        return torch.as_tensor(a).detach().to("cpu", torch.float32).clone()
+
+    def lin(layer):  # the port's [in, out] -> torch Linear [out, in]
+        w = t(layer["w"])
+        out = nn.Linear(w.shape[0], w.shape[1])
+        out.weight, out.bias = nn.Parameter(w.T.contiguous()), nn.Parameter(t(layer["b"]))
+        return out
+
+    def seq(layers):  # Sequential(Linear, LeakyReLU, ..., Linear)
+        mods = []
+        for i, layer in enumerate(layers):
+            mods.append(lin(layer))
+            if i < len(layers) - 1:
+                mods.append(nn.LeakyReLU(0.2, True))
+        return nn.Sequential(*mods)
+
+    if kind == "linear_w":
+        w = t(params["w"])
+        m.w = nn.Parameter(w)  # [A, L, D]
+        m.dim_z, m.step = w.shape[2], w.shape[1] // 2 - 1
+    elif kind == "mlp_w":
+        m.linear = seq(params["mlp"])
+        m.dim_z, m.step = params["mlp"][0]["w"].shape[0], None
+    else:
+        m.embed = lin(params["embed"])
+        m.linear = seq(params["mlp"])
+        m.dim_z, m.step = params["embed"]["b"].shape[0] * 2, None
     torch.save(m, path)

@@ -309,6 +309,18 @@ class Generator(nn.Module):
         return self.synthesize(latent, noise=noise)
 
 
+def generator_from_state_dict(sd, size: int) -> Generator:
+    """A rosinality ``g_ema`` state_dict -> the Generator it was built as
+    (style dim, MLP depth and channel table read from it), loaded with
+    strict=True after its fixed blur kernels are stripped."""
+    sd = strip_blur_kernels(sd)
+    dim = int(sd["style.1.weight"].shape[1])
+    n_mlp = sum(1 for k in sd if k.startswith("style.") and k.endswith(".weight"))
+    g = Generator(size, dim, n_mlp, channels=channels_from_state_dict(sd, size))
+    g.load_state_dict(sd, strict=True)
+    return g
+
+
 def channels_from_state_dict(sd, size: int) -> dict[int, int]:
     """The channel table a rosinality g_ema state_dict was built with."""
     ch = {4: int(sd["input.input"].shape[1])}

@@ -14,7 +14,13 @@ On a CUDA tensor ``fused_leaky_relu`` launches the hand-written kernel
 input needs a gradient it records an autograd node whose backward,
 ``fused_leaky_relu_bwd``, launches the backward kernel of the same file. On a
 CPU tensor both take their plain PyTorch versions below, through the same
-autograd node.
+autograd nodes.
+
+The backward is differentiable too (a gradient penalty differentiates D
+twice): dx = g * m(out) is linear in g, so when g or out needs a gradient
+``fused_leaky_relu_bwd`` records a node of its own whose backward is the
+same backward kernel on the incoming gradient (wrt out it is zero almost
+everywhere). db, a sum of dx, stays on autograd's tape.
 """
 
 from __future__ import annotations
@@ -121,15 +127,12 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
 fused_leaky_relu.launches = 0
 
 
-def fused_leaky_relu_bwd(g, out, negative_slope: float = 0.2,
-                         scale: float = SQRT2, bias_grad: bool = True):
-    """Gradient of ``fused_leaky_relu`` from its output ``out`` and the
-    incoming gradient ``g`` (same shape [..., C]) -> (dx, db f32 [C] or
-    None). On cuda dx comes from the backward kernel; db = dx summed over
-    rows, a ``torch.sum`` as in the JAX package."""
-    _check_device(g, "fused_leaky_relu_bwd")
+def _backward(g, out, negative_slope, scale):
+    """dx on g's device: the backward kernel on cuda, the plain version on
+    the CPU."""
     if g.device.type == "cpu":
-        return fused_leaky_relu_bwd_plain(g, out, negative_slope, scale, bias_grad)
+        return fused_leaky_relu_bwd_plain(g, out, negative_slope, scale,
+                                          bias_grad=False)[0]
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_leaky_relu_bwd: f32 or bf16 input, got {g.dtype}")
     if out.shape != g.shape or out.dtype != g.dtype or out.device != g.device:
@@ -149,7 +152,42 @@ def fused_leaky_relu_bwd(g, out, negative_slope: float = 0.2,
     )
     _build.check(rc, "fused_act_bwd")
     fused_leaky_relu_bwd.launches += 1
-    db = dx.float().reshape(-1, dx.shape[-1]).sum(0) if bias_grad else None
+    return dx
+
+
+class _FusedLeakyReLUBwd(torch.autograd.Function):
+    """dx = g * m(out): the backward kernel (or plain version); its own
+    backward is the same op on the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, g, out, negative_slope, scale):
+        ctx.save_for_backward(out)
+        ctx.negative_slope, ctx.scale = negative_slope, scale
+        return _backward(g, out, negative_slope, scale)
+
+    @staticmethod
+    def backward(ctx, gg):
+        (out,) = ctx.saved_tensors
+        dg = None
+        if ctx.needs_input_grad[0]:
+            dg, _ = fused_leaky_relu_bwd(gg.contiguous(), out, ctx.negative_slope,
+                                         ctx.scale, bias_grad=False)
+        return dg, None, None, None  # wrt out: zero almost everywhere
+
+
+def fused_leaky_relu_bwd(g, out, negative_slope: float = 0.2,
+                         scale: float = SQRT2, bias_grad: bool = True):
+    """Gradient of ``fused_leaky_relu`` from its output ``out`` and the
+    incoming gradient ``g`` (same shape [..., C]) -> (dx, db [C] in the
+    math dtype, or None). On cuda dx comes from the backward kernel; db = dx
+    summed over rows, a ``torch.sum`` as in the JAX package. Differentiable
+    in g (for a second derivative)."""
+    _check_device(g, "fused_leaky_relu_bwd")
+    if torch.is_grad_enabled() and (g.requires_grad or out.requires_grad):
+        dx = _FusedLeakyReLUBwd.apply(g, out, negative_slope, scale)
+    else:
+        dx = _backward(g, out, negative_slope, scale)
+    db = dx.to(_math_dtype(dx)).reshape(-1, dx.shape[-1]).sum(0) if bias_grad else None
     return dx, db
 
 

@@ -16,9 +16,10 @@ numerics in plain PyTorch for the tests.
 The TPU kernel is forward-only (JAX trains through its XLA form), so there is
 no backward kernel to port. When an operand needs a gradient the wrapper
 records an autograd node whose backward is device-agnostic torch code: the
-fused_act backward (a kernel on cuda) on the saved output, then cuDNN convs
-for the rest. The weight gradient is not written: G is frozen while a walk
-trains.
+fused_act backward (a kernel on cuda, itself differentiable) on the saved
+output, then cuDNN convs for the rest, so the backward has a graph of its
+own under ``create_graph``. The weight gradient is not written: G is frozen
+while a walk trains or W+ is inverted.
 """
 
 from __future__ import annotations

@@ -18,7 +18,12 @@ On a CUDA tensor ``upfirdn2d`` launches the hand-written kernel
 needs a gradient it records an autograd node whose backward,
 ``upfirdn2d_bwd``, launches the same kernel with the transposed parameters,
 as the TPU version runs its own forward kernel (``_ufd_impl``) backward. On a
-CPU tensor both take the plain PyTorch version, through the same node.
+CPU tensor both take the plain PyTorch version, through the same nodes.
+
+The op is linear, so its gradient's own gradient is the op itself:
+``upfirdn2d_bwd`` records a node whose backward is ``upfirdn2d`` with the
+original up, down, pads and kernel (the forward kernel on cuda). A gradient
+penalty differentiates D, and the blurs in it, twice.
 """
 
 from __future__ import annotations
@@ -182,15 +187,10 @@ def transposed_params(k_shape, up, down, pad, in_hw, out_hw):
     return down, up, gpads
 
 
-def upfirdn2d_bwd(g, kernel, up: int, down: int, pad, in_hw):
-    """Input gradient of ``upfirdn2d(x, kernel, up, down, pad)`` for x of
-    spatial size in_hw = (H, W), from the output gradient g [B, OH, OW, C]:
-    the same op with up and down swapped, the kernel flipped and the
-    transposed pads. On cuda one launch of the upfirdn2d kernel."""
-    if g.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"upfirdn2d_bwd: unsupported device {g.device}")
-    k = _kernel_tensor(kernel, g)
-    gup, gdown, gpads = transposed_params(tuple(k.shape), up, down, pad,
+def _backward(g, k, up, down, pads, in_hw):
+    """The transposed op on g's device: one launch on cuda, the plain
+    version on the CPU."""
+    gup, gdown, gpads = transposed_params(tuple(k.shape), up, down, pads,
                                           tuple(in_hw), tuple(g.shape[1:3]))
     kf = torch.flip(k, (0, 1))
     if g.device.type == "cpu":
@@ -198,6 +198,34 @@ def upfirdn2d_bwd(g, kernel, up: int, down: int, pad, in_hw):
     dx = _launch(g, kf, gup, gdown, gpads, int(in_hw[0]), int(in_hw[1]))
     upfirdn2d_bwd.launches += 1
     return dx
+
+
+class _UpFirDn2dBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, k, up, down, pads, in_hw):
+        ctx.save_for_backward(k)
+        ctx.up, ctx.down, ctx.pads = up, down, pads
+        return _backward(g, k, up, down, pads, in_hw)
+
+    @staticmethod
+    def backward(ctx, gg):
+        (k,) = ctx.saved_tensors
+        dg = upfirdn2d(gg.contiguous(), k, ctx.up, ctx.down, ctx.pads)
+        return dg, None, None, None, None, None
+
+
+def upfirdn2d_bwd(g, kernel, up: int, down: int, pad, in_hw):
+    """Input gradient of ``upfirdn2d(x, kernel, up, down, pad)`` for x of
+    spatial size in_hw = (H, W), from the output gradient g [B, OH, OW, C]:
+    the same op with up and down swapped, the kernel flipped and the
+    transposed pads. On cuda one launch of the upfirdn2d kernel.
+    Differentiable in g (its gradient is ``upfirdn2d`` itself)."""
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"upfirdn2d_bwd: unsupported device {g.device}")
+    k, pads = _kernel_tensor(kernel, g), _as_pads(pad)
+    if torch.is_grad_enabled() and g.requires_grad:
+        return _UpFirDn2dBwd.apply(g, k, up, down, pads, tuple(in_hw))
+    return _backward(g, k, up, down, pads, in_hw)
 
 
 upfirdn2d_bwd.launches = 0

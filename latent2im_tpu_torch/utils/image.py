@@ -1,10 +1,14 @@
 """Image grids, PNG files and uint8 conversion — own copy of
 latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
-to_uint8), NHWC uint8. PNG is encoded with the standard library alone (zlib
-+ struct): the GPU machine has no Pillow."""
+to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
+alone (zlib + struct), and Pillow's BICUBIC and LANCZOS resamples are
+rewritten in numpy: the GPU machine has no Pillow. The decoder reads PNG
+only: JPEG and WEBP need a codec library the GPU machine does not have."""
 
 from __future__ import annotations
 
+import math
+import os
 import struct
 import zlib
 
@@ -62,6 +66,123 @@ def png_bytes(img_u8: np.ndarray) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> (samples per pixel, the bit depths this reader takes)
+_PNG_COLOR = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8,)), 6: (4, (8,))}
+
+
+def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth) ->
+    [h, stride] uint8."""
+    if len(data) < h * (stride + 1):
+        raise ValueError("png: truncated image data")
+    out = np.zeros((h, stride), np.uint8)
+    prev = bytes(stride)
+    for y in range(h):
+        ftype = data[y * (stride + 1)]
+        cur = bytearray(data[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
+        if ftype == 1:  # Sub
+            for i in range(bpp, stride):
+                cur[i] = (cur[i] + cur[i - bpp]) & 0xFF
+        elif ftype == 2:  # Up
+            cur = bytearray((np.frombuffer(cur, np.uint8) + np.frombuffer(prev, np.uint8))
+                            .astype(np.uint8).tobytes())
+        elif ftype == 3:  # Average
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
+        elif ftype == 4:
+            _paeth_row(cur, prev, bpp)
+        elif ftype != 0:
+            raise ValueError(f"png: unknown filter type {ftype} in row {y}")
+        out[y] = np.frombuffer(cur, np.uint8)
+        prev = bytes(cur)
+    return out
+
+
+def png_decode_rgb(data: bytes) -> np.ndarray:
+    """PNG file bytes -> uint8 [H, W, 3], as Pillow's ``Image.open(f)
+    .convert("RGB")`` gives it: gray is replicated (1, 2 and 4-bit gray
+    scaled to 0..255), a palette is looked up, alpha and tRNS are dropped,
+    not composited. Colour types 0, 2, 3, 4 and 6 at 8 bits, and 1/2/4-bit
+    gray and palette; filters 0-4. Raises naming what it does not take:
+    16-bit depth and Adam7 interlace."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("png: not a PNG file (bad signature)")
+    pos, idat, hdr, plte = 8, [], None, None
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("png: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = hdr
+    if depth == 16:
+        raise ValueError("png: 16-bit depth is not supported")
+    if interlace:
+        raise ValueError("png: Adam7 interlace is not supported")
+    if color not in _PNG_COLOR or depth not in _PNG_COLOR[color][1]:
+        raise ValueError(f"png: colour type {color} at bit depth {depth} is not supported")
+    spp = _PNG_COLOR[color][0]
+    stride = (w * spp * depth + 7) // 8
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, spp * depth // 8))
+    if depth < 8:  # unpack the samples of each row, most significant first
+        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            -1, dtype=np.uint8)
+    else:
+        vals = rows.reshape(h, w, spp)
+    if color == 3:
+        if plte is None:
+            raise ValueError("png: palette image without a PLTE chunk")
+        table = np.zeros((256, 3), np.uint8)  # indices past the palette: black
+        table[:len(plte)] = plte
+        return table[vals.reshape(h, w)]
+    if color in (0, 4):
+        gray = vals.reshape(h, w) if depth < 8 else vals[..., 0]
+        if depth < 8:
+            gray = (gray.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        return np.repeat(gray[..., None], 3, axis=-1)
+    return np.ascontiguousarray(vals[..., :3])
+
+
+def read_image_rgb(path: str) -> np.ndarray:
+    """An image file -> uint8 [H, W, 3] RGB. PNG only: JPEG and WEBP raise,
+    naming the format (their decoders are not in the standard library)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _PNG_SIGNATURE:
+        return png_decode_rgb(data)
+    if data[:3] == b"\xff\xd8\xff":
+        fmt = "JPEG"
+    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        fmt = "WEBP"
+    else:
+        fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
+    raise ValueError(f"{path}: {fmt} images are not supported (PNG only: no "
+                     f"{fmt} decoder without Pillow)")
+
+
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
     """Save a uint8 array as `{filename}.{format}` (PNG only)."""
     if format != "png":
@@ -73,34 +194,58 @@ def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
 _PIL_PRECISION_BITS = 22  # libImaging/Resample.c: 32 - 8 - 2
 
 
-def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+def _pil_bicubic(x: float) -> float:
     """Pillow's bicubic filter, a = -0.5, support 2."""
     a = -0.5
-    x = np.abs(x)
-    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
-                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
 
 
-def _pil_coeffs(in_size: int, out_size: int):
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _pil_lanczos(x: float) -> float:
+    """Pillow's lanczos filter: a sinc windowed by a sinc 3 wide, support 3."""
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3)
+    return 0.0
+
+
+# filter -> its support, as libImaging/Resample.c defines them
+_PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0), "lanczos": (_pil_lanczos, 3.0)}
+
+
+def _pil_coeffs(in_size: int, out_size: int, filt: str = "bicubic"):
     """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis ->
     (first input index [out, k], fixed-point coefficients [out, k] int64);
-    unused taps have coefficient 0 and index 0."""
+    unused taps have coefficient 0 and index 0. The filter is evaluated
+    with the C library's sin, as Pillow's C code does."""
+    fn, filter_support = _PIL_FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     idx = np.zeros((out_size, ksize), np.int64)
     kk = np.zeros((out_size, ksize), np.float64)
+    ss = 1.0 / filterscale
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)  # C casts truncate
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _pil_bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for v in w:  # sequential, as the C loop sums
             ww += v
         if ww != 0.0:
-            w = w / ww
+            w = [v / ww for v in w]
         kk[xx, :xmax] = w
         idx[xx, :xmax] = np.arange(xmax) + xmin
     one = float(1 << _PIL_PRECISION_BITS)
@@ -108,10 +253,10 @@ def _pil_coeffs(in_size: int, out_size: int):
     return idx, fixed.astype(np.int64)
 
 
-def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _pil_pass(img: np.ndarray, axis: int, out_size: int, filt: str) -> np.ndarray:
     """One 8-bit pass of Pillow's resample along ``axis`` of [H, W, C]:
     integer multiply-adds from a half-unit start, >> 22, clip to uint8."""
-    idx, k = _pil_coeffs(img.shape[axis], out_size)
+    idx, k = _pil_coeffs(img.shape[axis], out_size, filt)
     x = np.moveaxis(img.astype(np.int64), axis, 0)  # [in, other, C]
     acc = np.full((out_size,) + x.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
     for j in range(idx.shape[1]):
@@ -120,19 +265,29 @@ def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def _pil_resize(img_u8, size, filt: str) -> np.ndarray:
+    w, h = size
+    img = np.asarray(img_u8, np.uint8)
+    if img.shape[1] != w:
+        img = _pil_pass(img, 1, w, filt)
+    if img.shape[0] != h:
+        img = _pil_pass(img, 0, h, filt)
+    return img
+
+
 def pil_resize_bicubic(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """uint8 [H, W, C] -> [h, w, C] as Pillow's ``Image.resize((w, h))``
     computes it with its default BICUBIC filter, without Pillow: the
     two-pass fixed-point resample of libImaging/Resample.c, the horizontal
     pass first, each pass rounding and clipping to uint8, the filter's
     support widened by the downscale factor. ``size`` is (w, h) as Pillow's."""
-    w, h = size
-    img = np.asarray(img_u8, np.uint8)
-    if img.shape[1] != w:
-        img = _pil_pass(img, 1, w)
-    if img.shape[0] != h:
-        img = _pil_pass(img, 0, h)
-    return img
+    return _pil_resize(img_u8, size, "bicubic")
+
+
+def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """As ``pil_resize_bicubic``, with Pillow's LANCZOS filter
+    (``Image.resize(size, Image.LANCZOS)``): support 3."""
+    return _pil_resize(img_u8, size, "lanczos")
 
 
 def to_uint8(ims) -> np.ndarray:

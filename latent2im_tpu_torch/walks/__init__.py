@@ -1,7 +1,7 @@
 """Latent walks of the port (see walks.py)."""
 
 from .walks import (REGISTRY, apply_walk, init_walk, resolve_walk_kind,
-                    walk_space)
+                    walk_leaves, walk_map, walk_space)
 
 __all__ = ["REGISTRY", "apply_walk", "init_walk", "resolve_walk_kind",
-           "walk_space"]
+           "walk_leaves", "walk_map", "walk_space"]

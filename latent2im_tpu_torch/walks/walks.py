@@ -1,21 +1,54 @@
 """Latent walks, the only trained parameters in the system — PyTorch port.
 
-The counterpart of latent2im_tpu/walks/walks.py. This slice ports the
-registry, ``resolve_walk_kind``, the layer mask and the ``linear_w`` walk
-(WalkLinearMultiW: a per-attribute direction bank [A, L, D], w[l] +=
-alpha @ W[:, l, :]). The other nine kinds are registered and raise
-``NotImplementedError`` naming their ROADMAP item.
+The counterpart of latent2im_tpu/walks/walks.py. Ported: the registry,
+``resolve_walk_kind``, the layer mask and the three W-space walks (the
+reference's graphs/stylegan_v2_real/transform_base.py:21-243):
 
-Walk params are dicts of tensors, keyed as in the JAX package's pytrees.
+  linear_w   WalkLinearMultiW  — per-attribute direction bank [A, L, D],
+                                 w[l] += alpha @ W[:, l, :]
+  mlp_w      WalkMlpMultiW     — D->2D->2D->D LeakyReLU MLP,
+                                 w[l] += alpha_0 * MLP(w[l])
+  nn_w       WalkNonLinearW    — alpha-embed(10->D/2) ++ w[l] -> MLP,
+                                 unit-normalized delta
+
+The seven z-space kinds are registered and raise ``NotImplementedError``
+naming their ROADMAP item.
+
+Walk params are dicts (and lists) of tensors, keyed as in the JAX package's
+pytrees: a linear layer is {"w": [fan_in, fan_out], "b": [fan_out]}, so
+that its checkpoints carry them unchanged. ``walk_leaves`` lists the
+tensors in a fixed order (the optimizer's).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 Params = dict
+
+
+def walk_leaves(params) -> list:
+    """The walk's tensors, depth first, dicts in sorted key order and lists
+    in order: the order of ``jax.tree_util.tree_leaves``."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in walk_leaves(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in walk_leaves(v)]
+    return [params]
+
+
+def walk_map(fn: Callable, params):
+    """The walk's tree with ``fn`` applied to each tensor, in walk_leaves
+    order."""
+    if isinstance(params, dict):
+        return {k: walk_map(fn, params[k]) for k in sorted(params)}
+    if isinstance(params, (list, tuple)):
+        return [walk_map(fn, v) for v in params]
+    return fn(params)
 
 
 def _layer_mask(n_layers: int, layers, device=None) -> torch.Tensor:
@@ -24,6 +57,29 @@ def _layer_mask(n_layers: int, layers, device=None) -> torch.Tensor:
         return mask + 1.0
     mask[list(layers)] = 1.0
     return mask
+
+
+def _init_linear(fan_in, fan_out, generator=None, device=None):
+    """torch nn.Linear's default init: U(-b, b), b = 1/sqrt(fan_in)."""
+    bound = 1.0 / math.sqrt(fan_in)
+
+    def u(*shape):
+        return ((torch.rand(shape, generator=generator) * 2 - 1) * bound).to(device)
+
+    return {"w": u(fan_in, fan_out), "b": u(fan_out)}
+
+
+def _linear(p, x):
+    return x @ p["w"] + p["b"]
+
+
+def _mlp(layers, x, slope: float = 0.2):
+    """Linear layers with a plain LeakyReLU(slope) between them."""
+    for i, p in enumerate(layers):
+        x = _linear(p, x)
+        if i < len(layers) - 1:
+            x = F.leaky_relu(x, slope)
+    return x
 
 
 def init_linear_w(dim_z, n_layers, attr_list, generator=None, device=None):
@@ -38,11 +94,43 @@ def apply_linear_w(params, latent, alpha, layers=None):
     return latent + delta * mask[None, :, None]
 
 
+def init_mlp_w(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"mlp": [_init_linear(dim_z, 2 * dim_z, generator, device),
+                    _init_linear(2 * dim_z, 2 * dim_z, generator, device),
+                    _init_linear(2 * dim_z, dim_z, generator, device)]}
+
+
+def apply_mlp_w(params, latent, alpha, layers=None):
+    al = alpha[:, :1]  # the reference uses alpha[:, 0] (transform_base.py:184)
+    delta = _mlp(params["mlp"], latent)  # batched over [B, L, D]
+    mask = _layer_mask(latent.shape[1], layers, latent.device).to(latent.dtype)
+    return latent + al[:, None, :] * delta * mask[None, :, None]
+
+
+def init_nn_w(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"embed": _init_linear(10, dim_z // 2, generator, device),
+            "mlp": [_init_linear(dim_z // 2 + dim_z, 2 * dim_z, generator, device),
+                    _init_linear(2 * dim_z, dim_z, generator, device)]}
+
+
+def apply_nn_w(params, latent, alpha, layers=None):
+    b, n_layers, _ = latent.shape
+    emb = _linear(params["embed"], alpha[:, :1].repeat(1, 10))  # [B, D/2]
+    h = torch.cat([emb[:, None, :].expand(b, n_layers, emb.shape[-1]), latent], dim=-1)
+    delta = _mlp(params["mlp"], h)
+    if layers is None:
+        # unit-normalized per layer (transform_base.py:228)
+        return latent + delta / torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
+    # with an explicit layer subset the reference skips normalization (:236-238)
+    mask = _layer_mask(n_layers, layers, latent.device).to(latent.dtype)
+    return latent + delta * mask[None, :, None]
+
+
 def _not_ported(kind: str) -> Callable:
     def fn(*args, **kwargs):
         raise NotImplementedError(
             f"walk kind {kind!r} is not ported yet (ROADMAP.md queue A "
-            "item 18: the nine remaining walk kinds)"
+            "item 18: the seven remaining walk kinds)"
         )
 
     return fn
@@ -51,7 +139,8 @@ def _not_ported(kind: str) -> Callable:
 # kind -> (init, apply, latent_space)
 REGISTRY: dict[str, tuple[Callable, Callable, str]] = {
     "linear_w": (init_linear_w, apply_linear_w, "w"),
-    **{k: (_not_ported(k), _not_ported(k), "w") for k in ("mlp_w", "nn_w")},
+    "mlp_w": (init_mlp_w, apply_mlp_w, "w"),
+    "nn_w": (init_nn_w, apply_nn_w, "w"),
     **{k: (_not_ported(k), _not_ported(k), "z") for k in (
         "mlp_z", "linear_z_free", "linear_z", "linear_z_dir", "mlp_z_norm",
         "mlp_z3", "embed")},

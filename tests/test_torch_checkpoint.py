@@ -199,9 +199,9 @@ def test_reference_walk_module_crosses_both_ways(tmp_path):
     jw, _, jmeta = jckpt.load_walk(pref, {"w": jnp.zeros(SHAPE)})
     np.testing.assert_array_equal(np.asarray(jw["w"]), w)
     with pytest.raises(NotImplementedError, match="item 18"):
-        tc.export_walk_torch(pref, "mlp_w", {})
+        tc.export_walk_torch(pref, "mlp_z", {})
     with pytest.raises(NotImplementedError, match="item 18"):
-        tc.convert_walk_state("WalkMlpMultiW", {}, [])
+        tc.convert_walk_state("WalkMlpZ2", {}, [])
     # single-attribute walks merged into a bank, as the JAX package does
     single = {"w": w[1:2] + 1.0}
     got = ckpt.merge_walk_banks({"w": torch.from_numpy(w)}, [("Young", single)],

@@ -373,3 +373,46 @@ def test_styled_conv_kernel_at_the_1024px_models_thin_layers(dev, h, cin, cout):
     args = (x, w, s, d, _randn(gen, dev, 1, h, h), torch.full((1,), 0.3, device=dev),
             0.1 * _randn(gen, dev, cout))
     _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), SC_TOL)
+
+
+def test_second_derivatives_through_the_backward_kernels_match_the_cpu(dev):
+    """The gradient, wrt a tiny D's parameters, of a gradient penalty
+    (which differentiates fused_act's and upfirdn2d's backward) on the card
+    against the CPU from the same weights and input: every parameter within
+    1e-4 relative L2 (f32 on both; the last bias gets no gradient on
+    either), and the second-order pass launches the backward kernels
+    again."""
+    import copy
+
+    from latent2im_tpu_torch.models.stylegan2 import Discriminator
+
+    gen = torch.Generator().manual_seed(6)
+    d = Discriminator(32, channels={4: 16, 8: 16, 16: 8, 32: 8}, generator=gen)
+    with torch.no_grad():
+        for name, p in d.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    x_hat = torch.randn((4, 32, 32, 3), generator=gen)
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        dd = copy.deepcopy(d).to(device)
+        x = x_hat.to(device).requires_grad_(True)
+        before = ops.launch_counts()
+        (gx,) = torch.autograd.grad(dd(x).sum(), x, create_graph=True)
+        first = ops.launch_counts()
+        gp = (torch.sqrt(gx.square().sum((1, 2, 3)) + 1e-12) - 1.0).square().mean()
+        grads = torch.autograd.grad(gp, list(dd.parameters()), allow_unused=True)
+        second = ops.launch_counts()
+        res[device.type] = [None if g is None else g.cpu() for g in grads]
+        if device.type == "cuda":
+            for k in ("fused_act_bwd", "upfirdn2d_bwd"):
+                assert first[k] > before[k] and second[k] > first[k], (k, before, second)
+            assert second["upfirdn2d"] > first["upfirdn2d"]  # the transposed op's own gradient
+    for (name, _), a, b in zip(d.named_parameters(), res["cuda"], res["cpu"]):
+        if b is None:
+            assert a is None or not a.any(), name
+            continue
+        if not b.any():
+            assert float(a.abs().max()) <= 1e-6, name
+            continue
+        assert float((a - b).norm() / b.norm()) <= 1e-4, name

@@ -76,7 +76,7 @@ def test_registry_and_resolution_match_jax():
                  ("pggan", "linear", "z"), ("pggan", "NNz", "z")]:
         assert walks.resolve_walk_kind(*args) == jwalks.resolve_walk_kind(*args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        walks.apply_walk("mlp_w", {}, None, None)
+        walks.apply_walk("mlp_z", {}, None, None)
 
 
 def test_get_w_and_synthesize_match_jax(editors):

@@ -4,8 +4,9 @@
   optax, latent2im_tpu, or what the GPU machine lacks besides (msgpack,
   yaml, PIL) (an AST scan), and a fresh process that imports the port and
   runs a tiny CPU edit ends with none of them in sys.modules.
-- An entry point given no device on a machine without a card raises: the
-  builder, the Editor, the server and the CLIs' run.
+- An entry point given no device on a machine without a card raises:
+  build_editor_from_options, the Editor, the server, the inverter and the
+  CLIs.
 - A CPU tensor through each kernel wrapper runs the plain version and leaves
   the launch count at 0; a tensor on a device that is neither cpu nor cuda is
   refused.
@@ -60,6 +61,7 @@ def test_cpu_edit_in_a_fresh_process_loads_no_jax():
         "import sys, argparse, warnings; warnings.simplefilter('ignore')\n"
         "from latent2im_tpu_torch.config.options import TrainOptions\n"
         "from latent2im_tpu_torch.engine.build import build_editor_from_options\n"
+        "import latent2im_tpu_torch.cli.bp, latent2im_tpu_torch.engine.inversion\n"
         "conf = TrainOptions().parse(['--attrList', 'Smiling', '--dev_tiny',\n"
         "    '--resolution', '8', '--models_dir', 'unused'], print_opt=False)\n"
         "ed, walk, _ = build_editor_from_options(conf, device='cpu')\n"
@@ -77,12 +79,13 @@ def test_cpu_edit_in_a_fresh_process_loads_no_jax():
 
 
 def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch, tmp_path):
-    from latent2im_tpu_torch.cli import train, vis_w
+    from latent2im_tpu_torch.cli import bp, train, vis_w
     from latent2im_tpu_torch.cli.serve import build_service
     from latent2im_tpu_torch.config.options import TrainOptions
     from latent2im_tpu_torch.device import resolve_device
     from latent2im_tpu_torch.engine.build import build_editor_from_options
     from latent2im_tpu_torch.engine.editor import Editor, EditorConfig
+    from latent2im_tpu_torch.engine.inversion import make_inverter
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     conf = TrainOptions().parse(["--attrList", "Smiling", "--dev_tiny",
@@ -101,6 +104,10 @@ def test_entry_points_without_a_device_raise_when_there_is_no_card(monkeypatch, 
         train.run(conf)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         vis_w.run(opt, conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bp.main(["--img_dir", str(tmp_path), "--save_dir", str(tmp_path / "bp")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_inverter(None, None, 8)
     assert not os.listdir(tmp_path)  # they raise before writing anything
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
