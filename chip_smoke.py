@@ -8,8 +8,9 @@ style_dim 512, n_mlp 8, channel multiplier 2; ResNet-50/40; Smiling): the
 edit server and the walk-training loop, at 256 px (phases 3-10) and at
 1024 px (phases 11-15, with the remat and input-size options and the eval
 CLI); then the second derivatives a gradient penalty takes (16), W+
-inversion and the bp CLI (17-19) and the mlp_w/nn_w walks (20). Phases (a failed
-phase raises, and the script exits non-zero):
+inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20) and the joint
+GAN fine-tune, --updateGAN (21-24). Phases (a failed phase raises, and the
+script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -88,7 +89,23 @@ phase raises, and the script exits non-zero):
      linear_w's step), a save -> reload -> reference-export round trip, and
      one step on the card against f64 on the CPU (phase 9's bound, which
      also admits 1.5 x the card's own error in the gradient wrt the edited
-     W+, that error held within TOWERS_F32_MAX).
+     W+, that error held within TOWERS_F32_MAX);
+ 21. --updateGAN at 256 px, B=4, full width: the CLI's provider
+     (cli/train.py:_make_gan_provider: a WGAN-GP D step on real PNGs against
+     the walk-edited images, a G step through both syntheses and the
+     regressor, G's EMA) before each train_loop step; a warmup iteration,
+     then 5 counted ones: ms per iteration, per D step and per G step (CUDA
+     events), peak GB, launches equal to 5 x the warmup iteration's, all
+     five kernels; losses finite, G, D, g_running and G's noise maps moved;
+ 22. one D step's and one G step's gradient (256 px, full width, B=2, over
+     G(z)) on the card against f64 on the CPU per parameter (phase 9's form
+     of bound, as phase 16);
+ 23. one D and one G step at 1024 px through the CLI's g_apply, at B=4 (B=2
+     where 4 does not fit): ms, peak GB;
+ 24. the --updateGAN CLI (PNGs written here, a temporary run directory):
+     SIGTERM after epoch 0, --resume (both Adam states restored equal to the
+     preempted run's) to model_gan_2_final.ckpt, then `python -m
+     latent2im_tpu_torch.cli.vis_w --save_path_gan` on it.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -1924,6 +1941,495 @@ def late_phases(card, dev, results, cli):
                          **{f"walk_{k}": r["launches"] for k, r in walks.items()}}}
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: the joint GAN fine-tune (--updateGAN)
+# ---------------------------------------------------------------------------
+
+GAN_ITERS, GAN_CMP_BATCH = 5, 2
+GAN_BATCH_HI = (4, 2)  # the 1024 px batch: 4, or 2 where 4 does not fit
+
+
+def _gan_pngs(root, n=6, seed=24):
+    """n PNGs of random colour blocks, not square, for --real_data_dir."""
+    import numpy as np
+
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        h, w = SIZE + 16 * (i % 3), SIZE + 8 * (i % 2) + 24
+        blocks = rng.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3)).astype(np.uint8)
+        img = np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:h, :w]
+        with open(os.path.join(root, f"real{i}.png"), "wb") as f:
+            f.write(imgmod.png_bytes(img))
+    return root
+
+
+def _timed_gan_steps(timings):
+    """A make_gan_update_steps for cli.train that records CUDA events and the
+    metrics around each D and G step in ``timings`` {"d": [...], "g": [...]}."""
+    import torch
+
+    from latent2im_tpu_torch.engine.gan import make_gan_update_steps
+
+    def make(*a, **kw):
+        steps = make_gan_update_steps(*a, **kw)
+
+        def timed(fn, key):
+            def run(*args, **kwargs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                m = fn(*args, **kwargs)
+                ev[1].record()
+                timings[key].append((ev, m))
+                return m
+            return run
+
+        return timed(steps[0], "d"), timed(steps[1], "g")
+
+    return make
+
+
+def _snapshot(named):
+    return {n: p.detach().clone() for n, p in named}
+
+
+def _moved(before, after) -> float:
+    return max((after[n].detach() - t).abs().max().item() for n, t in before.items())
+
+
+def gan_train_phase(dev):
+    """--updateGAN at 256 px, B=4, full width: the CLI's provider
+    (cli/train.py:_make_gan_provider, real PNGs written here) before each
+    train_loop step; a warmup iteration, then GAN_ITERS counted and timed
+    ones. G's noise weights NOISE_WEIGHT, so the noise maps get a gradient."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    real_dir = _gan_pngs(os.path.join(REPO, "chiprun_out", "gan", "real"))
+    conf = train_conf("--updateGAN", "--real_data_dir", real_dir,
+                      root=os.path.join(REPO, "chiprun_out", "gan"))
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(conf)
+    with torch.no_grad():
+        for n, p in ed.g.named_parameters():
+            if n.endswith("noise.weight"):
+                p.fill_(NOISE_WEIGHT)
+    task = get_task("face")
+    timings = {"d": [], "g": []}
+    real_make = tcli.make_gan_update_steps
+    tcli.make_gan_update_steps = _timed_gan_steps(timings)
+    try:
+        provider = tcli._make_gan_provider(ed, conf, task, walk)
+    finally:
+        tcli.make_gan_update_steps = real_make
+    mod = provider.module
+    g0, d0 = _snapshot(ed.g.named_parameters()), _snapshot(ed.d.named_parameters())
+    ema0 = {n: t.clone() for n, t in mod.g_running.items()}
+    run = dict(batch_size=BATCH, n_epochs=1, lr=conf.learning_rate, log_every=1,
+               frozen_provider=provider)
+    ops.reset_launches()
+    walk, _ = train_loop(ed, task, walk, num_samples=BATCH, **run)  # warmup
+    torch.cuda.synchronize()
+    per_iter = ops.launch_counts()
+    log(f"    editor built, provider made and one warmup iteration in "
+        f"{time.perf_counter() - t0:.1f} s; launches per iteration {json.dumps(per_iter)}")
+    timings["d"].clear()
+    timings["g"].clear()
+    metrics = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    walk, _ = train_loop(ed, task, walk, num_samples=GAN_ITERS * BATCH, seed=1,
+                         on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect = {k: GAN_ITERS * v for k, v in per_iter.items()}
+    assert counts == expect and all(v > 0 for v in counts.values()), (counts, expect)
+    gan_m = [{k: v.item() for k, v in m.items()} for key in ("d", "g")
+             for _, m in timings[key]]
+    assert len(timings["d"]) == len(timings["g"]) == GAN_ITERS, timings
+    assert all(math.isfinite(v) for m in gan_m + metrics for v in m.values()), (gan_m, metrics)
+    noise = {n: t for n, t in g0.items() if n.startswith("noises.")}
+    out = {"iterations": GAN_ITERS, "batch": BATCH,
+           "iteration_ms_cuda_events": ev[0].elapsed_time(ev[1]) / GAN_ITERS,
+           "d_step_ms_cuda_events": statistics.mean(
+               e[0].elapsed_time(e[1]) for e, _ in timings["d"]),
+           "g_step_ms_cuda_events": statistics.mean(
+               e[0].elapsed_time(e[1]) for e, _ in timings["g"]),
+           "samples_per_s": GAN_ITERS * BATCH / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "launches_per_iteration": per_iter,
+           "moved": {"g": _moved(g0, dict(ed.g.named_parameters())),
+                     "d": _moved(d0, dict(ed.d.named_parameters())),
+                     "g_running": _moved(ema0, mod.g_running),
+                     "noise_maps": _moved(noise, dict(ed.g.named_parameters()))},
+           "gan_first": {**gan_m[0], **gan_m[GAN_ITERS]},
+           "gan_last": {**gan_m[GAN_ITERS - 1], **gan_m[-1]},
+           "walk_last": metrics[-1]}
+    assert all(v > 0 for v in out["moved"].values()), out["moved"]
+    assert not any(p.requires_grad for m in (ed.g, ed.d) for p in m.parameters())
+    del ed, walk, provider, mod
+    torch.cuda.empty_cache()
+    return out
+
+
+def gan_grads(g, d, z, real, eps):
+    """One D step's and one G step's gradient per parameter (f64 numpy) over
+    g_apply = G(z) (stored noise), Adam at lr 0, so both start from the same
+    G and D, and the G step's gradient wrt G's image (where G's backward
+    starts). -> ({"d_loss", "grad_penalty", "g_loss"}, {"d"|"g": {name:
+    gradient}, "image": gradient}, {"d"|"g": seconds})."""
+    from latent2im_tpu_torch.engine.gan import GANModule, make_gan_update_steps
+
+    mod = GANModule.create(g.requires_grad_(False), d.requires_grad_(False), lr=0.0)
+    grads = {}
+    for key, opt, module in (("d", mod.d_opt, d), ("g", mod.g_opt, g)):
+        names = [n for n, _ in module.named_parameters()]
+        opt.register_step_pre_hook(
+            lambda o, a, k, key=key, names=names: grads.update({key: {
+                n: p.grad.double().cpu().numpy()
+                for n, p in zip(names, o.param_groups[0]["params"])}}))
+    def g_apply(zz):  # the towers' f32 output casts undone for the f64 reference
+        img = g(zz).to(zz.dtype)
+        if img.requires_grad:
+            img.register_hook(lambda gr: grads.update(image=gr.double().cpu().numpy()))
+        return img
+
+    d_step, g_step = make_gan_update_steps(g_apply, lambda x: d(x).to(x.dtype), mod)
+    t0 = time.perf_counter()
+    dm = d_step(z, real, eps=eps)
+    dm = {k: v.item() for k, v in dm.items()}
+    t1 = time.perf_counter()
+    gm = {k: v.item() for k, v in g_step(z).items()}
+    return {**dm, **gm}, grads, {"d": t1 - t0, "g": time.perf_counter() - t1}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The ops modules' kernel entry points (``_forward``, ``_backward``)
+    replaced by their plain versions on every device, so that the model
+    runs in f64 on the card: phase 22's reference."""
+    import importlib
+
+    import torch
+
+    fa, ud, sc = (importlib.import_module(f"latent2im_tpu_torch.ops.{m}")
+                  for m in ("fused_act", "upfirdn2d", "styled_conv"))
+
+    def ufd_backward(g, k, up, down, pads, in_hw):  # the CPU branch of ud._backward
+        gup, gdown, gpads = ud.transposed_params(tuple(k.shape), up, down, pads,
+                                                 tuple(in_hw), tuple(g.shape[1:3]))
+        return ud.upfirdn2d_plain(g, torch.flip(k, (0, 1)), gup, gdown, gpads)
+
+    saved = (fa._forward, fa._backward, ud._forward, ud._backward, sc._forward)
+    fa._forward = fa.fused_leaky_relu_plain
+    fa._backward = lambda g, out, ns, scale: fa.fused_leaky_relu_bwd_plain(
+        g, out, ns, scale, bias_grad=False)[0]
+    ud._forward, ud._backward = ud.upfirdn2d_plain, ufd_backward
+    sc._forward = sc.styled_conv3x3_plain
+    try:
+        yield
+    finally:
+        fa._forward, fa._backward, ud._forward, ud._backward, sc._forward = saved
+
+
+# The gradient of a noise map sums 2 * C terms per pixel, each behind its own
+# LeakyReLU mask, and a noise weight's sums those over the map, so a mask
+# that the forward's f32 rounding flips moves them by 0.8 of a term. The
+# card's f32 forward flips more masks than the CPU's: at 256 px, B=2, the
+# maps and weights read up to 3.85e-3 relative L2 from f64 on the card
+# (noises.noise_12) against up to 2.08e-3 on the CPU, convs.4's noise weight
+# 0.18e-3-1.42e-3 over four runs, the same with the styled conv's forward on
+# cuDNN and with deterministic cuDNN, while every other parameter of G and D
+# stays within 1.1e-4 (scripts/torch_gan_grad_check.py, H100 80GB HBM3 at
+# 700 W). A fault in that path (a lost sum, a frozen map) is off by O(1).
+NOISE_F32_MAX = 1e-2
+
+
+def gan_grads_phase(dev, enforce: bool = True):
+    """One D step's and one G step's gradients at 256 px, full width, B=2
+    (seeded G with noise weights NOISE_WEIGHT; D's biases off zero): on the
+    card, and in f32 on the CPU, each against f64 (the plain versions on the
+    card: on the CPU the f64 steps take minutes), per parameter by relative
+    L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
+    form, as phase 16), G's noise maps and noise weights to NOISE_F32_MAX
+    where that is larger. enforce=False only reports."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.models.stylegan2 import Discriminator, Generator
+
+    gen = torch.Generator().manual_seed(25)
+    g = Generator(SIZE, generator=gen)
+    d = Discriminator(SIZE, generator=gen)
+    with torch.no_grad():
+        for n, p in g.named_parameters():
+            if n.endswith("noise.weight"):
+                p.fill_(NOISE_WEIGHT)
+        for n, p in d.named_parameters():
+            if n.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    rng = np.random.RandomState(25)
+    z = torch.from_numpy(rng.randn(GAN_CMP_BATCH, 512).astype(np.float32))
+    real = torch.from_numpy((0.5 * rng.randn(GAN_CMP_BATCH, SIZE, SIZE, 3)).astype(np.float32))
+    eps = torch.from_numpy(rng.uniform(size=(GAN_CMP_BATCH, 1, 1, 1)).astype(np.float32))
+    ops.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    m_card, g_card, _ = gan_grads(copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev),
+                                  z.to(dev), real.to(dev), eps.to(dev))
+    ev[1].record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    m_cpu, g_cpu, s_cpu = gan_grads(copy.deepcopy(g), copy.deepcopy(d), z, real, eps)
+    with plain_kernels():
+        t = time.perf_counter()
+        m_f64, g_f64, _ = gan_grads(copy.deepcopy(g).to(dev, torch.float64),
+                                    copy.deepcopy(d).to(dev, torch.float64),
+                                    *(t_.to(dev, torch.float64) for t_ in (z, real, eps)))
+        s_f64 = time.perf_counter() - t
+    out = {"card_ms": ev[0].elapsed_time(ev[1]), "cpu_f32_s": s_cpu, "card_f64_s": s_f64,
+           "metrics": {"card": m_card, "cpu_f32": m_cpu, "cpu_f64": m_f64},
+           "image_grad": {"card": rel_l2(g_card["image"], g_f64["image"]),
+                          "cpu_f32": rel_l2(g_cpu["image"], g_f64["image"])},
+           "launches": counts, "worst": {}, "groups": {}}
+    for key in ("d", "g"):
+        ratios = []
+        for name, ref in g_f64[key].items():
+            assert ref.any(), (key, name)  # every parameter reaches its loss
+            card, cpu = rel_l2(g_card[key][name], ref), rel_l2(g_cpu[key][name], ref)
+            noise = name.startswith("noises.") or name.endswith("noise.weight")
+            floor = NOISE_F32_MAX if noise else 1e-3
+            ratios.append((card / max(floor, 1.5 * cpu), name, card, cpu))
+            out["groups"][f"{key}:{name}"] = {"card": card, "cpu_f32": cpu}
+        worst = max(ratios)
+        out["worst"][key] = {"card_over_bound": worst[0], "param": worst[1],
+                             "card_rel_l2": worst[2], "cpu_f32_rel_l2": worst[3],
+                             "card_rel_l2_max": max(r[2] for r in ratios)}
+        if enforce:
+            assert worst[0] <= 1.0, (key, out["worst"])
+    if not enforce:
+        return out
+    for k, v in m_f64.items():
+        assert abs(m_card[k] - v) <= 1e-3 * max(1.0, abs(v)), (k, out["metrics"])
+    assert all(v > 0 for v in counts.values()), counts
+    return out
+
+
+def gan_1024_phase(dev):
+    """One D step and one G step (after one of each as a warmup) at 1024 px,
+    full width, through the CLI's g_apply: ms (CUDA events), peak GB and the
+    batch, GAN_BATCH_HI[0] unless it does not fit."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli.train import make_g_apply
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.gan import GANModule, draw_eps, make_gan_update_steps
+
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(train_conf(size=SIZE_HI))
+    mod = GANModule.create(ed.g, ed.d)
+    d_step, g_step = make_gan_update_steps(make_g_apply(ed), ed.discriminate, mod)
+    log(f"    1024 px editor built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=ed.device).manual_seed(26)
+    out = {"oom_at": []}
+    for b in GAN_BATCH_HI:
+        rng = np.random.RandomState(26)
+        batch = {"z": ed._tensor(rng.randn(b, 512)), "alpha": ed._tensor(rng.uniform(size=(b, 1))),
+                 "walk": {"w": walk["w"].detach()}}
+        real = ed._tensor(0.5 * rng.randn(b, SIZE_HI, SIZE_HI, 3))
+        try:
+            d_step(batch, real, draw_eps(gen, b, ed.device))
+            g_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            dm = d_step(batch, real, draw_eps(gen, b, ed.device))
+            ev[1].record()
+            gm = g_step(batch)
+            ev[2].record()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            out["oom_at"].append(b)
+            torch.cuda.empty_cache()
+            continue
+        out.update(batch=b, d_step_ms_cuda_events=ev[0].elapsed_time(ev[1]),
+                   g_step_ms_cuda_events=ev[1].elapsed_time(ev[2]),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=ops.launch_counts(),
+                   metrics={k: v.item() for k, v in {**dm, **gm}.items()})
+        break
+    assert "batch" in out, out
+    assert all(math.isfinite(v) for v in out["metrics"].values()), out
+    assert all(v > 0 for v in out["launches"].values()), out
+    del ed, walk, mod, d_step, g_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def gan_cli_phase():
+    """The --updateGAN CLI at 256 px, full width, in a temporary directory
+    (a GAN checkpoint with its Adam states is ~0.7 GB), on PNGs written
+    here: 2 epochs of one step, a SIGTERM after epoch 0's step
+    (model_gan_resume.ckpt, no final), --resume to model_gan_2_final.ckpt
+    (both Adam states restored equal to the preempted run's), then `python
+    -m latent2im_tpu_torch.cli.vis_w --save_path_gan` on it, its PNGs in
+    chiprun_out/gan_cli/. The launch counts are set to 0 before the two runs
+    and read after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _gan_cli_flow(root)
+
+
+def _gan_cli_flow(root):
+    import copy
+    import shutil
+    import signal
+
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.config.options import TrainOptions
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+
+    real_dir = _gan_pngs(os.path.join(root, "real"), seed=27)
+    out = {"seconds": {}}
+    box = {"kill": True}
+    real_loop, real_save, real_provider = (tcli.train_loop, tcli._save_gan,
+                                           tcli._make_gan_provider)
+
+    def loop(*a, **kw):
+        on_step = kw["on_step"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            if box["kill"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kw.update(on_step=killing_on_step)
+        return real_loop(*a, **kw)
+
+    def saving(provider, path):
+        real_save(provider, path)
+        box.setdefault("saved", {})[os.path.basename(path)] = {
+            k: copy.deepcopy(getattr(provider.module, k).state_dict())
+            for k in ("g_opt", "d_opt")}
+
+    def providing(*a, **kw):
+        provider = real_provider(*a, **kw)
+        box["restored"] = {k: copy.deepcopy(getattr(provider.module, k).state_dict())
+                           for k in ("g_opt", "d_opt")}
+        return provider
+
+    args = _cli_args(os.path.join(root, "models"), "Smiling", BATCH, 2, "--model_save_freq",
+                     "0", "--updateGAN", "--real_data_dir", real_dir)
+    t0 = time.perf_counter()
+    tcli.train_loop, tcli._save_gan, tcli._make_gan_provider = loop, saving, providing
+    try:
+        ops.reset_launches()
+        opt = TrainOptions().parse(args, print_opt=True)
+        tcli.run(opt)  # cuda: the entry point's default
+        listing = sorted(os.listdir(opt.output_dir))
+        box["kill"] = False
+        walk, history = tcli.run(TrainOptions().parse(args + ["--resume"], print_opt=False))
+        torch.cuda.synchronize()
+        out["launches"] = ops.launch_counts()
+    finally:
+        tcli.train_loop, tcli._save_gan, tcli._make_gan_provider = (real_loop, real_save,
+                                                                    real_provider)
+    out["seconds"]["train_sigterm_resume"] = time.perf_counter() - t0
+    assert "model_gan_resume.ckpt" in listing and "model_gan_2_final.ckpt" not in listing, \
+        listing
+    assert all(v > 0 for v in out["launches"].values()), out["launches"]
+    assert len(history) == 1 and all(math.isfinite(h) for h in history), history
+    saved = box["saved"]["model_gan_resume.ckpt"]
+    for k in ("g_opt", "d_opt"):
+        a, b = saved[k]["state"], box["restored"][k]["state"]
+        assert set(a) == set(b) and a, k
+        for i in a:
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(a[i][key].cpu(), b[i][key].cpu()), (k, i, key)
+    final = os.path.join(opt.output_dir, "model_gan_2_final.ckpt")
+    assert ckpt.load_meta(final) == {"gan_steps": 2}, ckpt.load_meta(final)
+    out["adam_moments_restored"] = {k: len(saved[k]["state"]) for k in saved}
+    t0 = time.perf_counter()
+    vis_dir = os.path.join(REPO, "chiprun_out", "gan_cli")
+    shutil.rmtree(vis_dir, ignore_errors=True)
+    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w",
+                  os.path.join(opt.output_dir, "model_w_2_final_walk_module.ckpt"),
+                  "--save_path_gan", final, "--output_dir", vis_dir, "--num_samples", "2",
+                  "--num_panels", "3")
+    try:
+        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["seconds"]["vis_w_save_path_gan"] = time.perf_counter() - t0
+    return out
+
+
+def gan_phases(card, dev):
+    """Phases 21-24 -> their reports and, under "launches", each path's
+    launch counts (gan, gan_grads, gan_1024, gan_cli)."""
+    import torch
+
+    log(f"[21] --updateGAN at {SIZE} px, B={BATCH}: the CLI's provider (a D and a G "
+        f"step) before each train_loop step, {GAN_ITERS} iterations")
+    train = gan_train_phase(dev)
+    log(f"    {train['iteration_ms_cuda_events']:.2f} ms per iteration, D step "
+        f"{train['d_step_ms_cuda_events']:.2f} ms, G step {train['g_step_ms_cuda_events']:.2f} "
+        f"ms (CUDA events), peak {train['peak_mem_gb']:.2f} GB, moved "
+        f"{json.dumps(train['moved'])}, GAN {json.dumps(train['gan_first'])} -> "
+        f"{json.dumps(train['gan_last'])}, on {card}")
+
+    log(f"[22] one D and one G step's gradients ({SIZE} px, B={GAN_CMP_BATCH}): card and CPU "
+        "against f64")
+    grads = gan_grads_phase(dev)
+    log(f"    {json.dumps(grads['worst'])}; the image's gradient {json.dumps(grads['image_grad'])}; "
+        f"metrics {json.dumps(grads['metrics'])}; card {grads['card_ms']:.2f} ms, CPU f32 "
+        f"{json.dumps(grads['cpu_f32_s'])} s, card f64 {grads['card_f64_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"[23] one D and one G step at {SIZE_HI} px")
+    hi = gan_1024_phase(dev)
+    log(f"    B={hi['batch']} (out of memory at {hi['oom_at']}): D step "
+        f"{hi['d_step_ms_cuda_events']:.1f} ms, G step {hi['g_step_ms_cuda_events']:.1f} ms "
+        f"(CUDA events), peak {hi['peak_mem_gb']:.2f} GB, on {card}")
+
+    log("[24] the --updateGAN CLI: train + SIGTERM + --resume, then vis_w --save_path_gan")
+    cli = gan_cli_phase()
+    log(f"    wall seconds {json.dumps(cli['seconds'])}, launches {json.dumps(cli['launches'])}, "
+        f"Adam moments restored {json.dumps(cli['adam_moments_restored'])}, vis_w wrote "
+        f"{cli['vis_pngs']}")
+    torch.cuda.empty_cache()
+    return {"train": train, "grads": grads, "hi": hi, "cli": cli,
+            "launches": {"gan": train["launches"], "gan_grads": grads["launches"],
+                         "gan_1024": hi["launches"], "gan_cli": cli["launches"]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2011,12 +2517,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     late = late_phases(card, dev, results, cli)
+    gan = gan_phases(card, dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
         by_path = {"serve": serve_counts[n], "train": train_counts[n],
                    **{k: v[n] for k, v in hi["launches"].items()},
-                   **{k: v[n] for k, v in late["launches"].items()}}
+                   **{k: v[n] for k, v in late["launches"].items()},
+                   **{k: v[n] for k, v in gan["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2037,6 +2545,7 @@ def main() -> int:
               "train_profile": train_prof, "train_cpu_vs_card": train_cmp, "cli": cli,
               "hi": {k: v for k, v in hi.items() if k not in ("results", "details")},
               "late": {k: v for k, v in late.items() if k != "launches"},
+              "gan": {k: v for k, v in gan.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

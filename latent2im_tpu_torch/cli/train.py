@@ -12,27 +12,43 @@ epoch it writes ``model_w_{epoch}_walk_module.ckpt`` with the walk and its
 Adam state (io/checkpoint.py: the JAX package's msgpack files, so either
 package resumes the other's run), at the end ``model_w_{n}_final``. SIGTERM
 writes a preemption checkpoint that ``--resume`` continues from.
+
+``--updateGAN --real_data_dir DIR`` fine-tunes G and D with the walk
+(engine/gan.py): before every walk step one WGAN-GP D step on real images
+against the walk-edited images of the live G, and one G step through both
+syntheses and the regressor, then G's EMA. The real images are DIR's PNGs
+(a JPEG raises; convert it first), centre-cropped and resized with Pillow's
+BILINEAR filter. The GAN goes to ``model_gan_{n}_final.ckpt`` at the end and
+``model_gan_resume.ckpt`` on SIGTERM, in the JAX package's layout with both
+Adam states; its ``.meta.json`` counts the GAN steps taken, so ``--resume``
+also carries the fine-tune's random streams on where they stopped (the JAX
+package restarts them).
 """
 
 from __future__ import annotations
 
+import glob
 import logging
 import math
 import os
 import signal
 
 import numpy as np
+import torch
 
 from ..config.options import TrainOptions
 from ..device import resolve_device
 from ..engine.build import _not_ported, build_editor_from_options
+from ..engine.gan import GANModule, draw_eps, make_gan_update_steps
 from ..engine.train import make_optimizer, train_loop
 from ..io import checkpoint as ckpt
-from ..tasks.transforms import get_task, task_kwargs_from_options
+from ..tasks.transforms import GEOMETRIC, get_task, task_kwargs_from_options
 from ..utils import image as imgmod
 from ..utils import logging as logmod
+from ..walks import walk_map
 
 N_EPOCH_SINGLE = 10  # train.py:34
+GAN_RESUME = "model_gan_resume.ckpt"
 
 
 def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
@@ -41,7 +57,7 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     for the CPU) -> (walk_params, loss history)."""
     device = resolve_device(device)
     if opt.updateGAN:
-        _not_ported("--updateGAN (the joint GAN fine-tune)", "queue A item 11")
+        _refuse_gan(opt)
     for flag in ("n_devices", "sp_devices"):
         if (getattr(opt, flag, None) or 1) > 1:
             _not_ported(f"--{flag} > 1 (multi-device training)", "queue A item 15")
@@ -67,6 +83,12 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
             )
             start_epoch = int((meta or {}).get("epoch", -1)) + 1
             logging.info("resuming from %s at epoch %d", latest, start_epoch)
+
+    gan = None
+    if opt.updateGAN:
+        # D sees real images against the walk-EDITED images of the live G;
+        # the walk step then trains against the updated G and D
+        gan = _make_gan_provider(editor, opt, task, walk_params)
 
     n_epochs = opt.n_epochs or n_epoch_default
     batch = opt.batch_size
@@ -106,6 +128,9 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         # (repeating a few steps is benign; skipping half an epoch is not)
         path = ckpt.save_walk(output_dir, epoch, wp, opt_state=st,
                               extra_meta={"epoch": epoch - 1, "preempted": True})
+        if gan is not None:
+            _save_gan(gan, os.path.join(output_dir, GAN_RESUME))
+            logging.warning("fine-tuned GAN preemption checkpoint written")
         stop_box["preempted"] = True
         logging.warning("preemption checkpoint written: %s", path)
 
@@ -127,6 +152,7 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
                 opt_state=opt_state,
                 stop_flag=lambda: stop_box["stop"],
                 on_preempt=on_preempt,
+                frozen_provider=gan,
             )
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
@@ -145,10 +171,129 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
             os.path.join(output_dir, f"model_w_{n_epochs}_final_ref_walk_module.ckpt"),
             editor.cfg.walk_kind, walk_params, attr_list=list(info["attr_list"]),
         )
+    if gan is not None:  # the reference's save_path_gan surface
+        _save_gan(gan, os.path.join(output_dir, f"model_gan_{n_epochs}_final.ckpt"))
     if save_loss_artifacts:
         np.save(os.path.join(output_dir, "loss_values.npy"), np.asarray(loss_values))
         _save_loss_curve(loss_values, os.path.join(output_dir, "loss_curve.png"))
     return walk_params, history
+
+
+def _refuse_gan(opt):
+    """The JAX package's refusals of --updateGAN (cli/train.py:38-45, 63-69,
+    336 there)."""
+    if "stylegan" not in opt.model:
+        raise SystemExit("--updateGAN is implemented for the stylegan models only "
+                         "(the reference's PGGAN updateGAN path is dead code)")
+    if opt.no_gan_loss:
+        raise SystemExit("--updateGAN needs a discriminator; drop --no_gan_loss")
+    if opt.transform in GEOMETRIC:
+        raise SystemExit("--updateGAN with a geometric transform is unsupported: the "
+                         "masked-L2 walk objective has no GAN term")
+    if not opt.real_data_dir:
+        raise SystemExit("--updateGAN needs --real_data_dir")
+
+
+def _save_gan(provider, path):
+    ckpt.save_gan(path, provider.module, meta={"gan_steps": provider.steps["n"]})
+
+
+def _real_paths(root: str) -> list[str]:
+    """The sorted .png/.jpg/.jpeg files under ``root`` (recursive), as the JAX
+    package lists them; a JPEG raises here, naming the file, since the
+    reader decodes PNG only."""
+    paths = sorted(p for p in glob.glob(os.path.join(root, "**", "*"), recursive=True)
+                   if p.lower().endswith((".png", ".jpg", ".jpeg")))
+    if not paths:
+        raise SystemExit(f"no images under {root}")
+    for p in paths:
+        if not p.lower().endswith(".png"):
+            raise ValueError(f"{p}: JPEG images are not supported (PNG only: no "
+                             "JPEG decoder without Pillow); convert it to PNG")
+    return paths
+
+
+def _make_real_batcher(paths, size: int, batch_size: int):
+    """-> next_batch(load=True) -> [B, size, size, 3] uint8: each batch
+    RandomState(0).randint(0, len(paths), B) images, as the JAX package's
+    pure-Python loader draws them (its native loader, where that extension
+    builds, shuffles per epoch instead). load=False only draws the indices
+    (a resume replaying the stream)."""
+    rng = np.random.RandomState(0)
+
+    def next_batch(load: bool = True):
+        idx = rng.randint(0, len(paths), size=batch_size)
+        if load:
+            return np.stack([imgmod.load_and_resize_image(paths[j], size) for j in idx])
+        return None
+
+    return next_batch
+
+
+def make_g_apply(editor):
+    """-> g_apply(batch) -> the walk-edited images of the editor's live G, the
+    JAX package's g_apply (cli/train.py:308-316 there): w = get_w(z), orig =
+    synthesize(w), delta = alpha - regress(orig), synthesize(edit(walk, w,
+    delta)), with the stored noise maps and nothing detached, so a G step's
+    gradient flows through both syntheses and the regressor. batch: {"z",
+    "alpha", "walk"}."""
+    def g_apply(batch):
+        latent = editor.latent_of(batch["z"])
+        orig = editor.synth(latent)
+        delta = batch["alpha"] - editor.scores(orig)
+        return editor.synth(editor.edit(batch["walk"], latent, delta))
+
+    return g_apply
+
+
+def _make_gan_provider(editor, opt, task, walk_params):
+    """The per-iteration GAN update for --updateGAN (the JAX package's
+    cli/train.py:_make_gan_provider): one D step and one G step on the
+    editor's G and D, before each walk step. z and the alphas come from its
+    own RandomState(0), the real batches from _make_real_batcher, eps from a
+    torch.Generator seeded 123. With --resume and a model_gan_resume.ckpt it
+    restores G, D, g_running and both Adam states, and replays the streams
+    past the steps the checkpoint counts. -> provider(epoch, i), carrying
+    ``.module`` (the GANModule) and ``.steps`` ({"n": steps taken})."""
+    if editor.d is None:
+        raise SystemExit("--updateGAN needs a discriminator")
+    paths = _real_paths(opt.real_data_dir)
+    mod = GANModule.create(editor.g, editor.d, lr=opt.gan_lr)
+    steps = {"n": 0}
+    resume_path = os.path.join(opt.output_dir, GAN_RESUME)
+    if getattr(opt, "resume", False) and os.path.isfile(resume_path):
+        meta = ckpt.load_gan(resume_path, mod)
+        steps["n"] = int((meta or {}).get("gan_steps", 0))
+        logging.info("restored fine-tuned GAN from %s after %d steps", resume_path,
+                     steps["n"])
+
+    d_step, g_step = make_gan_update_steps(make_g_apply(editor), editor.discriminate, mod)
+    next_real = _make_real_batcher(paths, editor.cfg.size, opt.batch_size)
+    rng = np.random.RandomState(0)
+    eps_gen = torch.Generator(device=editor.device).manual_seed(123)
+    b, n_attr = opt.batch_size, len(editor.cfg.attr_idx)
+    walk = walk_map(torch.Tensor.detach, walk_params)  # the live walk, no graph
+
+    def draw(load: bool = True):
+        real = next_real(load)
+        z = rng.randn(b, editor.cfg.dim_z)
+        alpha, _ = task.train_alpha_np(rng, b, n_attr)
+        return real, z, alpha, draw_eps(eps_gen, b, editor.device)
+
+    for _ in range(steps["n"]):
+        draw(load=False)
+
+    def provider(epoch, i):
+        real, z, alpha, eps = draw()
+        batch = {"z": editor._tensor(z), "alpha": editor._tensor(alpha), "walk": walk}
+        dm = d_step(batch, editor._tensor(real) / 127.5 - 1.0, eps=eps)
+        gm = g_step(batch)
+        steps["n"] += 1
+        logging.info("gan d_loss, grad_penalty, g_loss: %.5f, %.5f, %.5f",
+                     float(dm["d_loss"]), float(dm["grad_penalty"]), float(gm["g_loss"]))
+
+    provider.module, provider.steps = mod, steps
+    return provider
 
 
 def _save_samples(editor, walk_params, output_dir, epoch, i, batch_size):

@@ -21,7 +21,8 @@ run under ``torch.inference_mode``; the walk-training step
 ``synth``, ``scores`` and ``discriminate``, which keep autograd on, since a
 tensor made under inference mode cannot be saved for a backward. Every tower
 (G, the regressor, VGG19 and D) is frozen with ``requires_grad_(False)``: a
-step differentiates the walk only. The towers live on the editor's device;
+step differentiates the walk only (the --updateGAN fine-tune, engine/gan.py,
+unfreezes G or D inside its own steps). The towers live on the editor's device;
 inputs may be numpy or tensors, outputs are tensors on that device.
 """
 
@@ -67,7 +68,7 @@ class EditorConfig:
     no_content_loss: bool = False
     no_gan_loss: bool = False
     stable_bce: bool = False
-    fixed_noise: bool = False  # True = stored noise buffers during training
+    fixed_noise: bool = False  # True = stored noise maps during training
     # resize images to this size before the regressor (None: feed the
     # generator's resolution); e.g. 256 for a 1024 px G, the regressor's own
     reg_input_size: int | None = None
@@ -123,7 +124,7 @@ class Editor:
 
     def synth(self, latent, noise=None, block_remat: bool = False):
         """W+ [B, L, D] -> image [B, H, W, 3]. noise: per-layer noise
-        (Generator.make_noise), or None for the stored noise buffers.
+        (Generator.make_noise), or None for the stored noise maps.
         block_remat checkpoints each synthesis block (Generator.synthesize)."""
         return self.g.synthesize(self._tensor(latent), noise=noise,
                                  block_remat=block_remat)
@@ -161,7 +162,7 @@ class Editor:
     @torch.inference_mode()
     def synthesize(self, latent, noise_generator=None):
         """noise_generator (a torch.Generator on the editor's device) draws
-        fresh noise; None keeps the stored buffers."""
+        fresh noise; None keeps the stored noise maps."""
         latent = self._tensor(latent)
         noise = (None if noise_generator is None
                  else self.g.make_noise(latent.shape[0], noise_generator))

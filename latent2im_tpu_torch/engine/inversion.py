@@ -9,7 +9,7 @@ steps on
 
 where the perceptual term sums the squared gram differences at VGG16's
 relu1_2/2_2/3_3/4_3, each scaled by C^2. G and VGG16 are frozen: W+ is the
-only leaf. G runs with its stored noise buffers, as the JAX ``synthesize``
+only leaf. G runs with its stored noise maps, as the JAX ``synthesize``
 does by default, so one W+ gives one image. The target's grams do not
 depend on W+: ``invert`` computes them once per batch and every step reuses
 them (the same values as a per-step recompute, one VGG16 forward fewer).

@@ -23,7 +23,7 @@ Randomness: the alpha targets and the per-forward noise come from a
 step index), so a resumed run replays the same stream. JAX keys cannot be
 reproduced; ``host_alpha=True`` takes the targets from the host instead
 (``Task.train_alpha_np``, bit-matching the JAX package) and
-``EditorConfig.fixed_noise`` uses the stored noise buffers, which is how
+``EditorConfig.fixed_noise`` uses the stored noise maps, which is how
 the tests hold a step to the JAX step.
 """
 
@@ -76,7 +76,7 @@ def make_train_step(editor: Editor, task: Task | None,
         if generator is None and not cfg.fixed_noise:
             raise ValueError("fresh noise needs a generator (or fixed_noise)")
 
-        def noise():  # None: the stored buffers
+        def noise():  # None: the stored noise maps
             return None if cfg.fixed_noise else editor.g.make_noise(b, generator)
 
         optimizer.zero_grad(set_to_none=True)
@@ -155,6 +155,7 @@ def train_loop(
     stop_flag: Callable | None = None,
     on_preempt: Callable | None = None,
     host_alpha: bool = False,
+    frozen_provider: Callable | None = None,
 ) -> tuple[dict, list[float]]:
     """The reference's epoch/iteration structure around the step. Returns
     (walk_params, loss_history); the walk tensors are trained in place.
@@ -166,7 +167,10 @@ def train_loop(
     runs after each epoch. stop_flag() is polled between steps; when it
     trips, on_preempt(epoch, walk_params, opt_state) runs and the loop
     returns. host_alpha draws the targets with numpy per epoch
-    (RandomState(_alpha_seed(seed, epoch))) instead of on the device."""
+    (RandomState(_alpha_seed(seed, epoch))) instead of on the device.
+    frozen_provider(epoch, i) runs before each step, where the JAX package
+    calls it: the --updateGAN fine-tune's D and G steps, which update the
+    editor's frozen G and D in place for the walk step that follows."""
     for p in walk_leaves(walk_params):
         p.requires_grad_(True)
     optimizer = make_optimizer(walk_params, lr)
@@ -189,6 +193,8 @@ def train_loop(
                     on_preempt(epoch, walk_params, optimizer.state_dict())
                 return walk_params, history
             t0 = time.time()
+            if frozen_provider is not None:
+                frozen_provider(epoch, i)
             gen.manual_seed(_step_seed(seed, it_global))
             sampled = None
             if host_alpha:

@@ -22,7 +22,9 @@ The reference's pickled walk modules are read through io/torch_convert.py.
 from __future__ import annotations
 
 import json
+import logging
 import os
+from typing import Callable
 
 import numpy as np
 import torch
@@ -83,6 +85,11 @@ def _restore_like(tree, like, where: str):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{where}: shape {arr.shape}, expected {tuple(like.shape)}")
         return torch.as_tensor(arr, dtype=like.dtype, device=like.device).clone()
+    if isinstance(like, np.ndarray):
+        arr = np.asarray(tree, dtype=like.dtype)
+        if arr.shape != like.shape:
+            raise ValueError(f"{where}: shape {arr.shape}, expected {like.shape}")
+        return arr
     return tree
 
 
@@ -105,52 +112,57 @@ def walk_ckpt_path(output_dir: str, epoch, final: bool = False) -> str:
 # ---------------------------------------------------------------------------
 
 
-def adam_state_to_optax(state_dict: dict, walk_params: dict) -> dict:
-    """torch Adam ``state_dict()`` over the walk's tensors (in
-    ``walk_leaves`` order, as engine.train.make_optimizer lists them) ->
-    optax.adam's state tree of numpy arrays, its moments trees of the walk's
-    structure (zero moments and count 0 before the first step, as
-    ``optax.adam().init`` makes them)."""
-    leaves = walk_leaves(walk_params)
+def adam_state_to_optax(state_dict: dict, params: list, to_tree: Callable) -> dict:
+    """torch Adam ``state_dict()`` over ``params`` (the tensors it holds, in
+    its order) -> optax.adam's state tree, each moment laid out by
+    ``to_tree`` (a list of tensors in that order -> the params' tree in the
+    JAX package's layout); zero moments and count 0 before the first step,
+    as ``optax.adam().init`` makes them."""
     st = state_dict["state"]
     if not st:
-        def zeros(p):
-            return np.zeros(tuple(p.shape), np.float32)
-
-        return {"0": {"count": np.asarray(0, np.int32), "mu": walk_map(zeros, walk_params),
-                      "nu": walk_map(zeros, walk_params)}, "1": {}}
-    if set(st) != set(range(len(leaves))):
-        raise ValueError(f"Adam state holds params {sorted(st)} for a walk of "
-                         f"{len(leaves)} tensors")
+        zeros = [torch.zeros(tuple(p.shape)) for p in params]
+        return {"0": {"count": np.asarray(0, np.int32), "mu": to_tree(zeros),
+                      "nu": to_tree(zeros)}, "1": {}}
+    if set(st) != set(range(len(params))):
+        raise ValueError(f"Adam state holds params {sorted(st)} for {len(params)} tensors")
     steps = {int(st[i]["step"]) for i in st}
     if len(steps) != 1:
-        raise ValueError(f"the walk's tensors have taken different step counts {steps}")
+        raise ValueError(f"the tensors have taken different step counts {steps}")
 
     def moments(key):
-        it = (st[i][key].detach().cpu().numpy() for i in range(len(leaves)))
-        return walk_map(lambda _: next(it), walk_params)
+        return to_tree([st[i][key] for i in range(len(params))])
 
     return {"0": {"count": np.asarray(steps.pop(), np.int32),
                   "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")},
             "1": {}}
 
 
-def adam_state_from_optax(tree: dict, like: dict, walk_params: dict) -> dict:
+def adam_state_from_optax(tree: dict, like: dict, from_tree: Callable) -> dict:
     """optax.adam's state tree -> a torch Adam ``state_dict`` whose
-    hyperparameters are those of ``like`` (a state_dict of the optimizer
-    the run makes, engine.train.make_optimizer), with the moments on the
-    walk's device (their structure and shapes checked against the walk's)."""
+    hyperparameters are those of ``like`` (a state_dict of the optimizer the
+    run makes); ``from_tree`` maps a moment tree to the tensors in Adam's
+    param order (checking its structure and shapes)."""
     adam = tree["0"]
     if set(adam) != {"count", "mu", "nu"} or tree.get("1", {}) != {}:
         raise ValueError(f"not an optax.adam state: keys {sorted(tree)} / {sorted(adam)}")
-    mu = walk_leaves(_restore_like(adam["mu"], walk_params, "Adam moment mu"))
-    nu = walk_leaves(_restore_like(adam["nu"], walk_params, "Adam moment nu"))
+    groups = [dict(g) for g in like["param_groups"]]
     step = float(np.asarray(adam["count"]))
     if step == 0:  # optax's init state; torch Adam has none before a step
-        return {"state": {}, "param_groups": [dict(g) for g in like["param_groups"]]}
+        return {"state": {}, "param_groups": groups}
+    mu, nu = from_tree(adam["mu"]), from_tree(adam["nu"])
     state = {i: {"step": torch.tensor(step), "exp_avg": m, "exp_avg_sq": v}
              for i, (m, v) in enumerate(zip(mu, nu))}
-    return {"state": state, "param_groups": [dict(g) for g in like["param_groups"]]}
+    return {"state": state, "param_groups": groups}
+
+
+def _walk_moments_tree(walk_params):
+    """A list of tensors in ``walk_leaves`` order (engine.train.make_optimizer's
+    Adam order) -> a tree of the walk's structure."""
+    def to_tree(tensors):
+        it = iter(tensors)
+        return walk_map(lambda _: next(it), walk_params)
+
+    return to_tree
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +182,8 @@ def save_walk(
     path = walk_ckpt_path(output_dir, epoch, final=final)
     tree = {"walk": walk_params}
     if opt_state is not None:
-        tree["opt_state"] = adam_state_to_optax(opt_state, walk_params)
+        tree["opt_state"] = adam_state_to_optax(opt_state, walk_leaves(walk_params),
+                                                _walk_moments_tree(walk_params))
     meta = {"epoch": int(epoch) if isinstance(epoch, (int, np.integer)) else epoch,
             "final": final}
     meta.update(extra_meta or {})
@@ -205,7 +218,9 @@ def load_walk(path: str, walk_like, opt_state_like=None, attr_list=None):
     walk = _restore_like(tree["walk"], walk_like, path + ":walk")
     opt_state = None
     if opt_state_like is not None and "opt_state" in tree:
-        opt_state = adam_state_from_optax(tree["opt_state"], opt_state_like, walk)
+        opt_state = adam_state_from_optax(
+            tree["opt_state"], opt_state_like,
+            lambda m: walk_leaves(_restore_like(m, walk, "Adam moment")))
     return walk, opt_state, load_meta(path)
 
 
@@ -247,6 +262,79 @@ def find_resume(output_dir: str) -> str | None:
 # ---------------------------------------------------------------------------
 # GAN checkpoints
 # ---------------------------------------------------------------------------
+
+
+class _Layout:
+    """A module's parameters in Adam's order (``named_parameters``) and the
+    map between a list of tensors in that order and the JAX package's tree
+    (io/convert.py)."""
+
+    def __init__(self, module, to_jax, from_jax):
+        self.names = [n for n, _ in module.named_parameters()]
+        self._to_jax, self._from_jax = to_jax, from_jax
+
+    def to_tree(self, tensors) -> dict:
+        return self._to_jax(dict(zip(self.names, tensors)))
+
+    def from_tree(self, tree) -> list:
+        sd = self._from_jax(tree)
+        return [sd[n] for n in self.names]
+
+
+def _gan_layouts(mod) -> dict:
+    from .convert import (discriminator_from_jax, discriminator_to_jax,
+                          generator_from_jax, generator_to_jax)
+
+    return {"g": _Layout(mod.g, generator_to_jax, generator_from_jax),
+            "d": _Layout(mod.d, discriminator_to_jax, discriminator_from_jax)}
+
+
+def gan_tree(mod) -> dict:
+    """A GANModule (engine/gan.py) -> the JAX package's GAN checkpoint tree
+    {"g", "g_running", "d", "g_opt_state", "d_opt_state"}: the parameters in
+    its layout, the Adam states in optax's (cli/train.py:_save_gan there)."""
+    g, d = _gan_layouts(mod).values()
+    g_params, d_params = list(mod.g.parameters()), list(mod.d.parameters())
+    return {"g": g.to_tree(g_params),
+            "g_running": g.to_tree([mod.g_running[n] for n in g.names]),
+            "d": d.to_tree(d_params),
+            "g_opt_state": adam_state_to_optax(mod.g_opt.state_dict(), g_params, g.to_tree),
+            "d_opt_state": adam_state_to_optax(mod.d_opt.state_dict(), d_params, d.to_tree)}
+
+
+def save_gan(path: str, mod, meta: dict | None = None) -> str:
+    """Write a GANModule as the JAX package's ``_save_gan`` does (flax's
+    msgpack of ``gan_tree``), which its ``load_pytree(path, like)`` restores
+    with the optimizer states; ``meta`` goes to ``path + .meta.json``."""
+    save_pytree(path, gan_tree(mod), meta)
+    return path
+
+
+def load_gan(path: str, mod) -> dict | None:
+    """Restore a GAN checkpoint of either package into ``mod`` in place: G,
+    D, g_running and, where the file holds them, both Adam states (a file
+    without them restores the weights only, the moments restarting, as the
+    JAX package's resume does). -> the file's meta, or None."""
+    lay = _gan_layouts(mod)
+    raw = load_pytree(path)
+    like = gan_tree(mod)
+    with_opt = raw.get("g_opt_state") is not None and raw.get("d_opt_state") is not None
+    if not with_opt:
+        logging.warning("%s: no optimizer state: Adam moments reinitialized", path)
+        like = {k: like[k] for k in ("g", "g_running", "d")}
+        raw = {k: raw.get(k) for k in like}
+    tree = _restore_like(raw, like, path)
+    with torch.no_grad():
+        for key, module in (("g", mod.g), ("d", mod.d)):
+            for p, t in zip(module.parameters(), lay[key].from_tree(tree[key])):
+                p.copy_(t)
+        for n, t in zip(lay["g"].names, lay["g"].from_tree(tree["g_running"])):
+            mod.g_running[n].copy_(t)
+    if with_opt:
+        for key, opt in (("g", mod.g_opt), ("d", mod.d_opt)):
+            opt.load_state_dict(adam_state_from_optax(
+                tree[f"{key}_opt_state"], opt.state_dict(), lay[key].from_tree))
+    return load_meta(path)
 
 
 def load_gan_checkpoint(path: str):

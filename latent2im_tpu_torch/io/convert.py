@@ -12,6 +12,10 @@ of latent2im_tpu/io/torch_convert.py (read, not imported):
   modconv [k,k,I,O]       -> [1,O,I,k,k]
   NHWC buffers            -> NCHW
   D final_lin1 rows       (h,w,c) -> (c,h,w), the NCHW flatten
+
+``generator_to_jax`` and ``discriminator_to_jax`` map back: a state_dict (or
+any dict of tensors of its names and shapes, as Adam's moments are) -> the
+JAX package's tree of numpy arrays, lists where it keeps lists.
 """
 
 from __future__ import annotations
@@ -69,6 +73,59 @@ def generator_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _np(t) -> np.ndarray:
+    return np.array(t.detach().cpu().numpy(), dtype=np.float32)
+
+
+def _unlin(t) -> np.ndarray:
+    return np.ascontiguousarray(_np(t).T)
+
+
+def _unconv(t) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(_np(t), (2, 3, 1, 0)))
+
+
+def _n_indexed(sd, prefix: str, suffix: str, start: int = 0) -> int:
+    """How many consecutive ``{prefix}{i}{suffix}`` keys sd holds from i =
+    start."""
+    n = 0
+    while f"{prefix}{start + n}{suffix}" in sd:
+        n += 1
+    return n
+
+
+def generator_to_jax(sd) -> dict:
+    """Rosinality ``g_ema`` state_dict -> StyleGAN2 generator pytree (the
+    inverse of generator_from_jax)."""
+    def modconv(prefix):
+        return {"w": _unconv(sd[f"{prefix}.conv.weight"][0]),
+                "mod": {"w": _unlin(sd[f"{prefix}.conv.modulation.weight"]),
+                        "b": _np(sd[f"{prefix}.conv.modulation.bias"])}}
+
+    def styled(prefix):
+        return {"conv": modconv(prefix),
+                "noise_w": _np(sd[f"{prefix}.noise.weight"]).reshape(()),
+                "act_b": _np(sd[f"{prefix}.activate.bias"])}
+
+    def to_rgb(prefix):
+        return {"conv": modconv(prefix), "b": _np(sd[f"{prefix}.bias"]).reshape(3)}
+
+    n_mlp = sum(1 for k in sd if k.startswith("style.") and k.endswith(".weight"))
+    return {
+        "style": [{"w": _unlin(sd[f"style.{i + 1}.weight"]), "b": _np(sd[f"style.{i + 1}.bias"])}
+                  for i in range(n_mlp)],
+        "const": np.ascontiguousarray(np.transpose(_np(sd["input.input"]), (0, 2, 3, 1))),
+        "conv1": styled("conv1"),
+        "to_rgb1": to_rgb("to_rgb1"),
+        "convs": [styled(f"convs.{i}")
+                  for i in range(_n_indexed(sd, "convs.", ".conv.weight"))],
+        "to_rgbs": [to_rgb(f"to_rgbs.{i}")
+                    for i in range(_n_indexed(sd, "to_rgbs.", ".conv.weight"))],
+        "noises": [np.ascontiguousarray(np.transpose(_np(sd[f"noises.noise_{i}"]), (0, 2, 3, 1)))
+                   for i in range(_n_indexed(sd, "noises.noise_", ""))],
+    }
+
+
 def discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
     """StyleGAN2 discriminator pytree -> rosinality ``d`` state_dict
     (without the fixed blur ``.kernel`` buffers)."""
@@ -99,6 +156,37 @@ def discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
     sd["final_linear.1.weight"] = _lin(tree["final_lin2"]["w"])
     sd["final_linear.1.bias"] = _t(tree["final_lin2"]["b"])
     return sd
+
+
+def discriminator_to_jax(sd) -> dict:
+    """Rosinality ``d`` state_dict (without the blur kernels) ->
+    StyleGAN2 discriminator pytree (the inverse of discriminator_from_jax)."""
+    def conv_layer(prefix, down=False):
+        ci = 1 if down else 0
+        p = {"conv": {"w": _unconv(sd[f"{prefix}.{ci}.weight"])}}
+        if f"{prefix}.{ci}.bias" in sd:
+            p["conv"]["b"] = _np(sd[f"{prefix}.{ci}.bias"])
+        if f"{prefix}.{ci + 1}.bias" in sd:
+            p["act_b"] = _np(sd[f"{prefix}.{ci + 1}.bias"])
+        return p
+
+    blocks = [{"conv1": conv_layer(f"convs.{i}.conv1"),
+               "conv2": conv_layer(f"convs.{i}.conv2", down=True),
+               "skip": conv_layer(f"convs.{i}.skip", down=True)}
+              for i in range(1, 1 + _n_indexed(sd, "convs.", ".conv1.0.weight", start=1))]
+    # the port's rows follow the NCHW flatten (c, h, w); JAX's are (h, w, c)
+    w_chw = _np(sd["final_linear.0.weight"]).T
+    cin = w_chw.shape[0] // 16
+    perm = np.transpose(np.arange(w_chw.shape[0]).reshape(cin, 4, 4), (1, 2, 0)).reshape(-1)
+    return {
+        "from_rgb": conv_layer("convs.0"),
+        "blocks": blocks,
+        "final_conv": conv_layer("final_conv"),
+        "final_lin1": {"w": np.ascontiguousarray(w_chw[perm]),
+                       "b": _np(sd["final_linear.0.bias"])},
+        "final_lin2": {"w": _unlin(sd["final_linear.1.weight"]),
+                       "b": _np(sd["final_linear.1.bias"])},
+    }
 
 
 def vgg_from_jax(tree) -> dict[str, torch.Tensor]:

@@ -235,9 +235,12 @@ class Generator(nn.Module):
                                          generator=generator))
             self.to_rgbs.append(ToRGB(cout, style_dim, generator=generator))
             cin = cout
+        # the stored noise maps are parameters, as in the JAX package's tree
+        # (a G step trains them); a frozen G holds them without a gradient
         self.noises = nn.Module()
         for i, (h, w) in enumerate(noise_shapes(size)):
-            self.noises.register_buffer(f"noise_{i}", _randn((1, 1, h, w), generator))
+            self.noises.register_parameter(
+                f"noise_{i}", nn.Parameter(_randn((1, 1, h, w), generator)))
 
     def style_forward(self, z):
         """The mapping network z [B, D] -> w [B, D]."""
@@ -267,7 +270,7 @@ class Generator(nn.Module):
     def synthesize(self, latent, noise=None, block_remat: bool = False):
         """latent [B, n_latent, D] -> image [B, size, size, 3] NHWC f32.
 
-        noise: None uses the stored buffers (randomize_noise=False); else a
+        noise: None uses the stored noise maps (randomize_noise=False); else a
         list of [1|B, h, w, 1] arrays per layer.
 
         block_remat: checkpoint each synthesis block (``torch.utils.

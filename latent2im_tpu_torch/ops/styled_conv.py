@@ -17,9 +17,9 @@ The TPU kernel is forward-only (JAX trains through its XLA form), so there is
 no backward kernel to port. When an operand needs a gradient the wrapper
 records an autograd node whose backward is device-agnostic torch code: the
 fused_act backward (a kernel on cuda, itself differentiable) on the saved
-output, then cuDNN convs for the rest, so the backward has a graph of its
-own under ``create_graph``. The weight gradient is not written: G is frozen
-while a walk trains or W+ is inverted.
+output, then cuDNN convs for the rest (the input gradient, and the weight
+gradient that the joint GAN fine-tune takes), so the backward has a graph
+of its own under ``create_graph``.
 """
 
 from __future__ import annotations
@@ -172,15 +172,10 @@ class _StyledConv3x3(torch.autograd.Function):
     def backward(ctx, g):
         x, w, s, d, noise, noise_w, out = ctx.saved_tensors
         need = ctx.needs_input_grad
-        if need[1]:
-            raise NotImplementedError(
-                "styled_conv3x3: the weight gradient is not written; G trains "
-                "only under --updateGAN (ROADMAP.md queue A item 11)"
-            )
         # gradient at the pre-activation z = y * d + noise_w * noise + bias
         gz, _ = fused_leaky_relu_bwd(g.contiguous(), out, ctx.negative_slope,
                                      ctx.gain, bias_grad=False)
-        gx = gs = gd = gnoise = gnw = gbias = None
+        gx = gw = gs = gd = gnoise = gnw = gbias = None
         if need[6]:
             gbias = gz.sum((0, 1, 2))
         if noise is not None and (need[4] or need[5]):
@@ -191,18 +186,23 @@ class _StyledConv3x3(torch.autograd.Function):
                 gnoise = (gz_c * noise_w.reshape(())).sum(0, keepdim=True) \
                     if noise.shape[0] == 1 else gz_c * noise_w.reshape(())
         w_oihw = w.permute(3, 2, 0, 1)
+        xs = _nchw(x * s[:, None, None, :]) if need[1] or need[3] else None
         if need[3]:
-            y = F.conv2d(_nchw(x * s[:, None, None, :]), w_oihw, padding=1)
+            y = F.conv2d(xs, w_oihw, padding=1)
             gd = (gz * y.permute(0, 2, 3, 1)).sum((1, 2))
-        if need[0] or need[2]:
+        if need[0] or need[1] or need[2]:
             gy = gz * d[:, None, None, :]
+        if need[1]:  # back to [3, 3, Cin, Cout]
+            gw = torch.nn.grad.conv2d_weight(xs, w_oihw.shape, _nchw(gy),
+                                             padding=1).permute(2, 3, 1, 0)
+        if need[0] or need[2]:
             gxs = torch.nn.grad.conv2d_input(
                 _nchw(x).shape, w_oihw, _nchw(gy), padding=1).permute(0, 2, 3, 1)
             if need[0]:
                 gx = gxs * s[:, None, None, :]
             if need[2]:
                 gs = (gxs * x).sum((1, 2))
-        return gx, None, gs, gd, gnoise, gnw, gbias, None, None
+        return gx, gw, gs, gd, gnoise, gnw, gbias, None, None
 
 
 def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
@@ -210,7 +210,7 @@ def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
     """x [B,H,W,Cin] NHWC; w [3,3,Cin,Cout] pre-scaled by 1/sqrt(9 Cin);
     s [B,Cin] modulation; d [B,Cout] demodulation; noise [1|B,H,W] or None;
     noise_w a 1-element tensor; bias [Cout]. Returns [B,H,W,Cout].
-    Differentiable in every operand but w."""
+    Differentiable in every operand."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"styled_conv3x3: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(

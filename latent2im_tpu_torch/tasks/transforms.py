@@ -98,6 +98,11 @@ TASKS = {
 }
 
 
+# the JAX package's geometric/color tasks (tasks/geometric.py there:
+# GEOMETRIC_TASKS), not ported yet (ROADMAP.md queue A item 12)
+GEOMETRIC = ("color", "colorlab", "zoom", "shiftx", "shifty", "rotate2d", "rotate3d")
+
+
 def task_kwargs_from_options(opt) -> dict:
     """Transform-specific constructor kwargs from the grouped option
     namespaces. Accepts argparse Namespaces or yaml dicts."""

@@ -1,8 +1,8 @@
 """Image grids, PNG files and uint8 conversion — own copy of
 latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
 to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
-alone (zlib + struct), and Pillow's BICUBIC and LANCZOS resamples are
-rewritten in numpy: the GPU machine has no Pillow. The decoder reads PNG
+alone (zlib + struct), and Pillow's BILINEAR, BICUBIC and LANCZOS resamples
+are rewritten in numpy: the GPU machine has no Pillow. The decoder reads PNG
 only: JPEG and WEBP need a codec library the GPU machine does not have."""
 
 from __future__ import annotations
@@ -180,7 +180,7 @@ def read_image_rgb(path: str) -> np.ndarray:
     else:
         fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
     raise ValueError(f"{path}: {fmt} images are not supported (PNG only: no "
-                     f"{fmt} decoder without Pillow)")
+                     f"{fmt} decoder without Pillow); convert it to PNG")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
@@ -219,8 +219,15 @@ def _pil_lanczos(x: float) -> float:
     return 0.0
 
 
+def _pil_bilinear(x: float) -> float:
+    """Pillow's bilinear filter: a triangle, support 1."""
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
 # filter -> its support, as libImaging/Resample.c defines them
-_PIL_FILTERS = {"bicubic": (_pil_bicubic, 2.0), "lanczos": (_pil_lanczos, 3.0)}
+_PIL_FILTERS = {"bilinear": (_pil_bilinear, 1.0), "bicubic": (_pil_bicubic, 2.0),
+                "lanczos": (_pil_lanczos, 3.0)}
 
 
 def _pil_coeffs(in_size: int, out_size: int, filt: str = "bicubic"):
@@ -288,6 +295,19 @@ def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """As ``pil_resize_bicubic``, with Pillow's LANCZOS filter
     (``Image.resize(size, Image.LANCZOS)``): support 3."""
     return _pil_resize(img_u8, size, "lanczos")
+
+
+def load_and_resize_image(path: str, size: int = 256) -> np.ndarray:
+    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG only),
+    the centre square crop, then Pillow's BILINEAR resample (``_pil_resize``
+    with a triangle on support 1), as the JAX package's
+    utils/image.py:load_and_resize_image computes it without its native
+    extension (the reference's load_and_resize_imagenet_image)."""
+    im = read_image_rgb(path)
+    h, w = im.shape[:2]
+    dim = min(w, h)
+    top, left = (h - dim) // 2, (w - dim) // 2
+    return _pil_resize(im[top:top + dim, left:left + dim], (size, size), "bilinear")
 
 
 def to_uint8(ims) -> np.ndarray:

@@ -35,6 +35,7 @@ from PIL import Image
 from latent2im_tpu.config import options as joptions
 from latent2im_tpu_torch.config import options
 from latent2im_tpu_torch.io import checkpoint as ckpt
+from latent2im_tpu_torch.io.convert import generator_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -306,9 +307,114 @@ def test_serve_loads_the_trained_walk_and_edits_as_apply_alpha(flow):
         np.testing.assert_array_equal(got, want[i].numpy())
 
 
+# ---------------------------------------------------------------------------
+# --updateGAN
+# ---------------------------------------------------------------------------
+
+
+def _gan_args(models_dir, real_dir, *extra):
+    return ["--transform", "face", "--attrList", "Smiling", "--models_dir", models_dir,
+            "--overwrite_config", "--num_samples", "2", "--batch_size", "2",
+            "--n_epochs", "2", "--dev_tiny", "--resolution", str(SIZE),
+            "--model_save_freq", "0", "--updateGAN", "--real_data_dir", real_dir, *extra]
+
+
+@pytest.fixture(scope="module")
+def gan_flow(tmp_path_factory):
+    """--updateGAN over 2 epochs of one step: once straight through, and once
+    with a SIGTERM after epoch 0's step, then --resume to the end."""
+    import latent2im_tpu_torch.cli.train as tcli
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    tmp = tmp_path_factory.mktemp("gan")
+    real = tmp / "real"
+    real.mkdir()
+    rng = np.random.RandomState(0)
+    for i, (h, w) in enumerate([(40, 36), (36, 48), (32, 32)]):
+        (real / f"{i}.png").write_bytes(
+            imgmod.png_bytes(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)))
+    out = {}
+    real_loop = tcli.train_loop
+
+    def loop(*a, **kw):
+        on_step = kw["on_step"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            if out.get("kill"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kw.update(on_step=killing_on_step)
+        return real_loop(*a, **kw)
+
+    def run(models, *extra):
+        opt = options.TrainOptions().parse(_gan_args(str(tmp / models), str(real), *extra),
+                                           print_opt=False)
+        return tcli.run(opt, device="cpu"), opt.output_dir
+
+    with _restoring_logging(), _one_thread(), pytest.MonkeyPatch.context() as mp, \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mp.setattr(tcli, "train_loop", loop)
+        mp.setitem(sys.modules, "torch.utils.tensorboard", None)
+        out["whole"], out["whole_dir"] = run("whole")
+        out["kill"] = True
+        out["preempted"], out["split_dir"] = run("split")
+        out["after_sigterm"] = sorted(os.listdir(out["split_dir"]))
+        out["kill"] = False
+        out["resumed"], _ = run("split", "--resume")
+        with open(os.path.join(out["split_dir"], "log.txt")) as f:
+            out["log"] = f.read()
+    return out
+
+
+def _raw_tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _raw_tree_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_update_gan_writes_the_gan_checkpoint_in_the_jax_layout(gan_flow):
+    from latent2im_tpu.io import checkpoint as jckpt
+    from latent2im_tpu_torch.models import stylegan2 as sg2
+
+    _, hist = gan_flow["whole"]
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    path = os.path.join(gan_flow["whole_dir"], "model_gan_2_final.ckpt")
+    tree = jckpt.load_gan_state(path)
+    assert set(tree) == {"g", "g_running", "d", "g_opt_state", "d_opt_state"}
+    for k in ("g_opt_state", "d_opt_state"):
+        assert int(tree[k]["0"]["count"]) == 2
+    assert ckpt.load_meta(path) == {"gan_steps": 2}
+    g_sd, d_sd = ckpt.load_gan_checkpoint(path)  # vis_w --save_path_gan
+    g = sg2.generator_from_state_dict(g_sd, SIZE)
+    live = generator_from_jax(tree["g"])
+    assert not torch.equal(g_sd["noises.noise_0"], live["noises.noise_0"])  # the EMA
+    assert g.size == SIZE and d_sd is not None
+
+
+def test_update_gan_resume_reproduces_the_uninterrupted_run(gan_flow):
+    run_dir = gan_flow["split_dir"]
+    after = gan_flow["after_sigterm"]
+    assert "model_gan_resume.ckpt" in after and "model_gan_2_final.ckpt" not in after
+    assert ckpt.load_meta(os.path.join(run_dir, "model_gan_resume.ckpt")) == {"gan_steps": 1}
+    assert "restored fine-tuned GAN" in gan_flow["log"]
+    (walk, hist), (whole_walk, whole_hist) = gan_flow["resumed"], gan_flow["whole"]
+    assert hist == whole_hist[1:]
+    assert torch.equal(walk["w"], whole_walk["w"])
+    got = dict(_raw_tree_leaves(ckpt.load_pytree(
+        os.path.join(run_dir, "model_gan_2_final.ckpt"))))
+    want = dict(_raw_tree_leaves(ckpt.load_pytree(
+        os.path.join(gan_flow["whole_dir"], "model_gan_2_final.ckpt"))))
+    assert set(got) == set(want) and len(got) > 100
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--updateGAN"], "item 11"), (["--n_devices", "2"], "item 15"),
-    (["--sp_devices", "2"], "item 15"),
+    (["--n_devices", "2"], "item 15"), (["--sp_devices", "2"], "item 15"),
 ])
 def test_train_refuses_what_is_not_ported(tmp_path, extra, item):
     from latent2im_tpu_torch.cli.train import run
@@ -316,6 +422,23 @@ def test_train_refuses_what_is_not_ported(tmp_path, extra, item):
     opt = options.TrainOptions().parse(_train_args(str(tmp_path), *extra),
                                        print_opt=False)
     with pytest.raises(NotImplementedError, match=item):
+        run(opt, device="cpu")
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--model", "pggan", "--real_data_dir", "x"], "stylegan models only"),
+    (["--no_gan_loss", "--real_data_dir", "x"], "needs a discriminator"),
+    (["--transform", "zoom", "--real_data_dir", "x"], "geometric transform"),
+    ([], "needs --real_data_dir"),
+])
+def test_train_refuses_update_gan_as_the_jax_package(tmp_path, extra, message):
+    """The JAX package's four refusals of --updateGAN (cli/train.py:38-45,
+    63-69, 336 there), before any tower is built."""
+    from latent2im_tpu_torch.cli.train import run
+
+    opt = options.TrainOptions().parse(_train_args(str(tmp_path), "--updateGAN", *extra),
+                                       print_opt=False)
+    with _restoring_logging(), pytest.raises(SystemExit, match=message):
         run(opt, device="cpu")
 
 

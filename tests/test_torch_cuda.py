@@ -111,6 +111,40 @@ def _styled_args(gen, dev, b, h, w, cin, cout, noise_b):
             0.1 * _randn(gen, dev, cout))
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 9, 11, 20, 24), (4, 16, 16, 512, 512), (4, 256, 256, 128, 128),
+])
+def test_styled_conv_weight_gradient_matches_the_plain_version(dev, b, h, w, cin, cout):
+    """The weight and noise-map gradients (the --updateGAN G step's; cuDNN's
+    weight gradient on the card) against the plain backward in f64 on the
+    kernel's own output mask. Against autograd of the plain version the
+    forwards' last-bit differences flip a few LeakyReLU masks, and at
+    256^2 x 128 those flips alone move the input and noise gradients by up
+    to 1e-2 of max |ref|; on the same mask the card reads at most 7.4e-5,
+    the weight's f32 sum of 262144 terms (scripts/torch_gan_grad_check.py,
+    H100 80GB HBM3 at 700 W)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, wt, s, d, noise, nw, bias = _styled_args(gen, dev, b, h, w, cin, cout, 1)
+    g = _randn(gen, dev, b, h, w, cout)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (wt, noise, nw)]
+    before = ops.launch_counts()["styled_conv3x3"]
+    out = ops.styled_conv3x3(x, leaves[0], s, d, leaves[1], leaves[2], bias)
+    got = torch.autograd.grad(out, leaves, g)
+    assert ops.launch_counts()["styled_conv3x3"] == before + 1
+    assert got[1].shape == (1, h, w)
+    # the plain backward in f64, on the kernel's mask
+    x64, w64, s64, d64, n64, g64 = (t.double() for t in (x, wt, s, d, noise, g))
+    gz = g64 * torch.where(out.detach() > 0, 1.0, 0.2).double() * math.sqrt(2)
+    xs = (x64 * s64[:, None, None, :]).permute(0, 3, 1, 2)
+    gy = (gz * d64[:, None, None, :]).permute(0, 3, 1, 2)
+    want = (torch.nn.grad.conv2d_weight(xs, w64.permute(3, 2, 0, 1).shape, gy, padding=1)
+            .permute(2, 3, 1, 0),
+            (gz.sum(-1) * nw.double()).sum(0, keepdim=True),
+            (gz.sum(-1) * n64).sum().reshape(1))
+    for a, ref in zip(got, want):
+        _close(a.double(), ref, 2e-4)
+
+
 @pytest.mark.parametrize("h", [4, 8, 16, 32])
 def test_styled_conv_kernel_small_layers_split_k_across_the_batch(dev, h):
     """The main path's 4-32 px layers (B=4, 512 -> 512): 64 x 128 tiles over

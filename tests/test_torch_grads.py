@@ -8,7 +8,7 @@ same f32 products), db 1e-5 (an f32 sum over rows in another order);
 upfirdn2d 1e-5 (f32 sums of at most 16 taps); the styled conv 1e-5 against
 autograd of its plain version (the same convs, summed in another order) and
 2e-4 against jax.grad (a 9*Cin-term f32 sum, as tests/test_torch_ops.py
-allows for the forward).
+allows for the forward), its weight gradient too.
 """
 
 import numpy as np
@@ -222,10 +222,26 @@ def test_styled_conv_backward_matches_autograd_of_plain():
 
 
 def test_styled_conv_weight_gradient_is_refused():
-    rng = np.random.RandomState(6)
-    x = _t(rng.randn(1, 4, 4, 2).astype(np.float32))
-    w = _t(rng.randn(3, 3, 2, 3).astype(np.float32)).requires_grad_()
-    out = ops.styled_conv3x3(x, w, torch.ones(1, 2), torch.ones(1, 3), None,
-                             torch.zeros(1), torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="updateGAN"):
-        out.sum().backward()
+    """Named when the wrapper refused the weight gradient (G was frozen on
+    every path). The --updateGAN G step takes it now: the gradients wrt the
+    conv weight and, through s and d, the modulation weight match jax.grad
+    of the JAX package's styled_conv (2e-4, as the other operands)."""
+    p, x, style, noise, g = _styled_operands()
+    pj = jax.tree_util.tree_map(jnp.asarray, p)
+
+    def f(w, mw):
+        q = {**pj, "conv": {"w": w, "mod": {**pj["conv"]["mod"], "w": mw}}}
+        return jnp.sum(jsg2.styled_conv(q, jnp.asarray(x), jnp.asarray(style),
+                                        jnp.asarray(noise)) * g)
+
+    want = jax.grad(f, argnums=(0, 1))(pj["conv"]["w"], pj["conv"]["mod"]["w"])
+    w = _t(p["conv"]["w"]).requires_grad_()
+    wm = _t(p["conv"]["mod"]["w"]).requires_grad_()
+    scale = 1.0 / np.sqrt(9 * w.shape[2])
+    s = _t(style) @ (wm / np.sqrt(wm.shape[0])) + _t(p["conv"]["mod"]["b"])
+    d = torch.rsqrt(scale * scale * (s.square() @ w.square().sum((0, 1))) + 1e-8)
+    out = ops.styled_conv3x3(_t(x), (w * scale).contiguous(), s, d, _t(noise[..., 0]),
+                             torch.tensor([float(p["noise_w"])]), _t(p["act_b"]))
+    out.backward(_t(g))
+    _close(w.grad, want[0], 2e-4)
+    _close(wm.grad, want[1], 2e-4)
