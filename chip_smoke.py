@@ -8,9 +8,10 @@ style_dim 512, n_mlp 8, channel multiplier 2; ResNet-50/40; Smiling): the
 edit server and the walk-training loop, at 256 px (phases 3-10) and at
 1024 px (phases 11-15, with the remat and input-size options and the eval
 CLI); then the second derivatives a gradient penalty takes (16), W+
-inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20) and the joint
-GAN fine-tune, --updateGAN (21-24). Phases (a failed phase raises, and the
-script exits non-zero):
+inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20), the joint
+GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
+backends (25-28). Phases (a failed phase raises, and the script exits
+non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -106,6 +107,26 @@ script exits non-zero):
      SIGTERM after epoch 0, --resume (both Adam states restored equal to the
      preempted run's) to model_gan_2_final.ckpt, then `python -m
      latent2im_tpu_torch.cli.vis_w --save_path_gan` on it.
+ 25. StyleGAN2 in z at 256 px (--latent z --is_mlp, the mlp_z walk), B=4:
+     the edit server's /edit of 4 (p50), apply_alpha's device ms, the launch
+     counts of both paths (z_serve, z_train: phase 3's, plus the style MLP's
+     8 fused_act in both syntheses and its 8 backward in a step, at phase
+     3's (4, 512) shape), train_loop (ms per step, peak GB), and one B=2
+     step's walk gradient against f64 on the card (the plain versions, as
+     phase 22) within max(1e-3, 1.5 x the CPU's f32 error), the card's f32
+     under deterministic cuDNN (PGGAN_TOWERS_F32_MAX's comment);
+ 26. model_256 PGGAN at step 6 (G 256 px, edits 128 px, D on the x2
+     re-upsample), full G_LADDER/D_LADDER, B=4: apply_alpha and a sweep
+     (ms, peak GB), train_loop for linear_z_free, mlp_z3 and embed
+     (--trainEmbed), no launch of the five kernels, and one B=2 step's walk
+     gradient against f64 (phase 25's bound, also 1.5 x the card's error
+     at the edited z, itself within PGGAN_TOWERS_F32_MAX);
+ 27. the GAN-zoo PGAN with celebAHQ-512's depths, built through --g_path
+     from a seeded zoo-layout state dict written here, --resolution 512:
+     apply_alpha and train_loop steps at B=4 (ms, peak GB);
+ 28. the CLIs on model_256 (chiprun_out/pggan_cli/): train with a SIGTERM
+     and --resume, `python -m latent2im_tpu_torch.cli.vis_w` on its walk,
+     serve --save_path_w answering one /edit; host-clock seconds.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -2430,6 +2451,488 @@ def gan_phases(card, dev):
                          "gan_1024": hi["launches"], "gan_cli": cli["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 25-28: z-space editing and the PGGAN backends
+# ---------------------------------------------------------------------------
+
+Z_REQUESTS, Z_STEPS, PGGAN_STEPS, ZOO_STEPS = 10, 6, 5, 3
+# the GAN-zoo PGAN's celebAHQ-512 depths (JAX pgan_zoo.init_generator's default)
+ZOO_DEPTHS = (512, 512, 512, 512, 256, 128, 64, 32)
+PGGAN_KINDS = (("linear_z_free", ()), ("mlp_z3", ("--walk_type", "NNz")),
+               ("embed", ("--trainEmbed",)))
+Z_FLAGS = ("--latent", "z", "--is_mlp")  # StyleGAN2 in z: the mlp_z walk
+
+
+def pggan_conf(*flags, size=None, batch=None, root=None, print_opt=False):
+    """--model pggan (Smiling; model_256 at step log2(size) - 2 unless a
+    --g_path in flags names a zoo checkpoint)."""
+    from latent2im_tpu_torch.config.options import TrainOptions
+
+    return TrainOptions().parse(
+        ["--model", "pggan", "--transform", "face", "--walk_type", "linear",
+         "--attrList", "Smiling", "--resolution", str(size or SIZE), "--batch_size",
+         str(batch or BATCH), "--models_dir", root or os.path.join(REPO, "chiprun_out"),
+         "--overwrite_config", *flags], print_opt=print_opt)
+
+
+def z_reference_step(ed, w0, z, sampled, dtype):
+    """A z-space step's loss terms, walk gradient (flattened) and gradient
+    wrt the edited z at walk w0, composed here from the editor's towers in
+    ``dtype`` (an independent reference of make_train_step's z branch; the
+    towers' f32 output casts are undone)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine import losses as L
+    from latent2im_tpu_torch.walks import apply_walk, walk_leaves, walk_map
+
+    cfg, dev = ed.cfg, ed.device
+    z, sampled = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (z, sampled))
+    w = walk_map(lambda a: torch.as_tensor(a, dtype=dtype, device=dev).requires_grad_(True),
+                 w0)
+
+    def synth(lat):
+        return (ed._synth_fn(ed.g, lat) if ed._synth_fn is not None else ed.g(lat)).to(dtype)
+
+    with torch.no_grad():
+        img_org = synth(z)
+        alpha_org = ed.reg(img_org)[:, ed._attr_idx].to(dtype)
+    target, delta = ed.unified_alphas(alpha_org, sampled)
+    walk_alpha = delta if cfg.alpha_mode == "delta" else sampled
+    latent_new = apply_walk(cfg.walk_kind, w, z, walk_alpha)
+    latent_new.retain_grad()
+    img_new = synth(latent_new)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    reg = L.raw_bce(ed.reg(img_new)[:, ed._attr_idx].to(dtype), target)
+    content = zero if cfg.no_content_loss else L.content_loss(ed.vgg, img_org, img_new)
+    gan = zero if cfg.no_gan_loss else L.gan_loss_from_logits(
+        ed.discriminate(img_new).to(dtype))
+    loss = L.combine(reg, content, gan, no_content_loss=cfg.no_content_loss,
+                     no_gan_loss=cfg.no_gan_loss, pggan_gating=cfg.model == "pggan")
+    loss.backward()
+    terms = {"loss": loss, "reg_loss": reg, "content_loss": content, "gan_loss": gan}
+    return ({k: v.item() for k, v in terms.items()},
+            np.concatenate([t.grad.double().cpu().numpy().ravel() for t in walk_leaves(w)]),
+            latent_new.grad.double().cpu().numpy())
+
+
+# The f32 error of a z step's gradient at 256 px, B=2, against f64 on the
+# card, of the walk and of the gradient wrt the edited z it is made from
+# (scripts/torch_z_grad_check.py, two draws x four loss configurations, H100
+# 80GB HBM3 at 700 W): StyleGAN2 in z 0.52e-3-1.54e-3 on the card under
+# cuDNN's default algorithms (the same step moves by that much between
+# runs), 0.49e-3-0.76e-3 under deterministic ones, 0.53e-3-0.97e-3 on the
+# CPU; model_256 PGGAN 1.8e-3-4.7e-3 on the card in either mode, 2.9e-3-
+# 1.45e-2 on the CPU, the walk's error 0.82-1.18 of the edited z's in every
+# row. So the checks run the card's f32 under deterministic cuDNN, and the
+# PGGAN's walk is also allowed 1.5 x the card's error at the edited z
+# (phase 20's form), that error itself held within PGGAN_TOWERS_F32_MAX,
+# twice the largest seen on either device (1.23e-2).
+PGGAN_TOWERS_F32_MAX = 2.5e-2
+
+
+def z_grad_phase(conf, towers_max=None):
+    """One step (B=CMP_BATCH, host alphas, stored noise) of ``conf``'s z
+    walk through make_train_step on the card (deterministic cuDNN; once more
+    under the default algorithms, reported only) and on the CPU, each walk
+    gradient against f64 on the card (the towers in f64, the kernels' plain
+    versions: plain_kernels(), as phase 22): the card within max(1e-3, 1.5
+    x the CPU's f32 error) (phase 9's form), and with ``towers_max`` also
+    1.5 x the card's f32 error in the gradient wrt the edited z
+    (z_reference_step, deterministic cuDNN), held within towers_max; loss
+    terms within 1e-3 of f64."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    z = np.random.RandomState(30).randn(CMP_BATCH, 512).astype(np.float32)
+    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(31), CMP_BATCH, 1)
+    res, out, card_ed = {}, {}, None
+    for device, mode in (("cuda", "deterministic"), ("cuda", "default"), ("cpu", None)):
+        if card_ed is None or device == "cpu":
+            ed, walk0, _ = build_editor_from_options(conf, device=device)
+            w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk0)
+        walk = walk_map(lambda a: torch.tensor(a, device=ed.device, requires_grad=True), w0)
+        step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate),
+                               host_alpha=True)
+        key = "cuda_default" if mode == "default" else device
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        try:
+            t0 = time.perf_counter()
+            m = step(walk, z, sampled=sampled)
+            res[key] = ({k: float(v) for k, v in m.items()}, np.concatenate(
+                [p.grad.detach().cpu().numpy().astype(np.float64).ravel()
+                 for p in walk_leaves(walk)]))
+            out[f"{key}_step_s"] = time.perf_counter() - t0
+            if key == "cuda":
+                res["cuda_composed"] = z_reference_step(ed, w0, z, sampled, torch.float32)
+                card_ed = ed
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del step, walk
+    t0 = time.perf_counter()
+    with plain_kernels():
+        for m in (card_ed.g, card_ed.reg, card_ed.vgg, card_ed.d):
+            if m is not None:
+                m.double()
+        ref, ref_grad, ref_z_grad = z_reference_step(card_ed, w0, z, sampled, torch.float64)
+    out["card_f64_reference_s"] = time.perf_counter() - t0
+    del card_ed
+    torch.cuda.empty_cache()
+    (mg, gg), (mc, gc) = res["cuda"], res["cpu"]
+    for k in ("loss", "reg_loss", "content_loss", "gan_loss"):
+        out[f"{k}_rel"] = abs(mg[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+        assert abs(mg[k] - ref[k]) <= 1e-3 * max(abs(ref[k]), 1e-30) or ref[k] == mg[k] == 0, \
+            (k, mg[k], ref[k])
+    assert np.isfinite(gg).all() and np.abs(ref_grad).max() > 0
+    out["walk_grad_rel_l2_card_f64"] = rel_l2(gg, ref_grad)
+    out["walk_grad_rel_l2_card_default_cudnn_f64"] = rel_l2(res["cuda_default"][1], ref_grad)
+    out["walk_grad_rel_l2_cpu_f64"] = rel_l2(gc, ref_grad)
+    out["walk_grad_rel_l2_card_cpu"] = rel_l2(gg, gc)
+    out["edited_z_grad_rel_l2_card_f64"] = rel_l2(res["cuda_composed"][2], ref_z_grad)
+    limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    if towers_max is not None:
+        assert out["edited_z_grad_rel_l2_card_f64"] <= towers_max, out
+        limit = max(limit, 1.5 * out["edited_z_grad_rel_l2_card_f64"])
+    out["walk_grad_limit"] = limit
+    assert out["walk_grad_rel_l2_card_f64"] <= limit, out
+    out["loss"] = ref["loss"]
+    return out
+
+
+def _timed_train(ed, task, walk, steps, lr):
+    """A warmup train_loop step, then ``steps`` counted ones (B=BATCH, losses
+    read back every step) -> (walk, report with ms per step by CUDA events,
+    peak GB, launch counts, the first and last metrics)."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.walks import walk_leaves
+
+    run = dict(batch_size=BATCH, n_epochs=1, lr=lr, log_every=1)
+    walk, _ = train_loop(ed, task, walk, num_samples=BATCH, **run)
+    torch.cuda.synchronize()
+    before = [t.detach().clone() for t in walk_leaves(walk)]
+    metrics = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    walk, _ = train_loop(ed, task, walk, num_samples=steps * BATCH, seed=1,
+                         on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
+    ev1.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert len(metrics) == steps and all(
+        math.isfinite(v) for m in metrics for v in m.values()), metrics
+    moved = max((a.detach() - b).abs().max().item() for a, b in zip(walk_leaves(walk), before))
+    assert moved > 0, "the walk did not move"
+    return walk, {"steps": steps, "batch": BATCH,
+                  "step_ms_cuda_events": ev0.elapsed_time(ev1) / steps,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": counts, "walk_max_abs_change": moved,
+                  "first": metrics[0], "last": metrics[-1]}
+
+
+def z_phase(results, dev):
+    """Phase 25: StyleGAN2 at SIZE px in z (--latent z --is_mlp, mlp_z):
+    the edit server (/edit of BATCH, Z_REQUESTS times), apply_alpha device
+    ms, train_loop, and one step's walk gradient against f64."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli.serve import build_service
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    # the style MLP runs in both syntheses of a z edit, and its backward in a
+    # z step: fused_act and its backward at (B, 512), phase 3's shapes
+    shapes = main_path_shapes()
+    assert ("fused_act", (BATCH, 512)) in shapes and ("fused_act_bwd", (BATCH, 512)) in shapes
+    mlp = {"fused_act": 8}
+    conf = train_conf(*Z_FLAGS)
+    opt = argparse.Namespace(save_path_w=None, save_path_gan=None, attrList=None, attrPath="",
+                             num_panels=PANELS, min_alpha=0.0, max_alpha=1.0, serve_batch=BATCH)
+    t0 = time.perf_counter()
+    service = build_service(opt, conf)  # cuda: the entry point's default
+    ed = service.ed
+    assert (ed.cfg.latent, ed.cfg.walk_kind, ed.device.type) == ("z", "mlp_z", dev.type)
+    service.warmup()
+    torch.cuda.synchronize()
+    out = {"build_and_warmup_s": time.perf_counter() - t0}
+    per_alpha = {n: r["apply_alpha"]["launches"] + mlp.get(n, 0) for n, r in results.items()}
+    with serving(service) as url:
+        ops.reset_launches()
+        lat, first = [], None
+        for i in range(Z_REQUESTS):
+            t = time.perf_counter()
+            reply, ims = _post(url + "/edit", {"seed": 40 + i, "num_samples": BATCH,
+                                               "alpha": 0.7})
+            lat.append((time.perf_counter() - t) * 1e3)
+            first = first or (reply, ims)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    expect = {k: Z_REQUESTS * v for k, v in per_alpha.items()}
+    assert counts == expect, (counts, expect)
+    assert len(first[1]) == BATCH and all(im.shape == (SIZE, SIZE, 3) for im in first[1])
+    assert all(math.isfinite(v) for a in first[0]["alpha_org"] for v in a)
+    z = np.random.RandomState(41).randn(BATCH, 512).astype(np.float32)
+    a = np.full((BATCH,), 0.7, np.float32)
+    edited, _, orig = ed.apply_alpha(service.walk, z, a)
+    assert torch.isfinite(edited).all() and not torch.equal(edited, orig)
+    out.update(serve_launches=counts, p50_request_ms=statistics.median(lat),
+               apply_alpha_b4_device_ms=time_ms(
+                   lambda: ed.apply_alpha(service.walk, z, a, u8=True), warmup=2, iters=10))
+
+    task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+    walk, train = _timed_train(ed, task, service.walk, Z_STEPS, conf.learning_rate)
+    per_step = {n: Z_STEPS * (r["train_step"]["launches"] + 8 * (n in ("fused_act",
+                                                                       "fused_act_bwd")))
+                for n, r in results.items()}
+    assert train["launches"] == per_step, (train["launches"], per_step)
+    out["train"] = train
+    del service, ed, walk
+    torch.cuda.empty_cache()
+    out["grad"] = z_grad_phase(train_conf(*Z_FLAGS, "--fixed_noise"))
+    return out
+
+
+def pggan_phase(dev):
+    """Phase 26: model_256 at step log2(SIZE) - 2 (G at SIZE px, edited
+    images SIZE/2, D on the x2 re-upsample), full ladders, B=BATCH:
+    apply_alpha and sweep; train_loop for linear_z_free, mlp_z3 and
+    --trainEmbed (embed); one step's walk gradient against f64. No
+    hand-written kernel runs on this path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.models import pggan
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import init_walk
+
+    conf = pggan_conf()
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    assert isinstance(ed.g, pggan.Generator) and isinstance(ed.d, pggan.Discriminator)
+    assert (ed.cfg.latent, ed.cfg.alpha_mode, ed.cfg.walk_kind) == ("z", "delta", "linear_z_free")
+    out = {"build_s": time.perf_counter() - t0}
+    task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+    z = np.random.RandomState(50).randn(BATCH, 512).astype(np.float32)
+    a = np.full((BATCH,), 0.3, np.float32)
+    panels = np.stack([task.scale_test_alpha(x, BATCH)
+                       for x in np.linspace(-1.0, 1.0, PANELS)]).astype(np.float32)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    edited, alpha_org, orig = ed.apply_alpha(walk, z, a)
+    imgs, _, _ = ed.sweep(walk, z, panels)
+    half = SIZE // 2
+    assert edited.shape == orig.shape == (BATCH, half, half, 3) and torch.isfinite(edited).all()
+    assert imgs.shape == (PANELS, BATCH, half, half, 3) and torch.isfinite(imgs).all()
+    assert not torch.equal(imgs[0], imgs[-1])
+    out["apply_alpha_ms_cuda_events"] = time_ms(lambda: ed.apply_alpha(walk, z, a),
+                                                warmup=2, iters=10)
+    out["sweep_ms_cuda_events"] = time_ms(lambda: ed.sweep(walk, z, panels), warmup=1,
+                                          iters=5)
+    out["edit_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}, ops.launch_counts()
+    out["walks"] = {}
+    gen = torch.Generator().manual_seed(51)
+    for kind, _flags in PGGAN_KINDS:  # the build's kinds (tests/test_torch_pggan.py)
+        ed.cfg = dataclasses.replace(ed.cfg, walk_kind=kind)
+        walk = init_walk(kind, 512, ed.cfg.n_latent, list(ed.cfg.attr_list), generator=gen,
+                         device=ed.device)
+        walk, r = _timed_train(ed, task, walk, PGGAN_STEPS, conf.learning_rate)
+        assert set(r["launches"].values()) == {0}, r["launches"]
+        out["walks"][kind] = r
+    del ed, walk
+    torch.cuda.empty_cache()
+    out["grad"] = z_grad_phase(pggan_conf(), towers_max=PGGAN_TOWERS_F32_MAX)
+    return out
+
+
+def zoo_phase(dev):
+    """Phase 27: the GAN-zoo PGAN with celebAHQ-512's depths, loaded through
+    --g_path from a seeded zoo-layout state dict written here, at
+    --resolution 512 (G 512 px, edited images 256, model_256's D at step 7):
+    apply_alpha and train_loop steps at B=BATCH."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.models import pgan_zoo
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    size = 2 * SIZE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:  # ~90 MB
+        g = pgan_zoo.GNet(512, ZOO_DEPTHS, generator=torch.Generator().manual_seed(27))
+        path = os.path.join(root, "pgan_zoo_celebahq512.pt")
+        torch.save({"netG": {f"module.{k}": v for k, v in g.state_dict().items()}}, path)
+        conf = pggan_conf("--g_path", path, size=size)
+        ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    assert isinstance(ed.g, pgan_zoo.GNet) and ed.g.resolution == size
+    out = {"build_s": time.perf_counter() - t0}
+    z = np.random.RandomState(52).randn(BATCH, 512).astype(np.float32)
+    a = np.full((BATCH,), 0.3, np.float32)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    edited, _, orig = ed.apply_alpha(walk, z, a)
+    assert edited.shape == (BATCH, SIZE, SIZE, 3) and torch.isfinite(edited).all()
+    out["apply_alpha_ms_cuda_events"] = time_ms(lambda: ed.apply_alpha(walk, z, a),
+                                                warmup=2, iters=10)
+    out["apply_alpha_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+    walk, out["train"] = _timed_train(ed, task, walk, ZOO_STEPS, conf.learning_rate)
+    assert set(ops.launch_counts().values()) == {0}
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def pggan_cli_phase():
+    """Phase 28: the CLIs on model_256 (SIZE px) in chiprun_out/pggan_cli/:
+    train (2 epochs of 2 steps, SIGTERM after the second step, --resume to
+    the final checkpoint), `python -m latent2im_tpu_torch.cli.vis_w` on its
+    walk, and the server with --save_path_w answering one /edit of BATCH.
+    Host-clock seconds per part."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.cli.serve import build_service
+    from latent2im_tpu_torch.config.options import VisOptions
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+
+    root = os.path.join(REPO, "chiprun_out", "pggan_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"seconds": {}}
+    fired = {"n": 0, "kill": True}
+    real_loop = tcli.train_loop
+
+    def loop(*a, **kw):  # SIGTERM after the 2nd step
+        on_step = kw["on_step"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            fired["n"] += 1
+            if fired["kill"] and fired["n"] == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kw.update(on_step=killing_on_step)
+        return real_loop(*a, **kw)
+
+    args = ["--num_samples", str(2 * BATCH), "--n_epochs", "2", "--model_save_freq", "1"]
+    t0 = time.perf_counter()
+    tcli.train_loop = loop
+    try:
+        opt = pggan_conf(*args, root=root, print_opt=True)
+        tcli.run(opt)  # cuda: the entry point's default
+        preempted = ckpt.find_resume(opt.output_dir)
+        meta = ckpt.load_meta(preempted)
+        assert meta.get("preempted") is True, (preempted, meta)
+        fired["kill"] = False
+        walk, history = tcli.run(pggan_conf(*args, "--resume", root=root))
+    finally:
+        tcli.train_loop = real_loop
+    torch.cuda.synchronize()
+    out["seconds"]["train_sigterm_resume"] = time.perf_counter() - t0
+    assert len(history) == 2 and all(math.isfinite(h) for h in history), history
+    final = os.path.join(opt.output_dir, "model_w_2_final_walk_module.ckpt")
+    back, _, _ = ckpt.load_walk(final, {"w": torch.zeros_like(walk["w"])})
+    assert torch.equal(back["w"], walk["w"].detach())
+    out.update(preempted_at=os.path.basename(preempted), preempt_meta=meta,
+               grids=len(os.listdir(os.path.join(opt.output_dir, "results"))))
+
+    t0 = time.perf_counter()
+    vis_dir = os.path.join(root, "vis")
+    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                  "--output_dir", vis_dir, "--num_samples", "2", "--num_panels", "5")
+    try:
+        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["seconds"]["vis_w"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vo = VisOptions()
+    vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
+    vopt, conf = vo.parse([os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                           "--num_panels", str(PANELS)])
+    service = build_service(vopt, conf)
+    service.warmup()
+    assert torch.equal(service.walk["w"], walk["w"].detach())
+    with serving(service) as url:
+        reply, ims = _post(url + "/edit", {"seed": 5, "num_samples": BATCH, "alpha": 0.4})
+    assert len(ims) == BATCH and all(im.shape == (SIZE // 2, SIZE // 2, 3) for im in ims)
+    assert np.isfinite(reply["alpha_org"]).all()
+    out["seconds"]["serve_edit"] = time.perf_counter() - t0
+    return out
+
+
+def z_phases(card, dev, results):
+    """Phases 25-28 -> their reports and, under "launches", the z paths'
+    launch counts (z_serve, z_train)."""
+    import torch
+
+    log(f"[25] StyleGAN2 in z ({SIZE} px, --latent z --is_mlp, mlp_z): the edit server, "
+        f"train_loop B={BATCH}, a step's walk gradient against f64")
+    z = z_phase(results, dev)
+    log(f"    /edit of {BATCH} p50 {z['p50_request_ms']:.1f} ms, apply_alpha B={BATCH} "
+        f"{z['apply_alpha_b4_device_ms']:.2f} ms (CUDA events), train "
+        f"{z['train']['step_ms_cuda_events']:.2f} ms per step, peak "
+        f"{z['train']['peak_mem_gb']:.2f} GB, loss {z['train']['first']['loss']:.4f} -> "
+        f"{z['train']['last']['loss']:.4f}; step against f64 {json.dumps(z['grad'])}, on {card}")
+    torch.cuda.empty_cache()
+
+    log(f"[26] model_256 PGGAN at step {int(math.log2(SIZE)) - 2} (G {SIZE} px, edits "
+        f"{SIZE // 2} px), B={BATCH}: apply_alpha, sweep, three walks, a gradient")
+    pg = pggan_phase(dev)
+    log(f"    apply_alpha {pg['apply_alpha_ms_cuda_events']:.2f} ms, sweep of {PANELS} panels "
+        f"{pg['sweep_ms_cuda_events']:.2f} ms (CUDA events), peak {pg['edit_peak_mem_gb']:.2f} "
+        f"GB; " + ", ".join(f"{k} {r['step_ms_cuda_events']:.2f} ms per step, peak "
+                            f"{r['peak_mem_gb']:.2f} GB" for k, r in pg["walks"].items())
+        + f"; step against f64 {json.dumps(pg['grad'])}, on {card}")
+    torch.cuda.empty_cache()
+
+    log(f"[27] the GAN-zoo PGAN (celebAHQ-512 depths) through --g_path, --resolution "
+        f"{2 * SIZE}, B={BATCH}")
+    zoo = zoo_phase(dev)
+    log(f"    apply_alpha {zoo['apply_alpha_ms_cuda_events']:.2f} ms (CUDA events), peak "
+        f"{zoo['apply_alpha_peak_mem_gb']:.2f} GB; walk step "
+        f"{zoo['train']['step_ms_cuda_events']:.2f} ms, peak {zoo['train']['peak_mem_gb']:.2f} "
+        f"GB, on {card}")
+    torch.cuda.empty_cache()
+
+    log("[28] the CLIs on the PGGAN: train + SIGTERM + --resume, vis_w (python -m), "
+        "serve --save_path_w")
+    cli = pggan_cli_phase()
+    log(f"    wall seconds {json.dumps(cli['seconds'])}; preempted at {cli['preempted_at']}, "
+        f"vis_w wrote {cli['vis_pngs']}, on {card}")
+    torch.cuda.empty_cache()
+    return {"z": z, "pggan": pg, "zoo": zoo, "cli": cli,
+            "launches": {"z_serve": z["serve_launches"], "z_train": z["train"]["launches"]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2518,13 +3021,15 @@ def main() -> int:
 
     late = late_phases(card, dev, results, cli)
     gan = gan_phases(card, dev)
+    zp = z_phases(card, dev, results)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
         by_path = {"serve": serve_counts[n], "train": train_counts[n],
                    **{k: v[n] for k, v in hi["launches"].items()},
                    **{k: v[n] for k, v in late["launches"].items()},
-                   **{k: v[n] for k, v in gan["launches"].items()}}
+                   **{k: v[n] for k, v in gan["launches"].items()},
+                   **{k: v[n] for k, v in zp["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2546,6 +3051,7 @@ def main() -> int:
               "hi": {k: v for k, v in hi.items() if k not in ("results", "details")},
               "late": {k: v for k, v in late.items() if k != "launches"},
               "gan": {k: v for k, v in gan.items() if k != "launches"},
+              "z": {k: v for k, v in zp.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

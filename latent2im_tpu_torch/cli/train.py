@@ -107,7 +107,8 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
             dt, epoch, i * batch, loss, metrics["alpha_target_mean"],
         )
         step_counter["n"] += 1
-        if save_freq and i % save_freq == 0:
+        # an 'embed' walk ignores alpha, so apply_alpha refuses it: no grids
+        if save_freq and i % save_freq == 0 and editor.cfg.walk_kind != "embed":
             _save_samples(editor, current_walk, output_dir, epoch, i, batch)
 
     def on_epoch_end(epoch, wp, st):

@@ -1,5 +1,5 @@
-"""Assemble an Editor + walk from parsed options — PyTorch port of the
-StyleGAN2 branch of latent2im_tpu/engine/build.py:36-257.
+"""Assemble an Editor + walk from parsed options — PyTorch port of
+latent2im_tpu/engine/build.py.
 
 options -> attribute vocabulary -> frozen generator, regressor, and for the
 training losses the discriminator and VGG19 (loaded from PyTorch checkpoints
@@ -7,22 +7,34 @@ with ``load_state_dict``, or randomly initialized at full width from
 ``seed`` with a loud warning; D and VGG19 are left out under --no_gan_loss
 and --no_content_loss) -> Editor + walk params, on ``device`` (cuda unless
 the caller asks for the CPU).
+
+Backends: StyleGAN2 (``--model stylegan_v2_real``, latent ``w`` or, with
+``--latent z``, ``z``; any other model name but ``pggan`` builds it too,
+in z, as the JAX package's build does) and PGGAN (``--model pggan``,
+latent ``z``): model_256 (models/pggan.py) at step log2(resolution) - 2,
+or the GAN-zoo PGAN (models/pgan_zoo.py) when the ``--g_path`` checkpoint
+has its ``formatLayer``. The PGGAN's output is bilinear-downsampled x0.5
+and D scores a x2 re-upsample (pggan transform_base.py:311-321, :480); the
+walk's alphas are steps from the current score (``alpha_mode='delta'``).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import warnings
 
 import torch
 
 from ..config import attributes as attrs
 from ..device import resolve_device
+from ..models import pgan_zoo
+from ..models import pggan as pgg
 from ..models import resnet as rn
 from ..models import stylegan2 as sg2
 from ..models import vgg as vggm
 from ..walks import init_walk, resolve_walk_kind
-from .editor import Editor, EditorConfig
+from .editor import Editor, EditorConfig, bilinear_resize
 
 DIM_Z = 512  # the reference's constants.py:2
 RESOLUTION = 256  # constants.py:3
@@ -42,11 +54,9 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
     """-> (editor, walk_params, info dict)."""
     device = resolve_device(device)
     model = opt.model
-    if model == "pggan" or "stylegan" not in model:
-        _not_ported(f"the {model!r} backend", "queue A item 13")
     if getattr(opt, "bf16", False):
         _not_ported("--bf16 compute", "queue A item 20")
-    latent = opt.stylegan.latent
+    latent = opt.stylegan.latent if "stylegan" in model else "z"
     walk_kind = resolve_walk_kind(
         model, opt.walk_type, latent, train_embed=opt.trainEmbed,
         is_mlp=getattr(opt, "is_mlp", False),
@@ -60,12 +70,14 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
     gen = torch.Generator().manual_seed(seed)
     size = getattr(opt, "resolution", None) or RESOLUTION
     dim_z, n_mlp, channels = DIM_Z, 8, None
-    if getattr(opt, "dev_tiny", False):
+    if getattr(opt, "dev_tiny", False) and model != "pggan":  # the PGGAN ladder is fixed
         dim_z, n_mlp, channels = 32, 2, TINY_CHANNELS
 
     g_path = getattr(opt, "g_path", "")
-    d_sd = None
-    if g_path:
+    d_sd = synth_fn = disc_fn = None
+    if model == "pggan":
+        g, d_sd, synth_fn, disc_fn = _pggan(g_path, size, gen)
+    elif g_path:
         ckpt = _load_torch(g_path)
         # the blur/upsample FIR buffers of rosinality checkpoints are fixed
         # [1, 3, 3, 1] kernels the port rebuilds itself
@@ -101,7 +113,7 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         size=size,
         dim_z=dim_z,
         layers=layers,
-        alpha_mode="target",
+        alpha_mode="delta" if model == "pggan" else "target",
         no_content_loss=bool(getattr(opt, "no_content_loss", False)),
         no_gan_loss=bool(getattr(opt, "no_gan_loss", False)),
         stable_bce=bool(getattr(opt, "stable_bce", False)),
@@ -117,7 +129,12 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
     # the loss towers draw from the seed after the walk, so G, the
     # regressor and the walk are the same with or without them
     d = None
-    if d_sd is not None:
+    if model == "pggan":
+        if d_sd is not None:
+            d = pgg.Discriminator.from_state_dict(d_sd)
+        elif not cfg.no_gan_loss:
+            d = pgg.Discriminator(generator=gen)
+    elif d_sd is not None:
         d = sg2.Discriminator(size, channels=channels)
         d.load_state_dict(d_sd, strict=True)
     elif not cfg.no_gan_loss:
@@ -131,7 +148,8 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
     elif not cfg.no_content_loss:
         warnings.warn("--vgg_path not given: using a RANDOMLY initialized vgg19")
         vgg = vggm.VGG19Features(generator=gen)
-    editor = Editor(cfg, g, reg, device, vgg=vgg, d=d)
+    editor = Editor(cfg, g, reg, device, vgg=vgg, d=d, synth_fn=synth_fn,
+                    disc_fn=disc_fn)
     logging.info(
         "built editor: model=%s latent=%s walk=%s attrs=%s layers=%s on %s",
         model, latent, walk_kind, attr_list[:4], layers, device,
@@ -143,6 +161,45 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         "pretrained": {"g": bool(g_path), "reg": bool(reg_path),
                        "d": d_sd is not None, "vgg": bool(vgg_path)},
     }
+
+
+def _state_dict(obj):
+    return obj.state_dict() if hasattr(obj, "state_dict") else obj
+
+
+def _pggan(g_path: str, size: int, gen):
+    """The PGGAN backend (the JAX package's build.py:76-136) -> (G, D's
+    state_dict or None, synth_fn, disc_fn). From --g_path: ``g_running``,
+    else ``netG``, else the bare dict; a ``formatLayer`` key selects the
+    GAN-zoo PGAN; a ``netD`` entry gives model_256's D. Without it, a random
+    model_256 G with a plain 512-d z (n_label=0)."""
+    step = int(math.log2(size)) - 2
+    d_sd, zoo = None, False
+    if g_path:
+        ckpt = _load_torch(g_path)
+        gsd = _state_dict(ckpt.get("g_running", ckpt.get("netG", ckpt))
+                          if isinstance(ckpt, dict) else ckpt)
+        zoo = any("formatLayer" in k for k in gsd)
+        g = pgan_zoo.GNet.from_state_dict(gsd) if zoo else pgg.Generator.from_state_dict(gsd)
+        if isinstance(ckpt, dict) and "netD" in ckpt:
+            d_sd = _state_dict(ckpt["netD"])
+    else:
+        warnings.warn(
+            "--g_path not given: using a RANDOMLY initialized PGGAN "
+            "(smoke/bench mode, not a trained model)"
+        )
+        g = pgg.Generator(n_label=0, generator=gen)
+
+    # G and D arrive as arguments, the editor's current modules
+    def synth_fn(g, z):
+        img = g(z) if zoo else g(z, step=step)
+        return bilinear_resize(img, img.shape[1] // 2, img.shape[2] // 2)
+
+    def disc_fn(d, img):
+        up = bilinear_resize(img, img.shape[1] * 2, img.shape[2] * 2)
+        return d(up, step=step)[0]
+
+    return g, d_sd, synth_fn, disc_fn
 
 
 def load_editor_for_inference(opt, conf, device=None):

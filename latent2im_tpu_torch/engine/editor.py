@@ -6,13 +6,21 @@ The counterpart of latent2im_tpu/engine/editor.py:
     synthesize      latent -> image NHWC (stored or fresh noise)
     regress         image -> attribute scores [B, A]
     regress_all     image -> every regressor output (eval)
-    discriminate    image -> D logits [B, 1]
+    discriminate    image -> D logits
     unified_alphas  (org, sampled) -> (target, delta)
     edit            walk application
-    apply_alpha     regress current, delta to target, walk, synthesize
+    apply_alpha     regress current, walk, synthesize
     sweep           panels folded into the batch, synthesized in chunks
     apply_alpha_combine / sweep_combine
-                    two attributes moved together (the vis_w grid)
+                    two attributes moved together (the vis_w grid; W space)
+
+The latent is W+ [B, L, D] (latent 'w': the walk moves the style MLP's
+output, by the delta to the requested target) or z [B, D] (latent 'z':
+StyleGAN2 through its style MLP, or an injected backend such as PGGAN; the
+walk moves z and takes the requested alpha as it is). ``synth_fn(g,
+latent)`` and ``disc_fn(d, img)`` inject a backend without subclassing
+(engine/build.py makes the PGGAN ones); they take the editor's current G
+and D. The 'embed' walk ignores alpha, so the alpha-driven paths refuse it.
 
 PyTorch runs eagerly, so there is nothing to compile and no static program
 width: a sweep's last chunk is simply narrower. The public inference methods
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.remat import checkpoint
 from ..walks import walks as W
 
 # Default synthesis chunk width for panel sweeps (the JAX package's value).
@@ -89,17 +98,16 @@ class EditorConfig:
 class Editor:
     """Capability surface over frozen towers."""
 
-    def __init__(self, cfg: EditorConfig, g, reg, device=None, vgg=None, d=None):
+    def __init__(self, cfg: EditorConfig, g, reg, device=None, vgg=None, d=None,
+                 synth_fn=None, disc_fn=None):
         """g: models.stylegan2.Generator, reg: models.resnet.ResNet50, and
         for training vgg: models.vgg.VGG19Features, d:
         models.stylegan2.Discriminator (None where the loss is off). All
-        move to ``device`` (cuda unless the caller asks for the CPU)."""
-        if cfg.latent != "w":
-            raise NotImplementedError(
-                "z-space editing waits for the z walks (ROADMAP.md queue A "
-                "item 18)"
-            )
+        move to ``device`` (cuda unless the caller asks for the CPU).
+        synth_fn(g, latent) / disc_fn(d, img) replace G's synthesis and D's
+        call for another backend (G and D then are its modules)."""
         self.cfg = cfg
+        self._synth_fn, self._disc_fn = synth_fn, disc_fn
         self.device = resolve_device(device)
         self.g = g.to(self.device).eval().requires_grad_(False)
 
@@ -122,12 +130,37 @@ class Editor:
         w = self.g.style_forward(self._tensor(z))
         return w[:, None, :].expand(-1, self.cfg.n_latent, -1)
 
+    def edit_latent(self, z, given_w=None):
+        """The latent a walk edits: given_w if set, else W+ of z (latent
+        'w') or z itself (latent 'z')."""
+        if given_w is not None:
+            return self._tensor(given_w)
+        return self.latent_of(z) if self.cfg.latent == "w" else self._tensor(z)
+
+    @property
+    def draws_noise(self) -> bool:
+        """False for a backend without noise injection (an injected
+        synth_fn, e.g. PGGAN)."""
+        return self._synth_fn is None
+
+    def make_noise(self, batch: int, generator):
+        """Fresh per-layer noise for G, or None where G draws none."""
+        return self.g.make_noise(batch, generator) if self.draws_noise else None
+
     def synth(self, latent, noise=None, block_remat: bool = False):
-        """W+ [B, L, D] -> image [B, H, W, 3]. noise: per-layer noise
-        (Generator.make_noise), or None for the stored noise maps.
-        block_remat checkpoints each synthesis block (Generator.synthesize)."""
-        return self.g.synthesize(self._tensor(latent), noise=noise,
-                                 block_remat=block_remat)
+        """W+ [B, L, D] (latent 'w') or z [B, D] (latent 'z') -> image
+        [B, H, W, 3]. noise: per-layer noise (Generator.make_noise), or None
+        for the stored noise maps. block_remat checkpoints each synthesis
+        block (Generator.synthesize); an injected synth_fn has no blocks to
+        hook and becomes one checkpoint over its whole forward."""
+        latent = self._tensor(latent)
+        if self._synth_fn is not None:
+            if block_remat:
+                return checkpoint(lambda lat: self._synth_fn(self.g, lat), latent)
+            return self._synth_fn(self.g, latent)
+        if self.cfg.latent == "z":
+            return self.g(latent, noise=noise, block_remat=block_remat)
+        return self.g.synthesize(latent, noise=noise, block_remat=block_remat)
 
     def _reg_input(self, img):
         s = self.cfg.reg_input_size
@@ -147,11 +180,11 @@ class Editor:
         return self.reg(self._reg_input(img))[:, self._attr_idx]
 
     def discriminate(self, img):
-        """image NHWC -> D logits [B, 1]."""
+        """image NHWC -> D logits ([B, 1]; [B] through a disc_fn)."""
         if self.d is None:
             raise ValueError("this editor was built without a discriminator "
                              "(--no_gan_loss)")
-        return self.d(img)
+        return self._disc_fn(self.d, img) if self._disc_fn is not None else self.d(img)
 
     # -- the same under inference mode --------------------------------------
 
@@ -165,7 +198,7 @@ class Editor:
         fresh noise; None keeps the stored noise maps."""
         latent = self._tensor(latent)
         noise = (None if noise_generator is None
-                 else self.g.make_noise(latent.shape[0], noise_generator))
+                 else self.make_noise(latent.shape[0], noise_generator))
         return self.synth(latent, noise)
 
     @torch.inference_mode()
@@ -184,9 +217,28 @@ class Editor:
             return target, target - alpha_org
         return sampled, sampled - alpha_org
 
-    def edit(self, walk_params, latent, alpha):
+    def edit(self, walk_params, latent, alpha, **kw):
+        """kw: the embed walk's bank ``name`` and ``index``."""
         return W.apply_walk(self.cfg.walk_kind, walk_params, latent, alpha,
-                            layers=self.cfg.layers)
+                            layers=self.cfg.layers, **kw)
+
+    def _require_alpha_walk(self, path: str) -> None:
+        """The 'embed' walk (WalkEmbed) ignores alpha, so an alpha-driven edit
+        over it would render the same image for every alpha; the reference
+        has no working inference path for it either. Refuse, as the JAX
+        package does."""
+        if self.cfg.walk_kind == "embed":
+            raise ValueError(
+                f"{path} is alpha-driven and the 'embed' walk ignores alpha "
+                "(reference WalkEmbed.forward drops it); apply a bank entry "
+                "with edit(..., name=<attribute>, index=<bank index>)")
+
+    def _require_w(self, path: str) -> None:
+        """The combine paths move single bank columns of a W-space walk; on a
+        z editor the JAX package's run them into a shape error."""
+        if self.cfg.latent != "w":
+            raise ValueError(f"{path} edits W+ (latent 'w'); this editor's "
+                             f"latent is {self.cfg.latent!r}")
 
     def _bank_position(self, index) -> int:
         """Regressor-table attribute id -> column in the trained bank."""
@@ -205,34 +257,39 @@ class Editor:
         """Inference-time edit: regress the current attribute scores, walk by
         the delta to the requested target, re-synthesize. With ``index`` (a
         regressor-table id) only that bank column moves toward its target.
-        u8=True returns uint8 images. -> (edited_img, alpha_org, orig_img)."""
+        u8=True returns uint8 images. In z space the walk takes the requested
+        alpha itself, not a delta. -> (edited_img, alpha_org, orig_img)."""
+        self._require_alpha_walk("apply_alpha")
         idx_pos = None if index is None else self._bank_position(index)
         ag = self._tensor(alpha_to_graph)
         if ag.dim() == 1:
             ag = ag[:, None]
-        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
-        orig = self.g.synthesize(latent)
+        latent = self.edit_latent(z, given_w)
+        orig = self.synth(latent)
         alpha_org = self.regress(orig)
-        delta = ag - alpha_org
-        if idx_pos is not None:
-            delta[:, idx_pos] = (
-                (ag[:, 0] if ag.shape[1] == 1 else ag[:, idx_pos])
-                - alpha_org[:, idx_pos]
-            )
-        edited = self.g.synthesize(self.edit(walk_params, latent, delta))
+        if self.cfg.latent == "z":
+            walk_alpha = ag
+        else:
+            walk_alpha = ag - alpha_org
+            if idx_pos is not None:
+                walk_alpha[:, idx_pos] = (
+                    (ag[:, 0] if ag.shape[1] == 1 else ag[:, idx_pos])
+                    - alpha_org[:, idx_pos]
+                )
+        edited = self.synth(self.edit(walk_params, latent, walk_alpha))
         if u8:
             return _u8(edited), alpha_org, _u8(orig)
         return edited, alpha_org, orig
 
     @torch.inference_mode()
     def _synthesize_stream(self, latents, chunk: int, u8: bool = False):
-        """Synthesize [N, L, D] latents in chunks of width ``chunk`` into one
+        """Synthesize [N, ...] latents in chunks of width ``chunk`` into one
         preallocated result, so no more than one chunk's activations are
         alive at a time."""
         n = latents.shape[0]
         buf = None
         for start in range(0, n, chunk):
-            img = self.g.synthesize(latents[start:start + chunk])
+            img = self.synth(latents[start:start + chunk])
             if u8:
                 img = _u8(img)
             if buf is None:
@@ -247,16 +304,19 @@ class Editor:
         """All-panels edit: panel_alphas [P, B] or [P, B, A] targets ->
         (images [P, B, H, W, 3], alpha_org, orig_img). The P panels fold into
         the batch dimension and synthesize in chunks of ``chunk`` (default
-        balanced under SWEEP_CHUNK)."""
+        balanced under SWEEP_CHUNK). In z space the panels' alphas go to the
+        walk as they are."""
+        self._require_alpha_walk("sweep")
         pa = self._tensor(panel_alphas)
         if pa.dim() == 2:
             pa = pa[:, :, None]
         p, b = int(pa.shape[0]), int(pa.shape[1])
         c = chunk or _balanced_chunk(p * b, SWEEP_CHUNK)
-        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
-        orig = self.g.synthesize(latent)
+        latent = self.edit_latent(z, given_w)
+        orig = self.synth(latent)
         alpha_org = self.regress(orig)
-        walk_alpha = pa - alpha_org[None]  # delta to target
+        # W space: the delta to each panel's target
+        walk_alpha = pa if self.cfg.latent == "z" else pa - alpha_org[None]
         flat_alpha = walk_alpha.reshape((p * b,) + walk_alpha.shape[2:])
         flat_latent = latent[None].expand((p,) + latent.shape).reshape(
             (p * b,) + latent.shape[1:])
@@ -272,14 +332,15 @@ class Editor:
         their targets. alphas_per_attr: [B] or [B, 1] targets aligned with
         ``indices`` (regressor-table ids). -> (edited_img, alpha_org,
         orig_img)."""
+        self._require_w("apply_alpha_combine")
         positions = [self._bank_position(i) for i in indices]
-        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
-        orig = self.g.synthesize(latent)
+        latent = self.edit_latent(z, given_w)
+        orig = self.synth(latent)
         alpha_org = self.regress(orig)
         delta = torch.zeros_like(alpha_org)
         for pos, ag in zip(positions, alphas_per_attr):
             delta[:, pos] = self._tensor(ag).reshape(-1) - alpha_org[:, pos]
-        edited = self.g.synthesize(self.edit(walk_params, latent, delta))
+        edited = self.synth(self.edit(walk_params, latent, delta))
         return edited, alpha_org, orig
 
     @torch.inference_mode()
@@ -290,13 +351,14 @@ class Editor:
         W, 3], alpha_org, orig_img), the first attribute's target on the
         outer axis. The P*P edited latents synthesize in chunks, as in
         ``sweep``."""
+        self._require_w("sweep_combine")
         positions = [self._bank_position(i) for i in indices]
         panels = self._tensor(np.asarray(panel_alphas, np.float32))
         p = panels.shape[0]
         grid = torch.stack([panels.repeat_interleave(p), panels.repeat(p)], 1)  # [P*P, 2]
-        latent = self.get_w(z) if given_w is None else self._tensor(given_w)
+        latent = self.edit_latent(z, given_w)
         b = latent.shape[0]
-        orig = self.g.synthesize(latent)
+        orig = self.synth(latent)
         alpha_org = self.regress(orig)
         n = grid.shape[0]
         delta = torch.zeros((n, b, alpha_org.shape[1]), dtype=alpha_org.dtype,

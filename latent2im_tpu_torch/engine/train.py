@@ -13,7 +13,13 @@ whole or per block, and ``cfg.remat_towers`` the regressor, the content loss
 and D on the edited image (utils/remat.py), as the JAX step does: the same
 values, one more forward of each region in the backward, less memory.
 ``cfg.reg_input_size`` / ``cfg.content_input_size`` resize the images the
-regressor and the content loss see (``editor.bilinear_resize``). PyTorch
+regressor and the content loss see (``editor.bilinear_resize``). In z space
+(StyleGAN2 --latent z, PGGAN) the walk edits z itself; its input is the
+clamped delta to the target in W space and in the PGGAN's delta mode, the
+sampled alpha itself in a StyleGAN2 z run (the JAX step's rule), and the
+PGGAN gates the 10x BCE weight off when either other loss is. --trainEmbed
+(the 'embed' walk) draws one bank index per step on the host
+(``Task.train_alpha_embed_np``) and trains that bank entry. PyTorch
 runs it eagerly; its kernels (fused_act, upfirdn2d and the styled conv
 forward, fused_act and upfirdn2d backward) launch from the models'
 autograd nodes.
@@ -52,19 +58,26 @@ def make_optimizer(walk_params: dict, lr: float) -> torch.optim.Adam:
 
 def make_train_step(editor: Editor, task: Task | None,
                     optimizer: torch.optim.Optimizer,
-                    host_alpha: bool = False) -> Callable:
-    """-> step(walk_params, z, generator=None, sampled=None) -> metrics.
+                    host_alpha: bool = False, train_embed: bool = False) -> Callable:
+    """-> step(walk_params, z, generator=None, sampled=None, index=None) ->
+    metrics.
 
     The step updates ``walk_params`` (leaf tensors the optimizer holds) in
-    place and leaves their gradients in ``.grad``. ``generator`` (a
-    torch.Generator on the editor's device) draws the alpha targets unless
-    host_alpha, and the noise unless cfg.fixed_noise. ``sampled`` is the
-    host-sampled alpha batch [B, A] of host_alpha mode. Metrics are 0-dim
+    place and leaves their gradients in ``.grad`` (zeros for a tensor the
+    loss does not reach, as jax.grad gives, so that Adam steps every tensor
+    as optax does). ``generator`` (a torch.Generator on the editor's device)
+    draws the alpha targets unless host_alpha, and the noise unless
+    cfg.fixed_noise. ``sampled`` is the host-sampled alpha batch [B, A] of
+    host_alpha mode. train_embed (implies host_alpha): ``index``, the bank
+    entry the step trains, of the first attribute's bank. Metrics are 0-dim
     tensors on the device (reading one synchronises)."""
     cfg = editor.cfg
     n_attr = len(cfg.attr_list)
+    host_alpha = host_alpha or train_embed
+    # the reference trains WalkEmbed single-attribute: the first bank
+    embed_name = cfg.attr_list[0] if train_embed else None
 
-    def step(walk_params, z, generator=None, sampled=None):
+    def step(walk_params, z, generator=None, sampled=None, index=None):
         z = editor._tensor(z)
         b = z.shape[0]
         if host_alpha:
@@ -73,19 +86,27 @@ def make_train_step(editor: Editor, task: Task | None,
             sampled = editor._tensor(sampled)
         else:
             sampled, _ = task.train_alpha(generator, b, n_attr)
-        if generator is None and not cfg.fixed_noise:
+        if train_embed and index is None:
+            raise ValueError("train_embed step requires the bank index")
+        if generator is None and not cfg.fixed_noise and editor.draws_noise:
             raise ValueError("fresh noise needs a generator (or fixed_noise)")
 
         def noise():  # None: the stored noise maps
-            return None if cfg.fixed_noise else editor.g.make_noise(b, generator)
+            return None if cfg.fixed_noise else editor.make_noise(b, generator)
 
         optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
-            latent = editor.latent_of(z)
+            latent = editor.edit_latent(z)
             img_org = editor.synth(latent, noise=noise())
             alpha_org = editor.scores(img_org)
         target, delta = editor.unified_alphas(alpha_org, sampled)
-        latent_new = editor.edit(walk_params, latent, delta)
+        if train_embed:  # the embed walk ignores alpha
+            latent_new = editor.edit(walk_params, latent, sampled, name=embed_name,
+                                     index=index)
+        elif cfg.latent == "w" or cfg.alpha_mode == "delta":
+            latent_new = editor.edit(walk_params, latent, delta)
+        else:  # a StyleGAN2 z run feeds the sampled alpha
+            latent_new = editor.edit(walk_params, latent, sampled)
         # the edited synthesis's noise is drawn here, outside any checkpoint,
         # so a recompute sees the same noise
         noise_new = noise()
@@ -112,6 +133,10 @@ def make_train_step(editor: Editor, task: Task | None,
                           no_gan_loss=cfg.no_gan_loss,
                           pggan_gating=(cfg.model == "pggan"))
         total.backward()
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
         return {"loss": total.detach(), "reg_loss": reg.detach(),
                 "content_loss": content.detach(), "gan_loss": gan.detach(),
@@ -170,13 +195,17 @@ def train_loop(
     (RandomState(_alpha_seed(seed, epoch))) instead of on the device.
     frozen_provider(epoch, i) runs before each step, where the JAX package
     calls it: the --updateGAN fine-tune's D and G steps, which update the
-    editor's frozen G and D in place for the walk step that follows."""
+    editor's frozen G and D in place for the walk step that follows. An
+    'embed' walk (--trainEmbed) draws its slider and bank index per step
+    from the same per-epoch RandomState."""
     for p in walk_leaves(walk_params):
         p.requires_grad_(True)
     optimizer = make_optimizer(walk_params, lr)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
-    step = make_train_step(editor, task, optimizer, host_alpha=host_alpha)
+    train_embed = editor.cfg.walk_kind == "embed"
+    step = make_train_step(editor, task, optimizer, host_alpha=host_alpha,
+                           train_embed=train_embed)
     n_attr = len(editor.cfg.attr_list)
     gen = torch.Generator(device=editor.device)
     history: list[float] = []
@@ -196,11 +225,13 @@ def train_loop(
             if frozen_provider is not None:
                 frozen_provider(epoch, i)
             gen.manual_seed(_step_seed(seed, it_global))
-            sampled = None
-            if host_alpha:
+            sampled = index = None
+            if train_embed:
+                sampled, _, index = task.train_alpha_embed_np(alpha_rng, batch_size, n_attr)
+            elif host_alpha:
                 sampled, _ = task.train_alpha_np(alpha_rng, batch_size, n_attr)
             metrics = step(walk_params, zs[i * batch_size:(i + 1) * batch_size],
-                           gen, sampled)
+                           gen, sampled, index)
             if on_step is not None or (log_every and i % log_every == 0):
                 metrics = {k: float(v) for k, v in metrics.items()}
                 history.append(metrics["loss"])

@@ -1,8 +1,10 @@
 """Carry the JAX package's parameter pytrees into the port's state_dicts.
 
 Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator and
-init_discriminator, models/resnet.py:init_resnet50, models/vgg.py:init_vgg,
-models/facenet.py:init_facenet, walks/walks.py:init_walk, or the same trees converted from torch
+init_discriminator, models/pggan.py and models/pgan_zoo.py's
+init_generator and init_discriminator, models/resnet.py:init_resnet50,
+models/vgg.py:init_vgg, models/facenet.py:init_facenet,
+walks/walks.py:init_walk, or the same trees converted from torch
 checkpoints), as numpy arrays. Output: state_dicts that
 the port's modules load with ``strict=True``. The layout rules are the inverse
 of latent2im_tpu/io/torch_convert.py (read, not imported):
@@ -279,9 +281,76 @@ def facenet_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _conv_into(sd, prefix, p, weight="weight"):
+    sd[f"{prefix}.{weight}"] = _conv(p["w"])
+    sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def pggan_generator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """models/pggan.py generator pytree -> model_256's state_dict
+    (``progression.{i}.conv.{0,3}.conv.weight_orig``, ``to_rgb.{i}``,
+    ``label_embed.weight`` where the tree has one)."""
+    sd: dict[str, torch.Tensor] = {}
+    if "label_embed" in tree:
+        sd["label_embed.weight"] = _t(tree["label_embed"])
+    for i, p in enumerate(tree["progression"]):
+        _conv_into(sd, f"progression.{i}.conv.0.conv", p["conv1"], "weight_orig")
+        _conv_into(sd, f"progression.{i}.conv.3.conv", p["conv2"], "weight_orig")
+    for i, p in enumerate(tree["to_rgb"]):
+        _conv_into(sd, f"to_rgb.{i}", p)
+    return sd
+
+
+def pggan_discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """models/pggan.py discriminator pytree -> model_256's D state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, p in enumerate(tree["progression"]):
+        _conv_into(sd, f"progression.{i}.conv.0.conv", p["conv1"], "weight_orig")
+        _conv_into(sd, f"progression.{i}.conv.2.conv", p["conv2"], "weight_orig")
+    for i, p in enumerate(tree["from_rgb"]):
+        _conv_into(sd, f"from_rgb.{i}", p)
+    sd["linear.weight"] = _lin(tree["linear"]["w"])
+    sd["linear.bias"] = _t(tree["linear"]["b"])
+    return sd
+
+
+def _zoo_lin_into(sd, prefix, p):
+    sd[f"{prefix}.module.weight"] = _lin(p["w"])
+    sd[f"{prefix}.module.bias"] = _t(p["b"])
+
+
+def zoo_generator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """models/pgan_zoo.py generator pytree -> the zoo GNet's state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    _zoo_lin_into(sd, "formatLayer", tree["format"])
+    for i, p in enumerate(tree["group_scale0"]):
+        _conv_into(sd, f"groupScale0.{i}.module", p)
+    for s, group in enumerate(tree["scales"]):
+        for j, p in enumerate(group):
+            _conv_into(sd, f"scaleLayers.{s}.{j}.module", p)
+    for i, p in enumerate(tree["to_rgbs"]):
+        _conv_into(sd, f"toRGBLayers.{i}.module", p)
+    return sd
+
+
+def zoo_discriminator_from_jax(tree) -> dict[str, torch.Tensor]:
+    """models/pgan_zoo.py discriminator pytree -> the zoo DNet's state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, p in enumerate(tree["from_rgb"]):
+        _conv_into(sd, f"fromRGBLayers.{i}.module", p)
+    for s, group in enumerate(tree["scales"]):
+        for j, p in enumerate(group):
+            _conv_into(sd, f"scaleLayers.{s}.{j}.module", p)
+    _conv_into(sd, "groupScaleZero.0.module", tree["group0_conv"])
+    _zoo_lin_into(sd, "groupScaleZero.1", tree["group0_lin"])
+    _zoo_lin_into(sd, "decisionLayer", tree["decision"])
+    return sd
+
+
 def walk_from_jax(tree):
-    """Walk pytree -> the same tree of tensors (the port keeps the JAX
-    package's walk layouts: ``linear_w`` is {"w": [A, L, D]})."""
+    """Walk pytree of any kind -> the same tree of tensors (the port keeps
+    the JAX package's walk layouts: ``linear_w`` is {"w": [A, L, D]},
+    ``embed`` {"w": {attribute: [n_panel, 1, D, nsliders]}})."""
     if isinstance(tree, dict):
         return {k: walk_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -6,13 +6,18 @@ The reference saves ``torch.save(self.walk, save_path_w +
 walk's class by its qualified name. Stub classes under those names let it
 load without the reference package, and an instance of the stub carrying
 real parameters in the reference's attribute layout is what the reference
-unpickles onto its real class. The port holds the W-space walks:
-``linear_w`` (WalkLinearMultiW, [A, L, 512], the same layout on both
-sides), ``mlp_w`` (WalkMlpMultiW: ``linear``, a Sequential of Linear layers
-at indices 0, 2, 4 with LeakyReLUs between) and ``nn_w`` (WalkNonLinearW:
-``embed``, a Linear(10, D/2), and ``linear`` at indices 0, 2); a Linear's
-weight is [out, in], the port's ``w`` [in, out]. The z-space walk classes
-wait for their walk kinds (ROADMAP.md queue A item 18).
+unpickles onto its real class. Every walk kind has its class: ``linear_w``
+(WalkLinearMultiW, [A, L, 512], the same layout on both sides), ``mlp_w``
+(WalkMlpMultiW: ``linear``, a Sequential of Linear layers at indices 0, 2,
+4 with LeakyReLUs between), ``nn_w`` (WalkNonLinearW: ``embed``, a
+Linear(10, D/2), and ``linear`` at indices 0, 2), ``mlp_z`` (WalkMlpMultiZ:
+``embed`` Linear(10, D), ``linear`` at 0, 2, 4, the one-hot ``direction``),
+``linear_z_dir`` (WalkLinear: a ParameterDict of [1, D, Nsliders] per
+attribute), ``embed`` (WalkEmbed / walk_embed: a ParameterDict ``w`` or
+``w_embed`` of per-attribute banks), ``linear_z_free`` (WalkLinearZ_free:
+``w`` [A, D]), ``linear_z`` (WalkLinearZ: one Linear(D, D)), ``mlp_z_norm``
+and ``mlp_z3`` (WalkMlpZ2 / WalkMlpZ3 / WalkMlpZ: ``linear`` at even
+indices); a Linear's weight is [out, in], the port's ``w`` [in, out].
 """
 
 from __future__ import annotations
@@ -62,12 +67,6 @@ _KIND_CLASS = {
 }
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item 18: the seven "
-        "remaining walk kinds)")
-
-
 def _register_walk_stubs():
     """Register stub modules/classes so pickled reference walk modules load
     without importing the reference package (whose op/ JIT-builds CUDA)."""
@@ -113,8 +112,42 @@ def convert_walk_state(cls: str, state: dict, attr_list: list[str]) -> dict:
     if cls == "WalkNonLinearW":
         return {"embed": _lin_from_state(state, "embed"),
                 "mlp": [_lin_from_state(state, f"linear.{i}") for i in (0, 2)]}
-    if cls in _WALK_CLASS_NAMES:
-        raise _not_ported(f"the reference walk class {cls!r}")
+    if cls == "WalkMlpMultiZ":
+        # stylegan z-space MLP walk (transform_base.py:86-111)
+        return {"embed": _lin_from_state(state, "embed"),
+                "mlp": [_lin_from_state(state, f"linear.{i}") for i in (0, 2, 4)]}
+    if cls == "WalkLinear":
+        # stylegan z-space direction bank (transform_base.py:66-83)
+        names = list(attr_list) or sorted(
+            {k.split(".", 1)[1] for k in state if k.startswith("w.")})
+        if not names:
+            raise ValueError("WalkLinear checkpoint has no direction banks")
+        rows = []
+        for n in names:
+            bank = np.asarray(state[f"w.{n}"], np.float32)  # [1, D, Nsliders]
+            if bank.shape[-1] != 1:
+                raise ValueError(
+                    f"WalkLinear attr {n!r} has Nsliders={bank.shape[-1]}; "
+                    "only Nsliders=1 maps onto the linear_z_dir layout")
+            rows.append(bank[0, :, 0])
+        return {"w": np.stack(rows)}
+    if cls == "WalkLinearZ":
+        # pggan normalized-linear z walk (pggan transform_base.py:63-83)
+        return {"lin": _lin_from_state(state, "linear")}
+    if cls == "WalkLinearZ_free":
+        return {"w": np.asarray(state["w"], np.float32)}  # [A, 512]
+    if cls in ("WalkMlpZ3", "WalkMlpZ2", "WalkMlpZ"):
+        return {"mlp": [_lin_from_state(state, f"linear.{i}") for i in range(0, 12, 2)
+                        if f"linear.{i}.weight" in state]}
+    if cls in ("WalkEmbed", "walk_embed"):
+        key = "w" if any(k.startswith("w.") for k in state) else "w_embed"
+        names = list(attr_list) or sorted(
+            {k.split(".", 1)[1] for k in state if k.startswith(f"{key}.")})
+        bank = {name: np.asarray(state[f"{key}.{name}"], np.float32) for name in names
+                if f"{key}.{name}" in state}
+        if not bank:
+            raise ValueError(f"WalkEmbed checkpoint has no banks matching attrs {names}")
+        return {"w": bank}
     raise ValueError(f"unknown walk checkpoint class: {cls}")
 
 
@@ -128,8 +161,6 @@ def export_walk_torch(path: str, kind: str, params: dict,
 
     if kind not in _KIND_CLASS:
         raise ValueError(f"no reference checkpoint format for walk kind {kind!r}")
-    if kind not in ("linear_w", "mlp_w", "nn_w"):
-        raise _not_ported(f"exporting the {kind!r} walk")
     _register_walk_stubs()
     cls_name, mod_name = _KIND_CLASS[kind]
     m = getattr(sys.modules[mod_name], cls_name)()
@@ -152,15 +183,41 @@ def export_walk_torch(path: str, kind: str, params: dict,
                 mods.append(nn.LeakyReLU(0.2, True))
         return nn.Sequential(*mods)
 
+    m.step = None
     if kind == "linear_w":
         w = t(params["w"])
         m.w = nn.Parameter(w)  # [A, L, D]
         m.dim_z, m.step = w.shape[2], w.shape[1] // 2 - 1
     elif kind == "mlp_w":
         m.linear = seq(params["mlp"])
-        m.dim_z, m.step = params["mlp"][0]["w"].shape[0], None
-    else:
+        m.dim_z = params["mlp"][0]["w"].shape[0]
+    elif kind == "nn_w":
         m.embed = lin(params["embed"])
         m.linear = seq(params["mlp"])
-        m.dim_z, m.step = params["embed"]["b"].shape[0] * 2, None
+        m.dim_z = params["embed"]["b"].shape[0] * 2
+    elif kind == "mlp_z":
+        m.embed = lin(params["embed"])
+        m.linear = seq(params["mlp"])
+        m.dim_z = params["embed"]["b"].shape[0]
+        direction = torch.zeros((1, 10))
+        direction[0, 0] = 1
+        m.direction = direction
+    elif kind == "linear_z_dir":
+        w = t(params["w"])  # [A, D] -> a ParameterDict of [1, D, 1]
+        names = list(attr_list or [f"attr{i}" for i in range(w.shape[0])])
+        m.w = nn.ParameterDict({n: nn.Parameter(w[i][None, :, None].clone())
+                                for i, n in enumerate(names)})
+        m.dim_z = w.shape[1]
+    elif kind == "embed":
+        m.w = nn.ParameterDict({n: nn.Parameter(t(b)) for n, b in params["w"].items()})
+        m.dim_z = next(iter(params["w"].values())).shape[2]
+    elif kind == "linear_z_free":
+        m.w = nn.Parameter(t(params["w"]))
+        m.dim_z = params["w"].shape[1]
+    elif kind == "linear_z":
+        m.linear = lin(params["lin"])
+        m.dim_z = params["lin"]["b"].shape[0]
+    else:  # mlp_z_norm / mlp_z3
+        m.linear = seq(params["mlp"])
+        m.dim_z = params["mlp"][0]["w"].shape[0]
     torch.save(m, path)

@@ -296,10 +296,12 @@ class Generator(nn.Module):
 
     def forward(self, styles, input_is_latent: bool = False,
                 truncation: float = 1.0, truncation_latent=None, noise=None,
-                noise_generator=None):
+                noise_generator=None, block_remat: bool = False):
         """styles: z [B, D] (mapped and broadcast over all layers) or W+
         [B, n_latent, D] when input_is_latent. noise_generator gives fresh
-        noise when noise is None."""
+        noise when noise is None. block_remat checkpoints each synthesis
+        block (``synthesize``), not the style MLP, as the JAX package's
+        ``generator_forward``."""
         if not input_is_latent:
             w = self.style_forward(styles)
             latent = w[:, None, :].expand(-1, self.n_latent, -1)
@@ -309,7 +311,7 @@ class Generator(nn.Module):
             latent = truncation_latent + truncation * (latent - truncation_latent)
         if noise is None and noise_generator is not None:
             noise = self.make_noise(latent.shape[0], noise_generator)
-        return self.synthesize(latent, noise=noise)
+        return self.synthesize(latent, noise=noise, block_remat=block_remat)
 
 
 def generator_from_state_dict(sd, size: int) -> Generator:

@@ -11,7 +11,8 @@ per attribute shared by the batch, as in the reference:
     ``torch.Generator``, on the generator's device.
 
 Both return (alpha_for_graph [B, A], alpha_for_target [A]);
-``test_alphas`` gives the eval CLI's panels. The geometric/color tasks and
+``test_alphas`` gives the eval CLI's panels. --trainEmbed draws one index
+into a discrete alpha ladder per step instead (``train_alpha_embed_np``). The geometric/color tasks and
 the dsprites slider composition wait for ROADMAP.md queue A item 12.
 """
 
@@ -26,10 +27,29 @@ class Task:
 
     lo: float = 0.0
     hi: float = 1.0
+    # --trainEmbed's discrete panel (utils/transforms.py:640-656 of the
+    # reference): each step trains the bank entry of one index of this ladder
+    num_panel: int = 6
+    embed_alpha_max: float = 1.0
 
     def __init__(self, walk_type: str = "linear", nsliders: int = 1):
         self.walk_type = walk_type
         self.nsliders = nsliders
+
+    def embedding_alphas(self) -> np.ndarray:
+        """The discrete --trainEmbed alpha ladder."""
+        return np.linspace(0.0, 1.0, self.num_panel)
+
+    def train_alpha_embed_np(self, rng: np.random.RandomState, batch: int,
+                             n_attr: int | None = None):
+        """--trainEmbed sampling: one ladder index per step, drawn as the JAX
+        package draws it -> (slider [B, nsliders] = alpha / embed_alpha_max,
+        the ladder's alpha, the index of the bank entry the step trains)."""
+        index = int(rng.choice(self.num_panel))
+        alpha_val = float(self.embedding_alphas()[index])
+        slider = np.full((batch, self.nsliders), alpha_val / self.embed_alpha_max,
+                         np.float32)
+        return slider, np.float32(alpha_val), index
 
     def train_alpha_np(self, rng: np.random.RandomState, batch: int,
                        n_attr: int):

@@ -1,8 +1,9 @@
 """Latent walks, the only trained parameters in the system — PyTorch port.
 
-The counterpart of latent2im_tpu/walks/walks.py. Ported: the registry,
-``resolve_walk_kind``, the layer mask and the three W-space walks (the
-reference's graphs/stylegan_v2_real/transform_base.py:21-243):
+The counterpart of latent2im_tpu/walks/walks.py: the registry,
+``resolve_walk_kind``, the layer mask and every walk kind. W-space (the
+reference's graphs/stylegan_v2_real/transform_base.py:21-243), latent
+[B, L, D]:
 
   linear_w   WalkLinearMultiW  — per-attribute direction bank [A, L, D],
                                  w[l] += alpha @ W[:, l, :]
@@ -11,8 +12,17 @@ reference's graphs/stylegan_v2_real/transform_base.py:21-243):
   nn_w       WalkNonLinearW    — alpha-embed(10->D/2) ++ w[l] -> MLP,
                                  unit-normalized delta
 
-The seven z-space kinds are registered and raise ``NotImplementedError``
-naming their ROADMAP item.
+z-space (StyleGAN2 z, PGGAN; graphs/pggan/transform_base.py:12-188),
+latent [B, D]:
+
+  mlp_z          WalkMlpMultiZ    — one-hot embed(10->D) ++ z -> MLP,
+                                    normalized delta * alpha_0
+  linear_z_free  WalkLinearZ_free — elementwise gate z += (alpha @ w) * z
+  linear_z       WalkLinearZ      — z += alpha_0 * 3 * Lin(z)/||Lin(z)||
+  linear_z_dir   WalkLinear       — z += alpha @ W
+  mlp_z_norm     WalkMlpZ2        — D->2D->2D->D MLP, normalized delta * 3
+  mlp_z3         WalkMlpZ3        — z += alpha_0 * MLP(z)
+  embed          WalkEmbed        — per-attribute bank, z += bank[index]
 
 Walk params are dicts (and lists) of tensors, keyed as in the JAX package's
 pytrees: a linear layer is {"w": [fan_in, fan_out], "b": [fan_out]}, so
@@ -126,14 +136,98 @@ def apply_nn_w(params, latent, alpha, layers=None):
     return latent + delta * mask[None, :, None]
 
 
-def _not_ported(kind: str) -> Callable:
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"walk kind {kind!r} is not ported yet (ROADMAP.md queue A "
-            "item 18: the seven remaining walk kinds)"
-        )
+# ---------------------------------------------------------------------------
+# z-space walks (the reference's graphs/pggan/transform_base.py:12-188 and
+# the stylegan backend's z modules); latent z [B, D]
+# ---------------------------------------------------------------------------
 
-    return fn
+
+def _bank(shape, generator, device):
+    return (0.02 * torch.randn(shape, generator=generator)).to(device)
+
+
+def init_mlp_z(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"embed": _init_linear(10, dim_z, generator, device),
+            "mlp": [_init_linear(2 * dim_z, dim_z, generator, device),
+                    _init_linear(dim_z, dim_z, generator, device),
+                    _init_linear(dim_z, dim_z, generator, device)]}
+
+
+def apply_mlp_z(params, z, alpha, layers=None):
+    """WalkMlpMultiZ: one-hot embed(10 -> D) ++ z -> MLP, the delta
+    unit-normalized and scaled by alpha[:, 0]."""
+    direction = torch.zeros((z.shape[0], 10), dtype=z.dtype, device=z.device)
+    direction[:, 0] = 1.0
+    out = _mlp(params["mlp"], torch.cat([_linear(params["embed"], direction), z], -1))
+    return z + alpha[:, :1] * out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+
+
+def init_linear_z_free(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"w": _bank((len(attr_list), dim_z), generator, device)}
+
+
+def apply_linear_z_free(params, z, alpha, layers=None):
+    """WalkLinearZ_free: an elementwise gate per attribute, z += (alpha @ w) * z."""
+    return z + (alpha @ params["w"].to(z.dtype)) * z
+
+
+def init_linear_z(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"lin": _init_linear(dim_z, dim_z, generator, device)}
+
+
+def apply_linear_z(params, z, alpha, layers=None):
+    """WalkLinearZ: z += alpha[:, 0] * 3 * Lin(z) / ||Lin(z)||."""
+    out = _linear(params["lin"], z)
+    return z + alpha[:, :1] * out / torch.linalg.vector_norm(out, dim=-1, keepdim=True) * 3.0
+
+
+def init_linear_z_dir(dim_z, n_layers, attr_list, generator=None, device=None):
+    return {"w": _bank((len(attr_list), dim_z), generator, device)}
+
+
+def apply_linear_z_dir(params, z, alpha, layers=None):
+    """WalkLinear (the stylegan backend's per-slider z bank): z + alpha @ W."""
+    return z + alpha @ params["w"].to(z.dtype)
+
+
+def _init_mlp3(dim_z, generator, device):
+    return {"mlp": [_init_linear(dim_z, 2 * dim_z, generator, device),
+                    _init_linear(2 * dim_z, 2 * dim_z, generator, device),
+                    _init_linear(2 * dim_z, dim_z, generator, device)]}
+
+
+def init_mlp_z_norm(dim_z, n_layers, attr_list, generator=None, device=None):
+    return _init_mlp3(dim_z, generator, device)
+
+
+def apply_mlp_z_norm(params, z, alpha, layers=None):
+    """WalkMlpZ2: the MLP's delta unit-normalized, scaled by 3 * alpha[:, 0]."""
+    out = _mlp(params["mlp"], z)
+    return z + alpha[:, :1] * out / torch.linalg.vector_norm(out, dim=-1, keepdim=True) * 3.0
+
+
+def init_mlp_z3(dim_z, n_layers, attr_list, generator=None, device=None):
+    return _init_mlp3(dim_z, generator, device)
+
+
+def apply_mlp_z3(params, z, alpha, layers=None):
+    """WalkMlpZ3 (the paper's PGGAN walk): z += alpha[:, 0] * MLP(z)."""
+    return z + alpha[:, :1] * _mlp(params["mlp"], z)
+
+
+def init_embed(dim_z, n_layers, attr_list, generator=None, device=None,
+               nsliders: int = 1, n_panel: int = 6):
+    """WalkEmbed: per attribute a bank [n_panel, 1, D, nsliders]."""
+    return {"w": {name: _bank((n_panel, 1, dim_z, nsliders), generator, device)
+                  for name in attr_list}}
+
+
+def apply_embed(params, z, alpha, name=None, index=0, layers=None):
+    """z += bank[index] summed over its sliders (transform_base.py:21-41);
+    alpha is not used. ``name`` picks the attribute's bank, None the first
+    (--trainEmbed trains one attribute); ``index`` may be a tensor."""
+    bank = params["w"][name] if name is not None else next(iter(params["w"].values()))
+    return z + torch.sum(bank[index, 0], dim=-1)[None, :]
 
 
 # kind -> (init, apply, latent_space)
@@ -141,9 +235,13 @@ REGISTRY: dict[str, tuple[Callable, Callable, str]] = {
     "linear_w": (init_linear_w, apply_linear_w, "w"),
     "mlp_w": (init_mlp_w, apply_mlp_w, "w"),
     "nn_w": (init_nn_w, apply_nn_w, "w"),
-    **{k: (_not_ported(k), _not_ported(k), "z") for k in (
-        "mlp_z", "linear_z_free", "linear_z", "linear_z_dir", "mlp_z_norm",
-        "mlp_z3", "embed")},
+    "mlp_z": (init_mlp_z, apply_mlp_z, "z"),
+    "linear_z_free": (init_linear_z_free, apply_linear_z_free, "z"),
+    "linear_z": (init_linear_z, apply_linear_z, "z"),
+    "linear_z_dir": (init_linear_z_dir, apply_linear_z_dir, "z"),
+    "mlp_z_norm": (init_mlp_z_norm, apply_mlp_z_norm, "z"),
+    "mlp_z3": (init_mlp_z3, apply_mlp_z3, "z"),
+    "embed": (init_embed, apply_embed, "z"),
 }
 
 
@@ -180,9 +278,10 @@ def init_walk(kind, dim_z, n_layers, attr_list, generator=None,
     return init(dim_z, n_layers, attr_list, generator=generator, device=device)
 
 
-def apply_walk(kind, params, latent, alpha, layers=None):
+def apply_walk(kind, params, latent, alpha, layers=None, **kw):
+    """kw: the embed walk's ``name`` and ``index``."""
     _, apply, _ = REGISTRY[kind]
-    return apply(params, latent, alpha, layers=layers)
+    return apply(params, latent, alpha, layers=layers, **kw)
 
 
 def walk_space(kind: str) -> str:

@@ -7,7 +7,9 @@ checkpoint,torch_convert}.py) against the JAX package's, on the CPU:
   for bit, and the port's save loads in the JAX package bit for bit (the
   files are byte-identical);
 - one Adam step from the carried-over state matches optax (rtol 1e-6);
-- the reference's pickled walk module crosses both ways;
+- the reference's pickled walk modules cross both ways (``linear_w``'s and
+  every z walk's class), and the z walks' msgpack files are the JAX
+  package's bytes;
 - a JAX msgpack GAN tree loads through --save_path_gan and synthesises what
   JAX synthesises (assert_images_close's CPU gate).
 """
@@ -30,15 +32,31 @@ from latent2im_tpu.engine.train import make_optimizer as jmake_optimizer
 from latent2im_tpu.io import checkpoint as jckpt
 from latent2im_tpu.io import torch_convert as jtc
 from latent2im_tpu.models import stylegan2 as jsg2
+from latent2im_tpu.walks import walks as jwalks
 from latent2im_tpu_torch.engine.train import make_optimizer
 from latent2im_tpu_torch.io import checkpoint as ckpt
 from latent2im_tpu_torch.io import msgpack_codec as mc
 from latent2im_tpu_torch.io import torch_convert as tc
+from latent2im_tpu_torch.io.convert import walk_from_jax
+from latent2im_tpu_torch.walks import walks
 from test_torch_stylegan2 import TINY, _perturbed_jax_generator
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 8, 32)  # linear_w [A, L, D] at 32 px, dim_z 32
 LR = 1e-3
+# z walk kind -> the reference's class
+Z_CLASSES = {"mlp_z": "WalkMlpMultiZ", "linear_z_free": "WalkLinearZ_free",
+             "linear_z": "WalkLinearZ", "linear_z_dir": "WalkLinear",
+             "mlp_z_norm": "WalkMlpZ2", "mlp_z3": "WalkMlpZ3", "embed": "WalkEmbed"}
+
+
+def _same_leaves(got, want):
+    """The same tree structure (leaves in walk_leaves order), equal arrays."""
+    got = walks.walk_leaves(got)
+    want = jax.tree_util.tree_leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def _same(a, b):
@@ -198,10 +216,36 @@ def test_reference_walk_module_crosses_both_ways(tmp_path):
     np.testing.assert_array_equal(st["w"], w)
     jw, _, jmeta = jckpt.load_walk(pref, {"w": jnp.zeros(SHAPE)})
     np.testing.assert_array_equal(np.asarray(jw["w"]), w)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tc.export_walk_torch(pref, "mlp_z", {})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tc.convert_walk_state("WalkMlpZ2", {}, [])
+    # every reference z-walk class crosses both ways, and the z walks'
+    # msgpack checkpoints are the JAX package's bytes
+    attrs = ["Smiling", "Young"]
+    for i, (kind, cls) in enumerate(Z_CLASSES.items()):
+        tree = jax.tree_util.tree_map(np.array, jwalks.init_walk(
+            jax.random.PRNGKey(i), kind, 16, 8, attrs))
+        like = walks.walk_map(torch.zeros_like, walk_from_jax(tree))
+        jref = str(tmp_path / f"jax_{kind}_ref_walk_module.ckpt")
+        jtc.export_walk_torch(jref, kind, tree, attr_list=attrs)
+        walk, _, meta = ckpt.load_walk(jref, like, attr_list=attrs)
+        assert meta == {"source": "torch", "cls": cls}
+        _same_leaves(walk, tree)
+        pref = str(tmp_path / f"port_{kind}_ref_walk_module.ckpt")
+        tc.export_walk_torch(pref, kind, walk, attr_list=attrs)
+        got_cls, st = jtc.load_walk_checkpoint(pref)
+        assert got_cls == cls and set(st) == set(tc.load_walk_checkpoint(jref)[1])
+        _same_leaves(jtc.convert_walk_state(got_cls, st, attrs), tree)
+        for alias, state in {"mlp_z3": [("WalkMlpZ", st)],
+                             "embed": [("walk_embed", {k.replace("w.", "w_embed.", 1): v
+                                                       for k, v in st.items()})]
+                             }.get(kind, []):
+            _same_leaves(tc.convert_walk_state(alias, state, attrs),
+                         jtc.convert_walk_state(alias, state, attrs))
+        jdir, pdir = tmp_path / f"j_{kind}", tmp_path / f"p_{kind}"
+        jdir.mkdir()
+        pdir.mkdir()
+        jpath = jckpt.save_walk(str(jdir), 1, jax.tree_util.tree_map(jnp.asarray, tree))
+        ppath = ckpt.save_walk(str(pdir), 1, walk)
+        with open(jpath, "rb") as a, open(ppath, "rb") as b:
+            assert a.read() == b.read(), kind
     # single-attribute walks merged into a bank, as the JAX package does
     single = {"w": w[1:2] + 1.0}
     got = ckpt.merge_walk_banks({"w": torch.from_numpy(w)}, [("Young", single)],

@@ -450,3 +450,76 @@ def test_second_derivatives_through_the_backward_kernels_match_the_cpu(dev):
             assert float(a.abs().max()) <= 1e-6, name
             continue
         assert float((a - b).norm() / b.norm()) <= 1e-4, name
+
+
+def test_z_path_launches_the_kernels_and_matches_the_cpu(dev):
+    """StyleGAN2 in z (--latent z --is_mlp, the mlp_z walk), tiny: apply_alpha
+    and one training step (stored noise, host alpha) on the card launch the
+    forward kernels and the backward kernels, and agree with the CPU: images
+    1e-4 relative L2, loss 1e-4, walk gradient 1e-4 relative L2 (the tiny
+    step's bound above)."""
+    from latent2im_tpu_torch.config.options import TrainOptions
+    from latent2im_tpu_torch.engine import train as T
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.walks import walk_leaves
+
+    conf = TrainOptions().parse(["--attrList", "Smiling", "--dev_tiny", "--latent", "z",
+                                 "--is_mlp", "--resolution", "32", "--models_dir",
+                                 "unused", "--fixed_noise"], print_opt=False)
+    z = np.random.RandomState(0).randn(2, 32).astype(np.float32)
+    a = np.asarray([[0.2], [0.7]], np.float32)
+    res = []
+    for device in (dev, "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        assert ed.cfg.walk_kind == "mlp_z"
+        ops.reset_launches()
+        imgs = [v.cpu().numpy() for v in ed.apply_alpha(walk, z, a[:, 0])]
+        serve = ops.launch_counts()
+        for t in walk_leaves(walk):
+            t.requires_grad_(True)
+        step = T.make_train_step(ed, None, T.make_optimizer(walk, 1e-3), host_alpha=True)
+        ops.reset_launches()
+        m = step(walk, z, sampled=a)
+        train = ops.launch_counts()
+        grad = torch.cat([t.grad.cpu().reshape(-1) for t in walk_leaves(walk)])
+        res.append((imgs, float(m["loss"]), grad))
+        if device == dev:
+            assert all(serve[k] > 0 for k in ("fused_act", "upfirdn2d", "styled_conv3x3"))
+            assert all(v > 0 for v in train.values()), train
+    (ig, lg, gg), (ic, lc, gc) = res
+    for g, c in zip(ig[:1] + ig[2:], ic[:1] + ic[2:]):
+        assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert float((gg - gc).norm() / gc.norm()) <= 1e-4
+
+
+def test_pggan_editor_on_the_card_matches_the_cpu(dev):
+    """model_256 at --resolution 16 (full ladder, step 2): apply_alpha and
+    one training step on the card agree with the CPU (cuDNN's and the CPU's
+    f32 convs): images 1e-4 relative L2, loss 1e-4, walk gradient 1e-3
+    relative L2; no hand-written kernel runs on this path."""
+    from latent2im_tpu_torch.config.options import TrainOptions
+    from latent2im_tpu_torch.engine import train as T
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    conf = TrainOptions().parse(["--model", "pggan", "--transform", "scene",
+                                 "--attrList", "daylight", "--resolution", "16",
+                                 "--models_dir", "unused"], print_opt=False)
+    z = np.random.RandomState(1).randn(2, 512).astype(np.float32)
+    a = np.asarray([[0.3], [-0.4]], np.float32)
+    res = []
+    for device in (dev, "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        walk["w"].requires_grad_(True)
+        ops.reset_launches()
+        imgs = [v.cpu().numpy() for v in ed.apply_alpha(walk, z, a[:, 0])]
+        step = T.make_train_step(ed, None, T.make_optimizer(walk, 1e-3), host_alpha=True)
+        m = step(walk, z, sampled=a)
+        assert set(ops.launch_counts().values()) == {0}
+        res.append((imgs, float(m["loss"]), walk["w"].grad.cpu()))
+    (ig, lg, gg), (ic, lc, gc) = res
+    assert ig[0].shape == (2, 8, 8, 3)
+    for g, c in zip(ig[:1] + ig[2:], ic[:1] + ic[2:]):
+        assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert float((gg - gc).norm() / gc.norm()) <= 1e-3

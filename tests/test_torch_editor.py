@@ -72,11 +72,29 @@ def test_registry_and_resolution_match_jax():
     assert set(walks.REGISTRY) == set(jwalks.REGISTRY)
     for kind in walks.REGISTRY:
         assert walks.walk_space(kind) == jwalks.walk_space(kind)
-    for args in [("stylegan_v2_real", "linear", "w"), ("stylegan_v2_real", "NNz", "w"),
-                 ("pggan", "linear", "z"), ("pggan", "NNz", "z")]:
-        assert walks.resolve_walk_kind(*args) == jwalks.resolve_walk_kind(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        walks.apply_walk("mlp_z", {}, None, None)
+    for args, kw in [(("stylegan_v2_real", "linear", "w"), {}),
+                     (("stylegan_v2_real", "NNz", "w"), {}),
+                     (("stylegan_v2_real", "linear", "z"), {"is_mlp": True}),
+                     (("stylegan_v2_real", "linear", "w"), {"train_embed": True}),
+                     (("pggan", "linear", "z"), {}), (("pggan", "NNz", "z"), {}),
+                     (("pggan", "NNz", "z"), {"train_embed": True})]:
+        assert walks.resolve_walk_kind(*args, **kw) == jwalks.resolve_walk_kind(*args, **kw)
+    for mod in (walks, jwalks):  # a linear z walk without is_mlp: the reference's gap
+        with pytest.raises(NotImplementedError, match="is_mlp"):
+            mod.resolve_walk_kind("stylegan_v2_real", "linear", "z")
+    # the z walks apply through the registry as the JAX package's do
+    # (tests/test_torch_zwalks.py holds each kind and its gradient)
+    z = np.random.RandomState(2).randn(3, DIM).astype(np.float32)
+    alpha = np.random.RandomState(3).uniform(-1, 1, (3, 2)).astype(np.float32)
+    for kind in ("mlp_z", "embed"):
+        tree = jax.tree_util.tree_map(np.array, jwalks.init_walk(
+            jax.random.PRNGKey(0), kind, DIM, 8, list(ATTRS)))
+        kw = {"index": 1} if kind == "embed" else {}
+        got = walks.apply_walk(kind, convert.walk_from_jax(tree), torch.from_numpy(z),
+                               torch.from_numpy(alpha), **kw)
+        want = jwalks.apply_walk(kind, tree, jnp.asarray(z), jnp.asarray(alpha), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=kind)
 
 
 def test_get_w_and_synthesize_match_jax(editors):
