@@ -10,8 +10,9 @@ edit server and the walk-training loop, at 256 px (phases 3-10) and at
 CLI); then the second derivatives a gradient penalty takes (16), W+
 inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20), the joint
 GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
-backends (25-28). Phases (a failed phase raises, and the script exits
-non-zero):
+backends (25-28), and the geometric and color walks with the dsprites
+sliders, LPIPS and parity_check (29-32). Phases (a failed phase raises, and
+the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -127,6 +128,23 @@ non-zero):
  28. the CLIs on model_256 (chiprun_out/pggan_cli/): train with a SIGTERM
      and --resume, `python -m latent2im_tpu_torch.cli.vis_w` on its walk,
      serve --save_path_w answering one /edit; host-clock seconds.
+ 29. the seven geometric and color tasks (color, colorlab, zoom, shiftx,
+     shifty, rotate2d, rotate3d) at 256 px, full width, linear_w, B=4: per
+     task a warmup step and 5 geometric_train_loop steps (ms per step by
+     CUDA events, peak GB, launches equal to 5 x one style MLP and two
+     syntheses forward plus the edited synthesis backward, no tower), its
+     target and mask of G's images on the card against the CPU; zoom with
+     --trainEmbed, 3 steps; one B=2 step of zoom and of colorlab on the card
+     against f64 on the CPU (phase 9's bound);
+ 30. zoom at 1024 px, B=8: 3 steps, ms and peak GB, launches as phase 29's;
+ 31. the geometric CLI (chiprun_out/geo_cli/): train --transform zoom with a
+     SIGTERM and --resume, whose walk reloads bit for bit, `python -m
+     latent2im_tpu_torch.cli.vis_w` on it, the server answering one /edit,
+     --transform dsprites --attrList scale,posx for one epoch through the
+     host sampler; host-clock seconds;
+ 32. parity_check: record on the CPU, compare on the card with the same
+     weights and seed, LPIPS with seeded heads written by the phase;
+     max-abs, PSNR, LPIPS; images and scores within phase 6's bounds.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -2604,18 +2622,20 @@ def z_grad_phase(conf, towers_max=None):
     return out
 
 
-def _timed_train(ed, task, walk, steps, lr):
-    """A warmup train_loop step, then ``steps`` counted ones (B=BATCH, losses
-    read back every step) -> (walk, report with ms per step by CUDA events,
-    peak GB, launch counts, the first and last metrics)."""
+def _timed_train(ed, task, walk, steps, lr, loop=None, batch=BATCH):
+    """A warmup step of ``loop`` (train_loop by default), then ``steps``
+    counted ones (losses read back every step) -> (walk, report with ms per
+    step by CUDA events, peak GB, launch counts, the first and last
+    metrics)."""
     import torch
 
     from latent2im_tpu_torch import ops
     from latent2im_tpu_torch.engine.train import train_loop
     from latent2im_tpu_torch.walks import walk_leaves
 
-    run = dict(batch_size=BATCH, n_epochs=1, lr=lr, log_every=1)
-    walk, _ = train_loop(ed, task, walk, num_samples=BATCH, **run)
+    loop = loop or train_loop
+    run = dict(batch_size=batch, n_epochs=1, lr=lr, log_every=1)
+    walk, _ = loop(ed, task, walk, num_samples=batch, **run)
     torch.cuda.synchronize()
     before = [t.detach().clone() for t in walk_leaves(walk)]
     metrics = []
@@ -2623,8 +2643,8 @@ def _timed_train(ed, task, walk, steps, lr):
     ops.reset_launches()
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ev0.record()
-    walk, _ = train_loop(ed, task, walk, num_samples=steps * BATCH, seed=1,
-                         on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
+    walk, _ = loop(ed, task, walk, num_samples=steps * batch, seed=1,
+                   on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
     ev1.record()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -2632,7 +2652,7 @@ def _timed_train(ed, task, walk, steps, lr):
         math.isfinite(v) for m in metrics for v in m.values()), metrics
     moved = max((a.detach() - b).abs().max().item() for a, b in zip(walk_leaves(walk), before))
     assert moved > 0, "the walk did not move"
-    return walk, {"steps": steps, "batch": BATCH,
+    return walk, {"steps": steps, "batch": batch,
                   "step_ms_cuda_events": ev0.elapsed_time(ev1) / steps,
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "launches": counts, "walk_max_abs_change": moved,
@@ -2933,6 +2953,411 @@ def z_phases(card, dev, results):
             "launches": {"z_serve": z["serve_launches"], "z_train": z["train"]["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 29-32: the geometric and color walks, the dsprites sliders, LPIPS
+# and parity_check
+# ---------------------------------------------------------------------------
+
+GEO_TASKS = ("color", "colorlab", "zoom", "shiftx", "shifty", "rotate2d", "rotate3d")
+GEO_STEPS, GEO_EMBED_STEPS, GEO_HI_STEPS, GEO_BATCH_HI = 5, 3, 3, 8
+# A geometric target of G's image, card against CPU: a warp's coordinates
+# come from a 3x3 matrix product (cuBLAS on the card), the Lab round trip
+# from f32 powers and products; an ulp of either moves a target pixel by
+# ~1e-5 at unit scale (the JAX package's own eager and jitted colorlab
+# targets lie 1.2e-5 apart on the CPU, tests/test_torch_geometric.py). A
+# wrong pixel, matrix or colour space is off by O(0.1).
+GEO_TARGET_TOL = 1e-4
+# mask pixels that may differ between devices, as a share of the pixels:
+# none for the shifts and the colour tasks (exact by construction); a
+# borderline pixel of a rotation or zoom-out whose source coordinate lies
+# within a rounding of the border
+GEO_MASK_SHARE = {"zoom": 1e-3, "rotate2d": 1e-3, "rotate3d": 1e-3}
+
+
+def geo_conf(transform, *flags, size=None, batch=None, root=None, print_opt=False):
+    """Training options of a geometric task (linear_w; no D or VGG19: the
+    masked L2 uses neither)."""
+    return train_conf("--transform", transform, "--no_gan_loss", "--no_content_loss",
+                      *flags, size=size, batch=batch, root=root, print_opt=print_opt)
+
+
+def geometric_step_launches(size=SIZE):
+    """{kernel: launches per geometric training step} at ``size`` px: one
+    style MLP and two syntheses forward (apply_alpha's), the edited
+    synthesis backward, no tower (main_path_shapes' G terms)."""
+    n = dict.fromkeys(SOURCE, 0)
+    n["fused_act"] += 8  # the style MLP, once
+    for _ in range(3, int(math.log2(size)) + 1):  # 8 .. size px
+        n["fused_act"] += 2  # the up conv's activation, in both syntheses
+        n["upfirdn2d"] += 4  # its blur and to_rgb's skip upsample, x2
+        n["styled_conv3x3"] += 2
+        n["fused_act_bwd"] += 2  # the up conv's and the styled conv's
+        n["upfirdn2d_bwd"] += 2
+    n["styled_conv3x3"] += 2  # conv1 at 4 px
+    n["fused_act_bwd"] += 1
+    return n
+
+
+def geo_targets_check(name, task, imgs):
+    """The task's target and mask of the card's images [B, H, W, 3], on the
+    card against the plain version on the CPU (the same function on CPU
+    tensors), over a few draws of its alpha."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.tasks.geometric import device_target
+
+    rng = np.random.RandomState(60)
+    worst, flips, total = 0.0, 0, 0
+    for _ in range(4):
+        spec = task.device_spec(task.train_alpha_np(rng, imgs.shape[0])[1], imgs.shape[1])
+        got_t, got_m = device_target(spec, imgs)
+        want_t, want_m = device_target(spec, imgs.cpu())
+        assert got_t.device == imgs.device and torch.isfinite(got_t).all()
+        worst = max(worst, (got_t.cpu() - want_t).abs().max().item())
+        flips += int((got_m.cpu() != want_m).sum())
+        total += want_m.numel()
+    assert worst <= GEO_TARGET_TOL, (name, worst)
+    assert flips <= GEO_MASK_SHARE.get(name, 0.0) * total, (name, flips, total)
+    return {"target_max_abs_err": worst, "mask_flips": flips, "mask_pixels": total}
+
+
+def geo_reference_step(ed, w0, z, alpha_graph, spec, dtype):
+    """A geometric step's loss and walk gradient (linear_w) at walk w0,
+    composed here from G in ``dtype`` (an independent reference of
+    make_geometric_device_step's arithmetic)."""
+    import torch
+
+    from latent2im_tpu_torch.engine import losses as L
+    from latent2im_tpu_torch.tasks.geometric import device_target
+
+    dev = ed.device
+    z, a = (torch.as_tensor(x, dtype=dtype, device=dev) for x in (z, alpha_graph))
+    w = torch.as_tensor(w0, dtype=dtype, device=dev).requires_grad_(True)
+    with torch.no_grad():
+        latent = ed.g.style_forward(z)[:, None].expand(-1, ed.cfg.n_latent, -1)
+        target, mask = device_target(spec, ed.g.synthesize(latent).to(dtype))
+    img_new = ed.g.synthesize(latent + torch.einsum("ba,ald->bld", a, w)).to(dtype)
+    loss = L.masked_l2(img_new, target, mask)
+    loss.backward()
+    return loss.item(), w.grad.double().cpu().numpy().ravel()
+
+
+def geo_grad_phase(name):
+    """One geometric step (B=CMP_BATCH) of ``name`` through
+    make_geometric_device_step on the card and on the CPU from the same
+    seed, each against f64 on the CPU (geo_reference_step): the loss within
+    1e-3, the card's walk gradient within max(1e-3, 1.5 x the CPU's f32
+    error) (phase 9's bound)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_geometric_device_step, make_optimizer
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = geo_conf(name)
+    task = get_task(name)
+    alpha_graph, alpha_target = task.train_alpha_np(np.random.RandomState(62), CMP_BATCH)
+    spec = task.device_spec(alpha_target, SIZE)
+    res, out = {}, {"alpha": np.asarray(alpha_target).tolist()}
+    for device in ("cuda", "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        z = np.random.RandomState(61).randn(CMP_BATCH, ed.cfg.dim_z).astype(np.float32)
+        w0 = walk["w"].detach().cpu().numpy().copy()
+        walk["w"].requires_grad_(True)
+        step = make_geometric_device_step(ed, make_optimizer(walk, conf.learning_rate))
+        t0 = time.perf_counter()
+        m = step(walk, z, alpha_graph, spec)
+        res[device] = (float(m["loss"]), walk["w"].grad.detach().cpu().numpy().astype(
+            np.float64).ravel())
+        out[f"{device}_step_s"] = time.perf_counter() - t0
+        del step, walk
+    t0 = time.perf_counter()
+    ed.g.double()  # the CPU editor's G
+    ref_loss, ref_grad = geo_reference_step(ed, w0, z, alpha_graph, spec, torch.float64)
+    out["cpu_f64_reference_s"] = time.perf_counter() - t0
+    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    out.update(loss=ref_loss, loss_rel_card=abs(lg - ref_loss) / abs(ref_loss),
+               loss_rel_cpu=abs(lc - ref_loss) / abs(ref_loss),
+               walk_grad_rel_l2_card_f64=rel_l2(gg, ref_grad),
+               walk_grad_rel_l2_cpu_f64=rel_l2(gc, ref_grad),
+               walk_grad_rel_l2_card_cpu=rel_l2(gg, gc))
+    out["walk_grad_limit"] = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    assert out["loss_rel_card"] <= 1e-3 and out["loss_rel_cpu"] <= 1e-3, out
+    assert np.isfinite(gg).all() and np.abs(ref_grad).max() > 0
+    assert out["walk_grad_rel_l2_card_f64"] <= out["walk_grad_limit"], out
+    return out
+
+
+def geo_phase(dev):
+    """Phase 29: the seven geometric tasks at SIZE px, full width, linear_w,
+    B=BATCH: per task a warmup step and GEO_STEPS counted steps (ms, peak
+    GB, launches equal to GEO_STEPS x geometric_step_launches()), its target
+    and mask on the card against the CPU; zoom with --trainEmbed for
+    GEO_EMBED_STEPS steps; zoom's and colorlab's step against f64."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import geometric_train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import init_walk
+
+    per_step = geometric_step_launches()
+    conf = geo_conf("zoom")
+    t0 = time.perf_counter()
+    ed, _, info = build_editor_from_options(conf)  # cuda: the default
+    assert ed.d is None and ed.vgg is None and info["attr_list"] == ["zoom"]
+    out = {"build_s": time.perf_counter() - t0, "per_step_launches": per_step, "tasks": {}}
+    z = np.random.RandomState(63).randn(BATCH, ed.cfg.dim_z).astype(np.float32)
+    imgs = ed.synthesize(ed.get_w(z))
+    gen = torch.Generator().manual_seed(64)
+    for name in GEO_TASKS + ("zoom_embed",):
+        task_name, kind = (("zoom", "embed") if name == "zoom_embed" else (name, "linear_w"))
+        ed.cfg = dataclasses.replace(ed.cfg, attr_list=(task_name,), walk_kind=kind)
+        task = get_task(task_name)
+        walk = init_walk(kind, ed.cfg.dim_z, ed.cfg.n_latent, [task_name], generator=gen,
+                         device=ed.device)
+        steps = GEO_EMBED_STEPS if kind == "embed" else GEO_STEPS
+        walk, r = _timed_train(ed, task, walk, steps, conf.learning_rate,
+                               loop=geometric_train_loop)
+        expect = {k: steps * v for k, v in per_step.items()}
+        assert r["launches"] == expect, (name, r["launches"], expect)
+        if kind == "linear_w":
+            r["targets"] = geo_targets_check(name, task, imgs)
+        out["tasks"][name] = r
+    del ed, walk, imgs
+    torch.cuda.empty_cache()
+    out["grad"] = {name: geo_grad_phase(name) for name in ("zoom", "colorlab")}
+    return out
+
+
+def geo_hi_phase(dev):
+    """Phase 30: zoom at SIZE_HI px, B=GEO_BATCH_HI: a warmup step and
+    GEO_HI_STEPS counted ones (ms, peak GB, launches)."""
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import geometric_train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = geo_conf("zoom", size=SIZE_HI, batch=GEO_BATCH_HI)
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    out = {"build_s": time.perf_counter() - t0}
+    walk, r = _timed_train(ed, get_task("zoom"), walk, GEO_HI_STEPS, conf.learning_rate,
+                           loop=geometric_train_loop, batch=GEO_BATCH_HI)
+    expect = {k: GEO_HI_STEPS * v
+              for k, v in geometric_step_launches(SIZE_HI).items()}
+    assert r["launches"] == expect, (r["launches"], expect)
+    out.update(r)
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def geo_cli_phase():
+    """Phase 31: the geometric CLI at SIZE px in chiprun_out/geo_cli/:
+    ``cli.train --transform zoom`` (2 epochs of 2 steps, SIGTERM after the
+    third step, --resume to the final checkpoint, whose walk reloads bit for
+    bit), `python -m latent2im_tpu_torch.cli.vis_w` on that walk, the
+    server with --save_path_w answering one /edit of BATCH, and
+    ``--transform dsprites --attrList scale,posx`` for one epoch, whose
+    sliders the device sampler declines (host sampling). Host-clock
+    seconds per part."""
+    import io
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.cli.serve import build_service
+    from latent2im_tpu_torch.config.options import VisOptions
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+
+    root = os.path.join(REPO, "chiprun_out", "geo_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"seconds": {}}
+    fired = {"n": 0, "kill": True}
+    real_loop = tcli.geometric_train_loop
+
+    def loop(*a, **kw):  # SIGTERM after the 3rd step
+        on_step = kw["on_step"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            fired["n"] += 1
+            if fired["kill"] and fired["n"] == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kw.update(on_step=killing_on_step)
+        return real_loop(*a, **kw)
+
+    args = ["--num_samples", str(2 * BATCH), "--n_epochs", "2", "--model_save_freq", "1"]
+    t0 = time.perf_counter()
+    tcli.geometric_train_loop = loop
+    try:
+        opt = geo_conf("zoom", *args, root=root, print_opt=True)
+        _, first = tcli.run(opt)  # cuda: the entry point's default
+        preempted = ckpt.find_resume(opt.output_dir)
+        meta = ckpt.load_meta(preempted)
+        assert meta.get("preempted") is True and len(first) == 3, (preempted, meta, first)
+        fired["kill"] = False
+        walk, history = tcli.run(geo_conf("zoom", *args, "--resume", root=root))
+    finally:
+        tcli.geometric_train_loop = real_loop
+    torch.cuda.synchronize()
+    out["seconds"]["train_sigterm_resume"] = time.perf_counter() - t0
+    assert len(history) == 2 and all(math.isfinite(h) for h in history), history
+    final = os.path.join(opt.output_dir, "model_w_2_final_walk_module.ckpt")
+    back, _, _ = ckpt.load_walk(final, {"w": torch.zeros_like(walk["w"])})
+    assert torch.equal(back["w"], walk["w"].detach())
+    assert os.listdir(os.path.join(opt.output_dir, "results")) == []  # no sample grids
+    out.update(preempted_at=os.path.basename(preempted), preempt_meta=meta)
+
+    t0 = time.perf_counter()
+    vis_dir = os.path.join(root, "vis")
+    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                  "--output_dir", vis_dir, "--num_samples", "2", "--num_panels", "5",
+                  "--min_alpha", "0.5", "--max_alpha", "2")
+    try:
+        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["seconds"]["vis_w"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vo = VisOptions()
+    vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
+    vopt, conf = vo.parse([os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                           "--num_panels", str(PANELS), "--min_alpha", "0.5",
+                           "--max_alpha", "2"])
+    service = build_service(vopt, conf)
+    service.warmup()
+    assert torch.equal(service.walk["w"], walk["w"].detach())
+    with serving(service) as url:
+        reply, ims = _post(url + "/edit", {"seed": 5, "num_samples": BATCH, "alpha": 0.7})
+    assert len(ims) == BATCH and all(im.shape == (SIZE, SIZE, 3) for im in ims)
+    assert np.isfinite(reply["alpha_org"]).all()
+    out["seconds"]["serve_edit"] = time.perf_counter() - t0
+    del service
+
+    t0 = time.perf_counter()
+    note = io.StringIO()
+    with contextlib.redirect_stdout(note):
+        _, dhist = tcli.run(train_conf("--transform", "dsprites", "--attrList", "scale,posx",
+                                       "--num_samples", str(2 * BATCH), "--n_epochs", "1",
+                                       "--model_save_freq", "0", root=root))
+    torch.cuda.synchronize()
+    assert "falling back to host-numpy sampling" in note.getvalue(), note.getvalue()[-2000:]
+    assert len(dhist) == 2 and all(math.isfinite(h) for h in dhist), dhist
+    out["seconds"]["dsprites_epoch"] = time.perf_counter() - t0
+    out["dsprites_losses"] = dhist
+    return out
+
+
+def parity_phase(dev):
+    """Phase 32: ``python -m latent2im_tpu_torch.cli.parity_check``'s main:
+    ``record`` on the CPU, then ``compare`` on the card, with the same
+    weights (the build's seed) and z seed, and LPIPS with seeded heads and
+    a seeded vgg16 written here: max-abs, PSNR, the VGG-feature distance,
+    the score difference and LPIPS, within phase 6's card-against-CPU bounds
+    (images 1e-3 relative L2 and max-abs, scores 1e-3 of max(1, max|s|))."""
+    import contextlib as cl
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import parity_check
+    from latent2im_tpu_torch.models.lpips import LPIPS
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        net = LPIPS(generator=torch.Generator().manual_seed(65))
+        sd = net.state_dict()
+        lpips_path, vgg16_path = (os.path.join(root, f) for f in ("lpips_vgg.pth", "vgg16.pth"))
+        torch.save({k: v for k, v in sd.items() if k.startswith("lin")}, lpips_path)
+        torch.save({k[len("vgg."):]: v for k, v in sd.items() if k.startswith("vgg.")},
+                   vgg16_path)
+        ref = os.path.join(root, "cpu.npz")
+        flags = ["--resolution", str(SIZE), "--n", str(CMP_BATCH), "--seed", "66"]
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(text):
+            parity_check.main(["record", "--out", ref, "--device", "cpu", *flags])
+        out["record_cpu_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(text):
+            report = parity_check.main(["compare", "--ref", ref, *flags, "--lpips_path",
+                                        lpips_path, "--vgg16_path", vgg16_path])
+        out["compare_card_s"] = time.perf_counter() - t0
+        recorded = np.load(ref)
+        cpu_imgs, cpu_scores = recorded["images"], recorded["scores"]
+    assert "lpips:" in text.getvalue()
+    out.update(report)
+    # the images' relative L2 from the report's PSNR (an MSE over [-1, 1])
+    mse = 4.0 / 10 ** (report["psnr_db"] / 10)
+    out["images_rel_l2"] = math.sqrt(mse * cpu_imgs.size) / float(np.linalg.norm(cpu_imgs))
+    # phase 6's card-against-CPU bounds: images 1e-3 (relative L2, and here
+    # max-abs at their unit scale), scores 1e-3 of max(1, max|score|)
+    assert out["images_rel_l2"] < 1e-3 and report["max_abs_pixel_diff"] <= 1e-3, out
+    assert report["max_abs_score_diff"] <= 1e-3 * max(1.0, float(np.abs(cpu_scores).max())), out
+    assert all(math.isfinite(v) for k, v in report.items() if k != "psnr_db"), report
+    assert 0 <= report["lpips"] < 1e-4, report  # LPIPS of images this close
+    return out
+
+
+def geo_phases(card, dev):
+    """Phases 29-32 -> their reports and, under "launches", the counted
+    geometric steps' launch counts (geo_256: all tasks of phase 29,
+    geo_1024: phase 30)."""
+    import torch
+
+    log(f"[29] the geometric and color walks at {SIZE} px ({', '.join(GEO_TASKS)}), "
+        f"linear_w, B={BATCH}: steps, targets card against CPU, zoom --trainEmbed, "
+        "zoom's and colorlab's step against f64")
+    geo = geo_phase(dev)
+    for name, r in geo["tasks"].items():
+        log(f"    {name}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
+            f"{r['steps']}), peak {r['peak_mem_gb']:.2f} GB, loss {r['first']['loss']:.4f} -> "
+            f"{r['last']['loss']:.4f}; targets {json.dumps(r.get('targets'))}, on {card}")
+    log(f"    step against f64 {json.dumps(geo['grad'])}")
+    torch.cuda.empty_cache()
+
+    log(f"[30] zoom at {SIZE_HI} px, B={GEO_BATCH_HI}")
+    hi = geo_hi_phase(dev)
+    log(f"    {hi['step_ms_cuda_events']:.2f} ms per step (CUDA events over {hi['steps']}), "
+        f"peak {hi['peak_mem_gb']:.2f} GB, on {card}")
+    torch.cuda.empty_cache()
+
+    log("[31] the geometric CLI: train --transform zoom + SIGTERM + --resume, vis_w "
+        "(python -m), serve --save_path_w, --transform dsprites through the host sampler")
+    cli = geo_cli_phase()
+    log(f"    wall seconds {json.dumps(cli['seconds'])}; preempted at {cli['preempted_at']}, "
+        f"vis_w wrote {cli['vis_pngs']}, dsprites losses {cli['dsprites_losses']}, on {card}")
+    torch.cuda.empty_cache()
+
+    log("[32] parity_check: record on the CPU, compare on the card with LPIPS")
+    par = parity_phase(dev)
+    log(f"    {json.dumps(par)}, on {card}")
+    torch.cuda.empty_cache()
+    geo_counts = dict.fromkeys(SOURCE, 0)
+    for r in geo["tasks"].values():
+        for k, v in r["launches"].items():
+            geo_counts[k] += v
+    return {"geo": geo, "hi": hi, "cli": cli, "parity": par,
+            "launches": {"geo_256": geo_counts, "geo_1024": hi["launches"]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -3022,6 +3447,7 @@ def main() -> int:
     late = late_phases(card, dev, results, cli)
     gan = gan_phases(card, dev)
     zp = z_phases(card, dev, results)
+    geo = geo_phases(card, dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -3029,7 +3455,8 @@ def main() -> int:
                    **{k: v[n] for k, v in hi["launches"].items()},
                    **{k: v[n] for k, v in late["launches"].items()},
                    **{k: v[n] for k, v in gan["launches"].items()},
-                   **{k: v[n] for k, v in zp["launches"].items()}}
+                   **{k: v[n] for k, v in zp["launches"].items()},
+                   **{k: v[n] for k, v in geo["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3052,6 +3479,7 @@ def main() -> int:
               "late": {k: v for k, v in late.items() if k != "launches"},
               "gan": {k: v for k, v in gan.items() if k != "launches"},
               "z": {k: v for k, v in zp.items() if k != "launches"},
+              "geometric": {k: v for k, v in geo.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

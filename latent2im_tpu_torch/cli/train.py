@@ -23,6 +23,12 @@ BILINEAR filter. The GAN goes to ``model_gan_{n}_final.ckpt`` at the end and
 Adam states; its ``.meta.json`` counts the GAN steps taken, so ``--resume``
 also carries the fine-tune's random streams on where they stopped (the JAX
 package restarts them).
+
+``--transform color|colorlab|zoom|shiftx|shifty|rotate2d|rotate3d`` trains
+the walk on the masked L2 against a target warped or recoloured on the
+device (engine/train.py:geometric_train_loop), logging every step and
+saving no sample grids; ``--host_targets`` (the JAX package's cv2 host
+path) is refused.
 """
 
 from __future__ import annotations
@@ -40,9 +46,10 @@ from ..config.options import TrainOptions
 from ..device import resolve_device
 from ..engine.build import _not_ported, build_editor_from_options
 from ..engine.gan import GANModule, draw_eps, make_gan_update_steps
-from ..engine.train import make_optimizer, train_loop
+from ..engine.train import geometric_train_loop, make_optimizer, train_loop
 from ..io import checkpoint as ckpt
-from ..tasks.transforms import GEOMETRIC, get_task, task_kwargs_from_options
+from ..tasks.geometric import GEOMETRIC_TASKS
+from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils import image as imgmod
 from ..utils import logging as logmod
 from ..walks import walk_map
@@ -61,14 +68,15 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     for flag in ("n_devices", "sp_devices"):
         if (getattr(opt, flag, None) or 1) > 1:
             _not_ported(f"--{flag} > 1 (multi-device training)", "queue A item 15")
+    geometric = opt.transform in GEOMETRIC_TASKS
+    if geometric and getattr(opt, "host_targets", False):
+        _not_ported("--host_targets (the cv2 host targets of the geometric tasks)",
+                    "queue A item 24")
     output_dir = opt.output_dir
     os.makedirs(os.path.join(output_dir, "results"), exist_ok=True)
     os.makedirs(os.path.join(output_dir, "logs"), exist_ok=True)
     logmod.configure(os.path.join(output_dir, "log.txt"))
 
-    # a transform the port lacks (the geometric/color tasks, ROADMAP.md queue
-    # A item 12) raises here, before the towers are built
-    get_task(opt.transform)
     editor, walk_params, info = build_editor_from_options(opt, device=device)
     task = get_task(opt.transform, walk_type=opt.walk_type,
                     nsliders=len(info["attr_list"]), **task_kwargs_from_options(opt))
@@ -107,8 +115,11 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
             dt, epoch, i * batch, loss, metrics["alpha_target_mean"],
         )
         step_counter["n"] += 1
-        # an 'embed' walk ignores alpha, so apply_alpha refuses it: no grids
-        if save_freq and i % save_freq == 0 and editor.cfg.walk_kind != "embed":
+        # apply_alpha regresses attribute targets, meaningless for a pixel
+        # target (geometric grids come from vis_w), and an 'embed' walk
+        # ignores alpha, so apply_alpha refuses it: no grids for either
+        if (save_freq and i % save_freq == 0 and not geometric
+                and editor.cfg.walk_kind != "embed"):
             _save_samples(editor, current_walk, output_dir, epoch, i, batch)
 
     def on_epoch_end(epoch, wp, st):
@@ -138,23 +149,17 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     try:
         with logmod.profile_trace(getattr(opt, "profile_dir", "")):
-            walk_params, history = train_loop(
-                editor,
-                task,
-                walk_params,
-                num_samples=opt.num_samples,
-                batch_size=batch,
-                n_epochs=n_epochs,
-                lr=opt.learning_rate,
-                log_every=1,
-                on_step=on_step,
-                on_epoch_end=on_epoch_end,
-                start_epoch=start_epoch,
-                opt_state=opt_state,
-                stop_flag=lambda: stop_box["stop"],
-                on_preempt=on_preempt,
-                frozen_provider=gan,
-            )
+            run_kw = dict(num_samples=opt.num_samples, batch_size=batch, n_epochs=n_epochs,
+                          lr=opt.learning_rate, log_every=1, on_step=on_step,
+                          on_epoch_end=on_epoch_end, start_epoch=start_epoch,
+                          opt_state=opt_state, stop_flag=lambda: stop_box["stop"],
+                          on_preempt=on_preempt)
+            if geometric:
+                walk_params, history = geometric_train_loop(editor, task, walk_params,
+                                                            **run_kw)
+            else:
+                walk_params, history = train_loop(editor, task, walk_params,
+                                                  frozen_provider=gan, **run_kw)
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
         if writer is not None:
@@ -188,7 +193,7 @@ def _refuse_gan(opt):
                          "(the reference's PGGAN updateGAN path is dead code)")
     if opt.no_gan_loss:
         raise SystemExit("--updateGAN needs a discriminator; drop --no_gan_loss")
-    if opt.transform in GEOMETRIC:
+    if opt.transform in GEOMETRIC_TASKS:
         raise SystemExit("--updateGAN with a geometric transform is unsupported: the "
                          "masked-L2 walk objective has no GAN term")
     if not opt.real_data_dir:

@@ -1,7 +1,8 @@
 """Assemble an Editor + walk from parsed options — PyTorch port of
 latent2im_tpu/engine/build.py.
 
-options -> attribute vocabulary -> frozen generator, regressor, and for the
+options -> attribute vocabulary (for a geometric/color task, one slider
+named after it) -> frozen generator, regressor, and for the
 training losses the discriminator and VGG19 (loaded from PyTorch checkpoints
 with ``load_state_dict``, or randomly initialized at full width from
 ``seed`` with a loud warning; D and VGG19 are left out under --no_gan_loss
@@ -33,6 +34,7 @@ from ..models import pggan as pgg
 from ..models import resnet as rn
 from ..models import stylegan2 as sg2
 from ..models import vgg as vggm
+from ..tasks.geometric import GEOMETRIC_TASKS
 from ..walks import init_walk, resolve_walk_kind
 from .editor import Editor, EditorConfig, bilinear_resize
 
@@ -61,10 +63,17 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         model, opt.walk_type, latent, train_embed=opt.trainEmbed,
         is_mlp=getattr(opt, "is_mlp", False),
     )
-    attr_list, attr_table = attrs.build_attr_vocab(
-        opt.transform, attr_path=opt.attrPath, attr_list=opt.attrList
-    )
-    attr_idx = attrs.attr_indices(attr_list, attr_table)
+    if opt.transform in GEOMETRIC_TASKS:
+        # the geometric/color tasks have no regressor vocabulary: one slider
+        # named after the transform, a 1-output placeholder regressor head
+        # (the walk trains on the masked L2 and never consults it)
+        attr_list, attr_idx = [opt.transform], [0]
+        attr_table = {opt.transform: 0}
+    else:
+        attr_list, attr_table = attrs.build_attr_vocab(
+            opt.transform, attr_path=opt.attrPath, attr_list=opt.attrList
+        )
+        attr_idx = attrs.attr_indices(attr_list, attr_table)
     layers = attrs.parse_layers(opt.layers)
 
     gen = torch.Generator().manual_seed(seed)

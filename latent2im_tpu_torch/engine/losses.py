@@ -3,7 +3,8 @@ of latent2im_tpu/engine/losses.py.
 
 total = 10 * reg_BCE + 0.05 * VGG_content + 0.05 * GAN_BCE, with the
 --no_content_loss / --no_gan_loss ablations (when both are dropped the reg
-term is unweighted; pggan drops the weight when either is).
+term is unweighted; pggan drops the weight when either is). The geometric
+and color tasks train on ``masked_l2`` instead.
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def content_loss(vgg, org_img, edited_img, taps=vggm.CONTENT_TAPS):
     losses = [torch.mean(torch.square(f_org[t].float() - f_edi[t].float()))
               for t in taps]
     return sum(losses) / len(losses)
+
+
+def masked_l2(img, target, mask):
+    """The geometric tasks' pixel loss (transform_base.py:388-394 of the
+    reference): the squared difference inside the mask, summed, over the
+    mask's sum."""
+    diff = (img - target) * mask
+    return torch.sum(diff * diff) / torch.sum(mask)
 
 
 def combine(reg, content, gan, no_content_loss=False, no_gan_loss=False,

@@ -1,5 +1,7 @@
 """The walk-training step and epoch loop — PyTorch port of
-latent2im_tpu/engine/train.py (``make_train_step``, ``train_loop``).
+latent2im_tpu/engine/train.py (``make_train_step``, ``train_loop``, and for
+the geometric and color tasks ``make_geometric_device_step``,
+``geometric_train_loop``).
 
 One step is the reference's iteration (train.py:48-116 there): the original
 image and its attribute scores with no gradient, the walk moved by the delta
@@ -30,7 +32,16 @@ step index), so a resumed run replays the same stream. JAX keys cannot be
 reproduced; ``host_alpha=True`` takes the targets from the host instead
 (``Task.train_alpha_np``, bit-matching the JAX package) and
 ``EditorConfig.fixed_noise`` uses the stored noise maps, which is how
-the tests hold a step to the JAX step.
+the tests hold a step to the JAX step. A task whose device sampler cannot
+express the configured vocabulary (a dsprites --attrList subset) raises
+ValueError when ``train_loop`` probes it, and the loop samples on the host.
+
+The geometric and color tasks (tasks/geometric.py) train the walk on a
+pixel target instead: the original synthesis, its warped or recoloured
+target and mask built on the device from the task's ``device_spec``
+(tasks/warp.py), the edited synthesis, the masked L2 and Adam. Both
+syntheses use G's stored noise, as the JAX step passes no noise key, so the
+step is deterministic and holds to the JAX step step by step.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..tasks.geometric import device_target
 from ..tasks.transforms import Task
 from ..utils.remat import checkpoint
 from ..walks import walk_leaves
@@ -133,16 +145,120 @@ def make_train_step(editor: Editor, task: Task | None,
                           no_gan_loss=cfg.no_gan_loss,
                           pggan_gating=(cfg.model == "pggan"))
         total.backward()
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        _zero_missing_grads(optimizer)
         optimizer.step()
         return {"loss": total.detach(), "reg_loss": reg.detach(),
                 "content_loss": content.detach(), "gan_loss": gan.detach(),
                 "alpha_target_mean": target.mean()}
 
     return step
+
+
+def _zero_missing_grads(optimizer) -> None:
+    """A zero gradient for every tensor the loss does not reach, as jax.grad
+    gives, so that Adam steps every tensor as optax does."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+def make_geometric_device_step(editor: Editor, optimizer: torch.optim.Optimizer,
+                               train_embed: bool = False) -> Callable:
+    """-> step(walk_params, z, alpha_graph, spec, index=None) -> metrics, the
+    JAX package's step of the same name: with no gradient the original
+    synthesis and its target and mask from ``spec`` = (kind, payload,
+    clamp) of ``Task.device_spec``; then the walk-edited synthesis, the
+    masked L2 against that target, and one Adam step on the walk in place.
+    Both syntheses use G's stored noise. train_embed: ``index`` is the bank
+    entry of the first attribute's bank that the step trains. Metrics are
+    0-dim tensors on the device."""
+    embed_name = editor.cfg.attr_list[0] if train_embed else None
+
+    def step(walk_params, z, alpha_graph, spec, index=None):
+        if train_embed and index is None:
+            raise ValueError("train_embed step requires the bank index")
+        alpha_graph = editor._tensor(alpha_graph)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            latent = editor.edit_latent(z)
+            target, mask = device_target(spec, editor.synth(latent))
+        if train_embed:
+            latent_new = editor.edit(walk_params, latent, alpha_graph, name=embed_name,
+                                     index=index)
+        else:
+            latent_new = editor.edit(walk_params, latent, alpha_graph)
+        loss = L.masked_l2(editor.synth(latent_new), target, mask)
+        loss.backward()
+        _zero_missing_grads(optimizer)
+        optimizer.step()
+        return {"loss": loss.detach(), "alpha_target_mean": alpha_graph.mean()}
+
+    return step
+
+
+def geometric_train_loop(
+    editor: Editor,
+    task: Task,
+    walk_params: dict,
+    *,
+    num_samples: int,
+    batch_size: int,
+    n_epochs: int,
+    lr: float,
+    seed: int = 0,
+    log_every: int = 10,
+    on_step: Callable | None = None,
+    on_epoch_end: Callable | None = None,
+    start_epoch: int = 0,
+    opt_state: dict | None = None,
+    stop_flag: Callable | None = None,
+    on_preempt: Callable | None = None,
+) -> tuple[dict, list[float]]:
+    """The epoch loop of the geometric and color tasks around
+    ``make_geometric_device_step``, with ``train_loop``'s callback, resume
+    and preemption surface. Each epoch draws its z with ``sample_epoch_z``
+    and its sliders from RandomState(_alpha_seed(seed, epoch)) (one bank
+    index per step under --trainEmbed), so --resume restarts an epoch
+    reproducibly. The target is built for ``cfg.size``, G's resolution, as
+    the JAX package builds it (a PGGAN editor's images are half that).
+    Returns (walk_params, loss_history)."""
+    cfg = editor.cfg
+    for p in walk_leaves(walk_params):
+        p.requires_grad_(True)
+    optimizer = make_optimizer(walk_params, lr)
+    if opt_state is not None:
+        optimizer.load_state_dict(opt_state)
+    train_embed = cfg.walk_kind == "embed"
+    step = make_geometric_device_step(editor, optimizer, train_embed=train_embed)
+    history: list[float] = []
+    iters = num_samples // batch_size
+    for epoch in range(start_epoch, n_epochs):
+        zs = torch.from_numpy(sample_epoch_z(num_samples, cfg.dim_z, seed=epoch)).to(
+            editor.device)
+        rng = np.random.RandomState(_alpha_seed(seed, epoch))
+        for i in range(iters):
+            if stop_flag is not None and stop_flag():
+                if on_preempt is not None:
+                    on_preempt(epoch, walk_params, optimizer.state_dict())
+                return walk_params, history
+            t0 = time.time()
+            index = None
+            if train_embed:
+                alpha_graph, alpha_target, index = task.train_alpha_embed_np(rng, batch_size)
+            else:
+                alpha_graph, alpha_target = task.train_alpha_np(rng, batch_size)
+            metrics = step(walk_params, zs[i * batch_size:(i + 1) * batch_size],
+                           np.asarray(alpha_graph, np.float32),
+                           task.device_spec(alpha_target, cfg.size), index=index)
+            if on_step is not None or (log_every and i % log_every == 0):
+                metrics = {k: float(v) for k, v in metrics.items()}
+                history.append(metrics["loss"])
+                if on_step is not None:
+                    on_step(epoch, i, metrics, time.time() - t0, walk_params)
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, walk_params, optimizer.state_dict())
+    return walk_params, history
 
 
 def _alpha_seed(seed: int, epoch: int) -> int:
@@ -192,7 +308,9 @@ def train_loop(
     runs after each epoch. stop_flag() is polled between steps; when it
     trips, on_preempt(epoch, walk_params, opt_state) runs and the loop
     returns. host_alpha draws the targets with numpy per epoch
-    (RandomState(_alpha_seed(seed, epoch))) instead of on the device.
+    (RandomState(_alpha_seed(seed, epoch))) instead of on the device; the
+    loop turns it on itself when the task's device sampler declines the
+    vocabulary (ValueError, probed once on a generator of its own).
     frozen_provider(epoch, i) runs before each step, where the JAX package
     calls it: the --updateGAN fine-tune's D and G steps, which update the
     editor's frozen G and D in place for the walk step that follows. An
@@ -204,9 +322,18 @@ def train_loop(
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
     train_embed = editor.cfg.walk_kind == "embed"
+    n_attr = len(editor.cfg.attr_list)
+    if not (train_embed or host_alpha):
+        try:
+            task.train_alpha(torch.Generator(device=editor.device), 1, n_attr)
+        except ValueError as e:
+            # the vocabulary-mismatch signal (a dsprites --attrList subset);
+            # any other error is a sampler fault and raises
+            host_alpha = True
+            print(f"note: device alpha sampler declined ({e}); "
+                  "falling back to host-numpy sampling")
     step = make_train_step(editor, task, optimizer, host_alpha=host_alpha,
                            train_embed=train_embed)
-    n_attr = len(editor.cfg.attr_list)
     gen = torch.Generator(device=editor.device)
     history: list[float] = []
     iters = num_samples // batch_size
@@ -229,7 +356,8 @@ def train_loop(
             if train_embed:
                 sampled, _, index = task.train_alpha_embed_np(alpha_rng, batch_size, n_attr)
             elif host_alpha:
-                sampled, _ = task.train_alpha_np(alpha_rng, batch_size, n_attr)
+                sampled, _ = task.train_alpha_np(alpha_rng, batch_size, n_attr,
+                                                 attr_list=list(editor.cfg.attr_list))
             metrics = step(walk_params, zs[i * batch_size:(i + 1) * batch_size],
                            gen, sampled, index)
             if on_step is not None or (log_every and i % log_every == 0):

@@ -3,7 +3,7 @@
 Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator and
 init_discriminator, models/pggan.py and models/pgan_zoo.py's
 init_generator and init_discriminator, models/resnet.py:init_resnet50,
-models/vgg.py:init_vgg, models/facenet.py:init_facenet,
+models/vgg.py:init_vgg, models/lpips.py:init_lpips, models/facenet.py:init_facenet,
 walks/walks.py:init_walk, or the same trees converted from torch
 checkpoints), as numpy arrays. Output: state_dicts that
 the port's modules load with ``strict=True``. The layout rules are the inverse
@@ -356,3 +356,12 @@ def walk_from_jax(tree):
     if isinstance(tree, (list, tuple)):
         return [walk_from_jax(v) for v in tree]
     return _t(tree)
+
+
+def lpips_from_jax(tree) -> dict[str, torch.Tensor]:
+    """LPIPS pytree ({"vgg": vgg16 tree, "lins": [{"w": [C]}, ...]}) ->
+    models.lpips.LPIPS state_dict (the release's head names)."""
+    sd = {f"vgg.{k}": v for k, v in vgg_from_jax(tree["vgg"]).items()}
+    for i, lin in enumerate(tree["lins"]):
+        sd[f"lin{i}.model.1.weight"] = _t(lin["w"]).reshape(1, -1, 1, 1)
+    return sd

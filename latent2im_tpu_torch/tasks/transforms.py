@@ -1,5 +1,5 @@
 """Per-transform alpha semantics (copy of latent2im_tpu/tasks/transforms.py:
-25-196 for the attribute tasks).
+25-196; the geometric and color tasks are in tasks/geometric.py).
 
 Each task maps a scalar test alpha to the graph input; ``lo``/``hi`` record
 the transform's alpha range. Two training samplers, both one uniform draw
@@ -11,9 +11,12 @@ per attribute shared by the batch, as in the reference:
     ``torch.Generator``, on the generator's device.
 
 Both return (alpha_for_graph [B, A], alpha_for_target [A]);
-``test_alphas`` gives the eval CLI's panels. --trainEmbed draws one index
-into a discrete alpha ladder per step instead (``train_alpha_embed_np``). The geometric/color tasks and
-the dsprites slider composition wait for ROADMAP.md queue A item 12.
+``test_alphas`` gives the eval CLI's panels and ``vis_alphas`` a vis
+schedule. --trainEmbed draws one index into a discrete alpha ladder per
+step instead (``train_alpha_embed_np``). dsprites composes its sliders per
+factor (a scale ladder, two x sliders, posx, posy); its device sampler
+covers the 5-slider default vocabulary only and raises ValueError for
+another, which the training loop takes as the signal to sample on the host.
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ class Task:
         return slider, np.float32(alpha_val), index
 
     def train_alpha_np(self, rng: np.random.RandomState, batch: int,
-                       n_attr: int):
+                       n_attr: int, attr_list=None):
+        """attr_list: the configured attributes, which only dsprites'
+        composition reads."""
         a = rng.uniform(self.lo, self.hi, n_attr).astype(np.float32)
         return np.ones((batch, n_attr), np.float32) * a, a
 
@@ -69,6 +74,9 @@ class Task:
     def test_alphas(self):
         """The eval CLI's panel targets."""
         return np.linspace(0, 1, 10)
+
+    def vis_alphas(self, num_panels: int):
+        return np.linspace(0, 1, num_panels)
 
 
 class FaceTransform(Task):
@@ -98,15 +106,52 @@ class ChairTransform(Task):
 
 
 class DspritesTransform(Task):
+    """Composes per-factor sliders (transforms.py:785-861 of the reference):
+    'scale' draws from a discrete ladder {0.5 .. 1.0}, 'x' gives TWO U(-1, 1)
+    sliders, 'posx'/'posy' draw U(0, 1); 'y' gives no slider of its own, as
+    in the reference."""
+
     lo, hi = -1.0, 1.0
+    SCALE_LADDER = (0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 
-    def train_alpha_np(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the dsprites training sliders (a scale ladder, two x sliders) are "
-            "not ported yet (ROADMAP.md queue A item 12)"
+    def train_alpha(self, generator: torch.Generator, batch: int, n_attr: int = 5):
+        """The default 5-slider vocabulary (scale, x, y, posx, posy) on the
+        generator's device; another vocabulary raises ValueError."""
+        if n_attr != 5:
+            raise ValueError(
+                f"dsprites device sampler covers the default 5-slider vocabulary; "
+                f"got n_attr={n_attr} (train_loop falls back to the host sampler)")
+        dev = generator.device
+        ladder = torch.tensor(self.SCALE_LADDER, dtype=torch.float32, device=dev)
+        scale = ladder[torch.randint(len(self.SCALE_LADDER), (1,), generator=generator,
+                                     device=dev)]
+        u = torch.rand((4,), generator=generator, device=dev)
+        lo = torch.tensor([-1.0, -1.0, 0.0, 0.0], device=dev)
+        hi = torch.tensor([1.0, 1.0, 1.0, 1.0], device=dev)
+        a = torch.cat([scale, u * (hi - lo) + lo])
+        return a.expand(batch, n_attr), a
+
+    def train_alpha_np(self, rng, batch, n_attr=None, attr_list=None):
+        attr_list = attr_list or ["scale", "x", "y", "posx", "posy"]
+        alpha_vals, sliders = [], []
+        if "scale" in attr_list:
+            a = self.SCALE_LADDER[rng.choice(len(self.SCALE_LADDER))]
+            alpha_vals.append(a)
+            sliders.append(np.ones((batch, 1)) * a)
+        if "x" in attr_list:
+            for _ in range(2):
+                a = rng.uniform(-1, 1)
+                alpha_vals.append(a)
+                sliders.append(np.ones((batch, 1)) * a)
+        for name in ("posx", "posy"):
+            if name in attr_list:
+                a = rng.uniform(0, 1)
+                alpha_vals.append(a)
+                sliders.append(np.ones((batch, 1)) * a)
+        return (
+            np.hstack(sliders).astype(np.float32),
+            np.hstack([np.atleast_1d(v) for v in alpha_vals]).astype(np.float32),
         )
-
-    train_alpha = train_alpha_np
 
 
 TASKS = {
@@ -116,11 +161,6 @@ TASKS = {
     "chair": ChairTransform,
     "dsprites": DspritesTransform,
 }
-
-
-# the JAX package's geometric/color tasks (tasks/geometric.py there:
-# GEOMETRIC_TASKS), not ported yet (ROADMAP.md queue A item 12)
-GEOMETRIC = ("color", "colorlab", "zoom", "shiftx", "shifty", "rotate2d", "rotate3d")
 
 
 def task_kwargs_from_options(opt) -> dict:
@@ -140,7 +180,9 @@ def get_task(transform: str, walk_type: str = "linear", nsliders: int = 1,
              **kw) -> Task:
     if transform in TASKS:
         return TASKS[transform](walk_type=walk_type, nsliders=nsliders)
-    raise NotImplementedError(
-        f"transform '{transform}' is not ported yet (have {sorted(TASKS)}; "
-        "the geometric/color tasks are ROADMAP.md queue A item 12)"
-    )
+    from .geometric import GEOMETRIC_TASKS
+
+    if transform in GEOMETRIC_TASKS:
+        return GEOMETRIC_TASKS[transform](walk_type=walk_type, nsliders=nsliders, **kw)
+    raise KeyError(f"unknown transform '{transform}' "
+                   f"(have {sorted(TASKS) + sorted(GEOMETRIC_TASKS)})")

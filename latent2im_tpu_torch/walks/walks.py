@@ -225,8 +225,11 @@ def init_embed(dim_z, n_layers, attr_list, generator=None, device=None,
 def apply_embed(params, z, alpha, name=None, index=0, layers=None):
     """z += bank[index] summed over its sliders (transform_base.py:21-41);
     alpha is not used. ``name`` picks the attribute's bank, None the first
-    (--trainEmbed trains one attribute); ``index`` may be a tensor."""
+    (--trainEmbed trains one attribute); ``index`` may be a tensor. An index
+    past the bank takes its last entry, as the JAX package's indexing clamps
+    it (a geometric task's 15-step ladder over the 6-entry bank)."""
     bank = params["w"][name] if name is not None else next(iter(params["w"].values()))
+    index = torch.as_tensor(index, device=bank.device).clamp(max=bank.shape[0] - 1)
     return z + torch.sum(bank[index, 0], dim=-1)[None, :]
 
 

@@ -523,3 +523,43 @@ def test_pggan_editor_on_the_card_matches_the_cpu(dev):
         assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)
     assert abs(lg - lc) <= 1e-4 * abs(lc)
     assert float((gg - gc).norm() / gc.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["color", "colorlab", "zoom", "shiftx", "shifty", "rotate2d",
+                                  "rotate3d", "dsprites"])
+def test_geometric_samplers_and_targets_on_the_card_match_the_cpu(dev, name):
+    """The geometric tasks' targets and masks (tasks/warp.py's sampler) of the
+    same images on the card and on the CPU: targets within 1e-4 absolute
+    (chip_smoke.py GEO_TARGET_TOL: a matrix product's or a power's ulp moves
+    a pixel by ~1e-5), masks equal for the shifts and the colour tasks and
+    within 1e-3 of the pixels for the rotations and zoom-out. dsprites: its
+    torch.Generator sampler on the card composes the same sliders as on the
+    CPU (a ladder scale, x in [-1, 1] twice, posx and posy in [0, 1])."""
+    from latent2im_tpu_torch.tasks.geometric import device_target
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    task = get_task(name)
+    if name == "dsprites":
+        for device in (dev, torch.device("cpu")):
+            gen = torch.Generator(device=device).manual_seed(0)
+            a = torch.stack([task.train_alpha(gen, 2, 5)[1] for _ in range(200)]).cpu()
+            assert set(np.round(a[:, 0].numpy(), 6)) <= set(np.float32(task.SCALE_LADDER).round(6))
+            assert a[:, 1:3].abs().max() <= 1 and a[:, 3:].min() >= 0 and a[:, 3:].max() <= 1
+        with pytest.raises(ValueError):
+            task.train_alpha(torch.Generator(device=dev), 2, 3)
+        return
+    rng = np.random.RandomState(0)
+    y, x = np.mgrid[0:64, 0:64] / 64.0
+    imgs = np.stack([np.sin(2 * np.pi * (f * x + g * y)) for f, g in rng.uniform(0.5, 3, (6, 2))],
+                    -1).reshape(64, 64, 2, 3).transpose(2, 0, 1, 3).astype(np.float32) * 0.9
+    flips = total = 0
+    for _ in range(6):
+        spec = task.device_spec(task.train_alpha_np(rng, 2)[1], 64)
+        got_t, got_m = device_target(spec, torch.from_numpy(imgs).to(dev))
+        want_t, want_m = device_target(spec, torch.from_numpy(imgs))
+        assert got_t.device.type == "cuda"
+        assert (got_t.cpu() - want_t).abs().max().item() <= 1e-4
+        flips += int((got_m.cpu() != want_m).sum())
+        total += want_m.numel()
+    limit = 1e-3 * total if name in ("zoom", "rotate2d", "rotate3d") else 0
+    assert flips <= limit, (flips, total)

@@ -24,6 +24,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 from latent2im_tpu.models import stylegan2 as jsg2
 from latent2im_tpu_torch import ops
 from latent2im_tpu_torch.io import convert

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 from latent2im_tpu.cli import eval as jeval
 from latent2im_tpu.config.options import VisOptions as JVisOptions
 from latent2im_tpu.engine import evaluation as jev

@@ -28,7 +28,10 @@ from latent2im_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "latent2im_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "latent2im_tpu", "msgpack", "yaml", "PIL")
+# the GPU machine has none of these (nor cv2, which the JAX package's host
+# geometric targets need)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "latent2im_tpu", "msgpack", "yaml", "PIL",
+             "cv2")
 
 
 def _port_files():

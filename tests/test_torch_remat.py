@@ -27,6 +27,8 @@ import optax
 import pytest
 import torch
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 from latent2im_tpu.engine import train as jtrain
 from latent2im_tpu.engine.editor import Editor as JEditor
 from latent2im_tpu.engine.editor import EditorConfig as JEditorConfig

@@ -18,6 +18,7 @@ import PIL.Image
 import pytest
 import torch
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from test_torch_remat import SIZE, TERMS, jax_step, jax_world, port_editor, port_step
 
 from latent2im_tpu.engine.editor import Editor as JEditor

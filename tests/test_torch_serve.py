@@ -14,6 +14,8 @@ import urllib.request
 import numpy as np
 import pytest
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

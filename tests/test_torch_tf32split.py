@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cli import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
 from latent2im_tpu_torch import ops
 from latent2im_tpu_torch.ops.styled_conv import tf32_round, tf32_split
 
