@@ -10,8 +10,9 @@ edit server and the walk-training loop, at 256 px (phases 3-10) and at
 CLI); then the second derivatives a gradient penalty takes (16), W+
 inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20), the joint
 GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
-backends (25-28), and the geometric and color walks with the dsprites
-sliders, LPIPS and parity_check (29-32). Phases (a failed phase raises, and
+backends (25-28), the geometric and color walks with the dsprites
+sliders, LPIPS and parity_check (29-32), and bf16 compute, --bf16, with the
+kernels' bf16 instances (33-37). Phases (a failed phase raises, and
 the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -144,12 +145,30 @@ the script exits non-zero):
      host sampler; host-clock seconds;
  32. parity_check: record on the CPU, compare on the card with the same
      weights and seed, LPIPS with seeded heads written by the phase;
-     max-abs, PSNR, LPIPS; images and scores within phase 6's bounds.
+     max-abs, PSNR, LPIPS; images and scores within phase 6's bounds;
+ 33. the bf16 kernels (the five, bf16 in and out, f32 accumulation) at the
+     256 px B=4 and 1024 px B=8 main-path shapes against their plain bf16
+     versions (2^-8 of max|ref| for fused_act and upfirdn2d, 2^-7 for the
+     styled conv), timed as phase 3, bound at bf16 bytes and the styled
+     conv's 989 TFLOP/s dense bf16 rate, library calls in bf16;
+ 34. the 256 px edit server with --bf16: /edit of 4 (p50, img/s), the
+     launches of the f32 path, every one a bf16 instance's but the style
+     MLP's; apply_alpha B=4; the bf16 image against the f32 one; card
+     against CPU at B=1, both bf16, within 2e-2 relative L2;
+ 35. apply_alpha at 1024 px in bf16, B=32 (the JAX package's bench
+     configuration) and B=8: ms, img/s, peak GB;
+ 36. train_loop with --bf16 at 256 px B=4 and B=16, at 1024 px B=8; the bf16
+     walk gradient against an f64 reference on the card, within 1.5 x the
+     distance of the same step through the plain versions (floor 1e-3);
+ 37. --bf16 through the CLIs (chiprun_out/cli_bf16/): train + SIGTERM +
+     --resume, vis_w (python -m), /edit; --updateGAN, 3 iterations (ms per D
+     and G step); model_256 PGGAN apply_alpha and one step, no launch.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
 the towers are frozen), and holds its bias gradient apart at one shape.
-It ends with one JSON line of the kernels' numbers and, last, the line
+It ends with one JSON line of the kernels' numbers (the five f32 rows, then
+the five bf16 rows, "fused_act[bf16]", ...) and, last, the line
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -178,9 +197,17 @@ TRAIN_STEPS, TRAIN_WARMUP, CMP_BATCH = 10, 2, 2
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 # peak rate of the operations each kernel runs: the styled conv's f32
 # multiply-adds run as 3xTF32 on the tensor cores, the others on the CUDA cores
 FLOPS = {"styled_conv3x3": TF32_FLOPS / 3}
+# the bf16 instances (phase 33): the styled conv's bf16 products at the dense
+# bf16 rate; of max|ref| against the plain version on the same bf16 tensors:
+# one bf16 ulp where two f32 sums round either side (#1-#4), and for the
+# styled conv its f32 accumulation in another order than cuDNN's (#5)
+FLOPS_BF16 = {"styled_conv3x3": BF16_FLOPS}
+TOL_BF16 = {"fused_act": 2.0 ** -8, "fused_act_bwd": 2.0 ** -8, "upfirdn2d": 2.0 ** -8,
+            "upfirdn2d_bwd": 2.0 ** -8, "styled_conv3x3": 2.0 ** -7}
 # of max|ref|; the styled conv reads ~4e-6 from its plain version (cuDNN's
 # f32, itself 2e-6-4e-6 from f64), a variant without the flush of its
 # partial sums ~4e-5 (it failed phase 9's walk gradient)
@@ -281,11 +308,13 @@ def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS) -> tup
 # ---------------------------------------------------------------------------
 
 
-def main_path_shapes(size=SIZE, b=BATCH):
+def main_path_shapes(size=SIZE, b=BATCH, mlp: bool = True):
     """{(kernel, case): [launches per apply_alpha, launches per training
     step]} at ``size`` px, batch ``b``. One apply_alpha = one style MLP
     (get_w) + two syntheses; one training step = the same forward, D on the
     edited image, and the backward of the edited synthesis and of D.
+    mlp=False leaves out the style MLP's 8 fused_act launches (f32 under
+    --bf16, which computes only the towers in bf16).
 
     Cases: fused_act / fused_act_bwd the shape; upfirdn2d / upfirdn2d_bwd
     (B, H, W, C, up, pad, gain) of the forward call (down is 1 on both
@@ -303,7 +332,8 @@ def main_path_shapes(size=SIZE, b=BATCH):
         train[key] += n_train
 
     # style MLP (8 layers); D's final_linear.0 has the same shape
-    add(("fused_act", (b, 512)), 8, 9)
+    n_mlp = 8 if mlp else 0
+    add(("fused_act", (b, 512)), n_mlp, n_mlp + 1)
     for r in res:
         # up styled conv (x2 forward), its act and blur backward (edited)
         add(("fused_act", (b, r, r, ch[r])), 2, 2)
@@ -354,82 +384,93 @@ def _upfirdn_library(x_nhwc, k, up, down, pads):
     return lambda: F.conv_transpose2d(x, ke, stride=2, padding=1, groups=c)
 
 
-def kernel_cases(name, case, gen, dev):
+def kernel_cases(name, case, gen, dev, dtype=None):
     """-> (kernel call, plain call, library call, bytes, flops, f64 call or
     None, the input tensor). Calls return a tensor or a tuple of tensors;
     the f64 call is the plain version on the same inputs in f64 (the styled
-    conv's)."""
+    conv's, in f32). dtype bf16: the activations (and the styled conv's w,
+    s, d and noise) in bf16, biases and noise_w f32, the library call in
+    bf16, bytes at 2 per bf16 element."""
     import torch
     import torch.nn.functional as F
 
     from latent2im_tpu_torch import ops
     from latent2im_tpu_torch.ops.upfirdn2d import out_size
 
+    dtype = dtype or torch.float32
+    esz = torch.finfo(dtype).bits // 8
+
     def randn(*s):
         return torch.randn(s, generator=gen, device=dev)
+
+    def act(*s):
+        return randn(*s).to(dtype)
 
     sqrt2 = math.sqrt(2.0)
     if name == "fused_act":
         shape = case
-        x, b = randn(*shape), 0.1 * randn(shape[-1])
+        x, b = act(*shape), 0.1 * randn(shape[-1])
         n = x.numel()
         return (lambda: ops.fused_leaky_relu(x, b),
                 lambda: ops.fused_leaky_relu_plain(x, b),
-                lambda: F.leaky_relu(x + b, 0.2) * sqrt2,
-                8 * n + 4 * b.numel(), 3 * n, None, x)
+                lambda: F.leaky_relu(x + b.to(dtype), 0.2) * sqrt2,
+                2 * esz * n + 4 * b.numel(), 3 * n, None, x)
     if name == "fused_act_bwd":
         # dx only, as both main paths call it: G, D and the towers are
         # frozen, so no bias gradient is asked for (fused_act_db_check holds
         # db apart)
         shape = case
-        g, out = randn(*shape), randn(*shape)
+        g, out = act(*shape), act(*shape)
         n = g.numel()
         return (lambda: ops.fused_leaky_relu_bwd(g, out, bias_grad=False)[0],
                 lambda: ops.fused_leaky_relu_bwd_plain(g, out, bias_grad=False)[0],
                 lambda: torch.where(out > 0, g, 0.2 * g) * sqrt2,
-                12 * n, 2 * n, None, g)
+                3 * esz * n, 2 * n, None, g)
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         bsz, h, w, c, up, pad, gain = case
         k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
         pads = (pad[0], pad[1], pad[0], pad[1])
         oh, ow = (out_size(n, up, 1, pad[0], pad[1], 4) for n in (h, w))
         if name == "upfirdn2d":
-            x = randn(bsz, h, w, c)
+            x = act(bsz, h, w, c)
             out_n = bsz * oh * ow * c
             return (lambda: ops.upfirdn2d(x, k, up=up, pad=pad),
                     lambda: ops.upfirdn2d_plain(x, k, up=up, pad=pad),
-                    _upfirdn_library(x, k, up, 1, pads),
-                    4 * (x.numel() + out_n + 16), 2 * (16 // (up * up)) * out_n, None, x)
-        g = randn(bsz, oh, ow, c)
+                    _upfirdn_library(x, k.to(dtype), up, 1, pads),
+                    esz * (x.numel() + out_n) + 64, 2 * (16 // (up * up)) * out_n, None, x)
+        g = act(bsz, oh, ow, c)
         gup, gdown, gpads = ops.transposed_params((4, 4), up, 1, pad, (h, w), (oh, ow))
         kf = torch.flip(k, (0, 1))
         in_n = bsz * h * w * c
         return (lambda: ops.upfirdn2d_bwd(g, k, up, 1, pad, (h, w)),
                 lambda: ops.upfirdn2d_plain(g, kf, gup, gdown, gpads),
-                _upfirdn_library(g, kf, gup, gdown, gpads),
-                4 * (g.numel() + in_n + 16), 2 * 16 * in_n, None, g)
+                _upfirdn_library(g, kf.to(dtype), gup, gdown, gpads),
+                esz * (g.numel() + in_n) + 64, 2 * 16 * in_n, None, g)
     bsz, h, cin, cout = case
-    x = randn(bsz, h, h, cin)
-    w = randn(3, 3, cin, cout) / math.sqrt(9 * cin)
-    s = 1.0 + 0.2 * randn(bsz, cin)
-    d = torch.rsqrt(s.square() @ w.square().sum((0, 1)) + 1e-8)
-    noise, nw, bias = randn(1, h, h), torch.full((1,), 0.3, device=dev), 0.1 * randn(cout)
+    x = act(bsz, h, h, cin)
+    w = (randn(3, 3, cin, cout) / math.sqrt(9 * cin)).to(dtype)
+    s = (1.0 + 0.2 * randn(bsz, cin)).to(dtype)
+    d = torch.rsqrt(s.float().square() @ w.float().square().sum((0, 1)) + 1e-8).to(dtype)
+    noise, nw, bias = act(1, h, h), torch.full((1,), 0.3, device=dev), 0.1 * randn(cout)
     x_nchw = x.permute(0, 3, 1, 2).contiguous()
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
 
-    def library():  # the rosinality grouped-conv form
-        wt = w_oihw[None] * s[:, None, :, None, None] * d[:, :, None, None, None]
+    def library():  # the rosinality grouped-conv form, in x's dtype
+        wt = (w_oihw[None].float() * s.float()[:, None, :, None, None]
+              * d.float()[:, :, None, None, None]).to(dtype)
         out = F.conv2d(x_nchw.reshape(1, bsz * cin, h, h),
                        wt.reshape(bsz * cout, cin, 3, 3), padding=1, groups=bsz)
-        out = out.view(bsz, cout, h, h) + nw * noise[:, None] + bias[:, None, None]
+        out = (out.view(bsz, cout, h, h) + nw.to(dtype) * noise[:, None]
+               + bias.to(dtype)[:, None, None])
         return F.leaky_relu(out, 0.2) * sqrt2
 
     args = (x, w, s, d, noise, nw, bias)
-    nbytes = 4 * (x.numel() + w.numel() + s.numel() + d.numel() + noise.numel()
-                  + 1 + cout + bsz * h * h * cout)
+    nbytes = (esz * (x.numel() + w.numel() + s.numel() + d.numel() + noise.numel()
+                     + bsz * h * h * cout) + 4 * (1 + cout))
+    f64 = ((lambda: ops.styled_conv3x3_plain(*(a.double() for a in args)))
+           if dtype == torch.float32 else None)
     return (lambda: ops.styled_conv3x3(*args), lambda: ops.styled_conv3x3_plain(*args),
-            library, nbytes, 2 * bsz * h * h * 9 * cin * cout,
-            lambda: ops.styled_conv3x3_plain(*(a.double() for a in args)), x)
+            library, nbytes, 2 * bsz * h * h * 9 * cin * cout, f64, x)
 
 
 def kernel_variant(name, case, inp, got):
@@ -440,7 +481,7 @@ def kernel_variant(name, case, inp, got):
 
     if name == "styled_conv3x3":
         bsz, h, cin, cout = case
-        return ops.styled_conv3x3_plan(bsz, h, h, cin, cout)
+        return ops.styled_conv3x3_plan(bsz, h, h, cin, cout, inp.dtype)
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         up = case[4]  # the gradient is the op with up and down swapped
         form = ops.upfirdn2d_form(inp, got, (4, 4), *((up, 1) if name == "upfirdn2d"
@@ -455,7 +496,8 @@ def _max_err(got, want):
     """(max abs error, max |reference|) over a result or tuple of results."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(got, want)]
+    errs = [((a.float() - b.float()).abs().max().item(), b.float().abs().max().item())
+            for a, b in zip(got, want)]
     return max(e for e, _ in errs), min(m for _, m in errs)
 
 
@@ -477,12 +519,16 @@ def fused_act_db_check(gen, dev):
     return err
 
 
-def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
+def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25, dtype=None):
     """Per kernel, per main path at ``size`` px, batch ``batch``: launches
     and the sums over shapes of launches x (kernel, plain, library, bound)
-    ms. Each call is timed as the median of ``iters`` CUDA-event times."""
+    ms. Each call is timed as the median of ``iters`` CUDA-event times.
+    dtype bf16: the bf16 instances at the same shapes (phase 33), the style
+    MLP's f32 launches left out, held to TOL_BF16, bound at FLOPS_BF16."""
     import torch
 
+    bf16 = dtype == torch.bfloat16
+    tol, flops_of = (TOL_BF16, FLOPS_BF16) if bf16 else (TOL, FLOPS)
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {n: {p: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
@@ -491,8 +537,9 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
                for n in SOURCE}
     max_err = dict.fromkeys(SOURCE, 0.0)
     details = []
-    for (name, case), counts in sorted(main_path_shapes(size, batch).items(), key=str):
-        kern, plain, lib, nbytes, flops, f64, inp = kernel_cases(name, case, gen, dev)
+    for (name, case), counts in sorted(main_path_shapes(size, batch, mlp=not bf16).items(),
+                                       key=str):
+        kern, plain, lib, nbytes, flops, f64, inp = kernel_cases(name, case, gen, dev, dtype)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
@@ -502,16 +549,16 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
             ref = f64()
             to_f64 = {k: (v.double() - ref).abs().max().item() / ref.abs().max().item()
                       for k, v in (("kernel", got), ("plain", want))}
-        if not (math.isfinite(err) and err <= TOL[name] * scale):
+        if got.dtype != want.dtype or not (math.isfinite(err) and err <= tol[name] * scale):
             raise AssertionError(
-                f"{name} {case}: max abs err {err:.3e} > {TOL[name]} * "
+                f"{name} {case} {got.dtype}: max abs err {err:.3e} > {tol[name]} * "
                 f"max|ref| {scale:.3e}")
         max_err[name] = max(max_err[name], err)
         t_k, t_p, t_l = (time_ms(f, iters=iters) for f in (kern, plain, lib))
         t_d = device_ms(kern)
-        rate = FLOPS.get(name, F32_FLOPS)
+        rate = flops_of.get(name, F32_FLOPS)
         b_ms, _ = bound_ms(nbytes, flops, rate)
-        f32_ms = bound_ms(nbytes, flops)[0] if rate != F32_FLOPS else None
+        f32_ms = bound_ms(nbytes, flops)[0] if rate != F32_FLOPS and not bf16 else None
         variant = kernel_variant(name, case, inp, got)
         if variant is not None:
             log(f"    {name} {case}: {variant}; {t_k:.4f} ms (device {t_d:.4f}), "
@@ -521,6 +568,7 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
             log(f"    {name} {case}: max error / max|ref| against f64: kernel "
                 f"{to_f64['kernel']:.3e}, plain (cuDNN f32) {to_f64['plain']:.3e}")
         details.append({"kernel": name, "size": size, "case": repr(case), "variant": variant,
+                        "dtype": str(inp.dtype),
                         "err_to_f64": to_f64,
                         "f32_bound_ms": f32_ms,
                         "launches_per_apply_alpha": counts[0],
@@ -540,7 +588,7 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
             r["ops_ms"] += n * flops / rate * 1e3
             r["launches"] += n
         del kern, plain, lib, f64, inp, got, want, ref
-    if size == SIZE:
+    if size == SIZE and not bf16:
         details.append({"kernel": "fused_act_bwd", "case": "with db (not on a main path)",
                         "max_abs_err": fused_act_db_check(gen, dev)})
     torch.cuda.empty_cache()
@@ -549,7 +597,8 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25):
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
         r = paths["train_step"]
         a = paths["apply_alpha"]
-        log(f"  {name} ({size} px, B={batch}): max abs err {max_err[name]:.3e}; per training step "
+        log(f"  {name} ({size} px, B={batch}, {str(dtype or torch.float32)[6:]}): max abs err "
+            f"{max_err[name]:.3e}; per training step "
             f"{r['launches']} launches, {r['ms']:.4f} ms (device {r['device_ms']:.4f}, plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}; share of bound {r['bound_ms'] / r['ms']:.0%}, "
@@ -701,7 +750,8 @@ def serve_phase(results, dev):
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match
-    ("styled_conv3x3 (ours)", ("styled_conv_tc_kernel", "styled_conv_splitk_reduce_kernel")),
+    ("styled_conv3x3 (ours)", ("styled_conv_tc_kernel", "styled_conv_bf16_kernel",
+                               "styled_conv_splitk_reduce_kernel")),
     ("upfirdn2d (ours, forward and backward)", ("upfirdn2d_tiled_kernel",)),
     ("fused_act backward (ours)", ("fused_act_bwd_kernel",)),
     ("fused_act (ours)", ("fused_act_kernel",)),
@@ -2038,11 +2088,12 @@ def _moved(before, after) -> float:
     return max((after[n].detach() - t).abs().max().item() for n, t in before.items())
 
 
-def gan_train_phase(dev):
+def gan_train_phase(dev, *flags, iters=GAN_ITERS):
     """--updateGAN at 256 px, B=4, full width: the CLI's provider
     (cli/train.py:_make_gan_provider, real PNGs written here) before each
-    train_loop step; a warmup iteration, then GAN_ITERS counted and timed
-    ones. G's noise weights NOISE_WEIGHT, so the noise maps get a gradient."""
+    train_loop step; a warmup iteration, then ``iters`` counted and timed
+    ones. G's noise weights NOISE_WEIGHT, so the noise maps get a gradient.
+    ``flags`` are further options (--bf16 in phase 37)."""
     import torch
 
     from latent2im_tpu_torch import ops
@@ -2052,7 +2103,7 @@ def gan_train_phase(dev):
     from latent2im_tpu_torch.tasks.transforms import get_task
 
     real_dir = _gan_pngs(os.path.join(REPO, "chiprun_out", "gan", "real"))
-    conf = train_conf("--updateGAN", "--real_data_dir", real_dir,
+    conf = train_conf("--updateGAN", "--real_data_dir", real_dir, *flags,
                       root=os.path.join(REPO, "chiprun_out", "gan"))
     t0 = time.perf_counter()
     ed, walk, _ = build_editor_from_options(conf)
@@ -2088,34 +2139,35 @@ def gan_train_phase(dev):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     t0 = time.perf_counter()
     ev[0].record()
-    walk, _ = train_loop(ed, task, walk, num_samples=GAN_ITERS * BATCH, seed=1,
+    walk, _ = train_loop(ed, task, walk, num_samples=iters * BATCH, seed=1,
                          on_step=lambda e, i, m, dt, wp: metrics.append(m), **run)
     ev[1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    expect = {k: GAN_ITERS * v for k, v in per_iter.items()}
+    expect = {k: iters * v for k, v in per_iter.items()}
     assert counts == expect and all(v > 0 for v in counts.values()), (counts, expect)
     gan_m = [{k: v.item() for k, v in m.items()} for key in ("d", "g")
              for _, m in timings[key]]
-    assert len(timings["d"]) == len(timings["g"]) == GAN_ITERS, timings
+    assert len(timings["d"]) == len(timings["g"]) == iters, timings
     assert all(math.isfinite(v) for m in gan_m + metrics for v in m.values()), (gan_m, metrics)
     noise = {n: t for n, t in g0.items() if n.startswith("noises.")}
-    out = {"iterations": GAN_ITERS, "batch": BATCH,
-           "iteration_ms_cuda_events": ev[0].elapsed_time(ev[1]) / GAN_ITERS,
+    out = {"iterations": iters, "batch": BATCH,
+           "iteration_ms_cuda_events": ev[0].elapsed_time(ev[1]) / iters,
            "d_step_ms_cuda_events": statistics.mean(
                e[0].elapsed_time(e[1]) for e, _ in timings["d"]),
            "g_step_ms_cuda_events": statistics.mean(
                e[0].elapsed_time(e[1]) for e, _ in timings["g"]),
-           "samples_per_s": GAN_ITERS * BATCH / wall,
+           "samples_per_s": iters * BATCH / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": counts, "launches_per_iteration": per_iter,
+           "launches_bf16": ops.launch_counts(bf16=True),
            "moved": {"g": _moved(g0, dict(ed.g.named_parameters())),
                      "d": _moved(d0, dict(ed.d.named_parameters())),
                      "g_running": _moved(ema0, mod.g_running),
                      "noise_maps": _moved(noise, dict(ed.g.named_parameters()))},
-           "gan_first": {**gan_m[0], **gan_m[GAN_ITERS]},
-           "gan_last": {**gan_m[GAN_ITERS - 1], **gan_m[-1]},
+           "gan_first": {**gan_m[0], **gan_m[iters]},
+           "gan_last": {**gan_m[iters - 1], **gan_m[-1]},
            "walk_last": metrics[-1]}
     assert all(v > 0 for v in out["moved"].values()), out["moved"]
     assert not any(p.requires_grad for m in (ed.g, ed.d) for p in m.parameters())
@@ -2655,7 +2707,8 @@ def _timed_train(ed, task, walk, steps, lr, loop=None, batch=BATCH):
     return walk, {"steps": steps, "batch": batch,
                   "step_ms_cuda_events": ev0.elapsed_time(ev1) / steps,
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                  "launches": counts, "walk_max_abs_change": moved,
+                  "launches": counts, "launches_bf16": ops.launch_counts(bf16=True),
+                  "walk_max_abs_change": moved,
                   "first": metrics[0], "last": metrics[-1]}
 
 
@@ -3358,6 +3411,424 @@ def geo_phases(card, dev):
             "launches": {"geo_256": geo_counts, "geo_1024": hi["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 33-37: bf16 compute (--bf16)
+# ---------------------------------------------------------------------------
+
+# the JAX package's bench configurations in bf16 (bench.py:72-79): the 1024 px
+# edit at B=32 and the 256 px training at B=16
+BF16_EDIT_BATCH_HI, BF16_TRAIN_BATCH = 32, 16
+BF16_REQUESTS, BF16_STEPS, BF16_HI_STEPS, BF16_GAN_ITERS = 5, 5, 3, 3
+# images card against CPU, both bf16: tests/helpers.py's TPU-class gate
+# (relative L2), which tests/test_torch_bf16.py applies to the JAX package's
+# bf16; the scores to the same share of max(1, |score|)
+BF16_IMG_REL_L2 = 0.02
+MLP_FUSED_ACT = 8  # the style MLP's fused_act launches per get_w: f32 under --bf16
+
+
+def bf16_conf(*flags, size=None, batch=None, root=None, print_opt=False):
+    return train_conf("--bf16", *flags, size=size, batch=batch, root=root,
+                      print_opt=print_opt)
+
+
+def _bf16_only(counts, counts_bf16, mlp_fused_act):
+    """Every launch is a bf16 instance's but the style MLP's f32 fused_act."""
+    want = {**counts, "fused_act": counts["fused_act"] - mlp_fused_act}
+    assert counts_bf16 == want, (counts, counts_bf16, mlp_fused_act)
+
+
+def bf16_serve_phase(results, dev):
+    """Phase 34: the SIZE px edit server with --bf16: BF16_REQUESTS /edit of
+    BATCH over HTTP (p50, img/s; the launches of as many f32 apply_alpha
+    calls, all bf16 instances but the style MLP's), apply_alpha at B=BATCH
+    by CUDA events; at B=1 the bf16 image's distance from the f32 one (the
+    same editor with compute_dtype f32) and the card against the CPU, both
+    bf16."""
+    import argparse
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli.serve import build_service
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    conf = bf16_conf()
+    opt = argparse.Namespace(save_path_w=None, save_path_gan=None, attrList=None, attrPath="",
+                             num_panels=PANELS, min_alpha=0.0, max_alpha=1.0, serve_batch=BATCH)
+    t0 = time.perf_counter()
+    service = build_service(opt, conf)  # cuda: the entry point's default
+    ed = service.ed
+    assert ed.cfg.compute_dtype == torch.bfloat16 and ed.device.type == dev.type
+    service.warmup()
+    torch.cuda.synchronize()
+    out = {"build_and_warmup_s": time.perf_counter() - t0}
+    per_alpha = {n: r["apply_alpha"]["launches"] for n, r in results.items()}
+    with serving(service) as url:
+        ops.reset_launches()
+        lat, n_img = [], 0
+        t_all = time.perf_counter()
+        for i in range(BF16_REQUESTS):
+            t = time.perf_counter()
+            reply = _request(url + "/edit", {"seed": 60 + i, "num_samples": BATCH,
+                                             "alpha": 0.7})
+            lat.append((time.perf_counter() - t) * 1e3)
+            n_img += len(reply["images"])
+        wall = time.perf_counter() - t_all
+        torch.cuda.synchronize()
+        counts, counts_bf16 = ops.launch_counts(), ops.launch_counts(bf16=True)
+    expect = {k: BF16_REQUESTS * v for k, v in per_alpha.items()}
+    assert counts == expect, (counts, expect)
+    _bf16_only(counts, counts_bf16, BF16_REQUESTS * MLP_FUSED_ACT)
+    assert n_img == BF16_REQUESTS * BATCH
+    assert all(math.isfinite(v) for a in reply["alpha_org"] for v in a)
+    z = np.random.RandomState(61).randn(BATCH, service.dim_z).astype(np.float32)
+    a = np.full((BATCH,), 0.7, np.float32)
+    out.update(p50_request_ms=statistics.median(lat), img_per_s=n_img / wall,
+               requests=len(lat), launches=counts, launches_bf16=counts_bf16,
+               apply_alpha_b4_ms=time_ms(lambda: ed.apply_alpha(service.walk, z, a, u8=True),
+                                         warmup=2, iters=10),
+               profile=profile_call(lambda: ed.apply_alpha(service.walk, z, a, u8=True),
+                                    "apply_alpha_bf16_trace.json"))
+    z1 = np.random.RandomState(7).randn(1, service.dim_z).astype(np.float32)
+    a1 = np.asarray([0.8], np.float32)
+    ge, ga, go = (v.cpu().numpy() for v in ed.apply_alpha(service.walk, z1, a1))
+    cfg = ed.cfg
+    ed.cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    try:
+        fe, fa, fo = (v.cpu().numpy() for v in ed.apply_alpha(service.walk, z1, a1))
+    finally:
+        ed.cfg = cfg
+    out["bf16_vs_f32"] = {"edited_rel_l2": rel_l2(ge, fe), "orig_rel_l2": rel_l2(go, fo),
+                          "alpha_org_abs": float(np.abs(ga - fa).max()),
+                          "alpha_org_f32": float(fa[0, 0])}
+    t = time.perf_counter()
+    cpu_ed, cpu_walk, _ = build_editor_from_options(conf, device="cpu")
+    ce, ca, co = (v.numpy() for v in cpu_ed.apply_alpha(cpu_walk, z1, a1))
+    out["cpu_apply_alpha_s"] = time.perf_counter() - t
+    for name, g, c in (("edited", ge, ce), ("orig", go, co)):
+        assert np.isfinite(g).all() and g.shape == (1, SIZE, SIZE, 3)
+        out[f"card_vs_cpu_{name}_rel_l2"] = rel = rel_l2(g, c)
+        assert rel < BF16_IMG_REL_L2, (name, rel)
+    out["card_vs_cpu_alpha_org_abs"] = err = float(np.abs(ga - ca).max())
+    assert err <= BF16_IMG_REL_L2 * max(1.0, float(np.abs(ca).max())), (ga, ca)
+    del service, ed, cpu_ed
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_edit_1024_phase(dev):
+    """Phase 35: the JAX package's own edit configuration, apply_alpha at
+    SIZE_HI px in bf16 (bench.py:72-73,302): B=BF16_EDIT_BATCH_HI and
+    B=BATCH_HI, ms by CUDA events, img/s, peak GB."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    conf = bf16_conf("--no_gan_loss", "--no_content_loss", size=SIZE_HI, batch=BATCH_HI)
+    t0 = time.perf_counter()
+    ed, walk, _ = build_editor_from_options(conf)
+    assert ed.cfg.compute_dtype == torch.bfloat16
+    out = {"build_s": time.perf_counter() - t0}
+    ops.reset_launches()
+    for b in (BATCH_HI, BF16_EDIT_BATCH_HI):
+        z = np.random.RandomState(62).randn(b, ed.cfg.dim_z).astype(np.float32)
+        a = np.full((b,), 0.7, np.float32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        edited, _, orig = ed.apply_alpha(walk, z, a)
+        assert edited.shape == (b, SIZE_HI, SIZE_HI, 3) and torch.isfinite(edited).all()
+        assert not torch.equal(edited, orig)
+        del edited, orig
+        ms = time_ms(lambda: ed.apply_alpha(walk, z, a, u8=True), warmup=1,
+                     iters=5 if b == BATCH_HI else 3)
+        out[f"b{b}"] = {"ms": ms, "img_per_s": b * 1e3 / ms,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.synchronize()
+    out["launches"], out["launches_bf16"] = ops.launch_counts(), ops.launch_counts(bf16=True)
+    assert all(out["launches_bf16"][k] > 0 for k in FORWARD), out
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_grad_phase():
+    """One bf16 step (SIZE px, B=CMP_BATCH, stored noise, host alphas) on the
+    card: the walk gradient with the kernels against an f64 reference on
+    the card (the towers in f64 through plain_kernels()), held within
+    max(1e-3, 1.5 x the distance of the same bf16 step through
+    plain_kernels() from it): bf16's own rounding sets the scale, never
+    f32's bound."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    conf = bf16_conf("--fixed_noise")
+    ed, walk, _ = build_editor_from_options(conf)
+    z = np.random.RandomState(8).randn(CMP_BATCH, ed.cfg.dim_z).astype(np.float32)
+    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
+    w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+    out, grads = {}, {}
+    for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_kernels())):
+        w = walk_map(lambda a: torch.tensor(a, device=ed.device).requires_grad_(True), w0)
+        step = make_train_step(ed, None, make_optimizer(w, conf.learning_rate), host_alpha=True)
+        with ctx:
+            m = step(w, z, sampled=sampled)
+        out[f"{name}_loss"] = float(m["loss"])
+        grads[name] = np.concatenate([p.grad.detach().double().cpu().numpy().ravel()
+                                      for p in walk_leaves(w)])
+    t = time.perf_counter()
+    with plain_kernels():
+        for mod in (ed.g, ed.reg, ed.vgg, ed.d):
+            mod.double()
+        ref, ref_grad, _ = reference_step(ed, w0, z, sampled, torch.float64)
+    out["f64_reference_s"] = time.perf_counter() - t
+    out["f64_loss"] = ref["loss"]
+    out["walk_grad_rel_l2_kernels_f64"] = rel_l2(grads["kernels"], ref_grad)
+    out["walk_grad_rel_l2_plain_f64"] = rel_l2(grads["plain"], ref_grad)
+    out["walk_grad_rel_l2_kernels_plain"] = rel_l2(grads["kernels"], grads["plain"])
+    out["limit"] = limit = max(1e-3, 1.5 * out["walk_grad_rel_l2_plain_f64"])
+    assert np.isfinite(grads["kernels"]).all(), out
+    assert out["walk_grad_rel_l2_kernels_f64"] <= limit, out
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_train_phase(results, dev):
+    """Phase 36: train_loop with --bf16 at SIZE px, B=BATCH (the launches of
+    as many f32 steps, all bf16 instances but the style MLP's) and
+    B=BF16_TRAIN_BATCH, and at SIZE_HI px, B=BATCH_HI (plain); ms per step
+    by CUDA events, samples/s, peak GB; then the walk gradient against f64."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    task = get_task("face")
+    per_step = {n: r["train_step"]["launches"] for n, r in results.items()}
+    out = {}
+    for name, size, b, steps in (("b4", SIZE, BATCH, BF16_STEPS),
+                                 ("b16", SIZE, BF16_TRAIN_BATCH, BF16_STEPS),
+                                 (f"{SIZE_HI}_b8", SIZE_HI, BATCH_HI, BF16_HI_STEPS)):
+        conf = bf16_conf(size=size, batch=b)
+        ed, walk, _ = build_editor_from_options(conf)
+        assert ed.cfg.compute_dtype == torch.bfloat16
+        walk, r = _timed_train(ed, task, walk, steps, conf.learning_rate, batch=b)
+        r["samples_per_s"] = b * 1e3 / r["step_ms_cuda_events"]
+        r["size"] = size
+        if name == "b4":
+            expect = {k: steps * v for k, v in per_step.items()}
+            assert r["launches"] == expect, (r["launches"], expect)
+            z = torch.from_numpy(np.random.RandomState(2).randn(b, ed.cfg.dim_z)
+                                 .astype(np.float32))
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step = make_train_step(ed, task, make_optimizer(walk, conf.learning_rate))
+            r["profile"] = profile_call(lambda: step(walk, z, gen), "train_step_bf16_trace.json")
+        _bf16_only(r["launches"], r["launches_bf16"], steps * MLP_FUSED_ACT)
+        out[name] = r
+        log(f"    {size} px B={b}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events "
+            f"over {steps}), {r['samples_per_s']:.2f} samples/s, peak {r['peak_mem_gb']:.2f} "
+            f"GB, loss {r['first']['loss']:.4f} -> {r['last']['loss']:.4f}")
+        del ed, walk
+        torch.cuda.empty_cache()
+    out["grad"] = bf16_grad_phase()
+    return out
+
+
+def bf16_cli_phase(dev):
+    """Phase 37: --bf16 through the CLIs at SIZE px (chiprun_out/cli_bf16/):
+    train with a SIGTERM after the second step and --resume, `python -m
+    latent2im_tpu_torch.cli.vis_w` on its opt.yml (bf16: true) and walk, the
+    server's /edit of BATCH; --bf16 --updateGAN for BF16_GAN_ITERS
+    iterations (ms per D and G step); model_256 PGGAN --bf16 apply_alpha and
+    one step, which launch no kernel."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.cli.serve import build_service
+    from latent2im_tpu_torch.config.options import TrainOptions, VisOptions
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    root = os.path.join(REPO, "chiprun_out", "cli_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"seconds": {}, "launches": {}, "launches_bf16": {}}
+    fired = {"n": 0, "kill": True}
+    real_loop = tcli.train_loop
+
+    def loop(*a, **kw):  # SIGTERM after the 2nd step
+        on_step = kw["on_step"]
+
+        def killing_on_step(epoch, i, metrics, dt, wp):
+            on_step(epoch, i, metrics, dt, wp)
+            fired["n"] += 1
+            if fired["kill"] and fired["n"] == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kw["on_step"] = killing_on_step
+        return real_loop(*a, **kw)
+
+    t0 = time.perf_counter()
+    args = _cli_args(root, "Smiling", 2 * BATCH, 2, "--model_save_freq", "1", "--bf16")
+    tcli.train_loop = loop
+    try:
+        ops.reset_launches()
+        opt = TrainOptions().parse(args, print_opt=True)
+        tcli.run(opt)  # cuda: the entry point's default
+        run_dir = opt.output_dir
+        meta = ckpt.load_meta(ckpt.find_resume(run_dir))
+        assert meta.get("preempted") is True, meta
+        fired["kill"] = False
+        walk, history = tcli.run(TrainOptions().parse(args + ["--resume"], print_opt=False))
+    finally:
+        tcli.train_loop = real_loop
+    torch.cuda.synchronize()
+    counts, counts_bf16 = ops.launch_counts(), ops.launch_counts(bf16=True)
+    out["launches"]["train"], out["launches_bf16"]["train"] = counts, counts_bf16
+    out["seconds"]["train_sigterm_resume"] = time.perf_counter() - t0
+    assert all(counts_bf16[k] == counts[k] > 0 for k in counts if k != "fused_act"), out
+    assert (counts["fused_act"] - counts_bf16["fused_act"]) % MLP_FUSED_ACT == 0, out
+    assert all(math.isfinite(h) for h in history), history
+    yml = os.path.join(run_dir, "opt.yml")
+    with open(yml) as f:
+        assert "bf16: true" in f.read().splitlines()
+    final_path = os.path.join(run_dir, "model_w_2_final_walk_module.ckpt")
+    assert os.path.isfile(final_path) and walk["w"].dtype == torch.float32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    vis_dir = os.path.join(root, "vis")
+    proc = _vis_w(yml, "--save_path_w", final_path, "--output_dir", vis_dir,
+                  "--num_samples", "2", "--num_panels", "5")
+    try:
+        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["seconds"]["vis_w"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vo = VisOptions()
+    vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
+    vopt, conf = vo.parse([yml, "--save_path_w", final_path, "--num_panels", str(PANELS)])
+    service = build_service(vopt, conf)
+    assert service.ed.cfg.compute_dtype == torch.bfloat16
+    service.warmup()
+    z = np.random.RandomState(63).randn(BATCH, service.dim_z).astype(np.float32)
+    with serving(service) as url:
+        ops.reset_launches()
+        reply = _request(url + "/edit", {"z": z.tolist(), "alpha": 0.7})
+        torch.cuda.synchronize()
+        counts, counts_bf16 = ops.launch_counts(), ops.launch_counts(bf16=True)
+    out["launches"]["serve"], out["launches_bf16"]["serve"] = counts, counts_bf16
+    _bf16_only(counts, counts_bf16, MLP_FUSED_ACT)
+    assert len(reply["images"]) == BATCH and all(counts[k] > 0 for k in FORWARD)
+    out["seconds"]["serve_edit"] = time.perf_counter() - t0
+    del service
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["gan"] = gan = gan_train_phase(dev, "--bf16", iters=BF16_GAN_ITERS)
+    assert all(v > 0 for v in gan["launches_bf16"].values()), gan["launches_bf16"]
+    out["seconds"]["update_gan"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    conf = pggan_conf("--bf16")
+    ed, walk, _ = build_editor_from_options(conf)
+    assert ed.cfg.compute_dtype == torch.bfloat16
+    z = np.random.RandomState(64).randn(BATCH, 512).astype(np.float32)
+    a = np.full((BATCH,), 0.3, np.float32)
+    ops.reset_launches()
+    edited, _, orig = ed.apply_alpha(walk, z, a)
+    assert torch.isfinite(edited).all() and edited.shape == (BATCH, SIZE // 2, SIZE // 2, 3)
+    assert not torch.equal(edited, orig)
+    pg = {"apply_alpha_ms_cuda_events": time_ms(lambda: ed.apply_alpha(walk, z, a),
+                                                warmup=2, iters=10)}
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}, ops.launch_counts()
+    task = get_task(conf.transform, walk_type=conf.walk_type, nsliders=1)
+    walk, pg["train"] = _timed_train(ed, task, walk, 1, conf.learning_rate)
+    assert set(pg["train"]["launches"].values()) == {0}, pg["train"]["launches"]
+    out["pggan"] = pg
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_phases(card, dev, results, hi):
+    """Phases 33-37 -> the bf16 kernel results at SIZE and SIZE_HI px, their
+    errors and details, the bf16 paths' launch counts of the bf16 instances
+    (under "launches") and the phases' reports."""
+    import torch
+
+    out = {"launches": {}}
+    log(f"[33] the bf16 kernels against their plain bf16 versions at the {SIZE} px B={BATCH} "
+        f"and {SIZE_HI} px B={BATCH_HI} shapes")
+    out["results"], out["max_err"], out["details"] = kernel_phase(
+        dev, SIZE, BATCH, iters=10, dtype=torch.bfloat16)
+    out["results_hi"], max_hi, details_hi = kernel_phase(
+        dev, SIZE_HI, BATCH_HI, iters=5, dtype=torch.bfloat16)
+    out["max_err"] = {k: max(v, max_hi[k]) for k, v in out["max_err"].items()}
+    out["details"] += details_hi
+    torch.cuda.empty_cache()
+
+    log(f"[34] the {SIZE} px edit server with --bf16")
+    sv = out["serve"] = bf16_serve_phase(results, dev)
+    out["launches"]["serve_bf16"] = sv.pop("launches_bf16")
+    log(f"    /edit of {BATCH} p50 {sv['p50_request_ms']:.1f} ms, {sv['img_per_s']:.2f} img/s, "
+        f"apply_alpha B={BATCH} {sv['apply_alpha_b4_ms']:.2f} ms (CUDA events); bf16 against "
+        f"f32 {json.dumps(sv['bf16_vs_f32'])}; card against CPU edited "
+        f"{sv['card_vs_cpu_edited_rel_l2']:.3e}, orig {sv['card_vs_cpu_orig_rel_l2']:.3e}, "
+        f"scores {sv['card_vs_cpu_alpha_org_abs']:.3e}, on {card}")
+    log(f"    apply_alpha B={BATCH} under torch.profiler: {json.dumps(sv['profile'])}")
+
+    log(f"[35] apply_alpha at {SIZE_HI} px in bf16, B={BF16_EDIT_BATCH_HI} and B={BATCH_HI}")
+    ed = out["edit_1024"] = bf16_edit_1024_phase(dev)
+    out["launches"]["edit_1024_bf16"] = ed.pop("launches_bf16")
+    log(f"    {json.dumps({k: v for k, v in ed.items() if k != 'launches'})}; f32 B={BATCH_HI} "
+        f"{hi['edit']['apply_alpha_b8_device_ms']:.2f} ms (phase 13), on {card}")
+
+    log(f"[36] walk training with --bf16: {SIZE} px B={BATCH} and B={BF16_TRAIN_BATCH}, "
+        f"{SIZE_HI} px B={BATCH_HI}; the walk gradient against f64")
+    tr = out["train"] = bf16_train_phase(results, dev)
+    for k in ("b4", "b16", f"{SIZE_HI}_b8"):
+        out["launches"][f"train_bf16_{k}"] = tr[k].pop("launches_bf16")
+    log(f"    one step (B={BATCH}) under torch.profiler: {json.dumps(tr['b4']['profile'])}")
+    log(f"    step against f64 {json.dumps(tr['grad'])}, on {card}")
+
+    log("[37] --bf16 through the CLIs: train + SIGTERM + --resume, vis_w (python -m), "
+        "/edit; --updateGAN; model_256 PGGAN")
+    cli = out["cli"] = bf16_cli_phase(dev)
+    for k in ("train", "serve"):
+        out["launches"][f"cli_bf16_{k}"] = cli["launches_bf16"][k]
+    out["launches"]["gan_bf16"] = cli["gan"]["launches_bf16"]
+    log(f"    wall seconds {json.dumps(cli['seconds'])}; vis_w wrote {cli['vis_pngs']}; "
+        f"--updateGAN {cli['gan']['iteration_ms_cuda_events']:.2f} ms per iteration, D step "
+        f"{cli['gan']['d_step_ms_cuda_events']:.2f} ms, G step "
+        f"{cli['gan']['g_step_ms_cuda_events']:.2f} ms, peak {cli['gan']['peak_mem_gb']:.2f} "
+        f"GB; PGGAN apply_alpha {cli['pggan']['apply_alpha_ms_cuda_events']:.2f} ms, step "
+        f"{cli['pggan']['train']['step_ms_cuda_events']:.2f} ms, on {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3448,6 +3919,7 @@ def main() -> int:
     gan = gan_phases(card, dev)
     zp = z_phases(card, dev, results)
     geo = geo_phases(card, dev)
+    bf = bf16_phases(card, dev, results, hi)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -3471,8 +3943,27 @@ def main() -> int:
                 "bound_share_device": rh["bound_ms"] / rh["device_ms"]},
             f"per_apply_alpha_{SIZE_HI}": (hi["results"][n]["apply_alpha"]
                                            if n in FORWARD else None)})
+    for n, paths in bf["results"].items():  # the bf16 instances (phase 33)
+        r, rh = paths["train_step"], bf["results_hi"][n]["train_step"]
+        by_path = {k: v[n] for k, v in bf["launches"].items()}
+        assert sum(by_path.values()) > 0, (n, by_path)
+        kernels.append({
+            "name": f"{n}[bf16]", "route": "cuda", "source": SOURCE[n][0],
+            "replaces": SOURCE[n][1], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": bf["max_err"][n], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "per": f"training step, {SIZE} px, B={BATCH}, bf16",
+            "device_ms": r["device_ms"],
+            "bound_share_device": r["bound_ms"] / r["device_ms"],
+            "per_apply_alpha": paths["apply_alpha"] if n in FORWARD else None,
+            f"per_train_step_{SIZE_HI}": {
+                "per": f"training step, {SIZE_HI} px, B={BATCH_HI}, bf16", **rh,
+                "bound_share_device": rh["bound_ms"] / rh["device_ms"]},
+            f"per_apply_alpha_{SIZE_HI}": (bf["results_hi"][n]["apply_alpha"]
+                                           if n in FORWARD else None)})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "kernels": kernels, "shapes": details + hi["details"], "serve": serve,
+              "kernels": kernels, "shapes": details + hi["details"] + bf["details"],
+              "serve": serve,
               "profile": prof, "cpu_vs_card": cmp_, "train": train,
               "train_profile": train_prof, "train_cpu_vs_card": train_cmp, "cli": cli,
               "hi": {k: v for k, v in hi.items() if k not in ("results", "details")},
@@ -3480,6 +3971,8 @@ def main() -> int:
               "gan": {k: v for k, v in gan.items() if k != "launches"},
               "z": {k: v for k, v in zp.items() if k != "launches"},
               "geometric": {k: v for k, v in geo.items() if k != "launches"},
+              "bf16": {k: v for k, v in bf.items()
+                       if k not in ("launches", "results", "results_hi", "details")},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -17,6 +17,11 @@ or the GAN-zoo PGAN (models/pgan_zoo.py) when the ``--g_path`` checkpoint
 has its ``formatLayer``. The PGGAN's output is bilinear-downsampled x0.5
 and D scores a x2 re-upsample (pggan transform_base.py:311-321, :480); the
 walk's alphas are steps from the current score (``alpha_mode='delta'``).
+
+``--bf16`` sets ``EditorConfig.compute_dtype`` to torch.bfloat16, as the JAX
+package's build does: G's synthesis, the regressor, VGG19 and D (the PGGAN
+backends' G and D too) compute in bf16, on every path that builds its
+editor here.
 """
 
 from __future__ import annotations
@@ -56,8 +61,6 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
     """-> (editor, walk_params, info dict)."""
     device = resolve_device(device)
     model = opt.model
-    if getattr(opt, "bf16", False):
-        _not_ported("--bf16 compute", "queue A item 20")
     latent = opt.stylegan.latent if "stylegan" in model else "z"
     walk_kind = resolve_walk_kind(
         model, opt.walk_type, latent, train_embed=opt.trainEmbed,
@@ -131,6 +134,7 @@ def build_editor_from_options(opt, seed: int = 0, device=None):
         content_input_size=getattr(opt, "content_input_size", None),
         remat_g=getattr(opt, "remat_g", False) or False,
         remat_towers=bool(getattr(opt, "remat_towers", False)),
+        compute_dtype=torch.bfloat16 if getattr(opt, "bf16", False) else torch.float32,
     )
     walk_params = init_walk(walk_kind, dim_z, cfg.n_latent, attr_list,
                             generator=gen, device=device)
@@ -199,14 +203,15 @@ def _pggan(g_path: str, size: int, gen):
         )
         g = pgg.Generator(n_label=0, generator=gen)
 
-    # G and D arrive as arguments, the editor's current modules
-    def synth_fn(g, z):
-        img = g(z) if zoo else g(z, step=step)
+    # G and D arrive as arguments, the editor's current modules, with its
+    # towers' compute dtype (None: their inputs' own)
+    def synth_fn(g, z, dtype=None):
+        img = g(z, dtype=dtype) if zoo else g(z, step=step, dtype=dtype)
         return bilinear_resize(img, img.shape[1] // 2, img.shape[2] // 2)
 
-    def disc_fn(d, img):
+    def disc_fn(d, img, dtype=None):
         up = bilinear_resize(img, img.shape[1] * 2, img.shape[2] * 2)
-        return d(up, step=step)[0]
+        return d(up, step=step, dtype=dtype)[0]
 
     return g, d_sd, synth_fn, disc_fn
 

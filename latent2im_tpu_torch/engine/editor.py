@@ -18,9 +18,15 @@ The latent is W+ [B, L, D] (latent 'w': the walk moves the style MLP's
 output, by the delta to the requested target) or z [B, D] (latent 'z':
 StyleGAN2 through its style MLP, or an injected backend such as PGGAN; the
 walk moves z and takes the requested alpha as it is). ``synth_fn(g,
-latent)`` and ``disc_fn(d, img)`` inject a backend without subclassing
-(engine/build.py makes the PGGAN ones); they take the editor's current G
-and D. The 'embed' walk ignores alpha, so the alpha-driven paths refuse it.
+latent, dtype)`` and ``disc_fn(d, img, dtype)`` inject a backend without
+subclassing (engine/build.py makes the PGGAN ones); they take the editor's
+current G and D and ``tower_dtype``. The 'embed' walk ignores alpha, so the
+alpha-driven paths refuse it.
+
+``EditorConfig.compute_dtype`` torch.bfloat16 (--bf16) runs G's synthesis,
+the regressor, VGG19 and D in bf16 as the JAX package's ``compute_dtype``
+does; the style MLP, the walk and the losses stay f32, and every tower
+returns f32.
 
 PyTorch runs eagerly, so there is nothing to compile and no static program
 width: a sweep's last chunk is simply narrower. The public inference methods
@@ -89,6 +95,8 @@ class EditorConfig:
     remat_g: bool | str = False
     # rematerialize the loss towers (regressor, VGG content loss, D)
     remat_towers: bool = False
+    # the towers' compute dtype: torch.float32, or torch.bfloat16 (--bf16)
+    compute_dtype: torch.dtype = torch.float32
 
     @property
     def n_latent(self) -> int:
@@ -104,8 +112,9 @@ class Editor:
         for training vgg: models.vgg.VGG19Features, d:
         models.stylegan2.Discriminator (None where the loss is off). All
         move to ``device`` (cuda unless the caller asks for the CPU).
-        synth_fn(g, latent) / disc_fn(d, img) replace G's synthesis and D's
-        call for another backend (G and D then are its modules)."""
+        synth_fn(g, latent, dtype) / disc_fn(d, img, dtype) replace G's
+        synthesis and D's call for another backend (G and D then are its
+        modules; dtype the editor's ``tower_dtype``)."""
         self.cfg = cfg
         self._synth_fn, self._disc_fn = synth_fn, disc_fn
         self.device = resolve_device(device)
@@ -119,6 +128,14 @@ class Editor:
 
         self.reg, self.vgg, self.d = frozen(reg), frozen(vgg), frozen(d)
         self._attr_idx = torch.as_tensor(cfg.attr_idx, device=self.device)
+
+    @property
+    def tower_dtype(self):
+        """The dtype the towers are asked to compute in: bf16 under
+        compute_dtype bf16, else None (their inputs' own: f32, or an f64
+        reference's, which an f32 cast would spoil)."""
+        dt = self.cfg.compute_dtype
+        return None if dt == torch.float32 else dt
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -154,13 +171,14 @@ class Editor:
         block (Generator.synthesize); an injected synth_fn has no blocks to
         hook and becomes one checkpoint over its whole forward."""
         latent = self._tensor(latent)
+        dt = self.tower_dtype
         if self._synth_fn is not None:
             if block_remat:
-                return checkpoint(lambda lat: self._synth_fn(self.g, lat), latent)
-            return self._synth_fn(self.g, latent)
+                return checkpoint(lambda lat: self._synth_fn(self.g, lat, dt), latent)
+            return self._synth_fn(self.g, latent, dt)
         if self.cfg.latent == "z":
-            return self.g(latent, noise=noise, block_remat=block_remat)
-        return self.g.synthesize(latent, noise=noise, block_remat=block_remat)
+            return self.g(latent, noise=noise, block_remat=block_remat, dtype=dt)
+        return self.g.synthesize(latent, noise=noise, block_remat=block_remat, dtype=dt)
 
     def _reg_input(self, img):
         s = self.cfg.reg_input_size
@@ -177,14 +195,16 @@ class Editor:
     def scores(self, img):
         """image -> regressor scores at the configured attributes [B, A]
         (resized to reg_input_size first, where set)."""
-        return self.reg(self._reg_input(img))[:, self._attr_idx]
+        return self.reg(self._reg_input(img), dtype=self.tower_dtype)[:, self._attr_idx]
 
     def discriminate(self, img):
         """image NHWC -> D logits ([B, 1]; [B] through a disc_fn)."""
         if self.d is None:
             raise ValueError("this editor was built without a discriminator "
                              "(--no_gan_loss)")
-        return self._disc_fn(self.d, img) if self._disc_fn is not None else self.d(img)
+        dt = self.tower_dtype
+        return (self._disc_fn(self.d, img, dt) if self._disc_fn is not None
+                else self.d(img, dtype=dt))
 
     # -- the same under inference mode --------------------------------------
 
@@ -208,7 +228,7 @@ class Editor:
     @torch.inference_mode()
     def regress_all(self, img):
         """image -> every regressor output [B, n_outputs] (eval)."""
-        return self.reg(self._reg_input(self._tensor(img)))
+        return self.reg(self._reg_input(self._tensor(img)), dtype=self.tower_dtype)
 
     def unified_alphas(self, alpha_org, sampled):
         """-> (alpha_target, alpha_delta); 'delta' mode clamps the target."""

@@ -46,13 +46,14 @@ def gan_loss_from_logits(d_logits):
     return torch.mean(F.softplus(-d_logits.float()))
 
 
-def content_loss(vgg, org_img, edited_img, taps=vggm.CONTENT_TAPS):
+def content_loss(vgg, org_img, edited_img, taps=vggm.CONTENT_TAPS, dtype=None):
     """Mean over the taps of the MSE between VGG19 features of the original
     (no gradient) and the edited NHWC images, both ImageNet-normalized as
-    they are in [-1, 1]."""
+    they are in [-1, 1]. dtype runs VGG19 in it (bf16: bf16 taps); the MSE
+    is taken in f32, as in the JAX package."""
     with torch.no_grad():
-        f_org = vgg(vggm.imagenet_normalize(org_img), taps)
-    f_edi = vgg(vggm.imagenet_normalize(edited_img), taps)
+        f_org = vgg(vggm.imagenet_normalize(org_img), taps, dtype=dtype)
+    f_edi = vgg(vggm.imagenet_normalize(edited_img), taps, dtype=dtype)
     losses = [torch.mean(torch.square(f_org[t].float() - f_edi[t].float()))
               for t in taps]
     return sum(losses) / len(losses)

@@ -24,7 +24,9 @@ PGGAN gates the 10x BCE weight off when either other loss is. --trainEmbed
 (``Task.train_alpha_embed_np``) and trains that bank entry. PyTorch
 runs it eagerly; its kernels (fused_act, upfirdn2d and the styled conv
 forward, fused_act and upfirdn2d backward) launch from the models'
-autograd nodes.
+autograd nodes. Under ``cfg.compute_dtype`` bf16 (--bf16) the towers and
+the content loss's VGG19 compute in bf16 through the editor, the walk, its
+gradient (through the towers' casts) and Adam stay f32.
 
 Randomness: the alpha targets and the per-forward noise come from a
 ``torch.Generator`` on the editor's device, re-seeded per step from (seed,
@@ -137,7 +139,7 @@ def make_train_step(editor: Editor, task: Task | None,
         reg = L.reg_loss(tower(editor.scores, img_new), target, stable=cfg.stable_bce)
         zero = torch.zeros((), device=editor.device)
         content = zero if cfg.no_content_loss else tower(
-            lambda org, new: L.content_loss(editor.vgg, org, new),
+            lambda org, new: L.content_loss(editor.vgg, org, new, dtype=editor.tower_dtype),
             editor._content_input(img_org), editor._content_input(img_new))
         gan = zero if cfg.no_gan_loss else tower(
             lambda new: L.gan_loss_from_logits(editor.discriminate(new)), img_new)

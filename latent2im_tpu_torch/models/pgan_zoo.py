@@ -62,7 +62,8 @@ class EqLinear(_Wrapped):
         super().__init__(nn.Linear(din, dout), din, generator)
 
     def forward(self, x):
-        return F.linear(x, self.module.weight * self.scale, self.module.bias)
+        return F.linear(x, (self.module.weight * self.scale).to(x.dtype),
+                        self.module.bias.to(x.dtype))
 
 
 def _leaky(x):
@@ -117,9 +118,12 @@ class GNet(nn.Module):
     def resolution(self) -> int:
         return 4 * 2 ** len(self.scaleLayers)
 
-    def forward(self, z, alpha: float = 0.0):
-        """z [B, dim_latent] -> image [B, R, R, 3] NHWC. 0 < alpha < 1 blends
-        the previous scale's rgb (GNet's fade-in); 0 is fully grown."""
+    def forward(self, z, alpha: float = 0.0, dtype: torch.dtype | None = None):
+        """z [B, dim_latent] -> image [B, R, R, 3] NHWC f32, computed in
+        ``dtype`` (the JAX package's ``dtype=``; None: z's own). 0 < alpha <
+        1 blends the previous scale's rgb (GNet's fade-in); 0 is fully
+        grown."""
+        z = z if dtype is None else z.to(dtype)
         x = _leaky(self.formatLayer(pixel_norm(z, dim=-1)))
         x = pixel_norm(x.reshape(x.shape[0], -1, 4, 4))  # torch's (C, 4, 4) view
         for conv in self.groupScale0:
@@ -172,10 +176,11 @@ class DNet(nn.Module):
                                              EqLinear(d0 * 16, d0, generator)])
         self.decisionLayer = EqLinear(d0, decision_dim, generator)
 
-    def forward(self, img):
+    def forward(self, img, dtype: torch.dtype | None = None):
         """img [B, R, R, 3] NHWC at the ladder's full resolution ->
-        [B, decision_dim]."""
-        x = _leaky(self.fromRGBLayers[-1](img.permute(0, 3, 1, 2)))
+        [B, decision_dim] f32, computed in ``dtype`` (None: the image's own)."""
+        x = img if dtype is None else img.to(dtype)
+        x = _leaky(self.fromRGBLayers[-1](x.permute(0, 3, 1, 2)))
         for group in reversed(self.scaleLayers):
             x = _leaky(group[0](x))
             x = _leaky(group[1](x))

@@ -28,6 +28,10 @@ an 18 GB workspace on an H100, where the GEMM takes 1.3 ms
 (scripts/torch_pggan_profile.py, PERF.md); which shapes its heuristics
 send there is not observable from PyTorch, so no conv of these models
 goes to cuDNN but the 1x1 rgb heads.
+
+``dtype=torch.bfloat16`` (G and D) computes as the JAX package's
+``dtype=``: z or the image cast to bf16, each layer's f32 parameters cast
+per call (the GEMMs over unfolded patches become bf16 GEMMs), f32 outputs.
 """
 
 from __future__ import annotations
@@ -65,7 +69,9 @@ def pixel_norm(x, dim: int = 1, eps: float = 1e-8):
 def conv2d(x, w, b, padding: int):
     """F.conv2d(x, w, b, padding=padding) on NCHW, computed as one batched
     GEMM of the weight [Cout, Cin * kh * kw] over ``F.unfold``'s patches
-    (the same sums; autograd differentiates unfold and the GEMM)."""
+    (the same sums; autograd differentiates unfold and the GEMM), in x's
+    dtype (w and b cast to it)."""
+    w, b = w.to(x.dtype), None if b is None else b.to(x.dtype)
     kh, kw = w.shape[2:]
     h, wd = x.shape[2] + 2 * padding - kh + 1, x.shape[3] + 2 * padding - kw + 1
     cols = F.unfold(x, (kh, kw), padding=padding)  # [B, Cin * kh * kw, h * wd]
@@ -98,6 +104,11 @@ class EqualConv2d(nn.Module):
 
     def forward(self, x):
         return conv2d(x, self.conv.weight_orig * self.scale, self.conv.bias, self.padding)
+
+
+def _rgb(conv, x):
+    """A 1x1 rgb head (``nn.Conv2d``) in x's dtype."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
 
 
 def _plain_conv(cin, cout, generator=None):
@@ -166,15 +177,17 @@ class Generator(nn.Module):
         load_strict(g, sd)
         return g
 
-    def forward(self, z, step: int = 6, alpha: float = 0.0, label=None):
-        """z [B, 512 - n_label] -> image [B, R, R, 3] NHWC, R = 4 * 2**step.
+    def forward(self, z, step: int = 6, alpha: float = 0.0, label=None,
+                dtype: torch.dtype | None = None):
+        """z [B, 512 - n_label] -> image [B, R, R, 3] NHWC f32, R = 4 *
+        2**step, computed in ``dtype`` (None: z's own).
 
         label: int64 [B], zeros by default (model_256.py:232). The default
         alpha=0 is the reference's call sites' (netG(z) bare), whose blend
         outputs the PREVIOUS resolution's rgb head on the upsampled features;
         alpha outside [0, 1) turns the blend off."""
         b = z.shape[0]
-        x = pixel_norm(z, dim=-1)
+        x = pixel_norm(z if dtype is None else z.to(dtype), dim=-1)
         if hasattr(self, "label_embed"):
             if label is None:
                 label = torch.zeros((b,), dtype=torch.long, device=z.device)
@@ -193,9 +206,9 @@ class Generator(nn.Module):
             else:
                 out = self.progression[i](out)
             if i == step:
-                out = self.to_rgb[i](out)
+                out = _rgb(self.to_rgb[i], out)
                 if i > 0 and 0 <= alpha < 1:
-                    out = (1 - alpha) * self.to_rgb[i - 1](upsample) + alpha * out
+                    out = (1 - alpha) * _rgb(self.to_rgb[i - 1], upsample) + alpha * out
         return out.permute(0, 2, 3, 1).float()
 
 
@@ -222,19 +235,21 @@ class Discriminator(nn.Module):
         load_strict(d, sd)
         return d
 
-    def forward(self, img, step: int = 6, alpha: float = 0.0):
+    def forward(self, img, step: int = 6, alpha: float = 0.0,
+                dtype: torch.dtype | None = None):
         """img [B, R, R, 3] NHWC, R = 4 * 2**step -> (score [B], label
-        logits [B, n_label]) (model_256.py:329-353). The batch-std channel
+        logits [B, n_label]) f32 (model_256.py:329-353), computed in
+        ``dtype`` (None: the image's own). The batch-std channel
         is the unbiased std over the batch of the input image, averaged. At
         the default alpha=0 the blend at the input resolution keeps only the
         skip path, though both are computed, as in the JAX package."""
-        x = img.permute(0, 3, 1, 2)
+        x = (img if dtype is None else img.to(dtype)).permute(0, 3, 1, 2)
         n_layer = len(self.progression)
         out = None
         for i in range(step, -1, -1):
             index = n_layer - i - 1
             if i == step:
-                out = self.from_rgb[index](x)
+                out = _rgb(self.from_rgb[index], x)
             if i == 0:
                 mean_std = torch.std(x, dim=0, unbiased=True).mean()
                 out = torch.cat([out, mean_std.expand(out.shape[0], 1, *out.shape[2:])], 1)
@@ -242,7 +257,7 @@ class Discriminator(nn.Module):
             if i > 0:
                 out = F.avg_pool2d(out, 2)
                 if i == step and 0 <= alpha < 1:
-                    skip = self.from_rgb[index + 1](F.avg_pool2d(x, 2))
+                    skip = _rgb(self.from_rgb[index + 1], F.avg_pool2d(x, 2))
                     out = (1 - alpha) * skip + alpha * out
         out = out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
         if out.shape[1] != self.linear.in_features:
@@ -251,7 +266,7 @@ class Discriminator(nn.Module):
                             f"{img.shape[1]} px image; its head takes "
                             f"{self.linear.in_features} (the image size does not fit "
                             "the step)")
-        out = self.linear(out)
+        out = F.linear(out, self.linear.weight.to(x.dtype), self.linear.bias.to(x.dtype))
         return out[:, 0].float(), out[:, 1:].float()
 
 

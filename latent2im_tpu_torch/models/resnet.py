@@ -11,6 +11,12 @@ port may not depend on torchvision.
 The public input is NHWC; inside, the NCHW-logical tensor keeps channels_last
 memory, which is what cuDNN's convolutions run fastest on. The JAX package's
 s2d stem is a TPU layout trick computing the same function, not ported.
+
+``forward(x, dtype=torch.bfloat16)`` is the JAX package's bf16 forward: the
+image cast to bf16, each conv's and fc's f32 weights cast per call, BN on
+the bf16 activations with its f32 statistics (in f32 arithmetic, one
+rounding, where the JAX package's ``(x - mean) * (inv * gamma) + beta``
+rounds after each of its three bf16 operations), f32 logits.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 LAYERS = (3, 4, 6, 3)
 EXPANSION = 4
@@ -31,6 +38,11 @@ def _conv(cin, cout, k, stride=1, padding=0, generator=None):
     with torch.no_grad():
         conv.weight.copy_(torch.randn(conv.weight.shape, generator=generator) * std)
     return conv
+
+
+def _c(conv, x):
+    """``conv`` (bias-free) in x's dtype, its weight cast per call."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
 
 
 class Bottleneck(nn.Module):
@@ -51,10 +63,11 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x):
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idn = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(_c(self.conv1, x)))
+        out = self.relu(self.bn2(_c(self.conv2, out)))
+        out = self.bn3(_c(self.conv3, out))
+        idn = x if self.downsample is None else self.downsample[1](
+            _c(self.downsample[0], x))
         return self.relu(out + idn)
 
 
@@ -84,10 +97,14 @@ class ResNet50(nn.Module):
             self.fc.bias.zero_()
         self.eval()
 
-    def forward(self, x):
-        """x [B, H, W, 3] NHWC -> logits [B, num_outputs] f32."""
+    def forward(self, x, dtype: torch.dtype | None = None):
+        """x [B, H, W, 3] NHWC -> logits [B, num_outputs] f32, computed in
+        ``dtype`` (None: x's own)."""
+        x = x if dtype is None else x.to(dtype)
+        dtype = x.dtype
         x = x.permute(0, 3, 1, 2)  # NCHW view of channels_last memory
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(self.relu(self.bn1(_c(self.conv1, x))))
         for li in range(len(LAYERS)):
             x = getattr(self, f"layer{li + 1}")(x)
-        return self.fc(x.mean((2, 3))).float()
+        return F.linear(x.mean((2, 3)), self.fc.weight.to(dtype),
+                        self.fc.bias.to(dtype)).float()

@@ -26,6 +26,16 @@ blocks). ``synthesize(..., block_remat=True)`` checkpoints each block.
 The discriminator runs its convs on cuDNN, its activations through
 ``ops.fused_leaky_relu`` and the blur before each stride-2 conv through
 ``ops.upfirdn2d``; a walk trains through all three backwards.
+
+``synthesize(..., dtype=torch.bfloat16)`` and ``Discriminator.forward(...,
+dtype=torch.bfloat16)`` (dtype None: the input's own, f32 or an f64
+reference's) compute as the JAX package's ``dtype=`` does (its
+--bf16): the tower casts its input, and each layer its f32 parameters, to
+the activations' dtype per call (the parameters stay f32 masters, which
+--updateGAN trains and the checkpoints hold); the modulation runs in bf16,
+the demodulation in f32 from the bf16 ``s`` squared, cast to bf16; the
+kernels take bf16 activations with f32 biases; the outputs are f32. The
+style MLP stays f32.
 """
 
 from __future__ import annotations
@@ -86,10 +96,12 @@ class EqualLinear(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        out = x @ (self.weight * self.scale).t()
+        """In x's dtype; the weight is cast to it, the activation's bias
+        stays f32 (the kernel's epilogue)."""
+        out = x @ (self.weight * self.scale).t().to(x.dtype)
         if self.activation:
             return fused_leaky_relu(out, self.bias * self.lr_mul)
-        return out + self.bias * self.lr_mul
+        return out + (self.bias * self.lr_mul).to(out.dtype)
 
 
 class ModulatedConv2d(nn.Module):
@@ -111,22 +123,25 @@ class ModulatedConv2d(nn.Module):
             self.blur_pad = ((p + 1) // 2 + 1, p // 2 + 1)
 
     def style_scales(self, style):
-        """-> (s [B, Cin], demod [B, Cout] or None)."""
+        """-> (s [B, Cin] in style's dtype, demod [B, Cout] or None): demod
+        from s squared in s's dtype, then the sums in the weight's (f32)."""
         s = self.modulation(style)
         if not self.demodulate:
             return s, None
         w_sq = self.weight[0].square().sum((2, 3)).t()  # [Cin, Cout]
-        return s, torch.rsqrt((self.scale * self.scale) * (s.square() @ w_sq) + 1e-8)
+        sigma = (self.scale * self.scale) * (s.square().to(w_sq.dtype) @ w_sq)
+        return s, torch.rsqrt(sigma + 1e-8)
 
     def hwio(self):
         """Scaled weight as [k, k, Cin, Cout], the kernel's layout."""
         return (self.weight[0] * self.scale).permute(2, 3, 1, 0).contiguous()
 
     def forward(self, x, style):
-        """x [B, H, W, Cin] -> [B, H', W', Cout] (the up and 1x1 forms)."""
+        """x [B, H, W, Cin] -> [B, H', W', Cout] (the up and 1x1 forms), in
+        x's dtype."""
         s, demod = self.style_scales(style)
-        xs = x * s[:, None, None, :]
-        w = self.weight[0] * self.scale  # [Cout, Cin, k, k]
+        xs = x * s[:, None, None, :].to(x.dtype)
+        w = (self.weight[0] * self.scale).to(x.dtype)  # [Cout, Cin, k, k]
         if self.upsample:
             # conv_transpose2d(stride 2, pad 0) on the unflipped weight is the
             # JAX lhs-dilated conv with flipped taps; output 2H+1, and the
@@ -142,7 +157,7 @@ class ModulatedConv2d(nn.Module):
                 "non-up k>1 modulated convs run as StyledConv's fused kernel"
             )
         if demod is not None:
-            out = out * demod[:, None, None, :]
+            out = out * demod[:, None, None, :].to(out.dtype)
         return out
 
 
@@ -170,13 +185,15 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(cout)
 
     def forward(self, x, style, noise):
-        """x [B, H, W, Cin]; noise [1|B, H', W'] (H' the output height)."""
+        """x [B, H, W, Cin]; noise [1|B, H', W'] (H' the output height); in
+        x's dtype (noise_w and the bias stay f32 for the kernels)."""
+        dt = x.dtype
         if not self.conv.upsample:
             s, demod = self.conv.style_scales(style)
-            return styled_conv3x3(x, self.conv.hwio(), s, demod, noise,
-                                  self.noise.weight, self.activate.bias)
+            return styled_conv3x3(x, self.conv.hwio().to(dt), s.to(dt), demod.to(dt),
+                                  noise.to(dt), self.noise.weight, self.activate.bias)
         out = self.conv(x, style)
-        out = out + self.noise.weight * noise[..., None]
+        out = out + self.noise.weight.to(dt) * noise.to(dt)[..., None]
         return fused_leaky_relu(out, self.activate.bias)
 
 
@@ -190,7 +207,7 @@ class ToRGB(nn.Module):
                              persistent=False)
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias.reshape(1, 1, 1, 3)
+        out = self.conv(x, style) + self.bias.reshape(1, 1, 1, 3).to(x.dtype)
         if skip is not None:
             out = out + upsample2d(skip, self.up_kernel)
         return out
@@ -267,8 +284,12 @@ class Generator(nn.Module):
         x = self.convs[2 * j + 1](x, lat3[:, 1], noise_b)
         return x, self.to_rgbs[j](x, lat3[:, 2], skip)
 
-    def synthesize(self, latent, noise=None, block_remat: bool = False):
-        """latent [B, n_latent, D] -> image [B, size, size, 3] NHWC f32.
+    def synthesize(self, latent, noise=None, block_remat: bool = False,
+                   dtype: torch.dtype | None = None):
+        """latent [B, n_latent, D] -> image [B, size, size, 3] NHWC f32,
+        computed in ``dtype`` (None: the latent's own; bf16 as the JAX
+        package's --bf16: the latent and the constant input cast to it,
+        every layer in it).
 
         noise: None uses the stored noise maps (randomize_noise=False); else a
         list of [1|B, h, w, 1] arrays per layer.
@@ -285,7 +306,9 @@ class Generator(nn.Module):
         else:
             noise = [n.reshape(n.shape[:3]).contiguous() for n in noise]
         b = latent.shape[0]
-        x = self.input.input.permute(0, 2, 3, 1).expand(b, -1, -1, -1).contiguous()
+        latent = latent if dtype is None else latent.to(dtype)
+        x = self.input.input.to(latent.dtype).permute(0, 2, 3, 1).expand(b, -1, -1, -1)
+        x = x.contiguous()
         x = self.conv1(x, latent[:, 0], noise[0])
         skip = self.to_rgb1(x, latent[:, 1])
         for j in range(len(self.to_rgbs)):
@@ -296,12 +319,13 @@ class Generator(nn.Module):
 
     def forward(self, styles, input_is_latent: bool = False,
                 truncation: float = 1.0, truncation_latent=None, noise=None,
-                noise_generator=None, block_remat: bool = False):
+                noise_generator=None, block_remat: bool = False,
+                dtype: torch.dtype | None = None):
         """styles: z [B, D] (mapped and broadcast over all layers) or W+
         [B, n_latent, D] when input_is_latent. noise_generator gives fresh
         noise when noise is None. block_remat checkpoints each synthesis
         block (``synthesize``), not the style MLP, as the JAX package's
-        ``generator_forward``."""
+        ``generator_forward``; so does ``dtype`` (the style MLP stays f32)."""
         if not input_is_latent:
             w = self.style_forward(styles)
             latent = w[:, None, :].expand(-1, self.n_latent, -1)
@@ -311,7 +335,7 @@ class Generator(nn.Module):
             latent = truncation_latent + truncation * (latent - truncation_latent)
         if noise is None and noise_generator is not None:
             noise = self.make_noise(latent.shape[0], noise_generator)
-        return self.synthesize(latent, noise=noise, block_remat=block_remat)
+        return self.synthesize(latent, noise=noise, block_remat=block_remat, dtype=dtype)
 
 
 def generator_from_state_dict(sd, size: int) -> Generator:
@@ -351,8 +375,10 @@ class EqualConv2d(nn.Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        out = F.conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
-                       self.bias, stride=self.stride, padding=self.padding)
+        dt = x.dtype
+        out = F.conv2d(x.permute(0, 3, 1, 2), (self.weight * self.scale).to(dt),
+                       None if self.bias is None else self.bias.to(dt),
+                       stride=self.stride, padding=self.padding)
         return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -443,8 +469,12 @@ class Discriminator(nn.Module):
             EqualLinear(channels[4], 1, generator=generator),
         )
 
-    def forward(self, img):
-        x = self.final_conv(minibatch_stddev(self.convs(img)))
+    def forward(self, img, dtype: torch.dtype | None = None):
+        """Computed in ``dtype`` (the image cast to it, as the JAX
+        package's ``discriminator_forward``; None: the image's own); the
+        logits are f32."""
+        x = img if dtype is None else img.to(dtype)
+        x = self.final_conv(minibatch_stddev(self.convs(x)))
         # the reference flattens NCHW, in (c, h, w) order
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
         return self.final_linear(x).float()

@@ -9,7 +9,9 @@ is, without a rescale to [0, 1] (a quirk of the reference, kept); VGG16's
 Parameter names are torchvision's (``features.N.weight``), and the whole
 conv stack is held, so a torchvision state_dict loads with ``strict=True``;
 the forward stops at the last tap it is asked for. Written by hand, since
-the port may not depend on torchvision.
+the port may not depend on torchvision. ``forward(..., dtype=)`` runs the
+stack in bf16 as the JAX package's ``vgg_features(..., dtype=)`` does (the
+input and each conv's f32 weight and bias cast per call).
 """
 
 from __future__ import annotations
@@ -64,17 +66,21 @@ class VGGFeatures(nn.Module):
             cin = v
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x, taps=CONTENT_TAPS) -> dict:
-        """x NHWC -> {tap: activation} (NCHW on channels_last memory). Tap
-        names count conv layers from 1: ``conv_i``, ``relu_i``, ``pool_i``."""
-        h = x.permute(0, 3, 1, 2)
+    def forward(self, x, taps=CONTENT_TAPS, dtype: torch.dtype | None = None) -> dict:
+        """x NHWC -> {tap: activation} (NCHW on channels_last memory, in
+        ``dtype``; None: x's own). Tap names count conv layers from 1:
+        ``conv_i``, ``relu_i``, ``pool_i``."""
+        h = (x if dtype is None else x.to(dtype)).permute(0, 3, 1, 2)
+        dtype = h.dtype
         want, out, ci = set(taps), {}, 0
         for layer in self.features:
             if not want - out.keys():
                 break
             if isinstance(layer, nn.Conv2d):
                 ci += 1
-                h, name = layer(h), f"conv_{ci}"
+                h = F.conv2d(h, layer.weight.to(dtype), layer.bias.to(dtype),
+                             padding=layer.padding)
+                name = f"conv_{ci}"
             elif isinstance(layer, nn.ReLU):
                 # not in place: a tapped conv output must survive
                 h, name = F.relu(h), f"relu_{ci}"

@@ -5,12 +5,14 @@ wrappers (``fused_leaky_relu_bwd``, ``upfirdn2d_bwd``).
 
 Each wrapper carries a plain-integer ``launches`` count, raised by one where
 it launches its kernel and nowhere else, so a run can show that its path went
-through the kernels."""
+through the kernels, and ``launches_bf16``, raised with it where the launch
+is the kernel's bf16 instance (the --bf16 compute)."""
 
 from .fused_act import (fused_leaky_relu, fused_leaky_relu_bwd,
                         fused_leaky_relu_bwd_plain, fused_leaky_relu_plain)
 from .styled_conv import (styled_conv3x3, styled_conv3x3_plain,
-                          styled_conv3x3_plan, styled_conv3x3_tf32)
+                          styled_conv3x3_plan, styled_conv3x3_tf32,
+                          styled_conv3x3_xla)
 from .upfirdn2d import (blur2d, downsample2d, make_kernel, transposed_params,
                         upfirdn2d, upfirdn2d_bwd, upfirdn2d_form,
                         upfirdn2d_plain, upsample2d)
@@ -24,13 +26,16 @@ KERNELS = {
 }
 
 
-def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(bf16: bool = False) -> dict[str, int]:
+    """Launches per kernel since the last reset: all of them, or with
+    bf16=True those of the bf16 instances."""
+    return {name: fn.launches_bf16 if bf16 else fn.launches
+            for name, fn in KERNELS.items()}
 
 
 def reset_launches() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
 
 
 __all__ = [
@@ -38,7 +43,8 @@ __all__ = [
     "fused_leaky_relu_bwd", "fused_leaky_relu_bwd_plain",
     "fused_leaky_relu_plain", "launch_counts", "make_kernel",
     "reset_launches", "styled_conv3x3", "styled_conv3x3_plain",
-    "styled_conv3x3_plan", "styled_conv3x3_tf32", "transposed_params",
+    "styled_conv3x3_plan", "styled_conv3x3_tf32", "styled_conv3x3_xla",
+    "transposed_params",
     "upfirdn2d", "upfirdn2d_bwd", "upfirdn2d_form", "upfirdn2d_plain",
     "upsample2d",
 ]

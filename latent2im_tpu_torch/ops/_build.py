@@ -48,16 +48,17 @@ SIGNATURES = {
     "l2i_fused_act": (_P, _P, _P, _LL, _I, _I, _F, _F, _P),
     # g, y, dx, n, is_bf16, slope, scale, stream
     "l2i_fused_act_bwd": (_P, _P, _P, _LL, _I, _F, _F, _P),
-    # x, k, out, B, H, W, C, OH, OW, kh, kw, up, down, px0, py0, stream
-    "l2i_upfirdn2d": (_P, _P, _P) + (_I,) * 12 + (_P,),
-    # x, out, C, kh, kw, up, down -> 0 generic, 1 or 4 templated (channels
-    # per thread)
-    "l2i_upfirdn2d_form": (_P, _P) + (_I,) * 5,
+    # x, k, out, B, H, W, C, OH, OW, kh, kw, up, down, px0, py0, is_bf16,
+    # stream
+    "l2i_upfirdn2d": (_P, _P, _P) + (_I,) * 13 + (_P,),
+    # x, out, C, kh, kw, up, down, is_bf16 -> 0 generic, 1, 4 or 8 templated
+    # (channels per thread)
+    "l2i_upfirdn2d_form": (_P, _P) + (_I,) * 6,
     # x, w, s, d, noise, noise_w, bias, out, workspace, B, H, W, cin, cout,
-    # noise_per_sample, slope, gain, stream
-    "l2i_styled_conv3x3": (_P,) * 9 + (_I,) * 6 + (_F, _F, _P),
-    # B, H, W, cin, cout, int[3] {BM, BN, splits} -> workspace floats
-    "l2i_styled_conv3x3_plan": (_I,) * 5 + (_P,),
+    # noise_per_sample, is_bf16, slope, gain, stream
+    "l2i_styled_conv3x3": (_P,) * 9 + (_I,) * 7 + (_F, _F, _P),
+    # B, H, W, cin, cout, is_bf16, int[3] {BM, BN, splits} -> workspace bytes
+    "l2i_styled_conv3x3_plan": (_I,) * 6 + (_P,),
 }
 RESTYPES = {"l2i_styled_conv3x3_plan": _LL}  # the others return an int
 
@@ -193,6 +194,16 @@ def stream_of(t) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def count(fn, t) -> None:
+    """One launch of ``fn``'s kernel on tensor ``t``: raise ``fn.launches``,
+    and ``fn.launches_bf16`` too where ``t`` is bf16 (the bf16 instance)."""
+    import torch
+
+    fn.launches += 1
+    if t.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
 
 
 if __name__ == "__main__":

@@ -2,10 +2,10 @@
 //
 //     out = lrelu(conv3x3_same(x * s, w) * d + noise_w * noise + bias, slope) * gain
 //
-// x [B, H, W, Cin] NHWC f32; w [3, 3, Cin, Cout] already scaled by
+// x [B, H, W, Cin] NHWC; w [3, 3, Cin, Cout] already scaled by
 // 1/sqrt(9 Cin); s [B, Cin] the style modulation; d [B, Cout] the
-// demodulation; noise [NB, H, W] with NB = 1 (shared) or B, or null;
-// noise_w [1] and bias [Cout].
+// demodulation; noise [NB, H, W] with NB = 1 (shared) or B, or null: all f32,
+// or all bf16 (the bf16 instance below); noise_w [1] and bias [Cout] f32.
 //
 // Replaces the TPU kernel latent2im_tpu/ops/pair_conv.py:
 // fused_styled_conv3x3_pair (with _kernel), which the JAX package routes to
@@ -60,33 +60,79 @@
 //    with no float atomics, so two runs give bit-identical results, and
 //    applies the epilogue. A call is two launches, three when K is split;
 //    the wrapper's count stays one per call.
+//
+// The bf16 instance (the JAX package's --bf16 compute; pair_conv.py keeps
+// bf16 operands exact on the MXU with f32 accumulators, :114-116, an f32
+// epilogue and one bf16 store, :130-133): A = bf16(x * s), the product of
+// two bf16 values (exact in f32) rounded once, as a bf16 multiply rounds; B
+// the bf16 weight, made K-major by the same first launch. The product runs
+// on wgmma m64n128k16 with bf16 operands and f32 accumulators: a 128-byte
+// swizzle row holds 64 bf16 channels, so a K step is one tap x 64 channels
+// and one product per k16 slice (four per step) where the f32 instance
+// issues three per k8 slice (twelve). Bound: 2*B*H*W*9*Cin*Cout flops at
+// 989 TFLOP/s dense bf16 (0.52 ms per 256 px training step at B=4), against
+// 2 bytes per element of x, w and out. The epilogue is f32: acc * d +
+// noise_w * noise + bias, LeakyReLU * gain, one bf16 store (d and noise are
+// bf16 values). The tiling, split K with its fixed-order reduction (partial
+// sums in f32) and the flush of the truncating accumulation every two K
+// steps are those of the f32 instance.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BK = 32;            // K per stage: one tap x 32 input channels
+constexpr int BK = 32;            // K per stage: one tap x 32 input channels (f32)
+constexpr int BK_BF16 = 64;       // the bf16 instance's: one tap x 64 input channels
 constexpr int BN = 128;           // output channels per block: one wgmma n128
 constexpr int MAX_SPLITS = 32;
 
-struct Params {
-  const float* x;
-  const float* w;
-  const float* s;
-  const float* d;
-  const float* noise;
+// T = float (the 3xTF32 instance) or __nv_bfloat16 (the bf16 instance);
+// noise_w, bias and the split-K partial sums are f32 in both
+template <typename T>
+struct ParamsT {
+  const T* x;
+  const T* w;
+  const T* s;
+  const T* d;
+  const T* noise;
   const float* noise_w;
   const float* bias;
-  float* out;
-  float* wt;  // the weight transposed to [9][Cout][cinp] (K-major)
+  T* out;
+  T* wt;      // the weight transposed to [9][Cout][cinp] (K-major)
   float* ws;  // split-K partial sums [splits][M][Cout], or null
   int H, W, cin, cinp, cout, noise_per_sample;
   int M, HW, kchunks, ksteps, splits;
   float slope, gain;
 };
+using Params = ParamsT<float>;
+using ParamsBf16 = ParamsT<__nv_bfloat16>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even
+}
+// read-only loads through the non-coherent cache, as f32
+__device__ __forceinline__ float ldg_f32(const float* q) { return __ldg(q); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* q) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(q))));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // v = big + small, both TF32, each rounded to nearest with ties away from
@@ -100,10 +146,11 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   small = tf32_rna(v - __uint_as_float(big));
 }
 
-// wgmma shared-memory descriptor of a K-major TF32 tile in the 128-byte
-// swizzle layout: rows of 32 values (128 bytes), the 16-byte chunk c of row r
-// stored at chunk c ^ (r % 8), 8-row groups 1024 bytes apart; the tile starts
-// on a 1024-byte boundary, and k8 step k starts 32 * k bytes in.
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// layout: rows of 128 bytes (32 TF32 or 64 bf16 values), the 16-byte chunk c
+// of row r stored at chunk c ^ (r % 8), 8-row groups 1024 bytes apart; the
+// tile starts on a 1024-byte boundary, and k slice k (k8 for TF32, k16 for
+// bf16: 32 bytes either way) starts 32 * k bytes in.
 __device__ __forceinline__ uint64_t sw128_desc(const void* start) {
   return (uint64_t)((smem_u32(start) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
@@ -146,33 +193,57 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// The epilogue for one output: demodulate, noise, bias, LeakyReLU * gain.
-__device__ __forceinline__ float finish(const Params& p, float acc, int b, int n, float nz) {
-  float v = acc * __ldg(p.d + (long long)b * p.cout + n) + nz + __ldg(p.bias + n);
+// The same over one k16 step, both operands bf16 and K-major (no transpose).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The epilogue for one output, in f32: demodulate, noise, bias, LeakyReLU * gain.
+template <typename T>
+__device__ __forceinline__ float finish(const ParamsT<T>& p, float acc, int b, int n, float nz) {
+  float v = acc * ldg_f32(p.d + (long long)b * p.cout + n) + nz + __ldg(p.bias + n);
   v = v >= 0.f ? v : v * p.slope;
   return v * p.gain;
 }
 
-__device__ __forceinline__ float noise_term(const Params& p, int b, int q) {
+template <typename T>
+__device__ __forceinline__ float noise_term(const ParamsT<T>& p, int b, int q) {
   if (p.noise == nullptr) return 0.f;
-  return __ldg(p.noise_w) * __ldg(p.noise + (p.noise_per_sample ? (long long)b * p.HW : 0) + q);
+  return __ldg(p.noise_w) * ldg_f32(p.noise + (p.noise_per_sample ? (long long)b * p.HW : 0) + q);
 }
 
 // w [9][Cin][Cout] -> [9][Cout][cinp], K-major for wgmma, through a 32 x 32
-// shared tile; channels cin..cinp-1 are zero.
-__global__ void __launch_bounds__(256) styled_conv_weight_kmajor_kernel(const Params p) {
+// shared tile; channels cin..cinp-1 are zero. Values pass through f32
+// unchanged.
+template <typename T>
+__global__ void __launch_bounds__(256) styled_conv_weight_kmajor_kernel(const ParamsT<T> p) {
   __shared__ float tile[32][33];
   const int tap = blockIdx.z, ci0 = blockIdx.y * 32, co0 = blockIdx.x * 32;
   for (int r = threadIdx.y; r < 32; r += 8) {
     const int ci = ci0 + r, co = co0 + threadIdx.x;
     tile[r][threadIdx.x] =
-        ci < p.cin && co < p.cout ? p.w[((long long)tap * p.cin + ci) * p.cout + co] : 0.f;
+        ci < p.cin && co < p.cout ? to_f32(p.w[((long long)tap * p.cin + ci) * p.cout + co]) : 0.f;
   }
   __syncthreads();
   for (int r = threadIdx.y; r < 32; r += 8) {
     const int co = co0 + r, ci = ci0 + threadIdx.x;
     if (co < p.cout && ci < p.cinp)
-      p.wt[((long long)tap * p.cout + co) * p.cinp + ci] = tile[threadIdx.x][r];
+      p.wt[((long long)tap * p.cout + co) * p.cinp + ci] = from_f32<T>(tile[threadIdx.x][r]);
   }
 }
 
@@ -360,10 +431,181 @@ __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
   }
 }
 
-// Split-K: sum the partial tiles in split order, then the epilogue. One
-// thread per output (four consecutive channels where VEC).
-template <bool VEC>
-__global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const Params p) {
+// The bf16 instance of styled_conv_tc_kernel: the same tiling, stage ring,
+// flush and split K; A = bf16(x * s) (an exact f32 product rounded once)
+// and the bf16 K-major weight, each K step one tap x 64 channels (a 128-byte
+// swizzle row) as one stage of A and one of B, and one wgmma k16 per
+// 32-byte k slice, four per step. VEC: Cin and Cout multiples of 8 and
+// 16-byte aligned operands, so every load of x is eight bf16.
+template <int WGS, bool VEC>
+__global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
+    styled_conv_bf16_kernel(const ParamsBf16 p) {
+  constexpr int THREADS = WGS * 128, BM = WGS * 64, STAGES = stages(WGS);
+  constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128;  // one K step of A, of B
+  constexpr int STAGE = A_BYTES + B_BYTES;               // bytes of one stage
+  constexpr int ROW_STEP = THREADS / 8;                  // 8 threads, 16 bytes each, a row
+  constexpr int A_ITERS = BM / ROW_STEP, B_ITERS = BN / ROW_STEP;
+  constexpr int FLUSH = 2;  // K steps summed in `part` between flushes
+  static_assert(A_ITERS * ROW_STEP == BM && B_ITERS * ROW_STEP == BN, "staging map");
+
+  extern __shared__ __align__(1024) unsigned char smem_b[];
+  unsigned char* smem = smem_b + ((1024 - (smem_u32(smem_b) & 1023)) & 1023);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int split = blockIdx.z;
+  const int step0 = (int)((long long)split * p.ksteps / p.splits);
+  const int nsteps = (int)((long long)(split + 1) * p.ksteps / p.splits) - step0;
+
+  // Staging map: this thread loads channels kc..kc+7 (kc = (tid % 8) * 8)
+  // of A rows r_0 + i * ROW_STEP and of weight rows r_0 + i * ROW_STEP.
+  const int kc = (tid % 8) * 8, r_0 = tid / 8;
+  int rp[A_ITERS], ry[A_ITERS], rx[A_ITERS], rb[A_ITERS];
+#pragma unroll
+  for (int i = 0; i < A_ITERS; ++i) {
+    const int pix = m0 + r_0 + i * ROW_STEP;
+    rp[i] = pix;
+    rb[i] = pix < p.M ? pix / p.HW : 0;
+    const int q = pix - rb[i] * p.HW;
+    ry[i] = pix < p.M ? q / p.W : -(1 << 20);  // never inside the image
+    rx[i] = q % p.W;
+  }
+  uint4 xa[A_ITERS], wv[B_ITERS];  // the next K step, in flight: eight bf16 each
+
+  auto load = [&](int step) {
+    const int tap = step / p.kchunks;
+    const int ci = (step - tap * p.kchunks) * BK_BF16 + kc;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < A_ITERS; ++i) {
+      const int yy = ry[i] + dy, xx = rx[i] + dx;
+      const bool in = yy >= 0 && yy < p.H && xx >= 0 && xx < p.W;
+      const long long o = (long long)(rp[i] + dy * p.W + dx) * p.cin + ci;
+      const long long so = (long long)rb[i] * p.cin + ci;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+      if (VEC) {
+        if (in && ci < p.cin) {
+          const uint4 xv = __ldg(reinterpret_cast<const uint4*>(p.x + o));
+          const uint4 sv = __ldg(reinterpret_cast<const uint4*>(p.s + so));
+          const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w}, sw[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = unpack_bf16(xw[j]), b = unpack_bf16(sw[j]);
+            v[2 * j] = a.x * b.x;
+            v[2 * j + 1] = a.y * b.y;
+          }
+        }
+      } else if (in) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (ci + j < p.cin) v[j] = ldg_f32(p.x + o + j) * ldg_f32(p.s + so + j);
+      }
+      xa[i] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                         pack_bf16(v[6], v[7]));
+    }
+#pragma unroll
+    for (int i = 0; i < B_ITERS; ++i) {
+      const int n = n0 + r_0 + i * ROW_STEP;
+      wv[i] = n < p.cout && ci < p.cinp
+                  ? __ldg(reinterpret_cast<const uint4*>(
+                        p.wt + ((long long)tap * p.cout + n) * p.cinp + ci))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  auto store = [&](int stage) {
+    unsigned char* st = smem + stage * STAGE;
+#pragma unroll
+    for (int i = 0; i < A_ITERS; ++i)
+      *reinterpret_cast<uint4*>(st + sw128_offset(r_0 + i * ROW_STEP, kc / 8)) = xa[i];
+#pragma unroll
+    for (int i = 0; i < B_ITERS; ++i)
+      *reinterpret_cast<uint4*>(st + A_BYTES + sw128_offset(r_0 + i * ROW_STEP, kc / 8)) = wv[i];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // -> wgmma
+  };
+
+  // as in the f32 instance: FLUSH K steps from zero in `part`, joined to
+  // `acc` with a rounded f32 add, against the truncating accumulation
+  float acc[64], part[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = part[e] = 0.f;
+
+  const int wg = warp / 4;
+  load(step0);
+  store(0);
+  if (nsteps > 1) load(step0 + 1);
+  for (int it = 0; it < nsteps; ++it) {
+    __syncthreads();  // stage `it` is complete; groups <= it - 2 are done everywhere
+    const unsigned char* st = smem + (it % STAGES) * STAGE;
+    const unsigned char* a_tile = st + wg * 64 * 128;
+    const unsigned char* b_tile = st + A_BYTES;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) fence_operand(part[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int from_zero = k == 0 && it % FLUSH == 0;
+      wgmma_bf16(part, sw128_desc(a_tile + 32 * k), sw128_desc(b_tile + 32 * k), !from_zero);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // this warpgroup's group it - 1 is done
+    if (it + 1 < nsteps) store((it + 1) % STAGES);
+    if (it + 2 < nsteps) load(step0 + it + 2);
+    if ((it + 1) % FLUSH == 0 || it + 1 == nsteps) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        fence_operand(part[e]);
+        acc[e] += part[e];
+      }
+    }
+  }
+
+  // Epilogue: rows m0 + 16 * warp + g (+8), columns n0 + 8j + 2t (+1); in
+  // f32, one bf16 store, or raw f32 partial sums when K is split
+  const int arow = 16 * warp + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pix = m0 + arow + 8 * h;
+    if (pix >= p.M) continue;
+    const int b = pix / p.HW;
+    const float nz = p.splits == 1 ? noise_term(p, b, pix - b * p.HW) : 0.f;
+    __nv_bfloat16* orow = p.out + (long long)pix * p.cout;
+    float* prow = p.splits > 1 ? p.ws + ((long long)split * p.M + pix) * p.cout : nullptr;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (p.splits > 1) {
+        if (VEC) {
+          if (n < p.cout) *reinterpret_cast<float2*>(prow + n) = make_float2(v0, v1);
+        } else {
+          if (n < p.cout) prow[n] = v0;
+          if (n + 1 < p.cout) prow[n + 1] = v1;
+        }
+        continue;
+      }
+      if (n < p.cout) v0 = finish(p, v0, b, n, nz);
+      if (n + 1 < p.cout) v1 = finish(p, v1, b, n + 1, nz);
+      if (VEC) {
+        if (n < p.cout) *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
+      } else {
+        if (n < p.cout) orow[n] = __float2bfloat16(v0);
+        if (n + 1 < p.cout) orow[n + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// Split-K: sum the f32 partial tiles in split order, then the epilogue and
+// one store in x's type. One thread per output (four consecutive channels
+// where VEC).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const ParamsT<T> p) {
   constexpr int V = VEC ? 4 : 1;
   const long long total = (long long)p.M * p.cout / V;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -382,13 +624,16 @@ __global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const Pa
       sum.z += v.z;
       sum.w += v.w;
     }
-    *reinterpret_cast<float4*>(p.out + e) =
-        make_float4(finish(p, sum.x, b, n, nz), finish(p, sum.y, b, n + 1, nz),
-                    finish(p, sum.z, b, n + 2, nz), finish(p, sum.w, b, n + 3, nz));
+    const float4 r = make_float4(finish(p, sum.x, b, n, nz), finish(p, sum.y, b, n + 1, nz),
+                                 finish(p, sum.z, b, n + 2, nz), finish(p, sum.w, b, n + 3, nz));
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float4*>(p.out + e) = r;
+    else
+      *reinterpret_cast<uint2*>(p.out + e) = make_uint2(pack_bf16(r.x, r.y), pack_bf16(r.z, r.w));
   } else {
     float sum = p.ws[e];
     for (int z = 1; z < p.splits; ++z) sum += p.ws[z * plane + e];
-    p.out[e] = finish(p, sum, b, n, nz);
+    p.out[e] = from_f32<T>(finish(p, sum, b, n, nz));
   }
 }
 
@@ -406,14 +651,15 @@ int sm_count() {
 // The tiling and split count for a shape: 128 x 128 tiles (two
 // warpgroups, one block per SM) where they give a full wave, else 64 x 128
 // tiles (one warpgroup, two blocks per SM), with K split until about two
-// blocks per SM are in flight (each split keeps >= 4 K steps).
+// blocks per SM are in flight (each split keeps >= 4 K steps of `bk`
+// channels: BK for f32, BK_BF16 for bf16).
 struct Plan {
   int bm, splits;
 };
 
-Plan plan(int B, int H, int W, int cin, int cout) {
+Plan plan(int B, int H, int W, int cin, int cout, int bk) {
   const long long M = (long long)B * H * W;
-  const int ksteps = 9 * ((cin + BK - 1) / BK);
+  const int ksteps = 9 * ((cin + bk - 1) / bk);
   const long long n_tiles = (cout + BN - 1) / BN;
   if (((M + 127) / 128) * n_tiles >= sm_count()) return {128, 1};
   const long long tiles = ((M + 63) / 64) * n_tiles, target = 2LL * sm_count();
@@ -424,10 +670,15 @@ Plan plan(int B, int H, int W, int cin, int cout) {
   return {64, (int)splits};
 }
 
-// Workspace floats: the K-major weight, then the split-K partial sums.
-long long weight_floats(int cin, int cout) { return 9LL * cout * ((cin + 3) / 4 * 4); }
-long long workspace_floats(const Plan& pl, long long M, int cin, int cout) {
-  return weight_floats(cin, cout) + (pl.splits > 1 ? pl.splits * M * cout : 0);
+// Input channels of a K-major weight row: Cin rounded up to a 16-byte load.
+int cin_padded(int cin, int elem) { return (cin + 16 / elem - 1) / (16 / elem) * (16 / elem); }
+// Workspace bytes: the K-major weight (x's type), then the split-K f32
+// partial sums, which start 16-byte aligned.
+long long weight_bytes(int cin, int cout, int elem) {
+  return 9LL * cout * cin_padded(cin, elem) * elem;
+}
+long long workspace_bytes(const Plan& pl, long long M, int cin, int cout, int elem) {
+  return weight_bytes(cin, cout, elem) + (pl.splits > 1 ? pl.splits * M * cout * 4 : 0);
 }
 
 template <int WGS, bool VEC>
@@ -448,64 +699,65 @@ cudaError_t launch_tc(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-bool aligned16(const void* q) { return (reinterpret_cast<unsigned long long>(q) & 15) == 0; }
-
-}  // namespace
-
-// Tiling of a call: writes {BM, BN, splits} to `out3` and returns the floats
-// of workspace the caller must pass to l2i_styled_conv3x3.
-extern "C" long long l2i_styled_conv3x3_plan(int B, int H, int W, int cin, int cout,
-                                             int* out3) {
-  const Plan pl = plan(B, H, W, cin, cout);
-  out3[0] = pl.bm;
-  out3[1] = BN;
-  out3[2] = pl.splits;
-  return workspace_floats(pl, (long long)B * H * W, cin, cout);
+template <int WGS, bool VEC>
+cudaError_t launch_tc(const ParamsBf16& p, cudaStream_t st) {
+  // the stages of A (WGS * 64 rows) and B (128 rows), 128 bytes a row
+  constexpr int smem = stages(WGS) * (WGS * 64 + BN) * 128 + 1024;
+  auto kernel = styled_conv_bf16_kernel<WGS, VEC>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const dim3 grid((p.M + WGS * 64 - 1) / (WGS * 64), (p.cout + BN - 1) / BN, p.splits);
+  kernel<<<grid, WGS * 128, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
-// See the header comment for the operands; all f32 and contiguous, `noise`
-// may be null; `ws` (16-byte aligned) holds the floats
-// l2i_styled_conv3x3_plan asks for. Launches on `stream`: the weight split,
-// the product, and with split K the reduction. Returns cudaGetLastError().
-extern "C" int l2i_styled_conv3x3(const void* x, const void* w, const void* s, const void* d,
-                                  const void* noise, const void* noise_w, const void* bias,
-                                  void* out, void* ws, int B, int H, int W, int cin, int cout,
-                                  int noise_per_sample, float slope, float gain, void* stream) {
-  if ((long long)B * H * W * cout <= 0) return 0;
-  if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0 || ws == nullptr || !aligned16(ws))
-    return (int)cudaErrorInvalidValue;
-  const Plan pl = plan(B, H, W, cin, cout);
-  Params p;
-  p.x = static_cast<const float*>(x);
-  p.w = static_cast<const float*>(w);
-  p.s = static_cast<const float*>(s);
-  p.d = static_cast<const float*>(d);
-  p.noise = static_cast<const float*>(noise);
+bool aligned16(const void* q) { return (reinterpret_cast<unsigned long long>(q) & 15) == 0; }
+
+// One call in T: the weight transpose, the product, and with split K the
+// reduction.
+template <typename T>
+int run(const void* x, const void* w, const void* s, const void* d, const void* noise,
+        const void* noise_w, const void* bias, void* out, void* ws, int B, int H, int W,
+        int cin, int cout, int noise_per_sample, float slope, float gain, cudaStream_t st) {
+  constexpr int elem = (int)sizeof(T), bk = elem == 4 ? BK : BK_BF16;
+  const Plan pl = plan(B, H, W, cin, cout, bk);
+  ParamsT<T> p;
+  p.x = static_cast<const T*>(x);
+  p.w = static_cast<const T*>(w);
+  p.s = static_cast<const T*>(s);
+  p.d = static_cast<const T*>(d);
+  p.noise = static_cast<const T*>(noise);
   p.noise_w = static_cast<const float*>(noise_w);
   p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<float*>(out);
-  p.wt = static_cast<float*>(ws);
-  p.ws = pl.splits > 1 ? p.wt + weight_floats(cin, cout) : nullptr;
+  p.out = static_cast<T*>(out);
+  p.wt = static_cast<T*>(ws);
+  p.ws = pl.splits > 1
+             ? reinterpret_cast<float*>(static_cast<char*>(ws) + weight_bytes(cin, cout, elem))
+             : nullptr;
   p.H = H;
   p.W = W;
   p.cin = cin;
-  p.cinp = (cin + 3) / 4 * 4;
+  p.cinp = cin_padded(cin, elem);
   p.cout = cout;
   p.noise_per_sample = noise_per_sample;
   p.M = B * H * W;
   p.HW = H * W;
-  p.kchunks = (cin + BK - 1) / BK;
+  p.kchunks = (cin + bk - 1) / bk;
   p.ksteps = 9 * p.kchunks;
   p.splits = pl.splits;
   p.slope = slope;
   p.gain = gain;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 split_grid((cout + 31) / 32, (p.cinp + 31) / 32, 9);
-  styled_conv_weight_kmajor_kernel<<<split_grid, dim3(32, 8), 0, st>>>(p);
+  styled_conv_weight_kmajor_kernel<T><<<split_grid, dim3(32, 8), 0, st>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const bool vec = cin % 4 == 0 && cout % 4 == 0 && aligned16(x) && aligned16(s) &&
-                   aligned16(out);
+  const bool vec = cin % (16 / elem) == 0 && cout % (16 / elem) == 0 && aligned16(x) &&
+                   aligned16(s) && aligned16(out);
   if (pl.bm == 128)
     e = vec ? launch_tc<2, true>(p, st) : launch_tc<2, false>(p, st);
   else
@@ -514,8 +766,43 @@ extern "C" int l2i_styled_conv3x3(const void* x, const void* w, const void* s, c
   const long long n = (long long)p.M * cout / (vec ? 4 : 1);
   const unsigned blocks = (unsigned)((n + 255) / 256);
   if (vec)
-    styled_conv_splitk_reduce_kernel<true><<<blocks, 256, 0, st>>>(p);
+    styled_conv_splitk_reduce_kernel<T, true><<<blocks, 256, 0, st>>>(p);
   else
-    styled_conv_splitk_reduce_kernel<false><<<blocks, 256, 0, st>>>(p);
+    styled_conv_splitk_reduce_kernel<T, false><<<blocks, 256, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Tiling of a call: writes {BM, BN, splits} to `out3` and returns the bytes
+// of workspace the caller must pass to l2i_styled_conv3x3.
+extern "C" long long l2i_styled_conv3x3_plan(int B, int H, int W, int cin, int cout,
+                                             int is_bf16, int* out3) {
+  const int elem = is_bf16 ? 2 : 4;
+  const Plan pl = plan(B, H, W, cin, cout, is_bf16 ? BK_BF16 : BK);
+  out3[0] = pl.bm;
+  out3[1] = BN;
+  out3[2] = pl.splits;
+  return workspace_bytes(pl, (long long)B * H * W, cin, cout, elem);
+}
+
+// See the header comment for the operands; contiguous, x, w, s, d and noise
+// all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), noise_w and bias f32;
+// `noise` may be null; `ws` (16-byte aligned) holds the bytes
+// l2i_styled_conv3x3_plan asks for. Launches on `stream`: the weight
+// transpose, the product, and with split K the reduction. Returns
+// cudaGetLastError().
+extern "C" int l2i_styled_conv3x3(const void* x, const void* w, const void* s, const void* d,
+                                  const void* noise, const void* noise_w, const void* bias,
+                                  void* out, void* ws, int B, int H, int W, int cin, int cout,
+                                  int noise_per_sample, int is_bf16, float slope, float gain,
+                                  void* stream) {
+  if ((long long)B * H * W * cout <= 0) return 0;
+  if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0 || ws == nullptr || !aligned16(ws))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? run<__nv_bfloat16>(x, w, s, d, noise, noise_w, bias, out, ws, B, H, W, cin,
+                                      cout, noise_per_sample, slope, gain, st)
+                 : run<float>(x, w, s, d, noise, noise_w, bias, out, ws, B, H, W, cin, cout,
+                              noise_per_sample, slope, gain, st);
 }

@@ -21,6 +21,11 @@ twice): dx = g * m(out) is linear in g, so when g or out needs a gradient
 ``fused_leaky_relu_bwd`` records a node of its own whose backward is the
 same backward kernel on the incoming gradient (wrt out it is zero almost
 everywhere). db, a sum of dx, stays on autograd's tape.
+
+bf16 activations (the --bf16 compute) take an f32 bias, added in f32 by
+the kernel; db sums the bf16 dx over rows in f32 and stays in the bias's
+dtype, where the TPU kernel's VJP rounds it to the output's
+(ops/pallas_kernels.py:131): the bias is an f32 master.
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ def _forward(x, bias, negative_slope, scale):
         _build.stream_of(x),
     )
     _build.check(rc, "fused_act")
-    fused_leaky_relu.launches += 1
+    _build.count(fused_leaky_relu, x)
     return y
 
 
@@ -124,7 +129,7 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
     return _forward(x, bias, negative_slope, scale)
 
 
-fused_leaky_relu.launches = 0
+fused_leaky_relu.launches = fused_leaky_relu.launches_bf16 = 0
 
 
 def _backward(g, out, negative_slope, scale):
@@ -151,7 +156,7 @@ def _backward(g, out, negative_slope, scale):
         _build.stream_of(g),
     )
     _build.check(rc, "fused_act_bwd")
-    fused_leaky_relu_bwd.launches += 1
+    _build.count(fused_leaky_relu_bwd, g)
     return dx
 
 
@@ -191,4 +196,4 @@ def fused_leaky_relu_bwd(g, out, negative_slope: float = 0.2,
     return dx, db
 
 
-fused_leaky_relu_bwd.launches = 0
+fused_leaky_relu_bwd.launches = fused_leaky_relu_bwd.launches_bf16 = 0

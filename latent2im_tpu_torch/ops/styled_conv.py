@@ -13,6 +13,15 @@ split-K reduction launch); on a CPU tensor it runs the plain PyTorch
 version. ``styled_conv3x3_tf32`` repeats the kernel's
 numerics in plain PyTorch for the tests.
 
+bf16 (the JAX package's --bf16 compute): x, w, s, d and noise bf16,
+noise_w and bias f32, a bf16 result. The kernel's bf16 instance takes
+A = bf16(x * s) and the bf16 weight on the tensor cores with f32
+accumulation, then the epilogue in f32 and one rounding, as the TPU
+kernel does (pair_conv.py:114-133); the plain version on bf16 tensors
+computes the same (f32 convolution of the bf16-valued operands), and
+``styled_conv3x3_xla`` rounds where the JAX package's XLA form of a bf16
+styled conv does, for the tests.
+
 The TPU kernel is forward-only (JAX trains through its XLA form), so there is
 no backward kernel to port. When an operand needs a gradient the wrapper
 records an autograd node whose backward is device-agnostic torch code: the
@@ -53,9 +62,42 @@ def _epilogue(y, d, noise, noise_w, bias, negative_slope, gain):
 
 def styled_conv3x3_plain(x, w, s, d, noise, noise_w, bias,
                          negative_slope: float = 0.2, gain: float = SQRT2):
-    """Plain PyTorch version (same operands as ``styled_conv3x3``)."""
-    return _epilogue(_conv(x * s[:, None, None, :], w), d, noise, noise_w,
-                     bias, negative_slope, gain)
+    """Plain PyTorch version (same operands as ``styled_conv3x3``). On
+    bf16 operands it computes what the kernel's bf16 instance computes, up
+    to the order of the sums: A = bf16(x * s) (one rounding of an exact
+    product), an f32 convolution of A and the bf16 weight, the epilogue in
+    f32, one rounding to bf16."""
+    if x.dtype != torch.bfloat16:
+        return _epilogue(_conv(x * s[:, None, None, :], w), d, noise, noise_w,
+                         bias, negative_slope, gain)
+    f = torch.float32
+    a = (x.to(f) * s.to(f)[:, None, None, :]).to(x.dtype).to(f)
+    out = _epilogue(_conv(a, w.to(f)), d.to(f), None if noise is None else noise.to(f),
+                    noise_w.to(f), bias.to(f), negative_slope, gain)
+    return out.to(x.dtype)
+
+
+def styled_conv3x3_xla(x, w, s, d, noise, noise_w, bias,
+                       negative_slope: float = 0.2, gain: float = SQRT2):
+    """The JAX package's XLA form of a styled conv in x's dtype, with its
+    roundings (models/stylegan2.py:146-202, 353-354; ops/fused_act.py): x *
+    s, the convolution (f32 sums), the demodulation, noise_w * noise, the
+    noise add and the bias add each round to x's dtype, and LeakyReLU * gain
+    runs in it. For the tests; no path of the port calls it."""
+    dt = x.dtype
+    f = torch.promote_types(dt, torch.float32)
+
+    def r(t):  # one operation of the XLA form: f32 math, rounded to dt
+        return t.to(dt)
+
+    xs = r(x.to(f) * s.to(f)[:, None, None, :])
+    out = r(_conv(xs.to(f), w.to(f)))
+    out = r(out.to(f) * d.to(f)[:, None, None, :])
+    if noise is not None:
+        nz = r(r(noise_w.reshape(())).to(f) * noise.to(f))
+        out = r(out.to(f) + nz.to(f)[..., None])
+    out = r(out.to(f) + r(bias).to(f)).to(f)
+    return r(r(torch.where(out >= 0, out, r(out * negative_slope).to(f))).to(f) * gain)
 
 
 def tf32_round(t):
@@ -93,15 +135,17 @@ def styled_conv3x3_tf32(x, w, s, d, noise, noise_w, bias,
 
 
 @functools.lru_cache(maxsize=None)
-def styled_conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int) -> dict:
-    """The CUDA kernel's tiling for a shape: {"tile": (BM, BN), "splits": S,
-    "workspace_floats": n}, the workspace holding the K-major weight and,
-    with S > 1 (split K, a last launch reduces), the partial sums. Cached
-    per shape; do not modify the result."""
+def styled_conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """The CUDA kernel's tiling for a shape and dtype (f32 or bf16):
+    {"tile": (BM, BN), "splits": S, "workspace_bytes": n}, the workspace
+    holding the K-major weight (in the dtype) and, with S > 1 (split K, a
+    last launch reduces), the f32 partial sums. Cached per shape; do not
+    modify the result."""
     plan = (ctypes.c_int * 3)()
-    n = _build.library().l2i_styled_conv3x3_plan(b, h, w, cin, cout,
-                                                  ctypes.addressof(plan))
-    return {"tile": (plan[0], plan[1]), "splits": plan[2], "workspace_floats": n}
+    n = _build.library().l2i_styled_conv3x3_plan(
+        b, h, w, cin, cout, int(dtype == torch.bfloat16), ctypes.addressof(plan))
+    return {"tile": (plan[0], plan[1]), "splits": plan[2], "workspace_bytes": n}
 
 
 def _check_operands(x, w, s, d, noise, noise_w, bias):
@@ -119,16 +163,19 @@ def _check_operands(x, w, s, d, noise, noise_w, bias):
                 f"{tuple(noise.shape)}"
             )
         operands["noise"] = noise
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"styled_conv3x3: f32 or bf16 input, got {x.dtype}")
     for name, t in operands.items():
         if name in expect and tuple(t.shape) != expect[name]:
             raise ValueError(
                 f"styled_conv3x3: {name} must be {expect[name]}, got "
                 f"{tuple(t.shape)}"
             )
-        if t.device != x.device or t.dtype != torch.float32 or \
-                not t.is_contiguous():
+        # noise_w and bias stay f32 (the epilogue's); the rest in x's dtype
+        dt = torch.float32 if name in ("noise_w", "bias") else x.dtype
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
-                f"styled_conv3x3: {name} must be contiguous f32 on {x.device}"
+                f"styled_conv3x3: {name} must be contiguous {dt} on {x.device}"
             )
     return operands["noise_w"]
 
@@ -141,17 +188,17 @@ def _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain):
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    n_ws = styled_conv3x3_plan(b, h, wd, cin, cout)["workspace_floats"]
-    ws = torch.empty(n_ws, dtype=x.dtype, device=x.device)
+    n_ws = styled_conv3x3_plan(b, h, wd, cin, cout, x.dtype)["workspace_bytes"]
+    ws = torch.empty(n_ws, dtype=torch.uint8, device=x.device)
     rc = _build.library().l2i_styled_conv3x3(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), d.data_ptr(),
         _build.ptr(noise), noise_w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), ws.data_ptr(), b, h, wd, cin, cout,
         int(noise is not None and noise.shape[0] == b and b > 1),
-        negative_slope, gain, _build.stream_of(x),
+        int(x.dtype == torch.bfloat16), negative_slope, gain, _build.stream_of(x),
     )
     _build.check(rc, "styled_conv3x3")
-    styled_conv3x3.launches += 1
+    _build.count(styled_conv3x3, x)
     return out
 
 
@@ -166,30 +213,34 @@ class _StyledConv3x3(torch.autograd.Function):
         out = _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain)
         ctx.save_for_backward(x, w, s, d, noise, noise_w, out)
         ctx.negative_slope, ctx.gain = negative_slope, gain
+        ctx.bias_dtype = bias.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, w, s, d, noise, noise_w, out = ctx.saved_tensors
         need = ctx.needs_input_grad
-        # gradient at the pre-activation z = y * d + noise_w * noise + bias
+        # gradient at the pre-activation z = y * d + noise_w * noise + bias,
+        # in out's dtype; the reductions over pixels run in f32 (f64 stays)
         gz, _ = fused_leaky_relu_bwd(g.contiguous(), out, ctx.negative_slope,
                                      ctx.gain, bias_grad=False)
+        f = torch.promote_types(gz.dtype, torch.float32)
         gx = gw = gs = gd = gnoise = gnw = gbias = None
         if need[6]:
-            gbias = gz.sum((0, 1, 2))
+            gbias = gz.to(f).sum((0, 1, 2)).to(ctx.bias_dtype)
         if noise is not None and (need[4] or need[5]):
-            gz_c = gz.sum(-1)  # [B, H, W]
+            gz_c = gz.to(f).sum(-1)  # [B, H, W]
             if need[5]:
-                gnw = (gz_c * noise).sum().reshape(noise_w.shape)
+                gnw = (gz_c * noise.to(f)).sum().reshape(noise_w.shape).to(noise_w.dtype)
             if need[4]:
-                gnoise = (gz_c * noise_w.reshape(())).sum(0, keepdim=True) \
-                    if noise.shape[0] == 1 else gz_c * noise_w.reshape(())
+                nw = noise_w.reshape(()).to(f)
+                gnoise = ((gz_c * nw).sum(0, keepdim=True) if noise.shape[0] == 1
+                          else gz_c * nw).to(noise.dtype)
         w_oihw = w.permute(3, 2, 0, 1)
         xs = _nchw(x * s[:, None, None, :]) if need[1] or need[3] else None
         if need[3]:
             y = F.conv2d(xs, w_oihw, padding=1)
-            gd = (gz * y.permute(0, 2, 3, 1)).sum((1, 2))
+            gd = (gz.to(f) * y.permute(0, 2, 3, 1).to(f)).sum((1, 2)).to(d.dtype)
         if need[0] or need[1] or need[2]:
             gy = gz * d[:, None, None, :]
         if need[1]:  # back to [3, 3, Cin, Cout]
@@ -201,7 +252,7 @@ class _StyledConv3x3(torch.autograd.Function):
             if need[0]:
                 gx = gxs * s[:, None, None, :]
             if need[2]:
-                gs = (gxs * x).sum((1, 2))
+                gs = (gxs.to(f) * x.to(f)).sum((1, 2)).to(s.dtype)
         return gx, gw, gs, gd, gnoise, gnw, gbias, None, None
 
 
@@ -221,4 +272,4 @@ def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
     return _forward(x, w, s, d, noise, noise_w, bias, negative_slope, gain)
 
 
-styled_conv3x3.launches = 0
+styled_conv3x3.launches = styled_conv3x3.launches_bf16 = 0

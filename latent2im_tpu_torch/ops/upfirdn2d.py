@@ -14,7 +14,9 @@ the transposed pads of the TPU kernel's VJP (ops/pallas_kernels.py:_ufd_bwd):
     g_pad0 = k - pad0 - 1,   g_pad1 = in*up - out*down + pad0 - up + 1
 
 On a CUDA tensor ``upfirdn2d`` launches the hand-written kernel
-``csrc/upfirdn2d.cu``, the port of ``upfirdn2d_pallas``, and when its input
+``csrc/upfirdn2d.cu``, the port of ``upfirdn2d_pallas``, for f32 or bf16
+images (bf16: the taps and the sums in f32, one rounding per output, as the
+TPU kernel stores its f32 accumulator in the input's dtype), and when its input
 needs a gradient it records an autograd node whose backward,
 ``upfirdn2d_bwd``, launches the same kernel with the transposed parameters,
 as the TPU version runs its own forward kernel (``_ufd_impl``) backward. On a
@@ -59,8 +61,11 @@ def _kernel_tensor(kernel, x):
 
 
 def upfirdn2d_plain(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
-    """Plain PyTorch version: zero-stuff, pad/crop, depthwise conv, stride."""
+    """Plain PyTorch version: zero-stuff, pad/crop, depthwise conv, stride;
+    in f32 for a bf16 x, rounded once to bf16 (the kernel's arithmetic)."""
     px0, px1, py0, py1 = _as_pads(pad)
+    dtype = x.dtype
+    x = x.to(torch.promote_types(dtype, torch.float32))
     k = _kernel_tensor(kernel, x).to(x.dtype)
     b, h, w, c = x.shape
     kh, kw = k.shape
@@ -73,7 +78,7 @@ def upfirdn2d_plain(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
           max(-px0, 0): x.shape[2] - max(-px1, 0), :]
     wgt = torch.flip(k, (0, 1)).expand(c, 1, kh, kw)
     out = F.conv2d(x.permute(0, 3, 1, 2), wgt, stride=down, groups=c)
-    return out.permute(0, 2, 3, 1).contiguous()
+    return out.permute(0, 2, 3, 1).to(dtype).contiguous()
 
 
 def out_size(n: int, up: int, down: int, p0: int, p1: int, k: int) -> int:
@@ -83,8 +88,8 @@ def out_size(n: int, up: int, down: int, p0: int, p1: int, k: int) -> int:
 
 def _launch(x, k, up, down, pads, oh, ow):
     """One launch of ``l2i_upfirdn2d`` -> [B, oh, ow, C] (checks first)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"upfirdn2d: f32 input, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"upfirdn2d: f32 or bf16 input, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d: input must be contiguous NHWC [B, H, W, C]")
     if up < 1 or down < 1:
@@ -102,7 +107,8 @@ def _launch(x, k, up, down, pads, oh, ow):
     lib = _build.library()
     rc = lib.l2i_upfirdn2d(
         x.data_ptr(), k.contiguous().data_ptr(), out.data_ptr(), b, h, w, c,
-        oh, ow, kh, kw, up, down, px0, py0, _build.stream_of(x),
+        oh, ow, kh, kw, up, down, px0, py0, int(x.dtype == torch.bfloat16),
+        _build.stream_of(x),
     )
     _build.check(rc, "upfirdn2d")
     return out
@@ -110,12 +116,15 @@ def _launch(x, k, up, down, pads, oh, ow):
 
 def upfirdn2d_form(x, out, k_shape, up: int, down: int) -> str:
     """Which instance of the CUDA kernel the launch reading ``x`` [B,H,W,C]
-    and writing ``out`` takes, by the launch's own test: "templated float4"
-    or "templated" (4x4 taps, (up, down) of (1, 1), (2, 1) or (1, 2); float4
-    where C % 4 == 0 and both are 16-byte aligned), else "generic"."""
+    and writing ``out`` takes, by the launch's own test: "templated float4",
+    "templated bf16x8" or "templated" (4x4 taps, (up, down) of (1, 1),
+    (2, 1) or (1, 2); 16-byte vectors where C is a multiple of 4 (f32) or 8
+    (bf16) and both tensors are 16-byte aligned), else "generic"."""
     form = _build.library().l2i_upfirdn2d_form(
-        x.data_ptr(), out.data_ptr(), x.shape[-1], *k_shape, up, down)
-    return {0: "generic", 1: "templated", 4: "templated float4"}[form]
+        x.data_ptr(), out.data_ptr(), x.shape[-1], *k_shape, up, down,
+        int(x.dtype == torch.bfloat16))
+    return {0: "generic", 1: "templated", 4: "templated float4",
+            8: "templated bf16x8"}[form]
 
 
 def _forward(x, k, up, down, pads):
@@ -126,7 +135,7 @@ def _forward(x, k, up, down, pads):
     out = _launch(x, k, up, down, pads,
                   out_size(x.shape[1], up, down, py0, py1, kh),
                   out_size(x.shape[2], up, down, px0, px1, kw))
-    upfirdn2d.launches += 1
+    _build.count(upfirdn2d, x)
     return out
 
 
@@ -161,7 +170,7 @@ def upfirdn2d(x, kernel, up: int = 1, down: int = 1, pad=(0, 0)):
     return _forward(x, k, up, down, pads)
 
 
-upfirdn2d.launches = 0
+upfirdn2d.launches = upfirdn2d.launches_bf16 = 0
 
 
 def transposed_params(k_shape, up, down, pad, in_hw, out_hw):
@@ -196,7 +205,7 @@ def _backward(g, k, up, down, pads, in_hw):
     if g.device.type == "cpu":
         return upfirdn2d_plain(g, kf, gup, gdown, gpads)
     dx = _launch(g, kf, gup, gdown, gpads, int(in_hw[0]), int(in_hw[1]))
-    upfirdn2d_bwd.launches += 1
+    _build.count(upfirdn2d_bwd, g)
     return dx
 
 
@@ -228,7 +237,7 @@ def upfirdn2d_bwd(g, kernel, up: int, down: int, pad, in_hw):
     return _backward(g, k, up, down, pads, in_hw)
 
 
-upfirdn2d_bwd.launches = 0
+upfirdn2d_bwd.launches = upfirdn2d_bwd.launches_bf16 = 0
 
 
 # StyleGAN2 resampling conventions (JAX ops/upfirdn2d.py:317-343)

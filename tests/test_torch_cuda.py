@@ -15,6 +15,13 @@ cores' truncating accumulation run over all of K read ~4e-5:
 tests/test_torch_tf32split.py shows why the 3xTF32 split holds it and
 single-pass TF32 does not); gradients through the styled conv
 2e-4 (cuDNN's convs against the plain version's, both f32 with TF32 off).
+
+The bf16 instances (--bf16) against the plain versions on the same bf16
+tensors, relative to max |ref| (chip_smoke.py phase 33's gates): fused_act
+and upfirdn2d forward and backward 2^-8 (both sum in f32 and round once:
+one bf16 ulp where the f32 sums differ), the styled conv 2^-7 (A = bf16(x *
+s) and the bf16 weight on the tensor cores, f32 accumulation in another
+order than cuDNN's f32 convolution of the plain version, then one rounding).
 """
 
 import math
@@ -223,6 +230,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.fused_leaky_relu(x.permute(0, 2, 1, 3))
     with pytest.raises(TypeError, match="f32"):
         ops.upfirdn2d(x.double(), ops.make_kernel([1, 3, 3, 1]))
+    with pytest.raises(ValueError, match="must be contiguous"):  # bf16 x, f32 w
+        ops.styled_conv3x3(x.to(torch.bfloat16), torch.zeros(3, 3, 3, 4, device=dev),
+                           torch.ones(2, 3, device=dev), torch.ones(2, 4, device=dev),
+                           None, torch.zeros(1, device=dev), torch.zeros(4, device=dev))
     with pytest.raises(ValueError, match="w must be"):
         ops.styled_conv3x3(x, torch.zeros(3, 3, 4, 3, device=dev),
                            torch.ones(2, 3, device=dev), torch.ones(2, 3, device=dev),
@@ -563,3 +574,186 @@ def test_geometric_samplers_and_targets_on_the_card_match_the_cpu(dev, name):
         total += want_m.numel()
     limit = 1e-3 * total if name in ("zoom", "rotate2d", "rotate3d") else 0
     assert flips <= limit, (flips, total)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances (--bf16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+BF_TOL, BF_SC_TOL = 2.0 ** -8, 2.0 ** -7
+
+
+def test_each_wrapper_refuses_f16(dev):
+    """f32 and bf16 only: a half tensor raises in every wrapper, nothing
+    launches and nothing falls back."""
+    h = torch.float16
+    x = torch.zeros(2, 8, 8, 16, device=dev, dtype=h)
+    k = ops.make_kernel([1, 3, 3, 1])
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="f16|float16|Half"):
+        ops.fused_leaky_relu(x, torch.zeros(16, device=dev))
+    with pytest.raises(TypeError, match="f16|float16|Half"):
+        ops.fused_leaky_relu_bwd(x, x)
+    with pytest.raises(TypeError, match="f16|float16|Half"):
+        ops.upfirdn2d(x, k, pad=(1, 1))
+    with pytest.raises(TypeError, match="f16|float16|Half"):
+        ops.upfirdn2d_bwd(x, k, 1, 1, (1, 1), (9, 9))
+    with pytest.raises(TypeError, match="f16|float16|Half"):
+        ops.styled_conv3x3(x, torch.zeros(3, 3, 16, 16, device=dev, dtype=h),
+                           torch.ones(2, 16, device=dev, dtype=h),
+                           torch.ones(2, 16, device=dev, dtype=h), None,
+                           torch.zeros(1, device=dev), torch.zeros(16, device=dev))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("b,h,w,c,up,pad,gain", MAIN_FORMS)
+def test_upfirdn2d_bf16_kernel_main_path_forms(dev, b, h, w, c, up, pad, gain):
+    """The bf16 instance at every main-path form, forward and gradient: the
+    16-byte vector (eight bf16) where C % 8 == 0, one channel at a time at
+    C = 3; each launch counted as a bf16 launch."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
+    x = _randn(gen, dev, b, h, w, c).to(BF16)
+    before = ops.launch_counts(bf16=True)["upfirdn2d"]
+    got = ops.upfirdn2d(x, k, up=up, pad=pad)
+    assert got.dtype == BF16 and ops.launch_counts(bf16=True)["upfirdn2d"] == before + 1
+    form = "templated bf16x8" if c % 8 == 0 else "templated"
+    assert ops.upfirdn2d_form(x, got, (4, 4), up, 1) == form
+    _close(got, ops.upfirdn2d_plain(x, k, up=up, pad=pad), BF_TOL)
+    oh, ow = got.shape[1:3]
+    g = _randn(gen, dev, b, oh, ow, c).to(BF16)
+    gup, gdown, gpads = ops.transposed_params((4, 4), up, 1, pad, (h, w), (oh, ow))
+    before = ops.launch_counts(bf16=True)["upfirdn2d_bwd"]
+    dx = ops.upfirdn2d_bwd(g, k, up, 1, pad, (h, w))
+    assert ops.launch_counts(bf16=True)["upfirdn2d_bwd"] == before + 1
+    assert ops.upfirdn2d_form(g, dx, (4, 4), gup, gdown) == form
+    _close(dx, ops.upfirdn2d_plain(g, torch.flip(k, (0, 1)), gup, gdown, gpads), BF_TOL)
+
+
+@pytest.mark.parametrize("up,down,pad,taps,h,w,c", [
+    (1, 1, (1, 1), [1, 3, 3, 1], 9, 9, 5), (2, 2, (1, 1), [1, 3, 3, 1], 8, 10, 33),
+    (2, 1, (2, 1, 0, 3), ASYM, 6, 5, 3), (1, 2, (2, 2), [1, 3, 3, 1], 16, 16, 24),
+])
+def test_upfirdn2d_bf16_kernel_generic_and_ragged(dev, up, down, pad, taps, h, w, c):
+    gen = torch.Generator(device=dev).manual_seed(20)
+    k = np.asarray(taps, np.float32)
+    k = ops.make_kernel(k) if k.ndim == 1 else k / k.sum()
+    x = _randn(gen, dev, 2, h, w, c).to(BF16)
+    _close(ops.upfirdn2d(x, k, up=up, down=down, pad=pad),
+           ops.upfirdn2d_plain(x, k, up=up, down=down, pad=pad), BF_TOL)
+
+
+def test_upfirdn2d_bf16_unaligned_slice_takes_the_scalar_instance(dev):
+    """A bf16 tensor starting 2 bytes past a 16-byte boundary: no 16-byte
+    vectors, the one-channel instance, the same values."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k = ops.make_kernel([1, 3, 3, 1])
+    x = _randn(gen, dev, 2 * 16 * 16 * 8 + 1).to(BF16)[1:].view(2, 16, 16, 8)
+    got = ops.upfirdn2d(x, k, pad=(1, 1))
+    assert ops.upfirdn2d_form(x, got, (4, 4), 1, 1) == "templated"
+    _close(got, ops.upfirdn2d_plain(x, k, pad=(1, 1)), BF_TOL)
+
+
+def test_fused_act_bf16_with_an_f32_bias_launches_the_kernel(dev):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x, b = _randn(gen, dev, 4, 16, 16, 64).to(BF16), _randn(gen, dev, 64)
+    before = ops.launch_counts(bf16=True)["fused_act"]
+    got = ops.fused_leaky_relu(x, b)
+    assert ops.launch_counts(bf16=True)["fused_act"] == before + 1 and got.dtype == BF16
+    _close(got, ops.fused_leaky_relu_plain(x, b), 0)  # one rounding of the same f32
+    g = _randn(gen, dev, 4, 16, 16, 64).to(BF16)
+    dx, db = ops.fused_leaky_relu_bwd(g, got)
+    want_dx, want_db = ops.fused_leaky_relu_bwd_plain(g, got)
+    _close(dx, want_dx, 0)
+    _close(db, want_db, 1e-5)  # an f32 sum over rows in another order
+
+
+def _bf16_styled_args(gen, dev, b, h, w, cin, cout, noise_b):
+    x, wt, s, d, noise, nw, bias = _styled_args(gen, dev, b, h, w, cin, cout, noise_b)
+    return (x.to(BF16), wt.to(BF16), s.to(BF16), d.to(BF16),
+            None if noise is None else noise.to(BF16), nw, bias)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,noise_b", [
+    # ragged Cin (not a multiple of 8: the one-channel loads), Cout < 128,
+    # the 16-byte path with a ragged tile, large tiles, per-sample noise
+    (1, 4, 4, 3, 5, None), (2, 5, 7, 17, 65, 1), (3, 33, 31, 40, 16, 3),
+    (2, 8, 8, 512, 512, 2), (1, 64, 64, 128, 128, 1), (4, 96, 96, 40, 136, 4),
+    (2, 97, 95, 72, 130, 1), (4, 64, 64, 256, 64, 1),
+])
+def test_styled_conv_bf16_kernel(dev, b, h, w, cin, cout, noise_b):
+    gen = torch.Generator(device=dev).manual_seed(23)
+    args = _bf16_styled_args(gen, dev, b, h, w, cin, cout, noise_b)
+    before = ops.launch_counts(bf16=True)["styled_conv3x3"]
+    got = ops.styled_conv3x3(*args)
+    assert got.dtype == BF16
+    assert ops.launch_counts(bf16=True)["styled_conv3x3"] == before + 1
+    _close(got, ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+
+
+@pytest.mark.parametrize("h", [4, 8, 16, 32])
+def test_styled_conv_bf16_kernel_split_k_at_the_small_layers(dev, h):
+    """The 4-32 px layers (B=4, 512 -> 512) split K in bf16 too (64 channels
+    a K step: 72 steps at 512 channels); f32 partial sums, one rounding in
+    the reduction launch; two calls bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    args = _bf16_styled_args(gen, dev, 4, h, h, 512, 512, 1)
+    plan = ops.styled_conv3x3_plan(4, h, h, 512, 512, BF16)
+    assert plan["tile"] == (64, 128) and (plan["splits"] > 1 or h > 16), plan
+    got = ops.styled_conv3x3(*args)
+    _close(got, ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+    assert torch.equal(got, ops.styled_conv3x3(*args))
+
+
+@pytest.mark.parametrize("h,cin,cout", [(512, 64, 64), (1024, 32, 32)])
+def test_styled_conv_bf16_kernel_at_the_1024px_models_thin_layers(dev, h, cin, cout):
+    gen = torch.Generator(device=dev).manual_seed(25)
+    args = _bf16_styled_args(gen, dev, 1, h, h, cin, cout, 1)
+    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+
+
+def test_styled_conv_bf16_gradients_match_the_plain_version(dev):
+    """The bf16 node's backward (fused_act's bf16 backward kernel, cuDNN's
+    bf16 convs) against autograd of the plain bf16 version: each gradient in
+    its operand's dtype, within 2e-2 relative L2 (bf16 convolutions summed
+    in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    args = [a.clone().requires_grad_(True) if a is not None else None
+            for a in _bf16_styled_args(gen, dev, 2, 16, 16, 64, 64, 2)]
+    g = _randn(gen, dev, 2, 16, 16, 64).to(BF16)
+    leaves = [a for a in args if a is not None]
+    got = torch.autograd.grad(ops.styled_conv3x3(*args), leaves, g)
+    want = torch.autograd.grad(ops.styled_conv3x3_plain(*args), leaves, g)
+    for a, x, y in zip(leaves, got, want):
+        assert x.dtype == a.dtype
+        rel = (x.double() - y.double()).norm() / y.double().norm()
+        assert rel <= 2e-2, rel
+
+
+def test_tiny_bf16_editor_on_the_card_matches_the_cpu_in_bf16_launches(dev):
+    """--bf16 at --dev_tiny: apply_alpha on the card through the bf16
+    instances (every styled conv, upfirdn2d and non-MLP fused_act launch a
+    bf16 one) against the CPU's plain bf16 versions: images within 2e-2
+    relative L2 (bf16 roundings at other places)."""
+    from latent2im_tpu_torch.config.options import TrainOptions
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    conf = TrainOptions().parse(["--attrList", "Smiling", "--dev_tiny", "--bf16",
+                                 "--resolution", "32", "--models_dir", "unused"],
+                                print_opt=False)
+    z = np.random.RandomState(0).randn(2, 32).astype(np.float32)
+    a = np.asarray([0.2, 0.9], np.float32)
+    outs = []
+    for device in (dev, "cpu"):
+        ed, walk, _ = build_editor_from_options(conf, device=device)
+        assert ed.cfg.compute_dtype == BF16
+        ops.reset_launches()
+        outs.append([v.cpu().numpy() for v in ed.apply_alpha(walk, z, a)])
+        if device == dev:
+            every, bf = ops.launch_counts(), ops.launch_counts(bf16=True)
+            for k in ("upfirdn2d", "styled_conv3x3"):
+                assert every[k] == bf[k] > 0, (k, every, bf)
+            assert every["fused_act"] - bf["fused_act"] == 2  # the 2-layer style MLP, f32
+    for g, c in zip(*outs):
+        assert np.linalg.norm(g - c) <= 2e-2 * np.linalg.norm(c)

@@ -202,8 +202,9 @@ def test_build_flags():
     assert isinstance(ed.d, sg2.Discriminator) and isinstance(ed.vgg, vggm.VGG19Features)
     assert not any(p.requires_grad for m in (ed.g, ed.reg, ed.vgg, ed.d)
                    for p in m.parameters())
-    with pytest.raises(NotImplementedError, match="item 20"):
-        _tiny_editor("--bf16")
+    assert ed.cfg.compute_dtype == torch.float32
+    ed, _, _ = _tiny_editor("--bf16")
+    assert ed.cfg.compute_dtype == torch.bfloat16
     for flags, want in ((("--remat_g",), {"remat_g": "all"}),
                         (("--remat_g", "block", "--remat_towers"),
                          {"remat_g": "block", "remat_towers": True}),
