@@ -11,8 +11,9 @@ CLI); then the second derivatives a gradient penalty takes (16), W+
 inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20), the joint
 GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
 backends (25-28), the geometric and color walks with the dsprites
-sliders, LPIPS and parity_check (29-32), and bf16 compute, --bf16, with the
-kernels' bf16 instances (33-37). Phases (a failed phase raises, and
+sliders, LPIPS and parity_check (29-32), bf16 compute, --bf16, with the
+kernels' bf16 instances (33-37), and JPEG input (38). Phases (a failed
+phase raises, and
 the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -53,7 +54,8 @@ the script exits non-zero):
      in-process part, must show all five kernels in training and the three
      forward kernels in serving.
  11. kernels at the 1024 px shapes: phase 3 at 1024 px, B=8 (the styled
-     conv at 512^2 x 64 and 1024^2 x 32, upfirdn2d and fused_act at every
+     conv at 512^2 x 64 and 1024^2 x 32, each of these thin layers timed
+     beside cuDNN's bf16 grouped conv, upfirdn2d and fused_act at every
      site of one edit and one training step);
  12. the 1024 px generator (tests/fullscale_ref.py's seeded full-width
      g_ema, strict) against tests/fixtures/ref_outputs_1024px.npz, relative
@@ -150,7 +152,8 @@ the script exits non-zero):
      256 px B=4 and 1024 px B=8 main-path shapes against their plain bf16
      versions (2^-8 of max|ref| for fused_act and upfirdn2d, 2^-7 for the
      styled conv), timed as phase 3, bound at bf16 bytes and the styled
-     conv's 989 TFLOP/s dense bf16 rate, library calls in bf16;
+     conv's 989 TFLOP/s dense bf16 rate, library calls in bf16; the styled
+     conv's thin form (N = Cout) at 1024^2 x 32 and 512^2 x 64;
  34. the 256 px edit server with --bf16: /edit of 4 (p50, img/s), the
      launches of the f32 path, every one a bf16 instance's but the style
      MLP's; apply_alpha B=4; the bf16 image against the f32 one; card
@@ -163,6 +166,12 @@ the script exits non-zero):
  37. --bf16 through the CLIs (chiprun_out/cli_bf16/): train + SIGTERM +
      --resume, vis_w (python -m), /edit; --updateGAN, 3 iterations (ms per D
      and G step); model_256 PGGAN apply_alpha and one step, no launch.
+ 38. JPEG input: the fixtures of tests/fixtures/torch_jpeg/ (this machine has
+     no Pillow to write one) decoded by utils/image.py:read_image_rgb, each
+     equal to its recorded Pillow decode, the host decode ms per photo at
+     218x178, 256^2 and 1024^2; `python -m latent2im_tpu_torch.cli.bp` on
+     a directory of them at 256 px, then --updateGAN on them as real
+     images (a warmup and 2 iterations, counted).
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -474,14 +483,16 @@ def kernel_cases(name, case, gen, dev, dtype=None):
 
 
 def kernel_variant(name, case, inp, got):
-    """The kernel instance a main-path shape takes: the styled conv's tiling
-    and split count, upfirdn2d's form for the launch that read `inp` and
-    wrote `got` (which must be a templated one)."""
+    """The kernel instance a main-path shape takes: the styled conv's form
+    (thin: bf16 with Cout <= 64, N = Cout; else tiled), tiling and split
+    count, upfirdn2d's form for the launch that read `inp` and wrote `got`
+    (which must be a templated one)."""
     from latent2im_tpu_torch import ops
 
     if name == "styled_conv3x3":
         bsz, h, cin, cout = case
-        return ops.styled_conv3x3_plan(bsz, h, h, cin, cout, inp.dtype)
+        plan = ops.styled_conv3x3_plan(bsz, h, h, cin, cout, inp.dtype)
+        return {"form": "thin" if plan["tile"][1] < 128 else "tiled", **plan}
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         up = case[4]  # the gradient is the op with up and down swapped
         form = ops.upfirdn2d_form(inp, got, (4, 4), *((up, 1) if name == "upfirdn2d"
@@ -560,6 +571,13 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25, dtype=None):
         b_ms, _ = bound_ms(nbytes, flops, rate)
         f32_ms = bound_ms(nbytes, flops)[0] if rate != F32_FLOPS and not bf16 else None
         variant = kernel_variant(name, case, inp, got)
+        lib_bf16 = None
+        if name == "styled_conv3x3" and case[3] <= 64:  # a thin layer: beside cuDNN in bf16
+            lib_bf16 = t_l if bf16 else time_ms(kernel_cases(
+                name, case, torch.Generator(device=dev).manual_seed(1), dev,
+                torch.bfloat16)[2], iters=iters)
+            log(f"    thin layer {case}: {str(inp.dtype)[6:]} kernel {t_k:.4f} ms (device "
+                f"{t_d:.4f}) against cuDNN's bf16 grouped conv {lib_bf16:.4f} ms")
         if variant is not None:
             log(f"    {name} {case}: {variant}; {t_k:.4f} ms (device {t_d:.4f}), "
                 f"library {t_l:.4f}, bound {b_ms:.4f}"
@@ -570,7 +588,7 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25, dtype=None):
         details.append({"kernel": name, "size": size, "case": repr(case), "variant": variant,
                         "dtype": str(inp.dtype),
                         "err_to_f64": to_f64,
-                        "f32_bound_ms": f32_ms,
+                        "f32_bound_ms": f32_ms, "library_bf16_ms": lib_bf16,
                         "launches_per_apply_alpha": counts[0],
                         "launches_per_train_step": counts[1],
                         "max_abs_err": err, "max_abs_ref": scale, "ms": t_k,
@@ -2088,12 +2106,13 @@ def _moved(before, after) -> float:
     return max((after[n].detach() - t).abs().max().item() for n, t in before.items())
 
 
-def gan_train_phase(dev, *flags, iters=GAN_ITERS):
+def gan_train_phase(dev, *flags, iters=GAN_ITERS, real_dir=None):
     """--updateGAN at 256 px, B=4, full width: the CLI's provider
-    (cli/train.py:_make_gan_provider, real PNGs written here) before each
-    train_loop step; a warmup iteration, then ``iters`` counted and timed
-    ones. G's noise weights NOISE_WEIGHT, so the noise maps get a gradient.
-    ``flags`` are further options (--bf16 in phase 37)."""
+    (cli/train.py:_make_gan_provider, real PNGs written here, or the images
+    of ``real_dir``) before each train_loop step; a warmup iteration, then
+    ``iters`` counted and timed ones. G's noise weights NOISE_WEIGHT, so the
+    noise maps get a gradient. ``flags`` are further options (--bf16 in
+    phase 37)."""
     import torch
 
     from latent2im_tpu_torch import ops
@@ -2102,7 +2121,7 @@ def gan_train_phase(dev, *flags, iters=GAN_ITERS):
     from latent2im_tpu_torch.engine.train import train_loop
     from latent2im_tpu_torch.tasks.transforms import get_task
 
-    real_dir = _gan_pngs(os.path.join(REPO, "chiprun_out", "gan", "real"))
+    real_dir = real_dir or _gan_pngs(os.path.join(REPO, "chiprun_out", "gan", "real"))
     conf = train_conf("--updateGAN", "--real_data_dir", real_dir, *flags,
                       root=os.path.join(REPO, "chiprun_out", "gan"))
     t0 = time.perf_counter()
@@ -3829,6 +3848,103 @@ def bf16_phases(card, dev, results, hi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 38: JPEG input (the committed fixtures: this machine cannot write one)
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
+JPEG_TIMED = {"218x178": "photo_218x178_420", "256x256": "photo_256_422",
+              "1024x1024": "photo_1024_420"}
+JPEG_BP_LOOPS, JPEG_GAN_ITERS = 10, 2
+
+
+def jpeg_phase(dev):
+    """Phase 38: every fixture of tests/fixtures/torch_jpeg/ decoded by
+    utils/image.py:read_image_rgb, equal to its recorded Pillow decode
+    (decodes.npz, and the SHA-256 of decodes.json); the host decode time per
+    photo at 218x178, 256x256 and 1024x1024 (median of 3); then, on a
+    directory of those JPEGs, ``python -m latent2im_tpu_torch.cli.bp`` at
+    SIZE px (run in this process, counted) and JPEG_GAN_ITERS --updateGAN
+    iterations after a warmup (gan_train_phase with the JPEGs as its real
+    images). Its files go to a temporary directory, so that the output
+    directory holds only the small results of the run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _jpeg_phase(dev, root)
+
+
+def _jpeg_phase(dev, root):
+    import hashlib
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    with open(os.path.join(JPEG_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(JPEG_FIXTURES, "decodes.npz"))
+    names = sorted(k for k in meta if k != "pillow")
+    out = {"decode_ms": {}, "equal_to_pillow": {}}
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    for name in names:
+        path = os.path.join(JPEG_FIXTURES, f"{name}.jpg")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = imgmod.read_image_rgb(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ok = (list(got.shape) == meta[name]["shape"]
+              and hashlib.sha256(got.tobytes()).hexdigest() == meta[name]["sha256"]
+              and (name not in npz.files or np.array_equal(got, npz[name])))
+        if not ok:
+            raise AssertionError(f"{name}.jpg does not decode to its Pillow decode")
+        out["equal_to_pillow"][name] = True
+        out["decode_ms"][name] = statistics.median(times)
+        shutil.copy(path, img_dir)
+    out["decode_ms_per_photo"] = {k: out["decode_ms"][v] for k, v in JPEG_TIMED.items()}
+    log(f"    {len(names)} fixtures equal to their Pillow decodes; host decode ms per photo "
+        f"{json.dumps(out['decode_ms_per_photo'])}")
+
+    save_dir = os.path.join(root, "bp")
+    saved_argv = sys.argv
+    sys.argv = ["bp", "--img_dir", img_dir, "--save_dir", save_dir, "--resolution", str(SIZE),
+                "--n_loops", str(JPEG_BP_LOOPS), "--show_freq", "5",
+                "--batch_size", str(BATCH)]
+    t0 = time.perf_counter()
+    try:
+        ops.reset_launches()
+        runpy.run_module("latent2im_tpu_torch.cli.bp", run_name="__main__")
+        torch.cuda.synchronize()
+        out["launches"] = {"bp_jpeg": ops.launch_counts()}
+    finally:
+        sys.argv = saved_argv
+    out["bp_seconds"] = time.perf_counter() - t0
+    assert all(out["launches"]["bp_jpeg"][k] > 0 for k in SOURCE), out["launches"]
+    for bi, n in ((0, BATCH), (BATCH, len(names) - BATCH)):
+        w = np.load(os.path.join(save_dir, "latent", f"{bi}_w.npy"))
+        curve = np.load(os.path.join(save_dir, f"{bi}_loss.npy"))
+        assert w.shape == (n, 2 * int(math.log2(SIZE)) - 2, 512) and np.isfinite(w).all()
+        assert curve.shape == (JPEG_BP_LOOPS,) and np.isfinite(curve).all(), curve
+        out[f"bp_loss_{bi}"] = (float(curve[0]), float(curve[-1]))
+    log(f"    bp on {len(names)} JPEGs: {out['bp_seconds']:.1f} s, loss (first, last) "
+        f"{out['bp_loss_0']}, {out[f'bp_loss_{BATCH}']}")
+    torch.cuda.empty_cache()
+
+    gan = out["gan"] = gan_train_phase(dev, iters=JPEG_GAN_ITERS, real_dir=img_dir)
+    out["launches"]["gan_jpeg"] = gan.pop("launches")
+    log(f"    --updateGAN on the JPEGs: {gan['iteration_ms_cuda_events']:.2f} ms per "
+        f"iteration (CUDA events over {JPEG_GAN_ITERS}), D step "
+        f"{gan['d_step_ms_cuda_events']:.2f} ms, G step {gan['g_step_ms_cuda_events']:.2f} ms, "
+        f"{gan['samples_per_s']:.2f} samples/s on the host clock")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3920,6 +4036,9 @@ def main() -> int:
     zp = z_phases(card, dev, results)
     geo = geo_phases(card, dev)
     bf = bf16_phases(card, dev, results, hi)
+    log("[38] JPEG input: the fixtures against their Pillow decodes, bp and --updateGAN "
+        "on JPEGs")
+    jp = jpeg_phase(dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -3928,7 +4047,8 @@ def main() -> int:
                    **{k: v[n] for k, v in late["launches"].items()},
                    **{k: v[n] for k, v in gan["launches"].items()},
                    **{k: v[n] for k, v in zp["launches"].items()},
-                   **{k: v[n] for k, v in geo["launches"].items()}}
+                   **{k: v[n] for k, v in geo["launches"].items()},
+                   **{k: v[n] for k, v in jp["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3973,6 +4093,7 @@ def main() -> int:
               "geometric": {k: v for k, v in geo.items() if k != "launches"},
               "bf16": {k: v for k, v in bf.items()
                        if k not in ("launches", "results", "results_hi", "details")},
+              "jpeg": {k: v for k, v in jp.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,7 +1,7 @@
 """Real-image W+ inversion CLI (the reference's BP.py) — PyTorch port of
 latent2im_tpu/cli/bp.py, with the same flags and files.
 
-    python -m latent2im_tpu_torch.cli.bp --img_dir <dir-of-pngs> \\
+    python -m latent2im_tpu_torch.cli.bp --img_dir <dir-of-images> \\
         --g_path <stylegan2.pt> --vgg16_path <vgg16.pth> --save_dir ./bp_out \\
         [--n_loops 500 --lr 1e-4 --optim Adam --resolution 256]
 
@@ -9,8 +9,9 @@ Inverts each batch of images into W+ (starting at the mean latent) and
 writes ``org_{bi}.png``, ``{bi}_iterations_{loop}.png`` every --show_freq
 loops, ``{bi}_final.png``, ``latent/{bi}_w.npy`` (the W+ that ``vis_w
 --latents_dir`` edits) and the loss curve ``{bi}_loss.npy``. Images are
-read without Pillow (``utils/image.py:read_image_rgb``): PNG only, centre
-cropped to a square and resized with Pillow's LANCZOS. Runs on the card
+read without Pillow (``utils/image.py:read_image_rgb``: PNG and baseline
+JPEG, as Pillow decodes them; WEBP raises), centre cropped to a square and
+resized with Pillow's LANCZOS. Runs on the card
 (``device`` cuda unless the caller asks for the CPU).
 """
 

@@ -16,9 +16,10 @@ writes a preemption checkpoint that ``--resume`` continues from.
 ``--updateGAN --real_data_dir DIR`` fine-tunes G and D with the walk
 (engine/gan.py): before every walk step one WGAN-GP D step on real images
 against the walk-edited images of the live G, and one G step through both
-syntheses and the regressor, then G's EMA. The real images are DIR's PNGs
-(a JPEG raises; convert it first), centre-cropped and resized with Pillow's
-BILINEAR filter. The GAN goes to ``model_gan_{n}_final.ckpt`` at the end and
+syntheses and the regressor, then G's EMA. The real images are DIR's PNG
+and JPEG files (utils/image.py:read_image_rgb, bit for bit Pillow's
+decode), centre-cropped and resized with Pillow's BILINEAR filter. The GAN
+goes to ``model_gan_{n}_final.ckpt`` at the end and
 ``model_gan_resume.ckpt`` on SIGTERM, in the JAX package's layout with both
 Adam states; its ``.meta.json`` counts the GAN steps taken, so ``--resume``
 also carries the fine-tune's random streams on where they stopped (the JAX
@@ -206,16 +207,11 @@ def _save_gan(provider, path):
 
 def _real_paths(root: str) -> list[str]:
     """The sorted .png/.jpg/.jpeg files under ``root`` (recursive), as the JAX
-    package lists them; a JPEG raises here, naming the file, since the
-    reader decodes PNG only."""
+    package lists them."""
     paths = sorted(p for p in glob.glob(os.path.join(root, "**", "*"), recursive=True)
                    if p.lower().endswith((".png", ".jpg", ".jpeg")))
     if not paths:
         raise SystemExit(f"no images under {root}")
-    for p in paths:
-        if not p.lower().endswith(".png"):
-            raise ValueError(f"{p}: JPEG images are not supported (PNG only: no "
-                             "JPEG decoder without Pillow); convert it to PNG")
     return paths
 
 

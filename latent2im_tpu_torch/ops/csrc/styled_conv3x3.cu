@@ -76,6 +76,37 @@
 // bf16 values). The tiling, split K with its fixed-order reduction (partial
 // sums in f32) and the flush of the truncating accumulation every two K
 // steps are those of the f32 instance.
+//
+// The bf16 thin form (Cout <= 64, Cin <= 64: the 1024 px model's 512^2 x 64
+// and 1024^2 x 32 layers, styled_conv_bf16_thin_kernel). There the tiling
+// above wastes most of its work: an N tile of 128 holds 32 or 64 channels,
+// a 64-channel K step is half zeros at Cin 32, and a 128-row tile's nine K
+// steps with one block per SM leave load latency exposed; at 1024^2 x 32 it
+// ran 2.3x slower than cuDNN's bf16 grouped conv. The thin form:
+//  - N follows Cout: wgmma m64n32k16 for Cout <= 32, m64n64k16 up to 64
+//    (16 or 32 f32 accumulators a thread), zero weight rows past Cout;
+//  - K is (tap, 16-channel slice), Cin rounded up to 16 only, so no zero
+//    half at Cin 32. Neither swizzle is used: a row tile is THIN_BM pixels of
+//    one image row, and x is staged once per image row as a halo row of
+//    THIN_BM + 2 pixels (A = bf16(x * s), rounded in place). The A operand of
+//    tap (dy, dx) is then the halo row y + dy read from column 1 + dx, a
+//    descriptor shifted by whole 16-byte rows, which the no-swizzle layout
+//    (8 x 16-byte core matrices, rows 16 bytes apart) allows at any row and a
+//    swizzled one (its pattern tied to the address bits of the row) does not.
+//    Each halo row serves three output rows and nine taps;
+//  - the block's whole K-major weight, [9][Cin/8][N][8] (18 KB at 32 x 32,
+//    72 KB at 64 x 64), is read from w once per block into shared memory and
+//    stays there: no transpose launch and no workspace;
+//  - a persistent grid (the blocks that fit on the SMs at once) of blocks of
+//    up to four warpgroups (three at N 64), each with its own ring of five halo
+//    rows and an equal share of the row tiles, walking down the image: row
+//    y + 3 is copied with cp.async (zeros outside the image) while row y is
+//    computed, two rows ahead of its use. No split K;
+//  - the epilogue as above (acc * d + noise_w * noise + bias, LeakyReLU *
+//    gain, one bf16 store). The flush is dropped: the sums are 9 * Cin <= 576
+//    terms, and the truncating accumulation's bias over 36 k16 steps lies
+//    far under the 2^-7 gate of a bf16 result. Fixed order, no atomics:
+//    reruns are bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -601,6 +632,291 @@ __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form for Cout <= 64 and Cin <= 64 (the 512^2 x 64 and 1024^2 x 32
+// layers of the 1024 px model): see the header. Each warpgroup walks a range
+// of row tiles (THIN_BM output pixels of one image row of one sample), down
+// the image, through a ring of halo rows in shared memory.
+constexpr int THIN_BM = 64;      // output pixels of one image row per tile: one wgmma m64
+constexpr int THIN_SLOTS = 5;    // halo rows per warpgroup: 3 read, 2 loading
+// warpgroups per block (they share the weight): 4 with 16 accumulators a
+// thread, 3 with 32 (the weight of 64 x 64 leaves room for three rings)
+__host__ __device__ constexpr int thin_max_wgs(int n) { return n == 32 ? 4 : 3; }
+constexpr int THIN_PLANE = (THIN_BM + 2) * 16;  // bytes of one 8-channel plane of a halo row
+
+struct ThinParams {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;  // [3, 3, cin, cout], read once per block
+  const __nv_bfloat16* s;
+  const __nv_bfloat16* d;
+  const __nv_bfloat16* noise;
+  const float* noise_w;
+  const float* bias;
+  __nv_bfloat16* out;
+  int H, W, cin, cout, noise_per_sample;
+  int kch;     // 8-channel planes of K per tap: cin rounded up to 16, over 8
+  int strips;  // row tiles across the image: ceil(W / THIN_BM)
+  int wg_bytes;  // shared bytes of one warpgroup's ring and style vector
+  long long tiles;  // B * strips * H row tiles
+  float slope, gain;
+};
+
+// wgmma descriptor of a K-major operand without swizzle: 8 rows x 16 bytes
+// (8 bf16 of K) per core matrix, rows 16 bytes apart, 8-row groups `sbo`
+// bytes apart, the second 8 of a k16 slice `lbo` bytes after the first
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (+)= a * b over one k16 step of a 64 x N tile, N = 32 or 64, bf16
+// operands K-major in shared memory; d as in wgmma_tf32 (per j < N / 8).
+__device__ __forceinline__ void wgmma_bf16_n(float (&d)[16], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_bf16_n(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the 128 threads of warpgroup `wg` meet (barrier 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// One block: WGS = blockDim.x / 128 warpgroups sharing the K-major weight
+// [9][KCH][N][8] (zeros past cin and cout), loaded once; each warpgroup owns
+// a ring of THIN_SLOTS halo rows [KCH][THIN_BM + 2][8] (image columns x0 - 1
+// .. x0 + THIN_BM, zeros outside the image) and its sample's style vector,
+// and walks its share of the row tiles (b, strip, y), y fastest. Output row y
+// reads the halo rows y - 1, y, y + 1: for tap (dy, dx) and k16 slice k the
+// A operand is halo row y + dy from column 1 + dx on, a plain-layout
+// descriptor shifted by 16 (1 + dx) bytes, so x is staged once for all nine
+// taps. Row y + 3 is copied (cp.async, zeros outside the image) while row y
+// is computed; row y + 1 is multiplied by s and rounded to bf16 in place
+// just before. VEC: cin % 8 == 0 and 16-byte aligned x (the copies);
+// otherwise each halo row is read channel by channel when it is prepared.
+// KCH (= p.kch) is a template parameter so that the nine taps' products
+// unroll into one straight run of wgmma on fixed accumulators.
+template <int N, int KCH, bool VEC>
+__global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
+    styled_conv_bf16_thin_kernel(const ThinParams p) {
+  constexpr int NJ = N / 8;  // accumulator column groups per thread
+  constexpr int kch = KCH;
+  extern __shared__ __align__(128) unsigned char smem_t[];
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const int warp = lt / 32, lane = lt % 32, g = lane / 4, t = lane % 4;
+  const int wgs = blockDim.x / 128;
+  constexpr int kpad = kch * 8, w_bytes = 9 * kch * N * 16;
+  unsigned char* wsm = smem_t;
+  unsigned char* ring = smem_t + w_bytes + wg * p.wg_bytes;
+  __nv_bfloat16* s_sm = reinterpret_cast<__nv_bfloat16*>(ring + THIN_SLOTS * kch * THIN_PLANE);
+
+  // the weight, K-major: chunk (tap, c, n) holds w[tap][8c .. 8c + 7][n]
+  for (int i = tid; i < 9 * kch * N; i += blockDim.x) {
+    const int n = i % N, c = (i / N) % kch, tap = i / (N * kch);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int ci = 8 * c + e;
+      v[e] = ci < p.cin && n < p.cout ? ldg_f32(p.w + ((long long)tap * p.cin + ci) * p.cout + n)
+                                      : 0.f;
+    }
+    *reinterpret_cast<uint4*>(wsm + 16 * i) = make_uint4(
+        pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // -> wgmma
+  __syncthreads();
+
+  // this thread's output columns n = 8j + 2t (+1): bias once, d per sample
+  float bias[NJ][2], dm[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * t + e;
+      bias[j][e] = n < p.cout ? __ldg(p.bias + n) : 0.f;
+    }
+  const float nw = p.noise != nullptr ? __ldg(p.noise_w) : 0.f;
+  const uint32_t wsm_u = smem_u32(wsm), ring_u = smem_u32(ring);
+  const long long G = (long long)gridDim.x * wgs, gidx = (long long)blockIdx.x * wgs + wg;
+  const long long t_end = (gidx + 1) * p.tiles / G;
+  constexpr int slot_bytes = kch * THIN_PLANE;
+
+  int b = 0, x0 = 0;
+  // halo row k of the current (b, strip): copy it into its slot (VEC), or
+  // nothing (the scalar form reads it in prep)
+  auto fetch = [&](int k) {
+    if (VEC) {
+      const uint32_t slot = ring_u + ((k + THIN_SLOTS) % THIN_SLOTS) * slot_bytes;
+      const bool row_in = k >= 0 && k < p.H;
+      for (int i = lt; i < (THIN_BM + 2) * kch; i += 128) {
+        const int px = i / kch, c = i % kch, xx = x0 - 1 + px;
+        const bool in = row_in && xx >= 0 && xx < p.W && 8 * c < p.cin;
+        const __nv_bfloat16* src =
+            in ? p.x + ((((long long)b * p.H + k) * p.W + xx) * p.cin + 8 * c) : p.x;
+        cp_async16(slot + c * THIN_PLANE + px * 16, src, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // halo row k: A = bf16(x * s) in place (VEC) or from x (scalar form)
+  auto prep = [&](int k) {
+    unsigned char* slot = ring + ((k + THIN_SLOTS) % THIN_SLOTS) * slot_bytes;
+    const bool row_in = k >= 0 && k < p.H;
+    for (int i = lt; i < (THIN_BM + 2) * kch; i += 128) {
+      const int px = i / kch, c = i % kch, xx = x0 - 1 + px;
+      uint4* q = reinterpret_cast<uint4*>(slot + c * THIN_PLANE + px * 16);
+      float v[8];
+      if (VEC) {
+        const uint4 xv = *q, sv = *reinterpret_cast<const uint4*>(s_sm + 8 * c);
+        const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w}, sw[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = unpack_bf16(xw[e]), m = unpack_bf16(sw[e]);
+          v[2 * e] = a.x * m.x;
+          v[2 * e + 1] = a.y * m.y;
+        }
+      } else {
+        const bool in = row_in && xx >= 0 && xx < p.W;
+        const long long o = (((long long)b * p.H + k) * p.W + xx) * p.cin;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ci = 8 * c + e;
+          v[e] = in && ci < p.cin ? ldg_f32(p.x + o + ci) * __bfloat162float(s_sm[ci]) : 0.f;
+        }
+      }
+      *q = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                      pack_bf16(v[6], v[7]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // -> wgmma
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+  for (long long tile = gidx * p.tiles / G; tile < t_end;) {
+    // one segment: rows ya .. yb - 1 of (b, strip), within this warpgroup's range
+    const long long bs = tile / p.H;
+    const int ya = (int)(tile - bs * p.H);
+    const long long seg_end = (bs + 1) * p.H < t_end ? (bs + 1) * p.H : t_end;
+    const int yb = ya + (int)(seg_end - tile);
+    b = (int)(bs / p.strips);
+    x0 = (int)(bs % p.strips) * THIN_BM;
+    tile = seg_end;
+
+    cp_async_wait<0>();
+    wg_sync(wg);  // the last segment's copies have landed and its rows are read
+    for (int c = lt; c < kpad; c += 128)
+      s_sm[c] = c < p.cin ? p.s[(long long)b * p.cin + c] : __float2bfloat16(0.f);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * t + e;
+        dm[j][e] = n < p.cout ? ldg_f32(p.d + (long long)b * p.cout + n) : 0.f;
+      }
+    for (int k = ya - 1; k <= ya + 2; ++k) fetch(k);
+    cp_async_wait<2>();  // rows ya - 1 and ya
+    wg_sync(wg);
+    prep(ya - 1);
+    prep(ya);
+    for (int y = ya; y < yb; ++y) {
+      cp_async_wait<1>();  // row y + 1 (row y + 2 may still be in flight)
+      wg_sync(wg);
+      prep(y + 1);
+      wg_sync(wg);  // rows y - 1 .. y + 1 are ready for the tensor cores
+      // noise of this thread's two pixels, loaded while the products run
+      float nz[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int xx = x0 + 16 * warp + g + 8 * h;
+        nz[h] = p.noise != nullptr && xx < p.W
+                    ? nw * ldg_f32(p.noise +
+                                   ((long long)(p.noise_per_sample ? b : 0) * p.H + y) * p.W + xx)
+                    : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) fence_operand(acc[e]);
+      wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+        const uint32_t a0 = ring_u + ((y + dy + THIN_SLOTS) % THIN_SLOTS) * slot_bytes +
+                            (1 + dx) * 16;
+        const uint32_t b0 = wsm_u + tap * kch * N * 16;
+#pragma unroll
+        for (int k = 0; k < kch / 2; ++k)
+          wgmma_bf16_n(acc, plain_desc(a0 + 2 * k * THIN_PLANE, THIN_PLANE, 128),
+                       plain_desc(b0 + 2 * k * N * 16, N * 16, 128), tap + k > 0);
+      }
+      wgmma_commit();
+      fetch(y + 3);  // its slot held row y - 2, which no product reads any more
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) fence_operand(acc[e]);
+
+      // epilogue: pixels x0 + 16 warp + g (+8), columns 8j + 2t (+1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int xx = x0 + 16 * warp + g + 8 * h;
+        if (xx >= p.W) continue;
+        __nv_bfloat16* orow = p.out + (((long long)b * p.H + y) * p.W + xx) * p.cout;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = 8 * j + 2 * t;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float u = acc[4 * j + 2 * h + e] * dm[j][e] + nz[h] + bias[j][e];
+            u = u >= 0.f ? u : u * p.slope;
+            v[e] = u * p.gain;
+          }
+          if (VEC) {
+            if (n < p.cout) *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v[0], v[1]);
+          } else {
+            if (n < p.cout) orow[n] = __float2bfloat16(v[0]);
+            if (n + 1 < p.cout) orow[n + 1] = __float2bfloat16(v[1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // Split-K: sum the f32 partial tiles in split order, then the epilogue and
 // one store in x's type. One thread per output (four consecutive channels
 // where VEC).
@@ -652,12 +968,15 @@ int sm_count() {
 // warpgroups, one block per SM) where they give a full wave, else 64 x 128
 // tiles (one warpgroup, two blocks per SM), with K split until about two
 // blocks per SM are in flight (each split keeps >= 4 K steps of `bk`
-// channels: BK for f32, BK_BF16 for bf16).
+// channels: BK for f32, BK_BF16 for bf16). bf16 with Cout <= 64 and Cin <=
+// 64 takes the thin form instead: 64-pixel row tiles, N = 32 or 64.
 struct Plan {
   int bm, splits;
+  int bn = BN;
 };
 
 Plan plan(int B, int H, int W, int cin, int cout, int bk) {
+  if (bk == BK_BF16 && cout <= 64 && cin <= 64) return {THIN_BM, 1, cout <= 32 ? 32 : 64};
   const long long M = (long long)B * H * W;
   const int ksteps = 9 * ((cin + bk - 1) / bk);
   const long long n_tiles = (cout + BN - 1) / BN;
@@ -678,6 +997,7 @@ long long weight_bytes(int cin, int cout, int elem) {
   return 9LL * cout * cin_padded(cin, elem) * elem;
 }
 long long workspace_bytes(const Plan& pl, long long M, int cin, int cout, int elem) {
+  if (pl.bn < BN) return 0;  // the thin form reads the weight itself
   return weight_bytes(cin, cout, elem) + (pl.splits > 1 ? pl.splits * M * cout * 4 : 0);
 }
 
@@ -718,6 +1038,74 @@ cudaError_t launch_tc(const ParamsBf16& p, cudaStream_t st) {
 
 bool aligned16(const void* q) { return (reinterpret_cast<unsigned long long>(q) & 15) == 0; }
 
+// The thin form: blocks of as many warpgroups as shared memory holds (at
+// most thin_max_wgs(N)), as many blocks as fit on the SMs at once, each
+// warpgroup an equal share of the row tiles.
+template <int N, int KCH, bool VEC>
+cudaError_t launch_thin(const ThinParams& p, cudaStream_t st) {
+  constexpr int max_smem = 232448;  // 227 KB, a block's most on an H100
+  auto kernel = styled_conv_bf16_thin_kernel<N, KCH, VEC>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const int w_bytes = 9 * p.kch * N * 16;
+  int wgs = (max_smem - w_bytes) / p.wg_bytes;
+  if (wgs > thin_max_wgs(N)) wgs = thin_max_wgs(N);
+  if (wgs < 1) return cudaErrorInvalidConfiguration;
+  const int smem = w_bytes + wgs * p.wg_bytes;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wgs * 128, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  long long blocks = (long long)per_sm * sm_count();
+  const long long most = (p.tiles + wgs - 1) / wgs;
+  if (blocks > most) blocks = most;
+  kernel<<<(unsigned)blocks, wgs * 128, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_thin_k(const ThinParams& p, bool vec, cudaStream_t st) {
+  switch (p.kch) {
+    case 2: return vec ? launch_thin<N, 2, true>(p, st) : launch_thin<N, 2, false>(p, st);
+    case 4: return vec ? launch_thin<N, 4, true>(p, st) : launch_thin<N, 4, false>(p, st);
+    case 6: return vec ? launch_thin<N, 6, true>(p, st) : launch_thin<N, 6, false>(p, st);
+    case 8: return vec ? launch_thin<N, 8, true>(p, st) : launch_thin<N, 8, false>(p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int run_thin(const void* x, const void* w, const void* s, const void* d, const void* noise,
+             const void* noise_w, const void* bias, void* out, int B, int H, int W, int cin,
+             int cout, int noise_per_sample, float slope, float gain, cudaStream_t st) {
+  ThinParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.s = static_cast<const __nv_bfloat16*>(s);
+  p.d = static_cast<const __nv_bfloat16*>(d);
+  p.noise = static_cast<const __nv_bfloat16*>(noise);
+  p.noise_w = static_cast<const float*>(noise_w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.H = H;
+  p.W = W;
+  p.cin = cin;
+  p.cout = cout;
+  p.noise_per_sample = noise_per_sample;
+  p.kch = (cin + 15) / 16 * 2;
+  p.strips = (W + THIN_BM - 1) / THIN_BM;
+  p.wg_bytes = THIN_SLOTS * p.kch * THIN_PLANE + p.kch * 16;
+  p.tiles = (long long)B * p.strips * H;
+  p.slope = slope;
+  p.gain = gain;
+  const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) && aligned16(out);
+  return (int)(cout <= 32 ? launch_thin_k<32>(p, vec, st) : launch_thin_k<64>(p, vec, st));
+}
+
 // One call in T: the weight transpose, the product, and with split K the
 // reduction.
 template <typename T>
@@ -726,6 +1114,10 @@ int run(const void* x, const void* w, const void* s, const void* d, const void* 
         int cin, int cout, int noise_per_sample, float slope, float gain, cudaStream_t st) {
   constexpr int elem = (int)sizeof(T), bk = elem == 4 ? BK : BK_BF16;
   const Plan pl = plan(B, H, W, cin, cout, bk);
+  if (pl.bn < BN)
+    return run_thin(x, w, s, d, noise, noise_w, bias, out, B, H, W, cin, cout, noise_per_sample,
+                    slope, gain, st);
+  if (ws == nullptr || !aligned16(ws)) return (int)cudaErrorInvalidValue;
   ParamsT<T> p;
   p.x = static_cast<const T*>(x);
   p.w = static_cast<const T*>(w);
@@ -781,7 +1173,7 @@ extern "C" long long l2i_styled_conv3x3_plan(int B, int H, int W, int cin, int c
   const int elem = is_bf16 ? 2 : 4;
   const Plan pl = plan(B, H, W, cin, cout, is_bf16 ? BK_BF16 : BK);
   out3[0] = pl.bm;
-  out3[1] = BN;
+  out3[1] = pl.bn;
   out3[2] = pl.splits;
   return workspace_bytes(pl, (long long)B * H * W, cin, cout, elem);
 }
@@ -798,8 +1190,7 @@ extern "C" int l2i_styled_conv3x3(const void* x, const void* w, const void* s, c
                                   int noise_per_sample, int is_bf16, float slope, float gain,
                                   void* stream) {
   if ((long long)B * H * W * cout <= 0) return 0;
-  if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0 || ws == nullptr || !aligned16(ws))
-    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? run<__nv_bfloat16>(x, w, s, d, noise, noise_w, bias, out, ws, B, H, W, cin,
                                       cout, noise_per_sample, slope, gain, st)

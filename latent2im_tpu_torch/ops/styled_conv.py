@@ -9,7 +9,8 @@ for a non-up 3x3 layer, and as its Pallas kernel
 ``styled_conv3x3`` launches the hand-written kernel
 ``csrc/styled_conv3x3.cu`` (3xTF32 on the tensor cores: a launch that
 lays the weight out K-major, the product, and at the small resolutions a
-split-K reduction launch); on a CPU tensor it runs the plain PyTorch
+split-K reduction launch; in bf16 with Cout <= 64 and Cin <= 64 one launch
+of its thin form); on a CPU tensor it runs the plain PyTorch
 version. ``styled_conv3x3_tf32`` repeats the kernel's
 numerics in plain PyTorch for the tests.
 
@@ -140,8 +141,10 @@ def styled_conv3x3_plan(b: int, h: int, w: int, cin: int, cout: int,
     """The CUDA kernel's tiling for a shape and dtype (f32 or bf16):
     {"tile": (BM, BN), "splits": S, "workspace_bytes": n}, the workspace
     holding the K-major weight (in the dtype) and, with S > 1 (split K, a
-    last launch reduces), the f32 partial sums. Cached per shape; do not
-    modify the result."""
+    last launch reduces), the f32 partial sums. bf16 with Cout <= 64 and
+    Cin <= 64 takes the thin form: tile (64, 32) or (64, 64) (N follows
+    Cout), no split, no workspace (each block reads the weight itself).
+    Cached per shape; do not modify the result."""
     plan = (ctypes.c_int * 3)()
     n = _build.library().l2i_styled_conv3x3_plan(
         b, h, w, cin, cout, int(dtype == torch.bfloat16), ctypes.addressof(plan))

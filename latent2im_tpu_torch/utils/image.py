@@ -2,8 +2,10 @@
 latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
 to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
 alone (zlib + struct), and Pillow's BILINEAR, BICUBIC and LANCZOS resamples
-are rewritten in numpy: the GPU machine has no Pillow. The decoder reads PNG
-only: JPEG and WEBP need a codec library the GPU machine does not have."""
+are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
+and baseline JPEG (``utils/jpeg.py``, bit for bit Pillow's libjpeg-turbo
+decode); progressive or arithmetic-coded JPEG, CMYK and WEBP raise, naming
+ROADMAP item 26."""
 
 from __future__ import annotations
 
@@ -13,6 +15,9 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import ITEM as _JPEG_ITEM
+from .jpeg import jpeg_decode_rgb
 
 
 def imgrid(imarray: np.ndarray, cols: int = 5, pad: int = 1) -> np.ndarray:
@@ -167,20 +172,26 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """An image file -> uint8 [H, W, 3] RGB. PNG only: JPEG and WEBP raise,
-    naming the format (their decoders are not in the standard library)."""
+    """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
+    .convert("RGB")`` gives it: PNG (``png_decode_rgb``) and baseline JPEG
+    (``jpeg_decode_rgb``), told apart by their signatures. What the JPEG
+    decoder does not read (progressive, arithmetic-coded, CMYK) and WEBP
+    raise ValueError naming the file and ROADMAP item 26."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:
         return png_decode_rgb(data)
     if data[:3] == b"\xff\xd8\xff":
-        fmt = "JPEG"
-    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        try:
+            return jpeg_decode_rgb(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         fmt = "WEBP"
     else:
         fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
-    raise ValueError(f"{path}: {fmt} images are not supported (PNG only: no "
-                     f"{fmt} decoder without Pillow); convert it to PNG")
+    raise ValueError(f"{path}: {fmt} images are not supported (PNG and baseline "
+                     f"JPEG only; {_JPEG_ITEM}); convert it to PNG")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
@@ -298,7 +309,7 @@ def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 
 
 def load_and_resize_image(path: str, size: int = 256) -> np.ndarray:
-    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG only),
+    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG, JPEG),
     the centre square crop, then Pillow's BILINEAR resample (``_pil_resize``
     with a triangle on support 1), as the JAX package's
     utils/image.py:load_and_resize_image computes it without its native

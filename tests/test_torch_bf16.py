@@ -67,7 +67,7 @@ from latent2im_tpu_torch.tasks import transforms as tasks
 from test_torch_cli import _one_thread, _restoring_logging
 from test_torch_gan import _capture, port_module, world  # noqa: F401 (a fixture)
 from test_torch_resnet import _np_resnet_tree
-from test_torch_stylegan2 import TINY, _perturbed_jax_generator
+from test_torch_stylegan2 import TINY, _perturbed_jax_generator, _port_generator
 from test_stylegan2_torch_oracle import CHANNELS as W_CHANNELS
 from test_stylegan2_torch_oracle import N_MLP as W_MLP
 from test_stylegan2_torch_oracle import SIZE as W_SIZE
@@ -340,6 +340,24 @@ def test_synthesize_bf16_matches_jax(towers):
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     _tpu_close(got, want)
     assert np.abs(_np(got) - _np(f32)).max() > 0  # it did compute in bf16
+
+
+def test_size_1024_fast_tail_branch_bf16_matches_jax():
+    """C.8: the bf16 twin of tests/test_torch_stylegan2.py's 1024 px test
+    (8 channels, B=1): JAX's bf16 synthesize runs its s2d FAST_TAIL at 1024
+    px, which rounds in other places than the port's direct form; held
+    under _bf16_close against JAX's bf16 and f32 images."""
+    assert jsg2.FAST_TAIL and jsg2.FAST_TAIL_MAX_CH >= 8 and jsg2.FAST_TAIL_MIN_RES <= 1024
+    ch = {2 ** i: 8 for i in range(2, 11)}
+    params = _perturbed_jax_generator(1024, ch, seed=7)
+    g = _port_generator(params, 1024, ch)
+    lat = np.random.RandomState(8).randn(1, 18, 32).astype(np.float32)
+    want, want_f32 = (jax.jit(lambda p, w, dt=dt: jsg2.synthesize(p, w, dtype=dt))(
+        _jtree(params), lat) for dt in (JBF16, jnp.float32))
+    with torch.no_grad():
+        got = g.synthesize(_t(lat), dtype=BF16)
+    assert got.shape == (1, 1024, 1024, 3)
+    _bf16_close(got, want, want_f32, "1024 px fast tail")
 
 
 def test_discriminator_bf16_matches_jax(towers):

@@ -708,9 +708,84 @@ def test_styled_conv_bf16_kernel_split_k_at_the_small_layers(dev, h):
 
 @pytest.mark.parametrize("h,cin,cout", [(512, 64, 64), (1024, 32, 32)])
 def test_styled_conv_bf16_kernel_at_the_1024px_models_thin_layers(dev, h, cin, cout):
+    """The thin form (N = Cout) at the 1024 px model's own layers; two calls
+    bit-identical."""
     gen = torch.Generator(device=dev).manual_seed(25)
     args = _bf16_styled_args(gen, dev, 1, h, h, cin, cout, 1)
-    _close(ops.styled_conv3x3(*args), ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+    plan = ops.styled_conv3x3_plan(1, h, h, cin, cout, BF16)
+    assert plan == {"tile": (64, cout), "splits": 1, "workspace_bytes": 0}, plan
+    got = ops.styled_conv3x3(*args)
+    _close(got, ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+    assert torch.equal(got, ops.styled_conv3x3(*args))
+
+
+@pytest.mark.parametrize("cout", [32, 64, 40])
+@pytest.mark.parametrize("cin", [3, 32, 64, 17])
+def test_styled_conv_bf16_thin_form(dev, cin, cout):
+    """bf16 with Cout <= 64 and Cin <= 64 takes the thin form: N 32 or 64,
+    K in 16-channel slices (Cin 3 and 17 zero-padded, read channel by
+    channel), 64-pixel row tiles (W = 70: the second tile of a row ends
+    after 6 pixels), per-sample noise; held to the plain bf16 version
+    within 2^-7 of max|ref|, one counted launch, two calls bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    args = _bf16_styled_args(gen, dev, 3, 37, 70, cin, cout, 3)
+    plan = ops.styled_conv3x3_plan(3, 37, 70, cin, cout, BF16)
+    assert plan == {"tile": (64, 32 if cout <= 32 else 64), "splits": 1,
+                    "workspace_bytes": 0}, plan
+    before = ops.launch_counts(bf16=True)["styled_conv3x3"]
+    got = ops.styled_conv3x3(*args)
+    assert ops.launch_counts(bf16=True)["styled_conv3x3"] == before + 1
+    _close(got, ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+    assert torch.equal(got, ops.styled_conv3x3(*args))
+
+
+@pytest.mark.parametrize("b,h,w,noise_b", [(5, 9, 130, 1), (2, 1, 64, None), (7, 3, 5, 7)])
+def test_styled_conv_bf16_thin_form_tiles_end_mid_sample(dev, b, h, w, noise_b):
+    """Each warpgroup's share of the row tiles starts and ends mid-sample
+    (here more warpgroups than samples, with rows of 130, 64 and 5 pixels);
+    a one-row image (halo rows above and below zero); shared or no noise."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    args = _bf16_styled_args(gen, dev, b, h, w, 32, 32, noise_b)
+    got = ops.styled_conv3x3(*args)
+    _close(got, ops.styled_conv3x3_plain(*args), BF_SC_TOL)
+    assert torch.equal(got, ops.styled_conv3x3(*args))
+
+
+@pytest.mark.parametrize("b,h,cin,cout,tile", [
+    (4, 256, 128, 128, (128, 128)), (8, 256, 256, 128, (128, 128)),
+    (4, 32, 512, 512, (64, 128)), (2, 64, 128, 64, (64, 128)),
+])
+def test_styled_conv_bf16_plan_keeps_the_tiled_form_past_64_channels(dev, b, h, cin, cout,
+                                                                     tile):
+    """Cout >= 128 (every 256 px layer, the 1024 px model up to 256^2) and
+    Cin > 64 keep the 128-wide N tile; f32 never takes the thin form."""
+    plan = ops.styled_conv3x3_plan(b, h, h, cin, cout, BF16)
+    assert plan["tile"] == tile and plan["workspace_bytes"] > 0, plan
+    assert ops.styled_conv3x3_plan(b, h, h, 32, 32)["tile"][1] == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("shape,offset,bias", [
+    ((8, 64, 64, 32), 0, True), ((4, 16, 16, 512), 0, True), ((3, 1000), 0, False),
+    ((2, 9, 11, 37), 0, True), ((5, 7, 24), 1, True), ((6, 40), 3, False),
+])
+def test_fused_act_forward_equals_the_plain_version_exactly(dev, dtype, shape, offset, bias):
+    """The vector stream (C a multiple of 16 bytes, aligned x and y), the
+    ragged-C and unaligned cases (the scalar loop; `offset` elements past an
+    aligned start), with and without a bias: bit for bit the plain version
+    (f32 math, one rounding), -0 kept without a bias."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    n = math.prod(shape)
+    x = _randn(gen, dev, n + offset).to(dtype)[offset:].view(shape)
+    x.view(-1)[::97] = -0.0
+    b = _randn(gen, dev, shape[-1]) if bias else None
+    before = ops.fused_leaky_relu.launches
+    got = ops.fused_leaky_relu(x, b)
+    torch.cuda.synchronize()
+    assert ops.fused_leaky_relu.launches == before + 1
+    want = ops.fused_leaky_relu_plain(x, b)
+    assert torch.equal(got.view(-1).view(torch.int16 if dtype == BF16 else torch.int32),
+                       want.view(-1).view(torch.int16 if dtype == BF16 else torch.int32))
 
 
 def test_styled_conv_bf16_gradients_match_the_plain_version(dev):

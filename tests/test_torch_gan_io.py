@@ -6,7 +6,8 @@ package:
   Pillow path, down- and up-scaling, square and not;
 - the provider's real batches: ``cli/train.py:_make_real_batcher`` draws the
   JAX package's fallback index sequence and images, also after a replay of
-  the stream (load=False); a JPEG is refused naming the file.
+  the stream (load=False); a baseline JPEG is read as the JAX package
+  reads it, a progressive one is refused naming the file.
 
 The JAX package takes its native extension (``latent2im_tpu/native``, built
 from ``native/l2i_native.cpp`` where a compiler and libpng/libjpeg exist)
@@ -23,9 +24,11 @@ the pure-Python fallback, so these tests hide the extension
   the port's file.
 """
 
+import os
 import sys
 
 import numpy as np
+import PIL.Image
 import optax
 import pytest
 import torch
@@ -93,11 +96,21 @@ def test_real_batches_follow_the_jax_fallback(tmp_path, jax_fallback):
             np.testing.assert_array_equal(replayed(), batch)
 
 
-def test_real_paths_refuse_a_jpeg_naming_it(tmp_path):
+def test_real_paths_refuse_a_jpeg_naming_it(tmp_path, jax_fallback):
+    """A baseline .JPG is listed and read as the JAX package reads it; a
+    progressive one, which the port's decoder does not read, raises at its
+    load naming the file and ROADMAP item 26."""
     _write_png(tmp_path / "a.png", 8, 8, 0)
-    (tmp_path / "b.JPG").write_bytes(b"\xff\xd8\xff\xe0")
-    with pytest.raises(ValueError, match=r"b\.JPG.*convert it to PNG"):
-        tcli._real_paths(str(tmp_path))
+    img = np.random.RandomState(1).randint(0, 256, (20, 26, 3)).astype(np.uint8)
+    PIL.Image.fromarray(img).save(tmp_path / "b.JPG", "JPEG", quality=90)
+    paths = tcli._real_paths(str(tmp_path))
+    assert [os.path.basename(p) for p in paths] == ["a.png", "b.JPG"]
+    np.testing.assert_array_equal(imgmod.load_and_resize_image(paths[1], SIZE),
+                                  jimage.load_and_resize_image(paths[1], SIZE))
+    PIL.Image.fromarray(img).save(tmp_path / "c.jpg", "JPEG", progressive=True)
+    path = tcli._real_paths(str(tmp_path))[2]
+    with pytest.raises(ValueError, match=r"c\.jpg.*progressive.*item 26"):
+        imgmod.load_and_resize_image(path, SIZE)
     with pytest.raises(SystemExit, match="no images"):
         tcli._real_paths(str(tmp_path / "nothing"))
 

@@ -140,10 +140,15 @@ def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
     with pytest.raises(ValueError, match="Adam7 interlace"):
         im.png_decode_rgb(_png(rows[:, :4], 4, 4, 8, 0, interlace=1))
     arr = np.zeros((8, 8, 3), np.uint8)
-    for fmt, ext in (("JPEG", "jpg"), ("WEBP", "webp")):
-        path = tmp_path / f"x.{ext}"
-        PIL.Image.fromarray(arr).save(path, format=fmt)
-        with pytest.raises(ValueError, match=fmt):
+    path = tmp_path / "x.jpg"  # baseline JPEG: decoded as Pillow decodes it
+    PIL.Image.fromarray(arr).save(path, format="JPEG")
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
+    for fmt, ext, kw in (("progressive", "jpg", {"format": "JPEG", "progressive": True}),
+                         ("WEBP", "webp", {"format": "WEBP"})):
+        path = tmp_path / f"y.{ext}"
+        PIL.Image.fromarray(arr).save(path, **kw)
+        with pytest.raises(ValueError, match=f"{fmt}.*item 26"):
             im.read_image_rgb(str(path))
     path = tmp_path / "x.png"
     path.write_bytes(im.png_bytes(arr))
