@@ -172,6 +172,28 @@ the script exits non-zero):
      218x178, 256^2 and 1024^2; `python -m latent2im_tpu_torch.cli.bp` on
      a directory of them at 256 px, then --updateGAN on them as real
      images (a warmup and 2 iterations, counted).
+ 39. the regressor trainer (cli/train_regressor.py's make_steps): ResNet-50
+     with its 40-wide head at 256 px, B=32, train-mode BN, Adam 1e-4, seeded
+     weights: 3 warmup and 10 timed steps (CUDA events and the host clock),
+     samples/s, peak GB, one step under torch.profiler (the device's busy
+     share); 3 steps at B=4 against the CPU, each card step from the CPU's
+     state: loss and running statistics within 1e-4 (relative, relative
+     L2), the parameters within 2 lr per element;
+ 40. `python -m latent2im_tpu_torch.cli.train_regressor` on
+     tests/fixtures/torch_regressor/ (JPEGs, PNGs, a tab-separated label
+     file, training.txt / test.txt), 2 epochs, --export_torch: the print
+     lines (the test MSE), the checkpoint names and meta, the msgpack
+     restored with Adam's step, the export loaded with strict=True;
+ 41. the loader: the JPEG decode per photo with the C entry
+     (ops/csrc/jpeg_huffman.cpp) and in Python at phase 38's three sizes,
+     bit-equal, and with the centre-crop resize (resample.cpp); the threaded
+     loader's batches/s at B=32, 256 px (one thread and its pool) against
+     phase 39's steps/s, and the trainer fed by it; --updateGAN ms per
+     iteration on JPEGs (phase 38) against PNGs (phase 21);
+ 42. StyleGAN1 (models/stylegan1.py) at full width, step 5 (128 px, B=2,
+     with mixing and truncation) and step 8 (1024 px, B=1), card against
+     CPU within 1e-4 relative L2; the compat.py call sequence on the card
+     (launches counted as path "compat"), its edit equal to apply_alpha's.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -3945,6 +3967,430 @@ def _jpeg_phase(dev, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 39-42: the regressor trainer, its loader, StyleGAN1 and compat
+# ---------------------------------------------------------------------------
+
+REG_SIZE, REG_BATCH, REG_WARMUP, REG_STEPS = 256, 32, 3, 10
+REG_CMP_BATCH, REG_CMP_STEPS, REG_LR = 4, 3, 1e-4
+REG_OUT = 40
+# one step from the same state, card against CPU, both f32 (TF32 off): the
+# loss and the running statistics come from one forward in another
+# summation order; the parameters from Adam's sign-like first moves, where a
+# gradient element near zero may flip (2 lr per element, as the CPU tests
+# hold the port to the JAX package)
+REG_LOSS_TOL, REG_STATS_TOL = 1e-4, 1e-4
+REG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_regressor")
+LOADER_BATCHES = 8
+S1_STEPS = ((5, 2), (8, 1))  # (step, batch): 128 px and 1024 px
+S1_TOL = 1e-4  # relative L2 of the image, card against CPU, f32
+
+
+def _reg_batch(rng, b, size):
+    import numpy as np
+
+    return (rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8),
+            rng.uniform(0, 1, (b, REG_OUT)).astype(np.float32))
+
+
+def _reg_state(model, opt):
+    import copy
+
+    return copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict())
+
+
+def regressor_train_phase(dev):
+    """Phase 39: ResNet-50 (40 outputs) trained as cli/train_regressor.py
+    trains it, at REG_SIZE px, B=REG_BATCH, full width, seeded weights:
+    REG_WARMUP steps, then REG_STEPS timed (CUDA events and the host clock),
+    samples/s, peak GB, one step under torch.profiler (its trace in a
+    temporary directory); then REG_CMP_STEPS
+    steps at B=REG_CMP_BATCH held to the CPU, each card step from the CPU's
+    state before it: the loss, the parameters (2 lr per element, and their
+    relative L2) and the running statistics (relative L2)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.models.resnet import ResNet50
+
+    gen = torch.Generator().manual_seed(0)
+    model = ResNet50(REG_OUT, generator=gen).to(dev, memory_format=torch.channels_last)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    opt, train_step, eval_step = tr.make_steps(model, REG_LR)
+    rng = np.random.RandomState(39)
+    u8, lab = _reg_batch(rng, REG_BATCH, REG_SIZE)
+    x, y = tr.normalize(u8, dev), torch.as_tensor(lab, device=dev)
+    for _ in range(REG_WARMUP):
+        loss = train_step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses = []
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(REG_STEPS):
+        losses.append(train_step(x, y))
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    assert all(math.isfinite(v) for v in losses), losses
+    out = {"size": REG_SIZE, "batch": REG_BATCH, "steps": REG_STEPS,
+           "step_ms_cuda_events": ev[0].elapsed_time(ev[1]) / REG_STEPS,
+           "step_ms_host": wall * 1e3 / REG_STEPS,
+           "samples_per_s": REG_STEPS * REG_BATCH / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first_last": (losses[0], losses[-1]),
+           "eval_loss": float(eval_step(x, y))}
+    out["steps_per_s"] = 1e3 / out["step_ms_cuda_events"]
+    with tempfile.TemporaryDirectory() as d:  # the output directory is near its 64 MiB
+        out["profile"] = profile_call(lambda: train_step(x, y),
+                                      os.path.join(d, "regressor_step_trace.json"))
+    del opt, x, y
+    torch.cuda.empty_cache()
+
+    # card against CPU, one step at a time from the CPU's state
+    cpu = ResNet50(REG_OUT)
+    cpu.load_state_dict(init)
+    card = ResNet50(REG_OUT).to(dev, memory_format=torch.channels_last)
+    cpu_opt, cpu_step, _ = tr.make_steps(cpu, REG_LR)
+    card_opt, card_step, _ = tr.make_steps(card, REG_LR)
+    cmp_ = []
+    t0 = time.perf_counter()
+    for t in range(REG_CMP_STEPS):
+        u8, lab = _reg_batch(rng, REG_CMP_BATCH, REG_SIZE)
+        sd, osd = _reg_state(cpu, cpu_opt)
+        card.load_state_dict(sd)
+        card_opt.load_state_dict(osd)
+        want = float(cpu_step(tr.normalize(u8, "cpu"), torch.from_numpy(lab)))
+        got = float(card_step(tr.normalize(u8, dev), torch.as_tensor(lab, device=dev)))
+        after_cpu, after_card = cpu.state_dict(), card.state_dict()
+        row = {"step": t, "loss_cpu": want, "loss_card": got,
+               "loss_rel": abs(got - want) / abs(want), "params_max_abs_over_lr": 0.0,
+               "stats_rel_l2": 0.0}
+        diff2 = norm2 = 0.0  # the parameters' relative L2, all of them as one vector
+        for k, w in after_cpu.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            g = after_card[k].detach().cpu().double()
+            w = w.double()
+            rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+            if k.endswith(("running_mean", "running_var")):
+                row["stats_rel_l2"] = max(row["stats_rel_l2"], rel)
+            else:
+                slack = 2 * REG_LR + 2 * torch.maximum(g.abs(), w.abs()).float() * 2.0 ** -23
+                assert bool(((g - w).abs() <= slack.double()).all()), (t, k)
+                diff2 += float((g - w).pow(2).sum())
+                norm2 += float(w.pow(2).sum())
+                row["params_max_abs_over_lr"] = max(row["params_max_abs_over_lr"],
+                                                    float((g - w).abs().max()) / REG_LR)
+        row["params_rel_l2"] = math.sqrt(diff2 / norm2)
+        assert row["loss_rel"] <= REG_LOSS_TOL and row["stats_rel_l2"] <= REG_STATS_TOL, row
+        cmp_.append(row)
+    out["cpu_vs_card"] = {"batch": REG_CMP_BATCH, "gates": {
+        "loss_rel": REG_LOSS_TOL, "stats_rel_l2": REG_STATS_TOL,
+        "params_abs": "2 lr per element"}, "steps": cmp_,
+        "seconds": time.perf_counter() - t0}
+    del card, card_opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def regressor_cli_phase():
+    """Phase 40: ``python -m latent2im_tpu_torch.cli.train_regressor`` on
+    tests/fixtures/torch_regressor/ (JPEGs and PNGs, a tab-separated label
+    file, training.txt / test.txt) at REG_SIZE px, B=4, 2 epochs with
+    --export_torch: the print lines, the checkpoint names and meta, the
+    msgpack restored into a ResNet50 and its Adam, the export loaded with
+    strict=True. Its files (~0.75 GB) go to a temporary directory."""
+    import tempfile
+
+    import torch
+
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.models.resnet import ResNet50
+
+    with tempfile.TemporaryDirectory() as root:
+        ck = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "latent2im_tpu_torch.cli.train_regressor",
+             "--data_dir", os.path.join(REG_FIXTURES, "imgs"),
+             "--label_path", os.path.join(REG_FIXTURES, "annotations.tsv"),
+             "--split_dir", os.path.join(REG_FIXTURES, "split"), "--ckpt_dir", ck,
+             "--image_size", str(REG_SIZE), "--batch_size", "4", "--n_epochs", "2",
+             "--export_torch"], cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train_regressor exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        assert lines[:2] == ["train 7 / test 3 images", "native loader: True"], lines
+        assert lines[2].startswith("epoch 0 iter 0 Loss: ") and \
+            lines[3].startswith("epoch 1 iter 0 Loss: "), lines
+        assert lines[4].startswith("Test epoch 1; Loss: ") and len(lines) == 5, lines
+        test_mse = float(lines[4].rsplit(" ", 1)[1])
+        assert math.isfinite(test_mse), lines
+        names = sorted(os.listdir(ck))
+        assert names == ["001_dict.model", "001_dict.model.msgpack",
+                         "001_dict.model.msgpack.meta.json", "002_dict.model",
+                         "002_dict.model.msgpack", "002_dict.model.msgpack.meta.json"], names
+        model = ResNet50(REG_OUT)
+        opt = torch.optim.Adam(model.parameters(), lr=REG_LR)
+        metas = [tr.load_regressor(os.path.join(ck, f"{e + 1:03d}_dict.model.msgpack"),
+                                   model, opt) for e in (0, 1)]
+        assert metas == [{"epoch": 0}, {"epoch": 1}], metas
+        adam_steps = int(opt.state_dict()["state"][0]["step"])
+        assert adam_steps == 4, adam_steps
+        exported = torch.load(os.path.join(ck, "002_dict.model"), weights_only=True)
+        assert exported["optm"] == {}
+        ResNet50(REG_OUT).load_state_dict(exported["model"], strict=True)
+        for k, v in exported["model"].items():
+            if k.endswith("num_batches_tracked"):
+                assert int(v) == 0, k
+            else:
+                assert torch.equal(v, model.state_dict()[k]), k
+        sizes = {n: os.path.getsize(os.path.join(ck, n)) for n in names}
+    return {"seconds": seconds, "lines": lines, "test_mse": test_mse, "metas": metas,
+            "adam_steps": adam_steps, "bytes": sizes}
+
+
+def _median_ms(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def loader_phase(dev, reg, gan_png, gan_jpeg):
+    """Phase 41: the host decode per photo with the C entry
+    (ops/csrc/jpeg_huffman.cpp) and with the Python version, at phase 38's
+    three sizes, bit-equal; the centre-crop resize of the trainer's path
+    (resample.cpp against numpy); the threaded loader's batches/s at
+    B=REG_BATCH, REG_SIZE px (utils/loader.py, one thread and its pool, each
+    a first and a second pass) against the trainer's steps/s of phase 39,
+    and LOADER_BATCHES - 1 trainer steps fed by it; the --updateGAN iteration on JPEGs (phase 38)
+    against PNGs (phase 21)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.models.resnet import ResNet50
+    from latent2im_tpu_torch.utils import image as imgmod
+    from latent2im_tpu_torch.utils import jpeg
+    from latent2im_tpu_torch.utils.loader import Loader, default_threads
+
+    out = {"decode_ms": {}, "load_resize_ms": {}}
+    for label, name in JPEG_TIMED.items():
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        c = jpeg.jpeg_decode_rgb(data, native=True)
+        py = jpeg.jpeg_decode_rgb(data)
+        assert c.shape == py.shape and np.array_equal(c, py), name
+        out["decode_ms"][label] = {
+            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, native=True)),
+            "python": _median_ms(lambda: jpeg.jpeg_decode_rgb(data))}
+        path = os.path.join(JPEG_FIXTURES, f"{name}.jpg")
+        assert np.array_equal(imgmod.load_and_resize_image(path, REG_SIZE, native=True),
+                              imgmod.load_and_resize_image(path, REG_SIZE))
+        out["load_resize_ms"][label] = {
+            "c": _median_ms(lambda: imgmod.load_and_resize_image(path, REG_SIZE, native=True)),
+            "python": _median_ms(lambda: imgmod.load_and_resize_image(path, REG_SIZE))}
+    log(f"    decode ms per photo (C, Python): {json.dumps(out['decode_ms'])}")
+    log(f"    decode + centre crop + resize to {REG_SIZE} px (C, Python): "
+        f"{json.dumps(out['load_resize_ms'])}")
+
+    # the trainer's loader on CelebA-sized and 256 px photos
+    photos = [os.path.join(JPEG_FIXTURES, f"{n}.jpg")
+              for n in ("photo_218x178_420", "photo_256_422")]
+    paths = [photos[i % 2] for i in range(LOADER_BATCHES * REG_BATCH)]
+    idx = list(tr.index_batches(np.arange(len(paths)), REG_BATCH))
+    rates = {}
+    for threads in (1, default_threads()):
+        for turn in ("cold", "warm"):  # the process's first pass, then another
+            with Loader(lambda i: imgmod.load_and_resize_image(paths[i], REG_SIZE, True),
+                        threads=threads) as loader:
+                t0 = time.perf_counter()
+                n = sum(1 for b, _ in loader.batches(idx)
+                        if b.shape == (REG_BATCH, REG_SIZE, REG_SIZE, 3))
+                rates[f"{threads}_{turn}"] = n / (time.perf_counter() - t0)
+            assert n == LOADER_BATCHES, n
+    out["loader_threads"] = default_threads()
+    out["loader_batches_per_s"] = rates
+    out["trainer_steps_per_s"] = reg["steps_per_s"]
+
+    # the trainer fed by the loader: host decode overlapped with the steps
+    model = ResNet50(REG_OUT, generator=torch.Generator().manual_seed(0)).to(
+        dev, memory_format=torch.channels_last)
+    _, train_step, _ = tr.make_steps(model, REG_LR)
+    labels = torch.rand(len(paths), REG_OUT, generator=torch.Generator().manual_seed(1))
+    with tr.make_loader(paths, REG_SIZE, native=True) as loader:
+        stream = loader.batches(idx)
+        u8, i = next(stream)
+        train_step(tr.normalize(u8, dev), labels[i].to(dev))  # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        for u8, i in stream:
+            train_step(tr.normalize(u8, dev), labels[i].to(dev))
+            steps += 1
+        torch.cuda.synchronize()
+        out["fed_steps_per_s"] = steps / (time.perf_counter() - t0)
+    assert steps == LOADER_BATCHES - 1, steps
+    del model
+    torch.cuda.empty_cache()
+    out["update_gan_iteration_ms"] = {"png_phase21": gan_png["iteration_ms_cuda_events"],
+                                      "jpeg_phase38": gan_jpeg["iteration_ms_cuda_events"]}
+    return out
+
+
+def stylegan1_phase(dev):
+    """Phase 42a: the StyleGAN1 generator (models/stylegan1.py) at full
+    width from seeded weights (noise weights set to 0.3), forward at step 5
+    (128 px) and step 8 (1024 px) with the same z and noise maps on the
+    card and on the CPU, f32, within S1_TOL relative L2; card ms (CUDA
+    events), with style mixing and truncation at step 5."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.models.stylegan1 import StyledGenerator
+
+    g_cpu = StyledGenerator(generator=torch.Generator().manual_seed(42)).eval()
+    with torch.no_grad():
+        for n, p in g_cpu.named_parameters():
+            if ".noise" in n:
+                p.fill_(NOISE_WEIGHT)
+    g = StyledGenerator().to(dev).eval()
+    g.load_state_dict(g_cpu.state_dict())
+    rng = np.random.RandomState(42)
+    out = {}
+    for step, b in S1_STEPS:
+        zs = [torch.from_numpy(rng.randn(b, 512).astype(np.float32)) for _ in range(2)]
+        noise = [torch.from_numpy(rng.randn(b, 4 * 2 ** i, 4 * 2 ** i, 1).astype(np.float32))
+                 for i in range(step + 1)]
+        mean = g_cpu.style_forward(zs[1]).mean(0, keepdim=True).detach()
+        for tag, kw in (("plain", {}), ("mixing", {"inject_index": [2]}),
+                        ("truncation", {"style_weight": 0.7})):
+            if step == 8 and tag != "plain":
+                continue
+            z = zs if tag == "mixing" else zs[0]
+            m = mean if tag == "truncation" else None
+            with torch.no_grad():
+                want = g_cpu(z, noise=noise, step=step, mean_style=m, **kw)
+
+                def run():
+                    return g([t.to(dev) for t in z] if tag == "mixing" else z.to(dev),
+                             noise=[n.to(dev) for n in noise], step=step,
+                             mean_style=None if m is None else m.to(dev), **kw)
+
+                got = run().cpu()
+                ms = time_ms(run, warmup=1, iters=3)
+            assert got.shape == (b, 4 * 2 ** step, 4 * 2 ** step, 3) and torch.isfinite(got).all()
+            err = rel_l2(got.double().numpy(), want.double().numpy())
+            assert err <= S1_TOL, (step, tag, err)
+            out[f"step{step}_{tag}"] = {"batch": b, "rel_l2_card_vs_cpu": err, "card_ms": ms}
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def compat_phase(dev):
+    """Phase 42b: the reference-style call sequence through compat.py on the
+    card (StyleGAN2 at SIZE px, full width, random towers): get_w,
+    get_logits, get_reg_preds, get_train_alpha, get_alphas,
+    get_w_new_tensor, get_logits again, apply_alpha, save_multi_models and
+    load_multi_models, with the kernels' launches counted over the sequence.
+    The sequence's edit equals apply_alpha's bit for bit, and the walk
+    reloads bit for bit (cuDNN's deterministic algorithms, as phase 10)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import graphs, ops
+
+    graph = graphs.find_model_using_name("stylegan_v2_real", "face")(
+        device=dev, no_gan_loss=True, no_content_loss=True)
+    z = np.random.RandomState(43).randn(BATCH, graph.dim_z).astype(np.float32)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            w = graph.get_w(z)
+            img = graph.get_logits({"w": w})
+            org = graph.get_reg_preds(img)
+            a_graph, a_target, _ = graph.get_train_alpha(z)
+            target, delta = graph.get_alphas(org, a_graph)
+            edited = graph.get_logits({"w": graph.get_w_new_tensor(w, delta)})
+            via_apply, alpha_org, orig = graph.apply_alpha({"z": z}, a_graph)
+            graph.save_multi_models(os.path.join(root, "w"))
+            walk = {k: v.clone() for k, v in graph.walk.items()}
+            graph.load_multi_models(os.path.join(root, "w_walk_module.ckpt"))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert edited.shape == (BATCH, SIZE, SIZE, 3) and torch.isfinite(edited).all()
+    assert torch.equal(edited, via_apply) and torch.equal(img, orig), "compat edit != apply_alpha"
+    assert torch.equal(org, alpha_org) and torch.equal(target, graph.editor._tensor(a_graph))
+    assert all(torch.equal(graph.walk[k], v) for k, v in walk.items())
+    # an inference surface: the forward kernels run, the backward ones not
+    assert all(launches[k] > 0 for k in FORWARD), launches
+    return {"seconds": seconds, "launches": launches,
+            "edit_moved": float((edited - img).abs().max())}
+
+
+def regressor_phases(card, dev, gan, jp):
+    """Phases 39-42 -> their reports and, under "launches", compat's launch
+    counts (the trainer, the loader and StyleGAN1 reach no kernel)."""
+    import torch
+
+    log(f"[39] the regressor trainer: ResNet-50 at {REG_SIZE} px, B={REG_BATCH}, "
+        f"{REG_WARMUP} warmup and {REG_STEPS} timed steps; {REG_CMP_STEPS} steps at "
+        f"B={REG_CMP_BATCH} against the CPU")
+    reg = regressor_train_phase(dev)
+    log(f"    {reg['step_ms_cuda_events']:.2f} ms per step (CUDA events), "
+        f"{reg['step_ms_host']:.2f} ms (host), {reg['samples_per_s']:.1f} samples/s, peak "
+        f"{reg['peak_mem_gb']:.2f} GB, loss {reg['loss_first_last']}, on {card}")
+    log(f"    one step under torch.profiler: {json.dumps(reg['profile'])}")
+    log(f"    card against CPU: {json.dumps(reg['cpu_vs_card'])}")
+
+    log("[40] python -m latent2im_tpu_torch.cli.train_regressor on "
+        "tests/fixtures/torch_regressor/, 2 epochs, --export_torch")
+    cli = regressor_cli_phase()
+    log(f"    {cli['seconds']:.1f} s, test MSE {cli['test_mse']:.5f}, metas {cli['metas']}, "
+        f"Adam step {cli['adam_steps']} restored; lines {json.dumps(cli['lines'])}")
+    torch.cuda.empty_cache()
+
+    log("[41] the loader: the C decode against Python, the threaded loader against the "
+        "trainer, --updateGAN on JPEGs against PNGs")
+    loader = loader_phase(dev, reg, gan["train"], jp["gan"])
+    log(f"    loader ({loader['loader_threads']} threads) batches/s at B={REG_BATCH}: "
+        f"{json.dumps(loader['loader_batches_per_s'])} against the trainer's "
+        f"{loader['trainer_steps_per_s']:.2f} steps/s; fed by it "
+        f"{loader['fed_steps_per_s']:.2f} steps/s; --updateGAN ms per iteration "
+        f"{json.dumps(loader['update_gan_iteration_ms'])}, on {card}")
+
+    log("[42] StyleGAN1 at step 5 (128 px) and step 8 (1024 px), card against CPU; "
+        "the compat call sequence")
+    s1 = stylegan1_phase(dev)
+    log(f"    {json.dumps(s1)}")
+    cp = compat_phase(dev)
+    log(f"    compat: {cp['seconds']:.1f} s, launches {json.dumps(cp['launches'])}")
+    torch.cuda.empty_cache()
+    return {"train": reg, "cli": cli, "loader": loader, "stylegan1": s1, "compat": cp,
+            "launches": {"compat": cp["launches"]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -4039,6 +4485,7 @@ def main() -> int:
     log("[38] JPEG input: the fixtures against their Pillow decodes, bp and --updateGAN "
         "on JPEGs")
     jp = jpeg_phase(dev)
+    rg = regressor_phases(card, dev, gan, jp)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -4048,7 +4495,8 @@ def main() -> int:
                    **{k: v[n] for k, v in gan["launches"].items()},
                    **{k: v[n] for k, v in zp["launches"].items()},
                    **{k: v[n] for k, v in geo["launches"].items()},
-                   **{k: v[n] for k, v in jp["launches"].items()}}
+                   **{k: v[n] for k, v in jp["launches"].items()},
+                   **{k: v[n] for k, v in rg["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4094,6 +4542,7 @@ def main() -> int:
               "bf16": {k: v for k, v in bf.items()
                        if k not in ("launches", "results", "results_hi", "details")},
               "jpeg": {k: v for k, v in jp.items() if k != "launches"},
+              "regressor": {k: v for k, v in rg.items() if k != "launches"},
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

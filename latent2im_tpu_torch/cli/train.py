@@ -53,6 +53,7 @@ from ..tasks.geometric import GEOMETRIC_TASKS
 from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils import image as imgmod
 from ..utils import logging as logmod
+from ..utils.loader import Loader
 from ..walks import walk_map
 
 N_EPOCH_SINGLE = 10  # train.py:34
@@ -165,6 +166,8 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         signal.signal(signal.SIGTERM, prev_handler)
         if writer is not None:
             writer.close()
+        if gan is not None:
+            gan.close()
     if stop_box.get("preempted"):
         return walk_params, history
     ckpt.save_walk(output_dir, n_epochs, walk_params, final=True)
@@ -215,20 +218,34 @@ def _real_paths(root: str) -> list[str]:
     return paths
 
 
-def _make_real_batcher(paths, size: int, batch_size: int):
+def _make_real_batcher(paths, size: int, batch_size: int, native: bool = False):
     """-> next_batch(load=True) -> [B, size, size, 3] uint8: each batch
     RandomState(0).randint(0, len(paths), B) images, as the JAX package's
     pure-Python loader draws them (its native loader, where that extension
-    builds, shuffles per epoch instead). load=False only draws the indices
-    (a resume replaying the stream)."""
+    builds, shuffles per epoch instead), decoded ahead by the threaded
+    utils/loader.py (``native``: through the host C++ of the card's path).
+    load=False only draws the indices (a resume replaying the stream, before
+    the first batch is loaded). ``next_batch.loader`` is the Loader."""
     rng = np.random.RandomState(0)
+    loader = Loader(lambda j: imgmod.load_and_resize_image(paths[j], size, native))
+    stream = None
+
+    def draws():
+        while True:
+            yield rng.randint(0, len(paths), size=batch_size)
 
     def next_batch(load: bool = True):
-        idx = rng.randint(0, len(paths), size=batch_size)
-        if load:
-            return np.stack([imgmod.load_and_resize_image(paths[j], size) for j in idx])
-        return None
+        nonlocal stream
+        if not load:
+            if stream is not None:  # the loader has drawn ahead
+                raise RuntimeError("the real-image stream replays only before its first batch")
+            rng.randint(0, len(paths), size=batch_size)
+            return None
+        if stream is None:
+            stream = loader.batches(draws())
+        return next(stream)[0]
 
+    next_batch.loader = loader
     return next_batch
 
 
@@ -270,7 +287,8 @@ def _make_gan_provider(editor, opt, task, walk_params):
                      steps["n"])
 
     d_step, g_step = make_gan_update_steps(make_g_apply(editor), editor.discriminate, mod)
-    next_real = _make_real_batcher(paths, editor.cfg.size, opt.batch_size)
+    next_real = _make_real_batcher(paths, editor.cfg.size, opt.batch_size,
+                                   native=editor.device.type == "cuda")
     rng = np.random.RandomState(0)
     eps_gen = torch.Generator(device=editor.device).manual_seed(123)
     b, n_attr = opt.batch_size, len(editor.cfg.attr_idx)
@@ -295,6 +313,7 @@ def _make_gan_provider(editor, opt, task, walk_params):
                      float(dm["d_loss"]), float(dm["grad_penalty"]), float(gm["g_loss"]))
 
     provider.module, provider.steps = mod, steps
+    provider.close = next_real.loader.close
     return provider
 
 

@@ -3,6 +3,7 @@
 Input: the pytrees of latent2im_tpu (models/stylegan2.py:init_generator and
 init_discriminator, models/pggan.py and models/pgan_zoo.py's
 init_generator and init_discriminator, models/resnet.py:init_resnet50,
+models/stylegan1.py:init_styled_generator,
 models/vgg.py:init_vgg, models/lpips.py:init_lpips, models/facenet.py:init_facenet,
 walks/walks.py:init_walk, or the same trees converted from torch
 checkpoints), as numpy arrays. Output: state_dicts that
@@ -15,7 +16,8 @@ of latent2im_tpu/io/torch_convert.py (read, not imported):
   NHWC buffers            -> NCHW
   D final_lin1 rows       (h,w,c) -> (c,h,w), the NCHW flatten
 
-``generator_to_jax`` and ``discriminator_to_jax`` map back: a state_dict (or
+``generator_to_jax``, ``discriminator_to_jax`` and ``resnet50_to_jax`` map
+back: a state_dict (or
 any dict of tensors of its names and shapes, as Adam's moments are) -> the
 JAX package's tree of numpy arrays, lists where it keeps lists.
 """
@@ -234,6 +236,73 @@ def resnet50_from_jax(tree) -> dict[str, torch.Tensor]:
                 conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1", blk["down"])
     sd["fc.weight"] = _lin(tree["fc"]["w"])
     sd["fc.bias"] = _t(tree["fc"]["b"])
+    return sd
+
+
+def resnet50_to_jax(sd) -> dict:
+    """torchvision ResNet-50 state_dict (or a dict of tensors of its names
+    and shapes, as Adam's moments are) -> the JAX package's resnet pytree of
+    numpy arrays: the inverse of resnet50_from_jax. The BN statistics
+    (``running_mean``/``running_var``) become the ``mean``/``var`` leaves;
+    ``num_batches_tracked`` has no leaf."""
+    def conv_bn(conv_key, bn_key):
+        return {"w": _unconv(sd[f"{conv_key}.weight"]),
+                "gamma": _np(sd[f"{bn_key}.weight"]), "beta": _np(sd[f"{bn_key}.bias"]),
+                "mean": _np(sd[f"{bn_key}.running_mean"]),
+                "var": _np(sd[f"{bn_key}.running_var"])}
+
+    layers = []
+    for li in range(_n_indexed(sd, "layer", ".0.conv1.weight", start=1)):
+        blocks = []
+        for bi in range(_n_indexed(sd, f"layer{li + 1}.", ".conv1.weight")):
+            pre = f"layer{li + 1}.{bi}"
+            blk = {f"conv{j}": conv_bn(f"{pre}.conv{j}", f"{pre}.bn{j}") for j in (1, 2, 3)}
+            if f"{pre}.downsample.0.weight" in sd:
+                blk["down"] = conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1")
+            blocks.append(blk)
+        layers.append(blocks)
+    return {"stem": conv_bn("conv1", "bn1"), "layers": layers,
+            "fc": {"w": _unlin(sd["fc.weight"]), "b": _np(sd["fc.bias"])}}
+
+
+def stylegan1_from_jax(tree, fused_from: int = 5) -> dict[str, torch.Tensor]:
+    """StyleGAN1 generator pytree (models/stylegan1.py:init_styled_generator
+    there) -> rosinality's style-based-gan-pytorch ``StyledGenerator``
+    state_dict, blocks from ``fused_from`` on with a FusedUpsample (its
+    weight [in, out, k, k], the transposed conv's layout), the others an
+    EqualConv2d after a nearest upsample; the Blur buffers included."""
+    from ..models.stylegan1 import Blur
+
+    sd: dict[str, torch.Tensor] = {}
+    for i, p in enumerate(tree["style"]):
+        sd[f"style.{2 * i + 1}.linear.weight_orig"] = _lin(p["w"])
+        sd[f"style.{2 * i + 1}.linear.bias"] = _t(p["b"])
+    for i, p in enumerate(tree["progression"]):
+        pre = f"generator.progression.{i}"
+        if i == 0:
+            sd[f"{pre}.conv1.input"] = _t(np.transpose(np.asarray(p["const"]), (0, 3, 1, 2)))
+        else:
+            cout = np.asarray(p["conv1"]["b"]).shape[0]
+            if i >= fused_from:
+                sd[f"{pre}.conv1.0.weight"] = _t(np.transpose(np.asarray(p["conv1"]["w"]),
+                                                              (2, 3, 0, 1)))
+                sd[f"{pre}.conv1.0.bias"] = _t(p["conv1"]["b"])
+                blur = f"{pre}.conv1.1"
+            else:
+                sd[f"{pre}.conv1.1.conv.weight_orig"] = _conv(p["conv1"]["w"])
+                sd[f"{pre}.conv1.1.conv.bias"] = _t(p["conv1"]["b"])
+                blur = f"{pre}.conv1.2"
+            for k, v in Blur(cout).state_dict().items():
+                sd[f"{blur}.{k}"] = v
+        for j in (1, 2):
+            sd[f"{pre}.noise{j}.weight_orig"] = _t(p[f"noise{j}_w"]).reshape(1, -1, 1, 1)
+            sd[f"{pre}.adain{j}.style.linear.weight_orig"] = _lin(p[f"adain{j}"]["style"]["w"])
+            sd[f"{pre}.adain{j}.style.linear.bias"] = _t(p[f"adain{j}"]["style"]["b"])
+        sd[f"{pre}.conv2.conv.weight_orig"] = _conv(p["conv2"]["w"])
+        sd[f"{pre}.conv2.conv.bias"] = _t(p["conv2"]["b"])
+    for i, p in enumerate(tree["to_rgb"]):
+        sd[f"generator.to_rgb.{i}.conv.weight_orig"] = _conv(p["w"])
+        sd[f"generator.to_rgb.{i}.conv.bias"] = _t(p["b"])
     return sd
 
 

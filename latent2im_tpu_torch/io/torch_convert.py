@@ -1,5 +1,6 @@
 """The reference's walk checkpoints (pickled whole ``nn.Module``s) — the walk
-part of latent2im_tpu/io/torch_convert.py, ported.
+part of latent2im_tpu/io/torch_convert.py, ported — and the regressor
+trainer's torch export (``export_resnet50_torch``).
 
 The reference saves ``torch.save(self.walk, save_path_w +
 '_walk_module.ckpt')`` (transform_base.py:492-505): a pickle that names the
@@ -221,3 +222,16 @@ def export_walk_torch(path: str, kind: str, params: dict,
         m.linear = seq(params["mlp"])
         m.dim_z = params["mlp"][0]["w"].shape[0]
     torch.save(m, path)
+
+
+def export_resnet50_torch(model) -> dict:
+    """A ResNet50 (models/resnet.py) -> its torchvision-layout state_dict on
+    the CPU, as the JAX package's export_resnet50_torch writes a trained
+    regressor for the reference's torch pipeline: ``num_batches_tracked`` 0
+    in every BN (the JAX package writes 0; torch's train-mode BN counts the
+    steps), so both packages' exports load the same."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for k in sd:
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(0, dtype=torch.int64)
+    return sd

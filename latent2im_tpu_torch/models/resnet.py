@@ -1,9 +1,15 @@
 """ResNet-50 attribute regressor (torchvision v1 layout), PyTorch port.
 
-The counterpart of latent2im_tpu/models/resnet.py:24-334 in inference: the
-Bottleneck [3, 4, 6, 3] network with eval-mode BatchNorm (eps 1e-5), max-pool
-3/2/1, a global mean and fc -> ``num_outputs`` (40 CelebA attributes), f32
-logits. Parameter names follow torchvision (``conv1.weight``,
+The counterpart of latent2im_tpu/models/resnet.py:24-345: the Bottleneck
+[3, 4, 6, 3] network with BatchNorm (eps 1e-5), max-pool 3/2/1, a global mean
+and fc -> ``num_outputs`` (40 CelebA attributes), f32 logits. The module
+starts in eval mode (the frozen regressor of the editor: BN from its running
+statistics); the regressor trainer (cli/train_regressor.py) alone calls
+``.train()``. In train mode ``nn.BatchNorm2d`` computes what the JAX
+package's ``batch_norm(train=True)`` + ``apply_bn_stats`` do: it normalises
+with the batch's biased variance and moves the running statistics by
+momentum 0.1, the variance made unbiased by n / (n - 1). Parameter names
+follow torchvision (``conv1.weight``,
 ``layer1.0.downsample.1.running_var``, ``fc.bias``, ...), so a torchvision
 state_dict with its fc replaced loads as it is. Written by hand, since the
 port may not depend on torchvision.
@@ -89,13 +95,15 @@ class ResNet50(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
             planes *= 2
         self.fc = nn.Linear(2048, num_outputs)
+        # the JAX package's init_resnet50: fc weight U(-1/sqrt(2048), ..),
+        # bias 0 (the convs: _conv's kaiming normal, fan_out)
         bound = 1.0 / math.sqrt(2048)
         with torch.no_grad():
             self.fc.weight.copy_(
                 torch.rand(self.fc.weight.shape, generator=generator) * 2 * bound - bound
             )
             self.fc.bias.zero_()
-        self.eval()
+        self.eval()  # the frozen regressor; the trainer calls .train()
 
     def forward(self, x, dtype: torch.dtype | None = None):
         """x [B, H, W, 3] NHWC -> logits [B, num_outputs] f32, computed in

@@ -2,7 +2,9 @@
 
 Every ``.cu`` source under ``ops/csrc/`` compiles to an object with its own
 ``nvcc`` call, all started together, and one more ``nvcc`` call links them
-into one shared library with a plain C interface, loaded with ``ctypes``. No
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The host C++ there (``jpeg_huffman.cpp`` and ``resample.cpp``, the image
+loaders' hot loops) compiles the same way, into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not minutes.
 The library is built at first use into ``build/torch_kernels/`` at the root of
 the checkout (listed in ``.gitignore``) under a name that hashes the sources
@@ -59,15 +61,30 @@ SIGNATURES = {
     "l2i_styled_conv3x3": (_P,) * 9 + (_I,) * 7 + (_F, _F, _P),
     # B, H, W, cin, cout, is_bf16, int[3] {BM, BN, splits} -> workspace bytes
     "l2i_styled_conv3x3_plan": (_I,) * 6 + (_P,),
+    # host C++ of utils/jpeg.py and utils/image.py (jpeg_huffman.cpp,
+    # resample.cpp), not kernels. data, n_bytes, blocks, comps, n_blocks,
+    # dc_luts, ac_luts, out_ac, n_ac, out_dc -> bits used, -1 past the data,
+    # -2 an invalid code
+    "l2i_jpeg_decode_interval": (_P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P),
+    # data, n, int[2] {height, width} -> 0, -1 no frame header found
+    "l2i_jpeg_dims": (_P, _LL, _P),
+    # data, n, out, out_bytes, long long[2] info -> 0 or an error code
+    "l2i_jpeg_decode": (_P, _LL, _P, _LL, _P),
+    # in, row, h, w, c, idx_w, k_w, ks_w, out_w, idx_h, k_h, ks_h, out_h,
+    # bits, out
+    "l2i_resize": (_P, _LL) + (_I,) * 3 + (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
 }
-RESTYPES = {"l2i_styled_conv3x3_plan": _LL}  # the others return an int
+# the others return an int
+RESTYPES = {"l2i_styled_conv3x3_plan": _LL, "l2i_jpeg_decode_interval": _LL}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
 def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    """The CUDA sources and the host C++ beside them (nvcc hands a .cpp to
+    the host compiler)."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cpp")))
 
 
 def nvcc() -> str:

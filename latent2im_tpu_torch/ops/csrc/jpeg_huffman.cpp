@@ -1,0 +1,703 @@
+// Host C++ of the baseline JPEG decoder of utils/jpeg.py: the same
+// function, bit for bit, on every input, with the same errors in the same
+// order (the Python side turns each code into the Python version's message).
+//
+//   l2i_jpeg_decode_interval  <- _decode_interval: the Huffman decode of one
+//                                restart interval, the same packed outputs
+//   l2i_jpeg_dims             <- the first frame header's height and width
+//   l2i_jpeg_decode           <- jpeg_decode_rgb: the markers and tables, each
+//                                scan through the interval decode above,
+//                                _idct_islow, _upsample and _ycc_to_rgb
+//
+// This is host code, not a GPU kernel: nvcc hands it to the host compiler,
+// and it links into the same library as the kernels (ops/_build.py). One
+// call decodes one photo, touching only the buffers it is given and its
+// thread's own scratch (thread_local, reused, so a thread in the loader's
+// pool (utils/loader.py) faults no new pages per photo); ctypes releases
+// the GIL around it, so the pool's threads decode in parallel. Integer
+// arithmetic is int64 throughout, as the numpy version computes it; >> on a
+// negative value is an arithmetic shift, as in numpy.
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <new>
+#include <string>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+// error codes; the payload (info[0]) where the message names a value
+enum Err {
+  E_NOT_JPEG = -10, E_REFUSE_SOF = -11, E_REFUSE_DAC = -12, E_SEGMENT = -13,
+  E_SECOND_FRAME = -14, E_SHORT_SOF = -15, E_PRECISION = -16, E_CMYK = -17,
+  E_NCOMP = -18, E_DNL = -19, E_BAD_SOF = -20, E_SAMPLING = -21,
+  E_FRACTIONAL = -22, E_BAD_DHT = -23, E_BAD_DQT = -24, E_SCAN_NO_FRAME = -25,
+  E_BAD_SOS = -26, E_SCAN_COMPONENT = -27, E_UNDEF_HUFF = -28,
+  E_UNDEF_QUANT = -29, E_BAD_HUFF_TABLE = -30, E_SPECTRAL = -31,
+  E_FEW_INTERVALS = -32, E_INVALID_CODE = -33, E_SCAN_TRUNC = -34,
+  E_COEF_PAST = -35, E_NO_SCAN = -36, E_OUT_SIZE = -37, E_NOMEM = -38,
+};
+
+// the JPEG EXTEND of `size` value bits
+inline int64_t extend(int64_t bits, int size) {
+  return bits < (int64_t(1) << (size - 1)) ? bits - (int64_t(1) << size) + 1 : bits;
+}
+
+// natural (row-major) index -> zigzag position (utils/jpeg.py:_UNZIGZAG)
+const int kUnzigzag[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+
+// The Huffman decode of one restart interval (utils/jpeg.py:_decode_interval)
+// -> the bits used; -1 where it reads past the padded words (the Python
+// version's IndexError), -2 at an invalid code.
+long long decode_interval(const uint8_t* data, long long n_bytes, const long long* blocks,
+                          const int* comps, long long n_blocks, const int* const* dc_luts,
+                          const int* const* ac_luts, long long* out_ac, long long* n_ac,
+                          long long* out_dc, int64_t* preds) {
+  const long long n_words = n_bytes / 4;
+  uint64_t buf = 0;
+  long long nb = 0, wi = 0, na = 0;
+  const int64_t one = int64_t(1) << 16, end = int64_t(64) << 16;
+#define L2I_REFILL()                                                           \
+  if (nb < 32) {                                                               \
+    if (wi >= n_words) return -1;                                              \
+    const uint8_t* w = data + 4 * wi;                                          \
+    uint64_t word = (uint64_t(w[0]) << 24) | (uint64_t(w[1]) << 16) |          \
+                    (uint64_t(w[2]) << 8) | uint64_t(w[3]);                    \
+    buf = ((buf & ((uint64_t(1) << nb) - 1)) << 32) | word;                    \
+    wi += 1;                                                                   \
+    nb += 32;                                                                  \
+  }
+  for (long long i = 0; i < n_blocks; ++i) {
+    const int ci = comps[i];
+    L2I_REFILL();
+    const int* d = dc_luts[ci] + 2 * ((buf >> (nb - 16)) & 0xFFFF);
+    int64_t n = d[0], v = d[1];
+    if (n > 0) {
+      nb -= n;
+    } else if (n < 0) {
+      nb += n;
+      if (v) {
+        nb -= v;
+        v = extend(static_cast<int64_t>((buf >> nb) & ((uint64_t(1) << v) - 1)),
+                   static_cast<int>(v));
+      }
+    } else {
+      return -2;
+    }
+    preds[ci] += v;
+    out_dc[i] = preds[ci];
+    const int* acl = ac_luts[ci];
+    const int64_t bk = static_cast<int64_t>(blocks[i]) << 23;
+    int64_t kk = one;
+    while (kk < end) {
+      L2I_REFILL();
+      const int* a = acl + 3 * ((buf >> (nb - 16)) & 0xFFFF);
+      int64_t an = a[0], r = a[1], av = a[2];
+      if (an > 0) {
+        nb -= an;
+        if (r < 0) break;
+        kk += r;
+        if (av) out_ac[na++] = bk + kk + av;
+        kk += one;
+      } else if (an < 0) {
+        nb += an - av;
+        int64_t bits = static_cast<int64_t>((buf >> nb) & ((uint64_t(1) << av) - 1));
+        kk += r;
+        out_ac[na++] = bk + kk + (extend(bits, static_cast<int>(av)) & 0xFFFF);
+        kk += one;
+      } else {
+        return -2;
+      }
+    }
+  }
+#undef L2I_REFILL
+  *n_ac = na;
+  return wi * 32 - nb;
+}
+
+// ---------------------------------------------------------------------------
+// Huffman lookup tables (utils/jpeg.py:_lut_rows), cached per thread
+// ---------------------------------------------------------------------------
+
+struct HuffTable {
+  bool defined = false;
+  uint8_t counts[16] = {};
+  std::vector<uint8_t> symbols;
+};
+
+// the tables built by this thread, by (DC or AC, counts, symbols); emptied
+// between photos only (decode), so the pointers a scan holds stay valid
+thread_local std::unordered_map<std::string, std::vector<int>> lut_cache;
+
+// -> the table's rows [65536][2 | 3], or nullptr for a bad table
+const int* lut_rows(const HuffTable& t, bool dc) {
+  auto& cache = lut_cache;
+  std::string key(1, dc ? 'd' : 'a');
+  key.append(reinterpret_cast<const char*>(t.counts), 16);
+  key.append(t.symbols.begin(), t.symbols.end());
+  auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second.data();
+  if (dc)
+    for (uint8_t s : t.symbols)
+      if (s > 15) return nullptr;  // jdhuff.c: a DC size past 15
+  std::vector<int> length(1 << 16, 0), symbol(1 << 16, 0);
+  int64_t code = 0;
+  size_t i = 0;
+  for (int n_bits = 1; n_bits <= 16; ++n_bits) {
+    for (int c = 0; c < t.counts[n_bits - 1]; ++c) {
+      if (code >= (int64_t(1) << n_bits)) return nullptr;
+      const int64_t lo = code << (16 - n_bits);
+      for (int64_t w = lo; w < lo + (int64_t(1) << (16 - n_bits)); ++w) {
+        length[w] = n_bits;
+        symbol[w] = t.symbols[i];
+      }
+      ++code;
+      ++i;
+    }
+    code <<= 1;
+  }
+  const int width = dc ? 2 : 3;
+  std::vector<int> rows(size_t(1 << 16) * width);
+  for (int w = 0; w < (1 << 16); ++w) {
+    const int len = length[w], sym = symbol[w];
+    const int size = dc ? sym : (sym & 15);
+    const bool fits = len + size <= 16;
+    const int shift = 16 - len - size > 0 ? 16 - len - size : 0;
+    int64_t value = 0;
+    if (size > 0) value = extend((int64_t(w) >> shift) & ((int64_t(1) << size) - 1), size);
+    const int n = len == 0 ? 0 : (fits ? len + size : -len);
+    int* r = rows.data() + size_t(w) * width;
+    r[0] = n;
+    if (dc) {
+      r[1] = static_cast<int>(fits ? value : size);
+    } else {
+      int run = sym >> 4;
+      run = size == 0 ? (run == 15 ? 15 : -1) : run;
+      r[1] = run * 65536;
+      r[2] = static_cast<int>(fits ? (value & 0xFFFF) : size);
+    }
+  }
+  return cache.emplace(key, std::move(rows)).first->second.data();
+}
+
+// ---------------------------------------------------------------------------
+// IDCT, upsampling, colour (utils/jpeg.py:_idct_islow, _upsample,
+// _ycc_to_rgb)
+// ---------------------------------------------------------------------------
+
+// jidctint.c's 1-D ISLOW stage, as utils/jpeg.py:_islow_butterfly
+inline void islow_butterfly(const int64_t* c, int64_t* o) {
+  int64_t z1 = (c[2] + c[6]) * 4433;
+  int64_t tmp2 = z1 + c[6] * -15137;
+  int64_t tmp3 = z1 + c[2] * 6270;
+  // << 13 of numpy's int64, written as a product (a left shift of a negative
+  // value is undefined in C++17)
+  int64_t tmp0 = (c[0] + c[4]) * 8192;
+  int64_t tmp1 = (c[0] - c[4]) * 8192;
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  int64_t t0 = c[7], t1 = c[5], t2 = c[3], t3 = c[1];
+  int64_t a1 = t0 + t3, a2 = t1 + t2, a3 = t0 + t2, a4 = t1 + t3;
+  int64_t z5 = (a3 + a4) * 9633;
+  t0 *= 2446;
+  t1 *= 16819;
+  t2 *= 25172;
+  t3 *= 12299;
+  a1 *= -7373;
+  a2 *= -20995;
+  a3 = a3 * -16069 + z5;
+  a4 = a4 * -3196 + z5;
+  t0 += a1 + a3;
+  t1 += a2 + a4;
+  t2 += a2 + a3;
+  t3 += a1 + a4;
+  o[0] = tmp10 + t3;
+  o[1] = tmp11 + t2;
+  o[2] = tmp12 + t1;
+  o[3] = tmp13 + t0;
+  o[4] = tmp13 - t0;
+  o[5] = tmp12 - t1;
+  o[6] = tmp11 - t2;
+  o[7] = tmp10 - t3;
+}
+
+// libjpeg's post-IDCT range limit indexed by (value & 1023)
+inline uint8_t range_limit(int64_t v) {
+  int i = static_cast<int>(v & 1023);
+  if (i < 128) return static_cast<uint8_t>(i + 128);
+  if (i < 512) return 255;
+  if (i < 896) return 0;
+  return static_cast<uint8_t>(i - 896);
+}
+
+// Dequantise and inverse-transform a component's bh x bw blocks (64 int16
+// coefficients each in zigzag order, block raster order) into its plane
+// [bh * 8][bw * 8]; quant: the 64 steps in natural order.
+void idct_plane(const int16_t* coef, const int64_t* quant, int bh, int bw, uint8_t* plane) {
+  const long long stride = static_cast<long long>(bw) * 8;
+  for (long long b = 0; b < static_cast<long long>(bh) * bw; ++b) {
+    const int16_t* cz = coef + 64 * b;
+    int64_t c[64], ws[64], col[8], res[8];
+    for (int k = 0; k < 64; ++k) c[k] = static_cast<int64_t>(cz[kUnzigzag[k]]) * quant[k];
+    for (int x = 0; x < 8; ++x) {  // pass 1: each column; DESCALE(, 11)
+      for (int k = 0; k < 8; ++k) col[k] = c[8 * k + x];
+      islow_butterfly(col, res);
+      for (int k = 0; k < 8; ++k) ws[8 * k + x] = (res[k] + 1024) >> 11;
+    }
+    uint8_t* out = plane + (b / bw) * 8 * stride + (b % bw) * 8;
+    for (int y = 0; y < 8; ++y) {  // pass 2: each row; DESCALE(, 18)
+      islow_butterfly(ws + 8 * y, res);
+      for (int k = 0; k < 8; ++k)
+        out[y * stride + k] = range_limit((res[k] + (int64_t(1) << 17)) >> 18);
+    }
+  }
+}
+
+// One component's valid samples p [h][w] (row stride `stride`) upsampled by
+// (fh, fv) as jdsample.c does with fancy upsampling on, cropped to
+// [out_h][out_w], written with a step of `step` bytes between samples.
+void upsample(const uint8_t* p, long long stride, int h, int w, int fh, int fv, int out_h,
+              int out_w, uint8_t* out, int step) {
+  auto at = [&](int y, int x) -> int {
+    y = y < 0 ? 0 : (y >= h ? h - 1 : y);
+    x = x < 0 ? 0 : (x >= w ? w - 1 : x);
+    return p[y * stride + x];
+  };
+  const bool fancy = (fh == 2 && fv == 1) || (fh == 1 && fv == 2) || (fh == 2 && fv == 2);
+  const bool box = fh == 2 && (fv == 1 || fv == 2) && w <= 2;  // h2v1_/h2v2_upsample
+  for (int oy = 0; oy < out_h; ++oy) {
+    uint8_t* o = out + static_cast<long long>(oy) * out_w * step;
+    if (!fancy || box) {  // a copy (1, 1), box or int_upsample: replication
+      const int y = oy / fv;
+      for (int ox = 0; ox < out_w; ++ox) o[ox * step] = static_cast<uint8_t>(at(y, ox / fh));
+    } else if (fv == 1) {  // h2v1_fancy_upsample
+      for (int ox = 0; ox < out_w; ++ox) {
+        const int x = ox >> 1, s = 3 * at(oy, x);
+        o[ox * step] = static_cast<uint8_t>((ox & 1) ? (s + at(oy, x + 1) + 2) >> 2
+                                                     : (s + at(oy, x - 1) + 1) >> 2);
+      }
+    } else if (fh == 1) {  // h1v2_fancy_upsample
+      const int y = oy >> 1;
+      for (int ox = 0; ox < out_w; ++ox) {
+        const int s = 3 * at(y, ox);
+        o[ox * step] = static_cast<uint8_t>((oy & 1) ? (s + at(y + 1, ox) + 2) >> 2
+                                                     : (s + at(y - 1, ox) + 1) >> 2);
+      }
+    } else {  // h2v2_fancy_upsample: the row above or below as context
+      const int y = oy >> 1, ny = (oy & 1) ? y + 1 : y - 1;
+      auto cs = [&](int x) { return 3 * at(y, x) + at(ny, x); };
+      for (int ox = 0; ox < out_w; ++ox) {
+        const int x = ox >> 1, c = 3 * cs(x);
+        o[ox * step] = static_cast<uint8_t>((ox & 1) ? (c + cs(x + 1) + 7) >> 4
+                                                     : (c + cs(x - 1) + 8) >> 4);
+      }
+    }
+  }
+}
+
+inline int fix(double x) { return static_cast<int>(x * 65536 + 0.5); }
+
+// jdcolor.c's ycc_rgb_convert, in place on interleaved [n][3] samples
+void ycc_rgb(uint8_t* px, long long n) {
+  static int64_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  static const bool ready = [] {
+    const int64_t half = int64_t(1) << 15;
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = (fix(1.40200) * x + half) >> 16;
+      cb_b[i] = (fix(1.77200) * x + half) >> 16;
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+    return true;
+  }();
+  (void)ready;
+  auto clip = [](int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+  for (long long i = 0; i < n; ++i) {
+    uint8_t* q = px + 3 * i;
+    const int64_t y = q[0];
+    const int cb = q[1], cr = q[2];
+    q[0] = clip(y + cr_r[cr]);
+    q[1] = clip(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+    q[2] = clip(y + cb_b[cb]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the file (utils/jpeg.py:jpeg_decode_rgb, _Frame, _decode_scan,
+// _scan_blocks, _assemble)
+// ---------------------------------------------------------------------------
+
+struct Frame {
+  int height = 0, width = 0, n = 0, hmax = 0, vmax = 0, mcux = 0, mcuy = 0;
+  std::vector<int> ids, h, v, tq, bw, bh;
+  std::vector<long long> offset;  // in coefficients
+  std::vector<bool> scanned;
+  std::vector<std::vector<int64_t>> quant;  // empty: not latched yet
+  int dw(int c) const { return static_cast<int>((int64_t(width) * h[c] + hmax - 1) / hmax); }
+  int dh(int c) const { return static_cast<int>((int64_t(height) * v[c] + vmax - 1) / vmax); }
+  int index_of(int cid) const {
+    for (int i = 0; i < n; ++i)
+      if (ids[i] == cid) return i;
+    return -1;
+  }
+};
+
+inline int be16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
+
+int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info) {
+  if (blen < 6) return E_SHORT_SOF;
+  const int precision = body[0];
+  fr.height = be16(body + 1);
+  fr.width = be16(body + 3);
+  fr.n = body[5];
+  if (precision != 8) return info[0] = precision, E_PRECISION;
+  if (fr.n == 4) return E_CMYK;
+  if (fr.n != 1 && fr.n != 3) return info[0] = fr.n, E_NCOMP;
+  if (fr.height == 0) return E_DNL;
+  if (fr.width == 0 || blen < 6 + 3 * fr.n) return E_BAD_SOF;
+  for (int i = 0; i < fr.n; ++i) {
+    const uint8_t* c = body + 6 + 3 * i;
+    if (!(1 <= (c[1] >> 4) && (c[1] >> 4) <= 4 && 1 <= (c[1] & 15) && (c[1] & 15) <= 4))
+      return E_SAMPLING;
+    fr.ids.push_back(c[0]);
+    fr.h.push_back(c[1] >> 4);
+    fr.v.push_back(c[1] & 15);
+    fr.tq.push_back(c[2]);
+  }
+  fr.hmax = fr.vmax = 0;
+  for (int i = 0; i < fr.n; ++i) {
+    fr.hmax = fr.h[i] > fr.hmax ? fr.h[i] : fr.hmax;
+    fr.vmax = fr.v[i] > fr.vmax ? fr.v[i] : fr.vmax;
+  }
+  for (int i = 0; i < fr.n; ++i)
+    if (fr.hmax % fr.h[i] || fr.vmax % fr.v[i]) return E_FRACTIONAL;
+  fr.mcux = (fr.width + 8 * fr.hmax - 1) / (8 * fr.hmax);
+  fr.mcuy = (fr.height + 8 * fr.vmax - 1) / (8 * fr.vmax);
+  fr.offset.assign(1, 0);
+  for (int i = 0; i < fr.n; ++i) {
+    fr.bw.push_back(fr.mcux * fr.h[i]);
+    fr.bh.push_back(fr.mcuy * fr.v[i]);
+    fr.offset.push_back(fr.offset.back() + static_cast<long long>(fr.bw[i]) * fr.bh[i] * 64);
+  }
+  fr.scanned.assign(fr.n, false);
+  fr.quant.assign(fr.n, {});
+  return 0;
+}
+
+struct Scratch {  // per thread, reused from photo to photo
+  std::vector<int16_t> coef;
+  std::vector<long long> blk, out_ac, out_dc;
+  std::vector<int> sel;
+  std::vector<uint8_t> raw, plane;
+};
+
+int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
+                long long n, long long pos, const std::vector<int64_t>* qt, const bool* qt_def,
+                const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart,
+                Scratch& s, long long* end_out, long long* info) {
+  const int ns = blen ? body[0] : 0;
+  if (ns < 1 || blen < 4 + 2 * ns) return E_BAD_SOS;
+  std::vector<int> comps;
+  std::vector<const int*> dcls, acls;
+  for (int i = 0; i < ns; ++i) {
+    const int cid = body[1 + 2 * i], t = body[2 + 2 * i];
+    const int c = fr.index_of(cid);
+    if (c < 0) return info[0] = cid, E_SCAN_COMPONENT;
+    if (!dc_tabs[t >> 4].defined || !ac_tabs[t & 15].defined) return E_UNDEF_HUFF;
+    if (fr.quant[c].empty()) {
+      if (fr.tq[c] > 15 || !qt_def[fr.tq[c]]) return E_UNDEF_QUANT;
+      fr.quant[c] = qt[fr.tq[c]];
+    }
+    fr.scanned[c] = true;
+    comps.push_back(c);
+    const int* d = lut_rows(dc_tabs[t >> 4], true);
+    if (!d) return E_BAD_HUFF_TABLE;
+    const int* a = lut_rows(ac_tabs[t & 15], false);
+    if (!a) return E_BAD_HUFF_TABLE;
+    dcls.push_back(d);
+    acls.push_back(a);
+  }
+  const uint8_t* sa = body + 1 + 2 * ns;
+  if (!(sa[0] == 0 && sa[1] == 63 && sa[2] == 0)) return E_SPECTRAL;
+
+  long long end = n;  // a marker other than RSTn ends the entropy-coded data
+  for (long long i = pos; i + 1 < n; ++i)
+    if (data[i] == 0xFF && data[i + 1] != 0x00 && !(data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7)) {
+      end = i;
+      break;
+    }
+  // the blocks in decode order (_scan_blocks)
+  s.blk.clear();
+  s.sel.clear();
+  long long per_mcu = 1;
+  if (ns == 1) {
+    const int c = comps[0];
+    const int nby = (fr.dh(c) + 7) / 8, nbx = (fr.dw(c) + 7) / 8;
+    for (int by = 0; by < nby; ++by)
+      for (int bx = 0; bx < nbx; ++bx) {
+        s.blk.push_back(fr.offset[c] / 64 + static_cast<long long>(by) * fr.bw[c] + bx);
+        s.sel.push_back(0);
+      }
+  } else {
+    per_mcu = 0;
+    for (int c : comps) per_mcu += static_cast<long long>(fr.v[c]) * fr.h[c];
+    for (int my = 0; my < fr.mcuy; ++my)
+      for (int mx = 0; mx < fr.mcux; ++mx)
+        for (int i = 0; i < ns; ++i) {
+          const int c = comps[i];
+          for (int yy = 0; yy < fr.v[c]; ++yy)
+            for (int xx = 0; xx < fr.h[c]; ++xx) {
+              s.blk.push_back(fr.offset[c] / 64 +
+                              (static_cast<long long>(my) * fr.v[c] + yy) * fr.bw[c] +
+                              static_cast<long long>(mx) * fr.h[c] + xx);
+              s.sel.push_back(i);
+            }
+        }
+  }
+  const long long n_blocks = static_cast<long long>(s.blk.size());
+  const long long n_mcu = n_blocks / per_mcu;
+  const long long span = restart ? restart : n_mcu;
+  // the intervals' byte ranges, split at every RSTn marker
+  std::vector<std::pair<long long, long long>> pieces;
+  long long start = pos;
+  if (restart) {
+    for (long long i = pos; i < end;) {
+      if (data[i] == 0xFF && i + 1 < end && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7) {
+        pieces.emplace_back(start, i);
+        i += 2;
+        start = i;
+      } else {
+        ++i;
+      }
+    }
+  }
+  pieces.emplace_back(start, end);
+  const long long n_int = (n_mcu + span - 1) / span;
+  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
+
+  s.out_ac.resize(static_cast<size_t>(n_blocks) * 63);  // at most 63 a block
+  s.out_dc.resize(n_blocks);
+  std::vector<int64_t> preds(ns);
+  long long total = 0;
+  const long long per_interval = span * per_mcu;
+  for (long long k = 0; k < n_int; ++k) {
+    const long long a = pieces[k].first, b = pieces[k].second;
+    s.raw.clear();  // the interval unstuffed, then zero-padded
+    for (long long i = a; i < b; ++i) {
+      s.raw.push_back(data[i]);
+      if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
+    }
+    const long long n_raw = static_cast<long long>(s.raw.size());
+    s.raw.resize(n_raw + 12 - n_raw % 4, 0);
+    const long long lo = k * per_interval;
+    const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+    long long n_ac = 0;
+    for (int i = 0; i < ns; ++i) preds[i] = 0;
+    const long long used = decode_interval(
+        s.raw.data(), static_cast<long long>(s.raw.size()), s.blk.data() + lo,
+        s.sel.data() + lo, hi - lo, dcls.data(), acls.data(), s.out_ac.data() + total, &n_ac,
+        s.out_dc.data() + lo, preds.data());
+    if (used == -2) return E_INVALID_CODE;
+    if (used == -1 || used > 8 * n_raw) return E_SCAN_TRUNC;
+    total += n_ac;
+  }
+  for (long long i = 0; i < n_blocks; ++i)
+    s.coef[s.blk[i] * 64] = static_cast<int16_t>(s.out_dc[i]);  // JCOEF
+  for (long long i = 0; i < total; ++i)
+    if (((s.out_ac[i] >> 16) & 127) > 63) return E_COEF_PAST;
+  for (long long i = 0; i < total; ++i) {
+    const long long ac = s.out_ac[i];
+    s.coef[(ac >> 23) * 64 + ((ac >> 16) & 127)] =
+        static_cast<int16_t>(static_cast<uint16_t>(ac & 0xFFFF));
+  }
+  *end_out = end;
+  return 0;
+}
+
+int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
+           long long* info) {
+  if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return E_NOT_JPEG;
+  thread_local Scratch s;
+  if (lut_cache.size() > 64) lut_cache.clear();  // a file defines at most 32
+  std::vector<int64_t> qt[16];
+  bool qt_def[16] = {};
+  HuffTable dc_tabs[16], ac_tabs[16];
+  int restart = 0, adobe = -1;
+  bool jfif = false, have_frame = false;
+  Frame fr;
+  long long pos = 2;
+  while (true) {
+    const void* f = pos < n ? std::memchr(data + pos, 0xFF, n - pos) : nullptr;
+    if (!f) break;  // no EOI: the scans decoded so far must cover the image
+    pos = static_cast<const uint8_t*>(f) - data + 1;
+    while (pos < n && data[pos] == 0xFF) ++pos;  // fill bytes
+    if (pos >= n) break;
+    const int marker = data[pos++];
+    if (marker == 0xD9) break;
+    if (marker == 0x00 || marker == 0x01 || marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7))
+      continue;
+    if (marker == 0xC2 || marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
+        marker == 0xC7 || marker == 0xC9 || marker == 0xCA || marker == 0xCB ||
+        marker == 0xCD || marker == 0xCE || marker == 0xCF)
+      return info[0] = marker, E_REFUSE_SOF;
+    if (marker == 0xCC) return E_REFUSE_DAC;
+    if (pos + 2 > n) return E_SEGMENT;
+    const long long len = be16(data + pos);
+    if (len < 2 || pos + len > n) return E_SEGMENT;
+    const uint8_t* body = data + pos + 2;
+    const long long blen = len - 2;
+    long long after = pos + len;
+    if (marker == 0xC0 || marker == 0xC1) {
+      if (have_frame) return E_SECOND_FRAME;
+      const int rc = parse_frame(body, blen, fr, info);
+      if (rc) return rc;
+      have_frame = true;
+      s.coef.assign(fr.offset.back(), 0);
+    } else if (marker == 0xC4) {  // DHT
+      long long i = 0;
+      while (i < blen) {
+        const int tc_th = body[i];
+        const long long nc = blen - i - 1 < 16 ? (blen - i - 1 > 0 ? blen - i - 1 : 0) : 16;
+        long long sum = 0;
+        for (long long k = 0; k < nc; ++k) sum += body[i + 1 + k];
+        if (nc < 16 || i + 17 + sum > blen || (tc_th >> 4) > 1) return E_BAD_DHT;
+        HuffTable& t = (tc_th >> 4) ? ac_tabs[tc_th & 15] : dc_tabs[tc_th & 15];
+        t.defined = true;
+        std::memcpy(t.counts, body + i + 1, 16);
+        t.symbols.assign(body + i + 17, body + i + 17 + sum);
+        i += 17 + sum;
+      }
+    } else if (marker == 0xDB) {  // DQT
+      long long i = 0;
+      while (i < blen) {
+        const int pq = body[i] >> 4, tq = body[i] & 15;
+        const long long size = pq ? 128 : 64;
+        if (i + 1 + size > blen) return E_BAD_DQT;
+        std::vector<int64_t> q(64);
+        for (int k = 0; k < 64; ++k) {
+          const int z = kUnzigzag[k];
+          q[k] = pq ? be16(body + i + 1 + 2 * z) : body[i + 1 + z];
+        }
+        qt[tq] = std::move(q);
+        qt_def[tq] = true;
+        i += 1 + size;
+      }
+    } else if (marker == 0xDD) {  // DRI
+      restart = blen >= 2 ? be16(body) : (blen == 1 ? body[0] : 0);
+    } else if (marker == 0xDC) {
+      return E_DNL;
+    } else if (marker == 0xE0 && blen >= 14 && std::memcmp(body, "JFIF\0", 5) == 0) {
+      jfif = true;
+    } else if (marker == 0xEE && blen >= 12 && std::memcmp(body, "Adobe", 5) == 0) {
+      adobe = body[11];
+    } else if (marker == 0xDA) {  // SOS
+      if (!have_frame) return E_SCAN_NO_FRAME;
+      const int rc = decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs, ac_tabs,
+                                 restart, s, &after, info);
+      if (rc) return rc;
+    }
+    pos = after;
+  }
+  if (!have_frame) return E_NO_SCAN;
+  for (int c = 0; c < fr.n; ++c)
+    if (!fr.scanned[c]) return E_NO_SCAN;
+
+  info[0] = fr.height;
+  info[1] = fr.width;
+  const long long npx = static_cast<long long>(fr.height) * fr.width;
+  if (out == nullptr || out_bytes != 3 * npx) return E_OUT_SIZE;
+  // each component upsampled into its channel of the output (a grayscale
+  // plane into all three), then the colour conversion in place
+  for (int c = 0; c < fr.n; ++c) {
+    s.plane.resize(static_cast<size_t>(fr.bh[c]) * fr.bw[c] * 64);
+    idct_plane(s.coef.data() + fr.offset[c], fr.quant[c].data(), fr.bh[c], fr.bw[c],
+               s.plane.data());
+    const int fh = fr.hmax / fr.h[c], fv = fr.vmax / fr.v[c];
+    upsample(s.plane.data(), static_cast<long long>(fr.bw[c]) * 8, fr.dh(c), fr.dw(c), fh, fv,
+             fr.height, fr.width, out + c, 3);
+  }
+  if (fr.n == 1) {
+    for (long long i = 0; i < npx; ++i) out[3 * i + 1] = out[3 * i + 2] = out[3 * i];
+    return 0;
+  }
+  // jdapimin.c default_decompress_parms: JFIF means YCbCr, else Adobe's
+  // transform (0: RGB), else the component ids ('R', 'G', 'B': RGB)
+  const bool rgb = (!jfif && adobe == 0) ||
+                   (!jfif && adobe < 0 && fr.ids[0] == 82 && fr.ids[1] == 71 && fr.ids[2] == 66);
+  if (!rgb) ycc_rgb(out, npx);
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// utils/jpeg.py:_decode_interval over one restart interval's unstuffed
+// bytes `data` (n_bytes, a multiple of 4, zero-padded past the interval,
+// read as big-endian 32-bit words). blocks[i] is the block number, comps[i]
+// its component's index in the scan; dc_luts[c] ([65536][2]) and
+// ac_luts[c] ([65536][3]) are utils/jpeg.py:_lut_rows' tables. Each non-zero
+// AC coefficient goes to out_ac as block << 23 | zigzag position << 16 |
+// value & 0xFFFF (*n_ac of them, at most 63 a block), each DC value (the
+// predictor's running sum from 0) to out_dc[i]. -> the bits used; -1 where
+// the decode reads past the words, -2 at an invalid Huffman code.
+long long l2i_jpeg_decode_interval(const uint8_t* data, long long n_bytes,
+                                   const long long* blocks, const int* comps,
+                                   long long n_blocks, const int* const* dc_luts,
+                                   const int* const* ac_luts, long long* out_ac,
+                                   long long* n_ac, long long* out_dc) {
+  int n_comps = 0;
+  for (long long i = 0; i < n_blocks; ++i) n_comps = comps[i] + 1 > n_comps ? comps[i] + 1 : n_comps;
+  std::vector<int64_t> preds(n_comps);
+  return decode_interval(data, n_bytes, blocks, comps, n_blocks, dc_luts, ac_luts, out_ac, n_ac,
+                         out_dc, preds.data());
+}
+
+// The height and width of the first frame header (SOF0/SOF1) -> 0, or -1
+// where the markers before it do not lead to one.
+int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
+  if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return -1;
+  long long pos = 2;
+  while (pos < n) {
+    const void* f = std::memchr(data + pos, 0xFF, n - pos);
+    if (!f) return -1;
+    pos = static_cast<const uint8_t*>(f) - data + 1;
+    while (pos < n && data[pos] == 0xFF) ++pos;
+    if (pos + 2 >= n) return -1;
+    const int marker = data[pos++];
+    if (marker == 0x00 || marker == 0x01 || marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7))
+      continue;
+    const long long len = be16(data + pos);
+    if (len < 2 || pos + len > n) return -1;
+    if (marker == 0xC0 || marker == 0xC1) {
+      if (len < 7) return -1;
+      hw[0] = be16(data + pos + 3);
+      hw[1] = be16(data + pos + 5);
+      return 0;
+    }
+    if (marker == 0xDA || marker == 0xD9) return -1;
+    pos += len;
+  }
+  return -1;
+}
+
+// utils/jpeg.py:jpeg_decode_rgb: baseline JPEG bytes -> out, uint8
+// [height][width][3] (out_bytes = 3 height width). -> 0, or an error code
+// (info[0] its value where the message names one); E_OUT_SIZE with
+// info = (height, width) when out does not fit the decoded frame.
+int l2i_jpeg_decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
+                    long long* info) {
+  try {
+    return decode(data, n, out, out_bytes, info);
+  } catch (const std::bad_alloc&) {
+    return E_NOMEM;
+  }
+}
+
+}  // extern "C"

@@ -9,6 +9,7 @@ ROADMAP item 26."""
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import struct
@@ -171,19 +172,20 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(vals[..., :3])
 
 
-def read_image_rgb(path: str) -> np.ndarray:
+def read_image_rgb(path: str, native: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
     .convert("RGB")`` gives it: PNG (``png_decode_rgb``) and baseline JPEG
-    (``jpeg_decode_rgb``), told apart by their signatures. What the JPEG
-    decoder does not read (progressive, arithmetic-coded, CMYK) and WEBP
-    raise ValueError naming the file and ROADMAP item 26."""
+    (``jpeg_decode_rgb``, through its C entry where ``native``), told
+    apart by their signatures. What the JPEG decoder does not read
+    (progressive, arithmetic-coded, CMYK) and WEBP raise ValueError naming
+    the file and ROADMAP item 26."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:
         return png_decode_rgb(data)
     if data[:3] == b"\xff\xd8\xff":
         try:
-            return jpeg_decode_rgb(data)
+            return jpeg_decode_rgb(data, native=native)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from e
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
@@ -241,6 +243,7 @@ _PIL_FILTERS = {"bilinear": (_pil_bilinear, 1.0), "bicubic": (_pil_bicubic, 2.0)
                 "lanczos": (_pil_lanczos, 3.0)}
 
 
+@functools.lru_cache(maxsize=32)
 def _pil_coeffs(in_size: int, out_size: int, filt: str = "bicubic"):
     """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis ->
     (first input index [out, k], fixed-point coefficients [out, k] int64);
@@ -268,7 +271,9 @@ def _pil_coeffs(in_size: int, out_size: int, filt: str = "bicubic"):
         idx[xx, :xmax] = np.arange(xmax) + xmin
     one = float(1 << _PIL_PRECISION_BITS)
     fixed = np.where(kk < 0, np.trunc(-0.5 + kk * one), np.trunc(0.5 + kk * one))
-    return idx, fixed.astype(np.int64)
+    fixed = fixed.astype(np.int64)
+    idx.flags.writeable = fixed.flags.writeable = False  # cached: shared
+    return idx, fixed
 
 
 def _pil_pass(img: np.ndarray, axis: int, out_size: int, filt: str) -> np.ndarray:
@@ -283,7 +288,39 @@ def _pil_pass(img: np.ndarray, axis: int, out_size: int, filt: str) -> np.ndarra
     return np.moveaxis(out, 0, axis)
 
 
-def _pil_resize(img_u8, size, filt: str) -> np.ndarray:
+def _pil_resize_c(img, size, filt: str) -> np.ndarray:
+    """``_pil_resize`` in one call of the host C++ ``l2i_resize``
+    (ops/csrc/resample.cpp, built with the kernels; a failed build raises),
+    reading a crop in place (its rows may be strided)."""
+    from ..ops import _build
+
+    w, h = size
+    img = np.asarray(img, np.uint8)
+    if img.shape[:2] == (h, w):
+        return img  # no pass, as _pil_resize
+    if img.strides[1:] != (img.shape[2], 1):
+        img = np.ascontiguousarray(img)
+    ih, iw, c = img.shape
+    tw = _pil_coeffs(iw, w, filt) if iw != w else (None, None)
+    th = _pil_coeffs(ih, h, filt) if ih != h else (None, None)
+    out = np.empty((h, w, c), np.uint8)
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data
+
+    rc = _build.library().l2i_resize(
+        img.ctypes.data, img.strides[0], ih, iw, c, ptr(tw[0]), ptr(tw[1]),
+        0 if tw[0] is None else tw[0].shape[1], w, ptr(th[0]), ptr(th[1]),
+        0 if th[0] is None else th[0].shape[1], h, _PIL_PRECISION_BITS, out.ctypes.data)
+    if rc != 0:
+        raise MemoryError("l2i_resize: out of memory")
+    return out
+
+
+def _pil_resize(img_u8, size, filt: str, native: bool = False) -> np.ndarray:
+    """native: ``_pil_resize_c``, the same bit for bit."""
+    if native:
+        return _pil_resize_c(img_u8, size, filt)
     w, h = size
     img = np.asarray(img_u8, np.uint8)
     if img.shape[1] != w:
@@ -308,17 +345,18 @@ def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return _pil_resize(img_u8, size, "lanczos")
 
 
-def load_and_resize_image(path: str, size: int = 256) -> np.ndarray:
+def load_and_resize_image(path: str, size: int = 256, native: bool = False) -> np.ndarray:
     """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG, JPEG),
     the centre square crop, then Pillow's BILINEAR resample (``_pil_resize``
     with a triangle on support 1), as the JAX package's
     utils/image.py:load_and_resize_image computes it without its native
-    extension (the reference's load_and_resize_imagenet_image)."""
-    im = read_image_rgb(path)
+    extension (the reference's load_and_resize_imagenet_image). native: as
+    ``read_image_rgb``'s."""
+    im = read_image_rgb(path, native)
     h, w = im.shape[:2]
     dim = min(w, h)
     top, left = (h - dim) // 2, (w - dim) // 2
-    return _pil_resize(im[top:top + dim, left:left + dim], (size, size), "bilinear")
+    return _pil_resize(im[top:top + dim, left:left + dim], (size, size), "bilinear", native)
 
 
 def to_uint8(ims) -> np.ndarray:

@@ -2,7 +2,10 @@
 decodes it (``PIL.Image.open(p).convert("RGB")`` with libjpeg-turbo's
 defaults), bit for bit: the GPU machine has no Pillow.
 
-    jpeg_decode_rgb(data: bytes) -> uint8 [H, W, 3]
+    jpeg_decode_rgb(data: bytes, native: bool = False) -> uint8 [H, W, 3]
+
+``native=True`` runs the same decode, bit for bit and with the same
+errors, in the host C++ of ops/csrc/jpeg_huffman.cpp (the card's loaders).
 
 What it reads: SOF0 and SOF1 frames at 8-bit precision with one component
 (grayscale, repeated into three channels as ``convert("RGB")`` does) or
@@ -83,12 +86,21 @@ def _extend(bits, size):
 
 @functools.lru_cache(maxsize=64)
 def _lut(counts: bytes, symbols: bytes, dc: bool) -> list:
-    """The lookup table of one Huffman table for every 16-bit window:
+    """``_lut_rows`` as a list of tuples, what the Python loop indexes."""
+    return list(map(tuple, _lut_rows(counts, symbols, dc).tolist()))
+
+
+@functools.lru_cache(maxsize=64)
+def _lut_rows(counts: bytes, symbols: bytes, dc: bool) -> np.ndarray:
+    """The lookup table of one Huffman table for every 16-bit window, as
+    int32 rows [65536, 2] (DC) or [65536, 3] (AC):
     DC: (n, v): n > 0 bits consumed for code and value bits, v the value;
     n < 0: -n code bits, then v value bits to read. AC: (n, run, v): n > 0
     consumed, v the value's low 16 bits (0 for ZRL, run 15), run -1 for end
     of block; n < 0: -n code bits, then v value bits. AC runs are in units of
     2^16 (the decoder's packed position). n == 0: no code."""
+    if dc and any(s > 15 for s in symbols[:sum(counts)]):
+        raise _corrupt("bad Huffman table")  # jdhuff.c: a DC size past 15
     length = np.zeros(1 << 16, np.int64)
     symbol = np.zeros(1 << 16, np.int64)
     code, i = 0, 0
@@ -109,11 +121,14 @@ def _lut(counts: bytes, symbols: bytes, dc: bool) -> list:
     value = np.where(size > 0, value, 0)
     n = np.where(length == 0, 0, np.where(fits, length + size, -length))
     if dc:
-        return list(zip(n.tolist(), np.where(fits, value, size).tolist()))
-    run = symbol >> 4
-    run = np.where(size == 0, np.where(run == 15, 15, -1), run) << 16
-    return list(zip(n.tolist(), run.tolist(),
-                    np.where(fits, value & 0xFFFF, size).tolist()))
+        rows = [n, np.where(fits, value, size)]
+    else:
+        run = symbol >> 4
+        run = np.where(size == 0, np.where(run == 15, 15, -1), run) << 16
+        rows = [n, run, np.where(fits, value & 0xFFFF, size)]
+    out = np.ascontiguousarray(np.stack(rows, -1).astype(np.int32))
+    out.flags.writeable = False  # shared by every decode (and thread)
+    return out
 
 
 def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc) -> int:
@@ -422,12 +437,21 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
     return end
 
 
-def jpeg_decode_rgb(data: bytes) -> np.ndarray:
+def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
     """Baseline JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (libjpeg-turbo: ISLOW IDCT, fancy
     upsampling). Raises ValueError on what it does not read (see the
-    module docstring), naming ROADMAP item 26."""
+    module docstring), naming ROADMAP item 26.
+
+    native: the whole decode in one call of the host C++
+    ``l2i_jpeg_decode`` (ops/csrc/jpeg_huffman.cpp, built with the kernels at
+    first use; a failed build raises), the same function bit for bit with
+    the same errors; the Python and numpy version of this module runs
+    otherwise, and stays the plain version the tests hold it to. The card's
+    entry points ask for it."""
     data = bytes(data)
+    if native:
+        return _decode_c(data)
     if data[:2] != b"\xff\xd8":
         raise _corrupt("not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
@@ -516,3 +540,61 @@ def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
     if rgb:
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+# the C entry's error codes (jpeg_huffman.cpp) -> the Python version's errors
+_C_ERRORS = {
+    -10: lambda v: _corrupt("not a JPEG file (no SOI marker)"),
+    -11: lambda v: _refuse(_SOF_REFUSED[v]),
+    -12: lambda v: _refuse("arithmetic-coded (DAC)"),
+    -13: lambda v: _corrupt("truncated data (a marker segment runs past the end)"),
+    -14: lambda v: _corrupt("a second frame"),
+    -15: lambda v: _corrupt("short SOF segment"),
+    -16: lambda v: _refuse(f"{v}-bit"),
+    -17: lambda v: _refuse("4-component (CMYK/YCCK)"),
+    -18: lambda v: _refuse(f"{v}-component"),
+    -19: lambda v: _refuse("DNL-height"),
+    -20: lambda v: _corrupt("bad SOF segment"),
+    -21: lambda v: _corrupt("bad sampling factors"),
+    -22: lambda v: _refuse("fractional-sampling"),
+    -23: lambda v: _corrupt("bad DHT segment"),
+    -24: lambda v: _corrupt("bad DQT segment"),
+    -25: lambda v: _corrupt("scan before the frame header"),
+    -26: lambda v: _corrupt("bad SOS segment"),
+    -27: lambda v: _corrupt(f"scan names component {v}, not in the frame"),
+    -28: lambda v: _corrupt("scan uses an undefined Huffman table"),
+    -29: lambda v: _corrupt("component uses an undefined quantization table"),
+    -30: lambda v: _corrupt("bad Huffman table"),
+    -31: lambda v: _refuse("progressive (a spectral-selection scan)"),
+    -32: lambda v: _corrupt("truncated data (fewer restart intervals than the image needs)"),
+    -33: lambda v: _corrupt("invalid Huffman code (corrupt data)"),
+    -34: lambda v: _corrupt("truncated data (the scan ends before its last block)"),
+    -35: lambda v: _corrupt("coefficient past the end of a block (corrupt data)"),
+    -36: lambda v: _corrupt("truncated data (no scan for every component)"),
+    -38: lambda v: MemoryError("jpeg: out of memory"),
+}
+_OUT_SIZE = -37
+
+
+def _decode_c(data: bytes) -> np.ndarray:
+    """``jpeg_decode_rgb`` through the C entry ``l2i_jpeg_decode``, into an
+    array sized by ``l2i_jpeg_dims`` (again by the decode's own frame where
+    the two disagree, which takes a second call)."""
+    import ctypes
+
+    from ..ops import _build
+
+    lib = _build.library()
+    hw = (ctypes.c_int * 2)()
+    info = (ctypes.c_longlong * 2)()
+    shape = (hw[0], hw[1], 3) if lib.l2i_jpeg_dims(data, len(data), hw) == 0 else (0, 0, 3)
+    for _ in range(2):
+        out = np.empty(shape, np.uint8)
+        rc = lib.l2i_jpeg_decode(data, len(data), out.ctypes.data if out.size else None,
+                                 out.size, info)
+        if rc == 0:
+            return out
+        if rc != _OUT_SIZE:
+            raise _C_ERRORS[rc](int(info[0]))
+        shape = (int(info[0]), int(info[1]), 3)
+    raise RuntimeError(f"l2i_jpeg_decode: no room for a {shape} frame after a second call")

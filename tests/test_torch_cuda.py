@@ -22,9 +22,15 @@ and upfirdn2d forward and backward 2^-8 (both sum in f32 and round once:
 one bf16 ulp where the f32 sums differ), the styled conv 2^-7 (A = bf16(x *
 s) and the bf16 weight on the tensor cores, f32 accumulation in another
 order than cuDNN's f32 convolution of the plain version, then one rounding).
+
+The regressor trainer's host C++ built with the kernels (the JPEG decode
+and the resize, ops/csrc/*.cpp) equals the Python versions bit for bit on
+every fixture of tests/fixtures/torch_jpeg/, and one train-mode ResNet-50
+step on the card matches the CPU's (chip_smoke.py phase 39's gates).
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -832,3 +838,58 @@ def test_tiny_bf16_editor_on_the_card_matches_the_cpu_in_bf16_launches(dev):
             assert every["fused_act"] - bf["fused_act"] == 2  # the 2-layer style MLP, f32
     for g, c in zip(*outs):
         assert np.linalg.norm(g - c) <= 2e-2 * np.linalg.norm(c)
+
+
+# ---------------------------------------------------------------------------
+# the regressor trainer's host C++ and its train-mode step
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_jpeg")
+
+
+def test_the_c_decode_and_resize_equal_python_on_every_fixture(dev):
+    """The host C++ built with the kernels (nvcc) against the Python and
+    numpy versions, bit for bit: decode, and decode + crop + resize."""
+    import glob
+
+    from latent2im_tpu_torch.utils import image as im
+    from latent2im_tpu_torch.utils import jpeg
+
+    paths = sorted(glob.glob(os.path.join(JPEG_DIR, "*.jpg")))
+    assert len(paths) == 5
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        got, want = jpeg.jpeg_decode_rgb(data, native=True), jpeg.jpeg_decode_rgb(data)
+        assert got.shape == want.shape and np.array_equal(got, want), path
+        for size in (64, 256):
+            assert np.array_equal(im.load_and_resize_image(path, size, native=True),
+                                  im.load_and_resize_image(path, size)), (path, size)
+
+
+def test_a_train_mode_resnet50_step_on_the_card_matches_the_cpu(dev):
+    """One cli/train_regressor.py step (train-mode BN, Adam 1e-4) at 64 px,
+    B=4 from the same seeded state: the loss and the running statistics
+    within 1e-4 (relative, relative L2), the parameters within 2 lr per
+    element (Adam's first move is sign-like where the gradient is ~0)."""
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.models.resnet import ResNet50
+
+    lr = 1e-4
+    cpu = ResNet50(40, generator=torch.Generator().manual_seed(0))
+    card = ResNet50(40).to(dev, memory_format=torch.channels_last)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    u8 = rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)
+    y = rng.uniform(0, 1, (4, 40)).astype(np.float32)
+    want = float(tr.make_steps(cpu, lr)[1](tr.normalize(u8, "cpu"), torch.from_numpy(y)))
+    got = float(tr.make_steps(card, lr)[1](tr.normalize(u8, dev), torch.from_numpy(y).to(dev)))
+    assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+    for k, w in cpu.state_dict().items():
+        g = card.state_dict()[k].cpu()
+        if k.endswith("num_batches_tracked"):
+            assert int(g) == int(w) == 1
+        elif k.endswith(("running_mean", "running_var")):
+            assert float((g - w).norm() / w.norm()) <= 1e-4, k
+        else:
+            assert float((g - w).abs().max()) <= 2 * lr * (1 + 1e-3) + 1e-6, k

@@ -10,8 +10,8 @@
 - A CPU tensor through each kernel wrapper runs the plain version and leaves
   the launch count at 0; a tensor on a device that is neither cpu nor cuda is
   refused.
-- The kernel build is one nvcc compile for sm_90a per .cu source, then one
-  link.
+- The kernel build is one nvcc compile for sm_90a per source (the .cu
+  kernels and the loaders' host .cpp), then one link.
 """
 
 import ast
@@ -152,13 +152,14 @@ def test_other_devices_are_refused():
 
 def test_kernel_build_is_one_nvcc_compile_per_source_then_one_link(monkeypatch):
     """One nvcc call per source for sm_90a, all run together, then one link
-    call."""
+    call. The host C++ of the image loaders builds the same way."""
     monkeypatch.setattr(_build, "nvcc", lambda: "/opt/cuda/bin/nvcc")
     compiles, link = _build.build_commands("out.so")
-    srcs = [c for cmd in compiles for c in cmd if c.endswith(".cu")]
+    srcs = [c for cmd in compiles for c in cmd if c.endswith((".cu", ".cpp"))]
     assert len(srcs) == len(compiles)  # one nvcc call per source, run together
     assert {os.path.basename(s) for s in srcs} >= {
-        "fused_act.cu", "upfirdn2d.cu", "styled_conv3x3.cu"}
+        "fused_act.cu", "upfirdn2d.cu", "styled_conv3x3.cu", "jpeg_huffman.cpp",
+        "resample.cpp"}
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
