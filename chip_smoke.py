@@ -12,9 +12,10 @@ inversion and the bp CLI (17-19), the mlp_w/nn_w walks (20), the joint
 GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
 backends (25-28), the geometric and color walks with the dsprites
 sliders, LPIPS and parity_check (29-32), bf16 compute, --bf16, with the
-kernels' bf16 instances (33-37), and JPEG input (38). Phases (a failed
-phase raises, and
-the script exits non-zero):
+kernels' bf16 instances (33-37), JPEG input (38), the regressor
+trainer, its loader, StyleGAN1 and compat (39-42), and data and spatial
+parallelism over torch.distributed (43-46). Phases (a failed phase
+raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -39,8 +40,8 @@ the script exits non-zero):
      set to 0 just before, must equal TRAIN_STEPS times the per-step counts
      of all five kernels; losses finite, the walk moved;
   8. one training step under torch.profiler, as phase 5;
-  9. one training step (B=2, same weights, stored noise, host alphas) on
-     cuda and on cpu must agree in loss and walk gradient;
+  9. one training step (128 px, F64_SIZE, B=2, same weights, stored noise,
+     host alphas) on cuda and on cpu must agree in loss and walk gradient;
  10. the CLIs (chiprun_out/cli/): cli.train.run (Smiling, B=4, 8 samples,
      2 epochs) with a SIGTERM after its second step, then --resume to the
      final checkpoint, whose walk, and the last epoch's Adam state, must
@@ -78,7 +79,7 @@ the script exits non-zero):
      whitened and --ref_parity, two processes: eval_report.json's keys,
      identity_is_relative_only, finite numbers in the non-empty buckets;
  16. second derivatives: the gradient wrt D's parameters of the WGAN-GP
-     gradient penalty (256 px, full width, B=4), which differentiates the
+     gradient penalty (128 px, full width, B=4), which differentiates the
      backward kernels of fused_act and upfirdn2d, on the card against f64
      on the CPU per parameter (phase 9's form of bound);
  17. W+ inversion (engine/inversion.py) at 256 px, B=4, Adam, 20 loops, of
@@ -193,7 +194,29 @@ the script exits non-zero):
  42. StyleGAN1 (models/stylegan1.py) at full width, step 5 (128 px, B=2,
      with mixing and truncation) and step 8 (1024 px, B=1), card against
      CPU within 1e-4 relative L2; the compat.py call sequence on the card
-     (launches counted as path "compat"), its edit equal to apply_alpha's.
+     (launches counted as path "compat"), its edit equal to apply_alpha's;
+ 43. the kernels at the row-shard shapes of two spatial ranks at 256 and
+     1024 px, B=1 (the blur on halo-extended rows with y pads cropping, the
+     skip upsample likewise, fused_act, the styled conv on x with its halo
+     rows, the backwards), f32 and bf16, held to their plain versions at the
+     gates of phases 3 and 33, the f32 calls timed beside their bounds;
+ 44. spatial partitioning: two ranks sharing the card over gloo (the
+     launcher of parallel/launch.py; the all_gathers and halo swaps of
+     CUDA tensors through host copies), StyleGAN2 at 1024 px, B=1, the
+     towers and walk replicated
+     from rank 0: apply_alpha and a sweep within 1e-5 relative L2 of the
+     one-process run on the card, one training step's loss terms within
+     2e-4 and walk gradient by phase 9's rule against the same step in f64
+     on the card (within max(1e-3, 1.5 x the one-process f32 gradient's
+     distance), the f32 noise of a full-width step); ms per edit and step
+     by rank and one process, rank 0's collectives per step (ms, calls,
+     halo and gather bytes), launches summed over the ranks (path "sp");
+     which gloo collectives take CUDA tensors in this build;
+ 45. data parallelism: the same two ranks at 256 px, 2 samples each,
+     against one process at B=4 under the same gates (path "dp");
+ 46. a one-rank NCCL group running the dp path against the same one-process
+     run (path "dp_nccl"). Two ranks on one card measure overhead, not
+     speedup; the NCCL path across cards is not run on one card.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 1024 px training step under cuDNN's default and deterministic algorithms.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -223,6 +246,9 @@ import zlib
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE, BATCH, PANELS = 256, 4, 5
 TRAIN_STEPS, TRAIN_WARMUP, CMP_BATCH = 10, 2, 2
+# the resolution of the f64 CPU references of phases 9 and 16: 128 px, a
+# block less deep than SIZE, which takes each from ~50 s to a quarter
+F64_SIZE = 128
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 on the CUDA cores,
 # TF32 on the tensor cores (3xTF32 issues three TF32 products per f32 one)
 HBM_BYTES_PER_S = 3.35e12
@@ -398,8 +424,9 @@ def main_path_shapes(size=SIZE, b=BATCH, mlp: bool = True):
 
 
 def _upfirdn_library(x_nhwc, k, up, down, pads):
-    """One depthwise cuDNN call computing upfirdn2d (up 1, or the x2
-    upsample with pad (2, 1) as a transposed conv)."""
+    """One depthwise cuDNN call computing upfirdn2d (up 1, negative pads
+    cropping; or the x2 upsample as a transposed conv, whose pads (2, 1)
+    output a row shard's pads (2 - 2r, 1 - 2r) crop)."""
     import torch
     import torch.nn.functional as F
 
@@ -410,9 +437,13 @@ def _upfirdn_library(x_nhwc, k, up, down, pads):
         px0, px1, py0, py1 = pads
         wf = torch.flip(k, (0, 1)).expand(c, 1, kh, kw)
         return lambda: F.conv2d(F.pad(x, (px0, px1, py0, py1)), wf, stride=down, groups=c)
-    assert up == 2 and down == 1 and pads == (2, 1, 2, 1) and k.shape == (4, 4)
+    px0, px1, py0, py1 = pads
+    assert up == 2 and down == 1 and (px0, px1) == (2, 1) and k.shape == (4, 4)
+    assert py0 - py1 == 1 and 0 <= 2 - py0, pads
     ke = k.expand(c, 1, kh, kw)
-    return lambda: F.conv_transpose2d(x, ke, stride=2, padding=1, groups=c)
+    oh = 2 * x.shape[2] + py0 + py1 - 3
+    return lambda: F.conv_transpose2d(x, ke, stride=2, padding=1,
+                                      groups=c)[:, :, 2 - py0:2 - py0 + oh]
 
 
 def kernel_cases(name, case, gen, dev, dtype=None):
@@ -460,8 +491,9 @@ def kernel_cases(name, case, gen, dev, dtype=None):
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         bsz, h, w, c, up, pad, gain = case
         k = torch.as_tensor(ops.make_kernel([1, 3, 3, 1]), device=dev) * gain
-        pads = (pad[0], pad[1], pad[0], pad[1])
-        oh, ow = (out_size(n, up, 1, pad[0], pad[1], 4) for n in (h, w))
+        pads = tuple(pad) if len(pad) == 4 else (pad[0], pad[1], pad[0], pad[1])
+        pad = pads  # (px0, px1, py0, py1): a row shard's y pads differ
+        oh, ow = out_size(h, up, 1, pads[2], pads[3], 4), out_size(w, up, 1, pads[0], pads[1], 4)
         if name == "upfirdn2d":
             x = act(bsz, h, w, c)
             out_n = bsz * oh * ow * c
@@ -477,31 +509,31 @@ def kernel_cases(name, case, gen, dev, dtype=None):
                 lambda: ops.upfirdn2d_plain(g, kf, gup, gdown, gpads),
                 _upfirdn_library(g, kf.to(dtype), gup, gdown, gpads),
                 esz * (g.numel() + in_n) + 64, 2 * 16 * in_n, None, g)
-    bsz, h, cin, cout = case
-    x = act(bsz, h, h, cin)
+    bsz, h, wd, cin, cout = case if len(case) == 5 else (case[0], case[1]) + tuple(case[1:])
+    x = act(bsz, h, wd, cin)
     w = (randn(3, 3, cin, cout) / math.sqrt(9 * cin)).to(dtype)
     s = (1.0 + 0.2 * randn(bsz, cin)).to(dtype)
     d = torch.rsqrt(s.float().square() @ w.float().square().sum((0, 1)) + 1e-8).to(dtype)
-    noise, nw, bias = act(1, h, h), torch.full((1,), 0.3, device=dev), 0.1 * randn(cout)
+    noise, nw, bias = act(1, h, wd), torch.full((1,), 0.3, device=dev), 0.1 * randn(cout)
     x_nchw = x.permute(0, 3, 1, 2).contiguous()
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
 
     def library():  # the rosinality grouped-conv form, in x's dtype
         wt = (w_oihw[None].float() * s.float()[:, None, :, None, None]
               * d.float()[:, :, None, None, None]).to(dtype)
-        out = F.conv2d(x_nchw.reshape(1, bsz * cin, h, h),
+        out = F.conv2d(x_nchw.reshape(1, bsz * cin, h, wd),
                        wt.reshape(bsz * cout, cin, 3, 3), padding=1, groups=bsz)
-        out = (out.view(bsz, cout, h, h) + nw.to(dtype) * noise[:, None]
+        out = (out.view(bsz, cout, h, wd) + nw.to(dtype) * noise[:, None]
                + bias.to(dtype)[:, None, None])
         return F.leaky_relu(out, 0.2) * sqrt2
 
     args = (x, w, s, d, noise, nw, bias)
     nbytes = (esz * (x.numel() + w.numel() + s.numel() + d.numel() + noise.numel()
-                     + bsz * h * h * cout) + 4 * (1 + cout))
+                     + bsz * h * wd * cout) + 4 * (1 + cout))
     f64 = ((lambda: ops.styled_conv3x3_plain(*(a.double() for a in args)))
            if dtype == torch.float32 else None)
     return (lambda: ops.styled_conv3x3(*args), lambda: ops.styled_conv3x3_plain(*args),
-            library, nbytes, 2 * bsz * h * h * 9 * cin * cout, f64, x)
+            library, nbytes, 2 * bsz * h * wd * 9 * cin * cout, f64, x)
 
 
 def kernel_variant(name, case, inp, got):
@@ -512,8 +544,8 @@ def kernel_variant(name, case, inp, got):
     from latent2im_tpu_torch import ops
 
     if name == "styled_conv3x3":
-        bsz, h, cin, cout = case
-        plan = ops.styled_conv3x3_plan(bsz, h, h, cin, cout, inp.dtype)
+        bsz, h, w, cin, cout = case if len(case) == 5 else (case[0], case[1]) + tuple(case[1:])
+        plan = ops.styled_conv3x3_plan(bsz, h, w, cin, cout, inp.dtype)
         return {"form": "thin" if plan["tile"][1] < 128 else "tiled", **plan}
     if name in ("upfirdn2d", "upfirdn2d_bwd"):
         up = case[4]  # the gradient is the op with up and down swapped
@@ -1011,9 +1043,9 @@ def rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def train_cpu_phase(*flags, towers_term: bool = False):
-    """One step (B=2, stored noise, host alphas) from the same seed on cuda
-    and on cpu through make_train_step: loss terms within 1e-3. The walk
+def train_cpu_phase(*flags, towers_term: bool = False, size=F64_SIZE):
+    """One step (``size`` px, B=2, stored noise, host alphas) from the same
+    seed on cuda and on cpu through make_train_step: loss terms within 1e-3. The walk
     gradient of an f32 step at full width is fixed only to ~1e-3 (rounding
     flips LeakyReLU/ReLU kinks; cuDNN differs run to run), so the card's is
     held to an f64 reference on the CPU, at least as close as the CPU's
@@ -1033,7 +1065,7 @@ def train_cpu_phase(*flags, towers_term: bool = False):
     from latent2im_tpu_torch.tasks.transforms import get_task
     from latent2im_tpu_torch.walks import walk_leaves, walk_map
 
-    conf = train_conf("--fixed_noise", *flags)
+    conf = train_conf("--fixed_noise", *flags, size=size)
     z = np.random.RandomState(8).randn(CMP_BATCH, 512).astype(np.float32)
     sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
     res, out = {}, {}
@@ -1680,8 +1712,8 @@ def gp_grads(d, x_hat):
 
 
 def gp_phase(dev, enforce: bool = True):
-    """The gradient of the gradient penalty wrt D's parameters at 256 px,
-    full width, B=4 (seeded weights, biases off zero): on the card, and in
+    """The gradient of the gradient penalty wrt D's parameters at F64_SIZE
+    px, full width, B=4 (seeded weights, biases off zero): on the card, and in
     f32 on the CPU, each against f64 on the CPU, per parameter by relative
     L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
     form). enforce=False only reports, for a tree whose backward kernels
@@ -1695,13 +1727,14 @@ def gp_phase(dev, enforce: bool = True):
     from latent2im_tpu_torch.models.stylegan2 import Discriminator
 
     gen = torch.Generator().manual_seed(16)
-    d = Discriminator(SIZE, generator=gen)
+    d = Discriminator(F64_SIZE, generator=gen)
     with torch.no_grad():
         for name, p in d.named_parameters():
             if name.endswith("bias"):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
     rng = np.random.RandomState(16)
-    real, fake = (rng.randn(BATCH, SIZE, SIZE, 3).astype(np.float32) for _ in range(2))
+    real, fake = (rng.randn(BATCH, F64_SIZE, F64_SIZE, 3).astype(np.float32)
+                  for _ in range(2))
     eps = rng.uniform(size=(BATCH, 1, 1, 1)).astype(np.float32)
     x_hat = torch.from_numpy(eps * real + (1.0 - eps) * fake)
     d_card = copy.deepcopy(d).to(dev)
@@ -2008,7 +2041,8 @@ def walk_kinds_phase(results, dev):
         r["reference_class"] = meta["cls"]
         del ed, walk, back, back2
         torch.cuda.empty_cache()
-        r["cpu_vs_card"] = train_cpu_phase(*flags, towers_term=True)
+        # at SIZE: at F64_SIZE the card's own f32 spread (2.9e-3) reached the bound
+        r["cpu_vs_card"] = train_cpu_phase(*flags, towers_term=True, size=SIZE)
         torch.cuda.empty_cache()
         out[kind] = r
     return out
@@ -2019,7 +2053,7 @@ def late_phases(card, dev, results, cli):
     launch counts (gp, bp, bp_cli, bp_1024, walk_mlp_w, walk_nn_w)."""
     import torch
 
-    log(f"[16] the gradient penalty's gradient wrt D's parameters ({SIZE} px, B={BATCH}): "
+    log(f"[16] the gradient penalty's gradient wrt D's parameters ({F64_SIZE} px, B={BATCH}): "
         "second derivatives through the backward kernels, card against f64 on the CPU")
     gp = gp_phase(dev)
     log(f"    penalty {json.dumps(gp['gp'])}; worst group {json.dumps(gp['worst'])}; "
@@ -4391,6 +4425,411 @@ def regressor_phases(card, dev, gan, jp):
             "launches": {"compat": cp["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 43-46: data and spatial parallelism (latent2im_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+SP_SIZE, SP_BATCH, SP_PANELS = 1024, 1, 3  # sp: one sample at 1024 px over two ranks
+DP_SIZE, DP_BATCH = 256, 2  # dp: two per rank over two ranks, against one process at 4
+PAR_RANKS, PAR_TIMED = 2, 3
+EDIT_REL_L2 = 1e-5  # a rank-0 edit against the one-process edit on the card
+STEP_TERMS = ("loss", "reg_loss", "content_loss", "gan_loss")
+
+
+def shard_cases(size, b, n=PAR_RANKS, min_rows=8):
+    """The kernels' cases on one of n spatial ranks at ``size`` px, batch b:
+    each row-sharded block's (models/stylegan2.py:Generator._block_rows,
+    the halo widths of parallel/spatial.py; the default min_rows_per_device)
+    blur after the transposed conv on its halo-extended rows, the skip
+    upsample on the extended skip (y pads cropping), fused_act, the styled
+    conv on x with its halo rows, and the backwards of a training step."""
+    from latent2im_tpu_torch.models.stylegan2 import channel_table
+
+    ch, cases = channel_table(2), []
+    for i in range(3, int(math.log2(size)) + 1):
+        r = 2 ** i
+        h_in = r // 2
+        if not (r % n == 0 and r >= n * min_rows and h_in % n == 0):
+            continue
+        h, c = h_in // n, ch[r]
+        blur = (b, 2 * h + 5, r + 1, c, 1, (1, 1, -1, -1), 4.0)
+        skip = (b, h + 2, h_in, 3, 2, (2, 1, 0, -1), 4.0)
+        cases += [("upfirdn2d", blur), ("upfirdn2d", skip), ("fused_act", (b, 2 * h, r, c)),
+                  ("styled_conv3x3", (b, 2 * h + 2, r, c, c)), ("upfirdn2d_bwd", blur),
+                  ("upfirdn2d_bwd", skip), ("fused_act_bwd", (b, 2 * h, r, c))]
+    return cases
+
+
+def shard_kernel_phase(dev):
+    """Phase 43: the five kernels at the row-shard shapes of two ranks at
+    256 and 1024 px (B=1), in f32 and bf16, each held to its plain version
+    at the main path's gates (TOL, TOL_BF16); the f32 calls timed beside
+    their bounds; the form each took."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    details, worst = [], {}
+    for size in (SIZE, SIZE_HI):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tol, flops_of = (TOL_BF16, FLOPS_BF16) if bf16 else (TOL, FLOPS)
+            for name, case in shard_cases(size, SP_BATCH):
+                kern, plain, _, nbytes, flops, _, inp = kernel_cases(name, case, gen, dev, dtype)
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                err, scale = _max_err(got, want)
+                if got.dtype != want.dtype or not (math.isfinite(err) and err <= tol[name] * scale):
+                    raise AssertionError(
+                        f"{name} {case} {dtype}: max abs err {err:.3e} > {tol[name]} * "
+                        f"max|ref| {scale:.3e}")
+                key = f"{name}[bf16]" if bf16 else name
+                worst[key] = max(worst.get(key, 0.0), err / scale)
+                if name == "styled_conv3x3":
+                    form = ops.styled_conv3x3_plan(*case, dtype)
+                elif name.startswith("upfirdn2d"):
+                    up = case[4]
+                    form = ops.upfirdn2d_form(inp, got, (4, 4),
+                                              *((up, 1) if name == "upfirdn2d" else (1, up)))
+                else:
+                    form = None
+                row = {"kernel": name, "size": size, "dtype": str(dtype), "case": repr(case),
+                       "form": form, "max_abs_err": err, "max_abs_ref": scale}
+                if not bf16:
+                    b_ms, by = bound_ms(nbytes, flops, flops_of.get(name, F32_FLOPS))
+                    row.update(ms=time_ms(kern, warmup=2, iters=5), bound_ms=b_ms, bound_by=by)
+                details.append(row)
+                del kern, plain, inp, got, want
+    torch.cuda.empty_cache()
+    f32 = [r for r in details if "ms" in r]
+    log(f"    {len(details)} shard cases held; worst error / max|ref| by kernel "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; f32 kernel "
+        f"{sum(r['ms'] for r in f32):.3f} ms over the cases against bound "
+        f"{sum(r['bound_ms'] for r in f32):.3f} ms")
+    return {"worst_err_over_ref": worst, "cases": len(details), "details": details}
+
+
+def _par_editor(size, batch, dev):
+    """train_conf's seeded full-width editor at ``size`` px (the stored
+    noise maps, so that an f64 step can repeat its noise), G's noise weights
+    NOISE_WEIGHT -> (editor, walk)."""
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+
+    ed, walk, _ = build_editor_from_options(train_conf("--fixed_noise", size=size, batch=batch),
+                                            device=dev)
+    with torch.no_grad():
+        for name, p in ed.g.named_parameters():
+            if name.endswith("noise.weight"):
+                p.fill_(NOISE_WEIGHT)
+    return ed, walk
+
+
+def _par_inputs(ed, batch):
+    """(z, host alphas, apply_alpha's targets, the sweep's panels)."""
+    import numpy as np
+
+    rng = np.random.RandomState(44)
+    z = rng.randn(batch, ed.cfg.dim_z).astype(np.float32)
+    sampled = rng.uniform(0, 1, (batch, 1)).astype(np.float32)
+    panels = np.stack([np.full((batch, 1), a, np.float32)
+                       for a in np.linspace(0.0, 1.0, SP_PANELS)])
+    return z, sampled, np.full((batch,), 0.7, np.float32), panels
+
+
+def par_run(ed, walk, size, batch, mesh=None, sp=None):
+    """One apply_alpha, one sweep (SP_PANELS panels) and one training step
+    (host alphas, the stored noise) of the global batch ``batch``, on
+    ``mesh`` (None: one process) inside ``sp``, counted; then PAR_TIMED
+    timed edits and steps (host clock to a synchronise), and one edit and
+    one step more with the collectives timed (``mesh.stats``)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.parallel import mesh as M
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves
+
+    z, sampled, alphas, panels = _par_inputs(ed, batch)
+    med = ed if mesh is None else M.MeshEditor(ed, mesh)
+    for t in walk_leaves(walk):
+        t.requires_grad_(True)
+    step = make_train_step(ed, get_task("face"), make_optimizer(walk, 1e-4),
+                           host_alpha=True, mesh=mesh)
+    gen = torch.Generator(device=ed.device)
+
+    def edit():
+        return med.apply_alpha(walk, z, alphas)
+
+    def train():
+        gen.manual_seed(45)
+        return step(walk, z, generator=gen, sampled=sampled)
+
+    def host_ms(fn):
+        times = []
+        for _ in range(PAR_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    out = {}
+    with sp or contextlib.nullcontext():
+        edit()  # warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        edited, alpha_org, _ = edit()
+        imgs = med.sweep(walk, z, panels)[0]
+        m = train()
+        torch.cuda.synchronize()
+        out["launches"] = ops.launch_counts()
+        out.update(edited=edited.cpu().numpy(), sweep=imgs.cpu().numpy(),
+                   alpha_org=alpha_org.cpu().numpy(),
+                   terms={k: float(m[k]) for k in STEP_TERMS},
+                   grad=np.concatenate([p.grad.detach().cpu().numpy().astype(np.float64).ravel()
+                                        for p in walk_leaves(walk)]))
+        out["edit_ms"], out["step_ms"] = host_ms(edit), host_ms(train)
+        if mesh is not None:
+            plan = sp.plan if sp is not None else None
+            for name, fn in (("edit", edit), ("step", train)):
+                mesh.stats = {"seconds": 0.0, "bytes": 0, "calls": 0}
+                if plan is not None:
+                    plan.halo_bytes = plan.gather_bytes = 0
+                fn()
+                out[f"{name}_collectives"] = {
+                    "ms": mesh.stats["seconds"] * 1e3, "calls": mesh.stats["calls"],
+                    "bytes_sent": mesh.stats["bytes"],
+                    "halo_bytes": plan.halo_bytes if plan else 0,
+                    "gather_bytes": plan.gather_bytes if plan else 0}
+                mesh.stats = None
+    return out
+
+
+def _gloo_cuda_probe(world):
+    """Which gloo collectives take CUDA tensors in this PyTorch build
+    (parallel/mesh.py passes them to all_reduce, broadcast and all_gather,
+    and copies through the host for the halo swaps' send and recv).
+    Each is refused, if it is, on every rank alike before it communicates."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    calls = (("all_reduce", lambda: dist.all_reduce(t)),
+             ("broadcast", lambda: dist.broadcast(t, 0)),
+             ("all_gather", lambda: dist.all_gather([torch.empty_like(t)] * world, t)))
+    out = {}
+    for name, fn in calls:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = True
+        except RuntimeError as e:  # the capability asked about: recorded, not masked
+            out[name] = str(e).splitlines()[0][:120]
+        dist.barrier()
+    return out
+
+
+def _parallel_rank():
+    """One of PAR_RANKS ranks sharing the card over gloo: the sp path (1 x 2
+    mesh, 1024 px, B=1, the towers and walk replicated from rank 0), then
+    the dp path (2 x 1 mesh, 256 px, global batch 2 x DP_BATCH) -> every
+    rank's numbers, gathered (the images from rank 0 only)."""
+    import torch
+    import torch.distributed as dist
+
+    from latent2im_tpu_torch.device import resolve_device
+    from latent2im_tpu_torch.parallel import mesh as M
+    from latent2im_tpu_torch.parallel import spatial as S
+
+    dev = resolve_device("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "backend": dist.get_backend(), "gloo_cuda": _gloo_cuda_probe(world)}
+    mesh = S.make_mesh_spatial(PAR_RANKS, 1)
+    ed, walk = _par_editor(SP_SIZE, SP_BATCH, dev)
+    _, walk = M.replicate_editor(ed, walk, mesh)
+    out["sp"] = par_run(ed, walk, SP_SIZE, SP_BATCH, mesh, S.spatial_partitioning(mesh))
+    out["sp"]["transport"] = mesh.transport
+    del ed, walk
+    torch.cuda.empty_cache()
+    mesh = M.make_mesh(PAR_RANKS)
+    ed, walk = _par_editor(DP_SIZE, DP_BATCH * PAR_RANKS, dev)
+    _, walk = M.replicate_editor(ed, walk, mesh)
+    out["dp"] = par_run(ed, walk, DP_SIZE, DP_BATCH * PAR_RANKS, mesh)
+    out["dp"]["transport"] = mesh.transport
+    if rank:
+        for path in ("sp", "dp"):
+            for k in ("edited", "sweep", "alpha_org", "grad"):
+                out[path].pop(k)
+    objs = [None] * world
+    dist.all_gather_object(objs, out)
+    return objs
+
+
+def _loop_resumed(ed, walk, mesh, batch):
+    """train_loop on ``mesh`` as cli.train drives it: an epoch of two steps
+    with its stop flag polled over the ranks (mesh.any_rank, a host flag)
+    and its Adam state kept as a checkpoint keeps it, then --resume's path:
+    that state replicated from rank 0 (Adam's step count is a host tensor)
+    and the next epoch stopped by the flag after one step -> (the losses,
+    Adam's step count after each epoch, the device of that count)."""
+    import copy
+
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    polls, saved = [0], {}
+
+    def stop():  # false through the first epoch and one step of the second
+        polls[0] += 1
+        return polls[0] > 3
+
+    kw = dict(num_samples=2 * batch, batch_size=batch, lr=1e-4, log_every=1,
+              stop_flag=stop, mesh=mesh)
+    _, first = train_loop(ed, get_task("face"), walk, n_epochs=1,
+                          on_epoch_end=lambda e, wp, st: saved.update(epoch=copy.deepcopy(st)),
+                          **kw)
+    _, second = train_loop(ed, get_task("face"), walk, n_epochs=2, start_epoch=1,
+                           opt_state=copy.deepcopy(saved["epoch"]),
+                           on_preempt=lambda e, wp, st: saved.update(stop=copy.deepcopy(st)),
+                           **kw)
+    steps = [int(saved[k]["state"][0]["step"]) for k in ("epoch", "stop")]
+    losses = first + second
+    assert steps == [2, 3] and len(losses) == 3 and all(map(math.isfinite, losses)), \
+        (steps, losses)
+    return {"losses": losses, "adam_steps": steps,
+            "adam_step_device": str(saved["stop"]["state"][0]["step"].device)}
+
+
+def _nccl_rank():
+    """A one-rank NCCL group running the dp path (1-rank mesh, 256 px, B=4):
+    its collectives run through NCCL on the card; then train_loop with a
+    stop flag and a resume on the same mesh (``_loop_resumed``)."""
+    import torch.distributed as dist
+
+    from latent2im_tpu_torch.device import resolve_device
+    from latent2im_tpu_torch.parallel import mesh as M
+
+    dev = resolve_device("cuda")
+    mesh = M.make_mesh(1)
+    ed, walk = _par_editor(DP_SIZE, DP_BATCH * PAR_RANKS, dev)
+    _, walk = M.replicate_editor(ed, walk, mesh)
+    out = par_run(ed, walk, DP_SIZE, DP_BATCH * PAR_RANKS, mesh)
+    out.update(backend=dist.get_backend(), transport=mesh.transport,
+               loop=_loop_resumed(ed, walk, mesh, DP_BATCH * PAR_RANKS))
+    return out
+
+
+def _held(name, got, want):
+    """A launched path's rank-0 numbers against the one-process run's on the
+    card: edits within EDIT_REL_L2, the step's loss terms rtol 2e-4; the
+    walk gradient by phase 9's rule, against the f64 step on the card:
+    within max(1e-3, 1.5 x the one-process f32 gradient's own distance)."""
+    import numpy as np
+
+    out = {"edit_rel_l2": rel_l2(got["edited"], want["edited"]),
+           "sweep_rel_l2": rel_l2(got["sweep"], want["sweep"]),
+           "alpha_org_max_abs": float(np.abs(got["alpha_org"] - want["alpha_org"]).max()),
+           "terms": got["terms"], "terms_one_process": want["terms"],
+           "grad_rel_l2_one_process": rel_l2(got["grad"], want["grad"]),
+           "grad_rel_l2_f64": rel_l2(got["grad"], want["grad_f64"]),
+           "one_process_grad_rel_l2_f64": rel_l2(want["grad"], want["grad_f64"])}
+    out["grad_limit"] = max(1e-3, 1.5 * out["one_process_grad_rel_l2_f64"])
+    assert got["edited"].shape == want["edited"].shape, (name, got["edited"].shape)
+    assert out["edit_rel_l2"] <= EDIT_REL_L2 and out["sweep_rel_l2"] <= EDIT_REL_L2, (name, out)
+    for k in STEP_TERMS:
+        assert abs(got["terms"][k] - want["terms"][k]) <= 2e-4 * abs(want["terms"][k]), (name, k, out)
+    assert out["grad_rel_l2_f64"] <= out["grad_limit"], (name, out)
+    return out
+
+
+def parallel_phases(card, dev):
+    """Phases 43-46 -> their reports and, under "launches", the sp, dp and
+    dp_nccl paths' launch counts (summed over their ranks)."""
+    import torch
+
+    from latent2im_tpu_torch.parallel.launch import launch
+
+    log(f"[43] the kernels at the row-shard shapes of {PAR_RANKS} ranks ({SIZE} and {SIZE_HI} px, "
+        f"B={SP_BATCH}, f32 and bf16) against their plain versions")
+    out = {"shards": shard_kernel_phase(dev)}
+    log(f"[44]-[45] one process on the card: the sp path's numbers ({SP_SIZE} px, B={SP_BATCH}) "
+        f"and the dp path's ({DP_SIZE} px, B={DP_BATCH * PAR_RANKS})")
+    from latent2im_tpu_torch.walks import walk_map
+
+    refs = {}
+    for path, size, batch in (("sp", SP_SIZE, SP_BATCH), ("dp", DP_SIZE, DP_BATCH * PAR_RANKS)):
+        ed, walk = _par_editor(size, batch, dev)
+        w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+        refs[path] = par_run(ed, walk, size, batch)
+        t = time.perf_counter()
+        for m in (ed.g, ed.reg, ed.vgg, ed.d):  # the same step in f64 on the card
+            m.double()
+        z, sampled, _, _ = _par_inputs(ed, batch)
+        with plain_kernels():
+            refs[path]["grad_f64"] = reference_step(ed, w0, z, sampled, torch.float64)[1]
+        refs[path]["f64_step_s"] = time.perf_counter() - t
+        del ed, walk
+        torch.cuda.empty_cache()
+    log(f"    one process: sp-size edit {refs['sp']['edit_ms']:.2f} ms, step "
+        f"{refs['sp']['step_ms']:.2f} ms; dp-size edit {refs['dp']['edit_ms']:.2f} ms, step "
+        f"{refs['dp']['step_ms']:.2f} ms (host clock), on {card}")
+    t = time.perf_counter()
+    ranks = launch(_parallel_rank, (), world_size=PAR_RANKS, device="cuda", timeout=900.0)
+    out["ranks_wall_s"] = time.perf_counter() - t
+    out["gloo_takes_cuda_tensors"] = ranks[0]["gloo_cuda"]
+    log(f"    {PAR_RANKS} ranks sharing the card: backend {ranks[0]['backend']}; gloo with CUDA "
+        f"tensors: {json.dumps(ranks[0]['gloo_cuda'])}; wall {out['ranks_wall_s']:.1f} s")
+    launches = {}
+    for path, phase in (("sp", 44), ("dp", 45)):
+        r = _held(path, ranks[0][path], refs[path])
+        r.update({k: [rk[path][k] for rk in ranks]
+                  for k in ("edit_ms", "step_ms", "edit_collectives", "step_collectives")})
+        r["transport"] = ranks[0][path]["transport"]
+        r["one_process"] = {k: refs[path][k] for k in ("edit_ms", "step_ms")}
+        launches[path] = {k: sum(rk[path]["launches"][k] for rk in ranks)
+                          for k in ranks[0][path]["launches"]}
+        assert all(v > 0 for v in launches[path].values()), (path, launches[path])
+        out[path] = r
+        c = r["step_collectives"][0]
+        log(f"[{phase}] {path} over {PAR_RANKS} ranks (backend {ranks[0]['backend']}, transport "
+            f"{r['transport']}): edit rel L2 {r['edit_rel_l2']:.2e}, sweep {r['sweep_rel_l2']:.2e}, "
+            f"step loss {r['terms']['loss']:.5f} ({r['terms_one_process']['loss']:.5f} one process), "
+            f"walk gradient rel L2 to f64 {r['grad_rel_l2_f64']:.2e} (one process "
+            f"{r['one_process_grad_rel_l2_f64']:.2e}, limit {r['grad_limit']:.2e}; to one "
+            f"process {r['grad_rel_l2_one_process']:.2e})")
+        log(f"    ms per edit {r['edit_ms']} and per step {r['step_ms']} by rank (one process "
+            f"{r['one_process']['edit_ms']:.2f} / {r['one_process']['step_ms']:.2f}); rank 0's "
+            f"collectives per step: {c['ms']:.2f} ms over {c['calls']} calls, {c['bytes_sent']} "
+            f"bytes sent, halo {c['halo_bytes']} B, gather {c['gather_bytes']} B; launches "
+            f"{launches[path]}; on {card}. Two ranks on one card measure overhead, not speedup.")
+    log("[46] a one-rank NCCL group running the dp path, then train_loop with a stop flag "
+        "and a resume")
+    nccl = launch(_nccl_rank, (), world_size=1, device="cuda", timeout=600.0)
+    assert nccl["backend"] == "nccl", nccl["backend"]
+    r = _held("dp_nccl", nccl, refs["dp"])
+    r.update({k: nccl[k] for k in ("edit_ms", "step_ms", "edit_collectives",
+                                   "step_collectives", "transport", "loop")})
+    launches["dp_nccl"] = nccl["launches"]
+    assert all(v > 0 for v in launches["dp_nccl"].values()), launches["dp_nccl"]
+    out["dp_nccl"] = r
+    log(f"    backend nccl, transport {r['transport']}: edit rel L2 {r['edit_rel_l2']:.2e}, "
+        f"walk gradient rel L2 to f64 {r['grad_rel_l2_f64']:.2e}; step {r['step_ms']:.2f} ms, collectives "
+        f"{r['step_collectives']['ms']:.2f} ms over {r['step_collectives']['calls']} calls; "
+        f"on {card}. The NCCL path across two or more cards is not run (one card).")
+    log(f"    train_loop under NCCL: losses {r['loop']['losses']}, Adam steps "
+        f"{r['loop']['adam_steps']} (its count on {r['loop']['adam_step_device']}) through "
+        "the stop flag and the resume")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4456,7 +4895,7 @@ def main() -> int:
     del ed, walk
     torch.cuda.empty_cache()
 
-    log(f"[9] training step, card against CPU (B={CMP_BATCH}, same weights)")
+    log(f"[9] training step, card against CPU ({F64_SIZE} px, B={CMP_BATCH}, same weights)")
     train_cmp = train_cpu_phase()
     log(f"    {train_cmp}")
     torch.cuda.empty_cache()
@@ -4486,6 +4925,7 @@ def main() -> int:
         "on JPEGs")
     jp = jpeg_phase(dev)
     rg = regressor_phases(card, dev, gan, jp)
+    par = parallel_phases(card, dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -4496,7 +4936,8 @@ def main() -> int:
                    **{k: v[n] for k, v in zp["launches"].items()},
                    **{k: v[n] for k, v in geo["launches"].items()},
                    **{k: v[n] for k, v in jp["launches"].items()},
-                   **{k: v[n] for k, v in rg["launches"].items()}}
+                   **{k: v[n] for k, v in rg["launches"].items()},
+                   **{k: v[n] for k, v in par["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4543,6 +4984,7 @@ def main() -> int:
                        if k not in ("launches", "results", "results_hi", "details")},
               "jpeg": {k: v for k, v in jp.items() if k != "launches"},
               "regressor": {k: v for k, v in rg.items() if k != "launches"},
+              "parallel": par,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -19,6 +19,9 @@ into ``<output_dir>/eval_report.json``:
         [--num_samples 64] [--output_dir ./eval_out]
 
 Runs on the card (``device`` cuda unless the caller asks for the CPU).
+--n_devices / --sp_devices run the sweeps over an N x S mesh of ranks
+(parallel/spatial.py:setup_inference_mesh; launched here or joined under
+torchrun); rank 0 writes the same report as one process.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ import torch
 from ..config.options import VisOptions
 from ..device import resolve_device
 from ..engine import evaluation as ev
-from ..engine.build import load_editor_for_inference
+from ..engine.build import load_editor_for_inference, refuse_unported
 from ..engine.train import sample_epoch_z
+from ..parallel import launch as launchlib
+from ..parallel.spatial import setup_inference_mesh
 from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils import image as imgmod
 
@@ -43,11 +48,19 @@ BATCH = 8  # z per sweep call; its P panels fold into the batch
 def run(opt, conf, device=None):
     """Evaluate the walk of ``opt`` on ``device`` -> the report's results."""
     device = resolve_device(device)
-    for flag in ("n_devices", "sp_devices"):
-        if (getattr(opt, flag, None) or 1) > 1:
-            raise NotImplementedError(
-                f"--{flag} > 1 is not ported yet (ROADMAP.md queue A item 15)")
+    n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
+    refuse_unported(opt, conf.model)
+    if n > 1 and not launchlib.is_rank(n, device):
+        return launchlib.launch(run, (opt, conf, device), world_size=n, device=device)
     editor, walk_params, info = load_editor_for_inference(opt, conf, device)
+    editor, walk_params, mesh, sp_ctx = setup_inference_mesh(opt, editor, walk_params)
+    with sp_ctx:
+        return _evaluate(opt, editor, walk_params, info, conf, device,
+                         mesh is None or mesh.is_main)
+
+
+def _evaluate(opt, editor, walk_params, info, conf, device, write):
+    """The report; only ``write`` saves it."""
 
     ref_parity = bool(getattr(opt, "ref_parity", False))
     facenet_path = getattr(opt, "facenet_path", "")
@@ -121,6 +134,8 @@ def run(opt, conf, device=None):
         print(f"[{attr}] identity preservation ({embed_name}): {identity}")
         print(f"[{attr}] attribute preservation: {attr_pres}")
 
+    if not write:
+        return report
     out_dir = opt.output_dir or "."
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "eval_report.json"), "w") as f:

@@ -1,5 +1,5 @@
 """Serving CLI: HTTP edit/sweep endpoints over a warm Editor — PyTorch port
-of latent2im_tpu/cli/serve.py on a single device.
+of latent2im_tpu/cli/serve.py.
 
 - **Fixed width.** Every request pads to ``--serve_batch`` rows and the
   answer is sliced back ON THE DEVICE before the host copy, so only the real
@@ -9,6 +9,12 @@ of latent2im_tpu/cli/serve.py on a single device.
 - **One device queue.** A lock serializes device work while the stdlib
   ThreadingHTTPServer overlaps request parsing and PNG encoding with it.
 - **PNG** is encoded with the standard library alone (zlib + struct).
+- **Over a mesh.** --n_devices / --sp_devices run N x S ranks (the
+  inference mesh of parallel/spatial.py, launched here or joined under
+  torchrun). Rank 0 serves HTTP; for each request it broadcasts the call and
+  its padded batch to the other ranks, which make the same call (the batch
+  shards over the data axis, the StyleGAN2 rows over the spatial one) until
+  the server closes.
 
 Endpoints (JSON in, JSON out; images as base64 PNG):
   GET  /healthz          -> {"status": "ok", ...}
@@ -33,9 +39,15 @@ import time
 import numpy as np
 
 from ..config.options import VisOptions
-from ..engine.build import load_editor_for_inference
+from ..device import resolve_device
+from ..engine.build import load_editor_for_inference, refuse_unported
+from ..parallel import launch as launchlib
+from ..parallel import mesh as meshlib
+from ..parallel.spatial import setup_inference_mesh
 from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils.image import png_bytes
+
+HEARTBEAT_S = 60.0  # rank 0 of a mesh wakes the idle ranks this often
 
 
 def _png_b64(img_u8: np.ndarray) -> str:
@@ -112,11 +124,46 @@ class MicroBatcher:
                     b["done"].set()
 
 
+class _Broadcasting:
+    """Rank 0's editor over a mesh: each program call goes first to the
+    other ranks (``follow``), which make the same call."""
+
+    def __init__(self, editor, mesh):
+        self.editor, self.mesh = editor, mesh
+
+    def __getattr__(self, name):
+        return getattr(self.editor, name)
+
+    def _call(self, name, walk_params, args, kwargs):
+        meshlib.broadcast_object(self.mesh, (name, args, kwargs))
+        return getattr(self.editor, name)(walk_params, *args, **kwargs)
+
+    def apply_alpha(self, walk_params, *args, **kwargs):
+        return self._call("apply_alpha", walk_params, args, kwargs)
+
+    def sweep(self, walk_params, *args, **kwargs):
+        return self._call("sweep", walk_params, args, kwargs)
+
+    def heartbeat(self) -> None:
+        """A call the other ranks skip: it ends their wait in a collective
+        before the group's timeout does."""
+        meshlib.broadcast_object(self.mesh, "heartbeat")
+
+    def stop(self) -> None:
+        meshlib.broadcast_object(self.mesh, None)
+
+
 class EditService:
-    """Fixed-width edit/sweep over one Editor on one device."""
+    """Fixed-width edit/sweep over one Editor, on one device or (mesh) as
+    rank 0 of a mesh whose other ranks ``follow``."""
 
     def __init__(self, editor, walk_params, task, batch: int,
-                 num_panels: int, min_alpha: float, max_alpha: float):
+                 num_panels: int, min_alpha: float, max_alpha: float, mesh=None):
+        self.mesh = mesh
+        self._closed = threading.Event()
+        if mesh is not None and mesh.is_main:
+            editor = _Broadcasting(editor, mesh)
+            threading.Thread(target=self._heartbeats, daemon=True).start()
         self.ed = editor
         self.walk = walk_params
         self.task = task
@@ -130,6 +177,36 @@ class EditService:
 
     def enable_batching(self, window_ms: float = 8.0) -> None:
         self.batcher = MicroBatcher(self, window_ms=window_ms)
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 of the mesh (or one process): the rank that serves."""
+        return self.mesh is None or self.mesh.is_main
+
+    def follow(self) -> None:
+        """A rank other than 0: make each call rank 0 broadcasts, until it
+        closes."""
+        while (msg := meshlib.broadcast_object(self.mesh)) is not None:
+            if msg == "heartbeat":
+                continue
+            name, args, kwargs = msg
+            getattr(self.ed, name)(self.walk, *args, **kwargs)
+
+    def _heartbeats(self) -> None:
+        """Rank 0 of a mesh: while no request comes, the other ranks wait in
+        ``follow``'s broadcast; wake them every HEARTBEAT_S, well inside
+        the collective timeout."""
+        while not self._closed.wait(HEARTBEAT_S):
+            with self._dev_lock:
+                if not self._closed.is_set():
+                    self.ed.heartbeat()
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the other ranks from ``follow``."""
+        if self.mesh is not None and self.mesh.is_main:
+            with self._dev_lock:
+                self._closed.set()
+                self.ed.stop()
 
     def _pad(self, z: np.ndarray) -> tuple[np.ndarray, int]:
         n = z.shape[0]
@@ -289,13 +366,13 @@ def make_server(service: EditService, host: str, port: int):
 
 def build_service(opt, conf, device=None) -> EditService:
     """Editor + walk + task behind an EditService on ``device`` (cuda unless
-    the caller asks for the CPU). Multi-device serving is not ported."""
-    for flag in ("n_devices", "sp_devices"):
-        if (getattr(opt, flag, None) or 1) > 1:
-            raise NotImplementedError(
-                f"--{flag} > 1 is not ported yet (ROADMAP.md queue A item 15)"
-            )
+    the caller asks for the CPU). Under --n_devices / --sp_devices the
+    process is one rank of the mesh (launched by ``main`` or torchrun): rank
+    0's service serves, the others ``follow``; the spatial context stays
+    entered for the service's lifetime, as in the JAX package."""
     editor, walk_params, info = load_editor_for_inference(opt, conf, device)
+    editor, walk_params, mesh, sp_ctx = setup_inference_mesh(opt, editor, walk_params)
+    sp_ctx.__enter__()
     task = get_task(conf.transform, walk_type=conf.walk_type,
                     nsliders=len(info["attr_list"]),
                     **task_kwargs_from_options(conf))
@@ -303,8 +380,29 @@ def build_service(opt, conf, device=None) -> EditService:
         editor, walk_params, task,
         batch=getattr(opt, "serve_batch", None) or 4,
         num_panels=opt.num_panels,
-        min_alpha=opt.min_alpha, max_alpha=opt.max_alpha,
+        min_alpha=opt.min_alpha, max_alpha=opt.max_alpha, mesh=mesh,
     )
+
+
+def serve(opt, conf, device=None) -> None:
+    """One rank's part: rank 0 warms the path and serves HTTP until it is
+    stopped, then releases the others, which follow it meanwhile."""
+    service = build_service(opt, conf, device)
+    if not service.is_main:
+        service.follow()
+        return
+    try:
+        print("warming the edit/sweep path ...", flush=True)
+        service.warmup()
+        if opt.batch_window_ms > 0:
+            service.enable_batching(opt.batch_window_ms)
+        srv = make_server(service, opt.host, opt.port)
+        print(f"serving on http://{opt.host}:{opt.port} "
+              f"(batch {service.batch}, {service.ed.cfg.size}px, "
+              f"{service.ed.device})", flush=True)
+        srv.serve_forever()
+    finally:
+        service.close()
 
 
 def main(argv=None):
@@ -319,16 +417,13 @@ def main(argv=None):
                                 "single-sample /edit requests coalesce into "
                                 "one device call (0 disables)")
     opt, conf = vo.parse(argv)
-    service = build_service(opt, conf)
-    print("warming the edit/sweep path ...", flush=True)
-    service.warmup()
-    if opt.batch_window_ms > 0:
-        service.enable_batching(opt.batch_window_ms)
-    srv = make_server(service, opt.host, opt.port)
-    print(f"serving on http://{opt.host}:{opt.port} "
-          f"(batch {service.batch}, {service.ed.cfg.size}px, "
-          f"{service.ed.device})", flush=True)
-    srv.serve_forever()
+    device = resolve_device(None)
+    n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
+    refuse_unported(opt, conf.model)
+    if n > 1 and not launchlib.is_rank(n, device):
+        launchlib.launch(serve, (opt, conf, device), world_size=n, device=device)
+        return
+    serve(opt, conf, device)
 
 
 if __name__ == "__main__":

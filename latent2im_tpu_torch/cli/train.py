@@ -30,10 +30,20 @@ the walk on the masked L2 against a target warped or recoloured on the
 device (engine/train.py:geometric_train_loop), logging every step and
 saving no sample grids; ``--host_targets`` (the JAX package's cv2 host
 path) is refused.
+
+``--n_devices N`` (data parallel) and ``--sp_devices S`` (StyleGAN2 rows
+over S ranks; with N, an N x S mesh) run N x S ranks, one process each:
+launched here (parallel/launch.py; gloo when ranks share a card or run on
+the CPU, NCCL when each has its own card) or joined under torchrun. The
+global batch is ``--batch_size`` x N, as in the JAX package; every rank
+trains the same walk, and rank 0 alone writes the checkpoints, logs and
+sample grids. ``--updateGAN`` under a mesh and ``--sp_devices`` with the
+PGGAN backends are refused (ROADMAP.md queue A item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import logging
 import math
@@ -45,10 +55,13 @@ import torch
 
 from ..config.options import TrainOptions
 from ..device import resolve_device
-from ..engine.build import _not_ported, build_editor_from_options
+from ..engine.build import _not_ported, build_editor_from_options, refuse_unported
 from ..engine.gan import GANModule, draw_eps, make_gan_update_steps
 from ..engine.train import geometric_train_loop, make_optimizer, train_loop
 from ..io import checkpoint as ckpt
+from ..parallel import launch as launchlib
+from ..parallel import mesh as meshlib
+from ..parallel.spatial import make_mesh_spatial, spatial_partitioning
 from ..tasks.geometric import GEOMETRIC_TASKS
 from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils import image as imgmod
@@ -67,17 +80,28 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     device = resolve_device(device)
     if opt.updateGAN:
         _refuse_gan(opt)
-    for flag in ("n_devices", "sp_devices"):
-        if (getattr(opt, flag, None) or 1) > 1:
-            _not_ported(f"--{flag} > 1 (multi-device training)", "queue A item 15")
+    n_data, n_sp = (getattr(opt, "n_devices", None) or 1), (getattr(opt, "sp_devices", None) or 1)
+    refuse_unported(opt, opt.model)
     geometric = opt.transform in GEOMETRIC_TASKS
     if geometric and getattr(opt, "host_targets", False):
         _not_ported("--host_targets (the cv2 host targets of the geometric tasks)",
                     "queue A item 24")
+    mesh, sp_ctx = None, contextlib.nullcontext()
+    if n_data * n_sp > 1:
+        if not launchlib.is_rank(n_data * n_sp, device):
+            return launchlib.launch(run, (opt, n_epoch_default, save_loss_artifacts, device),
+                                    world_size=n_data * n_sp, device=device)
+        if n_sp > 1:
+            mesh = make_mesh_spatial(n_spatial=n_sp, n_data=n_data)
+            sp_ctx = spatial_partitioning(mesh)
+        else:
+            mesh = meshlib.make_mesh(n_data)
+    main_rank = mesh is None or mesh.is_main
     output_dir = opt.output_dir
-    os.makedirs(os.path.join(output_dir, "results"), exist_ok=True)
-    os.makedirs(os.path.join(output_dir, "logs"), exist_ok=True)
-    logmod.configure(os.path.join(output_dir, "log.txt"))
+    if main_rank:
+        os.makedirs(os.path.join(output_dir, "results"), exist_ok=True)
+        os.makedirs(os.path.join(output_dir, "logs"), exist_ok=True)
+        logmod.configure(os.path.join(output_dir, "log.txt"))
 
     editor, walk_params, info = build_editor_from_options(opt, device=device)
     task = get_task(opt.transform, walk_type=opt.walk_type,
@@ -101,8 +125,9 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         gan = _make_gan_provider(editor, opt, task, walk_params)
 
     n_epochs = opt.n_epochs or n_epoch_default
-    batch = opt.batch_size
-    writer = _maybe_tensorboard(os.path.join(output_dir, "logs"))
+    # the global batch scales with the data axis only, as in the JAX package
+    batch = opt.batch_size * n_data
+    writer = _maybe_tensorboard(os.path.join(output_dir, "logs")) if main_rank else None
     save_freq = opt.model_save_freq
     loss_values: list[float] = []
     step_counter = {"n": 0}
@@ -122,11 +147,14 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         # ignores alpha, so apply_alpha refuses it: no grids for either
         if (save_freq and i % save_freq == 0 and not geometric
                 and editor.cfg.walk_kind != "embed"):
-            _save_samples(editor, current_walk, output_dir, epoch, i, batch)
+            # every rank synthesizes (under sp the rows are spread over
+            # them); rank 0 writes
+            _save_samples(editor, current_walk, output_dir, epoch, i, batch, main_rank)
 
     def on_epoch_end(epoch, wp, st):
-        ckpt.save_walk(output_dir, epoch, wp, opt_state=st)
-        logging.info("Save W in %s", ckpt.walk_ckpt_path(output_dir, epoch))
+        if main_rank:
+            ckpt.save_walk(output_dir, epoch, wp, opt_state=st)
+            logging.info("Save W in %s", ckpt.walk_ckpt_path(output_dir, epoch))
 
     # Preemption safety: a scheduler delivers SIGTERM before it reclaims the
     # machine; checkpoint walk + optimizer state and stop, so --resume
@@ -138,6 +166,9 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         stop_box["stop"] = True
 
     def on_preempt(epoch, wp, st):
+        stop_box["preempted"] = True
+        if not main_rank:
+            return
         # meta epoch = epoch-1 so --resume RE-RUNS the interrupted epoch
         # (repeating a few steps is benign; skipping half an epoch is not)
         path = ckpt.save_walk(output_dir, epoch, wp, opt_state=st,
@@ -145,17 +176,16 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         if gan is not None:
             _save_gan(gan, os.path.join(output_dir, GAN_RESUME))
             logging.warning("fine-tuned GAN preemption checkpoint written")
-        stop_box["preempted"] = True
         logging.warning("preemption checkpoint written: %s", path)
 
     prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     try:
-        with logmod.profile_trace(getattr(opt, "profile_dir", "")):
+        with logmod.profile_trace(getattr(opt, "profile_dir", "")), sp_ctx:
             run_kw = dict(num_samples=opt.num_samples, batch_size=batch, n_epochs=n_epochs,
                           lr=opt.learning_rate, log_every=1, on_step=on_step,
                           on_epoch_end=on_epoch_end, start_epoch=start_epoch,
                           opt_state=opt_state, stop_flag=lambda: stop_box["stop"],
-                          on_preempt=on_preempt)
+                          on_preempt=on_preempt, mesh=mesh)
             if geometric:
                 walk_params, history = geometric_train_loop(editor, task, walk_params,
                                                             **run_kw)
@@ -168,7 +198,9 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
             writer.close()
         if gan is not None:
             gan.close()
-    if stop_box.get("preempted"):
+    if mesh is not None:  # rank 0's result crosses to the launching process
+        walk_params = walk_map(lambda t: t.detach().cpu(), walk_params)
+    if stop_box.get("preempted") or not main_rank:
         return walk_params, history
     ckpt.save_walk(output_dir, n_epochs, walk_params, final=True)
     if getattr(opt, "export_ref_walk", False):
@@ -317,14 +349,17 @@ def _make_gan_provider(editor, opt, task, walk_params):
     return provider
 
 
-def _save_samples(editor, walk_params, output_dir, epoch, i, batch_size):
-    """Periodic org/edited sample grids (train.py:118-122, :137-144)."""
+def _save_samples(editor, walk_params, output_dir, epoch, i, batch_size, write=True):
+    """Periodic org/edited sample grids (train.py:118-122, :137-144);
+    write=False synthesizes them without writing (a rank other than 0)."""
     try:
         z = np.random.RandomState(epoch * 10000 + i).randn(
             min(batch_size, 4), editor.cfg.dim_z
         ).astype(np.float32)
         target = np.full((z.shape[0], len(editor.cfg.attr_list)), 0.9, np.float32)
         edited, _, orig = editor.apply_alpha(walk_params, z, target, u8=True)
+        if not write:
+            return
         cols = int(math.sqrt(max(z.shape[0], 1))) or 1
         for name, im in (("org", orig), ("logit", edited)):
             grid = imgmod.imgrid(im.cpu().numpy(), cols=cols)

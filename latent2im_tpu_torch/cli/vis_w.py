@@ -8,7 +8,13 @@ a batch synthesize through Editor.sweep, not a host loop per alpha.
 
     python -m latent2im_tpu_torch.cli.vis_w <run_dir>/opt.yml \
         --save_path_w <run_dir>/model_w_9_walk_module.ckpt \
-        --output_dir ./vis_out [--noise_seed 0] [--combine_indices 31,39]
+        --output_dir ./vis_out [--noise_seed 0] [--combine_indices 31,39] \
+        [--n_devices N] [--sp_devices S]
+
+--n_devices / --sp_devices run the sweeps over an N x S mesh of ranks
+(parallel/spatial.py:setup_inference_mesh; launched here or joined under
+torchrun): the batch shards over the data axis, the StyleGAN2 rows over the
+spatial one, and rank 0 writes the same PNGs and index.html as one process.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import numpy as np
 
 from ..config.options import VisOptions
 from ..device import resolve_device
-from ..engine.build import load_editor_for_inference
+from ..engine.build import load_editor_for_inference, refuse_unported
 from ..engine.train import sample_epoch_z
+from ..parallel import launch as launchlib
+from ..parallel.spatial import setup_inference_mesh
 from ..tasks.transforms import get_task, task_kwargs_from_options
 from ..utils import html as htmlmod
 from ..utils import image as imgmod
@@ -40,14 +48,26 @@ def run(opt, conf, device=None):
     """Sweep panels of the walk on ``device`` (cuda unless the caller asks
     for the CPU) -> the output directory."""
     device = resolve_device(device)
-    for flag in ("n_devices", "sp_devices"):
-        if (getattr(opt, flag, None) or 1) > 1:
-            raise NotImplementedError(
-                f"--{flag} > 1 is not ported yet (ROADMAP.md queue A item 15)")
+    n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
+    refuse_unported(opt, conf.model)
+    if n > 1 and not launchlib.is_rank(n, device):
+        return launchlib.launch(run, (opt, conf, device), world_size=n, device=device)
     output_dir = opt.output_dir or os.path.join(getattr(conf, "output_dir", "."), "vis")
-    os.makedirs(output_dir, exist_ok=True)
 
     editor, walk_params, info = load_editor_for_inference(opt, conf, device)
+    editor, walk_params, mesh, sp_ctx = setup_inference_mesh(opt, editor, walk_params)
+    write = mesh is None or mesh.is_main
+    if write:
+        os.makedirs(output_dir, exist_ok=True)
+    with sp_ctx:
+        _sweeps(opt, conf, editor, walk_params, info, output_dir, write)
+    if write:
+        htmlmod.make_html(output_dir)
+    return output_dir
+
+
+def _sweeps(opt, conf, editor, walk_params, info, output_dir, write):
+    """The panels of every batch; only ``write`` saves them."""
     task = get_task(conf.transform, walk_type=conf.walk_type,
                     nsliders=len(info["attr_list"]), **task_kwargs_from_options(conf))
     alphas = np.linspace(opt.min_alpha, opt.max_alpha, opt.num_panels)
@@ -82,9 +102,10 @@ def run(opt, conf, device=None):
             for ii in range(z.shape[0]):
                 panel = grid[:, :, ii].reshape(p * p, *grid.shape[3:])
                 name = f"combine_idx{idx[0]}_idx{idx[1]}_sample{batch_start + ii}"
-                imgmod.save_im(imgmod.imgrid(panel, cols=p),
-                               os.path.join(output_dir, name))
-                print("Save in", os.path.join(output_dir, name))
+                if write:
+                    imgmod.save_im(imgmod.imgrid(panel, cols=p),
+                                   os.path.join(output_dir, name))
+                    print("Save in", os.path.join(output_dir, name))
             continue
         # panel slider matrix [P, B, A] (scale_test_alpha_for_graph semantics)
         panels = np.stack(
@@ -93,14 +114,11 @@ def run(opt, conf, device=None):
         imgs, alpha_org, _ = editor.sweep(walk_params, z, panels, given_w=gw, u8=True)
         imgs = imgs.cpu().numpy()  # [P, B, H, W, 3] uint8
         alpha_org = alpha_org.cpu().numpy()
-        for ii in range(z.shape[0]):
+        for ii in range(z.shape[0] if write else 0):
             name = f"sample{batch_start + ii}_{float(alpha_org[ii, 0]):.2f}"
             imgmod.save_im(imgmod.imgrid(imgs[:, ii], cols=len(alphas)),
                            os.path.join(output_dir, name))
             print("Save in", os.path.join(output_dir, name))
-
-    htmlmod.make_html(output_dir)
-    return output_dir
 
 
 def main(argv=None):

@@ -489,6 +489,7 @@ class VisOptions:
         opt = self.parser.parse_args(args)
         with opt.config_file as f:
             data = yaml_load(f.read(), f.name)
+        opt.config_file = f.name  # read and closed: the path, which a launched rank can take
         for k, v in data.items():
             if isinstance(v, dict):
                 data[k] = argparse.Namespace(**v)

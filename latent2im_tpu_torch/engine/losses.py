@@ -59,12 +59,13 @@ def content_loss(vgg, org_img, edited_img, taps=vggm.CONTENT_TAPS, dtype=None):
     return sum(losses) / len(losses)
 
 
-def masked_l2(img, target, mask):
+def masked_l2(img, target, mask, mask_sum=None):
     """The geometric tasks' pixel loss (transform_base.py:388-394 of the
     reference): the squared difference inside the mask, summed, over the
-    mask's sum."""
+    mask's sum (``mask_sum``, where a data-parallel step gives the global
+    batch's, per rank)."""
     diff = (img - target) * mask
-    return torch.sum(diff * diff) / torch.sum(mask)
+    return torch.sum(diff * diff) / (torch.sum(mask) if mask_sum is None else mask_sum)
 
 
 def combine(reg, content, gan, no_content_loss=False, no_gan_loss=False,

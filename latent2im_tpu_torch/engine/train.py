@@ -44,6 +44,18 @@ target and mask built on the device from the task's ``device_spec``
 (tasks/warp.py), the edited synthesis, the masked L2 and Adam. Both
 syntheses use G's stored noise, as the JAX step passes no noise key, so the
 step is deterministic and holds to the JAX step step by step.
+
+Over a mesh (``mesh=``, parallel/mesh.py; one process per rank) the steps
+take the GLOBAL batch, as the JAX steps do in global-batch semantics: z,
+the host alphas, the device-drawn alphas and the fresh noise are drawn at
+the global shape from the same seeded streams on every rank and sliced to
+the rank's rows of the 'data' axis; D's minibatch stddev gathers the global
+batch (parallel/mesh.py:BatchGather); under a row plan
+(parallel/spatial.py) synthesis runs on the rank's image rows. The walk
+gradient is averaged over 'data' and summed over 'spatial' in one
+all-reduce, so Adam steps identically on every rank (``replicate`` makes
+the walk and its Adam state equal at the start); the metrics are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -54,6 +66,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models import hooks
+from ..parallel import mesh as meshlib
 from ..tasks.geometric import device_target
 from ..tasks.transforms import Task
 from ..utils.remat import checkpoint
@@ -70,9 +84,49 @@ def make_optimizer(walk_params: dict, lr: float) -> torch.optim.Adam:
                             betas=(0.5, 0.99), eps=1e-8)
 
 
+class _DataParallel:
+    """The part of a step that runs over a mesh: this rank's rows of the
+    global batch, D's global-batch gather installed in models/hooks.py,
+    and the gradient and metric reductions. Identity without a mesh."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.gather = (meshlib.BatchGather(mesh)
+                       if mesh is not None and mesh.groups.get("data") is not None else None)
+        self.lo = self.hi = None
+
+    def rows(self, n: int) -> None:
+        self.lo, self.hi = (0, n) if self.mesh is None else self.mesh.data_slice(n)
+
+    def local(self, t):
+        return None if t is None else t[self.lo:self.hi]
+
+    def __enter__(self):
+        self._prev = hooks.install_batch(self.gather)
+        return self
+
+    def __exit__(self, *exc):
+        hooks.restore_batch(self._prev)
+        return False
+
+    def mean(self, t):
+        """t averaged over 'data' (t itself without a mesh)."""
+        if self.mesh is None:
+            return t
+        return meshlib.all_reduce(self.mesh, t, "data") / self.mesh.shape.get("data", 1)
+
+    def reduce(self, optimizer, metrics: dict) -> dict:
+        if self.mesh is None:
+            return metrics
+        meshlib.average_gradients(self.mesh, [p for g in optimizer.param_groups
+                                              for p in g["params"]])
+        return meshlib.mean_over_data(self.mesh, metrics)
+
+
 def make_train_step(editor: Editor, task: Task | None,
                     optimizer: torch.optim.Optimizer,
-                    host_alpha: bool = False, train_embed: bool = False) -> Callable:
+                    host_alpha: bool = False, train_embed: bool = False,
+                    mesh=None, frozen_shardings=None) -> Callable:
     """-> step(walk_params, z, generator=None, sampled=None, index=None) ->
     metrics.
 
@@ -84,7 +138,14 @@ def make_train_step(editor: Editor, task: Task | None,
     cfg.fixed_noise. ``sampled`` is the host-sampled alpha batch [B, A] of
     host_alpha mode. train_embed (implies host_alpha): ``index``, the bank
     entry the step trains, of the first attribute's bank. Metrics are 0-dim
-    tensors on the device (reading one synchronises)."""
+    tensors on the device (reading one synchronises).
+
+    mesh: z and sampled are the global batch (the module docstring).
+    frozen_shardings (the JAX package's tensor-parallel towers) is not
+    ported and raises."""
+    if frozen_shardings is not None:
+        meshlib.frozen_tp_shardings(mesh, frozen_shardings)
+    dp = _DataParallel(mesh)
     cfg = editor.cfg
     n_attr = len(cfg.attr_list)
     host_alpha = host_alpha or train_embed
@@ -105,10 +166,21 @@ def make_train_step(editor: Editor, task: Task | None,
         if generator is None and not cfg.fixed_noise and editor.draws_noise:
             raise ValueError("fresh noise needs a generator (or fixed_noise)")
 
-        def noise():  # None: the stored noise maps
-            return None if cfg.fixed_noise else editor.make_noise(b, generator)
+        def noise():  # None: the stored noise maps; drawn for the global batch
+            nz = None if cfg.fixed_noise else editor.make_noise(b, generator)
+            return None if nz is None else [dp.local(t) for t in nz]
 
+        dp.rows(b)
+        z, sampled = dp.local(z), dp.local(sampled)
         optimizer.zero_grad(set_to_none=True)
+        with dp:
+            metrics = _forward_backward(walk_params, z, sampled, index, noise)
+        _zero_missing_grads(optimizer)
+        metrics = dp.reduce(optimizer, metrics)
+        optimizer.step()
+        return metrics
+
+    def _forward_backward(walk_params, z, sampled, index, noise):
         with torch.no_grad():
             latent = editor.edit_latent(z)
             img_org = editor.synth(latent, noise=noise())
@@ -147,8 +219,6 @@ def make_train_step(editor: Editor, task: Task | None,
                           no_gan_loss=cfg.no_gan_loss,
                           pggan_gating=(cfg.model == "pggan"))
         total.backward()
-        _zero_missing_grads(optimizer)
-        optimizer.step()
         return {"loss": total.detach(), "reg_loss": reg.detach(),
                 "content_loss": content.detach(), "gan_loss": gan.detach(),
                 "alpha_target_mean": target.mean()}
@@ -166,7 +236,7 @@ def _zero_missing_grads(optimizer) -> None:
 
 
 def make_geometric_device_step(editor: Editor, optimizer: torch.optim.Optimizer,
-                               train_embed: bool = False) -> Callable:
+                               train_embed: bool = False, mesh=None) -> Callable:
     """-> step(walk_params, z, alpha_graph, spec, index=None) -> metrics, the
     JAX package's step of the same name: with no gradient the original
     synthesis and its target and mask from ``spec`` = (kind, payload,
@@ -174,13 +244,23 @@ def make_geometric_device_step(editor: Editor, optimizer: torch.optim.Optimizer,
     masked L2 against that target, and one Adam step on the walk in place.
     Both syntheses use G's stored noise. train_embed: ``index`` is the bank
     entry of the first attribute's bank that the step trains. Metrics are
-    0-dim tensors on the device."""
+    0-dim tensors on the device.
+
+    mesh: z and alpha_graph are the global batch, and so is a colour
+    spec's per-sample payload; the masked L2's mask sum is the global
+    batch's (one all-reduce), so the loss and gradient are the JAX step's."""
     embed_name = editor.cfg.attr_list[0] if train_embed else None
+    dp = _DataParallel(mesh)
 
     def step(walk_params, z, alpha_graph, spec, index=None):
         if train_embed and index is None:
             raise ValueError("train_embed step requires the bank index")
         alpha_graph = editor._tensor(alpha_graph)
+        dp.rows(alpha_graph.shape[0])
+        z, alpha_graph = dp.local(editor._tensor(z)), dp.local(alpha_graph)
+        kind, payload, clamp = spec
+        if kind in ("color", "colorlab"):  # per-sample sliders
+            spec = (kind, payload[dp.lo:dp.hi], clamp)
         optimizer.zero_grad(set_to_none=True)
         with torch.no_grad():
             latent = editor.edit_latent(z)
@@ -190,11 +270,15 @@ def make_geometric_device_step(editor: Editor, optimizer: torch.optim.Optimizer,
                                      index=index)
         else:
             latent_new = editor.edit(walk_params, latent, alpha_graph)
-        loss = L.masked_l2(editor.synth(latent_new), target, mask)
+        img = editor.synth(latent_new)
+        # the global batch's sum over its mask sum, once averaged over 'data'
+        loss = L.masked_l2(img, target, mask, dp.mean(torch.sum(mask)))
         loss.backward()
         _zero_missing_grads(optimizer)
+        metrics = dp.reduce(optimizer, {"loss": loss.detach(),
+                                        "alpha_target_mean": alpha_graph.mean()})
         optimizer.step()
-        return {"loss": loss.detach(), "alpha_target_mean": alpha_graph.mean()}
+        return metrics
 
     return step
 
@@ -216,6 +300,7 @@ def geometric_train_loop(
     opt_state: dict | None = None,
     stop_flag: Callable | None = None,
     on_preempt: Callable | None = None,
+    mesh=None,
 ) -> tuple[dict, list[float]]:
     """The epoch loop of the geometric and color tasks around
     ``make_geometric_device_step``, with ``train_loop``'s callback, resume
@@ -224,15 +309,13 @@ def geometric_train_loop(
     index per step under --trainEmbed), so --resume restarts an epoch
     reproducibly. The target is built for ``cfg.size``, G's resolution, as
     the JAX package builds it (a PGGAN editor's images are half that).
-    Returns (walk_params, loss_history)."""
+    mesh: batch_size is the global batch (``train_loop``). Returns
+    (walk_params, loss_history)."""
     cfg = editor.cfg
-    for p in walk_leaves(walk_params):
-        p.requires_grad_(True)
-    optimizer = make_optimizer(walk_params, lr)
-    if opt_state is not None:
-        optimizer.load_state_dict(opt_state)
+    optimizer = _replicated_optimizer(walk_params, lr, opt_state, mesh)
     train_embed = cfg.walk_kind == "embed"
-    step = make_geometric_device_step(editor, optimizer, train_embed=train_embed)
+    step = make_geometric_device_step(editor, optimizer, train_embed=train_embed,
+                                      mesh=mesh)
     history: list[float] = []
     iters = num_samples // batch_size
     for epoch in range(start_epoch, n_epochs):
@@ -240,7 +323,7 @@ def geometric_train_loop(
             editor.device)
         rng = np.random.RandomState(_alpha_seed(seed, epoch))
         for i in range(iters):
-            if stop_flag is not None and stop_flag():
+            if stop_flag is not None and meshlib.any_rank(mesh, stop_flag()):
                 if on_preempt is not None:
                     on_preempt(epoch, walk_params, optimizer.state_dict())
                 return walk_params, history
@@ -261,6 +344,20 @@ def geometric_train_loop(
         if on_epoch_end is not None:
             on_epoch_end(epoch, walk_params, optimizer.state_dict())
     return walk_params, history
+
+
+def _replicated_optimizer(walk_params, lr, opt_state, mesh):
+    """The walk as trainable leaves and its Adam (resumed from opt_state),
+    both rank 0's on every rank of the mesh."""
+    for p in walk_leaves(walk_params):
+        p.requires_grad_(True)
+    optimizer = make_optimizer(walk_params, lr)
+    if opt_state is not None:
+        optimizer.load_state_dict(opt_state)
+    if mesh is not None:
+        meshlib.replicate(mesh, walk_params)
+        meshlib.replicate(mesh, optimizer)
+    return optimizer
 
 
 def _alpha_seed(seed: int, epoch: int) -> int:
@@ -299,6 +396,7 @@ def train_loop(
     on_preempt: Callable | None = None,
     host_alpha: bool = False,
     frozen_provider: Callable | None = None,
+    mesh=None,
 ) -> tuple[dict, list[float]]:
     """The reference's epoch/iteration structure around the step. Returns
     (walk_params, loss_history); the walk tensors are trained in place.
@@ -317,12 +415,13 @@ def train_loop(
     calls it: the --updateGAN fine-tune's D and G steps, which update the
     editor's frozen G and D in place for the walk step that follows. An
     'embed' walk (--trainEmbed) draws its slider and bank index per step
-    from the same per-epoch RandomState."""
-    for p in walk_leaves(walk_params):
-        p.requires_grad_(True)
-    optimizer = make_optimizer(walk_params, lr)
-    if opt_state is not None:
-        optimizer.load_state_dict(opt_state)
+    from the same per-epoch RandomState.
+
+    mesh (parallel/mesh.py): ``batch_size`` is the global batch, which
+    the step shards over 'data'; every rank draws the same z, alphas and
+    noise and steps Adam identically (the module docstring). stop_flag is
+    agreed over the ranks, so all stop at the same step."""
+    optimizer = _replicated_optimizer(walk_params, lr, opt_state, mesh)
     train_embed = editor.cfg.walk_kind == "embed"
     n_attr = len(editor.cfg.attr_list)
     if not (train_embed or host_alpha):
@@ -335,7 +434,7 @@ def train_loop(
             print(f"note: device alpha sampler declined ({e}); "
                   "falling back to host-numpy sampling")
     step = make_train_step(editor, task, optimizer, host_alpha=host_alpha,
-                           train_embed=train_embed)
+                           train_embed=train_embed, mesh=mesh)
     gen = torch.Generator(device=editor.device)
     history: list[float] = []
     iters = num_samples // batch_size
@@ -346,7 +445,7 @@ def train_loop(
         ).to(editor.device)
         alpha_rng = np.random.RandomState(_alpha_seed(seed, epoch))
         for i in range(iters):
-            if stop_flag is not None and stop_flag():
+            if stop_flag is not None and meshlib.any_rank(mesh, stop_flag()):
                 if on_preempt is not None:
                     on_preempt(epoch, walk_params, optimizer.state_dict())
                 return walk_params, history

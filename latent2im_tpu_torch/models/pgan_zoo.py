@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import hooks
 from .pggan import conv2d, pixel_norm, strip_module_prefix
 
 CELEBAHQ_512_DEPTHS = (512, 512, 512, 512, 256, 128, 64, 32)
@@ -85,6 +86,8 @@ def _depths_from(sd, prefix: str, dim: int) -> list[int]:
 class GNet(nn.Module):
     """depths[0] is the 4x4 depth; each later entry adds a x2 scale."""
 
+    family, row_sharded = "GAN-zoo PGAN", False  # models/hooks.py:no_row_plan
+
     def __init__(self, dim_latent: int = 512, depths=CELEBAHQ_512_DEPTHS,
                  n_scale0: int = 1, generator=None):
         super().__init__()
@@ -123,6 +126,7 @@ class GNet(nn.Module):
         ``dtype`` (the JAX package's ``dtype=``; None: z's own). 0 < alpha <
         1 blends the previous scale's rgb (GNet's fade-in); 0 is fully
         grown."""
+        hooks.no_row_plan(self)
         z = z if dtype is None else z.to(dtype)
         x = _leaky(self.formatLayer(pixel_norm(z, dim=-1)))
         x = pixel_norm(x.reshape(x.shape[0], -1, 4, 4))  # torch's (C, 4, 4) view

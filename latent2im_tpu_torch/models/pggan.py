@@ -42,6 +42,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import hooks
+
 N_LABEL = 10
 CODE_DIM = 512 - N_LABEL
 
@@ -153,6 +155,8 @@ class Generator(nn.Module):
     shape the reference runs. ``generator`` (a CPU ``torch.Generator``)
     seeds the init, with the JAX package's distributions."""
 
+    family, row_sharded = "PGGAN", False  # models/hooks.py:no_row_plan
+
     def __init__(self, n_label: int = N_LABEL, generator=None):
         super().__init__()
         if n_label > 0:
@@ -186,6 +190,7 @@ class Generator(nn.Module):
         alpha=0 is the reference's call sites' (netG(z) bare), whose blend
         outputs the PREVIOUS resolution's rgb head on the upsampled features;
         alpha outside [0, 1) turns the blend off."""
+        hooks.no_row_plan(self)
         b = z.shape[0]
         x = pixel_norm(z if dtype is None else z.to(dtype), dim=-1)
         if hasattr(self, "label_embed"):

@@ -28,8 +28,8 @@ transposed conv (up, ``FusedUpsample``) or a stride-2 conv (down,
 Public tensors are NHWC, as in the JAX package: z [B, D] (or a list of them
 for style mixing), noise maps [B, H, W, 1], images [B, H, W, 3] f32. No
 entry point reaches this model and no kernel runs in it: its convolutions
-are cuDNN's. The JAX package's spatial-partitioning hooks are identity on
-one device and are not ported (ROADMAP item 15).
+are cuDNN's. Spatial partitioning of its rows is not ported: under a row
+plan (models/hooks.py) its forward raises, naming ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import hooks
 
 G_LADDER = [
     (512, 512), (512, 512), (512, 512), (512, 512),
@@ -235,6 +237,8 @@ class Generator(nn.Module):
 class StyledGenerator(nn.Module):
     """The style MLP (``style``) and the progressive ``generator``."""
 
+    family, row_sharded = "StyleGAN1", False  # models/hooks.py:no_row_plan
+
     def __init__(self, code_dim: int = 512, n_mlp: int = 8, fused_from: int = FUSED_FROM,
                  generator=None):
         super().__init__()
@@ -268,6 +272,7 @@ class StyledGenerator(nn.Module):
         mean_style + style_weight: truncation (model.py:494-503);
         inject_index: the crossover layers (the reference draws them with
         random.sample). Computed in the parameters' dtype."""
+        hooks.no_row_plan(self)
         zs = list(z) if isinstance(z, (list, tuple)) else [z]
         styles = [self.style_forward(s) for s in zs]
         b = zs[0].shape[0]

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from ..ops import (blur2d, fused_leaky_relu, make_kernel, styled_conv3x3,
                    upsample2d)
 from ..utils.remat import checkpoint
+from . import hooks
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -136,9 +137,11 @@ class ModulatedConv2d(nn.Module):
         """Scaled weight as [k, k, Cin, Cout], the kernel's layout."""
         return (self.weight[0] * self.scale).permute(2, 3, 1, 0).contiguous()
 
-    def forward(self, x, style):
+    def forward(self, x, style, halo: int = 0):
         """x [B, H, W, Cin] -> [B, H', W', Cout] (the up and 1x1 forms), in
-        x's dtype."""
+        x's dtype. halo: x carries that many rows of its neighbours above and
+        below its own (a row shard, parallel/spatial.py); the up form's blur
+        crops what they add and returns the rows of x's own."""
         s, demod = self.style_scales(style)
         xs = x * s[:, None, None, :].to(x.dtype)
         w = (self.weight[0] * self.scale).to(x.dtype)  # [Cout, Cin, k, k]
@@ -148,8 +151,9 @@ class ModulatedConv2d(nn.Module):
             # blur with pad (1, 1) brings it to 2H
             out = F.conv_transpose2d(xs.permute(0, 3, 1, 2), w.transpose(0, 1),
                                      stride=2)
+            p0, p1 = self.blur_pad
             out = blur2d(out.permute(0, 2, 3, 1).contiguous(), self.blur_kernel,
-                         pad=self.blur_pad, upsample_factor=2)
+                         pad=(p0, p1, p0 - 2 * halo, p1 - 2 * halo), upsample_factor=2)
         elif w.shape[-1] == 1:
             out = xs @ w[:, :, 0, 0].t()
         else:
@@ -184,15 +188,20 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(cout)
 
-    def forward(self, x, style, noise):
+    def forward(self, x, style, noise, halo: int = 0):
         """x [B, H, W, Cin]; noise [1|B, H', W'] (H' the output height); in
-        x's dtype (noise_w and the bias stay f32 for the kernels)."""
+        x's dtype (noise_w and the bias stay f32 for the kernels). halo: x
+        carries that many neighbour rows above and below its own (a row
+        shard); the output holds the rows of x's own, and noise those."""
         dt = x.dtype
         if not self.conv.upsample:
             s, demod = self.conv.style_scales(style)
-            return styled_conv3x3(x, self.conv.hwio().to(dt), s.to(dt), demod.to(dt),
-                                  noise.to(dt), self.noise.weight, self.activate.bias)
-        out = self.conv(x, style)
+            if halo:  # the kernel pads by its own zero row: drop the halo's output rows
+                noise = F.pad(noise, (0, 0, halo, halo))
+            out = styled_conv3x3(x, self.conv.hwio().to(dt), s.to(dt), demod.to(dt),
+                                 noise.to(dt), self.noise.weight, self.activate.bias)
+            return out[:, halo:out.shape[1] - halo].contiguous() if halo else out
+        out = self.conv(x, style, halo)
         out = out + self.noise.weight.to(dt) * noise.to(dt)[..., None]
         return fused_leaky_relu(out, self.activate.bias)
 
@@ -206,10 +215,12 @@ class ToRGB(nn.Module):
         self.register_buffer("up_kernel", torch.from_numpy(make_kernel(BLUR_KERNEL)),
                              persistent=False)
 
-    def forward(self, x, style, skip=None):
+    def forward(self, x, style, skip=None, halo: int = 0):
+        """halo: skip carries that many neighbour rows above and below
+        (a row shard), which its upsample crops."""
         out = self.conv(x, style) + self.bias.reshape(1, 1, 1, 3).to(x.dtype)
         if skip is not None:
-            out = out + upsample2d(skip, self.up_kernel)
+            out = out + upsample2d(skip, self.up_kernel, halo=halo)
         return out
 
 
@@ -222,6 +233,8 @@ class ConstantInput(nn.Module):
 class Generator(nn.Module):
     """StyleGAN2 generator. ``generator`` (a CPU ``torch.Generator``) seeds
     the random init, with the JAX package's distributions."""
+
+    family, row_sharded = "StyleGAN2", True  # synthesize runs on rows (models/hooks.py)
 
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2,
@@ -284,6 +297,17 @@ class Generator(nn.Module):
         x = self.convs[2 * j + 1](x, lat3[:, 1], noise_b)
         return x, self.to_rgbs[j](x, lat3[:, 2], skip)
 
+    def _block_rows(self, j, x, skip, lat3, noise_a, noise_b):
+        """Block j on this rank's rows (the installed row plan): each conv
+        and the skip upsample take one halo row each side
+        (parallel/spatial.py derives the widths); noise maps are sliced to
+        the rank's output rows."""
+        plan = hooks.row_plan()
+        x = self.convs[2 * j](plan.halo(x), lat3[:, 0], plan.constrain(noise_a), halo=1)
+        x = self.convs[2 * j + 1](plan.halo(x), lat3[:, 1], plan.constrain(noise_b),
+                                  halo=1)
+        return x, self.to_rgbs[j](x, lat3[:, 2], plan.halo(skip), halo=1)
+
     def synthesize(self, latent, noise=None, block_remat: bool = False,
                    dtype: torch.dtype | None = None):
         """latent [B, n_latent, D] -> image [B, size, size, 3] NHWC f32,
@@ -299,7 +323,11 @@ class Generator(nn.Module):
         per block: the backward recomputes one block at a time instead of
         keeping every block's activations. The noise comes in as an input,
         drawn before the region, so the recompute sees the same noise (a
-        checkpoint restores the global RNG, not an explicit generator)."""
+        checkpoint restores the global RNG, not an explicit generator).
+
+        Under a row plan (models/hooks.py, parallel/spatial.py) the blocks
+        from the first that qualifies run on this rank's rows, and the rgb
+        output is gathered whole on every rank."""
         if noise is None:
             noise = [getattr(self.noises, f"noise_{i}")[:, 0]
                      for i in range(num_noise_layers(self.size))]
@@ -311,10 +339,16 @@ class Generator(nn.Module):
         x = x.contiguous()
         x = self.conv1(x, latent[:, 0], noise[0])
         skip = self.to_rgb1(x, latent[:, 1])
+        plan, block = hooks.row_plan(), self._block
         for j in range(len(self.to_rgbs)):
+            if block == self._block and plan is not None and plan.shards_block(x.shape[1]):
+                x, skip, block = hooks.spatial_constrain(x), hooks.spatial_constrain(skip), \
+                    self._block_rows
             args = (j, x, skip, latent[:, 2 * j + 1:2 * j + 4], noise[2 * j + 1],
                     noise[2 * j + 2])
-            x, skip = checkpoint(self._block, *args) if block_remat else self._block(*args)
+            x, skip = checkpoint(block, *args) if block_remat else block(*args)
+        if block != self._block:
+            skip = hooks.spatial_boundary(skip)
         return skip.float()
 
     def forward(self, styles, input_is_latent: bool = False,
@@ -431,7 +465,16 @@ def minibatch_stddev(x, group_size: int = 4):
 
     The group falls back to the largest divisor of the batch <= group_size
     (the reference's view needs batch % group == 0); at a prime batch above
-    the group size that is 1 and the channel is the constant sqrt(1e-8)."""
+    the group size that is 1 and the channel is the constant sqrt(1e-8).
+
+    In a data-parallel step (a gather installed in models/hooks.py) the
+    statistic is taken over the global batch, whose groups (samples i,
+    i + B/g, ...) span ranks as in the JAX step, and each rank keeps its
+    rows; the gather's backward carries every rank's loss to these rows."""
+    local = x
+    gather = hooks.batch_gather()
+    if gather is not None:  # a data-parallel step: the statistic of the global batch
+        x, lo = gather(x)
     b, h, w, c = x.shape
     g = min(b, group_size)
     while b % g:
@@ -444,7 +487,9 @@ def minibatch_stddev(x, group_size: int = 4):
     y = x.reshape(g, b // g, h, w, c)
     std = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
     stat = std.mean((1, 2, 3)).reshape(b // g, 1, 1, 1).repeat(g, h, w, 1)
-    return torch.cat([x, stat.to(x.dtype)], dim=-1)
+    if gather is not None:
+        stat = stat[lo:lo + local.shape[0]]
+    return torch.cat([local, stat.to(local.dtype)], dim=-1)
 
 
 class Discriminator(nn.Module):

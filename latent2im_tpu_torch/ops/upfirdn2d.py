@@ -243,13 +243,15 @@ upfirdn2d_bwd.launches = upfirdn2d_bwd.launches_bf16 = 0
 # StyleGAN2 resampling conventions (JAX ops/upfirdn2d.py:317-343)
 
 
-def upsample2d(x, kernel, factor: int = 2):
+def upsample2d(x, kernel, factor: int = 2, halo: int = 0):
     """x``factor`` upsample with FIR smoothing; the kernel is scaled by
-    factor**2 to keep the mean."""
+    factor**2 to keep the mean. halo: x carries that many neighbour rows
+    above and below its own (a row shard); the y pads crop what they add."""
     kh = kernel.shape[0]
     p = kh - factor
+    p0, p1 = (p + 1) // 2 + factor - 1, p // 2
     return upfirdn2d(x, kernel * (factor ** 2), up=factor, down=1,
-                     pad=((p + 1) // 2 + factor - 1, p // 2))
+                     pad=(p0, p1, p0 - factor * halo, p1 - factor * halo))
 
 
 def downsample2d(x, kernel, factor: int = 2):

@@ -423,9 +423,13 @@ def test_update_gan_resume_reproduces_the_uninterrupted_run(gan_flow):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--n_devices", "2"], "item 15"), (["--sp_devices", "2"], "item 15"),
+    (["--n_devices", "2", "--updateGAN", "--real_data_dir", "x"], "item 15"),
+    (["--sp_devices", "2", "--model", "pggan"], "item 15"),
 ])
 def test_train_refuses_what_is_not_ported(tmp_path, extra, item):
+    """--n_devices and --sp_devices run (tests/test_torch_spatial.py); what
+    item 15 still holds is refused before any rank starts: --updateGAN
+    under a mesh and the PGGAN backends' rows."""
     from latent2im_tpu_torch.cli.train import run
 
     opt = options.TrainOptions().parse(_train_args(str(tmp_path), *extra),

@@ -233,9 +233,11 @@ def test_eval_cli_with_facenet_and_ref_parity(tmp_path, facenet_pair):
 
 
 def test_eval_cli_refuses_multi_device_and_needs_a_device(monkeypatch):
-    opt = argparse.Namespace(n_devices=2, sp_devices=None)
+    """--n_devices / --sp_devices run (tests/test_torch_spatial.py); the
+    rows of a PGGAN are item 15's still, refused before any rank starts."""
+    opt = argparse.Namespace(n_devices=None, sp_devices=2)
     with pytest.raises(NotImplementedError, match="item 15"):
-        peval.run(opt, None, device="cpu")
+        peval.run(opt, argparse.Namespace(model="pggan"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         peval.run(argparse.Namespace(), None)

@@ -45,6 +45,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     bad = []
     files = _port_files()
     assert len(files) > 20
+    # the parallel modes too (their launched ranks import only the port)
+    assert {"mesh.py", "spatial.py", "launch.py", "dryrun.py"} <= {
+        os.path.basename(f) for f in files if os.sep + "parallel" + os.sep in f}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
