@@ -13,9 +13,11 @@ GAN fine-tune, --updateGAN (21-24), and z-space editing with the PGGAN
 backends (25-28), the geometric and color walks with the dsprites
 sliders, LPIPS and parity_check (29-32), bf16 compute, --bf16, with the
 kernels' bf16 instances (33-37), JPEG input (38), the regressor
-trainer, its loader, StyleGAN1 and compat (39-42), and data and spatial
-parallelism over torch.distributed (43-46). Phases (a failed phase
-raises, and the script exits non-zero):
+trainer, its loader, StyleGAN1 and compat (39-42), data and spatial
+parallelism over torch.distributed (43-46), and tensor parallelism with the
+styled conv split at its all-reduce, --updateGAN under a mesh and sp of
+PGGAN and StyleGAN1 (47-50). Phases (a failed phase raises, and the script
+exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -64,14 +66,15 @@ raises, and the script exits non-zero):
  13. the 1024 px edit server (serve_batch 8): apply_alpha at B=8 (CUDA
      events, then once under torch.profiler) and one /edit of 8, counted,
      equal to apply_alpha's uint8 images under deterministic cuDNN;
- 14. 1024 px walk training (B=8, Smiling, linear_w, full towers) under five
-     configurations: plain, --remat_g, --remat_g block, --remat_g block
-     --remat_towers, --reg_input_size 256 --content_input_size 256; G's
+ 14. walk training (B=8, Smiling, linear_w, full towers) under five
+     configurations: plain at 1024 px; --remat_g, --remat_g block, --remat_g
+     block --remat_towers, --reg_input_size 256 --content_input_size 256 at
+     512 px (SIZE_MID, cut from 1024 px for the time budget); G's
      noise weights set to 0.3 (the seeded init's are 0, a trained G's are
      not); per configuration ms per train_loop step (mean and spread),
      samples/s, peak GB, and launch counts equal to the plain step's plus
      one forward of each checkpointed region (remat_extra); each remat
-     configuration's step held to the plain step from the same state,
+     configuration's step held to the plain 512 px step from the same state,
      alphas and fresh noise (loss terms 1e-5 relative, the walk gradient
      within phase 9's bound, which another noise draw must exceed); one
      plain step under torch.profiler;
@@ -217,12 +220,35 @@ raises, and the script exits non-zero):
  46. a one-rank NCCL group running the dp path against the same one-process
      run (path "dp_nccl"). Two ranks on one card measure overhead, not
      speedup; the NCCL path across cards is not run on one card.
+ 47. the styled conv's tensor-parallel split, ops.styled_conv3x3_partial
+     and ops.styled_conv3x3_epilogue, at the Cin/2 shard of every partner
+     conv of the 256 px (B=4) and 1024 px (B=2) models, f32 and bf16, held
+     to their plain versions at #5's gates (1e-5 and 2^-7 of max|ref|),
+     timed beside their bounds and library calls (cuDNN's grouped conv on
+     the shard; F.leaky_relu(acc * d + noise_w * noise + b) * sqrt(2));
+ 48. the tp training step on two gloo ranks sharing the card (a 1 x 2 data
+     x model mesh, G tensor-parallel through frozen_tp_shardings) at full
+     width: 256 px B=4 in f32 and bf16, 1024 px B=2 in bf16; the loss terms
+     within 1e-6 (f32) or 2^-8 (bf16) relative of the one-process step's,
+     the walk gradient by phase 9's rule against the f64 step (the f32
+     steps under deterministic cuDNN), ms per step by rank, the
+     all-reduces' ms, calls and bytes, launches (path "tp");
+ 49. --updateGAN on a 2-rank data mesh at 256 px (cli/train.py's provider,
+     rank 0's D and G steps, G and D broadcast each iteration): G and D
+     equal on both ranks, the broadcast's bytes and ms (path "gan_mesh");
+ 50. sp of model_256 PGGAN (apply_alpha, B=4) and StyleGAN1 (step 8, B=1)
+     on the same two ranks against one process within 1e-5 relative L2.
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
-1024 px training step under cuDNN's default and deterministic algorithms.
+512 px training step (B=8) under cuDNN's default and deterministic
+algorithms. The CPU halves of phases 9, 16 and 20 (f32 steps on the CPU
+and their f64 references) run in one worker process of CPU_REF_THREADS
+threads, started with the script, while the card runs (CpuReferences).
 Phase 3 times fused_act's backward as both main paths call it (dx only;
 the towers are frozen), and holds its bias gradient apart at one shape.
-It ends with one JSON line of the kernels' numbers (the five f32 rows, then
-the five bf16 rows, "fused_act[bf16]", ...) and, last, the line
+It prints the seconds of each group of phases, then one JSON line of the
+kernels' numbers (the five f32 rows, the five bf16 rows, "fused_act[bf16]",
+..., then the split's four, "styled_conv3x3_partial" ...; every row has a
+"tp" path) and, last, the line
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -1037,13 +1063,87 @@ def reference_step(ed, w0, z, sampled, dtype):
             latent_new.grad.double().cpu().numpy())
 
 
+# threads of the worker that computes the CPU references while the card runs
+# (the card's process keeps the other cores)
+CPU_REF_THREADS = 4
+
+
+def _cpu_worker_init():
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+class CpuReferences:
+    """The CPU halves of phases 9, 16 and 20 (f32 steps on the CPU and f64
+    references, ~150 s of CPU work), computed in one worker process started
+    with the script, so that the card's phases run meanwhile; each phase
+    takes its half with ``get`` (waiting if it is not done). ``close`` stops
+    the worker."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker_init)
+        self.jobs = {"train": self.pool.submit(train_cpu_side, (), F64_SIZE),
+                     "gp": self.pool.submit(gp_cpu_side)}
+        for kind, flags in WALK_KINDS:
+            self.jobs[kind] = self.pool.submit(train_cpu_side, flags, SIZE)
+
+    def get(self, key):
+        return self.jobs[key].result()
+
+    def close(self):
+        for job in self.jobs.values():
+            job.cancel()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
 def rel_l2(a, b):
     import numpy as np
 
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def train_cpu_phase(*flags, towers_term: bool = False, size=F64_SIZE):
+def train_cpu_side(flags=(), size=F64_SIZE):
+    """The CPU half of ``train_cpu_phase``: the f32 step on the CPU and the
+    f64 reference of the same step (numpy), from the seeded editor of
+    ``flags`` at ``size`` px. Runs in the CPU reference worker
+    (``CpuReferences``) or in place."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    conf = train_conf("--fixed_noise", *flags, size=size)
+    z = np.random.RandomState(8).randn(CMP_BATCH, 512).astype(np.float32)
+    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
+    ed, walk, _ = build_editor_from_options(conf, device="cpu")
+    w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+    for t in walk_leaves(walk):
+        t.requires_grad_(True)
+    step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate), host_alpha=True)
+    t = time.perf_counter()
+    m = step(walk, z, sampled=sampled)
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "grad": np.concatenate([p.grad.detach().numpy().astype(np.float64).ravel()
+                                   for p in walk_leaves(walk)]),
+           "cpu_step_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    for m in (ed.g, ed.reg, ed.vgg, ed.d):  # the CPU editor, in f64
+        m.double()
+    out["ref"] = reference_step(ed, w0, z, sampled, torch.float64)
+    out["cpu_f64_reference_s"] = time.perf_counter() - t
+    return out
+
+
+def train_cpu_phase(*flags, towers_term: bool = False, size=F64_SIZE, cpu=None):
     """One step (``size`` px, B=2, stored noise, host alphas) from the same
     seed on cuda and on cpu through make_train_step: loss terms within 1e-3. The walk
     gradient of an f32 step at full width is fixed only to ~1e-3 (rounding
@@ -1056,7 +1156,8 @@ def train_cpu_phase(*flags, towers_term: bool = False, size=F64_SIZE):
     train_conf by default). towers_term also admits 1.5 x that towers'
     error, itself held within TOWERS_F32_MAX: a walk's gradient cannot be
     closer to f64 than the gradient it is fed, and where its edit lands
-    decides how many kinks the f32 towers flip."""
+    decides how many kinks the f32 towers flip. cpu: ``train_cpu_side``'s
+    result for the same flags and size (computed here when None)."""
     import numpy as np
     import torch
 
@@ -1065,32 +1166,26 @@ def train_cpu_phase(*flags, towers_term: bool = False, size=F64_SIZE):
     from latent2im_tpu_torch.tasks.transforms import get_task
     from latent2im_tpu_torch.walks import walk_leaves, walk_map
 
+    cpu = cpu or train_cpu_side(flags, size)
     conf = train_conf("--fixed_noise", *flags, size=size)
     z = np.random.RandomState(8).randn(CMP_BATCH, 512).astype(np.float32)
     sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(9), CMP_BATCH, 1)
-    res, out = {}, {}
-    for device in ("cuda", "cpu"):
-        ed, walk, _ = build_editor_from_options(conf, device=device)
-        w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
-        for t in walk_leaves(walk):
-            t.requires_grad_(True)
-        step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate),
-                               host_alpha=True)
-        t = time.perf_counter()
-        m = step(walk, z, sampled=sampled)
-        res[device] = ({k: float(v) for k, v in m.items()}, np.concatenate(
-            [p.grad.detach().cpu().numpy().astype(np.float64).ravel()
-             for p in walk_leaves(walk)]))
-        out[f"{device}_step_s"] = time.perf_counter() - t
-        if device == "cuda":  # the card's own spread: the same step again
-            res["cuda_again"] = reference_step(ed, w0, z, sampled, torch.float32)
-        del step, walk
+    res, out = {}, {k: cpu[k] for k in ("cpu_step_s", "cpu_f64_reference_s")}
+    ed, walk, _ = build_editor_from_options(conf, device="cuda")
+    w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+    for t in walk_leaves(walk):
+        t.requires_grad_(True)
+    step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate), host_alpha=True)
     t = time.perf_counter()
-    for m in (ed.g, ed.reg, ed.vgg, ed.d):  # the CPU editor, in f64
-        m.double()
-    ref, ref_grad, ref_latent_grad = reference_step(ed, w0, z, sampled, torch.float64)
-    out["cpu_f64_reference_s"] = time.perf_counter() - t
-    (mg, gg), (mc, gc) = res["cuda"], res["cpu"]
+    m = step(walk, z, sampled=sampled)
+    res["cuda"] = ({k: float(v) for k, v in m.items()}, np.concatenate(
+        [p.grad.detach().cpu().numpy().astype(np.float64).ravel() for p in walk_leaves(walk)]))
+    out["cuda_step_s"] = time.perf_counter() - t
+    # the card's own spread: the same step again
+    res["cuda_again"] = reference_step(ed, w0, z, sampled, torch.float32)
+    del step, walk, ed
+    ref, ref_grad, ref_latent_grad = cpu["ref"]
+    (mg, gg), (mc, gc) = res["cuda"], (cpu["metrics"], cpu["grad"])
     for k in ("loss", "reg_loss", "content_loss", "gan_loss"):
         rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
         out[f"{k}_rel"] = rel
@@ -1327,14 +1422,18 @@ SIZE_HI, BATCH_HI, TRAIN_HI_STEPS = 1024, 8, 6
 # G's noise weights in phase 14: non-zero, so the edited synthesis's fresh
 # noise reaches the gradient that the remat steps are held to
 NOISE_WEIGHT = 0.3
-# (name, EditorConfig fields, the CLI flags that set them)
+# phase 14's remat and input-size configurations run at this size (cut
+# from 1024 px to hold the script to its time budget); plain stays at
+# SIZE_HI
+SIZE_MID = 512
+# (name, size, EditorConfig fields, the CLI flags that set them)
 TRAIN_HI_CONFIGS = (
-    ("plain", {}, ()),
-    ("remat_g", {"remat_g": "all"}, ("--remat_g",)),
-    ("remat_g block", {"remat_g": "block"}, ("--remat_g", "block")),
-    ("remat_g block + remat_towers", {"remat_g": "block", "remat_towers": True},
+    ("plain", SIZE_HI, {}, ()),
+    ("remat_g", SIZE_MID, {"remat_g": "all"}, ("--remat_g",)),
+    ("remat_g block", SIZE_MID, {"remat_g": "block"}, ("--remat_g", "block")),
+    ("remat_g block + remat_towers", SIZE_MID, {"remat_g": "block", "remat_towers": True},
      ("--remat_g", "block", "--remat_towers")),
-    ("input sizes 256", {"reg_input_size": 256, "content_input_size": 256},
+    ("input sizes 256", SIZE_MID, {"reg_input_size": 256, "content_input_size": 256},
      ("--reg_input_size", "256", "--content_input_size", "256")),
 )
 # the fixture gates of tests/test_parity_fullscale.py:32-45, of image scale
@@ -1431,11 +1530,11 @@ def edit_1024_phase(results_hi, dev):
     return out
 
 
-def remat_extra(flags) -> dict:
+def remat_extra(flags, size=SIZE_HI) -> dict:
     """Launches a step's backward adds by recomputing its checkpointed
     regions (utils/remat.py re-runs a whole region): the edited synthesis
     ('all': conv1 and every block; 'block': the blocks), and D."""
-    nb = int(math.log2(SIZE_HI)) - 2  # synthesis blocks = D's res blocks
+    nb = int(math.log2(size)) - 2  # synthesis blocks = D's res blocks
     extra = {"fused_act": 0, "upfirdn2d": 0, "styled_conv3x3": 0}
     if flags.get("remat_g"):
         extra["fused_act"] += nb  # the up convs' activation
@@ -1448,13 +1547,14 @@ def remat_extra(flags) -> dict:
 
 
 def train_1024_phase(results_hi, grad_limit, dev):
-    """train_loop at 1024 px, B=8 (Smiling, linear_w, full towers) under the
-    five configurations of TRAIN_HI_CONFIGS: a warmup step, then
-    TRAIN_HI_STEPS counted and timed steps each; then one step of each remat
-    configuration against the plain step from the same walk, z, host alphas
-    and seeded noise generator. G's noise weights are NOISE_WEIGHT
-    throughout. Saves the last configuration's walk and opt.yml for phase
-    15."""
+    """train_loop at B=8 (Smiling, linear_w, full towers) under the five
+    configurations of TRAIN_HI_CONFIGS, plain at 1024 px and the others at
+    SIZE_MID: a warmup step, then TRAIN_HI_STEPS counted and timed steps
+    each; then one step of each remat configuration against the plain step
+    at SIZE_MID from the same walk, z, host alphas and seeded noise
+    generator. G's noise weights are NOISE_WEIGHT throughout. Saves the
+    plain configuration's walk and an opt.yml with the 256 px input sizes
+    for phase 15."""
     import dataclasses
 
     import numpy as np
@@ -1468,31 +1568,39 @@ def train_1024_phase(results_hi, grad_limit, dev):
     from latent2im_tpu_torch.tasks.transforms import get_task
 
     root = os.path.join(REPO, "chiprun_out", "train1024")
-    conf = train_conf(*TRAIN_HI_CONFIGS[-1][2], size=SIZE_HI, batch=BATCH_HI, root=root,
+    conf = train_conf(*TRAIN_HI_CONFIGS[-1][3], size=SIZE_HI, batch=BATCH_HI, root=root,
                       print_opt=True)  # writes opt.yml
-    t0 = time.perf_counter()
-    base, walk, _ = build_editor_from_options(conf)  # cuda: the default
-    assert base.cfg.reg_input_size == 256 and base.d is not None and base.vgg is not None
-    log(f"    1024 px editor with D and VGG19 built in {time.perf_counter() - t0:.1f} s")
-    with torch.no_grad():
-        noise_ws = [p for n, p in base.g.named_parameters() if n.endswith("noise.weight")]
-        for p in noise_ws:
-            p.fill_(NOISE_WEIGHT)
-    assert len(noise_ws) == 2 * int(math.log2(SIZE_HI)) - 3, len(noise_ws)
-    w0 = walk["w"].detach().clone()
+    bases, w0 = {}, {}
+    for size, c in ((SIZE_HI, conf), (SIZE_MID, train_conf(size=SIZE_MID, batch=BATCH_HI))):
+        t0 = time.perf_counter()
+        bases[size], walk, _ = build_editor_from_options(c)  # cuda: the default
+        assert bases[size].d is not None and bases[size].vgg is not None
+        log(f"    {size} px editor with D and VGG19 built in {time.perf_counter() - t0:.1f} s")
+        with torch.no_grad():
+            noise_ws = [p for n, p in bases[size].g.named_parameters()
+                        if n.endswith("noise.weight")]
+            for p in noise_ws:
+                p.fill_(NOISE_WEIGHT)
+        assert len(noise_ws) == 2 * int(math.log2(size)) - 3, len(noise_ws)
+        w0[size] = walk["w"].detach().clone()
+    assert bases[SIZE_HI].cfg.reg_input_size == int(TRAIN_HI_CONFIGS[-1][3][1])
     task = get_task("face")
     lr = conf.learning_rate
-    per_step = {n: r["train_step"]["launches"] for n, r in results_hi.items()}
+    per_step = {SIZE_HI: {n: r["train_step"]["launches"] for n, r in results_hi.items()},
+                SIZE_MID: {n: 0 for n in SOURCE}}
+    for (n, _), (_, per_train) in main_path_shapes(SIZE_MID, BATCH_HI).items():
+        per_step[SIZE_MID][n] += per_train
 
-    def editor(fields):
+    def editor(fields, size=SIZE_MID):
+        base = bases[size]
         cfg = dataclasses.replace(base.cfg, **{"reg_input_size": None,
                                                "content_input_size": None, **fields})
         return Editor(cfg, base.g, base.reg, base.device, vgg=base.vgg, d=base.d)
 
     out = {"configs": {}}
-    for name, fields, flags in TRAIN_HI_CONFIGS:
-        ed = editor(fields)
-        wp = {"w": w0.clone()}
+    for name, size, fields, flags in TRAIN_HI_CONFIGS:
+        ed = editor(fields, size)
+        wp = {"w": w0[size].clone()}
         run = dict(batch_size=BATCH_HI, n_epochs=1, lr=lr, log_every=1)
         wp, _ = train_loop(ed, task, wp, num_samples=BATCH_HI, **run)  # warmup
         torch.cuda.synchronize()
@@ -1510,12 +1618,12 @@ def train_1024_phase(results_hi, grad_limit, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        extra = remat_extra(fields)
-        expect = {k: TRAIN_HI_STEPS * (v + extra.get(k, 0)) for k, v in per_step.items()}
+        extra = remat_extra(fields, size)
+        expect = {k: TRAIN_HI_STEPS * (v + extra.get(k, 0)) for k, v in per_step[size].items()}
         assert counts == expect, (name, counts, expect)
         assert len(metrics) == TRAIN_HI_STEPS and all(
             math.isfinite(v) for m in metrics for v in m.values()), metrics
-        r = {"flags": " ".join(flags), "steps": TRAIN_HI_STEPS, "batch": BATCH_HI,
+        r = {"flags": " ".join(flags), "size": size, "steps": TRAIN_HI_STEPS, "batch": BATCH_HI,
              "step_ms_cuda_events": ev0.elapsed_time(ev1) / TRAIN_HI_STEPS,
              # each step's wall time up to reading its metrics (synchronising)
              "step_ms_wall": [dt * 1e3 for dt in step_s],
@@ -1524,22 +1632,25 @@ def train_1024_phase(results_hi, grad_limit, dev):
              "launches": counts, "recompute_launches_per_step": extra,
              "last": metrics[-1]}
         out["configs"][name] = r
-        log(f"    {name}: {r['step_ms_cuda_events']:.1f} ms per step (wall per step "
+        log(f"    {name} ({size} px): {r['step_ms_cuda_events']:.1f} ms per step (wall per step "
             f"{min(r['step_ms_wall']):.1f}-{max(r['step_ms_wall']):.1f}), "
             f"{r['samples_per_s']:.2f} samples/s, peak {r['peak_mem_gb']:.2f} GB, "
             f"launches {counts} (recompute per step {extra})")
-        walk = wp
+        if size == SIZE_HI:
+            walk = wp  # the walk phase 15 evaluates
         del ed
         torch.cuda.empty_cache()
 
-    # remat against plain from the same state: one make_train_step step
-    # each, host alphas, so the seeded generator draws only the noise
+    # remat against plain from the same state at SIZE_MID: one
+    # make_train_step step each, host alphas, so the seeded generator draws
+    # only the noise
     rng = np.random.RandomState(22)
-    z = torch.from_numpy(rng.randn(BATCH_HI, base.cfg.dim_z).astype(np.float32))
-    sampled, _ = task.train_alpha_np(rng, BATCH_HI, len(base.cfg.attr_list))
+    z = torch.from_numpy(rng.randn(BATCH_HI, bases[SIZE_MID].cfg.dim_z)
+                         .astype(np.float32))
+    sampled, _ = task.train_alpha_np(rng, BATCH_HI, len(bases[SIZE_MID].cfg.attr_list))
 
     def one_step(fields, noise_seed=5):
-        w = {"w": w0.clone().requires_grad_(True)}
+        w = {"w": w0[SIZE_MID].clone().requires_grad_(True)}
         step = make_train_step(editor(fields), task, make_optimizer(w, lr), host_alpha=True)
         m = step(w, z, torch.Generator(device=dev).manual_seed(noise_seed), sampled)
         terms = {k: float(m[k]) for k in ("loss", "reg_loss", "content_loss", "gan_loss")}
@@ -1547,21 +1658,22 @@ def train_1024_phase(results_hi, grad_limit, dev):
         torch.cuda.empty_cache()
         return terms, grad
 
-    w = {"w": w0.clone().requires_grad_(True)}
+    # at SIZE_MID (a deterministic 1024 px step took 25.8 s on an H100 at
+    # 700 W); one turn each
+    w = {"w": w0[SIZE_MID].clone().requires_grad_(True)}
     step = make_train_step(editor({}), task, make_optimizer(w, lr), host_alpha=True)
-    # one turn each: a deterministic step takes ~25 s on an H100 at 700 W
     out["deterministic_cudnn"] = determinism_cost(
         lambda: step(w, z, torch.Generator(device=dev).manual_seed(5), sampled),
         warmup=1, iters=1, turns=("default", "deterministic"))
-    log(f"    one plain step under cuDNN's default and deterministic algorithms: "
+    log(f"    one plain {SIZE_MID} px step under cuDNN's default and deterministic algorithms: "
         f"{json.dumps(out['deterministic_cudnn'])}")
     del step, w
     torch.cuda.empty_cache()
     plain_terms, plain_grad = one_step({})
     again_terms, again_grad = one_step({})
     _, other_noise_grad = one_step({}, noise_seed=7)
-    w = {"w": w0.clone().requires_grad_(True)}
-    step = make_train_step(editor({}), task, make_optimizer(w, lr))
+    w = {"w": w0[SIZE_HI].clone().requires_grad_(True)}
+    step = make_train_step(editor({}, SIZE_HI), task, make_optimizer(w, lr))
     out["profile"] = profile_call(
         lambda: step(w, z, torch.Generator(device=dev).manual_seed(6)),
         f"train_step_{SIZE_HI}_trace.json")
@@ -1572,8 +1684,8 @@ def train_1024_phase(results_hi, grad_limit, dev):
     # a remat step whose recompute drew other noise would be this far off
     out["other_noise_vs_plain"] = {"grad_rel_l2": rel_l2(other_noise_grad, plain_grad)}
     assert out["other_noise_vs_plain"]["grad_rel_l2"] > grad_limit, out
-    out["remat_vs_plain"] = {"grad_limit": grad_limit}
-    for name, fields, _ in TRAIN_HI_CONFIGS[1:4]:
+    out["remat_vs_plain"] = {"grad_limit": grad_limit, "size": SIZE_MID}
+    for name, _, fields, _ in TRAIN_HI_CONFIGS[1:4]:
         terms, grad = one_step(fields)
         cmp_ = {"grad_rel_l2": rel_l2(grad, plain_grad),
                 "terms_rel": {k: abs(terms[k] - v) / abs(v) for k, v in plain_terms.items()}}
@@ -1711,19 +1823,11 @@ def gp_grads(d, x_hat):
                        for n, p, g in zip(names, params, grads)}
 
 
-def gp_phase(dev, enforce: bool = True):
-    """The gradient of the gradient penalty wrt D's parameters at F64_SIZE
-    px, full width, B=4 (seeded weights, biases off zero): on the card, and in
-    f32 on the CPU, each against f64 on the CPU, per parameter by relative
-    L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
-    form). enforce=False only reports, for a tree whose backward kernels
-    drop the second-order terms."""
-    import copy
-
+def _gp_inputs():
+    """Phase 16's seeded D (F64_SIZE px, biases off zero) and x_hat."""
     import numpy as np
     import torch
 
-    from latent2im_tpu_torch import ops
     from latent2im_tpu_torch.models.stylegan2 import Discriminator
 
     gen = torch.Generator().manual_seed(16)
@@ -1736,7 +1840,37 @@ def gp_phase(dev, enforce: bool = True):
     real, fake = (rng.randn(BATCH, F64_SIZE, F64_SIZE, 3).astype(np.float32)
                   for _ in range(2))
     eps = rng.uniform(size=(BATCH, 1, 1, 1)).astype(np.float32)
-    x_hat = torch.from_numpy(eps * real + (1.0 - eps) * fake)
+    return d, torch.from_numpy(eps * real + (1.0 - eps) * fake)
+
+
+def gp_cpu_side():
+    """The CPU half of ``gp_phase``: the penalty and its gradient in f32 and
+    in f64 on the CPU -> (gp f32, grads f32, gp f64, grads f64, seconds)."""
+    import copy
+
+    d, x_hat = _gp_inputs()
+    t = time.perf_counter()
+    gp_cpu, g_cpu = gp_grads(d, x_hat)
+    gp_f64, g_f64 = gp_grads(copy.deepcopy(d).double(), x_hat.double())
+    return gp_cpu, g_cpu, gp_f64, g_f64, time.perf_counter() - t
+
+
+def gp_phase(dev, enforce: bool = True, cpu=None):
+    """The gradient of the gradient penalty wrt D's parameters at F64_SIZE
+    px, full width, B=4 (seeded weights, biases off zero): on the card, and in
+    f32 on the CPU, each against f64 on the CPU, per parameter by relative
+    L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
+    form). enforce=False only reports, for a tree whose backward kernels
+    drop the second-order terms. cpu: ``gp_cpu_side()``'s result (computed
+    here when None)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+
+    d, x_hat = _gp_inputs()
     d_card = copy.deepcopy(d).to(dev)
     gp_grads(d_card, x_hat.to(dev))  # warm
     torch.cuda.synchronize()
@@ -1747,10 +1881,8 @@ def gp_phase(dev, enforce: bool = True):
     ev1.record()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    t = time.perf_counter()
-    gp_cpu, g_cpu = gp_grads(d, x_hat)
-    gp_f64, g_f64 = gp_grads(copy.deepcopy(d).double(), x_hat.double())
-    out = {"card_ms": ev0.elapsed_time(ev1), "cpu_s": time.perf_counter() - t,
+    gp_cpu, g_cpu, gp_f64, g_f64, cpu_s = cpu or gp_cpu_side()
+    out = {"card_ms": ev0.elapsed_time(ev1), "cpu_s": cpu_s,
            "gp": {"card": gp_card, "cpu_f32": gp_cpu, "cpu_f64": gp_f64},
            "launches": counts, "groups": {}}
     scale = max(np.abs(g).max() for g in g_f64.values())
@@ -1978,7 +2110,7 @@ def real_image_flow_phase(cli):
     return out
 
 
-def walk_kinds_phase(results, dev):
+def walk_kinds_phase(results, dev, refs=None):
     """train_loop at 256 px, B=4 for each new W-space walk (mlp_w from
     --is_mlp, nn_w from --walk_type NNz): a warmup step, then WALK_STEPS
     counted and timed steps (the towers' launches per step are linear_w's);
@@ -2042,20 +2174,22 @@ def walk_kinds_phase(results, dev):
         del ed, walk, back, back2
         torch.cuda.empty_cache()
         # at SIZE: at F64_SIZE the card's own f32 spread (2.9e-3) reached the bound
-        r["cpu_vs_card"] = train_cpu_phase(*flags, towers_term=True, size=SIZE)
+        r["cpu_vs_card"] = train_cpu_phase(*flags, towers_term=True, size=SIZE,
+                                           cpu=refs and refs.get(kind))
         torch.cuda.empty_cache()
         out[kind] = r
     return out
 
 
-def late_phases(card, dev, results, cli):
+def late_phases(card, dev, results, cli, refs=None):
     """Phases 16-20 -> their reports and, under "launches", each path's
-    launch counts (gp, bp, bp_cli, bp_1024, walk_mlp_w, walk_nn_w)."""
+    launch counts (gp, bp, bp_cli, bp_1024, walk_mlp_w, walk_nn_w). refs:
+    the CpuReferences worker holding phases 16 and 20's CPU halves."""
     import torch
 
     log(f"[16] the gradient penalty's gradient wrt D's parameters ({F64_SIZE} px, B={BATCH}): "
         "second derivatives through the backward kernels, card against f64 on the CPU")
-    gp = gp_phase(dev)
+    gp = gp_phase(dev, cpu=refs and refs.get("gp"))
     log(f"    penalty {json.dumps(gp['gp'])}; worst group {json.dumps(gp['worst'])}; "
         f"card {gp['card_ms']:.2f} ms (CUDA events), launches {json.dumps(gp['launches'])}")
     log("    per parameter, relative L2 to f64 (card, CPU f32, bound): " + ", ".join(
@@ -2089,7 +2223,7 @@ def late_phases(card, dev, results, cli):
         f"{json.dumps(inv_hi['launches_per_loop'])}, on {card}")
 
     log(f"[20] the mlp_w and nn_w walks at {SIZE} px, train_loop B={BATCH}")
-    walks = walk_kinds_phase(results, dev)
+    walks = walk_kinds_phase(results, dev, refs)
     for kind, r in walks.items():
         log(f"    {kind}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
             f"{WALK_STEPS} steps), peak {r['peak_mem_gb']:.2f} GB, loss "
@@ -2299,16 +2433,20 @@ def plain_kernels():
                                                  tuple(in_hw), tuple(g.shape[1:3]))
         return ud.upfirdn2d_plain(g, torch.flip(k, (0, 1)), gup, gdown, gpads)
 
-    saved = (fa._forward, fa._backward, ud._forward, ud._backward, sc._forward)
+    saved = (fa._forward, fa._backward, ud._forward, ud._backward, sc._forward,
+             sc._partial_forward, sc._epilogue_forward)
     fa._forward = fa.fused_leaky_relu_plain
     fa._backward = lambda g, out, ns, scale: fa.fused_leaky_relu_bwd_plain(
         g, out, ns, scale, bias_grad=False)[0]
     ud._forward, ud._backward = ud.upfirdn2d_plain, ufd_backward
     sc._forward = sc.styled_conv3x3_plain
+    sc._partial_forward = sc.styled_conv3x3_partial_plain
+    sc._epilogue_forward = sc.styled_conv3x3_epilogue_plain
     try:
         yield
     finally:
-        fa._forward, fa._backward, ud._forward, ud._backward, sc._forward = saved
+        (fa._forward, fa._backward, ud._forward, ud._backward, sc._forward,
+         sc._partial_forward, sc._epilogue_forward) = saved
 
 
 # The gradient of a noise map sums 2 * C terms per pixel, each behind its own
@@ -4511,16 +4649,16 @@ def shard_kernel_phase(dev):
     return {"worst_err_over_ref": worst, "cases": len(details), "details": details}
 
 
-def _par_editor(size, batch, dev):
+def _par_editor(size, batch, dev, *flags):
     """train_conf's seeded full-width editor at ``size`` px (the stored
-    noise maps, so that an f64 step can repeat its noise), G's noise weights
-    NOISE_WEIGHT -> (editor, walk)."""
+    noise maps, so that an f64 step can repeat its noise; ``flags`` more
+    options), G's noise weights NOISE_WEIGHT -> (editor, walk)."""
     import torch
 
     from latent2im_tpu_torch.engine.build import build_editor_from_options
 
-    ed, walk, _ = build_editor_from_options(train_conf("--fixed_noise", size=size, batch=batch),
-                                            device=dev)
+    ed, walk, _ = build_editor_from_options(
+        train_conf("--fixed_noise", *flags, size=size, batch=batch), device=dev)
     with torch.no_grad():
         for name, p in ed.g.named_parameters():
             if name.endswith("noise.weight"):
@@ -4829,6 +4967,509 @@ def parallel_phases(card, dev):
     out["launches"] = launches
     return out
 
+# ---------------------------------------------------------------------------
+# phases 47-49: tensor parallelism, --updateGAN under a mesh
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2  # the model axis: two ranks sharing the card over gloo
+# (name, size, batch, extra flags): the tp step's configurations
+TP_RUNS = (("f32_256", SIZE, BATCH, ()), ("bf16_256", SIZE, BATCH, ("--bf16",)),
+           ("bf16_1024", SIZE_HI, 2, ("--bf16",)))
+TP_TIMED = 3
+# a tp step's loss terms against one process's on the card: f32 1e-6
+# (relative); bf16 one bf16 rounding, 2^-8, at these inputs: the partial
+# sums' other order flips some of the bf16 roundings of the activations
+# (tests/test_torch_tp.py reads 1.3e-4 on the CPU). Two correct bf16 forms
+# of the step (the kernels, the plain versions) lie up to 1.4e-2 apart at
+# other inputs (scripts/torch_tp_bf16_witness.py), so phase 48 also holds
+# every term to the f64 step by phase 9's rule, with this as its floor
+TP_LOSS_RTOL = {"f32": 1e-6, "bf16": 2.0 ** -8}
+SPLIT_SOURCE = ("latent2im_tpu_torch/ops/csrc/styled_conv3x3.cu",
+                "latent2im_tpu/ops/pair_conv.py:142")
+SPLIT = ("styled_conv3x3_partial", "styled_conv3x3_epilogue")
+
+
+def tp_cases(size, b, n=TP_RANKS):
+    """Each partner (non-up 3x3) conv of the ``size`` px model at batch b on
+    one of n model ranks: (B, H, W, Cin / n, Cout)."""
+    from latent2im_tpu_torch.models.stylegan2 import channel_table
+
+    ch = channel_table(2)
+    return [(b, 2 ** i, 2 ** i, ch[2 ** i] // n, ch[2 ** i])
+            for i in range(3, int(math.log2(size)) + 1)]
+
+
+def split_kernel_cases(name, case, gen, dev, dtype):
+    """The styled conv's split at a tp shard case -> (kernel call, plain
+    call, library call, bytes, flops, the input). The partial's library call
+    is the rosinality grouped conv on the shard (per-sample weights w * s,
+    cuDNN, in x's dtype); the epilogue's F.leaky_relu(acc * d + noise_w *
+    noise + b) * sqrt(2) on the same f32 sums, in the result's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from latent2im_tpu_torch import ops
+
+    bsz, h, wd, cin, cout = case
+    esz = torch.finfo(dtype).bits // 8
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    if name == "styled_conv3x3_partial":
+        x = randn(bsz, h, wd, cin).to(dtype)
+        w = (randn(3, 3, cin, cout) / math.sqrt(18 * cin)).to(dtype)
+        s = (1.0 + 0.2 * randn(bsz, cin)).to(dtype)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            wt = (w_oihw[None].float() * s.float()[:, None, :, None, None]).to(dtype)
+            return F.conv2d(x_nchw.reshape(1, bsz * cin, h, wd), wt.reshape(bsz * cout, cin, 3, 3),
+                            padding=1, groups=bsz)
+
+        nbytes = esz * (x.numel() + w.numel() + s.numel()) + 4 * bsz * h * wd * cout
+        return (lambda: ops.styled_conv3x3_partial(x, w, s),
+                lambda: ops.styled_conv3x3_partial_plain(x, w, s), library, nbytes,
+                2 * bsz * h * wd * 9 * cin * cout, x)
+    acc = randn(bsz, h, wd, cout)
+    d = (0.1 * randn(bsz, cout) + 1.0).to(dtype)
+    noise, nw, bias = randn(1, h, wd).to(dtype), torch.full((1,), 0.3, device=dev), 0.1 * randn(cout)
+    sqrt2 = math.sqrt(2.0)
+
+    def library():
+        return (F.leaky_relu(acc * d.float()[:, None, None, :] + nw * noise.float()[..., None]
+                             + bias, 0.2) * sqrt2).to(dtype)
+
+    n = acc.numel()
+    nbytes = 4 * n + esz * (d.numel() + noise.numel() + n) + 4 * (1 + cout)
+    return (lambda: ops.styled_conv3x3_epilogue(acc, d, noise, nw, bias),
+            lambda: ops.styled_conv3x3_epilogue_plain(acc, d, noise, nw, bias), library,
+            nbytes, 6 * n, acc)
+
+
+def tp_kernel_phase(dev):
+    """Phase 47: the split's partial and epilogue at the tp shard shape of
+    every partner conv of the 256 px (B=4) and 1024 px (B=2) models, f32 and
+    bf16, each held to its plain version (TOL and TOL_BF16 of the styled
+    conv, of max|ref|); timed (CUDA events, and on the device clock) beside
+    its bound and library call. -> {(size, dtype, kernel): sums over the
+    partner convs of one synthesis}, the details, worst error / max|ref|."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+
+    gen = torch.Generator(device=dev).manual_seed(47)
+    sums, details, worst = {}, [], {}
+    for size, batch in ((SIZE, BATCH), (SIZE_HI, 2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tol = TOL_BF16["styled_conv3x3"] if bf16 else TOL["styled_conv3x3"]
+            rate = BF16_FLOPS if bf16 else TF32_FLOPS / 3
+            for case in tp_cases(size, batch):
+                for name in SPLIT:
+                    kern, plain, lib, nbytes, flops, inp = split_kernel_cases(
+                        name, case, gen, dev, dtype)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    err, scale = _max_err(got, want)
+                    if got.dtype != want.dtype or not (math.isfinite(err) and err <= tol * scale):
+                        raise AssertionError(f"{name} {case} {dtype}: max abs err {err:.3e} > "
+                                             f"{tol} * max|ref| {scale:.3e}")
+                    key = f"{name}[bf16]" if bf16 else name
+                    worst[key] = max(worst.get(key, 0.0), err / scale)
+                    b_ms, by = bound_ms(nbytes, flops, rate if name == SPLIT[0] else F32_FLOPS)
+                    row = {"kernel": name, "size": size, "dtype": str(dtype), "case": repr(case),
+                           "form": (ops.styled_conv3x3_plan(*case, dtype)
+                                    if name == SPLIT[0] else None),
+                           "max_abs_err": err, "max_abs_ref": scale,
+                           "ms": time_ms(kern, iters=10), "device_ms": device_ms(kern),
+                           "plain_ms": time_ms(plain, iters=5), "library_ms": time_ms(lib, iters=5),
+                           "bound_ms": b_ms, "bound_by": by}
+                    details.append(row)
+                    agg = sums.setdefault((size, "bf16" if bf16 else "f32", name), {
+                        "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                        "bound_ms": 0.0, "bound_by": by, "max_abs_err": 0.0, "calls": 0})
+                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+                        agg[k] += row[k]
+                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                    agg["calls"] += 1
+                    del kern, plain, lib, inp, got, want
+    torch.cuda.empty_cache()
+    for (size, dt, name), a in sorted(sums.items()):
+        log(f"    {name} {dt} at the {size} px tp shards ({a['calls']} partner convs, one "
+            f"synthesis): {a['ms']:.4f} ms (device {a['device_ms']:.4f}), bound "
+            f"{a['bound_ms']:.4f} by {a['bound_by']}, plain {a['plain_ms']:.4f}, library "
+            f"{a['library_ms']:.4f}; max abs err {a['max_abs_err']:.3e}")
+    log(f"    {len(details)} split cases held; worst error / max|ref| "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
+    return sums, details, worst
+
+
+def tp_run(ed, walk, batch, mesh=None):
+    """The first training step (host alphas, the stored noise) of the global
+    batch ``batch`` through the plain versions (its loss terms phase 48's
+    second witness); the same step through the kernels, counted, its
+    gradient the one phase 48 holds (in f32 under
+    cuDNN's deterministic algorithms: under its default ones the same f32
+    step lies 2.26e-3-3.12e-3 from the f64 step from run to run at 256 px
+    B=4, scripts/torch_tp_grad_check.py); then TP_TIMED timed steps (host
+    clock to a synchronise, cuDNN's default algorithms), and one more with
+    the collectives timed (``mesh.stats``). On ``mesh`` (data x model) G
+    runs tensor-parallel (frozen_tp_shardings)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.parallel import mesh as M
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    z, sampled, _, _ = _par_inputs(ed, batch)
+    # the same first step through the plain versions, on a copy of the walk
+    # with its own Adam: phase 48's second witness
+    w_plain = walk_map(lambda t: t.detach().clone().requires_grad_(True), walk)
+    for t in walk_leaves(walk):
+        t.requires_grad_(True)
+    sh = None if mesh is None else M.frozen_tp_shardings(mesh, ed.frozen_params())
+    step, plain_step = (make_train_step(ed, get_task("face"), make_optimizer(w, 1e-4),
+                                        host_alpha=True, mesh=mesh, frozen_shardings=sh)
+                        for w in (walk, w_plain))
+    gen = torch.Generator(device=ed.device)
+
+    def train(fn=step, w=walk):
+        gen.manual_seed(45)
+        return fn(w, z, generator=gen, sampled=sampled)
+
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = ed.cfg.compute_dtype == torch.float32
+    try:
+        with plain_kernels():
+            m_plain = train(plain_step, w_plain)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        m = train()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"launches": {**ops.launch_counts(), **ops.split_launch_counts()},
+           "launches_bf16": {**ops.launch_counts(bf16=True),
+                             **ops.split_launch_counts(bf16=True)},
+           "terms": {k: float(m[k]) for k in STEP_TERMS},
+           "terms_plain": {k: float(m_plain[k]) for k in STEP_TERMS},
+           "g_param_bytes": sum(p.numel() * p.element_size() for p in ed.g.parameters()),
+           "grad": np.concatenate([p.grad.detach().cpu().numpy().astype(np.float64).ravel()
+                                   for p in walk_leaves(walk)])}
+    times = []
+    for _ in range(TP_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["step_ms"], out["step_ms_all"] = statistics.median(times), times
+    if mesh is not None:
+        mesh.stats = {"seconds": 0.0, "bytes": 0, "calls": 0}
+        train()
+        out["step_collectives"] = {"ms": mesh.stats["seconds"] * 1e3,
+                                   "calls": mesh.stats["calls"],
+                                   "bytes_sent": mesh.stats["bytes"]}
+        mesh.stats = None
+    return out
+
+
+def _gan_mesh_rank(dev, real_dir):
+    """Phase 49 on this rank: cli/train.py's --updateGAN provider on a 2-rank
+    data mesh at 256 px (full width, --batch_size BATCH): a warmup
+    iteration, then one counted iteration (rank 0's D and G steps on the
+    whole batch, G and D broadcast to every rank) before the walk's
+    train_loop step of global batch 2 x BATCH -> the broadcasts, a digest
+    of G and D on this rank, the walk step's loss, the launches."""
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import train_loop
+    from latent2im_tpu_torch.parallel import mesh as M
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    mesh = M.make_mesh(TP_RANKS)
+    conf = train_conf("--updateGAN", "--real_data_dir", real_dir,
+                      root=os.path.join(REPO, "chiprun_out", "gan_mesh"))
+    ed, walk, _ = build_editor_from_options(conf, device=dev)
+    task = get_task("face")
+    provider = tcli._make_gan_provider(ed, conf, task, walk, mesh)
+    run = dict(batch_size=BATCH * TP_RANKS, n_epochs=1, lr=conf.learning_rate, log_every=1,
+               frozen_provider=provider, mesh=mesh)
+    losses = []
+    try:
+        walk, _ = train_loop(ed, task, walk, num_samples=BATCH * TP_RANKS, **run)  # warmup
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        walk, _ = train_loop(ed, task, walk, num_samples=BATCH * TP_RANKS, seed=1,
+                             on_step=lambda e, i, m, dt, wp: losses.append(m["loss"]), **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        provider.close()
+    digest = [float(p.double().sum()) for m in (ed.g, ed.d) for p in m.parameters()]
+    assert len(losses) == 1 and math.isfinite(losses[0]), losses
+    return {"broadcasts": provider.broadcasts, "digest": digest, "loss": losses[0],
+            "iteration_s": wall, "launches": ops.launch_counts(),
+            "gan_steps": provider.steps["n"], "has_module": provider.module is not None}
+
+
+SP_FAMILY_S1_STEP = 8  # StyleGAN1 at 1024 px, B=1, on rows
+
+
+def sp_family_run(dev, mesh=None):
+    """Phase 50's edits: model_256 PGGAN's apply_alpha (the pggan editor,
+    G at SIZE px, B=BATCH) and StyleGAN1's forward at step
+    SP_FAMILY_S1_STEP (B=1), each from seeded weights, on ``mesh`` (1 x
+    spatial) inside a spatial_partitioning context, or in one process ->
+    the images (rank 0's or the one process's), ms per edit (host clock to
+    a synchronise, median of PAR_TIMED) and the collectives of one edit."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.models.stylegan1 import StyledGenerator
+    from latent2im_tpu_torch.parallel import spatial as S
+
+    ed, walk, _ = build_editor_from_options(pggan_conf(), device=dev)
+    g1 = StyledGenerator(generator=torch.Generator().manual_seed(42)).eval()
+    with torch.no_grad():
+        for n, p in g1.named_parameters():
+            if ".noise" in n:
+                p.fill_(NOISE_WEIGHT)
+    g1 = g1.to(dev)
+    rng = np.random.RandomState(50)
+    z, a = rng.randn(BATCH, 512).astype(np.float32), np.full((BATCH,), 0.3, np.float32)
+    z1 = torch.from_numpy(rng.randn(1, 512).astype(np.float32)).to(dev)
+    noise1 = [torch.from_numpy(rng.randn(1, 4 * 2 ** i, 4 * 2 ** i, 1).astype(np.float32)).to(dev)
+              for i in range(SP_FAMILY_S1_STEP + 1)]
+    med, ctx = ed, contextlib.nullcontext()
+    if mesh is not None:
+        med, walk, ctx = S.spatial_editor(ed, walk, mesh)
+
+    calls = {"pggan": lambda: med.apply_alpha(walk, z, a)[0],
+             "stylegan1": lambda: g1(z1, noise=noise1, step=SP_FAMILY_S1_STEP)}
+    out = {}
+    with ctx, torch.no_grad():
+        for name, fn in calls.items():
+            img = fn().float().cpu().numpy()
+            times = []
+            for _ in range(PAR_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            r = {"img": img, "edit_ms": statistics.median(times)}
+            if mesh is not None:
+                mesh.stats = {"seconds": 0.0, "bytes": 0, "calls": 0}
+                ctx.plan.halo_bytes = ctx.plan.gather_bytes = 0
+                fn()
+                r["collectives"] = {"ms": mesh.stats["seconds"] * 1e3, "calls": mesh.stats["calls"],
+                                    "halo_bytes": ctx.plan.halo_bytes,
+                                    "gather_bytes": ctx.plan.gather_bytes}
+                mesh.stats = None
+            out[name] = r
+    del ed, walk, med, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(real_dir):
+    """One of TP_RANKS ranks sharing the card over gloo: the tp step on a
+    (1 x TP_RANKS) data x model mesh in each TP_RUNS configuration (the
+    towers and walk replicated from rank 0), then phase 49's --updateGAN on
+    a (TP_RANKS,) data mesh, then phase 50's edits of PGGAN and StyleGAN1
+    on rows over a (1 x TP_RANKS) data x spatial mesh -> every rank's
+    numbers, gathered (the gradients and images from rank 0 only)."""
+    import torch
+    import torch.distributed as dist
+
+    from latent2im_tpu_torch.device import resolve_device
+    from latent2im_tpu_torch.parallel import mesh as M
+    from latent2im_tpu_torch.parallel import spatial as S
+
+    dev = resolve_device("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "backend": dist.get_backend(), "tp": {}}
+    mesh = M.make_mesh_2d(1, TP_RANKS)
+    for name, size, batch, flags in TP_RUNS:
+        ed, walk = _par_editor(size, batch, dev, *flags)
+        _, walk = M.replicate_editor(ed, walk, mesh)
+        out["tp"][name] = r = tp_run(ed, walk, batch, mesh)
+        r["transport"] = mesh.transport
+        if rank:
+            r.pop("grad")
+        del ed, walk
+        torch.cuda.empty_cache()
+    out["gan"] = _gan_mesh_rank(dev, real_dir)
+    torch.cuda.empty_cache()
+    out["sp_families"] = sp_family_run(dev, S.make_mesh_spatial(TP_RANKS, 1))
+    if rank:
+        for r in out["sp_families"].values():
+            r.pop("img")
+    objs = [None] * world
+    dist.all_gather_object(objs, out)
+    return objs
+
+
+def tp_phases(card, dev):
+    """Phases 47-50 -> their reports and, under "launches", the tp path's
+    launch counts (summed over its ranks and configurations; the split's
+    kernels too) and the mesh --updateGAN path's."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.parallel.launch import launch
+
+    log(f"[47] the styled conv's tensor-parallel split (partial, epilogue) at the Cin/"
+        f"{TP_RANKS} shard of every partner conv ({SIZE} px B={BATCH}, {SIZE_HI} px B=2; "
+        "f32 and bf16) against their plain versions")
+    sums, details, worst = tp_kernel_phase(dev)
+    out = {"kernels": {f"{k[0]}_{k[1]}_{k[2]}": v for k, v in sums.items()},
+           "kernel_details": details, "worst_err_over_ref": worst}
+    log(f"[48] one process on the card: the tp step's numbers ({', '.join(r[0] for r in TP_RUNS)}) "
+        "and the same steps in f64 (the plain versions)")
+    from latent2im_tpu_torch.walks import walk_map
+
+    refs, f64 = {}, {}
+    for name, size, batch, flags in TP_RUNS:
+        ed, walk = _par_editor(size, batch, dev, *flags)
+        w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk)
+        refs[name] = tp_run(ed, walk, batch)
+        if size not in f64:  # the f32 and bf16 steps share weights and inputs
+            t = time.perf_counter()
+            for m in (ed.g, ed.reg, ed.vgg, ed.d):
+                m.double()
+            z, sampled, _, _ = _par_inputs(ed, batch)
+            with plain_kernels():
+                f64[size] = reference_step(ed, w0, z, sampled, torch.float64)[:2]
+            refs[name]["f64_step_s"] = time.perf_counter() - t
+        refs[name]["terms_f64"], refs[name]["grad_f64"] = f64[size]
+        del ed, walk
+        torch.cuda.empty_cache()
+    sp_refs = sp_family_run(dev)
+    real_dir = _gan_pngs(os.path.join(REPO, "chiprun_out", "gan_mesh", "real"))
+    t = time.perf_counter()
+    ranks = launch(_tp_rank, (real_dir,), world_size=TP_RANKS, device="cuda", timeout=900.0)
+    out["ranks_wall_s"] = time.perf_counter() - t
+    every, bf16_only = {}, {}  # launches of the tp path, and of its bf16 instances
+    for name, size, batch, flags in TP_RUNS:
+        got, want = ranks[0]["tp"][name], refs[name]
+        dt = "bf16" if "--bf16" in flags else "f32"
+        r = {"terms": got["terms"], "terms_one_process": want["terms"],
+             "terms_rel": {k: abs(got["terms"][k] - want["terms"][k]) / abs(want["terms"][k])
+                           for k in STEP_TERMS},
+             "grad_rel_l2_one_process": rel_l2(got["grad"], want["grad"]),
+             "grad_rel_l2_f64": rel_l2(got["grad"], want["grad_f64"]),
+             "one_process_grad_rel_l2_f64": rel_l2(want["grad"], want["grad_f64"]),
+             "step_ms": [rk["tp"][name]["step_ms"] for rk in ranks],
+             "step_collectives": [rk["tp"][name]["step_collectives"] for rk in ranks],
+             "terms_rel_plain": {k: abs(got["terms_plain"][k] - want["terms_plain"][k])
+                                 / abs(want["terms_plain"][k]) for k in STEP_TERMS},
+             "terms_rel_f64": {k: abs(got["terms"][k] - want["terms_f64"][k])
+                               / abs(want["terms_f64"][k]) for k in STEP_TERMS},
+             "one_process_terms_rel_f64": {k: abs(want["terms"][k] - want["terms_f64"][k])
+                                           / abs(want["terms_f64"][k]) for k in STEP_TERMS},
+             "one_process_step_ms": want["step_ms"], "transport": got["transport"],
+             "g_param_bytes": [rk["tp"][name]["g_param_bytes"] for rk in ranks],
+             "one_process_g_param_bytes": want["g_param_bytes"],
+             "f64_step_s": want.get("f64_step_s")}
+        # syntheses per step: each synthesis launches the split once per
+        # partner conv on every rank
+        per_rank = {rk["tp"][name]["launches"][k] / len(tp_cases(size, batch))
+                    for rk in ranks for k in SPLIT}
+        assert len(per_rank) == 1 and float(next(iter(per_rank))).is_integer(), (name, per_rank)
+        r["syntheses_per_step"] = int(next(iter(per_rank)))
+        r["grad_limit"] = max(1e-3, 1.5 * r["one_process_grad_rel_l2_f64"])
+        assert all(v <= TP_LOSS_RTOL[dt] for v in r["terms_rel"].values()), (name, r)
+        # the loss terms held to the f64 step as the gradient is (phase 9's
+        # rule): the bound that tells a tp fault from bf16's own spread
+        r["terms_limit_f64"] = {k: max(TP_LOSS_RTOL[dt], 1.5 * v)
+                                for k, v in r["one_process_terms_rel_f64"].items()}
+        assert all(r["terms_rel_f64"][k] <= r["terms_limit_f64"][k] for k in STEP_TERMS), (name, r)
+        assert r["grad_rel_l2_f64"] <= r["grad_limit"], (name, r)
+        for rk in ranks:
+            for total, key in ((every, "launches"), (bf16_only, "launches_bf16")):
+                for k, v in rk["tp"][name][key].items():
+                    total[k] = total.get(k, 0) + v
+        split = {k: sum(rk["tp"][name]["launches"][k] for rk in ranks) for k in SPLIT}
+        assert all(v > 0 for v in split.values()), (name, split)
+        if dt == "bf16":  # every split launch a bf16 instance's
+            assert all(rk["tp"][name]["launches_bf16"][k] == rk["tp"][name]["launches"][k]
+                       for rk in ranks for k in SPLIT), name
+        out[name] = r
+        c = r["step_collectives"][0]
+        log(f"[48] tp step {name} ({size} px, B={batch}) over 1x{TP_RANKS} ranks: loss "
+            f"{r['terms']['loss']:.6f} ({r['terms_one_process']['loss']:.6f} one process, "
+            f"largest term difference {max(r['terms_rel'].values()):.2e} relative), walk "
+            f"gradient rel L2 to f64 {r['grad_rel_l2_f64']:.2e} (one process "
+            f"{r['one_process_grad_rel_l2_f64']:.2e}, limit {r['grad_limit']:.2e}; to one "
+            f"process {r['grad_rel_l2_one_process']:.2e}); through the plain versions, the "
+            f"largest term difference {max(r['terms_rel_plain'].values()):.2e}; terms to the f64 "
+            f"step up to {max(r['terms_rel_f64'].values()):.2e} (one process "
+            f"{max(r['one_process_terms_rel_f64'].values()):.2e}); {r['syntheses_per_step']} "
+            "syntheses a step")
+        assert all(b < want["g_param_bytes"] for b in r["g_param_bytes"]), (name, r)
+        log(f"    G's parameters by rank {r['g_param_bytes']} bytes (one process "
+            f"{r['one_process_g_param_bytes']})")
+        log(f"    ms per step by rank {r['step_ms']} (one process {r['one_process_step_ms']:.2f}); "
+            f"rank 0's all-reduces per step: {c['ms']:.2f} ms over {c['calls']} calls, "
+            f"{c['bytes_sent']} bytes; launches by rank "
+            f"{[rk['tp'][name]['launches'] for rk in ranks]}; on {card}")
+    syntheses = {out[name]["syntheses_per_step"] for name, *_ in TP_RUNS}
+    assert len(syntheses) == 1, syntheses
+    out["syntheses_per_step"] = syntheses.pop()
+    # the f32 rows of the kernels line count the f32 instances, the bf16 rows
+    # the bf16 ones
+    launches = {"tp": {k: every[k] - bf16_only[k] for k in every}}
+    out["launches_bf16"] = {"tp": bf16_only}
+    assert all(v > 0 for v in launches["tp"].values()), launches["tp"]
+    assert all(v > 0 for k, v in bf16_only.items()), bf16_only
+    gan = [rk["gan"] for rk in ranks]
+    assert gan[0]["has_module"] and not any(g["has_module"] for g in gan[1:]), gan
+    assert all(g["digest"] == gan[0]["digest"] for g in gan), "G and D differ across ranks"
+    assert gan[0]["gan_steps"] == 2 and all(len(g["broadcasts"]) == 3 for g in gan), gan
+    launches["gan_mesh"] = {k: sum(g["launches"][k] for g in gan) for k in gan[0]["launches"]}
+    assert all(v > 0 for v in launches["gan_mesh"].values()), launches["gan_mesh"]
+    out["gan_mesh"] = {"broadcasts_by_rank": [g["broadcasts"] for g in gan],
+                       "iteration_s_by_rank": [g["iteration_s"] for g in gan],
+                       "loss": gan[0]["loss"]}
+    b = gan[0]["broadcasts"][-1]
+    log(f"[49] --updateGAN on a {TP_RANKS}-rank data mesh ({SIZE} px, GAN batch {BATCH}, walk "
+        f"batch {BATCH * TP_RANKS}): G and D equal on every rank after each broadcast; rank 0's "
+        f"broadcast per iteration {b['bytes']} bytes in {b['ms']:.2f} ms (rank 1 "
+        f"{gan[1]['broadcasts'][-1]['ms']:.2f} ms); iteration {gan[0]['iteration_s']:.2f} s on "
+        f"rank 0; walk loss {gan[0]['loss']:.4f}; launches {launches['gan_mesh']}; on {card}")
+    out["sp_families"] = {}
+    for name, want in sp_refs.items():
+        got = ranks[0]["sp_families"][name]
+        r = {"rel_l2_one_process": rel_l2(got["img"], want["img"]),
+             "edit_ms": [rk["sp_families"][name]["edit_ms"] for rk in ranks],
+             "one_process_ms": want["edit_ms"],
+             "collectives": [rk["sp_families"][name]["collectives"] for rk in ranks]}
+        assert got["img"].shape == want["img"].shape and np.isfinite(got["img"]).all(), name
+        assert r["rel_l2_one_process"] <= EDIT_REL_L2, (name, r)
+        out["sp_families"][name] = r
+        c = r["collectives"][0]
+        what = (f"model_256 apply_alpha, B={BATCH}" if name == "pggan"
+                else f"step {SP_FAMILY_S1_STEP}, B=1")
+        log(f"[50] sp of {name} over 1x{TP_RANKS} ranks ({what}): rel L2 to one process "
+            f"{r['rel_l2_one_process']:.2e}; ms per edit by rank {r['edit_ms']} (one process "
+            f"{r['one_process_ms']:.2f}); rank 0's collectives {c['ms']:.2f} ms over "
+            f"{c['calls']} calls, halo {c['halo_bytes']} B, gather {c['gather_bytes']} B; "
+            f"on {card}")
+    out["launches"] = launches
+    return out
+
 
 def main() -> int:
     try:
@@ -4845,10 +5486,23 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    refs = CpuReferences()  # the CPU references, computed meanwhile
+    try:
+        return _run(refs)
+    finally:
+        refs.close()
+
+
+def _run(refs) -> int:
+    """Every phase, on the card, with ``refs`` computing the CPU halves of
+    phases 9, 16 and 20 alongside; 0 when all passed."""
+    import torch
+
     from latent2im_tpu_torch.device import resolve_device
     from latent2im_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    phase_s = {}  # seconds by group of phases
     card = card_line()
     log(f"[1] card: {card}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4896,7 +5550,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"[9] training step, card against CPU ({F64_SIZE} px, B={CMP_BATCH}, same weights)")
-    train_cmp = train_cpu_phase()
+    train_cmp = train_cpu_phase(cpu=refs.get("train"))
     log(f"    {train_cmp}")
     torch.cuda.empty_cache()
 
@@ -4913,19 +5567,30 @@ def main() -> int:
         f"{json.dumps(cli['edit_vs_apply_alpha'])}")
     torch.cuda.empty_cache()
 
-    hi = hi_phases(card, dev, grad_limit=train_cmp["walk_grad_limit"])
+    phase_s["1-10"] = time.perf_counter() - t_start
+
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[key] = time.perf_counter() - t
+        log(f"    phases {key}: {phase_s[key]:.1f} s")
+        return out
+
+    hi = timed("11-15", hi_phases, card, dev, grad_limit=train_cmp["walk_grad_limit"])
     torch.cuda.empty_cache()
 
-    late = late_phases(card, dev, results, cli)
-    gan = gan_phases(card, dev)
-    zp = z_phases(card, dev, results)
-    geo = geo_phases(card, dev)
-    bf = bf16_phases(card, dev, results, hi)
+    late = timed("16-20", late_phases, card, dev, results, cli, refs)
+    gan = timed("21-24", gan_phases, card, dev)
+    zp = timed("25-28", z_phases, card, dev, results)
+    geo = timed("29-32", geo_phases, card, dev)
+    bf = timed("33-37", bf16_phases, card, dev, results, hi)
     log("[38] JPEG input: the fixtures against their Pillow decodes, bp and --updateGAN "
         "on JPEGs")
-    jp = jpeg_phase(dev)
-    rg = regressor_phases(card, dev, gan, jp)
-    par = parallel_phases(card, dev)
+    jp = timed("38", jpeg_phase, dev)
+    rg = timed("39-42", regressor_phases, card, dev, gan, jp)
+    par = timed("43-46", parallel_phases, card, dev)
+    tp = timed("47-50", tp_phases, card, dev)
+    log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -4937,7 +5602,8 @@ def main() -> int:
                    **{k: v[n] for k, v in geo["launches"].items()},
                    **{k: v[n] for k, v in jp["launches"].items()},
                    **{k: v[n] for k, v in rg["launches"].items()},
-                   **{k: v[n] for k, v in par["launches"].items()}}
+                   **{k: v[n] for k, v in par["launches"].items()},
+                   **{k: v[n] for k, v in tp["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4954,7 +5620,8 @@ def main() -> int:
                                            if n in FORWARD else None)})
     for n, paths in bf["results"].items():  # the bf16 instances (phase 33)
         r, rh = paths["train_step"], bf["results_hi"][n]["train_step"]
-        by_path = {k: v[n] for k, v in bf["launches"].items()}
+        by_path = {**{k: v[n] for k, v in bf["launches"].items()},
+                   **{k: v[n] for k, v in tp["launches_bf16"].items()}}
         assert sum(by_path.values()) > 0, (n, by_path)
         kernels.append({
             "name": f"{n}[bf16]", "route": "cuda", "source": SOURCE[n][0],
@@ -4970,6 +5637,26 @@ def main() -> int:
                 "bound_share_device": rh["bound_ms"] / rh["device_ms"]},
             f"per_apply_alpha_{SIZE_HI}": (bf["results_hi"][n]["apply_alpha"]
                                            if n in FORWARD else None)})
+    for n in SPLIT:  # the styled conv's tensor-parallel split (phases 47-48)
+        for dt in ("f32", "bf16"):
+            per = {size: tp["kernels"][f"{size}_{dt}_{n}"] for size in (SIZE, SIZE_HI)}
+            launches = (tp["launches"] if dt == "f32" else tp["launches_bf16"])["tp"][n]
+            # one tp step launches the split once per partner conv and
+            # synthesis, on each rank: phase 48's count of syntheses per step
+            # times one synthesis's sums
+            step = {size: {k: tp["syntheses_per_step"] * per[size][k]
+                           for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+                    for size in per}
+            kernels.append({
+                "name": n if dt == "f32" else f"{n}[bf16]", "route": "cuda",
+                "source": SPLIT_SOURCE[0], "replaces": SPLIT_SOURCE[1],
+                "launches": launches, "launches_by_path": {"tp": launches},
+                "max_abs_err": max(p["max_abs_err"] for p in per.values()),
+                **step[SIZE], "bound_by": per[SIZE]["bound_by"],
+                "per": f"tp training step on one of {TP_RANKS} ranks, {SIZE} px, B={BATCH}, {dt}",
+                f"per_train_step_{SIZE_HI}": {
+                    "per": f"tp training step on one of {TP_RANKS} ranks, {SIZE_HI} px, B=2, {dt}",
+                    **step[SIZE_HI], "bound_by": per[SIZE_HI]["bound_by"]}})
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "kernels": kernels, "shapes": details + hi["details"] + bf["details"],
               "serve": serve,
@@ -4985,6 +5672,8 @@ def main() -> int:
               "jpeg": {k: v for k, v in jp.items() if k != "launches"},
               "regressor": {k: v for k, v in rg.items() if k != "launches"},
               "parallel": par,
+              "tp": {k: v for k, v in tp.items() if k not in ("launches", "launches_bf16")},
+              "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -35,7 +35,7 @@ import torch
 from ..config.options import VisOptions
 from ..device import resolve_device
 from ..engine import evaluation as ev
-from ..engine.build import load_editor_for_inference, refuse_unported
+from ..engine.build import load_editor_for_inference
 from ..engine.train import sample_epoch_z
 from ..parallel import launch as launchlib
 from ..parallel.spatial import setup_inference_mesh
@@ -49,7 +49,6 @@ def run(opt, conf, device=None):
     """Evaluate the walk of ``opt`` on ``device`` -> the report's results."""
     device = resolve_device(device)
     n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
-    refuse_unported(opt, conf.model)
     if n > 1 and not launchlib.is_rank(n, device):
         return launchlib.launch(run, (opt, conf, device), world_size=n, device=device)
     editor, walk_params, info = load_editor_for_inference(opt, conf, device)

@@ -13,7 +13,7 @@ of latent2im_tpu/cli/serve.py.
   inference mesh of parallel/spatial.py, launched here or joined under
   torchrun). Rank 0 serves HTTP; for each request it broadcasts the call and
   its padded batch to the other ranks, which make the same call (the batch
-  shards over the data axis, the StyleGAN2 rows over the spatial one) until
+  shards over the data axis, G's rows over the spatial one) until
   the server closes.
 
 Endpoints (JSON in, JSON out; images as base64 PNG):
@@ -40,7 +40,7 @@ import numpy as np
 
 from ..config.options import VisOptions
 from ..device import resolve_device
-from ..engine.build import load_editor_for_inference, refuse_unported
+from ..engine.build import load_editor_for_inference
 from ..parallel import launch as launchlib
 from ..parallel import mesh as meshlib
 from ..parallel.spatial import setup_inference_mesh
@@ -419,7 +419,6 @@ def main(argv=None):
     opt, conf = vo.parse(argv)
     device = resolve_device(None)
     n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
-    refuse_unported(opt, conf.model)
     if n > 1 and not launchlib.is_rank(n, device):
         launchlib.launch(serve, (opt, conf, device), world_size=n, device=device)
         return

@@ -31,14 +31,18 @@ device (engine/train.py:geometric_train_loop), logging every step and
 saving no sample grids; ``--host_targets`` (the JAX package's cv2 host
 path) is refused.
 
-``--n_devices N`` (data parallel) and ``--sp_devices S`` (StyleGAN2 rows
-over S ranks; with N, an N x S mesh) run N x S ranks, one process each:
+``--n_devices N`` (data parallel) and ``--sp_devices S`` (G's image rows
+over S ranks, for StyleGAN2 and the PGGAN backends; with N, an N x S mesh) run N x S ranks, one process each:
 launched here (parallel/launch.py; gloo when ranks share a card or run on
 the CPU, NCCL when each has its own card) or joined under torchrun. The
 global batch is ``--batch_size`` x N, as in the JAX package; every rank
 trains the same walk, and rank 0 alone writes the checkpoints, logs and
-sample grids. ``--updateGAN`` under a mesh and ``--sp_devices`` with the
-PGGAN backends are refused (ROADMAP.md queue A item 15).
+sample grids. ``--updateGAN`` under a mesh runs as the JAX package's
+(cli/train.py:260-371 there): rank 0 alone draws the GAN's batches and runs
+its D step, G step and EMA on the whole ``--batch_size`` batch, then
+broadcasts G and D to every rank before the walk step (``replicate``), and
+writes the GAN checkpoints; the bytes and milliseconds of that broadcast are
+logged per iteration.
 """
 
 from __future__ import annotations
@@ -49,13 +53,15 @@ import logging
 import math
 import os
 import signal
+import time
 
 import numpy as np
 import torch
 
 from ..config.options import TrainOptions
 from ..device import resolve_device
-from ..engine.build import _not_ported, build_editor_from_options, refuse_unported
+from ..models import hooks
+from ..engine.build import _not_ported, build_editor_from_options
 from ..engine.gan import GANModule, draw_eps, make_gan_update_steps
 from ..engine.train import geometric_train_loop, make_optimizer, train_loop
 from ..io import checkpoint as ckpt
@@ -81,7 +87,6 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     if opt.updateGAN:
         _refuse_gan(opt)
     n_data, n_sp = (getattr(opt, "n_devices", None) or 1), (getattr(opt, "sp_devices", None) or 1)
-    refuse_unported(opt, opt.model)
     geometric = opt.transform in GEOMETRIC_TASKS
     if geometric and getattr(opt, "host_targets", False):
         _not_ported("--host_targets (the cv2 host targets of the geometric tasks)",
@@ -122,7 +127,7 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
     if opt.updateGAN:
         # D sees real images against the walk-EDITED images of the live G;
         # the walk step then trains against the updated G and D
-        gan = _make_gan_provider(editor, opt, task, walk_params)
+        gan = _make_gan_provider(editor, opt, task, walk_params, mesh)
 
     n_epochs = opt.n_epochs or n_epoch_default
     # the global batch scales with the data axis only, as in the JAX package
@@ -297,7 +302,7 @@ def make_g_apply(editor):
     return g_apply
 
 
-def _make_gan_provider(editor, opt, task, walk_params):
+def _make_gan_provider(editor, opt, task, walk_params, mesh=None):
     """The per-iteration GAN update for --updateGAN (the JAX package's
     cli/train.py:_make_gan_provider): one D step and one G step on the
     editor's G and D, before each walk step. z and the alphas come from its
@@ -305,18 +310,52 @@ def _make_gan_provider(editor, opt, task, walk_params):
     torch.Generator seeded 123. With --resume and a model_gan_resume.ckpt it
     restores G, D, g_running and both Adam states, and replays the streams
     past the steps the checkpoint counts. -> provider(epoch, i), carrying
-    ``.module`` (the GANModule) and ``.steps`` ({"n": steps taken})."""
+    ``.module`` (the GANModule), ``.steps`` ({"n": steps taken}) and
+    ``.broadcasts`` (per iteration under a mesh: {"bytes", "ms"} of G and D
+    crossing from rank 0).
+
+    Under a mesh rank 0 alone holds the GANModule, the loader and the random
+    streams and runs the steps, outside the walk step's row plan (the GAN
+    runs on the whole image); every rank then takes G and D from rank 0, so
+    the walk step that follows sees the updated towers everywhere. The other
+    ranks draw nothing (``.module`` None)."""
     if editor.d is None:
         raise SystemExit("--updateGAN needs a discriminator")
+    main = mesh is None or mesh.is_main
+    towers = (list(editor.g.parameters()), list(editor.d.parameters()))  # what the steps train
+    steps, broadcasts = {"n": 0}, []
+
+    def replicate_towers():
+        if mesh is None:
+            return
+        t0 = time.perf_counter()
+        for m in towers:
+            meshlib.replicate(mesh, m)
+        if editor.device.type == "cuda":
+            torch.cuda.synchronize(editor.device)
+        broadcasts.append({"bytes": sum(map(meshlib.tree_bytes, towers)),
+                           "ms": (time.perf_counter() - t0) * 1e3})
+
+    if not main:
+        replicate_towers()  # rank 0's, restored or not
+
+        def follower(epoch, i):
+            replicate_towers()
+            logging.info("gan towers from rank 0: %d bytes, %.3f ms", *broadcasts[-1].values())
+
+        follower.module, follower.steps, follower.broadcasts = None, steps, broadcasts
+        follower.close = lambda: None
+        return follower
+
     paths = _real_paths(opt.real_data_dir)
     mod = GANModule.create(editor.g, editor.d, lr=opt.gan_lr)
-    steps = {"n": 0}
     resume_path = os.path.join(opt.output_dir, GAN_RESUME)
     if getattr(opt, "resume", False) and os.path.isfile(resume_path):
         meta = ckpt.load_gan(resume_path, mod)
         steps["n"] = int((meta or {}).get("gan_steps", 0))
         logging.info("restored fine-tuned GAN from %s after %d steps", resume_path,
                      steps["n"])
+    replicate_towers()
 
     d_step, g_step = make_gan_update_steps(make_g_apply(editor), editor.discriminate, mod)
     next_real = _make_real_batcher(paths, editor.cfg.size, opt.batch_size,
@@ -338,13 +377,21 @@ def _make_gan_provider(editor, opt, task, walk_params):
     def provider(epoch, i):
         real, z, alpha, eps = draw()
         batch = {"z": editor._tensor(z), "alpha": editor._tensor(alpha), "walk": walk}
-        dm = d_step(batch, editor._tensor(real) / 127.5 - 1.0, eps=eps)
-        gm = g_step(batch)
+        prev = hooks.install(None)  # the whole image: no row plan
+        try:
+            dm = d_step(batch, editor._tensor(real) / 127.5 - 1.0, eps=eps)
+            gm = g_step(batch)
+        finally:
+            hooks.restore(prev)
         steps["n"] += 1
         logging.info("gan d_loss, grad_penalty, g_loss: %.5f, %.5f, %.5f",
                      float(dm["d_loss"]), float(dm["grad_penalty"]), float(gm["g_loss"]))
+        replicate_towers()
+        if broadcasts:
+            logging.info("gan towers to every rank: %d bytes, %.3f ms",
+                         *broadcasts[-1].values())
 
-    provider.module, provider.steps = mod, steps
+    provider.module, provider.steps, provider.broadcasts = mod, steps, broadcasts
     provider.close = next_real.loader.close
     return provider
 

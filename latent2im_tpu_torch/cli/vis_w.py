@@ -13,8 +13,8 @@ a batch synthesize through Editor.sweep, not a host loop per alpha.
 
 --n_devices / --sp_devices run the sweeps over an N x S mesh of ranks
 (parallel/spatial.py:setup_inference_mesh; launched here or joined under
-torchrun): the batch shards over the data axis, the StyleGAN2 rows over the
-spatial one, and rank 0 writes the same PNGs and index.html as one process.
+torchrun): the batch shards over the data axis, G's rows (every generator
+family) over the spatial one, and rank 0 writes the same PNGs and index.html as one process.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 
 from ..config.options import VisOptions
 from ..device import resolve_device
-from ..engine.build import load_editor_for_inference, refuse_unported
+from ..engine.build import load_editor_for_inference
 from ..engine.train import sample_epoch_z
 from ..parallel import launch as launchlib
 from ..parallel.spatial import setup_inference_mesh
@@ -49,7 +49,6 @@ def run(opt, conf, device=None):
     for the CPU) -> the output directory."""
     device = resolve_device(device)
     n = (getattr(opt, "n_devices", None) or 1) * (getattr(opt, "sp_devices", None) or 1)
-    refuse_unported(opt, conf.model)
     if n > 1 and not launchlib.is_rank(n, device):
         return launchlib.launch(run, (opt, conf, device), world_size=n, device=device)
     output_dir = opt.output_dir or os.path.join(getattr(conf, "output_dir", "."), "vis")

@@ -57,29 +57,6 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def generator_classes(model: str) -> tuple:
-    """The generator classes ``--model`` may build (a pggan checkpoint
-    holds model_256's or the GAN zoo's)."""
-    return (pgg.Generator, pgan_zoo.GNet) if model == "pggan" else (sg2.Generator,)
-
-
-def refuse_unported(opt, model: str) -> None:
-    """The CLIs' refusals under a mesh, before any rank starts:
-    --sp_devices > 1 with a generator whose class has no row-sharded
-    forward (``row_sharded``, the attribute models/hooks.py:no_row_plan
-    reads), and --updateGAN under a mesh."""
-    n_data = getattr(opt, "n_devices", None) or 1
-    n_sp = getattr(opt, "sp_devices", None) or 1
-    if n_sp > 1:
-        for cls in generator_classes(model):
-            if not cls.row_sharded:
-                _not_ported(f"spatial partitioning (--sp_devices > 1) of the {cls.family} "
-                            f"generator (--model {model})", "queue A item 15")
-    if n_data * n_sp > 1 and getattr(opt, "updateGAN", False):
-        _not_ported("--updateGAN under a mesh (--n_devices/--sp_devices > 1)",
-                    "queue A item 15")
-
-
 def build_editor_from_options(opt, seed: int = 0, device=None):
     """-> (editor, walk_params, info dict)."""
     device = resolve_device(device)

@@ -129,6 +129,14 @@ class Editor:
         self.reg, self.vgg, self.d = frozen(reg), frozen(vgg), frozen(d)
         self._attr_idx = torch.as_tensor(cfg.attr_idx, device=self.device)
 
+    def frozen_params(self) -> dict:
+        """The frozen towers by the JAX package's names ("g", "reg", and
+        "vgg", "d" where built), as modules: what
+        parallel/mesh.py:frozen_tp_shardings lays out."""
+        out = {"g": self.g, "reg": self.reg}
+        out.update({k: m for k, m in (("vgg", self.vgg), ("d", self.d)) if m is not None})
+        return out
+
     @property
     def tower_dtype(self):
         """The dtype the towers are asked to compute in: bf16 under

@@ -55,11 +55,15 @@ batch (parallel/mesh.py:BatchGather); under a row plan
 gradient is averaged over 'data' and summed over 'spatial' in one
 all-reduce, so Adam steps identically on every rank (``replicate`` makes
 the walk and its Adam state equal at the start); the metrics are the
-global batch's.
+global batch's. With ``frozen_shardings`` (parallel/mesh.py:
+frozen_tp_shardings, on a (data x model) mesh) G runs tensor-parallel over
+'model' (parallel/tensor.py); its Megatron operators leave the whole walk
+gradient on every model rank, so it is averaged over 'data' alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -68,6 +72,7 @@ import torch
 
 from ..models import hooks
 from ..parallel import mesh as meshlib
+from ..parallel.tensor import shard_generator, tensor_parallel
 from ..tasks.geometric import device_target
 from ..tasks.transforms import Task
 from ..utils.remat import checkpoint
@@ -141,10 +146,19 @@ def make_train_step(editor: Editor, task: Task | None,
     tensors on the device (reading one synchronises).
 
     mesh: z and sampled are the global batch (the module docstring).
-    frozen_shardings (the JAX package's tensor-parallel towers) is not
-    ported and raises."""
+    frozen_shardings: ``meshlib.frozen_tp_shardings(mesh, editor.
+    frozen_params())``, the JAX package's tensor-parallel towers: the
+    editor's G is cut to this rank's shards by them (parallel/tensor.py:
+    shard_generator, as the JAX step device_puts the towers by them), and
+    each forward and backward of the step runs under a tp plan over its
+    mesh's 'model' axis (which must be ``mesh``)."""
+    tp = contextlib.nullcontext()
     if frozen_shardings is not None:
-        meshlib.frozen_tp_shardings(mesh, frozen_shardings)
+        if frozen_shardings.mesh is not mesh:
+            raise ValueError("frozen_shardings were laid out for another mesh than the step's")
+        if frozen_shardings.specs.get("g") is not None:
+            shard_generator(editor.g, frozen_shardings.specs["g"], mesh)
+            tp = tensor_parallel(mesh)
     dp = _DataParallel(mesh)
     cfg = editor.cfg
     n_attr = len(cfg.attr_list)
@@ -173,7 +187,7 @@ def make_train_step(editor: Editor, task: Task | None,
         dp.rows(b)
         z, sampled = dp.local(z), dp.local(sampled)
         optimizer.zero_grad(set_to_none=True)
-        with dp:
+        with dp, tp:
             metrics = _forward_backward(walk_params, z, sampled, index, noise)
         _zero_missing_grads(optimizer)
         metrics = dp.reduce(optimizer, metrics)

@@ -14,6 +14,11 @@ A second slot holds the data-axis gather of a data-parallel training step
 statistic over the global batch through it, as the JAX step does in
 global-batch semantics.
 
+A third holds the **tp plan** of tensor parallelism (parallel/tensor.py:
+TpPlan, installed by ``tensor_parallel``): ``models/stylegan2.py:StyledConv``
+runs its up-convs on this rank's output channels and its partner convs on
+its input channels, around one all-reduce per block.
+
 Nothing installed => single-process behaviour; every hook is identity.
 """
 
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 _PLAN = None
 _BATCH = None
+_TP = None
 _TOKEN = 0  # bumped on every install/restore, as the JAX package's
 
 
@@ -42,18 +48,6 @@ def spatial_constrain(x):
     if _PLAN is None:
         return x
     return _PLAN.constrain(x)
-
-
-def no_row_plan(generator) -> None:
-    """Raise where a generator whose class has no row-sharded forward
-    (``row_sharded`` false) runs under a row plan. Each generator class
-    declares ``row_sharded`` and ``family``; they decide --sp_devices for
-    the forwards and for the CLIs' early refusal
-    (engine/build.py:refuse_unported) alike."""
-    if _PLAN is not None and not generator.row_sharded:
-        raise NotImplementedError(
-            f"spatial partitioning (--sp_devices > 1) of the {generator.family} "
-            "generator is not ported yet (ROADMAP.md queue A item 15)")
 
 
 def spatial_boundary(x):
@@ -94,3 +88,20 @@ def install_batch(gather):
 def restore_batch(prev) -> None:
     global _BATCH
     _BATCH = prev
+
+
+def tp_plan():
+    """The installed tp plan, or None."""
+    return _TP
+
+
+def install_tp(plan):
+    """Install a tp plan; returns the previous one."""
+    global _TP
+    prev, _TP = _TP, plan
+    return prev
+
+
+def restore_tp(prev) -> None:
+    global _TP
+    _TP = prev

@@ -54,8 +54,12 @@ class EqConv2d(_Wrapped):
         super().__init__(nn.Conv2d(cin, cout, k, padding=padding), cin * k * k, generator)
         self.padding = padding
 
-    def forward(self, x):
-        return conv2d(x, self.module.weight * self.scale, self.module.bias, self.padding)
+    def forward(self, x, plan=None):
+        """plan: x holds this rank's rows (pggan.EqualConv2d's rule)."""
+        w = self.module.weight * self.scale
+        if plan is None:
+            return conv2d(x, w, self.module.bias, self.padding)
+        return conv2d(plan.halo(x, self.padding, dim=2), w, self.module.bias, (0, self.padding))
 
 
 class EqLinear(_Wrapped):
@@ -85,8 +89,6 @@ def _depths_from(sd, prefix: str, dim: int) -> list[int]:
 
 class GNet(nn.Module):
     """depths[0] is the 4x4 depth; each later entry adds a x2 scale."""
-
-    family, row_sharded = "GAN-zoo PGAN", False  # models/hooks.py:no_row_plan
 
     def __init__(self, dim_latent: int = 512, depths=CELEBAHQ_512_DEPTHS,
                  n_scale0: int = 1, generator=None):
@@ -125,24 +127,32 @@ class GNet(nn.Module):
         """z [B, dim_latent] -> image [B, R, R, 3] NHWC f32, computed in
         ``dtype`` (the JAX package's ``dtype=``; None: z's own). 0 < alpha <
         1 blends the previous scale's rgb (GNet's fade-in); 0 is fully
-        grown."""
-        hooks.no_row_plan(self)
+        grown. Under a row plan the scales after the first whose output
+        height qualifies run on this rank's rows (pggan.Generator's rule),
+        and the image is gathered whole."""
         z = z if dtype is None else z.to(dtype)
         x = _leaky(self.formatLayer(pixel_norm(z, dim=-1)))
         x = pixel_norm(x.reshape(x.shape[0], -1, 4, 4))  # torch's (C, 4, 4) view
         for conv in self.groupScale0:
             x = pixel_norm(_leaky(conv(x)))
-        prev_rgb = None
+        prev_rgb = rows = None  # rows: the row plan, once x holds this rank's rows
+        plan = hooks.row_plan()
         n = len(self.scaleLayers)
         for si, group in enumerate(self.scaleLayers):
             if si == n - 1 and 0 < alpha < 1:
                 prev_rgb = _upscale(self.toRGBLayers[si](x))
             x = _upscale(x)
             for conv in group:
-                x = pixel_norm(_leaky(conv(x)))
+                x = pixel_norm(_leaky(conv(x, rows)))
+            if rows is None and plan is not None and plan.qualifies(x.shape[2]):
+                x, rows = plan.constrain(x, dim=2), plan
+                if prev_rgb is not None:
+                    prev_rgb = plan.constrain(prev_rgb, dim=2)
         out = self.toRGBLayers[-1](x)
         if prev_rgb is not None:
             out = alpha * prev_rgb + (1.0 - alpha) * out
+        if rows is not None:
+            out = plan.boundary(out, dim=2)
         return out.permute(0, 2, 3, 1).float()
 
 

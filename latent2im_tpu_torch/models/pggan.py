@@ -32,6 +32,13 @@ goes to cuDNN but the 1x1 rgb heads.
 ``dtype=torch.bfloat16`` (G and D) computes as the JAX package's
 ``dtype=``: z or the image cast to bf16, each layer's f32 parameters cast
 per call (the GEMMs over unfolded patches become bf16 GEMMs), f32 outputs.
+
+Under a row plan (models/hooks.py, parallel/spatial.py) G runs on this
+rank's image rows from the first block whose output height qualifies (the
+JAX package's hook after each block, models/pggan.py:203-225 there): the
+nearest x2 upsampling, the pixel norm, LeakyReLU and the 1x1 rgb heads are
+row-local, each 3x3 pad-1 conv takes one halo row each side, and the rgb
+output is gathered whole.
 """
 
 from __future__ import annotations
@@ -68,15 +75,16 @@ def pixel_norm(x, dim: int = 1, eps: float = 1e-8):
     return x / torch.sqrt(torch.mean(x * x, dim=dim, keepdim=True) + eps)
 
 
-def conv2d(x, w, b, padding: int):
+def conv2d(x, w, b, padding):
     """F.conv2d(x, w, b, padding=padding) on NCHW, computed as one batched
     GEMM of the weight [Cout, Cin * kh * kw] over ``F.unfold``'s patches
     (the same sums; autograd differentiates unfold and the GEMM), in x's
-    dtype (w and b cast to it)."""
+    dtype (w and b cast to it). padding: an int, or (rows, columns)."""
     w, b = w.to(x.dtype), None if b is None else b.to(x.dtype)
     kh, kw = w.shape[2:]
-    h, wd = x.shape[2] + 2 * padding - kh + 1, x.shape[3] + 2 * padding - kw + 1
-    cols = F.unfold(x, (kh, kw), padding=padding)  # [B, Cin * kh * kw, h * wd]
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    h, wd = x.shape[2] + 2 * ph - kh + 1, x.shape[3] + 2 * pw - kw + 1
+    cols = F.unfold(x, (kh, kw), padding=(ph, pw))  # [B, Cin * kh * kw, h * wd]
     out = torch.matmul(w.reshape(w.shape[0], -1), cols)
     if b is not None:
         out = out + b[:, None]
@@ -104,8 +112,14 @@ class EqualConv2d(nn.Module):
         self.padding = padding
         self.scale = math.sqrt(2.0 / (cin * k * k))
 
-    def forward(self, x):
-        return conv2d(x, self.conv.weight_orig * self.scale, self.conv.bias, self.padding)
+    def forward(self, x, plan=None):
+        """plan: x holds this rank's rows of the image (a row plan): the
+        conv takes ``padding`` halo rows each side and pads only the
+        columns."""
+        w = self.conv.weight_orig * self.scale
+        if plan is None:
+            return conv2d(x, w, self.conv.bias, self.padding)
+        return conv2d(plan.halo(x, self.padding, dim=2), w, self.conv.bias, (0, self.padding))
 
 
 def _rgb(conv, x):
@@ -141,8 +155,11 @@ class ConvBlock(nn.Module):
         self.conv = nn.Sequential(EqualConv2d(cin, cout, k1, p1, generator), *tail(),
                                   EqualConv2d(cout, cout, k2, p2, generator), *tail())
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, plan=None):
+        """plan: x holds this rank's rows (the convs take halo rows)."""
+        for layer in self.conv:
+            x = layer(x, plan) if isinstance(layer, EqualConv2d) else layer(x)
+        return x
 
 
 def _upsample_nearest(x):
@@ -154,8 +171,6 @@ class Generator(nn.Module):
     plus a 10-d label embedding make 512); n_label=0 is a plain 512-d z, the
     shape the reference runs. ``generator`` (a CPU ``torch.Generator``)
     seeds the init, with the JAX package's distributions."""
-
-    family, row_sharded = "PGGAN", False  # models/hooks.py:no_row_plan
 
     def __init__(self, n_label: int = N_LABEL, generator=None):
         super().__init__()
@@ -189,8 +204,9 @@ class Generator(nn.Module):
         label: int64 [B], zeros by default (model_256.py:232). The default
         alpha=0 is the reference's call sites' (netG(z) bare), whose blend
         outputs the PREVIOUS resolution's rgb head on the upsampled features;
-        alpha outside [0, 1) turns the blend off."""
-        hooks.no_row_plan(self)
+        alpha outside [0, 1) turns the blend off. Under a row plan the blocks
+        after the first whose output height qualifies run on this rank's
+        rows, and the image is gathered whole."""
         b = z.shape[0]
         x = pixel_norm(z if dtype is None else z.to(dtype), dim=-1)
         if hasattr(self, "label_embed"):
@@ -203,17 +219,24 @@ class Generator(nn.Module):
             raise ValueError(f"the PGGAN stem takes {cin} channels; z of width "
                             f"{z.shape[-1]} gives {x.shape[-1]}")
         out = x[:, :, None, None]
-        upsample = None
+        upsample = rows = None  # rows: the row plan, once out holds this rank's rows
+        plan = hooks.row_plan()
         for i in range(step + 1):
             if i > 0 and step > 0:
                 upsample = _upsample_nearest(out)
-                out = self.progression[i](upsample)
+                out = self.progression[i](upsample, rows)
             else:
-                out = self.progression[i](out)
+                out = self.progression[i](out, rows)
+            if rows is None and plan is not None and plan.qualifies(out.shape[2]):
+                out, rows = plan.constrain(out, dim=2), plan
             if i == step:
                 out = _rgb(self.to_rgb[i], out)
                 if i > 0 and 0 <= alpha < 1:
+                    if rows is not None and upsample.shape[2] != out.shape[2]:
+                        upsample = plan.constrain(upsample, dim=2)  # sharded at this block
                     out = (1 - alpha) * _rgb(self.to_rgb[i - 1], upsample) + alpha * out
+        if rows is not None:
+            out = plan.boundary(out, dim=2)
         return out.permute(0, 2, 3, 1).float()
 
 

@@ -28,8 +28,17 @@ transposed conv (up, ``FusedUpsample``) or a stride-2 conv (down,
 Public tensors are NHWC, as in the JAX package: z [B, D] (or a list of them
 for style mixing), noise maps [B, H, W, 1], images [B, H, W, 3] f32. No
 entry point reaches this model and no kernel runs in it: its convolutions
-are cuDNN's. Spatial partitioning of its rows is not ported: under a row
-plan (models/hooks.py) its forward raises, naming ROADMAP item 15.
+are cuDNN's.
+
+Under a row plan (models/hooks.py, parallel/spatial.py) the blocks after
+the first whose output height qualifies run on this rank's rows (the JAX
+package's hook after each block, models/stylegan1.py:249-277 there): the
+3x3 pad-1 convs, the [1,2,1] blur and the fused upsample (a stride-2
+transposed conv, whose output rows [2a, 2b) read input rows a-1..b) take
+one halo row each side; the nearest upsampling, noise, LeakyReLU and the
+1x1 rgb heads are row-local; AdaIN's instance norm takes its per-channel
+sums (sum x, sum x^2) over the whole image in one all-reduce over the
+spatial ranks; the rgb output is gathered whole.
 """
 
 from __future__ import annotations
@@ -68,9 +77,19 @@ class _EqualConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.padding = padding
 
-    def forward(self, x):
+    def forward(self, x, plan=None):
         scale = math.sqrt(2.0 / (self.weight_orig.shape[1] * self.weight_orig[0, 0].numel()))
-        return F.conv2d(x, self.weight_orig * scale, self.bias, padding=self.padding)
+        x, pad = _rows_in(x, self.padding, plan)
+        return F.conv2d(x, self.weight_orig * scale, self.bias, padding=pad)
+
+
+def _rows_in(x, padding: int, plan):
+    """(x, the conv's padding): as is without a plan; with one (x holds
+    this rank's rows) x with ``padding`` halo rows each side and the padding
+    of the columns alone."""
+    if plan is None or padding == 0:
+        return x, padding
+    return plan.halo(x, padding, dim=2), (0, padding)
 
 
 class EqualConv2d(nn.Module):
@@ -78,8 +97,8 @@ class EqualConv2d(nn.Module):
         super().__init__()
         self.conv = _EqualConv(cin, cout, k, padding, generator)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, plan=None):
+        return self.conv(x, plan)
 
 
 class _EqualLinear(nn.Module):
@@ -120,9 +139,17 @@ class FusedUpsample(nn.Module):
         self.multiplier = math.sqrt(2.0 / (cin * k * k))
         self.pad = padding
 
-    def forward(self, x):
+    def forward(self, x, plan=None):
+        """plan: x holds this rank's rows [a, b); the output rows [2a, 2b)
+        read input rows a-1..b: one halo row each side, the rows' padding
+        cropped from the output instead."""
         w = _avg4_pad(self.weight * self.multiplier)
-        return F.conv_transpose2d(x, w, self.bias, stride=2, padding=self.pad)
+        if plan is None:
+            return F.conv_transpose2d(x, w, self.bias, stride=2, padding=self.pad)
+        h = x.shape[2]
+        out = F.conv_transpose2d(plan.halo(x, 1, dim=2), w, self.bias, stride=2,
+                                 padding=(0, self.pad))
+        return out[:, :, 2 + self.pad:2 + self.pad + 2 * h]
 
 
 class FusedDownsample(nn.Module):
@@ -152,8 +179,9 @@ class Blur(nn.Module):
         self.register_buffer("weight", w.repeat(channel, 1, 1, 1))
         self.register_buffer("weight_flip", torch.flip(w, [2, 3]).repeat(channel, 1, 1, 1))
 
-    def forward(self, x):
-        return F.conv2d(x, self.weight, padding=1, groups=x.shape[1])
+    def forward(self, x, plan=None):
+        x, pad = _rows_in(x, 1, plan)
+        return F.conv2d(x, self.weight, padding=pad, groups=x.shape[1])
 
 
 class NoiseInjection(nn.Module):
@@ -190,9 +218,20 @@ class AdaptiveInstanceNorm(nn.Module):
             self.style.linear.bias[:channel] = 1
             self.style.linear.bias[channel:] = 0
 
-    def forward(self, x, style):
+    def forward(self, x, style, plan=None):
+        """plan: x holds this rank's rows; the per-channel mean and biased
+        variance come from (sum x, sum x^2) over every rank's rows, summed
+        in f64 (E[x^2] - E[x]^2 cancels what f32 sums would keep)."""
         gamma, beta = self.style(style)[:, :, None, None].chunk(2, 1)
-        return gamma * self.norm(x) + beta
+        if plan is None:
+            return gamma * self.norm(x) + beta
+        n = x.shape[2] * x.shape[3] * plan.n
+        x64 = x.to(torch.float64)
+        sums = plan.sum_rows(torch.stack([x64.sum((2, 3)), x64.square().sum((2, 3))]))
+        mean = sums[0] / n
+        rstd = torch.rsqrt(sums[1] / n - mean.square() + self.norm.eps)
+        normed = (x - mean[:, :, None, None].to(x.dtype)) * rstd[:, :, None, None].to(x.dtype)
+        return gamma * normed + beta
 
 
 class StyledConvBlock(nn.Module):
@@ -215,12 +254,20 @@ class StyledConvBlock(nn.Module):
         self.noise2 = NoiseInjection(cout)
         self.adain2 = AdaptiveInstanceNorm(cout, style_dim, generator)
 
-    def forward(self, x, style, noise):
-        out = self.conv1(style.shape[0]) if self.initial else self.conv1(x)
+    def forward(self, x, style, noise, plan=None):
+        """plan: x and noise hold this rank's rows (a row plan)."""
+        if self.initial:
+            out = self.conv1(style.shape[0])
+        elif plan is None:
+            out = self.conv1(x)
+        else:
+            out = x
+            for layer in self.conv1:
+                out = layer(out) if isinstance(layer, nn.Upsample) else layer(out, plan)
         out = F.leaky_relu(self.noise1(out, noise), 0.2)
-        out = self.adain1(out, style)
-        out = F.leaky_relu(self.noise2(self.conv2(out), noise), 0.2)
-        return self.adain2(out, style)
+        out = self.adain1(out, style, plan)
+        out = F.leaky_relu(self.noise2(self.conv2(out, plan), noise), 0.2)
+        return self.adain2(out, style, plan)
 
 
 class Generator(nn.Module):
@@ -236,8 +283,6 @@ class Generator(nn.Module):
 
 class StyledGenerator(nn.Module):
     """The style MLP (``style``) and the progressive ``generator``."""
-
-    family, row_sharded = "StyleGAN1", False  # models/hooks.py:no_row_plan
 
     def __init__(self, code_dim: int = 512, n_mlp: int = 8, fused_from: int = FUSED_FROM,
                  generator=None):
@@ -271,8 +316,9 @@ class StyledGenerator(nn.Module):
         step + 1 maps [B, h, h, 1], or None to draw them from ``generator``.
         mean_style + style_weight: truncation (model.py:494-503);
         inject_index: the crossover layers (the reference draws them with
-        random.sample). Computed in the parameters' dtype."""
-        hooks.no_row_plan(self)
+        random.sample). Computed in the parameters' dtype. Under a row plan
+        the blocks after the first whose output height qualifies run on this
+        rank's rows, and the image is gathered whole."""
         zs = list(z) if isinstance(z, (list, tuple)) else [z]
         styles = [self.style_forward(s) for s in zs]
         b = zs[0].shape[0]
@@ -282,7 +328,8 @@ class StyledGenerator(nn.Module):
             styles = [mean_style + style_weight * (s - mean_style) for s in styles]
         prog, to_rgb = self.generator.progression, self.generator.to_rgb
         inject = list(inject_index or [len(prog) + 1])
-        out = out_prev = None
+        out = out_prev = rows = None  # rows: the row plan, once out holds this rank's rows
+        plan = hooks.row_plan()
         crossover = 0
         for i in range(step + 1):
             if tuple(mixing_range) == (-1, -1):
@@ -293,10 +340,18 @@ class StyledGenerator(nn.Module):
                 style_step = styles[1] if mixing_range[0] <= i <= mixing_range[1] else styles[0]
             if i > 0 and step > 0:
                 out_prev = out
-            out = prog[i](out, style_step, noise[i].permute(0, 3, 1, 2))
+            nz = noise[i].permute(0, 3, 1, 2)
+            out = prog[i](out, style_step, nz if rows is None else plan.constrain(nz, dim=2),
+                          rows)
+            if rows is None and plan is not None and plan.qualifies(out.shape[2]):
+                out, rows = plan.constrain(out, dim=2), plan
+                if out_prev is not None:  # the fade-in's skip, on this rank's rows too
+                    out_prev = plan.constrain(out_prev, dim=2)
             if i == step:
                 out = to_rgb[i](out)
                 if i > 0 and 0 <= alpha < 1:
                     skip = F.interpolate(to_rgb[i - 1](out_prev), scale_factor=2, mode="nearest")
                     out = (1 - alpha) * skip + alpha * out
+        if rows is not None:
+            out = plan.boundary(out, dim=2)
         return out.permute(0, 2, 3, 1).float()

@@ -23,6 +23,11 @@ form at >=128 px, ``SKIP_SHIFT_MIN_RES``, computes the same function, as its
 space-to-depth FAST_TAIL does for the 1024 px model's thin 512/1024 px
 blocks). ``synthesize(..., block_remat=True)`` checkpoints each block.
 
+Under a tp plan (models/hooks.py, parallel/tensor.py) each block's up-conv
+runs on this rank's output channels and its partner conv on its input
+channels, the latter as ``ops.styled_conv3x3_partial``, one all-reduce and
+``ops.styled_conv3x3_epilogue``.
+
 The discriminator runs its convs on cuDNN, its activations through
 ``ops.fused_leaky_relu`` and the blur before each stride-2 conv through
 ``ops.upfirdn2d``; a walk trains through all three backwards.
@@ -48,7 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import (blur2d, fused_leaky_relu, make_kernel, styled_conv3x3,
-                   upsample2d)
+                   styled_conv3x3_epilogue, styled_conv3x3_partial, upsample2d)
 from ..utils.remat import checkpoint
 from . import hooks
 
@@ -123,15 +128,19 @@ class ModulatedConv2d(nn.Module):
             p = len(BLUR_KERNEL) - 2 - (k - 1)
             self.blur_pad = ((p + 1) // 2 + 1, p // 2 + 1)
 
+    def sigma(self, s, weight):
+        """The demodulation's sum scale^2 * sum_i s_i^2 * sum_k W[o, i, k]^2
+        over the input channels of ``weight`` [Cout, Cin, k, k] (and of s):
+        s squared in s's dtype, then the sums in the weight's (f32)."""
+        w_sq = weight.square().sum((2, 3)).t()  # [Cin, Cout]
+        return (self.scale * self.scale) * (s.square().to(w_sq.dtype) @ w_sq)
+
     def style_scales(self, style):
-        """-> (s [B, Cin] in style's dtype, demod [B, Cout] or None): demod
-        from s squared in s's dtype, then the sums in the weight's (f32)."""
+        """-> (s [B, Cin] in style's dtype, demod [B, Cout] or None)."""
         s = self.modulation(style)
         if not self.demodulate:
             return s, None
-        w_sq = self.weight[0].square().sum((2, 3)).t()  # [Cin, Cout]
-        sigma = (self.scale * self.scale) * (s.square().to(w_sq.dtype) @ w_sq)
-        return s, torch.rsqrt(sigma + 1e-8)
+        return s, torch.rsqrt(self.sigma(s, self.weight[0]) + 1e-8)
 
     def hwio(self):
         """Scaled weight as [k, k, Cin, Cout], the kernel's layout."""
@@ -181,6 +190,11 @@ class FusedLeakyReLU(nn.Module):
 
 
 class StyledConv(nn.Module):
+    # None (whole), or this rank's tensor-parallel part (parallel/tensor.py:
+    # Shard, set by shard_generator): a "column" conv's weight and bias hold
+    # output channels [lo, hi), a "row" conv's weight input channels [lo, hi)
+    tp_shard = None
+
     def __init__(self, cin, cout, style_dim, upsample=False, generator=None):
         super().__init__()
         self.conv = ModulatedConv2d(cin, cout, 3, style_dim, upsample=upsample,
@@ -192,8 +206,22 @@ class StyledConv(nn.Module):
         """x [B, H, W, Cin]; noise [1|B, H', W'] (H' the output height); in
         x's dtype (noise_w and the bias stay f32 for the kernels). halo: x
         carries that many neighbour rows above and below its own (a row
-        shard); the output holds the rows of x's own, and noise those."""
+        shard); the output holds the rows of x's own, and noise those.
+        A tensor-parallel shard runs only under the tp plan: a "column"
+        conv takes the whole x and returns this rank's output channels, a
+        "row" conv takes this rank's input channels and returns the whole
+        output (parallel/tensor.py)."""
         dt = x.dtype
+        if self.tp_shard is not None:
+            tp = hooks.tp_plan()
+            if tp is None:
+                raise RuntimeError("this conv holds one rank's tensor-parallel shard: run it "
+                                   "under its tp plan (parallel/tensor.py:tensor_parallel)")
+            if self.tp_shard.role == "row":
+                return self._row_parallel(tp, x, style, noise)
+            out = self.conv(tp.copy(x), tp.copy(style))
+            out = out + self.noise.weight.to(dt) * noise.to(dt)[..., None]
+            return fused_leaky_relu(out, self.activate.bias)
         if not self.conv.upsample:
             s, demod = self.conv.style_scales(style)
             if halo:  # the kernel pads by its own zero row: drop the halo's output rows
@@ -204,6 +232,20 @@ class StyledConv(nn.Module):
         out = self.conv(x, style, halo)
         out = out + self.noise.weight.to(dt) * noise.to(dt)[..., None]
         return fused_leaky_relu(out, self.activate.bias)
+
+    def _row_parallel(self, tp, x, style, noise):
+        """The partner conv on this rank's input channels: the partial
+        product and the partial demodulation sums, summed over the model
+        ranks in one all-reduce (f32), then the epilogue with d from the
+        whole sum."""
+        dt = x.dtype
+        s = self.conv.modulation(tp.copy(style))[:, self.tp_shard.lo:self.tp_shard.hi]
+        sigma = self.conv.sigma(s, self.conv.weight[0])
+        acc = styled_conv3x3_partial(x, self.conv.hwio().to(dt), s.to(dt).contiguous())
+        acc, sigma = tp.reduce(acc, sigma.to(acc.dtype))
+        d = torch.rsqrt(sigma + 1e-8)
+        return styled_conv3x3_epilogue(acc, d.to(dt), noise.to(dt), self.noise.weight,
+                                       self.activate.bias)
 
 
 class ToRGB(nn.Module):
@@ -233,8 +275,6 @@ class ConstantInput(nn.Module):
 class Generator(nn.Module):
     """StyleGAN2 generator. ``generator`` (a CPU ``torch.Generator``) seeds
     the random init, with the JAX package's distributions."""
-
-    family, row_sharded = "StyleGAN2", True  # synthesize runs on rows (models/hooks.py)
 
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2,

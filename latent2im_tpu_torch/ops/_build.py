@@ -61,6 +61,12 @@ SIGNATURES = {
     "l2i_styled_conv3x3": (_P,) * 9 + (_I,) * 7 + (_F, _F, _P),
     # B, H, W, cin, cout, is_bf16, int[3] {BM, BN, splits} -> workspace bytes
     "l2i_styled_conv3x3_plan": (_I,) * 6 + (_P,),
+    # the tensor-parallel split: x, w, s, acc (f32), workspace, B, H, W, cin,
+    # cout, is_bf16, stream
+    "l2i_styled_conv3x3_partial": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # acc, d, noise, noise_w, bias, out, B, H, W, cout, noise_per_sample,
+    # is_bf16, slope, gain, stream
+    "l2i_styled_conv3x3_epilogue": (_P,) * 6 + (_I,) * 6 + (_F, _F, _P),
     # host C++ of utils/jpeg.py and utils/image.py (jpeg_huffman.cpp,
     # resample.cpp), not kernels. data, n_bytes, blocks, comps, n_blocks,
     # dc_luts, ac_luts, out_ac, n_ac, out_dc -> bits used, -1 past the data,

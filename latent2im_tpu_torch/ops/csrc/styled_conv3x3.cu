@@ -107,6 +107,17 @@
 //    terms, and the truncating accumulation's bias over 36 k16 steps lies
 //    far under the 2^-7 gate of a bf16 result. Fixed order, no atomics:
 //    reruns are bit-identical.
+//
+// The tensor-parallel split (parallel/tensor.py; the JAX package's Megatron
+// layout makes the partner conv row-parallel, so each rank holds a slice of
+// Cin): l2i_styled_conv3x3_partial is the product over that slice with the
+// epilogue switched off, a template parameter RAW of every product kernel
+// and of the split-K reduction, whose false instances are the fused
+// kernel's, unchanged (scripts/torch_sass_diff.py compares their SASS); it
+// writes raw f32 sums, which the ranks all-reduce in f32.
+// l2i_styled_conv3x3_epilogue is the split-K reduction over the summed
+// buffer with one split: d (from the summed sums of squares, which no rank
+// holds alone), noise, bias, LeakyReLU * gain, one store in x's type.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -294,8 +305,9 @@ __host__ __device__ constexpr int stages(int wgs) { return wgs == 1 ? 2 : 3; }
 // threads split step it + 1 (loaded into registers one step earlier: x of
 // the tap's shifted pixels, zeros outside the image, times s; the K-major
 // weight) into a stage no group still reads, and load step it + 2. One
-// barrier per step.
-template <int WGS, bool VEC>
+// barrier per step. RAW (the tensor-parallel partial): no epilogue, the
+// raw f32 sums go to p.out, or with split K to the workspace as always.
+template <int WGS, bool VEC, bool RAW>
 __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
     styled_conv_tc_kernel(const Params p) {
   constexpr int THREADS = WGS * 128, BM = WGS * 64, STAGES = stages(WGS);
@@ -441,14 +453,14 @@ __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
     const int pix = m0 + arow + 8 * h;
     if (pix >= p.M) continue;
     const int b = pix / p.HW;
-    const float nz = p.splits == 1 ? noise_term(p, b, pix - b * p.HW) : 0.f;
+    const float nz = !RAW && p.splits == 1 ? noise_term(p, b, pix - b * p.HW) : 0.f;
     float* orow = p.splits == 1 ? p.out + (long long)pix * p.cout
                                 : p.ws + ((long long)split * p.M + pix) * p.cout;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * t;
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (p.splits == 1) {
+      if (!RAW && p.splits == 1) {
         if (n < p.cout) v0 = finish(p, v0, b, n, nz);
         if (n + 1 < p.cout) v1 = finish(p, v1, b, n + 1, nz);
       }
@@ -467,8 +479,9 @@ __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
 // and the bf16 K-major weight, each K step one tap x 64 channels (a 128-byte
 // swizzle row) as one stage of A and one of B, and one wgmma k16 per
 // 32-byte k slice, four per step. VEC: Cin and Cout multiples of 8 and
-// 16-byte aligned operands, so every load of x is eight bf16.
-template <int WGS, bool VEC>
+// 16-byte aligned operands, so every load of x is eight bf16. RAW: no
+// epilogue, the raw f32 sums go to p.out read as f32 (or the workspace).
+template <int WGS, bool VEC, bool RAW>
 __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
     styled_conv_bf16_kernel(const ParamsBf16 p) {
   constexpr int THREADS = WGS * 128, BM = WGS * 64, STAGES = stages(WGS);
@@ -604,14 +617,16 @@ __global__ void __launch_bounds__(WGS * 128, WGS == 1 ? 2 : 1)
     const int pix = m0 + arow + 8 * h;
     if (pix >= p.M) continue;
     const int b = pix / p.HW;
-    const float nz = p.splits == 1 ? noise_term(p, b, pix - b * p.HW) : 0.f;
+    const float nz = !RAW && p.splits == 1 ? noise_term(p, b, pix - b * p.HW) : 0.f;
     __nv_bfloat16* orow = p.out + (long long)pix * p.cout;
-    float* prow = p.splits > 1 ? p.ws + ((long long)split * p.M + pix) * p.cout : nullptr;
+    float* prow = p.splits > 1 ? p.ws + ((long long)split * p.M + pix) * p.cout
+                  : RAW        ? reinterpret_cast<float*>(p.out) + (long long)pix * p.cout
+                               : nullptr;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * t;
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (p.splits > 1) {
+      if (RAW || p.splits > 1) {
         if (VEC) {
           if (n < p.cout) *reinterpret_cast<float2*>(prow + n) = make_float2(v0, v1);
         } else {
@@ -729,8 +744,10 @@ __device__ __forceinline__ void wg_sync(int wg) {
 // just before. VEC: cin % 8 == 0 and 16-byte aligned x (the copies);
 // otherwise each halo row is read channel by channel when it is prepared.
 // KCH (= p.kch) is a template parameter so that the nine taps' products
-// unroll into one straight run of wgmma on fixed accumulators.
-template <int N, int KCH, bool VEC>
+// unroll into one straight run of wgmma on fixed accumulators. RAW (the
+// tensor-parallel partial): no epilogue; the raw f32 sums go to p.out read
+// as f32, and d, noise and bias are not read.
+template <int N, int KCH, bool VEC, bool RAW>
 __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
     styled_conv_bf16_thin_kernel(const ThinParams p) {
   constexpr int NJ = N / 8;  // accumulator column groups per thread
@@ -767,9 +784,9 @@ __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = 8 * j + 2 * t + e;
-      bias[j][e] = n < p.cout ? __ldg(p.bias + n) : 0.f;
+      bias[j][e] = !RAW && n < p.cout ? __ldg(p.bias + n) : 0.f;
     }
-  const float nw = p.noise != nullptr ? __ldg(p.noise_w) : 0.f;
+  const float nw = !RAW && p.noise != nullptr ? __ldg(p.noise_w) : 0.f;
   const uint32_t wsm_u = smem_u32(wsm), ring_u = smem_u32(ring);
   const long long G = (long long)gridDim.x * wgs, gidx = (long long)blockIdx.x * wgs + wg;
   const long long t_end = (gidx + 1) * p.tiles / G;
@@ -846,7 +863,7 @@ __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = 8 * j + 2 * t + e;
-        dm[j][e] = n < p.cout ? ldg_f32(p.d + (long long)b * p.cout + n) : 0.f;
+        dm[j][e] = !RAW && n < p.cout ? ldg_f32(p.d + (long long)b * p.cout + n) : 0.f;
       }
     for (int k = ya - 1; k <= ya + 2; ++k) fetch(k);
     cp_async_wait<2>();  // rows ya - 1 and ya
@@ -863,7 +880,7 @@ __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int xx = x0 + 16 * warp + g + 8 * h;
-        nz[h] = p.noise != nullptr && xx < p.W
+        nz[h] = !RAW && p.noise != nullptr && xx < p.W
                     ? nw * ldg_f32(p.noise +
                                    ((long long)(p.noise_per_sample ? b : 0) * p.H + y) * p.W + xx)
                     : 0.f;
@@ -893,6 +910,21 @@ __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
       for (int h = 0; h < 2; ++h) {
         const int xx = x0 + 16 * warp + g + 8 * h;
         if (xx >= p.W) continue;
+        if constexpr (RAW) {
+          float* rrow = reinterpret_cast<float*>(p.out) + (((long long)b * p.H + y) * p.W + xx) * p.cout;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int n = 8 * j + 2 * t;
+            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (VEC) {
+              if (n < p.cout) *reinterpret_cast<float2*>(rrow + n) = make_float2(v0, v1);
+            } else {
+              if (n < p.cout) rrow[n] = v0;
+              if (n + 1 < p.cout) rrow[n + 1] = v1;
+            }
+          }
+          continue;
+        }
         __nv_bfloat16* orow = p.out + (((long long)b * p.H + y) * p.W + xx) * p.cout;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -919,8 +951,11 @@ __global__ void __launch_bounds__(thin_max_wgs(N) * 128, 1)
 
 // Split-K: sum the f32 partial tiles in split order, then the epilogue and
 // one store in x's type. One thread per output (four consecutive channels
-// where VEC).
-template <typename T, bool VEC>
+// where VEC). Run over a given f32 buffer with one split, it is the
+// tensor-parallel epilogue (l2i_styled_conv3x3_epilogue). RAW (the
+// tensor-parallel partial under split K): the sum alone, stored in f32 to
+// p.out read as f32.
+template <typename T, bool VEC, bool RAW>
 __global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const ParamsT<T> p) {
   constexpr int V = VEC ? 4 : 1;
   const long long total = (long long)p.M * p.cout / V;
@@ -930,7 +965,7 @@ __global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const Pa
   const int pix = (int)(e / p.cout), n = (int)(e - (long long)pix * p.cout);
   const long long plane = (long long)p.M * p.cout;
   const int b = pix / p.HW;
-  const float nz = noise_term(p, b, pix - b * p.HW);
+  const float nz = RAW ? 0.f : noise_term(p, b, pix - b * p.HW);
   if (VEC) {
     float4 sum = *reinterpret_cast<const float4*>(p.ws + e);
     for (int z = 1; z < p.splits; ++z) {
@@ -939,6 +974,10 @@ __global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const Pa
       sum.y += v.y;
       sum.z += v.z;
       sum.w += v.w;
+    }
+    if constexpr (RAW) {
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(p.out) + e) = sum;
+      return;
     }
     const float4 r = make_float4(finish(p, sum.x, b, n, nz), finish(p, sum.y, b, n + 1, nz),
                                  finish(p, sum.z, b, n + 2, nz), finish(p, sum.w, b, n + 3, nz));
@@ -949,7 +988,10 @@ __global__ void __launch_bounds__(256) styled_conv_splitk_reduce_kernel(const Pa
   } else {
     float sum = p.ws[e];
     for (int z = 1; z < p.splits; ++z) sum += p.ws[z * plane + e];
-    p.out[e] = from_f32<T>(finish(p, sum, b, n, nz));
+    if constexpr (RAW)
+      reinterpret_cast<float*>(p.out)[e] = sum;
+    else
+      p.out[e] = from_f32<T>(finish(p, sum, b, n, nz));
   }
 }
 
@@ -1001,12 +1043,12 @@ long long workspace_bytes(const Plan& pl, long long M, int cin, int cout, int el
   return weight_bytes(cin, cout, elem) + (pl.splits > 1 ? pl.splits * M * cout * 4 : 0);
 }
 
-template <int WGS, bool VEC>
+template <int WGS, bool VEC, bool RAW>
 cudaError_t launch_tc(const Params& p, cudaStream_t st) {
   // three stages of TF32 halves of A (WGS * 64 rows) and B (128 rows), 128
   // bytes a row, and room to align the start to 1024 bytes
   constexpr int smem = stages(WGS) * 2 * (WGS * 64 + BN) * BK * (int)sizeof(float) + 1024;
-  auto kernel = styled_conv_tc_kernel<WGS, VEC>;
+  auto kernel = styled_conv_tc_kernel<WGS, VEC, RAW>;
   static bool attr = false;  // over 48 KB of dynamic shared memory needs opting in
   if (!attr) {
     const cudaError_t e =
@@ -1019,11 +1061,11 @@ cudaError_t launch_tc(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int WGS, bool VEC>
+template <int WGS, bool VEC, bool RAW>
 cudaError_t launch_tc(const ParamsBf16& p, cudaStream_t st) {
   // the stages of A (WGS * 64 rows) and B (128 rows), 128 bytes a row
   constexpr int smem = stages(WGS) * (WGS * 64 + BN) * 128 + 1024;
-  auto kernel = styled_conv_bf16_kernel<WGS, VEC>;
+  auto kernel = styled_conv_bf16_kernel<WGS, VEC, RAW>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
@@ -1041,10 +1083,10 @@ bool aligned16(const void* q) { return (reinterpret_cast<unsigned long long>(q) 
 // The thin form: blocks of as many warpgroups as shared memory holds (at
 // most thin_max_wgs(N)), as many blocks as fit on the SMs at once, each
 // warpgroup an equal share of the row tiles.
-template <int N, int KCH, bool VEC>
+template <int N, int KCH, bool VEC, bool RAW>
 cudaError_t launch_thin(const ThinParams& p, cudaStream_t st) {
   constexpr int max_smem = 232448;  // 227 KB, a block's most on an H100
-  auto kernel = styled_conv_bf16_thin_kernel<N, KCH, VEC>;
+  auto kernel = styled_conv_bf16_thin_kernel<N, KCH, VEC, RAW>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e =
@@ -1068,20 +1110,21 @@ cudaError_t launch_thin(const ThinParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, bool RAW>
 cudaError_t launch_thin_k(const ThinParams& p, bool vec, cudaStream_t st) {
   switch (p.kch) {
-    case 2: return vec ? launch_thin<N, 2, true>(p, st) : launch_thin<N, 2, false>(p, st);
-    case 4: return vec ? launch_thin<N, 4, true>(p, st) : launch_thin<N, 4, false>(p, st);
-    case 6: return vec ? launch_thin<N, 6, true>(p, st) : launch_thin<N, 6, false>(p, st);
-    case 8: return vec ? launch_thin<N, 8, true>(p, st) : launch_thin<N, 8, false>(p, st);
+    case 2: return vec ? launch_thin<N, 2, true, RAW>(p, st) : launch_thin<N, 2, false, RAW>(p, st);
+    case 4: return vec ? launch_thin<N, 4, true, RAW>(p, st) : launch_thin<N, 4, false, RAW>(p, st);
+    case 6: return vec ? launch_thin<N, 6, true, RAW>(p, st) : launch_thin<N, 6, false, RAW>(p, st);
+    case 8: return vec ? launch_thin<N, 8, true, RAW>(p, st) : launch_thin<N, 8, false, RAW>(p, st);
   }
   return cudaErrorInvalidValue;
 }
 
+// raw: the tensor-parallel partial (out f32, no epilogue)
 int run_thin(const void* x, const void* w, const void* s, const void* d, const void* noise,
              const void* noise_w, const void* bias, void* out, int B, int H, int W, int cin,
-             int cout, int noise_per_sample, float slope, float gain, cudaStream_t st) {
+             int cout, int noise_per_sample, float slope, float gain, bool raw, cudaStream_t st) {
   ThinParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w = static_cast<const __nv_bfloat16*>(w);
@@ -1103,20 +1146,26 @@ int run_thin(const void* x, const void* w, const void* s, const void* d, const v
   p.slope = slope;
   p.gain = gain;
   const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) && aligned16(out);
-  return (int)(cout <= 32 ? launch_thin_k<32>(p, vec, st) : launch_thin_k<64>(p, vec, st));
+  if (raw)
+    return (int)(cout <= 32 ? launch_thin_k<32, true>(p, vec, st)
+                            : launch_thin_k<64, true>(p, vec, st));
+  return (int)(cout <= 32 ? launch_thin_k<32, false>(p, vec, st)
+                          : launch_thin_k<64, false>(p, vec, st));
 }
 
 // One call in T: the weight transpose, the product, and with split K the
-// reduction.
+// reduction. raw (the tensor-parallel partial): out is f32 and takes the
+// sums without the epilogue; d, noise, noise_w and bias are not read.
 template <typename T>
 int run(const void* x, const void* w, const void* s, const void* d, const void* noise,
         const void* noise_w, const void* bias, void* out, void* ws, int B, int H, int W,
-        int cin, int cout, int noise_per_sample, float slope, float gain, cudaStream_t st) {
+        int cin, int cout, int noise_per_sample, float slope, float gain, bool raw,
+        cudaStream_t st) {
   constexpr int elem = (int)sizeof(T), bk = elem == 4 ? BK : BK_BF16;
   const Plan pl = plan(B, H, W, cin, cout, bk);
   if (pl.bn < BN)
     return run_thin(x, w, s, d, noise, noise_w, bias, out, B, H, W, cin, cout, noise_per_sample,
-                    slope, gain, st);
+                    slope, gain, raw, st);
   if (ws == nullptr || !aligned16(ws)) return (int)cudaErrorInvalidValue;
   ParamsT<T> p;
   p.x = static_cast<const T*>(x);
@@ -1150,17 +1199,54 @@ int run(const void* x, const void* w, const void* s, const void* d, const void* 
   if (e != cudaSuccess) return (int)e;
   const bool vec = cin % (16 / elem) == 0 && cout % (16 / elem) == 0 && aligned16(x) &&
                    aligned16(s) && aligned16(out);
-  if (pl.bm == 128)
-    e = vec ? launch_tc<2, true>(p, st) : launch_tc<2, false>(p, st);
+  if (raw)
+    e = pl.bm == 128 ? (vec ? launch_tc<2, true, true>(p, st) : launch_tc<2, false, true>(p, st))
+                     : (vec ? launch_tc<1, true, true>(p, st) : launch_tc<1, false, true>(p, st));
+  else if (pl.bm == 128)
+    e = vec ? launch_tc<2, true, false>(p, st) : launch_tc<2, false, false>(p, st);
   else
-    e = vec ? launch_tc<1, true>(p, st) : launch_tc<1, false>(p, st);
+    e = vec ? launch_tc<1, true, false>(p, st) : launch_tc<1, false, false>(p, st);
   if (e != cudaSuccess || pl.splits == 1) return (int)e;
   const long long n = (long long)p.M * cout / (vec ? 4 : 1);
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  if (vec)
-    styled_conv_splitk_reduce_kernel<T, true><<<blocks, 256, 0, st>>>(p);
+  if (raw && vec)
+    styled_conv_splitk_reduce_kernel<T, true, true><<<blocks, 256, 0, st>>>(p);
+  else if (raw)
+    styled_conv_splitk_reduce_kernel<T, false, true><<<blocks, 256, 0, st>>>(p);
+  else if (vec)
+    styled_conv_splitk_reduce_kernel<T, true, false><<<blocks, 256, 0, st>>>(p);
   else
-    styled_conv_splitk_reduce_kernel<T, false><<<blocks, 256, 0, st>>>(p);
+    styled_conv_splitk_reduce_kernel<T, false, false><<<blocks, 256, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-parallel epilogue in T: the reduce launch over `acc` with one
+// split.
+template <typename T>
+int run_epilogue(const float* acc, const void* d, const void* noise, const void* noise_w,
+                 const void* bias, void* out, int B, int H, int W, int cout,
+                 int noise_per_sample, float slope, float gain, cudaStream_t st) {
+  ParamsT<T> p = {};
+  p.d = static_cast<const T*>(d);
+  p.noise = static_cast<const T*>(noise);
+  p.noise_w = static_cast<const float*>(noise_w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<T*>(out);
+  p.ws = const_cast<float*>(acc);
+  p.cout = cout;
+  p.noise_per_sample = noise_per_sample;
+  p.M = B * H * W;
+  p.HW = H * W;
+  p.splits = 1;
+  p.slope = slope;
+  p.gain = gain;
+  const bool vec = cout % 4 == 0 && aligned16(acc) && aligned16(out);
+  const long long n = (long long)p.M * cout / (vec ? 4 : 1);
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  if (vec)
+    styled_conv_splitk_reduce_kernel<T, true, false><<<blocks, 256, 0, st>>>(p);
+  else
+    styled_conv_splitk_reduce_kernel<T, false, false><<<blocks, 256, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1193,7 +1279,42 @@ extern "C" int l2i_styled_conv3x3(const void* x, const void* w, const void* s, c
   if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? run<__nv_bfloat16>(x, w, s, d, noise, noise_w, bias, out, ws, B, H, W, cin,
-                                      cout, noise_per_sample, slope, gain, st)
+                                      cout, noise_per_sample, slope, gain, false, st)
                  : run<float>(x, w, s, d, noise, noise_w, bias, out, ws, B, H, W, cin, cout,
-                              noise_per_sample, slope, gain, st);
+                              noise_per_sample, slope, gain, false, st);
+}
+
+// The tensor-parallel split of l2i_styled_conv3x3 (a rank holding a slice of
+// Cin): the product conv3x3_same(x * s, w) over that slice, without d, noise,
+// bias or activation, as f32 sums in `acc` [B, H, W, Cout] whatever x's type
+// (x, w and s f32 or all bf16, as l2i_styled_conv3x3 takes them, the same
+// tilings and the workspace l2i_styled_conv3x3_plan asks for). The caller
+// sums `acc` over the ranks and finishes with l2i_styled_conv3x3_epilogue.
+extern "C" int l2i_styled_conv3x3_partial(const void* x, const void* w, const void* s,
+                                          float* acc, void* ws, int B, int H, int W, int cin,
+                                          int cout, int is_bf16, void* stream) {
+  if ((long long)B * H * W * cout <= 0) return 0;
+  if ((long long)B * H * W >= (1LL << 31) - 256 || cin <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? run<__nv_bfloat16>(x, w, s, nullptr, nullptr, nullptr, nullptr, acc, ws, B, H,
+                                      W, cin, cout, 0, 0.f, 1.f, true, st)
+                 : run<float>(x, w, s, nullptr, nullptr, nullptr, nullptr, acc, ws, B, H, W, cin,
+                              cout, 0, 0.f, 1.f, true, st);
+}
+
+// The epilogue of the split: out = lrelu(acc * d + noise_w * noise + bias,
+// slope) * gain from the f32 sums `acc` [B, H, W, Cout] over every rank's
+// slice; d and noise (may be null) in out's type (f32 or bf16), noise_w and
+// bias f32; one store in out's type. One launch.
+extern "C" int l2i_styled_conv3x3_epilogue(const float* acc, const void* d, const void* noise,
+                                           const void* noise_w, const void* bias, void* out,
+                                           int B, int H, int W, int cout, int noise_per_sample,
+                                           int is_bf16, float slope, float gain, void* stream) {
+  if ((long long)B * H * W * cout <= 0) return 0;
+  if ((long long)B * H * W >= (1LL << 31) - 256) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? run_epilogue<__nv_bfloat16>(acc, d, noise, noise_w, bias, out, B, H, W, cout,
+                                               noise_per_sample, slope, gain, st)
+                 : run_epilogue<float>(acc, d, noise, noise_w, bias, out, B, H, W, cout,
+                                       noise_per_sample, slope, gain, st);
 }

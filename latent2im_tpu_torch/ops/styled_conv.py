@@ -30,6 +30,22 @@ fused_act backward (a kernel on cuda, itself differentiable) on the saved
 output, then cuDNN convs for the rest (the input gradient, and the weight
 gradient that the joint GAN fine-tune takes), so the backward has a graph
 of its own under ``create_graph``.
+
+Tensor parallelism (parallel/tensor.py) splits the same function at the
+all-reduce of a Cin-sharded (row-parallel) conv:
+
+    acc_r = styled_conv3x3_partial(x_r, w_r, s_r)      # this rank's Cin slice
+    acc = sum over ranks of acc_r                      # f32, the all-reduce
+    out = styled_conv3x3_epilogue(acc, d, noise, noise_w, bias)
+
+``styled_conv3x3_partial`` launches the kernel with its epilogue switched off
+(raw f32 sums, in every form: 3xTF32, bf16 tiled, bf16 thin);
+``styled_conv3x3_epilogue`` launches its split-K reduction over the summed
+buffer with one split (d, noise, bias, LeakyReLU * gain and one store in
+d's dtype). d is applied after the sum: it needs the sum of squares over all
+of Cin. Each has its plain twin and an autograd node; the two nodes' backward
+is the fused node's cut in two (the epilogue's gives gz, gbias, gnoise, gnw,
+gd and gacc = gz * d; the partial's gx, gs and gw from gacc).
 """
 
 from __future__ import annotations
@@ -210,6 +226,46 @@ def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
+def _input_grads(need, x, w, s, gy, xs=None):
+    """(gx, gw, gs) of y = conv3x3_same(x * s, w) from gy (x's dtype) by
+    cuDNN, each None where ``need`` (for x, w, s) is false; the reduction of
+    gs over pixels in f32 (f64 stays). xs: _nchw(x * s) where the caller
+    has it."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    gx = gw = gs = None
+    w_oihw = w.permute(3, 2, 0, 1)
+    if need[1]:  # back to [3, 3, Cin, Cout]
+        xs = _nchw(x * s[:, None, None, :]) if xs is None else xs
+        gw = torch.nn.grad.conv2d_weight(xs, w_oihw.shape, _nchw(gy),
+                                         padding=1).permute(2, 3, 1, 0)
+    if need[0] or need[2]:
+        gxs = torch.nn.grad.conv2d_input(
+            _nchw(x).shape, w_oihw, _nchw(gy), padding=1).permute(0, 2, 3, 1)
+        if need[0]:
+            gx = gxs * s[:, None, None, :]
+        if need[2]:
+            gs = (gxs.to(f) * x.to(f)).sum((1, 2)).to(s.dtype)
+    return gx, gw, gs
+
+
+def _epilogue_grads(need, gz, noise, noise_w, bias_dtype):
+    """(gnoise, gnw, gbias) from gz, the gradient at the pre-activation;
+    ``need`` for (noise, noise_w, bias); sums over pixels in f32."""
+    f = torch.promote_types(gz.dtype, torch.float32)
+    gnoise = gnw = gbias = None
+    if need[2]:
+        gbias = gz.to(f).sum((0, 1, 2)).to(bias_dtype)
+    if noise is not None and (need[0] or need[1]):
+        gz_c = gz.to(f).sum(-1)  # [B, H, W]
+        if need[1]:
+            gnw = (gz_c * noise.to(f)).sum().reshape(noise_w.shape).to(noise_w.dtype)
+        if need[0]:
+            nw = noise_w.reshape(()).to(f)
+            gnoise = ((gz_c * nw).sum(0, keepdim=True) if noise.shape[0] == 1
+                      else gz_c * nw).to(noise.dtype)
+    return gnoise, gnw, gbias
+
+
 class _StyledConv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, s, d, noise, noise_w, bias, negative_slope, gain):
@@ -228,34 +284,14 @@ class _StyledConv3x3(torch.autograd.Function):
         gz, _ = fused_leaky_relu_bwd(g.contiguous(), out, ctx.negative_slope,
                                      ctx.gain, bias_grad=False)
         f = torch.promote_types(gz.dtype, torch.float32)
-        gx = gw = gs = gd = gnoise = gnw = gbias = None
-        if need[6]:
-            gbias = gz.to(f).sum((0, 1, 2)).to(ctx.bias_dtype)
-        if noise is not None and (need[4] or need[5]):
-            gz_c = gz.to(f).sum(-1)  # [B, H, W]
-            if need[5]:
-                gnw = (gz_c * noise.to(f)).sum().reshape(noise_w.shape).to(noise_w.dtype)
-            if need[4]:
-                nw = noise_w.reshape(()).to(f)
-                gnoise = ((gz_c * nw).sum(0, keepdim=True) if noise.shape[0] == 1
-                          else gz_c * nw).to(noise.dtype)
-        w_oihw = w.permute(3, 2, 0, 1)
+        gnoise, gnw, gbias = _epilogue_grads(need[4:7], gz, noise, noise_w, ctx.bias_dtype)
+        gx = gw = gs = gd = None
         xs = _nchw(x * s[:, None, None, :]) if need[1] or need[3] else None
         if need[3]:
-            y = F.conv2d(xs, w_oihw, padding=1)
+            y = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=1)
             gd = (gz.to(f) * y.permute(0, 2, 3, 1).to(f)).sum((1, 2)).to(d.dtype)
         if need[0] or need[1] or need[2]:
-            gy = gz * d[:, None, None, :]
-        if need[1]:  # back to [3, 3, Cin, Cout]
-            gw = torch.nn.grad.conv2d_weight(xs, w_oihw.shape, _nchw(gy),
-                                             padding=1).permute(2, 3, 1, 0)
-        if need[0] or need[2]:
-            gxs = torch.nn.grad.conv2d_input(
-                _nchw(x).shape, w_oihw, _nchw(gy), padding=1).permute(0, 2, 3, 1)
-            if need[0]:
-                gx = gxs * s[:, None, None, :]
-            if need[2]:
-                gs = (gxs.to(f) * x.to(f)).sum((1, 2)).to(s.dtype)
+            gx, gw, gs = _input_grads(need[:3], x, w, s, gz * d[:, None, None, :], xs)
         return gx, gw, gs, gd, gnoise, gnw, gbias, None, None
 
 
@@ -276,3 +312,159 @@ def styled_conv3x3(x, w, s, d, noise, noise_w, bias,
 
 
 styled_conv3x3.launches = styled_conv3x3.launches_bf16 = 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel split: partial product, all-reduce (the caller's),
+# epilogue
+# ---------------------------------------------------------------------------
+
+
+def styled_conv3x3_partial_plain(x, w, s):
+    """Plain version of ``styled_conv3x3_partial``: conv3x3_same(x * s, w) in
+    f32 (f64 for f64 operands); on bf16 operands A = bf16(x * s) and the
+    bf16 weight in an f32 convolution, as the kernel's bf16 forms."""
+    if x.dtype != torch.bfloat16:
+        return _conv(x * s[:, None, None, :], w).contiguous()
+    f = torch.float32
+    a = (x.to(f) * s.to(f)[:, None, None, :]).to(x.dtype).to(f)
+    return _conv(a, w.to(f)).contiguous()
+
+
+def styled_conv3x3_epilogue_plain(acc, d, noise, noise_w, bias,
+                                  negative_slope: float = 0.2, gain: float = SQRT2):
+    """Plain version of ``styled_conv3x3_epilogue``: lrelu(acc * d + noise_w
+    * noise + bias) * gain in f32 (f64 stays), one rounding to d's dtype."""
+    if d.dtype != torch.bfloat16:
+        return _epilogue(acc, d, noise, noise_w, bias, negative_slope, gain)
+    f = torch.float32
+    out = _epilogue(acc, d.to(f), None if noise is None else noise.to(f), noise_w.to(f),
+                    bias.to(f), negative_slope, gain)
+    return out.to(d.dtype)
+
+
+def _check(name, operands, expect, dtypes, device):
+    for key, t in operands.items():
+        if key in expect and tuple(t.shape) != expect[key]:
+            raise ValueError(f"{name}: {key} must be {expect[key]}, got {tuple(t.shape)}")
+        if t.device != device or t.dtype != dtypes[key] or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {dtypes[key]} on {device}")
+
+
+def _partial_forward(x, w, s):
+    if x.device.type == "cpu":
+        return styled_conv3x3_partial_plain(x, w, s)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"styled_conv3x3_partial: f32 or bf16 input, got {x.dtype}")
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    _check("styled_conv3x3_partial", {"x": x, "w": w, "s": s},
+           {"w": (3, 3, cin, cout), "s": (b, cin)}, dict.fromkeys("xws", x.dtype), x.device)
+    acc = torch.empty((b, h, wd, cout), dtype=torch.float32, device=x.device)
+    ws = torch.empty(styled_conv3x3_plan(b, h, wd, cin, cout, x.dtype)["workspace_bytes"],
+                     dtype=torch.uint8, device=x.device)
+    rc = _build.library().l2i_styled_conv3x3_partial(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), acc.data_ptr(), ws.data_ptr(),
+        b, h, wd, cin, cout, int(x.dtype == torch.bfloat16), _build.stream_of(x))
+    _build.check(rc, "styled_conv3x3_partial")
+    _build.count(styled_conv3x3_partial, x)
+    return acc
+
+
+def _epilogue_forward(acc, d, noise, noise_w, bias, negative_slope, gain):
+    if acc.device.type == "cpu":
+        return styled_conv3x3_epilogue_plain(acc, d, noise, noise_w, bias,
+                                             negative_slope, gain)
+    if d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"styled_conv3x3_epilogue: f32 or bf16 d, got {d.dtype}")
+    b, h, wd, cout = acc.shape
+    noise_w = noise_w.reshape(1)
+    operands = {"acc": acc, "d": d, "noise_w": noise_w, "bias": bias}
+    dtypes = {"acc": torch.float32, "d": d.dtype, "noise": d.dtype,
+              "noise_w": torch.float32, "bias": torch.float32}
+    if noise is not None:
+        if noise.dim() != 3 or noise.shape[0] not in (1, b) or noise.shape[1:] != (h, wd):
+            raise ValueError(f"styled_conv3x3_epilogue: noise must be [1|{b}, {h}, {wd}], "
+                             f"got {tuple(noise.shape)}")
+        operands["noise"] = noise
+    _check("styled_conv3x3_epilogue", operands, {"d": (b, cout), "bias": (cout,)}, dtypes,
+           acc.device)
+    out = torch.empty((b, h, wd, cout), dtype=d.dtype, device=acc.device)
+    rc = _build.library().l2i_styled_conv3x3_epilogue(
+        acc.data_ptr(), d.data_ptr(), _build.ptr(noise), noise_w.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, h, wd, cout, int(noise is not None and noise.shape[0] == b and b > 1),
+        int(d.dtype == torch.bfloat16), negative_slope, gain, _build.stream_of(acc))
+    _build.check(rc, "styled_conv3x3_epilogue")
+    _build.count(styled_conv3x3_epilogue, out)
+    return out
+
+
+class _StyledConv3x3Partial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s):
+        ctx.save_for_backward(x, w, s)
+        return _partial_forward(x, w, s)
+
+    @staticmethod
+    def backward(ctx, gacc):
+        x, w, s = ctx.saved_tensors
+        # gacc = gz * d, rounded to x's dtype as the fused node's gy is
+        return _input_grads(ctx.needs_input_grad, x, w, s, gacc.to(x.dtype).contiguous())
+
+
+class _StyledConv3x3Epilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, d, noise, noise_w, bias, negative_slope, gain):
+        out = _epilogue_forward(acc, d, noise, noise_w, bias, negative_slope, gain)
+        ctx.save_for_backward(acc, d, noise, noise_w, out)
+        ctx.negative_slope, ctx.gain = negative_slope, gain
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        acc, d, noise, noise_w, out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gz, _ = fused_leaky_relu_bwd(g.contiguous(), out, ctx.negative_slope,
+                                     ctx.gain, bias_grad=False)
+        f = torch.promote_types(gz.dtype, torch.float32)
+        gnoise, gnw, gbias = _epilogue_grads(need[2:5], gz, noise, noise_w, ctx.bias_dtype)
+        gacc = gd = None
+        if need[0]:
+            gacc = (gz * d[:, None, None, :]).to(acc.dtype)
+        if need[1]:
+            gd = (gz.to(f) * acc.to(f)).sum((1, 2)).to(d.dtype)
+        return gacc, gd, gnoise, gnw, gbias, None, None
+
+
+def styled_conv3x3_partial(x, w, s):
+    """The product of ``styled_conv3x3`` over one rank's Cin slice: x
+    [B,H,W,Cin_r] NHWC, w [3,3,Cin_r,Cout] (scaled by 1/sqrt(9 Cin) of the
+    whole Cin), s [B,Cin_r] -> conv3x3_same(x * s, w) [B,H,W,Cout] in f32
+    (f64 for f64 operands), without d, noise, bias or activation: summed over
+    the ranks it is what ``styled_conv3x3_epilogue`` takes. Differentiable in
+    x, w and s."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"styled_conv3x3_partial: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, s)):
+        return _StyledConv3x3Partial.apply(x, w, s)
+    return _partial_forward(x, w, s)
+
+
+def styled_conv3x3_epilogue(acc, d, noise, noise_w, bias,
+                            negative_slope: float = 0.2, gain: float = SQRT2):
+    """lrelu(acc * d + noise_w * noise + bias) * gain from the f32 sums acc
+    [B,H,W,Cout] (f64 stays f64); d [B,Cout] and noise [1|B,H,W] or None in
+    the result's dtype (f32 or bf16), noise_w (1 element) and bias [Cout]
+    f32. Differentiable in every operand."""
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"styled_conv3x3_epilogue: unsupported device {acc.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (acc, d, noise, noise_w, bias)):
+        return _StyledConv3x3Epilogue.apply(acc, d, noise, noise_w, bias, negative_slope,
+                                            gain)
+    return _epilogue_forward(acc, d, noise, noise_w, bias, negative_slope, gain)
+
+
+styled_conv3x3_partial.launches = styled_conv3x3_partial.launches_bf16 = 0
+styled_conv3x3_epilogue.launches = styled_conv3x3_epilogue.launches_bf16 = 0

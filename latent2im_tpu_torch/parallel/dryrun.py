@@ -7,11 +7,10 @@ Launches n ranks (parallel/launch.py: gloo on the CPU or where ranks share a
 card, NCCL where each has its own) and runs, at the JAX dry run's tiny
 shapes (32 px, G and D at 8-16 channels, style dim 32, a 2-layer MLP, the
 full ResNet-50 and VGG19), one data-parallel walk-training step over all n
-ranks and, when n is even, one step on a (n/s x s) data x spatial mesh,
-s = 4 where it divides n, else 2. It prints the JAX dry run's lines. Where
-the JAX dry run takes a dp+tp step, this one says that tensor parallelism
-is not ported (ROADMAP.md queue A item 15). A rank that fails fails the
-run.
+ranks and, when n is even, the JAX dry run's dp+tp step on a (n/2 x 2)
+data x model mesh (G tensor-parallel, parallel/tensor.py) and one step on
+a (n/s x s) data x spatial mesh, s = 4 where it divides n, else 2. It
+prints the JAX dry run's lines. A rank that fails fails the run.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ TINY = {4: 16, 8: 16, 16: 8, 32: 8}
 SIZE, STYLE_DIM = 32, 32
 
 
-def _step(editor, mesh, seed):
+def _step(editor, mesh, seed, frozen_shardings=None):
     """One walk-training step on ``mesh`` (global batch 2 per data rank) ->
     the loss."""
     walk = init_walk("linear_w", STYLE_DIM, editor.cfg.n_latent, ["Smiling"],
@@ -46,7 +45,8 @@ def _step(editor, mesh, seed):
         t.requires_grad_(True)
     opt = make_optimizer(walk, 1e-4)
     meshlib.replicate(mesh, walk)
-    step = make_train_step(editor, get_task("face"), opt, mesh=mesh)
+    step = make_train_step(editor, get_task("face"), opt, mesh=mesh,
+                           frozen_shardings=frozen_shardings)
     z = np.random.RandomState(seed).randn(2 * mesh.shape["data"], STYLE_DIM).astype(np.float32)
     gen = torch.Generator(device=editor.device).manual_seed(seed)
     loss = float(step(walk, z, generator=gen)["loss"])
@@ -61,6 +61,11 @@ def _dryrun_rank(n: int, device: str) -> list[str]:
     if dev.type == "cpu":  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     gen = torch.Generator().manual_seed(0)
+
+    def generator():  # the first draws of gen's seed
+        return sg2.Generator(SIZE, STYLE_DIM, 2, channels=TINY,
+                             generator=torch.Generator().manual_seed(0))
+
     g = sg2.Generator(SIZE, STYLE_DIM, 2, channels=TINY, generator=gen)
     d = sg2.Discriminator(SIZE, channels=TINY, generator=gen)
     reg = rn.ResNet50(num_outputs=40, generator=gen)
@@ -72,8 +77,12 @@ def _dryrun_rank(n: int, device: str) -> list[str]:
     lines.append(f"dryrun_multichip({n}): one {n} dp step OK, loss={_step(ed, mesh, 0):.4f} "
                  f"({mesh.backend or 'one rank'}, {mesh.transport})")
     if n % 2 == 0:
-        lines.append(f"dryrun_multichip({n}): dp+tp is not ported "
-                     f"({meshlib.TP_ITEM})")
+        tp_mesh = meshlib.make_mesh_2d(n // 2, 2)
+        # the tp step cuts its editor's G to this rank's shards: a G of its own
+        tp_ed = Editor(cfg, generator(), reg, dev, vgg=vgg, d=d)
+        loss = _step(tp_ed, tp_mesh, 0, meshlib.frozen_tp_shardings(tp_mesh,
+                                                                    tp_ed.frozen_params()))
+        lines.append(f"dryrun_multichip({n}): one {n // 2}x2 dp+tp step OK, loss={loss:.4f}")
         n_sp = max(s for s in (2, 4) if n % s == 0)
         sp_mesh = splib.make_mesh_spatial(n_spatial=n_sp, n_data=n // n_sp)
         with splib.spatial_partitioning(sp_mesh, min_rows_per_device=2):

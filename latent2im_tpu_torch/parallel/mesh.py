@@ -34,10 +34,11 @@ its send and recv do not, so the halo swaps cross through host copies
 flag, Adam's step count) goes through this rank's card and back.
 ``Mesh.transport`` names the route.
 
-Tensor parallelism (JAX ``stylegan2_tp_specs``, ``frozen_tp_shardings``) is
-not ported: the fused styled-conv kernel folds the demodulation and the
-noise, bias and LeakyReLU epilogue into its body, and a Cin-sharded conv
-needs them after the all-reduce (ROADMAP.md queue A item 15).
+- ``stylegan2_tp_specs`` / ``frozen_tp_shardings``: the tensor-parallel
+  layout of the frozen towers on a (data x model) mesh, as JAX's, and the
+  one place it is decided: ``make_train_step(frozen_shardings=)`` cuts G's
+  parameters to this rank's slices by it, and sets each sharded conv's
+  role, through parallel/tensor.py, which holds the Megatron operators.
 """
 
 from __future__ import annotations
@@ -59,8 +60,6 @@ log = logging.getLogger(__name__)
 
 # how long a rank waits in one collective; a run itself has no deadline
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=30)
-
-TP_ITEM = "ROADMAP.md queue A item 15"
 
 
 def choose_backend(device_type: str, world_size: int, device_count: int) -> str:
@@ -367,10 +366,24 @@ def _tensors(tree) -> list:
 def replicate(mesh: Mesh, tree):
     """Rank 0's values in every tensor of ``tree`` (a tensor, a walk dict
     or list, a module's parameters and buffers, or an optimizer's state),
-    in place; returns tree."""
+    in place, one broadcast per device and dtype; returns tree."""
+    if mesh.backend is None:
+        return tree
+    groups = {}
     for t in _tensors(tree):
-        broadcast_(mesh, t)
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    for ts in groups.values():
+        flat = broadcast_(mesh, torch.cat([t.reshape(-1) for t in ts]))
+        off = 0
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
     return tree
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of the tensors ``replicate`` would broadcast."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
 def replicate_editor(editor, walk_params, mesh: Mesh | None):
@@ -385,13 +398,51 @@ def replicate_editor(editor, walk_params, mesh: Mesh | None):
     return MeshEditor(editor, mesh), replicate(mesh, walk_params)
 
 
-def frozen_tp_shardings(mesh, frozen):
-    """Tensor parallelism of the frozen towers (JAX ``frozen_tp_shardings``)
-    is not ported."""
-    raise NotImplementedError(
-        f"tensor parallelism (Megatron tp of the StyleGAN2 convs) is not ported yet "
-        f"({TP_ITEM}): its row-parallel conv needs the styled-conv kernel's "
-        "demodulation and epilogue split off after the all-reduce")
+# the sharded axis of each parameter of a sharded conv (rosinality layout:
+# ModulatedConv2d.weight [1, Cout, Cin, k, k], FusedLeakyReLU.bias [Cout])
+COUT, CIN = 1, 2
+
+
+def stylegan2_tp_specs(g) -> dict[str, int | None]:
+    """{parameter name: its sharded axis over 'model', or None (replicated)}
+    for a models.stylegan2 Generator, the JAX package's
+    ``stylegan2_tp_specs``: each up-conv (``convs.{2j}``) column-parallel,
+    its weight on Cout and ``activate.bias`` with it; each partner conv
+    (``convs.{2j+1}``) row-parallel, its weight on Cin; everything else
+    replicated."""
+    specs = dict.fromkeys((name for name, _ in g.named_parameters()), None)
+    for i in range(len(g.convs)):
+        if i % 2 == 0:
+            specs[f"convs.{i}.conv.weight"] = COUT
+            specs[f"convs.{i}.activate.bias"] = 0
+        else:
+            specs[f"convs.{i}.conv.weight"] = CIN
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class TpShardings:
+    """The frozen towers' tensor-parallel layout on a (data x model) mesh:
+    ``specs[tower]`` maps parameter names to sharded axes (None: the tower
+    replicates). parallel/tensor.py:shard_generator applies G's."""
+
+    mesh: meshlib.Mesh
+    specs: dict
+
+
+def frozen_tp_shardings(mesh: meshlib.Mesh, frozen: dict) -> TpShardings:
+    """The JAX package's ``frozen_tp_shardings`` for ``Editor.frozen_params()``
+    on a (data x model) mesh: the StyleGAN2 generator tensor-shards over
+    'model' (``stylegan2_tp_specs``), the other towers replicate.
+    ``make_train_step(frozen_shardings=)`` takes the result."""
+    from ..models import stylegan2 as sg2  # the models import the parallel hooks
+
+    if "model" not in mesh.shape:
+        raise ValueError(f"tensor parallelism needs a 'model' mesh axis, got {mesh.axis_names}")
+    specs = {k: None for k in frozen}
+    if isinstance(frozen.get("g"), sg2.Generator):
+        specs["g"] = stylegan2_tp_specs(frozen["g"])
+    return TpShardings(mesh, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -426,13 +477,15 @@ class BatchGather:
 
 
 def average_gradients(mesh: Mesh, params) -> None:
-    """In place: each tensor's .grad summed over every rank in one
-    all-reduce, divided by the data axis (averaged over 'data', summed over
-    'spatial')."""
+    """In place: each tensor's .grad summed in one all-reduce, divided by
+    the data axis: averaged over 'data', summed over 'spatial' (each spatial
+    rank holds its rows' share), and not reduced over 'model' (under tensor
+    parallelism every model rank holds the whole gradient already)."""
     if mesh.backend is None:
         return
     grads = [p.grad for p in params]
-    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
+    axis = "data" if "model" in mesh.shape else None
+    flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]), axis)
     flat /= mesh.shape.get("data", 1)
     off = 0
     for g in grads:

@@ -51,10 +51,24 @@ ToRGB's 1x1 conv, the noise add and fused_act are row-local. Stored noise
 maps are sliced to the rank's rows; fresh noise is drawn at the global shape
 and sliced, so every rank and the single-process run see the same noise.
 
-A later sp slice for PGGAN, StyleGAN1 or the GAN zoo starts from these
-rules: their classes declare ``row_sharded = False`` and their forwards
-raise under a plan today (models/hooks.py:no_row_plan, ROADMAP.md queue A
-item 15); setting it is what lets the CLIs through.
+The other generator families (their forwards consult the same plan)
+shard from the first block whose OUTPUT height qualifies, as the JAX
+package's hook after each block, on NCHW rows (``dim=2``):
+
+- PGGAN (model_256) and the GAN-zoo GNet: nearest x2 upsampling of rows
+  [a, b) gives rows [2a, 2b), no halo; each 3x3 pad-1 conv takes one halo
+  row each side and pads only the columns; the pixel norm (over channels),
+  LeakyReLU and the 1x1 rgb heads are row-local.
+- StyleGAN1: the 3x3 pad-1 convs and the [1,2,1]^2 blur (pad 1) take one
+  halo row; the fused upsample (a stride-2 transposed conv of a 4x4 kernel,
+  pad 1: output row o reads input rows (o + 1 - k) / 2, k = 0..3) makes rows
+  [2a, 2b) from input rows a-1..b, one halo row, its output cropped to
+  those rows; the noise maps are sliced to the rank's rows; AdaIN's
+  instance norm needs each channel's mean and variance over the whole
+  image: (sum x, sum x^2) of the rank's rows summed over the spatial ranks
+  in one all-reduce (``RowPlan.sum_rows``, whose backward sums the
+  gradients over the ranks again, since every rank normalises by the same
+  sums).
 """
 
 from __future__ import annotations
@@ -69,31 +83,45 @@ from . import mesh as meshlib
 
 class _Halo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan, r):
-        ctx.plan, ctx.r = plan, r
-        top, bottom = plan.exchange(x[:, :r], x[:, -r:])
-        return torch.cat([top, x, bottom], 1)
+    def forward(ctx, x, plan, r, dim):
+        ctx.plan, ctx.r, ctx.dim = plan, r, dim
+        h = x.shape[dim]
+        top, bottom = plan.exchange(x.narrow(dim, 0, r), x.narrow(dim, h - r, r))
+        return torch.cat([top, x, bottom], dim)
 
     @staticmethod
     def backward(ctx, g):
-        r = ctx.r
-        from_prev, from_next = ctx.plan.exchange(g[:, :r], g[:, -r:])
-        gx = g[:, r:-r].clone()
-        gx[:, :r] += from_prev
-        gx[:, -r:] += from_next
-        return gx, None, None
+        r, dim = ctx.r, ctx.dim
+        h = g.shape[dim] - 2 * r
+        from_prev, from_next = ctx.plan.exchange(g.narrow(dim, 0, r), g.narrow(dim, h + r, r))
+        gx = g.narrow(dim, r, h).clone()
+        gx.narrow(dim, 0, r).add_(from_prev)
+        gx.narrow(dim, h - r, r).add_(from_next)
+        return gx, None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan):
-        ctx.plan, ctx.h = plan, x.shape[1]
-        return meshlib.all_gather(plan.mesh, plan.axis, x, 1)
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.h, ctx.dim = plan, x.shape[dim], dim
+        return meshlib.all_gather(plan.mesh, plan.axis, x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        lo = ctx.plan.index * ctx.h
-        return g[:, lo:lo + ctx.h].contiguous(), None
+        return g.narrow(ctx.dim, ctx.plan.index * ctx.h, ctx.h).contiguous(), None, None
+
+
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, plan):
+        ctx.plan = plan
+        return meshlib.all_reduce(plan.mesh, t, plan.axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank normalises its rows by the same sum: the gradient of
+        # each rank's share is the sum of every rank's
+        return meshlib.all_reduce(ctx.plan.mesh, g.contiguous(), ctx.plan.axis), None
 
 
 class RowPlan:
@@ -118,25 +146,31 @@ class RowPlan:
         step = h // self.n
         return self.index * step, (self.index + 1) * step
 
-    def constrain(self, x):
-        """This rank's rows of a replicated [B, H, ...] tensor."""
-        lo, hi = self.rows(x.shape[1])
-        return x[:, lo:hi].contiguous()
+    def constrain(self, x, dim: int = 1):
+        """This rank's rows of a replicated tensor, rows along ``dim`` (1:
+        NHWC, 2: NCHW)."""
+        lo, hi = self.rows(x.shape[dim])
+        return x.narrow(dim, lo, hi - lo).contiguous()
 
     def exchange(self, to_prev, to_next):
         self.halo_bytes += 2 * to_prev.numel() * to_prev.element_size()
         return meshlib.exchange(self.mesh, self.axis, to_prev.contiguous(),
                                 to_next.contiguous())
 
-    def halo(self, x, r: int = 1):
+    def halo(self, x, r: int = 1, dim: int = 1):
         """x's rows with r rows of each neighbour around them (zeros past
         the image's edges)."""
-        return _Halo.apply(x, self, r)
+        return _Halo.apply(x, self, r, dim)
 
-    def boundary(self, x):
+    def boundary(self, x, dim: int = 1):
         """The whole image from every rank's rows."""
         self.gather_bytes += x.numel() * x.element_size() * (self.n - 1)
-        return _GatherRows.apply(x, self)
+        return _GatherRows.apply(x, self, dim)
+
+    def sum_rows(self, t):
+        """t summed over the spatial ranks (a statistic of the whole image
+        from each rank's rows); differentiable."""
+        return _SumRows.apply(t, self)
 
 
 class spatial_partitioning:
@@ -185,8 +219,7 @@ def spatial_editor(editor, walk_params, mesh: meshlib.Mesh,
         with sp:
             imgs, a0, orig = ed.sweep(walk, z, panels)
 
-    A generator without a row-sharded forward raises there
-    (models/hooks.py:no_row_plan)."""
+    Every generator family of the port runs on rows."""
     ed, wp = meshlib.replicate_editor(editor, walk_params, mesh)
     return ed, wp, spatial_partitioning(mesh, min_rows_per_device=min_rows_per_device)
 

@@ -426,16 +426,21 @@ def test_update_gan_resume_reproduces_the_uninterrupted_run(gan_flow):
     (["--n_devices", "2", "--updateGAN", "--real_data_dir", "x"], "item 15"),
     (["--sp_devices", "2", "--model", "pggan"], "item 15"),
 ])
-def test_train_refuses_what_is_not_ported(tmp_path, extra, item):
-    """--n_devices and --sp_devices run (tests/test_torch_spatial.py); what
-    item 15 still holds is refused before any rank starts: --updateGAN
-    under a mesh and the PGGAN backends' rows."""
-    from latent2im_tpu_torch.cli.train import run
+def test_train_refuses_what_is_not_ported(tmp_path, extra, item, monkeypatch):
+    """What item 15 held is refused no more: --updateGAN under a mesh and
+    the PGGAN backends' rows go on to launch their two ranks (run there in
+    tests/test_torch_gan_mesh.py and tests/test_torch_sp_families.py); the
+    launch is caught here."""
+    import latent2im_tpu_torch.cli.train as tcli
 
+    launched = []
+    monkeypatch.setattr(tcli.launchlib, "launch",
+                        lambda fn, args, world_size, device: launched.append(
+                            (fn, world_size, device)) or ("walk", "history"))
     opt = options.TrainOptions().parse(_train_args(str(tmp_path), *extra),
                                        print_opt=False)
-    with pytest.raises(NotImplementedError, match=item):
-        run(opt, device="cpu")
+    assert tcli.run(opt, device="cpu") == ("walk", "history"), item
+    assert launched == [(tcli.run, 2, torch.device("cpu"))]
 
 
 @pytest.mark.parametrize("extra,message", [

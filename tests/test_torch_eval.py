@@ -233,11 +233,15 @@ def test_eval_cli_with_facenet_and_ref_parity(tmp_path, facenet_pair):
 
 
 def test_eval_cli_refuses_multi_device_and_needs_a_device(monkeypatch):
-    """--n_devices / --sp_devices run (tests/test_torch_spatial.py); the
-    rows of a PGGAN are item 15's still, refused before any rank starts."""
+    """--n_devices / --sp_devices run (tests/test_torch_spatial.py); a
+    PGGAN's rows too since item 15 (tests/test_torch_sp_families.py): the
+    CLI goes on to launch its ranks, caught here."""
     opt = argparse.Namespace(n_devices=None, sp_devices=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        peval.run(opt, argparse.Namespace(model="pggan"), device="cpu")
+    launched = []
+    monkeypatch.setattr(peval.launchlib, "launch",
+                        lambda fn, args, world_size, device: launched.append(world_size))
+    peval.run(opt, argparse.Namespace(model="pggan"), device="cpu")
+    assert launched == [2]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         peval.run(argparse.Namespace(), None)

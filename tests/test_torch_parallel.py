@@ -69,37 +69,28 @@ def test_shard_batch_slices_pads_and_refuses_as_the_jax_package():
 
 
 def test_tensor_parallelism_and_unported_rows_name_item_15():
-    """tp (JAX frozen_tp_shardings / make_train_step(frozen_shardings=)), sp
-    over PGGAN, StyleGAN1 and the GAN zoo, and --updateGAN under a mesh. The
-    CLIs' early refusal and the forwards read one attribute per generator
-    class (``row_sharded``)."""
-    from latent2im_tpu_torch.engine import build
-    from latent2im_tpu_torch.engine import train as T
-    from latent2im_tpu_torch.models import pgan_zoo, pggan, stylegan1, stylegan2
+    """What item 15 held runs now: tp (JAX frozen_tp_shardings /
+    make_train_step(frozen_shardings=), tests/test_torch_tp.py), and the
+    rows of PGGAN, StyleGAN1 and the GAN zoo under a row plan
+    (tests/test_torch_sp_families.py). A one-rank plan computes what no plan
+    does."""
+    from latent2im_tpu_torch.models import pggan, stylegan2
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        M.frozen_tp_shardings(None, {})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.make_train_step(None, None, None, frozen_shardings={"g": {}})
-    for opt, model in ((argparse.Namespace(sp_devices=2), "pggan"),
-                       (argparse.Namespace(n_devices=2, updateGAN=True), "stylegan_v2_real")):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            build.refuse_unported(opt, model)
-    build.refuse_unported(argparse.Namespace(n_devices=2, sp_devices=2), "stylegan_v2_real")
-    assert build.generator_classes("pggan") == (pggan.Generator, pgan_zoo.GNet)
-    assert [c.row_sharded for c in (stylegan2.Generator, pggan.Generator, pgan_zoo.GNet,
-                                    stylegan1.StyledGenerator)] == [True, False, False, False]
-    plan = S.RowPlan(M.make_mesh_2d(1, 1, ("data", "spatial")))
-    prev = hooks.install(plan)
-    try:
-        with pytest.raises(NotImplementedError, match="PGGAN generator .* item 15"):
-            pggan.Generator(n_label=0, generator=torch.Generator().manual_seed(0))(
-                torch.zeros(1, 512), step=1)
-        with pytest.raises(NotImplementedError, match="StyleGAN1 generator .* item 15"):
-            stylegan1.StyledGenerator.forward(
-                stylegan1.StyledGenerator.__new__(stylegan1.StyledGenerator), torch.zeros(1, 4))
-    finally:
-        hooks.restore(prev)
+    mesh = M.make_mesh_2d(1, 1)
+    g = stylegan2.Generator(8, 8, 1, channels={4: 4, 8: 4},
+                            generator=torch.Generator().manual_seed(0))
+    sh = M.frozen_tp_shardings(mesh, {"g": g, "reg": None})
+    assert sh.mesh is mesh and sh.specs["reg"] is None
+    assert sh.specs["g"]["convs.0.conv.weight"] == M.COUT
+    assert sh.specs["g"]["convs.1.conv.weight"] == M.CIN
+    pg = pggan.Generator(n_label=0, generator=torch.Generator().manual_seed(0))
+    z = torch.randn(1, 512, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = pg(z, step=1)
+        with S.spatial_partitioning(M.make_mesh_2d(1, 1, ("data", "spatial")),
+                                    min_rows_per_device=2):
+            got = pg(z, step=1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_spatial_partitioning_restores_the_plan_and_bumps_the_token():
@@ -198,6 +189,6 @@ def test_dryrun_prints_the_jax_dry_run_lines(capsys):
 
     lines = dryrun_multichip(2, "cpu")
     assert lines[0].startswith("dryrun_multichip(2): one 2 dp step OK, loss=")
-    assert "dp+tp is not ported" in lines[1] and "item 15" in lines[1]
+    assert lines[1].startswith("dryrun_multichip(2): one 1x2 dp+tp step OK, loss=")
     assert lines[2].startswith("dryrun_multichip(2): one 1x2 dp+sp step OK, loss=")
     assert capsys.readouterr().out.splitlines() == lines
