@@ -16,8 +16,9 @@ kernels' bf16 instances (33-37), JPEG input (38), the regressor
 trainer, its loader, StyleGAN1 and compat (39-42), data and spatial
 parallelism over torch.distributed (43-46), and tensor parallelism with the
 styled conv split at its all-reduce, --updateGAN under a mesh and sp of
-PGGAN and StyleGAN1 (47-50). Phases (a failed phase raises, and the script
-exits non-zero):
+PGGAN and StyleGAN1 (47-50), the geometric tasks' host targets
+(--host_targets, 51) and progressive, CMYK and YCCK JPEG (52). Phases (a
+failed phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -238,9 +239,28 @@ exits non-zero):
      equal on both ranks, the broadcast's bytes and ms (path "gan_mesh");
  50. sp of model_256 PGGAN (apply_alpha, B=4) and StyleGAN1 (step 8, B=1)
      on the same two ranks against one process within 1e-5 relative L2.
+ 51. --host_targets: tasks/cv2_np.py's warps through each task's
+     get_target_np on the seeded images of tests/fixtures/torch_host_targets/
+     against the cv2 targets and masks recorded there (SHA-256; colorlab
+     within 1e-6); the seven tasks at 256 px, full width, linear_w, B=4
+     through geometric_train_loop(device_targets=False): a warmup and 3
+     steps each (ms per step by CUDA events, the host warp's ms, peak GB,
+     launches equal to 3 x geometric_host_step_launches()); one rotate2d
+     step (B=2) card against CPU (the CPU half in the worker process): the
+     original and its target within phase 6's 1e-3, the mask equal, the
+     loss within 1e-3 and the walk gradient by phase 9's rule against f64;
+     `train --transform rotate3d --host_targets` for two steps
+     (chiprun_out/geo_host_cli/); launches counted as path "host_targets";
+ 52. the fixtures of tests/fixtures/torch_jpeg_progressive/ (progressive
+     gray, 4:4:4, 4:2:2, 4:2:0, an odd size, restart intervals, CMYK
+     sequential and progressive, YCCK) decoded in Python and in the host
+     C++, each equal to its recorded Pillow decode, decode ms per photo of
+     both; the regressor loader's batches of them (C equal to Python);
+     `python -m latent2im_tpu_torch.cli.bp` on the 256 px progressive photo
+     (path "bp_progressive").
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 512 px training step (B=8) under cuDNN's default and deterministic
-algorithms. The CPU halves of phases 9, 16 and 20 (f32 steps on the CPU
+algorithms. The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU
 and their f64 references) run in one worker process of CPU_REF_THREADS
 threads, started with the script, while the card runs (CpuReferences).
 Phase 3 times fused_act's backward as both main paths call it (dx only;
@@ -1076,7 +1096,7 @@ def _cpu_worker_init():
 
 
 class CpuReferences:
-    """The CPU halves of phases 9, 16 and 20 (f32 steps on the CPU and f64
+    """The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU and f64
     references, ~150 s of CPU work), computed in one worker process started
     with the script, so that the card's phases run meanwhile; each phase
     takes its half with ``get`` (waiting if it is not done). ``close`` stops
@@ -1092,6 +1112,7 @@ class CpuReferences:
                      "gp": self.pool.submit(gp_cpu_side)}
         for kind, flags in WALK_KINDS:
             self.jobs[kind] = self.pool.submit(train_cpu_side, flags, SIZE)
+        self.jobs["geo_host"] = self.pool.submit(geo_host_cpu_side)
 
     def get(self, key):
         return self.jobs[key].result()
@@ -5471,6 +5492,406 @@ def tp_phases(card, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 51: the geometric tasks' host targets (--host_targets)
+# ---------------------------------------------------------------------------
+
+GEO_HOST_STEPS = 3
+GEO_HOST_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_host_targets")
+# colorlab's recorded targets go through libm's powers in the Lab round
+# trip, so another machine's libm may move them by ulps of float64
+GEO_HOST_LAB_TOL = 1e-6
+
+
+def geometric_host_step_launches(size=SIZE):
+    """{kernel: launches per --host_targets step}: the original synthesized
+    outside the step (a style MLP and a synthesis forward), then the step's
+    own style MLP, edited synthesis and its backward: one style MLP more
+    than geometric_step_launches(), which counts both syntheses."""
+    n = geometric_step_launches(size)
+    n["fused_act"] += 8
+    return n
+
+
+def _host_target_fixtures():
+    """tests/fixtures/torch_host_targets/make_fixtures.py, loaded by path
+    (its cv2 and JAX imports sit inside main, which runs only where it
+    records)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "host_target_fixtures", os.path.join(GEO_HOST_FIXTURES, "make_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_target_fixture_check():
+    """The port's get_target_np (tasks/cv2_np.py's warps) on the fixture
+    images against the cv2 targets and masks recorded where cv2 is: the
+    SHA-256 of each, colorlab within GEO_HOST_LAB_TOL of its grid. Where a
+    rotation's matrix here differs from the recorded one in the last bits
+    (numpy's sine on this machine), the warp is held on the recorded matrix
+    instead, and the case is named."""
+    import hashlib
+
+    import numpy as np
+
+    from latent2im_tpu_torch.tasks import cv2_np
+    from latent2im_tpu_torch.tasks import geometric as geo
+
+    fx = _host_target_fixtures()
+    with open(os.path.join(GEO_HOST_FIXTURES, "targets.json")) as f:
+        meta = json.load(f)
+    grids = np.load(os.path.join(GEO_HOST_FIXTURES, "targets.npz"))
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    out = {"cases": 0, "bit_equal": 0, "matrix_differs": [], "lab_max_abs": 0.0, "ms": {}}
+    for name, task, size, batch, alpha in fx.cases():
+        rec = meta[name]
+        imgs = fx.images(size, batch, fx.seed_of(size))
+        a = np.asarray(alpha, np.float32) if task.startswith("color") else alpha
+        t0 = time.perf_counter()
+        target, mask = geo.GEOMETRIC_TASKS[task]().get_target_np(imgs.copy(), a)
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        assert sha(mask) == rec["mask"][2] and list(mask.shape) == rec["mask"][0], name
+        out["cases"] += 1
+        if sha(target) == rec["target"][2]:
+            out["bit_equal"] += 1
+        elif task == "colorlab":
+            pass
+        elif task in ("rotate2d", "rotate3d"):  # held on the recorded matrix
+            m = np.asarray(rec["matrix"])
+            warp = cv2_np.warp_affine if task == "rotate2d" else cv2_np.warp_perspective
+            again = np.stack([warp(im, m, (size, size)) for im in imgs]).astype(np.float64)
+            assert sha(again) == rec["target"][2], name
+            out["matrix_differs"].append(name)
+        else:
+            raise AssertionError(f"{name}: the host target differs from cv2's")
+        if task == "colorlab":
+            step = size // 16
+            err = float(np.abs(target[:, ::step, ::step] - grids[name]).max())
+            out["lab_max_abs"] = max(out["lab_max_abs"], err)
+            assert err <= GEO_HOST_LAB_TOL, (name, err)
+    assert out["cases"] == 28, out
+    return out
+
+
+def _host_reference(ed, w0, z, alpha_graph, target, mask, dtype):
+    """The --host_targets step's loss and walk gradient (linear_w) at walk
+    w0 on the given target and mask, composed here from G in ``dtype``."""
+    import torch
+
+    from latent2im_tpu_torch.engine import losses as L
+
+    dev = ed.device
+    z, a, t, m = (torch.as_tensor(x, dtype=dtype, device=dev)
+                  for x in (z, alpha_graph, target, mask))
+    w = torch.as_tensor(w0, dtype=dtype, device=dev).requires_grad_(True)
+    with torch.no_grad():
+        latent = ed.g.style_forward(z)[:, None].expand(-1, ed.cfg.n_latent, -1)
+    img = ed.g.synthesize(latent + torch.einsum("ba,ald->bld", a, w)).to(dtype)
+    loss = L.masked_l2(img, t, m)
+    loss.backward()
+    return loss.item(), w.grad.double().cpu().numpy().ravel()
+
+
+def _host_step_inputs(ed):
+    import numpy as np
+
+    z = np.random.RandomState(67).randn(CMP_BATCH, ed.cfg.dim_z).astype(np.float32)
+    return z, np.full((CMP_BATCH, 1), 20 / 45, np.float32), 20
+
+
+def geo_host_cpu_side():
+    """The CPU half of phase 51's step parity (the CpuReferences worker):
+    rotate2d at SIZE px, B=CMP_BATCH, alpha 20: the original and its host
+    target and mask, one make_geometric_train_step step (loss, walk
+    gradient), and the same step in f64 on the same target and mask."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_geometric_train_step, make_optimizer
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = geo_conf("rotate2d")
+    ed, walk, _ = build_editor_from_options(conf, device="cpu")
+    z, alpha_graph, alpha = _host_step_inputs(ed)
+    t = time.perf_counter()
+    with torch.no_grad():
+        img = ed.synth(ed.edit_latent(z)).numpy()
+    target, mask = get_task("rotate2d").get_target_np(img, alpha)
+    target, mask = np.float32(target), np.float32(mask)
+    w0 = walk["w"].detach().numpy().copy()
+    walk["w"].requires_grad_(True)
+    m = make_geometric_train_step(ed, make_optimizer(walk, conf.learning_rate))(
+        walk, z, alpha_graph, target, mask)
+    out = {"img": img, "target": target, "mask": mask, "w0": w0, "loss": float(m["loss"]),
+           "grad": walk["w"].grad.numpy().astype(np.float64).ravel(),
+           "cpu_step_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    ed.g.double()
+    out["ref_loss"], out["ref_grad"] = _host_reference(ed, w0, z, alpha_graph, target, mask,
+                                                       torch.float64)
+    out["cpu_f64_reference_s"] = time.perf_counter() - t
+    return out
+
+
+def geo_host_step_phase(cpu):
+    """Phase 51's step parity: the same rotate2d step on the card, its
+    original within phase 6's image bounds of the CPU's (1e-3 relative L2
+    and max-abs), its host target within 1e-3 relative L2 and its mask
+    equal; then the card's step on the CPU's target and mask: the loss
+    within 1e-3 of the CPU's and of f64, the walk gradient within max(1e-3,
+    1.5 x the CPU f32 gradient's distance to f64) of f64 (phase 9's rule)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import make_geometric_train_step, make_optimizer
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    conf = geo_conf("rotate2d")
+    ed, walk, _ = build_editor_from_options(conf)  # cuda: the default
+    z, alpha_graph, alpha = _host_step_inputs(ed)
+    with torch.no_grad():
+        img = ed.synth(ed.edit_latent(z)).float().cpu().numpy()
+    target, mask = get_task("rotate2d").get_target_np(img, alpha)
+    with torch.no_grad():  # the CPU's walk: the same inputs
+        walk["w"].copy_(torch.from_numpy(cpu["w0"]))
+    walk["w"].requires_grad_(True)
+    m = make_geometric_train_step(ed, make_optimizer(walk, conf.learning_rate))(
+        walk, z, alpha_graph, cpu["target"], cpu["mask"])
+    grad = walk["w"].grad.detach().cpu().numpy().astype(np.float64).ravel()
+    out = {"img_rel_l2": rel_l2(img, cpu["img"]),
+           "img_max_abs": float(np.abs(img - cpu["img"]).max()),
+           "target_rel_l2": rel_l2(np.float32(target), cpu["target"]),
+           "mask_equal": bool(np.array_equal(np.float32(mask), cpu["mask"])),
+           "mask_share": float(cpu["mask"].mean()),
+           "loss": float(m["loss"]), "loss_cpu": cpu["loss"], "loss_f64": cpu["ref_loss"],
+           "walk_grad_rel_l2_card_f64": rel_l2(grad, cpu["ref_grad"]),
+           "walk_grad_rel_l2_cpu_f64": rel_l2(cpu["grad"], cpu["ref_grad"]),
+           "walk_grad_rel_l2_card_cpu": rel_l2(grad, cpu["grad"]),
+           "cpu_step_s": cpu["cpu_step_s"], "cpu_f64_reference_s": cpu["cpu_f64_reference_s"]}
+    out["walk_grad_limit"] = max(1e-3, 1.5 * out["walk_grad_rel_l2_cpu_f64"])
+    assert out["img_rel_l2"] <= 1e-3 and out["img_max_abs"] <= 1e-3, out
+    assert out["target_rel_l2"] <= 1e-3 and out["mask_equal"] and 0 < out["mask_share"] < 1, out
+    for k in ("loss_cpu", "loss_f64"):
+        assert abs(out["loss"] - out[k]) <= 1e-3 * abs(out[k]), out
+    assert np.isfinite(grad).all()
+    assert out["walk_grad_rel_l2_card_f64"] <= out["walk_grad_limit"], out
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def geo_host_train_phase():
+    """Phase 51's training: the seven tasks at SIZE px, full width,
+    linear_w, B=BATCH, through geometric_train_loop(device_targets=False):
+    per task a warmup step and GEO_HOST_STEPS counted ones (ms per step by
+    CUDA events, the host warp's ms per step on the host clock, peak GB,
+    launches equal to GEO_HOST_STEPS x geometric_host_step_launches())."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.engine.train import geometric_train_loop
+    from latent2im_tpu_torch.tasks.transforms import get_task
+    from latent2im_tpu_torch.walks import init_walk
+
+    per_step = geometric_host_step_launches()
+    conf = geo_conf("zoom")
+    ed, _, _ = build_editor_from_options(conf)  # cuda: the default
+    loop = functools.partial(geometric_train_loop, device_targets=False)
+    out, gen = {"per_step_launches": per_step, "tasks": {}}, torch.Generator().manual_seed(68)
+    for name in GEO_TASKS:
+        ed.cfg = dataclasses.replace(ed.cfg, attr_list=(name,), walk_kind="linear_w")
+        task = get_task(name)
+        warp_s = []
+        real = task.get_target_np
+
+        def timed_target(imgs, alpha, real=real, warp_s=warp_s):
+            t0 = time.perf_counter()
+            got = real(imgs, alpha)
+            warp_s.append(time.perf_counter() - t0)
+            return got
+
+        task.get_target_np = timed_target
+        walk = init_walk("linear_w", ed.cfg.dim_z, ed.cfg.n_latent, [name], generator=gen,
+                         device=ed.device)
+        walk, r = _timed_train(ed, task, walk, GEO_HOST_STEPS, conf.learning_rate, loop=loop)
+        expect = {k: GEO_HOST_STEPS * v for k, v in per_step.items()}
+        assert r["launches"] == expect, (name, r["launches"], expect)
+        assert len(warp_s) == 1 + GEO_HOST_STEPS, warp_s
+        r["host_warp_ms"] = 1e3 * sum(warp_s[1:]) / GEO_HOST_STEPS
+        r["rest_ms"] = r["step_ms_cuda_events"] - r["host_warp_ms"]
+        out["tasks"][name] = r
+    del ed, walk
+    torch.cuda.empty_cache()
+    return out
+
+
+def geo_host_cli_phase():
+    """Phase 51's CLI: ``cli.train --transform rotate3d --host_targets`` for
+    two steps at SIZE px in chiprun_out/geo_host_cli/ (counted)."""
+    import shutil
+
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train as tcli
+
+    root = os.path.join(REPO, "chiprun_out", "geo_host_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    opt = geo_conf("rotate3d", "--host_targets", "--num_samples", str(2 * BATCH),
+                   "--n_epochs", "1", "--model_save_freq", "0", root=root)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    _, history = tcli.run(opt)  # cuda: the entry point's default
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert len(history) == 2 and all(math.isfinite(h) for h in history), history
+    assert os.path.isfile(os.path.join(opt.output_dir, "model_w_1_final_walk_module.ckpt"))
+    expect = {k: 2 * v for k, v in geometric_host_step_launches().items()}
+    assert counts == expect, (counts, expect)
+    return {"seconds": time.perf_counter() - t0, "losses": history, "launches": counts}
+
+
+def host_target_phase(card, cpu):
+    """Phase 51 -> its report and, under "launches", the counted steps'
+    launch counts (path host_targets: the seven tasks and the CLI)."""
+    import torch
+
+    log(f"[51] --host_targets: the cv2 warps in numpy against cv2's recordings, the seven "
+        f"tasks at {SIZE} px B={BATCH}, rotate2d's step card against CPU, the CLI")
+    fixtures = host_target_fixture_check()
+    log(f"    {fixtures['cases']} recorded cases, {fixtures['bit_equal']} bit-equal, "
+        f"colorlab max-abs {fixtures['lab_max_abs']:.3g}, held on the recorded matrix: "
+        f"{fixtures['matrix_differs']}")
+    train = geo_host_train_phase()
+    for name, r in train["tasks"].items():
+        log(f"    {name}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
+            f"{r['steps']}), of which host warp {r['host_warp_ms']:.2f} ms, the rest "
+            f"{r['rest_ms']:.2f} ms; peak {r['peak_mem_gb']:.2f} GB, loss "
+            f"{r['first']['loss']:.4f} -> {r['last']['loss']:.4f}, on {card}")
+    step = geo_host_step_phase(cpu)
+    log(f"    rotate2d step, card against CPU: {json.dumps(step)}")
+    cli = geo_host_cli_phase()
+    log(f"    train --transform rotate3d --host_targets: {cli['seconds']:.1f} s, losses "
+        f"{cli['losses']}")
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(SOURCE, 0)
+    for r in list(train["tasks"].values()) + [cli]:
+        for k, v in r["launches"].items():
+            counts[k] += v
+    return {"fixtures": fixtures, "train": train, "step": step,
+            "cli": {k: v for k, v in cli.items() if k != "launches"},
+            "launches": {"host_targets": counts}}
+
+
+# ---------------------------------------------------------------------------
+# phase 52: progressive, CMYK and YCCK JPEG
+# ---------------------------------------------------------------------------
+
+PROG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_jpeg_progressive")
+PROG_BP_PHOTO = "prog_256_420"
+
+
+def jpeg_progressive_phase(dev):
+    """Phase 52: every fixture of tests/fixtures/torch_jpeg_progressive/
+    (progressive gray and 4:4:4 / 4:2:2 / 4:2:0, an odd size, restart
+    intervals, CMYK sequential and progressive, YCCK) decoded by the Python
+    decoder and by the host C++ (``native=True``), each equal to its
+    recorded Pillow decode; decode ms per photo of each (median of 3); the
+    regressor trainer's loader on a folder of them (C and Python batches
+    equal, batches/s); ``python -m latent2im_tpu_torch.cli.bp`` on the
+    256 px progressive photo (counted)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _jpeg_progressive_phase(dev, root)
+
+
+def _jpeg_progressive_phase(dev, root):
+    import hashlib
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.utils import jpeg
+
+    with open(os.path.join(PROG_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(PROG_FIXTURES, "decodes.npz"))
+    names = sorted(k for k in meta if k != "pillow")
+    assert len(names) == 11, names
+    out = {"decode_ms": {}}
+    paths = []
+    for name in names:
+        path = os.path.join(PROG_FIXTURES, f"{name}.jpg")
+        paths.append(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        for native in (False, True):
+            got = jpeg.jpeg_decode_rgb(data, native=native)
+            ok = (list(got.shape) == meta[name]["shape"] and np.array_equal(got, npz[name])
+                  and hashlib.sha256(got.tobytes()).hexdigest() == meta[name]["sha256"])
+            if not ok:
+                raise AssertionError(f"{name}.jpg (native={native}) does not decode to its "
+                                     "Pillow decode")
+        out["decode_ms"][name] = {
+            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, native=True)),
+            "python": _median_ms(lambda: jpeg.jpeg_decode_rgb(data))}
+    log(f"    {len(names)} fixtures equal to their Pillow decodes in Python and C++; decode "
+        f"ms per photo (C, Python): {json.dumps(out['decode_ms'])}")
+
+    idx = list(tr.index_batches(np.arange(len(paths)), 4))
+    batches = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        with tr.make_loader(paths, REG_SIZE, native=native) as loader:
+            batches[native] = list(loader.batches(idx))
+        out[f"loader_batches_per_s_{'c' if native else 'python'}"] = (
+            len(idx) / (time.perf_counter() - t0))
+    assert len(batches[True]) == len(idx) == 3
+    for (a, ia), (b, ib) in zip(batches[True], batches[False]):
+        assert ia == ib and a.shape == (len(ia), REG_SIZE, REG_SIZE, 3) and np.array_equal(a, b)
+
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    shutil.copy(os.path.join(PROG_FIXTURES, f"{PROG_BP_PHOTO}.jpg"), img_dir)
+    save_dir = os.path.join(root, "bp")
+    saved_argv = sys.argv
+    sys.argv = ["bp", "--img_dir", img_dir, "--save_dir", save_dir, "--resolution", str(SIZE),
+                "--n_loops", str(JPEG_BP_LOOPS), "--show_freq", "5", "--batch_size", "1"]
+    t0 = time.perf_counter()
+    try:
+        ops.reset_launches()
+        runpy.run_module("latent2im_tpu_torch.cli.bp", run_name="__main__")
+        torch.cuda.synchronize()
+        out["launches"] = {"bp_progressive": ops.launch_counts()}
+    finally:
+        sys.argv = saved_argv
+    out["bp_seconds"] = time.perf_counter() - t0
+    assert all(out["launches"]["bp_progressive"][k] > 0 for k in SOURCE), out["launches"]
+    w = np.load(os.path.join(save_dir, "latent", "0_w.npy"))
+    curve = np.load(os.path.join(save_dir, "0_loss.npy"))
+    assert w.shape == (1, 2 * int(math.log2(SIZE)) - 2, 512) and np.isfinite(w).all()
+    assert curve.shape == (JPEG_BP_LOOPS,) and np.isfinite(curve).all(), curve
+    out["bp_loss"] = (float(curve[0]), float(curve[-1]))
+    log(f"    loader on them (B=4, {REG_SIZE} px): C {out['loader_batches_per_s_c']:.2f}, "
+        f"Python {out['loader_batches_per_s_python']:.2f} batches/s, equal; bp on "
+        f"{PROG_BP_PHOTO}.jpg: {out['bp_seconds']:.1f} s, loss (first, last) {out['bp_loss']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5590,6 +6011,10 @@ def _run(refs) -> int:
     rg = timed("39-42", regressor_phases, card, dev, gan, jp)
     par = timed("43-46", parallel_phases, card, dev)
     tp = timed("47-50", tp_phases, card, dev)
+    hp = timed("51", host_target_phase, card, refs.get("geo_host"))
+    log("[52] progressive, CMYK and YCCK JPEG: the fixtures in Python and C++ against their "
+        "Pillow decodes, the regressor loader on them, bp on a progressive photo")
+    jprog = timed("52", jpeg_progressive_phase, dev)
     log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
@@ -5603,7 +6028,9 @@ def _run(refs) -> int:
                    **{k: v[n] for k, v in jp["launches"].items()},
                    **{k: v[n] for k, v in rg["launches"].items()},
                    **{k: v[n] for k, v in par["launches"].items()},
-                   **{k: v[n] for k, v in tp["launches"].items()}}
+                   **{k: v[n] for k, v in tp["launches"].items()},
+                   **{k: v[n] for k, v in hp["launches"].items()},
+                   **{k: v[n] for k, v in jprog["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -5673,6 +6100,8 @@ def _run(refs) -> int:
               "regressor": {k: v for k, v in rg.items() if k != "launches"},
               "parallel": par,
               "tp": {k: v for k, v in tp.items() if k not in ("launches", "launches_bf16")},
+              "host_targets": {k: v for k, v in hp.items() if k != "launches"},
+              "jpeg_progressive": {k: v for k, v in jprog.items() if k != "launches"},
               "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

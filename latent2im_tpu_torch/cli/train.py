@@ -28,8 +28,12 @@ package restarts them).
 ``--transform color|colorlab|zoom|shiftx|shifty|rotate2d|rotate3d`` trains
 the walk on the masked L2 against a target warped or recoloured on the
 device (engine/train.py:geometric_train_loop), logging every step and
-saving no sample grids; ``--host_targets`` (the JAX package's cv2 host
-path) is refused.
+saving no sample grids; ``--host_targets`` takes the JAX package's cv2
+host path instead (the original pulled to the host, warped by the task's
+``get_target_np`` with tasks/cv2_np.py, pushed back). That path is one
+process on one device: under ``--n_devices N`` it launches no ranks and
+trains the global batch of ``--batch_size`` x N there, as the JAX CLI runs
+it with no mesh.
 
 ``--n_devices N`` (data parallel) and ``--sp_devices S`` (G's image rows
 over S ranks, for StyleGAN2 and the PGGAN backends; with N, an N x S mesh) run N x S ranks, one process each:
@@ -61,7 +65,7 @@ import torch
 from ..config.options import TrainOptions
 from ..device import resolve_device
 from ..models import hooks
-from ..engine.build import _not_ported, build_editor_from_options
+from ..engine.build import build_editor_from_options
 from ..engine.gan import GANModule, draw_eps, make_gan_update_steps
 from ..engine.train import geometric_train_loop, make_optimizer, train_loop
 from ..io import checkpoint as ckpt
@@ -88,11 +92,11 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
         _refuse_gan(opt)
     n_data, n_sp = (getattr(opt, "n_devices", None) or 1), (getattr(opt, "sp_devices", None) or 1)
     geometric = opt.transform in GEOMETRIC_TASKS
-    if geometric and getattr(opt, "host_targets", False):
-        _not_ported("--host_targets (the cv2 host targets of the geometric tasks)",
-                    "queue A item 24")
+    # the host-warp path runs with no mesh (the JAX CLI's mesh=None), on
+    # the global batch: no ranks to launch
+    host = geometric and bool(getattr(opt, "host_targets", False))
     mesh, sp_ctx = None, contextlib.nullcontext()
-    if n_data * n_sp > 1:
+    if n_data * n_sp > 1 and not host:
         if not launchlib.is_rank(n_data * n_sp, device):
             return launchlib.launch(run, (opt, n_epoch_default, save_loss_artifacts, device),
                                     world_size=n_data * n_sp, device=device)
@@ -193,7 +197,7 @@ def run(opt, n_epoch_default: int = N_EPOCH_SINGLE,
                           on_preempt=on_preempt, mesh=mesh)
             if geometric:
                 walk_params, history = geometric_train_loop(editor, task, walk_params,
-                                                            **run_kw)
+                                                            device_targets=not host, **run_kw)
             else:
                 walk_params, history = train_loop(editor, task, walk_params,
                                                   frozen_provider=gan, **run_kw)

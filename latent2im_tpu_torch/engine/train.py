@@ -1,7 +1,7 @@
 """The walk-training step and epoch loop — PyTorch port of
 latent2im_tpu/engine/train.py (``make_train_step``, ``train_loop``, and for
 the geometric and color tasks ``make_geometric_device_step``,
-``geometric_train_loop``).
+``make_geometric_train_step``, ``geometric_train_loop``).
 
 One step is the reference's iteration (train.py:48-116 there): the original
 image and its attribute scores with no gradient, the walk moved by the delta
@@ -43,7 +43,12 @@ pixel target instead: the original synthesis, its warped or recoloured
 target and mask built on the device from the task's ``device_spec``
 (tasks/warp.py), the edited synthesis, the masked L2 and Adam. Both
 syntheses use G's stored noise, as the JAX step passes no noise key, so the
-step is deterministic and holds to the JAX step step by step.
+step is deterministic and holds to the JAX step step by step. Under
+--host_targets (``device_targets=False``) the loop takes the reference's
+round trip instead: the original synthesized on the device, pulled to the
+host as float32, warped or recoloured by the task's ``get_target_np``
+(tasks/cv2_np.py's cv2 arithmetic), and the target and mask pushed back
+into ``make_geometric_train_step``.
 
 Over a mesh (``mesh=``, parallel/mesh.py; one process per rank) the steps
 take the GLOBAL batch, as the JAX steps do in global-batch semantics: z,
@@ -297,6 +302,50 @@ def make_geometric_device_step(editor: Editor, optimizer: torch.optim.Optimizer,
     return step
 
 
+def make_geometric_train_step(editor: Editor, optimizer: torch.optim.Optimizer,
+                              train_embed: bool = False) -> Callable:
+    """-> step(walk_params, z, alpha_graph, target, mask, index=None) ->
+    metrics, the JAX package's step of the same name: the walk-edited
+    synthesis of z (G's stored noise), the masked L2 against the given
+    target and mask (host-made, ``Task.get_target_np``), and one Adam step
+    on the walk in place. Metrics (loss, alpha_target_mean) are 0-dim
+    tensors on the device."""
+    embed_name = editor.cfg.attr_list[0] if train_embed else None
+
+    def step(walk_params, z, alpha_graph, target, mask, index=None):
+        if train_embed and index is None:
+            raise ValueError("train_embed step requires the bank index")
+        alpha_graph = editor._tensor(alpha_graph)
+        target, mask = editor._tensor(target), editor._tensor(mask)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            latent = editor.edit_latent(editor._tensor(z))
+        if train_embed:
+            latent_new = editor.edit(walk_params, latent, alpha_graph, name=embed_name,
+                                     index=index)
+        else:
+            latent_new = editor.edit(walk_params, latent, alpha_graph)
+        loss = L.masked_l2(editor.synth(latent_new), target, mask)
+        loss.backward()
+        _zero_missing_grads(optimizer)
+        optimizer.step()
+        return {"loss": loss.detach(), "alpha_target_mean": alpha_graph.mean()}
+
+    return step
+
+
+def host_targets(editor: Editor, task: Task, z, alpha_target):
+    """The --host_targets round trip of one batch: the original synthesis
+    of z (G's stored noise, the JAX loop's ``orig_fn``) pulled to the host
+    as float32, ``task.get_target_np`` on it, and the target and mask
+    pushed back to the editor's device as float32."""
+    with torch.no_grad():
+        img = editor.synth(editor.edit_latent(editor._tensor(z)))
+    target, mask = task.get_target_np(img.float().cpu().numpy(), alpha_target)
+    return (torch.from_numpy(np.asarray(target, np.float32)).to(editor.device),
+            torch.from_numpy(np.asarray(mask, np.float32)).to(editor.device))
+
+
 def geometric_train_loop(
     editor: Editor,
     task: Task,
@@ -315,21 +364,35 @@ def geometric_train_loop(
     stop_flag: Callable | None = None,
     on_preempt: Callable | None = None,
     mesh=None,
+    device_targets: bool = True,
 ) -> tuple[dict, list[float]]:
     """The epoch loop of the geometric and color tasks around
     ``make_geometric_device_step``, with ``train_loop``'s callback, resume
-    and preemption surface. Each epoch draws its z with ``sample_epoch_z``
-    and its sliders from RandomState(_alpha_seed(seed, epoch)) (one bank
+    and preemption surface. device_targets=False (--host_targets): each
+    step's target comes from the host round trip of ``host_targets`` and
+    trains through ``make_geometric_train_step``; that path is per process
+    and refuses a mesh, as the JAX loop does. Each epoch draws its z with
+    ``sample_epoch_z`` and its sliders from RandomState(_alpha_seed(seed, epoch)) (one bank
     index per step under --trainEmbed), so --resume restarts an epoch
     reproducibly. The target is built for ``cfg.size``, G's resolution, as
     the JAX package builds it (a PGGAN editor's images are half that).
     mesh: batch_size is the global batch (``train_loop``). Returns
     (walk_params, loss_history)."""
     cfg = editor.cfg
+    if not device_targets and mesh is not None:
+        raise ValueError("the host-warp geometric path is per-host; mesh requires "
+                         "device_targets=True")
     optimizer = _replicated_optimizer(walk_params, lr, opt_state, mesh)
     train_embed = cfg.walk_kind == "embed"
-    step = make_geometric_device_step(editor, optimizer, train_embed=train_embed,
-                                      mesh=mesh)
+    if device_targets:
+        step = make_geometric_device_step(editor, optimizer, train_embed=train_embed,
+                                          mesh=mesh)
+    else:
+        host_step = make_geometric_train_step(editor, optimizer, train_embed=train_embed)
+
+        def step(walk_params, z, alpha_graph, alpha_target, index=None):
+            target, mask = host_targets(editor, task, z, alpha_target)
+            return host_step(walk_params, z, alpha_graph, target, mask, index=index)
     history: list[float] = []
     iters = num_samples // batch_size
     for epoch in range(start_epoch, n_epochs):
@@ -347,9 +410,10 @@ def geometric_train_loop(
                 alpha_graph, alpha_target, index = task.train_alpha_embed_np(rng, batch_size)
             else:
                 alpha_graph, alpha_target = task.train_alpha_np(rng, batch_size)
+            # the device step takes the task's target spec, the host step its alpha
+            spec = task.device_spec(alpha_target, cfg.size) if device_targets else alpha_target
             metrics = step(walk_params, zs[i * batch_size:(i + 1) * batch_size],
-                           np.asarray(alpha_graph, np.float32),
-                           task.device_spec(alpha_target, cfg.size), index=index)
+                           np.asarray(alpha_graph, np.float32), spec, index=index)
             if on_step is not None or (log_every and i % log_every == 0):
                 metrics = {k: float(v) for k, v in metrics.items()}
                 history.append(metrics["loss"])

@@ -6,8 +6,11 @@
 //                                restart interval, the same packed outputs
 //   l2i_jpeg_dims             <- the first frame header's height and width
 //   l2i_jpeg_decode           <- jpeg_decode_rgb: the markers and tables, each
-//                                scan through the interval decode above,
-//                                _idct_islow, _upsample and _ycc_to_rgb
+//                                sequential scan through the interval decode
+//                                above, each progressive one through
+//                                progressive_interval (_progressive_interval),
+//                                _idct_islow, _upsample, _ycc_to_rgb,
+//                                _ycck_to_cmyk and _cmyk_to_rgb
 //
 // This is host code, not a GPU kernel: nvcc hands it to the host compiler,
 // and it links into the same library as the kernels (ops/_build.py). One
@@ -30,13 +33,13 @@ namespace {
 // error codes; the payload (info[0]) where the message names a value
 enum Err {
   E_NOT_JPEG = -10, E_REFUSE_SOF = -11, E_REFUSE_DAC = -12, E_SEGMENT = -13,
-  E_SECOND_FRAME = -14, E_SHORT_SOF = -15, E_PRECISION = -16, E_CMYK = -17,
-  E_NCOMP = -18, E_DNL = -19, E_BAD_SOF = -20, E_SAMPLING = -21,
+  E_SECOND_FRAME = -14, E_SHORT_SOF = -15, E_PRECISION = -16, E_NCOMP = -18, E_DNL = -19, E_BAD_SOF = -20, E_SAMPLING = -21,
   E_FRACTIONAL = -22, E_BAD_DHT = -23, E_BAD_DQT = -24, E_SCAN_NO_FRAME = -25,
   E_BAD_SOS = -26, E_SCAN_COMPONENT = -27, E_UNDEF_HUFF = -28,
   E_UNDEF_QUANT = -29, E_BAD_HUFF_TABLE = -30, E_SPECTRAL = -31,
   E_FEW_INTERVALS = -32, E_INVALID_CODE = -33, E_SCAN_TRUNC = -34,
   E_COEF_PAST = -35, E_NO_SCAN = -36, E_OUT_SIZE = -37, E_NOMEM = -38,
+  E_BAD_PROGRESSION = -39, E_PROG_NO_EOI = -40, E_SMOOTHING = -41,
 };
 
 // the JPEG EXTEND of `size` value bits
@@ -134,23 +137,21 @@ struct HuffTable {
 // between photos only (decode), so the pointers a scan holds stay valid
 thread_local std::unordered_map<std::string, std::vector<int>> lut_cache;
 
-// -> the table's rows [65536][2 | 3], or nullptr for a bad table
-const int* lut_rows(const HuffTable& t, bool dc) {
-  auto& cache = lut_cache;
-  std::string key(1, dc ? 'd' : 'a');
-  key.append(reinterpret_cast<const char*>(t.counts), 16);
-  key.append(t.symbols.begin(), t.symbols.end());
-  auto hit = cache.find(key);
-  if (hit != cache.end()) return hit->second.data();
+// The canonical Huffman code of t (jdhuff.c's jpeg_make_d_derived_tbl):
+// (code length, symbol) of every 16-bit window, length 0 where no code
+// starts -> false for a bad table.
+bool code_windows(const HuffTable& t, bool dc, std::vector<int>& length,
+                  std::vector<int>& symbol) {
   if (dc)
     for (uint8_t s : t.symbols)
-      if (s > 15) return nullptr;  // jdhuff.c: a DC size past 15
-  std::vector<int> length(1 << 16, 0), symbol(1 << 16, 0);
+      if (s > 15) return false;  // jdhuff.c: a DC size past 15
+  length.assign(1 << 16, 0);
+  symbol.assign(1 << 16, 0);
   int64_t code = 0;
   size_t i = 0;
   for (int n_bits = 1; n_bits <= 16; ++n_bits) {
     for (int c = 0; c < t.counts[n_bits - 1]; ++c) {
-      if (code >= (int64_t(1) << n_bits)) return nullptr;
+      if (code >= (int64_t(1) << n_bits)) return false;
       const int64_t lo = code << (16 - n_bits);
       for (int64_t w = lo; w < lo + (int64_t(1) << (16 - n_bits)); ++w) {
         length[w] = n_bits;
@@ -161,6 +162,23 @@ const int* lut_rows(const HuffTable& t, bool dc) {
     }
     code <<= 1;
   }
+  return true;
+}
+
+std::string table_key(char kind, const HuffTable& t) {
+  std::string key(1, kind);
+  key.append(reinterpret_cast<const char*>(t.counts), 16);
+  key.append(t.symbols.begin(), t.symbols.end());
+  return key;
+}
+
+// -> the table's rows [65536][2 | 3], or nullptr for a bad table
+const int* lut_rows(const HuffTable& t, bool dc) {
+  const std::string key = table_key(dc ? 'd' : 'a', t);
+  auto hit = lut_cache.find(key);
+  if (hit != lut_cache.end()) return hit->second.data();
+  std::vector<int> length, symbol;
+  if (!code_windows(t, dc, length, symbol)) return nullptr;
   const int width = dc ? 2 : 3;
   std::vector<int> rows(size_t(1 << 16) * width);
   for (int w = 0; w < (1 << 16); ++w) {
@@ -182,7 +200,177 @@ const int* lut_rows(const HuffTable& t, bool dc) {
       r[2] = static_cast<int>(fits ? (value & 0xFFFF) : size);
     }
   }
-  return cache.emplace(key, std::move(rows)).first->second.data();
+  return lut_cache.emplace(key, std::move(rows)).first->second.data();
+}
+
+// The progressive decoder's table (utils/jpeg.py:_sym_lut): (code length,
+// symbol) for every 16-bit window [65536][2], length 0 where no code
+// starts; nullptr for a bad table.
+const int* sym_rows(const HuffTable& t, bool dc) {
+  const std::string key = table_key(dc ? 'D' : 'A', t);
+  auto hit = lut_cache.find(key);
+  if (hit != lut_cache.end()) return hit->second.data();
+  std::vector<int> length, symbol;
+  if (!code_windows(t, dc, length, symbol)) return nullptr;
+  std::vector<int> rows(size_t(1 << 16) * 2);
+  for (int w = 0; w < (1 << 16); ++w) {
+    rows[2 * w] = length[w];
+    rows[2 * w + 1] = symbol[w];
+  }
+  return lut_cache.emplace(key, std::move(rows)).first->second.data();
+}
+
+// ---------------------------------------------------------------------------
+// progressive scans (utils/jpeg.py:_Bits, _progressive_interval)
+// ---------------------------------------------------------------------------
+
+// The bit reader of one restart interval: unstuffed bytes read as
+// big-endian 32-bit words (zero-padded); a read past them fails.
+struct Bits {
+  const uint8_t* data;
+  long long n_words, wi = 0, nb = 0;
+  uint64_t buf = 0;
+  bool past = false, bad_code = false;
+  bool refill() {
+    if (nb >= 32) return true;
+    if (wi >= n_words) return !(past = true);
+    const uint8_t* w = data + 4 * wi;
+    const uint64_t word = (uint64_t(w[0]) << 24) | (uint64_t(w[1]) << 16) |
+                          (uint64_t(w[2]) << 8) | uint64_t(w[3]);
+    buf = ((buf & ((uint64_t(1) << nb) - 1)) << 32) | word;
+    wi += 1;
+    nb += 32;
+    return true;
+  }
+  // n in [1, 16] bits; false once a read fails
+  bool get(int n, int64_t* v) {
+    if (!refill()) return false;
+    nb -= n;
+    *v = static_cast<int64_t>((buf >> nb) & ((uint64_t(1) << n) - 1));
+    return true;
+  }
+  bool huff(const int* lut, int* sym) {
+    if (!refill()) return false;
+    const int* e = lut + 2 * ((buf >> (nb - 16)) & 0xFFFF);
+    if (!e[0]) return !(bad_code = true);
+    nb -= e[0];
+    *sym = e[1];
+    return true;
+  }
+  long long used() const { return wi * 32 - nb; }
+};
+
+inline int16_t w16(int64_t v) {  // a JCOEF: int16, wrapping
+  return static_cast<int16_t>(static_cast<uint16_t>(static_cast<uint64_t>(v)));
+}
+
+// One restart interval of a progressive scan into coef (every block's 64
+// coefficients in zigzag order): jdphuff.c's decode_mcu_DC_first,
+// _DC_refine, _AC_first and _AC_refine. -> false where a read fails (see
+// rd.past / rd.bad_code).
+bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, long long n_blocks,
+                          const int* const* luts, int16_t* coef, int ss, int se, int ah, int al) {
+  int64_t v;
+  int sym;
+  if (ss == 0 && ah == 0) {  // DC first
+    int64_t preds[4] = {0, 0, 0, 0};  // ns <= fr.n <= 4: decode_progressive_scan
+    for (long long i = 0; i < n_blocks; ++i) {
+      const int ci = comps[i];
+      if (!rd.huff(luts[ci], &sym)) return false;
+      int64_t diff = 0;
+      if (sym) {
+        if (!rd.get(sym, &v)) return false;
+        diff = extend(v, sym);
+      }
+      preds[ci] += diff;
+      coef[blocks[i] * 64] = w16(preds[ci] * (int64_t(1) << al));
+    }
+    return true;
+  }
+  if (ss == 0) {  // DC refine: one bit a block
+    const int p1 = 1 << al;
+    for (long long i = 0; i < n_blocks; ++i) {
+      if (!rd.get(1, &v)) return false;
+      if (v) coef[blocks[i] * 64] = static_cast<int16_t>(coef[blocks[i] * 64] | p1);
+    }
+    return true;
+  }
+  const int* lut = luts[0];
+  int64_t eobrun = 0;
+  if (ah == 0) {  // AC first
+    for (long long i = 0; i < n_blocks; ++i) {
+      if (eobrun) {
+        --eobrun;
+        continue;
+      }
+      int16_t* b = coef + blocks[i] * 64;
+      for (int k = ss; k <= se; ++k) {
+        if (!rd.huff(lut, &sym)) return false;
+        const int r = sym >> 4, size = sym & 15;
+        if (size) {
+          k += r;
+          if (!rd.get(size, &v)) return false;
+          b[k < 63 ? k : 63] = w16(extend(v, size) * (int64_t(1) << al));
+        } else if (r == 15) {  // ZRL
+          k += 15;
+        } else {  // EOBr
+          eobrun = int64_t(1) << r;
+          if (r) {
+            if (!rd.get(r, &v)) return false;
+            eobrun += v;
+          }
+          --eobrun;
+          break;
+        }
+      }
+    }
+    return true;
+  }
+  const int p1 = 1 << al, m1 = -p1;  // AC refine
+  for (long long i = 0; i < n_blocks; ++i) {
+    int16_t* b = coef + blocks[i] * 64;
+    int k = ss;
+    if (!eobrun) {
+      for (; k <= se; ++k) {
+        if (!rd.huff(lut, &sym)) return false;
+        int r = sym >> 4, size = sym & 15;
+        if (size) {  // a newly nonzero coefficient (size 1; libjpeg warns on others)
+          if (!rd.get(1, &v)) return false;
+          size = v ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = int64_t(1) << r;
+          if (r) {
+            if (!rd.get(r, &v)) return false;
+            eobrun += v;
+          }
+          break;
+        }
+        // past r zero-history coefficients, correcting the nonzero ones
+        while (true) {
+          const int16_t c = b[k];
+          if (c) {
+            if (!rd.get(1, &v)) return false;
+            if (v && !(c & p1)) b[k] = w16(int64_t(c) + (c >= 0 ? p1 : m1));
+          } else if (--r < 0) {
+            break;
+          }
+          if (++k > se) break;
+        }
+        if (size) b[k < 63 ? k : 63] = static_cast<int16_t>(size);
+      }
+    }
+    if (eobrun) {  // the end-of-band run: correction bits only
+      for (; k <= se; ++k) {
+        const int16_t c = b[k];
+        if (c) {
+          if (!rd.get(1, &v)) return false;
+          if (v && !(c & p1)) b[k] = w16(int64_t(c) + (c >= 0 ? p1 : m1));
+        }
+      }
+      --eobrun;
+    }
+  }
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -335,6 +523,8 @@ void ycc_rgb(uint8_t* px, long long n) {
 
 struct Frame {
   int height = 0, width = 0, n = 0, hmax = 0, vmax = 0, mcux = 0, mcuy = 0;
+  bool progressive = false;
+  int coef_bits[4][64];  // progressive: each coefficient's Al so far, -1 unscanned
   std::vector<int> ids, h, v, tq, bw, bh;
   std::vector<long long> offset;  // in coefficients
   std::vector<bool> scanned;
@@ -357,8 +547,7 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   fr.width = be16(body + 3);
   fr.n = body[5];
   if (precision != 8) return info[0] = precision, E_PRECISION;
-  if (fr.n == 4) return E_CMYK;
-  if (fr.n != 1 && fr.n != 3) return info[0] = fr.n, E_NCOMP;
+  if (fr.n != 1 && fr.n != 3 && fr.n != 4) return info[0] = fr.n, E_NCOMP;
   if (fr.height == 0) return E_DNL;
   if (fr.width == 0 || blen < 6 + 3 * fr.n) return E_BAD_SOF;
   for (int i = 0; i < fr.n; ++i) {
@@ -387,6 +576,8 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   }
   fr.scanned.assign(fr.n, false);
   fr.quant.assign(fr.n, {});
+  for (auto& bits : fr.coef_bits)
+    for (int& b : bits) b = -1;
   return 0;
 }
 
@@ -394,15 +585,89 @@ struct Scratch {  // per thread, reused from photo to photo
   std::vector<int16_t> coef;
   std::vector<long long> blk, out_ac, out_dc;
   std::vector<int> sel;
-  std::vector<uint8_t> raw, plane;
+  std::vector<uint8_t> raw, plane, four;
 };
+
+// The blocks of a scan in decode order (utils/jpeg.py:_scan_blocks) into
+// s.blk (block numbers) and s.sel (component index in the scan) -> the
+// blocks per MCU.
+long long scan_blocks(const Frame& fr, const std::vector<int>& comps, Scratch& s) {
+  s.blk.clear();
+  s.sel.clear();
+  const int ns = static_cast<int>(comps.size());
+  if (ns == 1) {  // non-interleaved: the component's own block raster
+    const int c = comps[0];
+    const int nby = (fr.dh(c) + 7) / 8, nbx = (fr.dw(c) + 7) / 8;
+    for (int by = 0; by < nby; ++by)
+      for (int bx = 0; bx < nbx; ++bx) {
+        s.blk.push_back(fr.offset[c] / 64 + static_cast<long long>(by) * fr.bw[c] + bx);
+        s.sel.push_back(0);
+      }
+    return 1;
+  }
+  long long per_mcu = 0;
+  for (int c : comps) per_mcu += static_cast<long long>(fr.v[c]) * fr.h[c];
+  for (int my = 0; my < fr.mcuy; ++my)
+    for (int mx = 0; mx < fr.mcux; ++mx)
+      for (int i = 0; i < ns; ++i) {
+        const int c = comps[i];
+        for (int yy = 0; yy < fr.v[c]; ++yy)
+          for (int xx = 0; xx < fr.h[c]; ++xx) {
+            s.blk.push_back(fr.offset[c] / 64 +
+                            (static_cast<long long>(my) * fr.v[c] + yy) * fr.bw[c] +
+                            static_cast<long long>(mx) * fr.h[c] + xx);
+            s.sel.push_back(i);
+          }
+      }
+  return per_mcu;
+}
+
+// The end of a scan's entropy-coded data (a marker other than RSTn) and its
+// restart intervals' byte ranges.
+long long scan_pieces(const uint8_t* data, long long n, long long pos, int restart,
+                      std::vector<std::pair<long long, long long>>& pieces) {
+  long long end = n;
+  for (long long i = pos; i + 1 < n; ++i)
+    if (data[i] == 0xFF && data[i + 1] != 0x00 && !(data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7)) {
+      end = i;
+      break;
+    }
+  pieces.clear();
+  long long start = pos;
+  if (restart) {
+    for (long long i = pos; i < end;) {
+      if (data[i] == 0xFF && i + 1 < end && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7) {
+        pieces.emplace_back(start, i);
+        i += 2;
+        start = i;
+      } else {
+        ++i;
+      }
+    }
+  }
+  pieces.emplace_back(start, end);
+  return end;
+}
+
+// One interval's bytes unstuffed into s.raw, zero-padded to a multiple of 4
+// (and 4 to 12 bytes past its end) -> its unstuffed length.
+long long unstuff(const uint8_t* data, long long a, long long b, Scratch& s) {
+  s.raw.clear();
+  for (long long i = a; i < b; ++i) {
+    s.raw.push_back(data[i]);
+    if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
+  }
+  const long long n_raw = static_cast<long long>(s.raw.size());
+  s.raw.resize(n_raw + 12 - n_raw % 4, 0);
+  return n_raw;
+}
 
 int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
                 long long n, long long pos, const std::vector<int64_t>* qt, const bool* qt_def,
                 const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart,
                 Scratch& s, long long* end_out, long long* info) {
   const int ns = blen ? body[0] : 0;
-  if (ns < 1 || blen < 4 + 2 * ns) return E_BAD_SOS;
+  if (ns < 1 || ns > fr.n || blen < 4 + 2 * ns) return E_BAD_SOS;  // n <= 4
   std::vector<int> comps;
   std::vector<const int*> dcls, acls;
   for (int i = 0; i < ns; ++i) {
@@ -426,58 +691,12 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
   const uint8_t* sa = body + 1 + 2 * ns;
   if (!(sa[0] == 0 && sa[1] == 63 && sa[2] == 0)) return E_SPECTRAL;
 
-  long long end = n;  // a marker other than RSTn ends the entropy-coded data
-  for (long long i = pos; i + 1 < n; ++i)
-    if (data[i] == 0xFF && data[i + 1] != 0x00 && !(data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7)) {
-      end = i;
-      break;
-    }
-  // the blocks in decode order (_scan_blocks)
-  s.blk.clear();
-  s.sel.clear();
-  long long per_mcu = 1;
-  if (ns == 1) {
-    const int c = comps[0];
-    const int nby = (fr.dh(c) + 7) / 8, nbx = (fr.dw(c) + 7) / 8;
-    for (int by = 0; by < nby; ++by)
-      for (int bx = 0; bx < nbx; ++bx) {
-        s.blk.push_back(fr.offset[c] / 64 + static_cast<long long>(by) * fr.bw[c] + bx);
-        s.sel.push_back(0);
-      }
-  } else {
-    per_mcu = 0;
-    for (int c : comps) per_mcu += static_cast<long long>(fr.v[c]) * fr.h[c];
-    for (int my = 0; my < fr.mcuy; ++my)
-      for (int mx = 0; mx < fr.mcux; ++mx)
-        for (int i = 0; i < ns; ++i) {
-          const int c = comps[i];
-          for (int yy = 0; yy < fr.v[c]; ++yy)
-            for (int xx = 0; xx < fr.h[c]; ++xx) {
-              s.blk.push_back(fr.offset[c] / 64 +
-                              (static_cast<long long>(my) * fr.v[c] + yy) * fr.bw[c] +
-                              static_cast<long long>(mx) * fr.h[c] + xx);
-              s.sel.push_back(i);
-            }
-        }
-  }
+  std::vector<std::pair<long long, long long>> pieces;
+  const long long end = scan_pieces(data, n, pos, restart, pieces);
+  const long long per_mcu = scan_blocks(fr, comps, s);
   const long long n_blocks = static_cast<long long>(s.blk.size());
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
-  // the intervals' byte ranges, split at every RSTn marker
-  std::vector<std::pair<long long, long long>> pieces;
-  long long start = pos;
-  if (restart) {
-    for (long long i = pos; i < end;) {
-      if (data[i] == 0xFF && i + 1 < end && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7) {
-        pieces.emplace_back(start, i);
-        i += 2;
-        start = i;
-      } else {
-        ++i;
-      }
-    }
-  }
-  pieces.emplace_back(start, end);
   const long long n_int = (n_mcu + span - 1) / span;
   if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
 
@@ -487,14 +706,7 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
   long long total = 0;
   const long long per_interval = span * per_mcu;
   for (long long k = 0; k < n_int; ++k) {
-    const long long a = pieces[k].first, b = pieces[k].second;
-    s.raw.clear();  // the interval unstuffed, then zero-padded
-    for (long long i = a; i < b; ++i) {
-      s.raw.push_back(data[i]);
-      if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
-    }
-    const long long n_raw = static_cast<long long>(s.raw.size());
-    s.raw.resize(n_raw + 12 - n_raw % 4, 0);
+    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
     long long n_ac = 0;
@@ -520,6 +732,86 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
   return 0;
 }
 
+// utils/jpeg.py:_decode_progressive_scan: one progressive scan into s.coef.
+int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
+                            long long n, long long pos, const std::vector<int64_t>* qt,
+                            const bool* qt_def, const HuffTable* dc_tabs, const HuffTable* ac_tabs,
+                            int restart, Scratch& s, long long* end_out, long long* info) {
+  const int ns = blen ? body[0] : 0;
+  if (ns < 1 || ns > fr.n || blen < 4 + 2 * ns) return E_BAD_SOS;  // n <= 4
+  const uint8_t* sa = body + 1 + 2 * ns;
+  const int ss = sa[0], se = sa[1], ah = sa[2] >> 4, al = sa[2] & 15;
+  // jdphuff.c start_pass_phuff_decoder's checks
+  if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) ||
+      (ah && al != ah - 1) || al > 13)
+    return E_BAD_PROGRESSION;
+  const bool dc_refine = ss == 0 && ah;
+  std::vector<int> comps;
+  std::vector<const int*> luts;
+  for (int i = 0; i < ns; ++i) {
+    const int cid = body[1 + 2 * i], t = body[2 + 2 * i];
+    const int c = fr.index_of(cid);
+    if (c < 0) return info[0] = cid, E_SCAN_COMPONENT;
+    const HuffTable& tab = ss == 0 ? dc_tabs[t >> 4] : ac_tabs[t & 15];
+    if (!dc_refine && !tab.defined) return E_UNDEF_HUFF;  // DC refine reads no table
+    if (fr.quant[c].empty()) {
+      if (fr.tq[c] > 15 || !qt_def[fr.tq[c]]) return E_UNDEF_QUANT;
+      fr.quant[c] = qt[fr.tq[c]];
+    }
+    fr.scanned[c] = true;
+    comps.push_back(c);
+    const int* lut = nullptr;
+    if (!dc_refine) {
+      lut = sym_rows(tab, ss == 0);
+      if (!lut) return E_BAD_HUFF_TABLE;
+    }
+    luts.push_back(lut);
+    for (int k = ss; k <= se; ++k) fr.coef_bits[c][k] = al;
+  }
+  std::vector<std::pair<long long, long long>> pieces;
+  const long long end = scan_pieces(data, n, pos, restart, pieces);
+  const long long per_mcu = scan_blocks(fr, comps, s);
+  const long long n_blocks = static_cast<long long>(s.blk.size());
+  const long long n_mcu = n_blocks / per_mcu;
+  const long long span = restart ? restart : n_mcu;
+  const long long n_int = (n_mcu + span - 1) / span;
+  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
+  const long long per_interval = span * per_mcu;
+  for (long long k = 0; k < n_int; ++k) {
+    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
+    const long long lo = k * per_interval;
+    const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+    Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
+    const bool ok = progressive_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo,
+                                         luts.data(), s.coef.data(), ss, se, ah, al);
+    if (!ok && rd.bad_code) return E_INVALID_CODE;
+    if (!ok || rd.used() > 8 * n_raw) return E_SCAN_TRUNC;
+  }
+  *end_out = end;
+  return 0;
+}
+
+// jdcoefct.c:smoothing_ok once every scan is in (utils/jpeg.py:_smoothed)
+bool smoothed(const Frame& fr) {
+  static const int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (int c = 0; c < fr.n; ++c) {
+    if (fr.quant[c].empty()) return false;
+    for (int i : kQ)
+      if (fr.quant[c][i] == 0) return false;
+    if (fr.coef_bits[c][0] < 0) return false;
+    for (int k = 1; k < 10; ++k) useful |= fr.coef_bits[c][k] != 0;
+  }
+  return useful;
+}
+
+inline uint8_t clip8(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+inline int64_t muldiv255(int64_t a, int64_t b) {
+  const int64_t t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
 int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
            long long* info) {
   if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return E_NOT_JPEG;
@@ -529,7 +821,7 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   bool qt_def[16] = {};
   HuffTable dc_tabs[16], ac_tabs[16];
   int restart = 0, adobe = -1;
-  bool jfif = false, have_frame = false;
+  bool jfif = false, have_frame = false, eoi = false;
   Frame fr;
   long long pos = 2;
   while (true) {
@@ -539,10 +831,13 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     while (pos < n && data[pos] == 0xFF) ++pos;  // fill bytes
     if (pos >= n) break;
     const int marker = data[pos++];
-    if (marker == 0xD9) break;
+    if (marker == 0xD9) {
+      eoi = true;
+      break;
+    }
     if (marker == 0x00 || marker == 0x01 || marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7))
       continue;
-    if (marker == 0xC2 || marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
+    if (marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
         marker == 0xC7 || marker == 0xC9 || marker == 0xCA || marker == 0xCB ||
         marker == 0xCD || marker == 0xCE || marker == 0xCF)
       return info[0] = marker, E_REFUSE_SOF;
@@ -553,10 +848,11 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     const uint8_t* body = data + pos + 2;
     const long long blen = len - 2;
     long long after = pos + len;
-    if (marker == 0xC0 || marker == 0xC1) {
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
       if (have_frame) return E_SECOND_FRAME;
       const int rc = parse_frame(body, blen, fr, info);
       if (rc) return rc;
+      fr.progressive = marker == 0xC2;
       have_frame = true;
       s.coef.assign(fr.offset.back(), 0);
     } else if (marker == 0xC4) {  // DHT
@@ -598,8 +894,11 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       adobe = body[11];
     } else if (marker == 0xDA) {  // SOS
       if (!have_frame) return E_SCAN_NO_FRAME;
-      const int rc = decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs, ac_tabs,
-                                 restart, s, &after, info);
+      const int rc = fr.progressive
+                         ? decode_progressive_scan(fr, body, blen, data, n, after, qt, qt_def,
+                                                   dc_tabs, ac_tabs, restart, s, &after, info)
+                         : decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs,
+                                       ac_tabs, restart, s, &after, info);
       if (rc) return rc;
     }
     pos = after;
@@ -607,20 +906,60 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   if (!have_frame) return E_NO_SCAN;
   for (int c = 0; c < fr.n; ++c)
     if (!fr.scanned[c]) return E_NO_SCAN;
+  if (fr.progressive) {
+    if (!eoi) return E_PROG_NO_EOI;  // more scans may have been to come
+    if (smoothed(fr)) return E_SMOOTHING;
+  }
 
   info[0] = fr.height;
   info[1] = fr.width;
   const long long npx = static_cast<long long>(fr.height) * fr.width;
   if (out == nullptr || out_bytes != 3 * npx) return E_OUT_SIZE;
   // each component upsampled into its channel of the output (a grayscale
-  // plane into all three), then the colour conversion in place
+  // plane into all three; four into a scratch), then the colour conversion
+  uint8_t* planes = out;
+  int step = 3;
+  if (fr.n == 4) {
+    s.four.resize(static_cast<size_t>(npx) * 4);
+    planes = s.four.data();
+    step = 4;
+  }
   for (int c = 0; c < fr.n; ++c) {
     s.plane.resize(static_cast<size_t>(fr.bh[c]) * fr.bw[c] * 64);
     idct_plane(s.coef.data() + fr.offset[c], fr.quant[c].data(), fr.bh[c], fr.bw[c],
                s.plane.data());
     const int fh = fr.hmax / fr.h[c], fv = fr.vmax / fr.v[c];
     upsample(s.plane.data(), static_cast<long long>(fr.bw[c]) * 8, fr.dh(c), fr.dw(c), fh, fv,
-             fr.height, fr.width, out + c, 3);
+             fr.height, fr.width, planes + c, step);
+  }
+  if (fr.n == 4) {
+    // YCCK (an Adobe transform other than 0) to CMYK as jdcolor.c's
+    // ycck_cmyk_convert; then Pillow's "CMYK;I" (each inverted) and its
+    // Convert.c:cmyk2rgb, nk = 255 - K
+    int64_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+    const int64_t half = int64_t(1) << 15;
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = (fix(1.40200) * x + half) >> 16;
+      cb_b[i] = (fix(1.77200) * x + half) >> 16;
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+    const bool ycck = adobe > 0;
+    for (long long i = 0; i < npx; ++i) {
+      const uint8_t* q = planes + 4 * i;
+      int64_t cmy[3] = {q[0], q[1], q[2]};
+      if (ycck) {
+        const int64_t y = q[0];
+        const int cb = q[1], cr = q[2];
+        cmy[0] = clip8(255 - (y + cr_r[cr]));
+        cmy[1] = clip8(255 - (y + ((cb_g[cb] + cr_g[cr]) >> 16)));
+        cmy[2] = clip8(255 - (y + cb_b[cb]));
+      }
+      const int64_t nk = q[3];
+      for (int k = 0; k < 3; ++k) out[3 * i + k] = clip8(nk - muldiv255(255 - cmy[k], nk));
+    }
+    return 0;
   }
   if (fr.n == 1) {
     for (long long i = 0; i < npx; ++i) out[3 * i + 1] = out[3 * i + 2] = out[3 * i];
@@ -659,7 +998,7 @@ long long l2i_jpeg_decode_interval(const uint8_t* data, long long n_bytes,
                          out_dc, preds.data());
 }
 
-// The height and width of the first frame header (SOF0/SOF1) -> 0, or -1
+// The height and width of the first frame header (SOF0-SOF2) -> 0, or -1
 // where the markers before it do not lead to one.
 int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
   if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return -1;
@@ -675,7 +1014,7 @@ int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
       continue;
     const long long len = be16(data + pos);
     if (len < 2 || pos + len > n) return -1;
-    if (marker == 0xC0 || marker == 0xC1) {
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
       if (len < 7) return -1;
       hw[0] = be16(data + pos + 3);
       hw[1] = be16(data + pos + 5);
@@ -687,7 +1026,7 @@ int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
   return -1;
 }
 
-// utils/jpeg.py:jpeg_decode_rgb: baseline JPEG bytes -> out, uint8
+// utils/jpeg.py:jpeg_decode_rgb: JPEG bytes -> out, uint8
 // [height][width][3] (out_bytes = 3 height width). -> 0, or an error code
 // (info[0] its value where the message names one); E_OUT_SIZE with
 // info = (height, width) when out does not fit the decoded frame.

@@ -3,9 +3,10 @@ latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
 to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
 alone (zlib + struct), and Pillow's BILINEAR, BICUBIC and LANCZOS resamples
 are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
-and baseline JPEG (``utils/jpeg.py``, bit for bit Pillow's libjpeg-turbo
-decode); progressive or arithmetic-coded JPEG, CMYK and WEBP raise, naming
-ROADMAP item 26."""
+and sequential or progressive Huffman JPEG, grayscale, YCbCr, RGB, CMYK or
+YCCK (``utils/jpeg.py``, bit for bit Pillow's libjpeg-turbo decode);
+arithmetic-coded, lossless, hierarchical and 12-bit JPEG and WEBP raise,
+naming ROADMAP item 26."""
 
 from __future__ import annotations
 
@@ -174,11 +175,12 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
 
 def read_image_rgb(path: str, native: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
-    .convert("RGB")`` gives it: PNG (``png_decode_rgb``) and baseline JPEG
-    (``jpeg_decode_rgb``, through its C entry where ``native``), told
-    apart by their signatures. What the JPEG decoder does not read
-    (progressive, arithmetic-coded, CMYK) and WEBP raise ValueError naming
-    the file and ROADMAP item 26."""
+    .convert("RGB")`` gives it: PNG (``png_decode_rgb``) and JPEG
+    (``jpeg_decode_rgb``, sequential or progressive, 1, 3 or 4
+    components, through its C entry where ``native``), told apart by their
+    signatures. What the JPEG decoder does not read (arithmetic-coded,
+    lossless, hierarchical, 12-bit) and WEBP raise ValueError naming the
+    file and ROADMAP item 26."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:

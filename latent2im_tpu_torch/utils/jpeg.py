@@ -1,22 +1,35 @@
-"""Baseline JPEG decoding in numpy and the standard library, as Pillow
-decodes it (``PIL.Image.open(p).convert("RGB")`` with libjpeg-turbo's
-defaults), bit for bit: the GPU machine has no Pillow.
+"""JPEG decoding in numpy and the standard library, as Pillow decodes it
+(``PIL.Image.open(p).convert("RGB")`` with libjpeg-turbo's defaults), bit
+for bit: the GPU machine has no Pillow.
 
     jpeg_decode_rgb(data: bytes, native: bool = False) -> uint8 [H, W, 3]
 
 ``native=True`` runs the same decode, bit for bit and with the same
 errors, in the host C++ of ops/csrc/jpeg_huffman.cpp (the card's loaders).
 
-What it reads: SOF0 and SOF1 frames at 8-bit precision with one component
-(grayscale, repeated into three channels as ``convert("RGB")`` does) or
-three (YCbCr; RGB where an Adobe APP14 marker says transform 0, as libjpeg
-decides), any integral sampling factors, sequential Huffman scans,
-interleaved or not, restart intervals. The pieces are libjpeg's:
+What it reads: SOF0, SOF1 (sequential) and SOF2 (progressive) Huffman
+frames at 8-bit precision with one component (grayscale, repeated into
+three channels as ``convert("RGB")`` does), three (YCbCr; RGB where an
+Adobe APP14 marker says transform 0, as libjpeg decides) or four (CMYK, or
+YCCK where an Adobe marker says a transform other than 0), any integral
+sampling factors, scans interleaved or not, restart intervals. The pieces
+are libjpeg's:
 
-- the entropy decoder reads each restart interval's unstuffed bytes as
-  32-bit words and decodes each Huffman symbol with one lookup of the next
-  16 bits, in a table that also holds the symbol's value bits where code and
-  value fit in them (``_lut``, cached per table): the one Python loop;
+- the sequential entropy decoder reads each restart interval's unstuffed
+  bytes as 32-bit words and decodes each Huffman symbol with one lookup of
+  the next 16 bits, in a table that also holds the symbol's value bits
+  where code and value fit in them (``_lut``, cached per table): the one
+  Python loop;
+- the progressive decoder (``jdphuff.c``) keeps every block's
+  coefficients over all scans: DC first and DC refine scans, AC first scans
+  with their end-of-band runs, AC refine scans with their correction bits,
+  restart intervals resetting the DC predictors and the run; a
+  non-interleaved scan walks the component's own block grid. The image is
+  made once after the last scan. libjpeg-turbo smooths the blocks of a
+  progressive image whose first AC coefficients are not all refined to
+  full precision by then (``jdcoefct.c:smoothing_ok``); no complete file
+  from Pillow's or a camera's encoder leaves them so, and such a file
+  raises;
 - dequantisation and ``jidctint.c``'s integer ISLOW IDCT (CONST_BITS 13,
   PASS1_BITS 2, its wrapping range limit), over all blocks at once in
   integer numpy (libjpeg-turbo's SIMD islow is bit-exact with that C code);
@@ -26,15 +39,19 @@ interleaved or not, restart intervals. The pieces are libjpeg's:
   edge samples replicated at the component's own (downsampled) width and
   height, box replication where the downsampled width is 2 or less, and
   ``int_upsample`` replication for other integral factors;
-- ``jdcolor.c``'s ``ycc_rgb_convert``: SCALEBITS 16 tables, ONE_HALF
-  rounding;
+- ``jdcolor.c``'s ``ycc_rgb_convert`` (SCALEBITS 16 tables, ONE_HALF
+  rounding) and ``ycck_cmyk_convert``; a CMYK image as Pillow takes it
+  (raw mode ``CMYK;I``, the Adobe convention, every channel inverted) and
+  converts it (``Convert.c:cmyk2rgb``: nk = 255 - K, R = nk - nk * C / 255
+  with Pillow's MULDIV255 rounding);
 - the output cropped from the MCU-padded planes to the frame's size.
 
-What raises ``ValueError``, naming ROADMAP item 26: progressive (SOF2),
-lossless and hierarchical (SOF3, SOF5-7) and arithmetic-coded (SOF9-15,
-DAC) files, 4-component CMYK/YCCK, 12-bit precision, a height given only by
-a DNL marker; and data that ends before the image does (truncated) or holds
-an invalid Huffman code.
+What raises ``ValueError``, naming ROADMAP item 26: lossless and
+hierarchical (SOF3, SOF5-7) and arithmetic-coded (SOF9-15, DAC) files,
+12-bit precision, a height given only by a DNL marker, a progressive image
+libjpeg-turbo would smooth; and data that ends before the image does
+(truncated, or a progressive file with no EOI) or holds an invalid Huffman
+code or progressive scan.
 """
 
 from __future__ import annotations
@@ -55,7 +72,7 @@ _ZIGZAG = np.array([
 _UNZIGZAG = np.argsort(_ZIGZAG)  # natural order <- zigzag order
 
 _SOF_REFUSED = {
-    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical progressive (SOF6)",
     0xC7: "hierarchical lossless (SOF7)", 0xC9: "arithmetic-coded (SOF9)",
     0xCA: "arithmetic-coded progressive (SOF10)", 0xCB: "arithmetic-coded lossless (SOF11)",
@@ -90,17 +107,9 @@ def _lut(counts: bytes, symbols: bytes, dc: bool) -> list:
     return list(map(tuple, _lut_rows(counts, symbols, dc).tolist()))
 
 
-@functools.lru_cache(maxsize=64)
-def _lut_rows(counts: bytes, symbols: bytes, dc: bool) -> np.ndarray:
-    """The lookup table of one Huffman table for every 16-bit window, as
-    int32 rows [65536, 2] (DC) or [65536, 3] (AC):
-    DC: (n, v): n > 0 bits consumed for code and value bits, v the value;
-    n < 0: -n code bits, then v value bits to read. AC: (n, run, v): n > 0
-    consumed, v the value's low 16 bits (0 for ZRL, run 15), run -1 for end
-    of block; n < 0: -n code bits, then v value bits. AC runs are in units of
-    2^16 (the decoder's packed position). n == 0: no code."""
-    if dc and any(s > 15 for s in symbols[:sum(counts)]):
-        raise _corrupt("bad Huffman table")  # jdhuff.c: a DC size past 15
+def _code_table(counts: bytes, symbols: bytes):
+    """(code length, symbol) of every 16-bit window, int64 [65536] each
+    (length 0: no code)."""
     length = np.zeros(1 << 16, np.int64)
     symbol = np.zeros(1 << 16, np.int64)
     code, i = 0, 0
@@ -113,6 +122,31 @@ def _lut_rows(counts: bytes, symbols: bytes, dc: bool) -> np.ndarray:
             symbol[lo:lo + (1 << (16 - n_bits))] = symbols[i]
             code, i = code + 1, i + 1
         code <<= 1
+    return length, symbol
+
+
+@functools.lru_cache(maxsize=64)
+def _sym_lut(counts: bytes, symbols: bytes, dc: bool) -> list:
+    """The progressive decoder's table: (code length, symbol) for every
+    16-bit window, length 0 where no code starts."""
+    if dc and any(s > 15 for s in symbols[:sum(counts)]):
+        raise _corrupt("bad Huffman table")  # jdhuff.c: a DC size past 15
+    length, symbol = _code_table(counts, symbols)
+    return list(zip(length.tolist(), symbol.tolist()))
+
+
+@functools.lru_cache(maxsize=64)
+def _lut_rows(counts: bytes, symbols: bytes, dc: bool) -> np.ndarray:
+    """The lookup table of one Huffman table for every 16-bit window, as
+    int32 rows [65536, 2] (DC) or [65536, 3] (AC):
+    DC: (n, v): n > 0 bits consumed for code and value bits, v the value;
+    n < 0: -n code bits, then v value bits to read. AC: (n, run, v): n > 0
+    consumed, v the value's low 16 bits (0 for ZRL, run 15), run -1 for end
+    of block; n < 0: -n code bits, then v value bits. AC runs are in units of
+    2^16 (the decoder's packed position). n == 0: no code."""
+    if dc and any(s > 15 for s in symbols[:sum(counts)]):
+        raise _corrupt("bad Huffman table")  # jdhuff.c: a DC size past 15
+    length, symbol = _code_table(counts, symbols)
     window = np.arange(1 << 16, dtype=np.int64)
     size = symbol if dc else symbol & 15
     fits = length + size <= 16
@@ -186,6 +220,126 @@ def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc) -> int:
             else:
                 raise _corrupt("invalid Huffman code (corrupt data)")
     return wi * 32 - nb
+
+
+# ---------------------------------------------------------------------------
+# progressive scans (jdphuff.c)
+# ---------------------------------------------------------------------------
+
+class _Bits:
+    """The bit reader of one restart interval of a progressive scan: its
+    unstuffed bytes as big-endian 32-bit words, zero-padded; ``used()`` the
+    bits consumed (an IndexError reads past the padding)."""
+
+    __slots__ = ("words", "wi", "buf", "nb")
+
+    def __init__(self, words):
+        self.words, self.wi, self.buf, self.nb = words, 0, 0, 0
+
+    def get(self, n: int) -> int:
+        if self.nb < 32:
+            self.buf = ((self.buf & ((1 << self.nb) - 1)) << 32) | self.words[self.wi]
+            self.wi += 1
+            self.nb += 32
+        self.nb -= n
+        return (self.buf >> self.nb) & ((1 << n) - 1)
+
+    def huff(self, lut) -> int:
+        if self.nb < 32:
+            self.buf = ((self.buf & ((1 << self.nb) - 1)) << 32) | self.words[self.wi]
+            self.wi += 1
+            self.nb += 32
+        n, sym = lut[(self.buf >> (self.nb - 16)) & 0xFFFF]
+        if not n:
+            raise _corrupt("invalid Huffman code (corrupt data)")
+        self.nb -= n
+        return sym
+
+    def used(self) -> int:
+        return self.wi * 32 - self.nb
+
+
+def _w16(v: int) -> int:
+    """v as a JCOEF (int16, wrapping)."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _ext(bits: int, size: int) -> int:
+    return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
+
+
+def _progressive_interval(rd: _Bits, blocks, luts, coef: list, ss, se, ah, al) -> None:
+    """Decode one restart interval of a progressive scan into coef (every
+    block's 64 coefficients in zigzag order, a flat list): jdphuff.c's
+    decode_mcu_DC_first, _DC_refine, _AC_first and _AC_refine. A position
+    past 63 is coefficient 63 (libjpeg's padded natural-order table)."""
+    if ss == 0 and ah == 0:  # DC first
+        preds = [0] * len(luts)
+        for blk, ci in blocks:
+            size = rd.huff(luts[ci])
+            preds[ci] += _ext(rd.get(size), size) if size else 0
+            coef[blk * 64] = _w16(preds[ci] << al)
+        return
+    if ss == 0:  # DC refine: one bit a block
+        p1 = 1 << al
+        for blk, _ in blocks:
+            if rd.get(1):
+                coef[blk * 64] |= p1
+        return
+    lut, eobrun = luts[0], 0
+    if ah == 0:  # AC first
+        for blk, _ in blocks:
+            if eobrun:
+                eobrun -= 1
+                continue
+            base, k = blk * 64, ss
+            while k <= se:
+                rs = rd.huff(lut)
+                r, size = rs >> 4, rs & 15
+                if size:
+                    k += r
+                    coef[base + min(k, 63)] = _w16(_ext(rd.get(size), size) << al)
+                elif r == 15:  # ZRL
+                    k += 15
+                else:  # EOBr
+                    eobrun = (1 << r) + (rd.get(r) if r else 0) - 1
+                    break
+                k += 1
+        return
+    p1, m1 = 1 << al, -1 << al  # AC refine
+    for blk, _ in blocks:
+        base, k = blk * 64, ss
+        if not eobrun:
+            while k <= se:
+                rs = rd.huff(lut)
+                r, size = rs >> 4, rs & 15
+                if size:  # a newly nonzero coefficient (size 1; libjpeg warns on others)
+                    size = p1 if rd.get(1) else m1
+                elif r != 15:
+                    eobrun = (1 << r) + (rd.get(r) if r else 0)
+                    break
+                while True:  # past r zero-history coefficients, correcting the rest
+                    c = coef[base + k]
+                    if c:
+                        if rd.get(1) and not c & p1:
+                            coef[base + k] = _w16(c + (p1 if c >= 0 else m1))
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                    if k > se:
+                        break
+                if size:
+                    coef[base + min(k, 63)] = size
+                k += 1
+        if eobrun:  # the end-of-band run: correction bits only
+            while k <= se:
+                c = coef[base + k]
+                if c and rd.get(1) and not c & p1:
+                    coef[base + k] = _w16(c + (p1 if c >= 0 else m1))
+                k += 1
+            eobrun -= 1
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +469,7 @@ def _segment(data: bytes, pos: int) -> tuple[bytes, int]:
 
 
 class _Frame:
-    def __init__(self, body: bytes):
+    def __init__(self, body: bytes, progressive: bool = False):
         if len(body) < 6:
             raise _corrupt("short SOF segment")
         precision = body[0]
@@ -324,9 +478,7 @@ class _Frame:
         n = body[5]
         if precision != 8:
             raise _refuse(f"{precision}-bit")
-        if n == 4:
-            raise _refuse("4-component (CMYK/YCCK)")
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             raise _refuse(f"{n}-component")
         if self.height == 0:
             raise _refuse("DNL-height")
@@ -354,6 +506,10 @@ class _Frame:
         self.coef = np.zeros(int(self.offset[-1]), np.int64)
         self.quant = [None] * n  # latched at the component's first scan
         self.scanned = [False] * n
+        self.progressive = progressive
+        if progressive:  # every coefficient over all scans; -1: never scanned
+            self.pcoef = [0] * int(self.offset[-1])
+            self.coef_bits = [[-1] * 64 for _ in range(n)]
 
     def downsampled(self, c):
         """(width, height) of component c's real samples."""
@@ -385,7 +541,7 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
     """Decode one sequential scan starting at data[pos] into fr.coef ->
     the position of the marker after its entropy-coded data."""
     ns = body[0] if body else 0
-    if ns < 1 or len(body) < 4 + 2 * ns:
+    if ns < 1 or ns > len(fr.ids) or len(body) < 4 + 2 * ns:  # at most 4, as libjpeg
         raise _corrupt("bad SOS segment")
     comps, dcls, acls = [], [], []
     for i in range(ns):
@@ -437,6 +593,78 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
     return end
 
 
+def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
+    """Decode one progressive scan starting at data[pos] into fr.pcoef ->
+    the position of the marker after its entropy-coded data."""
+    ns = body[0] if body else 0
+    if ns < 1 or ns > len(fr.ids) or len(body) < 4 + 2 * ns:  # at most 4, as libjpeg
+        raise _corrupt("bad SOS segment")
+    ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    # jdphuff.c start_pass_phuff_decoder's checks
+    if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1)) or \
+            (ah and al != ah - 1) or al > 13:
+        raise _corrupt("bad progressive scan parameters")
+    comps, luts = [], []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i:3 + 2 * i]
+        if cid not in fr.ids:
+            raise _corrupt(f"scan names component {cid}, not in the frame")
+        c = fr.ids.index(cid)
+        tabs, key = (dc_tabs, t >> 4) if ss == 0 else (ac_tabs, t & 15)
+        if not (ss == 0 and ah) and key not in tabs:  # DC refine reads no table
+            raise _corrupt("scan uses an undefined Huffman table")
+        if fr.quant[c] is None:
+            if fr.tq[c] not in qt:
+                raise _corrupt("component uses an undefined quantization table")
+            fr.quant[c] = qt[fr.tq[c]]
+        fr.scanned[c] = True
+        comps.append(c)
+        luts.append(None if ss == 0 and ah else _sym_lut(*tabs[key], ss == 0))
+        for k in range(ss, se + 1):
+            fr.coef_bits[c][k] = al
+
+    m = _ENTROPY_END.search(data, pos)
+    end = m.start() if m else len(data)
+    blocks, per_mcu = _scan_blocks(fr, comps)
+    n_mcu = len(blocks) // per_mcu
+    span = restart if restart else n_mcu
+    pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
+    n_int = -(-n_mcu // span)
+    if len(pieces) < n_int:
+        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+    for i in range(n_int):
+        raw = pieces[i].replace(b"\xff\x00", b"\xff")
+        rd = _Bits(np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist())
+        try:
+            _progressive_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu],
+                                  luts, fr.pcoef, ss, se, ah, al)
+            used = rd.used()
+        except IndexError:  # read past the padding
+            used = 8 * len(rd.words) * 4
+        if used > 8 * len(raw):
+            raise _corrupt("truncated data (the scan ends before its last block)")
+    return end
+
+
+# the quantizer positions (natural order) jdcoefct.c:smoothing_ok needs
+# nonzero, and the coefficients whose precision it looks at
+_SMOOTH_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+_SMOOTH_COEFS = 10
+
+
+def _smoothed(fr: _Frame) -> bool:
+    """Would libjpeg-turbo smooth this progressive image's blocks
+    (jdcoefct.c:smoothing_ok once every scan is in)?"""
+    useful = False
+    for c in range(len(fr.ids)):
+        q, bits = fr.quant[c], fr.coef_bits[c]
+        if q is None or any(q[i] == 0 for i in _SMOOTH_Q) or bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:_SMOOTH_COEFS])
+    return useful
+
+
 def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
     """Baseline JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (libjpeg-turbo: ISLOW IDCT, fancy
@@ -456,7 +684,7 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         raise _corrupt("not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
     restart, jfif, adobe = 0, False, None
-    fr = None
+    fr, eoi = None, False
     pos = 2
     while True:
         nxt = data.find(b"\xff", pos)
@@ -470,6 +698,7 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         marker = data[pos]
         pos += 1
         if marker == 0xD9:  # EOI
+            eoi = True
             break
         if marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
             continue
@@ -478,10 +707,10 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         if marker == 0xCC:
             raise _refuse("arithmetic-coded (DAC)")
         body, after = _segment(data, pos)
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             if fr is not None:
                 raise _corrupt("a second frame")
-            fr = _Frame(body)
+            fr = _Frame(body, progressive=marker == 0xC2)
         elif marker == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -513,10 +742,17 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if fr is None:
                 raise _corrupt("scan before the frame header")
-            after = _decode_scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart)
+            scan = _decode_progressive_scan if fr.progressive else _decode_scan
+            after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart)
         pos = after
     if fr is None or not all(fr.scanned):
         raise _corrupt("truncated data (no scan for every component)")
+    if fr.progressive:
+        if not eoi:  # more scans may have been to come
+            raise _corrupt("truncated data (a progressive file with no EOI)")
+        if _smoothed(fr):
+            raise _refuse("block-smoothed progressive (AC coefficients left unrefined)")
+        fr.coef = np.asarray(fr.pcoef, np.int64)
     return _assemble(fr, jfif, adobe)
 
 
@@ -533,6 +769,8 @@ def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
         planes.append(up[:fr.height, :fr.width])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=-1)
+    if len(planes) == 4:
+        return _cmyk_to_rgb(*_ycck_to_cmyk(planes) if adobe not in (None, 0) else planes)
     # jdapimin.c default_decompress_parms: JFIF means YCbCr, else Adobe's
     # transform (0: RGB), else the component ids ('R', 'G', 'B': RGB)
     rgb = (not jfif and adobe == 0) or (
@@ -540,6 +778,28 @@ def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
     if rgb:
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+def _ycck_to_cmyk(planes):
+    """jdcolor.c's ycck_cmyk_convert: (C, M, Y) = 255 - the YCbCr -> RGB
+    of the first three planes, clamped; K unchanged."""
+    y, cb, cr, k = (p.astype(np.int64) for p in planes)
+    return (np.clip(255 - (y + _CR_R[cr]), 0, 255),
+            np.clip(255 - (y + ((_CB_G[cb] + _CR_G[cr]) >> 16)), 0, 255),
+            np.clip(255 - (y + _CB_B[cb]), 0, 255), k)
+
+
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """libjpeg's CMYK samples as Pillow takes them (raw mode "CMYK;I":
+    each inverted) and converts them to RGB (Convert.c:cmyk2rgb)."""
+    nk = np.asarray(k, np.int64)  # 255 - (255 - K)
+    out = [nk - _muldiv255(255 - np.asarray(v, np.int64), nk) for v in (c, m, y)]
+    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
 
 
 # the C entry's error codes (jpeg_huffman.cpp) -> the Python version's errors
@@ -551,7 +811,6 @@ _C_ERRORS = {
     -14: lambda v: _corrupt("a second frame"),
     -15: lambda v: _corrupt("short SOF segment"),
     -16: lambda v: _refuse(f"{v}-bit"),
-    -17: lambda v: _refuse("4-component (CMYK/YCCK)"),
     -18: lambda v: _refuse(f"{v}-component"),
     -19: lambda v: _refuse("DNL-height"),
     -20: lambda v: _corrupt("bad SOF segment"),
@@ -572,6 +831,9 @@ _C_ERRORS = {
     -35: lambda v: _corrupt("coefficient past the end of a block (corrupt data)"),
     -36: lambda v: _corrupt("truncated data (no scan for every component)"),
     -38: lambda v: MemoryError("jpeg: out of memory"),
+    -39: lambda v: _corrupt("bad progressive scan parameters"),
+    -40: lambda v: _corrupt("truncated data (a progressive file with no EOI)"),
+    -41: lambda v: _refuse("block-smoothed progressive (AC coefficients left unrefined)"),
 }
 _OUT_SIZE = -37
 

@@ -461,14 +461,21 @@ def test_train_refuses_update_gan_as_the_jax_package(tmp_path, extra, message):
 
 
 def test_train_refuses_a_geometric_transform(tmp_path):
-    """The geometric tasks train (tests/test_torch_geometric_cli.py); what
-    is refused is --host_targets, the JAX package's cv2 host path, before
-    any tower is built. The name dates from when the port refused every
-    geometric transform; it is kept so that the test's record follows it."""
+    """The geometric tasks train, on device targets
+    (tests/test_torch_geometric_cli.py) and, under --host_targets, on the
+    JAX package's cv2 host path (tasks/cv2_np.py; every task and the JAX
+    comparison in tests/test_torch_host_targets.py): a zoom run trains on
+    it and writes its final walk. The name dates from when the port refused
+    every geometric transform, and then --host_targets; it is kept so that
+    the test's record follows it."""
     from latent2im_tpu_torch.cli.train import run
 
     opt = options.TrainOptions().parse(
         ["--transform", "zoom", "--models_dir", str(tmp_path), "--dev_tiny",
-         "--host_targets"], print_opt=False)
-    with _restoring_logging(), pytest.raises(NotImplementedError, match="item 24"):
-        run(opt, device="cpu")
+         "--overwrite_config", "--resolution", str(SIZE), "--num_samples", "2",
+         "--batch_size", "2", "--n_epochs", "1", "--host_targets"], print_opt=False)
+    with _restoring_logging(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, hist = run(opt, device="cpu")
+    assert len(hist) == 1 and np.isfinite(hist[0])
+    assert os.path.isfile(os.path.join(opt.output_dir, "model_w_1_final_walk_module.ckpt"))

@@ -6,8 +6,8 @@ package:
   Pillow path, down- and up-scaling, square and not;
 - the provider's real batches: ``cli/train.py:_make_real_batcher`` draws the
   JAX package's fallback index sequence and images, also after a replay of
-  the stream (load=False); a baseline JPEG is read as the JAX package
-  reads it, a progressive one is refused naming the file.
+  the stream (load=False); a baseline and a progressive JPEG are read as
+  the JAX package reads them, a WEBP file is refused naming it.
 
 The JAX package takes its native extension (``latent2im_tpu/native``, built
 from ``native/l2i_native.cpp`` where a compiler and libpng/libjpeg exist)
@@ -97,9 +97,10 @@ def test_real_batches_follow_the_jax_fallback(tmp_path, jax_fallback):
 
 
 def test_real_paths_refuse_a_jpeg_naming_it(tmp_path, jax_fallback):
-    """A baseline .JPG is listed and read as the JAX package reads it; a
-    progressive one, which the port's decoder does not read, raises at its
-    load naming the file and ROADMAP item 26."""
+    """A baseline .JPG and a progressive .jpg (refused until the decoder
+    read progressive files, hence the name) are listed and read as the JAX
+    package reads them; a WEBP file under a .jpg name, which the port does
+    not read, raises at its load naming the file and ROADMAP item 26."""
     _write_png(tmp_path / "a.png", 8, 8, 0)
     img = np.random.RandomState(1).randint(0, 256, (20, 26, 3)).astype(np.uint8)
     PIL.Image.fromarray(img).save(tmp_path / "b.JPG", "JPEG", quality=90)
@@ -109,7 +110,11 @@ def test_real_paths_refuse_a_jpeg_naming_it(tmp_path, jax_fallback):
                                   jimage.load_and_resize_image(paths[1], SIZE))
     PIL.Image.fromarray(img).save(tmp_path / "c.jpg", "JPEG", progressive=True)
     path = tcli._real_paths(str(tmp_path))[2]
-    with pytest.raises(ValueError, match=r"c\.jpg.*progressive.*item 26"):
+    np.testing.assert_array_equal(imgmod.load_and_resize_image(path, SIZE),
+                                  jimage.load_and_resize_image(path, SIZE))
+    PIL.Image.fromarray(img).save(tmp_path / "d.jpg", "WEBP")
+    path = tcli._real_paths(str(tmp_path))[3]
+    with pytest.raises(ValueError, match=r"d\.jpg.*WEBP.*item 26"):
         imgmod.load_and_resize_image(path, SIZE)
     with pytest.raises(SystemExit, match="no images"):
         tcli._real_paths(str(tmp_path / "nothing"))

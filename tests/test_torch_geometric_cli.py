@@ -12,8 +12,9 @@ checkpoints and read through --g_path / --reg_path / --vgg_path):
   uint8 level (f32 towers summed in another order, then truncated),
   scores and the eval numbers within 1e-4 relative.
 
-tests/test_torch_cli.py::test_train_refuses_a_geometric_transform holds the
-refusal of --host_targets (the JAX package's cv2 host path).
+--host_targets (the JAX package's cv2 host path) trains through the CLI in
+tests/test_torch_cli.py::test_train_refuses_a_geometric_transform and
+tests/test_torch_host_targets.py.
 """
 
 import base64

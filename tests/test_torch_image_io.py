@@ -144,12 +144,14 @@ def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
     PIL.Image.fromarray(arr).save(path, format="JPEG")
     np.testing.assert_array_equal(im.read_image_rgb(str(path)),
                                   np.asarray(PIL.Image.open(path).convert("RGB")))
-    for fmt, ext, kw in (("progressive", "jpg", {"format": "JPEG", "progressive": True}),
-                         ("WEBP", "webp", {"format": "WEBP"})):
-        path = tmp_path / f"y.{ext}"
-        PIL.Image.fromarray(arr).save(path, **kw)
-        with pytest.raises(ValueError, match=f"{fmt}.*item 26"):
-            im.read_image_rgb(str(path))
+    path = tmp_path / "p.jpg"  # progressive JPEG (once refused): as Pillow
+    PIL.Image.fromarray(arr).save(path, format="JPEG", progressive=True)
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
+    path = tmp_path / "y.webp"
+    PIL.Image.fromarray(arr).save(path, format="WEBP")
+    with pytest.raises(ValueError, match="WEBP.*item 26"):
+        im.read_image_rgb(str(path))
     path = tmp_path / "x.png"
     path.write_bytes(im.png_bytes(arr))
     np.testing.assert_array_equal(im.read_image_rgb(str(path)), arr)

@@ -1,4 +1,4 @@
-"""The port's baseline JPEG decoder (latent2im_tpu_torch/utils/jpeg.py), on
+"""The port's JPEG decoder (latent2im_tpu_torch/utils/jpeg.py), on
 the CPU, bit for bit against Pillow's ``Image.open(p).convert("RGB")``
 (libjpeg-turbo: ISLOW IDCT, fancy upsampling), on JPEGs Pillow writes here
 from seeded numpy images:
@@ -10,9 +10,11 @@ from seeded numpy images:
   samples wide); quality 50 and 95; optimised Huffman tables; restart
   markers every MCU row and every 3 MCUs;
 - every layout is held exactly: none is gated at one level;
-- what it does not read raises naming ROADMAP item 26 (progressive, CMYK,
-  WEBP through ``read_image_rgb``), and so does nothing else; truncated data
-  raises;
+- what it does not read raises naming ROADMAP item 26 (arithmetic-coded,
+  lossless, hierarchical and 12-bit frames, WEBP through ``read_image_rgb``),
+  and so does nothing else; progressive and CMYK files, once refused, decode
+  as Pillow decodes them (tests/test_torch_jpeg_progressive.py holds them
+  in full); truncated data raises;
 - the committed fixtures of chip_smoke.py's phase 38 decode to their
   recorded Pillow decodes;
 - the inversion CLI's ``load_images`` on a directory of JPEGs equals the JAX
@@ -113,15 +115,31 @@ def test_other_sampling_factors_and_adobe_rgb_decode_as_pillow():
 
 
 def test_what_the_decoder_does_not_read_raises_naming_item_26(tmp_path):
+    """Progressive and CMYK files, which this test once held refused, now
+    decode as Pillow decodes them, through ``read_image_rgb`` too. What
+    still raises naming item 26: a frame marker of the arithmetic-coded,
+    lossless or hierarchical kinds, 12-bit precision (each written over a
+    baseline file's SOF0), and WEBP."""
     arr = _image(24, 24, 11, True)
-    cases = {"progressive": _jpeg(arr, progressive=True),
-             "CMYK": _jpeg(arr, "CMYK")}
-    for what, data in cases.items():
-        with pytest.raises(ValueError, match=f"{what}.*item 26"):
-            jpeg_decode_rgb(data)
+    for what, data in {"progressive": _jpeg(arr, progressive=True),
+                       "CMYK": _jpeg(arr, "CMYK")}.items():
+        _assert_decodes_as_pillow(data)
         path = tmp_path / f"{what}.jpg"
         path.write_bytes(data)
-        with pytest.raises(ValueError, match=f"{what}.jpg.*{what}.*item 26"):
+        np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                      np.asarray(PIL.Image.open(path).convert("RGB")))
+    base = _jpeg(arr)
+    sof = base.index(b"\xff\xc0")
+    for what, data in {
+            "arithmetic-coded": base[:sof + 1] + b"\xc9" + base[sof + 2:],
+            "lossless": base[:sof + 1] + b"\xc3" + base[sof + 2:],
+            "hierarchical": base[:sof + 1] + b"\xc5" + base[sof + 2:],
+            "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:]}.items():
+        with pytest.raises(ValueError, match=f"{what}.*item 26"):
+            jpeg_decode_rgb(data)
+        path = tmp_path / "r.jpg"
+        path.write_bytes(data)
+        with pytest.raises(ValueError, match=f"r.jpg.*{what}.*item 26"):
             im.read_image_rgb(str(path))
     path = tmp_path / "x.webp"
     PIL.Image.fromarray(arr).save(path, "WEBP")

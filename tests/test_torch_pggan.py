@@ -18,8 +18,8 @@
   on the same towers: ``apply_alpha`` (images rtol/atol 2e-3,
   ``assert_images_close``'s CPU gate), one ``make_train_step`` step and
   one --trainEmbed step against the JAX step (host alphas): loss terms rtol
-  1e-4, the walk's update rtol 5e-2, atol 2e-6 (tests/test_torch_train.py's
-  gates);
+  1e-4, the walk's gradient and update through
+  tests/test_torch_train.py:assert_adam_moves_close;
 - the zoo loaded through --g_path (``formatLayer`` selects it), and the two
   builds the JAX package cannot run, refused with its error types: a
   labelled model_256 checkpoint (502 + 10 != 512) and a zoo G twice the
@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from helpers import assert_close, assert_images_close
+from test_torch_train import assert_adam_moves_close, jax_grad_capture
 
 from latent2im_tpu.config.options import TrainOptions as JTrainOptions
 from latent2im_tpu.engine import build as jbuild
@@ -263,11 +264,11 @@ def _step_pair(jed, jwalk0, ted, twalk, flags_embed=False):
     else:
         sampled, _ = task.train_alpha_np(np.random.RandomState(11), 2, 1)
         index = None
-    optimizer = jtrain.make_optimizer(1e-3)
+    optimizer = jax_grad_capture(jtrain.make_optimizer(1e-3))
     jwalk = jax.tree_util.tree_map(jnp.asarray, jwalk0)
     jstep = jtrain.make_train_step(jed, jtask, optimizer, host_alpha=True,
                                    train_embed=flags_embed)
-    jwalk, _, jm = jstep(jwalk, optimizer.init(jwalk), jnp.asarray(z), jax.random.PRNGKey(0),
+    jwalk, jstate, jm = jstep(jwalk, optimizer.init(jwalk), jnp.asarray(z), jax.random.PRNGKey(0),
                          sampled=jnp.asarray(sampled), index=index)
     step = T.make_train_step(ted, task, T.make_optimizer(twalk, 1e-3), host_alpha=True,
                              train_embed=flags_embed)
@@ -275,11 +276,13 @@ def _step_pair(jed, jwalk0, ted, twalk, flags_embed=False):
     for k in TERMS:
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, atol=1e-7, err_msg=k)
     moved_any = False
-    for a, w0, b in zip(walks.walk_leaves(twalk), jax.tree_util.tree_leaves(jwalk0),
-                        jax.tree_util.tree_leaves(jwalk)):
+    for a, w0, b, g in zip(walks.walk_leaves(twalk), jax.tree_util.tree_leaves(jwalk0),
+                           jax.tree_util.tree_leaves(jwalk),
+                           jax.tree_util.tree_leaves(jstate[0])):
         moved = a.detach().numpy() - w0
         moved_any |= bool(np.abs(moved).max() > 0)
-        np.testing.assert_allclose(moved, np.asarray(b) - w0, rtol=5e-2, atol=2e-6)
+        assert_adam_moves_close(moved, np.asarray(b) - w0, a.grad.numpy(), np.asarray(g),
+                                w0, 1e-3)
     assert moved_any
     return index, twalk, jwalk0
 

@@ -9,7 +9,9 @@ host-sampled alphas and the stored noise buffers. Tolerances: one step's
 loss terms rtol 1e-4 (f32 towers summed in another order); six steps
 against ``tests/fixtures/train_dynamics_tiny.npz`` with the tolerances of
 ``tests/test_train_dynamics.py:239-244`` (the raw BCE's log clamps amplify
-forward differences over steps).
+forward differences over steps). Walk moves go through
+``assert_adam_moves_close``: the gradient held to JAX's, the move held
+where the gradient decides its sign, Adam's bound elsewhere.
 """
 
 import os
@@ -20,6 +22,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from test_stylegan2_torch_oracle import CHANNELS, N_MLP, SIZE, STYLE_DIM
 from test_train_dynamics import (ATTR_IDX, ATTR_LIST, FIXTURE, LR, N_REG_OUT,
@@ -40,6 +43,70 @@ from latent2im_tpu_torch.models import vgg as vggm
 from latent2im_tpu_torch.tasks import transforms as tasks
 
 TERMS = ("loss", "reg_loss", "content_loss", "gan_loss")
+
+# The walk gradient of a step goes through every tower in f32; the port's and
+# the JAX step's differ by up to 2.8e-4 * max|g| (nn_w at OMP_NUM_THREADS=1,
+# 5e-6 elsewhere), as the loss terms differ at 1e-4: GRAD_ATOL (times
+# max|g|) holds them with margin. Below SIGN_FLOOR * max|g|, about ten times
+# the largest gap and just above GRAD_ATOL's sign resolution, a gradient
+# entry's sign, and so its first Adam move of about lr * sign(g), may follow
+# the order of the sums (the thread count).
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
+SIGN_FLOOR = 3e-3
+
+
+def jax_grad_capture(optimizer):
+    """``optimizer`` after a stage that keeps the gradient it is given as
+    its state: the JAX step's opt_state[0] is then its gradient."""
+    keep = optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda g, state, params=None: (g, g))
+    return optax.chain(keep, optimizer)
+
+
+def adam_move_bound(steps, lr, b1=0.5, b2=0.99):
+    """The most ``steps`` Adam steps (betas of T.make_optimizer, eps
+    ignored) can move one entry, whatever its gradients: Cauchy-Schwarz
+    bounds step t's |m_hat| / sqrt(v_hat) by (1 - b1) / (1 - b1^t) *
+    sqrt((1 - b2^t) / (1 - b2)) * sqrt(sum_k<t (b1^2 / b2)^k), which is 1 at
+    t = 1 and 1.053 at t = 2."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        geo = sum((b1 * b1 / b2) ** k for k in range(t))
+        total += (1 - b1) / (1 - b1 ** t) * np.sqrt((1 - b2 ** t) / (1 - b2) * geo)
+    return lr * total
+
+
+def assert_adam_moves_close(moved, want_moved, grad, want_grad, w0, lr, steps=1):
+    """Hold the port's Adam move of a walk tensor to the JAX one.
+
+    - grad (the port's gradient, None where there is none to hold) against
+      want_grad at GRAD_RTOL, GRAD_ATOL * max|want_grad|;
+    - where |want_grad| > SIGN_FLOOR * max|want_grad| the move at rtol 5e-2,
+      atol 2e-6 (Adam's first move is about lr * sign(g));
+    - elsewhere only Adam's bound: |move| <= adam_move_bound(steps, lr) *
+      (1 + 1e-6) (lr * (1 + 1e-6) for one step), plus the rounding of
+      w0 + move to f32 (half a unit in the last place of |w0| + the move,
+      once per step).
+    want_grad is the first step's gradient; over ``steps`` steps a first
+    sign carries on."""
+    moved, want_moved = np.asarray(moved, np.float64), np.asarray(want_moved, np.float64)
+    want_grad = np.asarray(want_grad, np.float64)
+    scale = float(np.abs(want_grad).max())
+    if grad is not None:
+        np.testing.assert_allclose(np.asarray(grad), want_grad, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * scale,
+                                   err_msg="gradient")
+    decided = np.abs(want_grad) > SIGN_FLOOR * scale
+    np.testing.assert_allclose(moved[decided], want_moved[decided], rtol=5e-2, atol=2e-6,
+                               err_msg="move where the gradient decides its sign")
+    w0 = np.abs(np.asarray(w0, np.float32))
+    reach = adam_move_bound(steps, lr)
+    bound = reach * (1 + 1e-6) + steps * 0.5 * np.spacing(w0 + np.float32(reach))
+    excess = np.abs(moved) - bound
+    assert np.all(excess[~decided] <= 0), (
+        f"an undecided entry moved {float(np.abs(moved[~decided]).max())}, past Adam's "
+        f"bound {reach} over {steps} steps")
 
 
 def _port_editor(tg, td, tr, tvgg):
@@ -62,12 +129,13 @@ def _port_run(n_steps):
     ed = _port_editor(tg, td, tr, tvgg)
     walk = {"w": torch.from_numpy(walk0.copy()).requires_grad_()}
     step = T.make_train_step(ed, None, T.make_optimizer(walk, LR), host_alpha=True)
-    metrics, traj = [], []
+    metrics, traj, grads = [], [], []
     for t in range(n_steps):
         m = step(walk, zs[t], sampled=alphas[t])
         metrics.append({k: float(v) for k, v in m.items()})
         traj.append(walk["w"].detach().numpy().copy())
-    return metrics, np.stack(traj), walk0
+        grads.append(walk["w"].grad.numpy().copy())
+    return metrics, np.stack(traj), walk0, grads
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +143,9 @@ def port_six_steps():
     return _port_run(N_STEPS)
 
 
-def _jax_first_step():
+@pytest.fixture(scope="module")
+def jax_first_step():
+    """The JAX step's metrics, walk after it and gradient."""
     tg, td, tr, tvgg, walk0, zs, alphas = _build_world()
     cfg = JEditorConfig(latent="w", walk_kind="linear_w", attr_list=ATTR_LIST,
                         attr_idx=ATTR_IDX, size=SIZE, dim_z=STYLE_DIM,
@@ -85,37 +155,39 @@ def _jax_first_step():
         tc.convert_resnet50(tr.state_dict()),
         vgg_params=tc.convert_vgg_features(tvgg.state_dict(), "vgg19"),
         d_params=tc.convert_stylegan2_discriminator(td.state_dict(), SIZE))
-    optimizer = jtrain.make_optimizer(LR)
+    optimizer = jax_grad_capture(jtrain.make_optimizer(LR))
     walk = {"w": jnp.asarray(walk0)}
     step = jtrain.make_train_step(editor, None, optimizer, host_alpha=True)
-    walk, _, metrics = step(walk, optimizer.init(walk), jnp.asarray(zs[0]),
-                            jax.random.PRNGKey(0), sampled=jnp.asarray(alphas[0]))
-    return {k: float(v) for k, v in metrics.items()}, np.asarray(walk["w"])
+    walk, state, metrics = step(walk, optimizer.init(walk), jnp.asarray(zs[0]),
+                                jax.random.PRNGKey(0), sampled=jnp.asarray(alphas[0]))
+    return ({k: float(v) for k, v in metrics.items()}, np.asarray(walk["w"]),
+            np.asarray(state[0]["w"]))
 
 
-def test_one_step_matches_the_jax_step(port_six_steps):
-    metrics, traj, walk0 = port_six_steps
-    want, want_w = _jax_first_step()
+def test_one_step_matches_the_jax_step(port_six_steps, jax_first_step):
+    metrics, traj, walk0, grads = port_six_steps
+    want, want_w, want_g = jax_first_step
     for k in TERMS:
         np.testing.assert_allclose(metrics[0][k], want[k], rtol=1e-4, err_msg=k)
     np.testing.assert_allclose(metrics[0]["alpha_target_mean"],
                                want["alpha_target_mean"], rtol=1e-6)
-    np.testing.assert_allclose(traj[0] - walk0, want_w - walk0, rtol=5e-2, atol=2e-6)
+    assert_adam_moves_close(traj[0] - walk0, want_w - walk0, grads[0], want_g, walk0, LR)
 
 
-def test_six_steps_reproduce_the_dynamics_fixture(port_six_steps):
+def test_six_steps_reproduce_the_dynamics_fixture(port_six_steps, jax_first_step):
     if not os.path.exists(FIXTURE):
         pytest.skip("committed fixture missing (python tests/test_train_dynamics.py)")
     fix = np.load(FIXTURE)
-    metrics, traj, walk0 = port_six_steps
+    metrics, traj, walk0, _ = port_six_steps
     np.testing.assert_allclose([m["loss"] for m in metrics], fix["losses"], rtol=5e-3)
-    np.testing.assert_allclose(traj - walk0[None], fix["walk_traj"] - walk0[None],
-                               rtol=5e-2, atol=2e-6)
+    for t in range(N_STEPS):  # a first step's undecided sign carries on
+        assert_adam_moves_close(traj[t] - walk0, fix["walk_traj"][t] - walk0, None,
+                                jax_first_step[2], walk0, LR, steps=t + 1)
 
 
 def test_step_on_cpu_counts_no_kernel_launch_and_leaves_the_walk_grad():
     ops.reset_launches()
-    metrics, _, _ = _port_run(1)
+    metrics, _, _, _ = _port_run(1)
     assert all(np.isfinite(metrics[0][k]) for k in TERMS)
     assert set(ops.launch_counts().values()) == {0}
 

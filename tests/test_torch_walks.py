@@ -7,9 +7,10 @@
   summed in another order);
 - one ``make_train_step`` step of each against the JAX step on the towers
   of tests/test_train_dynamics.py (host alphas, stored noise): loss terms
-  rtol 1e-4 and the walk's update as tests/test_torch_train.py holds
-  ``linear_w``'s (rtol 5e-2, atol 2e-6: Adam's first update is about
-  lr * sign(grad), so a near-zero gradient entry decides its own sign);
+  rtol 1e-4, the walk's gradient and update through
+  tests/test_torch_train.py:assert_adam_moves_close (Adam's first update
+  is about lr * sign(grad), so only a gradient above f32 summation noise
+  decides the update's sign);
 - the checkpoints: a JAX-written msgpack walk + optax.adam state loads bit
   for bit and the port's file is the same bytes; the reference's pickled
   modules cross both ways;
@@ -27,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from test_stylegan2_torch_oracle import SIZE, STYLE_DIM
-from test_torch_train import TERMS, _port_editor
+from test_torch_train import TERMS, _port_editor, assert_adam_moves_close, jax_grad_capture
 from test_train_dynamics import ATTR_IDX, ATTR_LIST, LR, N_MLP, _build_world
 
 from latent2im_tpu.engine import train as jtrain
@@ -114,13 +115,13 @@ def _jax_step(world, kind, walk0):
         jtc.convert_resnet50(tr.state_dict()),
         vgg_params=jtc.convert_vgg_features(tvgg.state_dict(), "vgg19"),
         d_params=jtc.convert_stylegan2_discriminator(td.state_dict(), SIZE))
-    optimizer = jtrain.make_optimizer(LR)
+    optimizer = jax_grad_capture(jtrain.make_optimizer(LR))
     walk = jax.tree_util.tree_map(jnp.asarray, walk0)
     step = jtrain.make_train_step(editor, None, optimizer, host_alpha=True)
-    walk, _, metrics = step(walk, optimizer.init(walk), jnp.asarray(zs[0]),
-                            jax.random.PRNGKey(0), sampled=jnp.asarray(alphas[0]))
+    walk, state, metrics = step(walk, optimizer.init(walk), jnp.asarray(zs[0]),
+                                jax.random.PRNGKey(0), sampled=jnp.asarray(alphas[0]))
     return ({k: float(v) for k, v in metrics.items()},
-            jax.tree_util.tree_map(np.asarray, walk))
+            jax.tree_util.tree_map(np.asarray, walk), jax.tree_util.tree_map(np.asarray, state[0]))
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -128,7 +129,7 @@ def test_one_training_step_matches_the_jax_step(world, kind):
     tg, td, tr, tvgg, _, zs, alphas = world
     n_layers = 2 * int(np.log2(SIZE)) - 2
     walk0 = _jax_walk(kind, dim=STYLE_DIM, n_layers=n_layers, seed=3)
-    want, want_walk = _jax_step(world, kind, walk0)
+    want, want_walk, want_grad = _jax_step(world, kind, walk0)
 
     ed = _port_editor(tg, td, tr, tvgg)
     ed.cfg = type(ed.cfg)(**{**ed.cfg.__dict__, "walk_kind": kind})
@@ -139,11 +140,13 @@ def test_one_training_step_matches_the_jax_step(world, kind):
         np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-4, err_msg=k)
     got = walks.walk_leaves(walk)
     assert all(t.grad is not None for t in got)
-    for a, w0, b in zip(got, walks.walk_leaves(walk_from_jax(walk0)),
-                        walks.walk_leaves(walk_from_jax(want_walk))):
+    for a, w0, b, g in zip(got, walks.walk_leaves(walk_from_jax(walk0)),
+                           walks.walk_leaves(walk_from_jax(want_walk)),
+                           walks.walk_leaves(walk_from_jax(want_grad))):
         moved = a.detach().numpy() - w0.numpy()
         assert np.abs(moved).max() > 0
-        np.testing.assert_allclose(moved, b.numpy() - w0.numpy(), rtol=5e-2, atol=2e-6)
+        assert_adam_moves_close(moved, b.numpy() - w0.numpy(), a.grad.numpy(), g.numpy(),
+                                w0.numpy(), LR)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -12,8 +12,8 @@ package, on the CPU:
   towers of tests/test_train_dynamics.py: ``apply_alpha`` and ``sweep``
   (images rtol/atol 2e-3, ``assert_images_close``'s CPU gate) and one
   ``make_train_step`` step against the JAX step (host alphas, stored
-  noise): loss terms rtol 1e-4 and the walk's update rtol 5e-2, atol 2e-6
-  (tests/test_torch_train.py's gates for ``linear_w``);
+  noise): loss terms rtol 1e-4, the walk's gradient and update through
+  tests/test_torch_train.py:assert_adam_moves_close;
 - the alpha-driven paths refuse the ``embed`` walk, and the combine paths a
   z editor, with the JAX package's error type.
 """
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 
 from helpers import assert_images_close
 from test_stylegan2_torch_oracle import SIZE, STYLE_DIM
-from test_torch_train import TERMS, _port_editor
+from test_torch_train import TERMS, _port_editor, assert_adam_moves_close, jax_grad_capture
 from test_train_dynamics import ATTR_IDX, ATTR_LIST, LR, N_MLP, _build_world
 
 from latent2im_tpu.engine import train as jtrain
@@ -179,10 +179,10 @@ def test_z_apply_alpha_and_sweep_match_jax(z_world):
 
 def test_z_training_step_matches_the_jax_step(z_world):
     jed, ted, walk0, zs, alphas = z_world
-    optimizer = jtrain.make_optimizer(LR)
+    optimizer = jax_grad_capture(jtrain.make_optimizer(LR))
     jwalk = jax.tree_util.tree_map(jnp.asarray, walk0)
     jstep = jtrain.make_train_step(jed, None, optimizer, host_alpha=True)
-    jwalk, _, jm = jstep(jwalk, optimizer.init(jwalk), jnp.asarray(zs[0]),
+    jwalk, jstate, jm = jstep(jwalk, optimizer.init(jwalk), jnp.asarray(zs[0]),
                          jax.random.PRNGKey(0), sampled=jnp.asarray(alphas[0]))
     want = {k: float(v) for k, v in jm.items()}
 
@@ -191,11 +191,13 @@ def test_z_training_step_matches_the_jax_step(z_world):
     m = step(walk, zs[0], sampled=alphas[0])
     for k in TERMS:
         np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-4, err_msg=k)
-    for a, w0, b in zip(walks.walk_leaves(walk), walks.walk_leaves(walk_from_jax(walk0)),
-                        jax.tree_util.tree_leaves(jwalk)):
+    for a, w0, b, g in zip(walks.walk_leaves(walk), walks.walk_leaves(walk_from_jax(walk0)),
+                           jax.tree_util.tree_leaves(jwalk),
+                           jax.tree_util.tree_leaves(jstate[0])):
         moved = a.detach().numpy() - w0.numpy()
         assert np.abs(moved).max() > 0
-        np.testing.assert_allclose(moved, np.asarray(b) - w0.numpy(), rtol=5e-2, atol=2e-6)
+        assert_adam_moves_close(moved, np.asarray(b) - w0.numpy(), a.grad.numpy(),
+                                np.asarray(g), w0.numpy(), LR)
 
 
 def test_alpha_driven_paths_refuse_the_embed_walk(z_world):
