@@ -17,8 +17,9 @@ trainer, its loader, StyleGAN1 and compat (39-42), data and spatial
 parallelism over torch.distributed (43-46), and tensor parallelism with the
 styled conv split at its all-reduce, --updateGAN under a mesh and sp of
 PGGAN and StyleGAN1 (47-50), the geometric tasks' host targets
-(--host_targets, 51) and progressive, CMYK and YCCK JPEG (52). Phases (a
-failed phase raises, and the script exits non-zero):
+(--host_targets, 51), progressive, CMYK and YCCK JPEG (52) and WEBP,
+arithmetic-coded JPEG, 16-bit and Adam7 PNG (53). Phases (a failed phase
+raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -257,7 +258,14 @@ failed phase raises, and the script exits non-zero):
      C++, each equal to its recorded Pillow decode, decode ms per photo of
      both; the regressor loader's batches of them (C equal to Python);
      `python -m latent2im_tpu_torch.cli.bp` on the 256 px progressive photo
-     (path "bp_progressive").
+     (path "bp_progressive");
+ 53. the fixtures of tests/fixtures/torch_image_kinds/ (WEBP lossless,
+     lossy, with alpha and animated, and JPEG, arithmetic-coded, lossless
+     and block-smoothed progressive, in Python and in the host C++; 16-bit
+     and Adam7 PNG),
+     each equal to its recorded Pillow decode, decode ms per photo on each
+     route; `python -m latent2im_tpu_torch.cli.bp` on a folder of a 256 px
+     lossy WEBP, an animated WEBP and a 16-bit PNG (path "bp_image_kinds").
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 512 px training step (B=8) under cuDNN's default and deterministic
 algorithms. The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU
@@ -5892,6 +5900,97 @@ def _jpeg_progressive_phase(dev, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 53: WEBP, arithmetic-coded JPEG, 16-bit and Adam7 PNG
+# ---------------------------------------------------------------------------
+
+KINDS_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_image_kinds")
+KINDS_BP_PHOTOS = ("webp_lossy_256.webp", "webp_anim_40x56.webp", "png16_256.png")
+
+
+def image_kinds_phase(dev):
+    """Phase 53: every fixture of tests/fixtures/torch_image_kinds/ decoded
+    by ``read_image_rgb`` in Python, and the WEBPs and the JPEGs (arithmetic-
+    coded, lossless, block-smoothed progressive) also by the host C++
+    (``native=True``), each equal to its recorded Pillow decode
+    (the 256 px photos by their SHA-256); decode ms per photo on each route
+    (median of 3); ``python -m latent2im_tpu_torch.cli.bp`` on a folder of
+    the 256 px lossy WEBP, the animated WEBP and the 256 px 16-bit PNG
+    (counted)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _image_kinds_phase(dev, root)
+
+
+def _image_kinds_phase(dev, root):
+    import hashlib
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch import ops
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    with open(os.path.join(KINDS_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(KINDS_FIXTURES, "decodes.npz"))
+    files = sorted(f for f in os.listdir(KINDS_FIXTURES) if f.endswith((".webp", ".jpg", ".png")))
+    assert sorted(os.path.splitext(f)[0] for f in files) == sorted(
+        k for k in meta if k != "pillow") and len(files) == 29, files
+    out = {"decode_ms": {}}
+    for name in files:
+        key = os.path.splitext(name)[0]
+        path = os.path.join(KINDS_FIXTURES, name)
+        routes = (False, True) if name.endswith((".jpg", ".webp")) else (False,)
+        for native in routes:
+            got = imgmod.read_image_rgb(path, native=native)
+            ok = (list(got.shape) == meta[key]["shape"]
+                  and hashlib.sha256(got.tobytes()).hexdigest() == meta[key]["sha256"]
+                  and (key not in npz.files or np.array_equal(got, npz[key])))
+            if not ok:
+                raise AssertionError(f"{name} (native={native}) does not decode to its "
+                                     "Pillow decode")
+        out["decode_ms"][key] = {
+            ("c" if native else "python"): _median_ms(
+                lambda native=native: imgmod.read_image_rgb(path, native=native))
+            for native in routes}
+    log(f"    {len(files)} fixtures equal to their Pillow decodes (WEBP and JPEG in Python "
+        f"and C++); decode ms per photo: {json.dumps(out['decode_ms'])}")
+
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir)
+    for name in KINDS_BP_PHOTOS:
+        shutil.copy(os.path.join(KINDS_FIXTURES, name), img_dir)
+    save_dir = os.path.join(root, "bp")
+    saved_argv = sys.argv
+    sys.argv = ["bp", "--img_dir", img_dir, "--save_dir", save_dir, "--resolution", str(SIZE),
+                "--n_loops", str(JPEG_BP_LOOPS), "--show_freq", "5",
+                "--batch_size", str(len(KINDS_BP_PHOTOS))]
+    t0 = time.perf_counter()
+    try:
+        ops.reset_launches()
+        runpy.run_module("latent2im_tpu_torch.cli.bp", run_name="__main__")
+        torch.cuda.synchronize()
+        out["launches"] = {"bp_image_kinds": ops.launch_counts()}
+    finally:
+        sys.argv = saved_argv
+    out["bp_seconds"] = time.perf_counter() - t0
+    assert all(out["launches"]["bp_image_kinds"][k] > 0 for k in SOURCE), out["launches"]
+    w = np.load(os.path.join(save_dir, "latent", "0_w.npy"))
+    curve = np.load(os.path.join(save_dir, "0_loss.npy"))
+    assert w.shape == (len(KINDS_BP_PHOTOS), 2 * int(math.log2(SIZE)) - 2, 512), w.shape
+    assert np.isfinite(w).all()
+    assert curve.shape == (JPEG_BP_LOOPS,) and np.isfinite(curve).all(), curve
+    out["bp_loss"] = (float(curve[0]), float(curve[-1]))
+    log(f"    bp on {', '.join(KINDS_BP_PHOTOS)}: {out['bp_seconds']:.1f} s, loss (first, "
+        f"last) {out['bp_loss']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6015,6 +6114,9 @@ def _run(refs) -> int:
     log("[52] progressive, CMYK and YCCK JPEG: the fixtures in Python and C++ against their "
         "Pillow decodes, the regressor loader on them, bp on a progressive photo")
     jprog = timed("52", jpeg_progressive_phase, dev)
+    log("[53] WEBP, arithmetic JPEG, 16-bit and Adam7 PNG: the fixtures against their "
+        "Pillow decodes, bp on a WEBP, an animated WEBP and a 16-bit PNG")
+    kinds = timed("53", image_kinds_phase, dev)
     log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
@@ -6030,7 +6132,8 @@ def _run(refs) -> int:
                    **{k: v[n] for k, v in par["launches"].items()},
                    **{k: v[n] for k, v in tp["launches"].items()},
                    **{k: v[n] for k, v in hp["launches"].items()},
-                   **{k: v[n] for k, v in jprog["launches"].items()}}
+                   **{k: v[n] for k, v in jprog["launches"].items()},
+                   **{k: v[n] for k, v in kinds["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -6102,6 +6205,7 @@ def _run(refs) -> int:
               "tp": {k: v for k, v in tp.items() if k not in ("launches", "launches_bf16")},
               "host_targets": {k: v for k, v in hp.items() if k != "launches"},
               "jpeg_progressive": {k: v for k, v in jprog.items() if k != "launches"},
+              "image_kinds": {k: v for k, v in kinds.items() if k != "launches"},
               "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -9,9 +9,9 @@ Inverts each batch of images into W+ (starting at the mean latent) and
 writes ``org_{bi}.png``, ``{bi}_iterations_{loop}.png`` every --show_freq
 loops, ``{bi}_final.png``, ``latent/{bi}_w.npy`` (the W+ that ``vis_w
 --latents_dir`` edits) and the loss curve ``{bi}_loss.npy``. Images are
-read without Pillow (``utils/image.py:read_image_rgb``: PNG and baseline
-JPEG, as Pillow decodes them; WEBP raises), centre cropped to a square and
-resized with Pillow's LANCZOS. Runs on the card
+read without Pillow (``utils/image.py:read_image_rgb``: PNG, JPEG and WEBP
+as Pillow decodes them; hierarchical and 12-bit JPEG raise), centre
+cropped to a square and resized with Pillow's LANCZOS. Runs on the card
 (``device`` cuda unless the caller asks for the CPU).
 """
 

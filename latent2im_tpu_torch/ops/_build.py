@@ -76,6 +76,11 @@ SIGNATURES = {
     "l2i_jpeg_dims": (_P, _LL, _P),
     # data, n, out, out_bytes, long long[2] info -> 0 or an error code
     "l2i_jpeg_decode": (_P, _LL, _P, _LL, _P),
+    # utils/webp.py's decoder (webp_decode.cpp): data, n, int[2] {height,
+    # width} -> 0 or an error code
+    "l2i_webp_dims": (_P, _LL, _P),
+    # data, n, out, out_bytes, long long[2] info -> 0 or an error code
+    "l2i_webp_decode": (_P, _LL, _P, _LL, _P),
     # in, row, h, w, c, idx_w, k_w, ks_w, out_w, idx_h, k_h, ks_h, out_h,
     # bits, out
     "l2i_resize": (_P, _LL) + (_I,) * 3 + (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P),

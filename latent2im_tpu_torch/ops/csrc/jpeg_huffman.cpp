@@ -9,6 +9,10 @@
 //                                sequential scan through the interval decode
 //                                above, each progressive one through
 //                                progressive_interval (_progressive_interval),
+//                                each arithmetic-coded one through
+//                                arith_interval (_arith_interval), each
+//                                lossless one through lossless_scan
+//                                (_decode_lossless_scan, _undifference),
 //                                _idct_islow, _upsample, _ycc_to_rgb,
 //                                _ycck_to_cmyk and _cmyk_to_rgb
 //
@@ -39,13 +43,21 @@ enum Err {
   E_UNDEF_QUANT = -29, E_BAD_HUFF_TABLE = -30, E_SPECTRAL = -31,
   E_FEW_INTERVALS = -32, E_INVALID_CODE = -33, E_SCAN_TRUNC = -34,
   E_COEF_PAST = -35, E_NO_SCAN = -36, E_OUT_SIZE = -37, E_NOMEM = -38,
-  E_BAD_PROGRESSION = -39, E_PROG_NO_EOI = -40, E_SMOOTHING = -41,
+  E_BAD_PROGRESSION = -39, E_PROG_NO_EOI = -40,
+  E_BAD_DAC = -42, E_PILLOW_BLOCK = -43, E_MARKER = -44, E_BAD_DRI = -45, E_BOMB = -46,
+  E_BAD_LOSSLESS = -47, E_BAD_RESTART = -48, E_LOSSLESS_YCC = -49, E_LOSSLESS_YCCK = -50,
+  E_LOSSLESS_NO_EOI = -51,
 };
+// utils/jpeg.py:PILLOW_MAX_PIXELS, Pillow's DecompressionBombError limit
+constexpr long long kPillowMaxPixels = 2LL * (1024 * 1024 * 1024 / 4 / 3);
 
 // the JPEG EXTEND of `size` value bits
 inline int64_t extend(int64_t bits, int size) {
   return bits < (int64_t(1) << (size - 1)) ? bits - (int64_t(1) << size) + 1 : bits;
 }
+
+// zigzag position -> natural (row-major) index (utils/jpeg.py:_ZIGZAG)
+const int kZigzagNatural[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 
 // natural (row-major) index -> zigzag position (utils/jpeg.py:_UNZIGZAG)
 const int kUnzigzag[64] = {
@@ -212,6 +224,24 @@ const int* sym_rows(const HuffTable& t, bool dc) {
   if (hit != lut_cache.end()) return hit->second.data();
   std::vector<int> length, symbol;
   if (!code_windows(t, dc, length, symbol)) return nullptr;
+  std::vector<int> rows(size_t(1 << 16) * 2);
+  for (int w = 0; w < (1 << 16); ++w) {
+    rows[2 * w] = length[w];
+    rows[2 * w + 1] = symbol[w];
+  }
+  return lut_cache.emplace(key, std::move(rows)).first->second.data();
+}
+
+// A lossless scan's table (utils/jpeg.py:_diff_lut): (code length,
+// category) for every 16-bit window [65536][2]; categories run to 16.
+const int* diff_rows(const HuffTable& t) {
+  for (uint8_t sym : t.symbols)
+    if (sym > 16) return nullptr;
+  const std::string key = table_key('L', t);
+  auto hit = lut_cache.find(key);
+  if (hit != lut_cache.end()) return hit->second.data();
+  std::vector<int> length, symbol;
+  if (!code_windows(t, false, length, symbol)) return nullptr;
   std::vector<int> rows(size_t(1 << 16) * 2);
   for (int w = 0; w < (1 << 16); ++w) {
     rows[2 * w] = length[w];
@@ -523,8 +553,11 @@ void ycc_rgb(uint8_t* px, long long n) {
 
 struct Frame {
   int height = 0, width = 0, n = 0, hmax = 0, vmax = 0, mcux = 0, mcuy = 0;
-  bool progressive = false;
-  int coef_bits[4][64];  // progressive: each coefficient's Al so far, -1 unscanned
+  bool progressive = false, arith = false, lossless = false;
+  int unit = 8, per = 64;  // a data unit: an 8 x 8 block, or one lossless sample
+  int coef_bits[4][64];
+  std::vector<std::vector<int32_t>> samples;  // lossless: each component's values
+  int pt[4] = {0, 0, 0, 0};  // progressive: each coefficient's Al so far, -1 unscanned
   std::vector<int> ids, h, v, tq, bw, bh;
   std::vector<long long> offset;  // in coefficients
   std::vector<bool> scanned;
@@ -540,6 +573,11 @@ struct Frame {
 
 inline int be16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
 
+// an SOS segment's length and components as libjpeg checks them: at most
+// 4 components, each named once, and no byte more or less
+struct Frame;
+bool valid_sos(const Frame& fr, const uint8_t* body, long long blen, int ns);
+
 int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info) {
   if (blen < 6) return E_SHORT_SOF;
   const int precision = body[0];
@@ -549,7 +587,7 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   if (precision != 8) return info[0] = precision, E_PRECISION;
   if (fr.n != 1 && fr.n != 3 && fr.n != 4) return info[0] = fr.n, E_NCOMP;
   if (fr.height == 0) return E_DNL;
-  if (fr.width == 0 || blen < 6 + 3 * fr.n) return E_BAD_SOF;
+  if (fr.width == 0 || blen != 6 + 3 * fr.n) return E_BAD_SOF;
   for (int i = 0; i < fr.n; ++i) {
     const uint8_t* c = body + 6 + 3 * i;
     if (!(1 <= (c[1] >> 4) && (c[1] >> 4) <= 4 && 1 <= (c[1] & 15) && (c[1] & 15) <= 4))
@@ -566,19 +604,30 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   }
   for (int i = 0; i < fr.n; ++i)
     if (fr.hmax % fr.h[i] || fr.vmax % fr.v[i]) return E_FRACTIONAL;
-  fr.mcux = (fr.width + 8 * fr.hmax - 1) / (8 * fr.hmax);
-  fr.mcuy = (fr.height + 8 * fr.vmax - 1) / (8 * fr.vmax);
+  if (static_cast<long long>(fr.width) * fr.height > kPillowMaxPixels)
+    return info[0] = (static_cast<long long>(fr.height) << 16) | fr.width, E_BOMB;
+  fr.mcux = (fr.width + fr.unit * fr.hmax - 1) / (fr.unit * fr.hmax);
+  fr.mcuy = (fr.height + fr.unit * fr.vmax - 1) / (fr.unit * fr.vmax);
   fr.offset.assign(1, 0);
   for (int i = 0; i < fr.n; ++i) {
     fr.bw.push_back(fr.mcux * fr.h[i]);
     fr.bh.push_back(fr.mcuy * fr.v[i]);
-    fr.offset.push_back(fr.offset.back() + static_cast<long long>(fr.bw[i]) * fr.bh[i] * 64);
+    fr.offset.push_back(fr.offset.back() + static_cast<long long>(fr.bw[i]) * fr.bh[i] * fr.per);
   }
+  fr.samples.assign(fr.n, {});
   fr.scanned.assign(fr.n, false);
   fr.quant.assign(fr.n, {});
   for (auto& bits : fr.coef_bits)
     for (int& b : bits) b = -1;
   return 0;
+}
+
+bool valid_sos(const Frame& fr, const uint8_t* body, long long blen, int ns) {
+  if (ns < 1 || ns > fr.n || blen != 4 + 2 * ns) return false;
+  for (int i = 0; i < ns; ++i)
+    for (int j = 0; j < i; ++j)
+      if (body[1 + 2 * i] == body[1 + 2 * j]) return false;
+  return true;
 }
 
 struct Scratch {  // per thread, reused from photo to photo
@@ -597,10 +646,10 @@ long long scan_blocks(const Frame& fr, const std::vector<int>& comps, Scratch& s
   const int ns = static_cast<int>(comps.size());
   if (ns == 1) {  // non-interleaved: the component's own block raster
     const int c = comps[0];
-    const int nby = (fr.dh(c) + 7) / 8, nbx = (fr.dw(c) + 7) / 8;
+    const int nby = (fr.dh(c) + fr.unit - 1) / fr.unit, nbx = (fr.dw(c) + fr.unit - 1) / fr.unit;
     for (int by = 0; by < nby; ++by)
       for (int bx = 0; bx < nbx; ++bx) {
-        s.blk.push_back(fr.offset[c] / 64 + static_cast<long long>(by) * fr.bw[c] + bx);
+        s.blk.push_back(fr.offset[c] / fr.per + static_cast<long long>(by) * fr.bw[c] + bx);
         s.sel.push_back(0);
       }
     return 1;
@@ -613,7 +662,7 @@ long long scan_blocks(const Frame& fr, const std::vector<int>& comps, Scratch& s
         const int c = comps[i];
         for (int yy = 0; yy < fr.v[c]; ++yy)
           for (int xx = 0; xx < fr.h[c]; ++xx) {
-            s.blk.push_back(fr.offset[c] / 64 +
+            s.blk.push_back(fr.offset[c] / fr.per +
                             (static_cast<long long>(my) * fr.v[c] + yy) * fr.bw[c] +
                             static_cast<long long>(mx) * fr.h[c] + xx);
             s.sel.push_back(i);
@@ -667,7 +716,7 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
                 const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart,
                 Scratch& s, long long* end_out, long long* info) {
   const int ns = blen ? body[0] : 0;
-  if (ns < 1 || ns > fr.n || blen < 4 + 2 * ns) return E_BAD_SOS;  // n <= 4
+  if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
   std::vector<int> comps;
   std::vector<const int*> dcls, acls;
   for (int i = 0; i < ns; ++i) {
@@ -738,7 +787,7 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
                             const bool* qt_def, const HuffTable* dc_tabs, const HuffTable* ac_tabs,
                             int restart, Scratch& s, long long* end_out, long long* info) {
   const int ns = blen ? body[0] : 0;
-  if (ns < 1 || ns > fr.n || blen < 4 + 2 * ns) return E_BAD_SOS;  // n <= 4
+  if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
   const uint8_t* sa = body + 1 + 2 * ns;
   const int ss = sa[0], se = sa[1], ah = sa[2] >> 4, al = sa[2] & 15;
   // jdphuff.c start_pass_phuff_decoder's checks
@@ -793,16 +842,529 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
 
 // jdcoefct.c:smoothing_ok once every scan is in (utils/jpeg.py:_smoothed)
 bool smoothed(const Frame& fr) {
-  static const int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
   bool useful = false;
   for (int c = 0; c < fr.n; ++c) {
     if (fr.quant[c].empty()) return false;
-    for (int i : kQ)
+    for (int i : kZigzagNatural)
       if (fr.quant[c][i] == 0) return false;
     if (fr.coef_bits[c][0] < 0) return false;
     for (int k = 1; k < 10; ++k) useful |= fr.coef_bits[c][k] != 0;
   }
   return useful;
+}
+
+// utils/jpeg.py:_SMOOTH_AC and _SMOOTH_DC: jdcoefct.c decompress_smooth_data's
+// estimates: zigzag position (also the coef_bits index), whether it is made
+// without DC interpolation, and the 5 x 5 DC weights without and with it
+struct SmoothAC {
+  int zz;
+  bool plain_used;
+  int plain[25], interp[25];
+};
+const SmoothAC kSmoothAC[9] = {
+    {1, true, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1}},
+    {2, true, {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0}, {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1}},
+    {3, true, {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0}, {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0}},
+    {4, true, {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0}, {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1}},
+    {5, true, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0}},
+    {6, false, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {7, false, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0}},
+    {8, false, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}},
+    {9, false, {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}, {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}},
+};
+const int kSmoothDC[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6, -2, -6, -8, -6, -2};
+
+inline int16_t w16s(int64_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v & 0xFFFF)); }
+
+// utils/jpeg.py:_smooth_rows and _smooth, in place on s.coef (the DC values
+// read are the coded ones, kept in a copy first)
+void smooth(const Frame& fr, std::vector<int16_t>& coef) {
+  for (int c = 0; c < fr.n; ++c) {
+    const int* bits = fr.coef_bits[c];
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const std::vector<int64_t>& q = fr.quant[c];
+    const int bw = fr.bw[c], bh = fr.bh[c];
+    int16_t* grid = coef.data() + fr.offset[c];
+    std::vector<int64_t> dcv(static_cast<size_t>(bw) * bh);
+    for (long long b = 0; b < static_cast<long long>(bw) * bh; ++b) dcv[b] = grid[b * 64];
+    const int cols = (fr.dw(c) + 7) / 8, height = (fr.dh(c) + 7) / 8;
+    const int v = fr.v[c], total = fr.mcuy;
+    for (int i = 0; i < total; ++i) {
+      const int rows = i < total - 1 ? v : (height % v ? height % v : v);
+      const int count = rows * total;
+      for (int b = 0; b < rows; ++b) {
+        const int at = i * rows + b, row = i * v + b;
+        const int up = at > 0 ? row - 1 : row, up2 = at > 1 ? row - 2 : up;
+        const int down = at < count - 1 ? row + 1 : row, down2 = at < count - 2 ? row + 2 : down;
+        const int r5[5] = {up2, up, row, down, down2};
+        for (int x = 0; x < cols; ++x) {
+          int64_t dc[25];
+          for (int rr = 0; rr < 5; ++rr)
+            for (int cc = 0; cc < 5; ++cc) {
+              int xc = x + cc - 2;
+              xc = xc < 0 ? 0 : xc > cols - 1 ? cols - 1 : xc;
+              dc[5 * rr + cc] = dcv[static_cast<long long>(r5[rr]) * bw + xc];
+            }
+          int16_t* blk = grid + (static_cast<long long>(row) * bw + x) * 64;
+          int16_t upd[10];
+          bool set[10] = {false};
+          for (const SmoothAC& e : kSmoothAC) {
+            const int al = bits[e.zz];
+            const int* wts = change_dc ? e.interp : (e.plain_used ? e.plain : nullptr);
+            if (al == 0 || !wts || blk[e.zz] != 0) continue;
+            int64_t sum = 0;
+            for (int k = 0; k < 25; ++k) sum += wts[k] * dc[k];
+            const int64_t qk = q[kZigzagNatural[e.zz]], num = q[0] * sum;
+            int64_t mag = ((qk << 7) + (num < 0 ? -num : num)) / (qk << 8);
+            if (al > 0 && mag > (int64_t(1) << al) - 1) mag = (int64_t(1) << al) - 1;
+            upd[e.zz] = w16s(num >= 0 ? mag : -mag);
+            set[e.zz] = true;
+          }
+          if (change_dc) {
+            int64_t sum = 0;
+            for (int k = 0; k < 25; ++k) sum += kSmoothDC[k] * dc[k];
+            const int64_t num = q[0] * sum;
+            const int64_t mag = ((q[0] << 7) + (num < 0 ? -num : num)) / (q[0] << 8);
+            upd[0] = w16s(num >= 0 ? mag : -mag);
+            set[0] = true;
+          }
+          for (int k = 0; k < 10; ++k)
+            if (set[k]) blk[k] = upd[k];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// arithmetic-coded scans (utils/jpeg.py:_ArithBits, _arith_dc,
+// _arith_ac_value, _arith_interval, _decode_arith_scan; libjpeg's jdarith.c)
+// ---------------------------------------------------------------------------
+
+// jaricom.c's jpeg_aritab (utils/jpeg.py:ARITAB): Qe << 16 | Next_Index_MPS
+// << 8 | Switch_MPS << 7 | Next_Index_LPS; state 113 is the fixed bin
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719, 0x6f081c,
+    0x36091e, 0x1a0a21, 0x0d0b23, 0x060c09, 0x030d0a, 0x010d0c, 0x5a7f0f8f, 0x3f251024,
+    0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0xcef152b, 0x9a1162d, 0x72f172e, 0x55c1830,
+    0x4061931, 0x3031a33, 0x2401b34, 0x1b11c36, 0x1441d38, 0xf51e39, 0xb71f3b, 0x8a203c,
+    0x68213e, 0x4e223f, 0x3b2320, 0x2c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843,
+    0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b, 0x9f8304d,
+    0x861314e, 0x706324f, 0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835,
+    0x1f83936, 0x1a43a37, 0x1603b38, 0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d, 0x8f203d,
+    0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0xf6b4d4a, 0xd514e4b, 0xbb64f4d, 0xa40304d,
+    0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756,
+    0x557059d8, 0x4ca95a5f, 0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b,
+    0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+};
+constexpr long long kPillowBlock = 65536;  // utils/jpeg.py:PILLOW_BLOCK
+
+// jdarith.c's decoder over one restart interval's stuffed bytes
+// data[p, end): past `end` a marker supplies zeros; with no marker after it
+// (eof) a read past it fails, and so does one at or past `limit` (Pillow's
+// reads). err holds the failure; ct -1 is libjpeg's error state.
+struct ArithBits {
+  const uint8_t* data;
+  long long p, end, limit;
+  bool eof;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool marker = false;
+  int err = 0;
+  int byte() {
+    if (marker || err) return 0;
+    if (p < end && data[p] != 0xFF) {
+      if (p >= limit) return err = E_PILLOW_BLOCK, 0;
+      return data[p++];
+    }
+    long long q = p;
+    while (q < end && data[q] == 0xFF) ++q;  // fill bytes
+    if (q >= end && eof) return err = E_SCAN_TRUNC, 0;
+    if ((q < end ? q : end + 1) >= limit) return err = E_PILLOW_BLOCK, 0;
+    if (q < end && data[q] == 0) {
+      p = q + 1;
+      return 0xFF;
+    }
+    p = q;
+    marker = true;
+    return 0;
+  }
+  int bit(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint32_t e = kAritab[sv & 0x7F];
+    const int64_t qe = e >> 16;
+    const int nm = (e >> 8) & 0xFF, nl = e & 0xFF;
+    a -= qe;
+    const int64_t temp = a << ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// F.19-F.24 for one DC difference from bin S0 = st[ctx] -> false at a
+// magnitude overflow; *v the difference, *next the next context.
+bool arith_dc(ArithBits& rd, uint8_t* st, int ctx, int lo, int hi, int* v, int* next) {
+  if (!rd.bit(st + ctx)) {
+    *v = 0;
+    *next = 0;
+    return true;
+  }
+  const int sign = rd.bit(st + ctx + 1);
+  int i = ctx + 2 + sign;
+  int m = rd.bit(st + i);
+  if (m) {
+    i = 20;
+    while (rd.bit(st + i)) {
+      if ((m <<= 1) == 0x8000) return false;
+      ++i;
+    }
+  }
+  if (m < ((1 << lo) >> 1))
+    *next = 0;
+  else if (m > ((1 << hi) >> 1))
+    *next = 12 + sign * 4;
+  else
+    *next = 4 + sign * 4;
+  int val = m;
+  i += 14;
+  while (m >>= 1)
+    if (rd.bit(st + i)) val |= m;
+  val += 1;
+  *v = sign ? -val : val;
+  return true;
+}
+
+// an AC coefficient's magnitude after its sign, bin i = SP of position k ->
+// |v|, or 0 at a magnitude overflow
+int arith_ac_value(ArithBits& rd, uint8_t* st, int i, int k, int kx) {
+  int m = rd.bit(st + i);
+  if (m && rd.bit(st + i)) {
+    m = 2;
+    i = k <= kx ? 189 : 217;
+    while (rd.bit(st + i)) {
+      if ((m <<= 1) == 0x8000) return 0;
+      ++i;
+    }
+  }
+  int v = m;
+  i += 14;
+  while (m >>= 1)
+    if (rd.bit(st + i)) v |= m;
+  return v + 1;
+}
+
+struct Dac {
+  int lo[16], hi[16], kx[16];
+};
+
+// utils/jpeg.py:_arith_interval: one restart interval of an
+// arithmetic-coded scan into coef (64 int16 a block, zigzag order).
+void arith_interval(ArithBits& rd, const long long* blocks, const int* comps, long long n_blocks,
+                    const int* dtab, const int* atab, uint8_t (*dcs)[64], uint8_t (*acs)[256],
+                    const Dac& dac, int16_t* coef, bool progressive, int ss, int se, int ah,
+                    int al) {
+  uint8_t fixed = 113;
+  if (!progressive || (ss == 0 && ah == 0)) {
+    int ctxs[4] = {0, 0, 0, 0};
+    int64_t last[4] = {0, 0, 0, 0};
+    for (long long b = 0; b < n_blocks; ++b) {
+      if (rd.ct == -1 || rd.err) return;
+      const int ci = comps[b], dt = dtab[ci], at = atab[ci];
+      int v = 0;
+      if (!arith_dc(rd, dcs[dt], ctxs[ci], dac.lo[dt], dac.hi[dt], &v, &ctxs[ci])) {
+        rd.ct = -1;
+        return;
+      }
+      int16_t* blk = coef + blocks[b] * 64;
+      if (progressive) {
+        last[ci] += v;
+        blk[0] = w16(last[ci] * (int64_t(1) << al));
+        continue;
+      }
+      last[ci] = (last[ci] + v) & 0xFFFF;
+      blk[0] = w16(last[ci]);
+      uint8_t* st = acs[at];
+      for (int k = 1; k <= 63; ++k) {
+        int i = 3 * (k - 1);
+        if (rd.bit(st + i)) break;  // end of block
+        while (!rd.bit(st + i + 1)) {
+          i += 3;
+          if (++k > 63) {
+            rd.ct = -1;
+            return;
+          }
+        }
+        const int sign = rd.bit(&fixed);
+        const int m = arith_ac_value(rd, st, i + 2, k, dac.kx[at]);
+        if (!m) {
+          rd.ct = -1;
+          return;
+        }
+        blk[k] = w16(sign ? -m : m);
+      }
+    }
+    return;
+  }
+  if (ss == 0) {  // DC refine
+    const int p1 = 1 << al;
+    for (long long b = 0; b < n_blocks; ++b)
+      if (rd.bit(&fixed)) coef[blocks[b] * 64] = static_cast<int16_t>(coef[blocks[b] * 64] | p1);
+    return;
+  }
+  const int at = atab[0];
+  uint8_t* st = acs[at];
+  if (ah == 0) {  // AC first
+    for (long long b = 0; b < n_blocks; ++b) {
+      if (rd.ct == -1 || rd.err) return;
+      int16_t* blk = coef + blocks[b] * 64;
+      for (int k = ss; k <= se; ++k) {
+        int i = 3 * (k - 1);
+        if (rd.bit(st + i)) break;
+        while (!rd.bit(st + i + 1)) {
+          i += 3;
+          if (++k > se) {
+            rd.ct = -1;
+            return;
+          }
+        }
+        const int sign = rd.bit(&fixed);
+        const int m = arith_ac_value(rd, st, i + 2, k, dac.kx[at]);
+        if (!m) {
+          rd.ct = -1;
+          return;
+        }
+        blk[k] = w16(static_cast<int64_t>(sign ? -m : m) * (int64_t(1) << al));
+      }
+    }
+    return;
+  }
+  const int p1 = 1 << al, m1 = -(1 << al);  // AC refine
+  for (long long b = 0; b < n_blocks; ++b) {
+    if (rd.ct == -1 || rd.err) return;
+    int16_t* blk = coef + blocks[b] * 64;
+    int kex = se;
+    while (kex > 0 && !blk[kex]) --kex;
+    for (int k = ss; k <= se; ++k) {
+      int i = 3 * (k - 1);
+      if (k > kex && rd.bit(st + i)) break;
+      while (true) {
+        const int c = blk[k];
+        if (c) {
+          if (rd.bit(st + i + 2)) blk[k] = w16(c + (c < 0 ? m1 : p1));
+          break;
+        }
+        if (rd.bit(st + i + 1)) {
+          blk[k] = static_cast<int16_t>(rd.bit(&fixed) ? m1 : p1);
+          break;
+        }
+        i += 3;
+        if (++k > se) {
+          rd.ct = -1;
+          return;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// lossless scans (utils/jpeg.py:_decode_lossless_scan, _undifference,
+// _assemble_lossless; libjpeg-turbo's jdlhuff.c, jdpred.c, jdlossls.c)
+// ---------------------------------------------------------------------------
+
+// utils/jpeg.py:_undifference: one component's differences (h rows of w,
+// row stride `stride`) into its values modulo 2^16; first[y]: row y
+// starts the image or a restart interval.
+void undifference(const int16_t* diff, long long stride, int h, int w, int psv, int pt,
+                  const std::vector<char>& first, int32_t* out) {
+  const int32_t init = 1 << (8 - pt - 1);
+  for (int y = 0; y < h; ++y) {
+    const int16_t* row = diff + y * stride;
+    int32_t* cur = out + static_cast<long long>(y) * w;
+    if (first[y]) {
+      int32_t ra = init;
+      for (int x = 0; x < w; ++x) cur[x] = ra = (row[x] + ra) & 0xFFFF;
+      continue;
+    }
+    const int32_t* prev = cur - w;
+    int32_t rb = prev[0];
+    int32_t ra = cur[0] = (row[0] + rb) & 0xFFFF;
+    for (int x = 1; x < w; ++x) {
+      const int32_t rc = rb;
+      rb = prev[x];
+      int32_t p;
+      switch (psv) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      cur[x] = ra = (row[x] + p) & 0xFFFF;
+    }
+  }
+}
+
+// utils/jpeg.py:_decode_lossless_scan: one lossless scan's differences
+// into s.coef (int16: 32768 wraps to -32768, the same modulo 2^16), then
+// each of its components undifferenced into fr.samples.
+int decode_lossless_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
+                         long long n, long long pos, const HuffTable* dc_tabs, int restart,
+                         Scratch& s, long long* end_out, long long* info) {
+  const int ns = blen ? body[0] : 0;
+  if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
+  const uint8_t* sa = body + 1 + 2 * ns;
+  const int psv = sa[0], pt = sa[2] & 15;
+  if (psv < 1 || psv > 7 || sa[1] || (sa[2] >> 4) || pt >= 8) return E_BAD_LOSSLESS;
+  std::vector<int> comps;
+  std::vector<const int*> luts;
+  for (int i = 0; i < ns; ++i) {
+    const int cid = body[1 + 2 * i], t = body[2 + 2 * i];
+    const int c = fr.index_of(cid);
+    if (c < 0) return info[0] = cid, E_SCAN_COMPONENT;
+    if (!dc_tabs[t >> 4].defined) return E_UNDEF_HUFF;
+    fr.scanned[c] = true;
+    comps.push_back(c);
+    const int* lut = diff_rows(dc_tabs[t >> 4]);
+    if (!lut) return E_BAD_HUFF_TABLE;
+    luts.push_back(lut);
+  }
+  const long long per_row = ns == 1 ? fr.dw(comps[0]) : fr.mcux;
+  if (restart % per_row) return E_BAD_RESTART;
+  std::vector<std::pair<long long, long long>> pieces;
+  const long long end = scan_pieces(data, n, pos, restart, pieces);
+  const long long per_mcu = scan_blocks(fr, comps, s);
+  const long long n_blocks = static_cast<long long>(s.blk.size());
+  const long long n_mcu = n_blocks / per_mcu;
+  const long long span = restart ? restart : n_mcu;
+  const long long n_int = (n_mcu + span - 1) / span;
+  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
+  const long long per_interval = span * per_mcu;
+  for (long long k = 0; k < n_int; ++k) {
+    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
+    const long long lo = k * per_interval;
+    const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+    Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
+    bool ok = true;
+    for (long long b = lo; b < hi && ok; ++b) {
+      int sym = 0;
+      int64_t v = 0;
+      ok = rd.huff(luts[s.sel[b]], &sym);
+      if (ok && sym == 16) {
+        v = 32768;
+      } else if (ok && sym) {
+        int64_t bits = 0;
+        ok = rd.get(sym, &bits);
+        v = extend(bits, sym);
+      }
+      s.coef[s.blk[b]] = w16(v);
+    }
+    if (!ok && rd.bad_code) return E_INVALID_CODE;
+    if (!ok || rd.used() > 8 * n_raw) return E_SCAN_TRUNC;
+  }
+  const long long interval_rows = restart ? span / per_row : 0;
+  for (int c : comps) {
+    const int w = fr.dw(c), h = fr.dh(c), v = ns == 1 ? 1 : fr.v[c];
+    std::vector<char> first(h, 0);
+    for (int r = 0; r < h; r += v)
+      first[r] = r == 0 || (interval_rows && (r / v) % interval_rows == 0);
+    fr.samples[c].assign(static_cast<size_t>(h) * w, 0);
+    undifference(s.coef.data() + fr.offset[c], fr.bw[c], h, w, psv, pt, first,
+                 fr.samples[c].data());
+    fr.pt[c] = pt;
+  }
+  *end_out = end;
+  return 0;
+}
+
+// utils/jpeg.py:_decode_arith_scan: one arithmetic-coded scan into s.coef.
+int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
+                      long long n, long long pos, const std::vector<int64_t>* qt,
+                      const bool* qt_def, const Dac& dac, int restart, long long limit,
+                      Scratch& s, long long* end_out, long long* info) {
+  const int ns = blen ? body[0] : 0;
+  if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
+  const uint8_t* sa = body + 1 + 2 * ns;
+  const int ss = sa[0], se = sa[1], ah = sa[2] >> 4, al = sa[2] & 15;
+  if (fr.progressive) {  // jdarith.c start_pass's checks
+    if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) ||
+        (ah && al != ah - 1) || al > 13)
+      return E_BAD_PROGRESSION;
+  } else if (!(ss == 0 && se == 63 && sa[2] == 0)) {
+    return E_SPECTRAL;
+  }
+  std::vector<int> comps;
+  int dtab[4], atab[4];
+  for (int i = 0; i < ns; ++i) {
+    const int cid = body[1 + 2 * i], t = body[2 + 2 * i];
+    const int c = fr.index_of(cid);
+    if (c < 0) return info[0] = cid, E_SCAN_COMPONENT;
+    if (fr.quant[c].empty()) {
+      if (fr.tq[c] > 15 || !qt_def[fr.tq[c]]) return E_UNDEF_QUANT;
+      fr.quant[c] = qt[fr.tq[c]];
+    }
+    fr.scanned[c] = true;
+    comps.push_back(c);
+    dtab[i] = t >> 4;
+    atab[i] = t & 15;
+    if (fr.progressive)
+      for (int k = ss; k <= se; ++k) fr.coef_bits[c][k] = al;
+  }
+  std::vector<std::pair<long long, long long>> pieces;
+  const long long end = scan_pieces(data, n, pos, restart, pieces);
+  const long long per_mcu = scan_blocks(fr, comps, s);
+  const long long n_blocks = static_cast<long long>(s.blk.size());
+  const long long n_mcu = n_blocks / per_mcu;
+  const long long span = restart ? restart : n_mcu;
+  const long long n_int = (n_mcu + span - 1) / span;
+  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
+  const long long per_interval = span * per_mcu;
+  static thread_local uint8_t dcs[16][64], acs[16][256];
+  bool met = true;
+  for (long long k = 0; k < n_int; ++k) {
+    // read_restart_marker reads the marker before the interval to its end
+    if (!met && pieces[k].first > limit) return E_PILLOW_BLOCK;
+    std::memset(dcs, 0, sizeof(dcs));  // statistics reset at every restart
+    std::memset(acs, 0, sizeof(acs));
+    ArithBits rd{data, pieces[k].first, pieces[k].second, limit, pieces[k].second == n};
+    const long long lo = k * per_interval;
+    const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+    arith_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo, dtab, atab, dcs, acs,
+                   dac, s.coef.data(), fr.progressive, ss, se, ah, al);
+    if (rd.err) return rd.err;
+    met = rd.marker;
+  }
+  *end_out = end;
+  return 0;
 }
 
 inline uint8_t clip8(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
@@ -814,13 +1376,17 @@ inline int64_t muldiv255(int64_t a, int64_t b) {
 
 int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
            long long* info) {
-  if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return E_NOT_JPEG;
+  if (n < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF) return E_NOT_JPEG;
   thread_local Scratch s;
   if (lut_cache.size() > 64) lut_cache.clear();  // a file defines at most 32
   std::vector<int64_t> qt[16];
   bool qt_def[16] = {};
   HuffTable dc_tabs[16], ac_tabs[16];
   int restart = 0, adobe = -1;
+  Dac dac;
+  for (int i = 0; i < 16; ++i) dac.lo[i] = 0, dac.hi[i] = 1, dac.kx[i] = 5;
+  long long limit = kPillowBlock;
+  int scans = 0;
   bool jfif = false, have_frame = false, eoi = false;
   Frame fr;
   long long pos = 2;
@@ -835,26 +1401,45 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       eoi = true;
       break;
     }
-    if (marker == 0x00 || marker == 0x01 || marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7))
-      continue;
-    if (marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
-        marker == 0xC7 || marker == 0xC9 || marker == 0xCA || marker == 0xCB ||
+    if (marker == 0x00 || (marker >= 0xD0 && marker <= 0xD7)) continue;
+    if (marker == 0x01 && scans) continue;  // TEM (Pillow refuses it before a scan)
+    if (marker < 0xC0 || marker == 0xC8 || marker == 0xD8 || marker == 0xDE || marker == 0xDF ||
+        (marker >= 0xF0 && marker <= 0xFD))
+      return info[0] = marker, E_MARKER;
+    if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker == 0xCB ||
         marker == 0xCD || marker == 0xCE || marker == 0xCF)
       return info[0] = marker, E_REFUSE_SOF;
-    if (marker == 0xCC) return E_REFUSE_DAC;
     if (pos + 2 > n) return E_SEGMENT;
     const long long len = be16(data + pos);
     if (len < 2 || pos + len > n) return E_SEGMENT;
     const uint8_t* body = data + pos + 2;
     const long long blen = len - 2;
     long long after = pos + len;
-    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
+    while (after > limit) limit += kPillowBlock;  // libjpeg suspends; Pillow reads on
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 ||
+        marker == 0xCA) {
       if (have_frame) return E_SECOND_FRAME;
+      fr.lossless = marker == 0xC3;
+      fr.unit = fr.lossless ? 1 : 8;
+      fr.per = fr.unit * fr.unit;
       const int rc = parse_frame(body, blen, fr, info);
       if (rc) return rc;
-      fr.progressive = marker == 0xC2;
+      fr.progressive = marker == 0xC2 || marker == 0xCA;
+      fr.arith = marker >= 0xC9;
       have_frame = true;
       s.coef.assign(fr.offset.back(), 0);
+    } else if (marker == 0xCC) {  // DAC (jdmarker.c get_dac)
+      if (blen % 2) return E_BAD_DAC;
+      for (long long i = 0; i < blen; i += 2) {
+        const int index = body[i], val = body[i + 1];
+        if (index >= 32 || (index < 16 && (val & 15) > (val >> 4))) return E_BAD_DAC;
+        if (index >= 16) {
+          dac.kx[index - 16] = val;
+        } else {
+          dac.lo[index] = val & 15;
+          dac.hi[index] = val >> 4;
+        }
+      }
     } else if (marker == 0xC4) {  // DHT
       long long i = 0;
       while (i < blen) {
@@ -862,7 +1447,8 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
         const long long nc = blen - i - 1 < 16 ? (blen - i - 1 > 0 ? blen - i - 1 : 0) : 16;
         long long sum = 0;
         for (long long k = 0; k < nc; ++k) sum += body[i + 1 + k];
-        if (nc < 16 || i + 17 + sum > blen || (tc_th >> 4) > 1) return E_BAD_DHT;
+        if (nc < 16 || i + 17 + sum > blen || (tc_th >> 4) > 1 || (tc_th & 15) > 3 || sum > 256)
+          return E_BAD_DHT;
         HuffTable& t = (tc_th >> 4) ? ac_tabs[tc_th & 15] : dc_tabs[tc_th & 15];
         t.defined = true;
         std::memcpy(t.counts, body + i + 1, 16);
@@ -874,7 +1460,7 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       while (i < blen) {
         const int pq = body[i] >> 4, tq = body[i] & 15;
         const long long size = pq ? 128 : 64;
-        if (i + 1 + size > blen) return E_BAD_DQT;
+        if (i + 1 + size > blen || tq > 3) return E_BAD_DQT;
         std::vector<int64_t> q(64);
         for (int k = 0; k < 64; ++k) {
           const int z = kUnzigzag[k];
@@ -885,7 +1471,8 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
         i += 1 + size;
       }
     } else if (marker == 0xDD) {  // DRI
-      restart = blen >= 2 ? be16(body) : (blen == 1 ? body[0] : 0);
+      if (blen != 2) return E_BAD_DRI;
+      restart = be16(body);
     } else if (marker == 0xDC) {
       return E_DNL;
     } else if (marker == 0xE0 && blen >= 14 && std::memcmp(body, "JFIF\0", 5) == 0) {
@@ -894,11 +1481,17 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       adobe = body[11];
     } else if (marker == 0xDA) {  // SOS
       if (!have_frame) return E_SCAN_NO_FRAME;
-      const int rc = fr.progressive
-                         ? decode_progressive_scan(fr, body, blen, data, n, after, qt, qt_def,
-                                                   dc_tabs, ac_tabs, restart, s, &after, info)
-                         : decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs,
-                                       ac_tabs, restart, s, &after, info);
+      ++scans;
+      const int rc =
+          fr.lossless ? decode_lossless_scan(fr, body, blen, data, n, after, dc_tabs, restart, s,
+                                             &after, info)
+          : fr.arith ? decode_arith_scan(fr, body, blen, data, n, after, qt, qt_def, dac, restart,
+                                       limit, s, &after, info)
+          : fr.progressive
+              ? decode_progressive_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs,
+                                        ac_tabs, restart, s, &after, info)
+              : decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs, ac_tabs,
+                            restart, s, &after, info);
       if (rc) return rc;
     }
     pos = after;
@@ -908,13 +1501,47 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     if (!fr.scanned[c]) return E_NO_SCAN;
   if (fr.progressive) {
     if (!eoi) return E_PROG_NO_EOI;  // more scans may have been to come
-    if (smoothed(fr)) return E_SMOOTHING;
+    if (smoothed(fr)) smooth(fr, s.coef);
   }
 
+  if (fr.lossless) {  // utils/jpeg.py:_assemble_lossless's colour spaces
+    if (!eoi) return E_LOSSLESS_NO_EOI;  // libjpeg-turbo reads on for its last bits
+    if (fr.n == 4 && adobe > 0) return E_LOSSLESS_YCCK;
+    if (fr.n == 3 && (jfif || adobe > 0)) return E_LOSSLESS_YCC;
+  }
   info[0] = fr.height;
   info[1] = fr.width;
   const long long npx = static_cast<long long>(fr.height) * fr.width;
   if (out == nullptr || out_bytes != 3 * npx) return E_OUT_SIZE;
+  if (fr.lossless) {
+    // each component's samples shifted back by its Pt, replicated up to the
+    // frame (no smoothing in lossless mode); gray into all three channels,
+    // RGB as it is, CMYK through Pillow's conversion
+    uint8_t* planes = out;
+    int step = 3;
+    if (fr.n == 4) {
+      s.four.resize(static_cast<size_t>(npx) * 4);
+      planes = s.four.data();
+      step = 4;
+    }
+    for (int c = 0; c < fr.n; ++c) {
+      const int fy = fr.vmax / fr.v[c], fx = fr.hmax / fr.h[c], w = fr.dw(c);
+      const int32_t* smp = fr.samples[c].data();
+      for (long long y = 0; y < fr.height; ++y)
+        for (long long x = 0; x < fr.width; ++x)
+          planes[(y * fr.width + x) * step + c] =
+              static_cast<uint8_t>((smp[(y / fy) * w + x / fx] << fr.pt[c]) & 0xFF);
+    }
+    if (fr.n == 1)
+      for (long long i = 0; i < npx; ++i) out[3 * i + 1] = out[3 * i + 2] = out[3 * i];
+    if (fr.n == 4)
+      for (long long i = 0; i < npx; ++i) {
+        const uint8_t* q = planes + 4 * i;
+        const int64_t nk = q[3];
+        for (int k = 0; k < 3; ++k) out[3 * i + k] = clip8(nk - muldiv255(255 - q[k], nk));
+      }
+    return 0;
+  }
   // each component upsampled into its channel of the output (a grayscale
   // plane into all three; four into a scratch), then the colour conversion
   uint8_t* planes = out;
@@ -998,7 +1625,7 @@ long long l2i_jpeg_decode_interval(const uint8_t* data, long long n_bytes,
                          out_dc, preds.data());
 }
 
-// The height and width of the first frame header (SOF0-SOF2) -> 0, or -1
+// The height and width of the first frame header (SOF0-3, SOF9-10) -> 0, or -1
 // where the markers before it do not lead to one.
 int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
   if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return -1;
@@ -1014,7 +1641,8 @@ int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
       continue;
     const long long len = be16(data + pos);
     if (len < 2 || pos + len > n) return -1;
-    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 ||
+        marker == 0xCA) {
       if (len < 7) return -1;
       hw[0] = be16(data + pos + 3);
       hw[1] = be16(data + pos + 5);

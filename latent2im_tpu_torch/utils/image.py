@@ -3,10 +3,12 @@ latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
 to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
 alone (zlib + struct), and Pillow's BILINEAR, BICUBIC and LANCZOS resamples
 are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
-and sequential or progressive Huffman JPEG, grayscale, YCbCr, RGB, CMYK or
-YCCK (``utils/jpeg.py``, bit for bit Pillow's libjpeg-turbo decode);
-arithmetic-coded, lossless, hierarchical and 12-bit JPEG and WEBP raise,
-naming ROADMAP item 26."""
+(every colour type and depth, 16-bit and Adam7 included), JPEG, sequential,
+progressive or lossless, Huffman or arithmetic-coded, grayscale, YCbCr,
+RGB, CMYK or YCCK (``utils/jpeg.py``), and WEBP, lossless, lossy, with
+alpha or animated (``utils/webp.py``), each bit for bit as Pillow decodes
+it; hierarchical and 12-bit JPEG raise, naming ROADMAP item 26, as Pillow
+fails them."""
 
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import zlib
 
 import numpy as np
 
-from .jpeg import ITEM as _JPEG_ITEM
-from .jpeg import jpeg_decode_rgb
+from .jpeg import PILLOW_MAX_PIXELS, jpeg_decode_rgb
+from .webp import webp_decode_rgb
 
 
 def imgrid(imarray: np.ndarray, cols: int = 5, pad: int = 1) -> np.ndarray:
@@ -74,9 +76,12 @@ def png_bytes(img_u8: np.ndarray) -> bytes:
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> (samples per pixel, the bit depths this reader takes)
-_PNG_COLOR = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
-              4: (2, (8,)), 6: (4, (8,))}
+# colour type -> (samples per pixel, its legal bit depths)
+_PNG_COLOR = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
@@ -91,7 +96,8 @@ def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth) ->
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth) of one
+    image (or one Adam7 pass, whose first row has no previous row) ->
     [h, stride] uint8."""
     if len(data) < h * (stride + 1):
         raise ValueError("png: truncated image data")
@@ -119,13 +125,29 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, w: int, spp: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, spp] uint16: sub-byte
+    samples unpacked most significant first, 16-bit ones big-endian."""
+    h = rows.shape[0]
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            -1, dtype=np.uint8)
+        return vals.reshape(h, w, 1).astype(np.uint16)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, spp).astype(np.uint16)
+    return rows.reshape(h, w, spp).astype(np.uint16)
+
+
 def png_decode_rgb(data: bytes) -> np.ndarray:
     """PNG file bytes -> uint8 [H, W, 3], as Pillow's ``Image.open(f)
     .convert("RGB")`` gives it: gray is replicated (1, 2 and 4-bit gray
-    scaled to 0..255), a palette is looked up, alpha and tRNS are dropped,
-    not composited. Colour types 0, 2, 3, 4 and 6 at 8 bits, and 1/2/4-bit
-    gray and palette; filters 0-4. Raises naming what it does not take:
-    16-bit depth and Adam7 interlace."""
+    scaled to 0..255, 16-bit gray, Pillow's "I;16", clipped at 255), a
+    palette is looked up, 16-bit RGB, gray+alpha and RGBA keep each
+    sample's high byte, alpha and tRNS are dropped, not composited. Every
+    colour type at every legal depth, filters 0-4, no interlace or Adam7
+    (seven passes, each with its own filtered rows, sub-byte samples packed
+    per pass row)."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("png: not a PNG file (bad signature)")
     pos, idat, hdr, plte = 8, [], None, None
@@ -144,58 +166,74 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("png: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if depth == 16:
-        raise ValueError("png: 16-bit depth is not supported")
-    if interlace:
-        raise ValueError("png: Adam7 interlace is not supported")
+    if w * h > PILLOW_MAX_PIXELS:
+        raise ValueError(f"png: a {w}x{h} image: more pixels than Pillow opens "
+                         f"({PILLOW_MAX_PIXELS})")
     if color not in _PNG_COLOR or depth not in _PNG_COLOR[color][1]:
         raise ValueError(f"png: colour type {color} at bit depth {depth} is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"png: unknown interlace method {interlace}")
     spp = _PNG_COLOR[color][0]
-    stride = (w * spp * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, spp * depth // 8))
-    if depth < 8:  # unpack the samples of each row, most significant first
-        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
-        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
-            -1, dtype=np.uint8)
+    bpp = max(1, spp * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        stride = (w * spp * depth + 7) // 8
+        vals = _samples(_unfilter(raw, h, stride, bpp), w, spp, depth)
     else:
-        vals = rows.reshape(h, w, spp)
+        vals = np.zeros((h, w, spp), np.uint16)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows, no filter bytes
+            stride = (pw * spp * depth + 7) // 8
+            rows = _unfilter(raw[at:], ph, stride, bpp)
+            at += ph * (stride + 1)
+            vals[y0::dy, x0::dx] = _samples(rows, pw, spp, depth)
     if color == 3:
         if plte is None:
             raise ValueError("png: palette image without a PLTE chunk")
         table = np.zeros((256, 3), np.uint8)  # indices past the palette: black
         table[:len(plte)] = plte
-        return table[vals.reshape(h, w)]
-    if color in (0, 4):
-        gray = vals.reshape(h, w) if depth < 8 else vals[..., 0]
+        return table[vals[..., 0]]
+    if color == 0:
+        gray = vals[..., 0]
         if depth < 8:
-            gray = (gray.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+            gray = gray * (255 // ((1 << depth) - 1))
+        gray = np.minimum(gray, 255).astype(np.uint8)  # "I;16" -> RGB clips
         return np.repeat(gray[..., None], 3, axis=-1)
+    if depth == 16:
+        vals = vals >> 8
+    vals = vals.astype(np.uint8)
+    if color == 4:
+        return np.repeat(vals[..., :1], 3, axis=-1)
     return np.ascontiguousarray(vals[..., :3])
 
 
 def read_image_rgb(path: str, native: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
-    .convert("RGB")`` gives it: PNG (``png_decode_rgb``) and JPEG
-    (``jpeg_decode_rgb``, sequential or progressive, 1, 3 or 4
-    components, through its C entry where ``native``), told apart by their
-    signatures. What the JPEG decoder does not read (arithmetic-coded,
-    lossless, hierarchical, 12-bit) and WEBP raise ValueError naming the
-    file and ROADMAP item 26."""
+    .convert("RGB")`` gives it: PNG (``png_decode_rgb``), JPEG
+    (``jpeg_decode_rgb``, sequential or progressive, Huffman or
+    arithmetic-coded, 1, 3 or 4 components, through its C entry where
+    ``native``) and WEBP (``webp_decode_rgb``, through its C entry where
+    ``native``), told apart by their signatures.
+    What the JPEG decoder does not read (hierarchical, 12-bit) raises
+    ValueError naming the file and ROADMAP item 26, a file of another kind
+    naming ROADMAP item 28; a corrupt file raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == _PNG_SIGNATURE:
-        return png_decode_rgb(data)
-    if data[:3] == b"\xff\xd8\xff":
-        try:
+    try:
+        if data[:8] == _PNG_SIGNATURE:
+            return png_decode_rgb(data)
+        if data[:3] == b"\xff\xd8\xff":
             return jpeg_decode_rgb(data, native=native)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from e
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        fmt = "WEBP"
-    else:
-        fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
-    raise ValueError(f"{path}: {fmt} images are not supported (PNG and baseline "
-                     f"JPEG only; {_JPEG_ITEM}); convert it to PNG")
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            return webp_decode_rgb(data, native=native)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
+    fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
+    raise ValueError(f"{path}: {fmt} images are not supported (PNG, JPEG and WEBP "
+                     f"only; ROADMAP item 28); convert it to PNG")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
@@ -348,7 +386,8 @@ def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 
 
 def load_and_resize_image(path: str, size: int = 256, native: bool = False) -> np.ndarray:
-    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG, JPEG),
+    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG, JPEG,
+    WEBP),
     the centre square crop, then Pillow's BILINEAR resample (``_pil_resize``
     with a triangle on support 1), as the JAX package's
     utils/image.py:load_and_resize_image computes it without its native

@@ -7,8 +7,10 @@ for bit: the GPU machine has no Pillow.
 ``native=True`` runs the same decode, bit for bit and with the same
 errors, in the host C++ of ops/csrc/jpeg_huffman.cpp (the card's loaders).
 
-What it reads: SOF0, SOF1 (sequential) and SOF2 (progressive) Huffman
-frames at 8-bit precision with one component (grayscale, repeated into
+What it reads: SOF0, SOF1 (sequential), SOF2 (progressive) and SOF3
+(lossless) Huffman frames and SOF9 (sequential) and SOF10 (progressive)
+arithmetic-coded ones at 8-bit precision with one component (grayscale,
+repeated into
 three channels as ``convert("RGB")`` does), three (YCbCr; RGB where an
 Adobe APP14 marker says transform 0, as libjpeg decides) or four (CMYK, or
 YCCK where an Adobe marker says a transform other than 0), any integral
@@ -25,11 +27,28 @@ are libjpeg's:
   with their end-of-band runs, AC refine scans with their correction bits,
   restart intervals resetting the DC predictors and the run; a
   non-interleaved scan walks the component's own block grid. The image is
-  made once after the last scan. libjpeg-turbo smooths the blocks of a
-  progressive image whose first AC coefficients are not all refined to
-  full precision by then (``jdcoefct.c:smoothing_ok``); no complete file
-  from Pillow's or a camera's encoder leaves them so, and such a file
-  raises;
+  made once after the last scan;
+- the arithmetic decoder (``jdarith.c``, T.81 Annex D): the Qe table and
+  its state machine, one statistics area per table (64 DC bins, 256 AC,
+  conditioned by the DAC segment's L, U and Kx, defaults 0, 1, 5) reset
+  at every restart, DC and AC coding of sequential scans and the four
+  progressive scan kinds, and libjpeg's behaviour where the data turns
+  bad (a magnitude or spectral overflow ends the interval's decoding). A
+  marker supplies zeros once the decoder meets it; where the file ends
+  without one, or where the decoder would read past Pillow's first 64 KiB
+  read (libjpeg cannot suspend inside arithmetic-coded data, so Pillow
+  fails such files), the decode raises as Pillow fails;
+- ``jdcoefct.c``'s block smoothing (``_smooth``) of a progressive image
+  whose first AC coefficients are not all refined to full precision
+  (``smoothing_ok``): each still-zero coefficient among the first nine
+  estimated from the 5 x 5 DC values around its block, and the DC too
+  where no AC coefficient was scanned at all;
+- the lossless decoder (``jdlhuff.c``, ``jdpred.c``, ``jdlossls.c``):
+  each sample's difference coded as a DC category (0-16), the seven
+  predictors, each restart interval's first row predicted from the left,
+  the point transform; libjpeg-turbo upsamples a lossless frame by
+  replication and converts no colour (a lossless YCbCr or YCCK file fails
+  in Pillow, and here);
 - dequantisation and ``jidctint.c``'s integer ISLOW IDCT (CONST_BITS 13,
   PASS1_BITS 2, its wrapping range limit), over all blocks at once in
   integer numpy (libjpeg-turbo's SIMD islow is bit-exact with that C code);
@@ -46,12 +65,15 @@ are libjpeg's:
   with Pillow's MULDIV255 rounding);
 - the output cropped from the MCU-padded planes to the frame's size.
 
-What raises ``ValueError``, naming ROADMAP item 26: lossless and
-hierarchical (SOF3, SOF5-7) and arithmetic-coded (SOF9-15, DAC) files,
-12-bit precision, a height given only by a DNL marker, a progressive image
-libjpeg-turbo would smooth; and data that ends before the image does
-(truncated, or a progressive file with no EOI) or holds an invalid Huffman
-code or progressive scan.
+What raises ``ValueError``, naming ROADMAP item 26 (Pillow 12.1 fails each
+of these too): hierarchical files (SOF5-7, SOF13-15), arithmetic-coded
+lossless ones (SOF11), 12-bit precision, a height given only by a DNL
+marker. What raises as Pillow fails it: data that ends before the image
+does (truncated, or a progressive or lossless file with no EOI), an invalid
+Huffman code or progressive scan, a marker or segment libjpeg or Pillow's
+own parser refuses (an unknown marker, a second SOI, a DRI, SOS or SOF of
+the wrong length, a DQT or DHT naming a table past 3), and a frame of
+more pixels than Pillow opens (its DecompressionBombError).
 """
 
 from __future__ import annotations
@@ -72,10 +94,8 @@ _ZIGZAG = np.array([
 _UNZIGZAG = np.argsort(_ZIGZAG)  # natural order <- zigzag order
 
 _SOF_REFUSED = {
-    0xC3: "lossless (SOF3)",
     0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical progressive (SOF6)",
-    0xC7: "hierarchical lossless (SOF7)", 0xC9: "arithmetic-coded (SOF9)",
-    0xCA: "arithmetic-coded progressive (SOF10)", 0xCB: "arithmetic-coded lossless (SOF11)",
+    0xC7: "hierarchical lossless (SOF7)", 0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "arithmetic-coded hierarchical (SOF13)",
     0xCE: "arithmetic-coded hierarchical progressive (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless (SOF15)",
@@ -85,7 +105,7 @@ _RST = re.compile(rb"\xff[\xd0-\xd7]")
 
 
 def _refuse(what: str) -> ValueError:
-    return ValueError(f"jpeg: {what} files are not supported (baseline only; {ITEM})")
+    return ValueError(f"jpeg: {what} files are not supported (Pillow fails them too; {ITEM})")
 
 
 def _corrupt(what: str) -> ValueError:
@@ -343,6 +363,517 @@ def _progressive_interval(rd: _Bits, blocks, luts, coef: list, ss, se, ah, al) -
 
 
 # ---------------------------------------------------------------------------
+# arithmetic-coded scans (T.81 Annex D and F.1.4, G.1.3; libjpeg's jdarith.c)
+# ---------------------------------------------------------------------------
+
+def _aritab():
+    """jaricom.c's jpeg_aritab (T.81 Table D.2) as (Qe, Next_Index_LPS with
+    Switch_MPS in bit 7, Next_Index_MPS) per state; state 113 is the fixed
+    probability 0.5 bin."""
+    rows = (
+        (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+        (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+        (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+        (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+        (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+        (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+        (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+        (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+        (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+        (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+        (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+        (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+        (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+        (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+        (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+        (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+        (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+        (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+        (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+        (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+        (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+        (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+        (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+        (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+        (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+        (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+        (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+        (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+        (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+    return tuple((qe, nl | (sw << 7), nm) for qe, nl, nm, sw in rows)
+
+
+ARITAB = _aritab()
+# Pillow's ImageFile.load hands the decoder the file this many bytes at a
+# time (MAXBLOCK), and a next block only where libjpeg suspends
+PILLOW_BLOCK = 65536
+
+
+# Pillow's Image.open refuses more pixels than this (DecompressionBombError)
+PILLOW_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+def _bomb(h: int, w: int) -> ValueError:
+    return _corrupt(f"a {w}x{h} image: more pixels than Pillow opens ({PILLOW_MAX_PIXELS})")
+
+
+def _pillow_block() -> ValueError:
+    return _corrupt(f"arithmetic-coded data past a {PILLOW_BLOCK}-byte read: Pillow's "
+                    "libjpeg cannot suspend there and fails the file")
+_FIXED = 113  # the fixed-probability bin's state, which never changes
+DC_BINS, AC_BINS = 64, 256
+
+
+class _ArithBits:
+    """jdarith.c's arith_decode over one restart interval's entropy-coded
+    bytes data[start:end] (stuffed): past ``end`` a marker follows and
+    supplies zeros, as libjpeg supplies them once it meets a marker; where
+    no marker follows (``eof``: the file ends there) a read past the end
+    raises, as libjpeg's get_byte cannot suspend. For the same reason a
+    read at or past ``limit`` raises: Pillow hands libjpeg the file
+    ``PILLOW_BLOCK`` bytes at a time, more only where libjpeg suspends, and
+    it cannot suspend inside arithmetic-coded data (``_pillow_block``).
+    ``ct`` -1 is libjpeg's error state after a bad code: the rest of the
+    interval decodes nothing."""
+
+    __slots__ = ("data", "p", "end", "eof", "limit", "c", "a", "ct", "marker")
+
+    def __init__(self, data, start, end, eof, limit):
+        self.data, self.p, self.end, self.eof, self.limit = data, start, end, eof, limit
+        self.c, self.a, self.ct, self.marker = 0, 0, -16, False
+
+    def _byte(self) -> int:
+        """jdarith.c's next input byte: a stuffed 0xFF 0x00 is 0xFF; a
+        marker (0xFF not followed by 0x00, or the interval's end) gives 0
+        from then on."""
+        if self.marker:
+            return 0
+        data, p, end = self.data, self.p, self.end
+        if p < end and data[p] != 0xFF:
+            if p >= self.limit:
+                raise _pillow_block()
+            self.p = p + 1
+            return data[p]
+        while p < end and data[p] == 0xFF:  # fill bytes
+            p += 1
+        if p >= end and self.eof:
+            raise _corrupt("truncated data (the scan ends before its last block)")
+        if (p if p < end else end + 1) >= self.limit:  # the last byte libjpeg reads
+            raise _pillow_block()
+        if p < end and data[p] == 0:
+            self.p = p + 1
+            return 0xFF
+        self.p, self.marker = p, True
+        return 0
+
+    def bit(self, st, i: int) -> int:
+        a = self.a
+        while a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                self.c = (self.c << 8) | self._byte()
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe, nl, nm = ARITAB[sv & 0x7F]
+        a -= qe
+        temp = a << self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a = a
+        return sv >> 7
+
+
+def _arith_dc(rd, st, ctx: int, lo: int, hi: int):
+    """F.19-F.24 for one DC difference from bin S0 = ctx -> (diff, next
+    context), or None at a magnitude overflow."""
+    if not rd.bit(st, ctx):
+        return 0, 0
+    sign = rd.bit(st, ctx + 1)
+    i = ctx + 2 + sign
+    m = rd.bit(st, i)
+    if m:
+        i = 20
+        while rd.bit(st, i):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            i += 1
+    if m < (1 << lo) >> 1:
+        nxt = 0
+    elif m > (1 << hi) >> 1:
+        nxt = 12 + sign * 4
+    else:
+        nxt = 4 + sign * 4
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if rd.bit(st, i):
+            v |= m
+    v += 1
+    return (-v if sign else v), nxt
+
+
+def _arith_ac_value(rd, st, i: int, k: int, kx: int):
+    """An AC coefficient's magnitude after its sign, bin i = SP of
+    position k -> |v|, or None at a magnitude overflow."""
+    m = rd.bit(st, i)
+    if m and rd.bit(st, i):
+        m = 2
+        i = 189 if k <= kx else 217
+        while rd.bit(st, i):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            i += 1
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if rd.bit(st, i):
+            v |= m
+    return v + 1
+
+
+def _arith_interval(rd: _ArithBits, blocks, comps, dcs, acs, dac, coef: list,
+                    progressive: bool, ss: int, se: int, ah: int, al: int) -> None:
+    """One restart interval of an arithmetic-coded scan into coef (every
+    block's 64 coefficients in zigzag order, a flat list): jdarith.c's
+    decode_mcu (sequential), decode_mcu_DC_first, _AC_first, _DC_refine and
+    _AC_refine. blocks: the interval's (block, index in the scan) in decode
+    order; comps: the scan's components' (DC table, AC table); dcs/acs:
+    the statistics bins by table, reset by the caller at the interval's
+    start; dac: (L, U, K) by table."""
+    fixed = [_FIXED]
+    lo, hi, kx = dac
+    if not progressive or ss == 0 and ah == 0:  # the DC of a block, then its AC
+        dc_first = progressive
+        ctxs, last = [0] * len(comps), [0] * len(comps)
+        for blk, ci in blocks:
+            if rd.ct == -1:
+                return
+            dt, at = comps[ci]
+            got = _arith_dc(rd, dcs[dt], ctxs[ci], lo[dt], hi[dt])
+            if got is None:
+                rd.ct = -1
+                return
+            v, ctxs[ci] = got
+            base = blk * 64
+            if dc_first:
+                last[ci] += v
+                coef[base] = _w16(last[ci] << al)
+                continue
+            last[ci] = (last[ci] + v) & 0xFFFF
+            coef[base] = _w16(last[ci])
+            st, k = acs[at], 1
+            while k <= 63:
+                i = 3 * (k - 1)
+                if rd.bit(st, i):  # end of block
+                    break
+                while not rd.bit(st, i + 1):
+                    i += 3
+                    k += 1
+                    if k > 63:
+                        rd.ct = -1
+                        return
+                sign = rd.bit(fixed, 0)
+                v = _arith_ac_value(rd, st, i + 2, k, kx[at])
+                if v is None:
+                    rd.ct = -1
+                    return
+                coef[base + k] = _w16(-v if sign else v)
+                k += 1
+        return
+    if ss == 0:  # DC refine: the next bit of each DC, at probability 0.5
+        p1 = 1 << al
+        for blk, _ in blocks:
+            if rd.bit(fixed, 0):
+                coef[blk * 64] |= p1
+        return
+    at = comps[0][1]
+    st, ktab = acs[at], kx[at]
+    if ah == 0:  # AC first
+        for blk, _ in blocks:
+            if rd.ct == -1:
+                return
+            base, k = blk * 64, ss
+            while k <= se:
+                i = 3 * (k - 1)
+                if rd.bit(st, i):
+                    break
+                while not rd.bit(st, i + 1):
+                    i += 3
+                    k += 1
+                    if k > se:
+                        rd.ct = -1
+                        return
+                sign = rd.bit(fixed, 0)
+                v = _arith_ac_value(rd, st, i + 2, k, ktab)
+                if v is None:
+                    rd.ct = -1
+                    return
+                coef[base + k] = _w16((-v if sign else v) << al)
+                k += 1
+        return
+    p1, m1 = 1 << al, -1 << al  # AC refine
+    for blk, _ in blocks:
+        if rd.ct == -1:
+            return
+        base = blk * 64
+        kex = se
+        while kex > 0 and not coef[base + kex]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and rd.bit(st, i):
+                break
+            while True:
+                c = coef[base + k]
+                if c:  # previously nonzero: a correction bit
+                    if rd.bit(st, i + 2):
+                        coef[base + k] = _w16(c + (m1 if c < 0 else p1))
+                    break
+                if rd.bit(st, i + 1):  # newly nonzero
+                    coef[base + k] = m1 if rd.bit(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    rd.ct = -1
+                    return
+            k += 1
+
+
+def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit) -> int:
+    """Decode one arithmetic-coded scan (sequential or progressive)
+    starting at data[pos] into fr.pcoef -> the position of the marker after
+    its entropy-coded data. limit: the end of what Pillow has handed
+    libjpeg so far; a restart marker that the decoder has not met already
+    must lie inside it too (jdarith.c process_restart cannot suspend)."""
+    ns = body[0] if body else 0
+    if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
+            len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
+        raise _corrupt("bad SOS segment")
+    ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if fr.progressive:  # jdarith.c start_pass's checks
+        if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1)) or \
+                (ah and al != ah - 1) or al > 13:
+            raise _corrupt("bad progressive scan parameters")
+    elif (ss, se, a) != (0, 63, 0):
+        raise _refuse("progressive (a spectral-selection scan)")
+    comps, tabs = [], []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i:3 + 2 * i]
+        if cid not in fr.ids:
+            raise _corrupt(f"scan names component {cid}, not in the frame")
+        c = fr.ids.index(cid)
+        if fr.quant[c] is None:
+            if fr.tq[c] not in qt:
+                raise _corrupt("component uses an undefined quantization table")
+            fr.quant[c] = qt[fr.tq[c]]
+        fr.scanned[c] = True
+        comps.append(c)
+        tabs.append((t >> 4, t & 15))
+        if fr.progressive:
+            for k in range(ss, se + 1):
+                fr.coef_bits[c][k] = al
+
+    m = _ENTROPY_END.search(data, pos)
+    end = m.start() if m else len(data)
+    blocks, per_mcu = _scan_blocks(fr, comps)
+    n_mcu = len(blocks) // per_mcu
+    span = restart if restart else n_mcu
+    bounds, at = [], pos
+    if restart:
+        for r in _RST.finditer(data, pos, end):
+            bounds.append((at, r.start()))
+            at = r.end()
+    bounds.append((at, end))
+    n_int = -(-n_mcu // span)
+    if len(bounds) < n_int:
+        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+    met = True
+    for i in range(n_int):
+        a0, a1 = bounds[i]
+        if not met and a0 > limit:  # read_restart_marker reads to a0
+            raise _pillow_block()
+        rd = _ArithBits(data, a0, a1, a1 == len(data), limit)
+        dcs = [bytearray(DC_BINS) for _ in range(16)]  # statistics reset at
+        acs = [bytearray(AC_BINS) for _ in range(16)]  # every restart
+        _arith_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu], tabs,
+                        dcs, acs, dac, fr.pcoef, fr.progressive, ss, se, ah, al)
+        met = rd.marker
+    return end
+
+
+# ---------------------------------------------------------------------------
+# lossless scans (T.81 Annex H; libjpeg-turbo's jdlhuff.c, jddiffct.c,
+# jdpred.c, jdlossls.c)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _diff_lut(counts: bytes, symbols: bytes) -> list:
+    """A lossless scan's table: (code length, category) for every 16-bit
+    window; categories run to 16 (jdhuff.c takes no DC symbol past it)."""
+    if any(s > 16 for s in symbols[:sum(counts)]):
+        raise _corrupt("bad Huffman table")
+    length, symbol = _code_table(counts, symbols)
+    return list(zip(length.tolist(), symbol.tolist()))
+
+
+def _undifference(diff: np.ndarray, psv: int, pt: int, first_rows) -> np.ndarray:
+    """jdpred.c over one component's differences [h, w] -> its sample
+    values modulo 2^16: a row that starts the image or a restart interval
+    predicts its first sample as 2^(7 - Pt) and the rest from the left;
+    any other row its first sample from above and the rest by the scan's
+    predictor (1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc, 5 Ra + (Rb - Rc) / 2,
+    6 Rb + (Ra - Rc) / 2, 7 (Ra + Rb) / 2, the halvings arithmetic
+    shifts)."""
+    rows = diff.tolist()
+    init = 1 << (8 - pt - 1)
+    out, prev = [], None
+    for y, row in enumerate(rows):
+        cur = [0] * len(row)
+        if y in first_rows:
+            ra = init
+            for x, d in enumerate(row):
+                ra = (d + ra) & 0xFFFF
+                cur[x] = ra
+        else:
+            rb = prev[0]
+            ra = cur[0] = (row[0] + rb) & 0xFFFF
+            for x in range(1, len(row)):
+                rc, rb = rb, prev[x]
+                if psv == 1:
+                    p = ra
+                elif psv == 2:
+                    p = rb
+                elif psv == 3:
+                    p = rc
+                elif psv == 4:
+                    p = ra + rb - rc
+                elif psv == 5:
+                    p = ra + ((rb - rc) >> 1)
+                elif psv == 6:
+                    p = rb + ((ra - rc) >> 1)
+                else:
+                    p = (ra + rb) >> 1
+                ra = cur[x] = (row[x] + p) & 0xFFFF
+        out.append(cur)
+        prev = cur
+    return np.asarray(out, np.int64).reshape(diff.shape)
+
+
+def _decode_lossless_scan(fr, body, data, pos, dc_tabs, restart) -> int:
+    """Decode one lossless scan starting at data[pos]: each sample's
+    difference (jdlhuff.c: a category 0-16 from the scan's DC table, its
+    value bits, 32768 for 16), undifferenced per component into
+    fr.samples -> the position of the marker after its entropy-coded
+    data."""
+    ns = body[0] if body else 0
+    if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
+            len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
+        raise _corrupt("bad SOS segment")
+    psv, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    pt = a & 15
+    if not 1 <= psv <= 7 or se or a >> 4 or pt >= 8:  # jdlossls.c start_pass_lossless
+        raise _corrupt("bad lossless scan parameters")
+    comps, luts = [], []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i:3 + 2 * i]
+        if cid not in fr.ids:
+            raise _corrupt(f"scan names component {cid}, not in the frame")
+        c = fr.ids.index(cid)
+        if (t >> 4) not in dc_tabs:
+            raise _corrupt("scan uses an undefined Huffman table")
+        fr.scanned[c] = True
+        comps.append(c)
+        luts.append(_diff_lut(*dc_tabs[t >> 4]))
+    per_row = fr.downsampled(comps[0])[0] if ns == 1 else fr.mcux
+    if restart % per_row:  # jdpred.c: whole MCU rows only
+        raise _corrupt("a restart interval of no whole number of MCU rows")
+
+    m = _ENTROPY_END.search(data, pos)
+    end = m.start() if m else len(data)
+    blocks, per_mcu = _scan_blocks(fr, comps)
+    n_mcu = len(blocks) // per_mcu
+    span = restart if restart else n_mcu
+    pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
+    n_int = -(-n_mcu // span)
+    if len(pieces) < n_int:
+        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+    diffs = fr.coef
+    for k in range(n_int):
+        raw = pieces[k].replace(b"\xff\x00", b"\xff")
+        rd = _Bits(np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist())
+        try:
+            for blk, ci in blocks[k * span * per_mcu:(k + 1) * span * per_mcu]:
+                s = rd.huff(luts[ci])
+                diffs[blk] = 0 if not s else 32768 if s == 16 else _ext(rd.get(s), s)
+            used = rd.used()
+        except IndexError:  # read past the padding
+            used = 8 * len(rd.words) * 4
+        if used > 8 * len(raw):
+            raise _corrupt("truncated data (the scan ends before its last block)")
+    interval_rows = span // per_row if restart else 0
+    for c in comps:
+        w, h = fr.downsampled(c)
+        v = 1 if ns == 1 else fr.v[c]
+        plane = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c])[:h, :w]
+        first = {r for r in range(0, h, v) if r == 0 or (
+            interval_rows and (r // v) % interval_rows == 0)}
+        fr.samples[c] = _undifference(plane, psv, pt, first)
+        fr.pt[c] = pt
+    return end
+
+
+def _assemble_lossless(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
+    """The samples shifted back by their Pt (jdlossls.c, 8-bit samples),
+    each component replicated up to the frame's size (libjpeg-turbo does
+    not smooth a lossless frame's upsampling) and, as libjpeg-turbo takes
+    the colour space of a lossless file, returned as they are: gray, RGB
+    (no JFIF marker, and an Adobe transform 0 or none), CMYK (no YCCK
+    transform) as Pillow converts it; a YCbCr or YCCK one raises, as
+    libjpeg-turbo converts no colour in lossless mode and Pillow fails
+    it."""
+    planes = []
+    for c in range(len(fr.ids)):
+        p = (fr.samples[c] << fr.pt[c]) & 0xFF
+        p = p.repeat(fr.vmax // fr.v[c], axis=0).repeat(fr.hmax // fr.h[c], axis=1)
+        planes.append(p[:fr.height, :fr.width])
+    if len(planes) == 1:
+        return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=-1)
+    if len(planes) == 4:
+        if adobe not in (None, 0):
+            raise _corrupt("a lossless YCCK file: libjpeg-turbo converts no colour in "
+                           "lossless mode, and Pillow fails it")
+        return _cmyk_to_rgb(*planes)
+    if jfif or adobe not in (None, 0):
+        raise _corrupt("a lossless YCbCr file: libjpeg-turbo converts no colour in "
+                       "lossless mode, and Pillow fails it")
+    return np.stack(planes, -1).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
 # IDCT, upsampling, colour
 # ---------------------------------------------------------------------------
 
@@ -469,7 +1000,8 @@ def _segment(data: bytes, pos: int) -> tuple[bytes, int]:
 
 
 class _Frame:
-    def __init__(self, body: bytes, progressive: bool = False):
+    def __init__(self, body: bytes, progressive: bool = False, arith: bool = False,
+                 lossless: bool = False):
         if len(body) < 6:
             raise _corrupt("short SOF segment")
         precision = body[0]
@@ -482,7 +1014,7 @@ class _Frame:
             raise _refuse(f"{n}-component")
         if self.height == 0:
             raise _refuse("DNL-height")
-        if self.width == 0 or len(body) < 6 + 3 * n:
+        if self.width == 0 or len(body) != 6 + 3 * n:
             raise _corrupt("bad SOF segment")
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for i in range(n):
@@ -497,19 +1029,27 @@ class _Frame:
         for h, v in zip(self.h, self.v):
             if self.hmax % h or self.vmax % v:
                 raise _refuse("fractional-sampling")
-        self.mcux = -(-self.width // (8 * self.hmax))
-        self.mcuy = -(-self.height // (8 * self.vmax))
-        # each component's block grid covers the MCU-padded image
+        if self.width * self.height > PILLOW_MAX_PIXELS:
+            raise _bomb(self.height, self.width)
+        # a data unit: an 8 x 8 block, or one sample of a lossless frame
+        self.lossless, self.unit = lossless, 1 if lossless else 8
+        self.mcux = -(-self.width // (self.unit * self.hmax))
+        self.mcuy = -(-self.height // (self.unit * self.vmax))
+        # each component's grid of data units covers the MCU-padded image
         self.bw = [self.mcux * h for h in self.h]
         self.bh = [self.mcuy * v for v in self.v]
-        self.offset = np.cumsum([0] + [w * h * 64 for w, h in zip(self.bw, self.bh)])
+        self.per = self.unit * self.unit
+        self.offset = np.cumsum([0] + [w * h * self.per for w, h in zip(self.bw, self.bh)])
         self.coef = np.zeros(int(self.offset[-1]), np.int64)
         self.quant = [None] * n  # latched at the component's first scan
         self.scanned = [False] * n
-        self.progressive = progressive
-        if progressive:  # every coefficient over all scans; -1: never scanned
+        self.progressive, self.arith = progressive, arith
+        if progressive or arith:  # every coefficient over all scans
             self.pcoef = [0] * int(self.offset[-1])
+        if progressive:  # each coefficient's Al so far; -1: never scanned
             self.coef_bits = [[-1] * 64 for _ in range(n)]
+        if lossless:  # each component's samples (after its scan) and their Pt
+            self.samples, self.pt = [None] * n, [0] * n
 
     def downsampled(self, c):
         """(width, height) of component c's real samples."""
@@ -517,13 +1057,13 @@ class _Frame:
 
 
 def _scan_blocks(fr: _Frame, comps: list) -> tuple[list, int]:
-    """(block number in fr.coef, index in the scan) of every block in decode
-    order, and the blocks per MCU."""
+    """(block number in fr.coef, index in the scan) of every block (data
+    unit) in decode order, and the blocks per MCU."""
     if len(comps) == 1:  # non-interleaved: the component's own block raster
         c = comps[0]
         w, h = fr.downsampled(c)
-        by, bx = np.mgrid[0:-(-h // 8), 0:-(-w // 8)]
-        base = fr.offset[c] // 64 + (by * fr.bw[c] + bx).ravel()
+        by, bx = np.mgrid[0:-(-h // fr.unit), 0:-(-w // fr.unit)]
+        base = fr.offset[c] // fr.per + (by * fr.bw[c] + bx).ravel()
         return list(zip(base.tolist(), [0] * base.size)), 1
     my, mx = np.mgrid[0:fr.mcuy, 0:fr.mcux]
     my, mx = my.ravel()[:, None], mx.ravel()[:, None]
@@ -531,7 +1071,7 @@ def _scan_blocks(fr: _Frame, comps: list) -> tuple[list, int]:
     for i, c in enumerate(comps):
         yy, xx = np.mgrid[0:fr.v[c], 0:fr.h[c]]
         block = (my * fr.v[c] + yy.ravel()) * fr.bw[c] + mx * fr.h[c] + xx.ravel()
-        bases.append(fr.offset[c] // 64 + block)
+        bases.append(fr.offset[c] // fr.per + block)
         sel.append(np.full(block.shape, i))
     base, sel = np.concatenate(bases, 1), np.concatenate(sel, 1)
     return list(zip(base.ravel().tolist(), sel.ravel().tolist())), base.shape[1]
@@ -541,7 +1081,8 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
     """Decode one sequential scan starting at data[pos] into fr.coef ->
     the position of the marker after its entropy-coded data."""
     ns = body[0] if body else 0
-    if ns < 1 or ns > len(fr.ids) or len(body) < 4 + 2 * ns:  # at most 4, as libjpeg
+    if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
+            len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
         raise _corrupt("bad SOS segment")
     comps, dcls, acls = [], [], []
     for i in range(ns):
@@ -597,7 +1138,8 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart)
     """Decode one progressive scan starting at data[pos] into fr.pcoef ->
     the position of the marker after its entropy-coded data."""
     ns = body[0] if body else 0
-    if ns < 1 or ns > len(fr.ids) or len(body) < 4 + 2 * ns:  # at most 4, as libjpeg
+    if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
+            len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
         raise _corrupt("bad SOS segment")
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
@@ -653,6 +1195,108 @@ _SMOOTH_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
 _SMOOTH_COEFS = 10
 
 
+# jdcoefct.c decompress_smooth_data: each estimated coefficient's zigzag
+# position, its coef_bits index, and the weights of the 5 x 5 DC values
+# around the block (rows above to below, columns left to right), without
+# and with DC interpolation (only when no AC coefficient was ever scanned)
+def _weights(pairs):
+    w = np.zeros(25, np.int64)
+    for k, v in pairs:
+        w[k - 1] = v
+    return w
+
+
+_SMOOTH_AC = (
+    (1, _weights([(11, -7), (12, 50), (14, -50), (15, 7)]),  # AC01
+     _weights([(1, -1), (2, -1), (4, 1), (5, 1), (6, -3), (7, 13), (9, -13), (10, 3),
+               (11, -3), (12, 38), (14, -38), (15, 3), (16, -3), (17, 13), (19, -13), (20, 3),
+               (21, -1), (22, -1), (24, 1), (25, 1)])),
+    (2, _weights([(3, -7), (8, 50), (18, -50), (23, 7)]),  # AC10
+     _weights([(1, -1), (2, -3), (3, -3), (4, -3), (5, -1), (6, -1), (7, 13), (8, 38),
+               (9, 13), (10, -1), (16, 1), (17, -13), (18, -38), (19, -13), (20, 1), (21, 1),
+               (22, 3), (23, 3), (24, 3), (25, 1)])),
+    (3, _weights([(3, -1), (8, 13), (13, -24), (18, 13), (23, -1)]),  # AC20
+     _weights([(3, 1), (7, 2), (8, 7), (9, 2), (12, -5), (13, -14), (14, -5), (17, 2),
+               (18, 7), (19, 2), (23, 1)])),
+    (4, _weights([(10, 1), (16, 1), (17, -10), (19, 10), (2, -1), (20, -1), (22, 1),  # AC11
+                  (24, -1), (4, 1), (6, -1), (7, 10), (9, -10)]),
+     _weights([(1, -1), (5, 1), (7, 9), (9, -9), (17, -9), (19, 9), (21, 1), (25, -1)])),
+    (5, _weights([(11, -1), (12, 13), (13, -24), (14, 13), (15, -1)]),  # AC02
+     _weights([(7, 2), (8, -5), (9, 2), (11, 1), (12, 7), (13, -14), (14, 7), (15, 1),
+               (17, 2), (18, -5), (19, 2)])),
+    (6, None, _weights([(7, 1), (9, -1), (12, 2), (14, -2), (17, 1), (19, -1)])),  # AC03
+    (7, None, _weights([(7, 1), (8, -3), (9, 1), (17, -1), (18, 3), (19, -1)])),  # AC12
+    (8, None, _weights([(7, 1), (9, -1), (12, -3), (14, 3), (17, 1), (19, -1)])),  # AC21
+    (9, None, _weights([(7, 1), (8, 2), (9, 1), (17, -1), (18, -2), (19, -1)])),  # AC30
+)
+_SMOOTH_DC = _weights([(1, -2), (2, -6), (3, -8), (4, -6), (5, -2), (6, -6), (7, 6), (8, 42),
+                       (9, 6), (10, -6), (11, -8), (12, 42), (13, 152), (14, 42), (15, -8),
+                       (16, -6), (17, 6), (18, 42), (19, 6), (20, -6), (21, -2), (22, -6),
+                       (23, -8), (24, -6), (25, -2)])
+
+
+def _smooth_rows(v: int, total: int, height: int):
+    """The block rows decompress_smooth_data outputs and each one's five
+    rows of DC values (two above to two below), with its clamping at the
+    image's edges, quirk included: in the last iMCU row, short of
+    ``v`` block rows, its row numbers are counted in that row's height."""
+    out = []
+    for i in range(total):
+        rows = v if i < total - 1 else (height % v or v)
+        count = rows * total
+        for b in range(rows):
+            at, row = i * rows + b, i * v + b
+            up = row - 1 if at > 0 else row
+            up2 = row - 2 if at > 1 else up
+            down = row + 1 if at < count - 1 else row
+            down2 = row + 2 if at < count - 2 else down
+            out.append((row, (up2, up, row, down, down2)))
+    return out
+
+
+def _smooth(fr: _Frame) -> np.ndarray:
+    """jdcoefct.c decompress_smooth_data over a progressive frame whose low
+    AC coefficients are not all refined (``_smoothed``): in each block
+    still zero at one of the first nine AC positions, that coefficient
+    estimated from the 5 x 5 DC values around it, within 2^Al - 1 of
+    zero, and, where no AC coefficient was ever scanned, the DC smoothed
+    too; the DC values read are the coded ones -> the coefficients to
+    transform."""
+    coef = fr.coef.copy()
+    for c in range(len(fr.ids)):
+        bits, q = fr.coef_bits[c][:_SMOOTH_COEFS], fr.quant[c]
+        change_dc = all(b == -1 for b in bits[1:])
+        grid = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c], 64)
+        out = coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c], 64)
+        w, h = fr.downsampled(c)
+        cols, height = -(-w // 8), -(-h // 8)
+        rows = _smooth_rows(fr.v[c], fr.mcuy, height)
+        r, nb = np.array([x for x, _ in rows]), np.array([y for _, y in rows])
+        x5 = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
+        dc = grid[:, :, 0][nb[:, :, None, None], x5[None, None]]  # [rows, 5, cols, 5]
+        dc = dc.transpose(0, 2, 1, 3).reshape(len(rows), cols, 25)
+        ws = out[r, :cols].copy()
+        for zz, plain, interp in _SMOOTH_AC:
+            al = bits[zz]
+            weights = interp if change_dc else plain
+            if al == 0 or weights is None:
+                continue
+            qk = int(q[_ZIGZAG[zz]])
+            num = int(q[0]) * (dc @ weights)
+            mag = ((qk << 7) + np.abs(num)) // (qk << 8)
+            if al > 0:
+                mag = np.minimum(mag, (1 << al) - 1)
+            pred = np.where(num >= 0, mag, -mag)
+            ws[..., zz] = np.where(ws[..., zz] == 0, ((pred + 32768) & 0xFFFF) - 32768,
+                                   ws[..., zz])
+        if change_dc:
+            num = int(q[0]) * (dc @ _SMOOTH_DC)
+            mag = ((int(q[0]) << 7) + np.abs(num)) // (int(q[0]) << 8)
+            ws[..., 0] = ((np.where(num >= 0, mag, -mag) + 32768) & 0xFFFF) - 32768
+        out[r, :cols] = ws
+    return coef
+
+
 def _smoothed(fr: _Frame) -> bool:
     """Would libjpeg-turbo smooth this progressive image's blocks
     (jdcoefct.c:smoothing_ok once every scan is in)?"""
@@ -666,10 +1310,11 @@ def _smoothed(fr: _Frame) -> bool:
 
 
 def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
-    """Baseline JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
+    """JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (libjpeg-turbo: ISLOW IDCT, fancy
-    upsampling). Raises ValueError on what it does not read (see the
-    module docstring), naming ROADMAP item 26.
+    upsampling, block smoothing). Raises ValueError on what it does not
+    read (see the module docstring), naming ROADMAP item 26, and where
+    Pillow fails the file.
 
     native: the whole decode in one call of the host C++
     ``l2i_jpeg_decode`` (ops/csrc/jpeg_huffman.cpp, built with the kernels at
@@ -680,11 +1325,12 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
     data = bytes(data)
     if native:
         return _decode_c(data)
-    if data[:2] != b"\xff\xd8":
+    if data[:3] != b"\xff\xd8\xff":  # Pillow's test: SOI and a marker
         raise _corrupt("not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
+    dac = ([0] * 16, [1] * 16, [5] * 16)  # arithmetic conditioning: L, U, K
     restart, jfif, adobe = 0, False, None
-    fr, eoi = None, False
+    fr, eoi, limit, scans = None, False, PILLOW_BLOCK, 0
     pos = 2
     while True:
         nxt = data.find(b"\xff", pos)
@@ -700,23 +1346,40 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         if marker == 0xD9:  # EOI
             eoi = True
             break
-        if marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+        if marker == 0x00 or 0xD0 <= marker <= 0xD7:
             continue
+        if marker == 0x01 and scans:  # TEM (Pillow's own parser refuses it before a scan)
+            continue
+        if marker < 0xC0 or marker in (0xC8, 0xD8, 0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+            raise _corrupt(f"marker 0x{marker:02X} where libjpeg and Pillow take none")
         if marker in _SOF_REFUSED:
             raise _refuse(_SOF_REFUSED[marker])
-        if marker == 0xCC:
-            raise _refuse("arithmetic-coded (DAC)")
         body, after = _segment(data, pos)
-        if marker in (0xC0, 0xC1, 0xC2):
+        while after > limit:  # libjpeg suspends in a marker; Pillow reads on
+            limit += PILLOW_BLOCK
+        if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if fr is not None:
                 raise _corrupt("a second frame")
-            fr = _Frame(body, progressive=marker == 0xC2)
+            fr = _Frame(body, progressive=marker in (0xC2, 0xCA), arith=marker >= 0xC9,
+                        lossless=marker == 0xC3)
+        elif marker == 0xCC:  # DAC (jdmarker.c get_dac)
+            if len(body) % 2:
+                raise _corrupt("bad DAC segment")
+            for i in range(0, len(body), 2):
+                index, val = body[i], body[i + 1]
+                if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                    raise _corrupt("bad DAC segment")
+                if index >= 16:
+                    dac[2][index - 16] = val
+                else:
+                    dac[0][index], dac[1][index] = val & 15, val >> 4
         elif marker == 0xC4:  # DHT
             i = 0
             while i < len(body):
                 tc_th, counts = body[i], body[i + 1:i + 17]
                 n = sum(counts)
-                if len(counts) < 16 or i + 17 + n > len(body) or tc_th >> 4 > 1:
+                if len(counts) < 16 or i + 17 + n > len(body) or tc_th >> 4 > 1 or \
+                        tc_th & 15 > 3 or n > 256:
                     raise _corrupt("bad DHT segment")
                 (ac_tabs if tc_th >> 4 else dc_tabs)[tc_th & 15] = (
                     bytes(counts), bytes(body[i + 17:i + 17 + n]))
@@ -726,13 +1389,15 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
                 size = 128 if pq else 64
-                if i + 1 + size > len(body):
+                if i + 1 + size > len(body) or tq > 3:
                     raise _corrupt("bad DQT segment")
                 q = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
                 qt[tq] = q.astype(np.int64)[_UNZIGZAG]  # natural order
                 i += 1 + size
         elif marker == 0xDD:  # DRI
-            restart = int.from_bytes(body[:2], "big")
+            if len(body) != 2:
+                raise _corrupt("bad DRI segment")
+            restart = int.from_bytes(body, "big")
         elif marker == 0xDC:
             raise _refuse("DNL-height")
         elif marker == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
@@ -742,17 +1407,28 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if fr is None:
                 raise _corrupt("scan before the frame header")
-            scan = _decode_progressive_scan if fr.progressive else _decode_scan
-            after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart)
+            scans += 1
+            if fr.lossless:
+                after = _decode_lossless_scan(fr, body, data, after, dc_tabs, restart)
+            elif fr.arith:
+                after = _decode_arith_scan(fr, body, data, after, qt, restart, dac, limit)
+            else:
+                scan = _decode_progressive_scan if fr.progressive else _decode_scan
+                after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart)
         pos = after
     if fr is None or not all(fr.scanned):
         raise _corrupt("truncated data (no scan for every component)")
     if fr.progressive:
         if not eoi:  # more scans may have been to come
             raise _corrupt("truncated data (a progressive file with no EOI)")
-        if _smoothed(fr):
-            raise _refuse("block-smoothed progressive (AC coefficients left unrefined)")
+    if fr.lossless:
+        if not eoi:  # libjpeg-turbo reads on for its last bits, and Pillow has none
+            raise _corrupt("truncated data (a lossless file with no EOI)")
+        return _assemble_lossless(fr, jfif, adobe)
+    if fr.progressive or fr.arith:
         fr.coef = np.asarray(fr.pcoef, np.int64)
+    if fr.progressive and _smoothed(fr):
+        fr.coef = _smooth(fr)
     return _assemble(fr, jfif, adobe)
 
 
@@ -806,7 +1482,6 @@ def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
 _C_ERRORS = {
     -10: lambda v: _corrupt("not a JPEG file (no SOI marker)"),
     -11: lambda v: _refuse(_SOF_REFUSED[v]),
-    -12: lambda v: _refuse("arithmetic-coded (DAC)"),
     -13: lambda v: _corrupt("truncated data (a marker segment runs past the end)"),
     -14: lambda v: _corrupt("a second frame"),
     -15: lambda v: _corrupt("short SOF segment"),
@@ -833,7 +1508,18 @@ _C_ERRORS = {
     -38: lambda v: MemoryError("jpeg: out of memory"),
     -39: lambda v: _corrupt("bad progressive scan parameters"),
     -40: lambda v: _corrupt("truncated data (a progressive file with no EOI)"),
-    -41: lambda v: _refuse("block-smoothed progressive (AC coefficients left unrefined)"),
+    -42: lambda v: _corrupt("bad DAC segment"),
+    -43: lambda v: _pillow_block(),
+    -44: lambda v: _corrupt(f"marker 0x{v:02X} where libjpeg and Pillow take none"),
+    -45: lambda v: _corrupt("bad DRI segment"),
+    -46: lambda v: _bomb(v >> 16, v & 0xFFFF),
+    -47: lambda v: _corrupt("bad lossless scan parameters"),
+    -48: lambda v: _corrupt("a restart interval of no whole number of MCU rows"),
+    -49: lambda v: _corrupt("a lossless YCbCr file: libjpeg-turbo converts no colour in "
+                            "lossless mode, and Pillow fails it"),
+    -50: lambda v: _corrupt("a lossless YCCK file: libjpeg-turbo converts no colour in "
+                            "lossless mode, and Pillow fails it"),
+    -51: lambda v: _corrupt("truncated data (a lossless file with no EOI)"),
 }
 _OUT_SIZE = -37
 

@@ -134,11 +134,16 @@ def test_every_filter_type_at_every_colour_type_and_depth(color, depth):
 
 
 def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
-    rows = np.zeros((4, 8), np.uint8)
-    with pytest.raises(ValueError, match="16-bit"):
-        im.png_decode_rgb(_png(rows, 4, 4, 16, 0))
-    with pytest.raises(ValueError, match="Adam7 interlace"):
-        im.png_decode_rgb(_png(rows[:, :4], 4, 4, 8, 0, interlace=1))
+    """16-bit and Adam7 PNGs and WEBP, which this test once held refused,
+    decode as Pillow decodes them; a file of another kind raises naming
+    it and ROADMAP item 28."""
+    rows = (np.arange(96) * 7 % 256).astype(np.uint8).reshape(4, 24)
+    data = _png(rows, 4, 4, 16, 2)  # 16-bit RGB, 4 x 4
+    np.testing.assert_array_equal(im.png_decode_rgb(data), _pillow_rgb(data))
+    one = _chunk(b"IHDR", struct.pack(">IIBBBBB", 1, 1, 8, 0, 0, 0, 1))
+    data = (b"\x89PNG\r\n\x1a\n" + one + _chunk(b"IDAT", zlib.compress(b"\x00\x7f"))
+            + _chunk(b"IEND", b""))  # Adam7 at 1 x 1: only the first pass has a row
+    np.testing.assert_array_equal(im.png_decode_rgb(data), _pillow_rgb(data))
     arr = np.zeros((8, 8, 3), np.uint8)
     path = tmp_path / "x.jpg"  # baseline JPEG: decoded as Pillow decodes it
     PIL.Image.fromarray(arr).save(path, format="JPEG")
@@ -150,7 +155,11 @@ def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
                                   np.asarray(PIL.Image.open(path).convert("RGB")))
     path = tmp_path / "y.webp"
     PIL.Image.fromarray(arr).save(path, format="WEBP")
-    with pytest.raises(ValueError, match="WEBP.*item 26"):
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
+    path = tmp_path / "z.gif"
+    PIL.Image.fromarray(arr).save(path, format="GIF")
+    with pytest.raises(ValueError, match=r"z\.gif.*GIF.*item 28"):
         im.read_image_rgb(str(path))
     path = tmp_path / "x.png"
     path.write_bytes(im.png_bytes(arr))

@@ -48,6 +48,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     # the parallel modes too (their launched ranks import only the port)
     assert {"mesh.py", "spatial.py", "launch.py", "dryrun.py"} <= {
         os.path.basename(f) for f in files if os.sep + "parallel" + os.sep in f}
+    # and the image readers (PNG, JPEG, WEBP)
+    assert {"image.py", "jpeg.py", "webp.py"} <= {
+        os.path.basename(f) for f in files if os.sep + "utils" + os.sep in f}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -162,7 +165,7 @@ def test_kernel_build_is_one_nvcc_compile_per_source_then_one_link(monkeypatch):
     assert len(srcs) == len(compiles)  # one nvcc call per source, run together
     assert {os.path.basename(s) for s in srcs} >= {
         "fused_act.cu", "upfirdn2d.cu", "styled_conv3x3.cu", "jpeg_huffman.cpp",
-        "resample.cpp"}
+        "resample.cpp", "webp_decode.cpp"}
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]

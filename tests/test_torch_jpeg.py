@@ -10,11 +10,13 @@ from seeded numpy images:
   samples wide); quality 50 and 95; optimised Huffman tables; restart
   markers every MCU row and every 3 MCUs;
 - every layout is held exactly: none is gated at one level;
-- what it does not read raises naming ROADMAP item 26 (arithmetic-coded,
-  lossless, hierarchical and 12-bit frames, WEBP through ``read_image_rgb``),
-  and so does nothing else; progressive and CMYK files, once refused, decode
-  as Pillow decodes them (tests/test_torch_jpeg_progressive.py holds them
-  in full); truncated data raises;
+- what it does not read raises naming ROADMAP item 26 (arithmetic-coded
+  lossless, hierarchical and 12-bit frames, which Pillow fails too), and so
+  does nothing else; progressive, CMYK, arithmetic-coded and lossless files
+  and WEBP through ``read_image_rgb``, once refused, decode as Pillow
+  decodes them (tests/test_torch_jpeg_progressive.py,
+  tests/test_torch_image_kinds.py and tests/test_torch_webp.py hold them in
+  full); truncated data raises;
 - the committed fixtures of chip_smoke.py's phase 38 decode to their
   recorded Pillow decodes;
 - the inversion CLI's ``load_images`` on a directory of JPEGs equals the JAX
@@ -115,11 +117,15 @@ def test_other_sampling_factors_and_adobe_rgb_decode_as_pillow():
 
 
 def test_what_the_decoder_does_not_read_raises_naming_item_26(tmp_path):
-    """Progressive and CMYK files, which this test once held refused, now
-    decode as Pillow decodes them, through ``read_image_rgb`` too. What
-    still raises naming item 26: a frame marker of the arithmetic-coded,
-    lossless or hierarchical kinds, 12-bit precision (each written over a
-    baseline file's SOF0), and WEBP."""
+    """Progressive, CMYK and WEBP files, which this test once held refused,
+    now decode as Pillow decodes them, through ``read_image_rgb`` too; so
+    does a baseline file's SOF0 rewritten to SOF9, now a corrupt
+    arithmetic-coded file that Pillow decodes to noise without an error;
+    rewritten to SOF3 it is a lossless file whose scan asks for predictor
+    0, which the decoder refuses as libjpeg-turbo does (and Pillow fails).
+    What still raises naming item 26: a frame marker of the arithmetic-coded
+    lossless or hierarchical kinds and 12-bit precision (each written over
+    a baseline file's SOF0)."""
     arr = _image(24, 24, 11, True)
     for what, data in {"progressive": _jpeg(arr, progressive=True),
                        "CMYK": _jpeg(arr, "CMYK")}.items():
@@ -130,10 +136,16 @@ def test_what_the_decoder_does_not_read_raises_naming_item_26(tmp_path):
                                       np.asarray(PIL.Image.open(path).convert("RGB")))
     base = _jpeg(arr)
     sof = base.index(b"\xff\xc0")
+    _assert_decodes_as_pillow(base[:sof + 1] + b"\xc9" + base[sof + 2:])
+    lossless = base[:sof + 1] + b"\xc3" + base[sof + 2:]
+    with pytest.raises(ValueError, match="bad lossless scan parameters"):
+        jpeg_decode_rgb(lossless)
+    with pytest.raises(OSError):
+        PIL.Image.open(io.BytesIO(lossless)).convert("RGB")
     for what, data in {
-            "arithmetic-coded": base[:sof + 1] + b"\xc9" + base[sof + 2:],
-            "lossless": base[:sof + 1] + b"\xc3" + base[sof + 2:],
+            "arithmetic-coded lossless": base[:sof + 1] + b"\xcb" + base[sof + 2:],
             "hierarchical": base[:sof + 1] + b"\xc5" + base[sof + 2:],
+            "arithmetic-coded hierarchical": base[:sof + 1] + b"\xcd" + base[sof + 2:],
             "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:]}.items():
         with pytest.raises(ValueError, match=f"{what}.*item 26"):
             jpeg_decode_rgb(data)
@@ -143,8 +155,8 @@ def test_what_the_decoder_does_not_read_raises_naming_item_26(tmp_path):
             im.read_image_rgb(str(path))
     path = tmp_path / "x.webp"
     PIL.Image.fromarray(arr).save(path, "WEBP")
-    with pytest.raises(ValueError, match=r"x\.webp.*WEBP.*item 26"):
-        im.read_image_rgb(str(path))
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
 
 
 def test_truncated_and_corrupt_data_raise():

@@ -10,9 +10,9 @@ images:
 - CMYK, sequential and progressive, and YCCK (a Pillow CMYK file with its
   Adobe transform set to 2, which Pillow then decodes as YCCK); the CMYK to
   RGB step over every (C, K) pair against Pillow's own conversion;
-- a progressive file whose AC coefficients stay unrefined (libjpeg-turbo
-  would smooth its blocks) raises naming ROADMAP item 26, a progressive
-  file cut short or with a bad scan header raises;
+- a progressive file whose AC coefficients stay unrefined decodes as
+  Pillow decodes it (libjpeg-turbo smooths its blocks), a progressive file
+  cut short or with a bad scan header raises;
 - the host C++ equals the Python decoder on all of these, on the committed
   fixtures and on corrupted and truncated progressive and CMYK files (the
   same image or the same error); skipped where no C++ compiler builds it;
@@ -141,13 +141,13 @@ def test_unrefined_smoothed_truncated_and_bad_progressive_files_raise():
     segs = _segments(data)
     scans = [(p, e) for m, p, e in segs if m == 0xDA]
     assert len(scans) >= 6
-    # the DC scans alone: libjpeg-turbo smooths the blocks, the port raises
+    # the DC scans alone: libjpeg-turbo smooths the blocks (refused until the
+    # decoder smoothed them too, hence the name): as Pillow
     ns = lambda p: data[p + 4]  # noqa: E731
     dc_only = b"\xff\xd8" + b"".join(data[p:e] for m, p, e in segs
                                      if m != 0xDA or data[p + 5 + 2 * ns(p)] == 0)
     assert _pillow(dc_only).shape == (64, 64, 3)
-    with pytest.raises(ValueError, match="block-smoothed progressive.*item 26"):
-        jpeg.jpeg_decode_rgb(dc_only)
+    _assert_decodes_as_pillow(dc_only)
     with pytest.raises(ValueError, match="no EOI"):  # cut before the last scan
         jpeg.jpeg_decode_rgb(data[:scans[-1][0]])
     with pytest.raises(OSError):
@@ -196,8 +196,11 @@ def test_the_c_decode_is_the_python_decode(native):  # noqa: F811
 def test_the_c_decode_fails_as_the_python_decode_on_bad_data(native):  # noqa: F811
     rng = np.random.RandomState(4)
     kinds = {True: 0, False: 0}
-    for name in ("prog_restart_120x100_420", "cmyk_prog_64x48", "prog_odd_37x53_420"):
-        with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
+    arith = sorted(glob.glob(os.path.join(HERE, "fixtures", "torch_image_kinds", "*.jpg")))
+    assert len(arith) == 8  # arithmetic-coded, lossless, smoothed progressive
+    for path in [os.path.join(FIXTURES, f"{name}.jpg") for name in (
+            "prog_restart_120x100_420", "cmyk_prog_64x48", "prog_odd_37x53_420")] + arith:
+        with open(path, "rb") as f:
             src = f.read()
         for cut in range(len(src) // 3, len(src), len(src) // 9):
             kinds[_same(src[:cut])] += 1

@@ -46,7 +46,10 @@ TERMS = ("loss", "reg_loss", "content_loss", "gan_loss")
 
 # The walk gradient of a step goes through every tower in f32; the port's and
 # the JAX step's differ by up to 2.8e-4 * max|g| (nn_w at OMP_NUM_THREADS=1,
-# 5e-6 elsewhere), as the loss terms differ at 1e-4: GRAD_ATOL (times
+# 5e-6 elsewhere: there one ReLU input of the regressor lies within f32
+# rounding of zero, and the port's one-thread convolutions land it on the
+# other side than f64 does, ROADMAP C.9, scripts/torch_walk_relu_tie.py),
+# as the loss terms differ at 1e-4: GRAD_ATOL (times
 # max|g|) holds them with margin. Below SIGN_FLOOR * max|g|, about ten times
 # the largest gap and just above GRAD_ATOL's sign resolution, a gradient
 # entry's sign, and so its first Adam move of about lr * sign(g), may follow
