@@ -1727,10 +1727,11 @@ def train_1024_phase(results_hi, grad_limit, dev):
     return out
 
 
-def eval_1024_phase(opt_yml, walk_path):
-    """`python -m latent2im_tpu_torch.cli.eval` on the walk phase 14 saved,
-    two processes at once: whitened and --ref_parity preprocessing."""
-    root = os.path.join(REPO, "chiprun_out", "eval1024")
+def eval_phase(opt_yml, walk_path):
+    """`python -m latent2im_tpu_torch.cli.eval` on a saved walk (a 256 px
+    one since PR 17, ``eval_256_walk``; phase 14's 1024 px one before), two
+    processes at once: whitened and --ref_parity preprocessing."""
+    root = os.path.join(REPO, "chiprun_out", "eval")
     runs = {"whitened": (), "reference": ("--ref_parity",)}
     procs = {}
     for mode, extra in runs.items():
@@ -1768,9 +1769,26 @@ def eval_1024_phase(opt_yml, walk_path):
     return out
 
 
+def eval_256_walk():
+    """Phase 15's input: a run directory at SIZE px (opt.yml) and a zero
+    linear_w walk saved in it -> (opt.yml, the walk). On the random towers
+    a walk trained at 256 px (phase 10's) moved every sample's target score
+    by more than the last bucket's 1.0 (PR 17, run 1), so the buckets came
+    out empty; a zero walk puts every sample in the first."""
+    import torch
+
+    from latent2im_tpu_torch.io import checkpoint as ckpt
+
+    conf = train_conf(size=SIZE, batch=BATCH_HI, root=os.path.join(REPO, "chiprun_out", "eval"),
+                      print_opt=True)
+    walk = {"w": torch.zeros(1, 2 * int(math.log2(SIZE)) - 2, 512)}
+    return (os.path.join(conf.output_dir, "opt.yml"),
+            ckpt.save_walk(conf.output_dir, 1, walk, final=True))
+
+
 def hi_phases(card, dev, grad_limit):
     """Phases 11-15 -> the 1024 px kernel results, their launches per path
-    and the phases' reports."""
+    and the phases' reports; phase 15 runs the eval CLI at SIZE px."""
     import torch
 
     log(f"[11] kernels against their plain versions at the {SIZE_HI} px B={BATCH_HI} "
@@ -1805,10 +1823,10 @@ def hi_phases(card, dev, grad_limit):
     log(f"    one plain step under torch.profiler: {json.dumps(train['profile'])}")
     torch.cuda.empty_cache()
 
-    log(f"[15] python -m latent2im_tpu_torch.cli.eval at {SIZE_HI} px, whitened and "
-        "--ref_parity")
+    log(f"[15] python -m latent2im_tpu_torch.cli.eval at {SIZE} px (a zero walk), "
+        "whitened and --ref_parity")
     t = time.perf_counter()
-    out["eval"] = eval_1024_phase(train["opt_yml"], train["walk_path"])
+    out["eval"] = eval_phase(*eval_256_walk())
     out["eval"]["seconds"] = time.perf_counter() - t
     log(f"    {json.dumps(out['eval'])}")
     return out
@@ -4391,18 +4409,18 @@ def loader_phase(dev, reg, gan_png, gan_jpeg):
     for label, name in JPEG_TIMED.items():
         with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
             data = f.read()
-        c = jpeg.jpeg_decode_rgb(data, native=True)
+        c = jpeg.jpeg_decode_rgb(data, host_cpp=True)
         py = jpeg.jpeg_decode_rgb(data)
         assert c.shape == py.shape and np.array_equal(c, py), name
         out["decode_ms"][label] = {
-            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, native=True)),
+            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, host_cpp=True)),
             "python": _median_ms(lambda: jpeg.jpeg_decode_rgb(data))}
         path = os.path.join(JPEG_FIXTURES, f"{name}.jpg")
-        assert np.array_equal(imgmod.load_and_resize_image(path, REG_SIZE, native=True),
-                              imgmod.load_and_resize_image(path, REG_SIZE))
+        assert np.array_equal(imgmod.pillow_load_and_resize(path, REG_SIZE, host_cpp=True),
+                              imgmod.pillow_load_and_resize(path, REG_SIZE))
         out["load_resize_ms"][label] = {
-            "c": _median_ms(lambda: imgmod.load_and_resize_image(path, REG_SIZE, native=True)),
-            "python": _median_ms(lambda: imgmod.load_and_resize_image(path, REG_SIZE))}
+            "c": _median_ms(lambda: imgmod.pillow_load_and_resize(path, REG_SIZE, True)),
+            "python": _median_ms(lambda: imgmod.pillow_load_and_resize(path, REG_SIZE))}
     log(f"    decode ms per photo (C, Python): {json.dumps(out['decode_ms'])}")
     log(f"    decode + centre crop + resize to {REG_SIZE} px (C, Python): "
         f"{json.dumps(out['load_resize_ms'])}")
@@ -4431,7 +4449,7 @@ def loader_phase(dev, reg, gan_png, gan_jpeg):
         dev, memory_format=torch.channels_last)
     _, train_step, _ = tr.make_steps(model, REG_LR)
     labels = torch.rand(len(paths), REG_OUT, generator=torch.Generator().manual_seed(1))
-    with tr.make_loader(paths, REG_SIZE, native=True) as loader:
+    with tr.make_loader(paths, REG_SIZE, host_cpp=True) as loader:
         stream = loader.batches(idx)
         u8, i = next(stream)
         train_step(tr.normalize(u8, dev), labels[i].to(dev))  # warmup
@@ -5811,7 +5829,7 @@ def jpeg_progressive_phase(dev):
     """Phase 52: every fixture of tests/fixtures/torch_jpeg_progressive/
     (progressive gray and 4:4:4 / 4:2:2 / 4:2:0, an odd size, restart
     intervals, CMYK sequential and progressive, YCCK) decoded by the Python
-    decoder and by the host C++ (``native=True``), each equal to its
+    decoder and by the host C++ (``host_cpp=True``), each equal to its
     recorded Pillow decode; decode ms per photo of each (median of 3); the
     regressor trainer's loader on a folder of them (C and Python batches
     equal, batches/s); ``python -m latent2im_tpu_torch.cli.bp`` on the
@@ -5846,26 +5864,26 @@ def _jpeg_progressive_phase(dev, root):
         paths.append(path)
         with open(path, "rb") as f:
             data = f.read()
-        for native in (False, True):
-            got = jpeg.jpeg_decode_rgb(data, native=native)
+        for route in (False, True):
+            got = jpeg.jpeg_decode_rgb(data, host_cpp=route)
             ok = (list(got.shape) == meta[name]["shape"] and np.array_equal(got, npz[name])
                   and hashlib.sha256(got.tobytes()).hexdigest() == meta[name]["sha256"])
             if not ok:
-                raise AssertionError(f"{name}.jpg (native={native}) does not decode to its "
+                raise AssertionError(f"{name}.jpg (host_cpp={route}) does not decode to its "
                                      "Pillow decode")
         out["decode_ms"][name] = {
-            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, native=True)),
+            "c": _median_ms(lambda: jpeg.jpeg_decode_rgb(data, host_cpp=True)),
             "python": _median_ms(lambda: jpeg.jpeg_decode_rgb(data))}
     log(f"    {len(names)} fixtures equal to their Pillow decodes in Python and C++; decode "
         f"ms per photo (C, Python): {json.dumps(out['decode_ms'])}")
 
     idx = list(tr.index_batches(np.arange(len(paths)), 4))
     batches = {}
-    for native in (True, False):
+    for route in (True, False):
         t0 = time.perf_counter()
-        with tr.make_loader(paths, REG_SIZE, native=native) as loader:
-            batches[native] = list(loader.batches(idx))
-        out[f"loader_batches_per_s_{'c' if native else 'python'}"] = (
+        with tr.make_loader(paths, REG_SIZE, host_cpp=route) as loader:
+            batches[route] = list(loader.batches(idx))
+        out[f"loader_batches_per_s_{'c' if route else 'python'}"] = (
             len(idx) / (time.perf_counter() - t0))
     assert len(batches[True]) == len(idx) == 3
     for (a, ia), (b, ib) in zip(batches[True], batches[False]):
@@ -5912,7 +5930,7 @@ def image_kinds_phase(dev):
     """Phase 53: every fixture of tests/fixtures/torch_image_kinds/ decoded
     by ``read_image_rgb`` in Python, and the WEBPs and the JPEGs (arithmetic-
     coded, lossless, block-smoothed progressive) also by the host C++
-    (``native=True``), each equal to its recorded Pillow decode
+    (``host_cpp=True``), each equal to its recorded Pillow decode
     (the 256 px photos by their SHA-256); decode ms per photo on each route
     (median of 3); ``python -m latent2im_tpu_torch.cli.bp`` on a folder of
     the 256 px lossy WEBP, the animated WEBP and the 256 px 16-bit PNG
@@ -5938,25 +5956,26 @@ def _image_kinds_phase(dev, root):
         meta = json.load(f)
     npz = np.load(os.path.join(KINDS_FIXTURES, "decodes.npz"))
     files = sorted(f for f in os.listdir(KINDS_FIXTURES) if f.endswith((".webp", ".jpg", ".png")))
-    assert sorted(os.path.splitext(f)[0] for f in files) == sorted(
-        k for k in meta if k != "pillow") and len(files) == 29, files
+    assert sorted(os.path.splitext(f)[0] for f in files) == sorted(  # GIF, BMP, TIFF: phase 54
+        k for k in meta if k != "pillow" and not k.startswith(("gif_", "bmp_", "tiff_"))) \
+        and len(files) == 29, files
     out = {"decode_ms": {}}
     for name in files:
         key = os.path.splitext(name)[0]
         path = os.path.join(KINDS_FIXTURES, name)
         routes = (False, True) if name.endswith((".jpg", ".webp")) else (False,)
-        for native in routes:
-            got = imgmod.read_image_rgb(path, native=native)
+        for route in routes:
+            got = imgmod.read_image_rgb(path, host_cpp=route)
             ok = (list(got.shape) == meta[key]["shape"]
                   and hashlib.sha256(got.tobytes()).hexdigest() == meta[key]["sha256"]
                   and (key not in npz.files or np.array_equal(got, npz[key])))
             if not ok:
-                raise AssertionError(f"{name} (native={native}) does not decode to its "
+                raise AssertionError(f"{name} (host_cpp={route}) does not decode to its "
                                      "Pillow decode")
         out["decode_ms"][key] = {
-            ("c" if native else "python"): _median_ms(
-                lambda native=native: imgmod.read_image_rgb(path, native=native))
-            for native in routes}
+            ("c" if route else "python"): _median_ms(
+                lambda route=route: imgmod.read_image_rgb(path, host_cpp=route))
+            for route in routes}
     log(f"    {len(files)} fixtures equal to their Pillow decodes (WEBP and JPEG in Python "
         f"and C++); decode ms per photo: {json.dumps(out['decode_ms'])}")
 
@@ -5988,6 +6007,203 @@ def _image_kinds_phase(dev, root):
     log(f"    bp on {', '.join(KINDS_BP_PHOTOS)}: {out['bp_seconds']:.1f} s, loss (first, "
         f"last) {out['bp_loss']}")
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 54: the native path (latent2im_tpu_torch/native/), item 28's formats
+# ---------------------------------------------------------------------------
+
+NATIVE_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_native")
+NATIVE_TIMED = {"256x256": ("torch_jpeg/photo_256_422.jpg", 256),
+                "1024x1024": ("torch_jpeg/photo_1024_420.jpg", 1024)}
+NATIVE_GAN_ITERS = 2
+
+
+def native_phase(dev):
+    """Phase 54 in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:  # the regressor's ~0.6 GB of checkpoints
+        return _native_phase(dev, root)
+
+
+def _sha256(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a, np.uint8).tobytes()).hexdigest()
+
+
+def _native_phase(dev, root):
+    """Phase 54: (1) every recording of tests/fixtures/torch_native/native.json
+    (what the JAX package's extension makes of each photo at sizes below, at
+    and above its crop, and its epoch orders) equal in Python and through
+    the host C++, and ms per photo of each route at 256 and 1024 px; (2)
+    --updateGAN (phase 21's run, 256 px B=4, a warmup and NATIVE_GAN_ITERS
+    counted iterations) on the native stream of the recorded directory, each
+    batch's SHA-256 the JAX stream's, launches as path ``gan_native``; (3)
+    the regressor CLI on a split whose training list holds a GIF and a CMYK
+    JPEG (black there) and whose test list a GIF, a BMP and a TIFF (read as
+    Pillow reads them): its batches the JAX trainer's recorded ones, its
+    lines; (4) the GIF, BMP and TIFF fixtures equal to their Pillow decodes."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.cli import train as tcli
+    from latent2im_tpu_torch.cli import train_regressor as tr
+    from latent2im_tpu_torch.native import _l2i_native as nat
+    from latent2im_tpu_torch.native import order
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    fix = os.path.dirname(NATIVE_FIXTURES)
+    with open(os.path.join(NATIVE_FIXTURES, "native.json")) as f:
+        rec = json.load(f)
+    out = {"launches": {}}
+    # (1) the recordings, both routes
+    n_checked = 0
+    for rel, sizes in rec["load_resize"].items():
+        path = os.path.join(fix, rel)
+        for size, want in sizes.items():
+            for route in (False, True):
+                try:
+                    got = _sha256(nat.load_resize(path, int(size), host_cpp=route))
+                except OSError:
+                    got = "fail"
+                if got != want:
+                    raise AssertionError(f"{rel} at {size} px (host_cpp={route}): {got}, "
+                                         f"recorded {want}")
+                n_checked += 1
+    for key, epochs in rec["orders"].items():
+        n, b = map(int, key.split("_"))
+        o = list(range(n))
+        for e, want in enumerate(epochs):
+            order.std_shuffle(o, e)
+            assert [o[i:i + b] for i in range(0, n, b)] == want, (key, e)
+    out["ms_per_photo"] = {
+        label: {route: _median_ms(lambda rel=rel, size=size, c=(route == "c"): nat.load_resize(
+            os.path.join(fix, rel), size, host_cpp=c)) for route in ("c", "python")}
+        for label, (rel, size) in NATIVE_TIMED.items()}
+    log(f"    {n_checked} decodes (Python and C++) and {len(rec['orders'])} epoch orders equal "
+        f"to the JAX extension's; decode + resize ms per photo: {json.dumps(out['ms_per_photo'])}")
+
+    # (2) --updateGAN on the native stream
+    real_dir = os.path.join(root, "real")
+    os.makedirs(real_dir)
+    for name, rel in rec["gan_stream"]["files"].items():
+        shutil.copy(os.path.join(fix, rel), os.path.join(real_dir, name))
+    assert (rec["gan_stream"]["size"], rec["gan_stream"]["batch"]) == (SIZE, BATCH)
+    seen = []
+    real_make = tcli._make_real_batcher
+
+    def recording(*a, **kw):
+        nxt = real_make(*a, **kw)
+
+        def next_batch(load=True):
+            b = nxt(load)
+            if load:
+                seen.append(_sha256(b))
+            return b
+
+        next_batch.loader = nxt.loader
+        return next_batch
+
+    tcli._make_real_batcher = recording
+    try:
+        gan = gan_train_phase(dev, iters=NATIVE_GAN_ITERS, real_dir=real_dir)
+    finally:
+        tcli._make_real_batcher = real_make
+    want = rec["gan_stream"]["sha256"][:NATIVE_GAN_ITERS + 1]
+    assert seen == want, ("the --updateGAN batches are not the JAX native stream", seen, want)
+    out["launches"]["gan_native"] = gan.pop("launches")
+    out["gan"] = {k: gan[k] for k in ("iteration_ms_cuda_events", "d_step_ms_cuda_events",
+                                      "g_step_ms_cuda_events", "peak_mem_gb")}
+    log(f"    --updateGAN on the native stream: {len(seen)} batches equal to the JAX stream; "
+        f"{gan['iteration_ms_cuda_events']:.1f} ms an iteration (CUDA events); launches "
+        f"{json.dumps(out['launches']['gan_native'])}")
+    torch.cuda.empty_cache()
+
+    # (3) the regressor CLI on GIF, BMP, TIFF and a CMYK JPEG
+    reg = rec["regressor"]
+    data_dir, split_dir = os.path.join(root, "reg"), os.path.join(root, "split")
+    os.makedirs(split_dir)
+    for key, rel in reg["files"].items():
+        os.makedirs(os.path.join(data_dir, os.path.dirname(key)), exist_ok=True)
+        shutil.copy(os.path.join(fix, rel), os.path.join(data_dir, key))
+    for part, keys in reg["split"].items():
+        with open(os.path.join(split_dir, f"{part}.txt"), "w") as f:
+            f.write("\n".join(keys) + "\n")
+    with open(os.path.join(root, "labels.tsv"), "w") as f:
+        for i, key in enumerate(reg["files"]):
+            f.write(key + "".join(f"\t{(i * 7 + k) % 10 / 10:.1f},1" for k in range(REG_OUT))
+                    + "\n")
+    got_train, got_test = [], []
+    real_batches, real_loader = tr.native_batches, tr.make_loader
+
+    def native_batches(loader):
+        for u8, idx in real_batches(loader):
+            got_train.append({"idx": list(idx), "sha256": _sha256(u8)})
+            yield u8, idx
+
+    class TestLoader:
+        def __init__(self, paths, size, host_cpp):
+            self.pool = real_loader(paths, size, host_cpp)
+
+        def batches(self, idx):
+            for u8, i in self.pool.batches(idx):
+                got_test.append({"idx": [int(v) for v in i], "sha256": _sha256(u8)})
+                yield u8, i
+
+        def close(self):
+            self.pool.close()
+
+    tr.native_batches, tr.make_loader = native_batches, TestLoader
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tr.main(["--data_dir", data_dir, "--label_path", os.path.join(root, "labels.tsv"),
+                     "--split_dir", split_dir, "--ckpt_dir", os.path.join(root, "ckpt"),
+                     "--image_size", str(reg["size"]), "--batch_size", str(reg["batch"]),
+                     "--n_epochs", "2"], device=dev)
+    finally:
+        tr.native_batches, tr.make_loader = real_batches, real_loader
+    lines = buf.getvalue().splitlines()
+    n_train, n_test = len(reg["split"]["training"]), len(reg["split"]["test"])
+    assert lines[:2] == [f"train {n_train} / test {n_test} images", "native loader: True"], lines
+    test_line = [ln for ln in lines if ln.startswith("Test epoch 1; Loss: ")]
+    assert len(test_line) == 1 and math.isfinite(float(test_line[0].rsplit(" ", 1)[1])), lines
+    want_train = [{"idx": b["idx"], "sha256": b["sha256"]} for b in reg["training"]]
+    assert got_train == want_train, ("training batches", got_train, want_train)
+    assert got_test == reg["test"], ("test batches", got_test, reg["test"])
+    out["regressor"] = {"lines": lines, "seconds": time.perf_counter() - t0,
+                        "train_batches": len(got_train), "test_batches": len(got_test)}
+    log(f"    regressor CLI: {len(got_train)} training batches (native) and {len(got_test)} test "
+        f"batches (Pillow) equal to the JAX trainer's; {test_line[0]}")
+    torch.cuda.empty_cache()
+
+    # (4) item 28's fixtures
+    with open(os.path.join(KINDS_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(KINDS_FIXTURES, "decodes.npz"))
+    names = sorted(f for f in os.listdir(KINDS_FIXTURES) if f.endswith((".gif", ".bmp", ".tif")))
+    assert len(names) == 11, names
+    out["item28_decode_ms"] = {}
+    for name in names:
+        key = os.path.splitext(name)[0]
+        path = os.path.join(KINDS_FIXTURES, name)
+        got = imgmod.read_image_rgb(path)
+        if list(got.shape) != meta[key]["shape"] or _sha256(got) != meta[key]["sha256"] or \
+                not np.array_equal(got, npz[key]):
+            raise AssertionError(f"{name} does not decode to its Pillow decode")
+        out["item28_decode_ms"][key] = _median_ms(lambda path=path: imgmod.read_image_rgb(path))
+    log(f"    {len(names)} GIF, BMP and TIFF fixtures equal to their Pillow decodes; ms per "
+        f"photo {json.dumps(out['item28_decode_ms'])}")
     return out
 
 
@@ -6117,6 +6333,9 @@ def _run(refs) -> int:
     log("[53] WEBP, arithmetic JPEG, 16-bit and Adam7 PNG: the fixtures against their "
         "Pillow decodes, bp on a WEBP, an animated WEBP and a 16-bit PNG")
     kinds = timed("53", image_kinds_phase, dev)
+    log("[54] the native path: its fixtures in Python and C++ against the JAX extension's "
+        "recordings, --updateGAN on its stream, the regressor CLI on GIF, BMP and TIFF")
+    nat = timed("54", native_phase, dev)
     log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
@@ -6133,7 +6352,8 @@ def _run(refs) -> int:
                    **{k: v[n] for k, v in tp["launches"].items()},
                    **{k: v[n] for k, v in hp["launches"].items()},
                    **{k: v[n] for k, v in jprog["launches"].items()},
-                   **{k: v[n] for k, v in kinds["launches"].items()}}
+                   **{k: v[n] for k, v in kinds["launches"].items()},
+                   **{k: v[n] for k, v in nat["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -6206,6 +6426,7 @@ def _run(refs) -> int:
               "host_targets": {k: v for k, v in hp.items() if k != "launches"},
               "jpeg_progressive": {k: v for k, v in jprog.items() if k != "launches"},
               "image_kinds": {k: v for k, v in kinds.items() if k != "launches"},
+              "native": {k: v for k, v in nat.items() if k != "launches"},
               "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -17,8 +17,10 @@ writes a preemption checkpoint that ``--resume`` continues from.
 (engine/gan.py): before every walk step one WGAN-GP D step on real images
 against the walk-edited images of the live G, and one G step through both
 syntheses and the regressor, then G's EMA. The real images are DIR's PNG
-and JPEG files (utils/image.py:read_image_rgb, bit for bit Pillow's
-decode), centre-cropped and resized with Pillow's BILINEAR filter. The GAN
+and JPEG files, shuffled per epoch, decoded as libjpeg and libpng do and
+resized without antialias by the native path (latent2im_tpu_torch/native,
+the JAX package's native extension bit for bit), or, where that module is
+hidden, drawn and decoded as the JAX package's Pillow fallback does. The GAN
 goes to ``model_gan_{n}_final.ckpt`` at the end and
 ``model_gan_resume.ckpt`` on SIGTERM, in the JAX package's layout with both
 Adam states; its ``.meta.json`` counts the GAN steps taken, so ``--resume``
@@ -259,16 +261,25 @@ def _real_paths(root: str) -> list[str]:
     return paths
 
 
-def _make_real_batcher(paths, size: int, batch_size: int, native: bool = False):
-    """-> next_batch(load=True) -> [B, size, size, 3] uint8: each batch
-    RandomState(0).randint(0, len(paths), B) images, as the JAX package's
-    pure-Python loader draws them (its native loader, where that extension
-    builds, shuffles per epoch instead), decoded ahead by the threaded
-    utils/loader.py (``native``: through the host C++ of the card's path).
-    load=False only draws the indices (a resume replaying the stream, before
-    the first batch is loaded). ``next_batch.loader`` is the Loader."""
+def _make_real_batcher(paths, size: int, batch_size: int, host_cpp: bool = False):
+    """-> next_batch(load=True) -> [B, size, size, 3] uint8, as the JAX
+    package's cli/train.py:_make_real_batcher: its native extension's
+    Loader first, here the port's ``native`` counterpart
+    (``_native_batcher``); where that module cannot be imported, each
+    batch RandomState(0).randint(0, len(paths), B) images, as its
+    pure-Python loader draws them, decoded ahead by the threaded
+    utils/loader.py (``host_cpp``: through the host C++ of the card's
+    path). load=False only draws the indices (a resume replaying the
+    stream, before the first batch is loaded). ``next_batch.loader`` is
+    the loader to close."""
+    try:
+        from ..native import _l2i_native as nat
+    except ImportError:
+        nat = None
+    if nat is not None:
+        return _native_batcher(nat.Loader(paths, size, batch_size, threads=2), batch_size)
     rng = np.random.RandomState(0)
-    loader = Loader(lambda j: imgmod.load_and_resize_image(paths[j], size, native))
+    loader = Loader(lambda j: imgmod.load_and_resize_image(paths[j], size, host_cpp))
     stream = None
 
     def draws():
@@ -285,6 +296,48 @@ def _make_real_batcher(paths, size: int, batch_size: int, native: bool = False):
         if stream is None:
             stream = loader.batches(draws())
         return next(stream)[0]
+
+    next_batch.loader = loader
+    return next_batch
+
+
+def _native_batcher(loader, batch_size: int):
+    """The JAX package's ``next_native`` over a native Loader:
+    ``start_epoch(seed=0)``, the next epoch's seed one more at each
+    StopIteration; rows of ragged batches carried in a buffer, a full batch
+    passed through where the buffer is empty. load=False replays one batch
+    of indices (``Loader.skip_batch``) and decodes nothing; the rows it
+    leaves in the buffer are decoded at the first batch loaded."""
+    epoch = 0
+    buf: list = []  # rows, or their indices while replaying
+    loaded = False
+    loader.start_epoch(seed=0, shuffle=True)
+
+    def next_batch(load: bool = True):
+        nonlocal epoch, loaded
+        if not load and loaded:
+            raise RuntimeError("the real-image stream replays only before its first batch")
+        if load and not loaded:
+            loaded = True
+            buf[:] = [loader.load(r) if isinstance(r, int) else r for r in buf]
+        while True:
+            if len(buf) >= batch_size:
+                out = buf[:batch_size]
+                del buf[:batch_size]
+                return np.stack(out) if load else None
+            try:
+                if load:
+                    rows, idx = loader.next_batch()
+                else:
+                    idx = loader.skip_batch()
+                    rows = list(idx)
+            except StopIteration:
+                epoch += 1
+                loader.start_epoch(seed=epoch, shuffle=True)
+                continue
+            if not buf and len(idx) == batch_size:
+                return rows if load else None
+            buf.extend(rows)
 
     next_batch.loader = loader
     return next_batch
@@ -363,7 +416,7 @@ def _make_gan_provider(editor, opt, task, walk_params, mesh=None):
 
     d_step, g_step = make_gan_update_steps(make_g_apply(editor), editor.discriminate, mod)
     next_real = _make_real_batcher(paths, editor.cfg.size, opt.batch_size,
-                                   native=editor.device.type == "cuda")
+                                   host_cpp=editor.device.type == "cuda")
     rng = np.random.RandomState(0)
     eps_gen = torch.Generator(device=editor.device).manual_seed(123)
     b, n_attr = opt.batch_size, len(editor.cfg.attr_idx)

@@ -13,10 +13,16 @@ what the JAX trainer writes for the same values, and with --export_torch
 Images normalise to [-1, 1] like transforms.Normalize((.5,.5,.5),
 (.5,.5,.5)).
 
-The batches are the JAX trainer's pure-Python ones (``_pil_batches``): each
-epoch ``RandomState(epoch).permutation``, centre square crop, Pillow's
-BILINEAR resize (``utils/image.py:load_and_resize_image``), decoded ahead
-on threads (utils/loader.py) and, on the card, through the host C++ of
+The training split's batches are the JAX trainer's: its native
+extension's Loader first, here the port's ``native`` counterpart (each
+epoch ``start_epoch(seed=epoch)``: libstdc++'s shuffle of the order the
+last epoch left; libjpeg and libpng decodes, a resize without antialias;
+the labels taken by the loader's indices), and, where that module cannot
+be imported, the pure-Python ones (``_pil_batches``: each epoch
+``RandomState(epoch).permutation``, centre square crop, Pillow's BILINEAR
+resize, ``utils/image.py:pillow_load_and_resize``). The test split always
+takes the Pillow path, as the JAX trainer's does. Both decode ahead on
+threads (utils/loader.py) and, on the card, through the host C++ of
 ops/csrc/. BatchNorm trains in torch's train mode, which is the JAX
 package's ``batch_norm(train=True)`` + ``apply_bn_stats``
 (models/resnet.py). The weights start from the port's seeded init, of the
@@ -73,9 +79,29 @@ def list_split(folder_path: str, split_file: str) -> list[tuple[str, str]]:
     return sorted(out)
 
 
-def make_loader(paths: list[str], size: int, native: bool) -> Loader:
-    """The threaded loader of ``paths``: load i -> uint8 [size, size, 3]."""
-    return Loader(lambda i: imgmod.load_and_resize_image(paths[i], size, native))
+def make_loader(paths: list[str], size: int, host_cpp: bool) -> Loader:
+    """The threaded loader of ``paths`` on the Pillow path: load i -> uint8
+    [size, size, 3] (``utils/image.py:pillow_load_and_resize``)."""
+    return Loader(lambda i: imgmod.pillow_load_and_resize(paths[i], size, host_cpp))
+
+
+def make_native_loader(paths: list[str], size: int, batch: int):
+    """The JAX trainer's ``_make_loader``: (the native Loader, True), or
+    (None, False) where the native module cannot be imported."""
+    try:
+        from ..native import _l2i_native as nat
+    except ImportError:
+        return None, False
+    return nat.Loader(paths, size, batch, threads=2), True
+
+
+def native_batches(loader):
+    """One epoch of a started native Loader: (uint8 batch, indices)."""
+    while True:
+        try:
+            yield loader.next_batch()
+        except StopIteration:
+            return
 
 
 def index_batches(order, batch: int):
@@ -191,19 +217,24 @@ def main(argv=None, device=None):
     model = model.to(device, memory_format=torch.channels_last)
     opt, train_step, eval_step = make_steps(model, args.lr)
 
-    native = device.type == "cuda"  # the decode and resize in host C++
+    host_cpp = device.type == "cuda"  # the decode and resize in host C++
+    native_loader, native = make_native_loader(train_paths, args.image_size, args.batch_size)
     print("native loader:", native)
-    train_loader = make_loader(train_paths, args.image_size, native)
-    test_loader = make_loader(test_paths, args.image_size, native)
+    train_loader = native_loader or make_loader(train_paths, args.image_size, host_cpp)
+    test_loader = make_loader(test_paths, args.image_size, host_cpp)
 
     def to_dev(a):
         return torch.as_tensor(a).to(device)
 
     try:
         for epoch in range(args.n_epochs):
-            order = np.random.RandomState(epoch).permutation(len(train_paths))
-            for bi, (u8, idx) in enumerate(train_loader.batches(
-                    index_batches(order, args.batch_size))):
+            if native:
+                train_loader.start_epoch(seed=epoch, shuffle=True)
+                it = native_batches(train_loader)
+            else:
+                order = np.random.RandomState(epoch).permutation(len(train_paths))
+                it = train_loader.batches(index_batches(order, args.batch_size))
+            for bi, (u8, idx) in enumerate(it):
                 loss = train_step(normalize(u8, device), to_dev(train_labels[np.asarray(idx)]))
                 if bi % 50 == 0:
                     print(f"epoch {epoch} iter {bi} Loss: {float(loss):.5f}")

@@ -3,8 +3,9 @@
 Every ``.cu`` source under ``ops/csrc/`` compiles to an object with its own
 ``nvcc`` call, all started together, and one more ``nvcc`` call links them
 into one shared library with a plain C interface, loaded with ``ctypes``.
-The host C++ there (``jpeg_huffman.cpp`` and ``resample.cpp``, the image
-loaders' hot loops) compiles the same way, into the same library. No
+The host C++ there (``jpeg_huffman.cpp``, ``webp_decode.cpp``,
+``resample.cpp`` and ``native_decode.cpp``, the image loaders' hot loops)
+compiles the same way, into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not minutes.
 The library is built at first use into ``build/torch_kernels/`` at the root of
 the checkout (listed in ``.gitignore``) under a name that hashes the sources
@@ -74,8 +75,9 @@ SIGNATURES = {
     "l2i_jpeg_decode_interval": (_P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P),
     # data, n, int[2] {height, width} -> 0, -1 no frame header found
     "l2i_jpeg_dims": (_P, _LL, _P),
-    # data, n, out, out_bytes, long long[2] info -> 0 or an error code
-    "l2i_jpeg_decode": (_P, _LL, _P, _LL, _P),
+    # data, n, out, out_bytes, long long[2] info, libjpeg (0: as Pillow
+    # reads, 1: as libjpeg-turbo 2.1 alone) -> 0 or an error code
+    "l2i_jpeg_decode": (_P, _LL, _P, _LL, _P, _I),
     # utils/webp.py's decoder (webp_decode.cpp): data, n, int[2] {height,
     # width} -> 0 or an error code
     "l2i_webp_dims": (_P, _LL, _P),
@@ -84,7 +86,15 @@ SIGNATURES = {
     # in, row, h, w, c, idx_w, k_w, ks_w, out_w, idx_h, k_h, ks_h, out_h,
     # bits, out
     "l2i_resize": (_P, _LL) + (_I,) * 3 + (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P),
+    # the native path (native_decode.cpp): data, n, h, stride, bpp, out -> 0,
+    # -1 short data, -2 an unknown filter
+    "l2i_png_unfilter": (_P, _LL, _I, _LL, _I, _P),
+    # img, h, w, size, out (no return value)
+    "l2i_crop_resize": (_P, _I, _I, _I, _P),
 }
+# a source's own flags beyond NVCC_FLAGS: the crop-resize's double sums in
+# the order written, no fused multiply-add
+SOURCE_FLAGS = {"native_decode.cpp": ("-Xcompiler", "-ffp-contract=off")}
 # the others return an int
 RESTYPES = {"l2i_styled_conv3x3_plan": _LL, "l2i_jpeg_decode_interval": _LL}
 
@@ -117,7 +127,7 @@ def nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -129,8 +139,8 @@ def build_commands(out: str) -> tuple[list[list[str]], list[str]]:
     """(one compile command per source, the link command) for library `out`;
     the objects sit beside it."""
     objs = [f"{out}.{os.path.basename(src)}.o" for src in sources()]
-    compiles = [[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
-                for obj, src in zip(objs, sources())]
+    compiles = [[nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(src), ()), "-c",
+                 "-o", obj, src] for obj, src in zip(objs, sources())]
     return compiles, [nvcc(), "-shared", "-o", out, *objs]
 
 

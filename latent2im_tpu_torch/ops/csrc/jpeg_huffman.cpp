@@ -46,7 +46,7 @@ enum Err {
   E_BAD_PROGRESSION = -39, E_PROG_NO_EOI = -40,
   E_BAD_DAC = -42, E_PILLOW_BLOCK = -43, E_MARKER = -44, E_BAD_DRI = -45, E_BOMB = -46,
   E_BAD_LOSSLESS = -47, E_BAD_RESTART = -48, E_LOSSLESS_YCC = -49, E_LOSSLESS_YCCK = -50,
-  E_LOSSLESS_NO_EOI = -51,
+  E_LOSSLESS_NO_EOI = -51, E_LIBJPEG = -52,
 };
 // utils/jpeg.py:PILLOW_MAX_PIXELS, Pillow's DecompressionBombError limit
 constexpr long long kPillowMaxPixels = 2LL * (1024 * 1024 * 1024 / 4 / 3);
@@ -69,10 +69,14 @@ const int kUnzigzag[64] = {
 // The Huffman decode of one restart interval (utils/jpeg.py:_decode_interval)
 // -> the bits used; -1 where it reads past the padded words (the Python
 // version's IndexError), -2 at an invalid code.
+// limit >= 0: libjpeg's run out of data (utils/jpeg.py:_fill_intervals): no
+// MCU of per_mcu blocks starts once more than `limit` bits are used; *n_done
+// the blocks decoded.
 long long decode_interval(const uint8_t* data, long long n_bytes, const long long* blocks,
                           const int* comps, long long n_blocks, const int* const* dc_luts,
                           const int* const* ac_luts, long long* out_ac, long long* n_ac,
-                          long long* out_dc, int64_t* preds) {
+                          long long* out_dc, int64_t* preds, long long per_mcu = 1,
+                          long long limit = -1, long long* n_done = nullptr) {
   const long long n_words = n_bytes / 4;
   uint64_t buf = 0;
   long long nb = 0, wi = 0, na = 0;
@@ -87,7 +91,9 @@ long long decode_interval(const uint8_t* data, long long n_bytes, const long lon
     wi += 1;                                                                   \
     nb += 32;                                                                  \
   }
-  for (long long i = 0; i < n_blocks; ++i) {
+  long long i = 0;
+  for (; i < n_blocks; ++i) {
+    if (limit >= 0 && i % per_mcu == 0 && wi * 32 - nb > limit) break;
     const int ci = comps[i];
     L2I_REFILL();
     const int* d = dc_luts[ci] + 2 * ((buf >> (nb - 16)) & 0xFFFF);
@@ -132,6 +138,7 @@ long long decode_interval(const uint8_t* data, long long n_bytes, const long lon
   }
 #undef L2I_REFILL
   *n_ac = na;
+  if (n_done) *n_done = i;
   return wi * 32 - nb;
 }
 
@@ -298,13 +305,20 @@ inline int16_t w16(int64_t v) {  // a JCOEF: int16, wrapping
 // coefficients in zigzag order): jdphuff.c's decode_mcu_DC_first,
 // _DC_refine, _AC_first and _AC_refine. -> false where a read fails (see
 // rd.past / rd.bad_code).
+// limit >= 0: as decode_interval's; *last the index of the last block
+// started.
 bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, long long n_blocks,
-                          const int* const* luts, int16_t* coef, int ss, int se, int ah, int al) {
+                          const int* const* luts, int16_t* coef, int ss, int se, int ah, int al,
+                          long long per_mcu = 1, long long limit = -1, long long* last = nullptr) {
   int64_t v;
   int sym;
+#define L2I_MCU_START()                                                     \
+  if (limit >= 0 && i % per_mcu == 0 && rd.used() > limit) return true; \
+  if (last) *last = i;
   if (ss == 0 && ah == 0) {  // DC first
     int64_t preds[4] = {0, 0, 0, 0};  // ns <= fr.n <= 4: decode_progressive_scan
     for (long long i = 0; i < n_blocks; ++i) {
+      L2I_MCU_START();
       const int ci = comps[i];
       if (!rd.huff(luts[ci], &sym)) return false;
       int64_t diff = 0;
@@ -320,6 +334,7 @@ bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, l
   if (ss == 0) {  // DC refine: one bit a block
     const int p1 = 1 << al;
     for (long long i = 0; i < n_blocks; ++i) {
+      L2I_MCU_START();
       if (!rd.get(1, &v)) return false;
       if (v) coef[blocks[i] * 64] = static_cast<int16_t>(coef[blocks[i] * 64] | p1);
     }
@@ -329,6 +344,7 @@ bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, l
   int64_t eobrun = 0;
   if (ah == 0) {  // AC first
     for (long long i = 0; i < n_blocks; ++i) {
+      L2I_MCU_START();
       if (eobrun) {
         --eobrun;
         continue;
@@ -358,6 +374,7 @@ bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, l
   }
   const int p1 = 1 << al, m1 = -p1;  // AC refine
   for (long long i = 0; i < n_blocks; ++i) {
+    L2I_MCU_START();
     int16_t* b = coef + blocks[i] * 64;
     int k = ss;
     if (!eobrun) {
@@ -400,6 +417,7 @@ bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, l
       --eobrun;
     }
   }
+#undef L2I_MCU_START
   return true;
 }
 
@@ -562,6 +580,13 @@ struct Frame {
   std::vector<long long> offset;  // in coefficients
   std::vector<bool> scanned;
   std::vector<std::vector<int64_t>> quant;  // empty: not latched yet
+  // libjpeg mode (utils/jpeg.py:_decode_libjpeg): libjpeg-turbo 2.1's Al
+  // values before each component's last scan, the last iMCU row decoded
+  // with data (-1: every row), the scans started
+  bool libjpeg = false;
+  int prev_bits[4][64];
+  long long last_good = -1;
+  int scans = 0;
   int dw(int c) const { return static_cast<int>((int64_t(width) * h[c] + hmax - 1) / hmax); }
   int dh(int c) const { return static_cast<int>((int64_t(height) * v[c] + vmax - 1) / vmax); }
   int index_of(int cid) const {
@@ -604,8 +629,11 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   }
   for (int i = 0; i < fr.n; ++i)
     if (fr.hmax % fr.h[i] || fr.vmax % fr.v[i]) return E_FRACTIONAL;
-  if (static_cast<long long>(fr.width) * fr.height > kPillowMaxPixels)
+  if (fr.libjpeg) {  // JPEG_MAX_DIMENSION; no 4-component to RGB conversion
+    if (fr.width > 65500 || fr.height > 65500 || fr.n == 4) return E_LIBJPEG;
+  } else if (static_cast<long long>(fr.width) * fr.height > kPillowMaxPixels) {
     return info[0] = (static_cast<long long>(fr.height) << 16) | fr.width, E_BOMB;
+  }
   fr.mcux = (fr.width + fr.unit * fr.hmax - 1) / (fr.unit * fr.hmax);
   fr.mcuy = (fr.height + fr.unit * fr.vmax - 1) / (fr.unit * fr.vmax);
   fr.offset.assign(1, 0);
@@ -619,6 +647,8 @@ int parse_frame(const uint8_t* body, long long blen, Frame& fr, long long* info)
   fr.quant.assign(fr.n, {});
   for (auto& bits : fr.coef_bits)
     for (int& b : bits) b = -1;
+  for (auto& bits : fr.prev_bits)
+    for (int& b : bits) b = 0;
   return 0;
 }
 
@@ -628,6 +658,67 @@ bool valid_sos(const Frame& fr, const uint8_t* body, long long blen, int ns) {
     for (int j = 0; j < i; ++j)
       if (body[1 + 2 * i] == body[1 + 2 * j]) return false;
   return true;
+}
+
+inline int64_t w16a(int64_t v) { return ((v + 32768) & 0xFFFF) - 32768; }
+
+// utils/jpeg.py:_simd_butterfly: islow_butterfly with c0 + c4, c0 - c4,
+// c7 + c3 and c5 + c1 added in 16 bits, wrapping, as libjpeg-turbo's SSE2
+// and AVX2 ISLOW compute them
+inline void simd_butterfly(const int64_t* c, int64_t* o) {
+  const int64_t s04 = w16a(c[0] + c[4]), d04 = w16a(c[0] - c[4]);
+  int64_t z3 = w16a(c[7] + c[3]), z4 = w16a(c[5] + c[1]);
+  const int64_t z1 = (c[2] + c[6]) * 4433;
+  const int64_t tmp2 = z1 + c[6] * -15137, tmp3 = z1 + c[2] * 6270;
+  const int64_t tmp0 = s04 * 8192, tmp1 = d04 * 8192;
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int64_t t0 = c[7], t1 = c[5], t2 = c[3], t3 = c[1];
+  const int64_t z5 = (z3 + z4) * 9633;
+  z3 = z3 * -16069 + z5;
+  z4 = z4 * -3196 + z5;
+  const int64_t u0 = t0 * 2446 + (t0 + t3) * -7373 + z3;
+  const int64_t u1 = t1 * 16819 + (t1 + t2) * -20995 + z4;
+  const int64_t u2 = t2 * 25172 + (t1 + t2) * -20995 + z3;
+  const int64_t u3 = t3 * 12299 + (t0 + t3) * -7373 + z4;
+  o[0] = tmp10 + u3; o[7] = tmp10 - u3;
+  o[1] = tmp11 + u2; o[6] = tmp11 - u2;
+  o[2] = tmp12 + u1; o[5] = tmp12 - u1;
+  o[3] = tmp13 + u0; o[4] = tmp13 - u0;
+}
+
+inline int64_t clampi(int64_t v, int64_t lo, int64_t hi) { return v < lo ? lo : v > hi ? hi : v; }
+
+// utils/jpeg.py:_idct_islow_simd: idct_plane as libjpeg-turbo 2.1 computes
+// it on x86-64 (16-bit dequantisation, pass 1's DC shortcut where rows 1-7
+// are zero, int16 saturation after each pass, [-128, 127] before the +128)
+void idct_plane_simd(const int16_t* coef, const int64_t* quant, int bh, int bw, uint8_t* plane) {
+  const long long stride = static_cast<long long>(bw) * 8;
+  for (long long b = 0; b < static_cast<long long>(bh) * bw; ++b) {
+    const int16_t* cz = coef + 64 * b;
+    int64_t raw[64], c[64], ws[64], col[8], res[8];
+    bool ac_rows = false;
+    for (int k = 0; k < 64; ++k) {
+      raw[k] = cz[kUnzigzag[k]];
+      c[k] = w16a(raw[k] * quant[k]);
+      ac_rows = ac_rows || (k >= 8 && raw[k] != 0);
+    }
+    for (int x = 0; x < 8; ++x) {
+      if (!ac_rows) {
+        for (int k = 0; k < 8; ++k) ws[8 * k + x] = w16a(c[x] * 4);
+        continue;
+      }
+      for (int k = 0; k < 8; ++k) col[k] = c[8 * k + x];
+      simd_butterfly(col, res);
+      for (int k = 0; k < 8; ++k) ws[8 * k + x] = clampi((res[k] + 1024) >> 11, -32768, 32767);
+    }
+    uint8_t* out = plane + (b / bw) * 8 * stride + (b % bw) * 8;
+    for (int y = 0; y < 8; ++y) {
+      simd_butterfly(ws + 8 * y, res);
+      for (int k = 0; k < 8; ++k)
+        out[y * stride + k] =
+            static_cast<uint8_t>(clampi((res[k] + (int64_t(1) << 17)) >> 18, -128, 127) + 128);
+    }
+  }
 }
 
 struct Scratch {  // per thread, reused from photo to photo
@@ -711,6 +802,32 @@ long long unstuff(const uint8_t* data, long long a, long long b, Scratch& s) {
   return n_raw;
 }
 
+// utils/jpeg.py:_fill_intervals for interval k of a scan whose entropy-coded
+// data ends at `end`: its bytes unstuffed into s.raw (a lone 0xFF at the
+// end of the file dropped: a marker's first byte), zero-padded by kFillPad
+// -> the bits it has; -1 where it decodes nothing (its restart marker never
+// came and the interval before ran out).
+constexpr long long kFillPad = 4096;  // utils/jpeg.py:_FILL_PAD
+long long fill_interval(const uint8_t* data, long long n, long long end,
+                        const std::vector<std::pair<long long, long long>>& pieces, long long k,
+                        bool ran_out, Scratch& s) {
+  s.raw.clear();
+  if (k < static_cast<long long>(pieces.size())) {
+    long long a = pieces[k].first, b = pieces[k].second;
+    if (end == n && k == static_cast<long long>(pieces.size()) - 1)
+      while (b > a && data[b - 1] == 0xFF) --b;
+    for (long long i = a; i < b; ++i) {
+      s.raw.push_back(data[i]);
+      if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
+    }
+  } else if (ran_out) {
+    return -1;
+  }
+  const long long n_raw = static_cast<long long>(s.raw.size());
+  s.raw.resize(n_raw + kFillPad - n_raw % 4, 0);
+  return 8 * n_raw;
+}
+
 int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
                 long long n, long long pos, const std::vector<int64_t>* qt, const bool* qt_def,
                 const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart,
@@ -738,7 +855,7 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
     acls.push_back(a);
   }
   const uint8_t* sa = body + 1 + 2 * ns;
-  if (!(sa[0] == 0 && sa[1] == 63 && sa[2] == 0)) return E_SPECTRAL;
+  if (!(sa[0] == 0 && sa[1] == 63 && sa[2] == 0) && !fr.libjpeg) return E_SPECTRAL;
 
   std::vector<std::pair<long long, long long>> pieces;
   const long long end = scan_pieces(data, n, pos, restart, pieces);
@@ -747,6 +864,41 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
+  if (fr.libjpeg) {  // libjpeg over a whole buffer (utils/jpeg.py:_fill_intervals)
+    s.out_ac.resize(static_cast<size_t>(n_blocks) * 63);
+    s.out_dc.resize(n_blocks);
+    std::vector<char> done(n_blocks, 0);
+    std::vector<int64_t> preds(ns);
+    long long total = 0;
+    const long long per_interval = span * per_mcu;
+    bool ran_out = false;
+    for (long long k = 0; k < n_int; ++k) {
+      const long long bits = fill_interval(data, n, end, pieces, k, ran_out, s);
+      if (bits < 0) break;
+      const long long lo = k * per_interval;
+      const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+      long long n_ac = 0, n_done = 0;
+      for (int i = 0; i < ns; ++i) preds[i] = 0;
+      const long long used = decode_interval(
+          s.raw.data(), static_cast<long long>(s.raw.size()), s.blk.data() + lo,
+          s.sel.data() + lo, hi - lo, dcls.data(), acls.data(), s.out_ac.data() + total, &n_ac,
+          s.out_dc.data() + lo, preds.data(), per_mcu, bits, &n_done);
+      if (used == -2) return E_INVALID_CODE;
+      if (used == -1) return E_SCAN_TRUNC;
+      for (long long i = lo; i < lo + n_done; ++i) done[i] = 1;
+      total += n_ac;
+      ran_out = used > bits;
+    }
+    for (long long i = 0; i < n_blocks; ++i)
+      if (done[i]) s.coef[s.blk[i] * 64] = static_cast<int16_t>(s.out_dc[i]);
+    for (long long i = 0; i < total; ++i) {  // past 63: libjpeg's padded order
+      const long long ac = s.out_ac[i], k = (ac >> 16) & 127;
+      s.coef[(ac >> 23) * 64 + (k < 63 ? k : 63)] =
+          static_cast<int16_t>(static_cast<uint16_t>(ac & 0xFFFF));
+    }
+    *end_out = end;
+    return 0;
+  }
   if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
 
   s.out_ac.resize(static_cast<size_t>(n_blocks) * 63);  // at most 63 a block
@@ -815,6 +967,8 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
       if (!lut) return E_BAD_HUFF_TABLE;
     }
     luts.push_back(lut);
+    for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); ++k)  // jdphuff.c start_pass
+      fr.prev_bits[c][k] = fr.scans > 1 ? fr.coef_bits[c][k] : 0;
     for (int k = ss; k <= se; ++k) fr.coef_bits[c][k] = al;
   }
   std::vector<std::pair<long long, long long>> pieces;
@@ -824,6 +978,32 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
+  if (fr.libjpeg) {  // as decode_scan's, and jdcoefct.c's last_good_iMCU_row
+    const long long per_interval = span * per_mcu;
+    bool ran_out = false;
+    long long last = -1;
+    for (long long k = 0; k < n_int; ++k) {
+      const long long bits = fill_interval(data, n, end, pieces, k, ran_out, s);
+      if (bits < 0) break;
+      const long long lo = k * per_interval;
+      const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
+      Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
+      long long started = -1;
+      const bool ok = progressive_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo,
+                                           luts.data(), s.coef.data(), ss, se, ah, al, per_mcu,
+                                           bits, &started);
+      if (!ok && rd.bad_code) return E_INVALID_CODE;
+      if (!ok) return E_SCAN_TRUNC;
+      if (started >= 0) last = lo + started;
+      ran_out = rd.used() > bits;
+    }
+    if (last >= 0) {  // the iMCU row of the last MCU started
+      const int c = comps[s.sel[last]];
+      fr.last_good = (s.blk[last] - fr.offset[c] / fr.per) / fr.bw[c] / fr.v[c];
+    }
+    *end_out = end;
+    return 0;
+  }
   if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
   const long long per_interval = span * per_mcu;
   for (long long k = 0; k < n_int; ++k) {
@@ -877,12 +1057,13 @@ const int kSmoothDC[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42
 inline int16_t w16s(int64_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v & 0xFFFF)); }
 
 // utils/jpeg.py:_smooth_rows and _smooth, in place on s.coef (the DC values
-// read are the coded ones, kept in a copy first)
+// read are the coded ones, kept in a copy first); in libjpeg mode
+// _smooth_rows_21, _smooth_cols_21 and, past fr.last_good, the bits from
+// before each component's last scan (-1 after a single scan)
 void smooth(const Frame& fr, std::vector<int16_t>& coef) {
+  int minus[64];
+  for (int& b : minus) b = -1;
   for (int c = 0; c < fr.n; ++c) {
-    const int* bits = fr.coef_bits[c];
-    bool change_dc = true;
-    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
     const std::vector<int64_t>& q = fr.quant[c];
     const int bw = fr.bw[c], bh = fr.bh[c];
     int16_t* grid = coef.data() + fr.offset[c];
@@ -890,22 +1071,49 @@ void smooth(const Frame& fr, std::vector<int16_t>& coef) {
     for (long long b = 0; b < static_cast<long long>(bw) * bh; ++b) dcv[b] = grid[b * 64];
     const int cols = (fr.dw(c) + 7) / 8, height = (fr.dh(c) + 7) / 8;
     const int v = fr.v[c], total = fr.mcuy;
+    // each block's five DC columns (utils/jpeg.py:_smooth_cols_21 in libjpeg mode)
+    std::vector<int> x5(static_cast<size_t>(cols) * 5);
+    int regs[5] = {0, 0, 0, 0, 0};
+    for (int x = 0; x < cols; ++x) {
+      if (fr.libjpeg) {
+        if (x == 0 && x < cols - 1) regs[3] = 1;
+        if (x + 1 < cols - 1) regs[4] = x + 2;
+        for (int k = 0; k < 5; ++k) x5[5 * x + k] = regs[k];
+        for (int k = 0; k < 4; ++k) regs[k] = regs[k + 1];
+      } else {
+        for (int k = 0; k < 5; ++k) {
+          const int xc = x + k - 2;
+          x5[5 * x + k] = xc < 0 ? 0 : xc > cols - 1 ? cols - 1 : xc;
+        }
+      }
+    }
     for (int i = 0; i < total; ++i) {
       const int rows = i < total - 1 ? v : (height % v ? height % v : v);
       const int count = rows * total;
+      const bool late = fr.libjpeg && fr.last_good >= 0 && i > fr.last_good;
+      const int* bits = !late ? fr.coef_bits[c] : fr.scans <= 1 ? minus : fr.prev_bits[c];
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
       for (int b = 0; b < rows; ++b) {
         const int at = i * rows + b, row = i * v + b;
-        const int up = at > 0 ? row - 1 : row, up2 = at > 1 ? row - 2 : up;
-        const int down = at < count - 1 ? row + 1 : row, down2 = at < count - 2 ? row + 2 : down;
+        int up, up2, down, down2;
+        if (fr.libjpeg) {  // libjpeg-turbo 2.1: only the iMCU rows it accesses
+          up = b > 0 || i > 0 ? row - 1 : row;
+          up2 = b > 1 || i > 1 ? row - 2 : up;
+          down = b < rows - 1 || i < total - 1 ? row + 1 : row;
+          down2 = b < rows - 2 || i + 1 < total - 1 ? row + 2 : down;
+        } else {
+          up = at > 0 ? row - 1 : row;
+          up2 = at > 1 ? row - 2 : up;
+          down = at < count - 1 ? row + 1 : row;
+          down2 = at < count - 2 ? row + 2 : down;
+        }
         const int r5[5] = {up2, up, row, down, down2};
         for (int x = 0; x < cols; ++x) {
           int64_t dc[25];
           for (int rr = 0; rr < 5; ++rr)
-            for (int cc = 0; cc < 5; ++cc) {
-              int xc = x + cc - 2;
-              xc = xc < 0 ? 0 : xc > cols - 1 ? cols - 1 : xc;
-              dc[5 * rr + cc] = dcv[static_cast<long long>(r5[rr]) * bw + xc];
-            }
+            for (int cc = 0; cc < 5; ++cc)
+              dc[5 * rr + cc] = dcv[static_cast<long long>(r5[rr]) * bw + x5[5 * x + cc]];
           int16_t* blk = grid + (static_cast<long long>(row) * bw + x) * 64;
           int16_t upd[10];
           bool set[10] = {false};
@@ -1319,7 +1527,7 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
     if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) ||
         (ah && al != ah - 1) || al > 13)
       return E_BAD_PROGRESSION;
-  } else if (!(ss == 0 && se == 63 && sa[2] == 0)) {
+  } else if (!(ss == 0 && se == 63 && sa[2] == 0) && !fr.libjpeg) {  // libjpeg only warns
     return E_SPECTRAL;
   }
   std::vector<int> comps;
@@ -1346,6 +1554,10 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
+  if (fr.libjpeg) {  // the fake EOI: a marker, zeros past the data, no limit
+    while (static_cast<long long>(pieces.size()) < n_int) pieces.emplace_back(n, n);
+    limit = n + 2;
+  }
   if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
   const long long per_interval = span * per_mcu;
   static thread_local uint8_t dcs[16][64], acs[16][256];
@@ -1355,7 +1567,8 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
     if (!met && pieces[k].first > limit) return E_PILLOW_BLOCK;
     std::memset(dcs, 0, sizeof(dcs));  // statistics reset at every restart
     std::memset(acs, 0, sizeof(acs));
-    ArithBits rd{data, pieces[k].first, pieces[k].second, limit, pieces[k].second == n};
+    ArithBits rd{data, pieces[k].first, pieces[k].second, limit,
+                 pieces[k].second == n && !fr.libjpeg};
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
     arith_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo, dtab, atab, dcs, acs,
@@ -1374,10 +1587,14 @@ inline int64_t muldiv255(int64_t a, int64_t b) {
   return ((t >> 8) + t) >> 8;
 }
 
+// lj: utils/jpeg.py:_decode_libjpeg (libjpeg-turbo 2.1 over a whole buffer)
 int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
-           long long* info) {
-  if (n < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF) return E_NOT_JPEG;
+           long long* info, bool lj) {
+  if (lj ? n < 2 || data[0] != 0xFF || data[1] != 0xD8
+         : n < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF)
+    return E_NOT_JPEG;
   thread_local Scratch s;
+  thread_local std::vector<uint8_t> ext;  // the data and jpeg_mem_src's fake EOIs
   if (lut_cache.size() > 64) lut_cache.clear();  // a file defines at most 32
   std::vector<int64_t> qt[16];
   bool qt_def[16] = {};
@@ -1387,8 +1604,9 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   for (int i = 0; i < 16; ++i) dac.lo[i] = 0, dac.hi[i] = 1, dac.kx[i] = 5;
   long long limit = kPillowBlock;
   int scans = 0;
-  bool jfif = false, have_frame = false, eoi = false;
+  bool jfif = false, have_frame = false, eoi = false, extended = false;
   Frame fr;
+  fr.libjpeg = lj;
   long long pos = 2;
   while (true) {
     const void* f = pos < n ? std::memchr(data + pos, 0xFF, n - pos) : nullptr;
@@ -1402,13 +1620,26 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       break;
     }
     if (marker == 0x00 || (marker >= 0xD0 && marker <= 0xD7)) continue;
-    if (marker == 0x01 && scans) continue;  // TEM (Pillow refuses it before a scan)
+    if (marker == 0x01 && (scans || lj)) continue;  // TEM (Pillow refuses it before a scan)
+    if (lj && (marker < 0xC0 || marker == 0xC3 || marker == 0xC8 || marker == 0xD8 ||
+               marker == 0xDE || marker == 0xDF || (marker >= 0xF0 && marker <= 0xFD) ||
+               marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker == 0xCB ||
+               marker == 0xCD || marker == 0xCE || marker == 0xCF))
+      return info[0] = marker, E_LIBJPEG;
     if (marker < 0xC0 || marker == 0xC8 || marker == 0xD8 || marker == 0xDE || marker == 0xDF ||
         (marker >= 0xF0 && marker <= 0xFD))
       return info[0] = marker, E_MARKER;
     if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker == 0xCB ||
         marker == 0xCD || marker == 0xCE || marker == 0xCF)
       return info[0] = marker, E_REFUSE_SOF;
+    if (lj && !extended && (pos + 2 > n || be16(data + pos) < 2 || pos + be16(data + pos) > n)) {
+      // the segment runs into the fake EOI bytes, and so does what follows
+      ext.assign(data, data + n);
+      for (int k = 0; k < 32768; ++k) ext.push_back(0xFF), ext.push_back(0xD9);
+      data = ext.data();
+      n = static_cast<long long>(ext.size());
+      extended = true;
+    }
     if (pos + 2 > n) return E_SEGMENT;
     const long long len = be16(data + pos);
     if (len < 2 || pos + len > n) return E_SEGMENT;
@@ -1474,14 +1705,14 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       if (blen != 2) return E_BAD_DRI;
       restart = be16(body);
     } else if (marker == 0xDC) {
-      return E_DNL;
+      if (!lj) return E_DNL;  // libjpeg skips it
     } else if (marker == 0xE0 && blen >= 14 && std::memcmp(body, "JFIF\0", 5) == 0) {
       jfif = true;
     } else if (marker == 0xEE && blen >= 12 && std::memcmp(body, "Adobe", 5) == 0) {
       adobe = body[11];
     } else if (marker == 0xDA) {  // SOS
       if (!have_frame) return E_SCAN_NO_FRAME;
-      ++scans;
+      fr.scans = ++scans;
       const int rc =
           fr.lossless ? decode_lossless_scan(fr, body, blen, data, n, after, dc_tabs, restart, s,
                                              &after, info)
@@ -1497,12 +1728,14 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     pos = after;
   }
   if (!have_frame) return E_NO_SCAN;
-  for (int c = 0; c < fr.n; ++c)
-    if (!fr.scanned[c]) return E_NO_SCAN;
-  if (fr.progressive) {
-    if (!eoi) return E_PROG_NO_EOI;  // more scans may have been to come
-    if (smoothed(fr)) smooth(fr, s.coef);
+  if (lj) {  // jpeg_read_header's JERR_NO_IMAGE; the rest read as it came
+    if (!scans) return E_NO_SCAN;
+  } else {
+    for (int c = 0; c < fr.n; ++c)
+      if (!fr.scanned[c]) return E_NO_SCAN;
+    if (fr.progressive && !eoi) return E_PROG_NO_EOI;  // more scans may have been to come
   }
+  if (fr.progressive && smoothed(fr)) smooth(fr, s.coef);
 
   if (fr.lossless) {  // utils/jpeg.py:_assemble_lossless's colour spaces
     if (!eoi) return E_LOSSLESS_NO_EOI;  // libjpeg-turbo reads on for its last bits
@@ -1553,8 +1786,10 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   }
   for (int c = 0; c < fr.n; ++c) {
     s.plane.resize(static_cast<size_t>(fr.bh[c]) * fr.bw[c] * 64);
-    idct_plane(s.coef.data() + fr.offset[c], fr.quant[c].data(), fr.bh[c], fr.bw[c],
-               s.plane.data());
+    const std::vector<int64_t> none(64, 0);  // a component never scanned
+    const int64_t* q = fr.quant[c].empty() ? none.data() : fr.quant[c].data();
+    (lj ? idct_plane_simd : idct_plane)(s.coef.data() + fr.offset[c], q, fr.bh[c], fr.bw[c],
+                                        s.plane.data());
     const int fh = fr.hmax / fr.h[c], fv = fr.vmax / fr.v[c];
     upsample(s.plane.data(), static_cast<long long>(fr.bw[c]) * 8, fr.dh(c), fr.dw(c), fh, fv,
              fr.height, fr.width, planes + c, step);
@@ -1658,10 +1893,11 @@ int l2i_jpeg_dims(const uint8_t* data, long long n, int* hw) {
 // [height][width][3] (out_bytes = 3 height width). -> 0, or an error code
 // (info[0] its value where the message names one); E_OUT_SIZE with
 // info = (height, width) when out does not fit the decoded frame.
+// libjpeg != 0: utils/jpeg.py's jpeg_decode_rgb(..., libjpeg=True).
 int l2i_jpeg_decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
-                    long long* info) {
+                    long long* info, int libjpeg) {
   try {
-    return decode(data, n, out, out_bytes, info);
+    return decode(data, n, out, out_bytes, info, libjpeg != 0);
   } catch (const std::bad_alloc&) {
     return E_NOMEM;
   }

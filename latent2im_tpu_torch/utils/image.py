@@ -6,9 +6,10 @@ are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
 (every colour type and depth, 16-bit and Adam7 included), JPEG, sequential,
 progressive or lossless, Huffman or arithmetic-coded, grayscale, YCbCr,
 RGB, CMYK or YCCK (``utils/jpeg.py``), and WEBP, lossless, lossy, with
-alpha or animated (``utils/webp.py``), each bit for bit as Pillow decodes
-it; hierarchical and 12-bit JPEG raise, naming ROADMAP item 26, as Pillow
-fails them."""
+alpha or animated (``utils/webp.py``), GIF (its first frame,
+``utils/gif.py``), BMP (``utils/bmp.py``) and TIFF (``utils/tiff.py``), each
+bit for bit as Pillow decodes it; hierarchical and 12-bit JPEG raise, naming
+ROADMAP item 26, as Pillow fails them."""
 
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ import zlib
 
 import numpy as np
 
+from .bmp import bmp_decode_rgb
+from .gif import gif_decode_rgb
 from .jpeg import PILLOW_MAX_PIXELS, jpeg_decode_rgb
+from .tiff import tiff_decode_rgb
 from .webp import webp_decode_rgb
 
 
@@ -210,30 +214,39 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(vals[..., :3])
 
 
-def read_image_rgb(path: str, native: bool = False) -> np.ndarray:
+def read_image_rgb(path: str, host_cpp: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
     .convert("RGB")`` gives it: PNG (``png_decode_rgb``), JPEG
     (``jpeg_decode_rgb``, sequential or progressive, Huffman or
     arithmetic-coded, 1, 3 or 4 components, through its C entry where
-    ``native``) and WEBP (``webp_decode_rgb``, through its C entry where
-    ``native``), told apart by their signatures.
+    ``host_cpp``), WEBP (``webp_decode_rgb``, through its C entry where
+    ``host_cpp``), GIF (``gif_decode_rgb``), BMP (``bmp_decode_rgb``) and
+    TIFF (``tiff_decode_rgb``), the last three in Python only, told apart
+    by their signatures.
     What the JPEG decoder does not read (hierarchical, 12-bit) raises
-    ValueError naming the file and ROADMAP item 26, a file of another kind
-    naming ROADMAP item 28; a corrupt file raises ValueError naming it."""
+    ValueError naming the file and ROADMAP item 26; a TIFF form Pillow reads
+    and ``utils/tiff.py`` does not, and a file of another kind, name ROADMAP
+    item 28; a corrupt file raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     try:
         if data[:8] == _PNG_SIGNATURE:
             return png_decode_rgb(data)
         if data[:3] == b"\xff\xd8\xff":
-            return jpeg_decode_rgb(data, native=native)
+            return jpeg_decode_rgb(data, host_cpp=host_cpp)
         if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-            return webp_decode_rgb(data, native=native)
+            return webp_decode_rgb(data, host_cpp=host_cpp)
+        if data[:6] in (b"GIF87a", b"GIF89a"):
+            return gif_decode_rgb(data)
+        if data[:2] == b"BM":
+            return bmp_decode_rgb(data)
+        if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+            return tiff_decode_rgb(data)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from e
     fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
-    raise ValueError(f"{path}: {fmt} images are not supported (PNG, JPEG and WEBP "
-                     f"only; ROADMAP item 28); convert it to PNG")
+    raise ValueError(f"{path}: {fmt} images are not supported (PNG, JPEG, WEBP, GIF, BMP "
+                     f"and TIFF only; ROADMAP item 28); convert it to PNG")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:
@@ -357,9 +370,9 @@ def _pil_resize_c(img, size, filt: str) -> np.ndarray:
     return out
 
 
-def _pil_resize(img_u8, size, filt: str, native: bool = False) -> np.ndarray:
-    """native: ``_pil_resize_c``, the same bit for bit."""
-    if native:
+def _pil_resize(img_u8, size, filt: str, host_cpp: bool = False) -> np.ndarray:
+    """host_cpp: ``_pil_resize_c``, the same bit for bit."""
+    if host_cpp:
         return _pil_resize_c(img_u8, size, filt)
     w, h = size
     img = np.asarray(img_u8, np.uint8)
@@ -385,19 +398,35 @@ def pil_resize_lanczos(img_u8: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return _pil_resize(img_u8, size, "lanczos")
 
 
-def load_and_resize_image(path: str, size: int = 256, native: bool = False) -> np.ndarray:
-    """An image file -> uint8 [size, size, 3]: ``read_image_rgb`` (PNG, JPEG,
-    WEBP),
-    the centre square crop, then Pillow's BILINEAR resample (``_pil_resize``
-    with a triangle on support 1), as the JAX package's
-    utils/image.py:load_and_resize_image computes it without its native
-    extension (the reference's load_and_resize_imagenet_image). native: as
-    ``read_image_rgb``'s."""
-    im = read_image_rgb(path, native)
+def load_and_resize_image(path: str, size: int = 256, host_cpp: bool = False) -> np.ndarray:
+    """An image file -> uint8 [size, size, 3], as the JAX package's
+    utils/image.py:load_and_resize_image (the reference's
+    load_and_resize_imagenet_image): its native extension's ``load_resize``
+    first, here the port's ``native`` counterpart (libjpeg and libpng
+    decodes, no antialias; IOError where that fails); where that module
+    cannot be imported, ``read_image_rgb``, the centre square crop, then
+    Pillow's BILINEAR resample (``_pil_resize`` with a triangle on support
+    1), as it computes it without the extension. host_cpp: the fallback's
+    decode and resize in the host C++, as ``read_image_rgb``'s."""
+    try:
+        from ..native import _l2i_native as nat
+    except ImportError:
+        nat = None
+    if nat is not None:
+        return nat.load_resize(path, size)
+    return pillow_load_and_resize(path, size, host_cpp)
+
+
+def pillow_load_and_resize(path: str, size: int = 256, host_cpp: bool = False) -> np.ndarray:
+    """``load_and_resize_image`` without the native path: what the JAX
+    package's Pillow code computes (``Image.open(path).convert("RGB")``, the
+    centre square, ``resize((size, size), BILINEAR)``), as its regressor
+    trainer reads the test split always."""
+    im = read_image_rgb(path, host_cpp)
     h, w = im.shape[:2]
     dim = min(w, h)
     top, left = (h - dim) // 2, (w - dim) // 2
-    return _pil_resize(im[top:top + dim, left:left + dim], (size, size), "bilinear", native)
+    return _pil_resize(im[top:top + dim, left:left + dim], (size, size), "bilinear", host_cpp)
 
 
 def to_uint8(ims) -> np.ndarray:

@@ -2,9 +2,9 @@
 (``PIL.Image.open(p).convert("RGB")`` with libjpeg-turbo's defaults), bit
 for bit: the GPU machine has no Pillow.
 
-    jpeg_decode_rgb(data: bytes, native: bool = False) -> uint8 [H, W, 3]
+    jpeg_decode_rgb(data: bytes, host_cpp: bool = False) -> uint8 [H, W, 3]
 
-``native=True`` runs the same decode, bit for bit and with the same
+``host_cpp=True`` runs the same decode, bit for bit and with the same
 errors, in the host C++ of ops/csrc/jpeg_huffman.cpp (the card's loaders).
 
 What it reads: SOF0, SOF1 (sequential), SOF2 (progressive) and SOF3
@@ -185,18 +185,22 @@ def _lut_rows(counts: bytes, symbols: bytes, dc: bool) -> np.ndarray:
     return out
 
 
-def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc) -> int:
+def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc,
+                     per_mcu: int = 1, limit=None) -> int:
     """Decode the blocks of one restart interval from its unstuffed bytes as
     big-endian 32-bit words (zero-padded past the end) -> the bits it used.
     blocks: (block number, component of the scan) in decode order. Each
     non-zero AC coefficient goes to out_ac packed as block << 23 | zigzag
     position << 16 | value & 0xFFFF (a position past 63 is corrupt data,
     checked by the caller); each DC value (the predictor's running sum) to
-    out_dc."""
+    out_dc. limit: libjpeg's run out of data (``_fill_scan``): no MCU
+    starts once more than ``limit`` bits are used."""
     buf = nb = wi = 0
     put, put_dc = out_ac.append, out_dc.append
     one, end = 1 << 16, 64 << 16
-    for blk, ci in blocks:
+    for i, (blk, ci) in enumerate(blocks):
+        if limit is not None and i % per_mcu == 0 and wi * 32 - nb > limit:
+            break
         if nb < 32:
             buf = ((buf & ((1 << nb) - 1)) << 32) | words[wi]
             wi += 1
@@ -279,6 +283,17 @@ class _Bits:
         return self.wi * 32 - self.nb
 
 
+def _until(rd: _Bits, blocks, per_mcu: int, limit: int, last: list):
+    """The blocks of an interval, ending before the first MCU that starts
+    with more than ``limit`` bits of ``rd`` used; last[0]: the last one
+    given, (block number, index in the scan)."""
+    for i, b in enumerate(blocks):
+        if i % per_mcu == 0 and rd.used() > limit:
+            return
+        last[0] = b
+        yield b
+
+
 def _w16(v: int) -> int:
     """v as a JCOEF (int16, wrapping)."""
     return ((v + 32768) & 0xFFFF) - 32768
@@ -288,11 +303,15 @@ def _ext(bits: int, size: int) -> int:
     return bits - (1 << size) + 1 if bits < 1 << (size - 1) else bits
 
 
-def _progressive_interval(rd: _Bits, blocks, luts, coef: list, ss, se, ah, al) -> None:
+def _progressive_interval(rd: _Bits, blocks, luts, coef: list, ss, se, ah, al,
+                          per_mcu: int = 1, limit=None, last=None) -> None:
     """Decode one restart interval of a progressive scan into coef (every
     block's 64 coefficients in zigzag order, a flat list): jdphuff.c's
     decode_mcu_DC_first, _DC_refine, _AC_first and _AC_refine. A position
-    past 63 is coefficient 63 (libjpeg's padded natural-order table)."""
+    past 63 is coefficient 63 (libjpeg's padded natural-order table).
+    limit: as ``_decode_interval``'s; last: ``_until``'s."""
+    if limit is not None:  # the MCUs that start within the data
+        blocks = _until(rd, blocks, per_mcu, limit, last)
     if ss == 0 and ah == 0:  # DC first
         preds = [0] * len(luts)
         for blk, ci in blocks:
@@ -662,12 +681,14 @@ def _arith_interval(rd: _ArithBits, blocks, comps, dcs, acs, dac, coef: list,
             k += 1
 
 
-def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit) -> int:
+def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit, fill=False) -> int:
     """Decode one arithmetic-coded scan (sequential or progressive)
     starting at data[pos] into fr.pcoef -> the position of the marker after
     its entropy-coded data. limit: the end of what Pillow has handed
     libjpeg so far; a restart marker that the decoder has not met already
-    must lie inside it too (jdarith.c process_restart cannot suspend)."""
+    must lie inside it too (jdarith.c process_restart cannot suspend).
+    fill: libjpeg over a whole buffer, which has no such limit and ends in a
+    fake EOI marker: past the data every interval decodes from zeros."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
             len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
@@ -678,7 +699,7 @@ def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit) -> int:
         if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1)) or \
                 (ah and al != ah - 1) or al > 13:
             raise _corrupt("bad progressive scan parameters")
-    elif (ss, se, a) != (0, 63, 0):
+    elif (ss, se, a) != (0, 63, 0) and not fill:  # libjpeg only warns
         raise _refuse("progressive (a spectral-selection scan)")
     comps, tabs = [], []
     for i in range(ns):
@@ -709,6 +730,9 @@ def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit) -> int:
             at = r.end()
     bounds.append((at, end))
     n_int = -(-n_mcu // span)
+    if fill:  # the buffer's fake EOI: a marker, zeros past the data, no limit
+        bounds += [(len(data), len(data))] * (n_int - len(bounds))
+        limit = len(data) + 2
     if len(bounds) < n_int:
         raise _corrupt("truncated data (fewer restart intervals than the image needs)")
     met = True
@@ -716,7 +740,7 @@ def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit) -> int:
         a0, a1 = bounds[i]
         if not met and a0 > limit:  # read_restart_marker reads to a0
             raise _pillow_block()
-        rd = _ArithBits(data, a0, a1, a1 == len(data), limit)
+        rd = _ArithBits(data, a0, a1, a1 == len(data) and not fill, limit)
         dcs = [bytearray(DC_BINS) for _ in range(16)]  # statistics reset at
         acs = [bytearray(AC_BINS) for _ in range(16)]  # every restart
         _arith_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu], tabs,
@@ -920,6 +944,56 @@ def _idct_islow(coef: np.ndarray) -> np.ndarray:
     return _RANGE[out & 1023]
 
 
+def _w16a(v):
+    """int64 values as int16 lanes: wrapped to 16 bits."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _simd_butterfly(c):
+    """``_islow_butterfly`` as libjpeg-turbo's SSE2 and AVX2 ISLOW
+    (jidctint-sse2.asm, -avx2.asm) compute it on int16 lanes: the same
+    32-bit products and sums, but c0 + c4, c0 - c4, c7 + c3 and c5 + c1
+    added in 16 bits, wrapping."""
+    c = list(c)
+    s04, d04 = _w16a(c[0] + c[4]), _w16a(c[0] - c[4])
+    z3, z4 = _w16a(c[7] + c[3]), _w16a(c[5] + c[1])
+    z1 = (c[2] + c[6]) * 4433
+    tmp2 = z1 + c[6] * -15137
+    tmp3 = z1 + c[2] * 6270
+    tmp0, tmp1 = s04 << 13, d04 << 13
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z5 = (z3 + z4) * 9633
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    u0 = t0 * 2446 + (t0 + t3) * -7373 + z3
+    u1 = t1 * 16819 + (t1 + t2) * -20995 + z4
+    u2 = t2 * 25172 + (t1 + t2) * -20995 + z3
+    u3 = t3 * 12299 + (t0 + t3) * -7373 + z4
+    return [tmp10 + u3, tmp11 + u2, tmp12 + u1, tmp13 + u0,
+            tmp13 - u0, tmp12 - u1, tmp11 - u2, tmp10 - u3]
+
+
+def _idct_islow_simd(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """Coefficients [N, 8, 8] (natural order) and their quantiser steps
+    [8, 8] -> samples [N, 8, 8] uint8 as libjpeg-turbo 2.1 computes them on
+    x86-64 (its SIMD ISLOW, what the JAX package's libjpeg runs): the
+    dequantisation a 16-bit multiply; a block whose rows 1-7 are all zero
+    takes pass 1's shortcut (the DC << 2 in 16 bits, every row); pass 1's
+    output saturated to int16, pass 2's to int16 and then to [-128, 127]
+    before the +128. Equal to ``_idct_islow`` wherever nothing overflows."""
+    raw = coef.astype(np.int64)
+    c = _w16a(raw * quant.astype(np.int64)[None])
+    cols = _simd_butterfly([c[:, k, :] for k in range(8)])
+    ws = np.clip(np.stack([(v + 1024) >> 11 for v in cols], axis=1), -32768, 32767)
+    dc_only = ~raw[:, 1:].any(axis=(1, 2))
+    if dc_only.any():
+        ws[dc_only] = _w16a(c[dc_only, :1, :] << 2)
+    rows = _simd_butterfly([ws[:, :, k] for k in range(8)])
+    out = np.clip(np.stack([(v + (1 << 17)) >> 18 for v in rows], axis=2), -128, 127)
+    return (out + 128).astype(np.uint8)
+
+
 def _edges(p, axis):
     """p's neighbours before and after along `axis`, the edge replicated."""
     first = np.take(p, [0], axis=axis)
@@ -1001,7 +1075,7 @@ def _segment(data: bytes, pos: int) -> tuple[bytes, int]:
 
 class _Frame:
     def __init__(self, body: bytes, progressive: bool = False, arith: bool = False,
-                 lossless: bool = False):
+                 lossless: bool = False, libjpeg: bool = False):
         if len(body) < 6:
             raise _corrupt("short SOF segment")
         precision = body[0]
@@ -1029,7 +1103,12 @@ class _Frame:
         for h, v in zip(self.h, self.v):
             if self.hmax % h or self.vmax % v:
                 raise _refuse("fractional-sampling")
-        if self.width * self.height > PILLOW_MAX_PIXELS:
+        if libjpeg:  # JPEG_MAX_DIMENSION; no colour conversion of 4 components to RGB
+            if max(self.width, self.height) > 65500:
+                raise _corrupt("an image past libjpeg's 65500 pixels a side")
+            if n == 4:
+                raise _corrupt("a 4-component file: libjpeg converts no CMYK or YCCK to RGB")
+        elif self.width * self.height > PILLOW_MAX_PIXELS:
             raise _bomb(self.height, self.width)
         # a data unit: an 8 x 8 block, or one sample of a lossless frame
         self.lossless, self.unit = lossless, 1 if lossless else 8
@@ -1048,6 +1127,12 @@ class _Frame:
             self.pcoef = [0] * int(self.offset[-1])
         if progressive:  # each coefficient's Al so far; -1: never scanned
             self.coef_bits = [[-1] * 64 for _ in range(n)]
+            # libjpeg-turbo 2.1: the Al values before each component's last
+            # scan, and the last iMCU row decoded with data (libjpeg mode)
+            self.prev_bits = [[0] * 64 for _ in range(n)]
+            self.last_good = None
+        self.scans = 0  # scans started
+        self.libjpeg = libjpeg
         if lossless:  # each component's samples (after its scan) and their Pt
             self.samples, self.pt = [None] * n, [0] * n
 
@@ -1077,9 +1162,10 @@ def _scan_blocks(fr: _Frame, comps: list) -> tuple[list, int]:
     return list(zip(base.ravel().tolist(), sel.ravel().tolist())), base.shape[1]
 
 
-def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
+def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart, fill=False) -> int:
     """Decode one sequential scan starting at data[pos] into fr.coef ->
-    the position of the marker after its entropy-coded data."""
+    the position of the marker after its entropy-coded data. fill: where
+    the data runs out, as libjpeg over a whole buffer (``_fill_intervals``)."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
             len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
@@ -1101,7 +1187,7 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
         dcls.append(_lut(*dc_tabs[t >> 4], True))
         acls.append(_lut(*ac_tabs[t & 15], False))
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, a) != (0, 63, 0):
+    if (ss, se, a) != (0, 63, 0) and not fill:  # libjpeg only warns
         raise _refuse("progressive (a spectral-selection scan)")
 
     m = _ENTROPY_END.search(data, pos)
@@ -1111,32 +1197,79 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
     span = restart if restart else n_mcu
     pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
     n_int = -(-n_mcu // span)
-    if len(pieces) < n_int:
-        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
     out_ac, out_dc = [], []
-    for s in range(n_int):
-        raw = pieces[s].replace(b"\xff\x00", b"\xff")
-        words = np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist()
-        try:
-            used = _decode_interval(words, blocks[s * span * per_mcu:(s + 1) * span * per_mcu],
-                                    dcls, acls, [0] * ns, out_ac, out_dc)
-        except IndexError:  # read past the padding
-            used = 8 * len(words) * 4
-        if used > 8 * len(raw):
-            raise _corrupt("truncated data (the scan ends before its last block)")
+    if fill:
+        decoded = []
+        ran_out = [False]
+        for s, raw, limit in _fill_intervals(pieces, n_int, end == len(data), ran_out):
+            lo = s * span * per_mcu
+            words = np.frombuffer(raw, ">u4").tolist()
+            used = _decode_interval(words, blocks[lo:lo + span * per_mcu], dcls, acls,
+                                    [0] * ns, out_ac, out_dc, per_mcu, limit)
+            decoded.extend(blocks[lo:lo + len(out_dc) - len(decoded)])
+            ran_out[0] = used > limit
+        blocks = decoded
+    else:
+        if len(pieces) < n_int:
+            raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+        for s in range(n_int):
+            raw = pieces[s].replace(b"\xff\x00", b"\xff")
+            words = np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist()
+            try:
+                used = _decode_interval(words, blocks[s * span * per_mcu:(s + 1) * span * per_mcu],
+                                        dcls, acls, [0] * ns, out_ac, out_dc)
+            except IndexError:  # read past the padding
+                used = 8 * len(words) * 4
+            if used > 8 * len(raw):
+                raise _corrupt("truncated data (the scan ends before its last block)")
     blk = np.fromiter((b for b, _ in blocks), np.int64, len(blocks))
     fr.coef[blk * 64] = np.asarray(out_dc, np.int64).astype(np.int16)  # JCOEF
     ac = np.asarray(out_ac, np.int64)
     pos = (ac >> 16) & 127
     if pos.size and pos.max() > 63:
-        raise _corrupt("coefficient past the end of a block (corrupt data)")
+        if not fill:
+            raise _corrupt("coefficient past the end of a block (corrupt data)")
+        pos = np.minimum(pos, 63)  # libjpeg's padded natural-order table
     fr.coef[(ac >> 23) * 64 + pos] = (ac & 0xFFFF).astype(np.uint16).view(np.int16)
     return end
 
 
-def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart) -> int:
+def _fill_intervals(pieces, n_int: int, at_eof: bool, ran_out: list):
+    """A scan's restart intervals as libjpeg decodes them from a whole
+    buffer (jpeg_mem_src), which ends in a fake EOI marker: -> (interval,
+    its unstuffed bytes zero-padded by at least an MCU's most bits, the
+    bits it has) for each interval to decode. Where a decode needs more bits
+    than its interval has (the caller sets ``ran_out[0]``), the
+    MCU in progress reads zeros and the rest of the interval decodes nothing
+    (jdhuff.c insufficient_data: its blocks stay as they were, zero where
+    the scan is their first). An interval whose restart marker never came
+    starts without data: its first MCU reads zeros, unless the one before ran
+    out, which leaves every later one empty (the marker met stays unread).
+    A lone 0xFF at the end of the file is a marker's first byte."""
+    for i in range(n_int):
+        if i < len(pieces):
+            raw = pieces[i]
+            if at_eof and i == len(pieces) - 1 and raw.endswith(b"\xff"):
+                raw = raw.rstrip(b"\xff")
+            raw = raw.replace(b"\xff\x00", b"\xff")
+        elif ran_out[0]:
+            return
+        else:
+            raw = b""
+        yield i, raw + bytes(_FILL_PAD - len(raw) % 4), 8 * len(raw)
+
+
+# zero bytes past an interval's data: more than a 10-block MCU reads (each
+# block at most 16 + 11 bits of DC, 63 x (16 + 10) of AC, or the same of
+# refinement bits)
+_FILL_PAD = 4096
+
+
+def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart,
+                             fill=False) -> int:
     """Decode one progressive scan starting at data[pos] into fr.pcoef ->
-    the position of the marker after its entropy-coded data."""
+    the position of the marker after its entropy-coded data. fill: as
+    ``_decode_scan``'s."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
             len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
@@ -1163,6 +1296,8 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart)
         fr.scanned[c] = True
         comps.append(c)
         luts.append(None if ss == 0 and ah else _sym_lut(*tabs[key], ss == 0))
+        for k in range(min(ss, 1), max(se, 9) + 1):  # jdphuff.c start_pass
+            fr.prev_bits[c][k] = fr.coef_bits[c][k] if fr.scans > 1 else 0
         for k in range(ss, se + 1):
             fr.coef_bits[c][k] = al
 
@@ -1173,6 +1308,19 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart)
     span = restart if restart else n_mcu
     pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
     n_int = -(-n_mcu // span)
+    if fill:
+        ran_out, last = [False], [None]
+        for i, raw, limit in _fill_intervals(pieces, n_int, end == len(data), ran_out):
+            rd = _Bits(np.frombuffer(raw, ">u4").tolist())
+            _progressive_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu],
+                                  luts, fr.pcoef, ss, se, ah, al, per_mcu, limit, last)
+            ran_out[0] = rd.used() > limit
+        # jdcoefct.c consume_data's last_good_iMCU_row: the iMCU row of the
+        # last MCU started before the data ran out
+        blk, ci = last[0]
+        c = comps[ci]
+        fr.last_good = (blk - fr.offset[c] // fr.per) // fr.bw[c] // fr.v[c]
+        return end
     if len(pieces) < n_int:
         raise _corrupt("truncated data (fewer restart intervals than the image needs)")
     for i in range(n_int):
@@ -1254,6 +1402,42 @@ def _smooth_rows(v: int, total: int, height: int):
     return out
 
 
+def _smooth_rows_21(v: int, total: int, height: int):
+    """``_smooth_rows`` as libjpeg-turbo 2.1 takes them (its native
+    extension's libjpeg): a row two above or below is read only where the
+    iMCU rows accessed hold it: in the second iMCU row the row two above is
+    the row above, in the one before the last the row two below the row
+    below."""
+    out = []
+    for i in range(total):
+        rows = v if i < total - 1 else (height % v or v)
+        for b in range(rows):
+            row = i * v + b
+            up = row - 1 if b > 0 or i > 0 else row
+            up2 = row - 2 if b > 1 or i > 1 else up
+            down = row + 1 if b < rows - 1 or i < total - 1 else row
+            down2 = row + 2 if b < rows - 2 or i + 1 < total - 1 else down
+            out.append((row, (up2, up, row, down, down2)))
+    return out
+
+
+def _smooth_cols_21(cols: int) -> np.ndarray:
+    """The five DC columns around each block as libjpeg-turbo 2.1 slides
+    them, five registers shifted left after each block: all start at
+    column 0; the first block of a row wider than one block reads column 1
+    into the fourth, block b reads column b + 2 into the fifth only while
+    b + 1 < cols - 1 (so in a two-block row the fifth stays column 0)."""
+    regs, out = [0] * 5, []
+    for b in range(cols):
+        if b == 0 and b < cols - 1:
+            regs[3] = 1
+        if b + 1 < cols - 1:
+            regs[4] = b + 2
+        out.append(list(regs))
+        regs = regs[1:] + regs[4:]
+    return np.array(out, np.int64)
+
+
 def _smooth(fr: _Frame) -> np.ndarray:
     """jdcoefct.c decompress_smooth_data over a progressive frame whose low
     AC coefficients are not all refined (``_smoothed``): in each block
@@ -1264,37 +1448,53 @@ def _smooth(fr: _Frame) -> np.ndarray:
     transform."""
     coef = fr.coef.copy()
     for c in range(len(fr.ids)):
-        bits, q = fr.coef_bits[c][:_SMOOTH_COEFS], fr.quant[c]
-        change_dc = all(b == -1 for b in bits[1:])
+        q = fr.quant[c]
         grid = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c], 64)
         out = coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c], 64)
         w, h = fr.downsampled(c)
         cols, height = -(-w // 8), -(-h // 8)
-        rows = _smooth_rows(fr.v[c], fr.mcuy, height)
+        rows = (_smooth_rows_21 if fr.libjpeg else _smooth_rows)(fr.v[c], fr.mcuy, height)
         r, nb = np.array([x for x, _ in rows]), np.array([y for _, y in rows])
-        x5 = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
+        x5 = _smooth_cols_21(cols) if fr.libjpeg else \
+            np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
         dc = grid[:, :, 0][nb[:, :, None, None], x5[None, None]]  # [rows, 5, cols, 5]
         dc = dc.transpose(0, 2, 1, 3).reshape(len(rows), cols, 25)
-        ws = out[r, :cols].copy()
-        for zz, plain, interp in _SMOOTH_AC:
-            al = bits[zz]
-            weights = interp if change_dc else plain
-            if al == 0 or weights is None:
-                continue
-            qk = int(q[_ZIGZAG[zz]])
-            num = int(q[0]) * (dc @ weights)
-            mag = ((qk << 7) + np.abs(num)) // (qk << 8)
-            if al > 0:
-                mag = np.minimum(mag, (1 << al) - 1)
-            pred = np.where(num >= 0, mag, -mag)
-            ws[..., zz] = np.where(ws[..., zz] == 0, ((pred + 32768) & 0xFFFF) - 32768,
-                                   ws[..., zz])
-        if change_dc:
-            num = int(q[0]) * (dc @ _SMOOTH_DC)
-            mag = ((int(q[0]) << 7) + np.abs(num)) // (int(q[0]) << 8)
-            ws[..., 0] = ((np.where(num >= 0, mag, -mag) + 32768) & 0xFFFF) - 32768
+        ws = _estimate(out[r, :cols], dc, fr.coef_bits[c][:_SMOOTH_COEFS], q)
+        if fr.last_good is not None:
+            # libjpeg-turbo 2.1: the iMCU rows past the last one decoded with
+            # data take the coefficient bits from before the last scan
+            late = r // fr.v[c] > fr.last_good
+            if late.any():
+                prev = [-1] * _SMOOTH_COEFS if fr.scans <= 1 else fr.prev_bits[c][:_SMOOTH_COEFS]
+                ws[late] = _estimate(out[r, :cols], dc, prev, q)[late]
         out[r, :cols] = ws
     return coef
+
+
+def _estimate(blocks: np.ndarray, dc: np.ndarray, bits, q) -> np.ndarray:
+    """decompress_smooth_data's estimates for one component's output rows
+    of blocks [rows, cols, 64] from their 5 x 5 DC values ``dc``, under the
+    coefficient bits ``bits`` (positions 1-9 read)."""
+    change_dc = all(b == -1 for b in bits[1:])
+    ws = blocks.copy()
+    for zz, plain, interp in _SMOOTH_AC:
+        al = bits[zz]
+        weights = interp if change_dc else plain
+        if al == 0 or weights is None:
+            continue
+        qk = int(q[_ZIGZAG[zz]])
+        num = int(q[0]) * (dc @ weights)
+        mag = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            mag = np.minimum(mag, (1 << al) - 1)
+        pred = np.where(num >= 0, mag, -mag)
+        ws[..., zz] = np.where(ws[..., zz] == 0, ((pred + 32768) & 0xFFFF) - 32768,
+                               ws[..., zz])
+    if change_dc:
+        num = int(q[0]) * (dc @ _SMOOTH_DC)
+        mag = ((int(q[0]) << 7) + np.abs(num)) // (int(q[0]) << 8)
+        ws[..., 0] = ((np.where(num >= 0, mag, -mag) + 32768) & 0xFFFF) - 32768
+    return ws
 
 
 def _smoothed(fr: _Frame) -> bool:
@@ -1309,22 +1509,75 @@ def _smoothed(fr: _Frame) -> bool:
     return useful
 
 
-def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
+def _tables(marker: int, body: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, dac,
+            restart: int) -> int:
+    """A DAC, DHT, DQT or DRI segment (jdmarker.c get_dac, get_dht, get_dqt,
+    get_dri) into the tables -> the restart interval."""
+    if marker == 0xCC:  # DAC
+        if len(body) % 2:
+            raise _corrupt("bad DAC segment")
+        for i in range(0, len(body), 2):
+            index, val = body[i], body[i + 1]
+            if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                raise _corrupt("bad DAC segment")
+            if index >= 16:
+                dac[2][index - 16] = val
+            else:
+                dac[0][index], dac[1][index] = val & 15, val >> 4
+    elif marker == 0xC4:  # DHT
+        i = 0
+        while i < len(body):
+            tc_th, counts = body[i], body[i + 1:i + 17]
+            n = sum(counts)
+            if len(counts) < 16 or i + 17 + n > len(body) or tc_th >> 4 > 1 or \
+                    tc_th & 15 > 3 or n > 256:
+                raise _corrupt("bad DHT segment")
+            (ac_tabs if tc_th >> 4 else dc_tabs)[tc_th & 15] = (
+                bytes(counts), bytes(body[i + 17:i + 17 + n]))
+            i += 17 + n
+    elif marker == 0xDB:  # DQT
+        i = 0
+        while i < len(body):
+            pq, tq = body[i] >> 4, body[i] & 15
+            size = 128 if pq else 64
+            if i + 1 + size > len(body) or tq > 3:
+                raise _corrupt("bad DQT segment")
+            q = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
+            qt[tq] = q.astype(np.int64)[_UNZIGZAG]  # natural order
+            i += 1 + size
+    else:  # DRI
+        if len(body) != 2:
+            raise _corrupt("bad DRI segment")
+        restart = int.from_bytes(body, "big")
+    return restart
+
+
+def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) -> np.ndarray:
     """JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (libjpeg-turbo: ISLOW IDCT, fancy
     upsampling, block smoothing). Raises ValueError on what it does not
     read (see the module docstring), naming ROADMAP item 26, and where
     Pillow fails the file.
 
-    native: the whole decode in one call of the host C++
+    host_cpp: the whole decode in one call of the host C++
     ``l2i_jpeg_decode`` (ops/csrc/jpeg_huffman.cpp, built with the kernels at
     first use; a failed build raises), the same function bit for bit with
     the same errors; the Python and numpy version of this module runs
     otherwise, and stays the plain version the tests hold it to. The card's
-    entry points ask for it."""
+    entry points ask for it.
+
+    libjpeg: decode as libjpeg-turbo 2.1 alone does from a whole buffer
+    (``jpeg_mem_src``, ``out_color_space = JCS_RGB``), the JAX package's
+    native extension: where the data runs out the buffer's fake EOI marker
+    supplies zeros (``_fill_intervals``), so a truncated file decodes; no
+    Pillow block limit, bomb check or missing-EOI test; 4-component (CMYK,
+    YCCK) and lossless files fail, as they do there. Only whether a file
+    fails matters on that path, not which error it raises."""
     data = bytes(data)
-    if native:
-        return _decode_c(data)
+    if host_cpp:
+        return _decode_c(data, libjpeg)
+    if libjpeg:
+        return _decode_libjpeg(data)
     if data[:3] != b"\xff\xd8\xff":  # Pillow's test: SOI and a marker
         raise _corrupt("not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
@@ -1362,42 +1615,8 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
                 raise _corrupt("a second frame")
             fr = _Frame(body, progressive=marker in (0xC2, 0xCA), arith=marker >= 0xC9,
                         lossless=marker == 0xC3)
-        elif marker == 0xCC:  # DAC (jdmarker.c get_dac)
-            if len(body) % 2:
-                raise _corrupt("bad DAC segment")
-            for i in range(0, len(body), 2):
-                index, val = body[i], body[i + 1]
-                if index >= 32 or (index < 16 and val & 15 > val >> 4):
-                    raise _corrupt("bad DAC segment")
-                if index >= 16:
-                    dac[2][index - 16] = val
-                else:
-                    dac[0][index], dac[1][index] = val & 15, val >> 4
-        elif marker == 0xC4:  # DHT
-            i = 0
-            while i < len(body):
-                tc_th, counts = body[i], body[i + 1:i + 17]
-                n = sum(counts)
-                if len(counts) < 16 or i + 17 + n > len(body) or tc_th >> 4 > 1 or \
-                        tc_th & 15 > 3 or n > 256:
-                    raise _corrupt("bad DHT segment")
-                (ac_tabs if tc_th >> 4 else dc_tabs)[tc_th & 15] = (
-                    bytes(counts), bytes(body[i + 17:i + 17 + n]))
-                i += 17 + n
-        elif marker == 0xDB:  # DQT
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                size = 128 if pq else 64
-                if i + 1 + size > len(body) or tq > 3:
-                    raise _corrupt("bad DQT segment")
-                q = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
-                qt[tq] = q.astype(np.int64)[_UNZIGZAG]  # natural order
-                i += 1 + size
-        elif marker == 0xDD:  # DRI
-            if len(body) != 2:
-                raise _corrupt("bad DRI segment")
-            restart = int.from_bytes(body, "big")
+        elif marker in (0xCC, 0xC4, 0xDB, 0xDD):
+            restart = _tables(marker, body, qt, dc_tabs, ac_tabs, dac, restart)
         elif marker == 0xDC:
             raise _refuse("DNL-height")
         elif marker == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
@@ -1408,6 +1627,7 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
             if fr is None:
                 raise _corrupt("scan before the frame header")
             scans += 1
+            fr.scans = scans
             if fr.lossless:
                 after = _decode_lossless_scan(fr, body, data, after, dc_tabs, restart)
             elif fr.arith:
@@ -1432,12 +1652,85 @@ def jpeg_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
     return _assemble(fr, jfif, adobe)
 
 
+# fake EOI markers: what jpeg_mem_src reads past the end of its buffer
+_FAKE_EOI = b"\xff\xd9" * 32768
+
+
+def _decode_libjpeg(data: bytes) -> np.ndarray:
+    """``jpeg_decode_rgb(data, libjpeg=True)``: jdmarker.c's read_markers
+    (RSTn and TEM outside a scan skipped, DNL skipped, SOF3, JPG and other
+    unknown markers an error), a marker segment past the end read from the
+    fake EOI bytes, each scan through its decoder with ``fill``."""
+    if data[:2] != b"\xff\xd8":
+        raise _corrupt("not a JPEG file (no SOI marker)")
+    qt, dc_tabs, ac_tabs = {}, {}, {}
+    dac = ([0] * 16, [1] * 16, [5] * 16)
+    restart, jfif, adobe = 0, False, None
+    fr, scans, pos = None, 0, 2
+    while pos < len(data):
+        nxt = data.find(b"\xff", pos)
+        if nxt < 0:
+            break
+        pos = nxt + 1
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            break
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:
+            break
+        if marker in (0x00, 0x01) or 0xD0 <= marker <= 0xD7:
+            continue
+        if marker in _SOF_REFUSED or marker in (0xC3, 0xC8) or marker < 0xC0 or \
+                marker in (0xD8, 0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+            raise _corrupt(f"marker 0x{marker:02X}: libjpeg-turbo 2.1 fails it")
+        try:
+            body, after = _segment(data, pos)
+        except ValueError:  # the segment runs into the fake EOI bytes, and so
+            data += _FAKE_EOI  # does what follows it
+            body, after = _segment(data, pos)
+        if marker in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            if fr is not None:
+                raise _corrupt("a second frame")
+            fr = _Frame(body, progressive=marker in (0xC2, 0xCA), arith=marker >= 0xC9,
+                        libjpeg=True)
+        elif marker in (0xCC, 0xC4, 0xDB, 0xDD):
+            restart = _tables(marker, body, qt, dc_tabs, ac_tabs, dac, restart)
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker == 0xDA:
+            if fr is None:
+                raise _corrupt("scan before the frame header")
+            scans += 1
+            fr.scans = scans
+            if fr.arith:
+                after = _decode_arith_scan(fr, body, data, after, qt, restart, dac, 0, True)
+            else:
+                scan = _decode_progressive_scan if fr.progressive else _decode_scan
+                after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart, True)
+        pos = after
+    if not scans:  # jpeg_read_header's JERR_NO_IMAGE
+        raise _corrupt("no scan before the end of the data")
+    if fr.progressive or fr.arith:
+        fr.coef = np.asarray(fr.pcoef, np.int64)
+    if fr.progressive and _smoothed(fr):
+        fr.coef = _smooth(fr)
+    return _assemble(fr, jfif, adobe)
+
+
 def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
     """IDCT, upsampling and colour conversion of a decoded frame."""
     planes = []
     for c in range(len(fr.ids)):
         coef = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(-1, 64)[:, _UNZIGZAG]
-        blocks = _idct_islow((coef * fr.quant[c][_ZIGZAG][_UNZIGZAG]).reshape(-1, 8, 8))
+        q = fr.quant[c] if fr.quant[c] is not None else np.zeros(64, np.int64)  # no scan
+        if fr.libjpeg:
+            blocks = _idct_islow_simd(coef.reshape(-1, 8, 8), q.reshape(8, 8))
+        else:
+            blocks = _idct_islow((coef * q[_ZIGZAG][_UNZIGZAG]).reshape(-1, 8, 8))
         bh, bw = fr.bh[c], fr.bw[c]
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         w, h = fr.downsampled(c)
@@ -1520,11 +1813,12 @@ _C_ERRORS = {
     -50: lambda v: _corrupt("a lossless YCCK file: libjpeg-turbo converts no colour in "
                             "lossless mode, and Pillow fails it"),
     -51: lambda v: _corrupt("truncated data (a lossless file with no EOI)"),
+    -52: lambda v: _corrupt("a file libjpeg-turbo 2.1 fails (libjpeg mode)"),
 }
 _OUT_SIZE = -37
 
 
-def _decode_c(data: bytes) -> np.ndarray:
+def _decode_c(data: bytes, libjpeg: bool = False) -> np.ndarray:
     """``jpeg_decode_rgb`` through the C entry ``l2i_jpeg_decode``, into an
     array sized by ``l2i_jpeg_dims`` (again by the decode's own frame where
     the two disagree, which takes a second call)."""
@@ -1539,7 +1833,7 @@ def _decode_c(data: bytes) -> np.ndarray:
     for _ in range(2):
         out = np.empty(shape, np.uint8)
         rc = lib.l2i_jpeg_decode(data, len(data), out.ctypes.data if out.size else None,
-                                 out.size, info)
+                                 out.size, info, int(libjpeg))
         if rc == 0:
             return out
         if rc != _OUT_SIZE:

@@ -1,18 +1,19 @@
 """Batches of images decoded ahead on a fixed pool of threads.
 
-The port's counterpart of the JAX package's native threaded ``Loader``
-(latent2im_tpu/native there: libjpeg on 2 threads), for the trainers on the
-card: ``cli/train_regressor.py`` and ``--updateGAN``'s real batches
-(``cli/train.py:_make_real_batcher``). The caller gives the stream of index
+The pool under the port's native ``Loader`` (latent2im_tpu_torch/native,
+the JAX package's threaded libjpeg/libpng loader) and under the Pillow-path
+loaders of ``cli/train_regressor.py`` (its test split, and its training
+split and ``--updateGAN``'s real batches where the native module is
+hidden, ``cli/train.py:_make_real_batcher``). The caller gives the stream of index
 batches and a function that loads one image; the loader keeps DEPTH
 batches in flight on its threads while the caller's step runs, and yields
 exactly the batches of the sequential path, in its order: the same index
 batches, each image loaded by the same function, stacked in the same order.
 An image that fails to load raises at its batch, as it would in sequence.
 
-The threads overlap because the decode and resize run in native code that
-releases the GIL (the ctypes calls into ops/csrc/jpeg_huffman.cpp and
-resample.cpp, zlib, numpy); the Python between them holds it. The pool is
+The threads overlap because the decode and resize run in compiled code that
+releases the GIL (the ctypes calls into ops/csrc/*.cpp, zlib, numpy); the
+Python between them holds it. The pool is
 ``os.cpu_count()`` threads, at most ``MAX_THREADS``.
 """
 

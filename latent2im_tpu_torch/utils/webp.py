@@ -2,9 +2,9 @@
 (``PIL.Image.open(p).convert("RGB")``: libwebp 1.6.0's WebPAnimDecoder in
 MODE_RGBA, its first frame), bit for bit: the GPU machine has no Pillow.
 
-    webp_decode_rgb(data: bytes, native: bool = False) -> uint8 [H, W, 3]
+    webp_decode_rgb(data: bytes, host_cpp: bool = False) -> uint8 [H, W, 3]
 
-``native=True`` runs the same decode, bit for bit and with the same
+``host_cpp=True`` runs the same decode, bit for bit and with the same
 errors, in the host C++ of ops/csrc/webp_decode.cpp (the card's loaders).
 
 The pieces are libwebp's:
@@ -251,18 +251,18 @@ def _demux(data: bytes):
     return cw, ch, frames[0], buf
 
 
-def webp_decode_rgb(data: bytes, native: bool = False) -> np.ndarray:
+def webp_decode_rgb(data: bytes, host_cpp: bool = False) -> np.ndarray:
     """WEBP file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (see the module docstring); raises
     ValueError where Pillow fails the file.
 
-    native: the whole decode in one call of the host C++
+    host_cpp: the whole decode in one call of the host C++
     ``l2i_webp_decode`` (ops/csrc/webp_decode.cpp, built with the kernels
     at first use; a failed build raises), the same function bit for bit
     with the same errors; the Python and numpy version of this module runs
     otherwise, and stays the plain version the tests hold it to."""
     data = bytes(data)
-    if native:
+    if host_cpp:
         return _decode_c(data)
     cw, ch, fr, buf = _demux(data)
     start, size = fr.image

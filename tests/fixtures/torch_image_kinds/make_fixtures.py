@@ -26,7 +26,14 @@ The photo-like images of tests/fixtures/torch_jpeg/make_fixtures.py:
   and with the DC scans alone (4:4:4, DC interpolation too);
 - png16_*.png, adam7_*.png: 16-bit PNGs of every colour type (one with
   tRNS) and Adam7 PNGs at depths 1, 4, 8 and 16, written here (Pillow
-  writes no interlaced PNG), and the 256 x 256 16-bit photo bp inverts.
+  writes no interlaced PNG), and the 256 x 256 16-bit photo bp inverts;
+- gif_*.gif, bmp_*.bmp, tiff_*.tif (utils/gif.py, bmp.py, tiff.py): a
+  quantized GIF with transparency (Pillow's) and an interlaced one with a
+  local colour table off the canvas's origin; BMP at 8 bits (Pillow's),
+  RLE4 and RLE8, 16-bit 5-6-5 bitfields, top-down 24-bit and OS/2 v1; TIFF
+  RGB with LZW and the horizontal predictor (Pillow's), big-endian deflate
+  tiles of a palette image, PackBits 1-bit WhiteIsZero
+  (tests/image_format_encoders.py writes what Pillow does not).
 decodes.npz holds each decode as <name>.npy (the 256 x 256 photos by their
 digest only); decodes.json each decode's shape and SHA-256.
 """
@@ -271,6 +278,49 @@ def files() -> dict:
         out[f"adam7_c{color}_d{depth}_19x13.png"] = png(
             samples(13, 19, color, depth, 60 + depth), depth, color, interlace=1,
             plte=pal if color == 3 else None)
+    out.update(formats())
+    return out
+
+
+def formats() -> dict:
+    """The GIF, BMP and TIFF fixtures (name -> bytes)."""
+    from image_format_encoders import bmp, bmp_rle, bmp_rows, gif, tiff
+
+    def saved(image, fmt, **opts):
+        buf = io.BytesIO()
+        image.save(buf, fmt, **opts)
+        return buf.getvalue()
+
+    img = PIL.Image.fromarray
+    ph = photo(48, 64, 70)
+    rng = np.random.RandomState(71)
+    pal = photo(16, 16, 72).reshape(-1, 3)
+    idx = rng.randint(0, 16, (29, 37))
+    rle = (photo(23, 31, 73)[..., 0] // 64).astype(np.int64)
+    out = {
+        "gif_quantized_trns_64x48.gif": saved(img(ph).quantize(64), "GIF", transparency=7),
+        "gif_local_interlaced_50x40.gif": gif((50, 40), idx, gpal=pal[:8], lpal=pal[16:32],
+                                              pos=(6, 4), interlace=True),
+        "bmp_p8_64x48.bmp": saved(img(ph).quantize(100), "BMP"),
+        "bmp_rle4_31x23.bmp": bmp(31, 23, 4, bmp_rle(rle[::-1] * 5, True, seed=74),
+                                  pal=pal, comp=2),
+        "bmp_rle8_31x23.bmp": bmp(31, 23, 8, bmp_rle(rle[::-1] * 60, False, seed=75,
+                                                     delta_after_row=3),
+                                  pal=photo(16, 16, 76).reshape(-1, 3), comp=1),
+        "bmp_565_31x23.bmp": bmp(31, 23, 16, bmp_rows(
+            rng.randint(0, 256, (23, 62)), 8, 62), comp=3,
+            after_header=struct.pack("<III", 0xF800, 0x7E0, 0x1F)),
+        "bmp_24_top_down_31x23.bmp": bmp(31, 23, 24, bmp_rows(
+            photo(23, 31, 77)[..., ::-1].reshape(23, -1), 8, 93), topdown=True),
+        "bmp_os2_p4_31x23.bmp": bmp(31, 23, 4, bmp_rows(rle, 4, 31), pal=pal, os2=True),
+        "tiff_rgb_lzw_predictor_64x48.tif": saved(img(ph), "TIFF", compression="tiff_lzw",
+                                                  tiffinfo={317: 2}),
+        "tiff_p4_tiles_deflate_be_37x29.tif": tiff(
+            idx[..., None], 4, 3, ">", 8, tile=(16, 16),
+            cmap=rng.randint(0, 65536, 48)),
+        "tiff_1_packbits_white_is_zero_37x29.tif": tiff(
+            (idx[..., None] > 7).astype(np.int64), 1, 0, "<", 32773, rps=8),
+    }
     return out
 
 

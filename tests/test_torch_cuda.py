@@ -860,11 +860,11 @@ def test_the_c_decode_and_resize_equal_python_on_every_fixture(dev):
     for path in paths:
         with open(path, "rb") as f:
             data = f.read()
-        got, want = jpeg.jpeg_decode_rgb(data, native=True), jpeg.jpeg_decode_rgb(data)
+        got, want = jpeg.jpeg_decode_rgb(data, host_cpp=True), jpeg.jpeg_decode_rgb(data)
         assert got.shape == want.shape and np.array_equal(got, want), path
         for size in (64, 256):
-            assert np.array_equal(im.load_and_resize_image(path, size, native=True),
-                                  im.load_and_resize_image(path, size)), (path, size)
+            assert np.array_equal(im.pillow_load_and_resize(path, size, host_cpp=True),
+                                  im.pillow_load_and_resize(path, size)), (path, size)
 
 
 def test_a_train_mode_resnet50_step_on_the_card_matches_the_cpu(dev):

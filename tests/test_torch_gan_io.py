@@ -12,9 +12,11 @@ package:
 The JAX package takes its native extension (``latent2im_tpu/native``, built
 from ``native/l2i_native.cpp`` where a compiler and libpng/libjpeg exist)
 before Pillow, and its native Loader shuffles per epoch with
-``std::mt19937_64`` and resizes without Pillow's antialias. The port follows
-the pure-Python fallback, so these tests hide the extension
-(``sys.modules["latent2im_tpu.native"] = None``) to hold the port to it;
+``std::mt19937_64`` and resizes without Pillow's antialias; the port takes
+its counterpart (``latent2im_tpu_torch/native``, tests/test_torch_native.py)
+first alike. These tests hold the pure-Python fallback of both, so they hide
+both modules (``sys.modules["latent2im_tpu.native"] = None``, and the same
+for ``latent2im_tpu_torch.native``);
 
 - the GAN checkpoint, both ways: a port-written one restores in the JAX
   package's ``load_pytree(path, like)`` with its full structure (weights,
@@ -54,9 +56,10 @@ SIZE, STYLE = 16, 16
 
 @pytest.fixture
 def jax_fallback(monkeypatch):
-    """The JAX package with its native extension hidden: Pillow and the
+    """Both packages with their native paths hidden: Pillow and the
     RandomState index draw."""
     monkeypatch.setitem(sys.modules, "latent2im_tpu.native", None)
+    monkeypatch.setitem(sys.modules, "latent2im_tpu_torch.native", None)
 
 
 def _write_png(path, h, w, seed):

@@ -23,9 +23,10 @@ walk step's alphas (the face sampler declines its device form, so both
 loops sample on the host from the same per-epoch RandomState), and the
 gradient penalty's eps (JAX's, drawn from its CLI's PRNGKey(123) stream, in
 place of the port's torch stream). z and the GAN's alphas come from the same
-numpy streams already, and so do the real batches once the JAX package's
-native extension is hidden (its Loader shuffles per epoch; the port draws
-as its pure-Python loader does, tests/test_torch_gan_io.py).
+numpy streams already, and so do the real batches once both packages'
+native paths are hidden (``latent2im_tpu.native`` and
+``latent2im_tpu_torch.native``: their Loaders shuffle per epoch; the
+fallbacks draw as the pure-Python loader does, tests/test_torch_gan_io.py).
 
 Gates: against one process, the walk and G and D after two iterations
 rtol 1e-4, atol 1e-6 (the walk gate of tests/test_torch_spatial.py);
@@ -112,6 +113,7 @@ def _same_draws(eps):
         return torch.from_numpy(next(it)).to(device)
 
     with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "latent2im_tpu_torch.native", None)  # the fallback's batches
         mp.setattr(tbuild, "init_walk", init_walk)
         mp.setattr(tcli, "draw_eps", draw_eps)
         mp.setattr(ttasks.FaceTransform, "train_alpha", _declined)

@@ -56,7 +56,7 @@ kinds = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(kinds)
 photo = kinds.photo
 IMAGES = sorted(p for p in glob.glob(os.path.join(FIXTURES, "*.*"))
-                if p.endswith((".png", ".jpg", ".webp")))
+                if p.endswith((".png", ".jpg", ".webp", ".gif", ".bmp", ".tif")))
 
 
 def _pillow(data: bytes):
@@ -127,7 +127,7 @@ def test_arithmetic_jpeg_decodes_as_pillow_on_both_routes(layout, native):  # no
             want = _pillow(data)
             assert want is not None
             for route in (False, True):
-                np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, native=route), want)
+                np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, host_cpp=route), want)
 
 
 def test_arithmetic_jpeg_past_pillows_read_fails_in_both(native):  # noqa: F811
@@ -140,7 +140,7 @@ def test_arithmetic_jpeg_past_pillows_read_fails_in_both(native):  # noqa: F811
     assert len(data) > jpeg.PILLOW_BLOCK and _pillow(data) is None
     for route in (False, True):
         with pytest.raises(ValueError, match="65536-byte read"):
-            jpeg.jpeg_decode_rgb(data, native=route)
+            jpeg.jpeg_decode_rgb(data, host_cpp=route)
 
 
 def test_arithmetic_bad_data_fails_wherever_pillow_fails(native):  # noqa: F811
@@ -167,7 +167,7 @@ def test_arithmetic_bad_data_fails_wherever_pillow_fails(native):  # noqa: F811
             out = []
             for route in (False, True):
                 try:
-                    out.append(jpeg.jpeg_decode_rgb(d, native=route))
+                    out.append(jpeg.jpeg_decode_rgb(d, host_cpp=route))
                 except ValueError as e:
                     out.append(str(e))
             if isinstance(out[0], str) or isinstance(out[1], str):
@@ -214,9 +214,9 @@ def test_lossless_jpeg_decodes_as_pillow_on_both_routes(hw, native):  # noqa: F8
         for route in (False, True):
             if want is None:  # a lossless YCbCr file: Pillow fails it, and the port
                 with pytest.raises(ValueError, match="lossless YCbCr"):
-                    jpeg.jpeg_decode_rgb(data, native=route)
+                    jpeg.jpeg_decode_rgb(data, host_cpp=route)
             else:
-                np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, native=route), want)
+                np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, host_cpp=route), want)
         counts["fail" if want is None else "decode"] += 1
     assert counts == {"decode": 25, "fail": 5}, counts
 
@@ -237,7 +237,7 @@ def test_lossless_bad_data_fails_wherever_pillow_fails(native):  # noqa: F811
             out = []
             for route in (False, True):
                 try:
-                    out.append(jpeg.jpeg_decode_rgb(d, native=route))
+                    out.append(jpeg.jpeg_decode_rgb(d, host_cpp=route))
                 except ValueError as e:
                     out.append(str(e))
             if isinstance(out[0], str) or isinstance(out[1], str):
@@ -283,7 +283,7 @@ def test_unrefined_progressive_files_are_smoothed_as_pillow_on_both_routes(mode,
         data = kinds.jpeg_scans(base, keep)
         want = _pillow(data)
         for route in (False, True):
-            np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, native=route), want,
+            np.testing.assert_array_equal(jpeg.jpeg_decode_rgb(data, host_cpp=route), want,
                                           err_msg=name)
         if data == base:  # no scan left out (a gray file has no chroma AC)
             continue
@@ -364,11 +364,12 @@ def test_bp_load_images_of_a_mixed_folder_matches_the_jax_cli(tmp_path):
 def test_regressor_batches_of_a_mixed_folder_match_the_jax_trainer(tmp_path, monkeypatch,
                                                                     native):  # noqa: F811
     monkeypatch.setitem(__import__("sys").modules, "latent2im_tpu.native", None)
+    monkeypatch.setitem(__import__("sys").modules, "latent2im_tpu_torch.native", None)
     paths = _mixed_folder(tmp_path)
     order = np.random.RandomState(0).permutation(len(paths))
     want = list(jtr._pil_batches(paths, 32, 3, order))
     for route in (False, True):
-        with tr.make_loader(paths, 32, native=route) as loader:
+        with tr.make_loader(paths, 32, host_cpp=route) as loader:
             got = list(loader.batches(tr.index_batches(order, 3)))
         assert len(got) == len(want) == 3
         for (g, gi), (w, wi) in zip(got, want):

@@ -207,6 +207,7 @@ def test_gan_real_batches_of_jpegs_match_the_jax_fallback(tmp_path, monkeypatch)
     batches equal the JAX package's pure-Python loader's (Pillow decode,
     centre crop, BILINEAR)."""
     monkeypatch.setitem(sys.modules, "latent2im_tpu.native", None)
+    monkeypatch.setitem(sys.modules, "latent2im_tpu_torch.native", None)
     (tmp_path / "sub").mkdir()
     for i, (h, w) in enumerate([(30, 24), (24, 36), (18, 18), (40, 22)]):
         (tmp_path / ("sub" if i % 2 else ".") / f"im{i}.jpeg").write_bytes(

@@ -164,7 +164,7 @@ def _both(data):
     out = []
     for native_ in (False, True):
         try:
-            out.append(jpeg.jpeg_decode_rgb(data, native=native_))
+            out.append(jpeg.jpeg_decode_rgb(data, host_cpp=native_))
         except (ValueError, MemoryError) as e:
             out.append(str(e))
     return out
@@ -184,7 +184,7 @@ def test_the_c_decode_is_the_python_decode(native):  # noqa: F811
     for path in PROG_JPEGS:
         with open(path, "rb") as f:
             assert _same(f.read()), path
-        assert np.array_equal(im.read_image_rgb(path, native=True), im.read_image_rgb(path))
+        assert np.array_equal(im.read_image_rgb(path, host_cpp=True), im.read_image_rgb(path))
     arr = _photo(33, 41, 12)
     for mode, opts in [("L", {}), ("RGB", {"subsampling": 1, "optimize": True}),
                        ("RGB", {"subsampling": 2, "restart_marker_rows": 1})]:
@@ -257,8 +257,9 @@ def test_bp_load_images_of_progressive_jpegs_matches_the_jax_cli(tmp_path):
 
 def test_regressor_batches_of_progressive_jpegs_match_the_jax_trainer(monkeypatch):
     monkeypatch.setitem(__import__("sys").modules, "latent2im_tpu.native", None)
+    monkeypatch.setitem(__import__("sys").modules, "latent2im_tpu_torch.native", None)
     order = np.random.RandomState(0).permutation(len(PROG_JPEGS))
-    with tr.make_loader(PROG_JPEGS, 32, native=False) as loader:
+    with tr.make_loader(PROG_JPEGS, 32, host_cpp=False) as loader:
         got = list(loader.batches(tr.index_batches(order, 4)))
     want = list(jtr._pil_batches(PROG_JPEGS, 32, 4, order))
     assert len(got) == len(want) == 3

@@ -19,7 +19,7 @@ resize (ops/csrc/jpeg_huffman.cpp, resample.cpp):
   sums, bits used, or the same failure); the resize for the three
   filters; a DC table with a size past 15 is a bad table in both;
 - the CPU path never touches the library, and a failed build raises
-  through ``native=True`` (no quiet switch to Python).
+  through ``host_cpp=True`` (no quiet switch to Python).
 """
 
 import ctypes
@@ -52,8 +52,9 @@ JPEGS = sorted(glob.glob(os.path.join(HERE, "fixtures", "torch_jpeg", "*.jpg")))
 
 @pytest.fixture
 def jax_fallback(monkeypatch):
-    """The JAX package with its native extension hidden: Pillow batches."""
+    """Both packages with their native paths hidden: Pillow batches."""
     monkeypatch.setitem(sys.modules, "latent2im_tpu.native", None)
+    monkeypatch.setitem(sys.modules, "latent2im_tpu_torch.native", None)
 
 
 def _train_paths():
@@ -69,7 +70,7 @@ def test_the_batch_stream_is_the_jax_trainers(jax_fallback, size, batch):
     assert jtr._make_loader(paths, size, batch) == (None, False)  # the extension is hidden
     for epoch in (0, 1):
         order = np.random.RandomState(epoch).permutation(len(paths))
-        with tr.make_loader(paths, size, native=False) as loader:
+        with tr.make_loader(paths, size, host_cpp=False) as loader:
             got = list(loader.batches(tr.index_batches(order, batch)))
         want = list(jtr._pil_batches(paths, size, batch, order))
         assert len(got) == len(want) == -(-len(paths) // batch)
@@ -177,7 +178,7 @@ def _both(data):
     out = []
     for native in (False, True):
         try:
-            out.append(jpeg.jpeg_decode_rgb(data, native=native))
+            out.append(jpeg.jpeg_decode_rgb(data, host_cpp=native))
         except ValueError as e:
             out.append(str(e))
     return out
@@ -197,7 +198,7 @@ def test_the_c_decode_is_the_python_decode_on_the_fixtures(native):
     for path in JPEGS:
         with open(path, "rb") as f:
             assert _same(f.read()), path
-        assert np.array_equal(im.read_image_rgb(path, native=True), im.read_image_rgb(path))
+        assert np.array_equal(im.read_image_rgb(path, host_cpp=True), im.read_image_rgb(path))
 
 
 def _photo(h, w, seed):
@@ -302,16 +303,17 @@ def test_a_dc_size_past_15_is_a_bad_table_in_both(native):
 
 
 @pytest.mark.parametrize("filt", ["bilinear", "bicubic", "lanczos"])
-def test_the_c_resize_is_the_numpy_resize(native, filt):
+def test_the_c_resize_is_the_numpy_resize(native, filt, monkeypatch):
+    monkeypatch.setitem(sys.modules, "latent2im_tpu_torch.native", None)  # the fallback's resize
     rng = np.random.RandomState(4)
     for h, w in [(1, 1), (3, 5), (178, 178), (218, 178), (64, 200)]:
         a = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         for size in [(256, 256), (7, 3), (1, 1), (w, 9)]:
             want = im._pil_resize(a, size, filt)
-            got = im._pil_resize(a, size, filt, native=True)
+            got = im._pil_resize(a, size, filt, host_cpp=True)
             assert want.shape == got.shape and np.array_equal(want, got), (h, w, size)
     for path in _train_paths():
-        assert np.array_equal(im.load_and_resize_image(path, 48, native=True),
+        assert np.array_equal(im.load_and_resize_image(path, 48, host_cpp=True),
                               im.load_and_resize_image(path, 48))
 
 
@@ -319,10 +321,11 @@ def test_the_cpu_path_builds_nothing_and_a_failed_build_raises(monkeypatch):
     def refused():
         raise RuntimeError("nvcc not found")
 
+    monkeypatch.setitem(sys.modules, "latent2im_tpu_torch.native", None)  # the fallback
     monkeypatch.setattr(_build, "library", refused)
     path = JPEGS[0]
     assert im.load_and_resize_image(path, 32).shape == (32, 32, 3)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        im.load_and_resize_image(path, 32, native=True)
+        im.load_and_resize_image(path, 32, host_cpp=True)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        im._pil_resize(np.zeros((4, 4, 3), np.uint8), (2, 2), "bilinear", native=True)
+        im._pil_resize(np.zeros((4, 4, 3), np.uint8), (2, 2), "bilinear", host_cpp=True)

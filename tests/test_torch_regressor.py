@@ -255,7 +255,7 @@ def test_the_cli_flow_writes_the_jax_trainer_files(tmp_path):
     with contextlib.redirect_stdout(buf):
         model, opt = tr.main(argv, device="cpu")
     lines = buf.getvalue().splitlines()
-    assert lines[:3] == ["train 7 / test 3 images", "native loader: False",
+    assert lines[:3] == ["train 7 / test 3 images", "native loader: True",
                          lines[2]] and lines[2].startswith("epoch 0 iter 0 Loss: ")
     assert lines[3].startswith("epoch 1 iter 0 Loss: ")
     assert lines[4].startswith("Test epoch 1; Loss: ") and len(lines) == 5

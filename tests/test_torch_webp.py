@@ -334,7 +334,7 @@ def _both(data):
     out = []
     for route in (False, True):
         try:
-            out.append(webp_decode_rgb(data, native=route))
+            out.append(webp_decode_rgb(data, host_cpp=route))
         except (ValueError, MemoryError) as e:
             out.append(str(e))
     return out
