@@ -17,9 +17,10 @@ trainer, its loader, StyleGAN1 and compat (39-42), data and spatial
 parallelism over torch.distributed (43-46), and tensor parallelism with the
 styled conv split at its all-reduce, --updateGAN under a mesh and sp of
 PGGAN and StyleGAN1 (47-50), the geometric tasks' host targets
-(--host_targets, 51), progressive, CMYK and YCCK JPEG (52) and WEBP,
-arithmetic-coded JPEG, 16-bit and Adam7 PNG (53). Phases (a failed phase
-raises, and the script exits non-zero):
+(--host_targets, 51), progressive, CMYK and YCCK JPEG (52), WEBP,
+arithmetic-coded JPEG, 16-bit and Adam7 PNG (53), the native real-image
+path (54) and corrupt JPEGs with the rest of the image formats (55).
+Phases (a failed phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
   3. kernels: each of the five kernels (fused_act, upfirdn2d, styled_conv3x3
@@ -265,7 +266,21 @@ raises, and the script exits non-zero):
      and Adam7 PNG),
      each equal to its recorded Pillow decode, decode ms per photo on each
      route; `python -m latent2im_tpu_torch.cli.bp` on a folder of a 256 px
-     lossy WEBP, an animated WEBP and a 16-bit PNG (path "bp_image_kinds").
+     lossy WEBP, an animated WEBP and a 16-bit PNG (path "bp_image_kinds");
+ 54. the native path (latent2im_tpu_torch/native/) against the JAX
+     extension's recordings (tests/fixtures/torch_native/native.json):
+     load_resize in Python and C++, --updateGAN on its stream, the regressor
+     CLI on GIF, BMP and TIFF (``_native_phase``);
+ 55. the corrupt JPEGs of tests/fixtures/torch_jpeg_corrupt/ (libjpeg's
+     recovery, ROADMAP C.11) in both modes, in Python and in the host C++,
+     against Pillow's and the JAX extension's recordings, decode ms per
+     photo; the native Loader over them; the Netpbm, QOI, TGA, PCX, SGI,
+     ICO, CUR, DIB and TIFF fixtures of tests/fixtures/torch_image_formats/
+     against their Pillow decodes; the regressor CLI on a split of both,
+     every batch the JAX trainer's; then ms a photo of read_image_rgb at
+     256 and 1024 px over the slowest forms (LZW and deflate TIFF, 16-bit
+     and CMYK, CCITT, Netpbm, TGA) and of both JPEG modes over photos with
+     overwritten scan bytes (``_corrupt_formats_phase``).
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 512 px training step (B=8) under cuDNN's default and deterministic
 algorithms. The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU
@@ -6036,6 +6051,73 @@ def _sha256(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, np.uint8).tobytes()).hexdigest()
 
 
+def _regressor_cli(dev, root, reg, fix):
+    """The regressor CLI (2 epochs) on a recorded split (``reg``: its files
+    under tests/fixtures (``fix``), its training and test lists, size and
+    batch, and the JAX trainer's batches): every training batch (the native
+    Loader) and test batch (Pillow's path) equal to the recorded ones ->
+    its lines, seconds and batch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    from latent2im_tpu_torch.cli import train_regressor as tr
+
+    data_dir, split_dir = os.path.join(root, "reg"), os.path.join(root, "split")
+    os.makedirs(split_dir)
+    for key, rel in reg["files"].items():
+        os.makedirs(os.path.join(data_dir, os.path.dirname(key)), exist_ok=True)
+        shutil.copy(os.path.join(fix, rel), os.path.join(data_dir, key))
+    for part, keys in reg["split"].items():
+        with open(os.path.join(split_dir, f"{part}.txt"), "w") as f:
+            f.write("\n".join(keys) + "\n")
+    with open(os.path.join(root, "labels.tsv"), "w") as f:
+        for i, key in enumerate(reg["files"]):
+            f.write(key + "".join(f"\t{(i * 7 + k) % 10 / 10:.1f},1" for k in range(REG_OUT))
+                    + "\n")
+    got_train, got_test = [], []
+    real_batches, real_loader = tr.native_batches, tr.make_loader
+
+    def native_batches(loader):
+        for u8, idx in real_batches(loader):
+            got_train.append({"idx": list(idx), "sha256": _sha256(u8)})
+            yield u8, idx
+
+    class TestLoader:
+        def __init__(self, paths, size, host_cpp):
+            self.pool = real_loader(paths, size, host_cpp)
+
+        def batches(self, idx):
+            for u8, i in self.pool.batches(idx):
+                got_test.append({"idx": [int(v) for v in i], "sha256": _sha256(u8)})
+                yield u8, i
+
+        def close(self):
+            self.pool.close()
+
+    tr.native_batches, tr.make_loader = native_batches, TestLoader
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tr.main(["--data_dir", data_dir, "--label_path", os.path.join(root, "labels.tsv"),
+                     "--split_dir", split_dir, "--ckpt_dir", os.path.join(root, "ckpt"),
+                     "--image_size", str(reg["size"]), "--batch_size", str(reg["batch"]),
+                     "--n_epochs", "2"], device=dev)
+    finally:
+        tr.native_batches, tr.make_loader = real_batches, real_loader
+    lines = buf.getvalue().splitlines()
+    n_train, n_test = len(reg["split"]["training"]), len(reg["split"]["test"])
+    assert lines[:2] == [f"train {n_train} / test {n_test} images", "native loader: True"], lines
+    test_line = [ln for ln in lines if ln.startswith("Test epoch 1; Loss: ")]
+    assert len(test_line) == 1 and math.isfinite(float(test_line[0].rsplit(" ", 1)[1])), lines
+    want_train = [{"idx": b["idx"], "sha256": b["sha256"]} for b in reg["training"]]
+    assert got_train == want_train, ("training batches", got_train, want_train)
+    assert got_test == reg["test"], ("test batches", got_test, reg["test"])
+    return {"lines": lines, "seconds": time.perf_counter() - t0, "test_line": test_line[0],
+            "train_batches": len(got_train), "test_batches": len(got_test)}
+
+
 def _native_phase(dev, root):
     """Phase 54: (1) every recording of tests/fixtures/torch_native/native.json
     (what the JAX package's extension makes of each photo at sizes below, at
@@ -6048,15 +6130,12 @@ def _native_phase(dev, root):
     JPEG (black there) and whose test list a GIF, a BMP and a TIFF (read as
     Pillow reads them): its batches the JAX trainer's recorded ones, its
     lines; (4) the GIF, BMP and TIFF fixtures equal to their Pillow decodes."""
-    import contextlib
-    import io
     import shutil
 
     import numpy as np
     import torch
 
     from latent2im_tpu_torch.cli import train as tcli
-    from latent2im_tpu_torch.cli import train_regressor as tr
     from latent2im_tpu_torch.native import _l2i_native as nat
     from latent2im_tpu_torch.native import order
     from latent2im_tpu_torch.utils import image as imgmod
@@ -6129,62 +6208,10 @@ def _native_phase(dev, root):
     torch.cuda.empty_cache()
 
     # (3) the regressor CLI on GIF, BMP, TIFF and a CMYK JPEG
-    reg = rec["regressor"]
-    data_dir, split_dir = os.path.join(root, "reg"), os.path.join(root, "split")
-    os.makedirs(split_dir)
-    for key, rel in reg["files"].items():
-        os.makedirs(os.path.join(data_dir, os.path.dirname(key)), exist_ok=True)
-        shutil.copy(os.path.join(fix, rel), os.path.join(data_dir, key))
-    for part, keys in reg["split"].items():
-        with open(os.path.join(split_dir, f"{part}.txt"), "w") as f:
-            f.write("\n".join(keys) + "\n")
-    with open(os.path.join(root, "labels.tsv"), "w") as f:
-        for i, key in enumerate(reg["files"]):
-            f.write(key + "".join(f"\t{(i * 7 + k) % 10 / 10:.1f},1" for k in range(REG_OUT))
-                    + "\n")
-    got_train, got_test = [], []
-    real_batches, real_loader = tr.native_batches, tr.make_loader
-
-    def native_batches(loader):
-        for u8, idx in real_batches(loader):
-            got_train.append({"idx": list(idx), "sha256": _sha256(u8)})
-            yield u8, idx
-
-    class TestLoader:
-        def __init__(self, paths, size, host_cpp):
-            self.pool = real_loader(paths, size, host_cpp)
-
-        def batches(self, idx):
-            for u8, i in self.pool.batches(idx):
-                got_test.append({"idx": [int(v) for v in i], "sha256": _sha256(u8)})
-                yield u8, i
-
-        def close(self):
-            self.pool.close()
-
-    tr.native_batches, tr.make_loader = native_batches, TestLoader
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(buf):
-            tr.main(["--data_dir", data_dir, "--label_path", os.path.join(root, "labels.tsv"),
-                     "--split_dir", split_dir, "--ckpt_dir", os.path.join(root, "ckpt"),
-                     "--image_size", str(reg["size"]), "--batch_size", str(reg["batch"]),
-                     "--n_epochs", "2"], device=dev)
-    finally:
-        tr.native_batches, tr.make_loader = real_batches, real_loader
-    lines = buf.getvalue().splitlines()
-    n_train, n_test = len(reg["split"]["training"]), len(reg["split"]["test"])
-    assert lines[:2] == [f"train {n_train} / test {n_test} images", "native loader: True"], lines
-    test_line = [ln for ln in lines if ln.startswith("Test epoch 1; Loss: ")]
-    assert len(test_line) == 1 and math.isfinite(float(test_line[0].rsplit(" ", 1)[1])), lines
-    want_train = [{"idx": b["idx"], "sha256": b["sha256"]} for b in reg["training"]]
-    assert got_train == want_train, ("training batches", got_train, want_train)
-    assert got_test == reg["test"], ("test batches", got_test, reg["test"])
-    out["regressor"] = {"lines": lines, "seconds": time.perf_counter() - t0,
-                        "train_batches": len(got_train), "test_batches": len(got_test)}
-    log(f"    regressor CLI: {len(got_train)} training batches (native) and {len(got_test)} test "
-        f"batches (Pillow) equal to the JAX trainer's; {test_line[0]}")
+    out["regressor"] = _regressor_cli(dev, root, rec["regressor"], fix)
+    log(f"    regressor CLI: {out['regressor']['train_batches']} training batches (native) and "
+        f"{out['regressor']['test_batches']} test batches (Pillow) equal to the JAX trainer's; "
+        f"{out['regressor']['test_line']}")
     torch.cuda.empty_cache()
 
     # (4) item 28's fixtures
@@ -6204,6 +6231,185 @@ def _native_phase(dev, root):
         out["item28_decode_ms"][key] = _median_ms(lambda path=path: imgmod.read_image_rgb(path))
     log(f"    {len(names)} GIF, BMP and TIFF fixtures equal to their Pillow decodes; ms per "
         f"photo {json.dumps(out['item28_decode_ms'])}")
+    return out
+
+
+CORRUPT_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_jpeg_corrupt")
+FORMATS_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_image_formats")
+# the corrupt JPEGs timed in phase 55: a small one and one past 64 KiB
+CORRUPT_TIMED = ("bad_code_baseline_64x48.jpg", "large_inserted_dht_at_64k_340x250.jpg")
+# phase 55's photo-sized decodes: (size, decodes timed, of which the median is kept)
+PHOTO_SIZES = ((256, 3), (1024, 1))
+PHOTO_JPEGS = {256: "photo_256_422.jpg", 1024: "photo_1024_420.jpg"}
+
+
+def corrupt_formats_phase(dev):
+    """Phase 55 in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:  # the regressor's checkpoints
+        return _corrupt_formats_phase(dev, root)
+
+
+def _corrupt_formats_phase(dev, root):
+    """Phase 55: (1) the corrupt JPEGs of tests/fixtures/torch_jpeg_corrupt
+    (libjpeg's recovery, ROADMAP C.11) in both modes, in Python and
+    through the host C++: the Pillow mode equal to Pillow's recorded
+    decodes (or failing where it fails), the libjpeg mode's load_resize
+    equal to the JAX extension's recorded ones; ms a photo of each route;
+    (2) one epoch of the port's native Loader (host C++) over those files,
+    its batches the extension's; (3) the files of
+    tests/fixtures/torch_image_formats (Netpbm, QOI, TGA, PCX, SGI, ICO,
+    CUR, DIB and the rest of TIFF) equal to their Pillow decodes; (4) the
+    regressor CLI on a split of corrupt JPEGs (native) and those formats
+    (Pillow), every batch the JAX trainer's; (5) ms a photo at 256 and
+    1024 px (``_photo_decodes``)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.native import _l2i_native as nat
+    from latent2im_tpu_torch.utils import image as imgmod
+    from latent2im_tpu_torch.utils import jpeg
+
+    with open(os.path.join(CORRUPT_FIXTURES, "record.json")) as f:
+        rec = json.load(f)
+    npz = np.load(os.path.join(CORRUPT_FIXTURES, "decodes.npz"))
+    out = {"launches": {}}
+    # (1) both modes, both routes
+    n_checked = 0
+    for name, want in rec["pillow"].items():
+        with open(os.path.join(CORRUPT_FIXTURES, name), "rb") as f:
+            data = f.read()
+        for route in (False, True):
+            try:
+                got = jpeg.jpeg_decode_rgb(data, host_cpp=route)
+            except ValueError:
+                got = None
+            if want == "fail":
+                assert got is None, f"{name} decodes (host_cpp={route}); Pillow fails it"
+            elif got is None or _sha256(got) != want["sha256"] or not np.array_equal(
+                    got, npz[os.path.splitext(name)[0]]):
+                raise AssertionError(f"{name} (host_cpp={route}) is not Pillow's decode")
+            n_checked += 1
+        for size, sha in rec["extension"][name].items():
+            for route in (False, True):
+                try:
+                    got = _sha256(nat.load_resize(os.path.join(CORRUPT_FIXTURES, name),
+                                                  int(size), host_cpp=route))
+                except OSError:
+                    got = "fail"
+                assert got == sha, f"{name} at {size} px (host_cpp={route}): {got}, " \
+                                   f"the extension {sha}"
+                n_checked += 1
+    def decode(data, c, lj):  # a file one mode fails is timed to its failure
+        try:
+            jpeg.jpeg_decode_rgb(data, host_cpp=c, libjpeg=lj)
+        except ValueError:
+            pass
+
+    out["ms_per_photo"] = {}
+    for name in CORRUPT_TIMED:
+        with open(os.path.join(CORRUPT_FIXTURES, name), "rb") as f:
+            data = f.read()
+        out["ms_per_photo"][name] = {
+            f"{mode}_{route}": _median_ms(lambda lj=(mode == "libjpeg"), c=(route == "c"):
+                                          decode(data, c, lj))
+            for mode in ("pillow", "libjpeg") for route in ("c", "python")}
+    log(f"    {n_checked} decodes of {len(rec['pillow'])} corrupt JPEGs (both modes, Python and "
+        f"C++) equal to Pillow's and the JAX extension's; decode ms a photo "
+        f"{json.dumps(out['ms_per_photo'])}")
+    # (2) the native Loader over them
+    lr = rec["loader"]
+    loader = nat.Loader([os.path.join(CORRUPT_FIXTURES, n) for n in lr["files"]], lr["size"],
+                        lr["batch"], threads=2, host_cpp=True)
+    with loader:
+        loader.start_epoch(seed=0, shuffle=True)
+        got = []
+        while True:
+            try:
+                u8, idx = loader.next_batch()
+            except StopIteration:
+                break
+            got.append({"idx": idx, "sha256": _sha256(u8)})
+    assert got == lr["batches"], ("the Loader's batches are not the extension's", got)
+    log(f"    the native Loader: {len(got)} batches of the corrupt JPEGs equal to the "
+        "extension's")
+    # (3) the new formats
+    with open(os.path.join(FORMATS_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    fnpz = np.load(os.path.join(FORMATS_FIXTURES, "decodes.npz"))
+    names = sorted(f for f in os.listdir(FORMATS_FIXTURES)
+                   if not f.startswith(("decodes", "make_")))
+    assert len(names) == len([k for k in meta if k != "pillow"]), names
+    out["formats_decode_ms"] = {}
+    for name in names:
+        key, path = os.path.splitext(name)[0], os.path.join(FORMATS_FIXTURES, name)
+        got = imgmod.read_image_rgb(path)
+        if list(got.shape) != meta[key]["shape"] or _sha256(got) != meta[key]["sha256"] or \
+                not np.array_equal(got, fnpz[key]):
+            raise AssertionError(f"{name} does not decode to its Pillow decode")
+        out["formats_decode_ms"][key] = _median_ms(lambda path=path: imgmod.read_image_rgb(path))
+    log(f"    {len(names)} Netpbm, QOI, TGA, PCX, SGI, ICO, CUR, DIB and TIFF fixtures equal to "
+        f"their Pillow decodes; ms a photo {json.dumps(out['formats_decode_ms'])}")
+    # (4) the regressor CLI
+    out["regressor"] = _regressor_cli(dev, root, rec["regressor"], os.path.dirname(
+        CORRUPT_FIXTURES))
+    log(f"    regressor CLI: {out['regressor']['train_batches']} training batches of corrupt "
+        f"JPEGs (native) and {out['regressor']['test_batches']} test batches of the new "
+        f"formats (Pillow) equal to the JAX trainer's; {out['regressor']['test_line']}")
+    torch.cuda.empty_cache()
+    # (5) photo-sized files
+    out["photo_ms"] = _photo_decodes(root)
+    log(f"    ms a photo, read_image_rgb (Python; JPEG also C++) at 256 px (median of "
+        f"{PHOTO_SIZES[0][1]}) and 1024 px (one decode): {json.dumps(out['photo_ms'])}")
+    return out
+
+
+def _photo_decodes(root):
+    """Phase 55 (5): read_image_rgb over size x size files of the forms its
+    Python readers take longest over (tests/image_format_encoders.py:
+    photo_forms, written from seed 0 into ``root``: LZW and deflate TIFF,
+    16-bit and CMYK, group 4 and group 3, Netpbm P6 at maxval 1000 and
+    plain P2, run-length TGA), each equal to its source where the form keeps
+    it; and tests/fixtures/torch_jpeg's photos with three bytes of their
+    scans overwritten (tests/jpeg_corrupt_corpus.py:overwritten, seed =
+    size) in both JPEG modes, the C++ equal to the Python decode -> {size:
+    {form: ms}} (host clock, files warm; Pillow's decodes of these files
+    are held to in tests/test_torch_image_formats.py and
+    tests/test_torch_jpeg_corrupt.py)."""
+    import numpy as np
+
+    from latent2im_tpu_torch.utils import image as imgmod
+    from latent2im_tpu_torch.utils import jpeg
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from image_format_encoders import photo_forms
+    from jpeg_corrupt_corpus import overwritten
+
+    out = {}
+    for size, reps in PHOTO_SIZES:
+        ms = out[f"{size}x{size}"] = {}
+        for name, (data, want) in photo_forms(size, 0).items():
+            path = os.path.join(root, f"{name}_{size}")
+            with open(path, "wb") as f:
+                f.write(data)
+            got = imgmod.read_image_rgb(path)
+            assert got.shape == (size, size, 3), (name, got.shape)
+            assert want is None or np.array_equal(got, want), f"{name} at {size} px"
+            ms[name] = _median_ms(lambda path=path: imgmod.read_image_rgb(path), reps)
+        with open(os.path.join(REPO, "tests", "fixtures", "torch_jpeg", PHOTO_JPEGS[size]),
+                  "rb") as f:
+            data = overwritten(f.read(), size)
+        for mode in ("pillow", "libjpeg"):
+            lj = mode == "libjpeg"
+            py = jpeg.jpeg_decode_rgb(data, libjpeg=lj)
+            c = jpeg.jpeg_decode_rgb(data, host_cpp=True, libjpeg=lj)
+            assert py.shape == (size, size, 3) and np.array_equal(py, c), \
+                f"the corrupt {size} px JPEG ({mode} mode): C++ and Python differ"
+            for route in ("c", "python"):
+                ms[f"jpeg_overwritten_{mode}_{route}"] = _median_ms(
+                    lambda c=route == "c", lj=lj: jpeg.jpeg_decode_rgb(data, host_cpp=c,
+                                                                       libjpeg=lj), reps)
     return out
 
 
@@ -6336,6 +6542,11 @@ def _run(refs) -> int:
     log("[54] the native path: its fixtures in Python and C++ against the JAX extension's "
         "recordings, --updateGAN on its stream, the regressor CLI on GIF, BMP and TIFF")
     nat = timed("54", native_phase, dev)
+    log("[55] corrupt JPEGs (libjpeg's recovery) in both modes, Python and C++, against "
+        "Pillow's and the JAX extension's recordings; the native Loader over them; Netpbm, "
+        "QOI, TGA, PCX, SGI, ICO/CUR, DIB and TIFF fixtures; the regressor CLI on them; "
+        "decode ms at 256 and 1024 px")
+    cf = timed("55", corrupt_formats_phase, dev)
     log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
@@ -6353,7 +6564,8 @@ def _run(refs) -> int:
                    **{k: v[n] for k, v in hp["launches"].items()},
                    **{k: v[n] for k, v in jprog["launches"].items()},
                    **{k: v[n] for k, v in kinds["launches"].items()},
-                   **{k: v[n] for k, v in nat["launches"].items()}}
+                   **{k: v[n] for k, v in nat["launches"].items()},
+                   **{k: v[n] for k, v in cf["launches"].items()}}
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE[n][0], "replaces": SOURCE[n][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -6427,6 +6639,7 @@ def _run(refs) -> int:
               "jpeg_progressive": {k: v for k, v in jprog.items() if k != "launches"},
               "image_kinds": {k: v for k, v in kinds.items() if k != "launches"},
               "native": {k: v for k, v in nat.items() if k != "launches"},
+              "corrupt_formats": {k: v for k, v in cf.items() if k != "launches"},
               "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

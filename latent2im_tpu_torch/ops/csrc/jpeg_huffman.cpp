@@ -13,7 +13,7 @@
 //                                arith_interval (_arith_interval), each
 //                                lossless one through lossless_scan
 //                                (_decode_lossless_scan, _undifference),
-//                                _idct_islow, _upsample, _ycc_to_rgb,
+//                                _idct_islow_simd, _upsample, _ycc_to_rgb,
 //                                _ycck_to_cmyk and _cmyk_to_rgb
 //
 // This is host code, not a GPU kernel: nvcc hands it to the host compiler,
@@ -40,16 +40,17 @@ enum Err {
   E_SECOND_FRAME = -14, E_SHORT_SOF = -15, E_PRECISION = -16, E_NCOMP = -18, E_DNL = -19, E_BAD_SOF = -20, E_SAMPLING = -21,
   E_FRACTIONAL = -22, E_BAD_DHT = -23, E_BAD_DQT = -24, E_SCAN_NO_FRAME = -25,
   E_BAD_SOS = -26, E_SCAN_COMPONENT = -27, E_UNDEF_HUFF = -28,
-  E_UNDEF_QUANT = -29, E_BAD_HUFF_TABLE = -30, E_SPECTRAL = -31,
-  E_FEW_INTERVALS = -32, E_INVALID_CODE = -33, E_SCAN_TRUNC = -34,
-  E_COEF_PAST = -35, E_NO_SCAN = -36, E_OUT_SIZE = -37, E_NOMEM = -38,
+  E_UNDEF_QUANT = -29, E_BAD_HUFF_TABLE = -30,
+  E_FEW_INTERVALS = -32, E_SCAN_TRUNC = -34,
+  E_NO_SCAN = -36, E_OUT_SIZE = -37, E_NOMEM = -38,
   E_BAD_PROGRESSION = -39, E_PROG_NO_EOI = -40,
   E_BAD_DAC = -42, E_PILLOW_BLOCK = -43, E_MARKER = -44, E_BAD_DRI = -45, E_BOMB = -46,
   E_BAD_LOSSLESS = -47, E_BAD_RESTART = -48, E_LOSSLESS_YCC = -49, E_LOSSLESS_YCCK = -50,
-  E_LOSSLESS_NO_EOI = -51, E_LIBJPEG = -52,
+  E_LOSSLESS_NO_EOI = -51, E_LIBJPEG = -52, E_SECOND_SCAN = -53, E_RUNS_DRY = -54,
 };
 // utils/jpeg.py:PILLOW_MAX_PIXELS, Pillow's DecompressionBombError limit
 constexpr long long kPillowMaxPixels = 2LL * (1024 * 1024 * 1024 / 4 / 3);
+constexpr long long kPillowBlock = 65536;  // utils/jpeg.py:PILLOW_BLOCK
 
 // the JPEG EXTEND of `size` value bits
 inline int64_t extend(int64_t bits, int size) {
@@ -68,10 +69,11 @@ const int kUnzigzag[64] = {
 
 // The Huffman decode of one restart interval (utils/jpeg.py:_decode_interval)
 // -> the bits used; -1 where it reads past the padded words (the Python
-// version's IndexError), -2 at an invalid code.
-// limit >= 0: libjpeg's run out of data (utils/jpeg.py:_fill_intervals): no
-// MCU of per_mcu blocks starts once more than `limit` bits are used; *n_done
-// the blocks decoded.
+// version's IndexError). A bad code (no code in the next 16 bits) reads 17
+// bits as a zero symbol (jdhuff.c, JWRN_HUFF_BAD_CODE).
+// limit >= 0: libjpeg's run out of data (utils/jpeg.py:_huffman_intervals):
+// no MCU of per_mcu blocks starts once more than `limit` bits are used;
+// *n_done the blocks decoded.
 long long decode_interval(const uint8_t* data, long long n_bytes, const long long* blocks,
                           const int* comps, long long n_blocks, const int* const* dc_luts,
                           const int* const* ac_luts, long long* out_ac, long long* n_ac,
@@ -107,8 +109,8 @@ long long decode_interval(const uint8_t* data, long long n_bytes, const long lon
         v = extend(static_cast<int64_t>((buf >> nb) & ((uint64_t(1) << v) - 1)),
                    static_cast<int>(v));
       }
-    } else {
-      return -2;
+    } else {  // a bad code: a 0 difference
+      nb -= 17;
     }
     preds[ci] += v;
     out_dc[i] = preds[ci];
@@ -131,8 +133,9 @@ long long decode_interval(const uint8_t* data, long long n_bytes, const long lon
         kk += r;
         out_ac[na++] = bk + kk + (extend(bits, static_cast<int>(av)) & 0xFFFF);
         kk += one;
-      } else {
-        return -2;
+      } else {  // a bad code: the end of the block
+        nb -= 17;
+        break;
       }
     }
   }
@@ -267,7 +270,7 @@ struct Bits {
   const uint8_t* data;
   long long n_words, wi = 0, nb = 0;
   uint64_t buf = 0;
-  bool past = false, bad_code = false;
+  bool past = false;
   bool refill() {
     if (nb >= 32) return true;
     if (wi >= n_words) return !(past = true);
@@ -289,7 +292,11 @@ struct Bits {
   bool huff(const int* lut, int* sym) {
     if (!refill()) return false;
     const int* e = lut + 2 * ((buf >> (nb - 16)) & 0xFFFF);
-    if (!e[0]) return !(bad_code = true);
+    if (!e[0]) {  // a bad code: jpeg_huff_decode reads 17 bits, gives 0
+      nb -= 17;
+      *sym = 0;
+      return true;
+    }
     nb -= e[0];
     *sym = e[1];
     return true;
@@ -303,8 +310,8 @@ inline int16_t w16(int64_t v) {  // a JCOEF: int16, wrapping
 
 // One restart interval of a progressive scan into coef (every block's 64
 // coefficients in zigzag order): jdphuff.c's decode_mcu_DC_first,
-// _DC_refine, _AC_first and _AC_refine. -> false where a read fails (see
-// rd.past / rd.bad_code).
+// _DC_refine, _AC_first and _AC_refine. -> false where a read fails
+// (rd.past).
 // limit >= 0: as decode_interval's; *last the index of the last block
 // started.
 bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, long long n_blocks,
@@ -422,77 +429,8 @@ bool progressive_interval(Bits& rd, const long long* blocks, const int* comps, l
 }
 
 // ---------------------------------------------------------------------------
-// IDCT, upsampling, colour (utils/jpeg.py:_idct_islow, _upsample,
-// _ycc_to_rgb)
+// upsampling, colour (utils/jpeg.py:_upsample, _ycc_to_rgb)
 // ---------------------------------------------------------------------------
-
-// jidctint.c's 1-D ISLOW stage, as utils/jpeg.py:_islow_butterfly
-inline void islow_butterfly(const int64_t* c, int64_t* o) {
-  int64_t z1 = (c[2] + c[6]) * 4433;
-  int64_t tmp2 = z1 + c[6] * -15137;
-  int64_t tmp3 = z1 + c[2] * 6270;
-  // << 13 of numpy's int64, written as a product (a left shift of a negative
-  // value is undefined in C++17)
-  int64_t tmp0 = (c[0] + c[4]) * 8192;
-  int64_t tmp1 = (c[0] - c[4]) * 8192;
-  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  int64_t t0 = c[7], t1 = c[5], t2 = c[3], t3 = c[1];
-  int64_t a1 = t0 + t3, a2 = t1 + t2, a3 = t0 + t2, a4 = t1 + t3;
-  int64_t z5 = (a3 + a4) * 9633;
-  t0 *= 2446;
-  t1 *= 16819;
-  t2 *= 25172;
-  t3 *= 12299;
-  a1 *= -7373;
-  a2 *= -20995;
-  a3 = a3 * -16069 + z5;
-  a4 = a4 * -3196 + z5;
-  t0 += a1 + a3;
-  t1 += a2 + a4;
-  t2 += a2 + a3;
-  t3 += a1 + a4;
-  o[0] = tmp10 + t3;
-  o[1] = tmp11 + t2;
-  o[2] = tmp12 + t1;
-  o[3] = tmp13 + t0;
-  o[4] = tmp13 - t0;
-  o[5] = tmp12 - t1;
-  o[6] = tmp11 - t2;
-  o[7] = tmp10 - t3;
-}
-
-// libjpeg's post-IDCT range limit indexed by (value & 1023)
-inline uint8_t range_limit(int64_t v) {
-  int i = static_cast<int>(v & 1023);
-  if (i < 128) return static_cast<uint8_t>(i + 128);
-  if (i < 512) return 255;
-  if (i < 896) return 0;
-  return static_cast<uint8_t>(i - 896);
-}
-
-// Dequantise and inverse-transform a component's bh x bw blocks (64 int16
-// coefficients each in zigzag order, block raster order) into its plane
-// [bh * 8][bw * 8]; quant: the 64 steps in natural order.
-void idct_plane(const int16_t* coef, const int64_t* quant, int bh, int bw, uint8_t* plane) {
-  const long long stride = static_cast<long long>(bw) * 8;
-  for (long long b = 0; b < static_cast<long long>(bh) * bw; ++b) {
-    const int16_t* cz = coef + 64 * b;
-    int64_t c[64], ws[64], col[8], res[8];
-    for (int k = 0; k < 64; ++k) c[k] = static_cast<int64_t>(cz[kUnzigzag[k]]) * quant[k];
-    for (int x = 0; x < 8; ++x) {  // pass 1: each column; DESCALE(, 11)
-      for (int k = 0; k < 8; ++k) col[k] = c[8 * k + x];
-      islow_butterfly(col, res);
-      for (int k = 0; k < 8; ++k) ws[8 * k + x] = (res[k] + 1024) >> 11;
-    }
-    uint8_t* out = plane + (b / bw) * 8 * stride + (b % bw) * 8;
-    for (int y = 0; y < 8; ++y) {  // pass 2: each row; DESCALE(, 18)
-      islow_butterfly(ws + 8 * y, res);
-      for (int k = 0; k < 8; ++k)
-        out[y * stride + k] = range_limit((res[k] + (int64_t(1) << 17)) >> 18);
-    }
-  }
-}
 
 // One component's valid samples p [h][w] (row stride `stride`) upsampled by
 // (fh, fv) as jdsample.c does with fancy upsampling on, cropped to
@@ -662,9 +600,10 @@ bool valid_sos(const Frame& fr, const uint8_t* body, long long blen, int ns) {
 
 inline int64_t w16a(int64_t v) { return ((v + 32768) & 0xFFFF) - 32768; }
 
-// utils/jpeg.py:_simd_butterfly: islow_butterfly with c0 + c4, c0 - c4,
-// c7 + c3 and c5 + c1 added in 16 bits, wrapping, as libjpeg-turbo's SSE2
-// and AVX2 ISLOW compute them
+// utils/jpeg.py:_simd_butterfly: jidctint.c's 1-D ISLOW stage with c0 + c4,
+// c0 - c4, c7 + c3 and c5 + c1 added in 16 bits, wrapping, as
+// libjpeg-turbo's SSE2 and AVX2 ISLOW compute them (<< 13 written as a
+// product: a left shift of a negative value is undefined in C++17)
 inline void simd_butterfly(const int64_t* c, int64_t* o) {
   const int64_t s04 = w16a(c[0] + c[4]), d04 = w16a(c[0] - c[4]);
   int64_t z3 = w16a(c[7] + c[3]), z4 = w16a(c[5] + c[1]);
@@ -688,9 +627,12 @@ inline void simd_butterfly(const int64_t* c, int64_t* o) {
 
 inline int64_t clampi(int64_t v, int64_t lo, int64_t hi) { return v < lo ? lo : v > hi ? hi : v; }
 
-// utils/jpeg.py:_idct_islow_simd: idct_plane as libjpeg-turbo 2.1 computes
-// it on x86-64 (16-bit dequantisation, pass 1's DC shortcut where rows 1-7
-// are zero, int16 saturation after each pass, [-128, 127] before the +128)
+// utils/jpeg.py:_idct_islow_simd: dequantise and inverse-transform a
+// component's bh x bw blocks (64 int16 coefficients each in zigzag order,
+// block raster order; quant the 64 steps in natural order) into its plane
+// [bh * 8][bw * 8] as libjpeg-turbo computes them on x86-64 (16-bit
+// dequantisation, pass 1's DC shortcut where rows 1-7 are zero, int16
+// saturation after each pass, [-128, 127] before the +128)
 void idct_plane_simd(const int16_t* coef, const int64_t* quant, int bh, int bw, uint8_t* plane) {
   const long long stride = static_cast<long long>(bw) * 8;
   for (long long b = 0; b < static_cast<long long>(bh) * bw; ++b) {
@@ -762,80 +704,272 @@ long long scan_blocks(const Frame& fr, const std::vector<int>& comps, Scratch& s
   return per_mcu;
 }
 
-// The end of a scan's entropy-coded data (a marker other than RSTn) and its
-// restart intervals' byte ranges.
-long long scan_pieces(const uint8_t* data, long long n, long long pos, int restart,
-                      std::vector<std::pair<long long, long long>>& pieces) {
-  long long end = n;
-  for (long long i = pos; i + 1 < n; ++i)
-    if (data[i] == 0xFF && data[i + 1] != 0x00 && !(data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7)) {
-      end = i;
-      break;
+// utils/jpeg.py:_next_marker: jdmarker.c next_marker from data[p] -> false
+// at the end of the data; in fill mode the buffer's fake EOI there (at the
+// 0xFF bytes the data ends with).
+struct Marker {
+  long long start = 0, after = 0;
+  int code = 0;
+};
+
+bool next_marker(const uint8_t* data, long long n, long long p, bool fill, Marker* m) {
+  for (long long q = p; q < n;) {
+    const void* f = std::memchr(data + q, 0xFF, n - q);
+    if (!f) break;
+    q = static_cast<const uint8_t*>(f) - data;
+    long long r = q + 1;
+    while (r < n && data[r] == 0xFF) ++r;
+    if (r >= n) break;
+    if (data[r]) {
+      m->start = q;
+      m->code = data[r];
+      m->after = r + 1;
+      return true;
     }
-  pieces.clear();
-  long long start = pos;
-  if (restart) {
-    for (long long i = pos; i < end;) {
-      if (data[i] == 0xFF && i + 1 < end && data[i + 1] >= 0xD0 && data[i + 1] <= 0xD7) {
-        pieces.emplace_back(start, i);
-        i += 2;
-        start = i;
-      } else {
-        ++i;
-      }
-    }
+    q = r + 1;  // a stuffed byte
   }
-  pieces.emplace_back(start, end);
-  return end;
+  if (!fill) return false;
+  long long end = n;
+  while (end > p && data[end - 1] == 0xFF) --end;
+  m->start = end;
+  m->code = 0xD9;
+  m->after = n;
+  return true;
 }
 
-// One interval's bytes unstuffed into s.raw, zero-padded to a multiple of 4
-// (and 4 to 12 bytes past its end) -> its unstuffed length.
-long long unstuff(const uint8_t* data, long long a, long long b, Scratch& s) {
+// utils/jpeg.py:_resync: jpeg_resync_to_restart's action for `code` where
+// RST`want` was due
+int resync(int code, int want) {
+  if (code < 0xC0) return 2;
+  if (code < 0xD0 || code > 0xD7) return 3;
+  if (code == 0xD0 + ((want + 1) & 7) || code == 0xD0 + ((want + 2) & 7)) return 3;
+  if (code == 0xD0 + ((want - 1) & 7) || code == 0xD0 + ((want - 2) & 7)) return 2;
+  return 1;
+}
+
+// utils/jpeg.py:_Walk: a scan's restart intervals as libjpeg reads them.
+// limit < 0: none.
+struct Walk {
+  const uint8_t* data;
+  long long n;
+  bool fill;
+  long long at, limit;
+  bool unread = false;
+  Marker mk;
+  int rst = 0;
+  int marker(long long p, bool check, Marker* m) const {
+    if (!next_marker(data, n, p, fill, m)) return E_FEW_INTERVALS;
+    if (check && limit >= 0 && m->after > limit) return E_PILLOW_BLOCK;
+    return 0;
+  }
+  // the next interval's data [*a, *b); *at_eof where no marker follows
+  // (Pillow mode) -> false where it starts at an unread marker
+  bool interval(long long* a, long long* b, bool* at_eof) const {
+    if (unread) return false;
+    Marker m;
+    *a = at;
+    *at_eof = !next_marker(data, n, at, fill, &m);
+    if (*at_eof) {
+      long long end = n;
+      while (end > at && data[end - 1] == 0xFF) --end;
+      *b = end;
+    } else {
+      *b = m.start;
+    }
+    return true;
+  }
+  // read_restart_marker -> 0 or an error code; *stays whether a marker
+  // stays unread
+  int restart(bool met, bool* stays) {
+    if (!unread) {
+      const int rc = marker(at, !met, &mk);
+      if (rc) return rc;
+      unread = true;
+    }
+    while (true) {
+      const int action = mk.code == 0xD0 + rst ? 1 : resync(mk.code, rst);
+      if (action == 1) {
+        at = mk.after;
+        unread = false;
+        break;
+      }
+      if (action == 3) break;
+      const int rc = marker(mk.after, true, &mk);
+      if (rc) return rc;
+    }
+    rst = (rst + 1) & 7;
+    *stays = unread;
+    return 0;
+  }
+  long long end() const { return unread ? mk.start : at; }
+};
+
+// utils/jpeg.py:_Walk.raw: an interval's bytes data[a, b) unstuffed into
+// s.raw (a run of 0xFF then 0x00 is one 0xFF), zero-padded by `pad` bytes to
+// a multiple of 4 -> its bits.
+constexpr long long kFillPad = 4096;  // utils/jpeg.py:_FILL_PAD
+long long unstuff_fill(const uint8_t* data, long long a, long long b, Scratch& s,
+                       long long pad = kFillPad) {
   s.raw.clear();
   for (long long i = a; i < b; ++i) {
     s.raw.push_back(data[i]);
-    if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
-  }
-  const long long n_raw = static_cast<long long>(s.raw.size());
-  s.raw.resize(n_raw + 12 - n_raw % 4, 0);
-  return n_raw;
-}
-
-// utils/jpeg.py:_fill_intervals for interval k of a scan whose entropy-coded
-// data ends at `end`: its bytes unstuffed into s.raw (a lone 0xFF at the
-// end of the file dropped: a marker's first byte), zero-padded by kFillPad
-// -> the bits it has; -1 where it decodes nothing (its restart marker never
-// came and the interval before ran out).
-constexpr long long kFillPad = 4096;  // utils/jpeg.py:_FILL_PAD
-long long fill_interval(const uint8_t* data, long long n, long long end,
-                        const std::vector<std::pair<long long, long long>>& pieces, long long k,
-                        bool ran_out, Scratch& s) {
-  s.raw.clear();
-  if (k < static_cast<long long>(pieces.size())) {
-    long long a = pieces[k].first, b = pieces[k].second;
-    if (end == n && k == static_cast<long long>(pieces.size()) - 1)
-      while (b > a && data[b - 1] == 0xFF) --b;
-    for (long long i = a; i < b; ++i) {
-      s.raw.push_back(data[i]);
-      if (data[i] == 0xFF && i + 1 < b && data[i + 1] == 0x00) ++i;
+    if (data[i] == 0xFF) {
+      long long r = i + 1;
+      while (r < b && data[r] == 0xFF) ++r;
+      if (r < b && data[r] == 0x00) i = r;
     }
-  } else if (ran_out) {
-    return -1;
   }
   const long long n_raw = static_cast<long long>(s.raw.size());
-  s.raw.resize(n_raw + kFillPad - n_raw % 4, 0);
+  s.raw.resize(n_raw + pad - n_raw % 4, 0);
   return 8 * n_raw;
 }
 
+// utils/jpeg.py:_runs_dry: does libjpeg-turbo, decoding the blocks of a
+// sequential scan's last interval from data[start, n) to the end of the file,
+// ever read ahead past that end, as Pillow feeds it PILLOW_BLOCK bytes at a
+// time (avail: the end of what it has so far)? dcs, acs: the scan's
+// sym_rows tables by index in the scan.
+constexpr int kMinGetBits = 57, kBufSize = 512;
+struct DryRun {
+  const uint8_t* ub;
+  const long long *ends, *unit_end;
+  const char* multi_ff;
+  long long n_units;
+  long long avail;
+  long long consumed = 0, units = 0, left = 0;  // bits consumed, units read, bits buffered
+  void code(const int* lut, int* length, int* sym) const {
+    const long long i = consumed >> 3;
+    uint32_t w = 0;
+    for (int k = 0; k < 4; ++k) w = (w << 8) | (i + k < n_units ? ub[i + k] : 0);
+    const int* e = lut + 2 * ((w >> (16 - (consumed & 7))) & 0xFFFF);
+    *length = e[0] ? e[0] : 17;
+    *sym = e[1];
+  }
+  bool fill() {  // false: suspended
+    while (left < kMinGetBits) {
+      if (units >= n_units || ends[units] > avail) return false;
+      ++units;
+      left += 8;
+    }
+    return true;
+  }
+  bool need(int k) { return left >= k || fill(); }
+  void take(int k) {
+    consumed += k;
+    left -= k;
+  }
+  bool huff_slow(const int* lut, int* sym) {
+    if (!need(8)) return false;
+    int length = 0;
+    code(lut, &length, sym);
+    if (length <= 8) {
+      take(length);
+      return true;
+    }
+    if (!need(9)) return false;
+    take(9);
+    for (int k = 9; k < length; ++k) {
+      if (!need(1)) return false;
+      take(1);
+    }
+    return true;
+  }
+  bool fill_fast() {  // false: a 0xFF 0xFF pair, read as a marker
+    if (left > 16) return true;
+    for (int k = 0; k < 6; ++k) {
+      if (units >= n_units || multi_ff[units]) return false;
+      ++units;
+      left += 8;
+    }
+    return true;
+  }
+  bool huff_fast(const int* lut, int* sym) {
+    if (!fill_fast()) return false;
+    int length = 0;
+    code(lut, &length, sym);
+    take(length);
+    return true;
+  }
+  bool mcu(const int* sel, long long count, const int* const* dcs, const int* const* acs,
+           bool fast) {
+    for (long long b = 0; b < count; ++b) {
+      const int ci = sel[b];
+      int s = 0;
+      if (!(fast ? huff_fast(dcs[ci], &s) : huff_slow(dcs[ci], &s))) return false;
+      if (s) {
+        if (!(fast ? fill_fast() : need(s))) return false;
+        take(s);
+      }
+      for (int k = 1; k < 64; ++k) {
+        int rs = 0;
+        if (!(fast ? huff_fast(acs[ci], &rs) : huff_slow(acs[ci], &rs))) return false;
+        const int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          if (!(fast ? fill_fast() : need(s))) return false;
+          take(s);
+        } else if (r != 15) {
+          break;
+        } else {
+          k += 15;
+        }
+      }
+    }
+    return true;
+  }
+};
+
+bool runs_dry(const uint8_t* data, long long n, long long start, const int* sel,
+              long long n_blocks, long long per_mcu, const int* const* dcs,
+              const int* const* acs, int restart, long long avail) {
+  std::vector<uint8_t> ub;
+  std::vector<long long> ends, unit_end{start};
+  std::vector<char> multi_ff;
+  for (long long p = start; p < n;) {
+    const uint8_t c = data[p];
+    long long q = p + 1;
+    if (c == 0xFF) {
+      while (q < n && data[q] == 0xFF) ++q;
+      if (q >= n) break;  // 0xFF bytes that end the file
+      multi_ff.push_back(q - p > 1);
+      ++q;  // the stuffed 0x00
+    } else {
+      multi_ff.push_back(0);
+    }
+    ub.push_back(c);
+    ends.push_back(q);
+    unit_end.push_back(q);
+    p = q;
+  }
+  DryRun d{ub.data(), ends.data(), unit_end.data(), multi_ff.data(),
+           static_cast<long long>(ub.size()), avail < n ? avail : n};
+  for (long long m = 0; m < n_blocks; m += per_mcu) {
+    const long long count = n_blocks - m < per_mcu ? n_blocks - m : per_mcu;
+    while (true) {
+      const long long c0 = d.consumed, u0 = d.units, l0 = d.left;
+      const bool fast = !restart && d.avail - d.unit_end[d.units] >= kBufSize * per_mcu;
+      if (fast && d.mcu(sel + m, count, dcs, acs, true)) break;
+      d.consumed = c0, d.units = u0, d.left = l0;  // a marker: the slow path decodes it
+      if (d.mcu(sel + m, count, dcs, acs, false)) break;
+      d.consumed = c0, d.units = u0, d.left = l0;  // suspended
+      if (d.avail >= n) return true;
+      d.avail = d.avail + kPillowBlock < n ? d.avail + kPillowBlock : n;
+    }
+  }
+  return false;
+}
+
+// utils/jpeg.py:_decode_scan: one sequential scan into s.coef; limit: the
+// end of Pillow's reads so far.
 int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* data,
                 long long n, long long pos, const std::vector<int64_t>* qt, const bool* qt_def,
-                const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart,
+                const HuffTable* dc_tabs, const HuffTable* ac_tabs, int restart, long long limit,
                 Scratch& s, long long* end_out, long long* info) {
   const int ns = blen ? body[0] : 0;
   if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
   std::vector<int> comps;
-  std::vector<const int*> dcls, acls;
+  std::vector<const int*> dcls, acls, dsyms, asyms;
   for (int i = 0; i < ns; ++i) {
     const int cid = body[1 + 2 * i], t = body[2 + 2 * i];
     const int c = fr.index_of(cid);
@@ -853,83 +987,65 @@ int decode_scan(Frame& fr, const uint8_t* body, long long blen, const uint8_t* d
     if (!a) return E_BAD_HUFF_TABLE;
     dcls.push_back(d);
     acls.push_back(a);
+    dsyms.push_back(sym_rows(dc_tabs[t >> 4], true));
+    asyms.push_back(sym_rows(ac_tabs[t & 15], false));
   }
-  const uint8_t* sa = body + 1 + 2 * ns;
-  if (!(sa[0] == 0 && sa[1] == 63 && sa[2] == 0) && !fr.libjpeg) return E_SPECTRAL;
+  // Ss, Se, Ah, Al other than 0, 63, 0, 0: JWRN_NOT_SEQUENTIAL, read as they were
 
-  std::vector<std::pair<long long, long long>> pieces;
-  const long long end = scan_pieces(data, n, pos, restart, pieces);
   const long long per_mcu = scan_blocks(fr, comps, s);
   const long long n_blocks = static_cast<long long>(s.blk.size());
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
-  if (fr.libjpeg) {  // libjpeg over a whole buffer (utils/jpeg.py:_fill_intervals)
-    s.out_ac.resize(static_cast<size_t>(n_blocks) * 63);
-    s.out_dc.resize(n_blocks);
-    std::vector<char> done(n_blocks, 0);
-    std::vector<int64_t> preds(ns);
-    long long total = 0;
-    const long long per_interval = span * per_mcu;
-    bool ran_out = false;
-    for (long long k = 0; k < n_int; ++k) {
-      const long long bits = fill_interval(data, n, end, pieces, k, ran_out, s);
-      if (bits < 0) break;
-      const long long lo = k * per_interval;
-      const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
-      long long n_ac = 0, n_done = 0;
-      for (int i = 0; i < ns; ++i) preds[i] = 0;
-      const long long used = decode_interval(
-          s.raw.data(), static_cast<long long>(s.raw.size()), s.blk.data() + lo,
-          s.sel.data() + lo, hi - lo, dcls.data(), acls.data(), s.out_ac.data() + total, &n_ac,
-          s.out_dc.data() + lo, preds.data(), per_mcu, bits, &n_done);
-      if (used == -2) return E_INVALID_CODE;
-      if (used == -1) return E_SCAN_TRUNC;
-      for (long long i = lo; i < lo + n_done; ++i) done[i] = 1;
-      total += n_ac;
-      ran_out = used > bits;
-    }
-    for (long long i = 0; i < n_blocks; ++i)
-      if (done[i]) s.coef[s.blk[i] * 64] = static_cast<int16_t>(s.out_dc[i]);
-    for (long long i = 0; i < total; ++i) {  // past 63: libjpeg's padded order
-      const long long ac = s.out_ac[i], k = (ac >> 16) & 127;
-      s.coef[(ac >> 23) * 64 + (k < 63 ? k : 63)] =
-          static_cast<int16_t>(static_cast<uint16_t>(ac & 0xFFFF));
-    }
-    *end_out = end;
-    return 0;
-  }
-  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
-
   s.out_ac.resize(static_cast<size_t>(n_blocks) * 63);  // at most 63 a block
   s.out_dc.resize(n_blocks);
+  std::vector<char> done(n_blocks, 0);
   std::vector<int64_t> preds(ns);
   long long total = 0;
   const long long per_interval = span * per_mcu;
+  // utils/jpeg.py:_huffman_intervals: short is jdhuff.c's insufficient_data
+  Walk walk{data, n, fr.libjpeg, pos, -1};
+  bool short_ = false;
   for (long long k = 0; k < n_int; ++k) {
-    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
+    if (k) {
+      bool stays = false;
+      const int rc = walk.restart(false, &stays);
+      if (rc) return rc;
+      if (!stays) short_ = false;
+    }
+    if (short_) continue;
+    long long a = 0, b = 0;
+    bool at_eof = false;
+    if (!walk.interval(&a, &b, &at_eof)) a = b = 0;
+    const long long bits = unstuff_fill(data, a, b, s);
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
-    long long n_ac = 0;
+    long long n_ac = 0, n_done = 0;
     for (int i = 0; i < ns; ++i) preds[i] = 0;
     const long long used = decode_interval(
         s.raw.data(), static_cast<long long>(s.raw.size()), s.blk.data() + lo,
         s.sel.data() + lo, hi - lo, dcls.data(), acls.data(), s.out_ac.data() + total, &n_ac,
-        s.out_dc.data() + lo, preds.data());
-    if (used == -2) return E_INVALID_CODE;
-    if (used == -1 || used > 8 * n_raw) return E_SCAN_TRUNC;
+        s.out_dc.data() + lo, preds.data(), per_mcu, bits, &n_done);
+    if (used == -1) return E_SCAN_TRUNC;
+    for (long long i = lo; i < lo + n_done; ++i) done[i] = 1;
     total += n_ac;
+    if (at_eof && used > bits) return E_SCAN_TRUNC;
+    if (at_eof) {
+      const long long blocks_in = kPillowBlock * (1 + (walk.at - 1) / kPillowBlock);
+      if (runs_dry(data, n, walk.at, s.sel.data() + lo, hi - lo, per_mcu, dsyms.data(),
+                   asyms.data(), restart, limit > blocks_in ? limit : blocks_in))
+        return E_RUNS_DRY;
+    }
+    short_ = used > bits;
   }
   for (long long i = 0; i < n_blocks; ++i)
-    s.coef[s.blk[i] * 64] = static_cast<int16_t>(s.out_dc[i]);  // JCOEF
-  for (long long i = 0; i < total; ++i)
-    if (((s.out_ac[i] >> 16) & 127) > 63) return E_COEF_PAST;
-  for (long long i = 0; i < total; ++i) {
-    const long long ac = s.out_ac[i];
-    s.coef[(ac >> 23) * 64 + ((ac >> 16) & 127)] =
+    if (done[i]) s.coef[s.blk[i] * 64] = static_cast<int16_t>(s.out_dc[i]);  // JCOEF
+  for (long long i = 0; i < total; ++i) {  // past 63: libjpeg's padded natural order
+    const long long ac = s.out_ac[i], k = (ac >> 16) & 127;
+    s.coef[(ac >> 23) * 64 + (k < 63 ? k : 63)] =
         static_cast<int16_t>(static_cast<uint16_t>(ac & 0xFFFF));
   }
-  *end_out = end;
+  *end_out = walk.end();
   return 0;
 }
 
@@ -942,7 +1058,8 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
   if (!valid_sos(fr, body, blen, ns)) return E_BAD_SOS;
   const uint8_t* sa = body + 1 + 2 * ns;
   const int ss = sa[0], se = sa[1], ah = sa[2] >> 4, al = sa[2] & 15;
-  // jdphuff.c start_pass_phuff_decoder's checks
+  // jdphuff.c start_pass_phuff_decoder's checks (a scan out of the
+  // progression's order is JWRN_BOGUS_PROGRESSION: read as it is)
   if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) ||
       (ah && al != ah - 1) || al > 13)
     return E_BAD_PROGRESSION;
@@ -971,52 +1088,44 @@ int decode_progressive_scan(Frame& fr, const uint8_t* body, long long blen, cons
       fr.prev_bits[c][k] = fr.scans > 1 ? fr.coef_bits[c][k] : 0;
     for (int k = ss; k <= se; ++k) fr.coef_bits[c][k] = al;
   }
-  std::vector<std::pair<long long, long long>> pieces;
-  const long long end = scan_pieces(data, n, pos, restart, pieces);
   const long long per_mcu = scan_blocks(fr, comps, s);
   const long long n_blocks = static_cast<long long>(s.blk.size());
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
-  if (fr.libjpeg) {  // as decode_scan's, and jdcoefct.c's last_good_iMCU_row
-    const long long per_interval = span * per_mcu;
-    bool ran_out = false;
-    long long last = -1;
-    for (long long k = 0; k < n_int; ++k) {
-      const long long bits = fill_interval(data, n, end, pieces, k, ran_out, s);
-      if (bits < 0) break;
-      const long long lo = k * per_interval;
-      const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
-      Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
-      long long started = -1;
-      const bool ok = progressive_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo,
-                                           luts.data(), s.coef.data(), ss, se, ah, al, per_mcu,
-                                           bits, &started);
-      if (!ok && rd.bad_code) return E_INVALID_CODE;
-      if (!ok) return E_SCAN_TRUNC;
-      if (started >= 0) last = lo + started;
-      ran_out = rd.used() > bits;
-    }
-    if (last >= 0) {  // the iMCU row of the last MCU started
-      const int c = comps[s.sel[last]];
-      fr.last_good = (s.blk[last] - fr.offset[c] / fr.per) / fr.bw[c] / fr.v[c];
-    }
-    *end_out = end;
-    return 0;
-  }
-  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
   const long long per_interval = span * per_mcu;
+  Walk walk{data, n, fr.libjpeg, pos, -1};
+  bool short_ = false;
+  long long last = -1;
   for (long long k = 0; k < n_int; ++k) {
-    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
+    if (k) {
+      bool stays = false;
+      const int rc = walk.restart(false, &stays);
+      if (rc) return rc;
+      if (!stays) short_ = false;
+    }
+    if (short_) continue;
+    long long a = 0, b = 0;
+    bool at_eof = false;
+    if (!walk.interval(&a, &b, &at_eof)) a = b = 0;
+    const long long bits = unstuff_fill(data, a, b, s);
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
     Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
+    long long started = -1;
     const bool ok = progressive_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo,
-                                         luts.data(), s.coef.data(), ss, se, ah, al);
-    if (!ok && rd.bad_code) return E_INVALID_CODE;
-    if (!ok || rd.used() > 8 * n_raw) return E_SCAN_TRUNC;
+                                         luts.data(), s.coef.data(), ss, se, ah, al, per_mcu,
+                                         bits, &started);
+    if (!ok) return E_SCAN_TRUNC;
+    if (started >= 0) last = lo + started;
+    if (at_eof && rd.used() > bits) return E_SCAN_TRUNC;
+    short_ = rd.used() > bits;
   }
-  *end_out = end;
+  if (last >= 0) {  // libjpeg-turbo's last_good_iMCU_row: the last MCU decoded with data
+    const int c = comps[s.sel[last]];
+    fr.last_good = (s.blk[last] - fr.offset[c] / fr.per) / fr.bw[c] / fr.v[c];
+  }
+  *end_out = walk.end();
   return 0;
 }
 
@@ -1090,7 +1199,7 @@ void smooth(const Frame& fr, std::vector<int16_t>& coef) {
     for (int i = 0; i < total; ++i) {
       const int rows = i < total - 1 ? v : (height % v ? height % v : v);
       const int count = rows * total;
-      const bool late = fr.libjpeg && fr.last_good >= 0 && i > fr.last_good;
+      const bool late = fr.last_good >= 0 && i > fr.last_good;
       const int* bits = !late ? fr.coef_bits[c] : fr.scans <= 1 ? minus : fr.prev_bits[c];
       bool change_dc = true;
       for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
@@ -1169,7 +1278,6 @@ const uint32_t kAritab[114] = {
     0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
     0x59eb6ff0, 0x5a1d7171,
 };
-constexpr long long kPillowBlock = 65536;  // utils/jpeg.py:PILLOW_BLOCK
 
 // jdarith.c's decoder over one restart interval's stuffed bytes
 // data[p, end): past `end` a marker supplies zeros; with no marker after it
@@ -1468,49 +1576,68 @@ int decode_lossless_scan(Frame& fr, const uint8_t* body, long long blen, const u
   }
   const long long per_row = ns == 1 ? fr.dw(comps[0]) : fr.mcux;
   if (restart % per_row) return E_BAD_RESTART;
-  std::vector<std::pair<long long, long long>> pieces;
-  const long long end = scan_pieces(data, n, pos, restart, pieces);
   const long long per_mcu = scan_blocks(fr, comps, s);
   const long long n_blocks = static_cast<long long>(s.blk.size());
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
-  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
   const long long per_interval = span * per_mcu;
+  const long long row = per_row * per_mcu;  // the samples of an MCU row: one decode_mcus call
+  std::vector<char> fresh(n_mcu / per_row + 1, 0);  // MCU rows undifferenced afresh
+  fresh[0] = 1;
+  Walk walk{data, n, false, pos, -1};
+  bool short_ = false;  // jdhuff.c's insufficient_data
+  for (long long b = 0; b < n_blocks; ++b) s.coef[s.blk[b]] = 0;
   for (long long k = 0; k < n_int; ++k) {
-    const long long n_raw = unstuff(data, pieces[k].first, pieces[k].second, s);
+    if (k) {
+      bool stays = false;
+      const int rc = walk.restart(false, &stays);
+      if (rc) return rc;
+      if (!stays) short_ = false;
+      fresh[k * span / per_row] = 1;
+    }
+    long long a = 0, b = 0;
+    bool at_eof = false;
+    if (!walk.interval(&a, &b, &at_eof)) a = b = 0;
+    if (at_eof) return E_LOSSLESS_NO_EOI;  // libjpeg-turbo reads ahead, and Pillow has no more
+    const long long bits = unstuff_fill(data, a, b, s, kFillPad + 4 * row);
+    Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
-    Bits rd{s.raw.data(), static_cast<long long>(s.raw.size()) / 4};
-    bool ok = true;
-    for (long long b = lo; b < hi && ok; ++b) {
-      int sym = 0;
-      int64_t v = 0;
-      ok = rd.huff(luts[s.sel[b]], &sym);
-      if (ok && sym == 16) {
-        v = 32768;
-      } else if (ok && sym) {
-        int64_t bits = 0;
-        ok = rd.get(sym, &bits);
-        v = extend(bits, sym);
+    for (long long r0 = lo; r0 < hi; r0 += row) {
+      if (short_) {  // zero differences, the predictors restarted
+        fresh[r0 / row] = 1;
+        continue;
       }
-      s.coef[s.blk[b]] = w16(v);
+      bool ok = true;
+      for (long long b = r0; b < r0 + row && ok; ++b) {
+        int sym = 0;
+        int64_t v = 0;
+        ok = rd.huff(luts[s.sel[b]], &sym);
+        if (ok && sym == 16) {
+          v = 32768;
+        } else if (ok && sym) {
+          int64_t vb = 0;
+          ok = rd.get(sym, &vb);
+          v = extend(vb, sym);
+        }
+        s.coef[s.blk[b]] = w16(v);
+      }
+      if (!ok) return E_SCAN_TRUNC;
+      short_ = rd.used() > bits;
     }
-    if (!ok && rd.bad_code) return E_INVALID_CODE;
-    if (!ok || rd.used() > 8 * n_raw) return E_SCAN_TRUNC;
   }
-  const long long interval_rows = restart ? span / per_row : 0;
   for (int c : comps) {
     const int w = fr.dw(c), h = fr.dh(c), v = ns == 1 ? 1 : fr.v[c];
     std::vector<char> first(h, 0);
-    for (int r = 0; r < h; r += v)
-      first[r] = r == 0 || (interval_rows && (r / v) % interval_rows == 0);
+    for (long long m = 0; m < static_cast<long long>(fresh.size()); ++m)
+      if (fresh[m] && m * v < h) first[m * v] = 1;
     fr.samples[c].assign(static_cast<size_t>(h) * w, 0);
     undifference(s.coef.data() + fr.offset[c], fr.bw[c], h, w, psv, pt, first,
                  fr.samples[c].data());
     fr.pt[c] = pt;
   }
-  *end_out = end;
+  *end_out = walk.end();
   return 0;
 }
 
@@ -1527,9 +1654,7 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
     if ((ss == 0 && se != 0) || (ss > 0 && (se < ss || se > 63 || ns != 1)) ||
         (ah && al != ah - 1) || al > 13)
       return E_BAD_PROGRESSION;
-  } else if (!(ss == 0 && se == 63 && sa[2] == 0) && !fr.libjpeg) {  // libjpeg only warns
-    return E_SPECTRAL;
-  }
+  }  // a sequential scan's Ss, Se, Ah, Al: JWRN_NOT_SEQUENTIAL, read as 0, 63, 0, 0
   std::vector<int> comps;
   int dtab[4], atab[4];
   for (int i = 0; i < ns; ++i) {
@@ -1547,28 +1672,31 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
     if (fr.progressive)
       for (int k = ss; k <= se; ++k) fr.coef_bits[c][k] = al;
   }
-  std::vector<std::pair<long long, long long>> pieces;
-  const long long end = scan_pieces(data, n, pos, restart, pieces);
   const long long per_mcu = scan_blocks(fr, comps, s);
   const long long n_blocks = static_cast<long long>(s.blk.size());
   const long long n_mcu = n_blocks / per_mcu;
   const long long span = restart ? restart : n_mcu;
   const long long n_int = (n_mcu + span - 1) / span;
-  if (fr.libjpeg) {  // the fake EOI: a marker, zeros past the data, no limit
-    while (static_cast<long long>(pieces.size()) < n_int) pieces.emplace_back(n, n);
-    limit = n + 2;
-  }
-  if (static_cast<long long>(pieces.size()) < n_int) return E_FEW_INTERVALS;
   const long long per_interval = span * per_mcu;
+  // libjpeg mode: the fake EOI, a marker, zeros past the data, no limit
+  const long long lim = fr.libjpeg ? n + 2 : limit;
+  Walk walk{data, n, fr.libjpeg, pos, fr.libjpeg ? -1 : limit};
   static thread_local uint8_t dcs[16][64], acs[16][256];
   bool met = true;
   for (long long k = 0; k < n_int; ++k) {
-    // read_restart_marker reads the marker before the interval to its end
-    if (!met && pieces[k].first > limit) return E_PILLOW_BLOCK;
+    if (k) {  // read_restart_marker reads to the marker unless the decoder met it
+      bool stays = false;
+      const int rc = walk.restart(met, &stays);
+      if (rc) return rc;
+    }
     std::memset(dcs, 0, sizeof(dcs));  // statistics reset at every restart
     std::memset(acs, 0, sizeof(acs));
-    ArithBits rd{data, pieces[k].first, pieces[k].second, limit,
-                 pieces[k].second == n && !fr.libjpeg};
+    long long a = 0, b = 0;
+    bool at_eof = false;
+    const bool has = walk.interval(&a, &b, &at_eof);
+    if (!has) a = b = walk.end();  // a marker left unread: zeros
+    ArithBits rd{data, a, b, lim, at_eof};
+    rd.marker = !has;
     const long long lo = k * per_interval;
     const long long hi = lo + per_interval < n_blocks ? lo + per_interval : n_blocks;
     arith_interval(rd, s.blk.data() + lo, s.sel.data() + lo, hi - lo, dtab, atab, dcs, acs,
@@ -1576,8 +1704,111 @@ int decode_arith_scan(Frame& fr, const uint8_t* body, long long blen, const uint
     if (rd.err) return rd.err;
     met = rd.marker;
   }
-  *end_out = end;
+  *end_out = walk.end();
   return 0;
+}
+
+// utils/jpeg.py:_STD_DC, _STD_AC: jstdhuff.c's tables (T.81 K.3), DC and AC,
+// luminance (slot 0) and chrominance (slot 1): 16 counts, then the symbols
+const uint8_t kStdDc[2][28] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11},
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}};
+const char* const kStdAc[2] = {
+    "0002010303020403050504040000017d"
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718"
+    "191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475"
+    "767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    "00020102040403040705040400010277"
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125"
+    "f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a7374"
+    "75767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9ba"
+    "c2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"};
+
+void std_table(HuffTable& t, const uint8_t* counts_then_symbols, int n_symbols) {
+  t.defined = true;
+  std::memcpy(t.counts, counts_then_symbols, 16);
+  t.symbols.assign(counts_then_symbols + 16, counts_then_symbols + 16 + n_symbols);
+}
+
+void std_tables(HuffTable* dc_tabs, HuffTable* ac_tabs) {
+  for (int k = 0; k < 2; ++k) {
+    if (!dc_tabs[k].defined) std_table(dc_tabs[k], kStdDc[k], 12);
+    if (!ac_tabs[k].defined) {
+      uint8_t bytes[16 + 162];
+      const char* hex = kStdAc[k];
+      for (int i = 0; i < 16 + 162; ++i) {
+        auto nib = [](char c) { return c <= '9' ? c - '0' : c - 'a' + 10; };
+        bytes[i] = static_cast<uint8_t>(nib(hex[2 * i]) << 4 | nib(hex[2 * i + 1]));
+      }
+      std_table(ac_tabs[k], bytes, 162);
+    }
+  }
+}
+
+// utils/jpeg.py:_tail_end: the end of what Pillow has handed libjpeg once a
+// single-scan image's scan (its data ending at `end`) is decoded
+long long tail_end(const uint8_t* data, long long n, long long end, long long limit, bool arith) {
+  if (arith) return limit < n ? limit : n;
+  Marker m;
+  if (!next_marker(data, n, end, false, &m)) return n;
+  const long long blocks = kPillowBlock * (1 + (m.after - 1) / kPillowBlock);
+  const long long got = limit > blocks ? limit : blocks;
+  return got < n ? got : n;
+}
+
+// utils/jpeg.py:_runs_out: does libjpeg, reading a marker segment cut short
+// by the end of the file (seg, its length field on), run out of data
+// before it finds fault with it?
+bool runs_out(int marker, const uint8_t* seg, long long avail) {
+  if (avail < 2) return true;
+  long long n = be16(seg) - 2;
+  if (n < 0) return false;
+  const uint8_t* body = seg + 2;
+  const long long have = avail - 2;
+  if (marker == 0xDD) return n == 2;  // get_dri checks the length first
+  if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 ||
+      marker == 0xCA)
+    return false;
+  if (marker == 0xC4) {  // get_dht: each table's counts, then its symbols
+    long long i = 0;
+    while (n > 16) {
+      if (i + 17 > have) return true;
+      long long count = 0;
+      for (int k = 1; k <= 16; ++k) count += body[i + k];
+      n -= 17;
+      if (count > 256 || count > n) return false;
+      if (i + 17 + count > have) return true;
+      if ((body[i] & 0x0F) > 3 || (body[i] >> 4) > 1) return false;
+      n -= count;
+      i += 17 + count;
+    }
+    return false;
+  }
+  if (marker == 0xDB) return have == 0 || (body[0] & 0x0F) <= 3;  // get_dqt
+  if (marker == 0xCC) {  // get_dac
+    for (long long i = 0; i + 1 < have; i += 2) {
+      const int index = body[i], val = body[i + 1];
+      if (index >= 32 || (index < 16 && (val & 15) > (val >> 4))) return false;
+    }
+    return true;
+  }
+  if (marker == 0xDA)  // get_sos: its length against its component count
+    return have == 0 || (body[0] >= 1 && body[0] <= 4 && n == 4 + 2 * body[0]);
+  return true;
+}
+
+// utils/jpeg.py:_start_scan: an SOS marker's checks before its scan ->
+// 0 or an error code; *multi: has_multiple_scans
+int start_scan(const Frame& fr, bool have_frame, const uint8_t* body, long long blen, int scans,
+               bool* multi, HuffTable* dc_tabs, HuffTable* ac_tabs) {
+  if (!have_frame) return E_SCAN_NO_FRAME;
+  if (scans == 0) {
+    if (!(fr.progressive || fr.arith || fr.lossless)) std_tables(dc_tabs, ac_tabs);
+    *multi = fr.progressive || (blen ? body[0] : 0) < fr.n;
+    return 0;
+  }
+  return *multi ? 0 : E_SECOND_SCAN;
 }
 
 inline uint8_t clip8(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
@@ -1604,7 +1835,7 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   for (int i = 0; i < 16; ++i) dac.lo[i] = 0, dac.hi[i] = 1, dac.kx[i] = 5;
   long long limit = kPillowBlock;
   int scans = 0;
-  bool jfif = false, have_frame = false, eoi = false, extended = false;
+  bool jfif = false, have_frame = false, eoi = false, extended = false, multi = true;
   Frame fr;
   fr.libjpeg = lj;
   long long pos = 2;
@@ -1640,9 +1871,13 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
       n = static_cast<long long>(ext.size());
       extended = true;
     }
-    if (pos + 2 > n) return E_SEGMENT;
+    if (pos + 2 > n || be16(data + pos) < 2 || pos + be16(data + pos) > n) {
+      // a single-scan image is out: jpeg_finish_decompress suspends, and
+      // Pillow keeps the image
+      if (!lj && !multi && runs_out(marker, data + pos, n - pos)) break;
+      return E_SEGMENT;
+    }
     const long long len = be16(data + pos);
-    if (len < 2 || pos + len > n) return E_SEGMENT;
     const uint8_t* body = data + pos + 2;
     const long long blen = len - 2;
     long long after = pos + len;
@@ -1711,7 +1946,8 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     } else if (marker == 0xEE && blen >= 12 && std::memcmp(body, "Adobe", 5) == 0) {
       adobe = body[11];
     } else if (marker == 0xDA) {  // SOS
-      if (!have_frame) return E_SCAN_NO_FRAME;
+      const int sc = start_scan(fr, have_frame, body, blen, scans, &multi, dc_tabs, ac_tabs);
+      if (sc) return sc;
       fr.scans = ++scans;
       const int rc =
           fr.lossless ? decode_lossless_scan(fr, body, blen, data, n, after, dc_tabs, restart, s,
@@ -1722,8 +1958,11 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
               ? decode_progressive_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs,
                                         ac_tabs, restart, s, &after, info)
               : decode_scan(fr, body, blen, data, n, after, qt, qt_def, dc_tabs, ac_tabs,
-                            restart, s, &after, info);
+                            restart, limit, s, &after, info);
       if (rc) return rc;
+      // the image is out: jpeg_finish_decompress reads the rest from
+      // Pillow's read so far, and a suspension ends the decode
+      if (!lj && !multi) n = tail_end(data, n, after, limit, fr.arith);
     }
     pos = after;
   }
@@ -1733,12 +1972,13 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
   } else {
     for (int c = 0; c < fr.n; ++c)
       if (!fr.scanned[c]) return E_NO_SCAN;
-    if (fr.progressive && !eoi) return E_PROG_NO_EOI;  // more scans may have been to come
+    // more scans may have been to come: jpeg_start_decompress reads to the EOI
+    if (multi && !eoi && !fr.lossless) return info[0] = fr.progressive, E_PROG_NO_EOI;
   }
   if (fr.progressive && smoothed(fr)) smooth(fr, s.coef);
 
   if (fr.lossless) {  // utils/jpeg.py:_assemble_lossless's colour spaces
-    if (!eoi) return E_LOSSLESS_NO_EOI;  // libjpeg-turbo reads on for its last bits
+    if (multi && !eoi) return E_LOSSLESS_NO_EOI;  // jpeg_start_decompress reads to the EOI
     if (fr.n == 4 && adobe > 0) return E_LOSSLESS_YCCK;
     if (fr.n == 3 && (jfif || adobe > 0)) return E_LOSSLESS_YCC;
   }
@@ -1788,8 +2028,7 @@ int decode(const uint8_t* data, long long n, uint8_t* out, long long out_bytes,
     s.plane.resize(static_cast<size_t>(fr.bh[c]) * fr.bw[c] * 64);
     const std::vector<int64_t> none(64, 0);  // a component never scanned
     const int64_t* q = fr.quant[c].empty() ? none.data() : fr.quant[c].data();
-    (lj ? idct_plane_simd : idct_plane)(s.coef.data() + fr.offset[c], q, fr.bh[c], fr.bw[c],
-                                        s.plane.data());
+    idct_plane_simd(s.coef.data() + fr.offset[c], q, fr.bh[c], fr.bw[c], s.plane.data());
     const int fh = fr.hmax / fr.h[c], fv = fr.vmax / fr.v[c];
     upsample(s.plane.data(), static_cast<long long>(fr.bw[c]) * 8, fr.dh(c), fr.dw(c), fh, fv,
              fr.height, fr.width, planes + c, step);
@@ -1847,7 +2086,8 @@ extern "C" {
 // AC coefficient goes to out_ac as block << 23 | zigzag position << 16 |
 // value & 0xFFFF (*n_ac of them, at most 63 a block), each DC value (the
 // predictor's running sum from 0) to out_dc[i]. -> the bits used; -1 where
-// the decode reads past the words, -2 at an invalid Huffman code.
+// the decode reads past the words (a bad code reads 17 bits as a zero
+// symbol).
 long long l2i_jpeg_decode_interval(const uint8_t* data, long long n_bytes,
                                    const long long* blocks, const int* comps,
                                    long long n_blocks, const int* const* dc_luts,

@@ -30,6 +30,8 @@ import struct
 
 import numpy as np
 
+from .jpeg import PILLOW_MAX_PIXELS
+
 _MASK_MODES = {
     (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
     (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
@@ -127,12 +129,21 @@ def bmp_decode_rgb(data: bytes) -> np.ndarray:
     Pillow fails."""
     if data[:2] != b"BM" or len(data) < 18:
         raise ValueError("bmp: not a BMP file")
-    offset = struct.unpack("<I", data[10:14])[0]
-    hsize = struct.unpack("<I", data[14:18])[0]
-    hdr = data[18:14 + hsize]
-    if len(hdr) < hsize - 4:
+    return dib_decode_rgb(data, 14, struct.unpack("<I", data[10:14])[0])
+
+
+def dib_decode_rgb(data: bytes, at: int, offset=None, halve: bool = False) -> np.ndarray:
+    """The bitmap whose info header starts at data[at] -> uint8 [H, W, 3],
+    as BmpImageFile._bitmap reads it: offset, the pixel data's position (a
+    BMP file header's), or None where it follows the header, its bitfield
+    masks and its colour table (a DIB, as in ICO and CUR files); halve: an
+    icon's or cursor's bitmap, whose header gives twice the height of its
+    colour rows (the rows of its AND mask follow)."""
+    hsize = struct.unpack("<I", data[at:at + 4])[0] if at + 4 <= len(data) else 0
+    hdr = data[at + 4:at + hsize]
+    if len(hdr) < hsize - 4 or hsize < 4:
         raise ValueError("bmp: the header runs past the end of the file")
-    masks = None
+    masks, tail = None, at + hsize  # tail: what the header reads up to
     if hsize == 12:  # OS/2 v1, BITMAPCOREHEADER
         w, h, _, bits = struct.unpack("<HHHH", hdr[:8])
         comp, colors, pad, direction = 0, 0, 3, -1
@@ -150,14 +161,21 @@ def bmp_decode_rgb(data: bytes) -> np.ndarray:
                 m = struct.unpack("<III", hdr[36:48])
                 a = struct.unpack("<I", hdr[48:52])[0] if len(hdr) >= 52 else 0
             else:  # a 40-byte header: three masks after it
-                m = struct.unpack("<III", data[14 + hsize:26 + hsize])
+                if tail + 12 > len(data):
+                    raise ValueError("bmp: the bitfield masks run past the end of the file")
+                m = struct.unpack("<III", data[tail:tail + 12])
                 a = 0
+                tail += 12
             masks = (m, m + (a,))
     else:
         raise ValueError(f"bmp: unsupported header size {hsize}")
     colors = colors or (1 << bits)
-    if offset == 14 + hsize and bits <= 8:
+    if offset is not None and offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
+    if w * h > PILLOW_MAX_PIXELS:
+        raise ValueError(f"bmp: a {w}x{h} bitmap: more pixels than Pillow opens")
+    if halve:
+        h //= 2
     if bits not in _RAW_MODES:
         raise ValueError(f"bmp: unsupported bit depth {bits}")
     raw, rle = _RAW_MODES[bits], None
@@ -176,8 +194,8 @@ def bmp_decode_rgb(data: bytes) -> np.ndarray:
     if bits <= 8:
         if not 0 < colors <= 65536:
             raise ValueError(f"bmp: unsupported colour table size {colors}")
-        start = 14 + hsize  # read where the header ends
-        pal = data[start:start + pad * colors]
+        pal = data[tail:tail + pad * colors]  # read where the header ends
+        tail += len(pal)
         gray = (0, 255) if colors == 2 else range(colors)
         if all(pal[i * pad:i * pad + 3] == bytes([v]) * 3 for i, v in enumerate(gray)):
             raw = "1" if colors == 2 else "L"  # Pillow unpacks the rows so whatever the depth
@@ -189,17 +207,20 @@ def bmp_decode_rgb(data: bytes) -> np.ndarray:
     if rle is not None:
         if bits not in (4, 8):
             raise ValueError("bmp: an RLE image that is not 4 or 8 bits")
-        idx = np.frombuffer(_rle(data, offset, w, h, rle), np.uint8)
+        idx = np.frombuffer(_rle(data, tail if offset is None else offset, w, h, rle), np.uint8)
         if idx.size < w * h:
             raise ValueError("bmp: not enough RLE image data")
         img = idx[:w * h].reshape(h, w)
     else:
+        offset = tail if offset is None else offset
         stride = ((w * bits + 31) >> 3) & ~3
         if _ROW_BYTES.get(raw, lambda w: 4 * w)(w) > stride:  # Pillow's raw decoder refuses the stride
             raise ValueError(f"bmp: {bits}-bit rows read as {raw!r}: Pillow fails them")
         body = data[offset:offset + stride * h]
-        if len(body) < stride * h:
+        # Pillow's raw decoder reads no padding after the last row
+        if len(body) < stride * (h - 1) + _ROW_BYTES.get(raw, lambda w: 4 * w)(w):
             raise ValueError("bmp: the pixel data ends before the image does")
+        body += bytes(stride * h - len(body))
         img = _unpack(np.frombuffer(body, np.uint8).reshape(h, stride), w, raw)
     if direction == -1:
         img = img[::-1]

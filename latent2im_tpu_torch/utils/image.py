@@ -7,15 +7,16 @@ are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
 progressive or lossless, Huffman or arithmetic-coded, grayscale, YCbCr,
 RGB, CMYK or YCCK (``utils/jpeg.py``), and WEBP, lossless, lossy, with
 alpha or animated (``utils/webp.py``), GIF (its first frame,
-``utils/gif.py``), BMP (``utils/bmp.py``) and TIFF (``utils/tiff.py``), each
-bit for bit as Pillow decodes it; hierarchical and 12-bit JPEG raise, naming
-ROADMAP item 26, as Pillow fails them."""
+``utils/gif.py``), BMP and DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``),
+Netpbm, ICO and CUR, PCX, SGI, QOI and TGA (``utils/netpbm.py``,
+``ico.py``, ``pcx.py``, ``sgi.py``, ``qoi.py``, ``tga.py``), each bit for bit
+as Pillow decodes it (``read_image_rgb``); hierarchical and 12-bit JPEG
+raise, naming ROADMAP item 26, as Pillow fails them."""
 
 from __future__ import annotations
 
 import functools
 import math
-import os
 import struct
 import zlib
 
@@ -214,39 +215,125 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(vals[..., :3])
 
 
+# the formats Pillow 12.1 opens that this package does not read (ROADMAP
+# item 28), by the prefixes Pillow's plugins accept, checked where no format
+# read here has taken the file (Pillow's own checks may pass a file on)
+_NOT_READ = (
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
+    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a"),
+    ("DDS", lambda d: d[:4] == b"DDS "),
+    ("FITS", lambda d: d[:6] == b"SIMPLE"),
+    ("FLI", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
+     and d[14:16] in (b"\0\0", b"\3\0")),
+    ("FTEX", lambda d: d[:4] == b"FTEX"),
+    ("GBR", lambda d: len(d) >= 20 and int.from_bytes(d[:4], "big") >= 20
+     and int.from_bytes(d[4:8], "big") in (1, 2) and int.from_bytes(d[8:12], "big") > 0
+     and int.from_bytes(d[12:16], "big") > 0 and int.from_bytes(d[16:20], "big") in (1, 4)
+     and (d[4:8] == b"\0\0\0\x01" or d[24:28] == b"GIMP")),
+    ("JPEG 2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
+     or d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"),
+    ("ICNS", lambda d: d[:4] == b"icns"),
+    ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\x04"),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0"),
+    ("PSD", lambda d: d[:4] == b"8BPS"),
+    ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+)
+
+
+# the formats Pillow 12.1 opens and fails to load here: EPS (no
+# Ghostscript), and its stubs, which have no loader
+_PILLOW_FAILS = (
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC")),
+    ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6")),
+    ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n"),
+    ("MPEG", lambda d: d[:4] == b"\0\0\x01\xb3"),
+    ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\x01\0\0\0"),
+)
+
+
+def _still_to_port(data: bytes) -> np.ndarray:
+    """Raise for a format of ``_NOT_READ`` or ``_PILLOW_FAILS``; else pass
+    the file on (to TGA, which Pillow tries last)."""
+    from .modes import NotThisKind
+
+    for other, takes in _NOT_READ:
+        if takes(data):
+            raise ValueError(f"{other} images are not supported (Pillow reads them; ROADMAP "
+                             "item 28); convert it to PNG")
+    for other, takes in _PILLOW_FAILS:
+        if takes(data):
+            raise ValueError(f"{other}: Pillow opens such a file and fails to load it (no "
+                             "Ghostscript, or a format it has no loader for)")
+    raise NotThisKind
+
+
+def _decoders(host_cpp: bool = False):
+    """The readers in Pillow's order of trying them: (name, accepts, decode);
+    the formats still to port, then TGA, which has no signature, last."""
+    from . import ico, netpbm, pcx, qoi, sgi, tga
+    from .bmp import dib_decode_rgb
+
+    dib_sizes = (12, 40, 52, 56, 64, 108, 124)
+    return (
+        ("BMP", lambda d: d[:2] == b"BM", bmp_decode_rgb),
+        ("DIB", lambda d: len(d) >= 4 and int.from_bytes(d[:4], "little") in dib_sizes,
+         lambda d: dib_decode_rgb(d, 0)),
+        ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif_decode_rgb),
+        ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff",
+         functools.partial(jpeg_decode_rgb, host_cpp=host_cpp)),
+        ("PPM", netpbm.accepts, netpbm.netpbm_decode_rgb),
+        ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, png_decode_rgb),
+        ("CUR", lambda d: d[:4] == b"\0\0\2\0", ico.ico_decode_rgb),
+        ("PCX", pcx.accepts, pcx.pcx_decode_rgb),
+        ("ICO", lambda d: d[:4] == b"\0\0\1\0", ico.ico_decode_rgb),
+        ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"),
+         tiff_decode_rgb),
+        ("QOI", lambda d: d[:4] == b"qoif", qoi.qoi_decode_rgb),
+        ("SGI", sgi.accepts, sgi.sgi_decode_rgb),
+        ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
+         functools.partial(webp_decode_rgb, host_cpp=host_cpp)),
+        ("item 28", lambda d: True, _still_to_port),
+        ("TGA", lambda d: True, tga.tga_decode_rgb),
+    )
+
+
 def read_image_rgb(path: str, host_cpp: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
-    .convert("RGB")`` gives it: PNG (``png_decode_rgb``), JPEG
-    (``jpeg_decode_rgb``, sequential or progressive, Huffman or
-    arithmetic-coded, 1, 3 or 4 components, through its C entry where
-    ``host_cpp``), WEBP (``webp_decode_rgb``, through its C entry where
-    ``host_cpp``), GIF (``gif_decode_rgb``), BMP (``bmp_decode_rgb``) and
-    TIFF (``tiff_decode_rgb``), the last three in Python only, told apart
-    by their signatures.
-    What the JPEG decoder does not read (hierarchical, 12-bit) raises
-    ValueError naming the file and ROADMAP item 26; a TIFF form Pillow reads
-    and ``utils/tiff.py`` does not, and a file of another kind, name ROADMAP
-    item 28; a corrupt file raises ValueError naming it."""
+    .convert("RGB")`` gives it, the formats told apart in Pillow's order of
+    trying them (``PIL.Image.ID``: BMP, DIB, GIF, JPEG, PPM and PNG first;
+    TGA, which has no signature, last): BMP and DIB (``utils/bmp.py``), GIF
+    (its first frame, ``utils/gif.py``), JPEG (``jpeg_decode_rgb``:
+    sequential, progressive or lossless, Huffman or arithmetic-coded, 1, 3 or 4
+    components, libjpeg's recovery from corrupt data; through its C entry
+    where ``host_cpp``), Netpbm (``utils/netpbm.py``), PNG
+    (``png_decode_rgb``), CUR and ICO (``utils/ico.py``), PCX
+    (``utils/pcx.py``), TIFF (``utils/tiff.py``), QOI (``utils/qoi.py``),
+    SGI (``utils/sgi.py``), WEBP (``webp_decode_rgb``, through its C entry
+    where ``host_cpp``) and TGA (``utils/tga.py``); all but JPEG and WEBP
+    in Python only. What the JPEG decoder does not read (hierarchical,
+    12-bit) raises ValueError naming the file and ROADMAP item 26; a TIFF
+    form Pillow reads and ``utils/tiff.py`` does not, a format of the list
+    still to port (DDS, JPEG 2000 and the rest) and a file of no kind read
+    name ROADMAP item 28; a corrupt file raises ValueError naming it."""
+    from .modes import NotThisKind
+
     with open(path, "rb") as f:
         data = f.read()
-    try:
-        if data[:8] == _PNG_SIGNATURE:
-            return png_decode_rgb(data)
-        if data[:3] == b"\xff\xd8\xff":
-            return jpeg_decode_rgb(data, host_cpp=host_cpp)
-        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-            return webp_decode_rgb(data, host_cpp=host_cpp)
-        if data[:6] in (b"GIF87a", b"GIF89a"):
-            return gif_decode_rgb(data)
-        if data[:2] == b"BM":
-            return bmp_decode_rgb(data)
-        if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-            return tiff_decode_rgb(data)
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from e
-    fmt = os.path.splitext(path)[1].lstrip(".").upper() or "unknown"
-    raise ValueError(f"{path}: {fmt} images are not supported (PNG, JPEG, WEBP, GIF, BMP "
-                     f"and TIFF only; ROADMAP item 28); convert it to PNG")
+    for _, accept, decode in _decoders(host_cpp):
+        if not accept(data):
+            continue
+        try:
+            return decode(data)
+        except NotThisKind:
+            continue  # Pillow tries the next format
+        except (ValueError, zlib.error, struct.error) as e:  # corrupt data
+            raise ValueError(f"{path}: {e}") from e
+    raise ValueError(f"{path}: not a file of a format read here (nor one Pillow "
+                     "identifies, unless IM, SPIDER, PCD, IMT or IPTC, which have no "
+                     "signature and are still to port: ROADMAP item 28)")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:

@@ -50,8 +50,11 @@ are libjpeg's:
   replication and converts no colour (a lossless YCbCr or YCCK file fails
   in Pillow, and here);
 - dequantisation and ``jidctint.c``'s integer ISLOW IDCT (CONST_BITS 13,
-  PASS1_BITS 2, its wrapping range limit), over all blocks at once in
-  integer numpy (libjpeg-turbo's SIMD islow is bit-exact with that C code);
+  PASS1_BITS 2) as libjpeg-turbo's SSE2/AVX2 code computes it on x86-64,
+  in Pillow's 3.1.3 and the JAX package's 2.1 alike: 16-bit products and
+  sums where it has them, each pass saturated (``_idct_islow_simd``; equal
+  to the C code until corrupt data makes it overflow), over all blocks at
+  once in integer numpy;
 - ``jdsample.c``'s upsampling: ``h2v1_fancy_upsample`` (4:2:2),
   ``h2v2_fancy_upsample`` (4:2:0, the rows above and below as context) and
   ``h1v2_fancy_upsample`` (4:4:0), each with its rounding biases and the
@@ -65,15 +68,69 @@ are libjpeg's:
   with Pillow's MULDIV255 rounding);
 - the output cropped from the MCU-padded planes to the frame's size.
 
+Corrupt data, as libjpeg decodes on past it with a warning (each rule read
+off Pillow 12.1's libjpeg-turbo 3.1.3 fed ``PILLOW_BLOCK`` bytes at a time
+and off libjpeg-turbo 2.1.5 over a whole buffer, with a libjpeg program
+linked here printing each warning; the two agree on all of it):
+
+- a scan's restart intervals (``_Walk``): each interval's data ends at the
+  next marker, whatever it is; the decoder never reads past one but reads
+  zero bits on (JWRN_HIT_MARKER), and once a Huffman decode has read past
+  its interval's data the MCU in progress ends on zeros and the rest of the
+  interval decodes nothing (jdhuff.c insufficient_data: those blocks keep
+  what earlier scans left, zero in a first scan). At each restart the
+  marker met, or the next one past any bytes between (JWRN_EXTRANEOUS_DATA;
+  a run of 0xFF then 0x00 is one 0xFF data byte, in a scan and between
+  markers alike), is taken where it is the RSTn due (n counting 0-7 from the
+  scan's start); else ``jpeg_resync_to_restart`` (JWRN_MUST_RESYNC) skips
+  it (the RSTn due, or one three or more ahead), reads on to the next
+  marker (a marker code below SOF0, or one of the two RSTn before the one
+  due) or leaves it unread (any other marker, or one of the next two RSTn):
+  then each interval up to it is empty, its first MCU read from zeros
+  where the interval before did not run out, and nothing after;
+- a Huffman code that is no code (JWRN_HUFF_BAD_CODE) reads 17 bits and
+  decodes as symbol 0 (a zero DC difference, an end of block, an
+  end-of-band run of one in a refinement scan); a coefficient position past
+  63 writes coefficient 63 (libjpeg's padded natural-order table); a
+  refinement scan's new coefficient of a size other than 1 is read as 1;
+- a lossless scan (Pillow mode only: libjpeg-turbo 2.1 has no lossless
+  decoder) walks its intervals and markers as above, but jdlhuff.c decodes
+  an MCU row a call: the row in which the data runs out reads zero bits on,
+  and each row that starts after it gets zero differences and restarts the
+  predictors (jddiffct.c), so that it is predicted as the image's first
+  row; a scan whose data runs to the end of the file fails, and so does a
+  multi-scan file with no EOI;
+- a sequential scan whose Ss, Se, Ah, Al are not 0, 63, 0, 0
+  (JWRN_NOT_SEQUENTIAL) and a progressive scan out of the progression's
+  order (JWRN_BOGUS_PROGRESSION) decode as they are; an Adobe transform
+  other than 0-2 (JWRN_ADOBE_XFORM) means YCbCr (three components) or YCCK
+  (four); an arithmetic-coded bad code or overflow (JWRN_ARITH_BAD_CODE)
+  leaves the rest of its interval undecoded;
+- a sequential Huffman file's first scan takes ``jstdhuff.c``'s tables into
+  the DC and AC slots 0 and 1 no DHT segment has defined (a progressive one
+  does not: a scan with no table fails, as in both libraries);
+- a file whose first scan holds every component has one scan: a second SOS
+  fails (JERR_EOI_EXPECTED). Pillow reads such an image out as it decodes,
+  so what follows its scan is read only from Pillow's reads so far
+  (``_tail_end``), and a marker segment that runs past them ends the decode
+  with the image kept (``_runs_out``), unless libjpeg finds fault with the
+  part it has; a file of more scans is read to its EOI before any output;
+- where a scan's data runs to the end of the file with no marker after it
+  (no EOI), Pillow fails the file once libjpeg's bit reader asks for more:
+  its slow path reads 57 bits ahead, its fast path six bytes where 16 bits
+  or fewer are left (``_runs_dry`` follows both, and Pillow's blocks); the
+  libjpeg mode reads its buffer's fake EOI marker there instead.
+
 What raises ``ValueError``, naming ROADMAP item 26 (Pillow 12.1 fails each
 of these too): hierarchical files (SOF5-7, SOF13-15), arithmetic-coded
 lossless ones (SOF11), 12-bit precision, a height given only by a DNL
-marker. What raises as Pillow fails it: data that ends before the image
-does (truncated, or a progressive or lossless file with no EOI), an invalid
-Huffman code or progressive scan, a marker or segment libjpeg or Pillow's
-own parser refuses (an unknown marker, a second SOI, a DRI, SOS or SOF of
-the wrong length, a DQT or DHT naming a table past 3), and a frame of
-more pixels than Pillow opens (its DecompressionBombError).
+marker. What raises as Pillow fails it: data that ends where libjpeg reads
+on (above), a multi-scan file with no EOI, a progressive scan's parameters
+libjpeg refuses, a scan naming a Huffman table never defined, a marker or
+segment libjpeg or Pillow's own parser refuses (an unknown marker, a second
+SOI, SOF or single-scan SOS, a DRI, SOS or SOF of the wrong length, a DQT
+or DHT naming a table past 3), and a frame of more pixels than Pillow opens
+(its DecompressionBombError).
 """
 
 from __future__ import annotations
@@ -100,8 +157,11 @@ _SOF_REFUSED = {
     0xCE: "arithmetic-coded hierarchical progressive (SOF14)",
     0xCF: "arithmetic-coded hierarchical lossless (SOF15)",
 }
-_ENTROPY_END = re.compile(rb"\xff[^\x00\xd0-\xd7]")  # a marker other than RSTn
-_RST = re.compile(rb"\xff[\xd0-\xd7]")
+# jdmarker.c next_marker: a run of 0xFF then a byte that is neither 0x00 (a
+# stuffed data byte) nor 0xFF; inside entropy-coded data a run of 0xFF then
+# 0x00 is one 0xFF data byte (jdhuff.c jpeg_fill_bit_buffer, jdarith.c)
+_MARKER = re.compile(rb"\xff+[^\x00\xff]")
+_STUFFED = re.compile(rb"\xff+\x00")
 
 
 def _refuse(what: str) -> ValueError:
@@ -191,10 +251,11 @@ def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc,
     big-endian 32-bit words (zero-padded past the end) -> the bits it used.
     blocks: (block number, component of the scan) in decode order. Each
     non-zero AC coefficient goes to out_ac packed as block << 23 | zigzag
-    position << 16 | value & 0xFFFF (a position past 63 is corrupt data,
-    checked by the caller); each DC value (the predictor's running sum) to
-    out_dc. limit: libjpeg's run out of data (``_fill_scan``): no MCU
-    starts once more than ``limit`` bits are used."""
+    position << 16 | value & 0xFFFF (a position past 63, from corrupt
+    data, is clamped to 63 by ``_decode_scan``: libjpeg's padded natural
+    order); each DC value (the predictor's running sum) to out_dc. limit:
+    libjpeg's run out of data (``_huffman_intervals``): no MCU starts once
+    more than ``limit`` bits are used."""
     buf = nb = wi = 0
     put, put_dc = out_ac.append, out_dc.append
     one, end = 1 << 16, 64 << 16
@@ -214,8 +275,8 @@ def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc,
                 nb -= v
                 bits = (buf >> nb) & ((1 << v) - 1)
                 v = bits - (1 << v) + 1 if bits < 1 << (v - 1) else bits
-        else:
-            raise _corrupt("invalid Huffman code (corrupt data)")
+        else:  # JWRN_HUFF_BAD_CODE: 17 bits read, a zero symbol (a 0 difference)
+            nb -= 17
         preds[ci] += v
         put_dc(preds[ci])
         acl = acls[ci]
@@ -241,8 +302,9 @@ def _decode_interval(words, blocks, dcls, acls, preds, out_ac, out_dc,
                 kk += r
                 put(bk + kk + ((bits - (1 << v) + 1 if bits < 1 << (v - 1) else bits) & 0xFFFF))
                 kk += one
-            else:
-                raise _corrupt("invalid Huffman code (corrupt data)")
+            else:  # JWRN_HUFF_BAD_CODE: 17 bits read, a zero symbol (end of block)
+                nb -= 17
+                break
     return wi * 32 - nb
 
 
@@ -274,8 +336,9 @@ class _Bits:
             self.wi += 1
             self.nb += 32
         n, sym = lut[(self.buf >> (self.nb - 16)) & 0xFFFF]
-        if not n:
-            raise _corrupt("invalid Huffman code (corrupt data)")
+        if not n:  # JWRN_HUFF_BAD_CODE: jpeg_huff_decode reads 17 bits, gives 0
+            self.nb -= 17
+            return 0
         self.nb -= n
         return sym
 
@@ -699,8 +762,7 @@ def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit, fill=False)
         if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1)) or \
                 (ah and al != ah - 1) or al > 13:
             raise _corrupt("bad progressive scan parameters")
-    elif (ss, se, a) != (0, 63, 0) and not fill:  # libjpeg only warns
-        raise _refuse("progressive (a spectral-selection scan)")
+    # a sequential scan's Ss, Se, Ah, Al: JWRN_NOT_SEQUENTIAL, read as 0, 63, 0, 0
     comps, tabs = [], []
     for i in range(ns):
         cid, t = body[1 + 2 * i:3 + 2 * i]
@@ -718,35 +780,29 @@ def _decode_arith_scan(fr, body, data, pos, qt, restart, dac, limit, fill=False)
             for k in range(ss, se + 1):
                 fr.coef_bits[c][k] = al
 
-    m = _ENTROPY_END.search(data, pos)
-    end = m.start() if m else len(data)
     blocks, per_mcu = _scan_blocks(fr, comps)
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
-    bounds, at = [], pos
-    if restart:
-        for r in _RST.finditer(data, pos, end):
-            bounds.append((at, r.start()))
-            at = r.end()
-    bounds.append((at, end))
     n_int = -(-n_mcu // span)
-    if fill:  # the buffer's fake EOI: a marker, zeros past the data, no limit
-        bounds += [(len(data), len(data))] * (n_int - len(bounds))
-        limit = len(data) + 2
-    if len(bounds) < n_int:
-        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+    # fill: the buffer's fake EOI, a marker, zeros past the data, no limit
+    walk = _Walk(data, pos, fill, None if fill else limit)
     met = True
     for i in range(n_int):
-        a0, a1 = bounds[i]
-        if not met and a0 > limit:  # read_restart_marker reads to a0
-            raise _pillow_block()
-        rd = _ArithBits(data, a0, a1, a1 == len(data) and not fill, limit)
+        if i:  # read_restart_marker reads to the marker unless the decoder met it
+            walk.restart(met)
+        got = walk.interval()
+        lim = len(data) + 2 if fill else limit
+        if got is None:  # a marker left unread: zeros (jdarith.c's unread_marker)
+            rd = _ArithBits(data, walk.end(), walk.end(), False, lim)
+            rd.marker = True
+        else:
+            rd = _ArithBits(data, got[0], got[1], got[2], lim)
         dcs = [bytearray(DC_BINS) for _ in range(16)]  # statistics reset at
         acs = [bytearray(AC_BINS) for _ in range(16)]  # every restart
         _arith_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu], tabs,
                         dcs, acs, dac, fr.pcoef, fr.progressive, ss, se, ah, al)
         met = rd.marker
-    return end
+    return walk.end()
 
 
 # ---------------------------------------------------------------------------
@@ -811,8 +867,14 @@ def _decode_lossless_scan(fr, body, data, pos, dc_tabs, restart) -> int:
     """Decode one lossless scan starting at data[pos]: each sample's
     difference (jdlhuff.c: a category 0-16 from the scan's DC table, its
     value bits, 32768 for 16), undifferenced per component into
-    fr.samples -> the position of the marker after its entropy-coded
-    data."""
+    fr.samples -> where the markers after its entropy-coded data are read
+    from. The restart intervals and the markers as ``_Walk`` reads them
+    (Pillow's source: no fill); a bad code as ``_Bits.huff`` reads it.
+    jdlhuff.c's decode_mcus decodes an MCU row a call: the row in which the
+    data runs out reads zero bits on, and each row that starts after it
+    (insufficient_data, kept over a restart that leaves a marker unread)
+    gets zero differences and restarts the predictors (jddiffct.c, as a
+    restart does): it is predicted as the image's first row is."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
             len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
@@ -836,38 +898,42 @@ def _decode_lossless_scan(fr, body, data, pos, dc_tabs, restart) -> int:
     if restart % per_row:  # jdpred.c: whole MCU rows only
         raise _corrupt("a restart interval of no whole number of MCU rows")
 
-    m = _ENTROPY_END.search(data, pos)
-    end = m.start() if m else len(data)
     blocks, per_mcu = _scan_blocks(fr, comps)
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
-    pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
     n_int = -(-n_mcu // span)
-    if len(pieces) < n_int:
-        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+    row = per_row * per_mcu  # the samples of an MCU row: one decode_mcus call
+    pad = _FILL_PAD + 4 * row  # zeros past the data: 32 bits a sample at most
+    walk = _Walk(data, pos, False)
+    fresh = {0}  # the MCU rows whose undifferencing starts afresh
+    short = False  # jdhuff.c's insufficient_data
     diffs = fr.coef
+    diffs[np.fromiter((b for b, _ in blocks), np.int64, len(blocks))] = 0
     for k in range(n_int):
-        raw = pieces[k].replace(b"\xff\x00", b"\xff")
-        rd = _Bits(np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist())
-        try:
-            for blk, ci in blocks[k * span * per_mcu:(k + 1) * span * per_mcu]:
+        if k:
+            if not walk.restart():
+                short = False
+            fresh.add(k * span // per_row)
+        span_k = walk.interval()
+        if span_k is not None and span_k[2]:  # libjpeg-turbo reads ahead, and Pillow has no more
+            raise _corrupt("truncated data (a lossless file with no EOI)")
+        raw, bits = walk.raw(span_k, pad)
+        rd = _Bits(np.frombuffer(raw, ">u4").tolist())
+        for r0 in range(k * span * per_mcu, min((k + 1) * span * per_mcu, len(blocks)), row):
+            if short:  # zero differences, the predictors restarted
+                fresh.add(r0 // row)
+                continue
+            for blk, ci in blocks[r0:r0 + row]:
                 s = rd.huff(luts[ci])
                 diffs[blk] = 0 if not s else 32768 if s == 16 else _ext(rd.get(s), s)
-            used = rd.used()
-        except IndexError:  # read past the padding
-            used = 8 * len(rd.words) * 4
-        if used > 8 * len(raw):
-            raise _corrupt("truncated data (the scan ends before its last block)")
-    interval_rows = span // per_row if restart else 0
+            short = rd.used() > bits
     for c in comps:
         w, h = fr.downsampled(c)
         v = 1 if ns == 1 else fr.v[c]
         plane = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c])[:h, :w]
-        first = {r for r in range(0, h, v) if r == 0 or (
-            interval_rows and (r // v) % interval_rows == 0)}
-        fr.samples[c] = _undifference(plane, psv, pt, first)
+        fr.samples[c] = _undifference(plane, psv, pt, {m * v for m in fresh})
         fr.pt[c] = pt
-    return end
+    return walk.end()
 
 
 def _assemble_lossless(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
@@ -901,57 +967,15 @@ def _assemble_lossless(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
 # IDCT, upsampling, colour
 # ---------------------------------------------------------------------------
 
-def _islow_butterfly(c):
-    """jidctint.c's 1-D ISLOW stage on 8 int64 arrays -> its 8 outputs
-    before the descale."""
-    z1 = (c[2] + c[6]) * 4433                      # FIX_0_541196100
-    tmp2 = z1 + c[6] * -15137                      # FIX_1_847759065
-    tmp3 = z1 + c[2] * 6270                        # FIX_0_765366865
-    tmp0 = (c[0] + c[4]) << 13
-    tmp1 = (c[0] - c[4]) << 13
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * 9633                          # FIX_1_175875602
-    t0, t1, t2, t3 = t0 * 2446, t1 * 16819, t2 * 25172, t3 * 12299
-    z1, z2 = z1 * -7373, z2 * -20995               # FIX_0_899976223, FIX_2_562915447
-    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5     # FIX_1_961570560, FIX_0_390180644
-    t0, t1 = t0 + z1 + z3, t1 + z2 + z4
-    t2, t3 = t2 + z2 + z3, t3 + z1 + z4
-    return [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
-
-
-def _idct_range_table() -> np.ndarray:
-    """libjpeg's post-IDCT range limit, indexed by (value & 1023): x + 128
-    for x in [-128, 127], 255 above, 0 below, wrapping past +-512."""
-    i = np.arange(1024)
-    return np.select([i < 128, i < 512, i < 896], [i + 128, 255, 0], i - 896).astype(np.uint8)
-
-
-_RANGE = _idct_range_table()
-
-
-def _idct_islow(coef: np.ndarray) -> np.ndarray:
-    """Dequantised coefficients [N, 8, 8] (row = vertical frequency) ->
-    samples [N, 8, 8] uint8, jpeg_idct_islow's arithmetic."""
-    c = coef.astype(np.int64)
-    cols = _islow_butterfly([c[:, k, :] for k in range(8)])  # pass 1: columns
-    ws = np.stack([(v + 1024) >> 11 for v in cols], axis=1)  # DESCALE(, 11)
-    rows = _islow_butterfly([ws[:, :, k] for k in range(8)])  # pass 2: rows
-    out = np.stack([(v + (1 << 17)) >> 18 for v in rows], axis=2)  # DESCALE(, 18)
-    return _RANGE[out & 1023]
-
-
 def _w16a(v):
     """int64 values as int16 lanes: wrapped to 16 bits."""
     return ((v + 32768) & 0xFFFF) - 32768
 
 
 def _simd_butterfly(c):
-    """``_islow_butterfly`` as libjpeg-turbo's SSE2 and AVX2 ISLOW
-    (jidctint-sse2.asm, -avx2.asm) compute it on int16 lanes: the same
+    """jidctint.c's 1-D ISLOW stage (CONST_BITS 13) on 8 int64 arrays -> its
+    8 outputs before the descale, as libjpeg-turbo's SSE2 and AVX2 ISLOW
+    (jidctint-sse2.asm, -avx2.asm) compute it on int16 lanes: the C code's
     32-bit products and sums, but c0 + c4, c0 - c4, c7 + c3 and c5 + c1
     added in 16 bits, wrapping."""
     c = list(c)
@@ -976,12 +1000,14 @@ def _simd_butterfly(c):
 
 def _idct_islow_simd(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """Coefficients [N, 8, 8] (natural order) and their quantiser steps
-    [8, 8] -> samples [N, 8, 8] uint8 as libjpeg-turbo 2.1 computes them on
-    x86-64 (its SIMD ISLOW, what the JAX package's libjpeg runs): the
-    dequantisation a 16-bit multiply; a block whose rows 1-7 are all zero
-    takes pass 1's shortcut (the DC << 2 in 16 bits, every row); pass 1's
-    output saturated to int16, pass 2's to int16 and then to [-128, 127]
-    before the +128. Equal to ``_idct_islow`` wherever nothing overflows."""
+    [8, 8] -> samples [N, 8, 8] uint8 as libjpeg-turbo computes them on
+    x86-64 (its SIMD ISLOW, in the JAX package's libjpeg-turbo 2.1 and in
+    Pillow's 3.1.3 alike): the dequantisation a 16-bit multiply; a block
+    whose rows 1-7 are all zero takes pass 1's shortcut (the DC << 2 in 16
+    bits, every row); pass 1's output saturated to int16, pass 2's to int16
+    and then to [-128, 127] before the +128. Equal to jidctint.c's C code
+    (PASS1_BITS 2, its wrapping range limit) wherever nothing overflows,
+    which corrupt data makes it do."""
     raw = coef.astype(np.int64)
     c = _w16a(raw * quant.astype(np.int64)[None])
     cols = _simd_butterfly([c[:, k, :] for k in range(8)])
@@ -1075,7 +1101,11 @@ def _segment(data: bytes, pos: int) -> tuple[bytes, int]:
 
 class _Frame:
     def __init__(self, body: bytes, progressive: bool = False, arith: bool = False,
-                 lossless: bool = False, libjpeg: bool = False):
+                 lossless: bool = False, libjpeg: bool = False, tiff=None):
+        """tiff: a TIFF strip's colour as libtiff has libjpeg-turbo 3.1
+        decode it (``jpeg_tiff_chunk``, libjpeg mode): "ycc" YCbCr to RGB
+        whatever the markers say, "raw" the components as they are."""
+        raw_color = tiff == "raw"
         if len(body) < 6:
             raise _corrupt("short SOF segment")
         precision = body[0]
@@ -1084,7 +1114,7 @@ class _Frame:
         n = body[5]
         if precision != 8:
             raise _refuse(f"{precision}-bit")
-        if n not in (1, 3, 4):
+        if n not in (1, 3, 4) and not (raw_color and n == 2):
             raise _refuse(f"{n}-component")
         if self.height == 0:
             raise _refuse("DNL-height")
@@ -1106,7 +1136,7 @@ class _Frame:
         if libjpeg:  # JPEG_MAX_DIMENSION; no colour conversion of 4 components to RGB
             if max(self.width, self.height) > 65500:
                 raise _corrupt("an image past libjpeg's 65500 pixels a side")
-            if n == 4:
+            if n == 4 and not raw_color:
                 raise _corrupt("a 4-component file: libjpeg converts no CMYK or YCCK to RGB")
         elif self.width * self.height > PILLOW_MAX_PIXELS:
             raise _bomb(self.height, self.width)
@@ -1132,7 +1162,9 @@ class _Frame:
             self.prev_bits = [[0] * 64 for _ in range(n)]
             self.last_good = None
         self.scans = 0  # scans started
-        self.libjpeg = libjpeg
+        self.libjpeg, self.tiff = libjpeg, tiff
+        # libjpeg-turbo 2.1's smoothing window (_smooth); a TIFF strip's is 3.1's
+        self.window21 = libjpeg and tiff is None
         if lossless:  # each component's samples (after its scan) and their Pt
             self.samples, self.pt = [None] * n, [0] * n
 
@@ -1162,10 +1194,287 @@ def _scan_blocks(fr: _Frame, comps: list) -> tuple[list, int]:
     return list(zip(base.ravel().tolist(), sel.ravel().tolist())), base.shape[1]
 
 
-def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart, fill=False) -> int:
+def _next_marker(data: bytes, p: int, fill: bool):
+    """jdmarker.c next_marker from data[p]: bytes skipped to the first
+    marker -> (the position of its first 0xFF, its code, the position after
+    it); at the end of the data None, or in fill mode the buffer's fake EOI
+    (at the 0xFF bytes the data ends with, the first byte of that marker)."""
+    m = _MARKER.search(data, p)
+    if m:
+        return m.start(), data[m.end() - 1], m.end()
+    if not fill:
+        return None
+    end = len(data)
+    while end > p and data[end - 1] == 0xFF:
+        end -= 1
+    return end, 0xD9, len(data)
+
+
+def _resync(code: int, want: int) -> int:
+    """jdmarker.c jpeg_resync_to_restart's action for marker ``code`` where
+    RST``want`` was due: 1 discard it and decode on, 2 skip to the next
+    marker and decide again, 3 leave it unread (the interval is empty)."""
+    if code < 0xC0:
+        return 2
+    if not 0xD0 <= code <= 0xD7:
+        return 3
+    if code in (0xD0 + ((want + 1) & 7), 0xD0 + ((want + 2) & 7)):
+        return 3
+    if code in (0xD0 + ((want - 1) & 7), 0xD0 + ((want - 2) & 7)):
+        return 2
+    return 1
+
+
+class _Walk:
+    """A scan's restart intervals as libjpeg reads them. Each interval's
+    data runs from where the last restart left the input to the next marker
+    (the decoder never reads past one: jdhuff.c's bit reader stops there
+    and supplies zeros, JWRN_HIT_MARKER). At each restart (jdmarker.c
+    read_restart_marker) the marker met, or the next one past skipped bytes
+    (JWRN_EXTRANEOUS_DATA), is taken if it is the RSTn due (n counting 0-7
+    from the scan's start); else jpeg_resync_to_restart decides
+    (JWRN_MUST_RESYNC), and a marker it leaves unread makes every interval
+    up to it empty. fill: libjpeg over a whole buffer, whose end reads as an
+    EOI marker; else (Pillow) the end of the file is where Pillow, with no
+    more data to give, fails the file once libjpeg must read on. limit: the
+    bytes Pillow has handed libjpeg, where a marker search must end
+    (arithmetic-coded scans cannot suspend there)."""
+
+    __slots__ = ("data", "fill", "at", "unread", "rst", "limit")
+
+    def __init__(self, data: bytes, pos: int, fill: bool, limit=None):
+        self.data, self.fill, self.at, self.limit = data, fill, pos, limit
+        self.unread, self.rst = None, 0
+
+    def _marker(self, p: int, check: bool = True):
+        m = _next_marker(self.data, p, self.fill)
+        if m is None:
+            raise _corrupt("truncated data (fewer restart intervals than the image needs)")
+        if check and self.limit is not None and m[2] > self.limit:
+            raise _pillow_block()
+        return m
+
+    def interval(self):
+        """The next interval's data -> (start, end, at_eof): end the next
+        marker's position; at_eof where no marker follows (Pillow mode); None
+        where the interval starts at an unread marker."""
+        if self.unread is not None:
+            return None
+        m = _next_marker(self.data, self.at, self.fill)
+        if m is None:
+            end = len(self.data)
+            while end > self.at and self.data[end - 1] == 0xFF:
+                end -= 1
+            return self.at, end, True
+        return self.at, m[0], False
+
+    def restart(self, met: bool = False) -> bool:
+        """read_restart_marker -> whether a marker stays unread."""
+        if self.unread is None:
+            self.unread = self._marker(self.at, not met)
+        while True:
+            _, code, after = self.unread
+            action = 1 if code == 0xD0 + self.rst else _resync(code, self.rst)
+            if action == 1:
+                self.at, self.unread = after, None
+                break
+            if action == 3:
+                break
+            self.unread = self._marker(after)
+        self.rst = (self.rst + 1) & 7
+        return self.unread is not None
+
+    def end(self) -> int:
+        """Where the markers after the scan are read from."""
+        return self.unread[0] if self.unread is not None else self.at
+
+    def raw(self, span, pad: int):
+        """An interval's data unstuffed and zero-padded by ``pad`` bytes (to
+        a multiple of 4) -> (its bytes, its bits)."""
+        if span is None:
+            raw = b""
+        else:
+            raw = _STUFFED.sub(b"\xff", self.data[span[0]:span[1]])
+        return raw + bytes(pad - len(raw) % 4), 8 * len(raw)
+
+
+# zero bytes past an interval's data: more than an MCU of up to 10 blocks
+# reads (each block at most 16 + 15 bits of DC, 63 x (17 + 15) of AC, or the
+# same of refinement bits)
+_FILL_PAD = 4096
+
+
+def _huffman_intervals(walk: _Walk, n_int: int):
+    """jdhuff.c's and jdphuff.c's run of the data over a scan's intervals:
+    yields (interval, its words, its bits, at_eof) for each interval to
+    decode and is sent back the bits the decode used. Where a decode reads
+    past its interval's bits, the MCU in progress reads zeros and the rest
+    of the interval decodes nothing (insufficient_data: its blocks stay as
+    they were); an interval that starts at an unread marker reads zeros in
+    its first MCU, or nothing where the one before ran out (process_restart
+    keeps the flag while a marker is unread)."""
+    short = False
+    for i in range(n_int):
+        if i and not walk.restart():
+            short = False
+        if short:
+            continue
+        span = walk.interval()
+        raw, bits = walk.raw(span, _FILL_PAD)
+        used = yield i, np.frombuffer(raw, ">u4").tolist(), bits, span is not None and span[2]
+        short = used > bits
+
+
+# libjpeg-turbo's bit reader (jdhuff.c): a slow-path fill reads bytes until
+# MIN_GET_BITS are buffered (64-bit bit buffer), the fast path (decode_mcu_fast,
+# without restart intervals and with BUFSIZE bytes an MCU block in the buffer)
+# reads six bytes whenever 16 bits or fewer are left
+_MIN_GET_BITS = 57
+_BUFSIZE = 512
+
+
+def _runs_dry(data: bytes, start: int, blocks, per_mcu: int, dcs, acs, restart: int,
+              avail: int) -> bool:
+    """Does libjpeg-turbo, decoding the blocks of a sequential scan's last
+    interval from data[start:] to the end of the file (no marker after it:
+    ``_decode_scan``'s at_eof), ever read ahead past that end, as Pillow
+    feeds it? Pillow hands it the file ``PILLOW_BLOCK`` bytes at a time
+    (``avail``: the end of what it has so far) and a read past them
+    suspends the MCU, to be decoded again once the next block is in; past
+    the end of the file there is none, and Pillow fails the file. dcs, acs:
+    the scan's tables as ``_sym_lut`` gives them, by index in the scan."""
+    ub, ends, multi_ff = bytearray(), [], []
+    p, n = start, len(data)
+    while p < n:
+        c, q = data[p], p + 1
+        if c == 0xFF:
+            while q < n and data[q] == 0xFF:
+                q += 1
+            if q >= n:
+                break  # 0xFF bytes that end the file: a marker libjpeg cannot finish
+            multi_ff.append(q - p > 1)
+            q += 1  # the stuffed 0x00
+        else:
+            multi_ff.append(False)
+        ub.append(c)
+        ends.append(q)
+        p = q
+    padded = bytes(ub) + bytes(8)
+    n_units = len(ub)
+    unit_end = [start] + ends  # file position after i units
+
+    def code(bp, lut):
+        i = bp >> 3
+        w = int.from_bytes(padded[i:i + 4], "big")
+        length, sym = lut[(w >> (16 - (bp & 7))) & 0xFFFF]
+        return (length or 17), sym
+
+    state = [0, 0, 0]  # bits consumed, units read, bits left in the buffer
+
+    class Dry(Exception):
+        pass
+
+    def fill():  # jpeg_fill_bit_buffer: to MIN_GET_BITS, suspending at the buffer's end
+        u, left = state[1], state[2]
+        while left < _MIN_GET_BITS:
+            if u >= n_units or ends[u] > avail[0]:
+                raise Dry
+            u += 1
+            left += 8
+        state[1], state[2] = u, left
+
+    def need(k):
+        if state[2] < k:
+            fill()
+
+    def take(k):
+        state[0] += k
+        state[2] -= k
+
+    def huff_slow(lut):
+        need(8)  # HUFF_DECODE: the lookahead (a marker is never met here)
+        length, sym = code(state[0], lut)
+        if length <= 8:
+            take(length)
+            return sym
+        need(9)  # jpeg_huff_decode: min_bits 9, then a bit at a time
+        take(9)
+        for _ in range(length - 9):
+            need(1)
+            take(1)
+        return sym
+
+    def fill_fast():  # FILL_BIT_BUFFER_FAST; a 0xFF 0xFF pair reads as a marker
+        if state[2] <= 16:
+            for _ in range(6):
+                u = state[1]
+                if u >= n_units or multi_ff[u]:
+                    raise Dry  # decode_mcu_fast backs out: the slow path decodes the MCU
+                state[1] = u + 1
+                state[2] += 8
+
+    def huff_fast(lut):
+        fill_fast()
+        length, sym = code(state[0], lut)
+        take(length)
+        return sym
+
+    def mcu(ms, huff, get):
+        for blk in ms:
+            ci = blk[1]
+            s = huff(dcs[ci])
+            if s:
+                get(s)
+            k = 1
+            while k < 64:
+                rs = huff(acs[ci])
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    get(s)
+                elif r != 15:
+                    break
+                else:
+                    k += 15
+                k += 1
+
+    def get_slow(s):
+        need(s)
+        take(s)
+
+    def get_fast(s):
+        fill_fast()
+        take(s)
+
+    avail = [min(avail, n)]
+    for m in range(0, len(blocks), per_mcu):
+        ms = blocks[m:m + per_mcu]
+        while True:
+            saved = list(state)
+            try:
+                fast = not restart and avail[0] - unit_end[state[1]] >= _BUFSIZE * per_mcu
+                if fast:
+                    try:
+                        mcu(ms, huff_fast, get_fast)
+                        break
+                    except Dry:
+                        state[:] = saved  # a marker: decoded again by the slow path
+                mcu(ms, huff_slow, get_slow)
+                break
+            except Dry:  # suspended: Pillow's next block, or the end of the file
+                state[:] = saved
+                if avail[0] >= n:
+                    return True
+                avail[0] = min(avail[0] + PILLOW_BLOCK, n)
+    return False
+
+
+def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart, fill=False,
+                 limit=PILLOW_BLOCK) -> int:
     """Decode one sequential scan starting at data[pos] into fr.coef ->
-    the position of the marker after its entropy-coded data. fill: where
-    the data runs out, as libjpeg over a whole buffer (``_fill_intervals``)."""
+    the position of the marker after its entropy-coded data. fill: libjpeg
+    over a whole buffer (``_Walk``); limit: the end of Pillow's reads so
+    far (``_runs_dry``)."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(fr.ids) or len(body) != 4 + 2 * ns or \
             len(set(body[1:1 + 2 * ns:2])) != ns:  # at most 4, each once, as libjpeg
@@ -1186,83 +1495,44 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart, fill=False)
         comps.append(c)
         dcls.append(_lut(*dc_tabs[t >> 4], True))
         acls.append(_lut(*ac_tabs[t & 15], False))
-    ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, a) != (0, 63, 0) and not fill:  # libjpeg only warns
-        raise _refuse("progressive (a spectral-selection scan)")
+    # Ss, Se, Ah, Al other than 0, 63, 0, 0: JWRN_NOT_SEQUENTIAL, read as they were
+    dsyms = [_sym_lut(*dc_tabs[t >> 4], True) for t in body[2:2 + 2 * ns:2]]
+    asyms = [_sym_lut(*ac_tabs[t & 15], False) for t in body[2:2 + 2 * ns:2]]
 
-    m = _ENTROPY_END.search(data, pos)
-    end = m.start() if m else len(data)
     blocks, per_mcu = _scan_blocks(fr, comps)
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
-    pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
     n_int = -(-n_mcu // span)
-    out_ac, out_dc = [], []
-    if fill:
-        decoded = []
-        ran_out = [False]
-        for s, raw, limit in _fill_intervals(pieces, n_int, end == len(data), ran_out):
-            lo = s * span * per_mcu
-            words = np.frombuffer(raw, ">u4").tolist()
-            used = _decode_interval(words, blocks[lo:lo + span * per_mcu], dcls, acls,
-                                    [0] * ns, out_ac, out_dc, per_mcu, limit)
-            decoded.extend(blocks[lo:lo + len(out_dc) - len(decoded)])
-            ran_out[0] = used > limit
-        blocks = decoded
-    else:
-        if len(pieces) < n_int:
-            raise _corrupt("truncated data (fewer restart intervals than the image needs)")
-        for s in range(n_int):
-            raw = pieces[s].replace(b"\xff\x00", b"\xff")
-            words = np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist()
-            try:
-                used = _decode_interval(words, blocks[s * span * per_mcu:(s + 1) * span * per_mcu],
-                                        dcls, acls, [0] * ns, out_ac, out_dc)
-            except IndexError:  # read past the padding
-                used = 8 * len(words) * 4
-            if used > 8 * len(raw):
-                raise _corrupt("truncated data (the scan ends before its last block)")
-    blk = np.fromiter((b for b, _ in blocks), np.int64, len(blocks))
+    walk = _Walk(data, pos, fill)
+    out_ac, out_dc, decoded = [], [], []
+    run = _huffman_intervals(walk, n_int)
+    step = next(run, None)
+    while step is not None:
+        i, words, bits, at_eof = step
+        mine = blocks[i * span * per_mcu:(i + 1) * span * per_mcu]
+        n0 = len(out_dc)
+        used = _decode_interval(words, mine, dcls, acls, [0] * ns, out_ac, out_dc, per_mcu, bits)
+        decoded.extend(mine[:len(out_dc) - n0])
+        if at_eof and used > bits:
+            raise _corrupt("truncated data (the scan ends before its last block)")
+        if at_eof and _runs_dry(data, walk.at, mine, per_mcu, dsyms, asyms, restart, max(
+                limit, PILLOW_BLOCK * (1 + (walk.at - 1) // PILLOW_BLOCK))):
+            raise _corrupt("truncated data (Pillow's libjpeg reads ahead past the end of "
+                           "the file)")
+        step = _send(run, used)
+    blk = np.fromiter((b for b, _ in decoded), np.int64, len(decoded))
     fr.coef[blk * 64] = np.asarray(out_dc, np.int64).astype(np.int16)  # JCOEF
     ac = np.asarray(out_ac, np.int64)
-    pos = (ac >> 16) & 127
-    if pos.size and pos.max() > 63:
-        if not fill:
-            raise _corrupt("coefficient past the end of a block (corrupt data)")
-        pos = np.minimum(pos, 63)  # libjpeg's padded natural-order table
-    fr.coef[(ac >> 23) * 64 + pos] = (ac & 0xFFFF).astype(np.uint16).view(np.int16)
-    return end
+    zz = np.minimum((ac >> 16) & 127, 63)  # past 63: libjpeg's padded natural order
+    fr.coef[(ac >> 23) * 64 + zz] = (ac & 0xFFFF).astype(np.uint16).view(np.int16)
+    return walk.end()
 
 
-def _fill_intervals(pieces, n_int: int, at_eof: bool, ran_out: list):
-    """A scan's restart intervals as libjpeg decodes them from a whole
-    buffer (jpeg_mem_src), which ends in a fake EOI marker: -> (interval,
-    its unstuffed bytes zero-padded by at least an MCU's most bits, the
-    bits it has) for each interval to decode. Where a decode needs more bits
-    than its interval has (the caller sets ``ran_out[0]``), the
-    MCU in progress reads zeros and the rest of the interval decodes nothing
-    (jdhuff.c insufficient_data: its blocks stay as they were, zero where
-    the scan is their first). An interval whose restart marker never came
-    starts without data: its first MCU reads zeros, unless the one before ran
-    out, which leaves every later one empty (the marker met stays unread).
-    A lone 0xFF at the end of the file is a marker's first byte."""
-    for i in range(n_int):
-        if i < len(pieces):
-            raw = pieces[i]
-            if at_eof and i == len(pieces) - 1 and raw.endswith(b"\xff"):
-                raw = raw.rstrip(b"\xff")
-            raw = raw.replace(b"\xff\x00", b"\xff")
-        elif ran_out[0]:
-            return
-        else:
-            raw = b""
-        yield i, raw + bytes(_FILL_PAD - len(raw) % 4), 8 * len(raw)
-
-
-# zero bytes past an interval's data: more than a 10-block MCU reads (each
-# block at most 16 + 11 bits of DC, 63 x (16 + 10) of AC, or the same of
-# refinement bits)
-_FILL_PAD = 4096
+def _send(gen, value):
+    try:
+        return gen.send(value)
+    except StopIteration:
+        return None
 
 
 def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart,
@@ -1276,7 +1546,8 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart,
         raise _corrupt("bad SOS segment")
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
-    # jdphuff.c start_pass_phuff_decoder's checks
+    # jdphuff.c start_pass_phuff_decoder's checks (a scan out of the
+    # progression's order is JWRN_BOGUS_PROGRESSION: read as it is)
     if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1)) or \
             (ah and al != ah - 1) or al > 13:
         raise _corrupt("bad progressive scan parameters")
@@ -1301,40 +1572,30 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart,
         for k in range(ss, se + 1):
             fr.coef_bits[c][k] = al
 
-    m = _ENTROPY_END.search(data, pos)
-    end = m.start() if m else len(data)
     blocks, per_mcu = _scan_blocks(fr, comps)
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
-    pieces = _RST.split(data[pos:end]) if restart else [data[pos:end]]
     n_int = -(-n_mcu // span)
-    if fill:
-        ran_out, last = [False], [None]
-        for i, raw, limit in _fill_intervals(pieces, n_int, end == len(data), ran_out):
-            rd = _Bits(np.frombuffer(raw, ">u4").tolist())
-            _progressive_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu],
-                                  luts, fr.pcoef, ss, se, ah, al, per_mcu, limit, last)
-            ran_out[0] = rd.used() > limit
-        # jdcoefct.c consume_data's last_good_iMCU_row: the iMCU row of the
-        # last MCU started before the data ran out
-        blk, ci = last[0]
+    walk = _Walk(data, pos, fill)
+    last, good = [None], None
+    run = _huffman_intervals(walk, n_int)
+    step = next(run, None)
+    while step is not None:
+        i, words, bits, at_eof = step
+        rd = _Bits(words)
+        _progressive_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu],
+                              luts, fr.pcoef, ss, se, ah, al, per_mcu, bits, last)
+        good = last[0]
+        if at_eof and rd.used() > bits:
+            raise _corrupt("truncated data (the scan ends before its last block)")
+        step = _send(run, rd.used())
+    if good is not None:
+        # libjpeg-turbo's last_good_iMCU_row (jdcoefct.c): the iMCU row of
+        # the last MCU decoded with data
+        blk, ci = good
         c = comps[ci]
         fr.last_good = (blk - fr.offset[c] // fr.per) // fr.bw[c] // fr.v[c]
-        return end
-    if len(pieces) < n_int:
-        raise _corrupt("truncated data (fewer restart intervals than the image needs)")
-    for i in range(n_int):
-        raw = pieces[i].replace(b"\xff\x00", b"\xff")
-        rd = _Bits(np.frombuffer(raw + bytes(12 - len(raw) % 4), ">u4").tolist())
-        try:
-            _progressive_interval(rd, blocks[i * span * per_mcu:(i + 1) * span * per_mcu],
-                                  luts, fr.pcoef, ss, se, ah, al)
-            used = rd.used()
-        except IndexError:  # read past the padding
-            used = 8 * len(rd.words) * 4
-        if used > 8 * len(raw):
-            raise _corrupt("truncated data (the scan ends before its last block)")
-    return end
+    return walk.end()
 
 
 # the quantizer positions (natural order) jdcoefct.c:smoothing_ok needs
@@ -1453,9 +1714,9 @@ def _smooth(fr: _Frame) -> np.ndarray:
         out = coef[fr.offset[c]:fr.offset[c + 1]].reshape(fr.bh[c], fr.bw[c], 64)
         w, h = fr.downsampled(c)
         cols, height = -(-w // 8), -(-h // 8)
-        rows = (_smooth_rows_21 if fr.libjpeg else _smooth_rows)(fr.v[c], fr.mcuy, height)
+        rows = (_smooth_rows_21 if fr.window21 else _smooth_rows)(fr.v[c], fr.mcuy, height)
         r, nb = np.array([x for x, _ in rows]), np.array([y for _, y in rows])
-        x5 = _smooth_cols_21(cols) if fr.libjpeg else \
+        x5 = _smooth_cols_21(cols) if fr.window21 else \
             np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
         dc = grid[:, :, 0][nb[:, :, None, None], x5[None, None]]  # [rows, 5, cols, 5]
         dc = dc.transpose(0, 2, 1, 3).reshape(len(rows), cols, 25)
@@ -1552,6 +1813,103 @@ def _tables(marker: int, body: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, da
     return restart
 
 
+# jstdhuff.c's tables (T.81 K.3): DC and AC, luminance (0) and chrominance (1)
+_STD_DC = {
+    0: (bytes.fromhex("00010501010101010100000000000000"), bytes(range(12))),
+    1: (bytes.fromhex("00030101010101010101010000000000"), bytes(range(12))),
+}
+_STD_AC = {
+    0: (bytes.fromhex("0002010303020403050504040000017d"), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718"
+        "191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475"
+        "767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    1: (bytes.fromhex("00020102040403040705040400010277"), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125"
+        "f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a7374"
+        "75767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9ba"
+        "c2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+
+
+def _start_scan(fr, body: bytes, scans: int, multi: bool, dc_tabs: dict, ac_tabs: dict) -> bool:
+    """An SOS marker's checks before its scan -> has_multiple_scans. The
+    first starts the decompression: jdinput.c decides whether the file has
+    more than one scan (progressive, or a first scan short of a component),
+    and a sequential Huffman frame's decoder (jdhuff.c jinit_huff_decoder)
+    takes jstdhuff.c's tables into the DC and AC slots 0 and 1 left
+    undefined. A second scan where only one was to come is libjpeg's
+    JERR_EOI_EXPECTED."""
+    if fr is None:
+        raise _corrupt("scan before the frame header")
+    if scans == 0:
+        if not (fr.progressive or fr.arith or fr.lossless):
+            for t in (0, 1):
+                dc_tabs.setdefault(t, _STD_DC[t])
+                ac_tabs.setdefault(t, _STD_AC[t])
+        return fr.progressive or (body[0] if body else 0) < len(fr.ids)
+    if not multi:
+        raise _corrupt("a second scan in a single-scan file (libjpeg: more than one "
+                       "scan not expected)")
+    return multi
+
+
+def _tail_end(data: bytes, end: int, limit: int, arith: bool) -> int:
+    """The end of what Pillow has handed libjpeg once a single-scan image's
+    scan is decoded: the blocks of ``PILLOW_BLOCK`` bytes up to the code of
+    the marker after the scan's data, which the Huffman decoder reads
+    ahead to (and ``limit``, the blocks read so far, for an
+    arithmetic-coded scan, which reads no further than it decodes)."""
+    if arith:
+        return min(limit, len(data))
+    m = _MARKER.search(data, end)
+    if m is None:
+        return len(data)
+    return min(max(limit, PILLOW_BLOCK * (1 + (m.end() - 1) // PILLOW_BLOCK)), len(data))
+
+
+def _runs_out(marker: int, seg: bytes) -> bool:
+    """Does libjpeg, reading a marker segment cut short by the end of the
+    file (``seg``: its length field on), run out of data before it finds
+    fault with it (jdmarker.c get_dht, get_dri, get_dqt, get_dac, get_sos;
+    the rest are skipped; a second SOF fails at once)?"""
+    if len(seg) < 2:
+        return True
+    n = int.from_bytes(seg[:2], "big") - 2
+    body = seg[2:]
+    if marker == 0xDD:  # get_dri checks the length first
+        return n == 2
+    if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+        return False
+    if marker == 0xC4:  # get_dht: each table's counts, then its symbols
+        i = 0
+        while n > 16:
+            if i + 17 > len(body):
+                return True
+            count = sum(body[i + 1:i + 17])
+            n -= 17
+            if count > 256 or count > n:
+                return False
+            if i + 17 + count > len(body):
+                return True
+            if body[i] & 0x0F > 3 or body[i] >> 4 > 1:
+                return False
+            n -= count
+            i += 17 + count
+        return False  # a length left over (all read: the segment was not cut)
+    if marker == 0xDB:  # get_dqt: a table index past 3
+        return not body or body[0] & 0x0F <= 3
+    if marker == 0xCC:  # get_dac: an index past 31 or a bad L, U pair
+        for i in range(0, len(body) - 1, 2):
+            index, val = body[i], body[i + 1]
+            if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                return False
+        return True
+    if marker == 0xDA:  # get_sos: its length against its component count
+        return not body or (1 <= body[0] <= 4 and n == 4 + 2 * body[0])
+    return True
+
+
 def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) -> np.ndarray:
     """JPEG file bytes -> uint8 [H, W, 3], equal to Pillow's
     ``Image.open(f).convert("RGB")`` (libjpeg-turbo: ISLOW IDCT, fancy
@@ -1569,7 +1927,7 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
     libjpeg: decode as libjpeg-turbo 2.1 alone does from a whole buffer
     (``jpeg_mem_src``, ``out_color_space = JCS_RGB``), the JAX package's
     native extension: where the data runs out the buffer's fake EOI marker
-    supplies zeros (``_fill_intervals``), so a truncated file decodes; no
+    supplies zeros (``_Walk``), so a truncated file decodes; no
     Pillow block limit, bomb check or missing-EOI test; 4-component (CMYK,
     YCCK) and lossless files fail, as they do there. Only whether a file
     fails matters on that path, not which error it raises."""
@@ -1583,7 +1941,7 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
     qt, dc_tabs, ac_tabs = {}, {}, {}
     dac = ([0] * 16, [1] * 16, [5] * 16)  # arithmetic conditioning: L, U, K
     restart, jfif, adobe = 0, False, None
-    fr, eoi, limit, scans = None, False, PILLOW_BLOCK, 0
+    fr, eoi, limit, scans, multi = None, False, PILLOW_BLOCK, 0, True
     pos = 2
     while True:
         nxt = data.find(b"\xff", pos)
@@ -1607,7 +1965,12 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
             raise _corrupt(f"marker 0x{marker:02X} where libjpeg and Pillow take none")
         if marker in _SOF_REFUSED:
             raise _refuse(_SOF_REFUSED[marker])
-        body, after = _segment(data, pos)
+        try:
+            body, after = _segment(data, pos)
+        except ValueError:
+            if not multi and _runs_out(marker, data[pos:]):
+                break  # a single-scan image is out: jpeg_finish_decompress suspends,
+            raise      # and Pillow keeps the image
         while after > limit:  # libjpeg suspends in a marker; Pillow reads on
             limit += PILLOW_BLOCK
         if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
@@ -1624,8 +1987,7 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe = body[11]
         elif marker == 0xDA:  # SOS
-            if fr is None:
-                raise _corrupt("scan before the frame header")
+            multi = _start_scan(fr, body, scans, multi, dc_tabs, ac_tabs)
             scans += 1
             fr.scans = scans
             if fr.lossless:
@@ -1633,16 +1995,24 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
             elif fr.arith:
                 after = _decode_arith_scan(fr, body, data, after, qt, restart, dac, limit)
             else:
-                scan = _decode_progressive_scan if fr.progressive else _decode_scan
-                after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart)
+                if fr.progressive:
+                    after = _decode_progressive_scan(fr, body, data, after, qt, dc_tabs,
+                                                     ac_tabs, restart)
+                else:
+                    after = _decode_scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart,
+                                         limit=limit)
+            if not multi:  # the image is out: jpeg_finish_decompress reads the
+                # rest from Pillow's read so far, and a suspension ends the decode
+                data = data[:_tail_end(data, after, limit, fr.arith)]
         pos = after
     if fr is None or not all(fr.scanned):
         raise _corrupt("truncated data (no scan for every component)")
-    if fr.progressive:
-        if not eoi:  # more scans may have been to come
-            raise _corrupt("truncated data (a progressive file with no EOI)")
+    if multi and not eoi and not fr.lossless:  # more scans may have been to come:
+        # jpeg_start_decompress reads to the EOI before any output
+        raise _corrupt(f"truncated data (a {'progressive' if fr.progressive else 'multi-scan'} "
+                       "file with no EOI)")
     if fr.lossless:
-        if not eoi:  # libjpeg-turbo reads on for its last bits, and Pillow has none
+        if multi and not eoi:  # jpeg_start_decompress reads a multi-scan file to its EOI
             raise _corrupt("truncated data (a lossless file with no EOI)")
         return _assemble_lossless(fr, jfif, adobe)
     if fr.progressive or fr.arith:
@@ -1656,17 +2026,18 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
 _FAKE_EOI = b"\xff\xd9" * 32768
 
 
-def _decode_libjpeg(data: bytes) -> np.ndarray:
+def _decode_libjpeg(data: bytes, tiff=None) -> np.ndarray:
     """``jpeg_decode_rgb(data, libjpeg=True)``: jdmarker.c's read_markers
     (RSTn and TEM outside a scan skipped, DNL skipped, SOF3, JPG and other
     unknown markers an error), a marker segment past the end read from the
-    fake EOI bytes, each scan through its decoder with ``fill``."""
+    fake EOI bytes, each scan through its decoder with ``fill``. tiff: a
+    TIFF strip's colour mode (``_Frame``)."""
     if data[:2] != b"\xff\xd8":
         raise _corrupt("not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
     dac = ([0] * 16, [1] * 16, [5] * 16)
     restart, jfif, adobe = 0, False, None
-    fr, scans, pos = None, 0, 2
+    fr, scans, pos, multi = None, 0, 2, True
     while pos < len(data):
         nxt = data.find(b"\xff", pos)
         if nxt < 0:
@@ -1694,7 +2065,7 @@ def _decode_libjpeg(data: bytes) -> np.ndarray:
             if fr is not None:
                 raise _corrupt("a second frame")
             fr = _Frame(body, progressive=marker in (0xC2, 0xCA), arith=marker >= 0xC9,
-                        libjpeg=True)
+                        libjpeg=True, tiff=tiff)
         elif marker in (0xCC, 0xC4, 0xDB, 0xDD):
             restart = _tables(marker, body, qt, dc_tabs, ac_tabs, dac, restart)
         elif marker == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
@@ -1702,8 +2073,7 @@ def _decode_libjpeg(data: bytes) -> np.ndarray:
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe = body[11]
         elif marker == 0xDA:
-            if fr is None:
-                raise _corrupt("scan before the frame header")
+            multi = _start_scan(fr, body, scans, multi, dc_tabs, ac_tabs)
             scans += 1
             fr.scans = scans
             if fr.arith:
@@ -1721,21 +2091,44 @@ def _decode_libjpeg(data: bytes) -> np.ndarray:
     return _assemble(fr, jfif, adobe)
 
 
+def jpeg_tiff_chunk(tables: bytes, strip: bytes, ycbcr: bool, width: int, rows: int,
+                    nbytes: int) -> np.ndarray:
+    """One strip or tile of a JPEG-compressed TIFF (compression 7) as
+    libtiff's codec has libjpeg decode it: the JPEGTables stream (its EOI
+    dropped) before the strip's own (its SOI dropped), read from memory with
+    a fake EOI past the end, YCbCr converted to RGB where libtiff asks for
+    that (photometric 6, chunky), the components as they are otherwise ->
+    uint8 rows [rows, width x nbytes]."""
+    data = strip
+    if tables[:2] == b"\xff\xd8" and strip[:2] == b"\xff\xd8":
+        data = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + strip[2:]
+    img = _decode_libjpeg(data, "ycc" if ycbcr else "raw")
+    if img.shape[0] < rows or img.shape[1] < width or img.shape[2] != nbytes:
+        raise _corrupt(f"a {img.shape[1]}x{img.shape[0]}x{img.shape[2]} JPEG strip where "
+                       f"{width}x{rows}x{nbytes} is due")
+    return np.ascontiguousarray(img[:rows, :width]).reshape(rows, width * nbytes)
+
+
 def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
-    """IDCT, upsampling and colour conversion of a decoded frame."""
+    """IDCT, upsampling and colour conversion of a decoded frame (a TIFF
+    strip's as its ``fr.tiff`` says)."""
     planes = []
     for c in range(len(fr.ids)):
         coef = fr.coef[fr.offset[c]:fr.offset[c + 1]].reshape(-1, 64)[:, _UNZIGZAG]
         q = fr.quant[c] if fr.quant[c] is not None else np.zeros(64, np.int64)  # no scan
-        if fr.libjpeg:
-            blocks = _idct_islow_simd(coef.reshape(-1, 8, 8), q.reshape(8, 8))
-        else:
-            blocks = _idct_islow((coef * q[_ZIGZAG][_UNZIGZAG]).reshape(-1, 8, 8))
+        blocks = _idct_islow_simd(coef.reshape(-1, 8, 8), q.reshape(8, 8))
         bh, bw = fr.bh[c], fr.bw[c]
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         w, h = fr.downsampled(c)
         up = _upsample(plane[:h, :w], fr.hmax // fr.h[c], fr.vmax // fr.v[c])
         planes.append(up[:fr.height, :fr.width])
+    if fr.tiff == "raw":
+        if len(set(zip(fr.h, fr.v))) > 1:
+            raise _corrupt("subsampled components with no colour conversion (libtiff reads "
+                           "them raw; ROADMAP item 28)")
+        return np.stack(planes, -1).astype(np.uint8)
+    if fr.tiff == "ycc":
+        return _ycc_to_rgb(*planes)
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=-1)
     if len(planes) == 4:
@@ -1763,12 +2156,18 @@ def _muldiv255(a, b):
     return ((t >> 8) + t) >> 8
 
 
+def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """Pillow's CMYK -> RGB (Convert.c:cmyk2rgb) on its CMYK values: nk =
+    255 - K, each of R, G, B = nk - nk x C / 255 with MULDIV255 rounding."""
+    nk = 255 - np.asarray(k, np.int64)
+    out = [nk - _muldiv255(np.asarray(v, np.int64), nk) for v in (c, m, y)]
+    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
+
+
 def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
     """libjpeg's CMYK samples as Pillow takes them (raw mode "CMYK;I":
-    each inverted) and converts them to RGB (Convert.c:cmyk2rgb)."""
-    nk = np.asarray(k, np.int64)  # 255 - (255 - K)
-    out = [nk - _muldiv255(255 - np.asarray(v, np.int64), nk) for v in (c, m, y)]
-    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
+    each inverted) and converts them to RGB."""
+    return cmyk_to_rgb(*(255 - np.asarray(v, np.int64) for v in (c, m, y, k)))
 
 
 # the C entry's error codes (jpeg_huffman.cpp) -> the Python version's errors
@@ -1792,15 +2191,13 @@ _C_ERRORS = {
     -28: lambda v: _corrupt("scan uses an undefined Huffman table"),
     -29: lambda v: _corrupt("component uses an undefined quantization table"),
     -30: lambda v: _corrupt("bad Huffman table"),
-    -31: lambda v: _refuse("progressive (a spectral-selection scan)"),
     -32: lambda v: _corrupt("truncated data (fewer restart intervals than the image needs)"),
-    -33: lambda v: _corrupt("invalid Huffman code (corrupt data)"),
     -34: lambda v: _corrupt("truncated data (the scan ends before its last block)"),
-    -35: lambda v: _corrupt("coefficient past the end of a block (corrupt data)"),
     -36: lambda v: _corrupt("truncated data (no scan for every component)"),
     -38: lambda v: MemoryError("jpeg: out of memory"),
     -39: lambda v: _corrupt("bad progressive scan parameters"),
-    -40: lambda v: _corrupt("truncated data (a progressive file with no EOI)"),
+    -40: lambda v: _corrupt(f"truncated data (a {'progressive' if v else 'multi-scan'} "
+                            "file with no EOI)"),
     -42: lambda v: _corrupt("bad DAC segment"),
     -43: lambda v: _pillow_block(),
     -44: lambda v: _corrupt(f"marker 0x{v:02X} where libjpeg and Pillow take none"),
@@ -1814,6 +2211,10 @@ _C_ERRORS = {
                             "lossless mode, and Pillow fails it"),
     -51: lambda v: _corrupt("truncated data (a lossless file with no EOI)"),
     -52: lambda v: _corrupt("a file libjpeg-turbo 2.1 fails (libjpeg mode)"),
+    -53: lambda v: _corrupt("a second scan in a single-scan file (libjpeg: more than one "
+                            "scan not expected)"),
+    -54: lambda v: _corrupt("truncated data (Pillow's libjpeg reads ahead past the end of "
+                            "the file)"),
 }
 _OUT_SIZE = -37
 

@@ -1,41 +1,66 @@
 """TIFF decoding in Python and numpy, as Pillow 12.1 decodes a file's first
-image (``PIL.Image.open(p).convert("RGB")``), bit for bit: the GPU machine
-has no Pillow.
+image (``PIL.Image.open(p).convert("RGB")``, its TiffImagePlugin over its
+libtiff 4.7), bit for bit: the GPU machine has no Pillow.
 
     tiff_decode_rgb(data: bytes) -> uint8 [H, W, 3]
 
-What it reads: the first IFD of a little- or big-endian TIFF; strips or
-tiles (edge tiles cropped), chunky samples; no compression, PackBits, LZW
-(libtiff's codes, most significant bit first, the width growing one code
-early) or deflate (8 and 32946), each strip or tile on its own; the
-horizontal predictor (2) undone per row and sample at 8 bits after LZW and
-deflate, the codecs libtiff runs it for (Pillow's own decoder of
-uncompressed data, and libtiff's PackBits, leave the differences as they
-are); fill order 2 (bits reversed in each stored byte, before the codec). Pixels as Pillow's modes take them: bilevel
-("1": 0 or 255, black where the sample is 1 under WhiteIsZero), gray of 2, 4
-or 8 bits (scaled by 0x55 or 0x11, inverted under WhiteIsZero), palette of
-1, 2, 4 or 8 bits (the ColorMap's 16-bit values >> 8, an index past it
-black), RGB of 8 bits (with an unassociated alpha or an unspecified extra
-sample, which ``convert("RGB")`` drops).
+The first IFD of a little- or big-endian TIFF or BigTIFF; the pixel layout
+looked up as Pillow does (``_LAYOUTS``, its OPEN_INFO: photometric, sample
+format, fill order, bits and extra samples; a single BitsPerSample repeated
+for every sample, extra ones cut). Two paths, as in Pillow:
 
-What raises ValueError: what Pillow fails (no TIFF header, no image, data
-that ends before the image does, an unknown compression); and what Pillow
-reads but this module does not, naming ROADMAP item 28 (BigTIFF, planar
-samples, 16-bit and other sample formats, CMYK, YCbCr, LAB, JPEG, CCITT,
-old-style LZW, associated alpha, orientations that swap the axes).
+- no compression: Pillow's own raw decoder, strip by strip or tile by tile
+  from each offset (the strip byte counts not read; one strip covering the
+  image reads from the last offset), each row unpacked by the layout's raw
+  mode, a fill order of 2 reversing the bits of each byte where the layout
+  has such a mode; planar data (configuration 2) reads each plane through
+  one 8-bit band of the raw mode, whatever its bits;
+- any compression: libtiff decodes each strip or tile (PackBits, LZW new
+  and old style, deflate 8 and 32946, JPEG 7 through ``utils/jpeg.py``, CCITT 2, 3 and 4
+  through ``utils/ccitt.py``), reversing bits first under fill order 2,
+  undoing the horizontal predictor (2) at 8, 16 and 32 bits for LZW and
+  deflate or the floating-point one (3), and hands Pillow the samples in
+  native (little-endian) order, which its raw modes read as such except
+  the big-endian signed and float ones (read byte-swapped, as Pillow does);
+  planar data per plane.
+
+Pixels then as Pillow's modes take them and ``convert("RGB")`` converts
+them: bilevel, gray (2 and 4 bits scaled by 0x55, 0x11; WhiteIsZero
+inverted, except at 16 bits), 12 and 16-bit gray and 16 and 32-bit integers
+clipped to 0-255 (``modes.i_rgb``), floats as ``modes.f_rgb``, palettes
+(the ColorMap's values >> 8, an index past it black), RGB and CMYK of 8
+bits or the high byte of 16 (CMYK through ``jpeg.cmyk_to_rgb``), alpha
+dropped, associated alpha divided out first (``modes.rgba_unpremultiplied``
+on the high bytes), YCbCr of one sample as gray, of three through libjpeg's
+colour conversion where JPEG-compressed and libtiff's TIFFYCbCrtoRGB (its
+ReferenceBlackWhite and YCbCrCoefficients, chroma subsampling by
+replication) otherwise; an uncompressed one reads 4 bytes a pixel, as
+Pillow does, and fails where the data ends. Then the Orientation tag as
+``ImageOps.exif_transpose`` applies it (2-8).
+
+What raises ValueError: what Pillow fails (no TIFF header, no image, a
+layout it has no mode for, data that ends before the image does, a
+compression libtiff fails, a predictor at other bits); and what Pillow
+reads but this module does not, naming ROADMAP item 28: LAB (Pillow
+converts it with LittleCMS), old-style JPEG (6), and compressions other
+than those above.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 
 import numpy as np
 
+from .jpeg import PILLOW_MAX_PIXELS, cmyk_to_rgb
+from .modes import f_rgb, gray_rgb, i_rgb, rgba_unpremultiplied
+
 ITEM = "ROADMAP item 28"
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
-          16: ("Q", 8)}
+          13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -43,81 +68,218 @@ def _refuse(what: str) -> ValueError:
     return ValueError(f"tiff: {what} is not supported (Pillow reads it; {ITEM})")
 
 
-def _tags(data: bytes) -> tuple[str, dict]:
-    if data[:4] == b"II*\x00":
+# ---------------------------------------------------------------------------
+# layouts (TiffImagePlugin.OPEN_INFO): (photometric, sample format, fill
+# order, bits, extra samples) -> (mode, raw mode); the big-endian table is
+# the little-endian one less the four marked LE only, its 16-bit and float
+# raw modes big-endian
+# ---------------------------------------------------------------------------
+
+def _layouts() -> dict:
+    out = {}
+    for fill, r in ((1, ""), (2, "R")):
+        for inv, photo in (("I", 0), ("", 1)):
+            out[(photo, (1,), fill, (1,), ())] = ("1", f"1;{inv}{r}".rstrip(";"))
+            out[(photo, (1,), fill, (2,), ())] = ("L", f"L;2{inv}{r}")
+            out[(photo, (1,), fill, (4,), ())] = ("L", f"L;4{inv}{r}")
+            out[(photo, (1,), fill, (8,), ())] = ("L", f"L;{inv}{r}".rstrip(";"))
+        for bits in (1, 2, 4):
+            out[(3, (1,), fill, (bits,), ())] = ("P", f"P;{bits}{r}")
+        out[(3, (1,), fill, (8,), ())] = ("P", f"P;{r}".rstrip(";"))
+    out[(2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB;R")
+    out[(3, (1,), 1, (8, 8), (0,))] = ("P", "PX")
+    out[(3, (1,), 1, (8, 8), (2,))] = ("PA", "PA")
+    out[(0, (1,), 1, (16,), ())] = ("I;16", "I;16")  # LE only
+    out[(0, (3,), 1, (32,), ())] = ("F", "F;32F")
+    out[(1, (1,), 1, (8, 8), (2,))] = ("LA", "LA")
+    out[(1, (1,), 1, (12,), ())] = ("I;16", "I;12")  # LE only
+    out[(1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    out[(1, (1,), 1, (32,), ())] = ("I", "I;32N")  # LE only
+    out[(1, (1,), 2, (16,), ())] = ("I;16", "I;16R")  # LE only
+    out[(1, (2,), 1, (8,), ())] = ("L", "L")
+    out[(1, (2,), 1, (16,), ())] = ("I", "I;16S")
+    out[(1, (2,), 1, (32,), ())] = ("I", "I;32S")
+    out[(1, (3,), 1, (32,), ())] = ("F", "F;32F")
+    rgb = {(): ("RGBA", "RGBA"), (0,): ("RGB", "RGBX"), (1,): ("RGBA", "RGBa"),
+           (2,): ("RGBA", "RGBA"), (999,): ("RGBA", "RGBA")}
+    out[(2, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGB")
+    for extra, v in rgb.items():
+        out[(2, (1,), 1, (8,) * 4, extra)] = v
+        if extra != (999,):
+            out[(2, (1,), 1, (16,) * 4, extra)] = (v[0], v[1] + ";16L")
+            if extra:
+                out[(2, (1,), 1, (8,) * 5, extra + (0,))] = (v[0], v[1] + "X")
+                out[(2, (1,), 1, (8,) * 6, extra + (0, 0))] = (v[0], v[1] + "XX")
+    out[(2, (1,), 1, (16, 16, 16), ())] = ("RGB", "RGB;16L")
+    out[(5, (1,), 1, (8,) * 4, ())] = ("CMYK", "CMYK")
+    out[(5, (1,), 1, (8,) * 5, (0,))] = ("CMYK", "CMYKX")
+    out[(5, (1,), 1, (8,) * 6, (0, 0))] = ("CMYK", "CMYKXX")
+    out[(5, (1,), 1, (16,) * 4, ())] = ("CMYK", "CMYK;16L")
+    out[(6, (1,), 1, (8,), ())] = ("L", "L")
+    out[(6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGBX")
+    out[(8, (1,), 1, (8, 8, 8), ())] = ("LAB", "LAB")
+    return out
+
+
+_LE_LAYOUTS = _layouts()
+_LE_ONLY = {(0, (1,), 1, (16,), ()), (1, (1,), 1, (12,), ()), (1, (1,), 1, (32,), ()),
+            (1, (1,), 2, (16,), ())}
+
+
+def _layout(bo: str, key):
+    """-> (mode, raw mode) of a layout key, or None (Pillow: unknown pixel
+    mode)."""
+    got = _LE_LAYOUTS.get(key)
+    if got is None or bo == "<":
+        return got
+    if key in _LE_ONLY:
+        return None
+    mode, raw = got
+    if raw == "I;16" and key[0] == 1:
+        return "I;16B", "I;16B"
+    return mode, raw.replace(";16L", ";16B").replace(";16S", ";16BS").replace(
+        ";32S", ";32BS").replace(";32F", ";32BF")
+
+
+def _raw_bits(raw: str) -> int:
+    """The bits a pixel of raw mode ``raw`` reads."""
+    base = raw.split(";")[0]
+    if base == "1":
+        return 1
+    if raw.startswith(("L;2", "P;2")):
+        return 2
+    if raw.startswith(("L;4", "P;4")):
+        return 4
+    if raw.startswith("P;1"):
+        return 1
+    if raw == "I;12":
+        return 12
+    if raw.startswith("I;16"):
+        return 16
+    if raw.startswith(("I;32", "F;32")):
+        return 32
+    wide = ";16" in raw
+    return len(base) * (16 if wide else 8)
+
+
+# ---------------------------------------------------------------------------
+# the IFD
+# ---------------------------------------------------------------------------
+
+def _tags(data: bytes) -> tuple[str, dict, bool]:
+    """The first IFD -> (byte order, {tag: values}, whether it was read
+    whole: libtiff, which reads it again itself, fails one that is not)."""
+    if data[:2] == b"II":
         bo = "<"
-    elif data[:4] == b"MM\x00*":
+    elif data[:2] == b"MM":
         bo = ">"
-    elif data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise _refuse("BigTIFF")
     else:
         raise ValueError("tiff: not a TIFF file")
-    (ifd,) = struct.unpack(bo + "I", data[4:8])
-    if ifd + 2 > len(data):
-        raise ValueError("tiff: the first IFD lies past the end of the file")
-    (n,) = struct.unpack(bo + "H", data[ifd:ifd + 2])
+    (magic,) = struct.unpack(bo + "H", data[2:4])
+    big = magic == 43
+    if magic not in (42, 43):
+        raise ValueError("tiff: not a TIFF file")
+    if big and bo == ">":
+        raise ValueError("tiff: a big-endian BigTIFF (Pillow fails it)")
+    if big:
+        if len(data) < 16:
+            raise ValueError("tiff: a short BigTIFF header")
+        (ifd,) = struct.unpack(bo + "Q", data[8:16])
+        cfmt, efmt, esize, slot = "Q", "HHQ", 20, 8
+    else:
+        (ifd,) = struct.unpack(bo + "I", data[4:8])
+        cfmt, efmt, esize, slot = "H", "HHI", 12, 4
+    csize = struct.calcsize(cfmt)
     tags = {}
+    if ifd + csize > len(data):  # Pillow reads no tags (and fails for want of them)
+        return bo, tags, False
+    (n,) = struct.unpack(bo + cfmt, data[ifd:ifd + csize])
     for i in range(n):
-        e = ifd + 2 + 12 * i
-        if e + 12 > len(data):
-            raise ValueError("tiff: the IFD runs past the end of the file")
-        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
-        if typ not in _TYPES:
+        # ImageFileDirectory_v2.load: an entry, or a tag's values, that runs
+        # past the end of the file ends the IFD there, keeping what came before
+        e = ifd + csize + esize * i
+        if e + esize > len(data):
+            return bo, tags, False
+        tag, typ, count = struct.unpack(bo + efmt, data[e:e + esize - slot])
+        if typ not in _TYPES or count == 0:
             continue
         fmt, size = _TYPES[typ]
         nbytes = size * count
-        if nbytes <= 4:
-            raw = data[e + 8:e + 8 + nbytes]
+        if nbytes <= slot:
+            raw = data[e + esize - slot:e + esize - slot + nbytes]
         else:
-            (off,) = struct.unpack(bo + "I", data[e + 8:e + 12])
+            (off,) = struct.unpack(bo + ("Q" if big else "I"), data[e + esize - slot:e + esize])
             raw = data[off:off + nbytes]
             if len(raw) < nbytes:
-                raise ValueError(f"tiff: tag {tag}'s values run past the end of the file")
+                return bo, tags, False
         if typ == 2:
             tags[tag] = raw
+        elif typ in (5, 10):  # rationals, as libtiff's floats
+            v = struct.unpack(bo + fmt * count, raw)
+            tags[tag] = tuple(float(np.float32(n / d)) if d else 0.0 for n, d in zip(v[::2], v[1::2]))
         else:
             tags[tag] = struct.unpack(bo + fmt * count, raw)
-    return bo, tags
+    return bo, tags, True
 
+
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
 
 def _lzw(data: bytes, need: int) -> bytes:
-    """libtiff's LZW (tif_lzw.c, new style) -> at most ``need`` bytes."""
-    if data[:2] == b"\x00\x01" or (len(data) >= 2 and data[0] == 0 and data[1] & 1):
-        raise _refuse("old-style LZW")
+    """libtiff's LZW (tif_lzw.c) -> at most ``need`` bytes: new style (codes
+    most significant bit first, the width growing one code early), or old
+    style where the data starts with a clear code written least significant
+    bit first (LZWDecodeCompat: the width grows as the table passes it)."""
+    compat = len(data) >= 2 and data[0] == 0 and data[1] & 1
     out = bytearray()
     table = [bytes([i]) for i in range(256)] + [b"", b""]
-    width, prev, acc, nacc, pos = 9, None, 0, 0, 0
+    append, n = table.append, len(data)
+    # the table's size at which the width grows: 2^width, or one less
+    width, grow, prev, acc, nacc, pos = 9, 512 - (not compat), None, 0, 0, 0
     while len(out) < need:
-        while nacc < width:
-            if pos >= len(data):
-                return bytes(out)
-            acc = (acc << 8) | data[pos]
-            pos += 1
-            nacc += 8
-        code = (acc >> (nacc - width)) & ((1 << width) - 1)
+        if nacc < width:
+            if not compat and pos + 2 <= n:  # two bytes at a time: width <= 12
+                acc = (acc << 16) | (data[pos] << 8) | data[pos + 1]
+                pos += 2
+                nacc += 16
+            while nacc < width:
+                if pos >= n:
+                    return bytes(out)
+                if compat:
+                    acc |= data[pos] << nacc
+                else:
+                    acc = (acc << 8) | data[pos]
+                pos += 1
+                nacc += 8
         nacc -= width
+        if compat:
+            code = acc & ((1 << width) - 1)
+            acc >>= width
+        else:
+            code = acc >> nacc
+            acc &= (1 << nacc) - 1  # the bits not yet read, and no more
         if code == 256:  # clear
             del table[258:]
-            width, prev = 9, None
+            width, grow, prev = 9, 512 - (not compat), None
             continue
         if code == 257:  # end of information
             break
-        if prev is None:
-            entry = table[code] if code < len(table) else None
-        elif code < len(table):
+        size = len(table)
+        if code < size:
             entry = table[code]
-            table.append(prev + entry[:1])
-        elif code == len(table):
+            if prev is not None:
+                append(prev + entry[:1])
+        elif code == size and prev is not None:
             entry = prev + prev[:1]
-            table.append(entry)
+            append(entry)
         else:
-            entry = None
-        if entry is None:
             raise ValueError("tiff: an LZW code past the table (corrupt data)")
         out += entry
         prev = entry
-        if len(table) + 1 >= 1 << width and width < 12:  # one code early
+        if len(table) >= grow and width < 12:
             width += 1
+            grow = (1 << width) - (not compat)
     return bytes(out[:need])
 
 
@@ -135,16 +297,15 @@ def _packbits(data: bytes, need: int) -> bytes:
     return bytes(out[:need])
 
 
-def _chunk(raw: bytes, comp: int, need: int) -> bytes:
-    if comp == 1:
-        out = raw[:need]
-    elif comp == 32773:
+def _codec(raw: bytes, comp: int, need: int) -> bytes:
+    """One strip's or tile's data through libtiff's codec -> ``need`` bytes."""
+    if comp == 32773:
         out = _packbits(raw, need)
     elif comp == 5:
         out = _lzw(raw, need)
     elif comp in (8, 32946):
-        try:
-            out = zlib.decompressobj().decompress(raw)[:need]
+        try:  # ZIPDecode stops once it has the chunk's bytes, before the checksum
+            out = zlib.decompressobj().decompress(raw, need)
         except zlib.error as e:
             raise ValueError(f"tiff: bad deflate data ({e})") from e
     else:
@@ -154,97 +315,466 @@ def _chunk(raw: bytes, comp: int, need: int) -> bytes:
     return out
 
 
+def _unpredict(block: np.ndarray, predictor: int, bits: int, spp: int, width: int) -> np.ndarray:
+    """libtiff's predictors on rows [r, row bytes] of native samples: the
+    horizontal one (2) as a running sum per sample at 8, 16 or 32 bits, the
+    floating-point one (3) as a running byte sum, then the byte planes
+    (most significant first) back into little-endian samples."""
+    rows = block.shape[0]
+    if predictor == 2:
+        if bits not in (8, 16, 32):
+            raise ValueError(f"tiff: the horizontal predictor at {bits} bits (libtiff fails it)")
+        dt = {8: np.uint8, 16: "<u2", 32: "<u4"}[bits]
+        v = block.view(dt).reshape(rows, -1, spp)[:, :width]
+        v = np.cumsum(v, axis=1, dtype=v.dtype)
+        out = block.copy()
+        out.view(dt).reshape(rows, -1, spp)[:, :width] = v
+        return out
+    if predictor == 3:
+        if bits not in (16, 32, 64):
+            raise ValueError(f"tiff: the floating-point predictor at {bits} bits")
+        nb = bits // 8
+        wc = width * spp
+        acc = np.cumsum(block[:, :wc * nb].reshape(rows, wc * nb // spp, spp), axis=1,
+                        dtype=np.uint8).reshape(rows, wc * nb)
+        planes = acc.reshape(rows, nb, wc)[:, ::-1]  # most significant plane first
+        out = block.copy()
+        out[:, :wc * nb] = planes.transpose(0, 2, 1).reshape(rows, wc * nb)
+        return out
+    if predictor != 1:
+        raise ValueError(f"tiff: predictor {predictor}")
+    return block
+
+
+# ---------------------------------------------------------------------------
+# raw modes (Unpack.c) -> Pillow's mode values
+# ---------------------------------------------------------------------------
+
+def _samples(rows: np.ndarray, width: int, raw: str, order: str) -> np.ndarray:
+    """Rows [r, bytes] read as ``width`` pixels of raw mode ``raw`` (its
+    16/32-bit samples in byte order ``order``) -> int64 or float64
+    [r, width, bands], Pillow's values of the mode."""
+    r = rows.shape[0]
+    if raw.endswith("R") and not raw.startswith("RGB;") or raw == "RGB;R":
+        rows = _REVERSE[rows]  # fill order 2: each byte's bits reversed
+        raw = raw[:-1].rstrip(";")
+    bits = _raw_bits(raw)
+    if bits < 8:
+        px = np.unpackbits(rows, axis=1)[:, :width * bits].reshape(r, width, bits)
+        v = (px.astype(np.int64) << np.arange(bits - 1, -1, -1)).sum(-1)
+        if raw.startswith("1"):
+            v = v * 255
+            if ";I" in raw:
+                v = 255 - v
+        elif raw.startswith("L"):
+            v = v * (255 // ((1 << bits) - 1))
+            if "I" in raw[1:]:
+                v = 255 - v
+        return v[..., None]
+    b = rows[:, :(width * bits + 7) // 8]
+    if raw == "I;12":  # two pixels in three bytes, big-endian
+        t = b[:, :width // 2 * 3].reshape(r, -1, 3).astype(np.int64)
+        v = np.stack([(t[..., 0] << 4) | (t[..., 1] >> 4), ((t[..., 1] & 15) << 8) | t[..., 2]],
+                     -1).reshape(r, -1)
+        if width % 2:
+            last = b[:, width // 2 * 3:width // 2 * 3 + 2].astype(np.int64)
+            v = np.concatenate([v, ((last[:, :1] << 4) | (last[:, 1:] >> 4))], 1)
+        return v[..., None]
+    if raw.startswith(("I;16", "I;32", "F;32")):
+        big = "B" in raw[4:]
+        signed = raw.endswith("S")
+        kind = "f" if raw.startswith("F") else ("i" if signed or raw == "I;32N" else "u")
+        dt = np.dtype((">" if big else "<") + kind + str(bits // 8))
+        v = np.frombuffer(b.tobytes(), dt).reshape(r, width)
+        return v.astype(np.float64 if kind == "f" else np.int64)[..., None]
+    wide = ";16" in raw
+    bands = len(raw.split(";")[0])
+    if wide:
+        v = np.frombuffer(b.tobytes(), np.dtype(("<" if raw.endswith(("L", "N")) else ">") + "u2"))
+        v = (v.reshape(r, width, bands) >> 8).astype(np.int64)
+    else:
+        v = b.reshape(r, width, bands).astype(np.int64)
+    if raw.startswith("L;I"):
+        v = 255 - v
+    return v
+
+
+def _to_rgb(mode: str, raw: str, v: np.ndarray, t: dict) -> np.ndarray:
+    """Pillow's mode values [h, w, bands] -> RGB as ``convert("RGB")`` gives
+    them."""
+    if mode in ("1", "L", "LA"):
+        return gray_rgb(v[..., 0])
+    if mode in ("I;16", "I;16B", "I"):
+        return i_rgb(v[..., 0])
+    if mode == "F":
+        return f_rgb(v[..., 0])
+    if mode in ("P", "PA"):
+        cmap = np.array(t[320], np.int64) // 256
+        n = len(cmap) // 3
+        lut = np.zeros((256, 3), np.uint8)  # entries past the map: black
+        lut[:n] = np.stack([cmap[:n], cmap[n:2 * n], cmap[2 * n:3 * n]], -1)[:256]
+        return lut[np.clip(v[..., 0], 0, 255)]
+    if mode == "CMYK":
+        return cmyk_to_rgb(*(v[..., i] for i in range(4)))
+    if raw.startswith("RGBa"):
+        return rgba_unpremultiplied(v[..., :4])
+    return np.ascontiguousarray(v[..., :3].astype(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# libtiff's YCbCr -> RGB (tif_color.c, tif_getimage.c)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _ycbcr_tables(luma: tuple, ref: tuple):
+    """TIFFYCbCrToRGBInit's tables (float32 arithmetic, SHIFT 16)."""
+    f32 = np.float32
+    one_half = 1 << 15
+
+    def fix(x):
+        return int(f32(x) * f32(65536) + f32(0.5))
+
+    lr, lg, lb = (f32(x) for x in luma)
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(min(max(f1, f32(0)), f32(2)))
+    f2 = lr * f1 / lg
+    d2 = -fix(min(max(f2, f32(0)), f32(2)))
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(min(max(f3, f32(0)), f32(2)))
+    f4 = lb * f3 / lg
+    d4 = -fix(min(max(f4, f32(0)), f32(2)))
+
+    def code2v(c, rb, rw, cr):
+        den = f32(rw) - f32(rb)
+        return (f32(c) - f32(rb)) * f32(cr) / (den if den != 0 else f32(1))
+
+    def clampw(x, lo, hi):
+        return f32(lo) if x < lo else f32(hi) if x > hi else x
+
+    tabs = np.zeros((5, 256), np.int64)
+    for i, x in enumerate(range(-128, 128)):
+        cr = int(clampw(code2v(x, f32(ref[4]) - f32(128), f32(ref[5]) - f32(128), 127), -4096, 4096))
+        cb = int(clampw(code2v(x, f32(ref[2]) - f32(128), f32(ref[3]) - f32(128), 127), -4096, 4096))
+        tabs[0, i] = (d1 * cr + one_half) >> 16
+        tabs[1, i] = (d3 * cb + one_half) >> 16
+        tabs[2, i] = d2 * cr
+        tabs[3, i] = d4 * cb + one_half
+        tabs[4, i] = int(clampw(code2v(x + 128, ref[0], ref[1], 255), -4096, 4096))
+    return tabs
+
+
+def _ycbcr_rgb(y, cb, cr, t: dict) -> np.ndarray:
+    """TIFFYCbCrtoRGB on 8-bit samples."""
+    luma = t.get(529, (0.299, 0.587, 0.114))
+    ref = t.get(532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+    cr_r, cb_b, cr_g, cb_g, y_tab = _ycbcr_tables(tuple(luma), tuple(ref))
+    yv = y_tab[np.minimum(y, 255)]
+    r = yv + cr_r[cr]
+    g = yv + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = yv + cb_b[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _ycbcr_image(chunks, w: int, h: int, cw: int, ch: int, t: dict) -> np.ndarray:
+    """libtiff's RGBA interface over YCbCr chunks (each ch rows of cw pixels
+    as stored: blocks of sh x sv luma samples then Cb, Cr) -> RGB [h, w, 3],
+    each block's chroma over its luma, as gtStripContig and gtTileContig
+    with the putcontig8bitYCbCr put functions lay them out: a tile past
+    the image's right edge skips its blocks there by (skipped pixels // sh)
+    x the block size, except at 4 x 4, where libtiff counts 10 bytes a
+    block in place of 18."""
+    sh, sv = t.get(530, (2, 2))
+    if (sh, sv) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)):
+        raise ValueError(f"tiff: YCbCr subsampling {sh}x{sv} (libtiff fails it)")
+    tiled = 322 in t
+    bx = -(-cw // sh)
+    size = sh * sv + 2
+    # gtStripContig reads a strip's rows (rounded up to the subsampling) x
+    # its scanline size, which TIFFScanlineSize truncates to a whole byte
+    scanline = bx * size // sv
+    out = np.zeros((h, w, 3), np.uint8)
+    across = -(-w // cw)
+    for k, raw in enumerate(chunks):
+        ty, tx = divmod(k, across)
+        y0, x0 = ty * ch, tx * cw
+        rows = min(ch, h - y0)
+        npix = min(cw, w - x0)
+        nby = -(-rows // sv) if not tiled else -(-ch // sv)
+        if len(raw) < nby * bx * size:
+            raise ValueError("tiff: a strip or tile ends before its data does")
+        if not tiled:  # the bytes past what gtStripContig reads stay zero
+            got = -(-rows // sv) * sv * scanline
+            raw = raw[:got] + bytes(max(0, nby * bx * size - got))
+        skip = (cw - npix) // sh * (10 if (sh, sv) == (4, 4) else size) if tiled else 0
+        used = -(-npix // sh)
+        src = np.frombuffer(raw, np.uint8)
+        p = 0
+        for r in range(-(-rows // sv)):
+            blk = src[p:p + used * size]
+            if blk.size < used * size:  # past the tile's data: libtiff's buffer
+                blk = np.concatenate([blk, np.zeros(used * size - blk.size, np.uint8)])
+            blk = blk.reshape(used, size).astype(np.int64)
+            p += used * size + skip
+            luma = blk[:, :sh * sv].reshape(used, sv, sh).transpose(1, 0, 2).reshape(sv, -1)
+            cb = np.repeat(blk[:, sh * sv], sh)[None].repeat(sv, 0)
+            cr = np.repeat(blk[:, sh * sv + 1], sh)[None].repeat(sv, 0)
+            rgb = _ycbcr_rgb(luma, cb, cr, t)
+            yy = y0 + r * sv
+            hh = min(sv, y0 + rows - yy)
+            out[yy:yy + hh, x0:x0 + npix] = rgb[:hh, :npix]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the image
+# ---------------------------------------------------------------------------
+
+def _orient(img: np.ndarray, o: int) -> np.ndarray:
+    """ImageOps.exif_transpose of an Orientation value."""
+    if o == 2:
+        return img[:, ::-1]
+    if o == 3:
+        return img[::-1, ::-1]
+    if o == 4:
+        return img[::-1]
+    if o == 5:
+        return img.transpose(1, 0, 2)
+    if o == 6:
+        return np.rot90(img, -1)
+    if o == 7:
+        return img[::-1, ::-1].transpose(1, 0, 2)
+    if o == 8:
+        return np.rot90(img, 1)
+    return img
+
+
 def tiff_decode_rgb(data: bytes) -> np.ndarray:
     """TIFF file bytes -> uint8 [H, W, 3] of its first image (see the
     module); ValueError where it fails."""
     data = bytes(data)
-    bo, t = _tags(data)
+    bo, t, whole = _tags(data)
     if 256 not in t or 257 not in t:
         raise ValueError("tiff: missing dimensions")
     w, h = t[256][0], t[257][0]
+    if w < 1 or h < 1:
+        raise ValueError(f"tiff: a {w}x{h} image (Pillow fails it)")
+    if w * h > PILLOW_MAX_PIXELS:
+        raise ValueError(f"tiff: a {w}x{h} image: more pixels than Pillow opens")
     comp = t.get(259, (1,))[0]
     photo = t.get(262, (0,))[0]
+    if comp == 6:
+        raise _refuse("old-style JPEG (compression 6)")
+    planar = t.get(284, (1,))[0]
+    fill = t.get(266, (1,))[0]
+    sf = tuple(t.get(339, (1,)))
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
+    bps = tuple(t.get(258, (1,)))
+    extra = tuple(t.get(338, ()))
     spp = t.get(277, (1,))[0]
-    bps = t.get(258, (1,))
-    extra = t.get(338, ())
-    if t.get(284, (1,))[0] == 2 and spp > 1:
-        raise _refuse("planar configuration 2")
-    if t.get(339, (1,))[0] != 1:
-        raise _refuse(f"sample format {t[339][0]}")
-    if t.get(274, (1,))[0] in (5, 6, 7, 8):
-        raise _refuse(f"orientation {t[274][0]}")
-    if comp not in (1, 5, 8, 32773, 32946):
-        raise _refuse(f"compression {comp}")
-    if len(bps) == 1 and spp > 1:
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
         bps = bps * spp
-    bits = bps[0]
-    if photo == 2:
-        if spp < 3 or set(bps) != {8} or len(extra) != spp - 3 or \
-                any(e not in (0, 2) for e in extra):
-            raise _refuse(f"RGB of {spp} samples at {bps} bits, extra samples {extra}")
-    elif photo in (0, 1, 3):
-        if spp != 1 or bits not in ((1, 2, 4, 8) if photo == 3 else (1, 2, 4, 8)) or extra:
-            raise _refuse(f"photometric {photo} with {spp} samples at {bps} bits")
-        if photo == 3 and 320 not in t:
-            raise ValueError("tiff: a palette image without a ColorMap")
-    else:
-        raise _refuse(f"photometric interpretation {photo}")
-    if 322 in t:  # tiles
+    if len(bps) != spp:
+        raise ValueError("tiff: unknown data organization (Pillow fails it)")
+    key = (photo, sf, fill, bps, extra)
+    got = _layout(bo, key)
+    if got is None:
+        raise ValueError(f"tiff: no mode for photometric {photo}, sample format {sf}, fill "
+                         f"order {fill}, bits {bps}, extra samples {extra} (Pillow fails it)")
+    mode, raw = got
+    if mode == "LAB":
+        raise _refuse("LAB (photometric 8)")
+    if mode in ("P", "PA") and 320 not in t:
+        raise ValueError("tiff: a palette image without a ColorMap (Pillow fails it)")
+    if comp != 1 and comp not in (2, 3, 4, 5, 7, 8, 32773, 32946):
+        raise _refuse(f"compression {comp}")
+    tiled = 322 in t
+    if tiled:
+        if 323 not in t:
+            raise ValueError("tiff: no tile length (Pillow fails it)")
         tw, th = t[322][0], t[323][0]
         offsets, counts = t.get(324, ()), t.get(325, ())
     else:
         tw, th = w, t.get(278, (h,))[0]
         offsets, counts = t.get(273, ()), t.get(279, ())
-    row_bytes = (tw * spp * bits + 7) // 8
-    across = -(-w // tw)
-    out = np.zeros((h, row_bytes * across), np.uint8)  # rows of whole tiles
-    n_chunks = across * -(-h // th)
-    if len(offsets) < n_chunks:
+    if tw < 1 or th < 1:
+        raise ValueError(f"tiff: {tw}x{th} strips or tiles (Pillow fails them)")
+    th = min(th, h) if not tiled else th
+    if comp == 1:
+        counted = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
+        vals = _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode)
+        img = _to_rgb(mode, raw, vals, t)
+    else:
+        if not whole:
+            raise ValueError("tiff: an IFD cut short by the end of the file (libtiff fails it)")
+        if not counts:
+            raise ValueError("tiff: no strip or tile byte counts (libtiff fails it)")
+        img = _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, comp,
+                            fill, key, bo)
+    return np.ascontiguousarray(_orient(img, t.get(274, (1,))[0]))
+
+
+# the bands Pillow has a one-band unpacker for, by mode
+_PLANE_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "L": "L", "P": "P", "1": "1",
+                "I": "I", "F": "F"}
+
+
+def _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode):
+    """Pillow's raw decoder over each strip or tile (see the module) ->
+    the mode's values [h, w, bands]; counted: Pillow's count of bands,
+    which divides a planar right-edge tile's stride."""
+    if planar != 2 and tw == w and th == h:
+        offsets = offsets[-1:]
+    per_plane = -(-w // tw) * -(-h // th)
+    if len(offsets) < per_plane:
         raise ValueError("tiff: fewer strips or tiles than the image needs")
+    vals = None
+    x = y = layer = 0
+    for off in offsets:
+        x1, y1 = min(x + tw, w), min(y + th, h)
+        ew, eh = x1 - x, y1 - y
+        if planar == 2:  # the raw mode's letter for the plane, one band's unpacker
+            band = raw[layer] if layer < len(raw) else ""
+            if band not in _PLANE_BANDS.get(mode, ""):
+                raise ValueError(f"tiff: plane {layer} of raw mode {raw!r} (Pillow fails it)")
+            bbits = {"1": 1, "I": 32, "F": 32}.get(band, 8)
+            row = int(tw * sum(bps) / 8 / counted) if x + tw > w else (ew * bbits + 7) // 8
+        else:
+            row = int(tw * sum(bps) / 8) if x + tw > w else (ew * _raw_bits(raw) + 7) // 8
+        body = data[off:off + row * eh]
+        last = (ew * (bbits if planar == 2 else _raw_bits(raw)) + 7) // 8
+        if len(body) < row * (eh - 1) + last:  # no padding read after the last row
+            raise ValueError("tiff: the image data ends before the image does")
+        rows = np.frombuffer(body + bytes(row * eh - len(body)), np.uint8).reshape(eh, row)
+        if planar == 2:
+            v = _samples(rows, ew, {"1": "1", "I": "I;32S", "F": "F;32F"}.get(band, "L"), "<")
+            if vals is None:
+                vals = np.zeros((h, w, len(_PLANE_BANDS[mode])), v.dtype)
+            vals[y:y1, x:x1, layer] = v[..., 0]
+        else:
+            v = _samples(rows, ew, raw, bo)
+            if vals is None:
+                vals = np.zeros((h, w, v.shape[-1]), v.dtype)
+            vals[y:y1, x:x1] = v
+        x += tw
+        if x >= w:
+            x, y = 0, y + th
+            if y >= h:
+                y, layer = 0, layer + 1
+    if vals is None:
+        raise ValueError("tiff: no image data")
+    return vals
+
+
+def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, comp, fill,
+                  key, bo):
+    """libtiff's decode of each strip or tile, then Pillow's raw mode over
+    the native samples (see the module)."""
+    if fill == 2:
+        got = _layout(bo, key[:2] + (1,) + key[3:])
+        if got is None:
+            raise ValueError("tiff: no mode for fill order 1 (Pillow fails it)")
+        mode, raw = got
+    else:
+        mode, raw = _layout(bo, key)
+    photo = key[0]
+    if raw == "I;16" or raw.endswith((";16B", ";16L")):
+        raw = raw.replace(";16B", ";16N").replace(";16L", ";16N")
+        if raw == "I;16":
+            raw = "I;16N"
+    spp = len(bps)
+    if spp == 1:  # one plane: the chunky layout
+        planar = 1
+    if photo == 6 and spp != 3:
+        raise ValueError("tiff: YCbCr of other than 3 samples (libtiff fails it)")
+    bands = {"1": 1, "L": 1, "P": 1, "I": 1, "F": 1, "I;16": 1, "I;16B": 1, "LA": 2, "PA": 2,
+             "RGB": 3, "RGBA": 4, "CMYK": 4}[mode]
+    if planar == 2 and spp != bands:
+        raise ValueError(f"tiff: {spp} planes for Pillow's {bands}-band mode {mode} "
+                         "(Pillow fails it)")
+    planes = spp if planar == 2 else 1
+    per_plane = -(-w // tw) * -(-h // th)
+    if len(offsets) < per_plane * planes:
+        raise ValueError("tiff: fewer strips or tiles than the image needs")
+    bits = bps[0]
+    sample_bits = bits * (1 if planar == 2 else spp)
+    row_bytes = (tw * sample_bits + 7) // 8
     predictor = t.get(317, (1,))[0]
-    for k in range(n_chunks):
-        ty, tx = divmod(k, across)
-        rows = min(th, h - ty * th) if 322 not in t else th
-        need = rows * row_bytes
+    across = -(-w // tw)
+    chunks = []
+    for k in range(per_plane * planes):
+        ty, tx = divmod(k % per_plane, across)
+        rows = th if tiled else min(th, h - ty * th)
         off = offsets[k]
         cnt = counts[k] if k < len(counts) else len(data) - off
-        raw = data[off:off + cnt]
-        if comp == 1 and len(raw) < need:
-            raise ValueError("tiff: the image data ends before the image does")
-        if t.get(266, (1,))[0] == 2:  # libtiff reverses the stored bytes' bits
-            raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-        block = np.frombuffer(_chunk(raw, comp, need), np.uint8).reshape(rows, row_bytes)
-        if predictor == 2 and comp in (5, 8, 32946):  # libtiff's codecs with a predictor
-            if bits != 8:
-                raise _refuse(f"the horizontal predictor at {bits} bits")
-            block = np.cumsum(block.reshape(rows, tw, spp), axis=1, dtype=np.uint8).reshape(
-                rows, row_bytes)
-        elif predictor not in (1, 2):
-            raise _refuse(f"predictor {predictor}")
-        y0 = ty * th
-        y1 = min(y0 + rows, h)
-        out[y0:y1, tx * row_bytes:(tx + 1) * row_bytes] = block[:y1 - y0]
-    # unpack each tile column's samples, then crop to the image
-    cols = []
-    for tx in range(across):
-        part = out[:, tx * row_bytes:(tx + 1) * row_bytes]
-        if bits == 8:
-            cols.append(part.reshape(h, tw, spp))
+        # TIFFFillStrip / TIFFFillTile: a count of 0 fails, one far past the
+        # chunk's size is cut to 10 x it + 4096, and bytes past the file fail
+        size = th * row_bytes
+        if cnt > 1 << 20 and (cnt - 4096) // 10 > size:
+            cnt = size * 10 + 4096
+        if cnt == 0 or off + cnt > len(data):
+            raise ValueError(f"tiff: strip or tile {k}'s {cnt} bytes at {off} pass the end of "
+                             "the file (libtiff fails it)")
+        rawb = data[off:off + cnt]
+        if fill == 2:  # libtiff reverses the stored bytes' bits
+            rawb = _REVERSE[np.frombuffer(rawb, np.uint8)].tobytes()
+        chunks.append((k, ty, tx, rows, rawb))
+    if photo == 6 and len(bps) == 3 and not (comp == 7 and planar == 1):
+        if comp in (2, 3, 4):
+            raise ValueError("tiff: CCITT YCbCr (libtiff fails it)")
+        sh, sv = t.get(530, (2, 2))
+        need = lambda rows: -(-rows // max(sv, 1)) * -(-tw // max(sh, 1)) * (sh * sv + 2)  # noqa: E731
+        dec = [_codec(r, comp, need(rows)) for _, _, _, rows, r in chunks]
+        return _ycbcr_image(dec, w, h, tw, th, t)
+    out = None
+    for k, ty, tx, rows, rawb in chunks:
+        plane = k // per_plane
+        if comp == 7:
+            from .jpeg import jpeg_tiff_chunk
+            block = jpeg_tiff_chunk(bytes(t.get(347, ())), rawb, photo == 6 and planar == 1,
+                                    tw, rows, sample_bits // 8)
+        elif comp in (2, 3, 4):
+            from .ccitt import ccitt_decode
+            block = ccitt_decode(rawb, comp, tw, rows, t.get(292, (0,))[0],
+                                 t.get(293, (0,))[0])
         else:
-            px = np.unpackbits(part, axis=1)[:, :tw * bits].reshape(h, tw, bits)
-            cols.append((px * (1 << np.arange(bits - 1, -1, -1))).sum(-1, dtype=np.uint8)[..., None])
-    img = np.concatenate(cols, axis=1)[:, :w]
-    if photo == 2:
-        return np.ascontiguousarray(img[..., :3])
-    v = img[..., 0]
-    if photo == 3:
-        cmap = np.array(t[320], np.int64) // 256
-        n = len(cmap) // 3
-        lut = np.zeros((256, 3), np.uint8)  # entries past the map: black
-        lut[:n] = np.stack([cmap[:n], cmap[n:2 * n], cmap[2 * n:3 * n]], -1)[:256]
-        return lut[v]
-    scale = {1: 255, 2: 0x55, 4: 0x11, 8: 1}[bits]
-    v = (v * scale).astype(np.uint8)
-    if photo == 0:
-        v = 255 - v
-    return np.repeat(v[..., None], 3, axis=-1)
+            block = np.frombuffer(_codec(rawb, comp, rows * row_bytes), np.uint8).reshape(
+                rows, row_bytes)
+            if bo == ">" and bits in (16, 32) and not (predictor == 3 and comp in (5, 8, 32946)):
+                # libtiff swabs to native order (the floating-point predictor
+                # gives native samples itself)
+                block = block.reshape(rows, -1, bits // 8)[..., ::-1].reshape(rows, row_bytes)
+            if comp in (5, 8, 32946):
+                block = _unpredict(np.ascontiguousarray(block), predictor, bits,
+                                   1 if planar == 2 else spp, tw)
+            elif predictor not in (1, 2, 3):
+                raise ValueError(f"tiff: predictor {predictor}")
+        if photo == 6 and comp == 7 and planar == 1:
+            v = block[:, :tw * 3].reshape(rows, tw, 3).astype(np.int64)
+        elif planar == 2:
+            v = _plane_samples(block, tw, bits)
+        else:
+            v = _samples(block, tw, raw, "<")
+        if out is None:
+            out = np.zeros((h, w, spp if planar == 2 else v.shape[-1]), v.dtype)
+        y0, x0 = ty * th, tx * tw
+        hh, ww = min(rows, h - y0), min(tw, w - x0)
+        if planar == 2:
+            out[y0:y0 + hh, x0:x0 + ww, plane] = v[:hh, :ww]
+        else:
+            out[y0:y0 + hh, x0:x0 + ww] = v[:hh, :ww]
+    if photo == 6 and comp == 7 and planar == 1:
+        return out.astype(np.uint8)
+    return _to_rgb(mode, raw, out, t)
+
+
+def _plane_samples(block: np.ndarray, width: int, bits: int) -> np.ndarray:
+    """One plane's native samples [rows, width] as its band of the raw mode
+    takes them: 8 bits, or the high byte of 16 (the layouts of more than
+    one sample have no others)."""
+    if bits == 8:
+        return block[:, :width].astype(np.int64)
+    return (np.frombuffer(block[:, :2 * width].tobytes(), "<u2").reshape(-1, width) >> 8
+            ).astype(np.int64)

@@ -2,7 +2,8 @@
 write or writes one way only (a GIF's local colour table, interlace, a
 frame off the canvas; RLE4 and RLE8 BMP, OS/2 headers, bitfields, top-down
 rows; TIFF tiles, big-endian files, the horizontal predictor, fill order 2,
-2- and 4-bit gray, WhiteIsZero). Each returns the file's bytes."""
+2- and 4-bit gray, WhiteIsZero, CCITT strips written without Pillow). Each
+returns the file's bytes."""
 
 from __future__ import annotations
 
@@ -194,12 +195,12 @@ def tiff_lzw(data: bytes) -> bytes:
         codes.append((table[w], width))
         table[wc] = nxt
         nxt += 1
-        if nxt + 1 >= (1 << width) and width < 12:
-            width += 1
-        if nxt >= 4093:
+        if nxt == 4094:  # tif_lzw.c LZWEncode: the table full, a clear
             codes.append((256, width))
             table = {bytes([i]): i for i in range(256)}
             nxt, width = 258, 9
+        elif nxt > (1 << width) - 1:
+            width += 1
         w = bytes([b])
     if w:
         codes.append((table[w], width))
@@ -212,9 +213,134 @@ def tiff_lzw(data: bytes) -> bytes:
         while n >= 8:
             out.append((acc >> (n - 8)) & 255)
             n -= 8
+        acc &= (1 << n) - 1
     if n:
         out.append((acc << (8 - n)) & 255)
     return bytes(out)
+
+
+def tiff_lzw_old(data: bytes) -> bytes:
+    """Old-style LZW (libtiff's LZWDecodeCompat): codes least significant bit
+    first, the width growing once the next free code passes 2^width."""
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width, codes, w = 258, 9, [(256, 9)], b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], width))
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            codes.append((256, width))
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt > (1 << width):
+            width += 1
+        w = bytes([b])
+    if w:
+        codes.append((table[w], width))
+    codes.append((257, width))
+    acc = n = 0
+    out = bytearray()
+    for c, s in codes:
+        acc |= c << n
+        n += s
+        while n >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n -= 8
+    if n:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _ccitt_runs():
+    from latent2im_tpu_torch.utils import ccitt as c
+
+    def codes(term, makeup):
+        out = dict(enumerate(term))
+        out.update({64 * (i + 1): k for i, k in enumerate(makeup)})
+        out.update({1792 + 64 * i: k for i, k in enumerate(c._EXT_MAKEUP)})
+        return out
+
+    modes = {v: k for k, v in c._MODES.items()}
+    return codes(c._WHITE_TERM, c._WHITE_MAKEUP), codes(c._BLACK_TERM, c._BLACK_MAKEUP), modes
+
+
+def _ccitt_run(r: int, table: dict) -> str:
+    out = ""
+    while r >= 2560:
+        out += table[2560]
+        r -= 2560
+    if r >= 64:
+        out += table[r // 64 * 64]
+    return out + table[r % 64]
+
+
+def _ccitt_1d(ch: list, w: int, runs) -> str:
+    out, a0 = [], 0
+    for i, c in enumerate(ch + [w]):
+        out.append(_ccitt_run(c - a0, runs[i % 2]))
+        a0 = c
+    return "".join(out)
+
+
+def _ccitt_2d(ch: list, ref: list, w: int, runs, modes) -> str:
+    """T.4 4.2.1.3's pass, vertical and horizontal modes of a row's changing
+    elements ``ch`` against the reference row's ``ref``."""
+    import bisect
+
+    out, a0, color = [], -1, 0
+    cur, refs = ch + [w, w], ref + [w, w]
+    while a0 < w:
+        j = bisect.bisect_right(cur, a0) if a0 >= 0 else 0
+        a1 = cur[j]
+        i = bisect.bisect_right(ref, a0) if a0 >= 0 else 0
+        i = min(i + (i % 2 != color), len(ref))
+        b1, b2 = refs[i], refs[i + 1]
+        if b2 < a1:
+            out.append(modes["P"])
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(modes[a1 - b1])
+            a0, color = a1, color ^ 1
+        else:
+            a2 = cur[j + 1]
+            out += [modes["H"], _ccitt_run(a1 - max(a0, 0), runs[color]),
+                    _ccitt_run(a2 - a1, runs[color ^ 1])]
+            a0 = a2
+    return "".join(out)
+
+
+def ccitt(black, compression: int, two_d_every: int = 0) -> bytes:
+    """One strip of bilevel rows ``black`` [h, w] (1 black) in CCITT
+    modified Huffman (2: each row 1D from a byte boundary), T.4 (3: an EOL
+    before each row; where ``two_d_every``, T4Options bit 0, a row's tag bit,
+    and every that-many-th row 1D, the rest 2D) or T.6 (4: every row 2D),
+    most significant bit first."""
+    white_runs, black_runs, modes = _ccitt_runs()
+    runs = (white_runs, black_runs)
+    black = np.asarray(black, np.uint8)
+    w = black.shape[1]
+    bits, ref = [], []
+    for y, row in enumerate(black):
+        ch = np.flatnonzero(np.diff(np.concatenate([[0], row]))).tolist()
+        if compression == 2:
+            code = _ccitt_1d(ch, w, runs)
+            code += "0" * (-len(code) % 8)
+        elif compression == 3:
+            one_d = not two_d_every or y % two_d_every == 0
+            code = "0" * 11 + "1" + ("" if not two_d_every else "1" if one_d else "0")
+            code += _ccitt_1d(ch, w, runs) if one_d else _ccitt_2d(ch, ref, w, runs, modes)
+        else:
+            code = _ccitt_2d(ch, ref, w, runs, modes)
+        bits.append(code)
+        ref = ch
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
 
 
 def packbits(data: bytes) -> bytes:
@@ -242,13 +368,35 @@ def _reverse_bits(b: bytes) -> bytes:
 
 
 def tiff(img, bits, photo, bo="<", comp=1, rps=None, tile=None, predictor=1, fill=1,
-         cmap=None, extra=()) -> bytes:
-    """A one-image TIFF of samples img [h, w, spp] at ``bits``."""
+         cmap=None, extra=(), planar=1, sample_format=None, big=False, tags=None,
+         encode_chunk=None) -> bytes:
+    """A one-image TIFF of samples img [h, w, spp] at ``bits`` (1-8 packed,
+    16 or 32 in the file's byte order; float32 where ``sample_format`` is
+    3), chunky or planar (each sample's plane its own strips or tiles, one
+    after another), classic or BigTIFF (``big``); ``tags``: more entries
+    {tag: (type, values)}; ``encode_chunk``: a codec of one strip's or
+    tile's bytes (e.g. JPEG) in place of ``comp``'s."""
     img = np.asarray(img)
     h, w, spp = img.shape
+    dt = {16: "u2", 32: "f4" if sample_format == 3 else "u4"}.get(bits)
 
     def rows_bytes(a):
         hh, ww = a.shape[:2]
+        if bits in (16, 32):
+            a = a.astype(bo + dt)
+            if predictor == 2:
+                d = a.copy()
+                d[:, 1:] = a[:, 1:] - a[:, :-1]
+                a = d
+            if predictor == 3:  # libtiff's fpDiff: byte planes, most significant first
+                nb = bits // 8
+                le = np.frombuffer(a.astype("<" + dt).tobytes(), np.uint8).reshape(hh, -1, nb)
+                planes = le[..., ::-1].transpose(0, 2, 1).reshape(hh, -1)
+                d = planes.astype(np.int64)
+                d[:, a.shape[2]:] = (planes[:, a.shape[2]:].astype(np.int64)
+                                     - planes[:, :-a.shape[2]]) & 255
+                return d.astype(np.uint8)
+            return np.frombuffer(a.tobytes(), np.uint8).reshape(hh, -1)
         if bits == 8:
             a = a.astype(np.int64)
             if predictor == 2:
@@ -256,59 +404,263 @@ def tiff(img, bits, photo, bo="<", comp=1, rps=None, tile=None, predictor=1, fil
                 d[:, 1:] = (a[:, 1:] - a[:, :-1]) & 255
                 a = d
             return a.astype(np.uint8).reshape(hh, -1)
-        planes = ((a.reshape(hh, ww, 1) >> np.arange(bits - 1, -1, -1)) & 1).astype(np.uint8)
+        planes = ((a.reshape(hh, -1, 1) >> np.arange(bits - 1, -1, -1)) & 1).astype(np.uint8)
         return np.packbits(planes.reshape(hh, -1), axis=1)
 
     def encode(b: bytes) -> bytes:
+        if encode_chunk is not None:
+            return encode_chunk(b)
         b = {5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits}.get(
             comp, lambda x: x)(b)
         return _reverse_bits(b) if fill == 2 else b
 
     chunks = []
-    if tile:
-        tw, th = tile
-        for ty in range(0, h, th):
-            for tx in range(0, w, tw):
-                blk = np.zeros((th, tw, spp), img.dtype)
-                part = img[ty:ty + th, tx:tx + tw]
-                blk[:part.shape[0], :part.shape[1]] = part
-                chunks.append(encode(rows_bytes(blk).tobytes()))
-    else:
-        rps = rps or h
-        for y in range(0, h, rps):
-            chunks.append(encode(rows_bytes(img[y:y + rps]).tobytes()))
+    layers = [img[..., i:i + 1] for i in range(spp)] if planar == 2 else [img]
+    for layer in layers:
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    blk = np.zeros((th, tw, layer.shape[2]), img.dtype)
+                    part = layer[ty:ty + th, tx:tx + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(rows_bytes(blk).tobytes()))
+        else:
+            rps = rps or h
+            for y in range(0, h, rps):
+                chunks.append(encode(rows_bytes(layer[y:y + rps]).tobytes()))
+    long_t = 16 if big else 4
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp), (259, 3, [comp]),
                (262, 3, [photo]), (277, 3, [spp])]
     if fill != 1:
         entries.append((266, 3, [fill]))
+    if planar != 1:
+        entries.append((284, 3, [planar]))
     if predictor != 1:
         entries.append((317, 3, [predictor]))
     if cmap is not None:
         entries.append((320, 3, list(cmap)))
     if extra:
         entries.append((338, 3, list(extra)))
-    data = bytearray((b"II*\x00" if bo == "<" else b"MM\x00*") + bytes(4))
+    if sample_format is not None:
+        entries.append((339, 3, [sample_format] * spp))
+    for tag, (typ, vals) in (tags or {}).items():
+        entries.append((tag, typ, list(vals)))
+    head = (b"II" if bo == "<" else b"MM") + struct.pack(bo + "H", 43 if big else 42)
+    head += struct.pack(bo + "HHQ", 8, 0, 0) if big else bytes(4)
+    data = bytearray(head)
     offs = []
     for c in chunks:
         offs.append(len(data))
         data += c
     data += bytes(len(data) % 2)
     if tile:
-        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offs),
-                    (325, 4, [len(c) for c in chunks])]
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, long_t, offs),
+                    (325, long_t, [len(c) for c in chunks])]
     else:
-        entries += [(273, 4, offs), (278, 4, [rps]), (279, 4, [len(c) for c in chunks])]
+        entries += [(273, long_t, offs), (278, 4, [rps]), (279, long_t, [len(c) for c in chunks])]
     entries.sort()
     ifd = len(data)
-    base = ifd + 2 + 12 * len(entries) + 4
-    ifdb, ext = struct.pack(bo + "H", len(entries)), bytearray()
+    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 11: "f", 12: "d", 16: "Q"}
+    if big:
+        base = ifd + 8 + 20 * len(entries) + 8
+        ifdb, ext = struct.pack(bo + "Q", len(entries)), bytearray()
+    else:
+        base = ifd + 2 + 12 * len(entries) + 4
+        ifdb, ext = struct.pack(bo + "H", len(entries)), bytearray()
+    slot = 8 if big else 4
     for tag, typ, vals in entries:
-        raw = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
-        if len(raw) <= 4:
-            ifdb += struct.pack(bo + "HHI", tag, typ, len(vals)) + raw + bytes(4 - len(raw))
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        raw = struct.pack(bo + fmt[typ][0] * len(vals), *vals)
+        head_e = struct.pack(bo + ("HHQ" if big else "HHI"), tag, typ, count)
+        if len(raw) <= slot:
+            ifdb += head_e + raw + bytes(slot - len(raw))
         else:
-            ifdb += struct.pack(bo + "HHII", tag, typ, len(vals), base + len(ext))
+            ifdb += head_e + struct.pack(bo + ("Q" if big else "I"), base + len(ext))
             ext += raw + bytes(len(raw) % 2)
-    data += ifdb + bytes(4) + ext
-    data[4:8] = struct.pack(bo + "I", ifd)
+    data += ifdb + bytes(slot) + ext
+    if big:
+        data[8:16] = struct.pack(bo + "Q", ifd)
+    else:
+        data[4:8] = struct.pack(bo + "I", ifd)
     return bytes(data)
+
+
+# ---------------------------------------------------------------------------
+# formats Pillow writes in a few forms only: TGA, SGI run-length, ICO, CUR
+# ---------------------------------------------------------------------------
+
+def tga_file(w, h, itype, depth, pixels: bytes, flags=0x20, cmap=None, cstart=0,
+             cdepth=24, image_id=b"", cmap_type=None) -> bytes:
+    """A TGA file: its 18-byte header, ID, colour map and pixel bytes as
+    given (run-length packets already coded where ``itype`` says so)."""
+    clen = 0 if cmap is None else len(cmap) // (cdepth // 8)
+    cmap_type = (cmap is not None) if cmap_type is None else cmap_type
+    hdr = struct.pack("<BBBHHBHHHHBB", len(image_id), int(cmap_type), itype, cstart, clen,
+                      cdepth if cmap is not None else 0, 0, 0, w, h, depth, flags)
+    return hdr + image_id + (cmap or b"") + pixels
+
+
+def tga_rle(rows, size: int, seed: int = 0) -> bytes:
+    """Rows of pixels (bytes of ``size``-byte pixels) run-length coded as
+    TGA packets, runs and literals mixed at random, none across a row."""
+    rng = np.random.RandomState(seed)
+    out = bytearray()
+    for row in rows:
+        px = [row[i:i + size] for i in range(0, len(row), size)]
+        i = 0
+        while i < len(px):
+            j = i
+            while j + 1 < len(px) and px[j + 1] == px[i] and j - i < 127:
+                j += 1
+            if j > i and rng.rand() < 0.8:
+                out += bytes([0x80 | (j - i)]) + px[i]
+                i = j + 1
+            else:
+                n = min(len(px) - i, rng.randint(1, 6))
+                out += bytes([n - 1]) + b"".join(px[i:i + n])
+                i += n
+    return bytes(out)
+
+
+def sgi_file(planes, bpc: int = 1, rle: bool = False, dim=None, terminate=True,
+             lengths=None) -> bytes:
+    """An SGI file of channel planes [z, h, w] (top row first; stored bottom
+    up), verbatim or run-length coded (runs of repeats and literals, each
+    row ending in a 0 count unless ``terminate`` is False; ``lengths``
+    overrides the length table)."""
+    planes = np.asarray(planes)
+    z, h, w = planes.shape
+    dim = dim or (3 if z > 1 else 2)
+    hdr = struct.pack(">HBBHHHH", 474, int(rle), bpc, dim, w, h, z)
+    hdr += struct.pack(">ii", 0, 255) + bytes(4) + bytes(80) + struct.pack(">i", 0)
+    hdr += bytes(512 - len(hdr))
+    fmt = ">u2" if bpc == 2 else np.uint8
+    rows = [[planes[c, h - 1 - r].astype(fmt).tobytes() for r in range(h)] for c in range(z)]
+    if not rle:
+        return hdr + b"".join(b"".join(rs) for rs in rows)
+    starts, lens, body = [], [], bytearray()
+    base = 512 + 8 * z * h
+    for c in range(z):
+        for r in range(h):
+            vals = [rows[c][r][i:i + bpc] for i in range(0, len(rows[c][r]), bpc)]
+            code = bytearray()
+            i = 0
+            while i < len(vals):
+                j = i
+                while j + 1 < len(vals) and vals[j + 1] == vals[i] and j - i < 126:
+                    j += 1
+                if j > i:
+                    code += (j - i + 1).to_bytes(bpc, "big") + vals[i]
+                    i = j + 1
+                else:
+                    n = min(len(vals) - i, 5)
+                    code += (0x80 | n).to_bytes(bpc, "big") + b"".join(vals[i:i + n])
+                    i += n
+            if terminate:
+                code += bytes(bpc)
+            starts.append(base + len(body))
+            lens.append(len(code))
+            body += code
+    lens = lengths if lengths is not None else lens
+    tables = struct.pack(f">{len(starts)}I", *starts) + struct.pack(f">{len(lens)}I", *lens)
+    return hdr + tables + bytes(body)
+
+
+def icon_file(frames, kind: int = 1) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2) file of frames (width, height, bit
+    count, colour count, image bytes), the images after the directory."""
+    out = struct.pack("<HHH", 0, kind, len(frames))
+    offset = 6 + 16 * len(frames)
+    blobs = b""
+    for w, h, bpp, colors, blob in frames:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, 1, bpp, len(blob),
+                           offset + len(blobs))
+        blobs += blob
+    return out + blobs
+
+
+def dib_frame(idx, bits: int, pal=None, and_mask: bool = True) -> bytes:
+    """An icon's bitmap: a 40-byte header at twice the height, the colour
+    table, the rows bottom up (4-byte aligned), then the AND mask."""
+    idx = np.asarray(idx)
+    h, w = idx.shape[:2]
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = []
+    for r in range(h - 1, -1, -1):
+        if bits >= 24:
+            row = idx[r][..., ::-1].astype(np.uint8).tobytes() if bits == 24 else \
+                idx[r][..., [2, 1, 0, 3]].astype(np.uint8).tobytes()
+        else:
+            vals = idx[r].astype(np.int64)
+            row = np.packbits(((vals[:, None] >> np.arange(bits - 1, -1, -1)) & 1)
+                              .astype(np.uint8).ravel()).tobytes()
+        rows.append(row + bytes(stride - len(row)))
+    colors = 0 if pal is None else len(pal)
+    hdr = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0, colors, 0)
+    table = b"" if pal is None else b"".join(bytes([b, g, r, 0]) for r, g, b in pal)
+    mask = b""
+    if and_mask:
+        mstride = ((w + 31) >> 5) * 4
+        mask = bytes(mstride * h)
+    return hdr + table + b"".join(rows) + mask
+
+
+# ---------------------------------------------------------------------------
+# photo-sized files of the slowest forms, written without Pillow
+# ---------------------------------------------------------------------------
+
+BAND = 64  # rows of the band an LZW TIFF's or a TGA's image repeats
+
+
+def photo_forms(size: int, seed: int = 0) -> dict:
+    """{name: (file bytes, the RGB its decode must give or None)} of a
+    size x size photo (a gradient with noise, from ``seed``) in the forms
+    the Python readers take longest over: TIFF with LZW (16-bit CMYK; 8-bit
+    RGB with the horizontal predictor) and deflate (16-bit RGBA with the
+    predictor; 8-bit CMYK), group 4 and 2D group 3, Netpbm P6 at maxval 1000
+    and plain P2, and run-length TGA. The LZW and TGA images repeat a
+    ``BAND``-row band, one strip or run of rows each, so that the pure-Python
+    writers code it once; each strip is decoded on its own all the same."""
+    import functools
+
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size]
+    base = np.stack([x * 255 // (size - 1), y * 255 // (size - 1),
+                     (x + y) * 127 // (2 * size - 2)], -1)
+    p = np.clip(base + rng.randint(-40, 41, (size, size, 3)), 0, 255).astype(np.uint8)
+    band = p[:BAND]
+    reps = size // BAND
+    tiled = np.tile(band, (reps, 1, 1))
+    k = rng.randint(0, 256, (size, size, 1)).astype(np.int64)
+    lzw = functools.lru_cache(maxsize=None)(tiff_lzw)
+    black = (p[..., 0] > 128).astype(np.uint8)
+
+    def g4(b, comp, every=0):
+        rows = np.unpackbits(np.frombuffer(b, np.uint8)).reshape(-1, -(-size // 8) * 8)
+        return ccitt(rows[:, :size], comp, every)
+
+    gray = p[..., 0].astype(np.int64)
+    mono = np.repeat(((1 - black) * 255).astype(np.uint8)[..., None], 3, -1)
+    return {
+        "tiff_cmyk16_lzw": (tiff(np.concatenate([tiled, np.tile(k[:BAND], (reps, 1, 1))], -1)
+                                 * 257, 16, 5, "<", 5, rps=BAND, encode_chunk=lzw), None),
+        "tiff_rgb_lzw_predictor": (tiff(tiled, 8, 2, "<", 5, rps=BAND, predictor=2,
+                                        encode_chunk=lzw), tiled),
+        "tiff_rgba16_deflate_predictor": (tiff(np.concatenate([p, k.astype(np.uint8)], -1)
+                                               .astype(np.int64) * 257, 16, 2, ">", 8,
+                                               rps=BAND, predictor=2, extra=(2,)), p),
+        "tiff_cmyk_deflate": (tiff(np.concatenate([p, k.astype(np.uint8)], -1), 8, 5, "<", 8,
+                                   rps=BAND), None),
+        "tiff_g4": (tiff(black[..., None], 1, 0, "<", 4,
+                         encode_chunk=lambda b: g4(b, 4)), mono),
+        "tiff_g3_2d": (tiff(black[..., None], 1, 0, "<", 3, tags={292: (4, [1])},
+                            encode_chunk=lambda b: g4(b, 3, 4)), mono),
+        "ppm_p6_max1000": (b"P6\n%d %d\n1000\n" % (size, size)
+                           + (p.astype(np.int64) * 1000 // 255).astype(">u2").tobytes(), None),
+        "pgm_p2_plain": (b"P2\n# plain\n%d %d\n255\n" % (size, size) + b"\n".join(
+            b" ".join(b"%d" % v for v in row) for row in gray) + b"\n",
+            np.repeat(p[..., :1], 3, -1)),
+        "tga_rle": (tga_file(size, size, 10, 24, tga_rle(
+            [row[:, ::-1].tobytes() for row in band], 3, seed) * reps, flags=0x20), tiled),
+    }

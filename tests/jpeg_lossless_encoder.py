@@ -4,14 +4,15 @@ one, so the tests write lossless files from seeded sample planes here and
 hold the port's decode of each to Pillow's.
 
     lossless_jpeg(planes, sampling, predictor=1, pt=0, restart_rows=0,
-                  interleave=True, marker="jfif") -> bytes
+                  interleave=True, marker="jfif", symbols=ZERO_TO_16) -> bytes
 
 planes: one uint8 array per component at its own (subsampled) size;
 sampling: each component's (h, v) factors; predictor: the selection value
 1-7; pt: the point transform; restart_rows: MCU rows per restart interval
 (0: none); interleave: one scan of every component, else one scan each;
 marker: "jfif" (APP0: YCbCr), "adobe-rgb" (APP14 with transform 0) or
-None.
+None; symbols: the categories 0-16 in the order of the table's 5-bit codes
+(the all-zero code is the first's: what bits past the data decode to).
 """
 
 from __future__ import annotations
@@ -72,19 +73,20 @@ def _differences(plane: np.ndarray, ps: int, pt: int, first_rows) -> np.ndarray:
     return d
 
 
-def _code(bits: _Bits, diff: int):
+def _code(bits: _Bits, diff: int, symbols: bytes = ZERO_TO_16):
     """A difference as its category (a 5-bit code: the table gives each
-    of 0-16 five bits) and its value bits; 32768 is category 16 alone."""
+    of 0-16 five bits, in the order of ``symbols``) and its value bits;
+    32768 is category 16 alone."""
     if diff == -32768:
         diff = 32768
     s = 0 if diff == 0 else 16 if diff == 32768 else abs(diff).bit_length()
-    bits.put(s, 5)
+    bits.put(symbols.index(s), 5)
     if 0 < s < 16:
         bits.put(diff if diff > 0 else diff + (1 << s) - 1, s)
 
 
 def lossless_jpeg(planes, sampling, predictor=1, pt=0, restart_rows=0, interleave=True,
-                  marker="jfif", width=None, height=None) -> bytes:
+                  marker="jfif", width=None, height=None, symbols=ZERO_TO_16) -> bytes:
     n = len(planes)
     hmax = max(h for h, _ in sampling)
     vmax = max(v for _, v in sampling)
@@ -103,7 +105,7 @@ def lossless_jpeg(planes, sampling, predictor=1, pt=0, restart_rows=0, interleav
     out += _seg(0xC3, sof)
     counts = [0] * 16
     counts[4] = 17  # 17 five-bit codes
-    out += _seg(0xC4, bytes([0x00]) + bytes(counts) + ZERO_TO_16)
+    out += _seg(0xC4, bytes([0x00]) + bytes(counts) + bytes(symbols))
     if restart_rows:
         out += _seg(0xDD, struct.pack(">H", restart_rows * mcux))
     scans = [list(range(n))] if interleave else [[c] for c in range(n)]
@@ -134,7 +136,7 @@ def lossless_jpeg(planes, sampling, predictor=1, pt=0, restart_rows=0, interleav
                             d = diffs[c]
                             # MCU padding past the plane: a zero difference
                             _code(bits, int(d[y, x]) if y < d.shape[0] and x < d.shape[1]
-                                  else 0)
+                                  else 0, symbols)
         pieces.append(bits.flush())
         for i, piece in enumerate(pieces):
             if i:

@@ -1,9 +1,12 @@
-"""GIF, BMP and TIFF in the port's image reader (latent2im_tpu_torch/utils/
-gif.py, bmp.py, tiff.py through utils/image.py:read_image_rgb), bit for bit
-against Pillow 12.1's ``Image.open(p).convert("RGB")`` on files written
-here, by Pillow where it writes the form and by tests/image_format_encoders.py
-where it does not; where Pillow fails a file, the port fails it, naming it;
-a TIFF form Pillow reads and the port does not names ROADMAP item 28."""
+"""GIF, BMP, DIB, TIFF, Netpbm, QOI, TGA, PCX, SGI, ICO and CUR in the
+port's image reader (latent2im_tpu_torch/utils/gif.py, bmp.py, tiff.py,
+ccitt.py, netpbm.py, qoi.py, tga.py, pcx.py, sgi.py, ico.py through
+utils/image.py:read_image_rgb), bit for bit against Pillow 12.1's
+``Image.open(p).convert("RGB")`` on files written here, by Pillow where it
+writes the form and by tests/image_format_encoders.py where it does not;
+where Pillow fails a file, the port fails it, naming it; a form Pillow
+reads and the port does not (TIFF's LAB, DDS, JPEG 2000 and the rest of
+the list) names ROADMAP item 28."""
 
 import io
 import os
@@ -14,8 +17,11 @@ import numpy as np
 import PIL.Image
 import pytest
 
-from image_format_encoders import bmp, bmp_rle, bmp_rows, gif, tiff
+from image_format_encoders import (BAND, bmp, bmp_rle, bmp_rows, ccitt, dib_frame, gif,
+                                   icon_file, photo_forms, sgi_file, tga_file, tga_rle, tiff,
+                                   tiff_lzw, tiff_lzw_old)
 from latent2im_tpu_torch.utils import image as im
+from latent2im_tpu_torch.utils import tiff as tiffmod
 
 RNG = np.random.RandomState(17)
 PHOTO = RNG.randint(0, 256, (37, 53, 3)).astype(np.uint8)
@@ -224,21 +230,32 @@ def test_tiff_decodes_as_pillow(tmp_path, case):
 
 
 def test_tiff_forms_pillow_reads_and_the_port_does_not_name_item_28(tmp_path):
-    cmyk = _pillow_saved(PIL.Image.fromarray(PHOTO).convert("CMYK"), "TIFF")
-    i16 = _pillow_saved(PIL.Image.fromarray((PHOTO[..., 0].astype(np.uint16) * 257)), "TIFF")
-    for name, data in (("cmyk.tif", cmyk), ("i16.tif", i16)):
+    lab = _pillow_saved(PIL.Image.fromarray(PHOTO).convert("LAB"), "TIFF")
+    lab_lzw = _pillow_saved(PIL.Image.fromarray(PHOTO).convert("LAB"), "TIFF",
+                            compression="tiff_lzw")
+    for name, data in (("lab.tif", lab), ("lab_lzw.tif", lab_lzw)):
         assert _pillow(data) is not None
         path = tmp_path / name
         path.write_bytes(data)
-        with pytest.raises(ValueError, match=name.replace(".", r"\.") + ".*item 28"):
+        with pytest.raises(ValueError, match=name.replace(".", r"\.") + ".*LAB.*item 28"):
             im.read_image_rgb(str(path))
 
 
 def test_other_kinds_still_name_item_28(tmp_path):
-    path = tmp_path / "a.ppm"
-    PIL.Image.fromarray(PHOTO).save(path, "PPM")
-    with pytest.raises(ValueError, match=r"a\.ppm.*PPM.*item 28"):
-        im.read_image_rgb(str(path))
+    dds = tmp_path / "a.dds"
+    dds.write_bytes(b"DDS " + bytes(124))
+    with pytest.raises(ValueError, match=r"a\.dds.*DDS.*item 28"):
+        im.read_image_rgb(str(dds))
+    j2k = tmp_path / "a.jp2"
+    j2k.write_bytes(b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40))
+    with pytest.raises(ValueError, match=r"a\.jp2.*JPEG 2000.*item 28"):
+        im.read_image_rgb(str(j2k))
+    for name, head in (("a.psd", b"8BPS"), ("a.icns", b"icns"), ("a.msp", b"DanM"),
+                       ("a.fits", b"SIMPLE")):
+        path = tmp_path / name
+        path.write_bytes(head + bytes(200))
+        with pytest.raises(ValueError, match="item 28"):
+            im.read_image_rgb(str(path))
 
 
 def test_the_fixtures_equal_their_recorded_pillow_decodes():
@@ -251,3 +268,522 @@ def test_the_fixtures_equal_their_recorded_pillow_decodes():
     for name in names:
         got = im.read_image_rgb(os.path.join(here, name))
         np.testing.assert_array_equal(got, npz[os.path.splitext(name)[0]])
+
+
+# ---------------------------------------------------------------------------
+# Netpbm, QOI, TGA, PCX, SGI, ICO and CUR, DIB
+# ---------------------------------------------------------------------------
+
+SMALL = RNG.randint(0, 256, (29, 41, 3)).astype(np.uint8)
+
+
+def _netpbm_cases():
+    out = {}
+    img = PIL.Image.fromarray(SMALL)
+    for mode in ("1", "L", "RGB", "I", "F"):
+        x = img.convert(mode) if mode not in ("I", "F") else PIL.Image.fromarray(
+            SMALL[..., 0].astype(np.int32) * 257 - 1000 if mode == "I"
+            else SMALL[..., 1].astype(np.float32) * 1.37 - 20)
+        out[f"pillow_{mode}"] = _pillow_saved(x, "PPM")
+    g, rgb = RNG.randint(0, 256, (7, 9)), RNG.randint(0, 256, (7, 9, 3))
+    for maxval in (1, 3, 15, 100, 254, 256, 1000, 4095, 65534, 65535):
+        vg, vc = RNG.randint(0, maxval + 1, (7, 9)), RNG.randint(0, maxval + 1, (7, 9, 3))
+        fmt = ">u2" if maxval > 255 else np.uint8
+        out[f"p5_max{maxval}"] = b"P5\n9 7\n%d\n" % maxval + vg.astype(fmt).tobytes()
+        out[f"p6_max{maxval}"] = b"P6 9 7 %d\n" % maxval + vc.astype(fmt).tobytes()
+        out[f"p2_max{maxval}"] = b"P2\n# c\n9 7\n%d\n" % maxval + b" ".join(
+            b"%d" % v for v in vg.ravel()) + b"\n"
+        out[f"p3_max{maxval}"] = b"P3\n9 7\n%d\n" % maxval + b"\n".join(
+            b"%d" % v for v in vc.ravel())
+    out["p5_max100_values_past"] = b"P5\n9 7\n100\n" + g.astype(np.uint8).tobytes()
+    out["p2_value_past_max"] = b"P2\n2 1\n10\n5 11\n"
+    bits = RNG.randint(0, 2, (5, 11))
+    out["p1"] = b"P1\n# bits\n11 5\n" + b"".join(
+        b"".join(b"%d" % v for v in row) + b"\n" for row in bits)
+    out["p1_spaced"] = b"P1 11 5 " + b" ".join(b"%d" % v for v in bits.ravel())
+    out["p1_bad_char"] = b"P1 2 1 0 2"
+    out["p4"] = b"P4\n11 5\n" + np.packbits(bits, axis=1).tobytes()
+    out["p4_short"] = b"P4\n11 5\n" + np.packbits(bits, axis=1).tobytes()[:-1]
+    out["p6_short"] = b"P6 9 7 255\n" + bytes(10)
+    out["comment_in_token"] = b"P5\n9#c\n 7\n255\n" + g.astype(np.uint8).tobytes()
+    out["comment_cr"] = b"P6 #x\r9 7 255\n" + rgb.astype(np.uint8).tobytes()
+    out["pf_le"] = b"Pf\n9 7\n-1.0\n" + (RNG.rand(7, 9).astype("<f4") * 300 - 20).tobytes()
+    out["pf_be"] = b"Pf\n9 7\n2.5\n" + (RNG.rand(7, 9).astype(">f4") * 300 - 20).tobytes()
+    out["pf_nan_inf"] = b"Pf 3 1 -1 " + np.array([np.nan, np.inf, -np.inf], "<f4").tobytes()
+    out["PF_color"] = b"PF\n3 1\n-1\n" + bytes(36)
+    out["pam"] = b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\nENDHDR\n" + bytes(6)
+    out["maxval_0"] = b"P5 2 1 0\n" + bytes(2)
+    out["token_too_long"] = b"P5 2 00000000001 255\n" + bytes(2)
+    out["p0cmyk"] = b"P0CMYK\n3 2\n255\n" + RNG.randint(0, 256, 24).astype(np.uint8).tobytes()
+    out["pyrgba"] = b"PyRGBA\n3 2\n255\n" + RNG.randint(0, 256, 24).astype(np.uint8).tobytes()
+    out["pyp"] = b"PyP\n3 2\n255\n" + bytes(6)
+    out["p3_trailing_long_token"] = b"P3 1 1 255 1 2 3 123456789012345"
+    out["p2_short"] = b"P2 3 1 255 1 2"
+    return out
+
+
+def _qoi_cases():
+    out = {}
+    for mode in ("RGB", "RGBA"):
+        a = SMALL.copy()
+        a[3:9, 5:30] = a[3, 5]
+        img = PIL.Image.fromarray(a).convert(mode)
+        if mode == "RGBA":
+            arr = np.asarray(img).copy()
+            arr[..., 3] = RNG.randint(0, 4, arr.shape[:2]) * 85
+            img = PIL.Image.fromarray(arr)
+        data = _pillow_saved(img, "QOI")
+        out[f"pillow_{mode}"] = data
+        out[f"pillow_{mode}_cut"] = data[:len(data) // 2]
+    head = b"qoif" + struct.pack(">II", 4, 2) + bytes([4, 0])
+    out["ops"] = head + bytes([0xFE, 10, 20, 30, 0x7F, 0xA8, 0x9C, 0xC1, 0x05, 0xFF, 1, 2, 3, 4,
+                               0x30]) + bytes(7) + b"\x01"
+    out["run_overshoot"] = b"qoif" + struct.pack(">II", 2, 2) + bytes([3, 0, 0xFE, 9, 8, 7,
+                                                                       0xD4])
+    out["channels_5"] = b"qoif" + struct.pack(">II", 1, 1) + bytes([5, 1, 0xFE, 9, 8, 7])
+    out["short_rgb_op"] = b"qoif" + struct.pack(">II", 1, 1) + bytes([3, 0, 0xFE, 9])
+    return out
+
+
+def _tga_cases():
+    out = {}
+    img = PIL.Image.fromarray(SMALL)
+    for mode in ("RGB", "RGBA", "L", "LA", "P", "1"):
+        x = img.quantize(60) if mode == "P" else img.convert(mode)
+        for rle in (False, True):
+            for orient in (None, 1, -1):
+                opts = {"rle": rle} if orient is None else {"rle": rle, "orientation": orient}
+                out[f"pillow_{mode}_{'rle' if rle else 'raw'}_{orient}"] = _pillow_saved(
+                    x, "TGA", **opts)
+    w, h = 13, 7
+    rgb = RNG.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    rgb[2:5, 3:11] = rgb[2, 3]
+    for flags in (0x00, 0x10, 0x20, 0x30, 0x28):
+        out[f"bgr24_flags{flags:02x}"] = tga_file(w, h, 2, 24, rgb[..., ::-1].tobytes(),
+                                                  flags=flags)
+    px16 = RNG.randint(0, 65536, (h, w)).astype("<u2")
+    out["bgr16"] = tga_file(w, h, 2, 16, px16.tobytes())
+    out["bgr16_rle"] = tga_file(w, h, 10, 16, tga_rle([r.tobytes() for r in px16], 2, 1))
+    out["bgra32_rle"] = tga_file(w, h, 10, 32, tga_rle(
+        [np.concatenate([rgb[r][:, ::-1], rgb[r][:, :1]], -1).tobytes() for r in range(h)], 4, 2))
+    out["bgr24_rle_bottom_up"] = tga_file(w, h, 10, 24, tga_rle(
+        [rgb[r][:, ::-1].tobytes() for r in range(h)], 3, 3), flags=0x00)
+    idx = RNG.randint(0, 40, (h, w)).astype(np.uint8)
+    out["cmap24_start5"] = tga_file(w, h, 1, 8, idx.tobytes(), cmap=RNG.randint(
+        0, 256, 90).astype(np.uint8).tobytes(), cstart=5, image_id=b"hello")
+    out["cmap16"] = tga_file(w, h, 1, 8, idx.tobytes(), cmap=RNG.randint(
+        0, 65536, 40).astype("<u2").tobytes(), cdepth=16)
+    out["cmap32_rle"] = tga_file(w, h, 9, 8, tga_rle([r.tobytes() for r in idx], 1, 4),
+                                 cmap=RNG.randint(0, 256, 160).astype(np.uint8).tobytes(),
+                                 cdepth=32)
+    out["cmap_past_256"] = tga_file(w, h, 1, 8, idx.tobytes(), cmap=bytes(600), cstart=100)
+    out["gray_with_map"] = tga_file(w, h, 3, 8, idx.tobytes(), cmap=RNG.randint(
+        0, 256, 150).astype(np.uint8).tobytes())
+    out["la_with_16bit_map"] = tga_file(w, h, 3, 16, RNG.randint(0, 50, (h, w, 2)).astype(
+        np.uint8).tobytes(), cmap=RNG.randint(0, 65536, 50).astype("<u2").tobytes(), cdepth=16)
+    out["rgb_with_map"] = tga_file(w, h, 2, 24, rgb.tobytes(), cmap=bytes(12))
+    out["gray8_rle"] = tga_file(w, h, 11, 8, tga_rle([r.tobytes() for r in idx], 1, 5))
+    out["gray1"] = tga_file(w, h, 3, 1, np.packbits(RNG.randint(0, 2, (h, w)), axis=1).tobytes())
+    out["gray16_la"] = tga_file(w, h, 3, 16, RNG.randint(0, 256, (h, w, 2)).astype(
+        np.uint8).tobytes())
+    out["rle_across_rows"] = tga_file(4, 2, 10, 24, bytes([0x85, 1, 2, 3]))
+    out["rle_short"] = tga_file(4, 2, 10, 24, bytes([0x81, 1, 2, 3]))
+    out["raw_short"] = tga_file(4, 2, 2, 24, bytes(20))
+    out["gray24_no_raw_mode"] = tga_file(2, 1, 3, 24, bytes(6))
+    out["cmapped_without_map"] = tga_file(2, 1, 1, 8, bytes(2))
+    out["map_depth_15"] = tga_file(2, 1, 1, 8, bytes(2), cmap=bytes(4), cdepth=15)
+    return out
+
+
+def _pcx_file(w, h, planes, provided, lines, bits=1, version=5):
+    hdr = bytearray(128)
+    hdr[0], hdr[1], hdr[2], hdr[3] = 10, version, 1, bits
+    hdr[4:12] = struct.pack("<HHHH", 0, 0, w - 1, h - 1)
+    hdr[16:64] = RNG.randint(0, 256, 48).astype(np.uint8).tobytes()
+    hdr[65] = planes
+    hdr[66:68] = struct.pack("<H", provided)
+    body = bytearray()
+    for line in lines:
+        for b in line:
+            body += bytes([0xC1, b]) if b >= 0xC0 else bytes([b])
+    return bytes(hdr) + bytes(body)
+
+
+def _pcx_cases():
+    out = {}
+    img = PIL.Image.fromarray(SMALL)
+    for mode in ("1", "L", "P", "RGB"):
+        x = img.quantize(70) if mode == "P" else img.convert(mode)
+        out[f"pillow_{mode}"] = _pillow_saved(x, "PCX")
+        out[f"pillow_{mode}_w40"] = _pillow_saved(x.crop((0, 0, 40, 9)), "PCX")
+    out["pillow_identity_gray_palette"] = _pillow_saved(PIL.Image.fromarray(
+        np.tile(np.arange(40, dtype=np.uint8), (5, 1))), "PCX")
+    for w in (3, 5, 13, 21):
+        for planes, bits in ((2, 1), (4, 1), (1, 1), (3, 8), (1, 8)):
+            stride = (w * bits + 7) // 8
+            for provided in (stride, stride + 1):
+                st = stride + stride % 2 if provided != stride else stride
+                lines = [RNG.randint(0, 0xC0, planes * st).astype(np.uint8).tobytes()
+                         for _ in range(3)]
+                out[f"w{w}_{planes}x{bits}_stride{provided}"] = _pcx_file(
+                    w, 3, planes, provided, lines, bits)
+    data = bytearray(out["pillow_L"])
+    data[128:130] = bytes([0xFF, 1])
+    out["run_past_line"] = bytes(data)
+    out["cut"] = out["pillow_RGB"][:400]
+    return out
+
+
+def _sgi_cases():
+    out = {}
+    img = PIL.Image.fromarray(SMALL)
+    for mode in ("L", "RGB", "RGBA"):
+        for bpc in (1, 2):
+            out[f"pillow_{mode}_{bpc}"] = _pillow_saved(img.convert(mode), "SGI", bpc=bpc)
+    planes = RNG.randint(0, 256, (4, 9, 13))
+    planes[:, 2:6, 1:10] = planes[:, 2:3, 1:2]
+    for z in (1, 3, 4):
+        for bpc in (1, 2):
+            p = planes[:z] * 257 + RNG.randint(0, 256, planes[:z].shape) if bpc == 2 else \
+                planes[:z]
+            out[f"rle_z{z}_bpc{bpc}"] = sgi_file(p, bpc, rle=True)
+    out["rle_dim1"] = sgi_file(planes[:1, :1], 1, rle=True, dim=1)
+    out["rle_unterminated"] = sgi_file(planes[:3], 1, rle=True, terminate=False)
+    out["rle_short_rows"] = sgi_file(planes[:1], 1, rle=True, lengths=[2] * 9)
+    out["verbatim_cut"] = out["pillow_RGB_1"][:600]
+    return out
+
+
+def _ico_cases():
+    out = {}
+    img = PIL.Image.fromarray(RNG.randint(0, 256, (64, 64, 3)).astype(np.uint8))
+    out["pillow_png_sizes"] = _pillow_saved(img, "ICO", sizes=[(16, 16), (32, 32), (48, 48)])
+    out["pillow_bmp"] = _pillow_saved(img.convert("RGBA"), "ICO", sizes=[(32, 32)],
+                                      bitmap_format="bmp")
+    out["pillow_bmp_p"] = _pillow_saved(img.quantize(16), "ICO", sizes=[(24, 24)],
+                                        bitmap_format="bmp")
+    pal = [tuple(RNG.randint(0, 256, 3)) for _ in range(16)]
+    idx = RNG.randint(0, 16, (16, 16))
+    rgb, rgba = RNG.randint(0, 256, (16, 16, 3)), RNG.randint(0, 256, (32, 32, 4))
+    f4, f24 = dib_frame(idx, 4, pal), dib_frame(rgb, 24)
+    f32 = dib_frame(rgba, 32, and_mask=False)
+    out["largest_of_three"] = icon_file([(16, 16, 4, 16, f4), (32, 32, 32, 0, f32),
+                                         (16, 16, 24, 0, f24)])
+    out["same_size_two_depths"] = icon_file([(16, 16, 24, 0, f24), (16, 16, 4, 16, f4)])
+    out["mask_cut"] = icon_file([(16, 16, 24, 0, dib_frame(rgb, 24, and_mask=False))])
+    # an entry's size past the file's end by the padding of the mask's last
+    # row: still read, as Pillow reads it; by one byte more: not
+    for name, more in (("mask_last_row_unpadded", 2), ("mask_last_row_short", 3)):
+        data = bytearray(icon_file([(16, 16, 24, 0, dib_frame(rgb, 24))]))
+        data[14:18] = struct.pack("<I", struct.unpack("<I", data[14:18])[0] + more)
+        out[name] = bytes(data)
+    out["no_entries"] = icon_file([])
+    out["cur_24"] = icon_file([(16, 16, 24, 0, f24)], kind=2)
+    out["cur_two"] = icon_file([(16, 16, 4, 16, f4), (32, 32, 32, 0, f32)], kind=2)
+    out["cur_32_at_22"] = icon_file([(16, 16, 32, 0, dib_frame(rgba[:16, :16], 32,
+                                                               and_mask=False))], kind=2)
+    out["cur_png"] = icon_file([(16, 16, 32, 0, _pillow_saved(img.resize((16, 16)), "PNG"))],
+                               kind=2)
+    return out
+
+
+def _dib_cases():
+    return {"from_bmp": _pillow_saved(PIL.Image.fromarray(SMALL), "BMP")[14:],
+            "palette": _pillow_saved(PIL.Image.fromarray(SMALL).quantize(20), "BMP")[14:]}
+
+
+FORMAT_CASES = [(ext, name, data) for ext, make in (
+    ("ppm", _netpbm_cases), ("qoi", _qoi_cases), ("tga", _tga_cases), ("pcx", _pcx_cases),
+    ("sgi", _sgi_cases), ("ico", _ico_cases), ("dib", _dib_cases))
+    for name, data in make().items()]
+
+
+@pytest.mark.parametrize("ext,name,data", FORMAT_CASES,
+                         ids=[f"{e}-{n}" for e, n, _ in FORMAT_CASES])
+def test_each_new_format_decodes_as_pillow(tmp_path, ext, name, data):
+    _check(tmp_path, f"{name}.{ext}", data)
+
+
+def test_the_new_formats_decode_and_fail_as_pillow_does():
+    by_kind = {}
+    for ext, name, data in FORMAT_CASES:
+        ok = _pillow(data) is not None
+        by_kind.setdefault(ext, [0, 0])[ok] += 1
+    for ext, (fail, ok) in by_kind.items():
+        assert ok >= 2, (ext, by_kind)
+        assert fail >= (0 if ext == "dib" else 1), (ext, by_kind)
+
+
+# ---------------------------------------------------------------------------
+# the rest of TIFF
+# ---------------------------------------------------------------------------
+
+T_H, T_W = 11, 13
+TPHOTO = RNG.randint(0, 256, (T_H, T_W, 3)).astype(np.uint8)
+
+
+def _tiff_families() -> dict:
+    """family -> {case: file}: each layout over both byte orders and the
+    raw, LZW, deflate and PackBits paths."""
+    fam = {}
+    g16 = RNG.randint(0, 65536, (T_H, T_W, 1))
+    rgb16 = RNG.randint(0, 65536, (T_H, T_W, 4))
+    six = RNG.randint(0, 256, (T_H, T_W, 6))
+    fl = (RNG.rand(T_H, T_W, 1) * 400 - 50).astype(np.float32)
+    fl[0, :3, 0] = [np.nan, np.inf, -np.inf]
+    big32 = RNG.randint(0, 1 << 32, (T_H, T_W, 1), dtype=np.uint64)
+    cmap = RNG.randint(0, 65536, 768)
+    layouts = {
+        "gray16": lambda bo, c: tiff(g16, 16, 1, bo, c, rps=4),
+        "gray16_white_is_zero": lambda bo, c: tiff(g16, 16, 0, bo, c, rps=4),
+        "gray12": lambda bo, c: tiff(g16 >> 4, 12, 1, bo, c, rps=4),
+        "signed8": lambda bo, c: tiff(six[..., :1], 8, 1, bo, c, sample_format=2),
+        "signed16": lambda bo, c: tiff(g16, 16, 1, bo, c, sample_format=2),
+        "signed32": lambda bo, c: tiff(big32, 32, 1, bo, c, sample_format=2),
+        "unsigned32": lambda bo, c: tiff(big32, 32, 1, bo, c),
+        "float32": lambda bo, c: tiff(fl, 32, 1, bo, c, sample_format=3),
+        "float32_white_is_zero": lambda bo, c: tiff(fl, 32, 0, bo, c, sample_format=3),
+        "rgb16_tiles": lambda bo, c: tiff(rgb16[..., :3], 16, 2, bo, c, tile=(16, 16)),
+        "rgba16": lambda bo, c: tiff(rgb16, 16, 2, bo, c),
+        "rgbx16": lambda bo, c: tiff(rgb16, 16, 2, bo, c, extra=(0,)),
+        "rgba16_associated": lambda bo, c: tiff(rgb16, 16, 2, bo, c, extra=(1,)),
+        "rgba16_unassociated": lambda bo, c: tiff(rgb16, 16, 2, bo, c, extra=(2,)),
+        "rgba8_associated": lambda bo, c: tiff(rgb16 >> 8, 8, 2, bo, c, extra=(1,), rps=3),
+        "rgba8_extra_999": lambda bo, c: tiff(rgb16 >> 8, 8, 2, bo, c, extra=(999,)),
+        "rgb5_associated": lambda bo, c: tiff(six[..., :5], 8, 2, bo, c, extra=(1, 0)),
+        "rgb6_unassociated": lambda bo, c: tiff(six, 8, 2, bo, c, extra=(2, 0, 0)),
+        "cmyk8": lambda bo, c: tiff(six[..., :4], 8, 5, bo, c),
+        "cmyk16": lambda bo, c: tiff(rgb16, 16, 5, bo, c),
+        "cmyk_extra": lambda bo, c: tiff(six[..., :5], 8, 5, bo, c, extra=(0,)),
+        "gray_alpha": lambda bo, c: tiff(six[..., :2], 8, 1, bo, c, extra=(2,)),
+        "palette_extra": lambda bo, c: tiff(six[..., :2] % 16, 8, 3, bo, c, extra=(0,),
+                                            cmap=cmap),
+        "palette_alpha": lambda bo, c: tiff(six[..., :2] % 16, 8, 3, bo, c, extra=(2,),
+                                            cmap=cmap),
+        "ycbcr_one_sample": lambda bo, c: tiff(six[..., :1], 8, 6, bo, c),
+        "ycbcr_1x1": lambda bo, c: tiff(six[..., :3], 8, 6, bo, c, tags={530: (3, [1, 1])}),
+        "planar_rgb": lambda bo, c: tiff(six[..., :3], 8, 2, bo, c, planar=2, rps=5),
+        "planar_rgba": lambda bo, c: tiff(six[..., :4], 8, 2, bo, c, planar=2, extra=(2,)),
+        "planar_rgbx": lambda bo, c: tiff(six[..., :4], 8, 2, bo, c, planar=2, extra=(0,)),
+        "planar_rgba_associated": lambda bo, c: tiff(six[..., :4], 8, 2, bo, c, planar=2,
+                                                     extra=(1,)),
+        "planar_rgb16_tiles": lambda bo, c: tiff(rgb16[..., :3], 16, 2, bo, c, planar=2,
+                                                 tile=(16, 16)),
+        "planar_cmyk": lambda bo, c: tiff(six[..., :4], 8, 5, bo, c, planar=2),
+        "planar_gray_alpha": lambda bo, c: tiff(six[..., :2], 8, 1, bo, c, planar=2,
+                                                extra=(2,)),
+        "planar_one_float": lambda bo, c: tiff(fl, 32, 1, bo, c, planar=2, sample_format=3),
+        "planar_one_gray16": lambda bo, c: tiff(g16, 16, 1, bo, c, planar=2),
+        "planar_one_gray2": lambda bo, c: tiff(six[..., :1] % 4, 2, 1, bo, c, planar=2),
+        "bigtiff_strips": lambda bo, c: tiff(TPHOTO, 8, 2, bo, c, big=True, rps=4),
+        "bigtiff_tiles": lambda bo, c: tiff(TPHOTO, 8, 2, bo, c, big=True, tile=(16, 16)),
+    }
+    for o in range(1, 9):
+        layouts[f"orientation_{o}"] = lambda bo, c, o=o: tiff(TPHOTO, 8, 2, bo, c, rps=3,
+                                                              tags={274: (3, [o])})
+    for name, make in layouts.items():
+        fam[name] = {f"{'le' if bo == '<' else 'be'}_{c}": make(bo, c)
+                     for bo in ("<", ">") for c in (1, 5, 8, 32773)}
+    fam["predictors"] = {
+        f"{name}_{'le' if bo == '<' else 'be'}_{c}": make(bo, c)
+        for bo in ("<", ">") for c in (5, 8) for name, make in (
+            ("gray16", lambda bo, c: tiff(g16, 16, 1, bo, c, predictor=2)),
+            ("rgb16", lambda bo, c: tiff(rgb16[..., :3], 16, 2, bo, c, predictor=2)),
+            ("signed32", lambda bo, c: tiff(big32, 32, 1, bo, c, sample_format=2, predictor=2)),
+            ("float32_fp", lambda bo, c: tiff(fl, 32, 1, bo, c, sample_format=3, predictor=3)),
+            ("gray4", lambda bo, c: tiff(six[..., :1] % 16, 4, 1, bo, c, predictor=2)))}
+    fam["fill_order_2"] = {f"{name}_{'le' if bo == '<' else 'be'}": make(bo)
+                           for bo in ("<", ">") for name, make in (
+                               ("gray16_raw", lambda bo: tiff(g16, 16, 1, bo, 1, fill=2)),
+                               ("gray16_lzw", lambda bo: tiff(g16, 16, 1, bo, 5, fill=2)),
+                               ("rgb_lzw", lambda bo: tiff(TPHOTO, 8, 2, bo, 5, fill=2)))}
+    img = PIL.Image.fromarray(TPHOTO)
+    pillow = {}
+    for mode in ("CMYK", "YCbCr", "I;16", "I", "F", "LA", "PA", "RGBX", "RGBA", "L", "RGB", "1",
+                 "P"):
+        x = {"I;16": lambda: PIL.Image.fromarray(TPHOTO[..., 0].astype(np.uint16) * 251),
+             "I": lambda: PIL.Image.fromarray(TPHOTO[..., 0].astype(np.int32) * 300 - 9000),
+             "F": lambda: PIL.Image.fromarray(TPHOTO[..., 1].astype(np.float32) * 1.7 - 30),
+             "PA": lambda: img.quantize(40).convert("PA"),
+             "P": lambda: img.quantize(40)}.get(mode, lambda: img.convert(mode))()
+        for comp in ("raw", "tiff_lzw", "tiff_deflate", "packbits"):
+            pillow[f"{mode}_{comp}"] = _pillow_saved(x, "TIFF", compression=comp)
+        if mode in ("CMYK", "YCbCr", "LA", "RGBX", "RGBA", "L", "RGB"):
+            pillow[f"{mode}_jpeg"] = _pillow_saved(x, "TIFF", compression="jpeg")
+    fam["pillow_writes"] = pillow
+    big = PIL.Image.fromarray(RNG.randint(0, 256, (70, 90, 3)).astype(np.uint8))
+    fam["jpeg"] = {f"ycbcr_subsampling_{sub}": _pillow_saved(big, "TIFF", compression="jpeg",
+                                                             quality=80, subsampling=sub)
+                   for sub in (0, 1, 2)}
+    fam["jpeg"]["gray"] = _pillow_saved(big.convert("L"), "TIFF", compression="jpeg")
+    return fam
+
+
+TIFF_FAMILIES = _tiff_families()
+
+
+@pytest.mark.parametrize("family", sorted(TIFF_FAMILIES))
+def test_tiff_forms_decode_as_pillow(tmp_path, family):
+    read = 0
+    for case, data in TIFF_FAMILIES[family].items():
+        read += _check(tmp_path, f"{family}_{case}.tif", data)
+    # Pillow fails a planar RGB with an extra plane on both of its paths
+    assert read or family == "planar_rgbx", family
+
+
+def _ycbcr_tiff(h, w, sh, sv, rps=None, tile=None, seed=0, bo="<", tags=None):
+    import zlib
+
+    rng = np.random.RandomState(seed)
+    if tile:
+        bx, by = tile[0] // sh, tile[1] // sv
+        n = -(-w // tile[0]) * -(-h // tile[1])
+    else:
+        r = rps or h
+        bx, by, n = -(-w // sh), -(-r // sv), -(-h // r)
+    raws = iter([rng.randint(0, 256, by * bx * (sh * sv + 2)).astype(np.uint8).tobytes()
+                 for _ in range(n)])
+    more = {530: (3, [sh, sv])}
+    more.update(tags or {})
+    return tiff(np.zeros((h, w, 3), np.uint8), 8, 6, bo, 8, rps=rps, tile=tile, tags=more,
+                encode_chunk=lambda b: zlib.compress(next(raws)))
+
+
+def test_ycbcr_tiff_through_libtiffs_rgba_interface_is_pillows(tmp_path):
+    """Every subsampling libtiff takes (and two it fails), strips (whose
+    scanline size it truncates) and tiles (whose right edge it skips by 10
+    bytes a 4 x 4 block), ReferenceBlackWhite and YCbCrCoefficients."""
+    n = 0
+    refbw = {532: (5, [10, 1, 250, 1, 128, 1, 255, 1, 100, 1, 200, 1]),
+             529: (5, [2990, 10000, 5870, 10000, 1140, 10000])}
+    for sh, sv in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1), (2, 4), (1, 4)):
+        for h, w in ((5, 9), (9, 13), (8, 33), (17, 12)):
+            for rps, tile in ((None, None), (3, None), (None, (16, 16)), (None, (32, 16))):
+                data = _ycbcr_tiff(h, w, sh, sv, rps, tile, seed=n, bo="<>"[n % 2],
+                                   tags=refbw if n % 3 == 0 else None)
+                _check(tmp_path, f"ycc_{sh}x{sv}_{h}x{w}_{rps}_{tile and tile[0]}.tif", data)
+                n += 1
+
+
+def test_ccitt_tiff_is_libtiffs():
+    """Group 3 (1D and 2D), group 4 and modified Huffman, bit orders 1 and 2,
+    as Pillow's libtiff writes them, against its decode."""
+    rng = np.random.RandomState(3)
+    n = 0
+    for trial in range(24):
+        h, w = rng.randint(1, 30), rng.randint(1, 260)
+        a = rng.rand(h, w) > rng.choice([0.02, 0.3, 0.5, 0.95])
+        if trial % 3 == 0:
+            a = np.repeat(a[:, ::7], 7, 1)[:, :w]
+        img = PIL.Image.fromarray(a.astype(np.uint8) * 255).convert("1")
+        for comp, opts in (("group3", {}), ("group3", {"tiffinfo": {292: 1}}), ("group4", {}),
+                           ("tiff_ccitt", {}), ("group4", {"tiffinfo": {266: 2}})):
+            data = _pillow_saved(img, "TIFF", compression=comp, **opts)
+            want = _pillow(data)
+            np.testing.assert_array_equal(tiffmod.tiff_decode_rgb(data), want)
+            n += 1
+    assert n == 120
+
+
+@pytest.mark.parametrize("comp,every", [(2, 0), (3, 0), (3, 4), (4, 0)])
+def test_the_ccitt_writer_is_libtiffs(comp, every):
+    """tests/image_format_encoders.py:ccitt (the CCITT strips phase 55 times,
+    written without Pillow) against libtiff's decode, runs past 2560 (the
+    extended make-up codes) included, and the port's decode of them."""
+    rng = np.random.RandomState(comp + every)
+    for h, w in ((9, 3000), (31, 77), (1, 1)):
+        black = (rng.rand(h, w) > rng.choice([0.1, 0.5, 0.9])).astype(np.uint8)
+        black[0] = 0
+        if h > 2:
+            black[1, 5:2900] = 1
+        tags = {} if comp != 3 else {292: (4, [1 if every else 0])}
+
+        def enc(b, w=w):
+            rows = np.unpackbits(np.frombuffer(b, np.uint8)).reshape(-1, -(-w // 8) * 8)
+            return ccitt(rows[:, :w], comp, every)
+
+        data = tiff(black[..., None], 1, 0, "<", comp, encode_chunk=enc, tags=tags)
+        want = _pillow(data)
+        np.testing.assert_array_equal(want[..., 0], (1 - black) * 255)
+        np.testing.assert_array_equal(tiffmod.tiff_decode_rgb(data), want)
+
+
+PHOTO_FORMS = photo_forms(2 * BAND, 3)
+
+
+@pytest.mark.parametrize("name", sorted(PHOTO_FORMS))
+def test_the_photo_forms_decode_as_pillow(tmp_path, name):
+    """photo_forms (phase 55's photo-sized files, here at two bands) against
+    Pillow, and against the image each was written from where the form
+    keeps it."""
+    data, source = PHOTO_FORMS[name]
+    want = _check(tmp_path, name, data)
+    assert want
+    if source is not None:
+        np.testing.assert_array_equal(_pillow(data), source)
+
+
+def test_lzw_old_and_new_style_are_libtiffs():
+    rng = np.random.RandomState(7)
+    for trial in range(16):
+        n = rng.randint(50, 20000)
+        data = rng.randint(0, rng.randint(2, 256), n).astype(np.uint8)
+        for enc in (tiff_lzw, tiff_lzw_old):
+            f = tiff(data.reshape(1, n, 1), 8, 1, "<", 5, encode_chunk=enc)
+            want = _pillow(f)
+            assert want is not None and np.array_equal(want[0, :, 0], data)
+            np.testing.assert_array_equal(tiffmod.tiff_decode_rgb(f), want)
+
+
+def test_the_tiff_layouts_are_pillows():
+    from PIL import TiffImagePlugin
+
+    for (prefix, *key), want in TiffImagePlugin.OPEN_INFO.items():
+        assert tiffmod._layout("<" if prefix == b"II" else ">", tuple(key)) == want, key
+
+
+def test_cut_raw_files_read_no_padding_after_the_last_row(tmp_path):
+    """Pillow's raw decoder needs no row padding after the last row: a BMP
+    or uncompressed TIFF cut inside it still decodes, one cut further
+    fails, on both sides."""
+    img = PIL.Image.fromarray(SMALL)
+    files = {}
+    for mode in ("P", "RGB", "1", "L"):
+        x = img.quantize(20) if mode == "P" else img.convert(mode)
+        files[f"bmp_{mode}"] = _pillow_saved(x, "BMP")
+        files[f"tiff_{mode}"] = _pillow_saved(x, "TIFF")
+    files["tiff_tiles"] = tiff(SMALL, 8, 2, "<", 1, tile=(16, 16))
+    outcomes = set()
+    for name, data in files.items():
+        for cut in range(0, 48, 3):
+            outcomes.add(_check(tmp_path, f"{name}_{cut}.bin", data[:len(data) - cut]))
+    assert outcomes == {True, False}
+
+
+def test_eps_and_the_stub_formats_fail_as_pillow_fails(tmp_path):
+    eps = _pillow_saved(PIL.Image.fromarray(SMALL), "EPS")
+    for name, data in (("a.eps", eps), ("a.bufr", b"BUFR" + bytes(40)),
+                       ("a.grib", b"GRIB\0\0\0\x01" + bytes(40)),
+                       ("a.h5", b"\x89HDF\r\n\x1a\n" + bytes(40)),
+                       ("a.mpg", b"\0\0\x01\xb3\x01\0\x10\x11" + bytes(40)),
+                       ("a.wmf", b"\xd7\xcd\xc6\x9a\0\0" + bytes(40))):
+        assert _pillow(data) is None, name
+        path = tmp_path / name
+        path.write_bytes(data)
+        with pytest.raises(ValueError, match=name.replace(".", r"\.") + ".*fails to load"):
+            im.read_image_rgb(str(path))
+
+
+def test_the_format_fixtures_equal_their_recorded_pillow_decodes():
+    """tests/fixtures/torch_image_formats (what the card's phase 55 reads)
+    against decodes.npz, and Pillow's decodes still those."""
+    here = os.path.join(os.path.dirname(__file__), "fixtures", "torch_image_formats")
+    npz = np.load(os.path.join(here, "decodes.npz"))
+    names = sorted(f for f in os.listdir(here) if not f.startswith(("decodes", "make_")))
+    assert len(names) >= 20
+    for name in names:
+        got = im.read_image_rgb(os.path.join(here, name))
+        key = os.path.splitext(name)[0]
+        np.testing.assert_array_equal(got, npz[key], err_msg=name)
+        with open(os.path.join(here, name), "rb") as f:
+            np.testing.assert_array_equal(_pillow(f.read()), npz[key], err_msg=name)

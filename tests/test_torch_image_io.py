@@ -134,9 +134,9 @@ def test_every_filter_type_at_every_colour_type_and_depth(color, depth):
 
 
 def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
-    """16-bit and Adam7 PNGs, WEBP and GIF, which this test once held
-    refused, decode as Pillow decodes them; a file of another kind raises
-    naming it and ROADMAP item 28."""
+    """16-bit and Adam7 PNGs, WEBP, GIF and Netpbm, which this test once
+    held refused, decode as Pillow decodes them; a file of a kind still to
+    port (DDS) raises naming it and ROADMAP item 28."""
     rows = (np.arange(96) * 7 % 256).astype(np.uint8).reshape(4, 24)
     data = _png(rows, 4, 4, 16, 2)  # 16-bit RGB, 4 x 4
     np.testing.assert_array_equal(im.png_decode_rgb(data), _pillow_rgb(data))
@@ -161,9 +161,13 @@ def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
     PIL.Image.fromarray(arr).save(path, format="GIF")
     np.testing.assert_array_equal(im.read_image_rgb(str(path)),
                                   np.asarray(PIL.Image.open(path).convert("RGB")))
-    path = tmp_path / "z.ppm"
+    path = tmp_path / "z.ppm"  # Netpbm (once refused): as Pillow
     PIL.Image.fromarray(arr).save(path, format="PPM")
-    with pytest.raises(ValueError, match=r"z\.ppm.*PPM.*item 28"):
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
+    path = tmp_path / "z.dds"  # DDS: still refused, naming the file and item 28
+    path.write_bytes(b"DDS " + bytes(124))
+    with pytest.raises(ValueError, match=r"z\.dds.*DDS.*item 28"):
         im.read_image_rgb(str(path))
     path = tmp_path / "x.png"
     path.write_bytes(im.png_bytes(arr))
