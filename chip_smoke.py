@@ -19,7 +19,8 @@ styled conv split at its all-reduce, --updateGAN under a mesh and sp of
 PGGAN and StyleGAN1 (47-50), the geometric tasks' host targets
 (--host_targets, 51), progressive, CMYK and YCCK JPEG (52), WEBP,
 arithmetic-coded JPEG, 16-bit and Adam7 PNG (53), the native real-image
-path (54) and corrupt JPEGs with the rest of the image formats (55).
+path (54), corrupt JPEGs with the rest of the image formats (55), and DDS
+(BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS (56).
 Phases (a failed phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -280,7 +281,14 @@ Phases (a failed phase raises, and the script exits non-zero):
      every batch the JAX trainer's; then ms a photo of read_image_rgb at
      256 and 1024 px over the slowest forms (LZW and deflate TIFF, 16-bit
      and CMYK, CCITT, Netpbm, TGA) and of both JPEG modes over photos with
-     overwritten scan bytes (``_corrupt_formats_phase``).
+     overwritten scan bytes (``_corrupt_formats_phase``);
+ 56. the fixtures of tests/fixtures/torch_image_textures/ (DDS of BC1-BC7,
+     masks and palettes, BLP, FTEX, PSD, J2K and JP2 of every tier-2 and
+     tier-1 form, ICNS) through read_image_rgb in Python and with the JPEG
+     2000 tier-1 in the host C++, each equal to its recorded Pillow decode;
+     then ms a photo of read_image_rgb over JPEG 2000 photos (256 px
+     reversible and irreversible, Python and C++; 1024 px, C++), a 256 px
+     BC7 DDS and a 256 px PSD (``textures_phase``).
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 512 px training step (B=8) under cuDNN's default and deterministic
 algorithms. The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU
@@ -6413,6 +6421,74 @@ def _photo_decodes(root):
     return out
 
 
+TEXTURES_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_image_textures")
+
+
+def textures_phase(dev):
+    """Phase 56 in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _textures_phase(dev, root)
+
+
+def _textures_phase(dev, root):
+    """Phase 56: (1) every file of tests/fixtures/torch_image_textures
+    through read_image_rgb, Python and host C++ (the JPEG 2000 tier-1;
+    the other readers are the same on both routes; the 1024 px photo C++
+    only), each equal to its recorded Pillow decode (decodes.npz, or its
+    SHA-256 in decodes.json), the JPEG 2000 photos' decodes timed (one
+    each); (2) ms a photo of read_image_rgb over a 256 px BC7 DDS and a
+    256 px PSD (PackBits RGB) written from seed 56 by
+    tests/image_format_encoders.py (median of 3). Host clock, files warm."""
+    import numpy as np
+
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    del dev  # host decode: nothing runs on the card
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from image_format_encoders import dds_file, psd_file
+
+    with open(os.path.join(TEXTURES_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(TEXTURES_FIXTURES, "decodes.npz"))
+    names = sorted(f for f in os.listdir(TEXTURES_FIXTURES)
+                   if os.path.splitext(f)[0] in meta)
+    assert len(names) == len([k for k in meta if k not in ("pillow", "openjpeg")]), names
+    out, n_checked = {"ms_per_photo": {}}, 0
+    for name in names:
+        key, path = os.path.splitext(name)[0], os.path.join(TEXTURES_FIXTURES, name)
+        for route in ((True,) if key.startswith("photo_1024") else (False, True)):
+            t0 = time.perf_counter()
+            got = imgmod.read_image_rgb(path, host_cpp=route)
+            if key.startswith("photo_"):
+                out["ms_per_photo"][f"{name}_{'c' if route else 'python'}"] = (
+                    time.perf_counter() - t0) * 1e3
+            if list(got.shape) != meta[key]["shape"] or _sha256(got) != meta[key]["sha256"] or (
+                    key in npz and not np.array_equal(got, npz[key])):
+                raise AssertionError(f"{name} (host_cpp={route}) is not Pillow's decode")
+            n_checked += 1
+    log(f"    {n_checked} decodes of {len(names)} DDS, BLP, FTEX, PSD, JPEG 2000 and ICNS "
+        f"fixtures (Python and C++ tier-1) equal to Pillow's (Pillow {meta['pillow']}, "
+        f"OpenJPEG {meta['openjpeg']})")
+    rng = np.random.RandomState(56)
+    blocks = rng.randint(0, 256, (64 * 64, 16)).astype(np.uint8)
+    planes = rng.randint(0, 256, (3, 256, 256)).astype(np.uint8)
+    planes[:, 64:192, 32:224] = planes[:, 64:65, 32:33]
+    for name, data in (("dds_bc7_256", dds_file(256, 256, blocks.tobytes(), b"DX10", 98)),
+                       ("psd_packbits_256", psd_file(planes, 3, 8, 1))):
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        got = imgmod.read_image_rgb(path)
+        assert got.shape == (256, 256, 3), (name, got.shape)
+        if name.startswith("psd"):
+            assert np.array_equal(got, planes.transpose(1, 2, 0)), name
+        out["ms_per_photo"][name] = _median_ms(lambda path=path: imgmod.read_image_rgb(path), 3)
+    log(f"    ms a photo, read_image_rgb: {json.dumps(out['ms_per_photo'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6547,6 +6623,9 @@ def _run(refs) -> int:
         "QOI, TGA, PCX, SGI, ICO/CUR, DIB and TIFF fixtures; the regressor CLI on them; "
         "decode ms at 256 and 1024 px")
     cf = timed("55", corrupt_formats_phase, dev)
+    log("[56] DDS (BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS: the fixtures in Python and "
+        "C++ against their Pillow decodes; decode ms of JPEG 2000 photos, a BC7 DDS and a PSD")
+    tx = timed("56", textures_phase, dev)
     log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     kernels = []
     for n, paths in results.items():
@@ -6640,6 +6719,7 @@ def _run(refs) -> int:
               "image_kinds": {k: v for k, v in kinds.items() if k != "launches"},
               "native": {k: v for k, v in nat.items() if k != "launches"},
               "corrupt_formats": {k: v for k, v in cf.items() if k != "launches"},
+              "textures": tx,
               "seconds_by_phase": phase_s,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -4,7 +4,8 @@ Every ``.cu`` source under ``ops/csrc/`` compiles to an object with its own
 ``nvcc`` call, all started together, and one more ``nvcc`` call links them
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The host C++ there (``jpeg_huffman.cpp``, ``webp_decode.cpp``,
-``resample.cpp`` and ``native_decode.cpp``, the image loaders' hot loops)
+``jpeg2000_t1.cpp``, ``resample.cpp`` and ``native_decode.cpp``, the image
+loaders' hot loops)
 compiles the same way, into the same library. No
 source includes PyTorch's headers, so the build takes seconds, not minutes.
 The library is built at first use into ``build/torch_kernels/`` at the root of
@@ -91,6 +92,10 @@ SIGNATURES = {
     "l2i_png_unfilter": (_P, _LL, _I, _LL, _I, _P),
     # img, h, w, size, out (no return value)
     "l2i_crop_resize": (_P, _I, _I, _I, _P),
+    # utils/jpeg2000.py's tier-1 (jpeg2000_t1.cpp): data, int[n][8] block
+    # meta, int[][2] segments, n, out -> 0, -1 out of memory, -2 a block of
+    # 31 or more bit planes
+    "l2i_j2k_t1": (_P, _P, _P, _I, _P),
 }
 # a source's own flags beyond NVCC_FLAGS: the crop-resize's double sums in
 # the order written, no fused multiply-add

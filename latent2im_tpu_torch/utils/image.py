@@ -9,14 +9,17 @@ RGB, CMYK or YCCK (``utils/jpeg.py``), and WEBP, lossless, lossy, with
 alpha or animated (``utils/webp.py``), GIF (its first frame,
 ``utils/gif.py``), BMP and DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``),
 Netpbm, ICO and CUR, PCX, SGI, QOI and TGA (``utils/netpbm.py``,
-``ico.py``, ``pcx.py``, ``sgi.py``, ``qoi.py``, ``tga.py``), each bit for bit
-as Pillow decodes it (``read_image_rgb``); hierarchical and 12-bit JPEG
-raise, naming ROADMAP item 26, as Pillow fails them."""
+``ico.py``, ``pcx.py``, ``sgi.py``, ``qoi.py``, ``tga.py``), DDS with its
+BC1-BC7 blocks, BLP and FTEX, PSD, JPEG 2000 and ICNS (``utils/dds.py``,
+``bcn.py``, ``blp.py``, ``psd.py``, ``jpeg2000.py``, ``icns.py``), each bit
+for bit as Pillow decodes it (``read_image_rgb``); hierarchical and 12-bit
+JPEG raise, naming ROADMAP item 26, as Pillow fails them."""
 
 from __future__ import annotations
 
 import functools
 import math
+import re
 import struct
 import zlib
 
@@ -144,6 +147,62 @@ def _samples(rows: np.ndarray, w: int, spp: int, depth: int) -> np.ndarray:
     return rows.reshape(h, w, spp).astype(np.uint16)
 
 
+def _png_chunks(data: bytes):
+    """PngImageFile's reading of the chunks -> (IHDR's fields, the PLTE
+    before the first IDAT or None, the image data): up to the first IDAT
+    each chunk is read whole and its CRC checked (a bad or cut one, or a
+    type of other than four word characters, and Pillow identifies no
+    image); then the data of the IDAT chunks that follow one another
+    (their CRCs skipped), and of the chunks after them up to IEND, each
+    present in full. ValueError where Pillow fails."""
+    pos, hdr, plte = 8, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("png: the file ends before its image data (Pillow identifies "
+                             "no image)")
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        if not re.fullmatch(rb"\w{4}", tag):
+            raise ValueError(f"png: a broken chunk {tag!r} (Pillow identifies no image)")
+        if tag in (b"IDAT", b"IEND"):
+            break
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ValueError(f"png: chunk {tag!r} cut by the end of the file")
+        if tag == b"IHDR":
+            if n < 13:
+                raise ValueError("png: a truncated IHDR chunk")
+            w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", body[:13])
+            if filt:
+                raise ValueError("png: an unknown filter category (Pillow identifies no "
+                                 "image)")
+            hdr = (w, h, depth, color, comp, filt, int(interlace != 0))
+        elif tag == b"PLTE" and hdr is not None and hdr[3] == 3:
+            plte = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"png: a bad checksum in chunk {tag!r} (Pillow identifies no "
+                             "image)")
+        pos += 12 + n
+    if hdr is None or tag == b"IEND":
+        raise ValueError("png: no IHDR chunk or no image data before IEND")
+    stream, gathering = bytearray(), True
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        if not re.fullmatch(rb"\w{4}", tag) or tag == b"IEND":
+            break
+        body = data[pos + 8:pos + 8 + n]
+        if tag != b"IDAT":
+            gathering = False
+        if gathering:
+            stream += body
+        elif len(body) < n:  # load_end reads each chunk after the image whole
+            raise ValueError(f"png: chunk {tag!r} after the image cut by the end of the file")
+        pos += 12 + n
+    return hdr, plte, bytes(stream)
+
+
 def png_decode_rgb(data: bytes) -> np.ndarray:
     """PNG file bytes -> uint8 [H, W, 3], as Pillow's ``Image.open(f)
     .convert("RGB")`` gives it: gray is replicated (1, 2 and 4-bit gray
@@ -152,35 +211,32 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     sample's high byte, alpha and tRNS are dropped, not composited. Every
     colour type at every legal depth, filters 0-4, no interlace or Adam7
     (seven passes, each with its own filtered rows, sub-byte samples packed
-    per pass row)."""
+    per pass row). Corrupt data as Pillow reads it: the chunks as
+    ``_png_chunks`` walks them, the zlib stream inflated only as far as the
+    image needs."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("png: not a PNG file (bad signature)")
-    pos, idat, hdr, plte = 8, [], None, None
-    while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError("png: no IHDR chunk")
+    hdr, plte, stream = _png_chunks(data)
     w, h, depth, color, _, _, interlace = hdr
+    if not w or not h:
+        raise ValueError(f"png: a {w}x{h} image (Pillow identifies no such file)")
     if w * h > PILLOW_MAX_PIXELS:
         raise ValueError(f"png: a {w}x{h} image: more pixels than Pillow opens "
                          f"({PILLOW_MAX_PIXELS})")
     if color not in _PNG_COLOR or depth not in _PNG_COLOR[color][1]:
         raise ValueError(f"png: colour type {color} at bit depth {depth} is not supported")
-    if interlace not in (0, 1):
-        raise ValueError(f"png: unknown interlace method {interlace}")
     spp = _PNG_COLOR[color][0]
     bpp = max(1, spp * depth // 8)
-    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        need = h * ((w * spp * depth + 7) // 8 + 1)
+    else:
+        need = sum(-(-(h - y0) // dy) * ((-(-(w - x0) // dx) * spp * depth + 7) // 8 + 1)
+                   for x0, y0, dx, dy in _ADAM7 if w > x0 and h > y0)
+    # ZipDecode inflates only until the image is whole: what follows (the
+    # rest of the stream, its checksum) is never read
+    raw = zlib.decompressobj().decompress(stream, need)
+    if len(raw) < need:
+        raise ValueError("png: the image data ends before the image does")
     if not interlace:
         stride = (w * spp * depth + 7) // 8
         vals = _samples(_unfilter(raw, h, stride, bpp), w, spp, depth)
@@ -220,24 +276,17 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
 # read here has taken the file (Pillow's own checks may pass a file on)
 _NOT_READ = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
     ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a"),
-    ("DDS", lambda d: d[:4] == b"DDS "),
     ("FITS", lambda d: d[:6] == b"SIMPLE"),
     ("FLI", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
      and d[14:16] in (b"\0\0", b"\3\0")),
-    ("FTEX", lambda d: d[:4] == b"FTEX"),
     ("GBR", lambda d: len(d) >= 20 and int.from_bytes(d[:4], "big") >= 20
      and int.from_bytes(d[4:8], "big") in (1, 2) and int.from_bytes(d[8:12], "big") > 0
      and int.from_bytes(d[12:16], "big") > 0 and int.from_bytes(d[16:20], "big") in (1, 4)
      and (d[4:8] == b"\0\0\0\x01" or d[24:28] == b"GIMP")),
-    ("JPEG 2000", lambda d: d[:4] == b"\xff\x4f\xff\x51"
-     or d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"),
-    ("ICNS", lambda d: d[:4] == b"icns"),
     ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\x04"),
     ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
     ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0"),
-    ("PSD", lambda d: d[:4] == b"8BPS"),
     ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
 )
 
@@ -273,7 +322,8 @@ def _still_to_port(data: bytes) -> np.ndarray:
 def _decoders(host_cpp: bool = False):
     """The readers in Pillow's order of trying them: (name, accepts, decode);
     the formats still to port, then TGA, which has no signature, last."""
-    from . import ico, netpbm, pcx, qoi, sgi, tga
+    from . import dds, icns, ico, jpeg2000, netpbm, pcx, psd, qoi, sgi, tga
+    from .blp import blp_decode_rgb, ftex_decode_rgb
     from .bmp import dib_decode_rgb
 
     dib_sizes = (12, 40, 52, 56, 64, 108, 124)
@@ -286,11 +336,18 @@ def _decoders(host_cpp: bool = False):
          functools.partial(jpeg_decode_rgb, host_cpp=host_cpp)),
         ("PPM", netpbm.accepts, netpbm.netpbm_decode_rgb),
         ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, png_decode_rgb),
+        ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp_decode_rgb),
         ("CUR", lambda d: d[:4] == b"\0\0\2\0", ico.ico_decode_rgb),
         ("PCX", pcx.accepts, pcx.pcx_decode_rgb),
+        ("DDS", dds.accepts, dds.dds_decode_rgb),
+        ("FTEX", lambda d: d[:4] == b"FTEX", ftex_decode_rgb),
+        ("JPEG 2000", jpeg2000.accepts,
+         functools.partial(jpeg2000.jpeg2000_decode_rgb, host_cpp=host_cpp)),
+        ("ICNS", icns.accepts, functools.partial(icns.icns_decode_rgb, host_cpp=host_cpp)),
         ("ICO", lambda d: d[:4] == b"\0\0\1\0", ico.ico_decode_rgb),
         ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"),
          tiff_decode_rgb),
+        ("PSD", psd.accepts, psd.psd_decode_rgb),
         ("QOI", lambda d: d[:4] == b"qoif", qoi.qoi_decode_rgb),
         ("SGI", sgi.accepts, sgi.sgi_decode_rgb),
         ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
@@ -309,15 +366,19 @@ def read_image_rgb(path: str, host_cpp: bool = False) -> np.ndarray:
     sequential, progressive or lossless, Huffman or arithmetic-coded, 1, 3 or 4
     components, libjpeg's recovery from corrupt data; through its C entry
     where ``host_cpp``), Netpbm (``utils/netpbm.py``), PNG
-    (``png_decode_rgb``), CUR and ICO (``utils/ico.py``), PCX
-    (``utils/pcx.py``), TIFF (``utils/tiff.py``), QOI (``utils/qoi.py``),
-    SGI (``utils/sgi.py``), WEBP (``webp_decode_rgb``, through its C entry
-    where ``host_cpp``) and TGA (``utils/tga.py``); all but JPEG and WEBP
-    in Python only. What the JPEG decoder does not read (hierarchical,
-    12-bit) raises ValueError naming the file and ROADMAP item 26; a TIFF
-    form Pillow reads and ``utils/tiff.py`` does not, a format of the list
-    still to port (DDS, JPEG 2000 and the rest) and a file of no kind read
-    name ROADMAP item 28; a corrupt file raises ValueError naming it."""
+    (``png_decode_rgb``), BLP (``utils/blp.py``), CUR and ICO
+    (``utils/ico.py``), PCX (``utils/pcx.py``), DDS (``utils/dds.py``, its
+    BC1-BC7 blocks in ``utils/bcn.py``), FTEX (``utils/blp.py``), JPEG 2000
+    (``utils/jpeg2000.py``, its tier-1 through the C entry where
+    ``host_cpp``), ICNS (``utils/icns.py``), TIFF (``utils/tiff.py``), PSD
+    (``utils/psd.py``), QOI (``utils/qoi.py``), SGI (``utils/sgi.py``),
+    WEBP (``webp_decode_rgb``, through its C entry where ``host_cpp``) and
+    TGA (``utils/tga.py``); all but JPEG, JPEG 2000 and WEBP in Python only.
+    What the JPEG decoder does not read (hierarchical, 12-bit) raises
+    ValueError naming the file and ROADMAP item 26; a TIFF or PSD form
+    Pillow reads and the port does not (LAB), a format of the list still
+    to port (AVIF and the rest) and a file of no kind read name ROADMAP
+    item 28; a corrupt file raises ValueError naming it."""
     from .modes import NotThisKind
 
     with open(path, "rb") as f:

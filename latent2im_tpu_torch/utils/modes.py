@@ -42,3 +42,23 @@ def rgba_unpremultiplied(v) -> np.ndarray:
     a = v[..., 3:4]
     out = np.where(a == 0, 0, np.minimum(v[..., :3] * 255 // np.maximum(a, 1), 255))
     return np.where(a == 255, v[..., :3], out).astype(np.uint8)
+
+
+def _ycc_table(k: float) -> np.ndarray:
+    """ConvertYCbCr.c's tables: (i - 128) * k * 2^6, + 0.5 and truncated."""
+    return np.trunc((np.arange(256) - 128) * k * 64 + 0.5).astype(np.int64)
+
+
+_R_CR, _B_CB = _ycc_table(1.40200), _ycc_table(1.77200)
+_G_CB, _G_CR = _ycc_table(-0.34414), _ycc_table(-0.71414)
+
+
+def ycbcr_rgb(y, cb, cr) -> np.ndarray:
+    """YCbCr (uint8 values) -> RGB as Pillow's ImagingConvertYCbCr2RGB: the
+    chroma terms from its 6-bit fixed-point tables, shifted (floor) and
+    added to Y, clipped."""
+    y, cb, cr = (np.asarray(v, np.int64) & 0xFF for v in (y, cb, cr))
+    r = y + (_R_CR[cr] >> 6)
+    g = y + ((_G_CB[cb] + _G_CR[cr]) >> 6)
+    b = y + (_B_CB[cb] >> 6)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)

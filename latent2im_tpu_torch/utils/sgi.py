@@ -15,8 +15,10 @@ that many values, clear repeats the next value; a count of 0 ends the row.
 SgiRleDecode.c's quirks are kept: the row buffer is not cleared between
 rows (a row that ends early keeps the last row's values after it), a row
 that reaches its length in packets without a 0 ends the decode there (the
-rows not reached stay black), and a literal run may not end on the file's
-last byte. ``convert("RGB")`` drops the alpha.
+rows not reached stay black), a row's length is a C int (one of 2^31 or
+more packets is negative and decodes nothing, the row buffer kept), and a
+literal run may not end on the file's last byte. ``convert("RGB")`` drops
+the alpha.
 
 What fails (ValueError, as Pillow fails): no magic, another channel size,
 dimension or channel count, a table past the data or an offset into the
@@ -107,7 +109,9 @@ def sgi_decode_rgb(data: bytes) -> np.ndarray:
         if len(src) < 8 * tab:
             raise ValueError("sgi: the run-length tables run past the data")
         starts = struct.unpack(f">{tab}I", src[:4 * tab])
-        lengths = struct.unpack(f">{tab}I", src[4 * tab:8 * tab])
+        # SgiRleDecode.c counts a row's packets in a C int: a length of 2^31
+        # or more is negative there, and such a row decodes nothing
+        lengths = struct.unpack(f">{tab}i", src[4 * tab:8 * tab])
         row = [bytes(bpc)] * (w * bands)
         img = np.zeros((h, w, bands), np.uint8)
         done = False

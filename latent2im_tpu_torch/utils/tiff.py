@@ -11,13 +11,22 @@ for every sample, extra ones cut). Two paths, as in Pillow:
 
 - no compression: Pillow's own raw decoder, strip by strip or tile by tile
   from each offset (the strip byte counts not read; one strip covering the
-  image reads from the last offset), each row unpacked by the layout's raw
+  image reads from the last offset; fewer offsets than the image needs
+  leave the rest black), each row unpacked by the layout's raw
   mode, a fill order of 2 reversing the bits of each byte where the layout
   has such a mode; planar data (configuration 2) reads each plane through
   one 8-bit band of the raw mode, whatever its bits;
-- any compression: libtiff decodes each strip or tile (PackBits, LZW new
-  and old style, deflate 8 and 32946, JPEG 7 through ``utils/jpeg.py``, CCITT 2, 3 and 4
-  through ``utils/ccitt.py``), reversing bits first under fill order 2,
+- any compression: libtiff reads the IFD again itself (``_libtiff_dir``:
+  every entry; of the tags it must have, a wrong type, count or value or
+  one past the end fails; the strip arrays read no further than the image
+  has strips; any other tag it cannot read dropped; byte counts missing
+  estimated for one strip), lays out the strips or tiles from its reading
+  and decodes each (PackBits, LZW new and old style, a new-style stream
+  beginning with a clear code, deflate 8 and 32946, JPEG 7 through
+  ``utils/jpeg.py``, CCITT 2, 3 and 4 through ``utils/ccitt.py``; YCbCr
+  through its RGBA interface, which goes on past a strip it fails to
+  decode, keeping what the codec wrote over the strip before), reversing
+  bits first under fill order 2,
   undoing the horizontal predictor (2) at 8, 16 and 32 bits for LZW and
   deflate or the floating-point one (3), and hands Pillow the samples in
   native (little-endian) order, which its raw modes read as such except
@@ -166,9 +175,10 @@ def _raw_bits(raw: str) -> int:
 # the IFD
 # ---------------------------------------------------------------------------
 
-def _tags(data: bytes) -> tuple[str, dict, bool]:
-    """The first IFD -> (byte order, {tag: values}, whether it was read
-    whole: libtiff, which reads it again itself, fails one that is not)."""
+def _tags(data: bytes) -> tuple[str, dict]:
+    """The first IFD as Pillow reads it -> (byte order, {tag: values}): the
+    tags before an entry or a value cut by the end of the file (libtiff
+    reads the IFD again itself: ``_libtiff_dir``)."""
     if data[:2] == b"II":
         bo = "<"
     elif data[:2] == b"MM":
@@ -192,14 +202,14 @@ def _tags(data: bytes) -> tuple[str, dict, bool]:
     csize = struct.calcsize(cfmt)
     tags = {}
     if ifd + csize > len(data):  # Pillow reads no tags (and fails for want of them)
-        return bo, tags, False
+        return bo, tags
     (n,) = struct.unpack(bo + cfmt, data[ifd:ifd + csize])
     for i in range(n):
         # ImageFileDirectory_v2.load: an entry, or a tag's values, that runs
         # past the end of the file ends the IFD there, keeping what came before
         e = ifd + csize + esize * i
         if e + esize > len(data):
-            return bo, tags, False
+            return bo, tags
         tag, typ, count = struct.unpack(bo + efmt, data[e:e + esize - slot])
         if typ not in _TYPES or count == 0:
             continue
@@ -211,7 +221,7 @@ def _tags(data: bytes) -> tuple[str, dict, bool]:
             (off,) = struct.unpack(bo + ("Q" if big else "I"), data[e + esize - slot:e + esize])
             raw = data[off:off + nbytes]
             if len(raw) < nbytes:
-                return bo, tags, False
+                return bo, tags
         if typ == 2:
             tags[tag] = raw
         elif typ in (5, 10):  # rationals, as libtiff's floats
@@ -219,24 +229,134 @@ def _tags(data: bytes) -> tuple[str, dict, bool]:
             tags[tag] = tuple(float(np.float32(n / d)) if d else 0.0 for n, d in zip(v[::2], v[1::2]))
         else:
             tags[tag] = struct.unpack(bo + fmt * count, raw)
-    return bo, tags, True
+    return bo, tags
+
+
+# libtiff's integer readers (TIFFReadDirEntryShort, Long, ...): the types
+# each takes; any other is "Incompatible type" where the tag is one libtiff
+# must have
+_INT_TYPES = (1, 3, 4, 6, 8, 9, 16, 17)
+_OFFSET_TYPES = _INT_TYPES + (13, 18)
+
+
+def _libtiff_dir(data: bytes) -> dict:
+    """The first IFD as libtiff's TIFFReadDirectory reads it -> {tag:
+    values}, or ValueError where it fails the file. It reads every entry
+    (an entry array cut by the end of the file fails), and of the tags it
+    must have it fails a wrong type, count or value and a value past the
+    end (SamplesPerPixel, Compression, the dimensions, PlanarConfiguration,
+    RowsPerStrip, ExtraSamples, the per-sample shorts, the strip or tile
+    offsets and byte counts); any other tag it cannot read it drops (the
+    ones Pillow stops at: ``_tags``)."""
+    bo = "<" if data[:2] == b"II" else ">"
+    big = struct.unpack(bo + "H", data[2:4])[0] == 43
+    cfmt, efmt, esize, slot = ("Q", "HHQ", 20, 8) if big else ("H", "HHI", 12, 4)
+    (ifd,) = struct.unpack(bo + ("Q" if big else "I"), data[8:16] if big else data[4:8])
+    csize = struct.calcsize(cfmt)
+    if ifd + csize > len(data):
+        raise ValueError("tiff: the IFD's entry count past the end of the file (libtiff "
+                         "fails it)")
+    (n,) = struct.unpack(bo + cfmt, data[ifd:ifd + csize])
+    if ifd + csize + n * esize > len(data):
+        raise ValueError("tiff: an IFD cut short by the end of the file (libtiff fails it)")
+    ents = {}
+    for i in range(n):
+        e = ifd + csize + esize * i
+        tag, typ, count = struct.unpack(bo + efmt, data[e:e + esize - slot])
+        ents.setdefault(tag, (typ, count, e + esize - slot))
+
+    def ints(tag, limit=None):
+        """The entry's integers (at most ``limit`` of them, from where all
+        would lie), or the reason libtiff cannot read them."""
+        typ, count, at = ents[tag]
+        if typ not in (_OFFSET_TYPES if tag in (273, 279, 324, 325) else _INT_TYPES):
+            return "type"
+        fmt, size = _TYPES[typ]
+        if size * count > slot:
+            (at,) = struct.unpack(bo + ("Q" if big else "I"), data[at:at + slot])
+        count = count if limit is None else min(count, limit)
+        raw = data[at:at + size * count]
+        if len(raw) < size * count:
+            return "past the end"
+        v = struct.unpack(bo + fmt * count, raw)
+        if min(v, default=0) < 0:
+            return "range"
+        return v
+
+    def need(tag, default, one=True, persample=False, limit=0xFFFF, most=None):
+        if tag not in ents:
+            return default
+        v = ints(tag, most)
+        if isinstance(v, tuple) and one and len(v) != 1:
+            if not persample or len(v) < spp:
+                v = "count"
+            elif len(set(v[:spp])) != 1:
+                v = "per-sample values"
+            else:
+                v = v[:1]
+        if isinstance(v, tuple) and max(v, default=0) > limit:
+            v = "range"
+        if isinstance(v, str):
+            raise ValueError(f"tiff: tag {tag}: {v} (libtiff fails it)")
+        return v
+
+    spp = need(277, (1,))[0]
+    t = {tag: need(tag, None, persample=tag == 259) for tag in (256, 257, 259, 277, 284)
+         if tag in ents}
+    for tag in (322, 323, 278, 32997):
+        if tag in ents:
+            t[tag] = need(tag, None, limit=0xFFFFFFFF)
+    if t.get(277) == (0,) or t.get(284, (1,))[0] not in (1, 2) or t.get(278) == (0,):
+        raise ValueError("tiff: a bad SamplesPerPixel, PlanarConfiguration or RowsPerStrip "
+                         "(libtiff fails it)")
+    if 338 in ents:
+        t[338] = need(338, (), one=False)
+        if len(t[338]) > spp or any(x > 2 and x != 999 for x in t[338]):
+            raise ValueError("tiff: bad ExtraSamples (libtiff fails it)")
+    for tag in (258, 339, 280, 281, 32996):
+        if tag in ents:
+            t[tag] = need(tag, None, persample=True)
+    if not 1 <= t.get(339, (1,))[0] <= 6:
+        raise ValueError("tiff: a bad SampleFormat (libtiff fails it)")
+    # TIFFFetchStripThing reads no more values than the image has strips
+    w, h = t.get(256, (1,))[0], t.get(257, (1,))[0]
+    if 322 in t or 323 in t:
+        tw, th = t.get(322, (0,))[0], t.get(323, (0,))[0]
+        chunks = -(-w // tw) * -(-h // th) if tw and th else 0
+    else:
+        chunks = -(-h // min(t.get(278, (h,))[0], h or 1))
+    chunks *= spp if t.get(284, (1,))[0] == 2 else 1
+    for tag in (273, 279, 324, 325):
+        if tag in ents:
+            t[tag] = need(tag, None, one=False, limit=1 << 64, most=chunks)
+    if 256 not in t or 257 not in t:
+        raise ValueError("tiff: no ImageLength (libtiff fails it)")
+    for tag in (266, 317):  # FillOrder, Predictor: dropped where they cannot be read
+        if tag in ents and ents[tag][0] in _INT_TYPES and ents[tag][1] == 1:
+            v = ints(tag)
+            if isinstance(v, tuple) and v[0] <= 0xFFFF:
+                t[tag] = v
+    return t
 
 
 # ---------------------------------------------------------------------------
 # codecs
 # ---------------------------------------------------------------------------
 
-def _lzw(data: bytes, need: int) -> bytes:
+def _lzw(data: bytes, need: int, partial: bool = False) -> bytes:
     """libtiff's LZW (tif_lzw.c) -> at most ``need`` bytes: new style (codes
-    most significant bit first, the width growing one code early), or old
-    style where the data starts with a clear code written least significant
-    bit first (LZWDecodeCompat: the width grows as the table passes it)."""
+    most significant bit first, the width growing one code early; a first
+    code other than a clear is not in the table), or old style where the
+    data starts with a clear code written least significant bit first
+    (LZWDecodeCompat: the width grows as the table passes it). A code past
+    the table raises, or with ``partial`` ends the output there."""
     compat = len(data) >= 2 and data[0] == 0 and data[1] & 1
     out = bytearray()
     table = [bytes([i]) for i in range(256)] + [b"", b""]
     append, n = table.append, len(data)
     # the table's size at which the width grows: 2^width, or one less
     width, grow, prev, acc, nacc, pos = 9, 512 - (not compat), None, 0, 0, 0
+    cleared = compat  # LZWPreDecode leaves no code to extend before a clear
     while len(out) < need:
         if nacc < width:
             if not compat and pos + 2 <= n:  # two bytes at a time: width <= 12
@@ -261,12 +381,12 @@ def _lzw(data: bytes, need: int) -> bytes:
             acc &= (1 << nacc) - 1  # the bits not yet read, and no more
         if code == 256:  # clear
             del table[258:]
-            width, grow, prev = 9, 512 - (not compat), None
+            width, grow, prev, cleared = 9, 512 - (not compat), None, True
             continue
         if code == 257:  # end of information
             break
         size = len(table)
-        if code < size:
+        if code < size and cleared:
             entry = table[code]
             if prev is not None:
                 append(prev + entry[:1])
@@ -274,6 +394,8 @@ def _lzw(data: bytes, need: int) -> bytes:
             entry = prev + prev[:1]
             append(entry)
         else:
+            if partial:
+                break
             raise ValueError("tiff: an LZW code past the table (corrupt data)")
         out += entry
         prev = entry
@@ -297,20 +419,32 @@ def _packbits(data: bytes, need: int) -> bytes:
     return bytes(out[:need])
 
 
-def _codec(raw: bytes, comp: int, need: int) -> bytes:
-    """One strip's or tile's data through libtiff's codec -> ``need`` bytes."""
+def _codec(raw: bytes, comp: int, need: int, partial: bool = False) -> bytes:
+    """One strip's or tile's data through libtiff's codec -> ``need`` bytes;
+    with ``partial``, what the codec wrote before it failed or ran out (the
+    RGBA interface ignores the error)."""
     if comp == 32773:
         out = _packbits(raw, need)
     elif comp == 5:
-        out = _lzw(raw, need)
+        out = _lzw(raw, need, partial)
     elif comp in (8, 32946):
         try:  # ZIPDecode stops once it has the chunk's bytes, before the checksum
             out = zlib.decompressobj().decompress(raw, need)
         except zlib.error as e:
-            raise ValueError(f"tiff: bad deflate data ({e})") from e
+            if not partial:
+                raise ValueError(f"tiff: bad deflate data ({e})") from e
+            out, d = bytearray(), zlib.decompressobj()
+            try:  # inflate writes its output as it goes: keep what came before the error
+                for i in range(len(raw)):
+                    out += d.decompress(raw[i:i + 1], need - len(out))
+                    if len(out) >= need:
+                        break
+            except zlib.error:
+                pass
+            out = bytes(out)
     else:
         raise _refuse(f"compression {comp}")
-    if len(out) < need:
+    if len(out) < need and not partial:
         raise ValueError("tiff: a strip or tile ends before its data does")
     return out
 
@@ -475,7 +609,8 @@ def _ycbcr_rgb(y, cb, cr, t: dict) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def _ycbcr_image(chunks, w: int, h: int, cw: int, ch: int, t: dict) -> np.ndarray:
+def _ycbcr_image(chunks, w: int, h: int, cw: int, ch: int, t: dict,
+                 tiled: bool) -> np.ndarray:
     """libtiff's RGBA interface over YCbCr chunks (each ch rows of cw pixels
     as stored: blocks of sh x sv luma samples then Cb, Cr) -> RGB [h, w, 3],
     each block's chroma over its luma, as gtStripContig and gtTileContig
@@ -486,7 +621,6 @@ def _ycbcr_image(chunks, w: int, h: int, cw: int, ch: int, t: dict) -> np.ndarra
     sh, sv = t.get(530, (2, 2))
     if (sh, sv) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)):
         raise ValueError(f"tiff: YCbCr subsampling {sh}x{sv} (libtiff fails it)")
-    tiled = 322 in t
     bx = -(-cw // sh)
     size = sh * sv + 2
     # gtStripContig reads a strip's rows (rounded up to the subsampling) x
@@ -552,7 +686,7 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
     """TIFF file bytes -> uint8 [H, W, 3] of its first image (see the
     module); ValueError where it fails."""
     data = bytes(data)
-    bo, t, whole = _tags(data)
+    bo, t = _tags(data)
     if 256 not in t or 257 not in t:
         raise ValueError("tiff: missing dimensions")
     w, h = t[256][0], t[257][0]
@@ -590,11 +724,13 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
         raise ValueError("tiff: a palette image without a ColorMap (Pillow fails it)")
     if comp != 1 and comp not in (2, 3, 4, 5, 7, 8, 32773, 32946):
         raise _refuse(f"compression {comp}")
-    tiled = 322 in t
+    # Pillow's raw decoder takes strip offsets over tile offsets where the
+    # IFD has both; libtiff's path lays out its own below
+    tiled = (273 not in t and 324 in t) if comp == 1 else 322 in t
     if tiled:
-        if 323 not in t:
-            raise ValueError("tiff: no tile length (Pillow fails it)")
-        tw, th = t[322][0], t[323][0]
+        if (322 not in t or 323 not in t) and comp == 1:
+            raise ValueError("tiff: no tile width or length (Pillow fails it)")
+        tw, th = t.get(322, (1,))[0], t.get(323, (1,))[0]
         offsets, counts = t.get(324, ()), t.get(325, ())
     else:
         tw, th = w, t.get(278, (h,))[0]
@@ -607,12 +743,38 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
         vals = _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode)
         img = _to_rgb(mode, raw, vals, t)
     else:
-        if not whole:
-            raise ValueError("tiff: an IFD cut short by the end of the file (libtiff fails it)")
-        if not counts:
-            raise ValueError("tiff: no strip or tile byte counts (libtiff fails it)")
-        img = _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, comp,
-                            fill, key, bo)
+        # Pillow's tags give the mode; libtiff lays out and decodes the
+        # strips or tiles from its own reading of the IFD
+        lt = _libtiff_dir(data)
+        tiled = 322 in lt or 323 in lt
+        lw, lh = lt[256][0], lt[257][0]
+        tw, th = ((lt.get(322, (0,))[0], lt.get(323, (0,))[0]) if tiled
+                  else (lw, min(lt.get(278, (lh,))[0], lh)))
+        if tw < 1 or th < 1:
+            raise ValueError(f"tiff: {tw}x{th} tiles (libtiff fails them)")
+        planar = lt.get(284, (1,))[0]
+        offsets = lt.get(324 if tiled else 273)
+        if offsets is None:
+            raise ValueError("tiff: no strip or tile offsets (libtiff fails it)")
+        counts = lt.get(325 if tiled else 279)
+        if counts is None:
+            counts = _estimate_counts(data, lt, offsets, lw, lh, tw, th, planar)
+        # Pillow's decoder fails where its raw mode unpacks rows of another
+        # size than libtiff's samples make (a tag Pillow stopped before:
+        # its own SamplesPerPixel taken as 1)
+        rgba_interface = photo == 6 and len(bps) == 3 and not (comp == 7 and planar == 1)
+        pillow_bits = 24 if photo == 6 and comp == 7 and planar == 1 else _raw_bits(raw)
+        if planar == 1 and not rgba_interface and (
+                lt.get(277, (1,))[0] * lt.get(258, (1,))[0] != pillow_bits):
+            raise ValueError("tiff: Pillow's raw mode and libtiff's samples disagree on a "
+                             "row's size (Pillow's decoder fails it)")
+        t = {**t, **{k: lt[k] for k in (259, 266, 317) if k in lt}}
+        for k in (266, 317):
+            if k not in lt:
+                t.pop(k, None)
+        img = _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps,
+                            lt.get(259, (1,))[0], lt.get(266, (1,))[0], key, bo,
+                            lt.get(338, ()))
     return np.ascontiguousarray(_orient(img, t.get(274, (1,))[0]))
 
 
@@ -627,10 +789,7 @@ def _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode):
     which divides a planar right-edge tile's stride."""
     if planar != 2 and tw == w and th == h:
         offsets = offsets[-1:]
-    per_plane = -(-w // tw) * -(-h // th)
-    if len(offsets) < per_plane:
-        raise ValueError("tiff: fewer strips or tiles than the image needs")
-    vals = None
+    vals = None  # fewer offsets than the image needs leave the rest black
     x = y = layer = 0
     for off in offsets:
         x1, y1 = min(x + tw, w), min(y + th, h)
@@ -668,10 +827,43 @@ def _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode):
     return vals
 
 
+def _estimate_counts(data, lt, offsets, w, h, tw, th, planar):
+    """EstimateStripByteCounts for a compressed image without byte counts:
+    libtiff takes one strip (or one a plane) only, each running over the
+    file less the header, the IFD and its values stored apart, the last one
+    cut at the end of the file."""
+    spp = lt.get(277, (1,))[0]
+    strips = -(-h // th) * (spp if planar == 2 else 1)
+    if strips != (spp if planar == 2 else 1) or tw != w:
+        raise ValueError("tiff: no strip byte counts for more than one strip (libtiff "
+                         "fails it)")
+    bo = "<" if data[:2] == b"II" else ">"
+    big = struct.unpack(bo + "H", data[2:4])[0] == 43
+    (ifd,) = struct.unpack(bo + ("Q" if big else "I"), data[8:16] if big else data[4:8])
+    csize, esize, slot = (8, 20, 8) if big else (2, 12, 4)
+    (n,) = struct.unpack(bo + ("Q" if big else "H"), data[ifd:ifd + csize])
+    space = (16 + 8 + 20 * n + 8) if big else (8 + 2 + 12 * n + 4)
+    for i in range(n):
+        e = ifd + csize + esize * i
+        typ, count = struct.unpack(bo + ("HQ" if big else "HI"), data[e + 2:e + esize - slot])
+        if typ not in _TYPES and typ != 0:  # TIFFDataWidth counts type 0 a byte
+            raise ValueError(f"tiff: an entry of unknown type {typ} (libtiff fails it)")
+        size = _TYPES.get(typ, ("B", 1))[1] * count
+        space += size if size > slot else 0
+    space = (len(data) if len(data) < space else len(data) - space) // (
+        spp if planar == 2 else 1)
+    counts = [space] * strips
+    if offsets and offsets[-1] + space > len(data):
+        counts[-1] = max(len(data) - offsets[-1], 0)
+    return tuple(counts)
+
+
 def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, comp, fill,
-                  key, bo):
+                  key, bo, extra=()):
     """libtiff's decode of each strip or tile, then Pillow's raw mode over
-    the native samples (see the module)."""
+    the native samples (see the module); ``extra``: libtiff's ExtraSamples,
+    by which Pillow's decoder divides the alpha of planar RGBA out
+    (unspecified or associated), whatever its own reading of the IFD."""
     if fill == 2:
         got = _layout(bo, key[:2] + (1,) + key[3:])
         if got is None:
@@ -704,6 +896,7 @@ def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, co
     predictor = t.get(317, (1,))[0]
     across = -(-w // tw)
     chunks = []
+    rgba_interface = photo == 6 and len(bps) == 3 and not (comp == 7 and planar == 1)
     for k in range(per_plane * planes):
         ty, tx = divmod(k % per_plane, across)
         rows = th if tiled else min(th, h - ty * th)
@@ -715,19 +908,29 @@ def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, co
         if cnt > 1 << 20 and (cnt - 4096) // 10 > size:
             cnt = size * 10 + 4096
         if cnt == 0 or off + cnt > len(data):
+            if rgba_interface and chunks:  # libtiff's RGBA interface goes on
+                chunks.append((k, ty, tx, rows, None))
+                continue
             raise ValueError(f"tiff: strip or tile {k}'s {cnt} bytes at {off} pass the end of "
                              "the file (libtiff fails it)")
         rawb = data[off:off + cnt]
         if fill == 2:  # libtiff reverses the stored bytes' bits
             rawb = _REVERSE[np.frombuffer(rawb, np.uint8)].tobytes()
         chunks.append((k, ty, tx, rows, rawb))
-    if photo == 6 and len(bps) == 3 and not (comp == 7 and planar == 1):
+    if rgba_interface:
         if comp in (2, 3, 4):
             raise ValueError("tiff: CCITT YCbCr (libtiff fails it)")
         sh, sv = t.get(530, (2, 2))
         need = lambda rows: -(-rows // max(sv, 1)) * -(-tw // max(sh, 1)) * (sh * sv + 2)  # noqa: E731
-        dec = [_codec(r, comp, need(rows)) for _, _, _, rows, r in chunks]
-        return _ycbcr_image(dec, w, h, tw, th, t)
+        # gtStripContig / gtTileContig go on past a chunk libtiff fails to
+        # decode: its buffer (zeroed once) keeps what the codec wrote over
+        # what the chunk before left
+        dec, buf = [], bytearray(max(need(rows) for _, _, _, rows, _ in chunks))
+        for _, _, _, rows, r in chunks:
+            got = b"" if r is None else _codec(r, comp, need(rows), partial=True)
+            buf[:len(got)] = got
+            dec.append(bytes(buf[:need(rows)]))
+        return _ycbcr_image(dec, w, h, tw, th, t, tiled)
     out = None
     for k, ty, tx, rows, rawb in chunks:
         plane = k // per_plane
@@ -767,6 +970,8 @@ def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, co
             out[y0:y0 + hh, x0:x0 + ww] = v[:hh, :ww]
     if photo == 6 and comp == 7 and planar == 1:
         return out.astype(np.uint8)
+    if planar == 2 and mode == "RGBA":
+        raw = "RGBa" if extra and extra[0] in (0, 1) else "RGBA"
     return _to_rgb(mode, raw, out, t)
 
 

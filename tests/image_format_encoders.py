@@ -1,12 +1,14 @@
-"""Small GIF, BMP and TIFF writers for the tests: the forms Pillow cannot
-write or writes one way only (a GIF's local colour table, interlace, a
-frame off the canvas; RLE4 and RLE8 BMP, OS/2 headers, bitfields, top-down
-rows; TIFF tiles, big-endian files, the horizontal predictor, fill order 2,
-2- and 4-bit gray, WhiteIsZero, CCITT strips written without Pillow). Each
-returns the file's bytes."""
+"""Small image writers for the tests: the forms Pillow cannot write or
+writes one way only (a GIF's local colour table, interlace, a frame off the
+canvas; RLE4 and RLE8 BMP, OS/2 headers, bitfields, top-down rows; TIFF
+tiles, big-endian files, the horizontal predictor, fill order 2, 2- and
+4-bit gray, WhiteIsZero, CCITT strips written without Pillow; DDS headers,
+BLP, FTEX, PSD and ICNS files; JPEG 2000 codestreams rewritten from
+Pillow's). Each returns the file's bytes."""
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 
@@ -664,3 +666,216 @@ def photo_forms(size: int, seed: int = 0) -> dict:
         "tga_rle": (tga_file(size, size, 10, 24, tga_rle(
             [row[:, ::-1].tobytes() for row in band], 3, seed) * reps, flags=0x20), tiled),
     }
+
+
+# ---------------------------------------------------------------------------
+# textures and Photoshop files (what Pillow 12.1 cannot write)
+# ---------------------------------------------------------------------------
+
+def dds_file(w: int, h: int, body: bytes, fourcc: bytes = b"", dxgi: int = 0, pfflags: int = 0,
+             bitcount: int = 0, masks=(0, 0, 0, 0)) -> bytes:
+    """A DDS file: the 124-byte header (FourCC ``fourcc`` with the FourCC
+    flag, else ``pfflags``, ``bitcount`` and ``masks``), a DX10 header where
+    ``fourcc`` is DX10, then ``body``."""
+    flags = pfflags | (0x4 if fourcc else 0)
+    hdr = struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 1) + bytes(44)
+    hdr += struct.pack("<2I4s5I", 32, flags, fourcc.ljust(4, b"\0"), bitcount, *masks)
+    hdr += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    ext = struct.pack("<5I", dxgi, 3, 0, 1, 0) if fourcc == b"DX10" else b""
+    return b"DDS " + hdr + ext + body
+
+
+def blp_file(version: int, w: int, h: int, mip: bytes, comp: int = 1, enc: int = 1,
+             alpha: int = 0, aenc: int = 0, palette: bytes = b"", jpeg_header: bytes = b"",
+             gap: bytes = b"") -> bytes:
+    """A BLP1 or BLP2 file of one mip: the header, the 16 offsets and
+    lengths, the palette (or BLP1's JPEG header), ``gap``, then ``mip``."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", comp, alpha, w, h, enc, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", comp, enc, alpha, aenc, 1, w, h)
+    mid = (struct.pack("<I", len(jpeg_header)) + jpeg_header) if comp == 0 else palette
+    off = len(head) + 128 + len(mid) + len(gap)
+    tables = struct.pack("<16I", off, *[0] * 15) + struct.pack("<16I", len(mip), *[0] * 15)
+    return head + tables + mid + gap + mip
+
+
+def ftex_file(w: int, h: int, fmt: int, body: bytes) -> bytes:
+    """An FTEX file of one format and one mipmap."""
+    head = b"FTEX" + struct.pack("<i2i2i2i", 1, w, h, 1, 1, fmt, 32)
+    return head + struct.pack("<i", len(body)) + body
+
+
+def psd_packbits_rows(plane: np.ndarray) -> list:
+    return [packbits(row.tobytes()) for row in np.asarray(plane, np.uint8)]
+
+
+def psd_file(planes, mode: int, bits: int = 8, comp: int = 0, palette: bytes = b"",
+             resources: bytes = b"", layers: bytes = b"") -> bytes:
+    """A PSD file of the composite ``planes`` [C, H, W] uint8 (bitmap
+    planes packed 8 pixels a byte), raw or PackBits."""
+    planes = np.asarray(planes, np.uint8)
+    c, h, w = planes.shape
+    if bits == 1:
+        planes = np.packbits(planes.astype(bool), axis=2)
+    head = b"8BPS" + struct.pack(">H6sHIIHH", 1, bytes(6), c, h, w, bits, mode)
+    out = head + struct.pack(">I", len(palette)) + palette
+    out += struct.pack(">I", len(resources)) + resources
+    out += struct.pack(">I", len(layers)) + layers
+    if comp == 0:
+        return out + struct.pack(">H", 0) + planes.tobytes()
+    rows = [r for p in planes for r in psd_packbits_rows(p)]
+    return (out + struct.pack(">H", 1) + np.array([len(r) for r in rows], ">u2").tobytes()
+            + b"".join(rows))
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000: codestreams rewritten from Pillow's, and JP2 boxes
+# ---------------------------------------------------------------------------
+
+def _j2k_marker(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def j2k_main_header(cs: bytes):
+    """A codestream -> ([(marker, body)] of its main header after SIZ, the
+    SIZ body, the rest from the first SOT)."""
+    pos = 2
+    segs = []
+    while True:
+        marker, n = struct.unpack(">HH", cs[pos:pos + 4])
+        if marker == 0xFF90:
+            break
+        segs.append((marker, cs[pos + 4:pos + 2 + n]))
+        pos += 2 + n
+    siz = segs.pop(0)
+    assert siz[0] == 0xFF51
+    return segs, siz[1], cs[pos:]
+
+
+def j2k_rebuild(siz: bytes, segs, rest: bytes) -> bytes:
+    return (b"\xff\x4f" + _j2k_marker(0xFF51, siz)
+            + b"".join(_j2k_marker(m, b) for m, b in segs) + rest)
+
+
+def j2k_with(cs: bytes, extra=(), siz=None, cod=None) -> bytes:
+    """``cs`` with marker segments ``extra`` [(marker, body)] added to its
+    main header, and its SIZ or COD body replaced."""
+    segs, s, rest = j2k_main_header(cs)
+    if cod is not None:
+        segs = [(m, cod if m == 0xFF52 else b) for m, b in segs]
+    return j2k_rebuild(siz if siz is not None else s, list(segs) + list(extra), rest)
+
+
+@functools.lru_cache(maxsize=16)
+def _j2k_packets(cs: bytes):
+    """{tile: (its tile-part header segments, [(header, body)] of each
+    packet)} as utils/jpeg2000.py's tier-2 walks them (one tile-part a tile,
+    headers in the packets)."""
+    from latent2im_tpu_torch.utils import jpeg2000 as j2k
+
+    h, tiles = j2k._codestream(cs)
+    out = {}
+    for index, t in sorted(tiles.items()):
+        j2k._decode_tile(h, t, index, False)
+        data = bytes(t.data)
+        out[index] = [(data[s:e1], data[e1:e2]) for s, e1, e2 in t.spans]
+    return out
+
+
+def j2k_repack(cs: bytes, sop: bool = False, eph: bool = False, headers: str = "") -> bytes:
+    """``cs`` (one tile-part a tile, no SOP, EPH or packed headers) with SOP
+    before each packet, EPH after each packet header, and the headers moved
+    into PPT (each tile's) or PPM (the main header's) segments."""
+    segs, siz, _ = j2k_main_header(cs)
+    packets = _j2k_packets(cs)
+    segs = [(m, bytes([b[0] | (2 if sop else 0) | (4 if eph else 0)]) + b[1:]) if m == 0xFF52
+            else (m, b) for m, b in segs]
+    tiles, ppm = b"", b""
+    for index, pk in packets.items():
+        body, heads = b"", b""
+        for k, (head, data) in enumerate(pk):
+            head = head + (b"\xff\x92" if eph else b"")
+            mark = struct.pack(">HHH", 0xFF91, 4, k % 65536) if sop else b""
+            if headers:
+                heads += head
+                body += mark + data
+            else:
+                body += mark + head + data
+        tph = b""
+        if headers == "ppt":
+            tph = b"".join(_j2k_marker(0xFF61, bytes([z]) + heads[o:o + 60000])
+                           for z, o in enumerate(range(0, max(len(heads), 1), 60000)))
+        if headers == "ppm":
+            ppm += struct.pack(">I", len(heads)) + heads
+        psot = 12 + len(tph) + 2 + len(body)
+        tiles += (_j2k_marker(0xFF90, struct.pack(">HIBB", index, psot, 0, 1)) + tph
+                  + b"\xff\x93" + body)
+    if headers == "ppm":
+        segs += [(0xFF60, bytes([z]) + ppm[o:o + 60000])
+                 for z, o in enumerate(range(0, len(ppm), 60000))]
+    return j2k_rebuild(siz, segs, tiles + b"\xff\xd9")
+
+
+def j2k_merge(streams, dx, dy) -> bytes:
+    """One codestream of the components of single-component codestreams
+    ``streams`` (one tile, LRCP, one layer, one precinct a resolution, the
+    same coding parameters), component c subsampled by (dx[c], dy[c]): the
+    packets interleaved resolution by resolution."""
+    segs, siz, _ = j2k_main_header(streams[0])
+    packs = [_j2k_packets(s)[0] for s in streams]
+    f = list(struct.unpack(">HIIIIIIIIH", siz[:36]))
+    f[-1] = len(streams)
+    comps = b"".join(bytes([siz[36], dx[c], dy[c]]) for c in range(len(streams)))
+    body = b"".join(packs[c][r][0] + packs[c][r][1] for r in range(len(packs[0]))
+                    for c in range(len(streams)))
+    segs = [(m, b[:4] + b"\x00" + b[5:]) if m == 0xFF52 else (m, b) for m, b in segs]  # no MCT
+    tile = _j2k_marker(0xFF90, struct.pack(">HIBB", 0, 14 + len(body), 0, 1)) + b"\xff\x93" + body
+    return j2k_rebuild(struct.pack(">HIIIIIIIIH", *f) + comps, segs, tile + b"\xff\xd9")
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_file(cs: bytes, w: int, h: int, nc: int, bpc: int = 7, colr: bytes = b"",
+             extra: bytes = b"") -> bytes:
+    """A JP2 file around codestream ``cs``: signature, ftyp, jp2h (ihdr,
+    ``colr`` (a colr box's body; none if empty), ``extra`` boxes), jp2c."""
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    head = ihdr + (jp2_box(b"colr", colr) if colr else b"") + extra
+    return (b"\0\0\0\x0cjP  \r\n\x87\n" + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", head) + jp2_box(b"jp2c", cs))
+
+
+def icns_file(members) -> bytes:
+    """An ICNS file of ``members`` [(type, body)]."""
+    body = b"".join(t + struct.pack(">I", 8 + len(b)) + b for t, b in members)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rle(planes) -> bytes:
+    """ICNS's run-length coding of each plane [3, H, W] in turn: runs of 3
+    to 130 as (n - 3) | 0x80 and the byte, literals of 1 to 128 as n - 1
+    and the bytes."""
+    out = bytearray()
+    for plane in np.asarray(planes, np.uint8):
+        v = plane.tobytes()
+        i, lit = 0, bytearray()
+        while i < len(v):
+            run = 1
+            while i + run < len(v) and v[i + run] == v[i] and run < 130:
+                run += 1
+            if run >= 3:
+                while lit:
+                    out += bytes([min(len(lit), 128) - 1]) + lit[:128]
+                    lit = lit[128:]
+                out += bytes([(run - 3) | 0x80, v[i]])
+                i += run
+            else:
+                lit.append(v[i])
+                i += 1
+        while lit:
+            out += bytes([min(len(lit), 128) - 1]) + lit[:128]
+            lit = lit[128:]
+    return bytes(out)

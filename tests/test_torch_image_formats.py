@@ -5,8 +5,8 @@ utils/image.py:read_image_rgb), bit for bit against Pillow 12.1's
 ``Image.open(p).convert("RGB")`` on files written here, by Pillow where it
 writes the form and by tests/image_format_encoders.py where it does not;
 where Pillow fails a file, the port fails it, naming it; a form Pillow
-reads and the port does not (TIFF's LAB, DDS, JPEG 2000 and the rest of
-the list) names ROADMAP item 28."""
+reads and the port does not (TIFF's LAB, AVIF and the rest of the list)
+names ROADMAP item 28."""
 
 import io
 import os
@@ -242,20 +242,26 @@ def test_tiff_forms_pillow_reads_and_the_port_does_not_name_item_28(tmp_path):
 
 
 def test_other_kinds_still_name_item_28(tmp_path):
-    dds = tmp_path / "a.dds"
-    dds.write_bytes(b"DDS " + bytes(124))
-    with pytest.raises(ValueError, match=r"a\.dds.*DDS.*item 28"):
-        im.read_image_rgb(str(dds))
-    j2k = tmp_path / "a.jp2"
-    j2k.write_bytes(b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40))
-    with pytest.raises(ValueError, match=r"a\.jp2.*JPEG 2000.*item 28"):
-        im.read_image_rgb(str(j2k))
-    for name, head in (("a.psd", b"8BPS"), ("a.icns", b"icns"), ("a.msp", b"DanM"),
-                       ("a.fits", b"SIMPLE")):
+    """What Pillow reads and the port does not yet (AVIF, MSP, FITS, DCX ...)
+    names item 28; the DDS, JPEG 2000, PSD and ICNS stubs that named it
+    before now fail as Pillow fails them, naming the file."""
+    avif = b"\0\0\0\x1cftypavif" + bytes(200)
+    for name, data in (("a.avif", avif), ("a.msp", b"DanM" + bytes(200)),
+                       ("a.fits", b"SIMPLE" + bytes(200)),
+                       ("a.dcx", b"\xb1\x68\xde\x3a" + bytes(200))):
         path = tmp_path / name
-        path.write_bytes(head + bytes(200))
+        path.write_bytes(data)
         with pytest.raises(ValueError, match="item 28"):
             im.read_image_rgb(str(path))
+    for name, data in (("a.dds", b"DDS " + bytes(124)),
+                       ("a.jp2", b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40)),
+                       ("a.psd", b"8BPS" + bytes(200)), ("a.icns", b"icns" + bytes(200))):
+        assert _pillow(data) is None, name
+        path = tmp_path / name
+        path.write_bytes(data)
+        with pytest.raises(ValueError, match=name.replace(".", r"\.")) as e:
+            im.read_image_rgb(str(path))
+        assert "Pillow reads them" not in str(e.value), name
 
 
 def test_the_fixtures_equal_their_recorded_pillow_decodes():
@@ -787,3 +793,116 @@ def test_the_format_fixtures_equal_their_recorded_pillow_decodes():
         np.testing.assert_array_equal(got, npz[key], err_msg=name)
         with open(os.path.join(here, name), "rb") as f:
             np.testing.assert_array_equal(_pillow(f.read()), npz[key], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# corrupt TIFF and SGI data (ROADMAP C.12; what stays apart: C.13)
+# ---------------------------------------------------------------------------
+
+CORRUPT = os.path.join(os.path.dirname(__file__), "fixtures", "torch_image_corrupt")
+
+
+def _corrupt_outcomes():
+    import json
+
+    with open(os.path.join(CORRUPT, "outcomes.json")) as f:
+        rec = json.load(f)
+    return {k: v for k, v in rec.items() if k != "pillow_version"}
+
+
+@pytest.mark.parametrize("name", sorted(k for k, v in _corrupt_outcomes().items() if not v["c13"]))
+def test_corrupt_tiff_and_sgi_decode_or_fail_as_libtiff_and_pillow(name):
+    """The fuzzed files the readers once disagreed on (libtiff's LZW that
+    must begin with a clear code, its deflate and LZW errors that its RGBA
+    interface goes past for YCbCr, its own reading of the IFD and Pillow's
+    raw mode held to it, the strips fewer than the image needs, strip
+    offsets before tile offsets, planar RGBA's alpha divided out by
+    libtiff's ExtraSamples, SGI rows of 2^31 or more packets): each decodes
+    to Pillow's recorded image or fails where Pillow failed, and Pillow
+    still does so."""
+    import hashlib
+
+    want = _corrupt_outcomes()[name]["pillow"]
+    path = os.path.join(CORRUPT, name)
+    with open(path, "rb") as f:
+        data = f.read()
+    pil = _pillow(data)
+    assert (pil is None) == (want == "fails")
+    if want == "fails":
+        with pytest.raises(ValueError, match=name.replace(".", r"\.")):
+            im.read_image_rgb(path)
+        return
+    got = im.read_image_rgb(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want
+    np.testing.assert_array_equal(got, pil)
+
+
+def test_what_stays_apart_is_c13():
+    """ROADMAP C.13: the fuzzed JPEG-in-TIFF files still apart, each as it
+    was measured: two with bytes inserted into JPEGTables (libtiff reads the
+    tables as a stream of their own), one whose overwritten scan makes
+    marker 0x8D (libjpeg-turbo 2.1's rule, which the port takes there)."""
+    import hashlib
+
+    apart = {k: v for k, v in _corrupt_outcomes().items() if v["c13"]}
+    assert len(apart) == 3
+    for name, rec in apart.items():
+        try:
+            got = hashlib.sha256(im.read_image_rgb(os.path.join(CORRUPT, name)).tobytes()
+                                 ).hexdigest()
+        except ValueError:
+            got = "fails"
+        assert got != rec["pillow"], name
+
+
+def test_fuzzed_pngs_fail_where_pillow_fails():
+    """PNG's corrupt data (found apart beside C.12): 600 fuzzed files of
+    palette, RGBA, gray+alpha, bilevel, 16-bit, text-chunk and multi-IDAT
+    PNGs decode as Pillow decodes them or fail where it fails (a bad CRC
+    before the first IDAT, a cut chunk after the image, a stream that ends
+    before the image does; one whose rest or checksum is bad, past what the
+    image needs, decodes)."""
+    import zlib
+
+    from PIL import PngImagePlugin
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    img = PIL.Image.fromarray(SMALL)
+    info = PngImagePlugin.PngInfo()
+    info.add_text("k", "text")
+    stream = zlib.compress(b"".join(b"\0" + r.tobytes() for r in SMALL))
+    forms = [_pillow_saved(x, "PNG", **o) for x, o in (
+        (img.quantize(20), {}), (img.convert("RGBA"), {}), (img.convert("LA"), {}),
+        (img.convert("1"), {}), (PIL.Image.fromarray(SMALL[..., 0].astype(np.uint16) * 250), {}),
+        (img, {"pnginfo": info}))]
+    forms.append(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 41, 29, 8, 2, 0,
+                                                                    0, 0))
+                 + b"".join(chunk(b"IDAT", stream[i:i + 300]) for i in range(0, len(stream), 300))
+                 + chunk(b"tEXt", b"k\0v") + chunk(b"IEND", b""))
+    rng = np.random.RandomState(25)
+    counts = [0, 0]
+    for k in range(600):
+        d = bytearray(forms[rng.randint(len(forms))])
+        op, at = rng.randint(4), rng.randint(0, len(d))
+        if op == 0:
+            for _ in range(rng.randint(1, 4)):
+                d[rng.randint(0, len(d))] = rng.randint(256)
+        elif op == 1:
+            d[at:at] = bytes(rng.randint(0, 256, rng.randint(1, 8)).astype(np.uint8))
+        elif op == 2:
+            del d[at:at + rng.randint(1, 8)]
+        else:
+            d = d[:at]
+        want = _pillow(bytes(d))
+        try:
+            got = im.png_decode_rgb(bytes(d))
+        except (ValueError, zlib.error, struct.error):
+            got = None
+        assert (got is None) == (want is None), k
+        if want is not None:
+            np.testing.assert_array_equal(got, want, err_msg=str(k))
+        counts[want is not None] += 1
+    assert min(counts) >= 20, counts

@@ -135,8 +135,8 @@ def test_every_filter_type_at_every_colour_type_and_depth(color, depth):
 
 def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
     """16-bit and Adam7 PNGs, WEBP, GIF and Netpbm, which this test once
-    held refused, decode as Pillow decodes them; a file of a kind still to
-    port (DDS) raises naming it and ROADMAP item 28."""
+    held refused, and DDS, decode as Pillow decodes them; a file of a kind
+    still to port (AVIF) raises naming it and ROADMAP item 28."""
     rows = (np.arange(96) * 7 % 256).astype(np.uint8).reshape(4, 24)
     data = _png(rows, 4, 4, 16, 2)  # 16-bit RGB, 4 x 4
     np.testing.assert_array_equal(im.png_decode_rgb(data), _pillow_rgb(data))
@@ -165,9 +165,13 @@ def test_what_the_reader_does_not_take_raises_naming_it(tmp_path):
     PIL.Image.fromarray(arr).save(path, format="PPM")
     np.testing.assert_array_equal(im.read_image_rgb(str(path)),
                                   np.asarray(PIL.Image.open(path).convert("RGB")))
-    path = tmp_path / "z.dds"  # DDS: still refused, naming the file and item 28
-    path.write_bytes(b"DDS " + bytes(124))
-    with pytest.raises(ValueError, match=r"z\.dds.*DDS.*item 28"):
+    path = tmp_path / "z.dds"  # DDS (once refused): as Pillow
+    PIL.Image.fromarray(arr).save(path, format="DDS")
+    np.testing.assert_array_equal(im.read_image_rgb(str(path)),
+                                  np.asarray(PIL.Image.open(path).convert("RGB")))
+    path = tmp_path / "z.avif"  # AVIF: still refused, naming the file and item 28
+    path.write_bytes(b"\0\0\0\x1cftypavif" + bytes(124))
+    with pytest.raises(ValueError, match=r"z\.avif.*AVIF.*item 28"):
         im.read_image_rgb(str(path))
     path = tmp_path / "x.png"
     path.write_bytes(im.png_bytes(arr))
