@@ -19,8 +19,9 @@ styled conv split at its all-reduce, --updateGAN under a mesh and sp of
 PGGAN and StyleGAN1 (47-50), the geometric tasks' host targets
 (--host_targets, 51), progressive, CMYK and YCCK JPEG (52), WEBP,
 arithmetic-coded JPEG, 16-bit and Adam7 PNG (53), the native real-image
-path (54), corrupt JPEGs with the rest of the image formats (55), and DDS
-(BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS (56).
+path (54), corrupt JPEGs with the rest of the image formats (55), DDS
+(BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS (56), and the legacy
+formats (57).
 Phases (a failed phase raises, and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build the hand-written kernels from ops/csrc with nvcc (sm_90a);
@@ -82,8 +83,8 @@ Phases (a failed phase raises, and the script exits non-zero):
      alphas and fresh noise (loss terms 1e-5 relative, the walk gradient
      within phase 9's bound, which another noise draw must exceed); one
      plain step under torch.profiler;
- 15. `python -m latent2im_tpu_torch.cli.eval` at 1024 px on phase 14's walk,
-     whitened and --ref_parity, two processes: eval_report.json's keys,
+ 15. `python -m latent2im_tpu_torch.cli.eval` at 256 px on a zero walk,
+     whitened, then --ref_parity: eval_report.json's keys,
      identity_is_relative_only, finite numbers in the non-empty buckets;
  16. second derivatives: the gradient wrt D's parameters of the WGAN-GP
      gradient penalty (128 px, full width, B=4), which differentiates the
@@ -221,8 +222,8 @@ Phases (a failed phase raises, and the script exits non-zero):
      which gloo collectives take CUDA tensors in this build;
  45. data parallelism: the same two ranks at 256 px, 2 samples each,
      against one process at B=4 under the same gates (path "dp");
- 46. a one-rank NCCL group running the dp path against the same one-process
-     run (path "dp_nccl"). Two ranks on one card measure overhead, not
+ 46. a one-rank NCCL group, which this process joins, running the dp path
+     against the same one-process run (path "dp_nccl"). Two ranks on one card measure overhead, not
      speedup; the NCCL path across cards is not run on one card.
  47. the styled conv's tensor-parallel split, ops.styled_conv3x3_partial
      and ops.styled_conv3x3_epilogue, at the Cin/2 shard of every partner
@@ -288,15 +289,25 @@ Phases (a failed phase raises, and the script exits non-zero):
      2000 tier-1 in the host C++, each equal to its recorded Pillow decode;
      then ms a photo of read_image_rgb over JPEG 2000 photos (256 px
      reversible and irreversible, Python and C++; 1024 px, C++), a 256 px
-     BC7 DDS and a 256 px PSD (``textures_phase``).
+     BC7 DDS and a 256 px PSD (``textures_phase``);
+ 57. the fixtures of tests/fixtures/torch_image_legacy/ (DCX, XBM, XPM,
+     MSP, Sun raster, FLI/FLC, FITS, SPIDER, IM, McIdas, GBR, PhotoCD,
+     PIXAR, XV thumbnail, IMT, IPTC) through read_image_rgb, each equal to
+     its recorded Pillow decode; then ms a photo over a 256 px run-length
+     Sun raster, a 256 px FLC whose first frame is BRUN and LC chunks, and
+     a 256 px FITS float image (``legacy_phase``).
 Phases 4, 13 and 14 also time apply_alpha (256 px B=4, 1024 px B=8) and a
 512 px training step (B=8) under cuDNN's default and deterministic
-algorithms. The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU
-and their f64 references) run in one worker process of CPU_REF_THREADS
-threads, started with the script, while the card runs (CpuReferences).
+algorithms. The CPU halves of phases 9, 16, 17, 20, 22, 25, 26, 29 and 51
+(f32 steps on the CPU and their f64 references) run in two worker processes
+of CPU_REF_THREADS threads each while the card runs (CpuReferences). A
+`python -m` CLI of a phase runs in this process, as -m runs it (runpy,
+``run_module``), but for phase 10's two vis_w processes: a new process
+takes ~10 s to import torch and reach the card.
 Phase 3 times fused_act's backward as both main paths call it (dx only;
 the towers are frozen), and holds its bias gradient apart at one shape.
-It prints the seconds of each group of phases, then one JSON line of the
+It prints the seconds of each phase, one line each (from its phase()
+call to the next phase's), then one JSON line of the
 kernels' numbers (the five f32 rows, the five bf16 rows, "fused_act[bf16]",
 ..., then the split's four, "styled_conv3x3_partial" ...; every row has a
 "tp" path) and, last, the line
@@ -308,6 +319,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -321,6 +333,9 @@ import urllib.request
 import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# seconds after the start at which every thread's stack goes to stderr, in
+# case a run nears its 1200 s limit; a rank's own, after its start
+WATCHDOG_S, RANK_WATCHDOG_S = 1080, 300
 SIZE, BATCH, PANELS = 256, 4, 5
 TRAIN_STEPS, TRAIN_WARMUP, CMP_BATCH = 10, 2, 2
 # the resolution of the f64 CPU references of phases 9 and 16: 128 px, a
@@ -365,8 +380,28 @@ FORWARD = ("fused_act", "upfirdn2d", "styled_conv3x3")
 T0 = time.perf_counter()
 
 
+# (phase, seconds since T0 at its start), in the order the phases ran
+PHASE_STARTS = []
+
+
 def log(*a):
     print(f"[{time.perf_counter() - T0:6.1f} s]", *a, flush=True)
+
+
+def phase(n, msg: str):
+    """Start phase ``n`` (a number, or a label such as "44-45"): log
+    ``[n] msg`` and record when it began; stderr gets the phase's number,
+    so that its tail says how far a run got."""
+    PHASE_STARTS.append((str(n), time.perf_counter() - T0))
+    log(f"[{n}] {msg}")
+    print(f"chip_smoke: phase {n} at {PHASE_STARTS[-1][1]:.1f} s", file=sys.stderr, flush=True)
+
+
+def phase_seconds(end: float) -> list:
+    """[(phase, seconds)]: each phase's time from its start to the next
+    phase's (the last to ``end``, seconds since T0)."""
+    marks = PHASE_STARTS + [("end", end)]
+    return [(p, marks[i + 1][1] - t) for i, (p, t) in enumerate(marks[:-1])]
 
 
 def card_line() -> str:
@@ -664,7 +699,9 @@ def fused_act_db_check(gen, dev):
 def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25, dtype=None):
     """Per kernel, per main path at ``size`` px, batch ``batch``: launches
     and the sums over shapes of launches x (kernel, plain, library, bound)
-    ms. Each call is timed as the median of ``iters`` CUDA-event times.
+    ms. Each call is timed as the median of ``iters`` CUDA-event times
+    (at SIZE_HI the plain and library calls of 3 after one warmup: they
+    take ~0.9 s a pass over its shapes).
     dtype bf16: the bf16 instances at the same shapes (phase 33), the style
     MLP's f32 launches left out, held to TOL_BF16, bound at FLOPS_BF16."""
     import torch
@@ -696,7 +733,9 @@ def kernel_phase(dev, size=SIZE, batch=BATCH, iters=25, dtype=None):
                 f"{name} {case} {got.dtype}: max abs err {err:.3e} > {tol[name]} * "
                 f"max|ref| {scale:.3e}")
         max_err[name] = max(max_err[name], err)
-        t_k, t_p, t_l = (time_ms(f, iters=iters) for f in (kern, plain, lib))
+        t_k = time_ms(kern, iters=iters)
+        t_p, t_l = ((time_ms(f, warmup=1, iters=3) if size == SIZE_HI else
+                     time_ms(f, iters=iters)) for f in (plain, lib))
         t_d = device_ms(kern)
         rate = flops_of.get(name, F32_FLOPS)
         b_ms, _ = bound_ms(nbytes, flops, rate)
@@ -1114,9 +1153,10 @@ def reference_step(ed, w0, z, sampled, dtype):
             latent_new.grad.double().cpu().numpy())
 
 
-# threads of the worker that computes the CPU references while the card runs
-# (the card's process keeps the other cores)
-CPU_REF_THREADS = 4
+# threads of each of the two workers that compute the CPU references while
+# the card runs (the card's process keeps the other two of the machine's 8
+# cores)
+CPU_REF_THREADS = 3
 
 
 def _cpu_worker_init():
@@ -1127,31 +1167,53 @@ def _cpu_worker_init():
 
 
 class CpuReferences:
-    """The CPU halves of phases 9, 16, 20 and 51 (f32 steps on the CPU and f64
-    references, ~150 s of CPU work), computed in one worker process started
-    with the script, so that the card's phases run meanwhile; each phase
-    takes its half with ``get`` (waiting if it is not done). ``close`` stops
-    the worker."""
+    """The CPU halves of phases 9, 16, 17, 20, 22, 25, 26, 29 and 51 (f32
+    steps on the CPU and f64 references, ~380 s of CPU work), computed in
+    two worker processes so that the card's phases run meanwhile: the first
+    starts with the script, the second (``start_second``) once the kernels
+    are built, so that it does not slow nvcc; each queue holds its jobs in
+    the order the phases take them. Each phase takes its half with ``get``
+    (waiting if it is not done). ``close`` stops the workers."""
 
     def __init__(self):
+        self.pools, self.jobs, self.waited = [], {}, {}
+        self._submit({"train": (train_cpu_side, (), F64_SIZE), "gp": (gp_cpu_side,),
+                      "mlp_w": (train_cpu_side, dict(WALK_KINDS)["mlp_w"], SIZE),
+                      "z_z": (z_grad_cpu_side, "z"), "z_pggan": (z_grad_cpu_side, "pggan"),
+                      "geo_zoom": (geo_grad_cpu_side, "zoom"),
+                      "geo_host": (geo_host_cpu_side,)})
+
+    def start_second(self):
+        self._submit({"inversion": (inversion_cpu_side,),
+                      "nn_w": (train_cpu_side, dict(WALK_KINDS)["nn_w"], SIZE),
+                      "gan_grads": (gan_grads_cpu_side,),
+                      "geo_colorlab": (geo_grad_cpu_side, "colorlab")})
+
+    def _submit(self, jobs):
         import concurrent.futures
         import multiprocessing
 
-        self.pool = concurrent.futures.ProcessPoolExecutor(
+        pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker_init)
-        self.jobs = {"train": self.pool.submit(train_cpu_side, (), F64_SIZE),
-                     "gp": self.pool.submit(gp_cpu_side)}
-        for kind, flags in WALK_KINDS:
-            self.jobs[kind] = self.pool.submit(train_cpu_side, flags, SIZE)
-        self.jobs["geo_host"] = self.pool.submit(geo_host_cpu_side)
+        self.pools.append(pool)
+        for key, (fn, *args) in jobs.items():
+            self.jobs[key] = pool.submit(fn, *args)
 
     def get(self, key):
-        return self.jobs[key].result()
+        """The result of job ``key``; the seconds this waited for it go to
+        ``waited`` and, past a second, to the log."""
+        t = time.perf_counter()
+        out = self.jobs[key].result()
+        self.waited[key] = time.perf_counter() - t
+        if self.waited[key] > 1.0:
+            log(f"    waited {self.waited[key]:.1f} s for the CPU reference {key!r}")
+        return out
 
     def close(self):
         for job in self.jobs.values():
             job.cancel()
-        self.pool.shutdown(wait=True, cancel_futures=True)
+        for pool in self.pools:
+            pool.shutdown(wait=True, cancel_futures=True)
 
 
 def rel_l2(a, b):
@@ -1280,6 +1342,40 @@ def _vis_w(*args):
         stderr=subprocess.STDOUT, text=True)
 
 
+def run_module(module, *args) -> str:
+    """``python -m <module> <args>`` in this process: runpy runs the module
+    as ``__main__``, as ``-m`` does, with ``sys.argv`` set for it, and
+    without the ~10 s a new process takes to import torch and reach the
+    card -> what it printed (its tail goes to stderr if it raises)."""
+    import gc
+    import io
+    import runpy
+
+    import torch
+
+    saved, buf = sys.argv, io.StringIO()
+    sys.argv = [module, *args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(module, run_name="__main__")
+    except BaseException:
+        print(buf.getvalue()[-3000:], file=sys.stderr, flush=True)
+        raise
+    finally:
+        sys.argv = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return buf.getvalue()
+
+
+def vis_w_here(out_dir, names, *args):
+    """``python -m latent2im_tpu_torch.cli.vis_w <args>`` run in this process
+    (``run_module``; phase 10 runs it as processes of their own) -> its
+    PNGs in ``out_dir``, checked as ``_check_vis`` checks them."""
+    run_module("latent2im_tpu_torch.cli.vis_w", *args, "--output_dir", out_dir)
+    return _vis_pngs(out_dir, names)
+
+
 def _check_vis(proc, out_dir, names):
     try:
         text, _ = proc.communicate(timeout=600)
@@ -1289,6 +1385,12 @@ def _check_vis(proc, out_dir, names):
         raise
     if proc.returncode != 0:
         raise AssertionError(f"vis_w exited {proc.returncode}:\n{text[-3000:]}")
+    return _vis_pngs(out_dir, names)
+
+
+def _vis_pngs(out_dir, names):
+    """The PNGs vis_w wrote in ``out_dir``, one a name prefix of ``names``,
+    and its index.html."""
     pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
     assert [p[:len(n)] for p, n in zip(pngs, names)] == names, (pngs, names)
     assert len(pngs) == len(names) and os.path.isfile(os.path.join(out_dir, "index.html"))
@@ -1401,8 +1503,10 @@ def cli_phase():
     multi_final = os.path.join(multi_dir, "model_w_1_final_walk_module.ckpt")
     torch.cuda.empty_cache()
 
-    # vis_w: the panel sweep and the 2-attribute grid, two processes at once
-    t0 = time.perf_counter()
+    # vis_w: the panel sweep and the 2-attribute grid, two processes at once,
+    # started here and checked after the server's part below, which runs
+    # while they start (their seconds span both)
+    t_vis = time.perf_counter()
     vis_dirs = (os.path.join(root, "vis"), os.path.join(root, "vis_combine"))
     procs = [
         _vis_w(os.path.join(run_dir, "opt.yml"), "--save_path_w", final_path,
@@ -1411,6 +1515,48 @@ def cli_phase():
                "--output_dir", vis_dirs[1], "--num_samples", "2", "--num_panels", "5",
                "--combine_indices", "31,39")]  # Smiling, Young
     try:
+        # serve the trained walk: /edit of 4 over HTTP against apply_alpha. By
+        # default cuDNN may pick algorithms that accumulate in a varying order
+        # (G's transposed up convs), so two f32 calls can differ in the last bit
+        # and a uint8 rounding boundary fall either side; with deterministic
+        # algorithms the images must be equal
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = True
+        vo = VisOptions()
+        vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
+        vopt, conf = vo.parse([os.path.join(run_dir, "opt.yml"), "--save_path_w", final_path,
+                               "--num_panels", str(PANELS)])
+        service = build_service(vopt, conf)
+        service.warmup()  # as the server's main() does before it listens
+        assert torch.equal(service.walk["w"], last_walk["w"]), "served walk differs"
+        z = np.random.RandomState(11).randn(BATCH, 512).astype(np.float32)
+        with serving(service) as url:
+            ops.reset_launches()
+            reply = _request(url + "/edit", {"z": z.tolist(), "alpha": 0.7})
+            torch.cuda.synchronize()
+            out["launches"]["serve"] = ops.launch_counts()
+        out["seconds"]["serve_edit"] = time.perf_counter() - t0
+        assert all(out["launches"]["serve"][k] > 0 for k in FORWARD), out["launches"]
+        got = np.stack([png_decode(base64.b64decode(b)) for b in reply["images"]])
+
+        def apply_alpha():
+            edited, _, _ = service.ed.apply_alpha(
+                service.walk, z, np.full(BATCH, 0.7, np.float32), u8=True)
+            return edited.cpu().numpy()
+
+        # also against a call from another thread, as the server's handler
+        # thread makes it
+        box = {}
+        worker = threading.Thread(target=lambda: box.update(want=apply_alpha()))
+        worker.start()
+        worker.join(timeout=600)
+        want = apply_alpha()
+        torch.backends.cudnn.deterministic = False
+        out["edit_vs_apply_alpha"] = {}
+        for name, b in (("main_thread", want), ("other_thread", box["want"])):
+            assert got.shape == b.shape and got.dtype == b.dtype == np.uint8, (name, b.shape)
+            out["edit_vs_apply_alpha"][name] = int((got != b).sum())
+        assert not any(out["edit_vs_apply_alpha"].values()), out["edit_vs_apply_alpha"]
         out["vis_pngs"] = (_check_vis(procs[0], vis_dirs[0], ["sample0_", "sample1_"])
                            + _check_vis(procs[1], vis_dirs[1], [
                                "combine_idx31_idx39_sample0", "combine_idx31_idx39_sample1"]))
@@ -1419,50 +1565,7 @@ def cli_phase():
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    out["seconds"]["vis_w_two_processes"] = time.perf_counter() - t0
-
-    # serve the trained walk: /edit of 4 over HTTP against apply_alpha. By
-    # default cuDNN may pick algorithms that accumulate in a varying order
-    # (G's transposed up convs), so two f32 calls can differ in the last bit
-    # and a uint8 rounding boundary fall either side; with deterministic
-    # algorithms the images must be equal
-    t0 = time.perf_counter()
-    torch.backends.cudnn.deterministic = True
-    vo = VisOptions()
-    vo.parser.add_argument("--serve_batch", type=int, default=BATCH)
-    vopt, conf = vo.parse([os.path.join(run_dir, "opt.yml"), "--save_path_w", final_path,
-                           "--num_panels", str(PANELS)])
-    service = build_service(vopt, conf)
-    service.warmup()  # as the server's main() does before it listens
-    assert torch.equal(service.walk["w"], last_walk["w"]), "served walk differs"
-    z = np.random.RandomState(11).randn(BATCH, 512).astype(np.float32)
-    with serving(service) as url:
-        ops.reset_launches()
-        reply = _request(url + "/edit", {"z": z.tolist(), "alpha": 0.7})
-        torch.cuda.synchronize()
-        out["launches"]["serve"] = ops.launch_counts()
-    out["seconds"]["serve_edit"] = time.perf_counter() - t0
-    assert all(out["launches"]["serve"][k] > 0 for k in FORWARD), out["launches"]
-    got = np.stack([png_decode(base64.b64decode(b)) for b in reply["images"]])
-
-    def apply_alpha():
-        edited, _, _ = service.ed.apply_alpha(
-            service.walk, z, np.full(BATCH, 0.7, np.float32), u8=True)
-        return edited.cpu().numpy()
-
-    # also against a call from another thread, as the server's handler
-    # thread makes it
-    box = {}
-    worker = threading.Thread(target=lambda: box.update(want=apply_alpha()))
-    worker.start()
-    worker.join(timeout=600)
-    want = apply_alpha()
-    torch.backends.cudnn.deterministic = False
-    out["edit_vs_apply_alpha"] = {}
-    for name, b in (("main_thread", want), ("other_thread", box["want"])):
-        assert got.shape == b.shape and got.dtype == b.dtype == np.uint8, (name, b.shape)
-        out["edit_vs_apply_alpha"][name] = int((got != b).sum())
-    assert not any(out["edit_vs_apply_alpha"].values()), out["edit_vs_apply_alpha"]
+    out["seconds"]["vis_w_two_processes"] = time.perf_counter() - t_vis
     return out
 
 
@@ -1470,7 +1573,7 @@ def cli_phase():
 # phases 11-15: the 1024 px configuration
 # ---------------------------------------------------------------------------
 
-SIZE_HI, BATCH_HI, TRAIN_HI_STEPS = 1024, 8, 6
+SIZE_HI, BATCH_HI, TRAIN_HI_STEPS = 1024, 8, 3
 # G's noise weights in phase 14: non-zero, so the edited synthesis's fresh
 # noise reaches the gradient that the remat steps are held to
 NOISE_WEIGHT = 0.3
@@ -1752,43 +1855,30 @@ def train_1024_phase(results_hi, grad_limit, dev):
 
 def eval_phase(opt_yml, walk_path):
     """`python -m latent2im_tpu_torch.cli.eval` on a saved walk (a 256 px
-    one since PR 17, ``eval_256_walk``; phase 14's 1024 px one before), two
-    processes at once: whitened and --ref_parity preprocessing."""
+    one since PR 17, ``eval_256_walk``; phase 14's 1024 px one before), run
+    in this process (``run_module``), one after the other: whitened and
+    --ref_parity preprocessing."""
     root = os.path.join(REPO, "chiprun_out", "eval")
     runs = {"whitened": (), "reference": ("--ref_parity",)}
-    procs = {}
-    for mode, extra in runs.items():
-        procs[mode] = subprocess.Popen(
-            [sys.executable, "-m", "latent2im_tpu_torch.cli.eval", opt_yml,
-             "--save_path_w", walk_path, "--num_samples", str(BATCH_HI),
-             "--output_dir", os.path.join(root, mode), *extra],
-            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
     out = {}
-    try:
-        for mode, proc in procs.items():
-            text, _ = proc.communicate(timeout=900)
-            if proc.returncode != 0:
-                raise AssertionError(f"eval ({mode}) exited {proc.returncode}:\n{text[-3000:]}")
-            with open(os.path.join(root, mode, "eval_report.json")) as f:
-                report = json.load(f)
-            assert set(report) == {"embedding", "embedding_preprocess",
-                                   "identity_is_relative_only", "results"}, report.keys()
-            assert report["embedding"] == "vgg-fallback", report
-            assert report["embedding_preprocess"] == mode, report
-            assert report["identity_is_relative_only"] is True, report
-            res = report["results"]["Smiling"]
-            counts = res["bucket_counts"]
-            assert len(counts) == 3 and 0 < sum(counts) <= 10 * BATCH_HI, res
-            for key in ("identity_preservation", "attribute_preservation"):
-                for n, v in zip(counts, res[key]):  # nan exactly where a bucket is empty
-                    assert (n > 0) == math.isfinite(v), (mode, key, res)
-            out[mode] = res
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    for mode, extra in runs.items():
+        run_module("latent2im_tpu_torch.cli.eval", opt_yml, "--save_path_w", walk_path,
+                   "--num_samples", str(BATCH_HI), "--output_dir", os.path.join(root, mode),
+                   *extra)
+        with open(os.path.join(root, mode, "eval_report.json")) as f:
+            report = json.load(f)
+        assert set(report) == {"embedding", "embedding_preprocess",
+                               "identity_is_relative_only", "results"}, report.keys()
+        assert report["embedding"] == "vgg-fallback", report
+        assert report["embedding_preprocess"] == mode, report
+        assert report["identity_is_relative_only"] is True, report
+        res = report["results"]["Smiling"]
+        counts = res["bucket_counts"]
+        assert len(counts) == 3 and 0 < sum(counts) <= 10 * BATCH_HI, res
+        for key in ("identity_preservation", "attribute_preservation"):
+            for n, v in zip(counts, res[key]):  # nan exactly where a bucket is empty
+                assert (n > 0) == math.isfinite(v), (mode, key, res)
+        out[mode] = res
     return out
 
 
@@ -1814,18 +1904,18 @@ def hi_phases(card, dev, grad_limit):
     and the phases' reports; phase 15 runs the eval CLI at SIZE px."""
     import torch
 
-    log(f"[11] kernels against their plain versions at the {SIZE_HI} px B={BATCH_HI} "
-        "shapes of apply_alpha and of a training step")
+    phase(11, f"kernels against their plain versions at the {SIZE_HI} px B={BATCH_HI} "
+          "shapes of apply_alpha and of a training step")
     results, max_err, details = kernel_phase(dev, SIZE_HI, BATCH_HI, iters=10)
     out = {"results": results, "max_err": max_err, "details": details, "launches": {}}
 
-    log(f"[12] the {SIZE_HI} px generator against tests/fixtures/ref_outputs_{SIZE_HI}px.npz")
+    phase(12, f"the {SIZE_HI} px generator against tests/fixtures/ref_outputs_{SIZE_HI}px.npz")
     out["forward"] = forward_1024_phase(dev)
     out["launches"]["forward_1024"] = out["forward"].pop("launches")
     log(f"    {out['forward']}")
     torch.cuda.empty_cache()
 
-    log(f"[13] the {SIZE_HI} px edit server: apply_alpha B={BATCH_HI}, one /edit")
+    phase(13, f"the {SIZE_HI} px edit server: apply_alpha B={BATCH_HI}, one /edit")
     out["edit"] = edit_1024_phase(results, dev)
     out["launches"]["serve_1024"] = out["edit"].pop("launches")
     log(f"    apply_alpha B={BATCH_HI} under torch.profiler: {json.dumps(out['edit']['profile'])}")
@@ -1835,7 +1925,7 @@ def hi_phases(card, dev, grad_limit):
         f", on {card}")
     torch.cuda.empty_cache()
 
-    log(f"[14] {SIZE_HI} px walk training, train_loop B={BATCH_HI}, five configurations")
+    phase(14, f"{SIZE_HI} px walk training, train_loop B={BATCH_HI}, five configurations")
     train = train_1024_phase(results, grad_limit, dev)
     out["launches"]["train_1024"] = {
         k: sum(c["launches"][k] for c in train["configs"].values()) for k in SOURCE}
@@ -1846,8 +1936,8 @@ def hi_phases(card, dev, grad_limit):
     log(f"    one plain step under torch.profiler: {json.dumps(train['profile'])}")
     torch.cuda.empty_cache()
 
-    log(f"[15] python -m latent2im_tpu_torch.cli.eval at {SIZE} px (a zero walk), "
-        "whitened and --ref_parity")
+    phase(15, f"python -m latent2im_tpu_torch.cli.eval at {SIZE} px (a zero walk), "
+          "whitened and --ref_parity")
     t = time.perf_counter()
     out["eval"] = eval_phase(*eval_256_walk())
     out["eval"]["seconds"] = time.perf_counter() - t
@@ -1863,7 +1953,11 @@ GP_WEIGHT = 10.0
 # inversion: loops at 256 px (phase 17), in the CLI (18), at 1024 px (19),
 # and of the B=1 comparison with f64; Adam's lr (the CLI's default 1e-4
 # moves W+ too little in 20 loops to show the loss fall)
-INV_LOOPS, INV_CLI_LOOPS, INV_HI_LOOPS, INV_CMP_LOOPS, INV_LR = 20, 30, 5, 3, 1e-2
+# INV_CMP_LOOPS: the inversion steps held to f64 on the CPU, one (each f64
+# loop on the CPU costs ~10 s of the script's time budget); Adam's first
+# step moves each element by lr x sign(g), so the step's W+ gradient is
+# held to f64 as well
+INV_LOOPS, INV_CLI_LOOPS, INV_HI_LOOPS, INV_CMP_LOOPS, INV_LR = 20, 30, 5, 1, 1e-2
 WALK_STEPS = 5
 WALK_KINDS = (("mlp_w", ("--is_mlp",)), ("nn_w", ("--walk_type", "NNz")))
 GP_PATH = ("fused_act", "fused_act_bwd", "upfirdn2d", "upfirdn2d_bwd")
@@ -2047,11 +2141,12 @@ def inversion_phase(dev, size, batch, loops):
     return out
 
 
-def inversion_cpu_phase(dev):
-    """INV_CMP_LOOPS inversion steps at 256 px, B=1, from the same W+ and
-    target, on the card, in f32 on the CPU and in f64 on the CPU: the
-    movement of W+ and the loss history of each against f64, the card's
-    movement held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's form)."""
+def inversion_cpu_side():
+    """The CPU half of ``inversion_cpu_phase`` (the CpuReferences worker):
+    the starting W+ (init_w over 4096 seeded z) and G's target, then
+    INV_CMP_LOOPS steps from them in f32 and in f64 on the CPU -> {"w0",
+    "target", "runs": {name: (W+ moved, the last W+ gradient, the loss
+    history)}, "<name>_s"}."""
     import copy
 
     import numpy as np
@@ -2064,26 +2159,62 @@ def inversion_cpu_phase(dev):
     z = np.random.RandomState(20).randn(4096, 512).astype(np.float32)
     w0 = make_inverter(copy.deepcopy(g), copy.deepcopy(vgg16), g.n_latent,
                        device="cpu")[0](1, z=z).numpy()
-    runs, out = {}, {}
-    for name, device, dtype in (("card", dev, torch.float32), ("cpu_f32", "cpu", torch.float32),
-                                ("cpu_f64", "cpu", torch.float64)):
-        t = time.perf_counter()
-        gd, vd = (copy.deepcopy(m).to(dtype) for m in (g, vgg16))
-        _, step, optimizer = make_inverter(gd, vd, g.n_latent, lr=INV_LR, device=device)
-        w = torch.tensor(w0, dtype=dtype, device=device).requires_grad_(True)
-        tgt, state, hist = target.to(device, dtype), optimizer(w), []
-        for _ in range(INV_CMP_LOOPS):
-            w, state, loss, _ = step(w, state, tgt)
-            hist.append(loss.item())
-        runs[name] = (w.detach().double().cpu().numpy() - w0, np.asarray(hist))
-        out[f"{name}_s"] = time.perf_counter() - t
-        del gd, vd, w, state
-    (mc, hc), (mf, hf), (m64, h64) = runs["card"], runs["cpu_f32"], runs["cpu_f64"]
+    out = {"w0": w0, "target": target.numpy(), "runs": {}}
+    for name, dtype in (("cpu_f32", torch.float32), ("cpu_f64", torch.float64)):
+        out["runs"][name], out[f"{name}_s"] = inversion_run(g, vgg16, w0, target, "cpu", dtype)
+    return out
+
+
+def inversion_run(g, vgg16, w0, target, device, dtype):
+    """INV_CMP_LOOPS inversion steps of copies of ``g`` and ``vgg16`` on
+    ``device`` in ``dtype`` from W+ ``w0`` towards ``target`` -> ((W+ moved,
+    the last step's W+ gradient, the loss history), seconds)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.inversion import make_inverter
+
+    t = time.perf_counter()
+    gd, vd = (copy.deepcopy(m).to(dtype) for m in (g, vgg16))
+    _, step, optimizer = make_inverter(gd, vd, g.n_latent, lr=INV_LR, device=device)
+    w = torch.tensor(w0, dtype=dtype, device=device).requires_grad_(True)
+    tgt, state, hist = torch.as_tensor(target).to(device, dtype), optimizer(w), []
+    for _ in range(INV_CMP_LOOPS):
+        w, state, loss, _ = step(w, state, tgt)
+        hist.append(loss.item())
+    run = (w.detach().double().cpu().numpy() - w0, w.grad.double().cpu().numpy(),
+           np.asarray(hist))  # step keeps w.grad
+    return run, time.perf_counter() - t
+
+
+def inversion_cpu_phase(dev, cpu=None):
+    """INV_CMP_LOOPS inversion steps at 256 px, B=1, from the same W+ and
+    target, on the card, in f32 on the CPU and in f64 on the CPU: the
+    movement of W+, the last step's W+ gradient and the loss history of
+    each against f64, the card's movement and gradient each held to
+    max(1e-3, 1.5 x the CPU f32 error) (phase 9's form). cpu:
+    ``inversion_cpu_side``'s result (computed here when None), whose W+ and
+    target the card's steps start from."""
+    import numpy as np
+    import torch
+
+    cpu = cpu or inversion_cpu_side()
+    g, vgg16 = inversion_towers(SIZE)
+    runs, out = dict(cpu["runs"]), {k: cpu[k] for k in ("cpu_f32_s", "cpu_f64_s")}
+    runs["card"], out["card_s"] = inversion_run(g, vgg16, cpu["w0"], cpu["target"], dev,
+                                                torch.float32)
+    (mc, gc, hc), (mf, gf, hf), (m64, g64, h64) = (runs[k] for k in ("card", "cpu_f32",
+                                                                     "cpu_f64"))
     out.update(moved_rel_l2_card_f64=rel_l2(mc, m64), moved_rel_l2_cpu_f64=rel_l2(mf, m64),
+               grad_rel_l2_card_f64=rel_l2(gc, g64), grad_rel_l2_cpu_f64=rel_l2(gf, g64),
                loss_rel_card_f64=float(np.abs(hc - h64).max() / np.abs(h64).max()),
                loss_rel_cpu_f64=float(np.abs(hf - h64).max() / np.abs(h64).max()))
     out["limit"] = max(1e-3, 1.5 * out["moved_rel_l2_cpu_f64"])
+    out["grad_limit"] = max(1e-3, 1.5 * out["grad_rel_l2_cpu_f64"])
     assert np.abs(m64).max() > 0 and out["moved_rel_l2_card_f64"] <= out["limit"], out
+    assert np.abs(g64).max() > 0 and out["grad_rel_l2_card_f64"] <= out["grad_limit"], out
     assert out["loss_rel_card_f64"] <= 1e-4, out
     torch.cuda.empty_cache()
     return out
@@ -2115,7 +2246,7 @@ def real_image_flow_phase(cli):
     ``python -m latent2im_tpu_torch.cli.bp`` (run in this process, as
     ``python -m`` runs it, so that its launches are counted) with
     INV_CLI_LOOPS loops; then ``python -m latent2im_tpu_torch.cli.vis_w
-    --latents_dir`` on its latents with phase 10's walk, as a process."""
+    --latents_dir`` on its latents with phase 10's walk (``vis_w_here``)."""
     import runpy
     import shutil
 
@@ -2167,15 +2298,10 @@ def real_image_flow_phase(cli):
         assert curve.shape == (INV_CLI_LOOPS,) and np.isfinite(curve).all(), curve
         out[f"loss_{bi}"] = (float(curve[0]), float(curve[-1]))
     t0 = time.perf_counter()
-    proc = _vis_w(os.path.join(cli["run_dir"], "opt.yml"), "--save_path_w", cli["walk_path"],
-                  "--latents_dir", os.path.join(save_dir, "latent"), "--output_dir", vis_dir,
-                  "--num_panels", "5")
-    try:
-        out["vis_pngs"] = _check_vis(proc, vis_dir, [f"sample{i}_" for i in range(6)])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    out["vis_pngs"] = vis_w_here(
+        vis_dir, [f"sample{i}_" for i in range(6)], os.path.join(cli["run_dir"], "opt.yml"),
+        "--save_path_w", cli["walk_path"], "--latents_dir", os.path.join(save_dir, "latent"),
+        "--num_panels", "5")
     out["seconds"]["vis_w"] = time.perf_counter() - t0
     return out
 
@@ -2257,8 +2383,8 @@ def late_phases(card, dev, results, cli, refs=None):
     the CpuReferences worker holding phases 16 and 20's CPU halves."""
     import torch
 
-    log(f"[16] the gradient penalty's gradient wrt D's parameters ({F64_SIZE} px, B={BATCH}): "
-        "second derivatives through the backward kernels, card against f64 on the CPU")
+    phase(16, f"the gradient penalty's gradient wrt D's parameters ({F64_SIZE} px, B={BATCH}): "
+          "second derivatives through the backward kernels, card against f64 on the CPU")
     gp = gp_phase(dev, cpu=refs and refs.get("gp"))
     log(f"    penalty {json.dumps(gp['gp'])}; worst group {json.dumps(gp['worst'])}; "
         f"card {gp['card_ms']:.2f} ms (CUDA events), launches {json.dumps(gp['launches'])}")
@@ -2267,32 +2393,32 @@ def late_phases(card, dev, results, cli, refs=None):
         else f"{n} zero (card max {r['card_max_abs']:.1e})" for n, r in gp["groups"].items()))
     torch.cuda.empty_cache()
 
-    log(f"[17] W+ inversion at {SIZE} px, B={BATCH}, Adam lr {INV_LR}, {INV_LOOPS} loops, "
-        "of images G made")
+    phase(17, f"W+ inversion at {SIZE} px, B={BATCH}, Adam lr {INV_LR}, {INV_LOOPS} loops, "
+          "of images G made")
     inv = inversion_phase(dev, SIZE, BATCH, INV_LOOPS)
     log(f"    {inv['ms_per_loop']:.2f} ms per loop (CUDA events), peak {inv['peak_gb']:.2f} GB, "
         f"loss {inv['loss_first']:.5f} -> {inv['loss_last']:.5f}, launches per loop "
         f"{json.dumps(inv['launches_per_loop'])}, on {card}")
-    inv["cpu_vs_card"] = inversion_cpu_phase(dev)
+    inv["cpu_vs_card"] = inversion_cpu_phase(dev, cpu=refs and refs.get("inversion"))
     log(f"    {INV_CMP_LOOPS} loops at B=1 against f64 on the CPU: "
         f"{json.dumps(inv['cpu_vs_card'])}")
 
-    log(f"[18] the real-image flow: python -m latent2im_tpu_torch.cli.bp ({SIZE} px, "
-        f"{INV_CLI_LOOPS} loops, 6 PNGs), then cli.vis_w --latents_dir")
+    phase(18, f"the real-image flow: python -m latent2im_tpu_torch.cli.bp ({SIZE} px, "
+          f"{INV_CLI_LOOPS} loops, 6 PNGs), then cli.vis_w --latents_dir")
     flow = real_image_flow_phase(cli)
     log(f"    wall seconds {json.dumps(flow['seconds'])}, loss (first, last) per batch "
         f"{flow['loss_0']}, {flow['loss_4']}, launches {json.dumps(flow['launches'])}, "
         f"vis_w wrote {flow['vis_pngs']}, on {card}")
     torch.cuda.empty_cache()
 
-    log(f"[19] W+ inversion at {SIZE_HI} px, B={BATCH}, {INV_HI_LOOPS} loops")
+    phase(19, f"W+ inversion at {SIZE_HI} px, B={BATCH}, {INV_HI_LOOPS} loops")
     inv_hi = inversion_phase(dev, SIZE_HI, BATCH, INV_HI_LOOPS)
     log(f"    {inv_hi['ms_per_loop']:.1f} ms per loop (CUDA events), peak "
         f"{inv_hi['peak_gb']:.2f} GB, loss {inv_hi['loss_first']:.5f} -> "
         f"{inv_hi['loss_last']:.5f}, launches per loop "
         f"{json.dumps(inv_hi['launches_per_loop'])}, on {card}")
 
-    log(f"[20] the mlp_w and nn_w walks at {SIZE} px, train_loop B={BATCH}")
+    phase(20, f"the mlp_w and nn_w walks at {SIZE} px, train_loop B={BATCH}")
     walks = walk_kinds_phase(results, dev, refs)
     for kind, r in walks.items():
         log(f"    {kind}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
@@ -2532,20 +2658,12 @@ def plain_kernels():
 NOISE_F32_MAX = 1e-2
 
 
-def gan_grads_phase(dev, enforce: bool = True):
-    """One D step's and one G step's gradients at 256 px, full width, B=2
-    (seeded G with noise weights NOISE_WEIGHT; D's biases off zero): on the
-    card, and in f32 on the CPU, each against f64 (the plain versions on the
-    card: on the CPU the f64 steps take minutes), per parameter by relative
-    L2, the card held to max(1e-3, 1.5 x the CPU f32 error) (phase 9's
-    form, as phase 16), G's noise maps and noise weights to NOISE_F32_MAX
-    where that is larger. enforce=False only reports."""
-    import copy
-
+def _gan_grad_inputs():
+    """Phase 22's seeded G (noise weights NOISE_WEIGHT) and D (biases off
+    zero) at SIZE px, z, the real images and the penalty's eps, on the CPU."""
     import numpy as np
     import torch
 
-    from latent2im_tpu_torch import ops
     from latent2im_tpu_torch.models.stylegan2 import Discriminator, Generator
 
     gen = torch.Generator().manual_seed(25)
@@ -2562,6 +2680,30 @@ def gan_grads_phase(dev, enforce: bool = True):
     z = torch.from_numpy(rng.randn(GAN_CMP_BATCH, 512).astype(np.float32))
     real = torch.from_numpy((0.5 * rng.randn(GAN_CMP_BATCH, SIZE, SIZE, 3)).astype(np.float32))
     eps = torch.from_numpy(rng.uniform(size=(GAN_CMP_BATCH, 1, 1, 1)).astype(np.float32))
+    return g, d, z, real, eps
+
+
+def gan_grads_cpu_side():
+    """The CPU half of ``gan_grads_phase`` (the CpuReferences worker): the
+    steps in f32 on the CPU -> gan_grads' three results."""
+    return gan_grads(*_gan_grad_inputs())
+
+
+def gan_grads_phase(dev, enforce: bool = True, cpu=None):
+    """One D step's and one G step's gradients at 256 px, full width, B=2
+    (``_gan_grad_inputs``): on the card, and in f32 on the CPU, each against
+    f64 (the plain versions on the card: on the CPU the f64 steps take
+    minutes), per parameter by relative L2, the card held to max(1e-3, 1.5 x
+    the CPU f32 error) (phase 9's form, as phase 16), G's noise maps and
+    noise weights to NOISE_F32_MAX where that is larger. enforce=False only
+    reports. cpu: ``gan_grads_cpu_side``'s result (computed here when None)."""
+    import copy
+
+    import torch
+
+    from latent2im_tpu_torch import ops
+
+    g, d, z, real, eps = _gan_grad_inputs()
     ops.reset_launches()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
@@ -2570,7 +2712,7 @@ def gan_grads_phase(dev, enforce: bool = True):
     ev[1].record()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    m_cpu, g_cpu, s_cpu = gan_grads(copy.deepcopy(g), copy.deepcopy(d), z, real, eps)
+    m_cpu, g_cpu, s_cpu = cpu or gan_grads_cpu_side()
     with plain_kernels():
         t = time.perf_counter()
         m_f64, g_f64, _ = gan_grads(copy.deepcopy(g).to(dev, torch.float64),
@@ -2751,27 +2893,22 @@ def _gan_cli_flow(root):
     t0 = time.perf_counter()
     vis_dir = os.path.join(REPO, "chiprun_out", "gan_cli")
     shutil.rmtree(vis_dir, ignore_errors=True)
-    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w",
-                  os.path.join(opt.output_dir, "model_w_2_final_walk_module.ckpt"),
-                  "--save_path_gan", final, "--output_dir", vis_dir, "--num_samples", "2",
-                  "--num_panels", "3")
-    try:
-        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    out["vis_pngs"] = vis_w_here(
+        vis_dir, ["sample0_", "sample1_"], os.path.join(opt.output_dir, "opt.yml"),
+        "--save_path_w", os.path.join(opt.output_dir, "model_w_2_final_walk_module.ckpt"),
+        "--save_path_gan", final, "--num_samples", "2", "--num_panels", "3")
     out["seconds"]["vis_w_save_path_gan"] = time.perf_counter() - t0
     return out
 
 
-def gan_phases(card, dev):
+def gan_phases(card, dev, refs=None):
     """Phases 21-24 -> their reports and, under "launches", each path's
-    launch counts (gan, gan_grads, gan_1024, gan_cli)."""
+    launch counts (gan, gan_grads, gan_1024, gan_cli). refs: the
+    CpuReferences workers holding phase 22's CPU half."""
     import torch
 
-    log(f"[21] --updateGAN at {SIZE} px, B={BATCH}: the CLI's provider (a D and a G "
-        f"step) before each train_loop step, {GAN_ITERS} iterations")
+    phase(21, f"--updateGAN at {SIZE} px, B={BATCH}: the CLI's provider (a D and a G "
+          f"step) before each train_loop step, {GAN_ITERS} iterations")
     train = gan_train_phase(dev)
     log(f"    {train['iteration_ms_cuda_events']:.2f} ms per iteration, D step "
         f"{train['d_step_ms_cuda_events']:.2f} ms, G step {train['g_step_ms_cuda_events']:.2f} "
@@ -2779,21 +2916,21 @@ def gan_phases(card, dev):
         f"{json.dumps(train['moved'])}, GAN {json.dumps(train['gan_first'])} -> "
         f"{json.dumps(train['gan_last'])}, on {card}")
 
-    log(f"[22] one D and one G step's gradients ({SIZE} px, B={GAN_CMP_BATCH}): card and CPU "
-        "against f64")
-    grads = gan_grads_phase(dev)
+    phase(22, f"one D and one G step's gradients ({SIZE} px, B={GAN_CMP_BATCH}): card and CPU "
+          "against f64")
+    grads = gan_grads_phase(dev, cpu=refs and refs.get("gan_grads"))
     log(f"    {json.dumps(grads['worst'])}; the image's gradient {json.dumps(grads['image_grad'])}; "
         f"metrics {json.dumps(grads['metrics'])}; card {grads['card_ms']:.2f} ms, CPU f32 "
         f"{json.dumps(grads['cpu_f32_s'])} s, card f64 {grads['card_f64_s']:.1f} s")
     torch.cuda.empty_cache()
 
-    log(f"[23] one D and one G step at {SIZE_HI} px")
+    phase(23, f"one D and one G step at {SIZE_HI} px")
     hi = gan_1024_phase(dev)
     log(f"    B={hi['batch']} (out of memory at {hi['oom_at']}): D step "
         f"{hi['d_step_ms_cuda_events']:.1f} ms, G step {hi['g_step_ms_cuda_events']:.1f} ms "
         f"(CUDA events), peak {hi['peak_mem_gb']:.2f} GB, on {card}")
 
-    log("[24] the --updateGAN CLI: train + SIGTERM + --resume, then vis_w --save_path_gan")
+    phase(24, "the --updateGAN CLI: train + SIGTERM + --resume, then vis_w --save_path_gan")
     cli = gan_cli_phase()
     log(f"    wall seconds {json.dumps(cli['seconds'])}, launches {json.dumps(cli['launches'])}, "
         f"Adam moments restored {json.dumps(cli['adam_moments_restored'])}, vis_w wrote "
@@ -2884,57 +3021,95 @@ def z_reference_step(ed, w0, z, sampled, dtype):
 PGGAN_TOWERS_F32_MAX = 2.5e-2
 
 
-def z_grad_phase(conf, towers_max=None):
-    """One step (B=CMP_BATCH, host alphas, stored noise) of ``conf``'s z
-    walk through make_train_step on the card (deterministic cuDNN; once more
-    under the default algorithms, reported only) and on the CPU, each walk
-    gradient against f64 on the card (the towers in f64, the kernels' plain
-    versions: plain_kernels(), as phase 22): the card within max(1e-3, 1.5
-    x the CPU's f32 error) (phase 9's form), and with ``towers_max`` also
-    1.5 x the card's f32 error in the gradient wrt the edited z
-    (z_reference_step, deterministic cuDNN), held within towers_max; loss
-    terms within 1e-3 of f64."""
+def _z_grad_conf(kind):
+    """The options of z_grad_phase's step: "z" (StyleGAN2 in z, mlp_z) or
+    "pggan" (model_256)."""
+    return train_conf(*Z_FLAGS, "--fixed_noise") if kind == "z" else pggan_conf()
+
+
+def _z_grad_inputs():
+    import numpy as np
+
+    from latent2im_tpu_torch.tasks.transforms import get_task
+
+    z = np.random.RandomState(30).randn(CMP_BATCH, 512).astype(np.float32)
+    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(31), CMP_BATCH, 1)
+    return z, sampled
+
+
+def _z_grad_step(ed, w0, conf, z, sampled):
+    """One make_train_step step of the walk w0 -> (metrics, walk gradient,
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
+    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+
+    walk = walk_map(lambda a: torch.tensor(a, device=ed.device, requires_grad=True), w0)
+    step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate), host_alpha=True)
+    t0 = time.perf_counter()
+    m = step(walk, z, sampled=sampled)
+    grad = np.concatenate([p.grad.detach().cpu().numpy().astype(np.float64).ravel()
+                           for p in walk_leaves(walk)])
+    return {k: float(v) for k, v in m.items()}, grad, time.perf_counter() - t0
+
+
+def z_grad_cpu_side(kind):
+    """The CPU half of ``z_grad_phase`` (the CpuReferences worker): the f32
+    step on the CPU."""
+    from latent2im_tpu_torch.engine.build import build_editor_from_options
+    from latent2im_tpu_torch.walks import walk_map
+
+    conf = _z_grad_conf(kind)
+    ed, walk0, _ = build_editor_from_options(conf, device="cpu")
+    w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk0)
+    metrics, grad, secs = _z_grad_step(ed, w0, conf, *_z_grad_inputs())
+    return {"metrics": metrics, "grad": grad, "cpu_step_s": secs}
+
+
+def z_grad_phase(kind, towers_max=None, cpu=None):
+    """One step (B=CMP_BATCH, host alphas, stored noise) of ``kind``'s z
+    walk (``_z_grad_conf``) through make_train_step on the card
+    (deterministic cuDNN; once more under the default algorithms, reported
+    only) and on the CPU (``cpu``: that half, computed here where None),
+    each walk gradient against f64 on the card (the towers in f64, the
+    kernels' plain versions: plain_kernels(), as phase 22): the card within
+    max(1e-3, 1.5 x the CPU's f32 error) (phase 9's form), and with
+    ``towers_max`` also 1.5 x the card's f32 error in the gradient wrt the
+    edited z (z_reference_step, deterministic cuDNN), held within
+    towers_max; loss terms within 1e-3 of f64."""
     import numpy as np
     import torch
 
     from latent2im_tpu_torch.engine.build import build_editor_from_options
-    from latent2im_tpu_torch.engine.train import make_optimizer, make_train_step
-    from latent2im_tpu_torch.tasks.transforms import get_task
-    from latent2im_tpu_torch.walks import walk_leaves, walk_map
+    from latent2im_tpu_torch.walks import walk_map
 
-    z = np.random.RandomState(30).randn(CMP_BATCH, 512).astype(np.float32)
-    sampled, _ = get_task("face").train_alpha_np(np.random.RandomState(31), CMP_BATCH, 1)
-    res, out, card_ed = {}, {}, None
-    for device, mode in (("cuda", "deterministic"), ("cuda", "default"), ("cpu", None)):
-        if card_ed is None or device == "cpu":
-            ed, walk0, _ = build_editor_from_options(conf, device=device)
-            w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk0)
-        walk = walk_map(lambda a: torch.tensor(a, device=ed.device, requires_grad=True), w0)
-        step = make_train_step(ed, None, make_optimizer(walk, conf.learning_rate),
-                               host_alpha=True)
-        key = "cuda_default" if mode == "default" else device
+    conf = _z_grad_conf(kind)
+    z, sampled = _z_grad_inputs()
+    cpu = cpu or z_grad_cpu_side(kind)
+    res, out = {"cpu": (cpu["metrics"], cpu["grad"])}, {"cpu_step_s": cpu["cpu_step_s"]}
+    ed, walk0, _ = build_editor_from_options(conf, device="cuda")
+    w0 = walk_map(lambda t: t.detach().cpu().numpy().copy(), walk0)
+    del walk0
+    for mode in ("deterministic", "default"):
+        key = "cuda_default" if mode == "default" else "cuda"
         torch.backends.cudnn.deterministic = mode == "deterministic"
         try:
-            t0 = time.perf_counter()
-            m = step(walk, z, sampled=sampled)
-            res[key] = ({k: float(v) for k, v in m.items()}, np.concatenate(
-                [p.grad.detach().cpu().numpy().astype(np.float64).ravel()
-                 for p in walk_leaves(walk)]))
-            out[f"{key}_step_s"] = time.perf_counter() - t0
+            metrics, grad, out[f"{key}_step_s"] = _z_grad_step(ed, w0, conf, z, sampled)
+            res[key] = (metrics, grad)
             if key == "cuda":
                 res["cuda_composed"] = z_reference_step(ed, w0, z, sampled, torch.float32)
-                card_ed = ed
         finally:
             torch.backends.cudnn.deterministic = False
-        del step, walk
     t0 = time.perf_counter()
     with plain_kernels():
-        for m in (card_ed.g, card_ed.reg, card_ed.vgg, card_ed.d):
+        for m in (ed.g, ed.reg, ed.vgg, ed.d):
             if m is not None:
                 m.double()
-        ref, ref_grad, ref_z_grad = z_reference_step(card_ed, w0, z, sampled, torch.float64)
+        ref, ref_grad, ref_z_grad = z_reference_step(ed, w0, z, sampled, torch.float64)
     out["card_f64_reference_s"] = time.perf_counter() - t0
-    del card_ed
+    del ed
     torch.cuda.empty_cache()
     (mg, gg), (mc, gc) = res["cuda"], res["cpu"]
     for k in ("loss", "reg_loss", "content_loss", "gan_loss"):
@@ -2995,7 +3170,7 @@ def _timed_train(ed, task, walk, steps, lr, loop=None, batch=BATCH):
                   "first": metrics[0], "last": metrics[-1]}
 
 
-def z_phase(results, dev):
+def z_phase(results, dev, refs=None):
     """Phase 25: StyleGAN2 at SIZE px in z (--latent z --is_mlp, mlp_z):
     the edit server (/edit of BATCH, Z_REQUESTS times), apply_alpha device
     ms, train_loop, and one step's walk gradient against f64."""
@@ -3056,11 +3231,11 @@ def z_phase(results, dev):
     out["train"] = train
     del service, ed, walk
     torch.cuda.empty_cache()
-    out["grad"] = z_grad_phase(train_conf(*Z_FLAGS, "--fixed_noise"))
+    out["grad"] = z_grad_phase("z", cpu=refs and refs.get("z_z"))
     return out
 
 
-def pggan_phase(dev):
+def pggan_phase(dev, refs=None):
     """Phase 26: model_256 at step log2(SIZE) - 2 (G at SIZE px, edited
     images SIZE/2, D on the x2 re-upsample), full ladders, B=BATCH:
     apply_alpha and sweep; train_loop for linear_z_free, mlp_z3 and
@@ -3114,7 +3289,8 @@ def pggan_phase(dev):
         out["walks"][kind] = r
     del ed, walk
     torch.cuda.empty_cache()
-    out["grad"] = z_grad_phase(pggan_conf(), towers_max=PGGAN_TOWERS_F32_MAX)
+    out["grad"] = z_grad_phase("pggan", towers_max=PGGAN_TOWERS_F32_MAX,
+                               cpu=refs and refs.get("z_pggan"))
     return out
 
 
@@ -3219,14 +3395,9 @@ def pggan_cli_phase():
 
     t0 = time.perf_counter()
     vis_dir = os.path.join(root, "vis")
-    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
-                  "--output_dir", vis_dir, "--num_samples", "2", "--num_panels", "5")
-    try:
-        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    out["vis_pngs"] = vis_w_here(vis_dir, ["sample0_", "sample1_"],
+                                 os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                                 "--num_samples", "2", "--num_panels", "5")
     out["seconds"]["vis_w"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3245,14 +3416,14 @@ def pggan_cli_phase():
     return out
 
 
-def z_phases(card, dev, results):
+def z_phases(card, dev, results, refs=None):
     """Phases 25-28 -> their reports and, under "launches", the z paths'
     launch counts (z_serve, z_train)."""
     import torch
 
-    log(f"[25] StyleGAN2 in z ({SIZE} px, --latent z --is_mlp, mlp_z): the edit server, "
-        f"train_loop B={BATCH}, a step's walk gradient against f64")
-    z = z_phase(results, dev)
+    phase(25, f"StyleGAN2 in z ({SIZE} px, --latent z --is_mlp, mlp_z): the edit server, "
+          f"train_loop B={BATCH}, a step's walk gradient against f64")
+    z = z_phase(results, dev, refs)
     log(f"    /edit of {BATCH} p50 {z['p50_request_ms']:.1f} ms, apply_alpha B={BATCH} "
         f"{z['apply_alpha_b4_device_ms']:.2f} ms (CUDA events), train "
         f"{z['train']['step_ms_cuda_events']:.2f} ms per step, peak "
@@ -3260,9 +3431,9 @@ def z_phases(card, dev, results):
         f"{z['train']['last']['loss']:.4f}; step against f64 {json.dumps(z['grad'])}, on {card}")
     torch.cuda.empty_cache()
 
-    log(f"[26] model_256 PGGAN at step {int(math.log2(SIZE)) - 2} (G {SIZE} px, edits "
-        f"{SIZE // 2} px), B={BATCH}: apply_alpha, sweep, three walks, a gradient")
-    pg = pggan_phase(dev)
+    phase(26, f"model_256 PGGAN at step {int(math.log2(SIZE)) - 2} (G {SIZE} px, edits "
+          f"{SIZE // 2} px), B={BATCH}: apply_alpha, sweep, three walks, a gradient")
+    pg = pggan_phase(dev, refs)
     log(f"    apply_alpha {pg['apply_alpha_ms_cuda_events']:.2f} ms, sweep of {PANELS} panels "
         f"{pg['sweep_ms_cuda_events']:.2f} ms (CUDA events), peak {pg['edit_peak_mem_gb']:.2f} "
         f"GB; " + ", ".join(f"{k} {r['step_ms_cuda_events']:.2f} ms per step, peak "
@@ -3270,8 +3441,8 @@ def z_phases(card, dev, results):
         + f"; step against f64 {json.dumps(pg['grad'])}, on {card}")
     torch.cuda.empty_cache()
 
-    log(f"[27] the GAN-zoo PGAN (celebAHQ-512 depths) through --g_path, --resolution "
-        f"{2 * SIZE}, B={BATCH}")
+    phase(27, f"the GAN-zoo PGAN (celebAHQ-512 depths) through --g_path, --resolution "
+          f"{2 * SIZE}, B={BATCH}")
     zoo = zoo_phase(dev)
     log(f"    apply_alpha {zoo['apply_alpha_ms_cuda_events']:.2f} ms (CUDA events), peak "
         f"{zoo['apply_alpha_peak_mem_gb']:.2f} GB; walk step "
@@ -3279,8 +3450,8 @@ def z_phases(card, dev, results):
         f"GB, on {card}")
     torch.cuda.empty_cache()
 
-    log("[28] the CLIs on the PGGAN: train + SIGTERM + --resume, vis_w (python -m), "
-        "serve --save_path_w")
+    phase(28, "the CLIs on the PGGAN: train + SIGTERM + --resume, vis_w (python -m), "
+          "serve --save_path_w")
     cli = pggan_cli_phase()
     log(f"    wall seconds {json.dumps(cli['seconds'])}; preempted at {cli['preempted_at']}, "
         f"vis_w wrote {cli['vis_pngs']}, on {card}")
@@ -3379,41 +3550,58 @@ def geo_reference_step(ed, w0, z, alpha_graph, spec, dtype):
     return loss.item(), w.grad.double().cpu().numpy().ravel()
 
 
-def geo_grad_phase(name):
-    """One geometric step (B=CMP_BATCH) of ``name`` through
-    make_geometric_device_step on the card and on the CPU from the same
-    seed, each against f64 on the CPU (geo_reference_step): the loss within
-    1e-3, the card's walk gradient within max(1e-3, 1.5 x the CPU's f32
-    error) (phase 9's bound)."""
+def _geo_grad_step(name, device):
+    """One geometric step (B=CMP_BATCH) of ``name`` on ``device`` from the
+    phase's seeds -> (its editor, the walk's start w0, z, the alphas, the
+    device spec, the loss, the walk gradient, seconds)."""
     import numpy as np
-    import torch
 
     from latent2im_tpu_torch.engine.build import build_editor_from_options
     from latent2im_tpu_torch.engine.train import make_geometric_device_step, make_optimizer
     from latent2im_tpu_torch.tasks.transforms import get_task
 
     conf = geo_conf(name)
-    task = get_task(name)
-    alpha_graph, alpha_target = task.train_alpha_np(np.random.RandomState(62), CMP_BATCH)
-    spec = task.device_spec(alpha_target, SIZE)
-    res, out = {}, {"alpha": np.asarray(alpha_target).tolist()}
-    for device in ("cuda", "cpu"):
-        ed, walk, _ = build_editor_from_options(conf, device=device)
-        z = np.random.RandomState(61).randn(CMP_BATCH, ed.cfg.dim_z).astype(np.float32)
-        w0 = walk["w"].detach().cpu().numpy().copy()
-        walk["w"].requires_grad_(True)
-        step = make_geometric_device_step(ed, make_optimizer(walk, conf.learning_rate))
-        t0 = time.perf_counter()
-        m = step(walk, z, alpha_graph, spec)
-        res[device] = (float(m["loss"]), walk["w"].grad.detach().cpu().numpy().astype(
-            np.float64).ravel())
-        out[f"{device}_step_s"] = time.perf_counter() - t0
-        del step, walk
+    alpha_graph, alpha_target = get_task(name).train_alpha_np(np.random.RandomState(62),
+                                                              CMP_BATCH)
+    spec = get_task(name).device_spec(alpha_target, SIZE)
+    ed, walk, _ = build_editor_from_options(conf, device=device)
+    z = np.random.RandomState(61).randn(CMP_BATCH, ed.cfg.dim_z).astype(np.float32)
+    w0 = walk["w"].detach().cpu().numpy().copy()
+    walk["w"].requires_grad_(True)
+    step = make_geometric_device_step(ed, make_optimizer(walk, conf.learning_rate))
+    t0 = time.perf_counter()
+    m = step(walk, z, alpha_graph, spec)
+    grad = walk["w"].grad.detach().cpu().numpy().astype(np.float64).ravel()
+    return (ed, w0, z, alpha_graph, alpha_target, spec, float(m["loss"]), grad,
+            time.perf_counter() - t0)
+
+
+def geo_grad_cpu_side(name):
+    """The CPU half of ``geo_grad_phase`` (the CpuReferences worker): the
+    f32 step on the CPU and the same step in f64 (geo_reference_step)."""
+    import torch
+
+    ed, w0, z, alpha_graph, _, spec, loss, grad, secs = _geo_grad_step(name, "cpu")
     t0 = time.perf_counter()
     ed.g.double()  # the CPU editor's G
     ref_loss, ref_grad = geo_reference_step(ed, w0, z, alpha_graph, spec, torch.float64)
-    out["cpu_f64_reference_s"] = time.perf_counter() - t0
-    (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+    return {"loss": loss, "grad": grad, "cpu_step_s": secs, "ref_loss": ref_loss,
+            "ref_grad": ref_grad, "cpu_f64_reference_s": time.perf_counter() - t0}
+
+
+def geo_grad_phase(name, cpu=None):
+    """One geometric step (B=CMP_BATCH) of ``name`` through
+    make_geometric_device_step on the card and on the CPU from the same
+    seed, each against f64 on the CPU (geo_reference_step): the loss within
+    1e-3, the card's walk gradient within max(1e-3, 1.5 x the CPU's f32
+    error) (phase 9's bound). cpu: the CPU half, computed here where None."""
+    import numpy as np
+
+    cpu = cpu or geo_grad_cpu_side(name)
+    _, _, _, _, alpha_target, _, lg, gg, secs = _geo_grad_step(name, "cuda")
+    out = {"alpha": np.asarray(alpha_target).tolist(), "cuda_step_s": secs,
+           "cpu_step_s": cpu["cpu_step_s"], "cpu_f64_reference_s": cpu["cpu_f64_reference_s"]}
+    lc, gc, ref_loss, ref_grad = cpu["loss"], cpu["grad"], cpu["ref_loss"], cpu["ref_grad"]
     out.update(loss=ref_loss, loss_rel_card=abs(lg - ref_loss) / abs(ref_loss),
                loss_rel_cpu=abs(lc - ref_loss) / abs(ref_loss),
                walk_grad_rel_l2_card_f64=rel_l2(gg, ref_grad),
@@ -3426,7 +3614,7 @@ def geo_grad_phase(name):
     return out
 
 
-def geo_phase(dev):
+def geo_phase(dev, refs=None):
     """Phase 29: the seven geometric tasks at SIZE px, full width, linear_w,
     B=BATCH: per task a warmup step and GEO_STEPS counted steps (ms, peak
     GB, launches equal to GEO_STEPS x geometric_step_launches()), its target
@@ -3467,7 +3655,8 @@ def geo_phase(dev):
         out["tasks"][name] = r
     del ed, walk, imgs
     torch.cuda.empty_cache()
-    out["grad"] = {name: geo_grad_phase(name) for name in ("zoom", "colorlab")}
+    out["grad"] = {name: geo_grad_phase(name, refs and refs.get(f"geo_{name}"))
+                   for name in ("zoom", "colorlab")}
     return out
 
 
@@ -3558,15 +3747,10 @@ def geo_cli_phase():
 
     t0 = time.perf_counter()
     vis_dir = os.path.join(root, "vis")
-    proc = _vis_w(os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
-                  "--output_dir", vis_dir, "--num_samples", "2", "--num_panels", "5",
-                  "--min_alpha", "0.5", "--max_alpha", "2")
-    try:
-        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    out["vis_pngs"] = vis_w_here(vis_dir, ["sample0_", "sample1_"],
+                                 os.path.join(opt.output_dir, "opt.yml"), "--save_path_w", final,
+                                 "--num_samples", "2", "--num_panels", "5",
+                                 "--min_alpha", "0.5", "--max_alpha", "2")
     out["seconds"]["vis_w"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3652,16 +3836,16 @@ def parity_phase(dev):
     return out
 
 
-def geo_phases(card, dev):
+def geo_phases(card, dev, refs=None):
     """Phases 29-32 -> their reports and, under "launches", the counted
     geometric steps' launch counts (geo_256: all tasks of phase 29,
     geo_1024: phase 30)."""
     import torch
 
-    log(f"[29] the geometric and color walks at {SIZE} px ({', '.join(GEO_TASKS)}), "
-        f"linear_w, B={BATCH}: steps, targets card against CPU, zoom --trainEmbed, "
-        "zoom's and colorlab's step against f64")
-    geo = geo_phase(dev)
+    phase(29, f"the geometric and color walks at {SIZE} px ({', '.join(GEO_TASKS)}), "
+          f"linear_w, B={BATCH}: steps, targets card against CPU, zoom --trainEmbed, "
+          "zoom's and colorlab's step against f64")
+    geo = geo_phase(dev, refs)
     for name, r in geo["tasks"].items():
         log(f"    {name}: {r['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
             f"{r['steps']}), peak {r['peak_mem_gb']:.2f} GB, loss {r['first']['loss']:.4f} -> "
@@ -3669,20 +3853,20 @@ def geo_phases(card, dev):
     log(f"    step against f64 {json.dumps(geo['grad'])}")
     torch.cuda.empty_cache()
 
-    log(f"[30] zoom at {SIZE_HI} px, B={GEO_BATCH_HI}")
+    phase(30, f"zoom at {SIZE_HI} px, B={GEO_BATCH_HI}")
     hi = geo_hi_phase(dev)
     log(f"    {hi['step_ms_cuda_events']:.2f} ms per step (CUDA events over {hi['steps']}), "
         f"peak {hi['peak_mem_gb']:.2f} GB, on {card}")
     torch.cuda.empty_cache()
 
-    log("[31] the geometric CLI: train --transform zoom + SIGTERM + --resume, vis_w "
-        "(python -m), serve --save_path_w, --transform dsprites through the host sampler")
+    phase(31, "the geometric CLI: train --transform zoom + SIGTERM + --resume, vis_w "
+          "(python -m), serve --save_path_w, --transform dsprites through the host sampler")
     cli = geo_cli_phase()
     log(f"    wall seconds {json.dumps(cli['seconds'])}; preempted at {cli['preempted_at']}, "
         f"vis_w wrote {cli['vis_pngs']}, dsprites losses {cli['dsprites_losses']}, on {card}")
     torch.cuda.empty_cache()
 
-    log("[32] parity_check: record on the CPU, compare on the card with LPIPS")
+    phase(32, "parity_check: record on the CPU, compare on the card with LPIPS")
     par = parity_phase(dev)
     log(f"    {json.dumps(par)}, on {card}")
     torch.cuda.empty_cache()
@@ -3997,14 +4181,8 @@ def bf16_cli_phase(dev):
 
     t0 = time.perf_counter()
     vis_dir = os.path.join(root, "vis")
-    proc = _vis_w(yml, "--save_path_w", final_path, "--output_dir", vis_dir,
-                  "--num_samples", "2", "--num_panels", "5")
-    try:
-        out["vis_pngs"] = _check_vis(proc, vis_dir, ["sample0_", "sample1_"])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    out["vis_pngs"] = vis_w_here(vis_dir, ["sample0_", "sample1_"], yml, "--save_path_w",
+                                 final_path, "--num_samples", "2", "--num_panels", "5")
     out["seconds"]["vis_w"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -4062,8 +4240,8 @@ def bf16_phases(card, dev, results, hi):
     import torch
 
     out = {"launches": {}}
-    log(f"[33] the bf16 kernels against their plain bf16 versions at the {SIZE} px B={BATCH} "
-        f"and {SIZE_HI} px B={BATCH_HI} shapes")
+    phase(33, f"the bf16 kernels against their plain bf16 versions at the {SIZE} px B={BATCH} "
+          f"and {SIZE_HI} px B={BATCH_HI} shapes")
     out["results"], out["max_err"], out["details"] = kernel_phase(
         dev, SIZE, BATCH, iters=10, dtype=torch.bfloat16)
     out["results_hi"], max_hi, details_hi = kernel_phase(
@@ -4072,7 +4250,7 @@ def bf16_phases(card, dev, results, hi):
     out["details"] += details_hi
     torch.cuda.empty_cache()
 
-    log(f"[34] the {SIZE} px edit server with --bf16")
+    phase(34, f"the {SIZE} px edit server with --bf16")
     sv = out["serve"] = bf16_serve_phase(results, dev)
     out["launches"]["serve_bf16"] = sv.pop("launches_bf16")
     log(f"    /edit of {BATCH} p50 {sv['p50_request_ms']:.1f} ms, {sv['img_per_s']:.2f} img/s, "
@@ -4082,22 +4260,22 @@ def bf16_phases(card, dev, results, hi):
         f"scores {sv['card_vs_cpu_alpha_org_abs']:.3e}, on {card}")
     log(f"    apply_alpha B={BATCH} under torch.profiler: {json.dumps(sv['profile'])}")
 
-    log(f"[35] apply_alpha at {SIZE_HI} px in bf16, B={BF16_EDIT_BATCH_HI} and B={BATCH_HI}")
+    phase(35, f"apply_alpha at {SIZE_HI} px in bf16, B={BF16_EDIT_BATCH_HI} and B={BATCH_HI}")
     ed = out["edit_1024"] = bf16_edit_1024_phase(dev)
     out["launches"]["edit_1024_bf16"] = ed.pop("launches_bf16")
     log(f"    {json.dumps({k: v for k, v in ed.items() if k != 'launches'})}; f32 B={BATCH_HI} "
         f"{hi['edit']['apply_alpha_b8_device_ms']:.2f} ms (phase 13), on {card}")
 
-    log(f"[36] walk training with --bf16: {SIZE} px B={BATCH} and B={BF16_TRAIN_BATCH}, "
-        f"{SIZE_HI} px B={BATCH_HI}; the walk gradient against f64")
+    phase(36, f"walk training with --bf16: {SIZE} px B={BATCH} and B={BF16_TRAIN_BATCH}, "
+          f"{SIZE_HI} px B={BATCH_HI}; the walk gradient against f64")
     tr = out["train"] = bf16_train_phase(results, dev)
     for k in ("b4", "b16", f"{SIZE_HI}_b8"):
         out["launches"][f"train_bf16_{k}"] = tr[k].pop("launches_bf16")
     log(f"    one step (B={BATCH}) under torch.profiler: {json.dumps(tr['b4']['profile'])}")
     log(f"    step against f64 {json.dumps(tr['grad'])}, on {card}")
 
-    log("[37] --bf16 through the CLIs: train + SIGTERM + --resume, vis_w (python -m), "
-        "/edit; --updateGAN; model_256 PGGAN")
+    phase(37, "--bf16 through the CLIs: train + SIGTERM + --resume, vis_w (python -m), "
+          "/edit; --updateGAN; model_256 PGGAN")
     cli = out["cli"] = bf16_cli_phase(dev)
     for k in ("train", "serve"):
         out["launches"][f"cli_bf16_{k}"] = cli["launches_bf16"][k]
@@ -4342,9 +4520,10 @@ def regressor_train_phase(dev):
 
 
 def regressor_cli_phase():
-    """Phase 40: ``python -m latent2im_tpu_torch.cli.train_regressor`` on
-    tests/fixtures/torch_regressor/ (JPEGs and PNGs, a tab-separated label
-    file, training.txt / test.txt) at REG_SIZE px, B=4, 2 epochs with
+    """Phase 40: ``python -m latent2im_tpu_torch.cli.train_regressor``
+    (``run_module``) on tests/fixtures/torch_regressor/ (JPEGs and PNGs, a
+    tab-separated label file, training.txt / test.txt) at REG_SIZE px, B=4,
+    2 epochs with
     --export_torch: the print lines, the checkpoint names and meta, the
     msgpack restored into a ResNet50 and its Adam, the export loaded with
     strict=True. Its files (~0.75 GB) go to a temporary directory."""
@@ -4358,19 +4537,15 @@ def regressor_cli_phase():
     with tempfile.TemporaryDirectory() as root:
         ck = os.path.join(root, "ckpt")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "latent2im_tpu_torch.cli.train_regressor",
-             "--data_dir", os.path.join(REG_FIXTURES, "imgs"),
-             "--label_path", os.path.join(REG_FIXTURES, "annotations.tsv"),
-             "--split_dir", os.path.join(REG_FIXTURES, "split"), "--ckpt_dir", ck,
-             "--image_size", str(REG_SIZE), "--batch_size", "4", "--n_epochs", "2",
-             "--export_torch"], cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
-            capture_output=True, text=True, timeout=600)
+        printed = run_module(
+            "latent2im_tpu_torch.cli.train_regressor",
+            "--data_dir", os.path.join(REG_FIXTURES, "imgs"),
+            "--label_path", os.path.join(REG_FIXTURES, "annotations.tsv"),
+            "--split_dir", os.path.join(REG_FIXTURES, "split"), "--ckpt_dir", ck,
+            "--image_size", str(REG_SIZE), "--batch_size", "4", "--n_epochs", "2",
+            "--export_torch")
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"train_regressor exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        lines = proc.stdout.strip().splitlines()
+        lines = printed.strip().splitlines()
         assert lines[:2] == ["train 7 / test 3 images", "native loader: True"], lines
         assert lines[2].startswith("epoch 0 iter 0 Loss: ") and \
             lines[3].startswith("epoch 1 iter 0 Loss: "), lines
@@ -4596,9 +4771,9 @@ def regressor_phases(card, dev, gan, jp):
     counts (the trainer, the loader and StyleGAN1 reach no kernel)."""
     import torch
 
-    log(f"[39] the regressor trainer: ResNet-50 at {REG_SIZE} px, B={REG_BATCH}, "
-        f"{REG_WARMUP} warmup and {REG_STEPS} timed steps; {REG_CMP_STEPS} steps at "
-        f"B={REG_CMP_BATCH} against the CPU")
+    phase(39, f"the regressor trainer: ResNet-50 at {REG_SIZE} px, B={REG_BATCH}, "
+          f"{REG_WARMUP} warmup and {REG_STEPS} timed steps; {REG_CMP_STEPS} steps at "
+          f"B={REG_CMP_BATCH} against the CPU")
     reg = regressor_train_phase(dev)
     log(f"    {reg['step_ms_cuda_events']:.2f} ms per step (CUDA events), "
         f"{reg['step_ms_host']:.2f} ms (host), {reg['samples_per_s']:.1f} samples/s, peak "
@@ -4606,15 +4781,15 @@ def regressor_phases(card, dev, gan, jp):
     log(f"    one step under torch.profiler: {json.dumps(reg['profile'])}")
     log(f"    card against CPU: {json.dumps(reg['cpu_vs_card'])}")
 
-    log("[40] python -m latent2im_tpu_torch.cli.train_regressor on "
-        "tests/fixtures/torch_regressor/, 2 epochs, --export_torch")
+    phase(40, "python -m latent2im_tpu_torch.cli.train_regressor on "
+          "tests/fixtures/torch_regressor/, 2 epochs, --export_torch")
     cli = regressor_cli_phase()
     log(f"    {cli['seconds']:.1f} s, test MSE {cli['test_mse']:.5f}, metas {cli['metas']}, "
         f"Adam step {cli['adam_steps']} restored; lines {json.dumps(cli['lines'])}")
     torch.cuda.empty_cache()
 
-    log("[41] the loader: the C decode against Python, the threaded loader against the "
-        "trainer, --updateGAN on JPEGs against PNGs")
+    phase(41, "the loader: the C decode against Python, the threaded loader against the "
+          "trainer, --updateGAN on JPEGs against PNGs")
     loader = loader_phase(dev, reg, gan["train"], jp["gan"])
     log(f"    loader ({loader['loader_threads']} threads) batches/s at B={REG_BATCH}: "
         f"{json.dumps(loader['loader_batches_per_s'])} against the trainer's "
@@ -4622,8 +4797,8 @@ def regressor_phases(card, dev, gan, jp):
         f"{loader['fed_steps_per_s']:.2f} steps/s; --updateGAN ms per iteration "
         f"{json.dumps(loader['update_gan_iteration_ms'])}, on {card}")
 
-    log("[42] StyleGAN1 at step 5 (128 px) and step 8 (1024 px), card against CPU; "
-        "the compat call sequence")
+    phase(42, "StyleGAN1 at step 5 (128 px) and step 8 (1024 px), card against CPU; "
+          "the compat call sequence")
     s1 = stylegan1_phase(dev)
     log(f"    {json.dumps(s1)}")
     cp = compat_phase(dev)
@@ -4856,6 +5031,7 @@ def _parallel_rank():
     from latent2im_tpu_torch.parallel import mesh as M
     from latent2im_tpu_torch.parallel import spatial as S
 
+    faulthandler.dump_traceback_later(RANK_WATCHDOG_S)
     dev = resolve_device("cuda")
     rank, world = dist.get_rank(), dist.get_world_size()
     out = {"rank": rank, "backend": dist.get_backend(), "gloo_cuda": _gloo_cuda_probe(world)}
@@ -4934,6 +5110,33 @@ def _nccl_rank():
     return out
 
 
+def one_rank_here(fn, *args):
+    """``fn(*args)`` as the one rank of a group that this process joins,
+    with the backend ``parallel.launch`` picks for one rank on one card
+    (NCCL), through a FileStore in a temporary directory, and leaves after
+    -> fn's result. This saves phase 46 the ~20 s a spawned rank takes to
+    start; phases 44-45 and 48-50 spawn theirs through ``launch``."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from latent2im_tpu_torch.parallel.mesh import COLLECTIVE_TIMEOUT, choose_backend
+
+    backend = choose_backend("cuda", 1, torch.cuda.device_count())
+    tmp = tempfile.mkdtemp(prefix="l2i_rdzv_")
+    try:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, timeout=COLLECTIVE_TIMEOUT)
+        try:
+            return fn(*args)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _held(name, got, want):
     """A launched path's rank-0 numbers against the one-process run's on the
     card: edits within EDIT_REL_L2, the step's loss terms rtol 2e-4; the
@@ -4957,18 +5160,21 @@ def _held(name, got, want):
     return out
 
 
-def parallel_phases(card, dev):
+def parallel_phases(card, dev, tp_too: bool = False):
     """Phases 43-46 -> their reports and, under "launches", the sp, dp and
-    dp_nccl paths' launch counts (summed over their ranks)."""
+    dp_nccl paths' launch counts (summed over their ranks). tp_too: the
+    ranks also run phases 48-50's part (``_mesh_rank``), which saves a
+    second start of the ranks (~20 s); what it gathered is under
+    "tp_ranks", for ``tp_phases``."""
     import torch
 
     from latent2im_tpu_torch.parallel.launch import launch
 
-    log(f"[43] the kernels at the row-shard shapes of {PAR_RANKS} ranks ({SIZE} and {SIZE_HI} px, "
-        f"B={SP_BATCH}, f32 and bf16) against their plain versions")
+    phase(43, f"the kernels at the row-shard shapes of {PAR_RANKS} ranks ({SIZE} and {SIZE_HI} px, "
+          f"B={SP_BATCH}, f32 and bf16) against their plain versions")
     out = {"shards": shard_kernel_phase(dev)}
-    log(f"[44]-[45] one process on the card: the sp path's numbers ({SP_SIZE} px, B={SP_BATCH}) "
-        f"and the dp path's ({DP_SIZE} px, B={DP_BATCH * PAR_RANKS})")
+    phase("44-45", f"one process on the card: the sp path's numbers ({SP_SIZE} px, B={SP_BATCH}) "
+          f"and the dp path's ({DP_SIZE} px, B={DP_BATCH * PAR_RANKS})")
     from latent2im_tpu_torch.walks import walk_map
 
     refs = {}
@@ -4989,13 +5195,19 @@ def parallel_phases(card, dev):
         f"{refs['sp']['step_ms']:.2f} ms; dp-size edit {refs['dp']['edit_ms']:.2f} ms, step "
         f"{refs['dp']['step_ms']:.2f} ms (host clock), on {card}")
     t = time.perf_counter()
-    ranks = launch(_parallel_rank, (), world_size=PAR_RANKS, device="cuda", timeout=900.0)
+    if tp_too:
+        assert TP_RANKS == PAR_RANKS
+        ranks, out["tp_ranks"] = launch(_mesh_rank, (gan_mesh_pngs(),), world_size=PAR_RANKS,
+                                        device="cuda", timeout=720.0)
+    else:
+        ranks = launch(_parallel_rank, (), world_size=PAR_RANKS, device="cuda", timeout=360.0)
     out["ranks_wall_s"] = time.perf_counter() - t
     out["gloo_takes_cuda_tensors"] = ranks[0]["gloo_cuda"]
     log(f"    {PAR_RANKS} ranks sharing the card: backend {ranks[0]['backend']}; gloo with CUDA "
-        f"tensors: {json.dumps(ranks[0]['gloo_cuda'])}; wall {out['ranks_wall_s']:.1f} s")
+        f"tensors: {json.dumps(ranks[0]['gloo_cuda'])}; wall {out['ranks_wall_s']:.1f} s"
+        + (" (with phases 48-50's part)" if tp_too else ""))
     launches = {}
-    for path, phase in (("sp", 44), ("dp", 45)):
+    for path, n in (("sp", 44), ("dp", 45)):
         r = _held(path, ranks[0][path], refs[path])
         r.update({k: [rk[path][k] for rk in ranks]
                   for k in ("edit_ms", "step_ms", "edit_collectives", "step_collectives")})
@@ -5006,7 +5218,7 @@ def parallel_phases(card, dev):
         assert all(v > 0 for v in launches[path].values()), (path, launches[path])
         out[path] = r
         c = r["step_collectives"][0]
-        log(f"[{phase}] {path} over {PAR_RANKS} ranks (backend {ranks[0]['backend']}, transport "
+        log(f"[{n}] {path} over {PAR_RANKS} ranks (backend {ranks[0]['backend']}, transport "
             f"{r['transport']}): edit rel L2 {r['edit_rel_l2']:.2e}, sweep {r['sweep_rel_l2']:.2e}, "
             f"step loss {r['terms']['loss']:.5f} ({r['terms_one_process']['loss']:.5f} one process), "
             f"walk gradient rel L2 to f64 {r['grad_rel_l2_f64']:.2e} (one process "
@@ -5017,9 +5229,9 @@ def parallel_phases(card, dev):
             f"collectives per step: {c['ms']:.2f} ms over {c['calls']} calls, {c['bytes_sent']} "
             f"bytes sent, halo {c['halo_bytes']} B, gather {c['gather_bytes']} B; launches "
             f"{launches[path]}; on {card}. Two ranks on one card measure overhead, not speedup.")
-    log("[46] a one-rank NCCL group running the dp path, then train_loop with a stop flag "
-        "and a resume")
-    nccl = launch(_nccl_rank, (), world_size=1, device="cuda", timeout=600.0)
+    phase(46, "a one-rank NCCL group (this process) running the dp path, then train_loop "
+          "with a stop flag and a resume")
+    nccl = one_rank_here(_nccl_rank)
     assert nccl["backend"] == "nccl", nccl["backend"]
     r = _held("dp_nccl", nccl, refs["dp"])
     r.update({k: nccl[k] for k in ("edit_ms", "step_ms", "edit_collectives",
@@ -5045,7 +5257,7 @@ TP_RANKS = 2  # the model axis: two ranks sharing the card over gloo
 # (name, size, batch, extra flags): the tp step's configurations
 TP_RUNS = (("f32_256", SIZE, BATCH, ()), ("bf16_256", SIZE, BATCH, ("--bf16",)),
            ("bf16_1024", SIZE_HI, 2, ("--bf16",)))
-TP_TIMED = 3
+TP_TIMED = 1
 # a tp step's loss terms against one process's on the card: f32 1e-6
 # (relative); bf16 one bf16 rounding, 2^-8, at these inputs: the partial
 # sums' other order flips some of the bf16 roundings of the activations
@@ -5367,6 +5579,7 @@ def _tp_rank(real_dir):
     from latent2im_tpu_torch.parallel import mesh as M
     from latent2im_tpu_torch.parallel import spatial as S
 
+    faulthandler.dump_traceback_later(RANK_WATCHDOG_S)
     dev = resolve_device("cuda")
     rank, world = dist.get_rank(), dist.get_world_size()
     out = {"rank": rank, "backend": dist.get_backend(), "tp": {}}
@@ -5391,23 +5604,39 @@ def _tp_rank(real_dir):
     return objs
 
 
-def tp_phases(card, dev):
+def gan_mesh_pngs():
+    """Phase 49's --real_data_dir (``_gan_pngs``)."""
+    return _gan_pngs(os.path.join(REPO, "chiprun_out", "gan_mesh", "real"))
+
+
+def _mesh_rank(real_dir):
+    """Phases 44-45's rank (``_parallel_rank``), then 48-50's
+    (``_tp_rank``), in one launch of the ranks -> (the first's gathered
+    numbers, the second's)."""
+    return _parallel_rank(), _tp_rank(real_dir)
+
+
+def tp_phases(card, dev, ranks=None):
     """Phases 47-50 -> their reports and, under "launches", the tp path's
     launch counts (summed over its ranks and configurations; the split's
-    kernels too) and the mesh --updateGAN path's."""
+    kernels too) and the mesh --updateGAN path's. ranks: what ``_tp_rank``
+    gathered, when phase 44's launch ran it on its ranks (``_mesh_rank``;
+    launched here when None)."""
     import numpy as np
     import torch
 
     from latent2im_tpu_torch.parallel.launch import launch
 
-    log(f"[47] the styled conv's tensor-parallel split (partial, epilogue) at the Cin/"
-        f"{TP_RANKS} shard of every partner conv ({SIZE} px B={BATCH}, {SIZE_HI} px B=2; "
-        "f32 and bf16) against their plain versions")
+    phase(47, f"the styled conv's tensor-parallel split (partial, epilogue) at the Cin/"
+          f"{TP_RANKS} shard of every partner conv ({SIZE} px B={BATCH}, {SIZE_HI} px B=2; "
+          "f32 and bf16) against their plain versions")
     sums, details, worst = tp_kernel_phase(dev)
     out = {"kernels": {f"{k[0]}_{k[1]}_{k[2]}": v for k, v in sums.items()},
            "kernel_details": details, "worst_err_over_ref": worst}
-    log(f"[48] one process on the card: the tp step's numbers ({', '.join(r[0] for r in TP_RUNS)}) "
-        "and the same steps in f64 (the plain versions)")
+    phase("48-50", f"one process on the card: the tp step's numbers "
+          f"({', '.join(r[0] for r in TP_RUNS)}) and the same steps in f64 (the plain "
+          f"versions), then the {TP_RANKS} ranks of phases 48-50"
+          + (" (run in phase 44's launch)" if ranks is not None else ""))
     from latent2im_tpu_torch.walks import walk_map
 
     refs, f64 = {}, {}
@@ -5427,10 +5656,11 @@ def tp_phases(card, dev):
         del ed, walk
         torch.cuda.empty_cache()
     sp_refs = sp_family_run(dev)
-    real_dir = _gan_pngs(os.path.join(REPO, "chiprun_out", "gan_mesh", "real"))
-    t = time.perf_counter()
-    ranks = launch(_tp_rank, (real_dir,), world_size=TP_RANKS, device="cuda", timeout=900.0)
-    out["ranks_wall_s"] = time.perf_counter() - t
+    if ranks is None:
+        t = time.perf_counter()
+        ranks = launch(_tp_rank, (gan_mesh_pngs(),), world_size=TP_RANKS, device="cuda",
+                       timeout=480.0)
+        out["ranks_wall_s"] = time.perf_counter() - t
     every, bf16_only = {}, {}  # launches of the tp path, and of its bf16 instances
     for name, size, batch, flags in TP_RUNS:
         got, want = ranks[0]["tp"][name], refs[name]
@@ -5491,7 +5721,8 @@ def tp_phases(card, dev):
         assert all(b < want["g_param_bytes"] for b in r["g_param_bytes"]), (name, r)
         log(f"    G's parameters by rank {r['g_param_bytes']} bytes (one process "
             f"{r['one_process_g_param_bytes']})")
-        log(f"    ms per step by rank {r['step_ms']} (one process {r['one_process_step_ms']:.2f}); "
+        log(f"    ms per step by rank {r['step_ms']}, median of {TP_TIMED} timed (one process "
+            f"{r['one_process_step_ms']:.2f}); "
             f"rank 0's all-reduces per step: {c['ms']:.2f} ms over {c['calls']} calls, "
             f"{c['bytes_sent']} bytes; launches by rank "
             f"{[rk['tp'][name]['launches'] for rk in ranks]}; on {card}")
@@ -5813,8 +6044,8 @@ def host_target_phase(card, cpu):
     launch counts (path host_targets: the seven tasks and the CLI)."""
     import torch
 
-    log(f"[51] --host_targets: the cv2 warps in numpy against cv2's recordings, the seven "
-        f"tasks at {SIZE} px B={BATCH}, rotate2d's step card against CPU, the CLI")
+    phase(51, f"--host_targets: the cv2 warps in numpy against cv2's recordings, the seven "
+          f"tasks at {SIZE} px B={BATCH}, rotate2d's step card against CPU, the CLI")
     fixtures = host_target_fixture_check()
     log(f"    {fixtures['cases']} recorded cases, {fixtures['bit_equal']} bit-equal, "
         f"colorlab max-abs {fixtures['lab_max_abs']:.3g}, held on the recorded matrix: "
@@ -6382,7 +6613,8 @@ def _photo_decodes(root):
     it; and tests/fixtures/torch_jpeg's photos with three bytes of their
     scans overwritten (tests/jpeg_corrupt_corpus.py:overwritten, seed =
     size) in both JPEG modes, the C++ equal to the Python decode -> {size:
-    {form: ms}} (host clock, files warm; Pillow's decodes of these files
+    {form: ms}} (host clock, files warm; a form's median of reps takes its
+    checked decode as the first timing; Pillow's decodes of these files
     are held to in tests/test_torch_image_formats.py and
     tests/test_torch_jpeg_corrupt.py)."""
     import numpy as np
@@ -6401,10 +6633,14 @@ def _photo_decodes(root):
             path = os.path.join(root, f"{name}_{size}")
             with open(path, "wb") as f:
                 f.write(data)
+            t0 = time.perf_counter()
             got = imgmod.read_image_rgb(path)
+            first = (time.perf_counter() - t0) * 1e3  # the checked decode is the first timing
             assert got.shape == (size, size, 3), (name, got.shape)
             assert want is None or np.array_equal(got, want), f"{name} at {size} px"
-            ms[name] = _median_ms(lambda path=path: imgmod.read_image_rgb(path), reps)
+            ms[name] = statistics.median(
+                [first] + [_median_ms(lambda path=path: imgmod.read_image_rgb(path), 1)
+                           for _ in range(reps - 1)])
         with open(os.path.join(REPO, "tests", "fixtures", "torch_jpeg", PHOTO_JPEGS[size]),
                   "rb") as f:
             data = overwritten(f.read(), size)
@@ -6489,6 +6725,88 @@ def _textures_phase(dev, root):
     return out
 
 
+LEGACY_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_image_legacy")
+
+
+def legacy_phase(dev):
+    """Phase 57 in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _legacy_phase(dev, root)
+
+
+def _legacy_forms(rng):
+    """The three timed files, written without Pillow from ``rng``
+    (tests/image_format_encoders.py) -> {name: (bytes, the decode they must
+    give)}: a 256 px 24-bit Sun raster run-length coded (flat bands so
+    that runs occur), a 256 px FLC whose first frame is a palette, a BRUN
+    and an LC chunk, a 256 px FITS image of BITPIX -32 (whose big-endian
+    float32s Pillow's raw mode F reads little-endian)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from image_format_encoders import (fits_file, fli_brun, fli_color, fli_file, fli_lc,
+                                       sun_file, sun_rle, sun_rows)
+
+    from latent2im_tpu_torch.utils.modes import f_rgb
+
+    img = rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    img[32:224, 16:240] = img[32:33, 16:17]
+    sun = sun_file(256, 256, 24, sun_rle(sun_rows(img[..., ::-1], 24, pad=False)), 2)
+    pal = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    a = rng.randint(0, 256, (256, 256)).astype(np.uint8)
+    a[64:192] = np.arange(256) // 16
+    b = a.copy()
+    b[100:140, 30:90] = 7
+    flc = fli_file(256, 256, [[fli_color(pal), fli_brun(a), fli_lc(a, b)], [fli_lc(b, a)]])
+    f = (rng.randn(256, 256) * 100).astype(">f4")
+    fits = fits_file([("SIMPLE", "T"), ("BITPIX", -32), ("NAXIS", 2), ("NAXIS1", 256),
+                      ("NAXIS2", 256)], f.tobytes())
+    return {"sun_rle_24_256": (sun, img), "flc_brun_lc_256": (flc, pal[b]),
+            "fits_f32_256": (fits, f_rgb(np.frombuffer(f.tobytes(), "<f4").reshape(256, 256)
+                                         [::-1]))}
+
+
+def _legacy_phase(dev, root):
+    """Phase 57: (1) every file of tests/fixtures/torch_image_legacy through
+    read_image_rgb, each equal to its recorded Pillow decode (decodes.npz,
+    or its SHA-256 in decodes.json); (2) ms a photo of read_image_rgb over
+    ``_legacy_forms``' three files, written from seed 57, each equal to the
+    decode it must give (median of 3). Host clock, files warm."""
+    import numpy as np
+
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    del dev  # host decode: nothing runs on the card
+    with open(os.path.join(LEGACY_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(LEGACY_FIXTURES, "decodes.npz"))
+    names = sorted(f for f in os.listdir(LEGACY_FIXTURES) if os.path.splitext(f)[0] in meta)
+    assert len(names) == len(meta) - 1, names  # every recorded decode has its file
+    formats = set()
+    for name in names:
+        key = os.path.splitext(name)[0]
+        got = imgmod.read_image_rgb(os.path.join(LEGACY_FIXTURES, name))
+        if list(got.shape) != meta[key]["shape"] or _sha256(got) != meta[key]["sha256"] or (
+                key in npz and not np.array_equal(got, npz[key])):
+            raise AssertionError(f"{name} is not Pillow's decode")
+        formats.add(key.split("_")[0])
+    assert len(formats) == 16, formats
+    log(f"    {len(names)} decodes of the 16 legacy formats' fixtures equal to Pillow's "
+        f"(Pillow {meta['pillow']})")
+    out = {"fixtures": len(names), "ms_per_photo": {}}
+    for name, (data, want) in _legacy_forms(np.random.RandomState(57)).items():
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        got = imgmod.read_image_rgb(path)
+        assert got.shape == want.shape and np.array_equal(got, want), name
+        out["ms_per_photo"][name] = _median_ms(lambda path=path: imgmod.read_image_rgb(path), 3)
+    log(f"    ms a photo, read_image_rgb (Python): {json.dumps(out['ms_per_photo'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6504,11 +6822,13 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    faulthandler.dump_traceback_later(WATCHDOG_S - (time.perf_counter() - T0))
     refs = CpuReferences()  # the CPU references, computed meanwhile
     try:
         return _run(refs)
     finally:
         refs.close()
+        faulthandler.cancel_dump_traceback_later()
 
 
 def _run(refs) -> int:
@@ -6520,22 +6840,23 @@ def _run(refs) -> int:
     from latent2im_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
-    phase_s = {}  # seconds by group of phases
     card = card_line()
-    log(f"[1] card: {card}")
+    phase(1, f"card: {card}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
     dev = resolve_device("cuda")  # TF32 off for cuDNN and cuBLAS
 
+    phase(2, "building the kernels (one nvcc for each source, all started together)")
     path, secs = _build.build()
     _build.library()
     log(f"[2] kernels built in {secs:.1f} s: {os.path.relpath(path, REPO)}")
+    refs.start_second()
 
-    log(f"[3] kernels against their plain versions at the {SIZE} px B={BATCH} "
-        "shapes of apply_alpha and of a training step")
+    phase(3, f"kernels against their plain versions at the {SIZE} px B={BATCH} "
+          "shapes of apply_alpha and of a training step")
     results, max_err, details = kernel_phase(dev)
 
-    log(f"[4] main path 1: the {SIZE} px edit server over HTTP")
+    phase(4, f"main path 1: the {SIZE} px edit server over HTTP")
     service, conf, serve_counts, serve = serve_phase(results, dev)
     log(f"    p50 request latency {serve['p50_request_ms']:.1f} ms, "
         f"{serve['img_per_s']:.2f} img/s ({serve['requests']} /edit requests "
@@ -6544,36 +6865,36 @@ def _run(refs) -> int:
     log(f"    apply_alpha B={BATCH} under cuDNN's default and deterministic algorithms: "
         f"{json.dumps(serve['deterministic_cudnn'])}")
 
-    log("[5] one apply_alpha (B=4) under torch.profiler")
+    phase(5, "one apply_alpha (B=4) under torch.profiler")
     prof = profile_phase(service)
     log(f"    {json.dumps(prof)}")
 
-    log("[6] card against CPU (B=1, same weights)")
+    phase(6, "card against CPU (B=1, same weights)")
     cmp_ = cpu_phase(service, conf)
     log(f"    {cmp_}")
     del service
     torch.cuda.empty_cache()
 
-    log(f"[7] main path 2: {SIZE} px walk training, train_loop B={BATCH}")
+    phase(7, f"main path 2: {SIZE} px walk training, train_loop B={BATCH}")
     ed, walk, task, train_counts, train = train_phase(results, dev)
     log(f"    {train['step_ms_cuda_events']:.2f} ms per step (CUDA events over "
         f"{TRAIN_STEPS} steps), {train['samples_per_s']:.2f} samples/s, peak "
         f"{train['peak_mem_gb']:.2f} GB, loss {train['first']['loss']:.4f} -> "
         f"{train['last']['loss']:.4f}, on {card}")
 
-    log(f"[8] one training step (B={BATCH}) under torch.profiler")
+    phase(8, f"one training step (B={BATCH}) under torch.profiler")
     train_prof = train_profile_phase(ed, walk, task)
     log(f"    {json.dumps(train_prof)}")
     del ed, walk
     torch.cuda.empty_cache()
 
-    log(f"[9] training step, card against CPU ({F64_SIZE} px, B={CMP_BATCH}, same weights)")
+    phase(9, f"training step, card against CPU ({F64_SIZE} px, B={CMP_BATCH}, same weights)")
     train_cmp = train_cpu_phase(cpu=refs.get("train"))
     log(f"    {train_cmp}")
     torch.cuda.empty_cache()
 
-    log(f"[10] the CLIs at {SIZE} px: train + SIGTERM + --resume, train_multi_attr, "
-        "vis_w (python -m), serve --save_path_w")
+    phase(10, f"the CLIs at {SIZE} px: train + SIGTERM + --resume, train_multi_attr, "
+          "vis_w (python -m), serve --save_path_w")
     t = time.perf_counter()
     cli = cli_phase()
     cli["seconds"]["phase"] = time.perf_counter() - t
@@ -6585,48 +6906,42 @@ def _run(refs) -> int:
         f"{json.dumps(cli['edit_vs_apply_alpha'])}")
     torch.cuda.empty_cache()
 
-    phase_s["1-10"] = time.perf_counter() - t_start
-
-    def timed(key, fn, *args, **kw):
-        t = time.perf_counter()
-        out = fn(*args, **kw)
-        phase_s[key] = time.perf_counter() - t
-        log(f"    phases {key}: {phase_s[key]:.1f} s")
-        return out
-
-    hi = timed("11-15", hi_phases, card, dev, grad_limit=train_cmp["walk_grad_limit"])
+    hi = hi_phases(card, dev, grad_limit=train_cmp["walk_grad_limit"])
     torch.cuda.empty_cache()
 
-    late = timed("16-20", late_phases, card, dev, results, cli, refs)
-    gan = timed("21-24", gan_phases, card, dev)
-    zp = timed("25-28", z_phases, card, dev, results)
-    geo = timed("29-32", geo_phases, card, dev)
-    bf = timed("33-37", bf16_phases, card, dev, results, hi)
-    log("[38] JPEG input: the fixtures against their Pillow decodes, bp and --updateGAN "
-        "on JPEGs")
-    jp = timed("38", jpeg_phase, dev)
-    rg = timed("39-42", regressor_phases, card, dev, gan, jp)
-    par = timed("43-46", parallel_phases, card, dev)
-    tp = timed("47-50", tp_phases, card, dev)
-    hp = timed("51", host_target_phase, card, refs.get("geo_host"))
-    log("[52] progressive, CMYK and YCCK JPEG: the fixtures in Python and C++ against their "
-        "Pillow decodes, the regressor loader on them, bp on a progressive photo")
-    jprog = timed("52", jpeg_progressive_phase, dev)
-    log("[53] WEBP, arithmetic JPEG, 16-bit and Adam7 PNG: the fixtures against their "
-        "Pillow decodes, bp on a WEBP, an animated WEBP and a 16-bit PNG")
-    kinds = timed("53", image_kinds_phase, dev)
-    log("[54] the native path: its fixtures in Python and C++ against the JAX extension's "
-        "recordings, --updateGAN on its stream, the regressor CLI on GIF, BMP and TIFF")
-    nat = timed("54", native_phase, dev)
-    log("[55] corrupt JPEGs (libjpeg's recovery) in both modes, Python and C++, against "
-        "Pillow's and the JAX extension's recordings; the native Loader over them; Netpbm, "
-        "QOI, TGA, PCX, SGI, ICO/CUR, DIB and TIFF fixtures; the regressor CLI on them; "
-        "decode ms at 256 and 1024 px")
-    cf = timed("55", corrupt_formats_phase, dev)
-    log("[56] DDS (BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS: the fixtures in Python and "
-        "C++ against their Pillow decodes; decode ms of JPEG 2000 photos, a BC7 DDS and a PSD")
-    tx = timed("56", textures_phase, dev)
-    log(f"    seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
+    late = late_phases(card, dev, results, cli, refs)
+    gan = gan_phases(card, dev, refs)
+    zp = z_phases(card, dev, results, refs)
+    geo = geo_phases(card, dev, refs)
+    bf = bf16_phases(card, dev, results, hi)
+    phase(38, "JPEG input: the fixtures against their Pillow decodes, bp and --updateGAN "
+          "on JPEGs")
+    jp = jpeg_phase(dev)
+    rg = regressor_phases(card, dev, gan, jp)
+    par = parallel_phases(card, dev, tp_too=True)
+    tp = tp_phases(card, dev, ranks=par.pop("tp_ranks"))
+    hp = host_target_phase(card, refs.get("geo_host"))
+    phase(52, "progressive, CMYK and YCCK JPEG: the fixtures in Python and C++ against their "
+          "Pillow decodes, the regressor loader on them, bp on a progressive photo")
+    jprog = jpeg_progressive_phase(dev)
+    phase(53, "WEBP, arithmetic JPEG, 16-bit and Adam7 PNG: the fixtures against their "
+          "Pillow decodes, bp on a WEBP, an animated WEBP and a 16-bit PNG")
+    kinds = image_kinds_phase(dev)
+    phase(54, "the native path: its fixtures in Python and C++ against the JAX extension's "
+          "recordings, --updateGAN on its stream, the regressor CLI on GIF, BMP and TIFF")
+    nat = native_phase(dev)
+    phase(55, "corrupt JPEGs (libjpeg's recovery) in both modes, Python and C++, against "
+          "Pillow's and the JAX extension's recordings; the native Loader over them; Netpbm, "
+          "QOI, TGA, PCX, SGI, ICO/CUR, DIB and TIFF fixtures; the regressor CLI on them; "
+          "decode ms at 256 and 1024 px")
+    cf = corrupt_formats_phase(dev)
+    phase(56, "DDS (BC1-BC7), BLP, FTEX, PSD, JPEG 2000 and ICNS: the fixtures in Python and "
+          "C++ against their Pillow decodes; decode ms of JPEG 2000 photos, a BC7 DDS and a PSD")
+    tx = textures_phase(dev)
+    phase(57, "DCX, XBM, XPM, MSP, Sun raster, FLI/FLC, FITS, SPIDER, IM, McIdas, GBR, PhotoCD, "
+          "PIXAR, XV thumbnail, IMT and IPTC: the fixtures against their Pillow decodes; decode "
+          "ms of a run-length Sun raster, an FLC and a FITS float image")
+    lg = legacy_phase(dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -6720,11 +7035,16 @@ def _run(refs) -> int:
               "native": {k: v for k, v in nat.items() if k != "launches"},
               "corrupt_formats": {k: v for k, v in cf.items() if k != "launches"},
               "textures": tx,
-              "seconds_by_phase": phase_s,
+              "legacy": lg,
+              "cpu_reference_waits_s": refs.waited,
               "seconds": time.perf_counter() - t_start}
+    report["seconds_by_phase"] = dict(phase_seconds(time.perf_counter() - T0))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    log("seconds by phase, one line each:")
+    for n, secs in report["seconds_by_phase"].items():
+        print(f"    phase {n}: {secs:.1f} s", flush=True)
     log(f"done in {report['seconds']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,18 +2,24 @@
 latent2im_tpu/utils/image.py (imgrid tiling with 1 px white seams, PNG save,
 to_uint8), NHWC uint8. PNG is encoded and decoded with the standard library
 alone (zlib + struct), and Pillow's BILINEAR, BICUBIC and LANCZOS resamples
-are rewritten in numpy: the GPU machine has no Pillow. The reader takes PNG
-(every colour type and depth, 16-bit and Adam7 included), JPEG, sequential,
-progressive or lossless, Huffman or arithmetic-coded, grayscale, YCbCr,
-RGB, CMYK or YCCK (``utils/jpeg.py``), and WEBP, lossless, lossy, with
-alpha or animated (``utils/webp.py``), GIF (its first frame,
-``utils/gif.py``), BMP and DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``),
-Netpbm, ICO and CUR, PCX, SGI, QOI and TGA (``utils/netpbm.py``,
-``ico.py``, ``pcx.py``, ``sgi.py``, ``qoi.py``, ``tga.py``), DDS with its
-BC1-BC7 blocks, BLP and FTEX, PSD, JPEG 2000 and ICNS (``utils/dds.py``,
-``bcn.py``, ``blp.py``, ``psd.py``, ``jpeg2000.py``, ``icns.py``), each bit
-for bit as Pillow decodes it (``read_image_rgb``); hierarchical and 12-bit
-JPEG raise, naming ROADMAP item 26, as Pillow fails them."""
+are rewritten in numpy: the GPU machine has no Pillow. The reader
+(``read_image_rgb``) takes every format Pillow 12.1 reads but AVIF, each
+bit for bit as Pillow decodes it: PNG (every colour type and depth, 16-bit
+and Adam7 included), JPEG, sequential, progressive or lossless, Huffman or
+arithmetic-coded, grayscale, YCbCr, RGB, CMYK or YCCK (``utils/jpeg.py``),
+WEBP, lossless, lossy, with alpha or animated (``utils/webp.py``), GIF (its
+first frame, ``utils/gif.py``), BMP and DIB (``utils/bmp.py``), TIFF
+(``utils/tiff.py``), Netpbm, ICO and CUR, PCX and DCX, SGI, QOI and TGA
+(``utils/netpbm.py``, ``ico.py``, ``pcx.py``, ``dcx.py``, ``sgi.py``,
+``qoi.py``, ``tga.py``), DDS with its BC1-BC7 blocks, BLP and FTEX, PSD,
+JPEG 2000 and ICNS (``utils/dds.py``, ``bcn.py``, ``blp.py``, ``psd.py``,
+``jpeg2000.py``, ``icns.py``), and the legacy formats IM, MSP, XBM, XPM,
+SPIDER, FITS, Sun raster, FLI/FLC, PIXAR, McIdas, GBR, PhotoCD, XV
+thumbnails, IMT and IPTC (``utils/im.py``, ``msp.py``, ``xbm.py``,
+``xpm.py``, ``spider.py``, ``fits.py``, ``sun.py``, ``fli.py``,
+``pixar.py``, ``mcidas.py``, ``gbr.py``, ``pcd.py``, ``xvthumb.py``,
+``imt.py``, ``iptc.py``; raw modes in ``utils/raw.py``); hierarchical and
+12-bit JPEG raise, naming ROADMAP item 26, as Pillow fails them."""
 
 from __future__ import annotations
 
@@ -271,62 +277,36 @@ def png_decode_rgb(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(vals[..., :3])
 
 
-# the formats Pillow 12.1 opens that this package does not read (ROADMAP
-# item 28), by the prefixes Pillow's plugins accept, checked where no format
-# read here has taken the file (Pillow's own checks may pass a file on)
-_NOT_READ = (
-    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a"),
-    ("FITS", lambda d: d[:6] == b"SIMPLE"),
-    ("FLI", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
-     and d[14:16] in (b"\0\0", b"\3\0")),
-    ("GBR", lambda d: len(d) >= 20 and int.from_bytes(d[:4], "big") >= 20
-     and int.from_bytes(d[4:8], "big") in (1, 2) and int.from_bytes(d[8:12], "big") > 0
-     and int.from_bytes(d[12:16], "big") > 0 and int.from_bytes(d[16:20], "big") in (1, 4)
-     and (d[4:8] == b"\0\0\0\x01" or d[24:28] == b"GIMP")),
-    ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\x04"),
-    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS")),
-    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0"),
-    ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
-)
+# the one format Pillow 12.1 opens that this package does not read (ROADMAP
+# item 28: an AV1 decoder waits for the specification's tables), by the
+# prefixes Pillow's plugin accepts
+def _avif(data: bytes) -> np.ndarray:
+    raise ValueError("AVIF images are not supported (Pillow reads them; ROADMAP item 28); "
+                     "convert it to PNG")
 
 
-# the formats Pillow 12.1 opens and fails to load here: EPS (no
-# Ghostscript), and its stubs, which have no loader
-_PILLOW_FAILS = (
-    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC")),
-    ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6")),
-    ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1),
-    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n"),
-    ("MPEG", lambda d: d[:4] == b"\0\0\x01\xb3"),
-    ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\x01\0\0\0"),
-)
-
-
-def _still_to_port(data: bytes) -> np.ndarray:
-    """Raise for a format of ``_NOT_READ`` or ``_PILLOW_FAILS``; else pass
-    the file on (to TGA, which Pillow tries last)."""
-    from .modes import NotThisKind
-
-    for other, takes in _NOT_READ:
-        if takes(data):
-            raise ValueError(f"{other} images are not supported (Pillow reads them; ROADMAP "
-                             "item 28); convert it to PNG")
-    for other, takes in _PILLOW_FAILS:
-        if takes(data):
-            raise ValueError(f"{other}: Pillow opens such a file and fails to load it (no "
-                             "Ghostscript, or a format it has no loader for)")
-    raise NotThisKind
+def _pillow_fails(name: str):
+    """A format Pillow 12.1 opens and fails to load here: EPS (no
+    Ghostscript), and its stubs, which have no loader."""
+    def fail(data: bytes) -> np.ndarray:
+        raise ValueError(f"{name}: Pillow opens such a file and fails to load it (no "
+                         "Ghostscript, or a format it has no loader for)")
+    return fail
 
 
 def _decoders(host_cpp: bool = False):
-    """The readers in Pillow's order of trying them: (name, accepts, decode);
-    the formats still to port, then TGA, which has no signature, last."""
-    from . import dds, icns, ico, jpeg2000, netpbm, pcx, psd, qoi, sgi, tga
+    """The readers in Pillow's order of trying them (``PIL.Image.ID`` once
+    ``Image.open`` has run ``preinit`` and ``init``: BMP, DIB, GIF, JPEG,
+    PPM and PNG, then the other plugins by name): (name, accepts, decode).
+    IM, IMT, IPTC, PCD, SPIDER and TGA have no signature: each tries the
+    file and passes it on (NotThisKind) where Pillow's plugin does."""
+    from . import (dcx, dds, fits, fli, gbr, icns, ico, im, imt, iptc, jpeg2000, mcidas, msp,
+                   netpbm, pcd, pcx, pixar, psd, qoi, sgi, spider, sun, tga, xbm, xpm, xvthumb)
     from .blp import blp_decode_rgb, ftex_decode_rgb
     from .bmp import dib_decode_rgb
 
     dib_sizes = (12, 40, 52, 56, 64, 108, 124)
+    every = lambda d: True  # noqa: E731
     return (
         ("BMP", lambda d: d[:2] == b"BM", bmp_decode_rgb),
         ("DIB", lambda d: len(d) >= 4 and int.from_bytes(d[:4], "little") in dib_sizes,
@@ -336,49 +316,78 @@ def _decoders(host_cpp: bool = False):
          functools.partial(jpeg_decode_rgb, host_cpp=host_cpp)),
         ("PPM", netpbm.accepts, netpbm.netpbm_decode_rgb),
         ("PNG", lambda d: d[:8] == _PNG_SIGNATURE, png_decode_rgb),
+        ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
+         _avif),
         ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp_decode_rgb),
+        ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _pillow_fails("BUFR")),
         ("CUR", lambda d: d[:4] == b"\0\0\2\0", ico.ico_decode_rgb),
         ("PCX", pcx.accepts, pcx.pcx_decode_rgb),
+        ("DCX", dcx.accepts, dcx.dcx_decode_rgb),
         ("DDS", dds.accepts, dds.dds_decode_rgb),
+        ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), _pillow_fails("EPS")),
+        ("FITS", fits.accepts, fits.fits_decode_rgb),
+        ("FLI", fli.accepts, fli.fli_decode_rgb),
         ("FTEX", lambda d: d[:4] == b"FTEX", ftex_decode_rgb),
+        ("GBR", gbr.accepts, gbr.gbr_decode_rgb),
+        ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1,
+         _pillow_fails("GRIB")),
+        ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", _pillow_fails("HDF5")),
         ("JPEG 2000", jpeg2000.accepts,
          functools.partial(jpeg2000.jpeg2000_decode_rgb, host_cpp=host_cpp)),
         ("ICNS", icns.accepts, functools.partial(icns.icns_decode_rgb, host_cpp=host_cpp)),
         ("ICO", lambda d: d[:4] == b"\0\0\1\0", ico.ico_decode_rgb),
+        ("IM", every, im.im_decode_rgb),
+        ("IMT", every, imt.imt_decode_rgb),
+        ("IPTC", every, functools.partial(iptc.iptc_decode_rgb, host_cpp=host_cpp)),
+        ("MCIDAS", mcidas.accepts, mcidas.mcidas_decode_rgb),
+        ("MPEG", lambda d: d[:4] == b"\0\0\x01\xb3", _pillow_fails("MPEG")),
         ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"),
          tiff_decode_rgb),
+        ("MSP", msp.accepts, msp.msp_decode_rgb),
+        ("PCD", every, pcd.pcd_decode_rgb),
+        ("PIXAR", pixar.accepts, pixar.pixar_decode_rgb),
         ("PSD", psd.accepts, psd.psd_decode_rgb),
         ("QOI", lambda d: d[:4] == b"qoif", qoi.qoi_decode_rgb),
         ("SGI", sgi.accepts, sgi.sgi_decode_rgb),
+        ("SPIDER", every, spider.spider_decode_rgb),
+        ("SUN", sun.accepts, sun.sun_decode_rgb),
+        ("TGA", every, tga.tga_decode_rgb),
         ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
          functools.partial(webp_decode_rgb, host_cpp=host_cpp)),
-        ("item 28", lambda d: True, _still_to_port),
-        ("TGA", lambda d: True, tga.tga_decode_rgb),
+        ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\0\0" or d[:4] == b"\x01\0\0\0",
+         _pillow_fails("WMF")),
+        ("XBM", xbm.accepts, xbm.xbm_decode_rgb),
+        ("XPM", xpm.accepts, xpm.xpm_decode_rgb),
+        ("XVTHUMB", xvthumb.accepts, xvthumb.xvthumb_decode_rgb),
     )
 
 
 def read_image_rgb(path: str, host_cpp: bool = False) -> np.ndarray:
     """An image file -> uint8 [H, W, 3] RGB, as Pillow's ``Image.open(path)
     .convert("RGB")`` gives it, the formats told apart in Pillow's order of
-    trying them (``PIL.Image.ID``: BMP, DIB, GIF, JPEG, PPM and PNG first;
-    TGA, which has no signature, last): BMP and DIB (``utils/bmp.py``), GIF
-    (its first frame, ``utils/gif.py``), JPEG (``jpeg_decode_rgb``:
-    sequential, progressive or lossless, Huffman or arithmetic-coded, 1, 3 or 4
+    trying them (``_decoders``): BMP and DIB (``utils/bmp.py``), GIF (its
+    first frame, ``utils/gif.py``), JPEG (``jpeg_decode_rgb``: sequential,
+    progressive or lossless, Huffman or arithmetic-coded, 1, 3 or 4
     components, libjpeg's recovery from corrupt data; through its C entry
     where ``host_cpp``), Netpbm (``utils/netpbm.py``), PNG
-    (``png_decode_rgb``), BLP (``utils/blp.py``), CUR and ICO
-    (``utils/ico.py``), PCX (``utils/pcx.py``), DDS (``utils/dds.py``, its
-    BC1-BC7 blocks in ``utils/bcn.py``), FTEX (``utils/blp.py``), JPEG 2000
+    (``png_decode_rgb``), BLP and FTEX (``utils/blp.py``), CUR and ICO
+    (``utils/ico.py``), PCX and DCX (``utils/pcx.py``, ``dcx.py``), DDS
+    (``utils/dds.py``, its BC1-BC7 blocks in ``utils/bcn.py``), FITS, FLI,
+    GBR (``utils/fits.py``, ``fli.py``, ``gbr.py``), JPEG 2000
     (``utils/jpeg2000.py``, its tier-1 through the C entry where
-    ``host_cpp``), ICNS (``utils/icns.py``), TIFF (``utils/tiff.py``), PSD
-    (``utils/psd.py``), QOI (``utils/qoi.py``), SGI (``utils/sgi.py``),
-    WEBP (``webp_decode_rgb``, through its C entry where ``host_cpp``) and
-    TGA (``utils/tga.py``); all but JPEG, JPEG 2000 and WEBP in Python only.
-    What the JPEG decoder does not read (hierarchical, 12-bit) raises
-    ValueError naming the file and ROADMAP item 26; a TIFF or PSD form
-    Pillow reads and the port does not (LAB), a format of the list still
-    to port (AVIF and the rest) and a file of no kind read name ROADMAP
-    item 28; a corrupt file raises ValueError naming it."""
+    ``host_cpp``), ICNS (``utils/icns.py``), IM, IMT, IPTC, McIdas
+    (``utils/im.py``, ``imt.py``, ``iptc.py``, ``mcidas.py``), TIFF
+    (``utils/tiff.py``), MSP, PhotoCD, PIXAR (``utils/msp.py``, ``pcd.py``,
+    ``pixar.py``), PSD (``utils/psd.py``), QOI (``utils/qoi.py``), SGI
+    (``utils/sgi.py``), SPIDER, Sun raster (``utils/spider.py``,
+    ``sun.py``), TGA (``utils/tga.py``), WEBP (``webp_decode_rgb``, through
+    its C entry where ``host_cpp``), XBM, XPM and XV thumbnails
+    (``utils/xbm.py``, ``xpm.py``, ``xvthumb.py``); all but JPEG, JPEG 2000
+    and WEBP in Python only. What the JPEG decoder does not read
+    (hierarchical, 12-bit) raises ValueError naming the file and ROADMAP
+    item 26; a TIFF or PSD form Pillow reads and the port does not (LAB)
+    and AVIF name ROADMAP item 28; a corrupt file, and one of no kind
+    Pillow identifies, raise ValueError naming it."""
     from .modes import NotThisKind
 
     with open(path, "rb") as f:
@@ -393,8 +402,7 @@ def read_image_rgb(path: str, host_cpp: bool = False) -> np.ndarray:
         except (ValueError, zlib.error, struct.error) as e:  # corrupt data
             raise ValueError(f"{path}: {e}") from e
     raise ValueError(f"{path}: not a file of a format read here (nor one Pillow "
-                     "identifies, unless IM, SPIDER, PCD, IMT or IPTC, which have no "
-                     "signature and are still to port: ROADMAP item 28)")
+                     "identifies)")
 
 
 def save_im(a: np.ndarray, filename: str, format: str = "png") -> None:

@@ -119,7 +119,13 @@ linked here printing each warning; the two agree on all of it):
   (no EOI), Pillow fails the file once libjpeg's bit reader asks for more:
   its slow path reads 57 bits ahead, its fast path six bytes where 16 bits
   or fewer are left (``_runs_dry`` follows both, and Pillow's blocks); the
-  libjpeg mode reads its buffer's fake EOI marker there instead.
+  libjpeg mode reads its buffer's fake EOI marker there instead;
+- a JPEG-compressed TIFF strip (``jpeg_tiff_chunk``, libjpeg mode) as
+  libtiff has libjpeg read it: its JPEGTables first as a stream of their
+  own (fake EOI markers where the tag's bytes end, even inside a segment),
+  the strip's stream after with those tables kept, and nothing after a
+  single-scan strip's scan (libtiff takes the error of
+  ``jpeg_finish_decompress`` for success).
 
 What raises ``ValueError``, naming ROADMAP item 26 (Pillow 12.1 fails each
 of these too): hierarchical files (SOF5-7, SOF13-15), arithmetic-coded
@@ -2026,36 +2032,82 @@ def jpeg_decode_rgb(data: bytes, host_cpp: bool = False, libjpeg: bool = False) 
 _FAKE_EOI = b"\xff\xd9" * 32768
 
 
-def _decode_libjpeg(data: bytes, tiff=None) -> np.ndarray:
+def _libjpeg_marker(data: bytes, pos: int):
+    """jdmarker.c next_marker from ``pos`` -> (the marker, the position
+    after it), or None where the data ends first; a marker libjpeg-turbo
+    fails raises."""
+    nxt = data.find(b"\xff", pos)
+    if nxt < 0:
+        return None
+    pos = nxt + 1
+    while pos < len(data) and data[pos] == 0xFF:
+        pos += 1
+    if pos >= len(data):
+        return None
+    marker = data[pos]
+    if marker in _SOF_REFUSED or marker in (0xC3, 0xC8) or (0x01 < marker < 0xC0) or \
+            marker in (0xD8, 0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+        raise _corrupt(f"marker 0x{marker:02X}: libjpeg-turbo fails it")
+    return marker, pos + 1
+
+
+def _libjpeg_tables(tables: bytes):
+    """A TIFF's JPEGTables as libtiff has libjpeg read them
+    (tif_jpeg.c:JPEGSetupDecode): a stream of their own from their own
+    source, which supplies fake EOI markers where the tag's bytes end, even
+    inside a segment; ``jpeg_read_header(FALSE)`` must reach its EOI before
+    any scan -> the quantisation and Huffman tables (qt, dc, ac), which
+    the strips' own streams keep."""
+    if tables[:2] != b"\xff\xd8":
+        raise _corrupt("JPEGTables without an SOI marker (libtiff fails it)")
+    data = tables + _FAKE_EOI
+    qt, dc_tabs, ac_tabs = {}, {}, {}
+    dac = ([0] * 16, [1] * 16, [5] * 16)
+    pos, frame = 2, False
+    while True:
+        marker, pos = _libjpeg_marker(data, pos)
+        if marker == 0xD9:
+            return qt, dc_tabs, ac_tabs
+        if marker in (0x00, 0x01) or 0xD0 <= marker <= 0xD7:
+            continue
+        body, pos = _segment(data, pos)
+        if marker == 0xDA:
+            raise _corrupt("a scan in JPEGTables (libtiff: bogus JPEGTables field)")
+        if marker in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            if frame:
+                raise _corrupt("a second frame")
+            _Frame(body, progressive=marker in (0xC2, 0xCA), arith=marker >= 0xC9, libjpeg=True)
+            frame = True
+        elif marker in (0xCC, 0xC4, 0xDB, 0xDD):
+            _tables(marker, body, qt, dc_tabs, ac_tabs, dac, 0)
+
+
+def _decode_libjpeg(data: bytes, tiff=None, tables=None) -> np.ndarray:
     """``jpeg_decode_rgb(data, libjpeg=True)``: jdmarker.c's read_markers
     (RSTn and TEM outside a scan skipped, DNL skipped, SOF3, JPG and other
     unknown markers an error), a marker segment past the end read from the
     fake EOI bytes, each scan through its decoder with ``fill``. tiff: a
-    TIFF strip's colour mode (``_Frame``)."""
+    TIFF strip's colour mode (``_Frame``); libtiff ignores what
+    ``jpeg_finish_decompress`` fails once a single-scan strip's rows are
+    out (tif_jpeg.c's CALLJPEG returns -1 there, which JPEGDecode takes for
+    success), so nothing after such a scan is read. tables: the
+    quantisation and Huffman tables loaded before the stream
+    (``_libjpeg_tables``)."""
     if data[:2] != b"\xff\xd8":
         raise _corrupt("not a JPEG file (no SOI marker)")
-    qt, dc_tabs, ac_tabs = {}, {}, {}
+    qt, dc_tabs, ac_tabs = ({}, {}, {}) if tables is None else (dict(t) for t in tables)
     dac = ([0] * 16, [1] * 16, [5] * 16)
     restart, jfif, adobe = 0, False, None
     fr, scans, pos, multi = None, 0, 2, True
     while pos < len(data):
-        nxt = data.find(b"\xff", pos)
-        if nxt < 0:
+        found = _libjpeg_marker(data, pos)
+        if found is None:
             break
-        pos = nxt + 1
-        while pos < len(data) and data[pos] == 0xFF:
-            pos += 1
-        if pos >= len(data):
-            break
-        marker = data[pos]
-        pos += 1
+        marker, pos = found
         if marker == 0xD9:
             break
         if marker in (0x00, 0x01) or 0xD0 <= marker <= 0xD7:
             continue
-        if marker in _SOF_REFUSED or marker in (0xC3, 0xC8) or marker < 0xC0 or \
-                marker in (0xD8, 0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
-            raise _corrupt(f"marker 0x{marker:02X}: libjpeg-turbo 2.1 fails it")
         try:
             body, after = _segment(data, pos)
         except ValueError:  # the segment runs into the fake EOI bytes, and so
@@ -2081,6 +2133,8 @@ def _decode_libjpeg(data: bytes, tiff=None) -> np.ndarray:
             else:
                 scan = _decode_progressive_scan if fr.progressive else _decode_scan
                 after = scan(fr, body, data, after, qt, dc_tabs, ac_tabs, restart, True)
+            if tiff is not None and not multi:
+                break
         pos = after
     if not scans:  # jpeg_read_header's JERR_NO_IMAGE
         raise _corrupt("no scan before the end of the data")
@@ -2094,15 +2148,14 @@ def _decode_libjpeg(data: bytes, tiff=None) -> np.ndarray:
 def jpeg_tiff_chunk(tables: bytes, strip: bytes, ycbcr: bool, width: int, rows: int,
                     nbytes: int) -> np.ndarray:
     """One strip or tile of a JPEG-compressed TIFF (compression 7) as
-    libtiff's codec has libjpeg decode it: the JPEGTables stream (its EOI
-    dropped) before the strip's own (its SOI dropped), read from memory with
+    libtiff's codec has libjpeg decode it: the JPEGTables, where the tag has
+    bytes, read first as a stream of their own (``_libjpeg_tables``), then
+    the strip's stream with those tables loaded, each read from memory with
     a fake EOI past the end, YCbCr converted to RGB where libtiff asks for
     that (photometric 6, chunky), the components as they are otherwise ->
     uint8 rows [rows, width x nbytes]."""
-    data = strip
-    if tables[:2] == b"\xff\xd8" and strip[:2] == b"\xff\xd8":
-        data = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + strip[2:]
-    img = _decode_libjpeg(data, "ycc" if ycbcr else "raw")
+    loaded = _libjpeg_tables(tables) if tables else None
+    img = _decode_libjpeg(strip, "ycc" if ycbcr else "raw", loaded)
     if img.shape[0] < rows or img.shape[1] < width or img.shape[2] != nbytes:
         raise _corrupt(f"a {img.shape[1]}x{img.shape[0]}x{img.shape[2]} JPEG strip where "
                        f"{width}x{rows}x{nbytes} is due")

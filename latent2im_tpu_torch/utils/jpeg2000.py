@@ -30,7 +30,8 @@ As OpenJPEG decodes it (``reduce`` 0, every layer):
 - JP2: the boxes Pillow and OpenJPEG read (ihdr, colr: sRGB, greyscale and
   sYCC; pclr/cmap; cdef);
 - Pillow's unpackers: gray, gray and alpha, RGB(A) and YCbCr (sYCC, or
-  a 3 or 4-component image whose second component is subsampled), each
+  a 3 or 4-component image whose first subsampled component is the second
+  or the third), each
   sample's precision shifted to 8 bits with rounding, then convert("RGB").
 
 What fails (ValueError, as Pillow fails): a codestream or box structure
@@ -366,7 +367,8 @@ class _Coding:
             raise _corrupt("a COD or COC segment cut short")
         self.levels, xcb, ycb, self.sty, self.qmfbid = body[at:at + 5]
         self.xcb, self.ycb = xcb + 2, ycb + 2
-        if self.levels > 32 or self.xcb > 10 or self.ycb > 10 or self.xcb + self.ycb > 12:
+        if self.levels > 32 or self.xcb > 10 or self.ycb > 10 or self.xcb + self.ycb > 12 \
+                or self.qmfbid > 1:
             raise _corrupt("a bad COD or COC segment")
         n = self.levels + 1
         if scod & 1:
@@ -406,7 +408,7 @@ class _Quant:
             e, m = self.steps[0]
             return max(e - (band - 1) // 3, 0) if band else e, m
         if band >= len(self.steps):
-            return self.steps[-1] if self.style == 0 else (0, 0)
+            return (0, 0)
         return self.steps[band]
 
 
@@ -418,7 +420,8 @@ class _Header:
     def copy(self):
         h = _Header.__new__(_Header)
         h.__dict__.update(self.__dict__)
-        h.coding, h.quant, h.roi, h.poc = list(self.coding), list(self.quant), dict(self.roi), []
+        h.coding, h.quant, h.roi = list(self.coding), list(self.quant), dict(self.roi)
+        h.poc = list(self.poc)  # a main header's POC reaches every tile
         return h
 
 
@@ -465,7 +468,7 @@ def _header_segment(h: _Header, marker: int, body: bytes):
             raise _corrupt("a COD segment cut short")
         h.scod, h.prog = body[0], body[1]
         h.layers, h.mct = struct.unpack(">H", body[2:4])[0], body[4]
-        if h.prog > 4 or h.layers == 0:
+        if h.prog > 4 or h.layers == 0 or h.mct > 1 or h.scod & ~7:
             raise _corrupt("a bad COD segment")
         h.coding = [_Coding(body, 5, h.scod)] * h.csiz
     elif marker == 0xFF53:
@@ -793,6 +796,8 @@ def _packet_order(h, tile):
     runs = h.poc or [(0, 0, h.layers, 33, h.csiz, h.prog)]
     comps = tile.comps
     for rs, cs, le, re, ce, prog in runs:
+        if prog > 4:  # opj_pi_next: an unknown progression yields no packet
+            continue
         ce, re, le = min(ce, h.csiz), min(re, 33), min(le, h.layers)
         maxres = max(len(tc.res) for tc in comps)
         if prog in (0, 1):
@@ -881,6 +886,32 @@ class _Tile:
     pass
 
 
+# the markers OpenJPEG has a handler for (j2k_memory_marker_handler_tab), and
+# those of them it takes in a main header and in a tile-part header
+_KNOWN = {0xFF90, 0xFF52, 0xFF53, 0xFF5E, 0xFF5C, 0xFF5D, 0xFF5F, 0xFF51, 0xFF55, 0xFF57,
+          0xFF58, 0xFF60, 0xFF61, 0xFF91, 0xFF63, 0xFF64, 0xFF74, 0xFF78, 0xFF50, 0xFF59,
+          0xFF75, 0xFF77}
+_IN_MAIN = _KNOWN - {0xFF51, 0xFF58, 0xFF61, 0xFF91}
+_IN_TILE = {0xFF52, 0xFF53, 0xFF5E, 0xFF5C, 0xFF5D, 0xFF5F, 0xFF58, 0xFF61, 0xFF64, 0xFF74,
+            0xFF75, 0xFF77}
+
+
+def _skip_unknown(data: bytes, pos: int, allowed: set) -> int:
+    """opj_j2k_read_unk from an unknown marker at pos: two bytes at a time
+    up to a marker OpenJPEG knows -> its position; one it does not take
+    where it stands, or the end of the data, fails."""
+    pos += 2
+    while True:
+        if pos + 2 > len(data):
+            raise _corrupt("an unknown marker and no known one after it (stream too short)")
+        m = struct.unpack(">H", data[pos:pos + 2])[0]
+        if m in _KNOWN:
+            if m not in allowed:
+                raise _corrupt(f"marker 0x{m:04X} where OpenJPEG takes none")
+            return pos
+        pos += 2
+
+
 def _segments(data: bytes, pos: int):
     """(marker, body, position after) of the marker segment at pos."""
     if pos + 4 > len(data):
@@ -931,6 +962,9 @@ def _codestream(data: bytes):
             break
         if marker == 0xFFD9:
             raise _corrupt("no tile in the codestream")
+        if marker >= 0xFF00 and marker not in _KNOWN:
+            pos = _skip_unknown(data, pos, _IN_MAIN)
+            continue
         marker, body, pos = _segments(data, pos)
         if marker == 0xFF60:
             if not body:
@@ -965,7 +999,11 @@ def _codestream(data: bytes):
         t = tiles.get(isot)
         if t is None:
             t = tiles[isot] = _Tile()
-            t.h, t.data, t.ppt, t.parts = h.copy(), bytearray(), [], 0
+            t.h, t.data, t.ppt, t.parts, t.nparts = h.copy(), bytearray(), [], 0, 0
+        if tnsot:  # opj_j2k_read_sot: TPsot within the tile-part counts given so far
+            if (t.nparts and tpsot >= t.nparts) or tpsot >= tnsot:
+                raise _corrupt(f"a tile-part index {tpsot} past the tile's {tnsot} parts")
+            t.nparts = tnsot
         t.parts += 1
         while True:
             if pos + 2 > end:
@@ -974,6 +1012,9 @@ def _codestream(data: bytes):
             if marker == 0xFF93:
                 pos += 2
                 break
+            if marker >= 0xFF00 and marker not in _KNOWN:
+                pos = _skip_unknown(data, pos, _IN_TILE)
+                continue
             marker, body, pos = _segments(data, pos)
             if marker == 0xFF61:
                 if not body:
@@ -1373,7 +1414,7 @@ def jpeg2000_decode_rgb(data: bytes, host_cpp: bool = False) -> np.ndarray:
         raise _corrupt("a component count or colour space Pillow has no unpacker for")
     sub = next((c for c in range(h.csiz) if h.dx[c] != 1 or h.dy[c] != 1), h.csiz)
     if space == "unspecified":
-        space = "gray" if h.csiz <= 2 else ("sycc" if sub == 1 else "srgb")
+        space = "gray" if h.csiz <= 2 else ("sycc" if 1 <= sub <= 2 else "srgb")
     kind = _UNPACK.get((mode, space, h.csiz))
     if kind is None or (sub < h.csiz and kind not in _SUBSAMPLED_OK):
         raise _corrupt(f"no unpacker for mode {mode}, colour space {space}, {h.csiz} "

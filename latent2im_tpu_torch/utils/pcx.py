@@ -63,18 +63,21 @@ def _lines(data: bytes, pos: int, h: int, line: int) -> list:
     return out
 
 
-def pcx_decode_rgb(data: bytes) -> np.ndarray:
+def pcx_decode_rgb(data: bytes, at: int = 0) -> np.ndarray:
     """PCX file bytes -> uint8 [H, W, 3] (see the module); ValueError where
-    Pillow fails."""
+    Pillow fails. at: where the header lies (a DCX file's page); the lines
+    follow it, and the 256-colour palette is still read from the file's
+    end."""
     data = bytes(data)
-    if len(data) < 68 or not accepts(data):
+    head = data[at:at + 128]
+    if len(head) < 68 or not accepts(head):
         raise NotThisKind("pcx: not a PCX file")
-    x0, y0, x1, y1 = struct.unpack("<HHHH", data[4:12])
+    x0, y0, x1, y1 = struct.unpack("<HHHH", head[4:12])
     x1, y1 = x1 + 1, y1 + 1
     if x1 <= x0 or y1 <= y0:
         raise NotThisKind("pcx: an empty window")
-    version, bits, planes = data[1], data[3], data[65]
-    provided = struct.unpack("<H", data[66:68])[0]
+    version, bits, planes = head[1], head[3], head[65]
+    provided = struct.unpack("<H", head[66:68])[0]
     w, h = x1 - x0, y1 - y0
     if w * h > PILLOW_MAX_PIXELS:
         raise ValueError(f"pcx: a {w}x{h} image: more pixels than Pillow opens")
@@ -84,7 +87,7 @@ def pcx_decode_rgb(data: bytes) -> np.ndarray:
     elif bits == 1 and planes in (2, 4):
         kind = "P"
         table = np.zeros((256, 3), np.uint8)
-        table[:16] = np.frombuffer(data[16:64], np.uint8).reshape(16, 3)
+        table[:16] = np.frombuffer(head[16:64], np.uint8).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         kind = "L"
         tail = data[-769:]
@@ -101,7 +104,7 @@ def pcx_decode_rgb(data: bytes) -> np.ndarray:
         stride += stride % 2
     line = planes * stride
     rows = []
-    for buf in _lines(data, 128, h, line):
+    for buf in _lines(data, at + 128, h, line):
         buf = bytearray(buf)
         if bits == 8 and line % w and line > w:  # each plane but the first moved back
             bands = line // w

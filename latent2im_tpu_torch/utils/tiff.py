@@ -247,7 +247,8 @@ def _libtiff_dir(data: bytes) -> dict:
     end (SamplesPerPixel, Compression, the dimensions, PlanarConfiguration,
     RowsPerStrip, ExtraSamples, the per-sample shorts, the strip or tile
     offsets and byte counts); any other tag it cannot read it drops (the
-    ones Pillow stops at: ``_tags``)."""
+    ones Pillow stops at: ``_tags``), and JPEGTables it reads where Pillow
+    stopped before it."""
     bo = "<" if data[:2] == b"II" else ">"
     big = struct.unpack(bo + "H", data[2:4])[0] == 43
     cfmt, efmt, esize, slot = ("Q", "HHQ", 20, 8) if big else ("H", "HHI", 12, 4)
@@ -336,6 +337,12 @@ def _libtiff_dir(data: bytes) -> dict:
             v = ints(tag)
             if isinstance(v, tuple) and v[0] <= 0xFFFF:
                 t[tag] = v
+    if 347 in ents and ents[347][0] in (1, 2, 6, 7):  # JPEGTables, read where Pillow stopped
+        _, count, at = ents[347]
+        if count > slot:
+            (at,) = struct.unpack(bo + ("Q" if big else "I"), data[at:at + slot])
+        if at + count <= len(data):
+            t[347] = data[at:at + count]
     return t
 
 
@@ -768,7 +775,7 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
                 lt.get(277, (1,))[0] * lt.get(258, (1,))[0] != pillow_bits):
             raise ValueError("tiff: Pillow's raw mode and libtiff's samples disagree on a "
                              "row's size (Pillow's decoder fails it)")
-        t = {**t, **{k: lt[k] for k in (259, 266, 317) if k in lt}}
+        t = {**t, **{k: lt[k] for k in (259, 266, 317, 347) if k in lt}}
         for k in (266, 317):
             if k not in lt:
                 t.pop(k, None)

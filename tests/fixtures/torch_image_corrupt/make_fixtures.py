@@ -1,6 +1,8 @@
 """Writes the fuzzed TIFF and SGI files on which the port and Pillow 12.1
 once disagreed (ROADMAP C.12: libtiff's directory reading and codec errors,
-Pillow's SGI run-length rows) and records Pillow's outcome on each, for
+Pillow's SGI run-length rows; C.13: JPEG-in-TIFF tables and marker 0x8D)
+and the JPEG 2000 codestream of C.13 (its third component's YRsiz 230),
+and records Pillow's outcome on each, for
 tests/test_torch_image_formats.py:
 
     PYTHONPATH=.:tests python tests/fixtures/torch_image_corrupt/make_fixtures.py
@@ -10,8 +12,11 @@ one picked by each seed of 0-9999 and fuzzed (bytes overwritten, inserted,
 deleted or cut), each file held to ``Image.open(f).convert("RGB")``. Writes
 ``<seed>_<form>.<ext>`` for the seeds of ``FIXED`` (the probe's
 disagreements on the way to the fix) and ``APART`` (those still apart:
-ROADMAP C.13) and outcomes.json (the SHA-256 of Pillow's decode, or "fails", for
-each).
+none since C.13 closed), ``J2K`` (tests/test_torch_jpeg2000.py's
+``pillow_rev`` with the third component's YRsiz overwritten to 230: Pillow
+takes a 3-component image whose first subsampled component is the second
+or the third for sYCC) and outcomes.json (the SHA-256 of Pillow's decode, or
+"fails", for each; the codestream's under "jpeg2000").
 """
 
 import hashlib
@@ -29,8 +34,9 @@ FIXED = (27, 186, 443, 685, 686, 785, 891, 904, 925, 1095, 1281, 1504, 1616, 187
          3873, 3995, 4060, 4248, 4333, 4342, 4390, 4631, 4731, 5161, 5317, 5445, 5603, 5870,
          5999, 6048, 6129, 6145, 6184, 6298, 6337, 6824, 6885, 7098, 7148, 7234, 7237, 7460,
          7509, 7658, 7709, 7781, 8128, 8198, 8334, 8482, 8493, 8515, 8985, 9286, 9412, 9564,
-         9578, 9581, 9631, 9750, 9878, 9966)
-APART = (4789, 7667, 8373)
+         9578, 9581, 9631, 9750, 9878, 9966, 4789, 7667, 8373)
+APART = ()
+J2K = "c13_third_yrsiz_230.j2k"
 
 
 def corpus():
@@ -60,6 +66,25 @@ def fuzzed(seed: int, files):
     return f"{seed}_{name.replace(';', '')}.{ext}", bytes(d)
 
 
+def _digest(data: bytes) -> str:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            a = np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+        except Exception:
+            return "fails"
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def j2k_yrsiz_230() -> bytes:
+    """pillow_rev with its third component's YRsiz (SIZ byte 48) 230."""
+    import test_torch_jpeg2000 as t
+
+    d = bytearray(t.FORMS["pillow_rev"])
+    d[d.find(b"\xff\x51") + 48] = 230
+    return bytes(d)
+
+
 def main():
     files = corpus()
     outcomes = {}
@@ -67,18 +92,11 @@ def main():
         name, data = fuzzed(seed, files)
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            try:
-                a = np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
-            except Exception:
-                a = None
-        rec = {"c13": seed in APART}
-        if a is None:
-            rec["pillow"] = "fails"
-        else:
-            rec["pillow"] = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-        outcomes[name] = rec
+        outcomes[name] = {"c13": seed in APART, "pillow": _digest(data)}
+    data = j2k_yrsiz_230()
+    with open(os.path.join(HERE, J2K), "wb") as f:
+        f.write(data)
+    outcomes["jpeg2000"] = {J2K: _digest(data)}
     outcomes["pillow_version"] = PIL.__version__
     with open(os.path.join(HERE, "outcomes.json"), "w") as f:
         json.dump(outcomes, f, indent=1, sort_keys=True)

@@ -4,7 +4,9 @@ canvas; RLE4 and RLE8 BMP, OS/2 headers, bitfields, top-down rows; TIFF
 tiles, big-endian files, the horizontal predictor, fill order 2, 2- and
 4-bit gray, WhiteIsZero, CCITT strips written without Pillow; DDS headers,
 BLP, FTEX, PSD and ICNS files; JPEG 2000 codestreams rewritten from
-Pillow's). Each returns the file's bytes."""
+Pillow's; the legacy formats' MSP v2, Sun raster, FLI/FLC, FITS, PIXAR,
+McIdas, GBR, PhotoCD, XV thumbnail, IMT, IPTC, XPM and DCX files). Each
+returns the file's bytes."""
 
 from __future__ import annotations
 
@@ -879,3 +881,327 @@ def icns_rle(planes) -> bytes:
             out += bytes([min(len(lit), 128) - 1]) + lit[:128]
             lit = lit[128:]
     return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# the legacy formats
+# ---------------------------------------------------------------------------
+
+def msp_file(bits, version: int = 2, rowmap=None, rows=None) -> bytes:
+    """MSP of a [h, w] 0/1 array (1 white): version 1 raw, version 2 each
+    row's bytes as runs (a type-0 run where 3 or more bytes repeat, else
+    literal runs); rowmap and rows override the coded ones."""
+    h, w = bits.shape
+    packed = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    words = [0] * 16
+    words[0], words[1] = (0x6144, 0x4D6E) if version == 1 else (0x694C, 0x536E)
+    words[2], words[3], words[4:8], words[8:10] = w, h, [1, 1, 1, 1], [w, h]
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + packed.tobytes()
+    if rows is None:
+        rows = []
+        for r in packed:
+            out, i, r = bytearray(), 0, bytes(r)
+            while i < len(r):
+                j = i
+                while j < len(r) and r[j] == r[i] and j - i < 255:
+                    j += 1
+                if j - i >= 3:
+                    out += bytes([0, j - i, r[i]])
+                    i = j
+                else:
+                    k = min(len(r), i + 255)
+                    lit = r[i:k]
+                    out += bytes([len(lit)]) + lit
+                    i = k
+            rows.append(bytes(out))
+    rowmap = [len(r) for r in rows] if rowmap is None else rowmap
+    return head + struct.pack(f"<{h}H", *rowmap) + b"".join(rows)
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte RLE: 0x80 n v for runs of 3 or more (n + 1 bytes), 0x80 0
+    for a literal 0x80, other bytes as they are."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+            i = j
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_file(w: int, h: int, depth: int, rows: bytes, ftype: int = 1, cmap: bytes = b"",
+             ptype: int = 1) -> bytes:
+    """A Sun raster file of already laid out rows (raw padded to 16 bits, or
+    run-length coded for type 2)."""
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(rows), ftype,
+                       ptype if cmap else 0, len(cmap)) + cmap + rows
+
+
+def sun_rows(v: np.ndarray, depth: int, pad: bool = True) -> bytes:
+    """[h, w] values (depth 1, 4, 8) or [h, w, c] bytes (24, 32) -> rows,
+    each padded to 16 bits where ``pad``."""
+    h, w = v.shape[:2]
+    if depth in (1, 4):
+        per = 8 // depth
+        vv = np.zeros((h, -(-w // per) * per), np.uint8)
+        vv[:, :w] = v
+        b = np.zeros((h, vv.shape[1] // per), np.uint8)
+        for k in range(per):
+            b |= vv[:, k::per] << (8 - depth * (k + 1))
+    else:
+        b = np.asarray(v, np.uint8).reshape(h, -1)
+    if pad and b.shape[1] % 2:
+        b = np.concatenate([b, np.zeros((h, 1), np.uint8)], 1)
+    return b.tobytes()
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    n = 6 + len(body)
+    n += n % 2
+    return struct.pack("<IH", n, kind) + body + bytes(n - 6 - len(body))
+
+
+def fli_color(pal, kind: int = 4) -> bytes:
+    """A COLOR_256 (4) or COLOR_64 (11) chunk of one packet of 256."""
+    p = np.asarray(pal, np.uint8)
+    return fli_chunk(kind, struct.pack("<HBB", 1, 0, 0) + p.tobytes())
+
+
+def fli_brun(img) -> bytes:
+    """BRUN: each line as runs (a run of 2 or more repeats, else literals)."""
+    out = bytearray()
+    for r in np.asarray(img, np.uint8):
+        line, i, r = bytearray(), 0, bytes(r)
+        packets = 0
+        while i < len(r):
+            j = i
+            while j < len(r) and r[j] == r[i] and j - i < 127:
+                j += 1
+            if j - i >= 2:
+                line += bytes([j - i, r[i]])
+                i = j
+            else:
+                k = min(len(r), i + 128)
+                line += bytes([256 - (k - i)]) + r[i:k]
+                i = k
+            packets += 1
+        out += bytes([packets & 255]) + line
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(prev, img) -> bytes:
+    """LC: the lines that changed, each as (skip, literal count) packets."""
+    prev, img = np.asarray(prev, np.uint8), np.asarray(img, np.uint8)
+    rows = np.flatnonzero((prev != img).any(1))
+    if not len(rows):
+        return fli_chunk(12, struct.pack("<HH", 0, 0))
+    y0, y1 = rows[0], rows[-1] + 1
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        diff = np.flatnonzero(prev[y] != img[y])
+        packets, x, body = 0, 0, bytearray()
+        for d in diff:
+            if d < x:
+                continue
+            skip = d - x
+            while skip > 255:
+                body += bytes([255, 0])
+                packets += 1
+                skip -= 255
+            end = min(d + 100, img.shape[1])
+            body += bytes([skip, end - d]) + img[y, d:end].tobytes()
+            packets += 1
+            x = end
+        out += bytes([packets]) + body
+    return fli_chunk(12, bytes(out))
+
+
+def fli_ss2(prev, img) -> bytes:
+    """SS2: each line as word packets, a skip-lines word before changed
+    lines (width even)."""
+    prev, img = np.asarray(prev, np.uint8), np.asarray(img, np.uint8)
+    out, lines, skip = bytearray(), 0, 0
+    for y in range(img.shape[0]):
+        if (prev[y] == img[y]).all():
+            skip += 1
+            continue
+        if skip:
+            out += struct.pack("<H", 65536 - skip)
+        skip = 0
+        words = img[y].reshape(-1, 2)
+        packets = [words[i:i + 127] for i in range(0, len(words), 127)]
+        out += struct.pack("<H", len(packets))
+        for p in packets:
+            out += bytes([0, len(p)]) + p.tobytes()
+        lines += 1
+    return fli_chunk(7, struct.pack("<H", lines) + bytes(out))
+
+
+def fli_file(w: int, h: int, frames, magic: int = 0xAF12, prefix: bytes = b"") -> bytes:
+    """An FLI/FLC file of frames, each a list of chunk bytes."""
+    body = b""
+    for chunks in frames:
+        data = b"".join(chunks)
+        body += struct.pack("<IHH8x", 16 + len(data), 0xF1FA, len(chunks)) + data
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(prefix) + len(body), magic, len(frames),
+                     w, h, 8, 0, 70)
+    return bytes(head) + prefix + body
+
+
+def fits_file(cards, data: bytes, pad: bool = True) -> bytes:
+    """A FITS HDU of (keyword, value) cards and its data (padded to 2880)."""
+    text = b"".join(f"{k:<8}= {v:>20}".ljust(80).encode() for k, v in cards)
+    text += b"END".ljust(80)
+    text += b" " * (-len(text) % 2880)
+    return text + data + (bytes(-len(data) % 2880) if pad else b"")
+
+
+def fits_gzip(v, bits: int) -> bytes:
+    """A primary HDU without data and a BINTABLE GZIP_1 tile-compressed
+    image of [h, w] values (ZBITPIX ``bits``), each pixel in 4 bytes, rows
+    bottom up."""
+    v = np.asarray(v)
+    h, w = v.shape
+    raw = v[::-1].astype(">i4").tobytes()
+    import gzip as _gzip
+
+    comp = _gzip.compress(raw, mtime=0)
+    prim = fits_file([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0)], b"")
+    ext = fits_file([("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2),
+                     ("NAXIS1", 8), ("NAXIS2", 1), ("ZIMAGE", "T"),
+                     ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", bits), ("ZNAXIS", 2),
+                     ("ZNAXIS1", w), ("ZNAXIS2", h)], bytes(8) + comp)
+    return prim + ext
+
+
+def pixar_file(img, storage=(14, 2)) -> bytes:
+    img = np.asarray(img, np.uint8)
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, img.shape[0], img.shape[1])
+    struct.pack_into("<HH", head, 424, *storage)
+    return bytes(head) + img.tobytes()
+
+
+def mcidas_file(v, size: int, prefix: int = 0, bands: int = 1) -> bytes:
+    """A McIdas area of [h, w] samples of ``size`` bytes (big-endian), each
+    line after ``prefix`` bytes."""
+    v = np.asarray(v)
+    h, w = v.shape
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10], words[13], words[14], words[33] = h, w, size, bands, prefix, 256
+    rows = v.astype({1: "u1", 2: ">u2", 4: ">i4"}[size]).reshape(h, -1).view(np.uint8)
+    body = b"".join(bytes(prefix) + r.tobytes() + bytes(w * size * (bands - 1)) for r in rows)
+    return struct.pack(">64i", *words) + body
+
+
+def gbr_file(v, version: int = 2, comment: bytes = b"brush\0") -> bytes:
+    """A GIMP brush of [h, w] (L) or [h, w, 4] (RGBA) bytes."""
+    v = np.asarray(v, np.uint8)
+    h, w = v.shape[:2]
+    depth = 1 if v.ndim == 2 else 4
+    size = (20 if version == 1 else 28) + len(comment)
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 25)
+    return head + comment + v.tobytes()
+
+
+def pcd_file(y, c1, c2, orientation: int = 0) -> bytes:
+    """A PhotoCD base image: y [512, 768], c1 and c2 [256, 384]."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    y, c1, c2 = (np.asarray(a, np.uint8) for a in (y, c1, c2))
+    chunks = np.concatenate([y.reshape(256, 1536), c1, c2], 1)
+    return bytes(head) + chunks.tobytes()
+
+
+def xvthumb_file(idx, comments=(b"#XVVERSION:Version 2.28",)) -> bytes:
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments)
+            + b"%d %d 255\n" % (w, h) + idx.tobytes())
+
+
+def imt_file(v, extra=()) -> bytes:
+    v = np.asarray(v, np.uint8)
+    h, w = v.shape
+    lines = [b"width %d" % w, b"height %d" % h, b"pixel n8", *extra]
+    return b"\n".join(lines) + b"\n\x0c" + v.tobytes()
+
+
+def iptc_field(rec: int, tag: int, data: bytes) -> bytes:
+    """A 5-byte field header and its data; from 32 KiB the size in 4 bytes
+    after it, flagged as Pillow reads it (byte 3 0x84, byte 4 unused)."""
+    if len(data) < 0x8000:
+        return struct.pack(">BBBH", 0x1C, rec, tag, len(data)) + data
+    return struct.pack(">BBBBBI", 0x1C, rec, tag, 0x84, 0, len(data)) + data
+
+
+def iptc_file(w: int, h: int, bands, layers: int, component: int, compression: int = 1,
+              band=None, split: int = 0) -> bytes:
+    """An IPTC/NAA image: its header fields, then (8, 10) fields of each
+    band's data (``split`` bytes a field where set)."""
+    out = iptc_field(3, 60, bytes([layers, component]))
+    out += iptc_field(3, 20, struct.pack(">I", w)) + iptc_field(3, 30, struct.pack(">I", h))
+    out += iptc_field(3, 120, bytes([compression]))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    for data in bands:
+        step = split or max(len(data), 1)
+        for i in range(0, max(len(data), 1), step):
+            out += iptc_field(8, 10, data[i:i + step])
+    return out
+
+
+def xpm_file(idx, pal, cpp: int = 1, none_key=None, pixels_comment: bool = True) -> bytes:
+    """An XPM of [h, w] indices into pal [n, 3] (keys of ``cpp`` letters;
+    ``none_key`` adds a transparent colour)."""
+    idx = np.asarray(idx)
+    h, w = idx.shape
+    letters = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+    keys = []
+    for i in range(len(pal)):
+        k, n = "", i
+        for _ in range(cpp):
+            k += letters[n % len(letters)]
+            n //= len(letters)
+        keys.append(k)
+    ncol = len(pal) + (none_key is not None)
+    out = [b"/* XPM */", b"static char *x[] = {", b'"%d %d %d %d",' % (w, h, ncol, cpp)]
+    for k, c in zip(keys, np.asarray(pal, np.uint8)):
+        out.append(b'"%s c #%02X%02X%02X",' % (k.encode(), c[0], c[1], c[2]))
+    if none_key is not None:
+        out.append(b'"%s c None",' % none_key.encode())
+    if pixels_comment:
+        out.append(b"/* pixels */")
+    for r in idx:
+        out.append(b'"' + "".join(keys[i] for i in r).encode() + b'",')
+    return b"\n".join(out) + b"\n};\n"
+
+
+def dcx_file(pages) -> bytes:
+    """A DCX of PCX pages."""
+    offs, at = [], 4 + 4 * (len(pages) + 1)
+    for p in pages:
+        offs.append(at)
+        at += len(p)
+    return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offs, 0) + b"".join(pages)

@@ -242,20 +242,20 @@ def test_tiff_forms_pillow_reads_and_the_port_does_not_name_item_28(tmp_path):
 
 
 def test_other_kinds_still_name_item_28(tmp_path):
-    """What Pillow reads and the port does not yet (AVIF, MSP, FITS, DCX ...)
-    names item 28; the DDS, JPEG 2000, PSD and ICNS stubs that named it
-    before now fail as Pillow fails them, naming the file."""
+    """What Pillow reads and the port does not yet (AVIF alone) names item
+    28; the MSP, FITS and DCX stubs that named it before, and the DDS, JPEG
+    2000, PSD and ICNS ones, now fail as Pillow fails them, naming the
+    file."""
     avif = b"\0\0\0\x1cftypavif" + bytes(200)
-    for name, data in (("a.avif", avif), ("a.msp", b"DanM" + bytes(200)),
-                       ("a.fits", b"SIMPLE" + bytes(200)),
-                       ("a.dcx", b"\xb1\x68\xde\x3a" + bytes(200))):
-        path = tmp_path / name
-        path.write_bytes(data)
-        with pytest.raises(ValueError, match="item 28"):
-            im.read_image_rgb(str(path))
+    path = tmp_path / "a.avif"
+    path.write_bytes(avif)
+    with pytest.raises(ValueError, match="item 28"):
+        im.read_image_rgb(str(path))
     for name, data in (("a.dds", b"DDS " + bytes(124)),
                        ("a.jp2", b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40)),
-                       ("a.psd", b"8BPS" + bytes(200)), ("a.icns", b"icns" + bytes(200))):
+                       ("a.psd", b"8BPS" + bytes(200)), ("a.icns", b"icns" + bytes(200)),
+                       ("a.msp", b"DanM" + bytes(200)), ("a.fits", b"SIMPLE" + bytes(200)),
+                       ("a.dcx", b"\xb1\x68\xde\x3a" + bytes(200))):
         assert _pillow(data) is None, name
         path = tmp_path / name
         path.write_bytes(data)
@@ -796,7 +796,7 @@ def test_the_format_fixtures_equal_their_recorded_pillow_decodes():
 
 
 # ---------------------------------------------------------------------------
-# corrupt TIFF and SGI data (ROADMAP C.12; what stays apart: C.13)
+# corrupt TIFF and SGI data (ROADMAP C.12 and C.13)
 # ---------------------------------------------------------------------------
 
 CORRUPT = os.path.join(os.path.dirname(__file__), "fixtures", "torch_image_corrupt")
@@ -807,7 +807,7 @@ def _corrupt_outcomes():
 
     with open(os.path.join(CORRUPT, "outcomes.json")) as f:
         rec = json.load(f)
-    return {k: v for k, v in rec.items() if k != "pillow_version"}
+    return {k: v for k, v in rec.items() if k not in ("pillow_version", "jpeg2000")}
 
 
 @pytest.mark.parametrize("name", sorted(k for k, v in _corrupt_outcomes().items() if not v["c13"]))
@@ -817,7 +817,9 @@ def test_corrupt_tiff_and_sgi_decode_or_fail_as_libtiff_and_pillow(name):
     interface goes past for YCbCr, its own reading of the IFD and Pillow's
     raw mode held to it, the strips fewer than the image needs, strip
     offsets before tile offsets, planar RGBA's alpha divided out by
-    libtiff's ExtraSamples, SGI rows of 2^31 or more packets): each decodes
+    libtiff's ExtraSamples, SGI rows of 2^31 or more packets, JPEGTables
+    read as a stream of their own, what a single-scan JPEG strip fails after
+    its rows ignored as libtiff ignores it): each decodes
     to Pillow's recorded image or fails where Pillow failed, and Pillow
     still does so."""
     import hashlib
@@ -838,21 +840,24 @@ def test_corrupt_tiff_and_sgi_decode_or_fail_as_libtiff_and_pillow(name):
 
 
 def test_what_stays_apart_is_c13():
-    """ROADMAP C.13: the fuzzed JPEG-in-TIFF files still apart, each as it
-    was measured: two with bytes inserted into JPEGTables (libtiff reads the
-    tables as a stream of their own), one whose overwritten scan makes
-    marker 0x8D (libjpeg-turbo 2.1's rule, which the port takes there)."""
+    """ROADMAP C.13, closed: of what stayed apart, the JPEG 2000 codestream
+    whose third component's YRsiz is 230 (a 3-component image whose first
+    subsampled component is the third, which Pillow unpacks as sYCC)
+    decodes to Pillow's recorded image, and Pillow still decodes it so. The
+    three JPEG-in-TIFF files are cases of the test above."""
     import hashlib
+    import json
 
-    apart = {k: v for k, v in _corrupt_outcomes().items() if v["c13"]}
-    assert len(apart) == 3
-    for name, rec in apart.items():
-        try:
-            got = hashlib.sha256(im.read_image_rgb(os.path.join(CORRUPT, name)).tobytes()
-                                 ).hexdigest()
-        except ValueError:
-            got = "fails"
-        assert got != rec["pillow"], name
+    with open(os.path.join(CORRUPT, "outcomes.json")) as f:
+        rec = json.load(f)["jpeg2000"]
+    assert len(rec) == 1
+    for name, want in rec.items():
+        path = os.path.join(CORRUPT, name)
+        with open(path, "rb") as f:
+            pil = _pillow(f.read())
+        got = im.read_image_rgb(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want, name
+        np.testing.assert_array_equal(got, pil)
 
 
 def test_fuzzed_pngs_fail_where_pillow_fails():
