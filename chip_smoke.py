@@ -6807,6 +6807,108 @@ def _legacy_phase(dev, root):
     return out
 
 
+TIFF_CODECS_FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_image_tiff_codecs")
+
+
+def tiff_codecs_phase(dev):
+    """Phase 58 in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _tiff_codecs_phase(dev, root)
+
+
+def _tiff_codec_forms(rng):
+    """The two timed files written here without Pillow (stdlib lzma and
+    tests/image_format_encoders.py) -> {name: (bytes, the decode they must
+    give)}: a 256 px RGB LZMA TIFF with the horizontal predictor, strips of
+    32 rows, and a 256 px 4-bit gray ThunderScan TIFF."""
+    import lzma
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from image_format_encoders import thunderscan, tiff
+
+    yy, xx = np.mgrid[:256, :256]
+    photo = np.stack([128 + 90 * np.sin(xx / 23.0 + c) * np.cos(yy / 29.0) for c in range(3)], -1)
+    photo = np.clip(photo + rng.randn(256, 256, 3) * 5, 0, 255).astype(np.uint8)
+    xz = tiff(photo, 8, 2, "<", 34925, rps=32, predictor=2,
+              encode_chunk=lambda b: lzma.compress(b, format=lzma.FORMAT_XZ))
+    v = np.clip(np.cumsum(rng.randint(-1, 2, (256, 256)), 1) // 4 + 8, 0, 15)
+    v[:, 100:140] = v[:, 100:101]
+
+    def thunder(b):
+        rows = np.unpackbits(np.frombuffer(b, np.uint8)).reshape(-1, 1024)
+        return thunderscan((rows.reshape(-1, 256, 4) * np.array([8, 4, 2, 1])).sum(-1))
+
+    ts = tiff(v[..., None], 4, 1, "<", 32809, rps=64, encode_chunk=thunder)
+    gray = (v * 17).astype(np.uint8)
+    return {"lzma_rgb_256": (xz, photo),
+            "thunderscan_gray_256": (ts, np.repeat(gray[..., None], 3, -1))}
+
+
+def _tiff_codecs_phase(dev, root):
+    """Phase 58: (1) whether stdlib ``lzma`` imports here and which liblzma
+    the LZMA codec loads for libtiff's loop (a failure fails the LZMA
+    decodes below, not the phase's start); (2) every file of
+    tests/fixtures/torch_image_tiff_codecs through read_image_rgb, each
+    equal to its recorded Pillow decode (decodes.npz, or its SHA-256 in
+    decodes.json); (3) ms a photo of read_image_rgb over
+    the 256 px ZSTD fixture and ``_tiff_codec_forms``' LZMA and ThunderScan
+    files written from seed 58, each equal to the decode it must give
+    (median of 3). Host clock, files warm."""
+    import numpy as np
+
+    from latent2im_tpu_torch.utils import image as imgmod
+
+    del dev  # host decode: nothing runs on the card
+    try:
+        import lzma
+
+        status = f"ok ({lzma.__file__}; xz round trip " + (
+            "ok" if lzma.decompress(lzma.compress(b"58" * 64)) == b"58" * 64 else "wrong") + ")"
+    except ImportError as e:
+        status = f"failed ({e})"
+    try:
+        from latent2im_tpu_torch.utils import tiff as tiffmod
+
+        status += f"; liblzma {tiffmod._liblzma()._name}"
+    except (ImportError, RuntimeError) as e:
+        status += f"; liblzma failed ({e})"
+    log(f"    import lzma: {status}")
+    with open(os.path.join(TIFF_CODECS_FIXTURES, "decodes.json")) as f:
+        meta = json.load(f)
+    npz = np.load(os.path.join(TIFF_CODECS_FIXTURES, "decodes.npz"))
+    names = sorted(f for f in os.listdir(TIFF_CODECS_FIXTURES)
+                   if os.path.splitext(f)[0] in meta)
+    assert len(names) == len(meta) - 2, names  # every recorded decode has its file
+    out = {"import_lzma": status, "fixtures": len(names), "ms_per_photo": {}}
+    for name in names:
+        key, path = os.path.splitext(name)[0], os.path.join(TIFF_CODECS_FIXTURES, name)
+        t0 = time.perf_counter()
+        got = imgmod.read_image_rgb(path)
+        if key.startswith("zstd_photo"):
+            out["ms_per_photo"][key] = (time.perf_counter() - t0) * 1e3
+        if list(got.shape) != meta[key]["shape"] or _sha256(got) != meta[key]["sha256"] or (
+                key in npz and not np.array_equal(got, npz[key])):
+            raise AssertionError(f"{name} is not Pillow's decode")
+    log(f"    {len(names)} decodes of the CCITT, RLEW, ThunderScan, LZMA, ZSTD and OJPEG "
+        f"fixtures equal to Pillow's (Pillow {meta['pillow']}, libtiff {meta['libtiff']})")
+    for name, (data, want) in _tiff_codec_forms(np.random.RandomState(58)).items():
+        path = os.path.join(root, name + ".tif")
+        with open(path, "wb") as f:
+            f.write(data)
+        got = imgmod.read_image_rgb(path)
+        assert got.shape == want.shape and np.array_equal(got, want), name
+        out["ms_per_photo"][name] = _median_ms(lambda path=path: imgmod.read_image_rgb(path), 3)
+    photo = os.path.join(TIFF_CODECS_FIXTURES, "zstd_photo_256.tif")
+    out["ms_per_photo"]["zstd_photo_256"] = _median_ms(
+        lambda: imgmod.read_image_rgb(photo), 3)
+    log(f"    ms a photo, read_image_rgb (Python): {json.dumps(out['ms_per_photo'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6942,6 +7044,10 @@ def _run(refs) -> int:
           "PIXAR, XV thumbnail, IMT and IPTC: the fixtures against their Pillow decodes; decode "
           "ms of a run-length Sun raster, an FLC and a FITS float image")
     lg = legacy_phase(dev)
+    phase(58, "CCITT with the uncompressed-mode bit and RLEW, ThunderScan, LZMA, ZSTD and "
+          "old-style JPEG in TIFF: the fixtures against their Pillow decodes; decode ms of a "
+          "256 px ZSTD, LZMA and ThunderScan photo")
+    tc = tiff_codecs_phase(dev)
     kernels = []
     for n, paths in results.items():
         r, rh = paths["train_step"], hi["results"][n]["train_step"]
@@ -7036,6 +7142,7 @@ def _run(refs) -> int:
               "corrupt_formats": {k: v for k, v in cf.items() if k != "launches"},
               "textures": tx,
               "legacy": lg,
+              "tiff_codecs": tc,
               "cpu_reference_waits_s": refs.waited,
               "seconds": time.perf_counter() - t_start}
     report["seconds_by_phase"] = dict(phase_seconds(time.perf_counter() - T0))

@@ -19,6 +19,12 @@ to an even position in the file). Each row is the stride of
 ((width x bits + 31) >> 3) & ~3 bytes; a 5-bit or 6-bit channel scales as
 v x 255 // 31 or v x 255 // 63; a colour index past the table is black.
 
+A file is read as Pillow reads it opened by its path (as the JAX package
+opens every image): where its raw mode is the image's mode (L, P, RGBA),
+Pillow maps the file (``raw.mapped_lines``), which reads rows of any
+stride, 4-bit rows read as L among them; an icon's or cursor's bitmap,
+which Pillow reads from memory, is decoded.
+
 What fails (ValueError, as Pillow fails): no "BM", another header size, bit
 depth, compression or bitfields layout, a colour table of more than 65536
 entries, pixel data that ends before the image does.
@@ -31,6 +37,7 @@ import struct
 import numpy as np
 
 from .jpeg import PILLOW_MAX_PIXELS
+from .raw import mapped_lines
 
 _MASK_MODES = {
     (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
@@ -214,14 +221,20 @@ def dib_decode_rgb(data: bytes, at: int, offset=None, halve: bool = False) -> np
     else:
         offset = tail if offset is None else offset
         stride = ((w * bits + 31) >> 3) & ~3
-        if _ROW_BYTES.get(raw, lambda w: 4 * w)(w) > stride:  # Pillow's raw decoder refuses the stride
-            raise ValueError(f"bmp: {bits}-bit rows read as {raw!r}: Pillow fails them")
-        body = data[offset:offset + stride * h]
-        # Pillow's raw decoder reads no padding after the last row
-        if len(body) < stride * (h - 1) + _ROW_BYTES.get(raw, lambda w: 4 * w)(w):
-            raise ValueError("bmp: the pixel data ends before the image does")
-        body += bytes(stride * h - len(body))
-        img = _unpack(np.frombuffer(body, np.uint8).reshape(h, stride), w, raw)
+        lines = None
+        if not halve and raw in ("L", "P", "RGBA"):  # the raw mode is the image's mode:
+            lines = mapped_lines(data, offset, w, h, raw, stride)  # opened by its path,
+        if lines is not None:  # Pillow maps the file
+            img = _unpack(lines, w, raw)
+        else:
+            if _ROW_BYTES.get(raw, lambda w: 4 * w)(w) > stride:  # the raw decoder refuses it
+                raise ValueError(f"bmp: {bits}-bit rows read as {raw!r}: Pillow fails them")
+            body = data[offset:offset + stride * h]
+            # Pillow's raw decoder reads no padding after the last row
+            if len(body) < stride * (h - 1) + _ROW_BYTES.get(raw, lambda w: 4 * w)(w):
+                raise ValueError("bmp: the pixel data ends before the image does")
+            body += bytes(stride * h - len(body))
+            img = _unpack(np.frombuffer(body, np.uint8).reshape(h, stride), w, raw)
     if direction == -1:
         img = img[::-1]
     if img.ndim == 3:

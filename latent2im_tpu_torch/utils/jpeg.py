@@ -1169,6 +1169,7 @@ class _Frame:
             self.last_good = None
         self.scans = 0  # scans started
         self.libjpeg, self.tiff = libjpeg, tiff
+        self.ojpeg_failed = None
         # libjpeg-turbo 2.1's smoothing window (_smooth); a TIFF strip's is 3.1's
         self.window21 = libjpeg and tiff is None
         if lossless:  # each component's samples (after its scan) and their Pt
@@ -1246,11 +1247,15 @@ class _Walk:
     bytes Pillow has handed libjpeg, where a marker search must end
     (arithmetic-coded scans cannot suspend there)."""
 
-    __slots__ = ("data", "fill", "at", "unread", "rst", "limit")
+    __slots__ = ("data", "fill", "at", "unread", "rst", "limit", "frame", "count")
 
-    def __init__(self, data: bytes, pos: int, fill: bool, limit=None):
+    def __init__(self, data: bytes, pos: int, fill: bool, limit=None, frame=None):
         self.data, self.fill, self.at, self.limit = data, fill, pos, limit
         self.unread, self.rst = None, 0
+        # libtiff's OJPEG codec (frame.tiff "ojpeg"): its resync_to_restart
+        # fails the strip; the frame records the first interval it fails at
+        # and the intervals from there decode empty
+        self.frame, self.count = frame, 0
 
     def _marker(self, p: int, check: bool = True):
         m = _next_marker(self.data, p, self.fill)
@@ -1276,11 +1281,16 @@ class _Walk:
 
     def restart(self, met: bool = False) -> bool:
         """read_restart_marker -> whether a marker stays unread."""
+        self.count += 1
         if self.unread is None:
             self.unread = self._marker(self.at, not met)
         while True:
             _, code, after = self.unread
             action = 1 if code == 0xD0 + self.rst else _resync(code, self.rst)
+            if action != 1 and self.frame is not None:
+                if self.frame.ojpeg_failed is None:
+                    self.frame.ojpeg_failed = self.count
+                break
             if action == 1:
                 self.at, self.unread = after, None
                 break
@@ -1509,7 +1519,7 @@ def _decode_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart, fill=False,
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
     n_int = -(-n_mcu // span)
-    walk = _Walk(data, pos, fill)
+    walk = _Walk(data, pos, fill, frame=fr if fr.tiff == "ojpeg" else None)
     out_ac, out_dc, decoded = [], [], []
     run = _huffman_intervals(walk, n_int)
     step = next(run, None)
@@ -1582,7 +1592,7 @@ def _decode_progressive_scan(fr, body, data, pos, qt, dc_tabs, ac_tabs, restart,
     n_mcu = len(blocks) // per_mcu
     span = restart if restart else n_mcu
     n_int = -(-n_mcu // span)
-    walk = _Walk(data, pos, fill)
+    walk = _Walk(data, pos, fill, frame=fr if fr.tiff == "ojpeg" else None)
     last, good = [None], None
     run = _huffman_intervals(walk, n_int)
     step = next(run, None)
@@ -2172,13 +2182,18 @@ def _assemble(fr: _Frame, jfif: bool, adobe) -> np.ndarray:
         blocks = _idct_islow_simd(coef.reshape(-1, 8, 8), q.reshape(8, 8))
         bh, bw = fr.bh[c], fr.bw[c]
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+        if fr.tiff == "ojpeg":  # jpeg_read_raw_data: each component's blocks as they are
+            planes.append(plane.astype(np.uint8))
+            continue
         w, h = fr.downsampled(c)
         up = _upsample(plane[:h, :w], fr.hmax // fr.h[c], fr.vmax // fr.v[c])
         planes.append(up[:fr.height, :fr.width])
+    if fr.tiff == "ojpeg":  # the planes, and the first restart interval libtiff fails
+        return planes, fr.ojpeg_failed
     if fr.tiff == "raw":
         if len(set(zip(fr.h, fr.v))) > 1:
-            raise _corrupt("subsampled components with no colour conversion (libtiff reads "
-                           "them raw; ROADMAP item 28)")
+            raise _corrupt("subsampled components with no colour conversion (libtiff fails "
+                           "them: improper JPEG sampling factors)")
         return np.stack(planes, -1).astype(np.uint8)
     if fr.tiff == "ycc":
         return _ycc_to_rgb(*planes)

@@ -10,7 +10,9 @@ bytes a sample, 1 (L), 2 (I;16B) or 4 (I;32B as I), words 10 and 9 the
 width and height, the rows at word 34 + word 15 and a stride of word 15 +
 width x word 11 x word 14. I is then clipped to 0-255 as ``convert``
 does. Another sample size passes the file on; a stride shorter than a row
-and data short of the image fail.
+and data short of the image fail. Where Pillow maps the file (L and
+I;16B; ``raw.mapped_lines``), any stride reads, and the data must hold the
+image at it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 
 from .jpeg import PILLOW_MAX_PIXELS
 from .modes import NotThisKind
-from .raw import to_rgb, unpack
+from .raw import mapped_lines, to_rgb, unpack
 
 
 def accepts(prefix: bytes) -> bool:
@@ -45,4 +47,8 @@ def mcidas_decode_rgb(data: bytes) -> np.ndarray:
     if w * h > PILLOW_MAX_PIXELS:
         raise ValueError(f"mcidas: a {w}x{h} image: more pixels than Pillow opens")
     stride = wd[15] + w * wd[11] * wd[14]  # 0: a row's own size; short of it fails
+    if mode == rawmode:  # opened by its path, Pillow maps the file
+        lines = mapped_lines(data, wd[34] + wd[15], w, h, mode, stride)
+        if lines is not None:
+            return to_rgb(mode, unpack(lines.tobytes(), 0, w, h, rawmode))
     return to_rgb(mode, unpack(data, wd[34] + wd[15], w, h, rawmode, stride))

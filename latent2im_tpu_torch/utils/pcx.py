@@ -1,6 +1,7 @@
 """PCX decoding in Python and numpy, as Pillow 12.1 decodes a file
 (``PIL.Image.open(p).convert("RGB")``, its PcxImagePlugin and PcxDecode.c),
-bit for bit: the GPU machine has no Pillow.
+bit for bit: the GPU machine has no Pillow. The file is read from its path,
+as the JAX package's readers open every image (``PIL.Image.open(path)``).
 
     pcx_decode_rgb(data: bytes) -> uint8 [H, W, 3]
 
@@ -19,8 +20,10 @@ back to width x plane bytes before unpacking, as PcxDecode.c does, whatever
 that makes of them.
 
 What fails (ValueError, as Pillow fails): another first byte or version,
-an empty window, another bits and planes pairing, a run past its line,
-data that ends before the image does, more pixels than Pillow opens.
+an empty window, another bits and planes pairing, an 8-bit file shorter
+than 769 bytes (Pillow's seek back from the end of the file fails; from
+memory it would read), a run past its line, data that ends before the
+image does, more pixels than Pillow opens.
 """
 
 from __future__ import annotations
@@ -90,6 +93,11 @@ def pcx_decode_rgb(data: bytes, at: int = 0) -> np.ndarray:
         table[:16] = np.frombuffer(head[16:64], np.uint8).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         kind = "L"
+        if len(data) < 769:
+            # PcxImageFile seeks 769 bytes back from the end of the file it
+            # opened, which fails on a shorter one (OSError)
+            raise ValueError("pcx: an 8-bit file shorter than 769 bytes (Pillow's seek back "
+                             "to its palette fails)")
         tail = data[-769:]
         if len(tail) == 769 and tail[0] == 12 and \
                 tail[1:] != bytes(np.repeat(np.arange(256, dtype=np.uint8), 3)):

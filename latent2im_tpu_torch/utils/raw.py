@@ -7,6 +7,7 @@ has no Pillow.
 
     unpack(data, offset, w, h, rawmode, stride=0, ystep=1) -> values
     to_rgb(mode, values, palette=None) -> uint8 [H, W, 3]
+    mapped_lines(data, offset, w, h, mode, stride) -> lines or None
 
 Values are [H, W, bands] int64 (float64 for mode F, whose samples are
 float32s). A line takes (w x bits + 7) // 8 bytes; ``stride`` (0: the
@@ -14,6 +15,11 @@ line's own size) sets where the next begins, and the padding after the
 last line is never read. ``ystep`` -1 fills the image bottom up. Data that
 ends before the image does raises, as Pillow's ``load`` fails such a
 file ("image file is truncated").
+
+``mapped_lines`` is what ``ImageFile.load`` does in the raw decoder's
+place for a file opened by its path (as the JAX package opens every image)
+whose one tile is raw and whose raw mode is the image's mode, one of
+``MAP_MODES``: it maps the file and reads its bytes as the whole image.
 """
 
 from __future__ import annotations
@@ -43,6 +49,44 @@ _RAW = {
     "F;32": (32, 1, "<u4"), "F;32S": (32, 1, "<i4"),
     "G": (8, 1, "u1"),  # one band of an RGB image, as IM's RGB3 planes are read
 }
+
+
+# Image._MAPMODES: the modes ImageFile.load maps, and their bytes a pixel
+MAP_MODES = {"L": 1, "P": 1, "RGBX": 4, "RGBA": 4, "CMYK": 4, "I;16": 2, "I;16L": 2,
+             "I;16B": 2}
+_PAGE = 4096
+
+
+def mapped_lines(data: bytes, offset: int, w: int, h: int, mode: str,
+                 stride: int) -> np.ndarray | None:
+    """ImageFile.load's map of a file opened by its path (its one raw tile
+    at ``offset``, its tile arguments' ``stride``, its raw mode the image's
+    ``mode``) -> the image's h lines [h, w x bytes a pixel] uint8, in the
+    file's order: line y from offset + y x the stride (``Image.core.
+    map_buffer``'s: the tile's, or where that is 0 or less the mode's own
+    line), however few rows the tile itself covers and however short the
+    stride; a line past the file reads the zeros of its last page. None
+    where offset + h x the tile's stride passes the file's end (Pillow then
+    runs the raw decoder, as from memory); ValueError where the offset is
+    negative or the lines at map_buffer's stride pass the file's end ("buffer
+    is not large enough")."""
+    if offset < 0:
+        raise ValueError("a negative tile offset (Pillow fails it)")
+    if offset + h * stride > len(data):
+        return None
+    nb = w * MAP_MODES[mode]
+    line = stride if stride > 0 else nb
+    if offset + h * line > len(data):
+        raise ValueError("the file is shorter than the image Pillow maps from it (buffer is "
+                         "not large enough)")
+    if not h or not w:
+        return np.zeros((h, nb), np.uint8)
+    end = offset + (h - 1) * line + nb
+    if end > -(-len(data) // _PAGE) * _PAGE:
+        raise ValueError("a mapped line past the file's last page (Pillow would read past "
+                         "its map)")
+    buf = np.frombuffer(data + bytes(max(end - len(data), 0)), np.uint8)
+    return buf[offset + np.arange(h)[:, None] * line + np.arange(nb)]
 
 
 def line_bytes(w: int, rawmode: str) -> int:

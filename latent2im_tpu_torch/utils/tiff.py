@@ -9,12 +9,15 @@ looked up as Pillow does (``_LAYOUTS``, its OPEN_INFO: photometric, sample
 format, fill order, bits and extra samples; a single BitsPerSample repeated
 for every sample, extra ones cut). Two paths, as in Pillow:
 
-- no compression: Pillow's own raw decoder, strip by strip or tile by tile
-  from each offset (the strip byte counts not read; one strip covering the
-  image reads from the last offset; fewer offsets than the image needs
-  leave the rest black), each row unpacked by the layout's raw
-  mode, a fill order of 2 reversing the bits of each byte where the layout
-  has such a mode; planar data (configuration 2) reads each plane through
+- no compression: where there is one strip or tile and its raw mode is
+  the image's mode (L, P, RGBA, CMYK, I;16), the file as Pillow maps it
+  opened by its path (``raw.mapped_lines``: the whole image from that
+  offset, whatever the strip covers); else Pillow's own raw decoder, strip
+  by strip or tile by tile from each offset (the strip byte counts not
+  read; one strip covering the image reads from the last offset; fewer
+  offsets than the image needs leave the rest black), each row unpacked by
+  the layout's raw mode, a fill order of 2 reversing the bits of each byte
+  where the layout has such a mode; planar data (configuration 2) reads each plane through
   one 8-bit band of the raw mode, whatever its bits;
 - any compression: libtiff reads the IFD again itself (``_libtiff_dir``:
   every entry; of the tags it must have, a wrong type, count or value or
@@ -23,12 +26,19 @@ for every sample, extra ones cut). Two paths, as in Pillow:
   estimated for one strip), lays out the strips or tiles from its reading
   and decodes each (PackBits, LZW new and old style, a new-style stream
   beginning with a clear code, deflate 8 and 32946, JPEG 7 through
-  ``utils/jpeg.py``, CCITT 2, 3 and 4 through ``utils/ccitt.py``; YCbCr
-  through its RGBA interface, which goes on past a strip it fails to
-  decode, keeping what the codec wrote over the strip before), reversing
+  ``utils/jpeg.py``, CCITT 2, 3, 4 and RLEW 32771 through
+  ``utils/ccitt.py``, ThunderScan 32809, LZMA 34925 through the
+  liblzma of stdlib ``lzma`` (libtiff's loop, ``_lzma``), ZSTD 50000
+  through ``utils/zstd.py``; where the CCITT and ThunderScan codecs
+  leave part of Pillow's buffer unwritten, it keeps the chunk before's
+  bytes, and the first chunk's uninitialised memory fails the file;
+  old-style JPEG 6 through ``utils/ojpeg.py``; YCbCr through its RGBA
+  interface, which goes on past a strip it fails to decode, keeping what
+  the codec wrote over the strip before), reversing
   bits first under fill order 2,
-  undoing the horizontal predictor (2) at 8, 16 and 32 bits for LZW and
-  deflate or the floating-point one (3), and hands Pillow the samples in
+  undoing the horizontal predictor (2) at 8, 16 and 32 bits for LZW,
+  deflate, LZMA and ZSTD or the floating-point one (3), and hands Pillow
+  the samples in
   native (little-endian) order, which its raw modes read as such except
   the big-endian signed and float ones (read byte-swapped, as Pillow does);
   planar data per plane.
@@ -49,14 +59,15 @@ Pillow does, and fails where the data ends. Then the Orientation tag as
 
 What raises ValueError: what Pillow fails (no TIFF header, no image, a
 layout it has no mode for, data that ends before the image does, a
-compression libtiff fails, a predictor at other bits); and what Pillow
+compression Pillow does not know, or SGILog and WEBP, which its libtiff
+fails, a strip libtiff fails, a predictor at other bits); and what Pillow
 reads but this module does not, naming ROADMAP item 28: LAB (Pillow
-converts it with LittleCMS), old-style JPEG (6), and compressions other
-than those above.
+converts it with LittleCMS) and the OJPEG forms ``utils/ojpeg.py`` names.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
 import zlib
@@ -65,6 +76,7 @@ import numpy as np
 
 from .jpeg import PILLOW_MAX_PIXELS, cmyk_to_rgb
 from .modes import f_rgb, gray_rgb, i_rgb, rgba_unpremultiplied
+from .raw import MAP_MODES, mapped_lines
 
 ITEM = "ROADMAP item 28"
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
@@ -75,6 +87,16 @@ _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 def _refuse(what: str) -> ValueError:
     return ValueError(f"tiff: {what} is not supported (Pillow reads it; {ITEM})")
+
+
+# TiffImagePlugin.COMPRESSION_INFO's keys: Pillow fails any other compression
+# at open; of these, libtiff 4.7 fails SGILog but for photometric LogL and
+# LogLuv (for which Pillow has no mode) and has no WEBP codec in Pillow 12.1
+_PILLOW_COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677, 34925,
+                        50000, 50001)
+_FAILED = {34676: "SGILog, which libtiff reads only as LogL or LogLuv",
+           34677: "SGILog, which libtiff reads only as LogL or LogLuv",
+           50001: "WEBP, which Pillow's libtiff is built without"}
 
 
 # ---------------------------------------------------------------------------
@@ -302,9 +324,8 @@ def _libtiff_dir(data: bytes) -> dict:
         return v
 
     spp = need(277, (1,))[0]
-    t = {tag: need(tag, None, persample=tag == 259) for tag in (256, 257, 259, 277, 284)
-         if tag in ents}
-    for tag in (322, 323, 278, 32997):
+    t = {tag: need(tag, None, persample=tag == 259) for tag in (259, 277, 284) if tag in ents}
+    for tag in (256, 257, 322, 323, 278, 32997):  # LONGs (TIFF_SETGET_UINT32)
         if tag in ents:
             t[tag] = need(tag, None, limit=0xFFFFFFFF)
     if t.get(277) == (0,) or t.get(284, (1,))[0] not in (1, 2) or t.get(278) == (0,):
@@ -412,6 +433,73 @@ def _lzw(data: bytes, need: int, partial: bool = False) -> bytes:
     return bytes(out[:need])
 
 
+# the codecs that set up libtiff's predictors
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+_TWO_BIT = (0, 1, 0, -1)
+_THREE_BIT = (0, 1, 2, 3, 0, -3, -2, -1)
+
+
+def _thunder(raw: bytes, occ: int, width: int, scanline: int, buf: bytearray, hi: bytearray,
+             lo: bytearray):
+    """tif_thunder.c's ThunderDecodeRow into Pillow's buffer ``buf``: occ
+    bytes of rows ``scanline`` apart (the image's scanline, also in a tile),
+    each of ``width`` 4-bit pixels (the image's width) from its codes (a run
+    of the last pixel, three 2-bit or two 3-bit deltas, a raw pixel; a run
+    past the row's end writes nothing); hi, lo: per byte, whether
+    its high and low nibbles are known. ValueError where a row's pixels
+    are too few or too many (libtiff fails it)."""
+    if occ % scanline:
+        raise ValueError("tiff: ThunderScan rows of another size than the image's scanline "
+                         "(libtiff fails them)")
+    bp, cc = 0, len(raw)
+    for row in range(occ // scanline):
+        op, last, npix = row * scanline, 0, 0
+        while cc > 0 and npix < width:
+            n = raw[bp]
+            bp += 1
+            cc -= 1
+            code = n & 0xC0
+            if code == 0:  # a run of the last pixel, n times
+                if npix & 1:
+                    buf[op] |= last
+                    last = buf[op]
+                    op += 1
+                    npix += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npix += n
+                if npix <= width:
+                    while n > 0:
+                        buf[op], hi[op], lo[op] = last, 1, 1
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    buf[op] &= 0xF0
+                    lo[op] = 1
+                last &= 0xF
+                continue
+            if code == 0x40:  # three 2-bit deltas, each on the pixel before
+                deltas = [_TWO_BIT[d] for d in ((n >> 4) & 3, (n >> 2) & 3, n & 3) if d != 2]
+            elif code == 0x80:  # two 3-bit deltas
+                deltas = [_THREE_BIT[d] for d in ((n >> 3) & 7, n & 7) if d != 4]
+            else:  # a raw pixel
+                deltas = None
+            for v in ([n] if deltas is None else deltas):
+                last = (v if deltas is None else last + v) & 0xF
+                if npix < width:
+                    if npix & 1:
+                        buf[op] |= last
+                        op += 1
+                    else:
+                        buf[op], hi[op], lo[op] = last << 4, 1, 1
+                    npix += 1
+        if npix != width:
+            raise ValueError(f"tiff: ThunderScan row {row} of {npix} pixels where {width} "
+                             "are due (libtiff fails it)")
+
+
 def _packbits(data: bytes, need: int) -> bytes:
     out, pos = bytearray(), 0
     while len(out) < need and pos < len(data):
@@ -424,6 +512,63 @@ def _packbits(data: bytes, need: int) -> bytes:
             out += data[pos:pos + 1] * (257 - n)
             pos += 1
     return bytes(out[:need])
+
+
+class _LzmaStream(ctypes.Structure):
+    """liblzma's lzma_stream (LZMA_STREAM_INIT: all zero)."""
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t),
+                ("total_in", ctypes.c_uint64), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4), ("reserved_int", ctypes.c_uint64 * 2),
+                ("reserved_size", ctypes.c_size_t * 2), ("reserved_enum", ctypes.c_int * 2)]
+
+
+@functools.lru_cache(maxsize=1)
+def _liblzma():
+    """The liblzma that stdlib ``lzma`` is built on (its extension module's
+    own library, or liblzma.so.5), for libtiff's lzma_code loop: the
+    module's API drops the output of a call that fails, where libtiff keeps
+    it. RuntimeError where neither loads: LZMA TIFFs cannot be read then."""
+    import _lzma  # stdlib lzma's extension, linked to liblzma
+
+    for name in (_lzma.__file__, "liblzma.so.5"):
+        try:
+            lib = ctypes.CDLL(name)
+            lib.lzma_stream_decoder.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_uint64,
+                                                ctypes.c_uint32]
+        except (OSError, AttributeError):
+            continue
+        lib.lzma_code.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_int]
+        lib.lzma_end.argtypes = [ctypes.POINTER(_LzmaStream)]
+        return lib
+    raise RuntimeError("tiff: liblzma, which stdlib lzma is built on, cannot be loaded")
+
+
+def _lzma(raw: bytes, need: int):
+    """LZMADecode as libtiff runs it: liblzma's xz stream decoder (no flags,
+    no memory limit) called until the strip's bytes are out, the stream ends
+    or it reports an error, which counts only where the bytes are not all
+    out (one met in a check once they are is ignored, and what follows them
+    is not read) -> (the bytes written, liblzma's last return code or None
+    where they are all out)."""
+    lib = _liblzma()
+    s = _LzmaStream()
+    ret = lib.lzma_stream_decoder(ctypes.byref(s), (1 << 64) - 1, 0)
+    if ret != 0:
+        return b"", ret
+    src = ctypes.create_string_buffer(raw, len(raw))
+    dst = ctypes.create_string_buffer(max(need, 1))
+    s.next_in, s.avail_in = ctypes.cast(src, ctypes.c_void_p), len(raw)
+    s.next_out, s.avail_out = ctypes.cast(dst, ctypes.c_void_p), need
+    try:
+        while s.avail_out > 0:
+            ret = lib.lzma_code(ctypes.byref(s), 0)  # LZMA_RUN
+            if ret != 0:  # not LZMA_OK
+                break
+    finally:
+        lib.lzma_end(ctypes.byref(s))
+    return dst.raw[:need - s.avail_out], None if s.avail_out == 0 else ret
 
 
 def _codec(raw: bytes, comp: int, need: int, partial: bool = False) -> bytes:
@@ -449,8 +594,19 @@ def _codec(raw: bytes, comp: int, need: int, partial: bool = False) -> bytes:
             except zlib.error:
                 pass
             out = bytes(out)
+    elif comp == 34925:
+        out, ret = _lzma(raw, need)
+        if ret is not None and not partial:
+            raise ValueError(f"tiff: bad LZMA data (liblzma returns {ret} before the strip's "
+                             "bytes are out)")
+    elif comp == 50000:
+        from .zstd import zstd_stream
+
+        out, err = zstd_stream(raw, need)
+        if err and not partial:
+            raise ValueError(f"tiff: bad ZSTD data ({err})")
     else:
-        raise _refuse(f"compression {comp}")
+        raise ValueError(f"tiff: compression {comp} (Pillow fails it)")
     if len(out) < need and not partial:
         raise ValueError("tiff: a strip or tile ends before its data does")
     return out
@@ -703,8 +859,6 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
         raise ValueError(f"tiff: a {w}x{h} image: more pixels than Pillow opens")
     comp = t.get(259, (1,))[0]
     photo = t.get(262, (0,))[0]
-    if comp == 6:
-        raise _refuse("old-style JPEG (compression 6)")
     planar = t.get(284, (1,))[0]
     fill = t.get(266, (1,))[0]
     sf = tuple(t.get(339, (1,)))
@@ -729,8 +883,19 @@ def tiff_decode_rgb(data: bytes) -> np.ndarray:
         raise _refuse("LAB (photometric 8)")
     if mode in ("P", "PA") and 320 not in t:
         raise ValueError("tiff: a palette image without a ColorMap (Pillow fails it)")
-    if comp != 1 and comp not in (2, 3, 4, 5, 7, 8, 32773, 32946):
-        raise _refuse(f"compression {comp}")
+    if comp not in _PILLOW_COMPRESSIONS:
+        raise ValueError(f"tiff: compression {comp}, which Pillow does not know (it fails "
+                         "the file)")
+    if comp in (34676, 34677, 50001):
+        raise ValueError(f"tiff: compression {comp} ({_FAILED[comp]}; Pillow fails it)")
+    if comp == 6:  # libtiff's OJPEG codec on its own reading of the IFD
+        from .ojpeg import ojpeg_decode_rgb
+
+        lt = _libtiff_dir(data)
+        img = ojpeg_decode_rgb(data, {**t, **lt}, lt[256][0], lt[257][0],
+                               lt.get(324, lt.get(273, ())), lt.get(325, lt.get(279, ())),
+                               _ycbcr_rgb)
+        return np.ascontiguousarray(_orient(img, t.get(274, (1,))[0]))
     # Pillow's raw decoder takes strip offsets over tile offsets where the
     # IFD has both; libtiff's path lays out its own below
     tiled = (273 not in t and 324 in t) if comp == 1 else 322 in t
@@ -796,6 +961,13 @@ def _raw_path(data, w, h, tw, th, offsets, planar, bps, raw, bo, counted, mode):
     which divides a planar right-edge tile's stride."""
     if planar != 2 and tw == w and th == h:
         offsets = offsets[-1:]
+    if len(offsets) == 1 and (raw[0] if planar == 2 else raw) == mode and mode in MAP_MODES:
+        # one tile whose raw mode is the image's: opened by its path, Pillow
+        # maps the file, the whole image from the tile's offset
+        stride = int(tw * sum(bps) / 8 / (counted if planar == 2 else 1)) if tw > w else 0
+        lines = mapped_lines(data, offsets[0], w, h, mode, stride)
+        if lines is not None:
+            return _samples(lines, w, "L" if planar == 2 else raw, "<" if planar == 2 else bo)
     vals = None  # fewer offsets than the image needs leave the rest black
     x = y = layer = 0
     for off in offsets:
@@ -923,40 +1095,70 @@ def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, co
         rawb = data[off:off + cnt]
         if fill == 2:  # libtiff reverses the stored bytes' bits
             rawb = _REVERSE[np.frombuffer(rawb, np.uint8)].tobytes()
-        chunks.append((k, ty, tx, rows, rawb))
+        chunks.append((k, ty, tx, rows, rawb, off))
     if rgba_interface:
-        if comp in (2, 3, 4):
+        if comp in (2, 3, 4, 32771):
             raise ValueError("tiff: CCITT YCbCr (libtiff fails it)")
         sh, sv = t.get(530, (2, 2))
         need = lambda rows: -(-rows // max(sv, 1)) * -(-tw // max(sh, 1)) * (sh * sv + 2)  # noqa: E731
         # gtStripContig / gtTileContig go on past a chunk libtiff fails to
         # decode: its buffer (zeroed once) keeps what the codec wrote over
         # what the chunk before left
-        dec, buf = [], bytearray(max(need(rows) for _, _, _, rows, _ in chunks))
-        for _, _, _, rows, r in chunks:
+        dec, buf = [], bytearray(max(need(c[3]) for c in chunks))
+        for _, _, _, rows, r, _ in chunks:
             got = b"" if r is None else _codec(r, comp, need(rows), partial=True)
             buf[:len(got)] = got
             dec.append(bytes(buf[:need(rows)]))
         return _ycbcr_image(dec, w, h, tw, th, t, tiled)
     out = None
-    for k, ty, tx, rows, rawb in chunks:
+    # Pillow's strip or tile buffer, which the CCITT and ThunderScan codecs
+    # may leave in part as the chunk before left it (uninitialised memory
+    # before the first): the bits or bytes, and which of them are known
+    kept = None
+    if comp in (2, 3, 4, 32771):
+        from .ccitt import CcittDecoder
+        fax = CcittDecoder(comp, tw, t.get(292, (0,))[0], t.get(293, (0,))[0])
+    elif comp == 32809 and (bits != 4 or tiled):
+        raise ValueError(f"tiff: ThunderScan {'tiles' if tiled else f'at {bits} bits'} "
+                         "(libtiff fails it)")
+    for k, ty, tx, rows, rawb, off in chunks:
         plane = k // per_plane
+        y0, x0 = ty * th, tx * tw
+        hh, ww = min(rows, h - y0), min(tw, w - x0)
         if comp == 7:
             from .jpeg import jpeg_tiff_chunk
             block = jpeg_tiff_chunk(bytes(t.get(347, ())), rawb, photo == 6 and planar == 1,
                                     tw, rows, sample_bits // 8)
-        elif comp in (2, 3, 4):
-            from .ccitt import ccitt_decode
-            block = ccitt_decode(rawb, comp, tw, rows, t.get(292, (0,))[0],
-                                 t.get(293, (0,))[0])
+        elif comp in (2, 3, 4, 32771):
+            if kept is None:
+                kept = (np.zeros((th, tw), np.uint8), np.zeros(th, bool))
+            bits_, written = fax.decode(rawb, rows, off, kept[0][:rows])
+            kept[1][:rows] |= written
+            if not kept[1][:hh].all():
+                raise ValueError("tiff: a CCITT strip or tile ends before its rows do and the "
+                                 "rows past it are Pillow's uninitialised memory")
+            block = np.packbits(bits_, axis=1)
+        elif comp == 32809:
+            occ = rows * row_bytes
+            if kept is None:
+                kept = (bytearray(th * row_bytes), bytearray(th * row_bytes),
+                        bytearray(th * row_bytes))
+            _thunder(rawb, occ, w, (w * 4 + 7) // 8, *kept)
+            known = np.frombuffer(bytes(kept[1][:occ]), np.uint8), np.frombuffer(
+                bytes(kept[2][:occ]), np.uint8)
+            nib = np.stack(known, -1).reshape(rows, 2 * row_bytes)[:hh, :ww]
+            if not nib.all():
+                raise ValueError("tiff: ThunderScan data that leaves pixels of its first "
+                                 "strip or tile unwritten (Pillow's uninitialised memory)")
+            block = np.frombuffer(bytes(kept[0][:occ]), np.uint8).reshape(rows, row_bytes)
         else:
             block = np.frombuffer(_codec(rawb, comp, rows * row_bytes), np.uint8).reshape(
                 rows, row_bytes)
-            if bo == ">" and bits in (16, 32) and not (predictor == 3 and comp in (5, 8, 32946)):
+            if bo == ">" and bits in (16, 32) and not (predictor == 3 and comp in _PREDICTED):
                 # libtiff swabs to native order (the floating-point predictor
                 # gives native samples itself)
                 block = block.reshape(rows, -1, bits // 8)[..., ::-1].reshape(rows, row_bytes)
-            if comp in (5, 8, 32946):
+            if comp in _PREDICTED:
                 block = _unpredict(np.ascontiguousarray(block), predictor, bits,
                                    1 if planar == 2 else spp, tw)
             elif predictor not in (1, 2, 3):
@@ -969,8 +1171,6 @@ def _libtiff_path(data, t, w, h, tw, th, tiled, offsets, counts, planar, bps, co
             v = _samples(block, tw, raw, "<")
         if out is None:
             out = np.zeros((h, w, spp if planar == 2 else v.shape[-1]), v.dtype)
-        y0, x0 = ty * th, tx * tw
-        hh, ww = min(rows, h - y0), min(tw, w - x0)
         if planar == 2:
             out[y0:y0 + hh, x0:x0 + ww, plane] = v[:hh, :ww]
         else:

@@ -9,7 +9,7 @@ tests/test_torch_image_formats.py:
 
 The probe: tests/test_torch_image_formats.py's TIFF families and SGI forms,
 one picked by each seed of 0-9999 and fuzzed (bytes overwritten, inserted,
-deleted or cut), each file held to ``Image.open(f).convert("RGB")``. Writes
+deleted or cut), each file held to ``Image.open(path).convert("RGB")``. Writes
 ``<seed>_<form>.<ext>`` for the seeds of ``FIXED`` (the probe's
 disagreements on the way to the fix) and ``APART`` (those still apart:
 none since C.13 closed), ``J2K`` (tests/test_torch_jpeg2000.py's
@@ -20,9 +20,9 @@ or the third for sYCC) and outcomes.json (the SHA-256 of Pillow's decode, or
 """
 
 import hashlib
-import io
 import json
 import os
+import tempfile
 import warnings
 
 import numpy as np
@@ -67,10 +67,16 @@ def fuzzed(seed: int, files):
 
 
 def _digest(data: bytes) -> str:
-    with warnings.catch_warnings():
+    """Pillow's decode of the file opened by its path, as the JAX package
+    opens every image (ImageFile.load maps some raw images: ROADMAP C.17)."""
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
         warnings.simplefilter("ignore")
+        path = os.path.join(d, "image")
+        with open(path, "wb") as f:
+            f.write(data)
         try:
-            a = np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+            with PIL.Image.open(path) as img:
+                a = np.asarray(img.convert("RGB"))
         except Exception:
             return "fails"
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()

@@ -320,10 +320,11 @@ def _ccitt_2d(ch: list, ref: list, w: int, runs, modes) -> str:
 
 def ccitt(black, compression: int, two_d_every: int = 0) -> bytes:
     """One strip of bilevel rows ``black`` [h, w] (1 black) in CCITT
-    modified Huffman (2: each row 1D from a byte boundary), T.4 (3: an EOL
-    before each row; where ``two_d_every``, T4Options bit 0, a row's tag bit,
-    and every that-many-th row 1D, the rest 2D) or T.6 (4: every row 2D),
-    most significant bit first."""
+    modified Huffman (2: each row 1D from a byte boundary; 32771, RLEW: from
+    a 16-bit word boundary of the strip), T.4 (3: an EOL before each row;
+    where ``two_d_every``, T4Options bit 0, a row's tag bit, and every
+    that-many-th row 1D, the rest 2D) or T.6 (4: every row 2D), most
+    significant bit first."""
     white_runs, black_runs, modes = _ccitt_runs()
     runs = (white_runs, black_runs)
     black = np.asarray(black, np.uint8)
@@ -331,9 +332,9 @@ def ccitt(black, compression: int, two_d_every: int = 0) -> bytes:
     bits, ref = [], []
     for y, row in enumerate(black):
         ch = np.flatnonzero(np.diff(np.concatenate([[0], row]))).tolist()
-        if compression == 2:
+        if compression in (2, 32771):
             code = _ccitt_1d(ch, w, runs)
-            code += "0" * (-len(code) % 8)
+            code += "0" * (-(len(code) + sum(map(len, bits))) % (8 if compression == 2 else 16))
         elif compression == 3:
             one_d = not two_d_every or y % two_d_every == 0
             code = "0" * 11 + "1" + ("" if not two_d_every else "1" if one_d else "0")
@@ -345,6 +346,54 @@ def ccitt(black, compression: int, two_d_every: int = 0) -> bytes:
     s = "".join(bits)
     s += "0" * (-len(s) % 8)
     return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
+
+
+_TWO_BIT_CODE = {0: 0, 1: 1, -1: 3}
+_THREE_BIT_CODE = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+
+
+def thunderscan(v, runs_to_the_end: bool = False, raw_only: bool = False) -> bytes:
+    """Rows v [h, w] of 4-bit pixels in ThunderScan's codes (tif_thunder.c,
+    each row from a last pixel of 0): a run of the last pixel (at most 63),
+    three 2-bit deltas (-1, 0, +1; skip code 2 past the row's end), two
+    3-bit deltas (-3 to +3; skip code 4), or a raw pixel, the shortest that
+    fits first; the last pixel of a row is never part of a run unless
+    ``runs_to_the_end``; ``raw_only`` codes every pixel raw."""
+    out = bytearray()
+    for row in np.asarray(v, np.int64):
+        w, i, last = len(row), 0, 0
+        while i < w:
+            if raw_only:
+                out.append(0xC0 | int(row[i]))
+                last = int(row[i])
+                i += 1
+                continue
+            run = 0
+            while i + run < w and run < 63 and row[i + run] == last:
+                run += 1
+            if i + run >= w and not runs_to_the_end:
+                run = w - i - 1
+            if run >= 2:
+                out.append(run)
+                i += run
+                continue
+            prev = [last] + list(row[i:i + 2])
+            d = [((int(x) - p + 8) % 16) - 8 for p, x in zip(prev, row[i:i + 3])]
+            if all(x in _TWO_BIT_CODE for x in d):
+                codes = [_TWO_BIT_CODE[x] for x in d] + [2] * (3 - len(d))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                last = int(row[i + len(d) - 1])
+                i += len(d)
+            elif all(x in _THREE_BIT_CODE for x in d[:2]):
+                codes = [_THREE_BIT_CODE[x] for x in d[:2]] + [4] * (2 - len(d[:2]))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                last = int(row[i + len(d[:2]) - 1])
+                i += len(d[:2])
+            else:
+                out.append(0xC0 | int(row[i]))
+                last = int(row[i])
+                i += 1
+    return bytes(out)
 
 
 def packbits(data: bytes) -> bytes:

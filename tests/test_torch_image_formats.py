@@ -11,6 +11,7 @@ names ROADMAP item 28."""
 import io
 import os
 import struct
+import tempfile
 import warnings
 
 import numpy as np
@@ -28,10 +29,24 @@ PHOTO = RNG.randint(0, 256, (37, 53, 3)).astype(np.uint8)
 
 
 def _pillow(data):
+    """Pillow's decode of the bytes, or None where it fails, the file read
+    from its path, as the JAX package opens every image: PcxImagePlugin
+    seeks back from the end of such a file, which fails on a short one
+    (ROADMAP C.14), and ImageFile.load maps a raw image whose raw mode is
+    its mode (C.17)."""
+    with tempfile.TemporaryDirectory() as d:
+        name = os.path.join(d, "image")
+        with open(name, "wb") as f:
+            f.write(data)
+        return _pillow_open(name)
+
+
+def _pillow_open(src):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         try:
-            return np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+            with PIL.Image.open(src) as img:
+                return np.asarray(img.convert("RGB"))
         except Exception:
             return None
 
@@ -241,11 +256,47 @@ def test_tiff_forms_pillow_reads_and_the_port_does_not_name_item_28(tmp_path):
             im.read_image_rgb(str(path))
 
 
+def _c16_cases() -> dict:
+    """ROADMAP C.16: TIFFs that Pillow fails and whose refusal named item
+    28: compressions Pillow does not know, WEBP (its libtiff has no such
+    codec), SGILog as LogL, LogLuv or another photometric, and a
+    JPEG-in-TIFF with photometric RGB over a 4:2:0 JPEG (improper JPEG
+    sampling factors); old-style JPEG lossless or upsampled by libjpeg."""
+    out, rng = {}, np.random.RandomState(16)
+    gray = rng.randint(0, 256, (5, 7, 1))
+    junk = bytes(rng.randint(0, 256, 64).astype(np.uint8))
+    for comp in (34712, 34887, 50002, 99, 50001, 34676, 34677):
+        out[f"c16_comp_{comp}.tif"] = tiff(gray, 8, 1, "<", comp, encode_chunk=lambda b: junk)
+    for comp in (34676, 34677):
+        for photo, spp in ((32844, 1), (32845, 3)):
+            out[f"c16_sgilog_{comp}_{photo}.tif"] = tiff(
+                rng.randint(0, 256, (5, 7, spp)), 8, photo, "<", comp,
+                encode_chunk=lambda b: junk)
+    img = rng.randint(0, 256, (11, 13, 3)).astype(np.uint8)
+    j = _pillow_saved(PIL.Image.fromarray(img), "JPEG", subsampling="4:2:0")
+    out["c16_jpeg_rgb_420.tif"] = tiff(img, 8, 2, "<", 7, encode_chunk=lambda b: j)
+    # old-style JPEG (a strip that is a whole JFIF stream) in the two forms
+    # libtiff always fails: a lossless frame (SOF3), and sampling factors
+    # it leaves libjpeg to upsample (chroma other than 1 x 1, luma 3)
+    j = _pillow_saved(PIL.Image.fromarray(img), "JPEG", subsampling="4:4:4")
+    k = j.index(b"\xff\xc0")
+    out["c16_ojpeg_sof3.tif"] = tiff(img, 8, 6, "<", 6, tags={530: (3, [1, 1])},
+                                     encode_chunk=lambda b: j[:k + 1] + b"\xc3" + j[k + 2:])
+    for factors in ((0x22, 0x21, 0x11), (0x11, 0x11, 0x12), (0x31, 0x11, 0x11)):
+        sof = bytearray(j)
+        for c, f in enumerate(factors):
+            sof[k + 11 + 3 * c] = f
+        out[f"c16_ojpeg_sampling_{'_'.join(f'{f:x}' for f in factors)}.tif"] = tiff(
+            img, 8, 6, "<", 6, tags={530: (3, [factors[0] >> 4, factors[0] & 15])},
+            encode_chunk=lambda b, sof=bytes(sof): sof)
+    return out
+
+
 def test_other_kinds_still_name_item_28(tmp_path):
     """What Pillow reads and the port does not yet (AVIF alone) names item
     28; the MSP, FITS and DCX stubs that named it before, and the DDS, JPEG
     2000, PSD and ICNS ones, now fail as Pillow fails them, naming the
-    file."""
+    file, and so do the TIFFs of ROADMAP C.16, naming no item."""
     avif = b"\0\0\0\x1cftypavif" + bytes(200)
     path = tmp_path / "a.avif"
     path.write_bytes(avif)
@@ -262,6 +313,13 @@ def test_other_kinds_still_name_item_28(tmp_path):
         with pytest.raises(ValueError, match=name.replace(".", r"\.")) as e:
             im.read_image_rgb(str(path))
         assert "Pillow reads them" not in str(e.value), name
+    for name, data in _c16_cases().items():
+        assert _pillow(data) is None, name
+        path = tmp_path / name
+        path.write_bytes(data)
+        with pytest.raises(ValueError, match=name.replace(".", r"\.")) as e:
+            im.read_image_rgb(str(path))
+        assert "item 28" not in str(e.value) and "Pillow reads" not in str(e.value), name
 
 
 def test_the_fixtures_equal_their_recorded_pillow_decodes():
@@ -911,3 +969,82 @@ def test_fuzzed_pngs_fail_where_pillow_fails():
             np.testing.assert_array_equal(got, want, err_msg=str(k))
         counts[want is not None] += 1
     assert min(counts) >= 20, counts
+
+
+# ---------------------------------------------------------------------------
+# C.17: Pillow maps a raw image it opens by its path
+# ---------------------------------------------------------------------------
+
+def _set_long(data: bytes, tag: int, value: int) -> bytes:
+    """A classic little-endian TIFF with one SHORT or LONG tag's value set."""
+    d = bytearray(data)
+    ifd = struct.unpack("<I", d[4:8])[0]
+    for e in range(struct.unpack("<H", d[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * e
+        if struct.unpack("<H", d[at:at + 2])[0] == tag:
+            typ = struct.unpack("<H", d[at + 2:at + 4])[0]
+            d[at + 8:at + 12] = struct.pack("<HH" if typ == 3 else "<I",
+                                            *((value, 0) if typ == 3 else (value,)))
+    return bytes(d)
+
+
+def _mcidas(h: int, w: int, size: int, prefix: int, bands: int, body: bytes) -> bytes:
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10], words[13], words[14], words[33] = h, w, size, bands, prefix, 256
+    return struct.pack(">64i", *words) + body
+
+
+def _map_cases() -> dict:
+    """{name: (file, whether Pillow reads it otherwise from memory)}: raw
+    images whose raw mode is their mode, whose map by path reads otherwise
+    than the raw decoder: rows of a stride shorter than the mode's (a 4-bit
+    BMP whose grayscale table makes it L, a McIdas area of a short or
+    negative stride), one TIFF strip that covers fewer rows than the image
+    (the map reads the whole image from the file, or fails where the file
+    is too short for it) in each mode Pillow maps; and a tile wider than
+    the image, which both read alike."""
+    rng = np.random.RandomState(17)
+    out = {}
+    v = rng.randint(0, 16, (9, 40))
+    gray = np.stack([np.arange(16)] * 3, -1)  # the identity table: Pillow takes it as L
+    out["bmp_4bit_gray_table"] = bmp(40, 9, 4, bmp_rows(v, 4, 40), pal=gray)
+    out["bmp_4bit_gray_table_top_down"] = bmp(40, 9, 4, bmp_rows(v, 4, 40), pal=gray,
+                                              topdown=True)
+    body = bytes(rng.randint(0, 256, 9 * 40).astype(np.uint8))
+    out["mcidas_short_stride"] = _mcidas(9, 40, 1, 3, 0, body)
+    out["mcidas_negative_stride"] = _mcidas(9, 20, 2, -2, 0, body)
+    cmap = rng.randint(0, 65536, 768)
+    six = rng.randint(0, 256, (3, 11, 6))
+    for name, (img, bits, photo, kw) in {
+            "l": (six[..., :1], 8, 1, {}), "p": (six[..., :1], 8, 3, {"cmap": cmap}),
+            "cmyk": (six[..., :4], 8, 5, {}), "rgba": (six[..., :4], 8, 2, {"extra": (2,)}),
+            "i16": (six[..., :1] * 251, 16, 1, {})}.items():
+        one = tiff(img, bits, photo, "<", 1, **kw)  # one strip of 3 rows
+        out[f"tiff_{name}_one_strip_of_fewer_rows"] = _set_long(one, 257, 5)
+        out[f"tiff_{name}_one_strip_file_too_short"] = _set_long(one, 257, 300)
+    wide = tiff(six[..., :1], 8, 1, "<", 1, tile=(16, 16))
+    out["tiff_l_tile_wider_than_the_image"] = wide
+    return out
+
+
+MAP_CASES = _map_cases()
+
+
+def _pillow_from_memory(data):
+    return _pillow_open(io.BytesIO(data))
+
+
+@pytest.mark.parametrize("name", sorted(MAP_CASES))
+def test_a_raw_image_opened_by_its_path_reads_as_pillow_maps_it(tmp_path, name):
+    """ROADMAP C.17: where Pillow maps the file (one raw tile whose raw
+    mode is the image's mode), the port reads it as Pillow does from its
+    path, which here differs from Pillow's decode from memory (but for the
+    wide tile, which both read alike)."""
+    data = MAP_CASES[name]
+    by_path, from_memory = _pillow(data), _pillow_from_memory(data)
+    alike = (by_path is None) == (from_memory is None) and (
+        by_path is None or np.array_equal(by_path, from_memory))
+    assert alike == name.endswith("wider_than_the_image"), name
+    _check(tmp_path, name.replace("_", "-") + {"b": ".bmp", "m": ".area", "t": ".tif"}[name[0]],
+           data)

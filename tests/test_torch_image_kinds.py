@@ -32,6 +32,7 @@ import importlib.util
 import io
 import json
 import os
+import tempfile
 
 import numpy as np
 import PIL.Image
@@ -60,10 +61,17 @@ IMAGES = sorted(p for p in glob.glob(os.path.join(FIXTURES, "*.*"))
 
 
 def _pillow(data: bytes):
-    try:
-        return np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
-    except Exception:  # Pillow's errors are OSError, SyntaxError, ValueError...
-        return None
+    """Pillow's decode of the file opened by its path, as the JAX package
+    opens every image (ImageFile.load maps some raw images: ROADMAP C.17)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "image")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            with PIL.Image.open(path) as img:
+                return np.asarray(img.convert("RGB"))
+        except Exception:  # Pillow's errors are OSError, SyntaxError, ValueError...
+            return None
 
 
 # ---------------------------------------------------------------------------

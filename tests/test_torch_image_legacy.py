@@ -11,7 +11,9 @@ not to the writers."""
 from __future__ import annotations
 
 import io
+import os
 import struct
+import tempfile
 import warnings
 
 import numpy as np
@@ -34,10 +36,24 @@ RNG = np.random.RandomState(28)
 
 
 def _pillow(data):
+    """Pillow's decode of the bytes, or None where it fails, the file read
+    from its path, as the JAX package opens every image: PcxImagePlugin
+    seeks back from the end of such a file, which fails on a short one
+    (ROADMAP C.14), and ImageFile.load maps a raw image whose raw mode is
+    its mode (C.17)."""
+    with tempfile.TemporaryDirectory() as d:
+        name = os.path.join(d, "image")
+        with open(name, "wb") as f:
+            f.write(data)
+        return _pillow_open(name)
+
+
+def _pillow_open(src):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         try:
-            return np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+            with PIL.Image.open(src) as img:
+                return np.asarray(img.convert("RGB"))
         except Exception:
             return None
 

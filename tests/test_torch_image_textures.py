@@ -9,6 +9,7 @@ card's machine, which has no Pillow, checks (chip_smoke.py phase 56)."""
 import io
 import json
 import os
+import tempfile
 import warnings
 
 import numpy as np
@@ -25,10 +26,16 @@ HERE = os.path.join(os.path.dirname(__file__), "fixtures", "torch_image_textures
 
 
 def _pillow(data):
-    with warnings.catch_warnings():
+    """Pillow's decode of the file opened by its path, as the JAX package
+    opens every image (ImageFile.load maps some raw images: ROADMAP C.17)."""
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
         warnings.simplefilter("ignore")
+        path = os.path.join(d, "image")
+        with open(path, "wb") as f:
+            f.write(data)
         try:
-            return np.asarray(PIL.Image.open(io.BytesIO(data)).convert("RGB"))
+            with PIL.Image.open(path) as img:
+                return np.asarray(img.convert("RGB"))
         except Exception:
             return None
 

@@ -29,9 +29,10 @@ from latent2im_tpu_torch.ops import _build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "latent2im_tpu_torch")
 # the GPU machine has none of these (nor cv2, which the JAX package's host
-# geometric targets need)
+# geometric targets need); the port decodes ZSTD by hand (utils/zstd.py), so
+# no zstd package (zstandard, zstd, Python 3.14's compression.zstd) either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "latent2im_tpu", "msgpack", "yaml", "PIL",
-             "cv2")
+             "cv2", "zstandard", "zstd", "compression")
 
 
 def _port_files():
@@ -48,8 +49,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     # the parallel modes too (their launched ranks import only the port)
     assert {"mesh.py", "spatial.py", "launch.py", "dryrun.py"} <= {
         os.path.basename(f) for f in files if os.sep + "parallel" + os.sep in f}
-    # and the image readers (PNG, JPEG, WEBP)
-    assert {"image.py", "jpeg.py", "webp.py"} <= {
+    # and the image readers (PNG, JPEG, WEBP, TIFF and its codecs)
+    assert {"image.py", "jpeg.py", "webp.py", "tiff.py", "ccitt.py", "zstd.py", "ojpeg.py"} <= {
         os.path.basename(f) for f in files if os.sep + "utils" + os.sep in f}
     for path in files:
         with open(path) as f:
